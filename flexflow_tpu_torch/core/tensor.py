@@ -1,0 +1,104 @@
+"""Lazy symbolic tensors — the frontend-facing compute graph level.
+
+Analog of the reference's ``Tensor``/``TensorBase`` (``include/flexflow/tensor.h``):
+a symbolic handle with shape/dtype, a producing layer, and (for parameters)
+an initializer. No device data lives here; parameters are materialized
+when the model is compiled. The port's copy of
+``flexflow_tpu/core/tensor.py``.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Optional, Sequence, Tuple, TYPE_CHECKING
+
+import numpy as np
+
+from ..ffconst import DataType, InitializerType
+from ..dtypes import to_torch
+
+if TYPE_CHECKING:
+    from .layer import Layer
+
+_uid = itertools.count()
+
+
+class Tensor:
+    """Symbolic tensor in the (serial) computation graph."""
+
+    __slots__ = ("shape", "dtype", "owner_layer", "owner_idx", "name",
+                 "initializer", "create_grad", "guid", "_np_value")
+
+    def __init__(self, shape: Sequence[int], dtype: DataType = DataType.DT_FLOAT,
+                 owner_layer: Optional["Layer"] = None, owner_idx: int = 0,
+                 name: Optional[str] = None, initializer=None,
+                 create_grad: bool = True):
+        self.shape: Tuple[int, ...] = tuple(int(s) for s in shape)
+        self.dtype = DataType(dtype)
+        self.owner_layer = owner_layer
+        self.owner_idx = owner_idx
+        self.guid = next(_uid)
+        self.name = name or f"tensor_{self.guid}"
+        self.initializer = initializer
+        self.create_grad = create_grad
+        self._np_value: Optional[np.ndarray] = None  # for attached constants
+
+    # reference API parity -------------------------------------------------
+    @property
+    def num_dims(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        return self.shape
+
+    def get_volume(self) -> int:
+        v = 1
+        for s in self.shape:
+            v *= s
+        return v
+
+    def get_shape(self) -> Tuple[int, ...]:
+        return self.shape
+
+    @property
+    def torch_dtype(self):
+        return to_torch(self.dtype)
+
+    def set_tensor(self, value: np.ndarray):
+        """Attach a host value (reference: NumPy region attach)."""
+        value = np.asarray(value)
+        if value.shape != self.shape:
+            raise ValueError(f"value shape {value.shape} does not "
+                             f"match tensor shape {self.shape}")
+        self._np_value = value
+
+    def get_tensor(self):
+        return self._np_value
+
+    def __repr__(self):
+        src = self.owner_layer.name if self.owner_layer else "input"
+        return f"Tensor({self.name}, shape={self.shape}, dtype={self.dtype.name}, from={src})"
+
+
+class WeightSpec:
+    """Declarative parameter: shape/dtype/initializer, resolved at compile.
+
+    Analog of the reference's weight ``Tensor`` created by each layer
+    (e.g. Linear kernel/bias) with an attached ``Initializer``.
+    """
+
+    __slots__ = ("name", "shape", "dtype", "initializer", "init_args", "create_grad")
+
+    def __init__(self, name: str, shape: Sequence[int],
+                 dtype: DataType = DataType.DT_FLOAT,
+                 initializer: InitializerType = InitializerType.GLOROT_UNIFORM,
+                 init_args: Optional[dict] = None, create_grad: bool = True):
+        self.name = name
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = DataType(dtype)
+        self.initializer = initializer
+        self.init_args = init_args or {}
+        self.create_grad = create_grad
+
+    def __repr__(self):
+        return f"WeightSpec({self.name}, {self.shape}, {self.initializer.value})"

@@ -1,0 +1,270 @@
+"""Framework-wide enums and constants.
+
+The port's own copy of ``flexflow_tpu/ffconst.py``: every enum carries
+the same values, so strategy files, serialized graphs and weights move
+between the two packages unchanged.
+"""
+from __future__ import annotations
+
+import enum
+
+
+class ActiMode(enum.IntEnum):
+    AC_MODE_NONE = 10
+    AC_MODE_RELU = 11
+    AC_MODE_SIGMOID = 12
+    AC_MODE_TANH = 13
+    AC_MODE_GELU = 14
+
+    @classmethod
+    def _missing_(cls, value):
+        if isinstance(value, str):
+            try:
+                return cls[f"AC_MODE_{value.upper()}"]
+            except KeyError:
+                pass
+        return None
+
+
+class RegularizerMode(enum.IntEnum):
+    REG_MODE_NONE = 17
+    REG_MODE_L1 = 18
+    REG_MODE_L2 = 19
+
+
+class AggrMode(enum.IntEnum):
+    AGGR_MODE_NONE = 20
+    AGGR_MODE_SUM = 21
+    AGGR_MODE_AVG = 22
+
+
+class PoolType(enum.IntEnum):
+    POOL_MAX = 30
+    POOL_AVG = 31
+
+
+class DataType(enum.IntEnum):
+    DT_BOOLEAN = 40
+    DT_INT32 = 41
+    DT_INT64 = 42
+    DT_HALF = 43      # maps to bfloat16, as in the JAX package (dtypes.py)
+    DT_BFLOAT16 = 46  # not in the C++ reference
+    DT_FLOAT = 44
+    DT_DOUBLE = 45
+    # narrow wire dtypes (not in reference): quantized gradient
+    # collectives (ops/quantized_collectives.py) move int8 / fp8
+    # payloads over the slow fabric legs; values chosen past the
+    # reference's enum range so serialized reference strategies never
+    # collide
+    DT_INT8 = 50
+    DT_FLOAT8_E4M3 = 51
+    DT_FLOAT8_E5M2 = 52
+    DT_NONE = 49
+
+    @classmethod
+    def _missing_(cls, value):
+        if isinstance(value, str):
+            aliases = {"bool": "BOOLEAN", "int32": "INT32", "int64": "INT64",
+                       "half": "HALF", "float16": "HALF",
+                       "bfloat16": "BFLOAT16", "float": "FLOAT",
+                       "float32": "FLOAT", "double": "DOUBLE",
+                       "float64": "DOUBLE", "int8": "INT8",
+                       "float8_e4m3": "FLOAT8_E4M3", "e4m3": "FLOAT8_E4M3",
+                       "float8_e4m3fn": "FLOAT8_E4M3",
+                       "float8_e5m2": "FLOAT8_E5M2", "e5m2": "FLOAT8_E5M2"}
+            key = aliases.get(value.lower(), value.upper())
+            try:
+                return cls[f"DT_{key}" if not key.startswith("DT_") else key]
+            except KeyError:
+                return None
+        return None
+
+
+class LossType(enum.IntEnum):
+    LOSS_CATEGORICAL_CROSSENTROPY = 50
+    LOSS_SPARSE_CATEGORICAL_CROSSENTROPY = 51
+    LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE = 52
+    LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE = 53
+    LOSS_IDENTITY = 54
+
+
+class CompMode(enum.IntEnum):
+    COMP_MODE_TRAINING = 70
+    COMP_MODE_INFERENCE = 71
+
+
+class ParameterSyncType(enum.IntEnum):
+    """Gradient sync mode.
+
+    The reference distinguishes parameter-server vs NCCL allreduce
+    (``ffconst.h:80-82``). PS is kept for API parity and maps to the
+    same collective path.
+    """
+    NONE = 80
+    PS = 81
+    NCCL = 82
+
+
+class MetricsType(enum.IntFlag):
+    METRICS_ACCURACY = 1001
+    METRICS_CATEGORICAL_CROSSENTROPY = 1002
+    METRICS_SPARSE_CATEGORICAL_CROSSENTROPY = 1004
+    METRICS_MEAN_SQUARED_ERROR = 1008
+    METRICS_ROOT_MEAN_SQUARED_ERROR = 1016
+    METRICS_MEAN_ABSOLUTE_ERROR = 1032
+
+
+class OperatorType(enum.IntEnum):
+    """Full operator set (reference ``ffconst.h:69-161``)."""
+    OP_INPUT = 0
+    OP_WEIGHT = enum.auto()
+    OP_NOOP = enum.auto()
+    OP_CONV2D = enum.auto()
+    OP_DROPOUT = enum.auto()
+    OP_LINEAR = enum.auto()
+    OP_BATCHMATMUL = enum.auto()
+    OP_POOL2D = enum.auto()
+    OP_SCALAR_MULTIPLY = enum.auto()
+    OP_SCALAR_ADD = enum.auto()
+    OP_SCALAR_FLOOR_DIV = enum.auto()
+    OP_SCALAR_TRUE_DIV = enum.auto()
+    OP_SCALAR_SUB = enum.auto()
+    OP_RELU = enum.auto()
+    OP_IDENTITY = enum.auto()
+    OP_SIGMOID = enum.auto()
+    OP_TANH = enum.auto()
+    OP_ELU = enum.auto()
+    OP_FLAT = enum.auto()
+    OP_SOFTMAX = enum.auto()
+    OP_BATCHNORM = enum.auto()
+    OP_CONCAT = enum.auto()
+    OP_SPLIT = enum.auto()
+    OP_EMBEDDING = enum.auto()
+    OP_GROUP_BY = enum.auto()
+    OP_CACHE = enum.auto()
+    OP_AGGREGATE = enum.auto()
+    OP_AGG_SPEC = enum.auto()
+    OP_RESHAPE = enum.auto()
+    OP_REVERSE = enum.auto()
+    OP_TRANSPOSE = enum.auto()
+    OP_EW_ADD = enum.auto()
+    OP_EW_MUL = enum.auto()
+    OP_MATMUL = enum.auto()
+    OP_MUL = enum.auto()
+    OP_ENLARGE = enum.auto()
+    OP_MERGE_GCONV = enum.auto()
+    OP_CONSTANT_IMM = enum.auto()
+    OP_CONSTANT_ICONV = enum.auto()
+    OP_CONSTANT_ONE = enum.auto()
+    OP_CONSTANT_POOL = enum.auto()
+    OP_SQUEEZE = enum.auto()
+    OP_UNSQUEEZE = enum.auto()
+    OP_EW_SUB = enum.auto()
+    OP_EW_DIV = enum.auto()
+    OP_EW_EQUAL = enum.auto()
+    OP_EW_GREATER = enum.auto()
+    OP_EW_LESS = enum.auto()
+    OP_EW_MAX = enum.auto()
+    OP_EW_MIN = enum.auto()
+    OP_REDUCE_ARGMAX = enum.auto()
+    OP_REDUCE_ARGMIN = enum.auto()
+    OP_REDUCE_MAX = enum.auto()
+    OP_REDUCE_MEAN = enum.auto()
+    OP_REDUCE_MIN = enum.auto()
+    OP_REDUCE_PROD = enum.auto()
+    OP_REDUCE_SUM = enum.auto()
+    OP_PAD = enum.auto()
+    OP_SHAPE = enum.auto()
+    OP_SIZE = enum.auto()
+    OP_TOPK = enum.auto()
+    OP_WHERE = enum.auto()
+    OP_CEIL = enum.auto()
+    OP_CAST = enum.auto()
+    OP_EXP = enum.auto()
+    OP_ROUND = enum.auto()
+    OP_LOG = enum.auto()
+    OP_LOGICAL_NOT = enum.auto()
+    OP_SQRT = enum.auto()
+    OP_SIN = enum.auto()
+    OP_COS = enum.auto()
+    OP_LEAKYRELU = enum.auto()
+    OP_SLICE = enum.auto()
+    OP_RESIZE = enum.auto()
+    OP_PRELU = enum.auto()
+    OP_GELU = enum.auto()
+    OP_MULTIHEAD_ATTENTION = enum.auto()
+    OP_FUSED = enum.auto()
+    OP_RSQRT = enum.auto()
+    OP_POW = enum.auto()
+    OP_MEAN = enum.auto()
+    OP_LAYERNORM = enum.auto()
+    OP_GATHER = enum.auto()
+    # Parallel ops: communication reified as graph nodes (reference
+    # src/parallel_ops/).
+    OP_REPARTITION = enum.auto()
+    OP_COMBINE = enum.auto()
+    OP_REPLICATE = enum.auto()
+    OP_REDUCTION = enum.auto()
+    OP_PIPELINE = enum.auto()
+    OP_FUSED_PARALLEL = enum.auto()
+    # additions beyond the C++ reference
+    OP_RMSNORM = enum.auto()
+    OP_RING_ATTENTION = enum.auto()
+    OP_ALLTOALL = enum.auto()
+    # LSTM: the reference ships it only as the hand-rolled legacy NMT app
+    # (nmt/lstm.cu) outside the op registry; here it is a first-class op
+    OP_LSTM = enum.auto()
+    OP_INVALID = enum.auto()
+
+
+# Ops that are pure elementwise-unary (single input, same shape out).
+ELEMENTWISE_UNARY_OPS = frozenset({
+    OperatorType.OP_RELU, OperatorType.OP_SIGMOID, OperatorType.OP_TANH,
+    OperatorType.OP_ELU, OperatorType.OP_GELU, OperatorType.OP_LEAKYRELU,
+    OperatorType.OP_PRELU, OperatorType.OP_IDENTITY, OperatorType.OP_EXP,
+    OperatorType.OP_LOG, OperatorType.OP_SQRT, OperatorType.OP_RSQRT,
+    OperatorType.OP_SIN, OperatorType.OP_COS, OperatorType.OP_CEIL,
+    OperatorType.OP_ROUND, OperatorType.OP_LOGICAL_NOT, OperatorType.OP_POW,
+    OperatorType.OP_SCALAR_MULTIPLY, OperatorType.OP_SCALAR_ADD,
+    OperatorType.OP_SCALAR_SUB, OperatorType.OP_SCALAR_TRUE_DIV,
+    OperatorType.OP_SCALAR_FLOOR_DIV, OperatorType.OP_CAST,
+})
+
+# Ops that are elementwise-binary with numpy broadcasting semantics.
+ELEMENTWISE_BINARY_OPS = frozenset({
+    OperatorType.OP_EW_ADD, OperatorType.OP_EW_SUB, OperatorType.OP_EW_MUL,
+    OperatorType.OP_EW_DIV, OperatorType.OP_EW_MAX, OperatorType.OP_EW_MIN,
+    OperatorType.OP_EW_EQUAL, OperatorType.OP_EW_GREATER,
+    OperatorType.OP_EW_LESS,
+})
+
+REDUCE_OPS = frozenset({
+    OperatorType.OP_REDUCE_SUM, OperatorType.OP_REDUCE_MEAN,
+    OperatorType.OP_REDUCE_MAX, OperatorType.OP_REDUCE_MIN,
+    OperatorType.OP_REDUCE_PROD, OperatorType.OP_REDUCE_ARGMAX,
+    OperatorType.OP_REDUCE_ARGMIN, OperatorType.OP_MEAN,
+})
+
+PARALLEL_OPS = frozenset({
+    OperatorType.OP_REPARTITION, OperatorType.OP_COMBINE,
+    OperatorType.OP_REPLICATE, OperatorType.OP_REDUCTION,
+    OperatorType.OP_PIPELINE, OperatorType.OP_FUSED_PARALLEL,
+    OperatorType.OP_ALLTOALL,
+})
+
+
+class InitializerType(enum.Enum):
+    GLOROT_UNIFORM = "glorot_uniform"
+    ZERO = "zero"
+    ONE = "one"
+    CONSTANT = "constant"
+    UNIFORM = "uniform"
+    NORMAL = "normal"
+
+
+def op_type_name(t: OperatorType) -> str:
+    return t.name
+
+
+# Maximum tensor rank, reference CMake option FF_MAX_DIM=5
+MAX_TENSOR_DIM = 5

@@ -1,0 +1,196 @@
+"""The port's flash-attention forward (flexflow_tpu_torch/kernels/
+flash_attention.py) against the JAX package's Pallas kernel.
+
+On the CPU the port's wrapper runs its plain version; the JAX kernel runs
+in interpret mode, as tests/test_kernels.py runs it. The same numpy
+inputs, made from a seed, go to both. f32 cases hold to atol = rtol =
+2e-5, the tolerance of tests/test_kernels.py (the two differ only in the
+order of their f32 sums and in online vs one-pass softmax). The dropout
+keep mask is a pure integer hash and must agree bit for bit.
+"""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flexflow_tpu.kernels import dropout_keep_mask as jax_keep_mask
+from flexflow_tpu.kernels import flash_attention as jax_flash
+from flexflow_tpu.ops.nn_ops import MultiHeadAttentionOp as JaxMHA
+from flexflow_tpu_torch.kernels import dropout_keep_mask, flash_attention
+from flexflow_tpu_torch.kernels import flash_attention_plain, mha_reference
+from flexflow_tpu_torch.ops.nn_ops import MultiHeadAttentionOp as TorchMHA
+
+jax_fa = importlib.import_module("flexflow_tpu.kernels.flash_attention")
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(b, h, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, h, sk, d)).astype(np.float32),
+            rng.standard_normal((b, h, sk, d)).astype(np.float32))
+
+
+def _port(q, k, v, **kw):
+    return flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+
+
+def _jax(q, k, v, **kw):
+    return np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)),
+                                interpret=True, **kw))
+
+
+def _jax_lse(q, k, v, causal=False, dropout_rate=0.0, seed=0):
+    """The lse of the JAX forward kernel, padded exactly as the JAX
+    ``flash_attention`` wrapper pads before calling ``_fwd_call``."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    block_q = min(512, -(-sq // 8) * 8)
+    block_k = min(512, -(-sk // 128) * 128)
+
+    def pad(x, s_mult):
+        s, dd = x.shape[2], x.shape[3]
+        return jnp.pad(jnp.asarray(x), ((0, 0), (0, 0),
+                                        (0, -s % s_mult), (0, -dd % 64)))
+
+    qp, kp, vp = pad(q, block_q), pad(k, block_k), pad(v, block_k)
+    flat = [x.reshape(b * h, x.shape[2], x.shape[3]) for x in (qp, kp, vp)]
+    _, lse = jax_fa._fwd_call(*flat, jnp.full((1, 1), seed, jnp.int32), sk,
+                              1.0 / np.sqrt(d), causal, block_q, block_k,
+                              dropout_rate, True)
+    return np.asarray(lse).reshape(b, h, -1)[:, :, :sq]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (1, 2, 128, 128, 64, False),
+    (1, 2, 128, 128, 64, True),
+    (1, 2, 200, 200, 48, False),     # ragged seq, head dim padded to 64
+    (1, 2, 200, 200, 48, True),
+    (2, 2, 96, 200, 64, False),      # cross-attention, sq != sk
+])
+def test_flash_forward_matches_jax(b, h, sq, sk, d, causal):
+    q, k, v = _qkv(b, h, sq, sk, d)
+    out = _port(q, k, v, causal=causal)
+    assert out.dtype == torch.float32 and out.shape == (b, h, sq, d)
+    np.testing.assert_allclose(out.numpy(), _jax(q, k, v, causal=causal),
+                               **TOL)
+
+
+def test_flash_forward_gqa_after_expand_kv():
+    """GQA: 4 query heads over 2 kv heads, expanded by each package's own
+    ``_expand_kv`` in the (B, L, heads, d) layout before the kernel."""
+    rng = np.random.default_rng(3)
+    qh = rng.standard_normal((2, 64, 4, 32)).astype(np.float32)
+    kh = rng.standard_normal((2, 64, 2, 32)).astype(np.float32)
+    vh = rng.standard_normal((2, 64, 2, 32)).astype(np.float32)
+    kj = JaxMHA._expand_kv(jnp.asarray(kh), 4)
+    vj = JaxMHA._expand_kv(jnp.asarray(vh), 4)
+    kt = TorchMHA._expand_kv(torch.from_numpy(kh), 4)
+    vt = TorchMHA._expand_kv(torch.from_numpy(vh), 4)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    want = np.asarray(jax_flash(jnp.swapaxes(jnp.asarray(qh), 1, 2),
+                                jnp.swapaxes(kj, 1, 2),
+                                jnp.swapaxes(vj, 1, 2), interpret=True))
+    got = flash_attention(torch.from_numpy(qh).transpose(1, 2).contiguous(),
+                          kt.transpose(1, 2).contiguous(),
+                          vt.transpose(1, 2).contiguous())
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("sq,d,causal", [(200, 48, False), (128, 64, True)])
+def test_flash_lse_matches_jax_fwd_call(sq, d, causal):
+    q, k, v = _qkv(1, 2, sq, sq, d, seed=5)
+    _, lse = _port(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (1, 2, sq)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v, causal), **TOL)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,rate,seed", [
+    (2, 3, 17, 33, 0.1, 0),
+    (1, 2, 64, 64, 0.5, 12345),
+    (2, 2, 40, 50, 0.3, 2 ** 31 - 1),    # int32 wrap of seed * constant
+    (1, 1, 30, 30, 0.9, 2 ** 31 - 5),
+    (1, 4, 16, 128, 0.25, -7),
+    (1, 1, 8, 8, 0.0, 3),                # threshold 0: keeps everything
+])
+def test_dropout_keep_mask_bit_identical(b, h, sq, sk, rate, seed):
+    want = np.asarray(jax_keep_mask(b, h, sq, sk, rate, seed))
+    got = dropout_keep_mask(b, h, sq, sk, rate, seed).numpy()
+    assert got.dtype == np.bool_ and got.shape == (b, h, sq, sk)
+    np.testing.assert_array_equal(got, want)
+    if 0.0 < rate:
+        assert abs(1.0 - got.mean() - rate) < 0.15
+
+
+def _jax_dropout_golden(q, k, v, causal, rate, seed):
+    """The JAX package's explicit-mask golden of its in-kernel dropout:
+    ``where(keep, softmax(s) / (1 - rate), 0) @ v`` with its own
+    ``dropout_keep_mask`` (the Pallas kernel itself does not lower its
+    dropout under a causal ``pl.when`` in interpret mode)."""
+    b, h, sq, d = q.shape
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(d)
+    if causal:
+        s = jnp.where(np.tril(np.ones((sq, sq), bool)), s, jax_fa.NEG_INF)
+    p = jax.nn.softmax(s, axis=-1)
+    keep = jax_keep_mask(b, h, sq, k.shape[2], rate, seed)
+    p = jnp.where(keep, p / (1.0 - rate), 0.0)
+    return np.asarray(jnp.einsum("bhqk,bhkd->bhqd", p, v))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dropout_matches_jax(causal):
+    q, k, v = _qkv(1, 2, 128, 128, 64, seed=7)
+    kw = dict(causal=causal, dropout_rate=0.2, dropout_seed=1234)
+    got = _port(q, k, v, **kw).numpy()
+    np.testing.assert_allclose(
+        got, _jax_dropout_golden(q, k, v, causal, 0.2, 1234), **TOL)
+    if not causal:
+        np.testing.assert_allclose(got, _jax(q, k, v, **kw), **TOL)
+    # dropout scales only the numerator: lse is the undropped one
+    _, lse = _port(q, k, v, return_lse=True, **kw)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v, causal),
+                               **TOL)
+
+
+def test_plain_version_matches_mha_reference_and_counts_calls():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 2, 64, 64, 32, seed=9))
+    before = flash_attention.plain_calls, flash_attention.launches
+    o = flash_attention(q, k, v, causal=True)
+    assert flash_attention.plain_calls == before[0] + 1
+    assert flash_attention.launches == before[1]   # no kernel on the CPU
+    torch.testing.assert_close(o, mha_reference(q, k, v, causal=True),
+                               **TOL)
+    o2, _ = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o, o2, atol=0.0, rtol=0.0)
+
+
+def test_flash_bf16_rounds_p_like_jax():
+    """bf16 inputs: p is cast to bf16 before the P.V product and o is
+    written in bf16, in both packages (one bf16 ulp apart at most)."""
+    q, k, v = _qkv(1, 2, 64, 64, 64, seed=11)
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = flash_attention(qb, kb, vb)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_flash(*(jnp.asarray(x, jnp.bfloat16)
+                                  for x in (q, k, v)),
+                                interpret=True)).astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1.6e-2)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 32, 48, 16))
+    with pytest.raises(NotImplementedError, match="causal"):
+        flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(*(t.transpose(2, 3).contiguous().transpose(2, 3)
+                          for t in (q, k, v)))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="matching q"):
+        flash_attention(q, k[:, :1], v)
