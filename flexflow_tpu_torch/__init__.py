@@ -5,18 +5,21 @@ by PyTorch on an NVIDIA GPU, with the JAX package's Pallas TPU kernels
 rewritten by hand in CUDA C++ for Hopper (``kernels/``, ``csrc/``). The
 package imports torch and numpy only, never JAX or ``flexflow_tpu``.
 
-Quick start (the serving slice)::
+Quick start::
 
-    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
     from flexflow_tpu_torch.models import BertConfig, build_bert
     from flexflow_tpu_torch.serving import InferenceSession
-    cfg = FFConfig(); cfg.kernel_impls = "attention:flash"
+    cfg = FFConfig(); cfg.batch_size = 8
+    cfg.kernel_impls = "attention:flash,opt_update:fused"
     ff = FFModel(cfg)                      # device="cpu" for the CPU
     out = build_bert(ff, 8, 128, BertConfig.base())
-    ff.compile(SGDOptimizer(0.01), "sparse_categorical_crossentropy", [],
-               output_tensor=out)
+    ff.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy",
+               ["accuracy"], output_tensor=out)
+    history = ff.fit([ids, pos], labels, epochs=2)     # training
+    metrics = ff.eval([ids, pos], labels)
     probs = InferenceSession(ff, batch_buckets=(8,)).infer(
-        {"input_ids": ids, "position_ids": pos})
+        {"input_ids": ids[:8], "position_ids": pos[:8]})  # serving
 """
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, InitializerType,
                       LossType, MetricsType, OperatorType, ParameterSyncType,

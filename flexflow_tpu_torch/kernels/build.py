@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``build/kernels/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash
-of the source and flags, so an edited source rebuilds and concurrent
-processes never load a half-written file. Nothing is built or loaded at
+of the source, every shared header (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and concurrent processes never load a
+half-written file. Nothing is built or loaded at
 import time: the first launch of a kernel builds it, and
 :func:`build_all` builds several at once, one ``nvcc`` process each.
 """
@@ -44,8 +45,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,15 +1,23 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain twin.
+"""Flash attention, forward and backward: hand-written Hopper kernels and
+their plain twins.
 
-Port of ``flexflow_tpu/kernels/flash_attention.py`` (forward only; the
-dq and dk/dv kernels come with the training slice). The CUDA kernel is
-``csrc/flash_attention_fwd.cu``, which replaces the Pallas ``_fwd_kernel``;
-its header says how it is laid out and what bounds it.
+Port of ``flexflow_tpu/kernels/flash_attention.py``. Three CUDA kernels
+replace the three Pallas ones: ``csrc/flash_attention_fwd.cu`` the
+forward ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the backward
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; their headers say how each is
+laid out and what bounds it, and ``csrc/flash_common.cuh`` holds what they
+share (the dropout hash among it).
 
-:func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``.
-A tensor on the card launches the kernel (or raises); a tensor on the CPU
-runs :func:`flash_attention_plain`, the same function in plain PyTorch,
-which the tests hold against the JAX kernel and ``chip_smoke.py`` holds
-against the CUDA kernel.
+:func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
+and is differentiable: a ``torch.autograd.Function`` (the counterpart of
+the JAX ``custom_vjp``) saves q, k, v, o, lse and the seed, and its
+backward computes ``delta = rowsum(do * o)`` in f32 and launches the dq
+and dk/dv kernels. Serving (under ``torch.inference_mode``) and training
+go through this one entry. Tensors on the card launch the kernels (or
+raise); tensors on the CPU run the plain versions
+(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), the
+same functions in plain PyTorch, which the tests hold against the JAX
+kernels and ``chip_smoke.py`` holds against the CUDA kernels.
 
 Semantics kept from the reference: masked scores are ``NEG_INF = -1e30``
 (finite); the softmax denominator sums the undropped p; dropout keeps
@@ -18,7 +26,9 @@ position, absolute k position) clears the threshold; p is cast to the
 input dtype before the P.V product; rows with ``l == 0`` give ``o = 0``
 and ``lse = m``; the default ``sm_scale`` is ``1/sqrt(d)`` of the
 UNPADDED head dim, kept when the wrapper pads d up to the kernel's 64 or
-128.
+128. The backward rebuilds the keep mask from the same tuple, rounds ds
+to k's (q's) dtype before dS.K (dS^T.Q) and p_eff to do's dtype before
+P^T.dO, as ``_flash_bwd_rule`` does.
 """
 from __future__ import annotations
 
@@ -132,32 +142,253 @@ def mha_reference(q, k, v, *, causal: bool = False,
                         v.float()).to(q.dtype)
 
 
+
+
+def _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, dropout_rate,
+               dropout_seed):
+    """p_eff and ds of every (query, key) pair, in f32: the quantities
+    the dq and dk/dv kernels accumulate (``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel``)."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    p_eff = p
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(b, h, sq, sk, dropout_rate,
+                                 int(dropout_seed), q.device)
+        zero = torch.zeros_like(p)
+        dp = torch.where(keep, dp / (1.0 - dropout_rate), zero)
+        p_eff = torch.where(keep, p / (1.0 - dropout_rate), zero)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    return p_eff, ds
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=False,
+                                 sm_scale=None, dropout_rate=0.0,
+                                 dropout_seed=None):
+    """What the dq kernel computes: ``dq = ds.astype(k.dtype) . k``
+    summed in f32, in q's dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale,
+                       dropout_rate, dropout_seed)
+    return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                        k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=False,
+                                  sm_scale=None, dropout_rate=0.0,
+                                  dropout_seed=None):
+    """What the dk/dv kernel computes: ``dv = p_eff.astype(do.dtype)^T .
+    do`` and ``dk = ds.astype(q.dtype)^T . q``, summed in f32, in k's and
+    v's dtypes."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p_eff, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale,
+                           dropout_rate, dropout_seed)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_eff.to(do.dtype).float(),
+                      do.float()).to(v.dtype)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()).to(k.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              dropout_rate: float = 0.0, dropout_seed=None):
+    """The JAX package's ``_flash_bwd_rule`` in plain PyTorch: delta =
+    rowsum(do * o) in f32, then dq, dk, dv as the two backward kernels
+    compute them. Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
-def _c_fn():
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint32
+_ARGTYPES = {
+    ("flash_attention_fwd", "ff_flash_attention_fwd"):
+        [_P] * 5 + [_I] * 6 + [_F, _I, _U, _F, _U, _P],
+    ("flash_attention_bwd", "ff_flash_attention_bwd_dq"):
+        [_P] * 7 + [_I] * 6 + [_F, _I, _U, _F, _U, _P],
+    ("flash_attention_bwd", "ff_flash_attention_bwd_dkv"):
+        [_P] * 8 + [_I] * 6 + [_F, _I, _U, _F, _U, _P],
+}
+
+
+def _c_fn(lib: str, sym: str):
     from .build import load
-    fn = load("flash_attention_fwd").ff_flash_attention_fwd
+    fn = getattr(load(lib), sym)
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I,
-                       ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32, P]
-        fn.restype = I
+        fn.argtypes = _ARGTYPES[(lib, sym)]
+        fn.restype = _I
     return fn
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _dropout_args(dropout_rate: float, seed: int):
+    return (int(dropout_rate > 0.0), _threshold(dropout_rate),
+            float(1.0 - dropout_rate), seed)
+
+
+def _kernel_inputs(*ts) -> None:
+    """What every kernel takes: cuda tensors of one dtype, contiguous,
+    16-byte aligned, head dim 64 or 128, b*h within the grid limit."""
+    t0 = ts[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"the flash kernels run on cuda tensors, not "
+                         f"{t0.device}")
+    bh = t0.shape[0] * t0.shape[1]
+    if bh > 65535:
+        raise ValueError(f"b*h = {bh} exceeds the kernel's grid limit of "
+                         f"65535")
+    if t0.shape[-1] not in _KERNEL_DIMS:
+        raise ValueError(f"the kernels take head dim 64 or 128, got "
+                         f"{t0.shape[-1]}")
+    for t in ts:
+        if t.dtype != t0.dtype or t.device != t0.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernel inputs must share one dtype and "
+                             "device and be contiguous and 16-byte aligned")
+
+
+def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
+    """(o, lse) of the forward: the kernel for cuda tensors, the plain
+    version for cpu ones."""
+    if q.device.type == "cpu":
+        flash_attention.plain_calls += 1
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale,
+                                     dropout_rate=dropout_rate,
+                                     dropout_seed=seed)
+    _kernel_inputs(q, k, v)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _check(_c_fn("flash_attention_fwd", "ff_flash_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b * h, sq, sk, d, _DTYPE_CODES[q.dtype],
+        int(causal), float(sm_scale), *_dropout_args(dropout_rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention_fwd")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                           sm_scale: Optional[float] = None,
+                           dropout_rate: float = 0.0, dropout_seed=None):
+    """dq of flash attention from the forward's lse and ``delta =
+    rowsum(do * o)`` (both (b, h, sq) f32). CUDA tensors (head dim 64 or
+    128) launch the dq kernel of ``csrc/flash_attention_bwd.cu`` and count
+    one in ``.launches``; CPU tensors run
+    :func:`flash_attention_bwd_dq_plain` and count one in
+    ``.plain_calls``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    seed = 0 if dropout_seed is None else int(dropout_seed) & _M32
+    if q.device.type == "cpu":
+        flash_attention_bwd_dq.plain_calls += 1
+        return flash_attention_bwd_dq_plain(
+            q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
+            dropout_rate=dropout_rate, dropout_seed=seed)
+    _kernel_inputs(q, k, v, do)
+    b, h, sq, d = q.shape
+    dq = torch.empty_like(q)
+    _check(_c_fn("flash_attention_bwd", "ff_flash_attention_bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
+        dq.data_ptr(), b * h, sq, k.shape[2], d, _DTYPE_CODES[q.dtype],
+        int(causal), float(sm_scale), *_dropout_args(dropout_rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            dropout_rate: float = 0.0, dropout_seed=None):
+    """(dk, dv) of flash attention, as :func:`flash_attention_bwd_dq`
+    takes its inputs: CUDA tensors launch the dk/dv kernel, CPU tensors
+    run :func:`flash_attention_bwd_dkv_plain`."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    seed = 0 if dropout_seed is None else int(dropout_seed) & _M32
+    if q.device.type == "cpu":
+        flash_attention_bwd_dkv.plain_calls += 1
+        return flash_attention_bwd_dkv_plain(
+            q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
+            dropout_rate=dropout_rate, dropout_seed=seed)
+    _kernel_inputs(q, k, v, do)
+    b, h, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check(_c_fn("flash_attention_bwd", "ff_flash_attention_bwd_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, sq, k.shape[2], d,
+        _DTYPE_CODES[q.dtype], int(causal), float(sm_scale),
+        *_dropout_args(dropout_rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the JAX ``custom_vjp``: the forward kernel
+    saves (q, k, v, o, lse, seed); the backward takes delta in f32 and
+    launches the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, dropout_rate, seed):
+        o, lse = _fwd(q, k, v, causal, sm_scale, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = dict(causal=causal, sm_scale=sm_scale,
+                       dropout_rate=dropout_rate, dropout_seed=seed)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed=None,
                     return_lse: bool = False):
-    """Tiled flash attention forward. q: (b, h, sq, d); k, v: (b, h, sk, d),
-    all contiguous, one dtype (float32 or bfloat16), one device.
+    """Tiled flash attention, differentiable. q: (b, h, sq, d); k, v:
+    (b, h, sk, d), all contiguous, one dtype (float32 or bfloat16), one
+    device.
 
     CUDA tensors launch ``csrc/flash_attention_fwd.cu`` and count one
-    launch in ``flash_attention.launches``; CPU tensors run
-    :func:`flash_attention_plain` and count one in
-    ``flash_attention.plain_calls``. Returns o (b, h, sq, d) in q's dtype,
-    and with ``return_lse`` also lse (b, h, sq) in f32."""
+    launch in ``flash_attention.launches`` (the backward's kernels count
+    in ``flash_attention_bwd_dq.launches`` and
+    ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain
+    versions and count in ``.plain_calls``. Returns o (b, h, sq, d) in
+    q's dtype, and with ``return_lse`` also lse (b, h, sq) in f32."""
     if q.dim() != 4:
         raise ValueError(f"q must be (b, h, sq, d), got {tuple(q.shape)}")
     b, h, sq, d = q.shape
@@ -182,43 +413,25 @@ def flash_attention(q, k, v, *, causal: bool = False,
         raise ValueError(f"dropout_rate must be in [0, 1): {dropout_rate}")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                         f"not {q.device}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)        # of the unpadded head dim
     seed = 0 if dropout_seed is None else int(dropout_seed) & _M32
-
-    if q.device.type == "cpu":
-        o, lse = flash_attention_plain(q, k, v, causal=causal,
-                                       sm_scale=sm_scale,
-                                       dropout_rate=dropout_rate,
-                                       dropout_seed=seed)
-        flash_attention.plain_calls += 1
-        return (o, lse) if return_lse else o
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
-                         f"not {q.device}")
-    if b * h > 65535:
-        raise ValueError(f"b*h = {b * h} exceeds the kernel's grid limit "
-                         f"of 65535")
-    d_k = next((x for x in _KERNEL_DIMS if d <= x), None)
-    if d_k is None:
-        raise ValueError(f"head_dim {d} > {_KERNEL_DIMS[-1]} is not "
-                         f"supported by the kernel")
-    if d_k != d:
-        # zero columns change no score and give zero output columns
-        q, k, v = (F.pad(t, (0, d_k - d)) for t in (q, k, v))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must be 16-byte aligned")
-    o = torch.empty((b, h, sq, d_k), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    err = _c_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), b * h, sq, sk, d_k, _DTYPE_CODES[q.dtype],
-                  int(causal), float(sm_scale), int(dropout_rate > 0.0),
-                  _threshold(dropout_rate), float(1.0 - dropout_rate), seed,
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
-    flash_attention.launches += 1
+    d_k = d
+    if q.device.type == "cuda":
+        d_k = next((x for x in _KERNEL_DIMS if d <= x), None)
+        if d_k is None:
+            raise ValueError(f"head_dim {d} > {_KERNEL_DIMS[-1]} is not "
+                             f"supported by the kernel")
+        if d_k != d:
+            # zero columns change no score and give zero output columns;
+            # padding outside the Function lets autograd slice the
+            # gradients back
+            q, k, v = (F.pad(t, (0, d_k - d)) for t in (q, k, v))
+    o, lse = _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale),
+                                   float(dropout_rate), seed)
     if d_k != d:
         o = o[..., :d]
     return (o, lse) if return_lse else o
@@ -226,3 +439,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 flash_attention.launches = 0
 flash_attention.plain_calls = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.plain_calls = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.plain_calls = 0

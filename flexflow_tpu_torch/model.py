@@ -1,11 +1,13 @@
 """FFModel: the model-building API and compile, on one device.
 
-The port of ``flexflow_tpu/model.py`` for the serving slice: the layer
-builders BERT uses (same names, params and auto-naming as the JAX
-package, so the two graphs of one model line up layer for layer),
-``compile`` on one device without search or mesh, and the forced path of
-the kernel tier. ``fit``/``eval``, the other builders, the strategy
-search and generation come with later slices.
+The port of ``flexflow_tpu/model.py`` on one device: the layer builders
+BERT uses (same names, params and auto-naming as the JAX package, so the
+two graphs of one model line up layer for layer), ``compile`` without
+search or mesh (parameters and optimizer state materialized), the forced
+path of the kernel tier, and the training loop (``fit``, ``eval``, the
+phase-API no-ops). The other builders, the strategy search, generation,
+and fit's fault hooks, callbacks, telemetry and checkpoint saves come
+with later slices.
 
 The model runs on ``config.device`` ("cuda" by default) unless the
 caller passes ``device``; asking for CUDA where there is none raises.
@@ -13,8 +15,10 @@ caller passes ``device``; asking for CUDA where there is none raises.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .config import FFConfig
@@ -25,6 +29,9 @@ from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OperatorType)
 from .kernels import registry as kreg
 from .ops import get_op_def
+from .runtime.dataloader import SingleDataLoader
+from .runtime.metrics import PerfMetrics
+from .runtime.metrics_buffer import MetricsBuffer
 from .runtime.optimizers import AdamOptimizer, Optimizer, SGDOptimizer
 
 _LOSS_NAMES = {
@@ -75,7 +82,11 @@ class FFModel:
         self.executor: Optional[Executor] = None
         self.params = None
         self.state = None
+        self.opt_state = None
         self._output_tensor: Optional[Tensor] = None
+        self._step = 0
+        self._dataloaders: List[Any] = []
+        self._current_metrics: Dict[str, float] = {}
 
     # ==================================================================
     # graph construction helpers
@@ -212,9 +223,9 @@ class FFModel:
                 comp_mode: CompMode = CompMode.COMP_MODE_TRAINING,
                 output_tensor: Optional[Tensor] = None):
         """Lower the graph to an executor on ``self.device``, adopt the
-        forced kernel impls, and materialize the parameters. One device,
-        data-parallel by construction: a search budget is refused rather
-        than ignored."""
+        forced kernel impls, and materialize the parameters and the
+        optimizer state. One device, data-parallel by construction: a
+        search budget is refused rather than ignored."""
         if self.config.search_budget > 0 \
                 and not self.config.only_data_parallel:
             raise NotImplementedError(
@@ -256,6 +267,7 @@ class FFModel:
                                  self.metrics, seed=self.config.seed)
         self._plan_kernels()
         self.params, self.state = self.executor.init_params_and_state()
+        self.opt_state = self.optimizer.init_state(self.params)
 
     def _plan_kernels(self):
         """Adopt the forced per-op kernel impls (``kernel_impls``,
@@ -305,3 +317,121 @@ class FFModel:
             logging.getLogger("flexflow_tpu_torch").info(
                 "kernel plan (%s): %s", policy, plan)
         self.executor._kernel_impls = plan
+
+    # ==================================================================
+    # training loop
+    # ==================================================================
+    def create_data_loader(self, tensor: Tensor, data: np.ndarray):
+        """Reference ``FFModel.create_data_loader`` parity: registers the
+        full array for one tensor; fit() takes batches from it."""
+        data = np.ascontiguousarray(data)
+        self._dataloaders.append((tensor, data))
+        return (tensor, data)
+
+    def _combined_loader(self, x=None, y=None,
+                         batch_size: Optional[int] = None,
+                         shuffle: bool = True) -> SingleDataLoader:
+        bs = batch_size or self.config.batch_size
+        arrays: Dict[str, np.ndarray] = {}
+        if x is not None or y is not None:
+            xs = x if isinstance(x, (list, tuple)) else [x]
+            if len(xs) != len(self.graph_inputs):
+                raise ValueError(f"{len(xs)} arrays for "
+                                 f"{len(self.graph_inputs)} inputs")
+            for t, arr in zip(self.graph_inputs, xs):
+                arrays[t.name] = np.ascontiguousarray(arr)
+            arrays["label"] = np.ascontiguousarray(y)
+        else:
+            gi_guids = {t.guid for t in self.graph_inputs}
+            for t, arr in self._dataloaders:
+                is_label = (t is self.label_tensor
+                            or t.guid not in gi_guids)
+                arrays["label" if is_label else t.name] = arr
+        return SingleDataLoader(arrays, bs, self.device, shuffle=shuffle,
+                                seed=self.config.seed,
+                                prefetch=self.config.prefetch_batches)
+
+    def _run_train_step(self, step_fn, batch):
+        self.params, self.opt_state, self.state, bm = step_fn(
+            self.params, self.opt_state, self.state, self._step, batch)
+        self._step += 1
+        return bm
+
+    def fit(self, x=None, y=None, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, callbacks=None, verbose=True):
+        """Training loop (reference ``flexflow_cffi.py:2062-2104``).
+
+        Per-step metrics stay on the device in a :class:`MetricsBuffer`
+        and are read back in one copy at ``print_freq`` and at the end of
+        each epoch, where the NaN screen runs; a bounded in-flight window
+        (``config.async_dispatch_steps``) keeps the host from racing
+        ahead. Returns one report per epoch (the metrics, ``epoch_time_s``
+        and ``samples_per_sec``)."""
+        if self.executor is None:
+            raise ValueError("call compile() first")
+        if callbacks:
+            raise NotImplementedError("fit callbacks are not ported yet")
+        epochs = epochs or self.config.epochs
+        loader = self._combined_loader(x, y, batch_size)
+        history = []
+        for epoch in range(epochs):
+            step_fn = self.executor.make_train_step()
+            pm = PerfMetrics()
+            buf = MetricsBuffer.for_config(self.config, pm=pm)
+            t0 = time.perf_counter()
+            nb = 0
+            for batch in loader:
+                bm = self._run_train_step(step_fn, batch)
+                buf.push(self._step - 1, bm,
+                         next(iter(batch.values())).shape[0])
+                nb += 1
+                pf = self.config.print_freq
+                if pf > 0 and nb % pf == 0:
+                    # print_freq is the metric-fetch cadence, whether or
+                    # not anything is printed
+                    buf.flush()
+                    if verbose:
+                        msg = " ".join(f"{k}={v:.4f}"
+                                       for k, v in pm.report().items())
+                        print(f"epoch {epoch} iter "
+                              f"{nb}/{loader.num_batches} {msg}")
+            buf.flush()
+            dt = time.perf_counter() - t0
+            rep = pm.report()
+            rep["epoch_time_s"] = dt
+            rep["samples_per_sec"] = pm.train_all / dt if dt > 0 else 0.0
+            history.append(rep)
+            if verbose:
+                msg = " ".join(f"{k}={v:.4f}" for k, v in rep.items())
+                print(f"epoch {epoch} done: {msg}")
+        self._current_metrics = history[-1] if history else {}
+        return history
+
+    # phase-level API parity (forward/backward/update as in model.cc)
+    def zero_gradients(self):
+        pass  # grads are computed afresh each step
+
+    def backward(self, seq_length: int = -1):
+        pass  # part of the train step (torch.autograd.grad)
+
+    def update(self):
+        pass  # part of the train step
+
+    def eval(self, x=None, y=None, batch_size: Optional[int] = None,
+             verbose: bool = False) -> Dict[str, float]:
+        loader = self._combined_loader(x, y, batch_size, shuffle=False)
+        step_fn = self.executor.make_eval_step()
+        pm = PerfMetrics()
+        buf = MetricsBuffer(window=self.config.async_dispatch_steps, pm=pm)
+        for batch in loader:
+            _, bm = step_fn(self.params, self.state, batch)
+            buf.push(0, bm, next(iter(batch.values())).shape[0])
+        buf.flush()
+        rep = pm.report()
+        self._current_metrics = rep
+        if verbose:
+            print("eval:", rep)
+        return rep
+
+    def get_perf_metrics(self):
+        return self._current_metrics

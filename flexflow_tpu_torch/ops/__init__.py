@@ -1,6 +1,6 @@
 """Operator registry: import the op modules to populate OPS."""
-from .registry import (OPS, EmitCtx, OpDef, get_op_def,  # noqa: F401
-                       matmul)
+from .registry import (OPS, EmitCtx, LayerRng, OpDef,  # noqa: F401
+                       get_op_def, matmul)
 
 
 def ensure_weight_specs(layer):

@@ -18,7 +18,8 @@ from ..ffconst import ActiMode, AggrMode, DataType, InitializerType, \
     OperatorType
 from ..core.tensor import WeightSpec
 from ..dtypes import to_torch
-from .registry import OpDef, compute_dtype, matmul, mm_f32, register
+from .registry import (OpDef, compute_dtype, generator_on, host_seed,
+                       matmul, mm_f32, register)
 
 
 def apply_activation(x, acti: ActiMode):
@@ -87,8 +88,9 @@ class SoftmaxOp(OpDef):
 # ---------------------------------------------------------------------------
 @register
 class DropoutOp(OpDef):
-    """Identity outside training; in training a Bernoulli keep mask from
-    the layer's ``torch.Generator`` (its bits differ from JAX's)."""
+    """Identity outside training; in training a Bernoulli keep mask drawn
+    on the tensor's device from the layer's rng (its bits differ from
+    JAX's)."""
     op_type = OperatorType.OP_DROPOUT
 
     def infer(self, params, in_shapes, in_dtypes):
@@ -99,9 +101,10 @@ class DropoutOp(OpDef):
         rate = params.get("rate", 0.5)
         if not ctx.training or rate <= 0.0:
             return [x]
-        gen = ctx.rng_for(name)
-        if gen is None:
+        rng = ctx.rng_for(name)
+        if rng is None:
             raise RuntimeError(f"dropout layer {name} needs an rng")
+        gen = generator_on(rng, x.device)
         keep = 1.0 - rate
         mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
@@ -181,7 +184,10 @@ class MultiHeadAttentionOp(OpDef):
 
     Two impls, chosen per layer by the kernel tier: ``xla`` (the plain
     path: einsum attention with an f32 softmax; the name is the JAX
-    package's) and ``flash`` (``kernels/flash_attention.py``)."""
+    package's) and ``flash`` (``kernels/flash_attention.py``, whose
+    autograd Function runs the backward kernels in training). In training,
+    the attention dropout runs inside the flash kernel, seeded from the
+    host, or as a Bernoulli mask on the plain path."""
     op_type = OperatorType.OP_MULTIHEAD_ATTENTION
 
     def infer(self, params, in_shapes, in_dtypes):
@@ -291,10 +297,8 @@ class MultiHeadAttentionOp(OpDef):
                 and not (rate > 0.0 and flash_mode != "true"):
             # in "auto" mode the dropout case stays on the plain path
             from ..kernels.flash_attention import flash_attention
-            seed = None
-            if rate > 0.0:
-                seed = int(torch.randint(0, 2 ** 31 - 1, (),
-                                         generator=ctx.rng_for(name)))
+            # the kernel's seed is drawn on the host: no device sync
+            seed = host_seed(ctx.rng_for(name)) if rate > 0.0 else None
             o = flash_attention(
                 qh.transpose(1, 2).to(mdt).contiguous(),
                 kh.transpose(1, 2).to(mdt).contiguous(),
@@ -314,7 +318,8 @@ class MultiHeadAttentionOp(OpDef):
             probs = torch.softmax(logits, dim=-1)
             if rate > 0.0:
                 keep = 1.0 - rate
-                mask = torch.rand(probs.shape, generator=ctx.rng_for(name),
+                gen = generator_on(ctx.rng_for(name), probs.device)
+                mask = torch.rand(probs.shape, generator=gen,
                                   device=probs.device) < keep
                 probs = torch.where(mask, probs / keep,
                                     torch.zeros_like(probs))

@@ -18,13 +18,47 @@ from ..ffconst import DataType, OperatorType
 from ..core.tensor import WeightSpec
 
 
+class LayerRng:
+    """The dropout randomness of one layer in one train step, keyed by an
+    integer path (model seed + 1, step, layer index), as the JAX package
+    folds its key (``Executor._rngs_for_step``). Its bits differ from
+    JAX's. :meth:`generator` gives a generator on the device that draws:
+    the tensor's device for masks (``DropoutOp``, the plain attention
+    path), the CPU for the flash kernel's seed, so that costs no device
+    sync."""
+
+    def __init__(self, key: Sequence[int]):
+        self.key = tuple(int(k) for k in key)
+
+    def generator(self, device) -> torch.Generator:
+        from ..runtime.initializers import generator_for
+        return generator_for(self.key, device)
+
+
+def generator_on(rng, device) -> torch.Generator:
+    """A generator for drawing on ``device`` from a layer's rng: a
+    :class:`LayerRng`, or a ``torch.Generator`` used as it is."""
+    if rng is None:
+        raise RuntimeError("this op needs an rng in training")
+    if isinstance(rng, LayerRng):
+        return rng.generator(device)
+    return rng
+
+
+def host_seed(rng) -> int:
+    """An int seed drawn on the host from a layer's rng."""
+    return int(torch.randint(0, 2 ** 31 - 1, (),
+                             generator=generator_on(rng, "cpu")))
+
+
 class EmitCtx:
     """Per-forward emission context threaded through op emission."""
 
     def __init__(self, training: bool, rngs: Optional[Dict[str, Any]] = None,
                  state: Optional[Dict[str, Any]] = None, config=None):
         self.training = training
-        # layer name -> torch.Generator (training-mode dropout only)
+        # layer name -> LayerRng or torch.Generator (training-mode
+        # dropout only)
         self.rngs = rngs or {}
         self.state = state or {}
         self.new_state: Dict[str, Any] = {}
@@ -96,6 +130,48 @@ def compute_dtype(ctx, ref_dtype=None) -> torch.dtype:
     return torch.float32
 
 
+def _mm_f32_forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cuda":
+        if b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        a2 = a.reshape(-1, a.shape[-1])
+        out = torch.mm(a2, b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+class _MmF32(torch.autograd.Function):
+    """``mm_f32`` with the JAX package's gradient rule for
+    ``einsum(x.astype(bf16), w.astype(bf16), preferred_element_type=f32)``:
+    each operand's gradient is the f32 cotangent times the other bf16
+    operand, computed in f32 and rounded once to the operand's dtype
+    (bf16). The ``out_dtype`` overload has no derivative of its own."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32_forward(a, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = dy.float()
+        da = db = None
+        if b.dim() == 3:            # (B, m, k) @ (B, k, n)
+            if ctx.needs_input_grad[0]:
+                da = torch.bmm(dy, b.float().transpose(1, 2)).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                db = torch.bmm(a.float().transpose(1, 2), dy).to(b.dtype)
+            return da, db
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(dy2, b.float().t()).to(a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            a2 = a.reshape(-1, a.shape[-1])
+            db = torch.mm(a2.float().t(), dy2).to(b.dtype)
+        return da, db
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for bf16 operands with an f32 result, like JAX's
     ``preferred_element_type=jnp.float32``. ``a`` is (..., k), ``b`` is
@@ -105,17 +181,12 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     stays f32. On the card, ``out_dtype`` asks cuBLAS for the f32 output
     of its bf16 product. On the CPU, which has no such overload, the
     operands are widened: a product of two bf16 values is exact in f32,
-    so this computes the same function. f32 operands take a plain f32
-    product."""
+    so this computes the same function. The gradient follows the JAX
+    package's rule (:class:`_MmF32`) on both. f32 operands take a plain
+    f32 product."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
-    if a.device.type == "cuda":
-        if b.dim() == 3:
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        a2 = a.reshape(-1, a.shape[-1])
-        out = torch.mm(a2, b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.matmul(a.float(), b.float())
+    return _MmF32.apply(a, b)
 
 
 def matmul(a, b, *, prefer_bf16: bool = True, ctx=None):

@@ -1,12 +1,19 @@
-"""The port's flash-attention forward (flexflow_tpu_torch/kernels/
-flash_attention.py) against the JAX package's Pallas kernel.
+"""The port's flash attention (flexflow_tpu_torch/kernels/
+flash_attention.py), forward and backward, against the JAX package's
+Pallas kernels.
 
-On the CPU the port's wrapper runs its plain version; the JAX kernel runs
-in interpret mode, as tests/test_kernels.py runs it. The same numpy
-inputs, made from a seed, go to both. f32 cases hold to atol = rtol =
-2e-5, the tolerance of tests/test_kernels.py (the two differ only in the
-order of their f32 sums and in online vs one-pass softmax). The dropout
-keep mask is a pure integer hash and must agree bit for bit.
+On the CPU the port's wrapper and its autograd Function run the plain
+versions; the JAX kernels run in interpret mode, as tests/test_kernels.py
+runs them, and their gradients come from ``jax.grad`` through the JAX
+custom VJP. The same numpy inputs, made from a seed, go to both. f32
+forward cases hold to atol = rtol = 2e-5, the tolerance of
+tests/test_kernels.py (the two differ only in the order of their f32 sums
+and in online vs one-pass softmax); f32 gradients, sums of up to 128
+products of O(1) terms, hold to atol = rtol = 1e-4; bf16 gradients are
+written in bf16 after ds and p_eff were rounded to bf16, so they hold to
+one bf16 ulp of the largest gradient (2**-8 of it, relative) plus the
+same absolute slack. The dropout keep mask is a pure integer hash and
+must agree bit for bit.
 """
 import importlib
 
@@ -194,3 +201,135 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="matching q"):
         flash_attention(q, k[:, :1], v)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+bwd_mod = importlib.import_module("flexflow_tpu_torch.kernels.flash_attention")
+
+
+def _port_grads(q, k, v, do, dtype=torch.float32, **kw):
+    ts = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    o = flash_attention(*ts, **kw)
+    o.backward(torch.from_numpy(do).to(dtype))
+    return [t.grad.float().numpy() for t in ts]
+
+
+def _jax_grads(q, k, v, do, dtype=jnp.float32, **kw):
+    def f(q_, k_, v_):
+        o = jax_flash(q_, k_, v_, interpret=True, **kw)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(do))
+    args = [jnp.asarray(x, dtype) for x in (q, k, v)]
+    return [np.asarray(g).astype(np.float32)
+            for g in jax.grad(f, argnums=(0, 1, 2))(*args)]
+
+
+def _do(b, h, sq, d, seed=1):
+    return np.random.default_rng(seed).standard_normal(
+        (b, h, sq, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (1, 2, 128, 128, 64, False),
+    (1, 2, 128, 128, 64, True),
+    (1, 2, 100, 100, 48, False),     # ragged seq, head dim padded to 64
+    (1, 2, 100, 100, 48, True),
+    (2, 2, 64, 100, 64, False),      # cross-attention, sq != sk
+])
+def test_flash_backward_matches_jax(b, h, sq, sk, d, causal):
+    q, k, v = _qkv(b, h, sq, sk, d, seed=21)
+    do = _do(b, h, sq, d)
+    got = _port_grads(q, k, v, do, causal=causal)
+    want = _jax_grads(q, k, v, do, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
+
+
+def test_flash_backward_bf16_matches_jax():
+    q, k, v = _qkv(1, 2, 64, 64, 64, seed=23)
+    do = _do(1, 2, 64, 64)
+    got = _port_grads(q, k, v, do, torch.bfloat16)
+    want = _jax_grads(q, k, v, do, jnp.bfloat16)
+    for name, g, w in zip("qkv", got, want):
+        ulp = np.abs(w).max() * 2.0 ** -8
+        np.testing.assert_allclose(g, w, atol=ulp + 1e-4, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_backward_dropout_matches_jax():
+    """Non-causal dropout: the JAX kernels and the port's plain backward
+    rebuild one keep mask from the same (seed, bh, q, k) tuple."""
+    q, k, v = _qkv(1, 2, 128, 128, 64, seed=25)
+    do = _do(1, 2, 128, 64)
+    kw = dict(dropout_rate=0.2, dropout_seed=1234)
+    got = _port_grads(q, k, v, do, **kw)
+    want = _jax_grads(q, k, v, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
+
+
+def test_flash_backward_causal_dropout_matches_jax_golden():
+    """Causal dropout against ``jax.grad`` of the explicit-mask golden:
+    the JAX kernel does not lower causal dropout in interpret mode."""
+    q, k, v = _qkv(1, 2, 128, 128, 64, seed=27)
+    do = _do(1, 2, 128, 64)
+    rate, seed = 0.2, 99
+    got = _port_grads(q, k, v, do, causal=True, dropout_rate=rate,
+                      dropout_seed=seed)
+
+    def golden(q_, k_, v_):
+        s = jnp.einsum("bhqd,bhkd->bhqk", q_, k_) / np.sqrt(64)
+        s = jnp.where(np.tril(np.ones((128, 128), bool)), s, jax_fa.NEG_INF)
+        p = jax.nn.softmax(s, axis=-1)
+        keep = jax_keep_mask(1, 2, 128, 128, rate, seed)
+        p = jnp.where(keep, p / (1.0 - rate), 0.0)
+        return jnp.sum(jnp.einsum("bhqk,bhkd->bhqd", p, v_)
+                       * jnp.asarray(do))
+
+    want = jax.grad(golden, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}",
+                                   **GRAD_TOL)
+
+
+def test_backward_plain_is_the_functions_backward_and_counts_calls():
+    """``flash_attention_bwd_plain`` (the JAX ``_flash_bwd_rule`` in
+    plain PyTorch) gives exactly what the autograd Function's backward
+    gives on the CPU, where each backward wrapper runs its plain version
+    once per backward and launches nothing."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 2, 64, 64, 64, seed=29))
+    do = torch.from_numpy(_do(2, 2, 64, 64))
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=7)
+    o, lse = bwd_mod.flash_attention_plain(q, k, v, sm_scale=0.125,
+                                           dropout_seed=7, causal=True,
+                                           dropout_rate=0.1)
+    want = bwd_mod.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             sm_scale=0.125, **kw)
+    dq_fn, dkv_fn = bwd_mod.flash_attention_bwd_dq, \
+        bwd_mod.flash_attention_bwd_dkv
+    before = (dq_fn.plain_calls, dkv_fn.plain_calls, dq_fn.launches,
+              dkv_fn.launches)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*ts, **kw).backward(do)
+    assert (dq_fn.plain_calls, dkv_fn.plain_calls) == \
+        (before[0] + 1, before[1] + 1)
+    assert (dq_fn.launches, dkv_fn.launches) == before[2:]
+    for t, w in zip(ts, want):
+        torch.testing.assert_close(t.grad, w, atol=0.0, rtol=0.0)
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take():
+    """The kernels' input check refuses what they do not take; a CPU
+    tensor goes to the plain version instead."""
+    q = torch.zeros(1, 1, 8, 64)
+    lse = torch.zeros(1, 1, 8)
+    with pytest.raises(ValueError, match="cuda tensors"):
+        bwd_mod._kernel_inputs(q, q)
+    out = bwd_mod.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    dk, dv = bwd_mod.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
+    assert dk.shape == dv.shape == q.shape

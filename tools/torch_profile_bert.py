@@ -1,17 +1,21 @@
-"""Where the time of the port's BERT-base serving forward goes, on one GPU.
+"""Where the time of the port's BERT-base serving forward, or train step,
+goes, on one GPU.
 
-    python3 tools/torch_profile_bert.py [--seqs 128,512] [--iters 5]
+    python3 tools/torch_profile_bert.py [--seqs 128,512] [--iters 5] [--train]
 
 Builds full-width BERT-base (seeded random weights) through the port's
-FFModel with kernel_impls="attention:flash", as chip_smoke.py does,
-answers 8-row requests through InferenceSession.infer, and profiles a
-steady window of them with torch.profiler. For each sequence length it
-prints the host wall time per request, the device kernel time per
-request and the device's busy share (kernel time / wall time), the time
-by kernel family (GEMM, flash attention, the rest), and the kernels that
-take the most device time. A Chrome trace of the window goes to
-<--out-dir>/profile_bert_s<seq>.json (default build/profile, git-ignored).
-Imports only the port, never JAX.
+FFModel, as chip_smoke.py does, and profiles a steady window with
+torch.profiler: without ``--train``, 8-row requests answered through
+InferenceSession.infer with kernel_impls="attention:flash"; with
+``--train``, train steps (dropout 0.1, AdamOptimizer) with
+kernel_impls="attention:flash,opt_update:fused", each ending in a device
+sync. For each sequence length it prints the host wall time per request
+(or step), the device kernel time and the device's busy share (kernel
+time / wall time), the time by kernel family (GEMM, each of the port's
+kernels, the rest), and the kernels that take the most device time. A
+Chrome trace of the window goes to <--out-dir>/profile_bert[_train]_s<seq>
+.json (default build/profile, git-ignored). Imports only the port, never
+JAX.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer  # noqa: E402
+from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,  # noqa
+                                SGDOptimizer)
 from flexflow_tpu_torch.models import BertConfig, build_bert  # noqa: E402
 from flexflow_tpu_torch.serving import InferenceSession  # noqa: E402
 
@@ -38,40 +43,70 @@ BATCH = 8
 
 def family(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
-        return "flash_attention_fwd"
+    for kernel, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
+                        ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
+                        ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+                        ("adam_kernel", "adam_update")):
+        if kernel in low:
+            return fam
     if "gemm" in low or "nvjet" in low or "xmma" in low \
             or "cutlass" in low:
         return "gemm"
     return "other"
 
 
-def profile(seq: int, iters: int, out_dir: str) -> dict:
+def _model(seq: int, train: bool):
     cfg = FFConfig()
     cfg.batch_size = BATCH
     cfg.only_data_parallel = True
-    cfg.kernel_impls = "attention:flash"
+    cfg.kernel_impls = "attention:flash,opt_update:fused" if train \
+        else "attention:flash"
     ff = FFModel(cfg)
     bcfg = BertConfig.base()
     bcfg.max_position = seq
     out = build_bert(ff, BATCH, seq, bcfg)
-    ff.compile(SGDOptimizer(0.01), "sparse_categorical_crossentropy", [],
-               output_tensor=out)
-    sess = InferenceSession(ff, batch_buckets=(BATCH,))
+    if train:
+        ff.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy",
+                   ["accuracy"], output_tensor=out)
+    else:
+        ff.compile(SGDOptimizer(0.01), "sparse_categorical_crossentropy",
+                   [], output_tensor=out)
+    return ff, bcfg
+
+
+def _runner(seq: int, train: bool):
+    """One request (or one train step ending in a device sync)."""
+    ff, bcfg = _model(seq, train)
     rng = np.random.default_rng(0)
     batch = {"input_ids": rng.integers(0, bcfg.vocab_size, (BATCH, seq))
              .astype(np.int32),
              "position_ids": np.tile(np.arange(seq, dtype=np.int32),
                                      (BATCH, 1))}
+    if not train:
+        sess = InferenceSession(ff, batch_buckets=(BATCH,))
+        return lambda: sess.infer(batch)
+    batch["label"] = rng.integers(0, bcfg.num_labels, (BATCH, 1)).astype(
+        np.int32)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    step_fn = ff.executor.make_train_step()
+
+    def step():
+        ff._run_train_step(step_fn, batch)
+        torch.cuda.synchronize()
+    return step
+
+
+def profile(seq: int, iters: int, out_dir: str, train: bool = False) -> dict:
+    run = _runner(seq, train)
     for _ in range(3):
-        sess.infer(batch)
+        run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            sess.infer(batch)
+            run()
         wall_ms = (time.perf_counter() - t0) / iters * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -83,17 +118,19 @@ def profile(seq: int, iters: int, out_dir: str) -> dict:
         by_family[family(name)] += ms
     device_ms = sum(by_name.values())
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          f"profile_bert_s{seq}.json"))
+    what = "train_step" if train else "request"
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"profile_bert{'_train' if train else ''}_s{seq}.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    res = {"seq": seq, "batch": BATCH, "wall_ms_per_request": wall_ms,
-           "device_kernel_ms_per_request": device_ms,
+    res = {"seq": seq, "batch": BATCH, "what": what,
+           f"wall_ms_per_{what}": wall_ms,
+           f"device_kernel_ms_per_{what}": device_ms,
            "device_busy_share": device_ms / wall_ms if wall_ms else None,
-           "kernels_per_request": len(kernels) / iters,
+           f"kernels_per_{what}": len(kernels) / iters,
            "by_family_ms": dict(by_family),
            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
-    print(f"[profile] bert-base {BATCH}x{seq}: wall {wall_ms:.3f} ms per "
-          f"request, device kernels {device_ms:.3f} ms "
+    print(f"[profile] bert-base {BATCH}x{seq} {what}: wall {wall_ms:.3f} "
+          f"ms, device kernels {device_ms:.3f} ms "
           f"({len(kernels) / iters:.0f} launches), busy share "
           f"{res['device_busy_share']:.3f}; by family "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
@@ -108,6 +145,8 @@ def main() -> int:
     ap.add_argument("--seqs", default="128,512")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"))
+    ap.add_argument("--train", action="store_true",
+                    help="profile train steps instead of requests")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_bert: no CUDA device", file=sys.stderr)
@@ -117,7 +156,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(f"[device] {smi}; torch {torch.__version__}")
-    results = [profile(int(s), args.iters, args.out_dir)
+    results = [profile(int(s), args.iters, args.out_dir, args.train)
                for s in args.seqs.split(",")]
     print(json.dumps({"profile": results}))
     return 0
