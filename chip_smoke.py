@@ -8,35 +8,41 @@ never JAX, and:
 
   1. device  - names the card and its power limit;
   2. build   - builds every kernel of both paths from csrc/ with nvcc, one
-               nvcc process per source, all at once;
+               nvcc process per source, all at once, and prints ptxas's
+               registers and spill stores of each kernel instantiation
+               (the wgmma kernels must not spill);
   3. kernel  - holds each kernel against its plain PyTorch version on the
-               card at the main paths' shapes, within stated tolerances:
-               the flash forward, dq and dk/dv over one case list, the
-               fused Adam over BERT-base's leaves plus ragged and bf16
-               ones;
-  4. slice   - drives the serving path: full-width BERT-base (12 layers,
+               card at the main paths' shapes and at the edges of the
+               kernels' tiling, within stated tolerances: the flash
+               forward, dq and dk/dv over one case list, the fused Adam
+               over BERT-base's leaves plus ragged and bf16 ones;
+  4. ktimes  - device times (CUDA graph replay between CUDA events) of
+               each kernel, its plain version and its PyTorch yardstick,
+               at b8 h12 d64 bf16, s 128 and 512, without dropout and at
+               BERT's training rate of 0.1, and each kernel's bound;
+  5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
                kernel_impls="attention:flash", answering requests of 1, 3
                and 8 rows through InferenceSession.infer; checks the
                outputs and the kernel launch counts, and holds them
                against the same model's forward through plain attention;
-  5. train   - drives the training path: the same BERT-base at 8 x 128
+  6. train   - drives the training path: the same BERT-base at 8 x 128
                with dropout 0.1 through compile(AdamOptimizer, ...,
                kernel_impls="attention:flash,opt_update:fused") -> fit ->
                eval on seeded random ids and labels; checks every kernel's
                launch count per step and a finite loss; then, at dropout
                0, holds the loss history against the same weights trained
                through plain attention and the unfused Adam;
-  6. times   - device times (CUDA graph replay between CUDA events) of
-               each kernel, its plain version and its PyTorch yardstick,
-               each kernel's bound, the request latency and the train-step
-               time (median, p90) on the host clock, and the step's peak
-               device memory;
-  7. kernels - one JSON line with each kernel's launches, error and times.
+  7. times   - the request latency and the train-step time (median, p90)
+               on the host clock, and the step's peak device memory (needs
+               slice);
+  8. kernels - one JSON line with each kernel's launches, error and times.
 
-``--phases`` runs a subset (e.g. ``--phases build,kernel``) while a kernel
-is brought up; with no arguments every phase runs.
+``--phases`` runs a subset while a kernel is brought up: ``--phases
+build,kernel`` builds and checks every kernel, ``--phases
+build,kernel,ktimes`` also times them; with no arguments every phase
+runs.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result; it does the
@@ -44,7 +50,9 @@ same where no CUDA device is present.
 """
 from __future__ import annotations
 
+import importlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -143,19 +151,46 @@ def phase_device() -> dict:
     return dev
 
 
+def ptxas_report(log: str) -> list:
+    """(kernel instantiation, registers, spill-store bytes) of each entry
+    function in ptxas's -v output, the names demangled by c++filt where it
+    is installed."""
+    rows, name, spills = [], None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln and name:
+            spills = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in ln and "registers" in ln and name:
+            regs = int(ln.split("Used")[1].split("registers")[0])
+            rows.append([name, regs, spills])
+            name = None
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and rows:
+        names = subprocess.run([cxxfilt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0] \
+                .removeprefix("void ")
+    return rows
+
+
 def phase_build() -> None:
     from flexflow_tpu_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all(KERNELS)
     print(f"[build] nvcc sm_90a, {len(KERNELS)} sources at once: "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, (_, log) in build.build_log.items():
-        regs = [ln.split("Used")[1].split(",")[0].strip()
-                for ln in log.splitlines() if "Used" in ln]
-        spills = [ln.split(",")[1].strip() for ln in log.splitlines()
-                  if "spill stores" in ln]
-        print(f"[build] {name}: registers per thread of each "
-              f"instantiation {regs}; {spills}")
+    for lib, (_, log) in build.build_log.items():
+        for name, regs, spills in ptxas_report(log):
+            print(f"[build] {lib}: {name}: {regs} registers, {spills} bytes "
+                  f"spill stores")
+            check(spills == 0 or "wgmma" not in name,
+                  f"{name} spills {spills} bytes")
+        for ln in log.splitlines():
+            if "warning" in ln.lower():
+                print(f"[build] {lib}: {ln.strip()}")
 
 
 CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
@@ -171,6 +206,22 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     # off the BERT path: head dims 128 and 48 (padded to 64), sq != sk
     (2, 4, 128, 128, 128, torch.bfloat16, True, 0.1),
     (2, 4, 96, 200, 48, torch.float32, False, 0.0),
+    # the bf16 kernels' tiling: 64-key tiles in a ring of two stages,
+    # 64- or 128-row CTAs (128 at b8 h12 from s = 257 on): one short K
+    # tile, fewer tiles than stages, s not a multiple of 64 or 128 with and
+    # without causal, sq != sk both ways, d = 128 with dropout
+    (8, 12, 40, 40, 64, torch.bfloat16, False, 0.0),
+    (8, 12, 40, 40, 64, torch.bfloat16, True, 0.1),
+    (8, 12, 64, 64, 64, torch.bfloat16, True, 0.0),
+    (8, 12, 100, 100, 64, torch.bfloat16, False, 0.1),
+    (8, 12, 200, 200, 64, torch.bfloat16, True, 0.1),
+    (8, 12, 320, 320, 64, torch.bfloat16, False, 0.0),
+    (8, 12, 320, 320, 64, torch.bfloat16, True, 0.1),
+    (8, 12, 96, 200, 64, torch.bfloat16, False, 0.0),
+    (8, 12, 320, 512, 64, torch.bfloat16, False, 0.1),
+    (8, 12, 512, 200, 64, torch.bfloat16, False, 0.0),
+    (8, 12, 320, 320, 128, torch.bfloat16, False, 0.1),
+    (2, 4, 200, 200, 128, torch.bfloat16, False, 0.1),
 ]
 
 
@@ -178,7 +229,7 @@ def phase_kernel() -> dict:
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
+    worst, bad = 0.0, []
     for b, h, sq, sk, d, dt, causal, rate in CASES:
         q, k, v = (torch.randn(b, h, s, d, device="cuda", dtype=dt,
                                generator=gen) for s in (sq, sk, sk))
@@ -197,9 +248,10 @@ def phase_kernel() -> dict:
               f"max|do|={do:.3e} (tol {tol['o']:.0e}) "
               f"max|dlse|={dl:.3e} (tol {tol['lse']:.0e}) "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"flash kernel disagrees with its plain version at "
-                  f"{(b, h, sq, sk, d, dt, causal, rate)}")
+        if not ok:
+            bad.append((b, h, sq, sk, d, str(dt)[6:], causal, rate))
         worst = max(worst, do)
+    check(not bad, f"flash kernel disagrees with its plain version at {bad}")
     errs = phase_kernel_bwd(gen)
     errs["flash_attention_fwd"] = worst
     errs["adam_update"] = phase_kernel_adam(gen)
@@ -214,6 +266,7 @@ def phase_kernel_bwd(gen) -> dict:
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
         flash_attention_bwd_dq_plain)
     worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    bad = []
     for b, h, sq, sk, d, dt, causal, rate in CASES:
         d_k = 64 if d <= 64 else 128
         q, k, v, do = (torch.randn(b, h, s, d_k, device="cuda", dtype=dt,
@@ -248,12 +301,14 @@ def phase_kernel_bwd(gen) -> dict:
               f"max|ddk|={errs['dk']:.3e} ({errs['dk_rel']:.1e}) "
               f"max|ddv|={errs['dv']:.3e} ({errs['dv_rel']:.1e}) "
               f"(tol {tol:.0e} of max) {'ok' if ok else 'FAIL'}")
-        check(ok, f"backward kernels disagree with their plain versions at "
-                  f"{(b, h, sq, sk, d, dt, causal, rate)}")
+        if not ok:
+            bad.append((b, h, sq, sk, d, str(dt)[6:], causal, rate))
         worst["flash_attention_bwd_dq"] = max(
             worst["flash_attention_bwd_dq"], errs["dq"])
         worst["flash_attention_bwd_dkv"] = max(
             worst["flash_attention_bwd_dkv"], errs["dk"], errs["dv"])
+    check(not bad, f"backward kernels disagree with their plain versions "
+                   f"at {bad}")
     return worst
 
 
@@ -386,43 +441,37 @@ def phase_slice(seqs) -> dict:
     return {"models": models, "launches": launches}
 
 
+def request_latency(seq: int, bcfg, sess) -> dict:
+    batch = requests(bcfg, seq, 8, 0)
+    for _ in range(3):
+        sess.infer(batch)
+    lat = []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        sess.infer(batch)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    fwd_ms, fwd_p90 = np.percentile(lat, 50), np.percentile(lat, 90)
+    print(f"[times] bert-base 8x{seq}: 8-row request latency median "
+          f"{fwd_ms:.3f} ms, p90 {fwd_p90:.3f} ms over {REQUESTS} "
+          f"requests, one client, closed loop (host clock, ends in a "
+          f"device sync)")
+    return dict(fwd_ms=fwd_ms, fwd_p90_ms=fwd_p90)
+
+
 def phase_times(models) -> dict:
-    import torch.nn.functional as F
-    from flexflow_tpu_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    res = {}
-    for seq, (ff, bcfg, sess) in models.items():
-        batch = requests(bcfg, seq, 8, 0)
-        for _ in range(3):
-            sess.infer(batch)
-        lat = []
-        for _ in range(REQUESTS):
-            t0 = time.perf_counter()
-            sess.infer(batch)
-            lat.append((time.perf_counter() - t0) * 1e3)
-        fwd_ms, fwd_p90 = np.percentile(lat, 50), np.percentile(lat, 90)
-        b, h, d = 8, bcfg.num_heads, bcfg.hidden_size // bcfg.num_heads
-        q, k, v = (torch.randn(b, h, seq, d, device="cuda",
-                               dtype=torch.bfloat16, generator=gen)
-                   for _ in range(3))
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v))
-        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v))
-        lib_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v))
-        bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, 2)
-        res[seq] = dict(fwd_ms=fwd_ms, fwd_p90_ms=fwd_p90, ms=ms,
-                        plain_ms=plain_ms,
-                        library_ms=lib_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
-        print(f"[times] bert-base 8x{seq}: 8-row request latency median "
-              f"{fwd_ms:.3f} ms, p90 {fwd_p90:.3f} ms over {REQUESTS} "
-              f"requests, one client, closed loop (host clock, ends in a "
-              f"device sync); "
-              f"flash_attention_fwd b8 h{h} s{seq} d{d} bf16: kernel "
-              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-              f"sdpa {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}); kernel/bound {ms / bound_ms:.2f}")
+    """Request latency of each served shape, then (with the served models
+    released) the train-step time and peak memory of each trained one."""
+    res = {seq: request_latency(seq, *models.pop(seq)[1:])
+           for seq in sorted(models)}
+    for seq in (128, 512):
+        t = step_times(seq)
+        res[seq].update(t)
+        print(f"[times] bert-base 8x{seq} train step (flash + fused Adam, "
+              f"dropout 0.1): median {t['step_ms']:.3f} ms, p90 "
+              f"{t['step_p90_ms']:.3f} ms over {STEPS} steps (host clock, "
+              f"ends in a device sync); peak device memory "
+              f"{t['peak_mem_gb']:.3f} GB ({t['resident_gb']:.3f} GB "
+              f"resident between steps)")
     return res
 
 
@@ -548,9 +597,30 @@ def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bwd_times(seq: int, gen) -> dict:
+def fwd_times(seq: int, rate: float, gen) -> dict:
+    """The forward kernel, its plain version and SDPA (its flash backend,
+    with the same dropout rate) at b8 h12 s d64 bf16."""
+    import torch.nn.functional as F
+    from flexflow_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    b, h, d = 8, 12, 64
+    q, k, v = (torch.randn(b, h, seq, d, device="cuda", dtype=torch.bfloat16,
+                           generator=gen) for _ in range(3))
+    kw = dict(dropout_rate=rate, dropout_seed=5 if rate else None)
+    bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, 2)
+    return {"ms": cuda_time_ms(lambda: flash_attention(q, k, v, **kw)),
+            "plain_ms": cuda_time_ms(
+                lambda: flash_attention_plain(q, k, v, **kw)),
+            "library_ms": cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       dropout_p=rate)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def bwd_times(seq: int, rate: float, gen) -> dict:
     """dq and dk/dv kernels, their plain versions and the backward of
-    torch's flash SDPA (dq, dk, dv in one call) at b8 h12 s d64 bf16."""
+    torch's flash SDPA (dq, dk, dv in one call, at the same dropout rate)
+    at b8 h12 s d64 bf16."""
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -559,20 +629,23 @@ def bwd_times(seq: int, gen) -> dict:
     q, k, v, do = (torch.randn(b, h, seq, d, device="cuda",
                                dtype=torch.bfloat16, generator=gen)
                    for _ in range(4))
-    o, lse = flash_attention(q, k, v, return_lse=True)
+    kw = dict(dropout_rate=rate, dropout_seed=5 if rate else None)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
-    res = {"dq_ms": cuda_time_ms(lambda: flash_attention_bwd_dq(*args)),
-           "dkv_ms": cuda_time_ms(lambda: flash_attention_bwd_dkv(*args)),
+    res = {"dq_ms": cuda_time_ms(lambda: flash_attention_bwd_dq(*args, **kw)),
+           "dkv_ms": cuda_time_ms(
+               lambda: flash_attention_bwd_dkv(*args, **kw)),
            "dq_plain_ms": cuda_time_ms(
-               lambda: flash_attention_bwd_dq_plain(*args)),
+               lambda: flash_attention_bwd_dq_plain(*args, **kw)),
            "dkv_plain_ms": cuda_time_ms(
-               lambda: flash_attention_bwd_dkv_plain(*args))}
-    fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)
+               lambda: flash_attention_bwd_dkv_plain(*args, **kw))}
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, dropout_p=rate)
     out, lse_lib, cq, ck, mq, mk, seed, offset = fwd[:8]
     res["sdpa_bwd_ms"] = cuda_time_ms(
         lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do, q, k, v, out, lse_lib, cq, ck, mq, mk, 0.0, False, seed,
+            do, q, k, v, out, lse_lib, cq, ck, mq, mk, rate, False, seed,
             offset))
     res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False)
     res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True)
@@ -607,33 +680,71 @@ def adam_times(gen) -> dict:
     return res
 
 
-def phase_train_times() -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(2)
+def launch_host_us(n: int = 500) -> dict:
+    """Host time of one call of the forward's and the dq kernel's C entry
+    (ctypes, no Python wrapper) at b8 h12 s128 d64 bf16: the forward
+    encodes four TMA tensor maps per launch (q, k, v, o), dq none."""
+    fa = importlib.import_module("flexflow_tpu_torch.kernels.flash_attention")
+    q, k, v, do, o = (torch.randn(8, 12, 128, 64, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(5))
+    lse, delta = (torch.zeros(8, 12, 128, device="cuda") for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (96, 128, 128, 64, 1, 0, 0.125, 0, 0, 1.0, 0, stream)
+    calls = {
+        "fwd": (fa._c_fn("flash_attention_fwd", "ff_flash_attention_fwd"),
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr()) + tail),
+        "dq": (fa._c_fn("flash_attention_bwd", "ff_flash_attention_bwd_dq"),
+               (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), o.data_ptr()) + tail)}
     res = {}
-    for seq in (128, 512):
-        t = bwd_times(seq, gen)
-        t.update(step_times(seq))
-        res[seq] = t
-        print(f"[times] bert-base 8x{seq} train step (flash + fused Adam, "
-              f"dropout 0.1): median {t['step_ms']:.3f} ms, p90 "
-              f"{t['step_p90_ms']:.3f} ms over {STEPS} steps (host clock, "
-              f"ends in a device sync); peak device memory "
-              f"{t['peak_mem_gb']:.3f} GB ({t['resident_gb']:.3f} GB "
-              f"resident between steps)")
-        for key, name in (("dq", "flash_attention_bwd_dq"),
-                          ("dkv", "flash_attention_bwd_dkv")):
-            bound, by = t[key + "_bound"]
-            print(f"[times] {name} b8 h12 s{seq} d64 bf16: kernel "
-                  f"{t[key + '_ms'] * 1e3:.2f} us, plain "
-                  f"{t[key + '_plain_ms'] * 1e3:.2f} us, bound "
-                  f"{bound * 1e3:.2f} us ({by}); kernel/bound "
-                  f"{t[key + '_ms'] / bound:.2f}")
-        print(f"[times] sdpa flash backward (dq, dk, dv in one call) b8 h12 "
-              f"s{seq} d64 bf16: {t['sdpa_bwd_ms'] * 1e3:.2f} us vs dq + "
-              f"dk/dv {(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
-    a = adam_times(gen)
-    res["adam"] = a
-    print(f"[times] adam_update over BERT-base's {a['numel']} f32 "
+    for name, (fn, args) in calls.items():
+        check(fn(*args) == 0, f"{name} launch failed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        res[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
+def phase_ktimes() -> dict:
+    """Every kernel's device time beside its plain version, its PyTorch
+    yardstick and its bound: the flash kernels at s 128 and 512, without
+    dropout and at 0.1, and Adam over BERT-base."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {"fwd": {}, "bwd": {}}
+    for rate in (0.0, 0.1):
+        for seq in (128, 512):
+            f = res["fwd"][(seq, rate)] = fwd_times(seq, rate, gen)
+            print(f"[ktimes] flash_attention_fwd b8 h12 s{seq} d64 bf16 "
+                  f"dropout {rate}: kernel {f['ms'] * 1e3:.2f} us, plain "
+                  f"{f['plain_ms'] * 1e3:.2f} us, sdpa "
+                  f"{f['library_ms'] * 1e3:.2f} us, bound "
+                  f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); "
+                  f"kernel/sdpa {f['ms'] / f['library_ms']:.2f}, "
+                  f"kernel/bound {f['ms'] / f['bound_ms']:.2f}")
+            t = res["bwd"][(seq, rate)] = bwd_times(seq, rate, gen)
+            for key, name in (("dq", "flash_attention_bwd_dq"),
+                              ("dkv", "flash_attention_bwd_dkv")):
+                bound, by = t[key + "_bound"]
+                print(f"[ktimes] {name} b8 h12 s{seq} d64 bf16 dropout "
+                      f"{rate}: kernel {t[key + '_ms'] * 1e3:.2f} us, plain "
+                      f"{t[key + '_plain_ms'] * 1e3:.2f} us, bound "
+                      f"{bound * 1e3:.2f} us ({by}); kernel/sdpa-backward "
+                      f"{t[key + '_ms'] / t['sdpa_bwd_ms']:.2f}, "
+                      f"kernel/bound {t[key + '_ms'] / bound:.2f}")
+            print(f"[ktimes] sdpa flash backward (dq, dk, dv in one call) b8 "
+                  f"h12 s{seq} d64 bf16 dropout {rate}: "
+                  f"{t['sdpa_bwd_ms'] * 1e3:.2f} us vs dq + dk/dv "
+                  f"{(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
+    h = res["host"] = launch_host_us()
+    print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
+          f"bf16: flash_attention_fwd {h['fwd']:.2f} us (encodes four TMA "
+          f"tensor maps), flash_attention_bwd_dq {h['dq']:.2f} us (none)")
+    a = res["adam"] = adam_times(gen)
+    print(f"[ktimes] adam_update over BERT-base's {a['numel']} f32 "
           f"parameters (200 leaves, one launch): kernel {a['ms']:.4f} ms, "
           f"plain {a['plain_ms']:.4f} ms, torch._fused_adam_ "
           f"{a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
@@ -641,41 +752,44 @@ def phase_train_times() -> dict:
     return res
 
 
-def kernel_rows(errs, serve, times, train, ttimes) -> list:
-    rows = []
-    t = times[128]
-    rows.append({
+def kernel_rows(errs, serve, kt, train) -> list:
+    """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
+    dropout, with s512 and dropout 0.1 beside them."""
+    def fwd_row(seq, rate):
+        return dict(kt["fwd"][(seq, rate)])
+
+    def bwd_row(key, seq, rate):
+        t = kt["bwd"][(seq, rate)]
+        return {"ms": t[key + "_ms"], "plain_ms": t[key + "_plain_ms"],
+                "bound_ms": t[key + "_bound"][0],
+                "bound_by": t[key + "_bound"][1],
+                # one call computes dq, dk and dv together
+                "library_ms": t["sdpa_bwd_ms"]}
+
+    rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "flexflow_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "flexflow_tpu/kernels/flash_attention.py:110",
-        "launches": serve["launches"], "max_abs_err":
-            errs["flash_attention_fwd"], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "launches": serve["launches"],
+        "max_abs_err": errs["flash_attention_fwd"], **fwd_row(128, 0.0),
         "shape": "b8 h12 s128 d64 bf16",
         "train_launches": train["launches"]["flash_attention_fwd"],
-        "at_s512": {key: times[512][key] for key in
-                    ("ms", "plain_ms", "bound_ms", "library_ms")}})
+        "at_s512": fwd_row(512, 0.0),
+        "dropout_0.1": {"s128": fwd_row(128, 0.1),
+                        "s512": fwd_row(512, 0.1)}}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
-        t = ttimes[128]
         rows.append({
             "name": name, "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{line}",
             "launches": train["launches"][name],
-            "max_abs_err": errs[name], "ms": t[key + "_ms"],
-            "plain_ms": t[key + "_plain_ms"],
-            "bound_ms": t[key + "_bound"][0],
-            "bound_by": t[key + "_bound"][1],
-            # one call computes dq, dk and dv together
-            "library_ms": t["sdpa_bwd_ms"],
+            "max_abs_err": errs[name], **bwd_row(key, 128, 0.0),
             "shape": "b8 h12 s128 d64 bf16",
-            "at_s512": {"ms": ttimes[512][key + "_ms"],
-                        "plain_ms": ttimes[512][key + "_plain_ms"],
-                        "bound_ms": ttimes[512][key + "_bound"][0],
-                        "library_ms": ttimes[512]["sdpa_bwd_ms"]}})
-    a = ttimes["adam"]
+            "at_s512": bwd_row(key, 512, 0.0),
+            "dropout_0.1": {"s128": bwd_row(key, 128, 0.1),
+                            "s512": bwd_row(key, 512, 0.1)}})
+    a = kt["adam"]
     rows.append({
         "name": "adam_update", "route": "cuda",
         "source": "flexflow_tpu_torch/csrc/adam_update.cu",
@@ -688,30 +802,29 @@ def kernel_rows(errs, serve, times, train, ttimes) -> list:
     return rows
 
 
-PHASES = ("build", "kernel", "slice", "train", "times")
+PHASES = ("build", "kernel", "ktimes", "slice", "train", "times")
 
 
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (times needs slice)")
     phases = set(ap.parse_args().phases.split(","))
     dev = phase_device()
     if "build" in phases:
         phase_build()
     errs = phase_kernel() if "kernel" in phases else None
+    kt = phase_ktimes() if "ktimes" in phases else None
     serve = phase_slice((128, 512)) if "slice" in phases else None
     train = phase_train() if "train" in phases else None
     if "times" in phases:
-        times = phase_times(serve["models"])
-        del serve["models"]
-        ttimes = phase_train_times()
+        phase_times(serve.pop("models"))
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
-    print(json.dumps({"kernels": kernel_rows(errs, serve, times, train,
-                                             ttimes)}))
+    print(json.dumps({"kernels": kernel_rows(errs, serve, kt, train)}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -20,30 +20,55 @@
 // Here one CTA owns one output tile and loops over the other axis itself:
 //   - dq: a CTA owns 64 query rows of one b*h and loops over the K/V
 //     tiles (up to the causal diagonal), holding dq in registers;
-//   - dk/dv: a CTA owns 64 keys of one b*h and loops over the q tiles
-//     (from the causal diagonal on), holding dk and dv in registers.
+//   - dk/dv: a CTA owns a block of keys of one b*h and loops over the q
+//     tiles (from the causal diagonal on), holding dk and dv in registers.
 // No output row is written by two CTAs, so no atomics and no second pass.
-// Each warp owns 16 rows of the CTA's tile. The dk/dv kernel works in the
-// transposed frame (s^T = K . Q^T, dp^T = V . dO^T), so its P^T and dS^T
-// fragments are directly the A operands of dV += P^T . dO and dK += dS^T .
-// Q. For bf16 every product runs on the tensor cores (mma.sync m16n8k16,
-// f32 accumulate) and the casts of ds and p_eff happen where the fragments
-// are packed to bf16; f32 inputs take FMA loops and stay exact f32. Ragged
-// sq and kv_len edges are masked inside the kernel: tiles load zero rows
-// past the edge, out-of-range (i, j) get p = 0, and their rows are never
-// written. Dead causal tiles are skipped by the reference's liveness
-// rules. Rows with l == 0 need nothing special: the forward's lse = m then
-// gives the same p as the forward's.
+// The dk/dv kernels work in the transposed frame (s^T = K . Q^T, dp^T =
+// V . dO^T), so their P^T and dS^T fragments are directly the A operands
+// of dV += P^T . dO and dK += dS^T . Q, rounded to bf16 exactly where the
+// reference casts p_eff and ds. Ragged sq and kv_len edges are masked
+// inside the kernels: tiles hold zero rows past the edge, out-of-range
+// (i, j) get p = 0, and their rows are never written. Dead causal tiles
+// are skipped by the reference's liveness rules. Rows with l == 0 need
+// nothing special: the forward's lse = m then gives the same p as the
+// forward's. The type picks the kernel inside the C entry; neither is a
+// fallback of the other:
+//
+//   dk/dv, bf16 (the main path) - flash_bwd_dkv_wgmma_kernel, built from
+//   hopper_common.cuh. A CTA is one warpgroup owning 64 keys (b8 h12 s512:
+//   768 CTAs, two per SM; 128-key CTAs of two warpgroups measured slower),
+//   with K and V resident in shared memory. Tiles of 64 queries (32 at
+//   d = 128, where dk and dv take 128 registers) of Q and dO, with their
+//   lse and delta, stream through a two-stage ring of
+//   cp.async copies in the 128-byte-swizzled layout (cp.async rather than
+//   TMA because lse and delta rows of sq floats are not 16-byte aligned in
+//   general, which a tensor map needs), so the next tile's copy is in
+//   flight while this tile's products run. All four products are
+//   wgmma.mma_async: s^T and dp^T with both operands in shared memory
+//   (K-major), dV and dK with P^T and dS^T in registers and dO and Q read
+//   MN-major from the same staged tiles through the descriptor's
+//   transpose bit, so there are no scalar gathers and no transposes. The
+//   exponential is exp2 with log2(e) folded into sm_scale, the mask is
+//   evaluated only in tiles that cross an edge or the diagonal, and dropout
+//   is a template parameter (the keep mask hashed once per tile into one
+//   bit per score), so the tile without it carries none of its registers.
+//
+//   dk/dv, f32 - flash_bwd_dkv_kernel, the exact FMA path (64 keys per
+//   CTA, four warps), because the tensor cores would round f32 to TF32.
+//
+//   dq, both types - flash_bwd_dq_kernel: 64-row tiles, four warps each
+//   owning 16 rows, synchronous tile loads; bf16 products on mma.sync
+//   m16n8k16 (f32 accumulate), f32 products as FMA loops.
 //
 // Bound. dq does 6*sq*sk*d flops per head (Q.K^T, dO.V^T, dS.K) and dk/dv
 // 8*sq*sk*d (Q.K^T, dO.V^T, P^T.dO, dS^T.Q); each reads q, k, v, do once
 // plus the f32 lse and delta, and writes its outputs once. At BERT shapes
 // (d = 64, s <= 512) both sit near the H100's bf16 ridge: bytes bound at
-// s = 128, operations at s = 512. This first version loads tiles
-// synchronously (no cp.async/TMA pipeline, no wgmma), so it sits well
-// above either bound; both are later work.
+// s = 128 (dk/dv 2.85 us at b8 h12 d64), operations at s = 512 (dk/dv
+// 13.03 us at 989 TFLOP/s).
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -277,16 +302,254 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv: wgmma with a cp.async tile ring
+// ---------------------------------------------------------------------------
+using namespace ff_hopper;
+
+template <int D>
+struct DkvTiles {
+  static constexpr int BN = WG_ROWS;  // keys per CTA (one warpgroup), resident
+  // query rows per streamed tile: 32 at d = 128, whose two 64-column
+  // accumulators (dk, dv) leave registers for 64 x 32 score tiles only
+  static constexpr int BM = D == 64 ? 64 : 32;
+  static constexpr int NB = BM / 8;  // 8-column blocks of a score tile
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int T_BYTES = BM * D * 2;  // one Q or dO tile
+  // Q, dO, then lse and delta (BM floats each), padded to the swizzle
+  // period so the next stage's tiles stay 1024-byte aligned
+  static constexpr int STAGE_BYTES = 2 * T_BYTES + SW_ATOM;
+  // K, V, then a ring of two stages: the q tile in use, the one in flight
+  static constexpr size_t SMEM = SW_ATOM + 2 * KV_BYTES + 2 * STAGE_BYTES;
+  static_assert(2 * BM * 4 <= SW_ATOM, "lse and delta overflow the pad");
+};
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(WG_THREADS, 2)  // two CTAs per SM
+    flash_bwd_dkv_wgmma_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        int sq, int sk, float sm_scale, int causal, uint32_t threshold,
+        float keep_prob, uint32_t seed) {
+  using Tl = DkvTiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t sK = (raw + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sV = sK + Tl::KV_BYTES;
+  const uint32_t sRing = sV + Tl::KV_BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int bh = blockIdx.y;
+  const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
+  const __nv_bfloat16* db = dout + (size_t)bh * sq * D;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+  const int key_w = n0 + warp * 16;  // this warp's first key
+  const int kpos[2] = {key_w + g, key_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+
+  const int n_tiles = (sq + BM - 1) / BM;
+  // causal: a q tile is live iff its last query can see the first key
+  const int first = causal ? n0 / BM : 0;
+  const int count = n_tiles - first;
+
+  auto load_q = [&](int i) {
+    const int m0 = (first + i) * BM;
+    const uint32_t st = sRing + (i & 1) * Tl::STAGE_BYTES;
+    load_tile_sw128<BM, D, WG_THREADS>(st, qb, m0, sq, tid);
+    load_tile_sw128<BM, D, WG_THREADS>(st + Tl::T_BYTES, db, m0, sq, tid);
+    load_vec_f32(st + 2 * Tl::T_BYTES, lb, m0, sq, BM, tid);
+    load_vec_f32(st + 2 * Tl::T_BYTES + BM * 4, deb, m0, sq, BM, tid - BM);
+  };
+  // the ring: K, V and q tile 0; then, after the barrier that frees its
+  // stage, each iteration starts the copy of the next q tile
+  load_tile_sw128<BN, D, WG_THREADS>(sK, k + (size_t)bh * sk * D, n0, sk,
+                                     tid);
+  load_tile_sw128<BN, D, WG_THREADS>(sV, v + (size_t)bh * sk * D, n0, sk,
+                                     tid);
+  load_q(0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero_acc<D>(dk_acc);
+  zero_acc<D>(dv_acc);
+
+  for (int i = 0; i < count; ++i) {
+    cp_async_wait<0>();  // K, V and q tile i have landed
+    fence_proxy_async();
+    __syncthreads();  // ... for every thread, and every warp is done with
+                      // the stage the next copy overwrites
+    if (i + 1 < count) load_q(i + 1);
+    cp_async_commit();
+    const int m0 = (first + i) * BM;
+    const uint32_t sQ = sRing + (i & 1) * Tl::STAGE_BYTES;
+    const uint32_t sDO = sQ + Tl::T_BYTES;
+    const float* sLse = reinterpret_cast<const float*>(
+        smem + (sQ + 2 * Tl::T_BYTES - raw));
+    const float* sDelta = sLse + BM;
+
+    // the dropout keep mask of this thread's fragment (bit 4 * nt + c),
+    // hashed before the products so its temporaries and their accumulators
+    // are never live together
+    uint32_t keep = 0;
+    if (DROPOUT) {
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          keep |= (uint32_t)(position_hash(seed, bh,
+                                           m0 + nt * 8 + tig * 2 + (c & 1),
+                                           kpos[c >> 1]) >= threshold)
+                  << (4 * nt + c);
+    }
+
+    // s^T = K . Q^T and dp^T = V . dO^T for the CTA's 64 keys
+    float s[NB][4], dp[NB][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t a = sK + (kc >> 2) * (BN * SW_ROW) + (kc & 3) * 32;
+      const uint32_t b = sQ + (kc >> 2) * (BM * SW_ROW) + (kc & 3) * 32;
+      wgmma_ss_kk<NB>(s, desc_sw128(a, 16), desc_sw128(b, 16), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t a = sV + (kc >> 2) * (BN * SW_ROW) + (kc & 3) * 32;
+      const uint32_t b = sDO + (kc >> 2) * (BM * SW_ROW) + (kc & 3) * 32;
+      wgmma_ss_kk<NB>(dp, desc_sw128(a, 16), desc_sw128(b, 16), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // p = exp(s - lse), p_eff and ds, in the transposed frame: fragment
+    // rows are keys, columns queries
+    const bool edge = m0 + BM > sq || key_w + 16 > sk ||
+                      (causal && key_w + 15 > m0);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+      const int col = nt * 8 + tig * 2;
+      const float2 lse2 = *reinterpret_cast<const float2*>(sLse + col);
+      const float2 del2 = *reinterpret_cast<const float2*>(sDelta + col);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = c & 1, r = c >> 1;
+        const int qpos = m0 + col + j;
+        const float lse_c = j ? lse2.y : lse2.x;
+        const float delta_c = j ? del2.y : del2.x;
+        float p = exp2_approx(s[nt][c] * scale_log2 - lse_c * LOG2E);
+        if (edge && !(qpos < sq && kpos[r] < sk &&
+                      (!causal || kpos[r] <= qpos)))
+          p = 0.f;
+        float dpv = dp[nt][c];
+        float pe = p;
+        if (DROPOUT) {
+          const bool kept = (keep >> (4 * nt + c)) & 1u;
+          dpv = kept ? dpv * inv_keep : 0.f;
+          pe = kept ? p * inv_keep : 0.f;
+        }
+        s[nt][c] = pe;
+        dp[nt][c] = p * (dpv - delta_c) * sm_scale;
+      }
+    }
+
+    // dV += P_eff^T . dO and dK += dS^T . Q: the fragments rounded to bf16
+    // in registers, dO and Q read MN-major from the same staged tiles
+    uint32_t pa[NB / 2][4], da[NB / 2][4];
+    to_a_frags(s, pa);
+    to_a_frags(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+#pragma unroll
+      for (int kc = 0; kc < NB / 2; ++kc) {
+        const uint32_t b = sDO + h * (BM * SW_ROW) + kc * 2 * SW_ATOM;
+        wgmma_rs_m64n64k16<1>(acc_block(dv_acc, h), pa[kc],
+                              desc_sw128(b, BM * SW_ROW), 1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+#pragma unroll
+      for (int kc = 0; kc < NB / 2; ++kc) {
+        const uint32_t b = sQ + h * (BM * SW_ROW) + kc * 2 * SW_ATOM;
+        wgmma_rs_m64n64k16<1>(acc_block(dk_acc, h), da[kc],
+                              desc_sw128(b, BM * SW_ROW), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs_u32(pa);
+    fence_regs_u32(da);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      fence_regs(acc_block(dv_acc, h));
+      fence_regs(acc_block(dk_acc, h));
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= sk) continue;
+    const size_t off = ((size_t)bh * sk + kpos[r]) * D + tig * 2;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      store2(dk + off + dt * 8, dk_acc[dt][2 * r], dk_acc[dt][2 * r + 1]);
+      store2(dv + off + dt * 8, dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    }
+  }
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_dkv_wgmma_t(const Args& a) {
+  using Tl = DkvTiles<D>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sk + Tl::BN - 1) / Tl::BN, a.bh);
+  kernel<<<grid, WG_THREADS, Tl::SMEM, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1),
+      a.sq, a.sk, a.sm_scale, a.causal, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  return a.use_dropout ? launch_dkv_wgmma_t<D, true>(a)
+                       : launch_dkv_wgmma_t<D, false>(a);
+}
+
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (a.bh <= 0 || a.bh > 65535 || a.sq <= 0 || a.sk <= 0)
     return (int)cudaErrorInvalidValue;
-#define FF_BWD(T, D) \
-  return (int)(dkv ? launch_dkv<T, D>(a) : launch_dq<T, D>(a))
-  if (dtype == 1 && head_dim == 64) FF_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) FF_BWD(__nv_bfloat16, 128);
-  if (dtype == 0 && head_dim == 64) FF_BWD(float, 64);
-  if (dtype == 0 && head_dim == 128) FF_BWD(float, 128);
-#undef FF_BWD
+  if (!dkv) {
+    if (dtype == 1 && head_dim == 64) return (int)launch_dq<__nv_bfloat16, 64>(a);
+    if (dtype == 1 && head_dim == 128)
+      return (int)launch_dq<__nv_bfloat16, 128>(a);
+    if (dtype == 0 && head_dim == 64) return (int)launch_dq<float, 64>(a);
+    if (dtype == 0 && head_dim == 128) return (int)launch_dq<float, 128>(a);
+    return (int)cudaErrorInvalidValue;
+  }
+  // dk/dv: bf16 runs the wgmma kernel, f32 the exact FMA kernel
+  if (dtype == 1 && head_dim == 64) return (int)launch_dkv_wgmma<64>(a);
+  if (dtype == 1 && head_dim == 128) return (int)launch_dkv_wgmma<128>(a);
+  if (dtype == 0 && head_dim == 64) return (int)launch_dkv<float, 64>(a);
+  if (dtype == 0 && head_dim == 128) return (int)launch_dkv<float, 128>(a);
   return (int)cudaErrorInvalidValue;
 }
 

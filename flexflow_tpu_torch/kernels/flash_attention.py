@@ -5,8 +5,12 @@ Port of ``flexflow_tpu/kernels/flash_attention.py``. Three CUDA kernels
 replace the three Pallas ones: ``csrc/flash_attention_fwd.cu`` the
 forward ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the backward
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; their headers say how each is
-laid out and what bounds it, and ``csrc/flash_common.cuh`` holds what they
-share (the dropout hash among it).
+laid out and what bounds it. ``csrc/flash_common.cuh`` holds what they
+share (the dropout hash among it) and ``csrc/hopper_common.cuh`` the
+Hopper building blocks of the bf16 forward and dk/dv kernels (the
+TMA/cp.async tile rings, the swizzled layout and its ``wgmma``
+descriptors, the ``wgmma`` wrappers); f32 inputs run FMA kernels, chosen
+by dtype inside each C entry.
 
 :func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
 and is differentiable: a ``torch.autograd.Function`` (the counterpart of

@@ -296,6 +296,72 @@ def test_flash_backward_causal_dropout_matches_jax_golden():
                                    **GRAD_TOL)
 
 
+# The shapes at the edges of the bf16 kernels' tiling (64-key tiles in a
+# ring of two stages, CTAs of 64 or 128 query rows, 32-query tiles in the
+# d = 128 dk/dv kernel), which chip_smoke.py holds the kernels to on the
+# card: one short K tile, fewer tiles than ring stages, s not a multiple
+# of 64 or 128 with and without causal, sq != sk both ways, d = 128 with
+# dropout. Here the plain versions that the card compares the kernels with
+# are held against the JAX kernels.
+TILING_CASES = [  # (sq, sk, d, causal, dropout rate)
+    (40, 40, 64, False, 0.0),
+    (40, 40, 64, True, 0.1),
+    (64, 64, 64, True, 0.0),
+    (100, 100, 64, False, 0.1),
+    (200, 200, 64, True, 0.1),
+    (320, 320, 64, False, 0.0),
+    (320, 320, 64, True, 0.1),
+    (96, 200, 64, False, 0.0),
+    (320, 512, 64, False, 0.1),
+    (512, 200, 64, False, 0.0),
+    (320, 320, 128, False, 0.1),
+    (200, 200, 128, False, 0.1),
+]
+
+
+def _jax_dropout_golden_grads(q, k, v, do, rate, seed):
+    """``jax.grad`` of the causal explicit-mask golden (the JAX kernel
+    does not lower causal dropout in interpret mode)."""
+    b, h, sq, d = q.shape
+
+    def golden(q_, k_, v_):
+        s = jnp.einsum("bhqd,bhkd->bhqk", q_, k_) / np.sqrt(d)
+        s = jnp.where(np.tril(np.ones((sq, sq), bool)), s, jax_fa.NEG_INF)
+        p = jax.nn.softmax(s, axis=-1)
+        keep = jax_keep_mask(b, h, sq, sq, rate, seed)
+        p = jnp.where(keep, p / (1.0 - rate), 0.0)
+        return jnp.sum(jnp.einsum("bhqk,bhkd->bhqd", p, v_)
+                       * jnp.asarray(do))
+
+    return [np.asarray(g) for g in jax.grad(golden, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,rate", TILING_CASES)
+def test_flash_forward_tiling_edges_match_jax(sq, sk, d, causal, rate):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=31)
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=77 if rate else None)
+    o, lse = _port(q, k, v, return_lse=True, **kw)
+    want = (_jax_dropout_golden(q, k, v, True, rate, 77) if causal and rate
+            else _jax(q, k, v, **kw))
+    np.testing.assert_allclose(o.numpy(), want, **TOL)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v, causal), **TOL)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,rate", TILING_CASES)
+def test_flash_backward_tiling_edges_match_jax(sq, sk, d, causal, rate):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=33)
+    do = _do(1, 2, sq, d, seed=3)
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=55 if rate else None)
+    got = _port_grads(q, k, v, do, **kw)
+    want = (_jax_dropout_golden_grads(q, k, v, do, rate, 55)
+            if causal and rate else _jax_grads(q, k, v, do, **kw))
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
+
+
 def test_backward_plain_is_the_functions_backward_and_counts_calls():
     """``flash_attention_bwd_plain`` (the JAX ``_flash_bwd_rule`` in
     plain PyTorch) gives exactly what the autograd Function's backward

@@ -43,9 +43,9 @@ BATCH = 8
 
 def family(name: str) -> str:
     low = name.lower()
-    for kernel, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
-                        ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
-                        ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+    for kernel, fam in (("flash_fwd_", "flash_attention_fwd"),
+                        ("flash_bwd_dq_", "flash_attention_bwd_dq"),
+                        ("flash_bwd_dkv_", "flash_attention_bwd_dkv"),
                         ("adam_kernel", "adam_update")):
         if kernel in low:
             return fam
