@@ -14,8 +14,9 @@ never JAX, and:
   3. kernel  - holds each kernel against its plain PyTorch version on the
                card at the main paths' shapes and at the edges of the
                kernels' tiling, within stated tolerances: the flash
-               forward, dq and dk/dv over one case list, the fused Adam
-               over BERT-base's leaves plus ragged and bf16 ones;
+               forward, dq and dk/dv over one case list (dq also
+               bit-identical over two launches), the fused Adam over
+               BERT-base's leaves plus ragged and bf16 ones;
   4. ktimes  - device times (CUDA graph replay between CUDA events) of
                each kernel, its plain version and its PyTorch yardstick,
                at b8 h12 d64 bf16, s 128 and 512, without dropout and at
@@ -206,10 +207,10 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     # off the BERT path: head dims 128 and 48 (padded to 64), sq != sk
     (2, 4, 128, 128, 128, torch.bfloat16, True, 0.1),
     (2, 4, 96, 200, 48, torch.float32, False, 0.0),
-    # the bf16 kernels' tiling: 64-key tiles in a ring of two stages,
-    # 64- or 128-row CTAs (128 at b8 h12 from s = 257 on): one short K
-    # tile, fewer tiles than stages, s not a multiple of 64 or 128 with and
-    # without causal, sq != sk both ways, d = 128 with dropout
+    # the bf16 forward's and dk/dv's tiling: 64-key tiles in a ring of
+    # two stages, 64- or 128-row CTAs (128 at b8 h12 from s = 257 on): one
+    # short K tile, fewer tiles than stages, s not a multiple of 64 or 128
+    # with and without causal, sq != sk both ways, d = 128 with dropout
     (8, 12, 40, 40, 64, torch.bfloat16, False, 0.0),
     (8, 12, 40, 40, 64, torch.bfloat16, True, 0.1),
     (8, 12, 64, 64, 64, torch.bfloat16, True, 0.0),
@@ -222,6 +223,15 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (8, 12, 512, 200, 64, torch.bfloat16, False, 0.0),
     (8, 12, 320, 320, 128, torch.bfloat16, False, 0.1),
     (2, 4, 200, 200, 128, torch.bfloat16, False, 0.1),
+    # the bf16 dq kernel's tiling: 64-row CTAs over a ring of 64-key
+    # tiles; many query CTAs over one short K tile, few rows over many
+    # tiles, causal diagonals at a tile and a tile and a half, d = 128
+    # with dropout at a ragged causal s
+    (8, 12, 512, 40, 64, torch.bfloat16, False, 0.0),
+    (8, 12, 40, 512, 64, torch.bfloat16, False, 0.1),
+    (8, 12, 128, 128, 64, torch.bfloat16, True, 0.0),
+    (8, 12, 192, 192, 64, torch.bfloat16, True, 0.1),
+    (2, 4, 100, 100, 128, torch.bfloat16, True, 0.1),
 ]
 
 
@@ -260,7 +270,8 @@ def phase_kernel() -> dict:
 
 def phase_kernel_bwd(gen) -> dict:
     """dq and dk/dv kernels against flash_attention_bwd_plain's parts on
-    the forward kernel's o and lse, over the forward's cases."""
+    the forward kernel's o and lse, over the forward's cases; dq must
+    also give the same bits on a second launch."""
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -280,6 +291,7 @@ def phase_kernel_bwd(gen) -> dict:
         o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         delta = (do.float() * o.float()).sum(-1)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dq_again = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         pdq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
         pdk, pdv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
@@ -293,14 +305,18 @@ def phase_kernel_bwd(gen) -> dict:
             errs[name + "_rel"] = errs[name] / scale
             check(bool(torch.isfinite(got.float()).all()),
                   f"{name} not finite")
+        # a CTA owns its dq rows, so a second launch gives the same bits
+        same = torch.equal(dq, dq_again)
         tol = BWD_TOL[dt]
-        ok = max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= tol
+        ok = max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= tol \
+            and same
         print(f"[kernel] flash_attention_bwd b{b} h{h} sq{sq} sk{sk} d{d} "
               f"{str(dt)[6:]} causal={causal} dropout={rate}: "
               f"max|ddq|={errs['dq']:.3e} ({errs['dq_rel']:.1e} of max) "
               f"max|ddk|={errs['dk']:.3e} ({errs['dk_rel']:.1e}) "
               f"max|ddv|={errs['dv']:.3e} ({errs['dv_rel']:.1e}) "
-              f"(tol {tol:.0e} of max) {'ok' if ok else 'FAIL'}")
+              f"(tol {tol:.0e} of max), dq bit-identical over two "
+              f"launches: {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append((b, h, sq, sk, d, str(dt)[6:], causal, rate))
         worst["flash_attention_bwd_dq"] = max(
@@ -682,8 +698,9 @@ def adam_times(gen) -> dict:
 
 def launch_host_us(n: int = 500) -> dict:
     """Host time of one call of the forward's and the dq kernel's C entry
-    (ctypes, no Python wrapper) at b8 h12 s128 d64 bf16: the forward
-    encodes four TMA tensor maps per launch (q, k, v, o), dq none."""
+    (ctypes, no Python wrapper) at b8 h12 s128 d64 bf16: each encodes
+    four TMA tensor maps per launch (the forward q, k, v, o; dq q, do, k,
+    v)."""
     fa = importlib.import_module("flexflow_tpu_torch.kernels.flash_attention")
     q, k, v, do, o = (torch.randn(8, 12, 128, 64, device="cuda",
                                   dtype=torch.bfloat16) for _ in range(5))
@@ -741,8 +758,8 @@ def phase_ktimes() -> dict:
                   f"{(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
     h = res["host"] = launch_host_us()
     print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
-          f"bf16: flash_attention_fwd {h['fwd']:.2f} us (encodes four TMA "
-          f"tensor maps), flash_attention_bwd_dq {h['dq']:.2f} us (none)")
+          f"bf16, each encoding four TMA tensor maps: flash_attention_fwd "
+          f"{h['fwd']:.2f} us, flash_attention_bwd_dq {h['dq']:.2f} us")
     a = res["adam"] = adam_times(gen)
     print(f"[ktimes] adam_update over BERT-base's {a['numel']} f32 "
           f"parameters (200 leaves, one launch): kernel {a['ms']:.4f} ms, "

@@ -75,25 +75,6 @@ struct FwdTiles {
   static constexpr size_t SMEM = SW_ATOM + Q_BYTES + 4 * KV_BYTES;
 };
 
-// The dropout keep mask of this thread's 32 scores of a 64-key tile, one
-// bit each (bit 4 * nt + c for column block nt, fragment slot c).
-__device__ __forceinline__ uint32_t keep_bits(int n0, const int (&qpos)[2],
-                                              int tig, int bh, uint32_t seed,
-                                              uint32_t threshold) {
-  uint32_t bits = 0;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t kpos = n0 + nt * 8 + tig * 2 + (c & 1);
-      bits |= (uint32_t)(position_hash(seed, bh, qpos[c >> 1], kpos) >=
-                         threshold)
-              << (4 * nt + c);
-    }
-  }
-  return bits;
-}
-
 // One tile of the online softmax for one 64-row block. s holds the raw
 // scores of this thread's fragment of keys [n0, n0 + 64); on return it
 // holds p_eff, m_i and l_i are updated and alpha is the factor that
@@ -394,30 +375,30 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 constexpr int BLOCK_M = TILE;  // query rows per CTA
 constexpr int BLOCK_N = TILE;  // keys per K/V tile
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, float sm_scale,
                      int causal, int use_dropout, uint32_t threshold,
                      float keep_prob, uint32_t seed) {
-  constexpr int LD = D + 16 / sizeof(T);
+  constexpr int LD = D + 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BLOCK_M * LD;
-  T* sV = sK + BLOCK_N * LD;
-  float* sP = reinterpret_cast<float*>(sV + BLOCK_N * LD);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + BLOCK_M * LD;
+  float* sV = sK + BLOCK_N * LD;
+  float* sP = sV + BLOCK_N * LD;
 
   const int m0 = blockIdx.x * BLOCK_M;
   const int bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const T* qb = q + (size_t)bh * sq * D;
-  const T* kb = k + (size_t)bh * sk * D;
-  const T* vb = v + (size_t)bh * sk * D;
+  const float* qb = q + (size_t)bh * sq * D;
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
   const int qpos[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
 
-  load_tile<T, D>(sQ, qb, m0, sq);
+  load_tile<D>(sQ, qb, m0, sq);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -433,8 +414,8 @@ __global__ void __launch_bounds__(NUM_THREADS)
   for (int tn = 0; tn < n_tiles; ++tn) {
     const int n0 = tn * BLOCK_N;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(sK, kb, n0, sk);
-    load_tile<T, D>(sV, vb, n0, sk);
+    load_tile<D>(sK, kb, n0, sk);
+    load_tile<D>(sV, vb, n0, sk);
     __syncthreads();
 
     float s[N_FRAGS][4];
@@ -500,7 +481,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float l_safe = (l == 0.f) ? 1.f : l;
     if (qpos[r] >= sq) continue;
-    T* orow = o + ((size_t)bh * sq + qpos[r]) * D;
+    float* orow = o + ((size_t)bh * sq + qpos[r]) * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
       store2(orow + dt * 8 + tig * 2, acc[dt][2 * r] / l_safe,
@@ -509,23 +490,23 @@ __global__ void __launch_bounds__(NUM_THREADS)
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int sq, int sk, int causal,
                    float sm_scale, int use_dropout, uint32_t threshold,
                    float keep_prob, uint32_t seed, cudaStream_t stream) {
-  constexpr int LD = D + 16 / sizeof(T);
-  size_t smem = (size_t)(BLOCK_M + 2 * BLOCK_N) * LD * sizeof(T);
-  if (sizeof(T) == 4) smem += (size_t)BLOCK_M * P_LD * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
+  const size_t smem = ((size_t)(BLOCK_M + 2 * BLOCK_N) * (D + 4) +
+                       (size_t)BLOCK_M * P_LD) * sizeof(float);
+  auto kernel = flash_fwd_kernel<D>;
   static unsigned long long smem_set = 0;  // per instantiation and device
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, bh);
   kernel<<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, sm_scale, causal, use_dropout, threshold, keep_prob, seed);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), sq, sk, sm_scale, causal, use_dropout,
+      threshold, keep_prob, seed);
   return cudaGetLastError();
 }
 
@@ -561,8 +542,8 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                                 keep_prob, seed, st);
   if (dtype == 1 && head_dim == 64) FF_LAUNCH((launch_wgmma<64, 1, 4>));
   if (dtype == 1 && head_dim == 128) FF_LAUNCH((launch_wgmma<128, 1, 2>));
-  if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<float, 64>));
-  if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<float, 128>));
+  if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<64>));
+  if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<128>));
 #undef FF_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

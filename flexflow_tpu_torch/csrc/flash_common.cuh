@@ -1,13 +1,15 @@
 // Device helpers shared by the flash-attention kernels for Hopper
-// (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): the dropout keep hash
+// and its per-fragment bitmask, the bf16 pair store, and the building
+// blocks of the exact f32 kernels.
 //
-// Every kernel works on 64-row tiles with four warps, each warp owning 16
-// rows of the tile's "A" side (query rows in the forward and dq kernels,
-// key rows in the dk/dv kernel). Tiles are staged in shared memory with a
-// row stride of D + 16 bytes, so consecutive rows start in different
-// banks. For bf16 the products run on the tensor cores through
-// mma.sync.m16n8k16 with f32 accumulation; for f32 they run as FMA loops,
-// because the tensor cores would round f32 operands to TF32.
+// The f32 kernels work on 64-row tiles with four warps, each warp owning
+// 16 rows of the tile's "A" side (query rows in the forward and dq
+// kernels, key rows in the dk/dv kernel). Tiles are staged in shared
+// memory with a row stride of D + 4 floats, so consecutive rows start in
+// different banks, and every product runs as FMA loops: the tensor cores
+// would round f32 operands to TF32. The bf16 kernels are built from
+// hopper_common.cuh instead.
 
 #pragma once
 
@@ -17,11 +19,11 @@
 
 namespace ff_flash {
 
-constexpr int TILE = 64;                // rows of every tile
+constexpr int TILE = 64;                // rows of every f32 tile
 constexpr int NUM_WARPS = TILE / 16;    // each warp owns 16 rows
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int N_FRAGS = TILE / 8;       // 16x8 score fragments per warp
-constexpr int P_LD = TILE + 4;          // f32 staging row stride (f32 path)
+constexpr int P_LD = TILE + 4;          // f32 staging row stride
 constexpr float NEG_INF = -1e30f;
 
 // The dropout keep hash, bit for bit the JAX package's _position_keep:
@@ -45,72 +47,48 @@ __device__ __forceinline__ uint32_t position_hash(uint32_t seed, uint32_t bh,
   return u;
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// The dropout keep mask of this thread's 32 scores of a tile of 64 keys
+// [n0, n0 + 64) in the query-row frame of a wgmma accumulator (rows
+// qpos[0] and qpos[1], the thread's columns 8 * nt + 2 * tig + {0, 1}),
+// one bit each: bit 4 * nt + c for column block nt, fragment slot c.
+__device__ __forceinline__ uint32_t keep_bits(int n0, const int (&qpos)[2],
+                                              int tig, int bh, uint32_t seed,
+                                              uint32_t threshold) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t kpos = n0 + nt * 8 + tig * 2 + (c & 1);
+      bits |= (uint32_t)(position_hash(seed, bh, qpos[c >> 1], kpos) >=
+                         threshold)
+              << (4 * nt + c);
+    }
+  }
+  return bits;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(unsigned short lo,
-                                             unsigned short hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// Stage rows [row0, row0 + 64) of a (rows, D) matrix into shared memory
-// with row stride D + VEC, in 16-byte chunks; rows past n_rows are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int n_rows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  constexpr int LD = D + VEC;
+// Stage rows [row0, row0 + 64) of a (rows, D) f32 matrix into shared
+// memory with row stride D + 4, in 16-byte chunks; rows past n_rows are
+// zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int n_rows) {
+  constexpr int CHUNKS = D / 4;
+  constexpr int LD = D + 4;
   for (int i = threadIdx.x; i < TILE * CHUNKS; i += NUM_THREADS) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (gr < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c * VEC);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * VEC) = val;
+      val = *reinterpret_cast<const float4*>(src + (size_t)gr * D + c * 4);
+    *reinterpret_cast<float4*>(dst + r * LD + c * 4) = val;
   }
 }
 
 // s[nt][c] += a_row . b_row for this warp's 16 rows of sA and the 64 rows
 // of sB (s = A . B^T), in the mma C-fragment layout: c = 0,1 -> row g,
 // cols nt*8 + 2*tig + {0,1}; c = 2,3 -> row g + 8.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[N_FRAGS][4],
-                                       const __nv_bfloat16* sA,
-                                       const __nv_bfloat16* sB, int warp,
-                                       int g, int tig) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const __nv_bfloat16* qa = sA + (warp * 16 + g) * LD + kc * 16 + tig * 2;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(qa + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < N_FRAGS; ++nt) {
-      const __nv_bfloat16* kb = sB + (nt * 8 + g) * LD + kc * 16 + tig * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kb + 8);
-      mma_bf16_16816(s[nt], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void scores(float (&s)[N_FRAGS][4],
                                        const float* sA, const float* sB,
@@ -135,34 +113,8 @@ __device__ __forceinline__ void scores(float (&s)[N_FRAGS][4],
 
 // acc += P . V for P (this warp's 16 rows x 64 columns) held in score
 // fragments and V a (64, D) tile in shared memory; acc[dt] is the C
-// fragment of output columns dt*8... For bf16, P is rounded to bf16 here,
-// where the reference casts its left operand to the right one's dtype.
-template <int D>
-__device__ __forceinline__ void accumulate_pv(float (&acc)[D / 8][4],
-                                              const float (&p)[N_FRAGS][4],
-                                              const __nv_bfloat16* sV,
-                                              float* /*sP*/, int /*warp*/,
-                                              int g, int tig) {
-  constexpr int LD = D + 8;
-  const unsigned short* v16 = reinterpret_cast<const unsigned short*>(sV);
-#pragma unroll
-  for (int kc = 0; kc < TILE / 16; ++kc) {
-    // the C layout of two adjacent 16x8 score fragments is the A layout
-    // of one 16x16 operand
-    const uint32_t a0 = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
-    const uint32_t a1 = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
-    const uint32_t a2 = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    const uint32_t a3 = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const unsigned short* vb = v16 + (kc * 16 + tig * 2) * LD + dt * 8 + g;
-      const uint32_t b0 = pack_raw(vb[0], vb[LD]);
-      const uint32_t b1 = pack_raw(vb[8 * LD], vb[9 * LD]);
-      mma_bf16_16816(acc[dt], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
+// fragment of output columns dt*8... P goes through this warp's rows of
+// the staging buffer sP.
 template <int D>
 __device__ __forceinline__ void accumulate_pv(float (&acc)[D / 8][4],
                                               const float (&p)[N_FRAGS][4],
@@ -205,17 +157,18 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 }
 
 // Write this warp's 16 rows of a C-fragment accumulator (rows row0 + warp
-// * 16 + {g, g + 8}) to a (n_rows, D) matrix in T, skipping rows past
+// * 16 + {g, g + 8}) to a (n_rows, D) f32 matrix, skipping rows past
 // n_rows.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4],
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[D / 8][4],
                                            int row0, int n_rows, int warp,
                                            int g, int tig) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + warp * 16 + g + 8 * r;
     if (row >= n_rows) continue;
-    T* out = dst + (size_t)row * D;
+    float* out = dst + (size_t)row * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
       store2(out + dt * 8 + tig * 2, acc[dt][2 * r], acc[dt][2 * r + 1]);

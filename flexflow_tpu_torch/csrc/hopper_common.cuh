@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_attention_fwd.cu, the dk/dv kernel of flash_attention_bwd.cu):
+// Hopper (sm_90a) building blocks of the three bf16 flash-attention
+// kernels (the forward in flash_attention_fwd.cu, dq and dk/dv in
+// flash_attention_bwd.cu):
 //
 //   - two ways to fill a ring of shared-memory stages, so one stage's copy
 //     is in flight while the previous stage's products run: cp.async
@@ -28,7 +29,9 @@
 //     m16n8k16 A layout, so two adjacent 8-column blocks of an
 //     accumulator, rounded to bf16, are one 16-deep A slice.
 //
-// The dq kernel keeps the mma.sync helpers of flash_common.cuh.
+// The forward and dq fill their rings by TMA (K/V tiles, with Q, and dO
+// for dq, resident); dk/dv by cp.async, since it also streams per-row
+// lse and delta vectors.
 
 #pragma once
 

@@ -6,11 +6,11 @@ replace the three Pallas ones: ``csrc/flash_attention_fwd.cu`` the
 forward ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the backward
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; their headers say how each is
 laid out and what bounds it. ``csrc/flash_common.cuh`` holds what they
-share (the dropout hash among it) and ``csrc/hopper_common.cuh`` the
-Hopper building blocks of the bf16 forward and dk/dv kernels (the
-TMA/cp.async tile rings, the swizzled layout and its ``wgmma``
-descriptors, the ``wgmma`` wrappers); f32 inputs run FMA kernels, chosen
-by dtype inside each C entry.
+share (the dropout hash and its per-tile keep bits among it) and the f32
+kernels' helpers, ``csrc/hopper_common.cuh`` the Hopper building blocks
+of the three bf16 kernels (the TMA/cp.async tile rings, the swizzled
+layout and its ``wgmma`` descriptors, the ``wgmma`` wrappers); f32
+inputs run exact FMA kernels, chosen by dtype inside each C entry.
 
 :func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
 and is differentiable: a ``torch.autograd.Function`` (the counterpart of
@@ -300,8 +300,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                            dropout_rate: float = 0.0, dropout_seed=None):
     """dq of flash attention from the forward's lse and ``delta =
     rowsum(do * o)`` (both (b, h, sq) f32). CUDA tensors (head dim 64 or
-    128) launch the dq kernel of ``csrc/flash_attention_bwd.cu`` and count
-    one in ``.launches``; CPU tensors run
+    128) launch the dq kernel of ``csrc/flash_attention_bwd.cu`` (bf16:
+    the ``wgmma`` kernel, which encodes four TMA tensor maps per launch;
+    f32: the exact FMA kernel) and count one in ``.launches``; CPU
+    tensors run
     :func:`flash_attention_bwd_dq_plain` and count one in
     ``.plain_calls``."""
     if sm_scale is None:

@@ -301,8 +301,11 @@ def test_flash_backward_causal_dropout_matches_jax_golden():
 # d = 128 dk/dv kernel), which chip_smoke.py holds the kernels to on the
 # card: one short K tile, fewer tiles than ring stages, s not a multiple
 # of 64 or 128 with and without causal, sq != sk both ways, d = 128 with
-# dropout. Here the plain versions that the card compares the kernels with
-# are held against the JAX kernels.
+# dropout; then the dq kernel's own (64-row CTAs over 64-key tiles): many
+# query CTAs over one short K tile, few rows over many K tiles, causal
+# diagonals at one and one and a half tiles, d = 128 with dropout at a
+# ragged causal s. Here the plain versions that the card compares the
+# kernels with are held against the JAX kernels.
 TILING_CASES = [  # (sq, sk, d, causal, dropout rate)
     (40, 40, 64, False, 0.0),
     (40, 40, 64, True, 0.1),
@@ -316,6 +319,11 @@ TILING_CASES = [  # (sq, sk, d, causal, dropout rate)
     (512, 200, 64, False, 0.0),
     (320, 320, 128, False, 0.1),
     (200, 200, 128, False, 0.1),
+    (512, 40, 64, False, 0.0),
+    (40, 512, 64, False, 0.1),
+    (128, 128, 64, True, 0.0),
+    (192, 192, 64, True, 0.1),
+    (100, 100, 128, True, 0.1),
 ]
 
 
