@@ -20,7 +20,8 @@ never JAX, and:
   4. ktimes  - device times (CUDA graph replay between CUDA events) of
                each kernel, its plain version and its PyTorch yardstick,
                at b8 h12 d64 bf16, s 128 and 512, without dropout and at
-               BERT's training rate of 0.1, and each kernel's bound;
+               BERT's training rate of 0.1, and causal at GPT-2's prefill
+               shape (s 1024), and each kernel's bound;
   5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
@@ -38,12 +39,24 @@ never JAX, and:
   7. times   - the request latency and the train-step time (median, p90)
                on the host clock, and the step's peak device memory (needs
                slice);
-  8. kernels - one JSON line with each kernel's launches, error and times.
+  8. generate - drives the generation path: full-width GPT-2 small (12
+               layers, hidden 768, 12 heads, vocab 50257, 1024 positions,
+               seeded random weights) built through FFModel at 8 x 1024
+               with kernel_impls="attention:flash", through
+               InferenceSession.generate: greedy, ragged prompts with eos,
+               beam search, sampling, segmented greedy; checks 12 flash
+               launches per prefill and none per decode step, no KV
+               fallback, the outputs, and the KV decode's score rows
+               against the re-forward through flash and through plain
+               attention; times the prefill and the decode step (median,
+               p90, tokens/s) at 1 and 8 rows, the peak memory of a
+               generate call, and profiles the decode step;
+  9. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
-build,kernel,ktimes`` also times them; with no arguments every phase
-runs.
+build,kernel,ktimes`` also times them, ``--phases build,kernel,generate``
+drives generation; with no arguments every phase runs.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result; it does the
@@ -51,6 +64,7 @@ same where no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import shutil
@@ -87,7 +101,15 @@ SLICE_TOL = 2e-2
 # sum in another order; Adam's m/sqrt(v) carries those differences into
 # the weights of every later step
 TRAIN_TOL = 2e-2
+# generate phase: each score row of a KV decode step vs the re-forward's
+# row at the same position, relative to that row's logit range (max -
+# min): both paths round the same bf16 operands but sum attention in
+# another order (flash vs the decode's plain softmax), and the rounding
+# differences grow through 12 layers
+GEN_TOL = 2e-2
 LAYERS = 12
+GPT_LAYERS, GPT_SEQ = 12, 1024     # GPT-2 small, full context
+GEN_TOKENS = 64                    # tokens of the timed greedy runs
 REQUESTS = 100   # timed requests per shape: the p90 has 10 beyond it
 STEPS = 20       # timed train steps per shape
 KERNELS = ["flash_attention_fwd", "flash_attention_bwd", "adam_update"]
@@ -122,19 +144,21 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
 
 
 def attention_bound_ms(bh: int, sq: int, sk: int, d: int,
-                       itemsize: int) -> tuple:
+                       itemsize: int, causal: bool = False) -> tuple:
     """Least time for one attention forward: q, k, v read once, o and the
-    f32 lse written once, against 4*sq*sk*d flops per head on the bf16
-    tensor cores."""
+    f32 lse written once, against 4*d flops per (query, key) pair the mask
+    keeps (sq*sk, or s*(s+1)/2 causal) per head on the bf16 tensor
+    cores."""
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * itemsize + bh * sq * 4
-    flops = 4.0 * bh * sq * sk * d
+    pairs = sq * (sq + 1) / 2 if causal else sq * sk
+    flops = 4.0 * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_device() -> dict:
+def phase_device() -> tuple:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
@@ -149,7 +173,7 @@ def phase_device() -> dict:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{dev['kind']} x{dev['count']}")
     print(smi)
-    return dev
+    return dev, smi
 
 
 def ptxas_report(log: str) -> list:
@@ -232,6 +256,10 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (8, 12, 128, 128, 64, torch.bfloat16, True, 0.0),
     (8, 12, 192, 192, 64, torch.bfloat16, True, 0.1),
     (2, 4, 100, 100, 128, torch.bfloat16, True, 0.1),
+    # GPT-2 small's prefill (generate phase): causal at s = 1024, and a
+    # ragged causal s over 128-row CTAs
+    (8, 12, 1024, 1024, 64, torch.bfloat16, True, 0.0),
+    (8, 12, 1000, 1000, 64, torch.bfloat16, True, 0.0),
 ]
 
 
@@ -613,23 +641,24 @@ def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fwd_times(seq: int, rate: float, gen) -> dict:
+def fwd_times(seq: int, rate: float, gen, causal: bool = False) -> dict:
     """The forward kernel, its plain version and SDPA (its flash backend,
-    with the same dropout rate) at b8 h12 s d64 bf16."""
+    with the same dropout rate and mask) at b8 h12 s d64 bf16."""
     import torch.nn.functional as F
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
     b, h, d = 8, 12, 64
     q, k, v = (torch.randn(b, h, seq, d, device="cuda", dtype=torch.bfloat16,
                            generator=gen) for _ in range(3))
-    kw = dict(dropout_rate=rate, dropout_seed=5 if rate else None)
-    bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, 2)
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=5 if rate else None)
+    bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, 2, causal)
     return {"ms": cuda_time_ms(lambda: flash_attention(q, k, v, **kw)),
             "plain_ms": cuda_time_ms(
                 lambda: flash_attention_plain(q, k, v, **kw)),
             "library_ms": cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       dropout_p=rate)),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, dropout_p=rate, is_causal=causal)),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -726,7 +755,7 @@ def launch_host_us(n: int = 500) -> dict:
     return res
 
 
-def phase_ktimes() -> dict:
+def phase_ktimes(smi: str) -> dict:
     """Every kernel's device time beside its plain version, its PyTorch
     yardstick and its bound: the flash kernels at s 128 and 512, without
     dropout and at 0.1, and Adam over BERT-base."""
@@ -756,6 +785,14 @@ def phase_ktimes() -> dict:
                   f"h12 s{seq} d64 bf16 dropout {rate}: "
                   f"{t['sdpa_bwd_ms'] * 1e3:.2f} us vs dq + dk/dv "
                   f"{(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
+    f = res["fwd_causal"] = fwd_times(GPT_SEQ, 0.0, gen, causal=True)
+    print(f"[ktimes] flash_attention_fwd b8 h12 s{GPT_SEQ} d64 bf16 causal "
+          f"(GPT-2 small's prefill, {GPT_LAYERS} launches per prefill): "
+          f"kernel {f['ms'] * 1e3:.2f} us, plain {f['plain_ms'] * 1e3:.2f} "
+          f"us, sdpa is_causal {f['library_ms'] * 1e3:.2f} us, bound "
+          f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); kernel/sdpa "
+          f"{f['ms'] / f['library_ms']:.2f}, kernel/bound "
+          f"{f['ms'] / f['bound_ms']:.2f}; {smi}")
     h = res["host"] = launch_host_us()
     print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
           f"bf16, each encoding four TMA tensor maps: flash_attention_fwd "
@@ -769,7 +806,352 @@ def phase_ktimes() -> dict:
     return res
 
 
-def kernel_rows(errs, serve, kt, train) -> list:
+def gpt2_model(impl: str):
+    """Full-width GPT-2 small (12 layers, hidden 768, 12 heads, vocab
+    50257, 1024 positions; seeded random weights) built through FFModel
+    at 8 x 1024 with bf16 matmul operands and f32 results."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    cfg = FFConfig()
+    cfg.batch_size = 8
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = impl
+    cfg.seed = 0
+    ff = FFModel(cfg)
+    g = GPTConfig()
+    out = build_gpt2(ff, 8, GPT_SEQ, g)
+    ff.compile(SGDOptimizer(0.01), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff, g
+
+
+def gpt_prompts(rows: int, plens, vocab: int, seed: int) -> np.ndarray:
+    """(rows, GPT_SEQ) int32 ids: seeded random prompts in the first
+    plens[r] columns of each row, zeros after."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((rows, GPT_SEQ), np.int32)
+    for r, n in enumerate(np.broadcast_to(plens, (rows,))):
+        ids[r, :n] = rng.integers(0, vocab, n)
+    return ids
+
+
+def no_fallback(ff, what: str) -> None:
+    n = getattr(ff, "_kv_fallback_count", 0)
+    check(n == 0, f"{what}: the KV path fell back to the re-forward {n} "
+                  f"times")
+
+
+def check_tokens(out, ids, plens, steps, vocab, what) -> None:
+    """Prompt columns unchanged, generated ones in the vocabulary."""
+    for r, n in enumerate(np.broadcast_to(plens, (out.shape[0],))):
+        check(out.shape == ids.shape and (out[r, :n] == ids[r, :n]).all()
+              and ((out[r, n:n + steps] >= 0)
+                   & (out[r, n:n + steps] < vocab)).all(),
+              f"{what}: row {r} tokens")
+
+
+def gpt_batch(ids_np: np.ndarray) -> dict:
+    """A graph batch on the card: the ids and their positions."""
+    ids = torch.from_numpy(ids_np).cuda()
+    return {"input_ids": ids,
+            "position_ids": torch.arange(GPT_SEQ, dtype=torch.int32,
+                                         device="cuda")[None]
+            .expand(ids.shape[0], -1)}
+
+
+def prefill(ff, batch: dict, plen: int) -> dict:
+    return ff.executor.kv_prefill(ff.params, ff.state, batch,
+                                  prefill_len=plen)
+
+
+def decode_step(ff, batch: dict, cache: dict, cur: int) -> tuple:
+    """One KV decode step reading token cur - 1 of the batch's ids."""
+    sb = {k: v[:, cur - 1:cur] for k, v in batch.items()}
+    return ff.executor.kv_decode_step(ff.params, ff.state, sb, cache,
+                                      cur - 1)
+
+
+def gen_rows_check(ff, ref_models, ids_np, plen: int, steps: int) -> dict:
+    """The KV path's score rows over ``steps`` greedy decode steps (its
+    own tokens fed back) against each reference model's re-forward rows at
+    the same positions: the row ``_generate_reforward`` reads at each step
+    is ``scored_forward(ids)[:, cur - 1]``, and under the causal mask it is
+    the same row of one forward over the final ids. Rows agree within
+    GEN_TOL of the reference row's logit range; the greedy tokens agree
+    wherever the reference row's top-1/top-2 margin exceeds twice the
+    measured difference (each of the two scores moves by at most it)."""
+    with torch.inference_mode():
+        batch = gpt_batch(ids_np)
+        ids = batch["input_ids"]
+        cache = prefill(ff, batch, plen)
+        kv_rows = []
+        for cur in range(plen, plen + steps):
+            row, cache = decode_step(ff, batch, cache, cur)
+            kv_rows.append(row.float())
+            ids[:, cur] = torch.argmax(row, dim=-1).to(torch.int32)
+        kv_rows = torch.stack(kv_rows, dim=1)           # (B, steps, V)
+        del cache
+        res = {"tokens": ids[:, plen:plen + steps].cpu().numpy()}
+        for name, ref in ref_models.items():
+            scores = ref.executor.scored_forward(ref.params, ref.state,
+                                                 batch)
+            want = scores[:, plen - 1:plen - 1 + steps].float()
+            del scores
+            diff = (kv_rows - want).abs().amax(dim=-1)
+            span = want.amax(dim=-1) - want.amin(dim=-1)
+            top2 = want.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            same = torch.argmax(kv_rows, -1) == torch.argmax(want, -1)
+            decided = margin > 2 * diff
+            rel = (diff / span).max().item()
+            res[name] = {"max_abs": diff.max().item(), "max_rel": rel,
+                         "tokens_equal": int(same.sum().item()),
+                         "decided": int(decided.sum().item()),
+                         "ok": bool(rel <= GEN_TOL
+                                    and same[decided].all().item()
+                                    and torch.isfinite(kv_rows).all()
+                                    .item())}
+            del want
+    return res
+
+
+def parted_at_ties(ff, a: np.ndarray, b: np.ndarray) -> tuple:
+    """Two greedy runs from one prompt whose computations differ (a
+    segmented run re-prefills what the single hold decoded) may part
+    only at a near tie: at each row's first differing position, the two
+    tokens' scores in the re-forward row of run ``a`` lie within GEN_TOL
+    of the row's logit range. Returns (rows equal throughout, the
+    largest such gap relative to the range)."""
+    with torch.inference_mode():
+        scores = ff.executor.scored_forward(ff.params, ff.state,
+                                            gpt_batch(a))
+        equal, worst = 0, 0.0
+        for r in range(a.shape[0]):
+            d = np.flatnonzero(a[r] != b[r])
+            if not d.size:
+                equal += 1
+                continue
+            row = scores[r, d[0] - 1].float()
+            gap = (row[int(a[r, d[0]])] - row[int(b[r, d[0]])]).abs() \
+                / (row.max() - row.min())
+            worst = max(worst, gap.item())
+    return equal, worst
+
+
+def decode_step_times(ff, rows: int, plen: int, steps: int,
+                      profile: bool = False):
+    """Host-clock time of each of ``steps`` greedy KV decode steps at
+    ``rows`` rows after one prefill, each ending in a device sync; with
+    ``profile``, also a torch.profiler trace of the steps (not of the
+    prefill)."""
+    vocab = ff.params["wte"]["kernel"].shape[0]
+    batch = gpt_batch(gpt_prompts(rows, plen, vocab, 20 + rows))
+    done = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    lat = []
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    with torch.inference_mode():
+        cache = prefill(ff, batch, plen)
+        torch.cuda.synchronize()
+        with prof:
+            for cur in range(plen, plen + steps):
+                t0 = time.perf_counter()
+                row, cache = decode_step(ff, batch, cache, cur)
+                nxt, done = ff._sample_next(row, None, 0.0, None, done)
+                ff._write_token(batch["input_ids"], nxt, cur, False)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+    return lat, (prof if profile else None)
+
+
+def profile_decode(ff, rows: int, plen: int, steps: int) -> dict:
+    """torch.profiler over ``steps`` KV decode steps at ``rows`` rows:
+    kernel launches, device kernel time and wall time per step, and the
+    kernels that take the most device time."""
+    from collections import defaultdict
+    decode_step_times(ff, rows, plen, 2)
+    lat, prof = decode_step_times(ff, rows, plen, steps, profile=True)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"launches_per_step": len(kernels) / steps,
+            "device_ms_per_step": sum(by_name.values()),
+            "wall_ms_per_step": float(np.mean(lat)),
+            "top": [(n[:70], ms) for n, ms in top]}
+
+
+def phase_generate(smi: str) -> dict:
+    """The generation path: full-width GPT-2 small through
+    InferenceSession.generate with kernel_impls="attention:flash"."""
+    from flexflow_tpu_torch.kernels.flash_attention import flash_attention
+    from flexflow_tpu_torch.serving import InferenceSession
+    ff, g = gpt2_model("attention:flash")
+    V = g.vocab_size
+    sess = InferenceSession(ff, batch_buckets=(1, 8), decode_segment=0)
+    seg_sess = InferenceSession(ff, batch_buckets=(1, 8), decode_segment=16)
+    p8 = gpt_prompts(8, 512, V, 1)
+    ragged_plen = np.array([100, 517, 900], np.int32)
+    p3 = gpt_prompts(3, ragged_plen, V, 2)
+    p1 = gpt_prompts(1, 256, V, 3)
+    samp = dict(temperature=0.8, top_k=50, top_p=0.95)
+    torch.cuda.synchronize()
+    # the main path: every count starts at 0 here; each generate call
+    # runs one prefill per segment (12 flash launches) and none per
+    # decode step
+    flash_attention.launches = 0
+    outs, prefills = {}, 0
+    t0 = time.perf_counter()
+    outs["greedy8"] = sess.generate(p8, 512, GEN_TOKENS)
+    outs["ragged"] = sess.generate(p3, ragged_plen, GEN_TOKENS)
+    eos = int(outs["ragged"][0, 100 + 3])
+    outs["ragged_eos"] = sess.generate(p3, ragged_plen, GEN_TOKENS,
+                                       eos_token_id=eos)
+    outs["beam"] = sess.generate(p1, 256, 16, num_beams=4)
+    outs["sample_a"] = sess.generate(p8, 512, 32, seed=7, **samp)
+    outs["sample_b"] = sess.generate(p8, 512, 32, seed=7, **samp)
+    outs["sample_c"] = sess.generate(p8, 512, 32, seed=8, **samp)
+    prefills = len(outs)
+    no_fallback(ff, "single-hold requests")
+    outs["segmented"] = seg_sess.generate(p8, 512, GEN_TOKENS)
+    prefills += -(-GEN_TOKENS // 16)
+    no_fallback(ff, "segmented greedy")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    print(f"[generate] main path: GPT-2 small (12 layers, hidden 768, 12 "
+          f"heads, vocab {V}) through InferenceSession.generate, "
+          f"{len(outs)} requests, {prefills} prefills in {main_s:.2f} s; "
+          f"flash_attention_fwd launches {launches} (want {GPT_LAYERS} x "
+          f"{prefills} prefills, 0 per decode step); no KV fallback")
+    check(launches == GPT_LAYERS * prefills,
+          f"generate: flash launches {launches} != {GPT_LAYERS} x "
+          f"{prefills}")
+
+    # what came out
+    check_tokens(outs["greedy8"], p8, 512, GEN_TOKENS, V, "greedy")
+    check_tokens(outs["ragged"], p3, ragged_plen, GEN_TOKENS, V, "ragged")
+    check_tokens(outs["beam"], p1, 256, 16, V, "beam")
+    check_tokens(outs["sample_a"], p8, 512, 32, V, "sampling")
+    # eos latches: each row equals its free run through the first eos it
+    # emits and is eos after it (row 0 emits it by step 3)
+    for r, n in enumerate(ragged_plen):
+        row = outs["ragged_eos"][r, n:n + GEN_TOKENS]
+        free = outs["ragged"][r, n:n + GEN_TOKENS]
+        hit = np.flatnonzero(free == eos)
+        upto = hit[0] if hit.size else GEN_TOKENS
+        check((row[:upto] == free[:upto]).all() and (row[upto:] == eos).all()
+              and (r > 0 or upto <= 3), f"eos does not latch on row {r}")
+    check((outs["sample_a"] == outs["sample_b"]).all(),
+          "sampling with one seed is not repeatable")
+    check((outs["sample_a"][:, 512:544] != outs["sample_c"][:, 512:544]).any(),
+          "sampling with two seeds gave the same tokens")
+    seg_equal, seg_gap = parted_at_ties(ff, outs["greedy8"],
+                                        outs["segmented"])
+    check(seg_gap <= GEN_TOL, "segmented greedy parts from the single hold "
+                              "where the two tokens do not tie")
+    print(f"[generate] outputs: prompts kept, tokens in the vocabulary; "
+          f"eos {eos} latches on row 0 by step 3 of {GEN_TOKENS}; "
+          f"sampling (T 0.8, top-k 50, top-p 0.95, 32 tokens) repeats with "
+          f"one seed and differs with another; greedy in segments of 16 "
+          f"(its later segments re-prefill what the single hold decoded) "
+          f"equals the single hold in {seg_equal} of 8 rows, the others "
+          f"part at a near tie (the two tokens' scores {seg_gap:.2e} of "
+          f"the row's range apart, tol {GEN_TOL:.0e}); ok")
+
+    # FFModel.generate called directly: 12 launches, the KV path only
+    flash_attention.launches = 0
+    direct = ff.generate(p8, 512, 8, kv_cache=True).cpu().numpy()
+    no_fallback(ff, "FFModel.generate")
+    check(flash_attention.launches == GPT_LAYERS,
+          f"one generate call launched the forward "
+          f"{flash_attention.launches} times, want {GPT_LAYERS}")
+    check((direct[:, :520] == outs["greedy8"][:, :520]).all(),
+          "FFModel.generate differs from the session's greedy run")
+
+    # score rows of the KV path against the re-forward (flash) and the
+    # same weights through plain attention
+    ref, _ = gpt2_model("attention:xla")
+    ref.params = ff.params
+    rows = gen_rows_check(ff, {"reforward": ff, "xla": ref}, p8, 512, 8)
+    check((rows["tokens"] == outs["greedy8"][:, 512:520]).all(),
+          "the phase's decode loop differs from generate's")
+    del ref
+    for name in ("reforward", "xla"):
+        r = rows[name]
+        print(f"[generate] 8 decode steps x 8 rows, KV path vs {name} "
+              f"re-forward rows: max|diff| {r['max_abs']:.3e}, "
+              f"{r['max_rel']:.2e} of the row's logit range (tol "
+              f"{GEN_TOL:.0e}); greedy tokens equal in {r['tokens_equal']} "
+              f"of 64, {r['decided']} decided by a top-2 margin above twice "
+              f"the difference, all of those equal: "
+              f"{'ok' if r['ok'] else 'FAIL'}")
+        check(r["ok"], f"KV decode rows vs {name}")
+    res = {"launches": launches, "prefills": prefills, "rows": rows}
+    res.update(generate_times(ff, sess, p8, smi))
+    return res
+
+
+def generate_times(ff, sess, p8, smi: str) -> dict:
+    """Prefill and decode-step latencies, tokens/s, the peak memory of a
+    generate call and a profile of the decode step."""
+    lat = []
+    with torch.inference_mode():
+        batch = gpt_batch(p8)
+        for _ in range(6):
+            t0 = time.perf_counter()
+            prefill(ff, batch, 512)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    res = {"prefill_ms": float(np.median(lat[1:]))}
+    print(f"[times] gpt2-small prefill 8x{GPT_SEQ} (the layers the K/V "
+          f"depend on, {GPT_LAYERS} flash launches): median "
+          f"{res['prefill_ms']:.3f} ms over 5 (host clock, ends in a "
+          f"device sync); {smi}")
+    for b in (1, 8):
+        lat, _ = decode_step_times(ff, b, 512, GEN_TOKENS)
+        ff._decode_measured = {}
+        ff.generate(p8[:b], 512, GEN_TOKENS, kv_cache=True)
+        no_fallback(ff, f"timed generate at {b} rows")
+        m = ff._decode_measured[b]
+        res[b] = {"step_ms": float(np.median(lat)),
+                  "step_p90_ms": float(np.percentile(lat, 90)),
+                  "gen_step_ms": m["decode_step_s"] * 1e3,
+                  "gen_prefill_ms": m["prefill_s"] * 1e3,
+                  "tokens_per_s": b / m["decode_step_s"]}
+        print(f"[times] gpt2-small decode step at {b} rows (cache of "
+              f"{GPT_SEQ}): median {res[b]['step_ms']:.3f} ms, p90 "
+              f"{res[b]['step_p90_ms']:.3f} ms over {GEN_TOKENS} steps "
+              f"(host clock, each ends in a device sync); one "
+              f"FFModel.generate of {GEN_TOKENS} tokens: prefill "
+              f"{res[b]['gen_prefill_ms']:.3f} ms, "
+              f"{res[b]['gen_step_ms']:.3f} ms per token, "
+              f"{res[b]['tokens_per_s']:.1f} tokens/s; {smi}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sess.generate(p8, 512, GEN_TOKENS)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["resident_gb"] = base / 1e9
+    print(f"[times] gpt2-small peak device memory of one 8-row "
+          f"{GEN_TOKENS}-token generate: {res['peak_mem_gb']:.3f} GB "
+          f"({res['resident_gb']:.3f} GB resident before it); {smi}")
+    p = res["profile"] = profile_decode(ff, 8, 512, 8)
+    print(f"[profile] gpt2-small decode step at 8 rows (torch.profiler, 8 "
+          f"steps): {p['launches_per_step']:.0f} kernel launches, device "
+          f"kernel time {p['device_ms_per_step']:.3f} ms in a wall of "
+          f"{p['wall_ms_per_step']:.3f} ms per step (busy share "
+          f"{p['device_ms_per_step'] / p['wall_ms_per_step']:.3f}); most "
+          f"device time: "
+          + "; ".join(f"{n} {ms:.4f} ms" for n, ms in p["top"]))
+    return res
+
+
+def kernel_rows(errs, serve, kt, train, gen) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512 and dropout 0.1 beside them."""
     def fwd_row(seq, rate):
@@ -793,7 +1175,12 @@ def kernel_rows(errs, serve, kt, train) -> list:
         "train_launches": train["launches"]["flash_attention_fwd"],
         "at_s512": fwd_row(512, 0.0),
         "dropout_0.1": {"s128": fwd_row(128, 0.1),
-                        "s512": fwd_row(512, 0.1)}}]
+                        "s512": fwd_row(512, 0.1)},
+        # the generation path: GPT-2 small's causal prefill, 12 launches
+        # per prefill and none per decode step
+        "generate_launches": gen["launches"],
+        "generate_prefills": gen["prefills"],
+        "causal_prefill_s1024": dict(kt["fwd_causal"])}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -819,7 +1206,8 @@ def kernel_rows(errs, serve, kt, train) -> list:
     return rows
 
 
-PHASES = ("build", "kernel", "ktimes", "slice", "train", "times")
+PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
+          "generate")
 
 
 def main() -> int:
@@ -829,19 +1217,20 @@ def main() -> int:
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (times needs slice)")
     phases = set(ap.parse_args().phases.split(","))
-    dev = phase_device()
+    dev, smi = phase_device()
     if "build" in phases:
         phase_build()
     errs = phase_kernel() if "kernel" in phases else None
-    kt = phase_ktimes() if "ktimes" in phases else None
+    kt = phase_ktimes(smi) if "ktimes" in phases else None
     serve = phase_slice((128, 512)) if "slice" in phases else None
     train = phase_train() if "train" in phases else None
     if "times" in phases:
         phase_times(serve.pop("models"))
+    gen = phase_generate(smi) if "generate" in phases else None
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
-    print(json.dumps({"kernels": kernel_rows(errs, serve, kt, train)}))
+    print(json.dumps({"kernels": kernel_rows(errs, serve, kt, train, gen)}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

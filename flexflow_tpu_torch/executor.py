@@ -7,7 +7,8 @@ takes the place of ``jax.grad``. ``make_forward`` serves under
 ``torch.inference_mode()``; ``make_train_step`` runs forward, backward
 (``torch.autograd.grad`` over the parameters, with gradient accumulation
 over micro-batches) and the optimizer update, fused or not;
-``make_eval_step`` computes the loss and metrics. Banks, place groups,
+``make_eval_step`` computes the loss and metrics; ``scored_forward``,
+``kv_prefill`` and ``kv_decode_step`` serve generation. Banks, place groups,
 sharding constraints, pipelines, rematerialization and the multi-device
 train-step branches (overlap, quantized sync, ZeRO) belong to the JAX
 package's multi-device lowerings and come with the slices that port them.
@@ -121,6 +122,9 @@ class Executor:
         self._forward_fn = None
         self._train_step = None
         self._eval_step = None
+        # (batch, seq) shapes at which KV-cache generation failed (auto
+        # mode then goes straight to the re-forward path)
+        self._kv_failed_shapes: set = set()
         # CE-on-logits: if the final op is Softmax, the loss takes its
         # input as logits (the gradient is the reference's
         # (probs - labels) / batch)
@@ -336,3 +340,84 @@ class Executor:
 
         self._forward_fn = fwd
         return fwd
+
+    # ------------------------------------------------------------------
+    # generation support
+    # ------------------------------------------------------------------
+    def _scores(self, outs, capture):
+        """Log-domain next-token scores: the pre-softmax logits when the
+        graph ends in Softmax (exact), else log of the clipped output
+        probabilities."""
+        if self._logits_tensor is not None \
+                and self._logits_tensor.guid in capture:
+            return capture[self._logits_tensor.guid]
+        return torch.log(torch.clamp(outs[0], min=1e-20))
+
+    def _kv_ctx(self, mode: str, state) -> EmitCtx:
+        ctx = EmitCtx(training=False, rngs={}, state=state,
+                      config=self.config)
+        self._attach_kernel_ctx(ctx)
+        ctx.kv_mode = mode
+        return ctx
+
+    def scored_forward(self, params, state, batch):
+        """Forward returning log-domain next-token scores (B, L, V), under
+        ``torch.inference_mode()``."""
+        with torch.inference_mode():
+            outs, _, _, capture = self._forward(params, state, batch, False)
+            return self._scores(outs, capture)
+
+    def _kv_layers(self) -> List[Layer]:
+        """The layers the attention layers' K/V depend on, in graph
+        order."""
+        by_guid = {t.guid: l for l in self.program.layers for t in l.outputs}
+        need = set()
+        stack = [l for l in self.program.layers
+                 if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION]
+        while stack:
+            layer = stack.pop()
+            if layer.name in need:
+                continue
+            need.add(layer.name)
+            stack.extend(by_guid[t.guid] for t in layer.inputs
+                         if t.guid in by_guid)
+        return [l for l in self.program.layers if l.name in need]
+
+    def kv_prefill(self, params, state, batch, prefill_len=None):
+        """Full-sequence forward of the layers the attention layers' K/V
+        depend on, under ``torch.inference_mode()``; returns every
+        attention layer's K/V buffers, the decode cache seed.
+        ``prefill_len`` (an int) counts the real prompt positions;
+        sliding-window layers seed their O(window) ring-buffer cache from
+        it. The JAX package's ``kv_prefill`` also returns the graph's
+        outputs, which no caller reads and XLA drops; run eagerly, the LM
+        head and the vocabulary softmax after the last attention layer
+        would cost a (B, L, V) pass each, so they are not run."""
+        ctx = self._kv_ctx("prefill", state)
+        ctx.kv_prefill_len = prefill_len
+        with torch.inference_mode():
+            env = self.program.init_env(batch, self.device)
+            self.program.emit_layers(self._kv_layers(), env, params, ctx)
+        if not ctx.new_kv:
+            raise ValueError("graph has no multihead-attention layers to "
+                             "cache (KV decode unsupported)")
+        return ctx.new_kv
+
+    def kv_decode_step(self, params, state, batch, cache, index):
+        """One-token forward (inputs (B, 1)) against the KV cache at query
+        position ``index`` (an int, or a (B,) tensor for ragged prompts),
+        under ``torch.inference_mode()``. The attention layers write this
+        position's K/V into ``cache``'s buffers in place. Returns
+        (scores_row (B, V), new_cache); cache layers that did not run
+        keep their buffers."""
+        ctx = self._kv_ctx("decode", state)
+        ctx.kv_cache = cache
+        ctx.kv_index = index
+        with torch.inference_mode():
+            capture: Dict[int, Any] = {}
+            outs = self.program.emit(params, batch, ctx, self.device,
+                                     capture)
+            scores = self._scores(outs, capture)
+        new_cache = dict(cache)
+        new_cache.update(ctx.new_kv)
+        return scores[:, 0, :], new_cache

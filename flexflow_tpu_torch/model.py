@@ -1,13 +1,15 @@
 """FFModel: the model-building API and compile, on one device.
 
 The port of ``flexflow_tpu/model.py`` on one device: the layer builders
-BERT uses (same names, params and auto-naming as the JAX package, so the
-two graphs of one model line up layer for layer), ``compile`` without
-search or mesh (parameters and optimizer state materialized), the forced
-path of the kernel tier, and the training loop (``fit``, ``eval``, the
-phase-API no-ops). The other builders, the strategy search, generation,
-and fit's fault hooks, callbacks, telemetry and checkpoint saves come
-with later slices.
+BERT and GPT-2 use (same names, params and auto-naming as the JAX
+package, so the two graphs of one model line up layer for layer),
+``compile`` without search or mesh (parameters and optimizer state
+materialized), the forced path of the kernel tier, the training loop
+(``fit``, ``eval``, the phase-API no-ops) and generation (``generate``
+over a KV cache or by full re-forwards, greedy or sampled, ragged
+prompts, eos; ``generate_beam``). The other builders, the strategy
+search, and the fault hooks, callbacks, telemetry and checkpoint saves
+come with later slices.
 
 The model runs on ``config.device`` ("cuda" by default) unless the
 caller passes ``device``; asking for CUDA where there is none raises.
@@ -166,6 +168,7 @@ class FFModel:
                             bias: bool = True, add_bias_kv: bool = False,
                             add_zero_attn: bool = False, causal: bool = False,
                             num_kv_heads: int = 0,
+                            sliding_window: int = 0,
                             kernel_initializer=None,
                             name: Optional[str] = None) -> Tensor:
         params = {"embed_dim": embed_dim, "num_heads": num_heads,
@@ -179,6 +182,17 @@ class FFModel:
                     f"num_kv_heads {num_kv_heads} must divide "
                     f"num_heads {num_heads}")
             params["num_kv_heads"] = int(num_kv_heads)
+        if sliding_window:
+            # Mistral-family local attention: queries see the last
+            # `sliding_window` positions only
+            if not causal:
+                raise ValueError("sliding_window requires causal "
+                                 "attention")
+            if sliding_window <= 0:
+                raise ValueError(
+                    f"sliding_window must be positive, "
+                    f"got {sliding_window}")
+            params["sliding_window"] = int(sliding_window)
         return self._add_layer(OperatorType.OP_MULTIHEAD_ATTENTION,
                                [query, key, value], params, name).outputs[0]
 
@@ -435,3 +449,387 @@ class FFModel:
 
     def get_perf_metrics(self):
         return self._current_metrics
+
+    # ==================================================================
+    # generation
+    # ==================================================================
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _ids(self, prompt_ids) -> torch.Tensor:
+        """(batch, seq_len) ids, numpy or torch, as int32 on the model's
+        device."""
+        if not torch.is_tensor(prompt_ids):
+            prompt_ids = torch.as_tensor(np.asarray(prompt_ids))
+        return prompt_ids.to(device=self.device, dtype=torch.int32)
+
+    def _plen(self, prompt_len):
+        """The prompt length as the decode loops index with it: an int,
+        or a (B,) int64 tensor on the device for ragged prompts."""
+        if np.ndim(prompt_len) > 0:
+            return torch.as_tensor(prompt_len, dtype=torch.int64,
+                                   device=self.device)
+        return prompt_len
+
+    def _positions(self, b: int, L: int) -> torch.Tensor:
+        return torch.arange(L, dtype=torch.int32,
+                            device=self.device)[None].expand(b, L)
+
+    def generate(self, prompt_ids, prompt_len: "int | np.ndarray",
+                 max_new_tokens: int, temperature: float = 0.0,
+                 seed: int = 0, extra_inputs=None,
+                 eos_token_id: Optional[int] = None,
+                 kv_cache: Union[bool, str] = "auto",
+                 top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+        """Autoregressive generation for causal LMs (GPT-2 and the
+        transformer-LM family).
+
+        ``prompt_ids``: (batch, seq_len) integer ids (numpy or torch), the
+        prompt in columns [0, prompt_len) and anything (e.g. zeros) after.
+        ``prompt_len`` may be a (batch,) int array for RAGGED prompts:
+        each row decodes from its own length. ``temperature`` 0 = greedy
+        argmax; > 0 = sampling from the pre-softmax logits after the
+        top-k and top-p filters (:func:`filter_logits`), drawn from a
+        ``torch.Generator`` on the model's device seeded by ``seed``.
+        ``eos_token_id``: rows that emit it keep emitting it for the
+        remaining steps. Returns the completed (batch, seq_len) int32 ids
+        on the model's device.
+
+        ``kv_cache``: "auto" (default) decodes incrementally against a
+        per-layer K/V cache (one prefill forward, then one length-1
+        forward per token) when the graph supports it (causal
+        multihead-attention layers, inputs limited to input_ids /
+        position_ids), and falls back, with a warning and a count in
+        ``_kv_fallback_count``, to the exact full re-forward path
+        otherwise. True forces the KV path (raises when unsupported),
+        False forces the re-forward oracle."""
+        if self.executor is None:
+            raise ValueError("call compile() first")
+        ids0 = self._ids(prompt_ids)
+        b, L = ids0.shape
+        if torch.is_tensor(prompt_len):
+            prompt_len = prompt_len.cpu().numpy()
+        if np.ndim(prompt_len) > 0:
+            # ragged prompts: one length per batch row
+            prompt_len = np.asarray(prompt_len, np.int32)
+            if prompt_len.shape != (b,):
+                raise ValueError(
+                    f"ragged prompt_len must have shape ({b},), got "
+                    f"{prompt_len.shape}")
+            if not ((prompt_len >= 1).all()
+                    and (prompt_len + max_new_tokens <= L).all()):
+                raise ValueError(
+                    f"each prompt_len must satisfy 1 <= len and "
+                    f"len + max_new_tokens <= {L}; got {prompt_len} "
+                    f"with max_new_tokens={max_new_tokens}")
+        else:
+            prompt_len = int(prompt_len)
+            if prompt_len < 1:
+                raise ValueError(
+                    "prompt_len must be >= 1 (the first token "
+                    "conditions decode)")
+            if prompt_len + max_new_tokens > L:
+                raise ValueError(
+                    f"prompt_len {prompt_len} + max_new_tokens "
+                    f"{max_new_tokens} exceeds the sequence length {L}")
+        names = {t.name for t in self.graph_inputs}
+        # the other graph inputs, numpy or torch (GraphProgram.init_env
+        # moves them to the device)
+        fixed = dict(extra_inputs or {})
+        if "position_ids" in names and "position_ids" not in fixed:
+            fixed["position_ids"] = self._positions(b, L)
+
+        # failed KV attempts are remembered per (batch, seq) shape, so
+        # repeated auto-mode requests at a failing shape don't re-pay the
+        # attempt while other shapes still get the KV path
+        failed = self.executor._kv_failed_shapes
+        want_kv = kv_cache if isinstance(kv_cache, bool) \
+            else (self._kv_decode_eligible(names, extra_inputs)
+                  and (b, L) not in failed)
+        if want_kv:
+            try:
+                return self._generate_kv(ids0, prompt_len, max_new_tokens,
+                                         temperature, seed, eos_token_id,
+                                         top_k, top_p)
+            except Exception:
+                if kv_cache is True:
+                    raise
+                failed.add((b, L))
+                # the fallback is exact but O(L) per token: a deployment
+                # quietly riding it is a performance fault, so it is
+                # counted and logged, not silent
+                self._kv_fallback_count = getattr(
+                    self, "_kv_fallback_count", 0) + 1
+                logging.getLogger("flexflow_tpu_torch").warning(
+                    "KV-cache decode failed for this graph at shape "
+                    "(%d, %d); falling back to full re-forward "
+                    "generation (cached: subsequent auto-mode calls at "
+                    "this shape skip the KV attempt)", b, L,
+                    exc_info=True)
+        return self._generate_reforward(ids0, prompt_len, max_new_tokens,
+                                        temperature, seed, eos_token_id,
+                                        fixed, top_k, top_p)
+
+    def _kv_decode_eligible(self, names, extra_inputs) -> bool:
+        """KV decode needs inputs limited to input_ids (+position_ids)
+        and every attention layer a causal OP_MULTIHEAD_ATTENTION."""
+        if extra_inputs:
+            return False
+        if not names <= {"input_ids", "position_ids"}:
+            return False
+        mha = [l for l in self.executor.program.layers
+               if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION]
+        return bool(mha) and all(l.params.get("causal", False)
+                                 for l in mha)
+
+    def _sampling_generator(self, temperature: float, seed: int):
+        if temperature <= 0.0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _generate_kv(self, ids0, prompt_len, max_new_tokens, temperature,
+                     seed, eos_token_id, top_k=0, top_p=1.0):
+        """Incremental decode: one full-sequence prefill builds the
+        per-layer K/V cache, then each generated token is one length-1
+        forward, whose cost does not grow with the tokens generated (the
+        re-forward path is O(L) per token). Prefill and decode are timed
+        apart (each ends in a device sync) into ``_decode_measured``: per
+        batch size, the least prefill time and per-token decode-step time
+        seen."""
+        ex = self.executor
+        b, L = ids0.shape
+        dev = self.device
+        has_pos = "position_ids" in {t.name for t in self.graph_inputs}
+        ragged = np.ndim(prompt_len) > 0
+        plen = self._plen(prompt_len)
+        gen = self._sampling_generator(temperature, seed)
+        with torch.inference_mode():
+            batch = {"input_ids": ids0}
+            if has_pos:
+                batch["position_ids"] = self._positions(b, L)
+            t0 = time.perf_counter()
+            # ragged prompts keep the full cache (the ring-buffer seed
+            # needs one shared prompt length); masks stay per-row exact
+            cache = ex.kv_prefill(self.params, self.state, batch,
+                                  prefill_len=None if ragged else plen)
+            self._sync()
+            t1 = time.perf_counter()
+            ids = ids0.clone()
+            done = torch.zeros(b, dtype=torch.bool, device=dev)
+            for i in range(max_new_tokens):
+                cur = plen + i         # the index being generated
+                sb = {"input_ids": self._read_token_row(ids, cur, ragged)}
+                if has_pos:
+                    sb["position_ids"] = (cur - 1)[:, None] if ragged \
+                        else torch.full((b, 1), cur - 1, dtype=torch.int32,
+                                        device=dev)
+                row, cache = ex.kv_decode_step(self.params, self.state, sb,
+                                               cache, cur - 1)
+                nxt, done = self._sample_next(row, gen, temperature,
+                                              eos_token_id, done, top_k,
+                                              top_p)
+                self._write_token(ids, nxt, cur, ragged)
+            self._sync()
+            t2 = time.perf_counter()
+        step_s = (t2 - t1) / max(int(max_new_tokens), 1)
+        rec = getattr(self, "_decode_measured", None)
+        if rec is None:
+            rec = self._decode_measured = {}
+        old = rec.get(b)
+        rec[b] = {
+            "prefill_s": (t1 - t0) if old is None
+            else min(old["prefill_s"], t1 - t0),
+            "decode_step_s": step_s if old is None
+            else min(old["decode_step_s"], step_s),
+            "n": 1 if old is None else old["n"] + 1,
+        }
+        return ids
+
+    def generate_beam(self, prompt_ids, prompt_len: int,
+                      max_new_tokens: int, num_beams: int = 4,
+                      eos_token_id: Optional[int] = None) -> torch.Tensor:
+        """Beam-search decoding over the KV cache (deterministic; no
+        length penalty: scores are summed token log-probs). Requires a
+        KV-decode-eligible graph (see ``_kv_decode_eligible``). Beams
+        live on the batch dim (b*K rows) and the cache is gathered by
+        source beam each step; a finished beam continues with eos only,
+        at no cost. Returns the best (batch, seq_len) int32 ids on the
+        model's device."""
+        if self.executor is None:
+            raise ValueError("call compile() first")
+        ids0 = self._ids(prompt_ids)
+        b, L = ids0.shape
+        K = int(num_beams)
+        if K < 1:
+            raise ValueError(f"num_beams must be >= 1, got {K}")
+        if np.ndim(prompt_len) > 0:
+            raise ValueError("generate_beam needs one scalar prompt_len "
+                             "(per-row prompt lengths are unsupported "
+                             "for beam search)")
+        plen = int(prompt_len)
+        if plen < 1:
+            raise ValueError("prompt_len must be >= 1")
+        if plen + max_new_tokens > L:
+            raise ValueError(
+                f"prompt_len {plen} + max_new_tokens "
+                f"{max_new_tokens} exceeds the sequence length {L}")
+        names = {t.name for t in self.graph_inputs}
+        if not self._kv_decode_eligible(names, None):
+            raise ValueError("generate_beam requires a KV-decode-"
+                             "eligible graph (causal fused attention)")
+        ex = self.executor
+        dev = self.device
+        NEG = -1e30
+
+        def gather(cache, src):
+            return {n: {k: t.index_select(0, src) for k, t in c.items()}
+                    for n, c in cache.items()}
+
+        with torch.inference_mode():
+            batch = {"input_ids": ids0}
+            if "position_ids" in names:
+                batch["position_ids"] = self._positions(b, L)
+            cache = ex.kv_prefill(self.params, self.state, batch,
+                                  prefill_len=plen)
+            # beams on the batch dim: row r's beams are rows r*K..r*K+K-1
+            rep = torch.arange(b, device=dev).repeat_interleave(K)
+            ids = ids0.index_select(0, rep)
+            cache = gather(cache, rep)
+            # all beams start identical: only beam 0 is live, so the
+            # first step picks the row's top-K distinct tokens
+            scores = torch.where(torch.arange(K, device=dev) == 0, 0.0,
+                                 NEG).repeat(b)
+            done = torch.zeros(b * K, dtype=torch.bool, device=dev)
+            for i in range(max_new_tokens):
+                cur = plen + i
+                sb = {"input_ids": ids[:, cur - 1:cur]}
+                if "position_ids" in names:
+                    sb["position_ids"] = torch.full(
+                        (b * K, 1), cur - 1, dtype=torch.int32, device=dev)
+                row, cache = ex.kv_decode_step(self.params, self.state, sb,
+                                               cache, cur - 1)
+                V = row.shape[-1]
+                logp = torch.log_softmax(row.float(), dim=-1)
+                if eos_token_id is not None:
+                    eos_only = torch.where(
+                        torch.arange(V, device=dev) == eos_token_id, 0.0,
+                        NEG)
+                    logp = torch.where(done[:, None], eos_only[None], logp)
+                flat = (scores[:, None] + logp).reshape(b, K * V)
+                # the first K of a stable descending sort: the lower index
+                # first among equal scores, as jax.lax.top_k orders them
+                top_s, top_i = torch.sort(flat, dim=-1, descending=True,
+                                          stable=True)
+                top_s, top_i = top_s[:, :K], top_i[:, :K]
+                beam = torch.div(top_i, V, rounding_mode="floor")
+                token = (top_i % V).to(torch.int32).reshape(-1)
+                src = (torch.arange(b, device=dev)[:, None] * K
+                       + beam).reshape(-1)
+                ids = ids.index_select(0, src)
+                cache = gather(cache, src)
+                done = done.index_select(0, src)
+                scores = top_s.reshape(-1)
+                if eos_token_id is not None:
+                    token = torch.where(done, torch.full_like(
+                        token, eos_token_id), token)
+                    done = done | (token == eos_token_id)
+                ids[:, cur] = token
+            best = torch.argmax(scores.reshape(b, K), dim=-1)
+            return ids.reshape(b, K, L)[torch.arange(b, device=dev), best]
+
+    @staticmethod
+    def _read_token_row(arr, cur, ragged):
+        """Row at position cur-1 of each batch row, (B, 1, ...): cur is
+        an int (shared position) or a (B,) tensor (ragged)."""
+        if ragged:
+            idx = (cur - 1)[:, None]
+            if arr.dim() == 2:      # ids (B, L)
+                return torch.gather(arr, 1, idx)
+            return torch.gather(
+                arr, 1, idx[:, :, None].expand(-1, 1, arr.shape[-1]))
+        return arr[:, cur - 1:cur]
+
+    @staticmethod
+    def _write_token(ids, nxt, cur, ragged) -> None:
+        """Write nxt at column cur of ids, in place (per row when
+        ragged)."""
+        if ragged:
+            ids[torch.arange(ids.shape[0], device=ids.device), cur] = nxt
+        else:
+            ids[:, cur] = nxt
+
+    def _sample_next(self, row, gen, temperature, eos_token_id, done,
+                     top_k: int = 0, top_p: float = 1.0):
+        """Shared sampling step: ``row`` is (B, V) log-domain scores.
+        Greedy takes the first maximum; sampling takes the Gumbel-max of
+        the filtered logits (one uniform draw per entry from ``gen``),
+        which draws from their softmax. Returns (next ids int32, done)."""
+        if temperature > 0.0:
+            logits = filter_logits(row.float(), temperature, top_k, top_p)
+            u = torch.rand(logits.shape, generator=gen,
+                           device=logits.device)
+            u = u.clamp_min(torch.finfo(torch.float32).tiny)
+            nxt = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+        else:
+            nxt = torch.argmax(row, dim=-1)
+        nxt = nxt.to(torch.int32)
+        if eos_token_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
+            done = done | (nxt == eos_token_id)
+        return nxt, done
+
+    def _generate_reforward(self, ids0, prompt_len, max_new_tokens,
+                            temperature, seed, eos_token_id, fixed,
+                            top_k=0, top_p=1.0):
+        """Exact oracle path: one full forward per token; the causal mask
+        guarantees positions < t ignore columns >= t."""
+        ex = self.executor
+        b, _ = ids0.shape
+        ragged = np.ndim(prompt_len) > 0
+        plen = self._plen(prompt_len)
+        gen = self._sampling_generator(temperature, seed)
+        with torch.inference_mode():
+            ids = ids0.clone()
+            done = torch.zeros(b, dtype=torch.bool, device=self.device)
+            for i in range(max_new_tokens):
+                scores = ex.scored_forward(self.params, self.state,
+                                           {"input_ids": ids, **fixed})
+                cur = plen + i
+                row = self._read_token_row(scores, cur, ragged)[:, 0, :]
+                nxt, done = self._sample_next(row, gen, temperature,
+                                              eos_token_id, done, top_k,
+                                              top_p)
+                self._write_token(ids, nxt, cur, ragged)
+            return ids
+
+
+def filter_logits(row: torch.Tensor, temperature: float, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """The logits that sampling draws from: ``row`` (B, V) log-domain
+    scores over ``temperature``, then top-k, then top-p (nucleus: the
+    smallest prefix of tokens in descending probability whose cumulative
+    probability reaches ``top_p``), from ONE descending sort; the
+    filtered entries are -inf. The JAX package's ``_sample_next``
+    filter, op for op."""
+    logits = row / temperature
+    V = logits.shape[-1]
+    use_k = bool(top_k) and 0 < top_k < V
+    if use_k or top_p < 1.0:
+        ninf = float("-inf")
+        desc = torch.sort(logits, dim=-1, descending=True).values
+        if use_k:
+            # the kth value is desc[:, k-1]; masking the tail keeps the
+            # survivors' descending order for the nucleus scan
+            kth = desc[:, top_k - 1:top_k]
+            logits = logits.masked_fill(logits < kth, ninf)
+            desc = desc.masked_fill(
+                torch.arange(V, device=desc.device)[None, :] >= top_k, ninf)
+        if top_p < 1.0:
+            probs = torch.softmax(desc, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            excluded = cum - probs > top_p   # the prefix before reached p
+            thresh = desc.masked_fill(excluded, float("inf")).amin(
+                dim=-1, keepdim=True)
+            logits = logits.masked_fill(logits < thresh, ninf)
+    return logits

@@ -1,1 +1,1 @@
-from .nlp import BertConfig, build_bert  # noqa: F401
+from .nlp import BertConfig, GPTConfig, build_bert, build_gpt2  # noqa: F401

@@ -1,11 +1,12 @@
-"""Neural-net operators of the serving slice: Linear, Softmax, Dropout,
-LayerNorm, Embedding and MultiHeadAttention.
+"""Neural-net operators of the serving, training and generation slices:
+Linear, Softmax, Dropout, LayerNorm, Embedding and MultiHeadAttention
+(with its sliding window and its KV-cache prefill and decode paths).
 
 The port of the same classes in ``flexflow_tpu/ops/nn_ops.py``: the same
 params, weight specs (names, shapes, initializers) and math, on torch
 tensors. Sequences are (batch, seq, hidden). Conv, pooling, norms other
-than LayerNorm, RoPE, sliding-window attention, ring attention and the
-KV-cache paths come with later slices and raise here.
+than LayerNorm, RoPE and ring attention come with later slices and raise
+here.
 """
 from __future__ import annotations
 
@@ -255,17 +256,47 @@ class MultiHeadAttentionOp(OpDef):
             return x
         return torch.repeat_interleave(x, h // kvh, dim=2)
 
+    @staticmethod
+    def _out_proj(ctxv, weights, mdt, cdt):
+        """(B, L, h, d) f32 attention context -> (B, L, E) output."""
+        bsz, lq, h, d = ctxv.shape
+        wo = weights["wo"]
+        out = mm_f32(ctxv.to(mdt).reshape(bsz, lq, h * d),
+                     wo.to(mdt).reshape(h * d, wo.shape[2]))
+        if "bo" in weights:
+            out = out + weights["bo"].float()
+        return [out.to(cdt)]
+
+    @staticmethod
+    def _prefill_cache(params, ctx, kh, vh):
+        """The decode cache seeded from a prefill's K/V (B, L, kvh, d),
+        at the kv-head count. With a sliding window W < L and one shared
+        prompt length, an O(W) ring buffer: position p lives at slot
+        p % W, slot s holds the largest prompt position congruent to s
+        (mod W), and slots no prompt position reached carry position
+        -10**9 (masked). Otherwise the full K/V; padded positions hold
+        garbage that the decode step rewrites before it unmasks them."""
+        W = params.get("sliding_window", 0)
+        plen = ctx.kv_prefill_len
+        L = kh.shape[1]
+        if not (W and plen is not None and W < L):
+            return {"k": kh, "v": vh}
+        s_idx = torch.arange(W, device=kh.device)
+        pstar = plen - 1 - torch.remainder(plen - 1 - s_idx, W)
+        gather = pstar.clamp(0, L - 1)
+        pos = torch.where(pstar >= 0, pstar,
+                          torch.full_like(pstar, -(10 ** 9)))
+        return {"k": kh.index_select(1, gather),
+                "v": vh.index_select(1, gather),
+                "pos": pos[None, :].expand(kh.shape[0], W).contiguous()}
+
     def emit(self, params, inputs, weights, ctx, name):
         q, k, v = inputs
         cdt = q.dtype
         mdt = compute_dtype(ctx, cdt)
-        for key in ("rope", "sliding_window"):
-            if params.get(key):
-                raise NotImplementedError(
-                    f"{name}: MultiHeadAttention {key} is not ported yet")
-        if ctx.kv_mode is not None:
+        if params.get("rope"):
             raise NotImplementedError(
-                f"{name}: KV-cache {ctx.kv_mode} is not ported yet")
+                f"{name}: MultiHeadAttention rope is not ported yet")
 
         def proj(x, w, b):
             bsz, length, e = x.shape
@@ -280,6 +311,12 @@ class MultiHeadAttentionOp(OpDef):
         vh = proj(v, weights["wv"], weights.get("bv"))
         rate = params.get("dropout", 0.0) if ctx.training else 0.0
         causal = params.get("causal", False)
+        window = params.get("sliding_window", 0)
+        if ctx.kv_mode == "prefill":
+            ctx.new_kv[name] = self._prefill_cache(params, ctx, kh, vh)
+        elif ctx.kv_mode == "decode":
+            return self._emit_decode(params, weights, ctx, name, qh, kh, vh,
+                                     mdt, cdt)
         kh = self._expand_kv(kh, qh.shape[2])
         vh = self._expand_kv(vh, qh.shape[2])
         bsz, lq, h, d = qh.shape
@@ -293,9 +330,10 @@ class MultiHeadAttentionOp(OpDef):
             impl, self._flash_mode(ctx))
         if self._flash_enabled(ctx, seq_len=max(lq, lk), mode=flash_mode,
                                device_type=q.device.type) \
-                and not (causal and lq != lk) \
+                and not (causal and lq != lk) and not window \
                 and not (rate > 0.0 and flash_mode != "true"):
-            # in "auto" mode the dropout case stays on the plain path
+            # in "auto" mode the dropout case stays on the plain path; the
+            # kernel has no sliding-window mask
             from ..kernels.flash_attention import flash_attention
             # the kernel's seed is drawn on the host: no device sync
             seed = host_seed(ctx.rng_for(name)) if rate > 0.0 else None
@@ -313,7 +351,12 @@ class MultiHeadAttentionOp(OpDef):
             if causal:
                 qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
                 kpos = torch.arange(lk, device=q.device)[None, :]
-                logits = torch.where(kpos <= qpos, logits,
+                mask = kpos <= qpos
+                if window:
+                    # Mistral-family sliding window: each query attends
+                    # the last `window` positions only
+                    mask = mask & (kpos > qpos - window)
+                logits = torch.where(mask, logits,
                                      torch.full_like(logits, -1e9))
             probs = torch.softmax(logits, dim=-1)
             if rate > 0.0:
@@ -326,9 +369,68 @@ class MultiHeadAttentionOp(OpDef):
             vb = vh.to(mdt).permute(0, 2, 1, 3).reshape(bsz * h, lk, d)
             ctxv = mm_f32(probs.to(mdt).reshape(bsz * h, lq, lk), vb)
             ctxv = ctxv.reshape(bsz, h, lq, d).transpose(1, 2)
-        wo = weights["wo"]
-        out = mm_f32(ctxv.to(mdt).reshape(bsz, lq, h * d),
-                     wo.to(mdt).reshape(h * d, wo.shape[2]))
-        if "bo" in weights:
-            out = out + weights["bo"].float()
-        return [out.to(cdt)]
+        return self._out_proj(ctxv, weights, mdt, cdt)
+
+    def _emit_decode(self, params, weights, ctx, name, qh, kh, vh, mdt,
+                     cdt):
+        """One-token decode against the KV cache: write this position's
+        K/V into the layer's cache buffers (in place), then attend the
+        length-1 query over the positions <= kv_index. The same mask and
+        softmax domain as the full re-forward's row at kv_index, the
+        numerics oracle of the generation tests."""
+        if not params.get("causal", False):
+            raise ValueError(
+                "KV-cache decode requires causal self-attention")
+        cache = ctx.kv_cache[name]
+        idx = ctx.kv_index
+        ragged = torch.is_tensor(idx) and idx.dim() == 1   # (B,) positions
+        ring = "pos" in cache
+        if ring and ragged:
+            raise ValueError(
+                "ragged prompts use the full cache (generate passes "
+                "prefill_len=None for vector prompt lengths)")
+        k_full, v_full = cache["k"], cache["v"]
+        b_, lq_, hq, d_ = qh.shape
+        if ragged:
+            # each row writes at its own position
+            rows = torch.arange(b_, device=qh.device)
+            k_full[rows, idx] = kh[:, 0].to(k_full.dtype)
+            v_full[rows, idx] = vh[:, 0].to(v_full.dtype)
+        else:
+            idx = int(idx)
+            # sliding-window ring buffer: slot idx % W, with the stored
+            # position tracked for the validity mask
+            slot = idx % k_full.shape[1] if ring else idx
+            k_full[:, slot] = kh[:, 0].to(k_full.dtype)
+            v_full[:, slot] = vh[:, 0].to(v_full.dtype)
+            if ring:
+                cache["pos"][:, slot] = idx
+        ctx.new_kv[name] = cache
+        # GQA: contract the length-1 query against the cache AT kvh
+        # heads, g = h / kvh query heads per group, with no expanded copy
+        # of the cache; g == 1 is plain MHA
+        m = k_full.shape[1]
+        kvh = k_full.shape[2]
+        g = hq // kvh
+        qg = qh.to(mdt).reshape(b_, kvh, g, d_).reshape(b_ * kvh, g, d_)
+        kt = k_full.to(mdt).permute(0, 2, 3, 1).reshape(b_ * kvh, d_, m)
+        logits = mm_f32(qg, kt).reshape(b_, kvh, g, m) \
+            * (1.0 / math.sqrt(d_))
+        window = params.get("sliding_window", 0)
+        if ring:
+            # the slots' positions carry the mask (invalid slots hold
+            # -10**9)
+            p = cache["pos"][:, None, None, :]
+            mask = (p <= idx) & (p > idx - window)
+        else:
+            kpos = torch.arange(m, device=qh.device)[None, None, None, :]
+            iq = idx[:, None, None, None] if ragged else idx
+            mask = kpos <= iq
+            if window:
+                mask = mask & (kpos > iq - window)
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+        probs = torch.softmax(logits, dim=-1)
+        vb = v_full.to(mdt).permute(0, 2, 1, 3).reshape(b_ * kvh, m, d_)
+        ctxv = mm_f32(probs.to(mdt).reshape(b_ * kvh, g, m), vb)
+        return self._out_proj(ctxv.reshape(b_, lq_, hq, d_), weights, mdt,
+                              cdt)

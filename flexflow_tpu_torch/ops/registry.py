@@ -64,8 +64,20 @@ class EmitCtx:
         self.new_state: Dict[str, Any] = {}
         self.config = config
         self.aux_losses: List[Any] = []
-        # KV-cache plumbing of the generation path; None = plain forward
+        # KV-cache plumbing of the generation path. kv_mode: None = plain
+        # forward, "prefill" = full-sequence forward that also records
+        # each attention layer's per-position K/V into new_kv, "decode" =
+        # one-token forward that writes its K/V into kv_cache (in place)
+        # and attends over it; new_kv then holds the written buffers.
+        # kv_index = the query position (an int, or a (B,) tensor for
+        # ragged prompts); kv_prefill_len = the count of real prompt
+        # positions in the prefill batch, from which sliding-window
+        # layers seed their O(window) ring-buffer cache.
         self.kv_mode: Optional[str] = None
+        self.kv_cache: Optional[Dict[str, Any]] = None
+        self.kv_index: Any = None
+        self.kv_prefill_len: Optional[int] = None
+        self.new_kv: Dict[str, Any] = {}
         # the adopted per-op kernel impls (kernels/registry.py), threaded
         # in by the executor; None/empty = default impls
         self.kernel_impls: Optional[Dict[str, str]] = None
