@@ -20,8 +20,11 @@ never JAX, and:
   4. ktimes  - device times (CUDA graph replay between CUDA events) of
                each kernel, its plain version and its PyTorch yardstick,
                at b8 h12 d64 bf16, s 128 and 512, without dropout and at
-               BERT's training rate of 0.1, and causal at GPT-2's prefill
-               shape (s 1024), and each kernel's bound;
+               BERT's training rate of 0.1, causal at GPT-2's prefill
+               shape (s 1024), at LLaMA-7B's prefill (b4 h32 s1024 d128
+               causal) and training shape (the causal backward at d 128),
+               the causal backward at d 64, head dim 256, and each
+               kernel's bound;
   5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
@@ -51,12 +54,28 @@ never JAX, and:
                attention; times the prefill and the decode step (median,
                p90, tokens/s) at 1 and 8 rows, the peak memory of a
                generate call, and profiles the decode step;
-  9. kernels - one JSON line with each kernel's launches, error and times.
+  9. llama   - LLaMA-7B (32 layers, hidden 4096, FFN 11008, 32 heads of
+               128, vocab 32000, RoPE in the op; seeded random weights)
+               built through FFModel at 4 x 1024 with
+               kernel_impls="attention:flash", generating through
+               InferenceSession.generate (greedy, ragged prompts with
+               eos): 32 flash launches per prefill and none per decode
+               step, no KV fallback, the KV rows against the re-forward
+               through flash and plain attention, the same times as
+               generate; then at LLaMA-7B width and 2 layers the
+               primitive form (logits against the fused form on the same
+               weights, generation by re-forward) at 2 x 256, and
+               training through fit at 2 x 1024 (launches per step, the
+               loss history against plain attention + unfused Adam);
+ 10. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
 build,kernel,ktimes`` also times them, ``--phases build,kernel,generate``
-drives generation; with no arguments every phase runs.
+drives generation, ``--phases build,kernel,llama`` the LLaMA family; with
+no arguments every phase runs. ``--ab-base DIR`` does nothing but time the
+flash kernels of the checkout at DIR and of this one in turns (base,
+change, change, base), the way to compare a kernel change on one card.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result; it does the
@@ -65,8 +84,10 @@ same where no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -260,6 +281,23 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     # ragged causal s over 128-row CTAs
     (8, 12, 1024, 1024, 64, torch.bfloat16, True, 0.0),
     (8, 12, 1000, 1000, 64, torch.bfloat16, True, 0.0),
+    # LLaMA-7B's prefill (llama phase): causal d = 128 at 4 x 1024
+    (4, 32, 1024, 1024, 128, torch.bfloat16, True, 0.0),
+    # the wide kernels: head dims 192 and 256 (and 160, padded to 192) in
+    # both types, causal and not, at a ragged s
+    (2, 4, 200, 200, 192, torch.float32, False, 0.0),
+    (2, 4, 200, 200, 192, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 192, torch.bfloat16, False, 0.1),
+    (2, 4, 200, 200, 192, torch.bfloat16, True, 0.0),
+    (2, 4, 200, 200, 256, torch.float32, False, 0.1),
+    (2, 4, 200, 200, 256, torch.float32, True, 0.0),
+    (2, 4, 200, 200, 256, torch.bfloat16, False, 0.0),
+    (2, 4, 200, 200, 256, torch.bfloat16, True, 0.1),
+    (2, 4, 96, 200, 256, torch.bfloat16, False, 0.0),
+    (2, 4, 100, 100, 160, torch.bfloat16, True, 0.0),
+    # b*h = 65,600, past the 65,535 that gridDim.y allows
+    (1640, 40, 64, 64, 64, torch.bfloat16, False, 0.0),
+    (1640, 40, 64, 64, 64, torch.bfloat16, True, 0.0),
 ]
 
 
@@ -307,7 +345,7 @@ def phase_kernel_bwd(gen) -> dict:
     worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     bad = []
     for b, h, sq, sk, d, dt, causal, rate in CASES:
-        d_k = 64 if d <= 64 else 128
+        d_k = -(-d // 64) * 64
         q, k, v, do = (torch.randn(b, h, s, d_k, device="cuda", dtype=dt,
                                    generator=gen)
                        for s in (sq, sk, sk, sq))
@@ -442,7 +480,6 @@ def requests(bcfg, seq: int, rows: int, seed: int) -> dict:
 
 
 def phase_slice(seqs) -> dict:
-    from flexflow_tpu_torch.kernels.flash_attention import flash_attention
     from flexflow_tpu_torch.serving import InferenceSession
     models = {}
     for seq in seqs:
@@ -450,14 +487,14 @@ def phase_slice(seqs) -> dict:
         models[seq] = (ff, bcfg, InferenceSession(ff, batch_buckets=(8,)))
     torch.cuda.synchronize()
     # the main path: every count starts at 0 here
-    flash_attention.launches = 0
+    fwd = zero_counts()["flash_attention_fwd"]
     forwards = 0
     outs = {}
     for seq, (ff, bcfg, sess) in models.items():
         for rows in (1, 3, 8):
             outs[(seq, rows)] = sess.infer(requests(bcfg, seq, rows, rows))
             forwards += 1
-    launches = flash_attention.launches
+    launches = fwd.launches
     print(f"[slice] main path: {forwards} forwards of BERT-base through "
           f"InferenceSession.infer, flash_attention_fwd launches="
           f"{launches} (want {LAYERS} x {forwards})")
@@ -537,6 +574,15 @@ def counters() -> dict:
             "adam_update": fused_adam_update}
 
 
+def zero_counts() -> dict:
+    """Every kernel's launch count set to 0, just before a main path runs;
+    returns the counted wrappers by name."""
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
 def train_model(seq: int, impl: str, dropout: float = 0.1):
     from flexflow_tpu_torch import AdamOptimizer
     return build_model(seq, impl, AdamOptimizer(1e-4), ["accuracy"],
@@ -550,9 +596,7 @@ def phase_train() -> dict:
     x, y = dataset(bcfg, 128, 24, 7)
     epochs, batches = 2, 24 // 8
     torch.cuda.synchronize()
-    fns = counters()
-    for fn in fns.values():   # the main path: every count starts at 0
-        fn.launches = 0
+    fns = zero_counts()  # the main path: every count starts at 0
     history = ff.fit(x, y, epochs=epochs, verbose=False)
     launches = {name: fn.launches for name, fn in fns.items()}
     steps = epochs * batches
@@ -628,26 +672,28 @@ def step_times(seq: int) -> dict:
             "peak_mem_gb": peak / 1e9, "resident_gb": base / 1e9}
 
 
-def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool) -> tuple:
+def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool,
+                 causal: bool = False) -> tuple:
     """Least time of one backward kernel (bf16): q, k, v, do read once,
     lse and delta (f32) read once, dq (or dk and dv) written once, against
-    6 (dq) or 8 (dk/dv) * s*s*d flops per head on the bf16 tensor
-    cores."""
+    6 (dq) or 8 (dk/dv) * d flops per (query, key) pair the mask keeps
+    (s*s, or s*(s+1)/2 causal) per head on the bf16 tensor cores."""
     nbytes = 4 * bh * s * d * 2 + 2 * bh * s * 4 \
         + (2 if dkv else 1) * bh * s * d * 2
-    flops = (8.0 if dkv else 6.0) * bh * s * s * d
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = (8.0 if dkv else 6.0) * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fwd_times(seq: int, rate: float, gen, causal: bool = False) -> dict:
+def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
+              h: int = 12, d: int = 64) -> dict:
     """The forward kernel, its plain version and SDPA (its flash backend,
-    with the same dropout rate and mask) at b8 h12 s d64 bf16."""
+    with the same dropout rate and mask) at b h s d bf16."""
     import torch.nn.functional as F
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
-    b, h, d = 8, 12, 64
     q, k, v = (torch.randn(b, h, seq, d, device="cuda", dtype=torch.bfloat16,
                            generator=gen) for _ in range(3))
     kw = dict(causal=causal, dropout_rate=rate,
@@ -662,19 +708,20 @@ def fwd_times(seq: int, rate: float, gen, causal: bool = False) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def bwd_times(seq: int, rate: float, gen) -> dict:
+def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
+              h: int = 12, d: int = 64) -> dict:
     """dq and dk/dv kernels, their plain versions and the backward of
-    torch's flash SDPA (dq, dk, dv in one call, at the same dropout rate)
-    at b8 h12 s d64 bf16."""
+    torch's flash SDPA (dq, dk, dv in one call, at the same dropout rate
+    and mask) at b h s d bf16."""
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
         flash_attention_bwd_dq_plain)
-    b, h, d = 8, 12, 64
     q, k, v, do = (torch.randn(b, h, seq, d, device="cuda",
                                dtype=torch.bfloat16, generator=gen)
                    for _ in range(4))
-    kw = dict(dropout_rate=rate, dropout_seed=5 if rate else None)
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=5 if rate else None)
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
@@ -685,15 +732,21 @@ def bwd_times(seq: int, rate: float, gen) -> dict:
                lambda: flash_attention_bwd_dq_plain(*args, **kw)),
            "dkv_plain_ms": cuda_time_ms(
                lambda: flash_attention_bwd_dkv_plain(*args, **kw))}
-    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-        q, k, v, dropout_p=rate)
-    out, lse_lib, cq, ck, mq, mk, seed, offset = fwd[:8]
-    res["sdpa_bwd_ms"] = cuda_time_ms(
-        lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do, q, k, v, out, lse_lib, cq, ck, mq, mk, rate, False, seed,
-            offset))
-    res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False)
-    res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True)
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, dropout_p=rate, is_causal=causal)
+        out, lse_lib, cq, ck, mq, mk, seed, offset = fwd[:8]
+        res["sdpa_bwd_ms"] = cuda_time_ms(
+            lambda: torch.ops.aten
+            ._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, out, lse_lib, cq, ck, mq, mk, rate, causal,
+                seed, offset))
+    except RuntimeError as e:   # the flash backend refuses the shape
+        print(f"[ktimes] sdpa flash backward refuses b{b} h{h} s{seq} d{d}: "
+              f"{str(e).splitlines()[0][:120]}")
+        res["sdpa_bwd_ms"] = None
+    res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False, causal)
+    res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True, causal)
     return res
 
 
@@ -755,10 +808,25 @@ def launch_host_us(n: int = 500) -> dict:
     return res
 
 
+# further kernel timings: (key, kernel, b, h, s, d, causal, what)
+KT_SHAPES = [
+    ("fwd_d128_causal", "fwd", 4, 32, 1024, 128, True,
+     "LLaMA-7B's prefill, 32 launches per prefill"),
+    ("fwd_d128", "fwd", 8, 12, 512, 128, False, "head dim 128"),
+    ("bwd_d64_causal", "bwd", 8, 12, 1024, 64, True, "causal backward"),
+    ("bwd_d128_causal", "bwd", 2, 32, 1024, 128, True,
+     "LLaMA-7B's training shape, 2 launches per step"),
+    ("fwd_d256", "fwd", 4, 8, 512, 256, False, "the wide kernel"),
+    ("bwd_d256", "bwd", 4, 8, 512, 256, False, "the wide kernels"),
+]
+
+
 def phase_ktimes(smi: str) -> dict:
     """Every kernel's device time beside its plain version, its PyTorch
     yardstick and its bound: the flash kernels at s 128 and 512, without
-    dropout and at 0.1, and Adam over BERT-base."""
+    dropout and at 0.1, causal at GPT-2's prefill, at KT_SHAPES (LLaMA's
+    head dim 128, the causal backward, head dim 256), and Adam over
+    BERT-base."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {"fwd": {}, "bwd": {}}
     for rate in (0.0, 0.1):
@@ -793,6 +861,31 @@ def phase_ktimes(smi: str) -> dict:
           f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); kernel/sdpa "
           f"{f['ms'] / f['library_ms']:.2f}, kernel/bound "
           f"{f['ms'] / f['bound_ms']:.2f}; {smi}")
+    for key, kind, b, hh, seq, d, causal, what in KT_SHAPES:
+        shape = f"b{b} h{hh} s{seq} d{d} bf16{' causal' if causal else ''}"
+        if kind == "fwd":
+            f = res[key] = fwd_times(seq, 0.0, gen, causal, b, hh, d)
+            print(f"[ktimes] flash_attention_fwd {shape} ({what}): kernel "
+                  f"{f['ms'] * 1e3:.2f} us, plain {f['plain_ms'] * 1e3:.2f} "
+                  f"us, sdpa {f['library_ms'] * 1e3:.2f} us, bound "
+                  f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); "
+                  f"kernel/sdpa {f['ms'] / f['library_ms']:.2f}, "
+                  f"kernel/bound {f['ms'] / f['bound_ms']:.2f}; {smi}")
+            continue
+        t = res[key] = bwd_times(seq, 0.0, gen, causal, b, hh, d)
+        lib = t["sdpa_bwd_ms"]
+        for k_, name in (("dq", "flash_attention_bwd_dq"),
+                         ("dkv", "flash_attention_bwd_dkv")):
+            bound, by = t[k_ + "_bound"]
+            print(f"[ktimes] {name} {shape} ({what}): kernel "
+                  f"{t[k_ + '_ms'] * 1e3:.2f} us, plain "
+                  f"{t[k_ + '_plain_ms'] * 1e3:.2f} us, bound "
+                  f"{bound * 1e3:.2f} us ({by}); kernel/bound "
+                  f"{t[k_ + '_ms'] / bound:.2f}; {smi}")
+        print(f"[ktimes] sdpa flash backward (dq, dk, dv in one call) "
+              f"{shape}: "
+              + (f"{lib * 1e3:.2f} us" if lib is not None else "refused")
+              + f" vs dq + dk/dv {(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
     h = res["host"] = launch_host_us()
     print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
           f"bf16, each encoding four TMA tensor maps: flash_attention_fwd "
@@ -804,6 +897,95 @@ def phase_ktimes(smi: str) -> dict:
           f"{a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
           f"(bytes); kernel/bound {a['ms'] / a['bound_ms']:.2f}")
     return res
+
+
+# the A/B's shapes: (kernel, b, h, s, d, causal)
+AB_SHAPES = [("fwd", 8, 12, 128, 64, False), ("fwd", 8, 12, 512, 64, False),
+             ("fwd", 8, 12, GPT_SEQ, 64, True)] + [s[1:7] for s in KT_SHAPES]
+
+
+def ab_build(trees: dict) -> dict:
+    """tag -> source -> the loaded flash library of the checkout at each
+    root, built with the port's nvcc flags into build/ab/<tag>/, one nvcc
+    per source, all at once."""
+    from flexflow_tpu_torch.kernels import build
+    procs, libs = [], {}
+    for tag, root in trees.items():
+        out = os.path.join(os.path.dirname(build.BUILD_DIR), "ab", tag)
+        os.makedirs(out, exist_ok=True)
+        for src in KERNELS[:2]:
+            so = os.path.join(out, f"{src}.so")
+            cu = os.path.join(root, "flexflow_tpu_torch", "csrc", f"{src}.cu")
+            procs.append((tag, src, so, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for tag, src, so, proc in procs:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc {tag}/{src}:\n{log}")
+        libs.setdefault(tag, {})[src] = ctypes.CDLL(so)
+    return libs
+
+
+def phase_ab(base: str, smi: str) -> None:
+    """The flash kernels of the checkout at ``base`` (for example the
+    parent commit, unpacked with ``git archive`` into the git-ignored
+    build/) and of this one, each at AB_SHAPES on the same seeded bf16
+    inputs, timed by cuda_time_ms in the order base, change, change,
+    base: how a kernel change is compared within one call. A shape the
+    base refuses is skipped. Prints a line per kernel and shape, then a
+    JSON line."""
+    import torch.nn.functional as F
+    fa = importlib.import_module("flexflow_tpu_torch.kernels.flash_attention")
+    t0 = time.perf_counter()
+    libs = ab_build({"base": os.path.abspath(base),
+                     "change": os.path.dirname(os.path.abspath(__file__))})
+    print(f"[ab] built both trees in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for kind, b, h, s, d, causal in AB_SHAPES:
+        shape = f"b{b} h{h} s{s} d{d} bf16{' causal' if causal else ''}"
+        q, k, v, do = (torch.randn(b, h, s, d, device="cuda",
+                                   dtype=torch.bfloat16, generator=gen)
+                       for _ in range(4))
+        o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+        lse, delta = (torch.empty(b, h, s, device="cuda") for _ in range(2))
+        tail = (b * h, s, s, d, 1, int(causal), d ** -0.5, 0, 0, 1.0, 0)
+
+        def launch(tag, src, sym, ts):
+            fn = getattr(libs[tag][src], sym)
+            fn.argtypes, fn.restype = fa._ARGTYPES[(src, sym)], ctypes.c_int
+            args = [t.data_ptr() for t in ts] + list(tail)
+            # the stream is read at each call, so a graph capture records it
+            return lambda: fn(*args, torch.cuda.current_stream().cuda_stream)
+
+        fwd = ("flash_attention_fwd", "ff_flash_attention_fwd",
+               (q, k, v, o, lse))
+        check(launch("change", *fwd)() == 0, f"forward launch at {shape}")
+        delta.copy_((do.float() * o.float()).sum(-1))
+        bwd = [("flash_attention_bwd", "ff_flash_attention_bwd_dq",
+                (q, k, v, do, lse, delta, dq)),
+               ("flash_attention_bwd", "ff_flash_attention_bwd_dkv",
+                (q, k, v, do, lse, delta, dk, dv))]
+        for src, sym, ts in [fwd] if kind == "fwd" else bwd:
+            fns = {tag: launch(tag, src, sym, ts) for tag in libs}
+            if fns["base"]() != 0:
+                print(f"[ab] {sym} {shape}: the base tree refuses it")
+                continue
+            us = [cuda_time_ms(fns[t]) * 1e3
+                  for t in ("base", "change", "change", "base")]
+            row = {"kernel": sym, "shape": shape, "base_us": us[::3],
+                   "change_us": us[1:3]}
+            if kind == "fwd":
+                row["sdpa_us"] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal)) * 1e3
+            rows.append(row)
+            print(f"[ab] {sym} {shape}: base {np.mean(us[::3]):.2f} us "
+                  f"({us[0]:.2f}, {us[3]:.2f}), change "
+                  f"{np.mean(us[1:3]):.2f} us ({us[1]:.2f}, {us[2]:.2f})"
+                  + (f", sdpa {row['sdpa_us']:.2f} us" if "sdpa_us" in row
+                     else "") + f"; {smi}")
+    print(json.dumps({"ab": rows, "card": smi}))
 
 
 def gpt2_model(impl: str):
@@ -825,11 +1007,12 @@ def gpt2_model(impl: str):
     return ff, g
 
 
-def gpt_prompts(rows: int, plens, vocab: int, seed: int) -> np.ndarray:
-    """(rows, GPT_SEQ) int32 ids: seeded random prompts in the first
-    plens[r] columns of each row, zeros after."""
+def gpt_prompts(rows: int, plens, vocab: int, seed: int,
+                seq: int = GPT_SEQ) -> np.ndarray:
+    """(rows, seq) int32 ids: seeded random prompts in the first plens[r]
+    columns of each row, zeros after."""
     rng = np.random.default_rng(seed)
-    ids = np.zeros((rows, GPT_SEQ), np.int32)
+    ids = np.zeros((rows, seq), np.int32)
     for r, n in enumerate(np.broadcast_to(plens, (rows,))):
         ids[r, :n] = rng.integers(0, vocab, n)
     return ids
@@ -851,12 +1034,18 @@ def check_tokens(out, ids, plens, steps, vocab, what) -> None:
 
 
 def gpt_batch(ids_np: np.ndarray) -> dict:
-    """A graph batch on the card: the ids and their positions."""
+    """A graph batch on the card: the ids and their positions (a graph
+    without a position input, as LLaMA's, ignores them)."""
     ids = torch.from_numpy(ids_np).cuda()
     return {"input_ids": ids,
-            "position_ids": torch.arange(GPT_SEQ, dtype=torch.int32,
-                                         device="cuda")[None]
+            "position_ids": torch.arange(ids.shape[1], dtype=torch.int32,
+                                         device=ids.device)[None]
             .expand(ids.shape[0], -1)}
+
+
+def vocab_of(ff) -> int:
+    """The vocabulary of an LM graph: the width of its output."""
+    return ff.executor.program.output_tensors[0].shape[-1]
 
 
 def prefill(ff, batch: dict, plen: int) -> dict:
@@ -944,9 +1133,10 @@ def decode_step_times(ff, rows: int, plen: int, steps: int,
     ``rows`` rows after one prefill, each ending in a device sync; with
     ``profile``, also a torch.profiler trace of the steps (not of the
     prefill)."""
-    vocab = ff.params["wte"]["kernel"].shape[0]
-    batch = gpt_batch(gpt_prompts(rows, plen, vocab, 20 + rows))
-    done = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    seq = ff.graph_inputs[0].shape[1]
+    batch = gpt_batch(gpt_prompts(rows, plen, vocab_of(ff), 20 + rows, seq))
+    done = torch.zeros(rows, dtype=torch.bool,
+                       device=batch["input_ids"].device)
     lat = []
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -988,7 +1178,6 @@ def profile_decode(ff, rows: int, plen: int, steps: int) -> dict:
 def phase_generate(smi: str) -> dict:
     """The generation path: full-width GPT-2 small through
     InferenceSession.generate with kernel_impls="attention:flash"."""
-    from flexflow_tpu_torch.kernels.flash_attention import flash_attention
     from flexflow_tpu_torch.serving import InferenceSession
     ff, g = gpt2_model("attention:flash")
     V = g.vocab_size
@@ -1003,7 +1192,7 @@ def phase_generate(smi: str) -> dict:
     # the main path: every count starts at 0 here; each generate call
     # runs one prefill per segment (12 flash launches) and none per
     # decode step
-    flash_attention.launches = 0
+    fwd = zero_counts()["flash_attention_fwd"]
     outs, prefills = {}, 0
     t0 = time.perf_counter()
     outs["greedy8"] = sess.generate(p8, 512, GEN_TOKENS)
@@ -1022,7 +1211,7 @@ def phase_generate(smi: str) -> dict:
     no_fallback(ff, "segmented greedy")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = fwd.launches
     print(f"[generate] main path: GPT-2 small (12 layers, hidden 768, 12 "
           f"heads, vocab {V}) through InferenceSession.generate, "
           f"{len(outs)} requests, {prefills} prefills in {main_s:.2f} s; "
@@ -1064,12 +1253,12 @@ def phase_generate(smi: str) -> dict:
           f"the row's range apart, tol {GEN_TOL:.0e}); ok")
 
     # FFModel.generate called directly: 12 launches, the KV path only
-    flash_attention.launches = 0
+    fwd = zero_counts()["flash_attention_fwd"]
     direct = ff.generate(p8, 512, 8, kv_cache=True).cpu().numpy()
     no_fallback(ff, "FFModel.generate")
-    check(flash_attention.launches == GPT_LAYERS,
+    check(fwd.launches == GPT_LAYERS,
           f"one generate call launched the forward "
-          f"{flash_attention.launches} times, want {GPT_LAYERS}")
+          f"{fwd.launches} times, want {GPT_LAYERS}")
     check((direct[:, :520] == outs["greedy8"][:, :520]).all(),
           "FFModel.generate differs from the session's greedy run")
 
@@ -1096,26 +1285,32 @@ def phase_generate(smi: str) -> dict:
     return res
 
 
-def generate_times(ff, sess, p8, smi: str) -> dict:
+def generate_times(ff, sess, prompts, smi: str, name: str = "gpt2-small",
+                   plen: int = 512, tokens: int = GEN_TOKENS,
+                   rows=(1, 8), profile: bool = True) -> dict:
     """Prefill and decode-step latencies, tokens/s, the peak memory of a
-    generate call and a profile of the decode step."""
+    generate call and (``profile``) a profile of the decode step, for the
+    LM ``ff`` on ``prompts`` (all rows, ``plen`` tokens each)."""
+    from flexflow_tpu_torch import OperatorType
+    n, seq = prompts.shape
+    layers = sum(1 for l in ff.executor.program.layers
+                 if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION)
     lat = []
     with torch.inference_mode():
-        batch = gpt_batch(p8)
+        batch = gpt_batch(prompts)
         for _ in range(6):
             t0 = time.perf_counter()
-            prefill(ff, batch, 512)
+            prefill(ff, batch, plen)
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
     res = {"prefill_ms": float(np.median(lat[1:]))}
-    print(f"[times] gpt2-small prefill 8x{GPT_SEQ} (the layers the K/V "
-          f"depend on, {GPT_LAYERS} flash launches): median "
-          f"{res['prefill_ms']:.3f} ms over 5 (host clock, ends in a "
-          f"device sync); {smi}")
-    for b in (1, 8):
-        lat, _ = decode_step_times(ff, b, 512, GEN_TOKENS)
+    print(f"[times] {name} prefill {n}x{seq} (the layers the K/V depend "
+          f"on, {layers} flash launches): median {res['prefill_ms']:.3f} ms "
+          f"over 5 (host clock, ends in a device sync); {smi}")
+    for b in rows:
+        lat, _ = decode_step_times(ff, b, plen, tokens)
         ff._decode_measured = {}
-        ff.generate(p8[:b], 512, GEN_TOKENS, kv_cache=True)
+        ff.generate(prompts[:b], plen, tokens, kv_cache=True)
         no_fallback(ff, f"timed generate at {b} rows")
         m = ff._decode_measured[b]
         res[b] = {"step_ms": float(np.median(lat)),
@@ -1123,42 +1318,281 @@ def generate_times(ff, sess, p8, smi: str) -> dict:
                   "gen_step_ms": m["decode_step_s"] * 1e3,
                   "gen_prefill_ms": m["prefill_s"] * 1e3,
                   "tokens_per_s": b / m["decode_step_s"]}
-        print(f"[times] gpt2-small decode step at {b} rows (cache of "
-              f"{GPT_SEQ}): median {res[b]['step_ms']:.3f} ms, p90 "
-              f"{res[b]['step_p90_ms']:.3f} ms over {GEN_TOKENS} steps "
-              f"(host clock, each ends in a device sync); one "
-              f"FFModel.generate of {GEN_TOKENS} tokens: prefill "
+        print(f"[times] {name} decode step at {b} rows (cache of {seq}): "
+              f"median {res[b]['step_ms']:.3f} ms, p90 "
+              f"{res[b]['step_p90_ms']:.3f} ms over {tokens} steps (host "
+              f"clock, each ends in a device sync); one FFModel.generate "
+              f"of {tokens} tokens: prefill "
               f"{res[b]['gen_prefill_ms']:.3f} ms, "
               f"{res[b]['gen_step_ms']:.3f} ms per token, "
               f"{res[b]['tokens_per_s']:.1f} tokens/s; {smi}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    sess.generate(p8, 512, GEN_TOKENS)
+    sess.generate(prompts, plen, tokens)
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["resident_gb"] = base / 1e9
-    print(f"[times] gpt2-small peak device memory of one 8-row "
-          f"{GEN_TOKENS}-token generate: {res['peak_mem_gb']:.3f} GB "
-          f"({res['resident_gb']:.3f} GB resident before it); {smi}")
-    p = res["profile"] = profile_decode(ff, 8, 512, 8)
-    print(f"[profile] gpt2-small decode step at 8 rows (torch.profiler, 8 "
+    print(f"[times] {name} peak device memory of one {n}-row {tokens}-token "
+          f"generate: {res['peak_mem_gb']:.3f} GB ({res['resident_gb']:.3f} "
+          f"GB resident before it; the prefill frees each activation after "
+          f"its last reader); {smi}")
+    if not profile:
+        return res
+    p = res["profile"] = profile_decode(ff, n, plen, 8)
+    print(f"[profile] {name} decode step at {n} rows (torch.profiler, 8 "
           f"steps): {p['launches_per_step']:.0f} kernel launches, device "
           f"kernel time {p['device_ms_per_step']:.3f} ms in a wall of "
           f"{p['wall_ms_per_step']:.3f} ms per step (busy share "
           f"{p['device_ms_per_step'] / p['wall_ms_per_step']:.3f}); most "
           f"device time: "
-          + "; ".join(f"{n} {ms:.4f} ms" for n, ms in p["top"]))
+          + "; ".join(f"{n_} {ms:.4f} ms" for n_, ms in p["top"]))
     return res
 
 
-def kernel_rows(errs, serve, kt, train, gen) -> list:
+LLAMA_SEQ, LLAMA_ROWS = 1024, 4    # LLaMA-7B generation, 4 x 1024
+LLAMA_PLEN, LLAMA_TOKENS = 512, 32  # prompt, new tokens per generate
+LLAMA_RAGGED = (100, 517, 900)     # ragged prompt lengths
+LLAMA_SHORT = 2                    # depth of the primitive and train checks
+LLAMA_PRIM_SEQ = 256               # sequence of the primitive-form check
+
+
+def llama_model(impl: str, layers: int = 0, batch: int = LLAMA_ROWS,
+                seq: int = LLAMA_SEQ, fused: bool = True, optimizer=None):
+    """LLaMA-7B's width (hidden 4096, FFN 11008, 32 heads of 128, vocab
+    32000; seeded random weights, initialised on the card) at ``layers``
+    layers (all 32 by default), built through FFModel with bf16 matmul
+    operands and f32 results."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import LlamaConfig, build_llama
+    cfg = FFConfig()
+    cfg.batch_size = batch
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = impl
+    cfg.seed = 0
+    ff = FFModel(cfg)
+    lc = LlamaConfig()
+    lc.num_layers = layers or lc.num_layers
+    out = build_llama(ff, batch, seq, lc, fused_attention=fused)
+    ff.compile(optimizer or SGDOptimizer(0.01),
+               "sparse_categorical_crossentropy", [], output_tensor=out)
+    return ff, lc
+
+
+def phase_llama(smi: str) -> dict:
+    """The LLaMA family at LLaMA-7B width: all 32 layers generating
+    through InferenceSession.generate (the causal flash forward at d =
+    128 in each prefill, RoPE in the op, the KV decode), the primitive
+    form at 2 layers against the fused form on the same weights, and 2
+    layers training through fit (flash forward, dq, dk/dv, fused Adam)."""
+    from flexflow_tpu_torch.serving import InferenceSession
+    t0 = time.perf_counter()
+    ff, lc = llama_model("attention:flash")
+    torch.cuda.synchronize()
+    V, L = lc.vocab_size, lc.num_layers
+    n_params = sum(t.numel() for ws in ff.params.values()
+                   for t in ws.values())
+    print(f"[llama] LLaMA-7B ({L} layers, hidden {lc.hidden_size}, FFN "
+          f"{lc.intermediate_size}, {lc.num_heads} heads of "
+          f"{lc.hidden_size // lc.num_heads}, vocab {V}): {n_params} f32 "
+          f"parameters built and compiled on the card in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB resident")
+    sess = InferenceSession(ff, batch_buckets=(1, LLAMA_ROWS))
+    plen = LLAMA_PLEN
+    p4 = gpt_prompts(LLAMA_ROWS, plen, V, 31, LLAMA_SEQ)
+    ragged_plen = np.array(LLAMA_RAGGED, np.int32)
+    p3 = gpt_prompts(3, ragged_plen, V, 32, LLAMA_SEQ)
+    torch.cuda.synchronize()
+    # the main path: every count starts at 0 here; each generate call
+    # runs one prefill (32 flash launches) and none per decode step
+    fwd = zero_counts()["flash_attention_fwd"]
+    outs = {}
+    t0 = time.perf_counter()
+    outs["greedy"] = sess.generate(p4, plen, LLAMA_TOKENS)
+    outs["ragged"] = sess.generate(p3, ragged_plen, LLAMA_TOKENS)
+    eos = int(outs["ragged"][0, ragged_plen[0] + 3])
+    outs["ragged_eos"] = sess.generate(p3, ragged_plen, LLAMA_TOKENS,
+                                       eos_token_id=eos)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    prefills = len(outs)
+    launches = fwd.launches
+    no_fallback(ff, "LLaMA-7B generate")
+    print(f"[llama] main path: LLaMA-7B through InferenceSession.generate, "
+          f"{prefills} requests of {LLAMA_TOKENS} tokens ({LLAMA_ROWS} rows "
+          f"of {plen}-token prompts; 3 ragged prompts {ragged_plen.tolist()} "
+          f"padded to {LLAMA_ROWS}, then with eos) in {main_s:.2f} s; "
+          f"flash_attention_fwd launches {launches} (want {L} x {prefills} "
+          f"prefills, 0 per decode step); no KV fallback")
+    check(launches == L * prefills,
+          f"llama: flash launches {launches} != {L} x {prefills}")
+    check_tokens(outs["greedy"], p4, plen, LLAMA_TOKENS, V, "llama greedy")
+    check_tokens(outs["ragged"], p3, ragged_plen, LLAMA_TOKENS, V,
+                 "llama ragged")
+    for r, n in enumerate(ragged_plen):
+        row = outs["ragged_eos"][r, n:n + LLAMA_TOKENS]
+        free = outs["ragged"][r, n:n + LLAMA_TOKENS]
+        hit = np.flatnonzero(free == eos)
+        upto = hit[0] if hit.size else LLAMA_TOKENS
+        check((row[:upto] == free[:upto]).all() and (row[upto:] == eos).all()
+              and (r > 0 or upto <= 3), f"llama: eos does not latch on "
+                                        f"row {r}")
+
+    # score rows of the KV path (RoPE at kv_index, cached keys rotated)
+    # against the re-forward through flash and the same weights through
+    # plain attention
+    ref, _ = llama_model("attention:xla")
+    ref.params = ff.params
+    steps = 4
+    rows = gen_rows_check(ff, {"reforward": ff, "xla": ref}, p4, plen,
+                          steps)
+    del ref
+    check((rows["tokens"] == outs["greedy"][:, plen:plen + steps]).all(),
+          "llama: the phase's decode loop differs from generate's")
+    for name in ("reforward", "xla"):
+        r = rows[name]
+        print(f"[llama] {steps} decode steps x {LLAMA_ROWS} rows, KV path "
+              f"vs {name} re-forward rows: max|diff| {r['max_abs']:.3e}, "
+              f"{r['max_rel']:.2e} of the row's logit range (tol "
+              f"{GEN_TOL:.0e}); greedy tokens equal in {r['tokens_equal']} "
+              f"of {steps * LLAMA_ROWS}, {r['decided']} decided by a top-2 "
+              f"margin above twice the difference, all of those equal: "
+              f"{'ok' if r['ok'] else 'FAIL'}")
+        check(r["ok"], f"llama: KV decode rows vs {name}")
+    res = {"launches": launches, "prefills": prefills, "rows": rows}
+    res["times"] = generate_times(ff, sess, p4, smi, name="llama-7b",
+                                  plen=plen, tokens=LLAMA_TOKENS,
+                                  rows=(1, LLAMA_ROWS), profile=True)
+    del ff, sess
+    res["primitive"] = llama_primitive_check()
+    res["train"] = llama_train()
+    return res
+
+
+def llama_primitive_check() -> dict:
+    """The primitive form (dense / transpose / batch_matmul / slice /
+    concat, RoPE tables and mask as constants) at LLaMA-7B width and 2
+    layers, 2 x 256: its logits against the fused form on the same weights
+    (llama_fuse_params), and a 4-token generate, which takes the
+    re-forward path (the graph has no attention op to cache)."""
+    from flexflow_tpu_torch.models.nlp import llama_fuse_params
+    seq = LLAMA_PRIM_SEQ
+    prim, lc = llama_model("auto", LLAMA_SHORT, 2, seq, fused=False)
+    fused, _ = llama_model("attention:flash", LLAMA_SHORT, 2, seq)
+    fused.params = llama_fuse_params(prim.params, lc)
+    ids = gpt_prompts(2, seq, lc.vocab_size, 41, seq)
+    with torch.inference_mode():
+        a = prim.executor.scored_forward(prim.params, prim.state,
+                                         gpt_batch(ids)).float()
+        b = fused.executor.scored_forward(fused.params, fused.state,
+                                          gpt_batch(ids)).float()
+        rel = ((a - b).abs().amax(-1)
+               / (a.amax(-1) - a.amin(-1))).max().item()
+        finite = bool(torch.isfinite(a).all().item())
+    del a, b
+    names = {t.name for t in prim.graph_inputs}
+    check(not prim._kv_decode_eligible(names, None),
+          "the primitive form must not be KV-eligible")
+    forwards = []
+    scored = prim.executor.scored_forward
+    prim.executor.scored_forward = \
+        lambda *a: (forwards.append(1), scored(*a))[1]
+    fwd = zero_counts()["flash_attention_fwd"]
+    plen, new = seq // 2, 4
+    p2 = gpt_prompts(2, plen, lc.vocab_size, 42, seq)
+    out = prim.generate(p2, plen, new).cpu().numpy()
+    launches = fwd.launches
+    prim.executor.scored_forward = scored
+    no_fallback(prim, "primitive generate")
+    check_tokens(out, p2, plen, new, lc.vocab_size, "primitive generate")
+    kv = fused.generate(p2, plen, new, kv_cache=True).cpu().numpy()
+    equal, gap = parted_at_ties(prim, out, kv)
+    ok = rel <= GEN_TOL and finite and len(forwards) == new \
+        and launches == 0 and gap <= GEN_TOL
+    print(f"[llama] primitive form, LLaMA-7B width x {LLAMA_SHORT} layers "
+          f"at 2x{seq}: logits vs the fused form on the same weights "
+          f"(llama_fuse_params) {rel:.2e} of the row's range (tol "
+          f"{GEN_TOL:.0e}), finite; a {new}-token generate ran "
+          f"{len(forwards)} re-forwards and {launches} flash launches; "
+          f"its tokens equal the fused form's KV decode in "
+          f"{equal} of 2 rows, the others part at a near tie "
+          f"({gap:.2e} of the range): {'ok' if ok else 'FAIL'}")
+    check(ok, "llama primitive form")
+    del prim, fused
+    return {"rel": rel, "forwards": len(forwards)}
+
+
+def llama_train() -> dict:
+    """Training at LLaMA-7B width, 2 layers, 2 x 1024: fit with Adam,
+    flash and the fused update, every launch counted; then, from the same
+    weights, the loss history against plain attention and the unfused
+    Adam. 32 layers of f32 Adam state (6.74 B x 16 B) do not fit on one
+    card, hence the depth."""
+    from flexflow_tpu_torch import AdamOptimizer
+    seq, b, steps = LLAMA_SEQ, 2, 3
+    impl = "attention:flash,opt_update:fused"
+    ff, lc = llama_model(impl, LLAMA_SHORT, b, seq,
+                         optimizer=AdamOptimizer(1e-4))
+    rng = np.random.default_rng(43)
+    ids = rng.integers(0, lc.vocab_size, (b * steps, seq + 1)).astype(
+        np.int32)
+    x, y = ids[:, :seq], ids[:, 1:]
+    torch.cuda.synchronize()
+    fns = zero_counts()  # the main path: every count starts at 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = ff.fit([x], y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd": LLAMA_SHORT * steps,
+            "flash_attention_bwd_dq": LLAMA_SHORT * steps,
+            "flash_attention_bwd_dkv": LLAMA_SHORT * steps,
+            "adam_update": steps}
+    print(f"[llama] train: fit of LLaMA-7B width x {LLAMA_SHORT} layers at "
+          f"{b}x{seq}, {steps} steps in {fit_s:.2f} s, peak {peak:.3f} GB; "
+          f"loss "
+          f"{history[0]['loss']:.5f}; launches {launches} (want {want})")
+    check(launches == want, f"llama train launches {launches} != {want}")
+    check(bool(np.isfinite(history[0]["loss"])), "llama train loss")
+    del ff
+    # the same weights and batch through both paths, one step per epoch
+    runs = {}
+    for impl_ in (impl, "attention:xla"):
+        m, _ = llama_model(impl_, LLAMA_SHORT, b, seq,
+                           optimizer=AdamOptimizer(1e-4))
+        if runs:
+            m.params = {ln: {wn: t.clone() for wn, t in ws.items()}
+                        for ln, ws in runs[impl][0].items()}
+        runs[impl_] = ({ln: {wn: t.clone() for wn, t in ws.items()}
+                        for ln, ws in m.params.items()},
+                       [r["loss"] for r in m.fit([x[:b]], y[:b], epochs=3,
+                                                 verbose=False)])
+        del m
+    a, c = runs[impl][1], runs["attention:xla"][1]
+    err = float(np.abs(np.array(a) - np.array(c)).max())
+    ok = err <= TRAIN_TOL and np.all(np.isfinite(a))
+    print(f"[llama] train, 3 steps from the same weights: loss flash + "
+          f"fused Adam {[round(v, 5) for v in a]}, plain attention + "
+          f"unfused Adam {[round(v, 5) for v in c]}: max|diff| = {err:.3e} "
+          f"(tol {TRAIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    check(ok, "llama: loss histories of the two paths disagree")
+    del runs
+    return {"launches": launches, "steps": steps, "peak_gb": peak}
+
+
+def kernel_rows(errs, serve, kt, train, gen, llama) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
-    dropout, with s512 and dropout 0.1 beside them."""
+    dropout, with s512, dropout 0.1, the causal shapes, head dims 128 and
+    256 and the LLaMA launches beside them."""
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
 
     def bwd_row(key, seq, rate):
-        t = kt["bwd"][(seq, rate)]
+        return bwd_row_t(key, kt["bwd"][(seq, rate)])
+
+    def bwd_row_t(key, t):
         return {"ms": t[key + "_ms"], "plain_ms": t[key + "_plain_ms"],
                 "bound_ms": t[key + "_bound"][0],
                 "bound_by": t[key + "_bound"][1],
@@ -1180,7 +1614,16 @@ def kernel_rows(errs, serve, kt, train, gen) -> list:
         # per prefill and none per decode step
         "generate_launches": gen["launches"],
         "generate_prefills": gen["prefills"],
-        "causal_prefill_s1024": dict(kt["fwd_causal"])}]
+        "causal_prefill_s1024": dict(kt["fwd_causal"]),
+        # LLaMA-7B: 32 launches per prefill at b4 h32 s1024 d128 causal
+        "llama_generate_launches": llama["launches"],
+        "llama_prefills": llama["prefills"],
+        "llama_train_launches":
+            llama["train"]["launches"]["flash_attention_fwd"],
+        "llama_prefill_b4_h32_s1024_d128_causal":
+            dict(kt["fwd_d128_causal"]),
+        "b8_h12_s512_d128": dict(kt["fwd_d128"]),
+        "b4_h8_s512_d256": dict(kt["fwd_d256"])}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -1192,7 +1635,13 @@ def kernel_rows(errs, serve, kt, train, gen) -> list:
             "shape": "b8 h12 s128 d64 bf16",
             "at_s512": bwd_row(key, 512, 0.0),
             "dropout_0.1": {"s128": bwd_row(key, 128, 0.1),
-                            "s512": bwd_row(key, 512, 0.1)}})
+                            "s512": bwd_row(key, 512, 0.1)},
+            "llama_train_launches": llama["train"]["launches"][name],
+            "b8_h12_s1024_d64_causal": bwd_row_t(key,
+                                                 kt["bwd_d64_causal"]),
+            "llama_b2_h32_s1024_d128_causal": bwd_row_t(
+                key, kt["bwd_d128_causal"]),
+            "b4_h8_s512_d256": bwd_row_t(key, kt["bwd_d256"])})
     a = kt["adam"]
     rows.append({
         "name": "adam_update", "route": "cuda",
@@ -1202,12 +1651,13 @@ def kernel_rows(errs, serve, kt, train, gen) -> list:
         "max_abs_err": errs["adam_update"], "ms": a["ms"],
         "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": "bytes", "library_ms": a["library_ms"],
-        "shape": f"BERT-base, {a['numel']} f32 parameters in 200 leaves"})
+        "shape": f"BERT-base, {a['numel']} f32 parameters in 200 leaves",
+        "llama_train_launches": llama["train"]["launches"]["adam_update"]})
     return rows
 
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
-          "generate")
+          "generate", "llama")
 
 
 def main() -> int:
@@ -1216,8 +1666,16 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (times needs slice)")
-    phases = set(ap.parse_args().phases.split(","))
+    ap.add_argument("--ab-base", metavar="DIR",
+                    help="time the flash kernels of the checkout at DIR "
+                    "and of this one in turns, and nothing else")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
     dev, smi = phase_device()
+    if args.ab_base:
+        phase_ab(args.ab_base, smi)
+        print("chip_smoke: ran the A/B only; no result")
+        return 1
     if "build" in phases:
         phase_build()
     errs = phase_kernel() if "kernel" in phases else None
@@ -1227,10 +1685,12 @@ def main() -> int:
     if "times" in phases:
         phase_times(serve.pop("models"))
     gen = phase_generate(smi) if "generate" in phases else None
+    llama = phase_llama(smi) if "llama" in phases else None
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
-    print(json.dumps({"kernels": kernel_rows(errs, serve, kt, train, gen)}))
+    print(json.dumps({"kernels": kernel_rows(errs, serve, kt, train, gen,
+                                             llama)}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -78,6 +78,15 @@
 //   exact FMA path (64-row tiles, four warps, synchronous tile loads),
 //   because the tensor cores would round f32 to TF32.
 //
+//   dq and dk/dv at d = 192 and 256, either type - the wide FMA kernels
+//   (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one 64-column
+//   chunk of the outputs per CTA (their header says why).
+//
+// Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
+// has no 65535 limit. Causal dq whose heads' K/V all fit in L2 takes the
+// heaviest (last) query blocks of all heads first; causal dk/dv's
+// heaviest key blocks are its first, so it keeps the natural order.
+//
 // Bound. dq does 6*sq*sk*d flops per head (Q.K^T, dO.V^T, dS.K) and dk/dv
 // 8*sq*sk*d (Q.K^T, dO.V^T, P^T.dO, dS^T.Q); each reads q, k, v, do once
 // plus the f32 lse and delta, and writes its outputs once. At BERT shapes
@@ -169,8 +178,9 @@ __global__ void __launch_bounds__(NUM_THREADS)
   float* sV = sK + TILE * LD;
   float* sP = sV + TILE * LD;
 
-  const int m0 = blockIdx.x * TILE;
-  const int bh = blockIdx.y;
+  const GridCell cell = grid_cell((sq + TILE - 1) / TILE);
+  const int m0 = cell.block * TILE;
+  const int bh = cell.bh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;
   const float* kb = k + (size_t)bh * sk * D;
@@ -236,8 +246,9 @@ __global__ void __launch_bounds__(NUM_THREADS)
   float* sDelta = sLse + TILE;
   float* sP = sDelta + TILE;
 
-  const int n0 = blockIdx.x * TILE;
-  const int bh = blockIdx.y;
+  const GridCell cell = grid_cell((sk + TILE - 1) / TILE);
+  const int n0 = cell.block * TILE;
+  const int bh = cell.bh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;
   const float* qb = q + (size_t)bh * sq * D;
@@ -302,7 +313,10 @@ cudaError_t launch_dq(const Args& a) {
   static unsigned long long smem_set = 0;  // per instantiation and device
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + TILE - 1) / TILE, a.bh);
+  dim3 grid;
+  if (!launch_grid((a.sq + TILE - 1) / TILE, a.bh, 1, a.causal,
+                   2LL * a.sk * D * sizeof(float), &grid))
+    return cudaErrorInvalidValue;
   kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
@@ -319,13 +333,206 @@ cudaError_t launch_dkv(const Args& a) {
   static unsigned long long smem_set = 0;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sk + TILE - 1) / TILE, a.bh);
+  dim3 grid;
+  if (!launch_grid((a.sk + TILE - 1) / TILE, a.bh, 1, false, 0, &grid))
+    return cudaErrorInvalidValue;
   kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.out0),
       static_cast<float*>(a.out1), a.sq, a.sk, a.sm_scale, a.causal,
       a.use_dropout, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// head dim 192 and 256, f32 and bf16: the wide FMA kernels
+// ---------------------------------------------------------------------------
+// As the wide forward: a CTA owns one 64-column chunk of its output rows
+// (dq; or dk and dv), so its accumulators are the d = 64 kernels'
+// registers, and it computes the whole score tiles S and dP itself,
+// staging the operands 64 columns at a time (scores_wide); every chunk's
+// CTA repeats them. bf16 rows are widened to f32 in shared memory, and ds
+// and p_eff are rounded to bf16 before their products, where the
+// reference casts them. The dq kernel keeps ptxas's 168 registers and a
+// few spilled bytes: one CTA per SM as the minimum removed the spill but
+// ran slower, at two CTAs per SM instead of three (PERF.md sec. 6).
+template <int D, typename T>
+__global__ void __launch_bounds__(NUM_THREADS)
+    flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dq, int sq, int sk,
+                             float sm_scale, int causal, int use_dropout,
+                             uint32_t threshold, float keep_prob,
+                             uint32_t seed) {
+  constexpr int LD = TILE + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sA = reinterpret_cast<float*>(smem);
+  float* sB = sA + TILE * LD;
+  float* sK = sB + TILE * LD;  // K, this CTA's columns
+  float* sP = sK + TILE * LD;
+
+  const GridCell cell = grid_cell((sq + TILE - 1) / TILE, D / TILE);
+  const int m0 = cell.block * TILE;
+  const int bh = cell.bh;
+  const int col0 = cell.chunk * TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const T* qb = q + (size_t)bh * sq * D;
+  const T* db = dout + (size_t)bh * sq * D;
+  const T* kb = k + (size_t)bh * sk * D;
+  const T* vb = v + (size_t)bh * sk * D;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = m0 + warp * 16 + g + 8 * r;
+    lse_r[r] = qp < sq ? lse[(size_t)bh * sq + qp] : 0.f;
+    delta_r[r] = qp < sq ? delta[(size_t)bh * sq + qp] : 0.f;
+  }
+  auto lse_of = [&](int r) { return lse_r[r]; };
+  auto delta_of = [&](int r) { return delta_r[r]; };
+
+  float acc[N_FRAGS][4];
+  zero_frags(acc);
+  int n_tiles = (sk + TILE - 1) / TILE;
+  if (causal)  // a K tile is live iff its first key is visible to the
+               // tile's last query (the reference's rule)
+    n_tiles = min(n_tiles, (m0 + TILE - 1) / TILE + 1);
+
+  for (int tn = 0; tn < n_tiles; ++tn) {
+    const int n0 = tn * TILE;
+    float s[N_FRAGS][4], dp[N_FRAGS][4];
+    scores_wide<D>(s, sA, sB, qb, m0, sq, kb, n0, sk, warp, g, tig);
+    scores_wide<D>(dp, sA, sB, db, m0, sq, vb, n0, sk, warp, g, tig);
+    load_chunk(sK, kb, D, col0, n0, sk);  // after scores_wide's barriers
+    tile_grads<false>(s, dp, m0, n0, warp, g, tig, bh, sq, sk, causal,
+                      sm_scale, use_dropout, threshold, keep_prob, seed,
+                      lse_of, delta_of);
+#pragma unroll
+    for (int nt = 0; nt < N_FRAGS; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[nt][c] = round_to<T>(dp[nt][c]);
+    __syncthreads();  // the K chunk has landed
+    accumulate_pv<TILE>(acc, dp, sK, sP, warp, g, tig);  // dq += ds . k
+  }
+  store_chunk(dq + (size_t)bh * sq * D, acc, D, col0, m0, sq, warp, g, tig);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(NUM_THREADS)
+    flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int sq,
+                              int sk, float sm_scale, int causal,
+                              int use_dropout, uint32_t threshold,
+                              float keep_prob, uint32_t seed) {
+  constexpr int LD = TILE + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sA = reinterpret_cast<float*>(smem);
+  float* sB = sA + TILE * LD;
+  float* sQ = sB + TILE * LD;   // Q, this CTA's columns
+  float* sDO = sQ + TILE * LD;  // dO, this CTA's columns
+  float* sP = sDO + TILE * LD;
+  float* sLse = sP + TILE * P_LD;
+  float* sDelta = sLse + TILE;
+
+  const GridCell cell = grid_cell((sk + TILE - 1) / TILE, D / TILE);
+  const int n0 = cell.block * TILE;
+  const int bh = cell.bh;
+  const int col0 = cell.chunk * TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const T* qb = q + (size_t)bh * sq * D;
+  const T* db = dout + (size_t)bh * sq * D;
+  const T* kb = k + (size_t)bh * sk * D;
+  const T* vb = v + (size_t)bh * sk * D;
+  auto lse_of = [&](int c) { return sLse[c]; };
+  auto delta_of = [&](int c) { return sDelta[c]; };
+
+  float dk_acc[N_FRAGS][4], dv_acc[N_FRAGS][4];
+  zero_frags(dk_acc);
+  zero_frags(dv_acc);
+  const int n_tiles = (sq + TILE - 1) / TILE;
+  // causal: a q tile is live iff its last query can see the first key
+  const int first = causal ? n0 / TILE : 0;
+
+  for (int tm = first; tm < n_tiles; ++tm) {
+    const int m0 = tm * TILE;
+    float s[N_FRAGS][4], dp[N_FRAGS][4];
+    scores_wide<D>(s, sA, sB, kb, n0, sk, qb, m0, sq, warp, g, tig);
+    scores_wide<D>(dp, sA, sB, vb, n0, sk, db, m0, sq, warp, g, tig);
+    // after scores_wide's barriers: the last tile's readers are done
+    load_chunk(sQ, qb, D, col0, m0, sq);
+    load_chunk(sDO, db, D, col0, m0, sq);
+    for (int i = threadIdx.x; i < TILE; i += NUM_THREADS) {
+      const int qp = m0 + i;
+      sLse[i] = qp < sq ? lse[(size_t)bh * sq + qp] : 0.f;
+      sDelta[i] = qp < sq ? delta[(size_t)bh * sq + qp] : 0.f;
+    }
+    __syncthreads();
+    // s^T = k . q^T and dp^T = v . do^T in the key-row frame
+    tile_grads<true>(s, dp, n0, m0, warp, g, tig, bh, sq, sk, causal,
+                     sm_scale, use_dropout, threshold, keep_prob, seed,
+                     lse_of, delta_of);
+#pragma unroll
+    for (int nt = 0; nt < N_FRAGS; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[nt][c] = round_to<T>(s[nt][c]);    // p_eff cast to do's type
+        dp[nt][c] = round_to<T>(dp[nt][c]);  // ds cast to q's type
+      }
+    accumulate_pv<TILE>(dv_acc, s, sDO, sP, warp, g, tig);  // dv += p^T.do
+    accumulate_pv<TILE>(dk_acc, dp, sQ, sP, warp, g, tig);  // dk += ds^T.q
+  }
+  store_chunk(dk + (size_t)bh * sk * D, dk_acc, D, col0, n0, sk, warp, g,
+              tig);
+  store_chunk(dv + (size_t)bh * sk * D, dv_acc, D, col0, n0, sk, warp, g,
+              tig);
+}
+
+template <int D, typename T>
+cudaError_t launch_dq_wide(const Args& a) {
+  const size_t smem = (size_t)4 * TILE * (TILE + 4) * sizeof(float);
+  auto kernel = flash_bwd_dq_wide_kernel<D, T>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if (!launch_grid((a.sq + TILE - 1) / TILE, a.bh, D / TILE, a.causal,
+                   2LL * a.sk * D * sizeof(T), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), a.sq, a.sk, a.sm_scale, a.causal,
+      a.use_dropout, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t launch_dkv_wide(const Args& a) {
+  const size_t smem =
+      ((size_t)5 * TILE * (TILE + 4) + 2 * TILE) * sizeof(float);
+  auto kernel = flash_bwd_dkv_wide_kernel<D, T>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if (!launch_grid((a.sk + TILE - 1) / TILE, a.bh, D / TILE, false, 0,
+                   &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.sq, a.sk,
+      a.sm_scale, a.causal, a.use_dropout, a.threshold, a.keep_prob, a.seed);
   return cudaGetLastError();
 }
 
@@ -373,8 +580,9 @@ __global__ void __launch_bounds__(WG_THREADS, 2)  // two CTAs per SM
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * BN;
-  const int bh = blockIdx.y;
+  const GridCell cell = grid_cell((sk + BN - 1) / BN);
+  const int n0 = cell.block * BN;
+  const int bh = cell.bh;
   const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
   const __nv_bfloat16* db = dout + (size_t)bh * sq * D;
   const float* lb = lse + (size_t)bh * sq;
@@ -544,7 +752,9 @@ cudaError_t launch_dkv_wgmma_t(const Args& a) {
   static unsigned long long smem_set = 0;
   cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sk + Tl::BN - 1) / Tl::BN, a.bh);
+  dim3 grid;
+  if (!launch_grid((a.sk + Tl::BN - 1) / Tl::BN, a.bh, 1, false, 0, &grid))
+    return cudaErrorInvalidValue;
   kernel<<<grid, WG_THREADS, Tl::SMEM, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
@@ -608,8 +818,9 @@ __global__ void __launch_bounds__(WG_THREADS, DqTiles<D>::MIN_CTAS)
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.x * BM;
-  const int bh = blockIdx.y;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
   const int row_w = m0 + warp * 16;  // this warp's first query row
   const int qpos[2] = {row_w + g, row_w + g + 8};
   const float scale_log2 = sm_scale * LOG2E;
@@ -774,7 +985,10 @@ cudaError_t launch_dq_wgmma_t(const Args& a) {
       (err = tensor_map_bf16(&tm_v, a.v, a.bh, a.sk, D, Tl::BN)) !=
           cudaSuccess)
     return err;
-  const dim3 grid((a.sq + Tl::BM - 1) / Tl::BM, a.bh);
+  dim3 grid;
+  if (!launch_grid((a.sq + Tl::BM - 1) / Tl::BM, a.bh, 1, a.causal,
+                   2LL * a.sk * D * sizeof(__nv_bfloat16), &grid))
+    return cudaErrorInvalidValue;
   kernel<<<grid, WG_THREADS, Tl::SMEM, a.stream>>>(
       tm_q, tm_do, tm_k, tm_v, a.lse, a.delta,
       static_cast<__nv_bfloat16*>(a.out0), a.sq, a.sk, a.sm_scale, a.causal,
@@ -789,20 +1003,32 @@ cudaError_t launch_dq_wgmma(const Args& a) {
 }
 
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
-  if (a.bh <= 0 || a.bh > 65535 || a.sq <= 0 || a.sk <= 0)
+  if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0)
     return (int)cudaErrorInvalidValue;
-  // bf16 runs the wgmma kernels, f32 the exact FMA kernels
+  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; either type
+  // at d = 192 or 256 the wide FMA kernels
+  using bf16 = __nv_bfloat16;
   if (!dkv) {
     if (dtype == 1 && head_dim == 64) return (int)launch_dq_wgmma<64>(a);
     if (dtype == 1 && head_dim == 128) return (int)launch_dq_wgmma<128>(a);
     if (dtype == 0 && head_dim == 64) return (int)launch_dq<64>(a);
     if (dtype == 0 && head_dim == 128) return (int)launch_dq<128>(a);
+    if (dtype == 0 && head_dim == 192)
+      return (int)launch_dq_wide<192, float>(a);
+    if (dtype == 0 && head_dim == 256)
+      return (int)launch_dq_wide<256, float>(a);
+    if (dtype == 1 && head_dim == 192) return (int)launch_dq_wide<192, bf16>(a);
+    if (dtype == 1 && head_dim == 256) return (int)launch_dq_wide<256, bf16>(a);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1 && head_dim == 64) return (int)launch_dkv_wgmma<64>(a);
   if (dtype == 1 && head_dim == 128) return (int)launch_dkv_wgmma<128>(a);
   if (dtype == 0 && head_dim == 64) return (int)launch_dkv<64>(a);
   if (dtype == 0 && head_dim == 128) return (int)launch_dkv<128>(a);
+  if (dtype == 0 && head_dim == 192) return (int)launch_dkv_wide<192, float>(a);
+  if (dtype == 0 && head_dim == 256) return (int)launch_dkv_wide<256, float>(a);
+  if (dtype == 1 && head_dim == 192) return (int)launch_dkv_wide<192, bf16>(a);
+  if (dtype == 1 && head_dim == 256) return (int)launch_dkv_wide<256, bf16>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -810,8 +1036,8 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
 
 // q, do: (bh, sq, d); k, v: (bh, sk, d), all contiguous in one type
 // (dtype 0 = float32, 1 = bfloat16); lse, delta: (bh, sq) float32. d is
-// 64 or 128. dq: (bh, sq, d) in the input type. Returns a cudaError_t
-// (0 = launched).
+// 64, 128, 192 or 256; bh any count whose grid fits gridDim.x. dq: (bh,
+// sq, d) in the input type. Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bh, int sq, int sk,

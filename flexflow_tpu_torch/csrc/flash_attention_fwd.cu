@@ -44,6 +44,13 @@
 //   warps, plain FMA loops, because the tensor cores would round f32
 //   operands to TF32.
 //
+//   d = 192 and 256, either type - flash_fwd_wide_kernel below: the FMA
+//   path with one 64-column chunk of o per CTA (its header says why).
+//
+// Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
+// has no 65535 limit; causal launches whose heads' K/V all fit in L2 take
+// the heaviest (last) row blocks of all heads first.
+//
 // Bound. At BERT shapes (d = 64, s <= 512) the arithmetic intensity of the
 // whole function is ~s/2 flop per byte, below the H100's ~295 bf16
 // flop/byte ridge, so the least time is set by reading q, k, v and writing
@@ -158,8 +165,9 @@ __global__ void __launch_bounds__(WG_THREADS, MIN_CTAS)
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.x * BM;
-  const int bh = blockIdx.y;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
   // row block rb: this warp's first row, and this thread's two rows
   int row_w[RB], qpos[RB][2];
 #pragma unroll
@@ -345,7 +353,10 @@ cudaError_t launch_wgmma_t(const void* q, const void* k, const void* v,
       (err = tensor_map_bf16(&tm_v, v, bh, sk, D, Tl::BN)) != cudaSuccess ||
       (err = tensor_map_bf16(&tm_o, o, bh, sq, D, Tl::BM)) != cudaSuccess)
     return err;
-  const dim3 grid((sq + Tl::BM - 1) / Tl::BM, bh);
+  dim3 grid;
+  if (!launch_grid((sq + Tl::BM - 1) / Tl::BM, bh, 1, causal,
+                   2LL * sk * D * sizeof(__nv_bfloat16), &grid))
+    return cudaErrorInvalidValue;
   kernel<<<grid, WG_THREADS, Tl::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), sq, sk, sm_scale,
       causal, threshold, keep_prob, seed);
@@ -389,8 +400,9 @@ __global__ void __launch_bounds__(NUM_THREADS)
   float* sV = sK + BLOCK_N * LD;
   float* sP = sV + BLOCK_N * LD;
 
-  const int m0 = blockIdx.x * BLOCK_M;
-  const int bh = blockIdx.y;
+  const GridCell cell = grid_cell((sq + BLOCK_M - 1) / BLOCK_M);
+  const int m0 = cell.block * BLOCK_M;
+  const int bh = cell.bh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;
   const float* qb = q + (size_t)bh * sq * D;
@@ -501,12 +513,167 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   static unsigned long long smem_set = 0;  // per instantiation and device
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, bh);
+  dim3 grid;
+  if (!launch_grid((sq + BLOCK_M - 1) / BLOCK_M, bh, 1, causal,
+                   2LL * sk * D * sizeof(float), &grid))
+    return cudaErrorInvalidValue;
   kernel<<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), sq, sk, sm_scale, causal, use_dropout,
       threshold, keep_prob, seed);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// head dim 192 and 256, f32 and bf16: the wide FMA kernel
+// ---------------------------------------------------------------------------
+// The wgmma kernels hold a (64, D) f32 accumulator in registers: 128 per
+// thread at D = 256, beside S, and a (64 + 2 * 64) x D tile ring. Here a
+// CTA owns 64 query rows and one 64-column chunk of o (the grid carries D
+// / 64 chunks per row block, adjacent in launch order), so its
+// accumulator is the d = 64 kernel's 32 registers. It computes the whole
+// score tile S = Q . K^T itself, staging Q and K 64 columns at a time
+// (scores_wide), so every chunk's CTA repeats the same scores, softmax and
+// lse: D / 64 times the score work of one CTA, for a kernel that is plain
+// and right. bf16 rows are widened to f32 in shared memory, and p is
+// rounded to bf16 before P . V, where the reference casts it. With no
+// minimum of CTAs per SM ptxas held it to 128 registers and spilled; one
+// CTA per SM as the minimum lets it take ~160 with no spill, and it ran
+// faster so (PERF.md sec. 6).
+template <int D, typename T>
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int sq, int sk,
+                          float sm_scale, int causal, int use_dropout,
+                          uint32_t threshold, float keep_prob,
+                          uint32_t seed) {
+  constexpr int LD = TILE + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sA = reinterpret_cast<float*>(smem);  // Q chunk
+  float* sB = sA + TILE * LD;                  // K chunk
+  float* sV = sB + TILE * LD;                  // V, this CTA's columns
+  float* sP = sV + TILE * LD;
+
+  const GridCell cell = grid_cell((sq + TILE - 1) / TILE, D / TILE);
+  const int m0 = cell.block * TILE;
+  const int bh = cell.bh;
+  const int col0 = cell.chunk * TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const T* qb = q + (size_t)bh * sq * D;
+  const T* kb = k + (size_t)bh * sk * D;
+  const T* vb = v + (size_t)bh * sk * D;
+  const int qpos[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
+
+  float acc[N_FRAGS][4];
+#pragma unroll
+  for (int dt = 0; dt < N_FRAGS; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF};
+  float l_i[2] = {0.f, 0.f};
+
+  int n_tiles = (sk + TILE - 1) / TILE;
+  if (causal)  // a tile is live iff its first key is visible to the last row
+    n_tiles = min(n_tiles, (m0 + TILE - 1) / TILE + 1);
+
+  for (int tn = 0; tn < n_tiles; ++tn) {
+    const int n0 = tn * TILE;
+    float s[N_FRAGS][4];
+    scores_wide<D>(s, sA, sB, qb, m0, sq, kb, n0, sk, warp, g, tig);
+    load_chunk(sV, vb, D, col0, n0, sk);  // after scores_wide's barriers
+
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int nt = 0; nt < N_FRAGS; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = n0 + nt * 8 + tig * 2 + (c & 1);
+        const int r = c >> 1;
+        const bool ok = kpos < sk && (!causal || kpos <= qpos[r]);
+        s[nt][c] = ok ? s[nt][c] * sm_scale : NEG_INF;
+        mx[r] = fmaxf(mx[r], s[nt][c]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m_i[r] - mx[r]);
+      m_i[r] = mx[r];
+    }
+    float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < N_FRAGS; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        const float p = expf(s[nt][c] - mx[r]);
+        rowsum[r] += p;  // the denominator sums the undropped p
+        float pe = p;
+        if (use_dropout) {
+          const uint32_t kpos = n0 + nt * 8 + tig * 2 + (c & 1);
+          const bool keep =
+              position_hash(seed, bh, qpos[r], kpos) >= threshold;
+          pe = keep ? p / keep_prob : 0.f;
+        }
+        s[nt][c] = round_to<T>(pe);  // p cast to v's type
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + rowsum[r];
+#pragma unroll
+    for (int dt = 0; dt < N_FRAGS; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+    __syncthreads();  // the V chunk has landed
+    accumulate_pv<TILE>(acc, s, sV, sP, warp, g, tig);
+  }
+
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_safe = (l == 0.f) ? 1.f : l;
+    inv_l[r] = 1.f / l_safe;
+    if (cell.chunk == 0 && tig == 0 && qpos[r] < sq)
+      lse[(size_t)bh * sq + qpos[r]] = m_i[r] + logf(l_safe);
+  }
+#pragma unroll
+  for (int dt = 0; dt < N_FRAGS; ++dt) {
+    acc[dt][0] *= inv_l[0];
+    acc[dt][1] *= inv_l[0];
+    acc[dt][2] *= inv_l[1];
+    acc[dt][3] *= inv_l[1];
+  }
+  store_chunk(o + (size_t)bh * sq * D, acc, D, col0, m0, sq, warp, g, tig);
+}
+
+template <int D, typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int bh, int sq, int sk, int causal,
+                        float sm_scale, int use_dropout, uint32_t threshold,
+                        float keep_prob, uint32_t seed, cudaStream_t stream) {
+  const size_t smem = (size_t)4 * TILE * (TILE + 4) * sizeof(float);
+  auto kernel = flash_fwd_wide_kernel<D, T>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  if (!launch_grid((sq + TILE - 1) / TILE, bh, D / TILE, causal,
+                   2LL * sk * D * sizeof(T), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, NUM_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      sq, sk, sm_scale, causal, use_dropout, threshold, keep_prob, seed);
   return cudaGetLastError();
 }
 
@@ -518,8 +685,10 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 
 // q: (bh, sq, d), k/v: (bh, sk, d), o: (bh, sq, d), all contiguous in the
 // same type (dtype 0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
-// d is 64 or 128. bf16 launches the wgmma kernel, f32 the FMA kernel.
-// Returns a cudaError_t (0 = launched).
+// d is 64, 128, 192 or 256; bh any count whose grid fits gridDim.x. bf16
+// at d <= 128 launches the wgmma kernel, f32 at d <= 128 the FMA kernel,
+// either type at d = 192 or 256 the wide FMA kernel. Returns a
+// cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
@@ -527,7 +696,7 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       int use_dropout, unsigned int threshold,
                                       float keep_prob, unsigned int seed,
                                       void* stream) {
-  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0)
+  if (bh <= 0 || sq <= 0 || sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool two_blocks =
@@ -544,6 +713,12 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && head_dim == 128) FF_LAUNCH((launch_wgmma<128, 1, 2>));
   if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<64>));
   if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<128>));
+  if (dtype == 0 && head_dim == 192) FF_LAUNCH((launch_wide<192, float>));
+  if (dtype == 0 && head_dim == 256) FF_LAUNCH((launch_wide<256, float>));
+  if (dtype == 1 && head_dim == 192)
+    FF_LAUNCH((launch_wide<192, __nv_bfloat16>));
+  if (dtype == 1 && head_dim == 256)
+    FF_LAUNCH((launch_wide<256, __nv_bfloat16>));
 #undef FF_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Device helpers shared by the flash-attention kernels for Hopper
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): the dropout keep hash
-// and its per-fragment bitmask, the bf16 pair store, and the building
-// blocks of the exact f32 kernels.
+// and its per-fragment bitmask, the bf16 pair store, the 1-D grid of every
+// kernel, the building blocks of the exact f32 kernels, and those of the
+// wide kernels (head dim 192 and 256), which stage either type as f32.
 //
 // The f32 kernels work on 64-row tiles with four warps, each warp owning
 // 16 rows of the tile's "A" side (query rows in the forward and dq
@@ -171,6 +172,148 @@ __device__ __forceinline__ void store_rows(float* dst,
     float* out = dst + (size_t)row * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
+      store2(out + dt * 8 + tig * 2, acc[dt][2 * r], acc[dt][2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the grid: one dimension, so b*h has no 65535 limit
+// ---------------------------------------------------------------------------
+// Every flash kernel runs on a grid whose x dimension carries bh (gridDim.x
+// takes up to 2^31 - 1; gridDim.y, where bh sat before, only 65535). In
+// the natural order, a 1-D grid of n_blocks * bh CTAs, the row blocks of
+// one head are adjacent, so consecutive CTAs share that head's K/V (or
+// Q/dO) in L2. A causal forward or dq whose heads' K and V all fit in L2
+// together launches its heaviest row blocks, the last query blocks, which
+// cross the most K/V tiles, first across all heads (FA2's order):
+// launch_grid then makes the grid 2-D, bh on x and the row block, last
+// first, on y, so the launch ends on the lightest blocks of all heads.
+// Otherwise it keeps the natural 1-D order and its L2 sharing (LLaMA-7B's
+// prefill, 64 MiB of K/V, ran 1-2% slower with its row blocks reversed
+// within each head: PERF.md sec. 6). The host decides; a kernel reads the
+// order from gridDim.y. dk/dv's first key blocks are its heaviest, so it
+// keeps the natural order.
+constexpr long long L2_BYTES = 50LL << 20;  // the H100's L2 cache
+
+struct GridCell {
+  int block;  // row block (query rows; key rows for dk/dv)
+  int bh;     // batch * head
+  int chunk;  // 64-column chunk of the output head dim (the wide kernels)
+};
+
+__device__ __forceinline__ GridCell grid_cell(int n_blocks,
+                                              int n_chunks = 1) {
+  if (gridDim.y > 1)  // launch_grid's order across heads
+    return {n_blocks - 1 - (int)blockIdx.y, (int)blockIdx.x / n_chunks,
+            (int)blockIdx.x % n_chunks};
+  const int idx = blockIdx.x;
+  const int rest = idx / n_chunks;
+  const int bh = rest / n_blocks;
+  return {rest - bh * n_blocks, bh, idx % n_chunks};
+}
+
+// The grid of n_blocks row blocks by bh heads (by n_chunks column chunks),
+// in the order above; head_kv_bytes is one head's K and V. False when it
+// exceeds gridDim.x's 2^31 - 1.
+inline bool launch_grid(long long n_blocks, long long bh, long long n_chunks,
+                        bool causal, long long head_kv_bytes, dim3* grid) {
+  const long long n = n_blocks * bh * n_chunks;
+  if (n <= 0 || n > 2147483647LL) return false;
+  if (causal && n_blocks > 1 && n_blocks <= 65535 &&
+      bh * head_kv_bytes <= L2_BYTES)
+    *grid = dim3((unsigned)(bh * n_chunks), (unsigned)n_blocks);
+  else
+    *grid = dim3((unsigned)n);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// the wide kernels (head dim 192 and 256, f32 and bf16)
+// ---------------------------------------------------------------------------
+// A 64-column chunk of 4 consecutive elements, widened to f32: rows of
+// either type are staged as f32 in shared memory and run the FMA loops.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // 8-byte aligned
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// x rounded to T and back: where the reference casts p or ds to the input
+// type before a product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Stage rows [row0, row0 + 64) and columns [col0, col0 + 64) of a
+// (n_rows, ld) matrix of T into shared memory as f32 with row stride 68
+// (the layout scores<64> and accumulate_pv<64> read); rows past n_rows
+// are zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, const T* src, int ld,
+                                           int col0, int row0, int n_rows) {
+  constexpr int CHUNKS = TILE / 4;
+  constexpr int LD = TILE + 4;
+  for (int i = threadIdx.x; i < TILE * CHUNKS; i += NUM_THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const int gr = row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr < n_rows) val = load4(src + (size_t)gr * ld + col0 + c * 4);
+    *reinterpret_cast<float4*>(dst + r * LD + c * 4) = val;
+  }
+}
+
+// s = A . B^T over the whole head dim D for this warp's 16 rows of the
+// 64 rows of A from a_row0 and the 64 rows of B from b_row0 (both (rows,
+// D) matrices of T), staged 64 columns at a time through sA and sB.
+// Starts with a barrier, so a caller may reuse any staging buffer that
+// was read before it.
+template <int D, typename T>
+__device__ __forceinline__ void scores_wide(float (&s)[N_FRAGS][4],
+                                            float* sA, float* sB,
+                                            const T* a, int a_row0,
+                                            int a_rows, const T* b,
+                                            int b_row0, int b_rows,
+                                            int warp, int g, int tig) {
+#pragma unroll
+  for (int nt = 0; nt < N_FRAGS; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int c0 = 0; c0 < D; c0 += TILE) {
+    __syncthreads();  // every warp is done with the previous chunk
+    load_chunk(sA, a, D, c0, a_row0, a_rows);
+    load_chunk(sB, b, D, c0, b_row0, b_rows);
+    __syncthreads();
+    scores<TILE>(s, sA, sB, warp, g, tig);
+  }
+}
+
+// Write this warp's 16 rows of a 64-column C-fragment accumulator (rows
+// row0 + warp * 16 + {g, g + 8}) into columns [col0, col0 + 64) of a
+// (n_rows, ld) matrix of T, skipping rows past n_rows.
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* dst,
+                                            const float (&acc)[N_FRAGS][4],
+                                            int ld, int col0, int row0,
+                                            int n_rows, int warp, int g,
+                                            int tig) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= n_rows) continue;
+    T* out = dst + (size_t)row * ld + col0;
+#pragma unroll
+    for (int dt = 0; dt < N_FRAGS; ++dt)
       store2(out + dt * 8 + tig * 2, acc[dt][2 * r], acc[dt][2 * r + 1]);
   }
 }

@@ -15,7 +15,7 @@ package's multi-device lowerings and come with the slices that port them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,37 +72,70 @@ class GraphProgram:
             env[t.guid] = value.to(device=device, dtype=to_torch(t.dtype))
         return env
 
+    def _frees(self, layers: Sequence[Layer]) -> List[List[int]]:
+        """For each layer, the env entries that die after it runs: the
+        tensors it is the last reader (or, unread, the producer) of, other
+        than the graph's outputs."""
+        keep = {t.guid for t in self.output_tensors}
+        last: Dict[int, int] = {}
+        for i, layer in enumerate(layers):
+            for t in layer.outputs:
+                last[t.guid] = i
+            for t in layer.inputs:
+                last[t.guid] = i
+        frees: List[List[int]] = [[] for _ in layers]
+        for guid, i in last.items():
+            if guid not in keep:
+                frees[i].append(guid)
+        return frees
+
     def emit_layers(self, layers: Sequence[Layer], env: Dict[int, Any],
                     params: Dict[str, Dict[str, Any]], ctx: EmitCtx,
-                    capture: Optional[Dict[int, Any]] = None) -> None:
+                    capture: Optional[int] = None) -> Any:
+        """Emit ``layers`` in order over ``env`` (tensor guid -> value).
+        Returns the value of the op output whose guid is ``capture`` (None
+        when none is asked for or none runs). When autograd records nothing
+        (serving, the KV prefill, the re-forward), each env entry is
+        dropped after its last reader, so the peak holds only the live
+        activations and the graph's outputs. Training keeps them all:
+        autograd holds what the backward reads either way."""
         bf16_act = bool(getattr(ctx.config, "bf16_activations", False)) \
             if ctx.config is not None else False
-        for layer in layers:
+        frees = None if torch.is_grad_enabled() else self._frees(layers)
+        captured = None
+        for li, layer in enumerate(layers):
             op = get_op_def(layer.op_type)
             ins = [env[t.guid] for t in layer.inputs]
             outs = op.emit(layer.params, ins, params.get(layer.name, {}),
                            ctx, layer.name)
+            del ins
             if len(outs) != len(layer.outputs):
                 raise RuntimeError(
                     f"op {layer.name} emitted {len(outs)} outputs, "
                     f"expected {len(layer.outputs)}")
             for o, t in zip(outs, layer.outputs):
-                if capture is not None:
+                if t.guid == capture:
                     # the pre-bf16-cast value: the CE-on-logits loss reads
                     # full-precision logits from here
-                    capture[t.guid] = o
+                    captured = o
                 if bf16_act and o.dtype == torch.float32:
                     # end-to-end bf16 activations (weights stay f32)
                     o = o.to(torch.bfloat16)
                 env[t.guid] = o
+            del outs
+            if frees is not None:
+                for guid in frees[li]:
+                    env.pop(guid, None)
+        return captured
 
     def emit(self, params: Dict[str, Dict[str, Any]], inputs: Dict[str, Any],
              ctx: EmitCtx, device: torch.device,
-             capture: Optional[Dict[int, Any]] = None) -> List[Any]:
-        """Interpret the graph on ``inputs``; returns the output tensors."""
+             capture: Optional[int] = None) -> Tuple[List[Any], Any]:
+        """Interpret the graph on ``inputs``; returns the output tensors
+        and the value of output ``capture`` (``emit_layers``)."""
         env = self.init_env(inputs, device)
-        self.emit_layers(self.layers, env, params, ctx, capture)
-        return [env[t.guid] for t in self.output_tensors]
+        captured = self.emit_layers(self.layers, env, params, ctx, capture)
+        return [env[t.guid] for t in self.output_tensors], captured
 
 
 class Executor:
@@ -162,25 +195,31 @@ class Executor:
         if self._kernel_impls:
             ctx.kernel_impls = self._kernel_impls
 
+    def _logits_guid(self) -> Optional[int]:
+        """The op output a forward captures: the logits that the loss and
+        the generation scores read (``_logits_tensor``), or none."""
+        lt = self._logits_tensor
+        return None if lt is None else lt.guid
+
     def _forward(self, params, state, batch, training: bool, step=0,
                  capture: bool = True):
-        """``capture``: also return every op output by tensor guid (the
-        loss reads the logits there); serving passes False."""
+        """``capture``: also return the logits the loss and the scores read
+        (``_logits_guid``; None without them); serving passes False."""
         rngs = self._rngs_for_step(step) if training else {}
         ctx = EmitCtx(training=training, rngs=rngs, state=state,
                       config=self.config)
         self._attach_kernel_ctx(ctx)
-        captured: Optional[Dict[int, Any]] = {} if capture else None
-        outs = self.program.emit(params, batch, ctx, self.device, captured)
+        outs, logits = self.program.emit(
+            params, batch, ctx, self.device,
+            self._logits_guid() if capture else None)
         new_state = dict(state)
         new_state.update(ctx.new_state)
-        return outs, new_state, ctx.aux_losses, captured
+        return outs, new_state, ctx.aux_losses, logits
 
-    def _loss_and_metrics(self, outs, capture, label, aux_losses):
+    def _loss_and_metrics(self, outs, logits, label, aux_losses):
         pred = outs[0]
         label = _as_tensor(label, self.device)
         if self._logits_tensor is not None:
-            logits = capture[self._logits_tensor.guid]
             loss = losses_mod.compute_loss(self.loss_type, logits, label,
                                            logits=True)
         else:
@@ -227,9 +266,9 @@ class Executor:
         for (ln, wn), t in zip(names, leaves):
             live.setdefault(ln, {})[wn] = t
         with torch.enable_grad():
-            outs, new_state, aux, capture = self._forward(
+            outs, new_state, aux, logits = self._forward(
                 live, state, batch, True, step)
-            loss, bm = self._loss_and_metrics(outs, capture, batch["label"],
+            loss, bm = self._loss_and_metrics(outs, logits, batch["label"],
                                               aux)
             gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -316,9 +355,9 @@ class Executor:
 
         def step_fn(params, state, batch):
             with torch.inference_mode():
-                outs, _, aux, capture = self._forward(params, state, batch,
-                                                      False)
-                _, bm = self._loss_and_metrics(outs, capture,
+                outs, _, aux, logits = self._forward(params, state, batch,
+                                                     False)
+                _, bm = self._loss_and_metrics(outs, logits,
                                                batch["label"], aux)
             return outs[0], bm
 
@@ -344,13 +383,12 @@ class Executor:
     # ------------------------------------------------------------------
     # generation support
     # ------------------------------------------------------------------
-    def _scores(self, outs, capture):
+    def _scores(self, outs, logits):
         """Log-domain next-token scores: the pre-softmax logits when the
         graph ends in Softmax (exact), else log of the clipped output
         probabilities."""
-        if self._logits_tensor is not None \
-                and self._logits_tensor.guid in capture:
-            return capture[self._logits_tensor.guid]
+        if logits is not None:
+            return logits
         return torch.log(torch.clamp(outs[0], min=1e-20))
 
     def _kv_ctx(self, mode: str, state) -> EmitCtx:
@@ -364,8 +402,8 @@ class Executor:
         """Forward returning log-domain next-token scores (B, L, V), under
         ``torch.inference_mode()``."""
         with torch.inference_mode():
-            outs, _, _, capture = self._forward(params, state, batch, False)
-            return self._scores(outs, capture)
+            outs, _, _, logits = self._forward(params, state, batch, False)
+            return self._scores(outs, logits)
 
     def _kv_layers(self) -> List[Layer]:
         """The layers the attention layers' K/V depend on, in graph
@@ -414,10 +452,9 @@ class Executor:
         ctx.kv_cache = cache
         ctx.kv_index = index
         with torch.inference_mode():
-            capture: Dict[int, Any] = {}
-            outs = self.program.emit(params, batch, ctx, self.device,
-                                     capture)
-            scores = self._scores(outs, capture)
+            outs, logits = self.program.emit(params, batch, ctx,
+                                             self.device, self._logits_guid())
+            scores = self._scores(outs, logits)
         new_cache = dict(cache)
         new_cache.update(ctx.new_kv)
         return scores[:, 0, :], new_cache

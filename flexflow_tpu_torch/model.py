@@ -1,8 +1,9 @@
 """FFModel: the model-building API and compile, on one device.
 
 The port of ``flexflow_tpu/model.py`` on one device: the layer builders
-BERT and GPT-2 use (same names, params and auto-naming as the JAX
-package, so the two graphs of one model line up layer for layer),
+BERT, GPT-2 and the LLaMA family use (same names, params and auto-naming
+as the JAX package, so the two graphs of one model line up layer for
+layer),
 ``compile`` without search or mesh (parameters and optimizer state
 materialized), the forced path of the kernel tier, the training loop
 (``fit``, ``eval``, the phase-API no-ops) and generation (``generate``
@@ -167,6 +168,7 @@ class FFModel:
                             kdim: int = 0, vdim: int = 0, dropout: float = 0.0,
                             bias: bool = True, add_bias_kv: bool = False,
                             add_zero_attn: bool = False, causal: bool = False,
+                            rope: bool = False, rope_theta: float = 10000.0,
                             num_kv_heads: int = 0,
                             sliding_window: int = 0,
                             kernel_initializer=None,
@@ -193,6 +195,11 @@ class FFModel:
                     f"sliding_window must be positive, "
                     f"got {sliding_window}")
             params["sliding_window"] = int(sliding_window)
+        if rope:
+            # rotary embeddings in the op (LLaMA family): the flash and
+            # KV-decode paths stay open to RoPE models
+            params["rope"] = True
+            params["rope_theta"] = float(rope_theta)
         return self._add_layer(OperatorType.OP_MULTIHEAD_ATTENTION,
                                [query, key, value], params, name).outputs[0]
 
@@ -202,6 +209,18 @@ class FFModel:
         return self._unary(OperatorType.OP_LAYERNORM, input, name,
                            axes=list(axes),
                            elementwise_affine=elementwise_affine, eps=eps)
+
+    def rms_norm(self, input: Tensor, eps: float = 1e-6,
+                 name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.OP_RMSNORM, input, name, eps=eps)
+
+    def batch_matmul(self, a: Tensor, b: Tensor,
+                     a_seq_length_dim: int = -1, b_seq_length_dim: int = -1,
+                     name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.OP_BATCHMATMUL, [a, b],
+                               {"a_seq_length_dim": a_seq_length_dim,
+                                "b_seq_length_dim": b_seq_length_dim},
+                               name).outputs[0]
 
     def softmax(self, input: Tensor, axis: int = -1,
                 name: Optional[str] = None) -> Tensor:
@@ -217,8 +236,98 @@ class FFModel:
         return self._unary(OperatorType.OP_RESHAPE, input, name,
                            shape=list(shape))
 
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.OP_CONCAT, list(tensors),
+                               {"axis": axis}, name).outputs[0]
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.OP_TRANSPOSE, input, name,
+                           perm=list(perm))
+
+    # ---- elementwise binary ----
     def add(self, x, y, name=None):
         return self._binary(OperatorType.OP_EW_ADD, x, y, name)
+
+    def subtract(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_SUB, x, y, name)
+
+    def multiply(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_MUL, x, y, name)
+
+    def divide(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_DIV, x, y, name)
+
+    def max(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_MAX, x, y, name)
+
+    def equal(self, x, y, name=None):
+        """Elementwise equality (DT_BOOLEAN output, broadcasting)."""
+        return self._binary(OperatorType.OP_EW_EQUAL, x, y, name)
+
+    def greater(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_GREATER, x, y, name)
+
+    def less(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_LESS, x, y, name)
+
+    def min(self, x, y, name=None):
+        return self._binary(OperatorType.OP_EW_MIN, x, y, name)
+
+    # ---- elementwise unary ----
+    def relu(self, x, name=None):
+        return self._unary(OperatorType.OP_RELU, x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OperatorType.OP_SIGMOID, x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OperatorType.OP_TANH, x, name)
+
+    def elu(self, x, name=None):
+        return self._unary(OperatorType.OP_ELU, x, name)
+
+    def gelu(self, x, name=None):
+        return self._unary(OperatorType.OP_GELU, x, name)
+
+    def identity(self, x, name=None):
+        return self._unary(OperatorType.OP_IDENTITY, x, name)
+
+    def exp(self, x, name=None):
+        return self._unary(OperatorType.OP_EXP, x, name)
+
+    def log(self, x, name=None):
+        return self._unary(OperatorType.OP_LOG, x, name)
+
+    def sqrt(self, x, name=None):
+        return self._unary(OperatorType.OP_SQRT, x, name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(OperatorType.OP_RSQRT, x, name)
+
+    def sin(self, x, name=None):
+        return self._unary(OperatorType.OP_SIN, x, name)
+
+    def cos(self, x, name=None):
+        return self._unary(OperatorType.OP_COS, x, name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(OperatorType.OP_POW, x, name, scalar=exponent)
+
+    def scalar_multiply(self, x, scalar: float, inplace=False, name=None):
+        return self._unary(OperatorType.OP_SCALAR_MULTIPLY, x, name,
+                           scalar=scalar)
+
+    def scalar_add(self, x, scalar: float, inplace=False, name=None):
+        return self._unary(OperatorType.OP_SCALAR_ADD, x, name, scalar=scalar)
+
+    def scalar_sub(self, x, scalar: float, inplace=False, name=None):
+        return self._unary(OperatorType.OP_SCALAR_SUB, x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x, scalar: float, inplace=False, name=None):
+        return self._unary(OperatorType.OP_SCALAR_TRUE_DIV, x, name,
+                           scalar=scalar)
 
     def slice_tensor(self, x: Tensor, starts: Sequence[int],
                      ends: Sequence[int], axes: Optional[Sequence[int]] = None,

@@ -1,1 +1,2 @@
-from .nlp import BertConfig, GPTConfig, build_bert, build_gpt2  # noqa: F401
+from .nlp import (BertConfig, GPTConfig, LlamaConfig, build_bert,  # noqa: F401
+                  build_gpt2, build_llama)

@@ -1,13 +1,19 @@
-"""NLP model zoo of the ported slices: BERT and GPT-2.
+"""NLP model zoo of the ported slices: BERT, GPT-2 and the LLaMA family.
 
-The port of ``BertConfig``/``build_bert`` and ``GPTConfig``/``build_gpt2``
-in ``flexflow_tpu/models/nlp.py``: the same layer sequences, so a model
-built in both packages lines up layer for layer (``interop``). The
-Transformer, NMT, LLaMA and Mixtral builders come with later slices.
+The port of ``BertConfig``/``build_bert``, ``GPTConfig``/``build_gpt2`` and
+``LlamaConfig``/``build_llama`` (with ``llama_fuse_params`` and
+``llama_load_hf_state_dict``) in ``flexflow_tpu/models/nlp.py``: the same
+layer sequences and weight layouts, so a model built in both packages
+lines up layer for layer (``interop``). The Transformer, NMT and Mixtral
+builders come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+
+import numpy as np
+import torch
 
 from ..ffconst import ActiMode, AggrMode, DataType
 from ..model import FFModel
@@ -126,3 +132,290 @@ def build_gpt2(ff: FFModel, batch_size: int, seq_len: int,
     t = ff.layer_norm(t, [-1])
     logits = ff.dense(t, cfg.vocab_size, use_bias=False, name="lm_head")
     return ff.softmax(logits)
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    """LLaMA-family decoder (RMSNorm, SwiGLU, rotary embeddings). The
+    defaults are LLaMA-7B's geometry (Touvron et al. 2023, Table 2)."""
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    # grouped-query attention (LLaMA-2-70B/LLaMA-3 family); 0 = MHA.
+    # Only the fused_attention build consumes this.
+    num_kv_heads: int = 0
+    # Mistral-family sliding-window attention; 0 = full causal.
+    # fused_attention only.
+    sliding_window: int = 0
+    # Qwen2-family q/k/v projection biases (o_proj stays bias-free; the
+    # fused op's bo is zero). fused_attention only.
+    attention_bias: bool = False
+    max_position: int = 2048
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+
+    @classmethod
+    def tiny(cls):
+        return cls(vocab_size=96, hidden_size=32, intermediate_size=64,
+                   num_layers=2, num_heads=4, max_position=64)
+
+
+def _rope_tables(seq_len: int, head_dim: int, theta: float):
+    """(1, 1, s, d) f32 cos and sin tables of the primitive build's RoPE,
+    in float64 then cast, as the JAX package builds them."""
+    inv = 1.0 / theta ** (np.arange(0, head_dim, 2) / head_dim)
+    freqs = np.outer(np.arange(seq_len), inv)          # (s, d/2)
+    emb = np.concatenate([freqs, freqs], axis=-1)      # (s, d) half-split
+    shape = (1, 1, seq_len, head_dim)
+    return (np.cos(emb).reshape(shape).astype(np.float32),
+            np.sin(emb).reshape(shape).astype(np.float32))
+
+
+def build_llama(ff: FFModel, batch_size: int, seq_len: int,
+                cfg: LlamaConfig | None = None, lm_head: bool = True,
+                fused_attention: bool = False):
+    """Causal LM: (b, s) token ids -> (b, s, vocab) probabilities (or the
+    final hidden states when ``lm_head=False``), HF weight layout (q/k/v/o
+    and gate/up/down per layer, half-split rotate RoPE).
+
+    ``fused_attention=True`` builds each attention block as one
+    OP_MULTIHEAD_ATTENTION with in-op RoPE (GQA, sliding window and q/k/v
+    biases as the config asks): it takes the flash kernel and the KV-cache
+    decode. The primitive form (dense / transpose / batch_matmul / slice /
+    concat, its RoPE tables and causal mask as constant tensors) computes
+    the same function but carries seq-length-baked constants, so it
+    generates by full re-forwards. ``llama_fuse_params`` converts its
+    weights to the fused layout."""
+    cfg = cfg or LlamaConfig()
+    b, s = batch_size, seq_len
+    nh = cfg.num_heads
+    hd = cfg.hidden_size // nh
+
+    ids = ff.create_tensor((b, s), DataType.DT_INT32, name="input_ids")
+    h = ff.embedding(ids, cfg.vocab_size, cfg.hidden_size,
+                     AggrMode.AGGR_MODE_NONE, name="embed_tokens")
+
+    def mlp_block(h, i):
+        """SwiGLU MLP and residual, shared by both attention forms (the
+        layer names are llama_fuse_params' pass-through contract)."""
+        x2 = ff.rms_norm(h, eps=cfg.rms_eps, name=f"post_norm_{i}")
+        gate = ff.dense(x2, cfg.intermediate_size, use_bias=False,
+                        name=f"gate_proj_{i}")
+        up = ff.dense(x2, cfg.intermediate_size, use_bias=False,
+                      name=f"up_proj_{i}")
+        silu = ff.multiply(gate, ff.sigmoid(gate), name=f"silu_{i}")
+        down = ff.dense(ff.multiply(silu, up), cfg.hidden_size,
+                        use_bias=False, name=f"down_proj_{i}")
+        return ff.add(h, down, name=f"mlp_res_{i}")
+
+    def head(h):
+        h = ff.rms_norm(h, eps=cfg.rms_eps, name="final_norm")
+        if not lm_head:
+            return h
+        # a final softmax, so the loss takes CE on its input logits (the
+        # executor's rule, as for build_gpt2 / build_bert)
+        return ff.softmax(ff.dense(h, cfg.vocab_size, use_bias=False,
+                                   name="lm_head"))
+
+    if fused_attention:
+        for i in range(cfg.num_layers):
+            x = ff.rms_norm(h, eps=cfg.rms_eps, name=f"input_norm_{i}")
+            attn_out = ff.multihead_attention(
+                x, x, x, cfg.hidden_size, nh,
+                bias=cfg.attention_bias, causal=True,
+                rope=True, rope_theta=cfg.rope_theta,
+                num_kv_heads=cfg.num_kv_heads,
+                sliding_window=cfg.sliding_window, name=f"attn_{i}")
+            h = ff.add(h, attn_out, name=f"attn_res_{i}")
+            h = mlp_block(h, i)
+        return head(h)
+
+    if cfg.sliding_window or cfg.attention_bias \
+            or cfg.num_kv_heads not in (0, nh):
+        raise ValueError(
+            "sliding_window/GQA/attention_bias need "
+            "fused_attention=True: the primitive build is plain full "
+            "bias-free MHA")
+    cos_np, sin_np = _rope_tables(s, hd, cfg.rope_theta)
+    cos_t = ff.create_tensor(cos_np.shape, create_grad=False,
+                             name="rope_cos")
+    cos_t.set_tensor(cos_np)
+    sin_t = ff.create_tensor(sin_np.shape, create_grad=False,
+                             name="rope_sin")
+    sin_t.set_tensor(sin_np)
+    mask_np = np.triu(np.full((1, 1, s, s), -1e9, np.float32), 1)
+    mask_t = ff.create_tensor(mask_np.shape, create_grad=False,
+                              name="causal_mask")
+    mask_t.set_tensor(mask_np)
+
+    def heads(x, name):
+        # (b, s, H) -> (b, nh, s, hd)
+        return ff.transpose(ff.reshape(x, (b, s, nh, hd),
+                                       name=f"{name}_split"),
+                            (0, 2, 1, 3), name=f"{name}_t")
+
+    def rope(x, name):
+        x1 = ff.slice_tensor(x, [0], [hd // 2], [3], name=f"{name}_lo")
+        x2 = ff.slice_tensor(x, [hd // 2], [hd], [3], name=f"{name}_hi")
+        rot = ff.concat([ff.scalar_multiply(x2, -1.0), x1], axis=-1,
+                        name=f"{name}_rot")
+        return ff.add(ff.multiply(x, cos_t), ff.multiply(rot, sin_t),
+                      name=f"{name}_rope")
+
+    for i in range(cfg.num_layers):
+        x = ff.rms_norm(h, eps=cfg.rms_eps, name=f"input_norm_{i}")
+        q = rope(heads(ff.dense(x, cfg.hidden_size, use_bias=False,
+                                name=f"q_proj_{i}"), f"q{i}"), f"q{i}")
+        k = rope(heads(ff.dense(x, cfg.hidden_size, use_bias=False,
+                                name=f"k_proj_{i}"), f"k{i}"), f"k{i}")
+        v = heads(ff.dense(x, cfg.hidden_size, use_bias=False,
+                           name=f"v_proj_{i}"), f"v{i}")
+        kt = ff.transpose(k, (0, 1, 3, 2), name=f"kT_{i}")
+        scores = ff.scalar_multiply(
+            ff.batch_matmul(q, kt, name=f"qk_{i}"), 1.0 / math.sqrt(hd))
+        probs = ff.softmax(ff.add(scores, mask_t), axis=-1,
+                           name=f"probs_{i}")
+        ctx = ff.batch_matmul(probs, v, name=f"ctx_{i}")
+        merged = ff.reshape(ff.transpose(ctx, (0, 2, 1, 3)),
+                            (b, s, cfg.hidden_size), name=f"merge_{i}")
+        attn_out = ff.dense(merged, cfg.hidden_size, use_bias=False,
+                            name=f"o_proj_{i}")
+        h = ff.add(h, attn_out, name=f"attn_res_{i}")
+        h = mlp_block(h, i)
+
+    return head(h)
+
+
+def _fuse_qkvo(q, k, v, o, e, nh, kvh):
+    """(in, out) dense kernels -> the fused attention's wq/wk/wv (e,
+    heads, hd) and wo (nh, hd, e): the one reshape convention of
+    llama_fuse_params and the HF loader (numpy arrays or tensors)."""
+    hd = e // nh
+    return {"wq": q.reshape(e, nh, hd),
+            "wk": k.reshape(e, kvh, hd),
+            "wv": v.reshape(e, kvh, hd),
+            "wo": o.reshape(nh, hd, e)}
+
+
+def llama_fuse_params(params, cfg: LlamaConfig):
+    """Primitive-layout LLaMA params (``q_proj_{i}`` / ``k_proj_{i}`` /
+    ``v_proj_{i}`` / ``o_proj_{i}`` dense kernels, the HF import layout)
+    in the fused-attention layout (``attn_{i}``: wq/wk/wv (e, h, d), wo
+    (h, d, e)). Norms, FFN, embeddings and lm_head share names and pass
+    through as they are, so primitive weights serve through the flash and
+    KV-decode path. Leaves may be tensors or numpy arrays; the fused ones
+    are reshaped views of them."""
+    if cfg.num_kv_heads not in (0, cfg.num_heads):
+        raise ValueError(
+            "llama_fuse_params converts the MHA primitive layout; a GQA "
+            "target (num_kv_heads < num_heads) has no primitive source: "
+            "load GQA checkpoints into the fused layout directly")
+    nh = cfg.num_heads
+    e = cfg.hidden_size
+    fused = {f"attn_{i}": _fuse_qkvo(
+        params[f"q_proj_{i}"]["kernel"], params[f"k_proj_{i}"]["kernel"],
+        params[f"v_proj_{i}"]["kernel"], params[f"o_proj_{i}"]["kernel"],
+        e, nh, nh) for i in range(cfg.num_layers)}
+    skip = {f"{p}_proj_{i}" for i in range(cfg.num_layers)
+            for p in ("q", "k", "v", "o")}
+    out = {name: leaf for name, leaf in params.items() if name not in skip}
+    out.update(fused)
+    return out
+
+
+def llama_load_hf_state_dict(state_dict, cfg: LlamaConfig,
+                             fused: bool = False, device="cuda"):
+    """A HuggingFace ``LlamaForCausalLM`` (or ``Qwen2ForCausalLM``) state
+    dict in ``build_llama``'s parameter layout: primitive by default,
+    fused-attention with ``fused`` (which GQA and q/k/v-bias checkpoints
+    need). HF stores Linear weights as (out, in), dense kernels here are
+    (in, out); RoPE carries no weights. A checkpoint without
+    ``lm_head.weight`` ties the head to the embedding. Values may be
+    tensors (bf16 ones are widened: the params are f32 masters) or numpy
+    arrays. Returns the params tree, f32 tensors on ``device`` (the card
+    unless the caller asks for the CPU, as ``FFModel`` does; the widening
+    and transposes run there), for ``FFModel.params``; a checkpoint tensor
+    the layout does not take raises."""
+    nh = cfg.num_heads
+    e = cfg.hidden_size
+    hd = e // nh
+    kvh = cfg.num_kv_heads or nh
+    if (kvh != nh or cfg.attention_bias) and not fused:
+        raise ValueError("GQA / attention-bias checkpoints need "
+                         "fused=True (the primitive build is plain "
+                         "bias-free MHA)")
+    sd = {k: torch.as_tensor(v).detach().to(device=device,
+                                             dtype=torch.float32)
+          for k, v in state_dict.items()}
+    consumed = set()
+
+    def take(key):
+        consumed.add(key)
+        return sd[key]
+
+    # tie_word_embeddings checkpoints (Llama-3.2-1B/3B, small Qwen2) omit
+    # lm_head.weight: the head shares the embedding matrix
+    lm_w = take("lm_head.weight") if "lm_head.weight" in sd \
+        else sd["model.embed_tokens.weight"]
+    params = {
+        "embed_tokens": {"kernel": take("model.embed_tokens.weight")},
+        "final_norm": {"scale": take("model.norm.weight")},
+        "lm_head": {"kernel": lm_w.t().contiguous()},
+    }
+    if params["embed_tokens"]["kernel"].shape[1] != e:
+        raise ValueError(
+            f"embed_tokens kernel shape "
+            f"{tuple(params['embed_tokens']['kernel'].shape)} does not "
+            f"match hidden_size {e}")
+
+    def kernel(key):
+        return take(key).t().contiguous()
+
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        params[f"input_norm_{i}"] = {
+            "scale": take(p + "input_layernorm.weight")}
+        params[f"post_norm_{i}"] = {
+            "scale": take(p + "post_attention_layernorm.weight")}
+        for proj in ("gate", "up", "down"):
+            params[f"{proj}_proj_{i}"] = {
+                "kernel": kernel(p + f"mlp.{proj}_proj.weight")}
+        q = kernel(p + "self_attn.q_proj.weight")       # (e, nh*hd)
+        k = kernel(p + "self_attn.k_proj.weight")       # (e, kvh*hd)
+        v = kernel(p + "self_attn.v_proj.weight")
+        o = kernel(p + "self_attn.o_proj.weight")       # (nh*hd, e)
+        if tuple(q.shape) != (e, nh * hd) or tuple(k.shape) != (e, kvh * hd):
+            raise ValueError(
+                f"checkpoint/config head mismatch: q {tuple(q.shape)} "
+                f"k {tuple(k.shape)} vs (e={e}, nh={nh}, kvh={kvh}, "
+                f"hd={hd})")
+        if fused:
+            attn = _fuse_qkvo(q, k, v, o, e, nh, kvh)
+            if cfg.attention_bias:
+                # Qwen2 family: q/k/v carry biases, o_proj does not; the
+                # fused op's bo is present but zero
+                attn["bq"] = take(p + "self_attn.q_proj.bias").reshape(nh, hd)
+                attn["bk"] = take(p + "self_attn.k_proj.bias").reshape(kvh,
+                                                                        hd)
+                attn["bv"] = take(p + "self_attn.v_proj.bias").reshape(kvh,
+                                                                        hd)
+                attn["bo"] = torch.zeros(e, device=device)
+            params[f"attn_{i}"] = attn
+        else:
+            params[f"q_proj_{i}"] = {"kernel": q}
+            params[f"k_proj_{i}"] = {"kernel": k}
+            params[f"v_proj_{i}"] = {"kernel": v}
+            params[f"o_proj_{i}"] = {"kernel": o}
+    # every checkpoint tensor must be mapped (the legacy rotary inv_freq
+    # buffers are recomputed in the op): a dropped weight (attention
+    # biases, extra layers) would give wrong numbers with no signal
+    leftover = [k_ for k_ in sd
+                if k_ not in consumed and "rotary_emb" not in k_]
+    if leftover:
+        raise ValueError(
+            f"unmapped checkpoint tensors {sorted(leftover)[:8]}"
+            f"{'...' if len(leftover) > 8 else ''}: config/architecture "
+            f"mismatch (attention_bias / num_layers / tied embeddings?)")
+    return params

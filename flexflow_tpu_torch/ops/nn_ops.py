@@ -1,12 +1,12 @@
-"""Neural-net operators of the serving, training and generation slices:
-Linear, Softmax, Dropout, LayerNorm, Embedding and MultiHeadAttention
-(with its sliding window and its KV-cache prefill and decode paths).
+"""Neural-net operators of the serving, training, generation and LLaMA
+slices: Linear, Softmax, Dropout, LayerNorm, RMSNorm, Embedding,
+BatchMatmul/Matmul and MultiHeadAttention (with its sliding window, its
+in-op rotary embeddings and its KV-cache prefill and decode paths).
 
 The port of the same classes in ``flexflow_tpu/ops/nn_ops.py``: the same
 params, weight specs (names, shapes, initializers) and math, on torch
-tensors. Sequences are (batch, seq, hidden). Conv, pooling, norms other
-than LayerNorm, RoPE and ring attention come with later slices and raise
-here.
+tensors. Sequences are (batch, seq, hidden). Conv, pooling, BatchNorm
+and ring attention come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -147,6 +147,29 @@ class LayerNormOp(OpDef):
 
 # ---------------------------------------------------------------------------
 @register
+class RMSNormOp(OpDef):
+    """RMSNorm over the last dim in f32: mean of squares, ``rsqrt``,
+    scale, cast back (LLaMA's norm)."""
+    op_type = OperatorType.OP_RMSNORM
+
+    def infer(self, params, in_shapes, in_dtypes):
+        return [(in_shapes[0], in_dtypes[0])]
+
+    def weights(self, params, in_shapes, in_dtypes):
+        return [WeightSpec("scale", (in_shapes[0][-1],), in_dtypes[0],
+                           InitializerType.ONE)]
+
+    def emit(self, params, inputs, weights, ctx, name):
+        (x,) = inputs
+        eps = params.get("eps", 1e-6)
+        xf = x.float()
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * weights["scale"].float()
+        return [y.to(x.dtype)]
+
+
+# ---------------------------------------------------------------------------
+@register
 class EmbeddingOp(OpDef):
     """Embedding lookup with none/sum/avg aggregation."""
     op_type = OperatorType.OP_EMBEDDING
@@ -178,6 +201,26 @@ class EmbeddingOp(OpDef):
 
 
 # ---------------------------------------------------------------------------
+def _apply_rope(x, pos, theta: float):
+    """Rotary position embedding, LLaMA's half-split-rotate convention.
+    ``x``: (B, L, h, d) with d even; ``pos``: (L,) absolute positions
+    shared by the batch, or (B, L) per row (ragged-prompt decode). The
+    frequencies are taken in f32 in the JAX package's order."""
+    d = x.shape[-1]
+    inv = 1.0 / theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                       device=x.device) / d)
+    pf = pos.to(device=x.device, dtype=torch.float32)
+    if pf.dim() == 1:
+        pf = pf[None, :]                                 # (1, L)
+    freqs = pf[:, :, None] * inv[None, None, :]          # (B|1, L, d/2)
+    emb = torch.cat([freqs, freqs], dim=-1)              # (B|1, L, d)
+    cos = torch.cos(emb)[:, :, None, :]
+    sin = torch.sin(emb)[:, :, None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rot = torch.cat([-x2, x1], dim=-1)
+    return (x.float() * cos + rot.float() * sin).to(x.dtype)
+
+
 @register
 class MultiHeadAttentionOp(OpDef):
     """Multi-head attention. Inputs: query (B, Lq, E), key (B, Lk, Ek),
@@ -294,9 +337,6 @@ class MultiHeadAttentionOp(OpDef):
         q, k, v = inputs
         cdt = q.dtype
         mdt = compute_dtype(ctx, cdt)
-        if params.get("rope"):
-            raise NotImplementedError(
-                f"{name}: MultiHeadAttention rope is not ported yet")
 
         def proj(x, w, b):
             bsz, length, e = x.shape
@@ -312,6 +352,28 @@ class MultiHeadAttentionOp(OpDef):
         rate = params.get("dropout", 0.0) if ctx.training else 0.0
         causal = params.get("causal", False)
         window = params.get("sliding_window", 0)
+        if params.get("rope", False):
+            # rotary embeddings in the op: positions are absolute, so the
+            # decode token rotates at kv_index and the cache stores keys
+            # already rotated
+            if not causal:
+                raise ValueError(
+                    "rope is only supported for causal attention")
+            if qh.shape[1] != kh.shape[1]:
+                raise ValueError(
+                    "rope=True requires self-attention (Lq == Lk); "
+                    "cross-attention has no single absolute position "
+                    "stream")
+            theta = float(params.get("rope_theta", 10000.0))
+            if ctx.kv_mode == "decode":
+                idx = ctx.kv_index
+                # a scalar index -> (1,); per-row (ragged prompts) -> (B, 1)
+                pos = idx[:, None] if torch.is_tensor(idx) and idx.dim() \
+                    else torch.full((1,), int(idx), device=qh.device)
+            else:
+                pos = torch.arange(qh.shape[1], device=qh.device)
+            qh = _apply_rope(qh, pos, theta)
+            kh = _apply_rope(kh, pos, theta)
         if ctx.kv_mode == "prefill":
             ctx.new_kv[name] = self._prefill_cache(params, ctx, kh, vh)
         elif ctx.kv_mode == "decode":
@@ -434,3 +496,30 @@ class MultiHeadAttentionOp(OpDef):
         ctxv = mm_f32(probs.to(mdt).reshape(b_ * kvh, g, m), vb)
         return self._out_proj(ctxv.reshape(b_, lq_, hq, d_), weights, mdt,
                               cdt)
+
+
+# ---------------------------------------------------------------------------
+@register
+class BatchMatmulOp(OpDef):
+    """Batched matmul over equal leading dims (bf16 operands, f32
+    accumulation, through ``matmul``)."""
+    op_type = OperatorType.OP_BATCHMATMUL
+
+    def infer(self, params, in_shapes, in_dtypes):
+        a, b = in_shapes
+        if a[:-2] != b[:-2]:
+            raise ValueError(
+                f"batch_matmul batch dims differ: {a} vs {b}")
+        if a[-1] != b[-2]:
+            raise ValueError(
+                f"batch_matmul contraction dims differ: {a} vs {b}")
+        return [(tuple(a[:-1]) + (b[-1],), in_dtypes[0])]
+
+    def emit(self, params, inputs, weights, ctx, name):
+        a, b = inputs
+        return [matmul(a, b, ctx=ctx)]
+
+
+@register
+class MatmulOp(BatchMatmulOp):
+    op_type = OperatorType.OP_MATMUL

@@ -204,9 +204,16 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def matmul(a, b, *, prefer_bf16: bool = True, ctx=None):
     """bf16 operands, f32 accumulation and result (the JAX package's
     ``ops/registry.py:matmul``). ``ctx`` gates the bf16 cast on
-    ``config.use_bf16_compute`` / ``allow_tensor_op_math_conversion``."""
+    ``config.use_bf16_compute`` / ``allow_tensor_op_math_conversion``.
+    ``b`` of more than three dims is a batch of matrices against the same
+    leading dims of ``a`` (``BatchMatmulOp``), flattened into one batch
+    dim around the product."""
     if ctx is not None:
         prefer_bf16 = prefer_bf16 and bf16_enabled(ctx)
+    if b.dim() > 3:
+        out = matmul(a.reshape(-1, *a.shape[-2:]),
+                     b.reshape(-1, *b.shape[-2:]), prefer_bf16=prefer_bf16)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
     if prefer_bf16 and a.dtype in (torch.float32, torch.bfloat16):
         out = mm_f32(a.to(torch.bfloat16), b.to(torch.bfloat16))
         return out.to(a.dtype) if a.dtype != torch.float32 else out

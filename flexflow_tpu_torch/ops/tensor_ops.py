@@ -1,11 +1,13 @@
-"""Tensor-layout operators of the serving slice: Reshape and Slice.
+"""Tensor-layout operators: Reshape, Slice, Transpose and Concat.
 
 The port of the same classes in ``flexflow_tpu/ops/tensor_ops.py`` (the
-BERT pooler reaches both). The other layout ops come with later slices.
+BERT pooler reaches Reshape and Slice; LLaMA's primitive attention all
+four). The other layout ops come with later slices.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ffconst import OperatorType
 from .registry import OpDef, register
@@ -55,3 +57,29 @@ class SliceOp(OpDef):
         for s, e, a in zip(starts, ends, axes):
             idx[a % x.dim()] = slice(s, e)
         return [x[tuple(idx)]]
+
+
+@register
+class TransposeOp(OpDef):
+    op_type = OperatorType.OP_TRANSPOSE
+
+    def infer(self, params, in_shapes, in_dtypes):
+        perm = params["perm"]
+        return [(tuple(in_shapes[0][p] for p in perm), in_dtypes[0])]
+
+    def emit(self, params, inputs, weights, ctx, name):
+        return [inputs[0].permute(*params["perm"])]
+
+
+@register
+class ConcatOp(OpDef):
+    op_type = OperatorType.OP_CONCAT
+
+    def infer(self, params, in_shapes, in_dtypes):
+        axis = params["axis"] % len(in_shapes[0])
+        out = list(in_shapes[0])
+        out[axis] = sum(s[axis] for s in in_shapes)
+        return [(tuple(out), in_dtypes[0])]
+
+    def emit(self, params, inputs, weights, ctx, name):
+        return [torch.cat(inputs, dim=params["axis"])]

@@ -248,6 +248,60 @@ def test_flash_backward_matches_jax(b, h, sq, sk, d, causal):
         np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
 
 
+# Head dims above 128: the reference pads d to a multiple of 64, so 192
+# and 256 run as they are, and 160 at 192. On the card they take the wide
+# kernels; here the plain versions those kernels are held to on the card
+# are held against the JAX kernels.
+WIDE_CASES = [  # (sq, sk, d, causal)
+    (100, 100, 192, False),
+    (100, 100, 192, True),
+    (72, 72, 256, False),
+    (72, 72, 256, True),
+    (64, 96, 256, False),
+    (80, 80, 160, True),
+]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", WIDE_CASES)
+def test_flash_forward_wide_head_dims_match_jax(sq, sk, d, causal):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=41)
+    o, lse = _port(q, k, v, causal=causal, return_lse=True)
+    assert o.shape == (1, 2, sq, d)
+    np.testing.assert_allclose(o.numpy(), _jax(q, k, v, causal=causal),
+                               **TOL)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v, causal), **TOL)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", WIDE_CASES)
+def test_flash_backward_wide_head_dims_match_jax(sq, sk, d, causal):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=43)
+    do = _do(1, 2, sq, d, seed=5)
+    got = _port_grads(q, k, v, do, causal=causal)
+    want = _jax_grads(q, k, v, do, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
+
+
+def test_flash_predicate_names_the_head_dim_limit():
+    """The kernels take head dims up to 256 (padded to a multiple of 64)
+    on the card; the forced-plan check refuses a larger one there, naming
+    the limit, and the CPU's plain version takes any."""
+    from flexflow_tpu_torch.kernels import attention_ctx, get_impl
+    flash = get_impl("attention", "flash")
+    for d, ok in ((64, True), (128, True), (160, True), (256, True),
+                  (320, False)):
+        params = {"num_heads": 2, "embed_dim": 2 * d, "causal": True}
+        ctx = attention_ctx(params, 16, 16, backend="cuda")
+        reason = flash.available(ctx)
+        assert (reason is None) == ok, (d, reason)
+        if not ok:
+            assert "256" in reason
+        assert flash.available(attention_ctx(params, 16, 16,
+                                             backend="cpu")) is None
+    q, k, v = _qkv(1, 1, 8, 8, 320)
+    assert _port(q, k, v).shape == (1, 1, 8, 320)
+
+
 def test_flash_backward_bf16_matches_jax():
     q, k, v = _qkv(1, 2, 64, 64, 64, seed=23)
     do = _do(1, 2, 64, 64)

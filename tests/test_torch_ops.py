@@ -137,6 +137,135 @@ def test_slice(starts, ends, axes):
                                   [ffj.DataType.DT_FLOAT])
 
 
+# --- the ops LLaMA adds ----------------------------------------------------
+def test_rms_norm():
+    got, want = _run(OT.OP_RMSNORM, {"eps": 1e-6}, [3.0 * _x(2, 5, 16)])
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("op", ["OP_BATCHMATMUL", "OP_MATMUL"])
+@pytest.mark.parametrize("shape_a,shape_b", [((3, 5, 8), (3, 8, 4)),
+                                             ((2, 3, 5, 8), (2, 3, 8, 6)),
+                                             ((5, 8), (8, 4))])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_batch_matmul(op, shape_a, shape_b, bf16):
+    """f32 compute, and bf16 operands with an f32 result (both widen exact
+    bf16 products into f32 sums on the CPU)."""
+    got, want = _run(OT[op], {"a_seq_length_dim": -1,
+                              "b_seq_length_dim": -1},
+                     [_x(*shape_a), _x(*shape_b, seed=2)], bf16=bf16)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_batch_matmul_refuses_mismatched_dims():
+    for a, b in (((2, 5, 8), (3, 8, 4)), ((2, 5, 8), (2, 7, 4))):
+        with pytest.raises(ValueError, match="batch_matmul"):
+            torch_op(int(OT.OP_BATCHMATMUL)).infer({}, [a, b],
+                                                   [fft.DataType.DT_FLOAT] * 2)
+
+
+@pytest.mark.parametrize("perm", [(0, 2, 1, 3), (0, 1, 3, 2), (3, 2, 1, 0)])
+def test_transpose(perm):
+    params = {"perm": list(perm)}
+    got, want = _run(OT.OP_TRANSPOSE, params, [_x(2, 3, 4, 5)])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("axis", [-1, 1, 0])
+def test_concat(axis):
+    a, b = _x(2, 3, 4), _x(2, 3, 4, seed=2)
+    got, want = _run(OT.OP_CONCAT, {"axis": axis}, [a, b])
+    np.testing.assert_array_equal(got, want)
+    assert torch_op(int(OT.OP_CONCAT)).infer(
+        {"axis": axis}, [(2, 3, 4), (2, 3, 4)],
+        [fft.DataType.DT_FLOAT] * 2)[0][0] == want.shape
+
+
+UNARY = ["OP_RELU", "OP_SIGMOID", "OP_TANH", "OP_ELU", "OP_GELU",
+         "OP_IDENTITY", "OP_EXP", "OP_LOG", "OP_SQRT", "OP_RSQRT", "OP_SIN",
+         "OP_COS", "OP_CEIL", "OP_ROUND", "OP_LOGICAL_NOT"]
+
+
+@pytest.mark.parametrize("op", UNARY)
+def test_unary(op):
+    x = 2.5 * _x(2, 5, 16)
+    if op in ("OP_LOG", "OP_SQRT", "OP_RSQRT"):
+        x = np.abs(x) + 0.1
+    got, want = _run(OT[op], {}, [x])
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("op,scalar", [
+    ("OP_SCALAR_MULTIPLY", -1.0), ("OP_SCALAR_ADD", 0.5),
+    ("OP_SCALAR_SUB", 2.0), ("OP_SCALAR_TRUE_DIV", 3.0),
+    ("OP_SCALAR_FLOOR_DIV", 0.75), ("OP_POW", 2.0)])
+def test_scalar(op, scalar):
+    got, want = _run(OT[op], {"scalar": scalar}, [_x(2, 5, 16)])
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("op", ["OP_EW_SUB", "OP_EW_MUL", "OP_EW_DIV",
+                                "OP_EW_MAX", "OP_EW_MIN", "OP_EW_EQUAL",
+                                "OP_EW_GREATER", "OP_EW_LESS"])
+def test_binary(op):
+    a = np.round(_x(2, 5, 16))
+    b = np.round(_x(16, seed=2)) + (0.5 if op == "OP_EW_DIV" else 0.0)
+    got, want = _run(OT[op], {}, [a, b])
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("builder,args", [
+    ("rms_norm", ()), ("sigmoid", ()), ("relu", ()), ("tanh", ()),
+    ("elu", ()), ("gelu", ()), ("identity", ()), ("exp", ()), ("log", ()),
+    ("sqrt", ()), ("rsqrt", ()), ("sin", ()), ("cos", ()), ("pow", (2.0,)),
+    ("scalar_multiply", (2.0,)), ("scalar_add", (2.0,)),
+    ("scalar_sub", (2.0,)), ("scalar_true_divide", (2.0,)),
+    ("transpose", ((0, 2, 1),))])
+def test_unary_builders_match_jax(builder, args):
+    """The port's FFModel builders record the JAX package's op type,
+    params and output shape."""
+    layers = []
+    for pkg, kw in ((ffj, {}), (fft, {"device": "cpu"})):
+        ff = pkg.FFModel(pkg.FFConfig(), **kw)
+        x = ff.create_tensor((2, 3, 4), name="x")
+        out = getattr(ff, builder)(x, *args)
+        layers.append((int(ff.layers[0].op_type), ff.layers[0].params,
+                       out.shape))
+    assert layers[0] == layers[1]
+
+
+@pytest.mark.parametrize("builder", ["subtract", "multiply", "divide",
+                                     "max", "min", "equal", "greater",
+                                     "less", "batch_matmul", "concat"])
+def test_binary_builders_match_jax(builder):
+    layers = []
+    for pkg, kw in ((ffj, {}), (fft, {"device": "cpu"})):
+        ff = pkg.FFModel(pkg.FFConfig(), **kw)
+        a = ff.create_tensor((2, 4, 4), name="a")
+        b = ff.create_tensor((2, 4, 4), name="b")
+        out = ff.concat([a, b], axis=1) if builder == "concat" \
+            else getattr(ff, builder)(a, b)
+        layers.append((int(ff.layers[0].op_type), ff.layers[0].params,
+                       out.shape, int(out.dtype)))
+    assert layers[0] == layers[1]
+
+
+def test_multihead_attention_rope_params_match_jax():
+    layers = []
+    for pkg, kw in ((ffj, {}), (fft, {"device": "cpu"})):
+        ff = pkg.FFModel(pkg.FFConfig(), **kw)
+        x = ff.create_tensor((2, 8, 32), name="x")
+        ff.multihead_attention(x, x, x, 32, 4, causal=True, rope=True,
+                               rope_theta=5e5, num_kv_heads=2)
+        ff.multihead_attention(x, x, x, 32, 4, causal=True)
+        layers.append([l.params for l in ff.layers])
+    assert layers[0] == layers[1]
+    assert layers[1][0]["rope"] is True and "rope" not in layers[1][1]
+
+
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 @pytest.mark.parametrize("causal,kv_heads", [(False, 0), (True, 0),
                                              (False, 2)])
