@@ -23,8 +23,8 @@ never JAX, and:
                BERT's training rate of 0.1, causal at GPT-2's prefill
                shape (s 1024), at LLaMA-7B's prefill (b4 h32 s1024 d128
                causal) and training shape (the causal backward at d 128),
-               the causal backward at d 64, head dim 256, and each
-               kernel's bound;
+               the causal backward at d 64, head dims 256, 320 and 512, and
+               each kernel's bound;
   5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
@@ -67,13 +67,32 @@ never JAX, and:
                weights, generation by re-forward) at 2 x 256, and
                training through fit at 2 x 1024 (launches per step, the
                loss history against plain attention + unfused Adam);
- 10. kernels - one JSON line with each kernel's launches, error and times.
+ 10. mixtral - Mixtral-8x7B's width (hidden 4096, FFN 14336, 32 heads / 8
+               kv heads of 128, 8 SwiGLU experts top-2, vocab 32000; RoPE
+               in the op; seeded random weights) cut to 8 of 32 layers,
+               built through FFModel at 4 x 1024 with
+               kernel_impls="attention:flash", generating through
+               InferenceSession.generate as the llama phase does (8 flash
+               launches per prefill, none per decode step), with the
+               same checks and times; then 1 layer at full width training
+               through fit at 2 x 1024 (flash forward, dq, dk/dv, fused
+               Adam at epsilon 1e-4: launches per step, the loss history
+               against plain attention + unfused Adam);
+ 11. moe     - build_moe_mnist at the reference example's defaults (32
+               experts, top-2, hidden 64, alpha 2.0, lambda_bal 0.04, in
+               784) training through fit at batch 64 with
+               kernel_impls="opt_update:fused": one Adam launch per step,
+               the loss history against the unfused Adam, and the
+               (token, choice) slots the capacity drops;
+ 12. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
 build,kernel,ktimes`` also times them, ``--phases build,kernel,generate``
-drives generation, ``--phases build,kernel,llama`` the LLaMA family; with
-no arguments every phase runs. ``--ab-base DIR`` does nothing but time the
+drives generation, ``--phases build,kernel,llama`` the LLaMA family,
+``--phases build,kernel,mixtral,moe`` Mixtral and the MoE example; with
+no arguments every phase runs, each phase's wall time printed and each
+phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
 change, change, base), the way to compare a kernel change on one card.
 
@@ -85,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import importlib
 import json
 import os
@@ -139,6 +159,12 @@ KERNELS = ["flash_attention_fwd", "flash_attention_bwd", "adam_update"]
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def free_cuda() -> None:
+    """Return the memory of the models a phase dropped to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_time_ms(fn, iters: int = 20) -> float:
@@ -283,8 +309,9 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (8, 12, 1000, 1000, 64, torch.bfloat16, True, 0.0),
     # LLaMA-7B's prefill (llama phase): causal d = 128 at 4 x 1024
     (4, 32, 1024, 1024, 128, torch.bfloat16, True, 0.0),
-    # the wide kernels: head dims 192 and 256 (and 160, padded to 192) in
-    # both types, causal and not, at a ragged s
+    # the wide kernels (d a runtime argument): head dims 192, 256, 320 and
+    # 512 (and 160 padded to 192, 300 padded to 320) in both types, causal
+    # and not, at a ragged s
     (2, 4, 200, 200, 192, torch.float32, False, 0.0),
     (2, 4, 200, 200, 192, torch.float32, True, 0.1),
     (2, 4, 200, 200, 192, torch.bfloat16, False, 0.1),
@@ -295,6 +322,14 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (2, 4, 200, 200, 256, torch.bfloat16, True, 0.1),
     (2, 4, 96, 200, 256, torch.bfloat16, False, 0.0),
     (2, 4, 100, 100, 160, torch.bfloat16, True, 0.0),
+    (2, 4, 200, 200, 300, torch.float32, False, 0.0),
+    (2, 4, 200, 200, 300, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 300, torch.bfloat16, False, 0.1),
+    (2, 4, 200, 200, 300, torch.bfloat16, True, 0.0),
+    (2, 4, 200, 200, 512, torch.float32, False, 0.1),
+    (2, 4, 200, 200, 512, torch.float32, True, 0.0),
+    (2, 4, 200, 200, 512, torch.bfloat16, False, 0.0),
+    (2, 4, 200, 200, 512, torch.bfloat16, True, 0.1),
     # b*h = 65,600, past the 65,535 that gridDim.y allows
     (1640, 40, 64, 64, 64, torch.bfloat16, False, 0.0),
     (1640, 40, 64, 64, 64, torch.bfloat16, True, 0.0),
@@ -818,6 +853,10 @@ KT_SHAPES = [
      "LLaMA-7B's training shape, 2 launches per step"),
     ("fwd_d256", "fwd", 4, 8, 512, 256, False, "the wide kernel"),
     ("bwd_d256", "bwd", 4, 8, 512, 256, False, "the wide kernels"),
+    ("fwd_d320", "fwd", 4, 8, 512, 320, False, "the wide kernel"),
+    ("bwd_d320", "bwd", 4, 8, 512, 320, False, "the wide kernels"),
+    ("fwd_d512", "fwd", 4, 8, 512, 512, False, "the wide kernel"),
+    ("bwd_d512", "bwd", 4, 8, 512, 512, False, "the wide kernels"),
 ]
 
 
@@ -825,8 +864,8 @@ def phase_ktimes(smi: str) -> dict:
     """Every kernel's device time beside its plain version, its PyTorch
     yardstick and its bound: the flash kernels at s 128 and 512, without
     dropout and at 0.1, causal at GPT-2's prefill, at KT_SHAPES (LLaMA's
-    head dim 128, the causal backward, head dim 256), and Adam over
-    BERT-base."""
+    and Mixtral's head dim 128, the causal backward, head dims 256, 320
+    and 512), and Adam over BERT-base."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {"fwd": {}, "bwd": {}}
     for rate in (0.0, 0.1):
@@ -1060,15 +1099,30 @@ def decode_step(ff, batch: dict, cache: dict, cur: int) -> tuple:
                                       cur - 1)
 
 
-def gen_rows_check(ff, ref_models, ids_np, plen: int, steps: int) -> dict:
+@contextlib.contextmanager
+def attention_plan(ff, impl: str):
+    """``ff`` with every attention layer on ``impl`` (the same weights
+    through another attention path), its own plan restored after."""
+    ex = ff.executor
+    saved = ex._kernel_impls
+    ex._kernel_impls = {"attention": impl}
+    try:
+        yield ff
+    finally:
+        ex._kernel_impls = saved
+
+
+def gen_rows_check(ff, ids_np, plen: int, steps: int) -> dict:
     """The KV path's score rows over ``steps`` greedy decode steps (its
-    own tokens fed back) against each reference model's re-forward rows at
-    the same positions: the row ``_generate_reforward`` reads at each step
-    is ``scored_forward(ids)[:, cur - 1]``, and under the causal mask it is
-    the same row of one forward over the final ids. Rows agree within
-    GEN_TOL of the reference row's logit range; the greedy tokens agree
-    wherever the reference row's top-1/top-2 margin exceeds twice the
-    measured difference (each of the two scores moves by at most it)."""
+    own tokens fed back) against the re-forward rows at the same positions
+    through the model's own plan ("reforward", flash) and through plain
+    attention on the same weights ("xla"): the row
+    ``_generate_reforward`` reads at each step is ``scored_forward(ids)[:,
+    cur - 1]``, and under the causal mask it is the same row of one
+    forward over the final ids. Rows agree within GEN_TOL of the reference
+    row's logit range; the greedy tokens agree wherever the reference
+    row's top-1/top-2 margin exceeds twice the measured difference (each
+    of the two scores moves by at most it)."""
     with torch.inference_mode():
         batch = gpt_batch(ids_np)
         ids = batch["input_ids"]
@@ -1081,9 +1135,11 @@ def gen_rows_check(ff, ref_models, ids_np, plen: int, steps: int) -> dict:
         kv_rows = torch.stack(kv_rows, dim=1)           # (B, steps, V)
         del cache
         res = {"tokens": ids[:, plen:plen + steps].cpu().numpy()}
-        for name, ref in ref_models.items():
-            scores = ref.executor.scored_forward(ref.params, ref.state,
-                                                 batch)
+        for name in ("reforward", "xla"):
+            with (attention_plan(ff, "xla") if name == "xla"
+                  else contextlib.nullcontext()):
+                scores = ff.executor.scored_forward(ff.params, ff.state,
+                                                    batch)
             want = scores[:, plen - 1:plen - 1 + steps].float()
             del scores
             diff = (kv_rows - want).abs().amax(dim=-1)
@@ -1264,12 +1320,9 @@ def phase_generate(smi: str) -> dict:
 
     # score rows of the KV path against the re-forward (flash) and the
     # same weights through plain attention
-    ref, _ = gpt2_model("attention:xla")
-    ref.params = ff.params
-    rows = gen_rows_check(ff, {"reforward": ff, "xla": ref}, p8, 512, 8)
+    rows = gen_rows_check(ff, p8, 512, 8)
     check((rows["tokens"] == outs["greedy8"][:, 512:520]).all(),
           "the phase's decode loop differs from generate's")
-    del ref
     for name in ("reforward", "xla"):
         r = rows[name]
         print(f"[generate] 8 decode steps x 8 rows, KV path vs {name} "
@@ -1349,6 +1402,7 @@ def generate_times(ff, sess, prompts, smi: str, name: str = "gpt2-small",
     return res
 
 
+LLAMA_LAYERS = 32                  # generation depth, of LLaMA-7B's 32
 LLAMA_SEQ, LLAMA_ROWS = 1024, 4    # LLaMA-7B generation, 4 x 1024
 LLAMA_PLEN, LLAMA_TOKENS = 512, 32  # prompt, new tokens per generate
 LLAMA_RAGGED = (100, 517, 900)     # ragged prompt lengths
@@ -1378,33 +1432,27 @@ def llama_model(impl: str, layers: int = 0, batch: int = LLAMA_ROWS,
     return ff, lc
 
 
-def phase_llama(smi: str) -> dict:
-    """The LLaMA family at LLaMA-7B width: all 32 layers generating
-    through InferenceSession.generate (the causal flash forward at d =
-    128 in each prefill, RoPE in the op, the KV decode), the primitive
-    form at 2 layers against the fused form on the same weights, and 2
-    layers training through fit (flash forward, dq, dk/dv, fused Adam)."""
+def lm_generate(ff, tag: str, what: str, smi: str, seed: int) -> dict:
+    """A causal LM built at LLAMA_ROWS x LLAMA_SEQ with "attention:flash"
+    generating through InferenceSession.generate (the llama and mixtral
+    phases): greedy over LLAMA_ROWS rows of LLAMA_PLEN-token prompts,
+    ragged prompts, and ragged with eos; one flash launch per layer per
+    prefill and none per decode step, no KV fallback; the KV path's score
+    rows against the re-forward through flash and through plain attention;
+    then the times of generate_times."""
+    from flexflow_tpu_torch import OperatorType
     from flexflow_tpu_torch.serving import InferenceSession
-    t0 = time.perf_counter()
-    ff, lc = llama_model("attention:flash")
-    torch.cuda.synchronize()
-    V, L = lc.vocab_size, lc.num_layers
-    n_params = sum(t.numel() for ws in ff.params.values()
-                   for t in ws.values())
-    print(f"[llama] LLaMA-7B ({L} layers, hidden {lc.hidden_size}, FFN "
-          f"{lc.intermediate_size}, {lc.num_heads} heads of "
-          f"{lc.hidden_size // lc.num_heads}, vocab {V}): {n_params} f32 "
-          f"parameters built and compiled on the card in "
-          f"{time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB resident")
+    V = vocab_of(ff)
+    L = sum(1 for l in ff.executor.program.layers
+            if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION)
     sess = InferenceSession(ff, batch_buckets=(1, LLAMA_ROWS))
     plen = LLAMA_PLEN
-    p4 = gpt_prompts(LLAMA_ROWS, plen, V, 31, LLAMA_SEQ)
+    p4 = gpt_prompts(LLAMA_ROWS, plen, V, seed, LLAMA_SEQ)
     ragged_plen = np.array(LLAMA_RAGGED, np.int32)
-    p3 = gpt_prompts(3, ragged_plen, V, 32, LLAMA_SEQ)
+    p3 = gpt_prompts(3, ragged_plen, V, seed + 1, LLAMA_SEQ)
     torch.cuda.synchronize()
     # the main path: every count starts at 0 here; each generate call
-    # runs one prefill (32 flash launches) and none per decode step
+    # runs one prefill (L flash launches) and none per decode step
     fwd = zero_counts()["flash_attention_fwd"]
     outs = {}
     t0 = time.perf_counter()
@@ -1417,53 +1465,88 @@ def phase_llama(smi: str) -> dict:
     main_s = time.perf_counter() - t0
     prefills = len(outs)
     launches = fwd.launches
-    no_fallback(ff, "LLaMA-7B generate")
-    print(f"[llama] main path: LLaMA-7B through InferenceSession.generate, "
+    no_fallback(ff, f"{what} generate")
+    print(f"[{tag}] main path: {what} through InferenceSession.generate, "
           f"{prefills} requests of {LLAMA_TOKENS} tokens ({LLAMA_ROWS} rows "
           f"of {plen}-token prompts; 3 ragged prompts {ragged_plen.tolist()} "
           f"padded to {LLAMA_ROWS}, then with eos) in {main_s:.2f} s; "
           f"flash_attention_fwd launches {launches} (want {L} x {prefills} "
           f"prefills, 0 per decode step); no KV fallback")
     check(launches == L * prefills,
-          f"llama: flash launches {launches} != {L} x {prefills}")
-    check_tokens(outs["greedy"], p4, plen, LLAMA_TOKENS, V, "llama greedy")
+          f"{tag}: flash launches {launches} != {L} x {prefills}")
+    check_tokens(outs["greedy"], p4, plen, LLAMA_TOKENS, V, f"{tag} greedy")
     check_tokens(outs["ragged"], p3, ragged_plen, LLAMA_TOKENS, V,
-                 "llama ragged")
+                 f"{tag} ragged")
     for r, n in enumerate(ragged_plen):
         row = outs["ragged_eos"][r, n:n + LLAMA_TOKENS]
         free = outs["ragged"][r, n:n + LLAMA_TOKENS]
         hit = np.flatnonzero(free == eos)
         upto = hit[0] if hit.size else LLAMA_TOKENS
         check((row[:upto] == free[:upto]).all() and (row[upto:] == eos).all()
-              and (r > 0 or upto <= 3), f"llama: eos does not latch on "
+              and (r > 0 or upto <= 3), f"{tag}: eos does not latch on "
                                         f"row {r}")
+
+    # one prefill and one decode step alone: L launches, then none
+    with torch.inference_mode():
+        batch = gpt_batch(p4)
+        zero_counts()
+        cache = prefill(ff, batch, plen)
+        torch.cuda.synchronize()
+        per_prefill = fwd.launches
+        decode_step(ff, batch, cache, plen)
+        torch.cuda.synchronize()
+        per_step = fwd.launches - per_prefill
+        del cache, batch
+    print(f"[{tag}] flash_attention_fwd launches: {per_prefill} in one "
+          f"prefill (want {L}), {per_step} in one decode step (want 0)")
+    check(per_prefill == L and per_step == 0,
+          f"{tag}: {per_prefill} launches per prefill, {per_step} per "
+          f"decode step")
 
     # score rows of the KV path (RoPE at kv_index, cached keys rotated)
     # against the re-forward through flash and the same weights through
     # plain attention
-    ref, _ = llama_model("attention:xla")
-    ref.params = ff.params
     steps = 4
-    rows = gen_rows_check(ff, {"reforward": ff, "xla": ref}, p4, plen,
-                          steps)
-    del ref
+    rows = gen_rows_check(ff, p4, plen, steps)
     check((rows["tokens"] == outs["greedy"][:, plen:plen + steps]).all(),
-          "llama: the phase's decode loop differs from generate's")
+          f"{tag}: the phase's decode loop differs from generate's")
     for name in ("reforward", "xla"):
         r = rows[name]
-        print(f"[llama] {steps} decode steps x {LLAMA_ROWS} rows, KV path "
+        print(f"[{tag}] {steps} decode steps x {LLAMA_ROWS} rows, KV path "
               f"vs {name} re-forward rows: max|diff| {r['max_abs']:.3e}, "
               f"{r['max_rel']:.2e} of the row's logit range (tol "
               f"{GEN_TOL:.0e}); greedy tokens equal in {r['tokens_equal']} "
               f"of {steps * LLAMA_ROWS}, {r['decided']} decided by a top-2 "
               f"margin above twice the difference, all of those equal: "
               f"{'ok' if r['ok'] else 'FAIL'}")
-        check(r["ok"], f"llama: KV decode rows vs {name}")
+        check(r["ok"], f"{tag}: KV decode rows vs {name}")
     res = {"launches": launches, "prefills": prefills, "rows": rows}
-    res["times"] = generate_times(ff, sess, p4, smi, name="llama-7b",
+    res["times"] = generate_times(ff, sess, p4, smi, name=what.lower(),
                                   plen=plen, tokens=LLAMA_TOKENS,
                                   rows=(1, LLAMA_ROWS), profile=True)
-    del ff, sess
+    return res
+
+
+def phase_llama(smi: str) -> dict:
+    """The LLaMA family at LLaMA-7B width: LLAMA_LAYERS layers generating
+    through InferenceSession.generate (the causal flash forward at d =
+    128 in each prefill, RoPE in the op, the KV decode), the primitive
+    form at 2 layers against the fused form on the same weights, and 2
+    layers training through fit (flash forward, dq, dk/dv, fused Adam)."""
+    t0 = time.perf_counter()
+    ff, lc = llama_model("attention:flash", LLAMA_LAYERS)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for ws in ff.params.values()
+                   for t in ws.values())
+    print(f"[llama] LLaMA-7B width ({lc.num_layers} of 32 layers, hidden "
+          f"{lc.hidden_size}, FFN {lc.intermediate_size}, {lc.num_heads} "
+          f"heads of {lc.hidden_size // lc.num_heads}, vocab "
+          f"{lc.vocab_size}): {n_params} f32 parameters built and compiled "
+          f"on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB resident")
+    res = lm_generate(ff, "llama", "LLaMA-7B", smi, 31)
+    del ff
+    free_cuda()
     res["primitive"] = llama_primitive_check()
     res["train"] = llama_train()
     return res
@@ -1522,19 +1605,19 @@ def llama_primitive_check() -> dict:
     return {"rel": rel, "forwards": len(forwards)}
 
 
-def llama_train() -> dict:
-    """Training at LLaMA-7B width, 2 layers, 2 x 1024: fit with Adam,
-    flash and the fused update, every launch counted; then, from the same
-    weights, the loss history against plain attention and the unfused
-    Adam. 32 layers of f32 Adam state (6.74 B x 16 B) do not fit on one
-    card, hence the depth."""
+def lm_train(tag: str, what: str, model_fn, layers: int,
+             epsilon: float = 1e-8) -> dict:
+    """Training an LM at 2 x LLAMA_SEQ, ``layers`` layers
+    (``model_fn(impl, optimizer) -> (ff, cfg)``): fit with Adam (alpha
+    1e-4, ``epsilon``), flash and the fused update, every launch counted;
+    then, from the same weights, the loss history against plain attention
+    and the unfused Adam."""
     from flexflow_tpu_torch import AdamOptimizer
     seq, b, steps = LLAMA_SEQ, 2, 3
     impl = "attention:flash,opt_update:fused"
-    ff, lc = llama_model(impl, LLAMA_SHORT, b, seq,
-                         optimizer=AdamOptimizer(1e-4))
+    ff, cfg = model_fn(impl, AdamOptimizer(1e-4, epsilon=epsilon))
     rng = np.random.default_rng(43)
-    ids = rng.integers(0, lc.vocab_size, (b * steps, seq + 1)).astype(
+    ids = rng.integers(0, cfg.vocab_size, (b * steps, seq + 1)).astype(
         np.int32)
     x, y = ids[:, :seq], ids[:, 1:]
     torch.cuda.synchronize()
@@ -1546,22 +1629,22 @@ def llama_train() -> dict:
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in fns.items()}
-    want = {"flash_attention_fwd": LLAMA_SHORT * steps,
-            "flash_attention_bwd_dq": LLAMA_SHORT * steps,
-            "flash_attention_bwd_dkv": LLAMA_SHORT * steps,
+    want = {"flash_attention_fwd": layers * steps,
+            "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps,
             "adam_update": steps}
-    print(f"[llama] train: fit of LLaMA-7B width x {LLAMA_SHORT} layers at "
+    print(f"[{tag}] train: fit of {what} width x {layers} layers at "
           f"{b}x{seq}, {steps} steps in {fit_s:.2f} s, peak {peak:.3f} GB; "
-          f"loss "
-          f"{history[0]['loss']:.5f}; launches {launches} (want {want})")
-    check(launches == want, f"llama train launches {launches} != {want}")
-    check(bool(np.isfinite(history[0]["loss"])), "llama train loss")
+          f"loss {history[0]['loss']:.5f}; launches {launches} (want "
+          f"{want})")
+    check(launches == want, f"{tag} train launches {launches} != {want}")
+    check(bool(np.isfinite(history[0]["loss"])), f"{tag} train loss")
     del ff
+    free_cuda()
     # the same weights and batch through both paths, one step per epoch
     runs = {}
     for impl_ in (impl, "attention:xla"):
-        m, _ = llama_model(impl_, LLAMA_SHORT, b, seq,
-                           optimizer=AdamOptimizer(1e-4))
+        m, _ = model_fn(impl_, AdamOptimizer(1e-4, epsilon=epsilon))
         if runs:
             m.params = {ln: {wn: t.clone() for wn, t in ws.items()}
                         for ln, ws in runs[impl][0].items()}
@@ -1570,22 +1653,202 @@ def llama_train() -> dict:
                        [r["loss"] for r in m.fit([x[:b]], y[:b], epochs=3,
                                                  verbose=False)])
         del m
+        free_cuda()
     a, c = runs[impl][1], runs["attention:xla"][1]
     err = float(np.abs(np.array(a) - np.array(c)).max())
     ok = err <= TRAIN_TOL and np.all(np.isfinite(a))
-    print(f"[llama] train, 3 steps from the same weights: loss flash + "
+    print(f"[{tag}] train, 3 steps from the same weights: loss flash + "
           f"fused Adam {[round(v, 5) for v in a]}, plain attention + "
           f"unfused Adam {[round(v, 5) for v in c]}: max|diff| = {err:.3e} "
           f"(tol {TRAIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
-    check(ok, "llama: loss histories of the two paths disagree")
+    check(ok, f"{tag}: loss histories of the two paths disagree")
     del runs
-    return {"launches": launches, "steps": steps, "peak_gb": peak}
+    free_cuda()
+    return {"launches": launches, "steps": steps, "peak_gb": peak,
+            "loss_diff": err}
 
 
-def kernel_rows(errs, serve, kt, train, gen, llama) -> list:
+def llama_train() -> dict:
+    """Training at LLaMA-7B width, 2 layers, 2 x 1024. 32 layers of f32
+    Adam state (6.74 B x 16 B) do not fit on one card, hence the depth."""
+    return lm_train("llama", "LLaMA-7B", lambda impl, opt: llama_model(
+        impl, LLAMA_SHORT, 2, LLAMA_SEQ, optimizer=opt), LLAMA_SHORT)
+
+
+MIXTRAL_LAYERS = 8   # generation depth, of Mixtral-8x7B's 32 (f32 weights)
+MIXTRAL_TRAIN_LAYERS = 1
+
+
+def mixtral_model(impl: str, layers: int, batch: int = LLAMA_ROWS,
+                  seq: int = LLAMA_SEQ, optimizer=None):
+    """Mixtral-8x7B's width (hidden 4096, FFN 14336, 32 heads / 8 kv heads
+    of 128, 8 SwiGLU experts top-2, vocab 32000; seeded random weights,
+    initialised on the card) at ``layers`` layers, built through FFModel
+    with bf16 matmul operands and f32 results."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import MixtralConfig, build_mixtral
+    cfg = FFConfig()
+    cfg.batch_size = batch
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = impl
+    cfg.seed = 0
+    ff = FFModel(cfg)
+    mc = MixtralConfig()
+    mc.num_layers = layers
+    out = build_mixtral(ff, batch, seq, mc)
+    ff.compile(optimizer or SGDOptimizer(0.01),
+               "sparse_categorical_crossentropy", [], output_tensor=out)
+    return ff, mc
+
+
+def phase_mixtral(smi: str) -> dict:
+    """Mixtral at Mixtral-8x7B width: MIXTRAL_LAYERS layers generating
+    through InferenceSession.generate (the causal flash forward at d = 128
+    after GQA's K/V repeat, RoPE, the dense mixture routed by TopK, Equal,
+    Cast and ReduceSum, the KV decode), then 1 layer training through fit.
+    The port keeps f32 weights: one layer is 1.45 B parameters (5.81 GB),
+    so 8 layers with the embedding and head are 47.5 GB; 32 would be
+    186.8 GB."""
+    t0 = time.perf_counter()
+    ff, mc = mixtral_model("attention:flash", MIXTRAL_LAYERS)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for ws in ff.params.values()
+                   for t in ws.values())
+    print(f"[mixtral] Mixtral-8x7B width ({mc.num_layers} of 32 layers, "
+          f"hidden {mc.hidden_size}, FFN {mc.intermediate_size}, "
+          f"{mc.num_heads} heads / {mc.num_kv_heads} kv heads of "
+          f"{mc.hidden_size // mc.num_heads}, {mc.num_experts} experts "
+          f"top-{mc.experts_per_tok}, vocab {mc.vocab_size}): {n_params} f32 "
+          f"parameters built and compiled on the card in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB resident")
+    res = lm_generate(ff, "mixtral", "Mixtral-8x7B-8L", smi, 51)
+    del ff
+    free_cuda()
+    # Adam at epsilon 1e-4: the flash and plain attention paths differ by
+    # bf16 roundings (2e-4 in the first loss), and a top-2 pick that flips
+    # on them sends a token's gradient to another expert, whose weights
+    # Adam at 1e-8 then moves by a full +-alpha; the histories then part
+    # by 1.5e-2, 2.6e-2, 6.1e-2 over steps 2-4 (1e-4: 2.3e-4, 2.3e-3,
+    # 7.6e-3), where the fused and unfused updates agree bit for bit
+    # either way (PERF.md sec. 6)
+    res["train"] = lm_train(
+        "mixtral", "Mixtral-8x7B",
+        lambda impl, opt: mixtral_model(impl, MIXTRAL_TRAIN_LAYERS, 2,
+                                        LLAMA_SEQ, optimizer=opt),
+        MIXTRAL_TRAIN_LAYERS, epsilon=1e-4)
+    return res
+
+
+MOE_BATCH, MOE_BATCHES = 64, 8
+
+
+def moe_model(impl: str, seed: int = 0):
+    """build_moe_mnist at MoeConfig() (the reference example's defaults)
+    at batch MOE_BATCH, Adam, bf16 matmul operands and f32 results."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import MoeConfig, build_moe_mnist
+    cfg = FFConfig()
+    cfg.batch_size = MOE_BATCH
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = impl
+    cfg.seed = seed
+    ff = FFModel(cfg)
+    mc = MoeConfig()
+    build_moe_mnist(ff, MOE_BATCH, mc)
+    ff.compile(AdamOptimizer(1e-3), "sparse_categorical_crossentropy",
+               ["accuracy"])
+    return ff, mc
+
+
+def phase_moe() -> dict:
+    """The MoE operator family training: build_moe_mnist through fit with
+    the fused Adam (one launch per step), the loss history against the
+    unfused Adam from the same weights, and the slots the capacity
+    drops."""
+    from flexflow_tpu_torch import OperatorType
+    from flexflow_tpu_torch.ops.moe_ops import dropped_slots
+    ff, mc = moe_model("opt_update:fused")
+    rng = np.random.default_rng(61)
+    n = MOE_BATCH * MOE_BATCHES
+    x = rng.standard_normal((n, mc.in_dim)).astype(np.float32)
+    y = rng.integers(0, mc.num_classes, (n, 1)).astype(np.int32)
+    epochs = 2
+    torch.cuda.synchronize()
+    fns = zero_counts()  # the main path: every count starts at 0
+    t0 = time.perf_counter()
+    history = ff.fit(x, y, epochs=epochs, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    steps = epochs * MOE_BATCHES
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "adam_update": steps}
+    ev = ff.eval(x, y)
+    print(f"[moe] main path: fit of build_moe_mnist (MoeConfig(): "
+          f"{mc.num_exp} experts top-{mc.num_select}, hidden "
+          f"{mc.hidden_size}, alpha {mc.alpha}, lambda_bal {mc.lambda_bal}, "
+          f"in {mc.in_dim}) at batch {MOE_BATCH}, {epochs} epochs x "
+          f"{MOE_BATCHES} batches = {steps} steps in {fit_s:.2f} s "
+          f"({fit_s / steps * 1e3:.2f} ms per step, host clock); history "
+          f"{[(round(r['loss'], 5), r['accuracy']) for r in history]}; eval "
+          f"{ev}; launches {launches} (want {want})")
+    check(launches == want, f"moe launches {launches} != {want}")
+    check(all(np.isfinite(r["loss"]) for r in history)
+          and np.isfinite(ev["loss"]), "moe: non-finite loss")
+
+    # the (token, choice) slots the capacity drops on one batch, from the
+    # gate's top-k through the graph
+    prog, ex = ff.executor.program, ff.executor
+    topk = next(l for l in prog.layers if l.op_type == OperatorType.OP_TOPK)
+    group = next(l for l in prog.layers
+                 if l.op_type == OperatorType.OP_GROUP_BY)
+    with torch.inference_mode():
+        env = prog.init_env({"input": x[:MOE_BATCH]}, ff.device)
+        assign = prog.emit_layers(prog.layers, env, ff.params,
+                                  ex._kv_ctx(None, ff.state),
+                                  topk.outputs[1].guid)
+    cap = group.outputs[0].shape[0]
+    dropped = dropped_slots(assign, mc.num_exp, cap)
+    print(f"[moe] capacity {cap} per expert (ceil({mc.alpha} x "
+          f"{mc.num_select} x {MOE_BATCH} / {mc.num_exp})): the trained "
+          f"gate's top-{mc.num_select} of one batch fills "
+          f"{assign.numel() - dropped} of {assign.numel()} (token, choice) "
+          f"slots, {dropped} dropped")
+    del ff
+    free_cuda()
+
+    # the same weights and batches through the fused and the unfused Adam,
+    # one batch per epoch, so the history is the per-step loss
+    runs = {}
+    for impl in ("opt_update:fused", "auto"):
+        m, _ = moe_model(impl)
+        if runs:
+            m.params = {ln: {wn: t.clone() for wn, t in ws.items()}
+                        for ln, ws in runs["opt_update:fused"][0].items()}
+        runs[impl] = ({ln: {wn: t.clone() for wn, t in ws.items()}
+                       for ln, ws in m.params.items()},
+                      [r["loss"] for r in m.fit(x[:MOE_BATCH],
+                                                y[:MOE_BATCH], epochs=4,
+                                                verbose=False)])
+        del m
+    a, b = runs["opt_update:fused"][1], runs["auto"][1]
+    err = float(np.abs(np.array(a) - np.array(b)).max())
+    ok = err <= TRAIN_TOL and np.all(np.isfinite(a))
+    print(f"[moe] 4 steps from the same weights: loss fused Adam "
+          f"{[round(v, 5) for v in a]}, unfused Adam "
+          f"{[round(v, 5) for v in b]}: max|diff| = {err:.3e} (tol "
+          f"{TRAIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    check(ok, "moe: loss histories of the fused and unfused Adam disagree")
+    return {"launches": launches, "steps": steps, "dropped": dropped,
+            "slots": int(assign.numel()), "loss_diff": err}
+
+
+def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
-    dropout, with s512, dropout 0.1, the causal shapes, head dims 128 and
-    256 and the LLaMA launches beside them."""
+    dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
+    256, 320 and 512, and the LLaMA, Mixtral and MoE launches beside
+    them."""
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
 
@@ -1615,15 +1878,22 @@ def kernel_rows(errs, serve, kt, train, gen, llama) -> list:
         "generate_launches": gen["launches"],
         "generate_prefills": gen["prefills"],
         "causal_prefill_s1024": dict(kt["fwd_causal"]),
-        # LLaMA-7B: 32 launches per prefill at b4 h32 s1024 d128 causal
+        # LLaMA-7B and Mixtral (8 layers): one launch per layer per
+        # prefill at b4 h32 s1024 d128 causal
         "llama_generate_launches": llama["launches"],
         "llama_prefills": llama["prefills"],
         "llama_train_launches":
             llama["train"]["launches"]["flash_attention_fwd"],
+        "mixtral_generate_launches": mixtral["launches"],
+        "mixtral_prefills": mixtral["prefills"],
+        "mixtral_train_launches":
+            mixtral["train"]["launches"]["flash_attention_fwd"],
         "llama_prefill_b4_h32_s1024_d128_causal":
             dict(kt["fwd_d128_causal"]),
         "b8_h12_s512_d128": dict(kt["fwd_d128"]),
-        "b4_h8_s512_d256": dict(kt["fwd_d256"])}]
+        "b4_h8_s512_d256": dict(kt["fwd_d256"]),
+        "b4_h8_s512_d320": dict(kt["fwd_d320"]),
+        "b4_h8_s512_d512": dict(kt["fwd_d512"])}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -1637,11 +1907,14 @@ def kernel_rows(errs, serve, kt, train, gen, llama) -> list:
             "dropout_0.1": {"s128": bwd_row(key, 128, 0.1),
                             "s512": bwd_row(key, 512, 0.1)},
             "llama_train_launches": llama["train"]["launches"][name],
+            "mixtral_train_launches": mixtral["train"]["launches"][name],
             "b8_h12_s1024_d64_causal": bwd_row_t(key,
                                                  kt["bwd_d64_causal"]),
             "llama_b2_h32_s1024_d128_causal": bwd_row_t(
                 key, kt["bwd_d128_causal"]),
-            "b4_h8_s512_d256": bwd_row_t(key, kt["bwd_d256"])})
+            "b4_h8_s512_d256": bwd_row_t(key, kt["bwd_d256"]),
+            "b4_h8_s512_d320": bwd_row_t(key, kt["bwd_d320"]),
+            "b4_h8_s512_d512": bwd_row_t(key, kt["bwd_d512"])})
     a = kt["adam"]
     rows.append({
         "name": "adam_update", "route": "cuda",
@@ -1652,12 +1925,15 @@ def kernel_rows(errs, serve, kt, train, gen, llama) -> list:
         "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": "bytes", "library_ms": a["library_ms"],
         "shape": f"BERT-base, {a['numel']} f32 parameters in 200 leaves",
-        "llama_train_launches": llama["train"]["launches"]["adam_update"]})
+        "llama_train_launches": llama["train"]["launches"]["adam_update"],
+        "mixtral_train_launches":
+            mixtral["train"]["launches"]["adam_update"],
+        "moe_train_launches": moe["launches"]["adam_update"]})
     return rows
 
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
-          "generate", "llama")
+          "generate", "llama", "mixtral", "moe")
 
 
 def main() -> int:
@@ -1671,26 +1947,43 @@ def main() -> int:
                     "and of this one in turns, and nothing else")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    t_start = time.perf_counter()
     dev, smi = phase_device()
     if args.ab_base:
         phase_ab(args.ab_base, smi)
         print("chip_smoke: ran the A/B only; no result")
         return 1
-    if "build" in phases:
-        phase_build()
-    errs = phase_kernel() if "kernel" in phases else None
-    kt = phase_ktimes(smi) if "ktimes" in phases else None
-    serve = phase_slice((128, 512)) if "slice" in phases else None
-    train = phase_train() if "train" in phases else None
-    if "times" in phases:
-        phase_times(serve.pop("models"))
-    gen = phase_generate(smi) if "generate" in phases else None
-    llama = phase_llama(smi) if "llama" in phases else None
+    res = {}
+
+    def run(name, fn, *a):
+        if name not in phases:
+            return None
+        free_cuda()
+        t0 = time.perf_counter()
+        res[name] = fn(*a)
+        print(f"[wall] phase {name}: {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_start:.1f} s since start)")
+        return res[name]
+
+    run("build", phase_build)
+    run("kernel", phase_kernel)
+    run("ktimes", phase_ktimes, smi)
+    run("slice", phase_slice, (128, 512))
+    run("train", phase_train)
+    if "slice" in phases:   # the served models live on only for times
+        models = res["slice"].pop("models")
+        run("times", phase_times, models)
+        del models
+    run("generate", phase_generate, smi)
+    run("llama", phase_llama, smi)
+    run("mixtral", phase_mixtral, smi)
+    run("moe", phase_moe)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
-    print(json.dumps({"kernels": kernel_rows(errs, serve, kt, train, gen,
-                                             llama)}))
+    print(json.dumps({"kernels": kernel_rows(
+        res["kernel"], res["slice"], res["ktimes"], res["train"],
+        res["generate"], res["llama"], res["mixtral"], res["moe"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -78,9 +78,10 @@
 //   exact FMA path (64-row tiles, four warps, synchronous tile loads),
 //   because the tensor cores would round f32 to TF32.
 //
-//   dq and dk/dv at d = 192 and 256, either type - the wide FMA kernels
-//   (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one 64-column
-//   chunk of the outputs per CTA (their header says why).
+//   dq and dk/dv at d above 128 (any multiple of 64), either type - the
+//   wide FMA kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel):
+//   one 64-column chunk of the outputs per CTA (their header says why), d
+//   a runtime argument.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit. Causal dq whose heads' K/V all fit in L2 takes the
@@ -346,25 +347,26 @@ cudaError_t launch_dkv(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// head dim 192 and 256, f32 and bf16: the wide FMA kernels
+// head dims above 128, f32 and bf16: the wide FMA kernels
 // ---------------------------------------------------------------------------
 // As the wide forward: a CTA owns one 64-column chunk of its output rows
 // (dq; or dk and dv), so its accumulators are the d = 64 kernels'
 // registers, and it computes the whole score tiles S and dP itself,
 // staging the operands 64 columns at a time (scores_wide); every chunk's
-// CTA repeats them. bf16 rows are widened to f32 in shared memory, and ds
+// CTA repeats them. D is a runtime argument, as in the wide forward.
+// bf16 rows are widened to f32 in shared memory, and ds
 // and p_eff are rounded to bf16 before their products, where the
 // reference casts them. The dq kernel keeps ptxas's 168 registers and a
 // few spilled bytes: one CTA per SM as the minimum removed the spill but
 // ran slower, at two CTAs per SM instead of three (PERF.md sec. 6).
-template <int D, typename T>
+template <typename T>
 __global__ void __launch_bounds__(NUM_THREADS)
     flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v,
                              const T* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             T* __restrict__ dq, int sq, int sk,
+                             T* __restrict__ dq, int sq, int sk, int D,
                              float sm_scale, int causal, int use_dropout,
                              uint32_t threshold, float keep_prob,
                              uint32_t seed) {
@@ -405,8 +407,8 @@ __global__ void __launch_bounds__(NUM_THREADS)
   for (int tn = 0; tn < n_tiles; ++tn) {
     const int n0 = tn * TILE;
     float s[N_FRAGS][4], dp[N_FRAGS][4];
-    scores_wide<D>(s, sA, sB, qb, m0, sq, kb, n0, sk, warp, g, tig);
-    scores_wide<D>(dp, sA, sB, db, m0, sq, vb, n0, sk, warp, g, tig);
+    scores_wide(s, sA, sB, qb, m0, sq, kb, n0, sk, D, warp, g, tig);
+    scores_wide(dp, sA, sB, db, m0, sq, vb, n0, sk, D, warp, g, tig);
     load_chunk(sK, kb, D, col0, n0, sk);  // after scores_wide's barriers
     tile_grads<false>(s, dp, m0, n0, warp, g, tig, bh, sq, sk, causal,
                       sm_scale, use_dropout, threshold, keep_prob, seed,
@@ -421,7 +423,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
   store_chunk(dq + (size_t)bh * sq * D, acc, D, col0, m0, sq, warp, g, tig);
 }
 
-template <int D, typename T>
+template <typename T>
 __global__ void __launch_bounds__(NUM_THREADS)
     flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
@@ -430,7 +432,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               T* __restrict__ dk, T* __restrict__ dv, int sq,
-                              int sk, float sm_scale, int causal,
+                              int sk, int D, float sm_scale, int causal,
                               int use_dropout, uint32_t threshold,
                               float keep_prob, uint32_t seed) {
   constexpr int LD = TILE + 4;
@@ -466,8 +468,8 @@ __global__ void __launch_bounds__(NUM_THREADS)
   for (int tm = first; tm < n_tiles; ++tm) {
     const int m0 = tm * TILE;
     float s[N_FRAGS][4], dp[N_FRAGS][4];
-    scores_wide<D>(s, sA, sB, kb, n0, sk, qb, m0, sq, warp, g, tig);
-    scores_wide<D>(dp, sA, sB, vb, n0, sk, db, m0, sq, warp, g, tig);
+    scores_wide(s, sA, sB, kb, n0, sk, qb, m0, sq, D, warp, g, tig);
+    scores_wide(dp, sA, sB, vb, n0, sk, db, m0, sq, D, warp, g, tig);
     // after scores_wide's barriers: the last tile's readers are done
     load_chunk(sQ, qb, D, col0, m0, sq);
     load_chunk(sDO, db, D, col0, m0, sq);
@@ -497,10 +499,10 @@ __global__ void __launch_bounds__(NUM_THREADS)
               tig);
 }
 
-template <int D, typename T>
-cudaError_t launch_dq_wide(const Args& a) {
+template <typename T>
+cudaError_t launch_dq_wide(const Args& a, int D) {
   const size_t smem = (size_t)4 * TILE * (TILE + 4) * sizeof(float);
-  auto kernel = flash_bwd_dq_wide_kernel<D, T>;
+  auto kernel = flash_bwd_dq_wide_kernel<T>;
   static unsigned long long smem_set = 0;  // per instantiation and device
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
@@ -511,16 +513,16 @@ cudaError_t launch_dq_wide(const Args& a) {
   kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), a.sq, a.sk, a.sm_scale, a.causal,
+      a.delta, static_cast<T*>(a.out0), a.sq, a.sk, D, a.sm_scale, a.causal,
       a.use_dropout, a.threshold, a.keep_prob, a.seed);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-cudaError_t launch_dkv_wide(const Args& a) {
+template <typename T>
+cudaError_t launch_dkv_wide(const Args& a, int D) {
   const size_t smem =
       ((size_t)5 * TILE * (TILE + 4) + 2 * TILE) * sizeof(float);
-  auto kernel = flash_bwd_dkv_wide_kernel<D, T>;
+  auto kernel = flash_bwd_dkv_wide_kernel<T>;
   static unsigned long long smem_set = 0;
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
@@ -532,7 +534,7 @@ cudaError_t launch_dkv_wide(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.sq, a.sk,
-      a.sm_scale, a.causal, a.use_dropout, a.threshold, a.keep_prob, a.seed);
+      D, a.sm_scale, a.causal, a.use_dropout, a.threshold, a.keep_prob, a.seed);
   return cudaGetLastError();
 }
 
@@ -1006,29 +1008,26 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0)
     return (int)cudaErrorInvalidValue;
   // bf16 runs the wgmma kernels, f32 the exact FMA kernels; either type
-  // at d = 192 or 256 the wide FMA kernels
+  // above d = 128 the wide FMA kernels
   using bf16 = __nv_bfloat16;
+  if (head_dim > 128 && head_dim % TILE == 0) {  // d a runtime argument
+    if (dkv && dtype == 0) return (int)launch_dkv_wide<float>(a, head_dim);
+    if (dkv && dtype == 1) return (int)launch_dkv_wide<bf16>(a, head_dim);
+    if (dtype == 0) return (int)launch_dq_wide<float>(a, head_dim);
+    if (dtype == 1) return (int)launch_dq_wide<bf16>(a, head_dim);
+    return (int)cudaErrorInvalidValue;
+  }
   if (!dkv) {
     if (dtype == 1 && head_dim == 64) return (int)launch_dq_wgmma<64>(a);
     if (dtype == 1 && head_dim == 128) return (int)launch_dq_wgmma<128>(a);
     if (dtype == 0 && head_dim == 64) return (int)launch_dq<64>(a);
     if (dtype == 0 && head_dim == 128) return (int)launch_dq<128>(a);
-    if (dtype == 0 && head_dim == 192)
-      return (int)launch_dq_wide<192, float>(a);
-    if (dtype == 0 && head_dim == 256)
-      return (int)launch_dq_wide<256, float>(a);
-    if (dtype == 1 && head_dim == 192) return (int)launch_dq_wide<192, bf16>(a);
-    if (dtype == 1 && head_dim == 256) return (int)launch_dq_wide<256, bf16>(a);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1 && head_dim == 64) return (int)launch_dkv_wgmma<64>(a);
   if (dtype == 1 && head_dim == 128) return (int)launch_dkv_wgmma<128>(a);
   if (dtype == 0 && head_dim == 64) return (int)launch_dkv<64>(a);
   if (dtype == 0 && head_dim == 128) return (int)launch_dkv<128>(a);
-  if (dtype == 0 && head_dim == 192) return (int)launch_dkv_wide<192, float>(a);
-  if (dtype == 0 && head_dim == 256) return (int)launch_dkv_wide<256, float>(a);
-  if (dtype == 1 && head_dim == 192) return (int)launch_dkv_wide<192, bf16>(a);
-  if (dtype == 1 && head_dim == 256) return (int)launch_dkv_wide<256, bf16>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1036,8 +1035,8 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
 
 // q, do: (bh, sq, d); k, v: (bh, sk, d), all contiguous in one type
 // (dtype 0 = float32, 1 = bfloat16); lse, delta: (bh, sq) float32. d is
-// 64, 128, 192 or 256; bh any count whose grid fits gridDim.x. dq: (bh,
-// sq, d) in the input type. Returns a cudaError_t (0 = launched).
+// 64, 128 or any multiple of 64 above 128; bh any count whose grid fits
+// gridDim.x. dq: (bh, sq, d) in the input type. Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bh, int sq, int sk,

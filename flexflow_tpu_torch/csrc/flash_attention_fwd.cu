@@ -44,8 +44,9 @@
 //   warps, plain FMA loops, because the tensor cores would round f32
 //   operands to TF32.
 //
-//   d = 192 and 256, either type - flash_fwd_wide_kernel below: the FMA
-//   path with one 64-column chunk of o per CTA (its header says why).
+//   d above 128 (any multiple of 64), either type - flash_fwd_wide_kernel
+//   below: the FMA path with one 64-column chunk of o per CTA (its header
+//   says why), d compiled in at 192 and 256 and a runtime argument above.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit; causal launches whose heads' K/V all fit in L2 take
@@ -526,7 +527,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// head dim 192 and 256, f32 and bf16: the wide FMA kernel
+// head dims above 128, f32 and bf16: the wide FMA kernel
 // ---------------------------------------------------------------------------
 // The wgmma kernels hold a (64, D) f32 accumulator in registers: 128 per
 // thread at D = 256, beside S, and a (64 + 2 * 64) x D tile ring. Here a
@@ -536,19 +537,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // score tile S = Q . K^T itself, staging Q and K 64 columns at a time
 // (scores_wide), so every chunk's CTA repeats the same scores, softmax and
 // lse: D / 64 times the score work of one CTA, for a kernel that is plain
-// and right. bf16 rows are widened to f32 in shared memory, and p is
+// and right. D enters only as a loop bound and a row stride, so it may be
+// a runtime argument: DC = 0 takes D from d_rt, every multiple of 64 above
+// 128, and the shared memory does not grow with D. At d = 256 that build
+// ran 13% slower than a compile-time D, whose chunk loop the compiler can
+// unroll (dq and dk/dv did not move: PERF.md sec. 6), so d = 192 and 256
+// keep compile-time instantiations (DC = D).
+// bf16 rows are widened to f32 in shared memory, and p is
 // rounded to bf16 before P . V, where the reference casts it. With no
 // minimum of CTAs per SM ptxas held it to 128 registers and spilled; one
 // CTA per SM as the minimum lets it take ~160 with no spill, and it ran
 // faster so (PERF.md sec. 6).
-template <int D, typename T>
+template <int DC, typename T>
 __global__ void __launch_bounds__(NUM_THREADS, 1)
     flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o,
-                          float* __restrict__ lse, int sq, int sk,
+                          float* __restrict__ lse, int sq, int sk, int d_rt,
                           float sm_scale, int causal, int use_dropout,
                           uint32_t threshold, float keep_prob,
                           uint32_t seed) {
+  const int D = DC ? DC : d_rt;
   constexpr int LD = TILE + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);  // Q chunk
@@ -581,7 +589,7 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
   for (int tn = 0; tn < n_tiles; ++tn) {
     const int n0 = tn * TILE;
     float s[N_FRAGS][4];
-    scores_wide<D>(s, sA, sB, qb, m0, sq, kb, n0, sk, warp, g, tig);
+    scores_wide(s, sA, sB, qb, m0, sq, kb, n0, sk, D, warp, g, tig);
     load_chunk(sV, vb, D, col0, n0, sk);  // after scores_wide's barriers
 
     float mx[2] = {m_i[0], m_i[1]};
@@ -656,13 +664,13 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
   store_chunk(o + (size_t)bh * sq * D, acc, D, col0, m0, sq, warp, g, tig);
 }
 
-template <int D, typename T>
+template <int DC, typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int bh, int sq, int sk, int causal,
+                        void* lse, int bh, int sq, int sk, int D, int causal,
                         float sm_scale, int use_dropout, uint32_t threshold,
                         float keep_prob, uint32_t seed, cudaStream_t stream) {
   const size_t smem = (size_t)4 * TILE * (TILE + 4) * sizeof(float);
-  auto kernel = flash_fwd_wide_kernel<D, T>;
+  auto kernel = flash_fwd_wide_kernel<DC, T>;
   static unsigned long long smem_set = 0;  // per instantiation and device
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
@@ -673,7 +681,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, sm_scale, causal, use_dropout, threshold, keep_prob, seed);
+      sq, sk, D, sm_scale, causal, use_dropout, threshold, keep_prob, seed);
   return cudaGetLastError();
 }
 
@@ -685,10 +693,10 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 
 // q: (bh, sq, d), k/v: (bh, sk, d), o: (bh, sq, d), all contiguous in the
 // same type (dtype 0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
-// d is 64, 128, 192 or 256; bh any count whose grid fits gridDim.x. bf16
-// at d <= 128 launches the wgmma kernel, f32 at d <= 128 the FMA kernel,
-// either type at d = 192 or 256 the wide FMA kernel. Returns a
-// cudaError_t (0 = launched).
+// d is 64, 128 or any multiple of 64 above 128; bh any count whose grid
+// fits gridDim.x. bf16 at d <= 128 launches the wgmma kernel, f32 at d <=
+// 128 the FMA kernel, either type above 128 the wide FMA kernel. Returns
+// a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
@@ -713,12 +721,21 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && head_dim == 128) FF_LAUNCH((launch_wgmma<128, 1, 2>));
   if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<64>));
   if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<128>));
-  if (dtype == 0 && head_dim == 192) FF_LAUNCH((launch_wide<192, float>));
-  if (dtype == 0 && head_dim == 256) FF_LAUNCH((launch_wide<256, float>));
-  if (dtype == 1 && head_dim == 192)
-    FF_LAUNCH((launch_wide<192, __nv_bfloat16>));
-  if (dtype == 1 && head_dim == 256)
-    FF_LAUNCH((launch_wide<256, __nv_bfloat16>));
 #undef FF_LAUNCH
+  // either type above d = 128: the wide kernel, d compiled in at 192 and
+  // 256, a runtime argument at any other multiple of 64
+#define FF_LAUNCH_WIDE(DC, T)                                              \
+  return (int)launch_wide<DC, T>(q, k, v, o, lse, bh, sq, sk, head_dim,   \
+                                 causal, sm_scale, use_dropout, threshold, \
+                                 keep_prob, seed, st)
+  if (head_dim > 128 && head_dim % ff_flash::TILE == 0) {
+    if (dtype == 0 && head_dim == 192) FF_LAUNCH_WIDE(192, float);
+    if (dtype == 0 && head_dim == 256) FF_LAUNCH_WIDE(256, float);
+    if (dtype == 0) FF_LAUNCH_WIDE(0, float);
+    if (dtype == 1 && head_dim == 192) FF_LAUNCH_WIDE(192, __nv_bfloat16);
+    if (dtype == 1 && head_dim == 256) FF_LAUNCH_WIDE(256, __nv_bfloat16);
+    if (dtype == 1) FF_LAUNCH_WIDE(0, __nv_bfloat16);
+  }
+#undef FF_LAUNCH_WIDE
   return (int)cudaErrorInvalidValue;
 }

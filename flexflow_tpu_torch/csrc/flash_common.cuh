@@ -2,7 +2,7 @@
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): the dropout keep hash
 // and its per-fragment bitmask, the bf16 pair store, the 1-D grid of every
 // kernel, the building blocks of the exact f32 kernels, and those of the
-// wide kernels (head dim 192 and 256), which stage either type as f32.
+// wide kernels (head dims above 128), which stage either type as f32.
 //
 // The f32 kernels work on 64-row tiles with four warps, each warp owning
 // 16 rows of the tile's "A" side (query rows in the forward and dq
@@ -228,7 +228,7 @@ inline bool launch_grid(long long n_blocks, long long bh, long long n_chunks,
 }
 
 // ---------------------------------------------------------------------------
-// the wide kernels (head dim 192 and 256, f32 and bf16)
+// the wide kernels (head dims above 128, f32 and bf16)
 // ---------------------------------------------------------------------------
 // A 64-column chunk of 4 consecutive elements, widened to f32: rows of
 // either type are staged as f32 in shared memory and run the FMA loops.
@@ -274,17 +274,17 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int ld,
   }
 }
 
-// s = A . B^T over the whole head dim D for this warp's 16 rows of the
-// 64 rows of A from a_row0 and the 64 rows of B from b_row0 (both (rows,
-// D) matrices of T), staged 64 columns at a time through sA and sB.
-// Starts with a barrier, so a caller may reuse any staging buffer that
-// was read before it.
-template <int D, typename T>
+// s = A . B^T over the whole head dim D (a multiple of 64, a runtime
+// value) for this warp's 16 rows of the 64 rows of A from a_row0 and the
+// 64 rows of B from b_row0 (both (rows, D) matrices of T), staged 64
+// columns at a time through sA and sB. Starts with a barrier, so a caller
+// may reuse any staging buffer that was read before it.
+template <typename T>
 __device__ __forceinline__ void scores_wide(float (&s)[N_FRAGS][4],
                                             float* sA, float* sB,
                                             const T* a, int a_row0,
                                             int a_rows, const T* b,
-                                            int b_row0, int b_rows,
+                                            int b_row0, int b_rows, int D,
                                             int warp, int g, int tig) {
 #pragma unroll
   for (int nt = 0; nt < N_FRAGS; ++nt)

@@ -171,8 +171,11 @@ class Executor:
     def init_params_and_state(self):
         """Materialize every layer's WeightSpecs on the device, each from
         a generator keyed by (seed, 1, layer index, weight index), the
-        JAX package's key path. No op ported so far carries state."""
+        JAX package's key path, and the state of every op that declares a
+        ``state_spec`` (Cache): zeros, except an entry named ``var``,
+        which starts at ones."""
         params: Dict[str, Dict[str, torch.Tensor]] = {}
+        state: Dict[str, Dict[str, torch.Tensor]] = {}
         for li, layer in enumerate(self.program.layers):
             specs = ensure_weight_specs(layer)
             if specs:
@@ -180,7 +183,17 @@ class Executor:
                     spec.name: initialize(spec, (self.seed, 1, li, wi),
                                           to_torch(spec.dtype), self.device)
                     for wi, spec in enumerate(specs)}
-        return params, {}
+            state_spec = getattr(get_op_def(layer.op_type), "state_spec",
+                                 None)
+            ss = state_spec(layer.params, [t.shape for t in layer.inputs],
+                            [t.dtype for t in layer.inputs]) \
+                if state_spec is not None else None
+            if ss:
+                state[layer.name] = {
+                    sname: (torch.ones if sname == "var" else torch.zeros)(
+                        sshape, dtype=to_torch(sdt), device=self.device)
+                    for sname, (sshape, sdt) in ss.items()}
+        return params, state
 
     def _rngs_for_step(self, step: int) -> Dict[str, LayerRng]:
         """Each dropout layer's randomness for one (sub-)step, keyed by

@@ -8,7 +8,10 @@ port model one to one. Layers pair by POSITION: both packages name layers
 by their index in the model, but a graph built twice, or an explicitly
 named layer, must not be able to pair the wrong weights silently, so
 every pair's op type, weight names and weight shapes are checked and any
-mismatch raises.
+mismatch raises. Every weight-bearing op copies this way, PReLU's
+``alpha``, Mixtral's router and expert kernels and the MoE example's
+expert layers included; constants (``create_constant``) are graph
+inputs, not parameters, and are not copied.
 """
 from __future__ import annotations
 

@@ -30,8 +30,9 @@ position, absolute k position) clears the threshold; p is cast to the
 input dtype before the P.V product; rows with ``l == 0`` give ``o = 0``
 and ``lse = m``; the default ``sm_scale`` is ``1/sqrt(d)`` of the
 UNPADDED head dim, kept when the wrapper pads d up to a multiple of 64,
-as the reference pads it (so 48 runs at 64 and 192 stays 192; the kernels
-take 64, 128, 192 and 256). Every kernel carries b*h on the grid's x
+as the reference pads it (so 48 runs at 64, 192 stays 192 and 300 runs
+at 320; the kernels take 64, 128 and any multiple of 64 above 128, with
+no upper limit). Every kernel carries b*h on the grid's x
 dimension, so b*h has no limit of its own. The backward rebuilds the
 keep mask from the same tuple, rounds ds to k's (q's) dtype before dS.K
 (dS^T.Q) and p_eff to do's dtype before P^T.dO, as ``_flash_bwd_rule``
@@ -48,7 +49,6 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
-_KERNEL_DIMS = (64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -255,14 +255,16 @@ def _dropout_args(dropout_rate: float, seed: int):
 
 def _kernel_inputs(*ts) -> None:
     """What every kernel takes: cuda tensors of one dtype, contiguous,
-    16-byte aligned, head dim 64, 128, 192 or 256."""
+    16-byte aligned, head dim a positive multiple of 64 (64 and 128 run
+    the tensor-core or exact kernels, any wider one the wide kernels)."""
     t0 = ts[0]
     if t0.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda tensors, not "
                          f"{t0.device}")
-    if t0.shape[-1] not in _KERNEL_DIMS:
-        raise ValueError(f"the kernels take head dim 64, 128, 192 or 256, "
-                         f"got {t0.shape[-1]}")
+    d = t0.shape[-1]
+    if d <= 0 or d % 64:
+        raise ValueError(f"the kernels take a head dim that is a multiple "
+                         f"of 64, got {d}")
     for t in ts:
         if t.dtype != t0.dtype or t.device != t0.device \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -299,11 +301,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                            dropout_rate: float = 0.0, dropout_seed=None):
     """dq of flash attention from the forward's lse and ``delta =
     rowsum(do * o)`` (both (b, h, sq) f32). CUDA tensors (head dim 64,
-    128, 192 or 256) launch the dq kernel of
+    128 or a multiple of 64 above 128) launch the dq kernel of
     ``csrc/flash_attention_bwd.cu`` (bf16 up to d = 128: the ``wgmma``
     kernel, which encodes four TMA tensor maps per launch; f32 up to d =
-    128: the exact FMA kernel; d = 192 and 256: the wide FMA kernel) and
-    count one in ``.launches``; CPU
+    128: the exact FMA kernel; above 128: the wide FMA kernel, d a
+    runtime argument) and count one in ``.launches``; CPU
     tensors run
     :func:`flash_attention_bwd_dq_plain` and count one in
     ``.plain_calls``."""
@@ -429,9 +431,6 @@ def flash_attention(q, k, v, *, causal: bool = False,
     d_k = d
     if q.device.type == "cuda":
         d_k = -(-d // 64) * 64
-        if d_k > _KERNEL_DIMS[-1]:
-            raise ValueError(f"head_dim {d} pads to {d_k}, above the "
-                             f"kernels' limit of {_KERNEL_DIMS[-1]}")
         if d_k != d:
             # zero columns change no score and give zero output columns;
             # padding outside the Function lets autograd slice the

@@ -33,10 +33,6 @@ def _attn_flash(ctx: Dict[str, Any]) -> Optional[str]:
             ctx.get("q_len", 0) != ctx.get("kv_len", 0):
         return "flash kernel does not mask causal cross-attention " \
                "(q_len != kv_len)"
-    d_pad = -(-int(ctx.get("head_dim", 0) or 0) // 64) * 64
-    if ctx.get("backend") == "cuda" and d_pad > 256:
-        return f"the flash kernels take head dims up to 256 (this one " \
-               f"pads to {d_pad})"
     return None
 
 

@@ -1,14 +1,14 @@
 """FFModel: the model-building API and compile, on one device.
 
 The port of ``flexflow_tpu/model.py`` on one device: the layer builders
-BERT, GPT-2 and the LLaMA family use (same names, params and auto-naming
-as the JAX package, so the two graphs of one model line up layer for
-layer),
+BERT, GPT-2, the LLaMA family, Mixtral and the MoE examples use (same
+names, params and auto-naming as the JAX package, so the two graphs of
+one model line up layer for layer), constants (``create_constant``),
 ``compile`` without search or mesh (parameters and optimizer state
 materialized), the forced path of the kernel tier, the training loop
-(``fit``, ``eval``, the phase-API no-ops) and generation (``generate``
-over a KV cache or by full re-forwards, greedy or sampled, ragged
-prompts, eos; ``generate_beam``). The other builders, the strategy
+(``fit``, ``eval``, ``forward``, the phase-API no-ops) and generation
+(``generate`` over a KV cache or by full re-forwards, greedy or sampled,
+ragged prompts, eos; ``generate_beam``). The other builders, the strategy
 search, and the fault hooks, callbacks, telemetry and checkpoint saves
 come with later slices.
 
@@ -27,6 +27,7 @@ import torch
 from .config import FFConfig
 from .core.layer import Layer
 from .core.tensor import Tensor
+from .dtypes import to_torch
 from .executor import Executor, GraphProgram
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OperatorType)
@@ -131,6 +132,17 @@ class FFModel:
                       ) -> Tensor:
         t = Tensor(dims, dtype, None, 0, name=name, create_grad=create_grad)
         self.input_tensors.append(t)
+        return t
+
+    def create_constant(self, dims: Sequence[int], value: float,
+                        dtype: DataType = DataType.DT_FLOAT) -> Tensor:
+        """A tensor holding ``value`` everywhere, fed to the graph on every
+        call (not a parameter). Kept on the host in numpy (f32 for the
+        float types numpy lacks) and cast to ``dtype`` as it enters."""
+        np_dt = {torch.bool: np.bool_, torch.int8: np.int8,
+                 torch.int32: np.int32}.get(to_torch(dtype), np.float32)
+        t = self.create_tensor(dims, dtype, create_grad=False)
+        t.set_tensor(np.full(tuple(dims), value, dtype=np_dt))
         return t
 
     # ==================================================================
@@ -241,10 +253,23 @@ class FFModel:
         return self._add_layer(OperatorType.OP_CONCAT, list(tensors),
                                {"axis": axis}, name).outputs[0]
 
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]],
+              axis: int, name: Optional[str] = None) -> List[Tensor]:
+        if isinstance(sizes, int):
+            n = input.shape[axis % len(input.shape)] // sizes
+            sizes = [n] * sizes
+        return self._add_layer(OperatorType.OP_SPLIT, [input],
+                               {"sizes": list(sizes), "axis": axis},
+                               name).outputs
+
     def transpose(self, input: Tensor, perm: Sequence[int],
                   name: Optional[str] = None) -> Tensor:
         return self._unary(OperatorType.OP_TRANSPOSE, input, name,
                            perm=list(perm))
+
+    def reverse(self, input: Tensor, axis: int,
+                name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.OP_REVERSE, input, name, axis=axis)
 
     # ---- elementwise binary ----
     def add(self, x, y, name=None):
@@ -329,6 +354,19 @@ class FFModel:
         return self._unary(OperatorType.OP_SCALAR_TRUE_DIV, x, name,
                            scalar=scalar)
 
+    def cast(self, x, dtype: DataType, name=None):
+        return self._unary(OperatorType.OP_CAST, x, name,
+                           dtype=DataType(dtype))
+
+    def mean(self, x, dims: Sequence[int], keepdims: bool = False, name=None):
+        return self._unary(OperatorType.OP_MEAN, x, name, axes=list(dims),
+                           keepdims=keepdims)
+
+    def reduce_sum(self, x, axes: Sequence[int], keepdims: bool = False,
+                   name=None):
+        return self._unary(OperatorType.OP_REDUCE_SUM, x, name,
+                           axes=list(axes), keepdims=keepdims)
+
     def slice_tensor(self, x: Tensor, starts: Sequence[int],
                      ends: Sequence[int], axes: Optional[Sequence[int]] = None,
                      name=None):
@@ -336,6 +374,74 @@ class FFModel:
                            starts=list(starts), ends=list(ends),
                            axes=list(axes) if axes is not None else
                            list(range(len(starts))))
+
+    def squeeze(self, x: Tensor, axes: Sequence[int], name=None):
+        return self._unary(OperatorType.OP_SQUEEZE, x, name, axes=list(axes))
+
+    def unsqueeze(self, x: Tensor, axes: Sequence[int], name=None):
+        return self._unary(OperatorType.OP_UNSQUEEZE, x, name,
+                           axes=list(axes))
+
+    def pad(self, x: Tensor, pads: Sequence[Sequence[int]],
+            value: float = 0.0, name=None):
+        return self._unary(OperatorType.OP_PAD, x, name,
+                           pads=[tuple(p) for p in pads], value=value)
+
+    def gather(self, x: Tensor, index: Tensor, dim: int = 0, name=None):
+        return self._add_layer(OperatorType.OP_GATHER, [x, index],
+                               {"dim": dim}, name).outputs[0]
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = False,
+              name: Optional[str] = None) -> List[Tensor]:
+        return self._add_layer(OperatorType.OP_TOPK, [input],
+                               {"k": k, "sorted": sorted}, name).outputs
+
+    # ---- MoE family (reference src/ops/moe.cc:20-44) ----
+    def group_by(self, input: Tensor, assign: Tensor, n: int,
+                 alpha: float = 1.0, name: Optional[str] = None
+                 ) -> List[Tensor]:
+        return self._add_layer(OperatorType.OP_GROUP_BY, [input, assign],
+                               {"n": n, "alpha": alpha}, name).outputs
+
+    def aggregate(self, inputs: Sequence[Tensor], n: int,
+                  lambda_bal: float = 0.0, name: Optional[str] = None
+                  ) -> Tensor:
+        return self._add_layer(OperatorType.OP_AGGREGATE, list(inputs),
+                               {"n": n, "lambda_bal": lambda_bal},
+                               name).outputs[0]
+
+    def aggregate_spec(self, inputs: Sequence[Tensor], n: int,
+                       lambda_bal: float = 0.0, name: Optional[str] = None
+                       ) -> Tensor:
+        return self._add_layer(OperatorType.OP_AGG_SPEC, list(inputs),
+                               {"n": n, "lambda_bal": lambda_bal},
+                               name).outputs[0]
+
+    def cache(self, input: Tensor, num_batches: int, score_fn=None,
+              name: Optional[str] = None) -> Tensor:
+        if score_fn is not None:
+            raise NotImplementedError(
+                "cache(score_fn=...) drives the recompile hook of "
+                "runtime/recompile.py, which is not ported yet")
+        return self._unary(OperatorType.OP_CACHE, input, name,
+                           num_batches=num_batches)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 1.0,
+            lambda_bal: float = 0.0) -> Tensor:
+        """MoE composite, wired as the reference ``FFModel::moe``
+        (``src/ops/moe.cc:20-44``): a ReLU gate, top-k, group_by, one
+        dense expert per group, aggregate."""
+        gate_preds = self.dense(input, num_exp, ActiMode.AC_MODE_RELU)
+        topk_out = self.top_k(gate_preds, num_select, False)
+        exp_tensors = self.group_by(input, topk_out[1], num_exp, alpha)
+        agg_inputs = [self.softmax(topk_out[0]), topk_out[1], topk_out[1],
+                      gate_preds]
+        for i in range(num_exp):
+            exp_pred = self.dense(exp_tensors[i], expert_hidden_size,
+                                  ActiMode.AC_MODE_RELU)
+            agg_inputs.append(self.softmax(exp_pred))
+        return self.aggregate(agg_inputs, num_exp, lambda_bal)
 
     # ==================================================================
     # compile
@@ -531,6 +637,20 @@ class FFModel:
         return history
 
     # phase-level API parity (forward/backward/update as in model.cc)
+    def forward(self, batch=None, seq_length: int = -1):
+        """The inference forward on ``batch`` (by default the first batch
+        of the registered data loaders); returns and keeps its output."""
+        fwd = self.executor.make_forward()
+        if batch is None:
+            batch = self._peek_batch()
+        self._last_fwd = fwd(self.params, self.state, batch)
+        return self._last_fwd
+
+    def _peek_batch(self):
+        loader = self._combined_loader()
+        loader.reset()
+        return loader.next_batch()
+
     def zero_gradients(self):
         pass  # grads are computed afresh each step
 

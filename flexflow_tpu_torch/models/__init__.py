@@ -1,2 +1,5 @@
-from .nlp import (BertConfig, GPTConfig, LlamaConfig, build_bert,  # noqa: F401
-                  build_gpt2, build_llama)
+from .misc import (CandleConfig, MoeConfig, build_candle_uno,  # noqa: F401
+                   build_mlp, build_moe_mnist)
+from .nlp import (BertConfig, GPTConfig, LlamaConfig,  # noqa: F401
+                  MixtralConfig, build_bert, build_gpt2, build_llama,
+                  build_mixtral)

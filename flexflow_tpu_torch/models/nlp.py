@@ -1,10 +1,12 @@
-"""NLP model zoo of the ported slices: BERT, GPT-2 and the LLaMA family.
+"""NLP model zoo of the ported slices: BERT, GPT-2, the LLaMA family and
+Mixtral.
 
-The port of ``BertConfig``/``build_bert``, ``GPTConfig``/``build_gpt2`` and
+The port of ``BertConfig``/``build_bert``, ``GPTConfig``/``build_gpt2``,
 ``LlamaConfig``/``build_llama`` (with ``llama_fuse_params`` and
-``llama_load_hf_state_dict``) in ``flexflow_tpu/models/nlp.py``: the same
-layer sequences and weight layouts, so a model built in both packages
-lines up layer for layer (``interop``). The Transformer, NMT and Mixtral
+``llama_load_hf_state_dict``) and ``MixtralConfig``/``build_mixtral``
+(with ``mixtral_load_hf_state_dict``) in ``flexflow_tpu/models/nlp.py``:
+the same layer sequences and weight layouts, so a model built in both
+packages lines up layer for layer (``interop``). The Transformer and NMT
 builders come with later slices.
 """
 from __future__ import annotations
@@ -418,4 +420,160 @@ def llama_load_hf_state_dict(state_dict, cfg: LlamaConfig,
             f"unmapped checkpoint tensors {sorted(leftover)[:8]}"
             f"{'...' if len(leftover) > 8 else ''}: config/architecture "
             f"mismatch (attention_bias / num_layers / tied embeddings?)")
+    return params
+
+
+@dataclasses.dataclass
+class MixtralConfig:
+    """Mixtral-family sparse-MoE decoder (Mistral backbone: fused
+    attention + GQA + RoPE, FFN replaced by a top-k mixture of SwiGLU
+    experts). The defaults are Mixtral-8x7B's widths; ``rope_theta`` and
+    ``rms_eps`` keep the JAX package's defaults (HF's published config
+    has 1e6 and 1e-5)."""
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    num_experts: int = 8
+    experts_per_tok: int = 2
+    max_position: int = 2048
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+    # Mistral-backbone sliding window (HF MixtralConfig defaults 4096);
+    # 0 = full causal
+    sliding_window: int = 0
+
+    @classmethod
+    def tiny(cls):
+        return cls(vocab_size=96, hidden_size=32, intermediate_size=64,
+                   num_layers=2, num_heads=4, num_kv_heads=2,
+                   num_experts=4, experts_per_tok=2, max_position=64)
+
+
+def build_mixtral(ff: FFModel, batch_size: int, seq_len: int,
+                  cfg: MixtralConfig | None = None,
+                  lm_head: bool = True):
+    """Mixtral decoder as a dense mixture, as the JAX package builds it:
+    every expert computes, and each token weights its top-k experts by
+    their renormalised router probabilities (HF MixtralSparseMoeBlock's
+    function). The dense form keeps shapes static and is KV-decode
+    eligible."""
+    cfg = cfg or MixtralConfig()
+    b, s = batch_size, seq_len
+    E, k = cfg.num_experts, cfg.experts_per_tok
+
+    ids = ff.create_tensor((b, s), DataType.DT_INT32, name="input_ids")
+    h = ff.embedding(ids, cfg.vocab_size, cfg.hidden_size,
+                     AggrMode.AGGR_MODE_NONE, name="embed_tokens")
+    # one constant id per expert, shared by every layer's routing mask
+    expert_sel = [ff.create_constant((1,), float(e_i), DataType.DT_INT32)
+                  for e_i in range(E)]
+
+    for i in range(cfg.num_layers):
+        x = ff.rms_norm(h, eps=cfg.rms_eps, name=f"input_norm_{i}")
+        attn_out = ff.multihead_attention(
+            x, x, x, cfg.hidden_size, cfg.num_heads, bias=False,
+            causal=True, rope=True, rope_theta=cfg.rope_theta,
+            num_kv_heads=cfg.num_kv_heads,
+            sliding_window=cfg.sliding_window, name=f"attn_{i}")
+        h = ff.add(h, attn_out, name=f"attn_res_{i}")
+
+        x2 = ff.rms_norm(h, eps=cfg.rms_eps, name=f"post_norm_{i}")
+        router = ff.dense(x2, E, use_bias=False, name=f"moe_gate_{i}")
+        probs = ff.softmax(router, axis=-1, name=f"moe_probs_{i}")
+        vals, idx = ff.top_k(probs, k, True, name=f"moe_topk_{i}")
+        denom = ff.reduce_sum(vals, [-1], keepdims=True,
+                              name=f"moe_denom_{i}")
+        moe_out = None
+        for e_i in range(E):
+            m = ff.cast(ff.equal(idx, expert_sel[e_i],
+                                 name=f"moe_eq_{i}_{e_i}"),
+                        DataType.DT_FLOAT, name=f"moe_m_{i}_{e_i}")
+            w = ff.divide(
+                ff.reduce_sum(ff.multiply(vals, m), [-1], keepdims=True,
+                              name=f"moe_w_{i}_{e_i}"),
+                denom, name=f"moe_wn_{i}_{e_i}")
+            gate = ff.dense(x2, cfg.intermediate_size, use_bias=False,
+                            name=f"e{e_i}_w1_{i}")
+            up = ff.dense(x2, cfg.intermediate_size, use_bias=False,
+                          name=f"e{e_i}_w3_{i}")
+            act = ff.multiply(ff.multiply(gate, ff.sigmoid(gate)), up,
+                              name=f"moe_act_{i}_{e_i}")
+            down = ff.dense(act, cfg.hidden_size, use_bias=False,
+                            name=f"e{e_i}_w2_{i}")
+            contrib = ff.multiply(down, w, name=f"moe_c_{i}_{e_i}")
+            moe_out = contrib if moe_out is None else \
+                ff.add(moe_out, contrib, name=f"moe_sum_{i}_{e_i}")
+        h = ff.add(h, moe_out, name=f"mlp_res_{i}")
+
+    h = ff.rms_norm(h, eps=cfg.rms_eps, name="final_norm")
+    if not lm_head:
+        return h
+    return ff.softmax(ff.dense(h, cfg.vocab_size, use_bias=False,
+                               name="lm_head"))
+
+
+def mixtral_load_hf_state_dict(state_dict, cfg: MixtralConfig,
+                               device="cuda"):
+    """A HuggingFace ``MixtralForCausalLM`` state dict in
+    ``build_mixtral``'s parameter layout: the fused attention's wq/wk/wv/
+    wo (``_fuse_qkvo``), the router ``moe_gate_{i}``, and expert x's w1 /
+    w2 / w3 as the dense kernels ``e{x}_w1_{i}`` / ``e{x}_w2_{i}`` /
+    ``e{x}_w3_{i}`` (HF Linear weights are (out, in), dense kernels (in,
+    out)). Values may be tensors (widened to the f32 masters) or numpy
+    arrays. Returns f32 tensors on ``device`` (the card unless the
+    caller asks for the CPU); a checkpoint tensor the layout does not take
+    raises."""
+    nh, e = cfg.num_heads, cfg.hidden_size
+    hd = e // nh
+    kvh = cfg.num_kv_heads or nh
+    sd = {k_: torch.as_tensor(v).detach().to(device=device,
+                                              dtype=torch.float32)
+          for k_, v in state_dict.items()}
+    consumed = set()
+
+    def take(key):
+        consumed.add(key)
+        return sd[key]
+
+    def kernel(key):
+        return take(key).t().contiguous()
+
+    lm_w = take("lm_head.weight") if "lm_head.weight" in sd \
+        else sd["model.embed_tokens.weight"]
+    params = {
+        "embed_tokens": {"kernel": take("model.embed_tokens.weight")},
+        "final_norm": {"scale": take("model.norm.weight")},
+        "lm_head": {"kernel": lm_w.t().contiguous()},
+    }
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        params[f"input_norm_{i}"] = {
+            "scale": take(p + "input_layernorm.weight")}
+        params[f"post_norm_{i}"] = {
+            "scale": take(p + "post_attention_layernorm.weight")}
+        q = kernel(p + "self_attn.q_proj.weight")
+        k = kernel(p + "self_attn.k_proj.weight")
+        if tuple(q.shape) != (e, nh * hd) or tuple(k.shape) != (e, kvh * hd):
+            raise ValueError(
+                f"checkpoint/config head mismatch: q {tuple(q.shape)} "
+                f"k {tuple(k.shape)} vs (e={e}, nh={nh}, kvh={kvh}, "
+                f"hd={hd})")
+        params[f"attn_{i}"] = _fuse_qkvo(
+            q, k, kernel(p + "self_attn.v_proj.weight"),
+            kernel(p + "self_attn.o_proj.weight"), e, nh, kvh)
+        params[f"moe_gate_{i}"] = {
+            "kernel": kernel(p + "block_sparse_moe.gate.weight")}
+        for x in range(cfg.num_experts):
+            ep = p + f"block_sparse_moe.experts.{x}."
+            for w in ("w1", "w2", "w3"):
+                params[f"e{x}_{w}_{i}"] = {
+                    "kernel": kernel(ep + f"{w}.weight")}
+    leftover = [k_ for k_ in sd
+                if k_ not in consumed and "rotary_emb" not in k_]
+    if leftover:
+        raise ValueError(f"unmapped checkpoint tensors "
+                         f"{sorted(leftover)[:8]}: config mismatch")
     return params

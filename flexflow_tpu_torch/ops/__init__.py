@@ -15,3 +15,4 @@ def ensure_weight_specs(layer):
 from . import nn_ops        # noqa: E402,F401
 from . import element_ops   # noqa: E402,F401
 from . import tensor_ops    # noqa: E402,F401
+from . import moe_ops       # noqa: E402,F401

@@ -1,5 +1,5 @@
-"""Neural-net operators of the serving, training, generation and LLaMA
-slices: Linear, Softmax, Dropout, LayerNorm, RMSNorm, Embedding,
+"""Neural-net operators of the serving, training, generation, LLaMA and
+Mixtral slices: Linear, Softmax, Dropout, LayerNorm, RMSNorm, Embedding,
 BatchMatmul/Matmul and MultiHeadAttention (with its sliding window, its
 in-op rotary embeddings and its KV-cache prefill and decode paths).
 

@@ -248,8 +248,8 @@ def test_flash_backward_matches_jax(b, h, sq, sk, d, causal):
         np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
 
 
-# Head dims above 128: the reference pads d to a multiple of 64, so 192
-# and 256 run as they are, and 160 at 192. On the card they take the wide
+# Head dims above 128: the reference pads d to a multiple of 64, so 192,
+# 256, 320 and 512 run as they are, and 160 at 192. On the card they take the wide
 # kernels; here the plain versions those kernels are held to on the card
 # are held against the JAX kernels.
 WIDE_CASES = [  # (sq, sk, d, causal)
@@ -259,6 +259,8 @@ WIDE_CASES = [  # (sq, sk, d, causal)
     (72, 72, 256, True),
     (64, 96, 256, False),
     (80, 80, 160, True),
+    (40, 40, 320, True),
+    (40, 40, 512, False),
 ]
 
 
@@ -283,21 +285,17 @@ def test_flash_backward_wide_head_dims_match_jax(sq, sk, d, causal):
 
 
 def test_flash_predicate_names_the_head_dim_limit():
-    """The kernels take head dims up to 256 (padded to a multiple of 64)
-    on the card; the forced-plan check refuses a larger one there, naming
-    the limit, and the CPU's plain version takes any."""
+    """The kernels have no head-dim limit: d is padded to a multiple of
+    64 and any width above 128 runs the wide kernels, so the forced-plan
+    check accepts 300 (padded to 320), 320 and 512 on the card as it does
+    on the CPU, whose plain version takes any d."""
     from flexflow_tpu_torch.kernels import attention_ctx, get_impl
     flash = get_impl("attention", "flash")
-    for d, ok in ((64, True), (128, True), (160, True), (256, True),
-                  (320, False)):
+    for d in (64, 128, 160, 256, 300, 320, 512):
         params = {"num_heads": 2, "embed_dim": 2 * d, "causal": True}
-        ctx = attention_ctx(params, 16, 16, backend="cuda")
-        reason = flash.available(ctx)
-        assert (reason is None) == ok, (d, reason)
-        if not ok:
-            assert "256" in reason
-        assert flash.available(attention_ctx(params, 16, 16,
-                                             backend="cpu")) is None
+        for backend in ("cuda", "cpu"):
+            ctx = attention_ctx(params, 16, 16, backend=backend)
+            assert flash.available(ctx) is None, (d, backend)
     q, k, v = _qkv(1, 1, 8, 8, 320)
     assert _port(q, k, v).shape == (1, 1, 8, 320)
 

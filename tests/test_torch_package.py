@@ -32,6 +32,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_profile_bert.py")
+    yield os.path.join(ROOT, "tools", "torch_mixtral_train_ab.py")
 
 
 def _forbidden(module: str) -> bool:
