@@ -23,8 +23,10 @@ never JAX, and:
                BERT's training rate of 0.1, causal at GPT-2's prefill
                shape (s 1024), at LLaMA-7B's prefill (b4 h32 s1024 d128
                causal) and training shape (the causal backward at d 128),
-               the causal backward at d 64, head dims 256, 320 and 512, and
-               each kernel's bound;
+               the causal backward at d 64, head dims 256, 320 and 512,
+               NMT's attention (b64 h1 s128 d512), SDPA's backend named
+               (its efficient backend's backward where its flash backend
+               refuses the shape), and each kernel's bound;
   5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
@@ -330,9 +332,34 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (2, 4, 200, 200, 512, torch.float32, True, 0.0),
     (2, 4, 200, 200, 512, torch.bfloat16, False, 0.0),
     (2, 4, 200, 200, 512, torch.bfloat16, True, 0.1),
-    # b*h = 65,600, past the 65,535 that gridDim.y allows
+    # the wide bf16 wgmma forward and dq (d compiled in at 192, 256, 320,
+    # 384, 448 and 512; 128-row CTAs up to d 320, 64 rows with d split
+    # between two warpgroups above; forward key tiles of 64 up to d 256,
+    # 32 above; dq 64 / 32 / 16 keys at 192 / 256, 384 / 320, 448, 512):
+    # 384 and 448 in both types, causal and not, with and without dropout;
+    # d 320 unpadded at sq != sk; NMT's attention (NMTConfig: hidden 512,
+    # one head) at a 128-token sentence, and ragged cross-attention at d
+    # 512 both ways
+    (2, 4, 200, 200, 384, torch.float32, False, 0.1),
+    (2, 4, 200, 200, 384, torch.float32, True, 0.0),
+    (2, 4, 200, 200, 384, torch.bfloat16, False, 0.0),
+    (2, 4, 200, 200, 384, torch.bfloat16, True, 0.1),
+    (2, 4, 200, 200, 448, torch.float32, False, 0.0),
+    (2, 4, 200, 200, 448, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 448, torch.bfloat16, False, 0.1),
+    (2, 4, 200, 200, 448, torch.bfloat16, True, 0.0),
+    (2, 4, 96, 200, 320, torch.bfloat16, False, 0.1),
+    (64, 1, 128, 128, 512, torch.bfloat16, False, 0.0),
+    (16, 1, 100, 37, 512, torch.bfloat16, False, 0.0),
+    (16, 1, 37, 100, 512, torch.bfloat16, False, 0.1),
+    # bf16 above d 512 keeps the wide FMA forward and dq (d at run time)
+    (2, 4, 200, 200, 576, torch.bfloat16, True, 0.1),
+    (2, 4, 200, 200, 576, torch.bfloat16, False, 0.0),
+    # b*h = 65,600, past the 65,535 that gridDim.y allows (at d 256, 2.1
+    # GB per tensor)
     (1640, 40, 64, 64, 64, torch.bfloat16, False, 0.0),
     (1640, 40, 64, 64, 64, torch.bfloat16, True, 0.0),
+    (1640, 40, 64, 64, 256, torch.bfloat16, False, 0.0),
 ]
 
 
@@ -722,10 +749,34 @@ def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sdpa_backend(q, k, v, rate: float = 0.0, causal: bool = False) -> str:
+    """The backend that F.scaled_dot_product_attention picks for these
+    inputs (torch's own dispatch rule)."""
+    from torch.nn.attention import SDPBackend
+    choice = int(torch._fused_sdp_choice(q, k, v, dropout_p=rate,
+                                         is_causal=causal))
+    names = {int(b.value): n for n, b in SDPBackend.__members__.items()}
+    return names.get(choice, str(choice))
+
+
+def sdpa_efficient_bwd_ms(q, k, v, do, rate: float, causal: bool) -> float:
+    """Device time of the backward of F.scaled_dot_product_attention's
+    EFFICIENT_ATTENTION backend (dq, dk, dv in one call; what SDPA picks
+    on the H100 where its flash backend refuses the head dim), by its
+    aten op on the forward op's outputs."""
+    out, lse, seed, offset = torch.ops.aten \
+        ._scaled_dot_product_efficient_attention(q, k, v, None, True, rate,
+                                                 causal)
+    bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    return cuda_time_ms(lambda: bwd(do, q, k, v, None, out, lse, seed, offset,
+                                    rate, [True, True, True, False], causal))
+
+
 def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               h: int = 12, d: int = 64) -> dict:
-    """The forward kernel, its plain version and SDPA (its flash backend,
-    with the same dropout rate and mask) at b h s d bf16."""
+    """The forward kernel, its plain version and SDPA (with the same
+    dropout rate and mask, on the backend it picks, which is named) at b h
+    s d bf16."""
     import torch.nn.functional as F
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
@@ -740,14 +791,17 @@ def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
             "library_ms": cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, dropout_p=rate, is_causal=causal)),
+            "library_backend": sdpa_backend(q, k, v, rate, causal),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               h: int = 12, d: int = 64) -> dict:
     """dq and dk/dv kernels, their plain versions and the backward of
-    torch's flash SDPA (dq, dk, dv in one call, at the same dropout rate
-    and mask) at b h s d bf16."""
+    torch's SDPA (dq, dk, dv in one call, at the same dropout rate and
+    mask) at b h s d bf16: its flash backend's backward op where that
+    takes the shape, else its efficient backend's (named in
+    ``sdpa_bwd_backend``)."""
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -776,10 +830,14 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
             ._scaled_dot_product_flash_attention_backward(
                 do, q, k, v, out, lse_lib, cq, ck, mq, mk, rate, causal,
                 seed, offset))
+        res["sdpa_bwd_backend"] = "FLASH_ATTENTION"
     except RuntimeError as e:   # the flash backend refuses the shape
+        res["sdpa_bwd_ms"] = sdpa_efficient_bwd_ms(q, k, v, do, rate, causal)
+        res["sdpa_bwd_backend"] = "EFFICIENT_ATTENTION"
         print(f"[ktimes] sdpa flash backward refuses b{b} h{h} s{seq} d{d}: "
-              f"{str(e).splitlines()[0][:120]}")
-        res["sdpa_bwd_ms"] = None
+              f"{str(e).splitlines()[0][:120]}; timed the EFFICIENT_ATTENTION "
+              f"backward instead (SDPA picks "
+              f"{sdpa_backend(q, k, v, rate, causal)} here)")
     res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False, causal)
     res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True, causal)
     return res
@@ -857,6 +915,10 @@ KT_SHAPES = [
     ("bwd_d320", "bwd", 4, 8, 512, 320, False, "the wide kernels"),
     ("fwd_d512", "fwd", 4, 8, 512, 512, False, "the wide kernel"),
     ("bwd_d512", "bwd", 4, 8, 512, 512, False, "the wide kernels"),
+    ("fwd_nmt", "fwd", 64, 1, 128, 512, False,
+     "NMT's attention: NMTConfig's hidden 512 in one head, a 128-token "
+     "sentence"),
+    ("bwd_nmt", "bwd", 64, 1, 128, 512, False, "NMT's attention"),
 ]
 
 
@@ -865,7 +927,7 @@ def phase_ktimes(smi: str) -> dict:
     yardstick and its bound: the flash kernels at s 128 and 512, without
     dropout and at 0.1, causal at GPT-2's prefill, at KT_SHAPES (LLaMA's
     and Mixtral's head dim 128, the causal backward, head dims 256, 320
-    and 512), and Adam over BERT-base."""
+    and 512, NMT's b64 h1 s128 d512), and Adam over BERT-base."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {"fwd": {}, "bwd": {}}
     for rate in (0.0, 0.1):
@@ -906,7 +968,8 @@ def phase_ktimes(smi: str) -> dict:
             f = res[key] = fwd_times(seq, 0.0, gen, causal, b, hh, d)
             print(f"[ktimes] flash_attention_fwd {shape} ({what}): kernel "
                   f"{f['ms'] * 1e3:.2f} us, plain {f['plain_ms'] * 1e3:.2f} "
-                  f"us, sdpa {f['library_ms'] * 1e3:.2f} us, bound "
+                  f"us, sdpa ({f['library_backend']}) "
+                  f"{f['library_ms'] * 1e3:.2f} us, bound "
                   f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); "
                   f"kernel/sdpa {f['ms'] / f['library_ms']:.2f}, "
                   f"kernel/bound {f['ms'] / f['bound_ms']:.2f}; {smi}")
@@ -921,10 +984,9 @@ def phase_ktimes(smi: str) -> dict:
                   f"{t[k_ + '_plain_ms'] * 1e3:.2f} us, bound "
                   f"{bound * 1e3:.2f} us ({by}); kernel/bound "
                   f"{t[k_ + '_ms'] / bound:.2f}; {smi}")
-        print(f"[ktimes] sdpa flash backward (dq, dk, dv in one call) "
-              f"{shape}: "
-              + (f"{lib * 1e3:.2f} us" if lib is not None else "refused")
-              + f" vs dq + dk/dv {(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
+        print(f"[ktimes] sdpa backward ({t['sdpa_bwd_backend']}; dq, dk, "
+              f"dv in one call) {shape}: {lib * 1e3:.2f} us vs dq + dk/dv "
+              f"{(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
     h = res["host"] = launch_host_us()
     print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
           f"bf16, each encoding four TMA tensor maps: flash_attention_fwd "
@@ -938,9 +1000,14 @@ def phase_ktimes(smi: str) -> dict:
     return res
 
 
-# the A/B's shapes: (kernel, b, h, s, d, causal)
-AB_SHAPES = [("fwd", 8, 12, 128, 64, False), ("fwd", 8, 12, 512, 64, False),
-             ("fwd", 8, 12, GPT_SEQ, 64, True)] + [s[1:7] for s in KT_SHAPES]
+# the A/B's shapes: (kernel, b, h, s, d, causal, dtype); f32 above d 128
+# runs the wide FMA forward
+AB_SHAPES = [(*s, torch.bfloat16) for s in
+             [("fwd", 8, 12, 128, 64, False), ("fwd", 8, 12, 512, 64, False),
+              ("fwd", 8, 12, GPT_SEQ, 64, True)]
+             + [s[1:7] for s in KT_SHAPES]] + [
+    ("fwd", 4, 8, 512, 192, False, torch.float32),
+    ("fwd", 4, 8, 512, 256, False, torch.float32)]
 
 
 def ab_build(trees: dict) -> dict:
@@ -968,7 +1035,7 @@ def ab_build(trees: dict) -> dict:
 def phase_ab(base: str, smi: str) -> None:
     """The flash kernels of the checkout at ``base`` (for example the
     parent commit, unpacked with ``git archive`` into the git-ignored
-    build/) and of this one, each at AB_SHAPES on the same seeded bf16
+    build/) and of this one, each at AB_SHAPES on the same seeded
     inputs, timed by cuda_time_ms in the order base, change, change,
     base: how a kernel change is compared within one call. A shape the
     base refuses is skipped. Prints a line per kernel and shape, then a
@@ -981,14 +1048,15 @@ def phase_ab(base: str, smi: str) -> None:
     print(f"[ab] built both trees in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for kind, b, h, s, d, causal in AB_SHAPES:
-        shape = f"b{b} h{h} s{s} d{d} bf16{' causal' if causal else ''}"
-        q, k, v, do = (torch.randn(b, h, s, d, device="cuda",
-                                   dtype=torch.bfloat16, generator=gen)
-                       for _ in range(4))
+    for kind, b, h, s, d, causal, dt in AB_SHAPES:
+        shape = (f"b{b} h{h} s{s} d{d} {str(dt)[6:]}"
+                 f"{' causal' if causal else ''}")
+        q, k, v, do = (torch.randn(b, h, s, d, device="cuda", dtype=dt,
+                                   generator=gen) for _ in range(4))
         o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
         lse, delta = (torch.empty(b, h, s, device="cuda") for _ in range(2))
-        tail = (b * h, s, s, d, 1, int(causal), d ** -0.5, 0, 0, 1.0, 0)
+        tail = (b * h, s, s, d, int(dt == torch.bfloat16), int(causal),
+                d ** -0.5, 0, 0, 1.0, 0)
 
         def launch(tag, src, sym, ts):
             fn = getattr(libs[tag][src], sym)
@@ -1847,8 +1915,8 @@ def phase_moe() -> dict:
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
-    256, 320 and 512, and the LLaMA, Mixtral and MoE launches beside
-    them."""
+    256, 320 and 512, NMT's attention, and the LLaMA, Mixtral and MoE
+    launches beside them."""
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
 
@@ -1860,7 +1928,8 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
                 "bound_ms": t[key + "_bound"][0],
                 "bound_by": t[key + "_bound"][1],
                 # one call computes dq, dk and dv together
-                "library_ms": t["sdpa_bwd_ms"]}
+                "library_ms": t["sdpa_bwd_ms"],
+                "library_backend": t["sdpa_bwd_backend"]}
 
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1893,7 +1962,11 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
         "b8_h12_s512_d128": dict(kt["fwd_d128"]),
         "b4_h8_s512_d256": dict(kt["fwd_d256"]),
         "b4_h8_s512_d320": dict(kt["fwd_d320"]),
-        "b4_h8_s512_d512": dict(kt["fwd_d512"])}]
+        "b4_h8_s512_d512": dict(kt["fwd_d512"]),
+        # NMT's attention (NMTConfig: hidden 512, one head) at a 128-token
+        # sentence; bf16 at d 192 ... 512 runs the wide wgmma kernel
+        "nmt_b64_h1_s128_d512": dict(kt["fwd_nmt"]),
+        "wide_bf16_kernel": "flash_fwd_wgmma_wide_kernel (d 192-512)"}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -1914,7 +1987,12 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
                 key, kt["bwd_d128_causal"]),
             "b4_h8_s512_d256": bwd_row_t(key, kt["bwd_d256"]),
             "b4_h8_s512_d320": bwd_row_t(key, kt["bwd_d320"]),
-            "b4_h8_s512_d512": bwd_row_t(key, kt["bwd_d512"])})
+            "b4_h8_s512_d512": bwd_row_t(key, kt["bwd_d512"]),
+            "nmt_b64_h1_s128_d512": bwd_row_t(key, kt["bwd_nmt"]),
+            "wide_bf16_kernel": ("flash_bwd_dq_wgmma_wide_kernel (d 192-512)"
+                                 if key == "dq" else
+                                 "flash_bwd_dkv_wide_kernel (FMA, any d above "
+                                 "128)")})
     a = kt["adam"]
     rows.append({
         "name": "adam_update", "route": "cuda",

@@ -78,10 +78,20 @@
 //   exact FMA path (64-row tiles, four warps, synchronous tile loads),
 //   because the tensor cores would round f32 to TF32.
 //
-//   dq and dk/dv at d above 128 (any multiple of 64), either type - the
-//   wide FMA kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel):
-//   one 64-column chunk of the outputs per CTA (their header says why), d
-//   a runtime argument.
+//   dq, bf16 at d = 192 ... 512 (every multiple of 64; the wrapper pads
+//   any d from 129 up) - flash_bwd_dq_wgmma_wide_kernel: the wide
+//   forward's design, a CTA of two warpgroups owning a block of query
+//   rows and all D columns of dq: up to d = 320 128 rows, 64 a
+//   warpgroup; above, 64 rows with D split between the warpgroups (the
+//   partial S and dP tiles summed through shared memory). Its header says
+//   why.
+//
+//   dk/dv of either type above d = 128, dq in f32 above 128 and in bf16
+//   above 512 (no model has it) - the wide FMA kernels
+//   (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one 64-column
+//   chunk of the outputs per CTA (their header says why), d a runtime
+//   argument. f32 stays on FMA because the tensor cores would round it to
+//   TF32, as at d <= 128.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit. Causal dq whose heads' K/V all fit in L2 takes the
@@ -347,7 +357,8 @@ cudaError_t launch_dkv(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128, f32 and bf16: the wide FMA kernels
+// head dims above 128: the wide FMA kernels (dk/dv in f32 and bf16, dq in
+// f32 and in bf16 above 512)
 // ---------------------------------------------------------------------------
 // As the wide forward: a CTA owns one 64-column chunk of its output rows
 // (dq; or dk and dv), so its accumulators are the d = 64 kernels'
@@ -1004,13 +1015,321 @@ cudaError_t launch_dq_wgmma(const Args& a) {
                        : launch_dq_wgmma_t<D, false>(a);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dq at d = 192 ... 512: wgmma with two warpgroups per CTA
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel _bwd_dq_kernel (flexflow_tpu/kernels/
+// flash_attention.py:169) at head dims above 128 in bf16. Bound at b4 h8
+// s512: 6 * s^2 * d flops per head, 12.9 GFLOP at d = 256 (13.03 us at 989
+// TFLOP/s) against 42.2 MB of q, k, v, do, lse, delta and dq (12.6 us at
+// 3.35 TB/s); 25.8 GFLOP at d = 512 (26.06 us) against 84.0 MB (25.1 us).
+// So the tensor cores set the bound, with the bytes close behind.
+//
+// Design. The wide forward's (flash_attention_fwd.cu,
+// flash_fwd_wgmma_wide_kernel): a CTA of two warpgroups owns a block of
+// query rows of one b*h and all D columns of dq, so each score tile is
+// computed once, and the block is as tall as the registers allow, since
+// every query block reads all of K and V from L2:
+//   - d <= 320: 128 rows, each warpgroup owning 64 of them and all D
+//     columns (D / 2 accumulator registers a thread). S = Q . K^T and
+//     dP = dO . V^T are wgmma with both operands K-major in shared memory
+//     in two commit groups (dP issued once V lands), so the exponentials
+//     of S run while dP is on the tensor cores, as at d <= 128;
+//   - d > 320: the two warpgroups split D over 64 rows (WideSplit). Each
+//     contracts its half of D's 16-deep steps of S and dP into partial
+//     tiles, the partials are summed through shared memory, and each
+//     builds p and dS on the whole tile (the exponentials twice, the
+//     products once).
+// dS, rounded to bf16 as the reference casts it, is the register A
+// operand of dQ[:, own blocks] += dS . K[:, own blocks], K read MN-major
+// from the staged tile. Q and dO stay resident; K and V tiles stream by
+// TMA through the two-stage mbarrier ring of the d <= 128 kernel. The key
+// tile is the widest of 64, 32 and 16 keys whose ring fits beside Q and
+// dO (and the exchange buffers) in 227 KB: 64 at d = 192, 32 at 256 and
+// 384, 16 at 320, 448 and 512. lse and delta are per query row, two
+// registers per thread; the mask and the dropout bits are the d <= 128
+// kernel's. One CTA per SM.
+
+// dq's tiles: WideSplit's rows and D split, with Q and dO resident and
+// key tiles of the widest of 64, 32 and 16 whose ring fits beside them.
+template <int D>
+struct DqWideTiles : WideSplit<D> {
+  using Sp = WideSplit<D>;
+  static constexpr int BN = Sp::smem(2, 64) <= SMEM_LIMIT   ? 64
+                            : Sp::smem(2, 32) <= SMEM_LIMIT ? 32
+                                                            : 16;
+  static constexpr int NB = BN / 8;  // 8-column blocks of a score tile
+  static constexpr int Q_BYTES = Sp::BM * D * 2;  // the Q tile, or dO's
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr size_t SMEM = Sp::smem(2, BN);
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+};
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(WideSplit<D>::THREADS, 1)
+    flash_bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_do,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   __nv_bfloat16* __restrict__ dq, int sq,
+                                   int sk, float sm_scale, int causal,
+                                   uint32_t threshold, float keep_prob,
+                                   uint32_t seed) {
+  using Tl = DqWideTiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t sQ = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sDO = sQ + Tl::Q_BYTES;
+  const uint32_t sKs = sDO + Tl::Q_BYTES;       // K ring
+  const uint32_t sVs = sKs + 2 * Tl::KV_BYTES;  // V ring
+  // the partial S tiles of both warpgroups, then the partial dP tiles
+  float4* xs = reinterpret_cast<float4*>(smem + (sVs + 2 * Tl::KV_BYTES -
+                                                 base));
+  float4* xdp = xs + Tl::NWG * NB * WG_THREADS;
+  // per stage: the K tile (and, first, Q and dO) landed; the V tile landed
+  __shared__ __align__(8) uint64_t k_full[2], v_full[2];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int r0 = Tl::row0(wg);            // this warpgroup's rows
+  const int row_w = m0 + r0 + warp * 16;  // this warp's first query row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  // this warpgroup's 16-deep steps of S and dP, and its 64-column blocks
+  // of dq
+  const int kc0 = Tl::kstep0(wg);
+  const int b0 = Tl::first_block(wg);
+  const int nblk = Tl::blocks(wg);
+  // lse (in base 2) and delta of this thread's two rows, 0 past sq
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = qpos[r] < sq;
+    lse2[r] = ok ? lse[(size_t)bh * sq + qpos[r]] * LOG2E : 0.f;
+    dlt[r] = ok ? delta[(size_t)bh * sq + qpos[r]] : 0.f;
+  }
+
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a K tile is live iff its first key is visible to the
+               // CTA's last query (the reference's rule)
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+
+  auto k_stage = [&](int t) { return sKs + (t & 1) * Tl::KV_BYTES; };
+  auto v_stage = [&](int t) { return sVs + (t & 1) * Tl::KV_BYTES; };
+  auto k_bar = [&](int t) { return smem_u32(&k_full[t & 1]); };
+  auto v_bar = [&](int t) { return smem_u32(&v_full[t & 1]); };
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_kv = [&](int t, int extra_bytes) {  // by thread 0
+    mbar_expect_tx(k_bar(t), Tl::KV_BYTES + extra_bytes);
+    tma_load_tile<BN, D>(k_stage(t), map_k, k_bar(t), t * BN, bh);
+    mbar_expect_tx(v_bar(t), Tl::KV_BYTES);
+    tma_load_tile<BN, D>(v_stage(t), map_v, v_bar(t), t * BN, bh);
+  };
+
+  // the ring: Q and dO with K/V tile 0 (their bytes join K tile 0's one
+  // arrival); then each iteration starts the copy of K/V tile t + 1
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(k_bar(st), 1);
+      mbar_init(v_bar(st), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_kv(0, 2 * Tl::Q_BYTES);
+    tma_load_tile<BM, D>(sQ, &tm_q, k_bar(0), m0, bh);
+    tma_load_tile<BM, D>(sDO, &tm_do, k_bar(0), m0, bh);
+  }
+
+  float acc[Tl::MAX_BLOCKS * 8][4];  // this warpgroup's part of dq
+#pragma unroll
+  for (int dt = 0; dt < Tl::MAX_BLOCKS * 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(k_bar(t), (t >> 1) & 1);  // K tile t (and Q, dO) have landed
+    __syncthreads();  // every warp is done with the stage the next copy
+                      // overwrites, and with the other warpgroup's partials
+    const int n0 = t * BN;
+    const uint32_t sK = k_stage(t), sV = v_stage(t);
+
+    // this warpgroup's S, then, once V lands, its dP (partial, over its
+    // half of D, when the warpgroups split D)
+    float s[NB][4], dp[NB][4];
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < Tl::KSTEPS; ++i) {
+      const int kc = kc0 + i;
+      const uint32_t a = sQ + (kc >> 2) * (BM * SW_ROW) + r0 * SW_ROW +
+                         (kc & 3) * 32;
+      const uint32_t b = sK + (kc >> 2) * (BN * SW_ROW) + (kc & 3) * 32;
+      wgmma_ss_kk<NB>(s, desc_sw128(a, 16), desc_sw128(b, 16), i > 0);
+    }
+    wgmma_commit();
+    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1, 0);  // while S runs
+    mbar_wait(v_bar(t), (t >> 1) & 1);  // V tile t has landed
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < Tl::KSTEPS; ++i) {
+      const int kc = kc0 + i;
+      const uint32_t a = sDO + (kc >> 2) * (BM * SW_ROW) + r0 * SW_ROW +
+                         (kc & 3) * 32;
+      const uint32_t b = sV + (kc >> 2) * (BN * SW_ROW) + (kc & 3) * 32;
+      wgmma_ss_kk<NB>(dp, desc_sw128(a, 16), desc_sw128(b, 16), i > 0);
+    }
+    wgmma_commit();
+    const uint32_t keep =  // the dropout mask, hashed while the products run
+        DROPOUT ? keep_bits<NB>(n0, qpos, tig, bh, seed, threshold) : 0u;
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
+    if (Tl::ROW_SPLIT) {  // S is done once at most dP is in flight
+      wgmma_wait<1>();
+      fence_acc(s);
+    } else {  // S and dP = the sums of the two warpgroups' partials
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      exchange_store(xs, wg, wtid, s);
+      exchange_store(xdp, wg, wtid, dp);
+      __syncthreads();
+      exchange_add(xs, wg, wtid, s);
+      exchange_add(xdp, wg, wtid, dp);
+    }
+
+    // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked
+    // (split rows: while dP is on the tensor cores)
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        float p = exp2_approx(fmaf(s[nt][c], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kpos = n0 + nt * 8 + tig * 2 + (c & 1);
+          if (!(kpos < sk && (!causal || kpos <= qpos[r]))) p = 0.f;
+        }
+        s[nt][c] = p;
+      }
+    }
+    if (Tl::ROW_SPLIT) {
+      wgmma_wait<0>();
+      fence_acc(dp);
+    }
+    // ds = p * (dp_eff - delta) * sm_scale
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float dpv = dp[nt][c];
+        if (DROPOUT) dpv = (keep >> (4 * nt + c)) & 1u ? dpv * inv_keep : 0.f;
+        dp[nt][c] = s[nt][c] * (dpv - dlt[c >> 1]) * sm_scale;
+      }
+    }
+
+    // dQ[:, own blocks] += dS . K[:, own blocks]: dS rounded to bf16 in
+    // registers, K read MN-major from the staged tile
+    uint32_t da[NB / 2][4];
+    to_a_frags(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < Tl::MAX_BLOCKS; ++h) {
+      if (h < nblk) {
+#pragma unroll
+        for (int kc = 0; kc < NB / 2; ++kc) {
+          const uint32_t b = sK + (b0 + h) * (BN * SW_ROW) + kc * 2 * SW_ATOM;
+          wgmma_rs_m64n64k16<1>(acc_block(acc, h), da[kc],
+                                desc_sw128(b, BN * SW_ROW), 1);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs_u32(da);
+#pragma unroll
+    for (int h = 0; h < Tl::MAX_BLOCKS; ++h) fence_regs(acc_block(acc, h));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= sq) continue;
+    __nv_bfloat16* out =
+        dq + ((size_t)bh * sq + qpos[r]) * D + b0 * 64 + tig * 2;
+#pragma unroll
+    for (int h = 0; h < Tl::MAX_BLOCKS; ++h) {
+      if (h < nblk) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int dt = h * 8 + j;
+          store2(out + dt * 8, acc[dt][2 * r], acc[dt][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_dq_wgmma_wide_t(const Args& a) {
+  using Tl = DqWideTiles<D>;
+  auto kernel = flash_bwd_dq_wgmma_wide_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if ((err = tensor_map_bf16(&tm_q, a.q, a.bh, a.sq, D, Tl::BM)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_do, a.dout, a.bh, a.sq, D, Tl::BM)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_k, a.k, a.bh, a.sk, D, Tl::BN)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_v, a.v, a.bh, a.sk, D, Tl::BN)) !=
+          cudaSuccess)
+    return err;
+  dim3 grid;
+  if (!launch_grid((a.sq + Tl::BM - 1) / Tl::BM, a.bh, 1, a.causal,
+                   2LL * a.sk * D * sizeof(__nv_bfloat16), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, WideSplit<D>::THREADS, Tl::SMEM, a.stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.out0), a.sq, a.sk, a.sm_scale, a.causal,
+      a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma_wide(const Args& a) {
+  return a.use_dropout ? launch_dq_wgmma_wide_t<D, true>(a)
+                       : launch_dq_wgmma_wide_t<D, false>(a);
+}
+
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0)
     return (int)cudaErrorInvalidValue;
-  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; either type
-  // above d = 128 the wide FMA kernels
+  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; bf16 dq at d
+  // = 192 ... 512 the wide wgmma kernel (d compiled in); dk/dv of either
+  // type above d = 128, f32 dq above 128 and bf16 dq above 512 the wide
+  // FMA kernels (d a runtime argument)
   using bf16 = __nv_bfloat16;
-  if (head_dim > 128 && head_dim % TILE == 0) {  // d a runtime argument
+  if (!dkv && dtype == 1) switch (head_dim) {
+      case 192: return (int)launch_dq_wgmma_wide<192>(a);
+      case 256: return (int)launch_dq_wgmma_wide<256>(a);
+      case 320: return (int)launch_dq_wgmma_wide<320>(a);
+      case 384: return (int)launch_dq_wgmma_wide<384>(a);
+      case 448: return (int)launch_dq_wgmma_wide<448>(a);
+      case 512: return (int)launch_dq_wgmma_wide<512>(a);
+      default: break;
+    }
+  if (head_dim > 128 && head_dim % TILE == 0) {
     if (dkv && dtype == 0) return (int)launch_dkv_wide<float>(a, head_dim);
     if (dkv && dtype == 1) return (int)launch_dkv_wide<bf16>(a, head_dim);
     if (dtype == 0) return (int)launch_dq_wide<float>(a, head_dim);

@@ -44,9 +44,18 @@
 //   warps, plain FMA loops, because the tensor cores would round f32
 //   operands to TF32.
 //
-//   d above 128 (any multiple of 64), either type - flash_fwd_wide_kernel
-//   below: the FMA path with one 64-column chunk of o per CTA (its header
-//   says why), d compiled in at 192 and 256 and a runtime argument above.
+//   bf16 at d = 192 ... 512 (every multiple of 64; the wrapper pads any d
+//   from 129 up) - flash_fwd_wgmma_wide_kernel below, built from the same
+//   parts: a CTA of two warpgroups owns a block of query rows and all D
+//   columns of o: up to d = 320 128 rows, 64 a warpgroup; above, 64 rows
+//   with D split between the warpgroups (each contracting half of D for S,
+//   the two partial score tiles summed through shared memory, and owning
+//   half of o's columns for P.V). Its header says why.
+//
+//   f32 above d = 128, and bf16 above 512 (no model has it) -
+//   flash_fwd_wide_kernel below: the FMA path with one 64-column chunk of
+//   o per CTA (its header says why), d a runtime argument. f32 stays on
+//   FMA because the tensor cores would round it to TF32, as at d <= 128.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit; causal launches whose heads' K/V all fit in L2 take
@@ -84,20 +93,20 @@ struct FwdTiles {
 };
 
 // One tile of the online softmax for one 64-row block. s holds the raw
-// scores of this thread's fragment of keys [n0, n0 + 64); on return it
+// scores of this thread's fragment of keys [n0, n0 + 8 * NB); on return it
 // holds p_eff, m_i and l_i are updated and alpha is the factor that
 // rescales the accumulator. m_i is kept in base-2 units (scores times
 // sm_scale * log2(e)).
-template <bool DROPOUT>
+template <bool DROPOUT, int NB>
 __device__ __forceinline__ void online_softmax(
-    float (&s)[8][4], float (&m_i)[2], float (&l_i)[2], float (&alpha)[2],
+    float (&s)[NB][4], float (&m_i)[2], float (&l_i)[2], float (&alpha)[2],
     int n0, bool edge, const int (&qpos)[2], int tig, int sk, int causal,
     float scale_log2, uint32_t keep, float inv_keep) {
   float mx[2] = {m_i[0], m_i[1]};
   if (edge) {  // scale, mask and take the max in base-2 units
     const float neg_inf2 = NEG_INF * LOG2E;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < NB; ++nt) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kpos = n0 + nt * 8 + tig * 2 + (c & 1);
@@ -111,7 +120,7 @@ __device__ __forceinline__ void online_softmax(
             // the scale folds into the exponent's FMA below
     float ex[2] = {s[0][0], s[0][2]};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < NB; ++nt) {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         ex[c >> 1] = scale_log2 >= 0.f ? fmaxf(ex[c >> 1], s[nt][c])
@@ -131,7 +140,7 @@ __device__ __forceinline__ void online_softmax(
   const float mul = edge ? 1.f : scale_log2;
   float rowsum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NB; ++nt) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int r = c >> 1;
@@ -382,6 +391,328 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at d = 192 ... 512: wgmma with two warpgroups per CTA
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel _fwd_kernel (flexflow_tpu/kernels/
+// flash_attention.py:110) at head dims above 128 in bf16, as the d <= 128
+// kernel above does below. Bound at b4 h8 s512: q, k, v read and o written
+// once, 33.6 MB at d = 256 (10.04 us at 3.35 TB/s) against 8.6 GFLOP
+// (8.69 us at 989 TFLOP/s); 67.1 MB at d = 512 (20.05 us) against 17.2
+// GFLOP (17.37 us). Both sides are close, so the kernel has to keep the
+// tensor cores busy and read every byte once.
+//
+// Design. A CTA of two warpgroups owns a block of query rows and ALL D
+// columns of its output, so every score of a (query block, key tile) pair,
+// its exponential and its softmax bookkeeping are computed once (the wide
+// FMA kernel computes them D / 64 times). Measured, 64-row blocks were
+// bound by moving K and V from L2 into shared memory once per block (at
+// d = 256, 151 MB per call at ~4.4 TB/s; 128-row blocks took it from 34.3
+// to 21.1 us, PERF.md sec. 6), not by the tensor cores, so the query
+// block is as tall as the registers allow:
+//   - d <= 320: 128 rows, each warpgroup owning 64 of them and all D
+//     columns (a 64 x D f32 accumulator, up to 160 registers a thread),
+//     as the d <= 128 kernel does for 64 rows;
+//   - d > 320: the 64 x D accumulator would take D / 2 registers a
+//     thread in one warpgroup (256 at D = 512, past the 255 limit), so
+//     the two warpgroups split D over one block of 64 rows (WideSplit):
+//     each contracts its half of D's 16-deep steps of S = Q . K^T into a
+//     partial score tile, the two partials are summed through shared
+//     memory (exchange_store / exchange_add), each runs the softmax on
+//     the whole tile (the same sums in both, so the same m, l and p: the
+//     exponentials are computed twice, the tensor products once), and
+//     each multiplies P into its own 64-column blocks of o.
+// S is wgmma with both operands K-major in shared memory; P, rounded to
+// bf16 in registers, is the A operand of O += P.V with V read MN-major
+// through the descriptor's transpose bit; mask, dropout bits and softmax
+// are the d <= 128 kernel's. A warpgroup issues the next tile's S before
+// it runs this tile's softmax and P.V, so the tensor cores work on
+// S(t + 1) while the exponentials of tile t run, and one CTA barrier per
+// tile orders the rest. K and V tiles come by TMA into the 128-byte
+// swizzle through two-stage mbarrier rings, K released once its S is
+// done and V once its P.V is, so every copy is in flight for at least
+// one tile's work; Q stays resident. The key tile is 64 keys where two
+// stages of K and V fit beside Q (and the exchange buffers) in 227 KB, 32
+// otherwise. One CTA per SM (256 threads with up to ~250 registers).
+
+// The wide forward's tiles: WideSplit's rows and D split, with Q resident
+// and key tiles of 64 where two stages of K and V fit beside it, else 32.
+template <int D>
+struct FwdWideTiles : WideSplit<D> {
+  using Sp = WideSplit<D>;
+  static constexpr int BN = Sp::smem(1, 64) <= SMEM_LIMIT ? 64 : 32;
+  static constexpr int NB = BN / 8;  // 8-column blocks of a score tile
+  static constexpr int Q_BYTES = Sp::BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr size_t SMEM = Sp::smem(1, BN);
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+};
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(WideSplit<D>::THREADS, 1)
+    flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_o,
+                                float* __restrict__ lse, int sq, int sk,
+                                float sm_scale, int causal,
+                                uint32_t threshold, float keep_prob,
+                                uint32_t seed) {
+  using Tl = FwdWideTiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t sQ = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sKs = sQ + Tl::Q_BYTES;        // K ring
+  const uint32_t sVs = sKs + 2 * Tl::KV_BYTES;  // V ring
+  float4* xbuf = reinterpret_cast<float4*>(smem + (sVs + 2 * Tl::KV_BYTES -
+                                                   base));
+  // per stage: the K tile (and, first, Q) landed; the V tile landed
+  __shared__ __align__(8) uint64_t k_full[2], v_full[2];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int r0 = Tl::row0(wg);            // this warpgroup's rows
+  const int row_w = m0 + r0 + warp * 16;  // this warp's first row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  // this warpgroup's 16-deep steps of S, and its 64-column blocks of o
+  const int kc0 = Tl::kstep0(wg);
+  const int b0 = Tl::first_block(wg);
+  const int nblk = Tl::blocks(wg);
+
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a tile is live iff its first key is visible to the last row
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+
+  auto k_stage = [&](int t) { return sKs + (t & 1) * Tl::KV_BYTES; };
+  auto v_stage = [&](int t) { return sVs + (t & 1) * Tl::KV_BYTES; };
+  auto k_bar = [&](int t) { return smem_u32(&k_full[t & 1]); };
+  auto v_bar = [&](int t) { return smem_u32(&v_full[t & 1]); };
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_k = [&](int t, int extra_bytes) {  // by thread 0
+    mbar_expect_tx(k_bar(t), Tl::KV_BYTES + extra_bytes);
+    tma_load_tile<BN, D>(k_stage(t), map_k, k_bar(t), t * BN, bh);
+  };
+  auto load_v = [&](int t) {  // by thread 0
+    mbar_expect_tx(v_bar(t), Tl::KV_BYTES);
+    tma_load_tile<BN, D>(v_stage(t), map_v, v_bar(t), t * BN, bh);
+  };
+  // this warpgroup's S of tile t (partial, over its half of D, when the
+  // warpgroups split D), one commit group
+  auto issue_s = [&](int t, float (&s)[NB][4]) {
+    const uint32_t sK = k_stage(t);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < Tl::KSTEPS; ++i) {
+      const int kc = kc0 + i;
+      const uint32_t a = sQ + (kc >> 2) * (BM * SW_ROW) + r0 * SW_ROW +
+                         (kc & 3) * 32;
+      const uint32_t b = sK + (kc >> 2) * (BN * SW_ROW) + (kc & 3) * 32;
+      wgmma_ss_kk<NB>(s, desc_sw128(a, 16), desc_sw128(b, 16), i > 0);
+    }
+    wgmma_commit();
+  };
+  // the exchange buffer of tile t: two, by parity, so a warpgroup stores
+  // tile t + 1's partial while the other may still read tile t's
+  auto xbuf_of = [&](int t) { return xbuf + (t & 1) * (2 * NB * WG_THREADS); };
+
+  // The ring. K and V are released at different times: K tile t once
+  // S(t) is done (the exchange barrier that ends iteration t - 1), V tile
+  // t once P.V(t) is done (the barrier that ends iteration t). So the
+  // barrier that ends iteration t starts the copies of K tile t + 3 and V
+  // tile t + 2, and each K tile is in flight for a whole iteration before
+  // its S is issued. First: Q with K tile 0, V tile 0, K and V tile 1.
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(k_bar(st), 1);
+      mbar_init(v_bar(st), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_k(0, Tl::Q_BYTES);  // Q joins K tile 0's phase
+    tma_load_tile<BM, D>(sQ, &tm_q, k_bar(0), m0, bh);
+    load_v(0);
+    if (n_tiles > 1) {
+      load_k(1, 0);
+      load_v(1);
+    }
+  }
+
+  float acc[Tl::MAX_BLOCKS * 8][4];  // this warpgroup's part of o
+#pragma unroll
+  for (int dt = 0; dt < Tl::MAX_BLOCKS * 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m_i[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // base 2
+  float l_i[2] = {0.f, 0.f};  // this thread's partial row sums
+
+  // S(0) (split D: the sum of the two warpgroups' partials, in both)
+  float s[NB][4];
+  mbar_wait(k_bar(0), 0);  // K tile 0 and Q have landed
+  issue_s(0, s);
+  wgmma_wait<0>();
+  fence_acc(s);
+  if (!Tl::ROW_SPLIT) exchange_store(xbuf_of(0), wg, wtid, s);
+  __syncthreads();
+  if (!Tl::ROW_SPLIT) exchange_add(xbuf_of(0), wg, wtid, s);
+  if (tid == 0 && n_tiles > 2) load_k(2, 0);  // K tile 0 is free
+
+  // Iteration t issues S(t + 1) on the tensor cores, then runs the softmax
+  // of tile t and issues P.V(t) while it runs; the partials of S(t + 1)
+  // are exchanged at its end.
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = t * BN;
+    const bool more = t + 1 < n_tiles;
+    float s_next[NB][4];
+    if (more) {
+      mbar_wait(k_bar(t + 1), ((t + 1) >> 1) & 1);  // K tile t + 1 landed
+      issue_s(t + 1, s_next);
+    }
+    const uint32_t keep =  // the dropout mask of tile t
+        DROPOUT ? keep_bits<NB>(n0, qpos, tig, bh, seed, threshold) : 0u;
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
+    float alpha[2];
+    online_softmax<DROPOUT>(s, m_i, l_i, alpha, n0, edge, qpos, tig, sk,
+                            causal, scale_log2, keep, inv_keep);
+#pragma unroll
+    for (int dt = 0; dt < Tl::MAX_BLOCKS * 8; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+    uint32_t pa[NB / 2][4];
+    to_a_frags(s, pa);  // p_eff rounded to bf16
+
+    // O[:, own blocks] += P . V[:, own blocks]: P in registers, V MN-major
+    const uint32_t sV = v_stage(t);
+    mbar_wait(v_bar(t), (t >> 1) & 1);  // V tile t has landed
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < Tl::MAX_BLOCKS; ++h) {
+      if (h < nblk) {
+#pragma unroll
+        for (int kc = 0; kc < NB / 2; ++kc) {
+          const uint32_t b = sV + (b0 + h) * (BN * SW_ROW) + kc * 2 * SW_ATOM;
+          wgmma_rs_m64n64k16<1>(acc_block(acc, h), pa[kc],
+                                desc_sw128(b, BN * SW_ROW), 1);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // S(t + 1) and P.V(t)
+    fence_regs_u32(pa);
+#pragma unroll
+    for (int h = 0; h < Tl::MAX_BLOCKS; ++h) fence_regs(acc_block(acc, h));
+    if (more) {
+      fence_acc(s_next);
+      if (!Tl::ROW_SPLIT) exchange_store(xbuf_of(t + 1), wg, wtid, s_next);
+    }
+    __syncthreads();  // (split D: both partials of S(t + 1) stored) every
+                      // warpgroup done with K tile t + 1 and V tile t
+    if (more) {
+      if (!Tl::ROW_SPLIT) exchange_add(xbuf_of(t + 1), wg, wtid, s_next);
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[nt][c] = s_next[nt][c];
+    }
+    if (tid == 0) {
+      if (t + 3 < n_tiles) load_k(t + 3, 0);
+      if (t + 2 < n_tiles) load_v(t + 2);
+    }
+  }
+
+  // o = acc / l, each warpgroup's blocks staged in bf16 in Q's tile (no
+  // warpgroup reads Q after the barrier that completes the last S) in the
+  // swizzled layout and stored by one TMA copy, which clips rows past sq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_safe = (l == 0.f) ? 1.f : l;
+    const float inv_l = 1.f / l_safe;
+    const int row = r0 + warp * 16 + g + 8 * r;  // in the tile
+#pragma unroll
+    for (int h = 0; h < Tl::MAX_BLOCKS; ++h) {
+      if (h < nblk) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int dt = h * 8 + j;
+          __nv_bfloat162 v2 = __floats2bfloat162_rn(acc[dt][2 * r] * inv_l,
+                                                    acc[dt][2 * r + 1] * inv_l);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                           sQ + sw128_offset<BM>(row, (b0 + h) * 8 + j) +
+                           tig * 4),
+                       "r"(*reinterpret_cast<uint32_t*>(&v2))
+                       : "memory");
+        }
+      }
+    }
+    if ((Tl::ROW_SPLIT || wg == 0) && tig == 0 && qpos[r] < sq)
+      lse[(size_t)bh * sq + qpos[r]] = m_i[r] * LN2 + logf(l_safe);
+  }
+  fence_proxy_async();  // the staged tile, visible to the TMA store
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_tile<BM, D>(&tm_o, sQ, m0, bh);
+    tma_store_wait();  // the CTA's shared memory outlives the copy
+  }
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_wgmma_wide_t(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int bh, int sq, int sk,
+                                int causal, float sm_scale,
+                                uint32_t threshold, float keep_prob,
+                                uint32_t seed, cudaStream_t stream) {
+  using Tl = FwdWideTiles<D>;
+  auto kernel = flash_fwd_wgmma_wide_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if ((err = tensor_map_bf16(&tm_q, q, bh, sq, D, Tl::BM)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_k, k, bh, sk, D, Tl::BN)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_v, v, bh, sk, D, Tl::BN)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_o, o, bh, sq, D, Tl::BM)) != cudaSuccess)
+    return err;
+  dim3 grid;
+  if (!launch_grid((sq + Tl::BM - 1) / Tl::BM, bh, 1, causal,
+                   2LL * sk * D * sizeof(__nv_bfloat16), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, WideSplit<D>::THREADS, Tl::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), sq, sk, sm_scale,
+      causal, threshold, keep_prob, seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int bh, int sq, int sk,
+                              int causal, float sm_scale, int use_dropout,
+                              uint32_t threshold, float keep_prob,
+                              uint32_t seed, cudaStream_t stream) {
+  return use_dropout
+             ? launch_wgmma_wide_t<D, true>(q, k, v, o, lse, bh, sq, sk,
+                                            causal, sm_scale, threshold,
+                                            keep_prob, seed, stream)
+             : launch_wgmma_wide_t<D, false>(q, k, v, o, lse, bh, sq, sk,
+                                             causal, sm_scale, threshold,
+                                             keep_prob, seed, stream);
+}
+
+// ---------------------------------------------------------------------------
 // f32: the exact FMA path
 // ---------------------------------------------------------------------------
 constexpr int BLOCK_M = TILE;  // query rows per CTA
@@ -527,7 +858,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128, f32 and bf16: the wide FMA kernel
+// head dims above 128, f32 (and bf16 above 512): the wide FMA kernel
 // ---------------------------------------------------------------------------
 // The wgmma kernels hold a (64, D) f32 accumulator in registers: 128 per
 // thread at D = 256, beside S, and a (64 + 2 * 64) x D tile ring. Here a
@@ -537,26 +868,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // score tile S = Q . K^T itself, staging Q and K 64 columns at a time
 // (scores_wide), so every chunk's CTA repeats the same scores, softmax and
 // lse: D / 64 times the score work of one CTA, for a kernel that is plain
-// and right. D enters only as a loop bound and a row stride, so it may be
-// a runtime argument: DC = 0 takes D from d_rt, every multiple of 64 above
-// 128, and the shared memory does not grow with D. At d = 256 that build
-// ran 13% slower than a compile-time D, whose chunk loop the compiler can
-// unroll (dq and dk/dv did not move: PERF.md sec. 6), so d = 192 and 256
-// keep compile-time instantiations (DC = D).
+// and right. D enters only as a loop bound and a row stride, so it is a
+// runtime argument (any multiple of 64 above 128), and the shared memory
+// does not grow with D.
 // bf16 rows are widened to f32 in shared memory, and p is
 // rounded to bf16 before P . V, where the reference casts it. With no
 // minimum of CTAs per SM ptxas held it to 128 registers and spilled; one
 // CTA per SM as the minimum lets it take ~160 with no spill, and it ran
 // faster so (PERF.md sec. 6).
-template <int DC, typename T>
+template <typename T>
 __global__ void __launch_bounds__(NUM_THREADS, 1)
     flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o,
-                          float* __restrict__ lse, int sq, int sk, int d_rt,
+                          float* __restrict__ lse, int sq, int sk, int D,
                           float sm_scale, int causal, int use_dropout,
                           uint32_t threshold, float keep_prob,
                           uint32_t seed) {
-  const int D = DC ? DC : d_rt;
   constexpr int LD = TILE + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);  // Q chunk
@@ -664,13 +991,13 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
   store_chunk(o + (size_t)bh * sq * D, acc, D, col0, m0, sq, warp, g, tig);
 }
 
-template <int DC, typename T>
+template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
                         void* lse, int bh, int sq, int sk, int D, int causal,
                         float sm_scale, int use_dropout, uint32_t threshold,
                         float keep_prob, uint32_t seed, cudaStream_t stream) {
   const size_t smem = (size_t)4 * TILE * (TILE + 4) * sizeof(float);
-  auto kernel = flash_fwd_wide_kernel<DC, T>;
+  auto kernel = flash_fwd_wide_kernel<T>;
   static unsigned long long smem_set = 0;  // per instantiation and device
   cudaError_t err = allow_smem(kernel, smem, &smem_set);
   if (err != cudaSuccess) return err;
@@ -694,9 +1021,10 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 // q: (bh, sq, d), k/v: (bh, sk, d), o: (bh, sq, d), all contiguous in the
 // same type (dtype 0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
 // d is 64, 128 or any multiple of 64 above 128; bh any count whose grid
-// fits gridDim.x. bf16 at d <= 128 launches the wgmma kernel, f32 at d <=
-// 128 the FMA kernel, either type above 128 the wide FMA kernel. Returns
-// a cudaError_t (0 = launched).
+// fits gridDim.x. bf16 at d <= 128 launches the wgmma kernel, bf16 at d =
+// 192 ... 512 the wide wgmma kernel, f32 at d <= 128 the FMA kernel, f32
+// above 128 and bf16 above 512 the wide FMA kernel. Returns a cudaError_t
+// (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
@@ -721,20 +1049,26 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && head_dim == 128) FF_LAUNCH((launch_wgmma<128, 1, 2>));
   if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<64>));
   if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<128>));
+  // bf16 at d = 192 ... 512: the wide wgmma kernel, d compiled in
+  if (dtype == 1) switch (head_dim) {
+      case 192: FF_LAUNCH((launch_wgmma_wide<192>));
+      case 256: FF_LAUNCH((launch_wgmma_wide<256>));
+      case 320: FF_LAUNCH((launch_wgmma_wide<320>));
+      case 384: FF_LAUNCH((launch_wgmma_wide<384>));
+      case 448: FF_LAUNCH((launch_wgmma_wide<448>));
+      case 512: FF_LAUNCH((launch_wgmma_wide<512>));
+      default: break;
+    }
 #undef FF_LAUNCH
-  // either type above d = 128: the wide kernel, d compiled in at 192 and
-  // 256, a runtime argument at any other multiple of 64
-#define FF_LAUNCH_WIDE(DC, T)                                              \
-  return (int)launch_wide<DC, T>(q, k, v, o, lse, bh, sq, sk, head_dim,   \
-                                 causal, sm_scale, use_dropout, threshold, \
-                                 keep_prob, seed, st)
+  // f32 above d = 128, and bf16 above 512: the wide FMA kernel, d a
+  // runtime argument (any multiple of 64)
+#define FF_LAUNCH_WIDE(T)                                                  \
+  return (int)launch_wide<T>(q, k, v, o, lse, bh, sq, sk, head_dim,       \
+                             causal, sm_scale, use_dropout, threshold,     \
+                             keep_prob, seed, st)
   if (head_dim > 128 && head_dim % ff_flash::TILE == 0) {
-    if (dtype == 0 && head_dim == 192) FF_LAUNCH_WIDE(192, float);
-    if (dtype == 0 && head_dim == 256) FF_LAUNCH_WIDE(256, float);
-    if (dtype == 0) FF_LAUNCH_WIDE(0, float);
-    if (dtype == 1 && head_dim == 192) FF_LAUNCH_WIDE(192, __nv_bfloat16);
-    if (dtype == 1 && head_dim == 256) FF_LAUNCH_WIDE(256, __nv_bfloat16);
-    if (dtype == 1) FF_LAUNCH_WIDE(0, __nv_bfloat16);
+    if (dtype == 0) FF_LAUNCH_WIDE(float);
+    if (dtype == 1) FF_LAUNCH_WIDE(__nv_bfloat16);
   }
 #undef FF_LAUNCH_WIDE
   return (int)cudaErrorInvalidValue;

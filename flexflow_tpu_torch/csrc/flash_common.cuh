@@ -48,16 +48,19 @@ __device__ __forceinline__ uint32_t position_hash(uint32_t seed, uint32_t bh,
   return u;
 }
 
-// The dropout keep mask of this thread's 32 scores of a tile of 64 keys
-// [n0, n0 + 64) in the query-row frame of a wgmma accumulator (rows
-// qpos[0] and qpos[1], the thread's columns 8 * nt + 2 * tig + {0, 1}),
-// one bit each: bit 4 * nt + c for column block nt, fragment slot c.
+// The dropout keep mask of this thread's 4 * NB scores of a tile of 8 * NB
+// keys [n0, n0 + 8 * NB) (64 by default) in the query-row frame of a
+// wgmma accumulator (rows qpos[0] and qpos[1], the thread's columns 8 *
+// nt + 2 * tig + {0, 1}), one bit each: bit 4 * nt + c for column block
+// nt, fragment slot c.
+template <int NB = 8>
 __device__ __forceinline__ uint32_t keep_bits(int n0, const int (&qpos)[2],
                                               int tig, int bh, uint32_t seed,
                                               uint32_t threshold) {
+  static_assert(NB <= 8, "32 bits");
   uint32_t bits = 0;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NB; ++nt) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const uint32_t kpos = n0 + nt * 8 + tig * 2 + (c & 1);

@@ -19,9 +19,9 @@
 //     contiguous 128 bytes run along the product's K dimension) or
 //     MN-major (they run along M or N: the transpose bit), so one staged
 //     tile serves as either operand without a transpose in shared memory;
-//   - wgmma.mma_async m64n64k16 and m64n32k16 (bf16 in, f32 accumulate)
-//     with both operands in shared memory, and m64n64k16 with A in
-//     registers. The accumulator
+//   - wgmma.mma_async m64n64k16, m64n32k16 and m64n16k16 (bf16 in, f32
+//     accumulate) with both operands in shared memory, and m64n64k16 with
+//     A in registers. The accumulator
 //     of a warpgroup's 64 x 64 product is the mma.sync m16n8k16 C layout
 //     repeated every 8 columns: warp w owns rows 16w..16w+15, and
 //     d[4j + c] is row g + 8 * (c >> 1), column 8j + 2 * tig + (c & 1)
@@ -31,7 +31,10 @@
 //
 // The forward and dq fill their rings by TMA (K/V tiles, with Q, and dO
 // for dq, resident); dk/dv by cp.async, since it also streams per-row
-// lse and delta vectors.
+// lse and delta vectors. The wide bf16 forward and dq (d 192 ... 512)
+// run two warpgroups per CTA; above d = 320 they split D between them
+// (WideSplit) and sum their partial score tiles through shared memory
+// (exchange_store / exchange_add).
 
 #pragma once
 
@@ -359,6 +362,22 @@ __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// As wgmma_ss_m64n64k16, 16 columns wide.
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FF_D4(0), FF_D4(4)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 #undef FF_D4
 #undef FF_D16
 #undef FF_D16_LIST
@@ -374,13 +393,17 @@ __device__ __forceinline__ float (&acc_block(float (&acc)[NB][4], int h))[32] {
 }
 
 // s (64 x 8NB, f32) = A . B over one 16-deep slice, both operands K-major
-// in shared memory: one m64n32 (NB = 4) or m64n64 (NB = 8) product.
+// in shared memory: one m64n16 (NB = 2), m64n32 (NB = 4) or m64n64 (NB =
+// 8) product.
 template <int NB>
 __device__ __forceinline__ void wgmma_ss_kk(float (&s)[NB][4],
                                             uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
-  static_assert(NB == 4 || NB == 8, "32 or 64 columns");
-  if constexpr (NB == 4)
+  static_assert(NB == 2 || NB == 4 || NB == 8, "16, 32 or 64 columns");
+  if constexpr (NB == 2)
+    wgmma_ss_m64n16k16(*reinterpret_cast<float(*)[8]>(&s[0][0]), desc_a,
+                       desc_b, accumulate);
+  else if constexpr (NB == 4)
     wgmma_ss_m64n32k16(*reinterpret_cast<float(*)[16]>(&s[0][0]), desc_a,
                        desc_b, accumulate);
   else
@@ -416,6 +439,85 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// the wide kernels (bf16, head dims 192 ... 512): two warpgroups per CTA
+// ---------------------------------------------------------------------------
+// Dynamic shared memory a CTA may take on an H100 (227 KB), less room for
+// the kernels' static mbarriers.
+constexpr size_t SMEM_LIMIT = 232448 - 64;
+
+// How the two warpgroups of a wide kernel's CTA share its block of query
+// rows and the D columns (a multiple of 64) of its output, and the shared
+// memory that takes; the forward and dq decide both here:
+//   - D <= 320 (ROW_SPLIT): each warpgroup owns 64 of the CTA's 128 rows
+//     and all D columns (a 64 x D f32 accumulator, D / 2 registers a
+//     thread), so each K/V tile serves 128 rows;
+//   - D > 320, where that accumulator would pass the 255-register limit:
+//     the two share one block of 64 rows and split D. Each contracts half
+//     of D's 16-deep steps of every score product (steps [kstep0(wg),
+//     kstep0(wg) + KSTEPS)) into a partial tile, the two sum their
+//     partials through shared memory (exchange_store / exchange_add), and
+//     each owns whole 64-column blocks of the output, the first warpgroup
+//     the odd one at D / 64 odd: blocks [first_block(wg), first_block(wg)
+//     + blocks(wg)).
+template <int D>
+struct WideSplit {
+  static constexpr int NWG = 2;
+  static constexpr int THREADS = NWG * WG_THREADS;
+  static constexpr bool ROW_SPLIT = D <= 320;
+  static constexpr int BM = ROW_SPLIT ? NWG * WG_ROWS : WG_ROWS;  // rows
+  static constexpr int BLOCKS = D / 64;
+  // a warpgroup's 16-deep steps of a score product, and the most 64-column
+  // blocks of the output it owns
+  static constexpr int KSTEPS = ROW_SPLIT ? D / 16 : D / 16 / NWG;
+  static constexpr int MAX_BLOCKS = ROW_SPLIT ? BLOCKS : (BLOCKS + 1) / 2;
+  static_assert(D % 64 == 0 && BLOCKS >= 2, "a multiple of 64 above 64");
+  __device__ static int row0(int wg) { return ROW_SPLIT ? wg * WG_ROWS : 0; }
+  __device__ static int kstep0(int wg) { return ROW_SPLIT ? 0 : wg * KSTEPS; }
+  __device__ static int first_block(int wg) {
+    return ROW_SPLIT ? 0 : wg * MAX_BLOCKS;
+  }
+  __device__ static int blocks(int wg) {
+    return ROW_SPLIT || wg == 0 ? MAX_BLOCKS : BLOCKS - MAX_BLOCKS;
+  }
+  // Dynamic shared memory at key tiles of bn: `resident` BM x D bf16 tiles
+  // (Q; Q and dO), rings of two stages for K and for V, and, when the two
+  // split D, two exchange buffers of both warpgroups' partial score tiles
+  // (the forward's by tile parity, dq's for S and for dP).
+  static constexpr size_t smem(int resident, int bn) {
+    return SW_ATOM + resident * (size_t)BM * D * 2 + 4 * (size_t)bn * D * 2 +
+           (ROW_SPLIT ? 0 : 2 * NWG * (size_t)WG_ROWS * bn * 4);
+  }
+};
+
+// Add the other warpgroup's partial score tile to this one's. Each thread
+// stores its fragment in its own slots of buf (one float4 per 8-column
+// block, consecutive threads on consecutive 16 bytes, so no bank
+// conflicts); after a CTA barrier (exchange_add) it adds the other
+// warpgroup's values from the same slots. a + b rounds as b + a, so both
+// warpgroups then hold the same sums and run the same softmax.
+template <int NB>
+__device__ __forceinline__ void exchange_store(float4* buf, int wg, int wtid,
+                                               const float (&s)[NB][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NB; ++nt)
+    buf[(wg * NB + nt) * WG_THREADS + wtid] =
+        make_float4(s[nt][0], s[nt][1], s[nt][2], s[nt][3]);
+}
+
+template <int NB>
+__device__ __forceinline__ void exchange_add(const float4* buf, int wg,
+                                             int wtid, float (&s)[NB][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NB; ++nt) {
+    const float4 o = buf[((1 - wg) * NB + nt) * WG_THREADS + wtid];
+    s[nt][0] += o.x;
+    s[nt][1] += o.y;
+    s[nt][2] += o.z;
+    s[nt][3] += o.w;
+  }
 }
 
 }  // namespace ff_hopper

@@ -9,8 +9,9 @@ laid out and what bounds it. ``csrc/flash_common.cuh`` holds what they
 share (the dropout hash and its per-tile keep bits among it) and the f32
 kernels' helpers, ``csrc/hopper_common.cuh`` the Hopper building blocks
 of the three bf16 kernels (the TMA/cp.async tile rings, the swizzled
-layout and its ``wgmma`` descriptors, the ``wgmma`` wrappers); f32
-inputs run exact FMA kernels, chosen by dtype inside each C entry.
+layout and its ``wgmma`` descriptors, the ``wgmma`` wrappers, the head-dim
+split of the wide bf16 forward and dq across two warpgroups); f32 inputs
+run exact FMA kernels, chosen by dtype and head dim inside each C entry.
 
 :func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
 and is differentiable: a ``torch.autograd.Function`` (the counterpart of
@@ -256,7 +257,8 @@ def _dropout_args(dropout_rate: float, seed: int):
 def _kernel_inputs(*ts) -> None:
     """What every kernel takes: cuda tensors of one dtype, contiguous,
     16-byte aligned, head dim a positive multiple of 64 (64 and 128 run
-    the tensor-core or exact kernels, any wider one the wide kernels)."""
+    the tensor-core or exact kernels, any wider one the wide kernels:
+    bf16 at 192 ... 512 the wide tensor-core forward and dq)."""
     t0 = ts[0]
     if t0.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda tensors, not "
@@ -303,9 +305,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     rowsum(do * o)`` (both (b, h, sq) f32). CUDA tensors (head dim 64,
     128 or a multiple of 64 above 128) launch the dq kernel of
     ``csrc/flash_attention_bwd.cu`` (bf16 up to d = 128: the ``wgmma``
-    kernel, which encodes four TMA tensor maps per launch; f32 up to d =
-    128: the exact FMA kernel; above 128: the wide FMA kernel, d a
-    runtime argument) and count one in ``.launches``; CPU
+    kernel, which encodes four TMA tensor maps per launch; bf16 at d =
+    192 ... 512: the wide ``wgmma`` kernel, d compiled in; f32 up to d =
+    128: the exact FMA kernel; f32 above 128 and bf16 above 512: the wide
+    FMA kernel, d a runtime argument) and count one in ``.launches``; CPU
     tensors run
     :func:`flash_attention_bwd_dq_plain` and count one in
     ``.plain_calls``."""
