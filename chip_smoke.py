@@ -352,6 +352,23 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (64, 1, 128, 128, 512, torch.bfloat16, False, 0.0),
     (16, 1, 100, 37, 512, torch.bfloat16, False, 0.0),
     (16, 1, 37, 100, 512, torch.bfloat16, False, 0.1),
+    # the wide bf16 wgmma dk/dv (the same six d; two sweeps over query
+    # tiles of 64 / 32 / 16 / 32 / 16 / 16 rows at 192 / 256 / 320 / 384 /
+    # 448 / 512, 128-key CTAs up to d 320, 64 keys with d split above):
+    # with the cases above, every d causal and not, each with and without
+    # dropout, causal at s ending mid-tile and mid-key-block
+    (2, 4, 200, 200, 192, torch.bfloat16, False, 0.0),
+    (2, 4, 260, 260, 192, torch.bfloat16, True, 0.1),
+    (2, 4, 200, 200, 256, torch.bfloat16, False, 0.1),
+    (2, 4, 260, 260, 256, torch.bfloat16, True, 0.0),
+    (2, 4, 200, 200, 300, torch.bfloat16, False, 0.0),
+    (2, 4, 100, 100, 320, torch.bfloat16, True, 0.1),
+    (2, 4, 200, 200, 384, torch.bfloat16, False, 0.1),
+    (2, 4, 100, 100, 384, torch.bfloat16, True, 0.0),
+    (2, 4, 200, 200, 448, torch.bfloat16, False, 0.0),
+    (2, 4, 200, 200, 448, torch.bfloat16, True, 0.1),
+    (16, 1, 100, 100, 512, torch.bfloat16, True, 0.0),
+    (16, 1, 37, 37, 512, torch.bfloat16, True, 0.1),
     # bf16 above d 512 keeps the wide FMA forward and dq (d at run time)
     (2, 4, 200, 200, 576, torch.bfloat16, True, 0.1),
     (2, 4, 200, 200, 576, torch.bfloat16, False, 0.0),
@@ -1989,10 +2006,8 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
             "b4_h8_s512_d320": bwd_row_t(key, kt["bwd_d320"]),
             "b4_h8_s512_d512": bwd_row_t(key, kt["bwd_d512"]),
             "nmt_b64_h1_s128_d512": bwd_row_t(key, kt["bwd_nmt"]),
-            "wide_bf16_kernel": ("flash_bwd_dq_wgmma_wide_kernel (d 192-512)"
-                                 if key == "dq" else
-                                 "flash_bwd_dkv_wide_kernel (FMA, any d above "
-                                 "128)")})
+            "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
+                                "192-512)"})
     a = kt["adam"]
     rows.append({
         "name": "adam_update", "route": "cuda",

@@ -86,12 +86,22 @@
 //   partial S and dP tiles summed through shared memory). Its header says
 //   why.
 //
-//   dk/dv of either type above d = 128, dq in f32 above 128 and in bf16
-//   above 512 (no model has it) - the wide FMA kernels
-//   (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one 64-column
-//   chunk of the outputs per CTA (their header says why), d a runtime
-//   argument. f32 stays on FMA because the tensor cores would round it to
-//   TF32, as at d <= 128.
+//   dk/dv, bf16 at d = 192 ... 512 - flash_bwd_dkv_wgmma_wide_kernel: a
+//   CTA of two warpgroups owns a block of keys and all D columns of dk and
+//   dv, with K and V resident, and sweeps its query tiles twice (dV, then
+//   dK), so each sweep holds one 64 x D accumulator per warpgroup: up to
+//   d = 320 128 keys, 64 a warpgroup; above, 64 keys with D split between
+//   the warpgroups. s^T is computed in both sweeps (10 * d flops per kept
+//   pair for the function's 8 * d). Its header says why. On an NVIDIA
+//   H100 80GB HBM3 at 700.00 W, b4 h8 s512: 77.26 / 124.29 / 239.06 us
+//   at d = 256 / 320 / 512 (bound 17.37 / 21.71 / 34.74 us), where the
+//   FMA kernel took 2,155.06 / 3,236.92 / 7,739.27 us.
+//
+//   f32 above d = 128, and bf16 above 512 (no model has it) - the wide
+//   FMA kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one
+//   64-column chunk of the outputs per CTA (their header says why), d a
+//   runtime argument. f32 stays on FMA because the tensor cores would
+//   round it to TF32, as at d <= 128.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit. Causal dq whose heads' K/V all fit in L2 takes the
@@ -357,8 +367,7 @@ cudaError_t launch_dkv(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128: the wide FMA kernels (dk/dv in f32 and bf16, dq in
-// f32 and in bf16 above 512)
+// head dims above 128: the wide FMA kernels (f32, and bf16 above 512)
 // ---------------------------------------------------------------------------
 // As the wide forward: a CTA owns one 64-column chunk of its output rows
 // (dq; or dk and dv), so its accumulators are the d = 64 kernels'
@@ -648,17 +657,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2)  // two CTAs per SM
     // the dropout keep mask of this thread's fragment (bit 4 * nt + c),
     // hashed before the products so its temporaries and their accumulators
     // are never live together
-    uint32_t keep = 0;
-    if (DROPOUT) {
-#pragma unroll
-      for (int nt = 0; nt < NB; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          keep |= (uint32_t)(position_hash(seed, bh,
-                                           m0 + nt * 8 + tig * 2 + (c & 1),
-                                           kpos[c >> 1]) >= threshold)
-                  << (4 * nt + c);
-    }
+    const uint32_t keep =
+        DROPOUT ? keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold) : 0u;
 
     // s^T = K . Q^T and dp^T = V . dO^T for the CTA's 64 keys
     float s[NB][4], dp[NB][4];
@@ -1312,13 +1312,347 @@ cudaError_t launch_dq_wgmma_wide(const Args& a) {
                        : launch_dq_wgmma_wide_t<D, false>(a);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv at d = 192 ... 512: wgmma, two warpgroups, two sweeps
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel _bwd_dkv_kernel (flexflow_tpu/kernels/
+// flash_attention.py:210) at head dims above 128 in bf16. Bound at b4 h8
+// s512: 8 * s^2 * d flops per head, 17.2 GFLOP at d = 256 (17.37 us at
+// 989 TFLOP/s) against 50.5 MB of q, k, v, do, lse, delta, dk and dv
+// (15.1 us at 3.35 TB/s); 34.4 GFLOP at d = 512 (34.74 us) against 101
+// MB (30.1 us). The tensor cores set the bound, the bytes close behind.
+//
+// Design. A CTA of two warpgroups owns a block of keys of one b*h and all
+// D columns of dk and dv, with K and V resident in shared memory, so no
+// score tile is computed for one column chunk and again for the next.
+// Holding both 64 x D f32 accumulators would cost D registers a thread
+// per 64 keys, past the 255-register limit with the score tiles beside
+// them, so the CTA sweeps its query tiles twice, each sweep with one
+// accumulator:
+//   - sweep 1: s^T = K . Q^T, p_eff from it and lse, dV += P_eff^T . dO;
+//     dv is written at its end;
+//   - sweep 2: s^T again and dp^T = V . dO^T, ds = p (dp_eff - delta)
+//     sm_scale, dK += dS^T . Q.
+// s^T is computed twice, 10 * d flops per kept (query, key) pair for the
+// function's 8 * d. Each sweep has the wide dq's geometry (WideSplit): up
+// to d = 320, 128 keys, each warpgroup owning 64 keys and all D columns
+// (D / 2 accumulator registers); above, 64 keys with D split between the
+// warpgroups, their partial s^T (and dp^T) tiles summed through shared
+// memory (exchange_store / exchange_add), each owning half of the output
+// column blocks. The score products are wgmma with both operands K-major
+// in shared memory (the transposed frame, as at d <= 128), so the P^T and
+// dS^T fragments, rounded to bf16 where the reference casts p_eff and ds,
+// are directly the register A operands of dV += P^T . dO and dK += dS^T .
+// Q, dO and Q read MN-major from the staged tile. In sweep 2, s^T and
+// dp^T are two commit groups, so where each warpgroup owns its keys p's
+// exponentials run while dp^T is on the tensor cores. Q and dO tiles with
+// their lse and delta rows stream by cp.async through one two-stage ring
+// that runs on from sweep 1 into sweep 2; the query tile is the widest of
+// 64, 32 and 16 rows whose ring fits beside K, V (and the exchange
+// buffers) in 227 KB: 64 at d = 192, 32 at 256 and 384, 16 at 320, 448
+// and 512. The mask is evaluated only in tiles that cross an edge or the
+// diagonal, causal blocks skip the query tiles none of their keys can
+// see, and the dropout bits are hashed per tile (keep_bits_t) while the
+// products run. One CTA per SM. Measured slower on an H100 (PERF.md,
+// section 6): Q and dO streamed by TMA; K held in registers as the A
+// operand of s^T above d = 320; and, at d <= 256, one sweep holding both
+// accumulators with D split over 64 keys (8 * d flops, but half the
+// keys per CTA and an exchange per tile), which also spills at d = 192.
+
+// dk/dv's tiles: WideSplit's keys (its rows) and D split, with K and V
+// resident, and query tiles of the widest of 64, 32 and 16 rows whose ring
+// (Q, dO, and their lse and delta rows) fits beside them.
+template <int D>
+struct DkvWideTiles {
+  using Sp = WideSplit<D>;
+  // shared memory at query tiles of bm: WideSplit's, K and V resident,
+  // plus two stages of lse and delta (bm floats each)
+  static constexpr size_t smem(int bm) {
+    return Sp::smem(2, bm) + 2 * 2 * (size_t)bm * 4;
+  }
+  static constexpr int BN = Sp::BM;  // keys per CTA
+  static constexpr int BM = smem(64) <= SMEM_LIMIT   ? 64
+                            : smem(32) <= SMEM_LIMIT ? 32
+                                                     : 16;
+  static constexpr int NB = BM / 8;  // 8-column blocks of a score tile
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int T_BYTES = BM * D * 2;  // one Q or dO tile
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  // the partial s^T tiles of both warpgroups, then the partial dp^T tiles
+  static constexpr int X_BYTES =
+      Sp::ROW_SPLIT ? 0 : 2 * Sp::NWG * NB * WG_THREADS * 16;
+  static constexpr size_t SMEM = smem(BM);
+  static_assert(SW_ATOM + 2 * KV_BYTES + 2 * STAGE_BYTES + X_BYTES +
+                        4 * BM * 4 ==
+                    SMEM,
+                "layout");
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+};
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(WideSplit<D>::THREADS, 1)
+    flash_bwd_dkv_wgmma_wide_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        int sq, int sk, float sm_scale, int causal, uint32_t threshold,
+        float keep_prob, uint32_t seed) {
+  using Tl = DkvWideTiles<D>;
+  using Sp = typename Tl::Sp;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t sK = (raw + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sV = sK + Tl::KV_BYTES;
+  const uint32_t sRing = sV + Tl::KV_BYTES;
+  float4* xs = reinterpret_cast<float4*>(smem + (sRing + 2 * Tl::STAGE_BYTES -
+                                                 raw));
+  float4* xdp = xs + Sp::NWG * NB * WG_THREADS;
+  // per stage: lse, then delta, of its BM queries
+  const uint32_t sVec = sRing + 2 * Tl::STAGE_BYTES + Tl::X_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sk + BN - 1) / BN);
+  const int n0 = cell.block * BN;
+  const int bh = cell.bh;
+  const int r0 = Sp::row0(wg);            // this warpgroup's keys
+  const int key_w = n0 + r0 + warp * 16;  // this warp's first key
+  const int kpos[2] = {key_w + g, key_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  // this warpgroup's 16-deep steps of s^T and dp^T, and its 64-column
+  // blocks of dk and dv
+  const int kc0 = Sp::kstep0(wg);
+  const int b0 = Sp::first_block(wg);
+  const int nblk = Sp::blocks(wg);
+  const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
+  const __nv_bfloat16* db = dout + (size_t)bh * sq * D;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+
+  const int n_tiles = (sq + BM - 1) / BM;
+  // causal: a q tile is live iff its last query can see the first key
+  const int first = causal ? n0 / BM : 0;
+  const int count = max(n_tiles - first, 0);
+
+  // the ring's iteration it is q tile it % count of sweep it / count
+  auto load_q = [&](int it) {
+    const int m0 = (first + (it < count ? it : it - count)) * BM;
+    const uint32_t st = sRing + (it & 1) * Tl::STAGE_BYTES;
+    const uint32_t vec = sVec + (it & 1) * 2 * BM * 4;
+    load_tile_sw128<BM, D, Sp::THREADS>(st, qb, m0, sq, tid);
+    load_tile_sw128<BM, D, Sp::THREADS>(st + Tl::T_BYTES, db, m0, sq, tid);
+    load_vec_f32(vec, lb, m0, sq, BM, tid);
+    load_vec_f32(vec + BM * 4, deb, m0, sq, BM, tid - BM);
+  };
+  // K, V and q tile 0; then, after the barrier that frees its stage, each
+  // iteration starts the copy of the next q tile
+  load_tile_sw128<BN, D, Sp::THREADS>(sK, k + (size_t)bh * sk * D, n0, sk,
+                                      tid);
+  load_tile_sw128<BN, D, Sp::THREADS>(sV, v + (size_t)bh * sk * D, n0, sk,
+                                      tid);
+  if (count > 0) load_q(0);
+  cp_async_commit();
+
+  float acc[Sp::MAX_BLOCKS * 8][4];  // this warpgroup's part of dv, then dk
+#pragma unroll
+  for (int sweep = 0; sweep < 2; ++sweep) {  // 0: dv, 1: dk
+#pragma unroll
+    for (int dt = 0; dt < Sp::MAX_BLOCKS * 8; ++dt)
+      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+    for (int t = 0; t < count; ++t) {
+      const int it = sweep * count + t;
+      cp_async_wait<0>();  // q tile it (and, first, K and V) have landed
+      fence_proxy_async();
+      __syncthreads();  // ... for every thread, and every warp is done with
+                        // the stage the next copy overwrites and with the
+                        // other warpgroup's partials
+      if (it + 1 < 2 * count) load_q(it + 1);
+      cp_async_commit();
+      const int m0 = (first + t) * BM;
+      const uint32_t sQ = sRing + (it & 1) * Tl::STAGE_BYTES;
+      const uint32_t sDO = sQ + Tl::T_BYTES;
+      const float* sLse = reinterpret_cast<const float*>(
+          smem + (sVec + (it & 1) * 2 * BM * 4 - raw));
+      const float* sDelta = sLse + BM;
+
+      // s^T = K . Q^T, and in sweep 2 dp^T = V . dO^T, for this
+      // warpgroup's keys (partial, over its half of D, when the
+      // warpgroups split D): both operands K-major in shared memory
+      float s[NB][4], dp[NB][4];
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < Sp::KSTEPS; ++i) {
+        const int kc = kc0 + i;
+        const uint32_t a = sK + (kc >> 2) * (BN * SW_ROW) + r0 * SW_ROW +
+                           (kc & 3) * 32;
+        const uint32_t b = sQ + (kc >> 2) * (BM * SW_ROW) + (kc & 3) * 32;
+        wgmma_ss_kk<NB>(s, desc_sw128(a, 16), desc_sw128(b, 16), i > 0);
+      }
+      wgmma_commit();
+      if (sweep == 1) {
+#pragma unroll
+        for (int i = 0; i < Sp::KSTEPS; ++i) {
+          const int kc = kc0 + i;
+          const uint32_t a = sV + (kc >> 2) * (BN * SW_ROW) + r0 * SW_ROW +
+                             (kc & 3) * 32;
+          const uint32_t b = sDO + (kc >> 2) * (BM * SW_ROW) + (kc & 3) * 32;
+          wgmma_ss_kk<NB>(dp, desc_sw128(a, 16), desc_sw128(b, 16), i > 0);
+        }
+        wgmma_commit();
+      }
+      const uint32_t keep =  // the dropout mask, hashed while they run
+          DROPOUT ? keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold) : 0u;
+      const bool edge = m0 + BM > sq || key_w + 16 > sk ||
+                        (causal && key_w + 15 > m0);
+      if (Sp::ROW_SPLIT) {  // s^T is done once at most dp^T is in flight
+        if (sweep == 1)
+          wgmma_wait<1>();
+        else
+          wgmma_wait<0>();
+        fence_acc(s);
+      } else {  // the sums of the two warpgroups' partials
+        wgmma_wait<0>();
+        fence_acc(s);
+        exchange_store(xs, wg, wtid, s);
+        if (sweep == 1) {
+          fence_acc(dp);
+          exchange_store(xdp, wg, wtid, dp);
+        }
+        __syncthreads();
+        exchange_add(xs, wg, wtid, s);
+        if (sweep == 1) exchange_add(xdp, wg, wtid, dp);
+      }
+
+      // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked, in
+      // the transposed frame (fragment rows keys, columns queries); sweep 1
+      // keeps p_eff, sweep 2 p
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        const int col = nt * 8 + tig * 2;
+        const float2 lse2 = *reinterpret_cast<const float2*>(sLse + col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = c & 1, r = c >> 1;
+          const int qpos = m0 + col + j;
+          float p = exp2_approx(
+              fmaf(s[nt][c], scale_log2, -(j ? lse2.y : lse2.x) * LOG2E));
+          if (edge && !(qpos < sq && kpos[r] < sk &&
+                        (!causal || kpos[r] <= qpos)))
+            p = 0.f;
+          if (DROPOUT && sweep == 0)
+            p = (keep >> (4 * nt + c)) & 1u ? p * inv_keep : 0.f;
+          s[nt][c] = p;
+        }
+      }
+      if (sweep == 1) {
+        if (Sp::ROW_SPLIT) {
+          wgmma_wait<0>();
+          fence_acc(dp);
+        }
+        // ds = p * (dp_eff - delta) * sm_scale
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt) {
+          const float2 del2 =
+              *reinterpret_cast<const float2*>(sDelta + nt * 8 + tig * 2);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float dpv = dp[nt][c];
+            if (DROPOUT)
+              dpv = (keep >> (4 * nt + c)) & 1u ? dpv * inv_keep : 0.f;
+            dp[nt][c] =
+                s[nt][c] * (dpv - ((c & 1) ? del2.y : del2.x)) * sm_scale;
+          }
+        }
+      }
+
+      // dV[:, own blocks] += P_eff^T . dO[:, own blocks] (sweep 1) or
+      // dK[:, own blocks] += dS^T . Q[:, own blocks] (sweep 2): the
+      // fragments rounded to bf16 in registers, dO or Q read MN-major
+      // from the staged tile
+      uint32_t fa[NB / 2][4];
+      to_a_frags(sweep == 0 ? s : dp, fa);
+      const uint32_t sB = sweep == 0 ? sDO : sQ;
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < Sp::MAX_BLOCKS; ++h) {
+        if (h < nblk) {
+#pragma unroll
+          for (int kc = 0; kc < NB / 2; ++kc) {
+            const uint32_t b = sB + (b0 + h) * (BM * SW_ROW) + kc * 2 * SW_ATOM;
+            wgmma_rs_m64n64k16<1>(acc_block(acc, h), fa[kc],
+                                  desc_sw128(b, BM * SW_ROW), 1);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs_u32(fa);
+#pragma unroll
+      for (int h = 0; h < Sp::MAX_BLOCKS; ++h) fence_regs(acc_block(acc, h));
+    }
+
+    // this sweep's output: this thread's two keys, its warpgroup's blocks
+    __nv_bfloat16* out = sweep == 0 ? dv : dk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kpos[r] >= sk) continue;
+      __nv_bfloat16* row =
+          out + ((size_t)bh * sk + kpos[r]) * D + b0 * 64 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < Sp::MAX_BLOCKS; ++h) {
+        if (h < nblk) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int dt = h * 8 + j;
+            store2(row + dt * 8, acc[dt][2 * r], acc[dt][2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA (count = 0: K and V)
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_dkv_wgmma_wide_t(const Args& a) {
+  using Tl = DkvWideTiles<D>;
+  auto kernel = flash_bwd_dkv_wgmma_wide_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid;  // causal dk/dv's heaviest key blocks are its first
+  if (!launch_grid((a.sk + Tl::BN - 1) / Tl::BN, a.bh, 1, false, 0, &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, WideSplit<D>::THREADS, Tl::SMEM, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1),
+      a.sq, a.sk, a.sm_scale, a.causal, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma_wide(const Args& a) {
+  return a.use_dropout ? launch_dkv_wgmma_wide_t<D, true>(a)
+                       : launch_dkv_wgmma_wide_t<D, false>(a);
+}
+
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0)
     return (int)cudaErrorInvalidValue;
-  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; bf16 dq at d
-  // = 192 ... 512 the wide wgmma kernel (d compiled in); dk/dv of either
-  // type above d = 128, f32 dq above 128 and bf16 dq above 512 the wide
-  // FMA kernels (d a runtime argument)
+  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; bf16 at d =
+  // 192 ... 512 the wide wgmma kernels (d compiled in); f32 above d = 128
+  // and bf16 above 512 the wide FMA kernels (d a runtime argument)
   using bf16 = __nv_bfloat16;
   if (!dkv && dtype == 1) switch (head_dim) {
       case 192: return (int)launch_dq_wgmma_wide<192>(a);
@@ -1327,6 +1661,15 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
       case 384: return (int)launch_dq_wgmma_wide<384>(a);
       case 448: return (int)launch_dq_wgmma_wide<448>(a);
       case 512: return (int)launch_dq_wgmma_wide<512>(a);
+      default: break;
+    }
+  if (dkv && dtype == 1) switch (head_dim) {
+      case 192: return (int)launch_dkv_wgmma_wide<192>(a);
+      case 256: return (int)launch_dkv_wgmma_wide<256>(a);
+      case 320: return (int)launch_dkv_wgmma_wide<320>(a);
+      case 384: return (int)launch_dkv_wgmma_wide<384>(a);
+      case 448: return (int)launch_dkv_wgmma_wide<448>(a);
+      case 512: return (int)launch_dkv_wgmma_wide<512>(a);
       default: break;
     }
   if (head_dim > 128 && head_dim % TILE == 0) {

@@ -72,6 +72,29 @@ __device__ __forceinline__ uint32_t keep_bits(int n0, const int (&qpos)[2],
   return bits;
 }
 
+// The same mask in the key-row frame of the dk/dv kernels (s^T = K . Q^T):
+// rows are the keys kpos[0] and kpos[1], columns the queries [m0, m0 + 8 *
+// NB); bit 4 * nt + c as above.
+template <int NB>
+__device__ __forceinline__ uint32_t keep_bits_t(int m0, const int (&kpos)[2],
+                                                int tig, int bh,
+                                                uint32_t seed,
+                                                uint32_t threshold) {
+  static_assert(NB <= 8, "32 bits");
+  uint32_t bits = 0;
+#pragma unroll
+  for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t qpos = m0 + nt * 8 + tig * 2 + (c & 1);
+      bits |= (uint32_t)(position_hash(seed, bh, qpos, kpos[c >> 1]) >=
+                         threshold)
+              << (4 * nt + c);
+    }
+  }
+  return bits;
+}
+
 // Stage rows [row0, row0 + 64) of a (rows, D) f32 matrix into shared
 // memory with row stride D + 4, in 16-byte chunks; rows past n_rows are
 // zero.

@@ -31,10 +31,10 @@
 //
 // The forward and dq fill their rings by TMA (K/V tiles, with Q, and dO
 // for dq, resident); dk/dv by cp.async, since it also streams per-row
-// lse and delta vectors. The wide bf16 forward and dq (d 192 ... 512)
-// run two warpgroups per CTA; above d = 320 they split D between them
-// (WideSplit) and sum their partial score tiles through shared memory
-// (exchange_store / exchange_add).
+// lse and delta vectors. The wide bf16 forward, dq and dk/dv (d 192 ...
+// 512) run two warpgroups per CTA; above d = 320 they split D between
+// them (WideSplit) and sum their partial score tiles through shared
+// memory (exchange_store / exchange_add).
 
 #pragma once
 
@@ -97,18 +97,20 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 }
 
 // Copy rows [row0, row0 + ROWS) of a row-major (n_rows, D) bf16 matrix
-// into the swizzled tile at dst, NTHREADS threads 16 bytes each at a time;
-// rows past n_rows are zero-filled and read nothing.
+// into the swizzled tile at dst, NTHREADS threads 16 bytes each at a time
+// (the last round partial where NTHREADS does not divide the tile's
+// chunks); rows past n_rows are zero-filled and read nothing.
 template <int ROWS, int D, int NTHREADS>
 __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
                                                 const __nv_bfloat16* src,
                                                 int row0, int n_rows,
                                                 int tid) {
   constexpr int CHUNKS = D / 8;
-  static_assert((ROWS * CHUNKS) % NTHREADS == 0, "uneven tile copy");
+  constexpr int TOTAL = ROWS * CHUNKS;
 #pragma unroll
-  for (int j = 0; j < ROWS * CHUNKS / NTHREADS; ++j) {
+  for (int j = 0; j < (TOTAL + NTHREADS - 1) / NTHREADS; ++j) {
     const int i = tid + j * NTHREADS;
+    if (TOTAL % NTHREADS != 0 && i >= TOTAL) break;
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = row0 + r < n_rows;
     const __nv_bfloat16* s = src + (size_t)(ok ? row0 + r : 0) * D + c * 8;
@@ -448,9 +450,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // the kernels' static mbarriers.
 constexpr size_t SMEM_LIMIT = 232448 - 64;
 
-// How the two warpgroups of a wide kernel's CTA share its block of query
-// rows and the D columns (a multiple of 64) of its output, and the shared
-// memory that takes; the forward and dq decide both here:
+// How the two warpgroups of a wide kernel's CTA share its block of rows
+// (query rows; keys in dk/dv) and the D columns (a multiple of 64) of its
+// output, and the shared memory that takes; the forward, dq and dk/dv
+// decide both here:
 //   - D <= 320 (ROW_SPLIT): each warpgroup owns 64 of the CTA's 128 rows
 //     and all D columns (a 64 x D f32 accumulator, D / 2 registers a
 //     thread), so each K/V tile serves 128 rows;
@@ -482,10 +485,11 @@ struct WideSplit {
   __device__ static int blocks(int wg) {
     return ROW_SPLIT || wg == 0 ? MAX_BLOCKS : BLOCKS - MAX_BLOCKS;
   }
-  // Dynamic shared memory at key tiles of bn: `resident` BM x D bf16 tiles
-  // (Q; Q and dO), rings of two stages for K and for V, and, when the two
-  // split D, two exchange buffers of both warpgroups' partial score tiles
-  // (the forward's by tile parity, dq's for S and for dP).
+  // Dynamic shared memory at streamed tiles of bn rows: `resident` BM x D
+  // bf16 tiles (Q; Q and dO; K and V), rings of two stages for the two
+  // streamed tensors (K and V; Q and dO), and, when the two split D, two
+  // exchange buffers of both warpgroups' partial score tiles (the
+  // forward's by tile parity; dq's and dk/dv's for S and for dP).
   static constexpr size_t smem(int resident, int bn) {
     return SW_ATOM + resident * (size_t)BM * D * 2 + 4 * (size_t)bn * D * 2 +
            (ROW_SPLIT ? 0 : 2 * NWG * (size_t)WG_ROWS * bn * 4);

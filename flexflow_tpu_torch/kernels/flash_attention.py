@@ -258,7 +258,7 @@ def _kernel_inputs(*ts) -> None:
     """What every kernel takes: cuda tensors of one dtype, contiguous,
     16-byte aligned, head dim a positive multiple of 64 (64 and 128 run
     the tensor-core or exact kernels, any wider one the wide kernels:
-    bf16 at 192 ... 512 the wide tensor-core forward and dq)."""
+    bf16 at 192 ... 512 the wide tensor-core forward, dq and dk/dv)."""
     t0 = ts[0]
     if t0.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda tensors, not "
@@ -338,8 +338,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
                             sm_scale: Optional[float] = None,
                             dropout_rate: float = 0.0, dropout_seed=None):
     """(dk, dv) of flash attention, as :func:`flash_attention_bwd_dq`
-    takes its inputs: CUDA tensors launch the dk/dv kernel, CPU tensors
-    run :func:`flash_attention_bwd_dkv_plain`."""
+    takes its inputs. CUDA tensors launch the dk/dv kernel of
+    ``csrc/flash_attention_bwd.cu`` (bf16 up to d = 128: the ``wgmma``
+    kernel; bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d
+    compiled in, two sweeps over the query tiles; f32 up to d = 128: the
+    exact FMA kernel; f32 above 128 and bf16 above 512: the wide FMA
+    kernel, d a runtime argument) and count one in ``.launches``; CPU
+    tensors run :func:`flash_attention_bwd_dkv_plain` and count one in
+    ``.plain_calls``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     seed = 0 if dropout_seed is None else int(dropout_seed) & _M32

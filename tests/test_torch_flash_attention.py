@@ -404,6 +404,33 @@ def _jax_dropout_golden_grads(q, k, v, do, rate, seed):
         *(jnp.asarray(x) for x in (q, k, v)))]
 
 
+# Wide head dims under dropout: the card holds the wide bf16 dk/dv kernel's
+# dropout path (d 192 ... 512) against the port's plain backward, so that
+# plain backward is held here against the JAX kernels (non-causal) and
+# against jax.grad of the explicit-mask golden (causal, which the JAX
+# kernel does not lower under dropout in interpret mode) at d 320 and 512.
+WIDE_DROPOUT_CASES = [  # (sq, sk, d, causal)
+    (72, 72, 320, False),
+    (40, 56, 512, False),
+    (48, 48, 320, True),
+    (40, 40, 512, True),
+]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", WIDE_DROPOUT_CASES)
+def test_flash_backward_wide_dropout_matches_jax(sq, sk, d, causal):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=45)
+    do = _do(1, 2, sq, d, seed=7)
+    rate, seed = 0.2, 4321
+    got = _port_grads(q, k, v, do, causal=causal, dropout_rate=rate,
+                      dropout_seed=seed)
+    want = (_jax_dropout_golden_grads(q, k, v, do, rate, seed) if causal
+            else _jax_grads(q, k, v, do, dropout_rate=rate,
+                            dropout_seed=seed))
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **WIDE_TOL)
+
+
 @pytest.mark.parametrize("sq,sk,d,causal,rate", TILING_CASES)
 def test_flash_forward_tiling_edges_match_jax(sq, sk, d, causal, rate):
     q, k, v = _qkv(1, 2, sq, sk, d, seed=31)
@@ -468,26 +495,27 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
     assert dk.shape == dv.shape == q.shape
 
 
-def _wide_wgmma_dims(src: str) -> set:
-    """The head dims the C entry of csrc/<src> compiles the wide wgmma
-    kernel for, read from its dispatch (``case D: ... wgmma_wide<D>``)."""
+def _wide_wgmma_dims(src: str, launcher: str) -> set:
+    """The head dims the C entry of csrc/<src> compiles a wide wgmma
+    kernel for, read from its dispatch (``case D: ... <launcher><D>``)."""
     import os
     import re
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "flexflow_tpu_torch", "csrc", src)
     with open(path) as f:
         text = f.read()
-    found = re.findall(r"case (\d+):[^\n]*wgmma_wide<(\d+)>", text)
+    found = re.findall(rf"case (\d+):[^\n]*\b{launcher}<(\d+)>", text)
     assert all(a == b for a, b in found), found
     return {int(a) for a, _ in found}
 
 
 def test_every_wide_wgmma_head_dim_has_a_card_case():
-    """Each head dim the wide bf16 forward and dq kernels are compiled for
-    has a bf16 case in chip_smoke.py's kernel phase (after the wrapper's
-    padding to a multiple of 64), so the card checks every instantiation
+    """The wide bf16 forward, dq and dk/dv kernels are compiled for the
+    same head dims, and each has bf16 cases in chip_smoke.py's kernel phase
+    (after the wrapper's padding to a multiple of 64), causal and not, each
+    with and without dropout, so the card checks every instantiation
     against its plain version; and so does bf16 above the largest, which
-    keeps the wide FMA forward and dq."""
+    keeps the wide FMA kernels."""
     import importlib.util
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -495,19 +523,21 @@ def test_every_wide_wgmma_head_dim_has_a_card_case():
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    fwd = _wide_wgmma_dims("flash_attention_fwd.cu")
-    dq = _wide_wgmma_dims("flash_attention_bwd.cu")
-    assert fwd == dq == {192, 256, 320, 384, 448, 512}, (fwd, dq)
+    fwd = _wide_wgmma_dims("flash_attention_fwd.cu", "launch_wgmma_wide")
+    dq = _wide_wgmma_dims("flash_attention_bwd.cu", "launch_dq_wgmma_wide")
+    dkv = _wide_wgmma_dims("flash_attention_bwd.cu", "launch_dkv_wgmma_wide")
+    assert fwd == dq == dkv == {192, 256, 320, 384, 448, 512}, \
+        (fwd, dq, dkv)
     cased = {-(-c[4] // 64) * 64 for c in smoke.CASES
              if c[5] == torch.bfloat16}
     assert fwd <= cased, sorted(fwd - cased)
-    # and each of them causal and not, with and without dropout, over the
-    # bf16 cases of its padded head dim
+    # and each of them causal and not, each with and without dropout,
+    # over the bf16 cases of its padded head dim
     for d in sorted(fwd):
-        mine = [c for c in smoke.CASES if c[5] == torch.bfloat16
-                and -(-c[4] // 64) * 64 == d]
-        assert {c[6] for c in mine} == {False, True}, d
-        assert {c[7] > 0 for c in mine} == {False, True}, d
+        mine = {(c[6], c[7] > 0) for c in smoke.CASES
+                if c[5] == torch.bfloat16 and -(-c[4] // 64) * 64 == d}
+        assert mine == {(False, False), (False, True), (True, False),
+                        (True, True)}, (d, mine)
     above = [c for c in smoke.CASES if c[5] == torch.bfloat16
              and -(-c[4] // 64) * 64 > max(fwd)]
     assert {c[6] for c in above} == {False, True}, above

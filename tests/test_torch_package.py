@@ -1,6 +1,6 @@
 """Package-level guarantees of the PyTorch/CUDA port (flexflow_tpu_torch):
 no JAX and nothing of flexflow_tpu anywhere in it, in chip_smoke.py or in
-tools/torch_profile_bert.py; the enums, config flags and kernel-tier rules
+the port's tools/torch_*.py scripts; the enums, config flags and kernel-tier rules
 of the JAX package; entry points that run on the card unless asked for the
 CPU; and a chip_smoke.py that fails where there is no card."""
 import ast
@@ -33,6 +33,7 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_profile_bert.py")
     yield os.path.join(ROOT, "tools", "torch_mixtral_train_ab.py")
+    yield os.path.join(ROOT, "tools", "torch_profile_dkv_phases.py")
 
 
 def _forbidden(module: str) -> bool:
