@@ -16,7 +16,7 @@ never JAX, and:
                kernels' tiling, within stated tolerances: the flash
                forward, dq and dk/dv over one case list (dq also
                bit-identical over two launches), the fused Adam over
-               BERT-base's leaves plus ragged and bf16 ones;
+               BERT-base's and DLRM's leaves plus ragged and bf16 ones;
   4. ktimes  - device times (CUDA graph replay between CUDA events) of
                each kernel, its plain version and its PyTorch yardstick,
                at b8 h12 d64 bf16, s 128 and 512, without dropout and at
@@ -24,9 +24,11 @@ never JAX, and:
                shape (s 1024), at LLaMA-7B's prefill (b4 h32 s1024 d128
                causal) and training shape (the causal backward at d 128),
                the causal backward at d 64, head dims 256, 320 and 512,
-               NMT's attention (b64 h1 s128 d512), SDPA's backend named
-               (its efficient backend's backward where its flash backend
-               refuses the shape), and each kernel's bound;
+               NMT's attention (b64 h1 s128 d512), the Transformer's
+               (b64 h8 s512 d8, padded to 64), SDPA's backend named (its
+               efficient backend's backward where its flash backend
+               refuses the shape), Adam over BERT-base and over DLRM's
+               256.03 M parameters, and each kernel's bound;
   5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
@@ -86,13 +88,31 @@ never JAX, and:
                kernel_impls="opt_update:fused": one Adam launch per step,
                the loss history against the unfused Adam, and the
                (token, choice) slots the capacity drops;
- 12. kernels - one JSON line with each kernel's launches, error and times.
+ 12. zoo     - the rest of the model zoo at published widths, each
+               trained through fit with kernel_impls="attention:flash,
+               opt_update:fused" (bf16 operands, seeded random weights and
+               data, cuDNN's deterministic algorithms): the Transformer
+               (TransformerConfig(), batch 64: 6 flash forward, dq and
+               dk/dv launches a step), NMT (NMTConfig(), batch 64, 128
+               tokens each side: 1 wide flash launch of each a step, its
+               LSTM step profiled), ResNet-50 (224, batch 64), ResNeXt-50
+               32x4d (224, batch 16), Inception-v3 (299, batch 64),
+               AlexNet (229, batch 64), all with a 1000-class head, DLRM
+               and XDL (their configs, batch 64); exact flash and Adam
+               launches (ceil(leaves / 384) a step), finite losses, the
+               loss history and BatchNorm running statistics against
+               plain attention + unfused Adam from the same weights, step
+               time (median, p90), peak memory; the Transformer and
+               ResNet-50 also answer requests through
+               InferenceSession.infer;
+ 13. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
 build,kernel,ktimes`` also times them, ``--phases build,kernel,generate``
 drives generation, ``--phases build,kernel,llama`` the LLaMA family,
-``--phases build,kernel,mixtral,moe`` Mixtral and the MoE example; with
+``--phases build,kernel,mixtral,moe`` Mixtral and the MoE example,
+``--phases build,kernel,zoo`` the rest of the model zoo; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
@@ -350,6 +370,9 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (2, 4, 200, 200, 448, torch.bfloat16, True, 0.0),
     (2, 4, 96, 200, 320, torch.bfloat16, False, 0.1),
     (64, 1, 128, 128, 512, torch.bfloat16, False, 0.0),
+    # the Transformer's attention (zoo phase): TransformerConfig's kdim =
+    # hidden / heads split over 8 heads, d 8, padded to 64
+    (64, 8, 512, 512, 8, torch.bfloat16, False, 0.0),
     (16, 1, 100, 37, 512, torch.bfloat16, False, 0.0),
     (16, 1, 37, 100, 512, torch.bfloat16, False, 0.1),
     # the wide bf16 wgmma dk/dv (the same six d; two sweeps over query
@@ -473,16 +496,28 @@ def phase_kernel_bwd(gen) -> dict:
     return worst
 
 
-def bert_leaf_shapes() -> list:
-    """The weight shapes of full-width BERT-base, from its graph (nothing
-    materialized)."""
+def leaf_shapes(build) -> list:
+    """The weight shapes of the model ``build(ff)`` makes, from its graph
+    (nothing materialized)."""
     from flexflow_tpu_torch import FFConfig, FFModel
-    from flexflow_tpu_torch.models import BertConfig, build_bert
     from flexflow_tpu_torch.ops import ensure_weight_specs
     ff = FFModel(FFConfig())
-    build_bert(ff, 8, 128, BertConfig.base())
+    build(ff)
     return [tuple(w.shape) for layer in ff.layers
             for w in ensure_weight_specs(layer)]
+
+
+def bert_leaf_shapes() -> list:
+    """Full-width BERT-base's 200 weight shapes."""
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    return leaf_shapes(lambda ff: build_bert(ff, 8, 128, BertConfig.base()))
+
+
+def dlrm_leaf_shapes() -> list:
+    """DLRMConfig()'s 12 weight shapes: four 1,000,000 x 64 tables and the
+    MLPs, 256.03 M parameters."""
+    from flexflow_tpu_torch.models import build_dlrm
+    return leaf_shapes(lambda ff: build_dlrm(ff, 64))
 
 
 def adam_leaves(gen, shapes, dtypes):
@@ -499,11 +534,14 @@ def adam_leaves(gen, shapes, dtypes):
 
 def phase_kernel_adam(gen) -> float:
     """The fused Adam kernel against fused_adam_update_plain over
-    BERT-base's 200 leaves, ragged leaves and a bf16 leaf, with weight
-    decay: bit-identical, since both round every f32 op once."""
+    BERT-base's 200 leaves, DLRM's 12 (256.03 M parameters), ragged
+    leaves and a bf16 leaf, with weight decay: bit-identical, since both
+    round every f32 op once. More than MAX_LEAVES (384) leaves would take
+    a second launch; these 217 take one."""
     from flexflow_tpu_torch.kernels.opt_update import (
         fused_adam_update, fused_adam_update_plain)
-    shapes = bert_leaf_shapes() + [(1,), (7,), (4097,), (33, 65), (3, 5, 7)]
+    shapes = bert_leaf_shapes() + dlrm_leaf_shapes() \
+        + [(1,), (7,), (4097,), (33, 65), (3, 5, 7)]
     dtypes = [torch.float32] * (len(shapes) - 1) + [torch.bfloat16]
     leaves = adam_leaves(gen, shapes, dtypes)
     alpha_t = torch.tensor(3e-4, device="cuda")
@@ -823,17 +861,24 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
         flash_attention_bwd_dq_plain)
+    import torch.nn.functional as F
     q, k, v, do = (torch.randn(b, h, seq, d, device="cuda",
                                dtype=torch.bfloat16, generator=gen)
                    for _ in range(4))
-    kw = dict(causal=causal, dropout_rate=rate,
+    kw = dict(causal=causal, sm_scale=1.0 / d ** 0.5, dropout_rate=rate,
               dropout_seed=5 if rate else None)
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
-    res = {"dq_ms": cuda_time_ms(lambda: flash_attention_bwd_dq(*args, **kw)),
+    # the kernels take the head dim padded to a multiple of 64, as the
+    # model's backward hands it to them; the plain versions the model's d
+    d_k = -(-d // 64) * 64
+    kargs = args if d_k == d else tuple(
+        F.pad(t, (0, d_k - d)) for t in (q, k, v, do)) + (lse, delta)
+    res = {"dq_ms": cuda_time_ms(
+        lambda: flash_attention_bwd_dq(*kargs, **kw)),
            "dkv_ms": cuda_time_ms(
-               lambda: flash_attention_bwd_dkv(*args, **kw)),
+               lambda: flash_attention_bwd_dkv(*kargs, **kw)),
            "dq_plain_ms": cuda_time_ms(
                lambda: flash_attention_bwd_dq_plain(*args, **kw)),
            "dkv_plain_ms": cuda_time_ms(
@@ -860,13 +905,12 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
     return res
 
 
-def adam_times(gen) -> dict:
+def adam_times(gen, shapes) -> dict:
     """The fused Adam kernel, its plain version and torch._fused_adam_
-    (a timing yardstick only: its eps placement differs) over BERT-base's
-    leaves, f32."""
+    (a timing yardstick only: its eps placement differs) over f32 leaves
+    of ``shapes``."""
     from flexflow_tpu_torch.kernels.opt_update import (
         fused_adam_update, fused_adam_update_plain)
-    shapes = bert_leaf_shapes()
     leaves = adam_leaves(gen, shapes, [torch.float32] * len(shapes))
     ws, gs, ms, vs = ([x[i] for x in leaves] for i in range(4))
     alpha_t = torch.tensor(1e-4, device="cuda")
@@ -936,6 +980,11 @@ KT_SHAPES = [
      "NMT's attention: NMTConfig's hidden 512 in one head, a 128-token "
      "sentence"),
     ("bwd_nmt", "bwd", 64, 1, 128, 512, False, "NMT's attention"),
+    ("fwd_transformer", "fwd", 64, 8, 512, 8, False,
+     "the Transformer's attention: TransformerConfig's kdim = hidden / "
+     "heads = 64 split over 8 heads, d 8, padded to 64 by the wrapper"),
+    ("bwd_transformer", "bwd", 64, 8, 512, 8, False,
+     "the Transformer's attention, the kernels at the padded d 64"),
 ]
 
 
@@ -1008,12 +1057,16 @@ def phase_ktimes(smi: str) -> dict:
     print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
           f"bf16, each encoding four TMA tensor maps: flash_attention_fwd "
           f"{h['fwd']:.2f} us, flash_attention_bwd_dq {h['dq']:.2f} us")
-    a = res["adam"] = adam_times(gen)
-    print(f"[ktimes] adam_update over BERT-base's {a['numel']} f32 "
-          f"parameters (200 leaves, one launch): kernel {a['ms']:.4f} ms, "
-          f"plain {a['plain_ms']:.4f} ms, torch._fused_adam_ "
-          f"{a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
-          f"(bytes); kernel/bound {a['ms'] / a['bound_ms']:.2f}")
+    for key, what, shapes in (("adam", "BERT-base", bert_leaf_shapes()),
+                              ("adam_dlrm", "DLRM", dlrm_leaf_shapes())):
+        a = res[key] = adam_times(gen, shapes)
+        print(f"[ktimes] adam_update over {what}'s {a['numel']} f32 "
+              f"parameters ({len(shapes)} leaves, one launch): kernel "
+              f"{a['ms']:.4f} ms, plain {a['plain_ms']:.4f} ms, "
+              f"torch._fused_adam_ {a['library_ms']:.4f} ms, bound "
+              f"{a['bound_ms']:.4f} ms (bytes); kernel/bound "
+              f"{a['ms'] / a['bound_ms']:.2f}; {smi}")
+        free_cuda()
     return res
 
 
@@ -1929,11 +1982,349 @@ def phase_moe() -> dict:
             "slots": int(assign.numel()), "loss_diff": err}
 
 
-def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
+# the zoo phase: the rest of the model zoo at the published widths
+ZOO_STEPS = 3       # steps of the main path's fit and of the plain run
+ZOO_TIMED = 6       # timed train steps per model, after the fit
+ZOO_REQUESTS = 5    # timed requests of each served model
+ZOO_CLASSES = 1000  # the published ImageNet head (the builders default 10)
+ZOO_SEQ = 128       # NMT's source and target length (NMTConfig fixes none)
+# the steps profiled: NMT's LSTM recurrence (launch-bound) and ResNet-50's
+ZOO_PROFILED = ("nmt", "resnet50")
+
+
+class ZooSpec:
+    """One model of the zoo phase: ``build(ff, batch)`` returns its
+    output tensor, ``data(rows, seed)`` seeded inputs (in graph-input
+    order) and labels; ``flash`` is its attention layers (flash launches
+    per step of each kernel), ``served`` whether it also answers requests
+    through InferenceSession.infer."""
+
+    def __init__(self, tag, what, batch, build, data, loss, flash=0,
+                 served=False):
+        self.tag, self.what, self.batch = tag, what, batch
+        self.build, self.data, self.loss = build, data, loss
+        self.flash, self.served = flash, served
+
+
+def zoo_specs() -> list:
+    from flexflow_tpu_torch import models as zoo
+    tc, nc = zoo.TransformerConfig(), zoo.NMTConfig()
+    dc, xc = zoo.DLRMConfig(), zoo.XDLConfig()
+
+    def images(hw):
+        def data(rows, seed):
+            rng = np.random.default_rng(seed)
+            return ([rng.standard_normal((rows, 3, hw, hw),
+                                         dtype=np.float32)],
+                    rng.integers(0, ZOO_CLASSES, (rows, 1)).astype(np.int32))
+        return data
+
+    def transformer_data(rows, seed):
+        rng = np.random.default_rng(seed)
+        shape = (rows, tc.sequence_length)
+        return ([rng.standard_normal(shape + (tc.hidden_size,),
+                                     dtype=np.float32)],
+                rng.standard_normal(shape + (1,), dtype=np.float32))
+
+    def nmt_data(rows, seed):
+        rng = np.random.default_rng(seed)
+        src = rng.integers(0, nc.src_vocab, (rows, ZOO_SEQ)).astype(np.int32)
+        tgt = rng.integers(1, nc.tgt_vocab, (rows, ZOO_SEQ)).astype(np.int32)
+        dec_in = np.concatenate([np.zeros((rows, 1), np.int32),
+                                 tgt[:, :-1]], axis=1)
+        return [src, dec_in], tgt
+
+    def recsys(cfg, dense):
+        def data(rows, seed):
+            rng = np.random.default_rng(seed)
+            xs = [rng.integers(0, n, (rows, cfg.embedding_bag_size))
+                  .astype(np.int32) for n in cfg.embedding_size]
+            if dense:
+                xs.append(rng.standard_normal((rows, cfg.mlp_bot[0]),
+                                              dtype=np.float32))
+            return xs, rng.integers(0, 2, (rows, 1)).astype(np.int32)
+        return data
+
+    sce = "sparse_categorical_crossentropy"
+    tables = (f"{len(dc.embedding_size)} tables of {dc.embedding_size[0]} "
+              f"x {dc.sparse_feature_size}, bag {dc.embedding_bag_size}")
+    return [
+        ZooSpec("transformer", f"Transformer (TransformerConfig(): hidden "
+                f"{tc.hidden_size}, {tc.num_heads} heads of "
+                f"{tc.hidden_size // tc.num_heads ** 2} (kdim = hidden / "
+                f"heads, split over the heads; the kernel pads to 64), "
+                f"{tc.num_layers} layers, seq {tc.sequence_length}, MSE)",
+                64, lambda ff, b: zoo.build_transformer(ff, b, tc),
+                transformer_data, "mean_squared_error", tc.num_layers, True),
+        ZooSpec("nmt", f"NMT (NMTConfig(): vocab {nc.src_vocab} / "
+                f"{nc.tgt_vocab}, embed {nc.embed_dim}, LSTM hidden "
+                f"{nc.hidden_size} x {nc.num_layers} layers each side, "
+                f"{nc.num_heads} attention head of {nc.hidden_size}; src = "
+                f"tgt = {ZOO_SEQ}, sparse CE)", 64,
+                lambda ff, b: zoo.build_nmt(ff, b, ZOO_SEQ, ZOO_SEQ, nc),
+                nmt_data, sce, 1),
+        ZooSpec("resnet50", f"ResNet-50 (224x224, {ZOO_CLASSES} classes)",
+                64, lambda ff, b: zoo.build_resnet50(ff, b, ZOO_CLASSES, 224),
+                images(224), sce, served=True),
+        ZooSpec("resnext50", f"ResNeXt-50 32x4d (224x224, {ZOO_CLASSES} "
+                f"classes)", 16,
+                lambda ff, b: zoo.build_resnext50(ff, b, ZOO_CLASSES, 224),
+                images(224), sce),
+        ZooSpec("inception_v3", f"Inception-v3 (299x299, {ZOO_CLASSES} "
+                f"classes)", 64,
+                lambda ff, b: zoo.build_inception_v3(ff, b, ZOO_CLASSES,
+                                                     299),
+                images(299), sce),
+        ZooSpec("alexnet", f"AlexNet (229x229, {ZOO_CLASSES} classes)", 64,
+                lambda ff, b: zoo.build_alexnet(ff, b, ZOO_CLASSES, 229),
+                images(229), sce),
+        ZooSpec("dlrm", f"DLRM (DLRMConfig(): {tables}, bottom "
+                f"{'-'.join(map(str, dc.mlp_bot))}, top "
+                f"{'-'.join(map(str, dc.mlp_top))})", 64,
+                lambda ff, b: zoo.build_dlrm(ff, b, dc), recsys(dc, True),
+                sce),
+        ZooSpec("xdl", f"XDL (XDLConfig(): {tables}, MLP "
+                f"{'-'.join(map(str, xc.mlp))})", 64,
+                lambda ff, b: zoo.build_xdl(ff, b, xc), recsys(xc, False),
+                sce),
+    ]
+
+
+def zoo_model(spec, impl: str):
+    """``spec``'s model through FFModel on the card, bf16 matmul and conv
+    operands, seeded random weights, Adam (alpha 1e-4, epsilon 1e-4: the
+    conv biases under BatchNorm and MHA's key bias have a true gradient
+    of 0, whose f32 noise Adam at 1e-8 turns into +-alpha steps)."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    cfg = FFConfig()
+    cfg.batch_size = spec.batch
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = impl
+    cfg.seed = 0
+    ff = FFModel(cfg)
+    out = spec.build(ff, spec.batch)
+    ff.compile(AdamOptimizer(1e-4, epsilon=1e-4), spec.loss, [],
+               output_tensor=out)
+    return ff
+
+
+def host_tree(tree) -> dict:
+    return {ln: {n: t.detach().cpu().clone() for n, t in d.items()}
+            for ln, d in tree.items()}
+
+
+def device_tree(tree) -> dict:
+    return {ln: {n: t.cuda() for n, t in d.items()}
+            for ln, d in tree.items()}
+
+
+def profile_train_step(ff, step_fn, batch) -> dict:
+    """torch.profiler over one train step: kernel launches, device kernel
+    time, wall time, the busy share and the kernels that take the most
+    device time."""
+    from collections import defaultdict
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ff._run_train_step(step_fn, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = defaultdict(float)
+    kernels = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    family = defaultdict(float)
+    for name, ms in by_name.items():
+        low = name.lower()
+        family["conv / GEMM" if any(w in low for w in (
+            "conv", "gemm", "xmma", "cudnn", "cutlass", "implicit"))
+            else "flash" if "flash" in low
+            else "elementwise / reduce" if any(w in low for w in (
+                "elementwise", "reduce")) else "other"] += ms
+    return {"launches": kernels, "device_ms": dev_ms, "wall_ms": wall,
+            "busy": dev_ms / wall, "top": [(n[:60], ms) for n, ms in top],
+            "family_ms": dict(family)}
+
+
+def zoo_run(spec, smi: str) -> dict:
+    """One model of the zoo: fit for ZOO_STEPS steps (one batch, so the
+    history is the per-step loss) through flash and the fused Adam with
+    every launch counted, the timed steps and their peak memory, the
+    served requests; then the same weights, state and batch through plain
+    attention and the unfused Adam."""
+    from flexflow_tpu_torch.kernels.opt_update import _c_fn
+    from flexflow_tpu_torch.runtime.optimizers import tree_leaves
+    from flexflow_tpu_torch.serving import InferenceSession
+    t0 = time.perf_counter()
+    ff = zoo_model(spec, "attention:flash,opt_update:fused")
+    torch.cuda.synchronize()
+    leaves = [t for _, _, t in tree_leaves(ff.params)]
+    n_params, n_leaves = sum(t.numel() for t in leaves), len(leaves)
+    del leaves
+    adam = -(-n_leaves // _c_fn("ff_adam_max_leaves")())
+    init, init_state = host_tree(ff.params), host_tree(ff.state)
+    print(f"[zoo] {spec.what}, batch {spec.batch}: {n_params} f32 "
+          f"parameters in {n_leaves} leaves, {len(ff.state)} BatchNorm "
+          f"states, built on the card in {time.perf_counter() - t0:.2f} s")
+    xs, y = spec.data(spec.batch, 71)
+    fns = zero_counts()  # the main path: every count starts at 0
+    t0 = time.perf_counter()
+    history = ff.fit(xs, y, epochs=ZOO_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd": spec.flash * ZOO_STEPS,
+            "flash_attention_bwd_dq": spec.flash * ZOO_STEPS,
+            "flash_attention_bwd_dkv": spec.flash * ZOO_STEPS,
+            "adam_update": adam * ZOO_STEPS}
+    losses = [r["loss"] for r in history]
+    print(f"[zoo] {spec.tag} main path: fit, {ZOO_STEPS} steps in "
+          f"{fit_s:.2f} s, loss {[round(v, 5) for v in losses]}; launches "
+          f"{launches} (want {want}: {spec.flash} flash layers, "
+          f"ceil({n_leaves} leaves / 384) Adam launches per step)")
+    check(launches == want, f"{spec.tag} launches {launches} != {want}")
+    check(all(np.isfinite(v) for v in losses), f"{spec.tag}: loss {losses}")
+    if ff.state:
+        moved = sum(not torch.equal(ff.state[ln][n].cpu(), t)
+                    for ln, d in init_state.items() for n, t in d.items())
+        print(f"[zoo] {spec.tag}: {moved} of {2 * len(ff.state)} running "
+              f"statistics moved in training")
+        check(moved == 2 * len(ff.state), f"{spec.tag}: running state")
+
+    # what the plain plan is held to: the running statistics and the
+    # served outputs after the same ZOO_STEPS steps
+    trained_state = host_tree(ff.state)
+    inputs = {t.name: a for t, a in zip(ff.graph_inputs, xs)}
+    served = None
+    res = {"params": n_params, "leaves": n_leaves, "fit_s": fit_s,
+           "launches": launches, "adam_per_step": adam}
+    if spec.served:
+        sess = InferenceSession(ff, batch_buckets=(spec.batch,))
+        sess.infer(inputs)
+        torch.cuda.synchronize()
+        fwd = zero_counts()["flash_attention_fwd"]
+        lat = []
+        for _ in range(ZOO_REQUESTS):
+            t1 = time.perf_counter()
+            served = sess.infer(inputs)
+            lat.append((time.perf_counter() - t1) * 1e3)
+        res["request_ms"] = float(np.percentile(lat, 50))
+        res["request_p90_ms"] = float(np.percentile(lat, 90))
+        res["serve_launches"] = fwd.launches
+        print(f"[zoo] {spec.tag} InferenceSession.infer, {spec.batch} rows "
+              f"(eval: running statistics): median {res['request_ms']:.3f} "
+              f"ms, p90 {res['request_p90_ms']:.3f} ms over {ZOO_REQUESTS} "
+              f"requests (host clock, ends in the copy to the host); flash "
+              f"forward launches {fwd.launches} (want {spec.flash} x "
+              f"{ZOO_REQUESTS}), output {served.shape}")
+        check(fwd.launches == spec.flash * ZOO_REQUESTS,
+              f"{spec.tag} serve launches")
+        check(bool(np.isfinite(served).all()), f"{spec.tag} served output")
+        del sess
+    batch = {t.name: torch.from_numpy(a).cuda()
+             for t, a in zip(ff.graph_inputs, xs)}
+    batch["label"] = torch.from_numpy(y).cuda()
+    step_fn = ff.executor.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(ZOO_TIMED):
+        t1 = time.perf_counter()
+        ff._run_train_step(step_fn, batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    res.update(step_ms=float(np.percentile(lat, 50)),
+               step_p90_ms=float(np.percentile(lat, 90)),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[zoo] {spec.tag} train step (flash + fused Adam): median "
+          f"{res['step_ms']:.3f} ms, p90 {res['step_p90_ms']:.3f} ms over "
+          f"{ZOO_TIMED} steps (host clock, each ending in a device sync); "
+          f"peak device memory {res['peak_gb']:.3f} GB; per step "
+          f"{spec.flash} / {spec.flash} / {spec.flash} flash forward / dq / "
+          f"dk/dv and {adam} Adam launches; {smi}")
+    if spec.tag in ZOO_PROFILED:
+        p = res["profile"] = profile_train_step(ff, step_fn, batch)
+        print(f"[zoo] {spec.tag} train step under torch.profiler: "
+              f"{p['launches']} kernel launches, {p['device_ms']:.3f} ms of "
+              f"device time in {p['wall_ms']:.3f} ms wall, busy "
+              f"{p['busy']:.3f}; by kernel family "
+              + ", ".join(f"{k} {ms:.3f} ms" for k, ms in sorted(
+                  p["family_ms"].items(), key=lambda kv: -kv[1]))
+              + "; most device time: "
+              + "; ".join(f"{n} {ms:.3f} ms" for n, ms in p["top"])
+              + f"; {smi}")
+    del ff, step_fn, batch
+    free_cuda()
+
+    # the same weights, state and batch through plain attention and the
+    # unfused Adam
+    ref = zoo_model(spec, "attention:xla")
+    ref.params, ref.state = device_tree(init), device_tree(init_state)
+    plain = [r["loss"] for r in ref.fit(xs, y, epochs=ZOO_STEPS,
+                                        verbose=False)]
+    err = float(np.abs(np.array(losses) - np.array(plain)).max())
+    ok = err <= TRAIN_TOL
+    print(f"[zoo] {spec.tag}, {ZOO_STEPS} steps from the same weights: "
+          f"loss flash + fused Adam {[round(v, 5) for v in losses]}, plain "
+          f"attention + unfused Adam {[round(v, 5) for v in plain]}: "
+          f"max|diff| = {err:.3e} (tol {TRAIN_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{spec.tag}: loss histories of the two plans disagree")
+    res["loss_diff"] = err
+    if trained_state:
+        serr = max(float((ref.state[ln][n].cpu() - t).abs().max()
+                         / max(float(t.abs().max()), 1.0))
+                   for ln, d in trained_state.items() for n, t in d.items())
+        print(f"[zoo] {spec.tag} running statistics after training, both "
+              f"plans: max|diff| = {serr:.3e} of max(1, |value|) (tol "
+              f"{TRAIN_TOL:.0e})")
+        check(serr <= TRAIN_TOL, f"{spec.tag}: running statistics differ")
+    if served is not None:
+        want_out = InferenceSession(ref, batch_buckets=(spec.batch,)) \
+            .infer(inputs)
+        rel = float(np.abs(served - want_out).max()
+                    / max(float(np.abs(want_out).max()), 1e-30))
+        print(f"[zoo] {spec.tag} served output against the plain plan's "
+              f"trained model: max|diff| = {rel:.3e} of max|output| (tol "
+              f"{SLICE_TOL:.0e})")
+        check(rel <= SLICE_TOL, f"{spec.tag}: served outputs differ")
+    del ref
+    free_cuda()
+    return res
+
+
+def phase_zoo(smi: str) -> dict:
+    """The rest of the model zoo at published widths, each model trained
+    through fit with exact launch counts, held against the plain plan,
+    timed; the Transformer and ResNet-50 also served. cuDNN runs its
+    deterministic algorithms: ResNet-50's training at initialisation
+    amplifies f32 rounding by orders of magnitude per step, so the two
+    plans' histories agree only where their convolutions sum alike."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    for spec in zoo_specs():
+        t0 = time.perf_counter()
+        res[spec.tag] = zoo_run(spec, smi)
+        print(f"[wall] zoo {spec.tag}: {time.perf_counter() - t0:.1f} s")
+    torch.backends.cudnn.deterministic = det
+    return res
+
+
+def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
+                zoo) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
-    256, 320 and 512, NMT's attention, and the LLaMA, Mixtral and MoE
-    launches beside them."""
+    256, 320 and 512, NMT's and the Transformer's attention, Adam over
+    DLRM, and the LLaMA, Mixtral, MoE and zoo launches beside them."""
+    zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
+
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
 
@@ -1983,7 +2374,14 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
         # NMT's attention (NMTConfig: hidden 512, one head) at a 128-token
         # sentence; bf16 at d 192 ... 512 runs the wide wgmma kernel
         "nmt_b64_h1_s128_d512": dict(kt["fwd_nmt"]),
-        "wide_bf16_kernel": "flash_fwd_wgmma_wide_kernel (d 192-512)"}]
+        "wide_bf16_kernel": "flash_fwd_wgmma_wide_kernel (d 192-512)",
+        # the Transformer's attention (zoo phase), d 8 padded to 64; the
+        # zoo's train launches (6 a step for the Transformer, 1 for NMT)
+        # and the Transformer's served forwards
+        "transformer_b64_h8_s512_d8": dict(kt["fwd_transformer"]),
+        "zoo_train_launches": {t: n["flash_attention_fwd"]
+                               for t, n in zoo_launches.items()},
+        "zoo_serve_launches": zoo["transformer"]["serve_launches"]}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -2006,6 +2404,10 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
             "b4_h8_s512_d320": bwd_row_t(key, kt["bwd_d320"]),
             "b4_h8_s512_d512": bwd_row_t(key, kt["bwd_d512"]),
             "nmt_b64_h1_s128_d512": bwd_row_t(key, kt["bwd_nmt"]),
+            "transformer_b64_h8_s512_d8": bwd_row_t(
+                key, kt["bwd_transformer"]),
+            "zoo_train_launches": {t: n[name]
+                                   for t, n in zoo_launches.items()},
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)"})
     a = kt["adam"]
@@ -2021,12 +2423,17 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe) -> list:
         "llama_train_launches": llama["train"]["launches"]["adam_update"],
         "mixtral_train_launches":
             mixtral["train"]["launches"]["adam_update"],
-        "moe_train_launches": moe["launches"]["adam_update"]})
+        "moe_train_launches": moe["launches"]["adam_update"],
+        "zoo_train_launches": {t: n["adam_update"]
+                               for t, n in zoo_launches.items()},
+        "dlrm_256.03M_params": {
+            k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")}})
     return rows
 
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
-          "generate", "llama", "mixtral", "moe")
+          "generate", "llama", "mixtral", "moe", "zoo")
 
 
 def main() -> int:
@@ -2071,12 +2478,14 @@ def main() -> int:
     run("llama", phase_llama, smi)
     run("mixtral", phase_mixtral, smi)
     run("moe", phase_moe)
+    run("zoo", phase_zoo, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
     print(json.dumps({"kernels": kernel_rows(
         res["kernel"], res["slice"], res["ktimes"], res["train"],
-        res["generate"], res["llama"], res["mixtral"], res["moe"])}))
+        res["generate"], res["llama"], res["mixtral"], res["moe"],
+        res["zoo"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -11,7 +11,9 @@ every pair's op type, weight names and weight shapes are checked and any
 mismatch raises. Every weight-bearing op copies this way, PReLU's
 ``alpha``, Mixtral's router and expert kernels and the MoE example's
 expert layers included; constants (``create_constant``) are graph
-inputs, not parameters, and are not copied.
+inputs, not parameters, and are not copied. Op state (BatchNorm's
+running mean and variance, Cache's slots) copies the same way, checked
+against each op's ``state_spec``.
 """
 from __future__ import annotations
 
@@ -22,14 +24,32 @@ import torch
 
 from .dtypes import to_torch
 from .ffconst import OperatorType
+from .ops import get_op_def
+
+
+def _state_specs(layer) -> Dict[str, Any]:
+    """A layer's op state as ``{name: (shape, dtype)}`` (empty when its op
+    keeps none)."""
+    spec = getattr(get_op_def(layer.op_type), "state_spec", None)
+    if spec is None:
+        return {}
+    return {k: (tuple(shape), dt) for k, (shape, dt) in spec(
+        layer.params, [t.shape for t in layer.inputs],
+        [t.dtype for t in layer.inputs]).items()}
+
+
+def _weight_specs(layer) -> Dict[str, Any]:
+    return {w.name: (tuple(w.shape), w.dtype) for w in layer.weights}
 
 
 def _paired_tree(ff, ref_tree: Mapping[str, Mapping[str, Any]],
-                 ref_layer_names: Sequence[Tuple[str, Any]], dtype_of
+                 ref_layer_names: Sequence[Tuple[str, Any]], dtype_of,
+                 specs_of=_weight_specs, what: str = "weight"
                  ) -> Dict[str, Dict[str, torch.Tensor]]:
     """A tree in the port's layer names from a reference tree, layers
-    paired by position and checked; ``dtype_of(spec, arr)`` picks each
-    leaf's torch dtype."""
+    paired by position and checked; ``specs_of(layer)`` gives each
+    layer's ``{name: (shape, dtype)}`` and ``dtype_of(dtype, arr)`` picks
+    each leaf's torch dtype."""
     ours = ff.executor.program.layers
     if len(ours) != len(ref_layer_names):
         raise ValueError(f"layer count differs: port {len(ours)}, "
@@ -42,23 +62,23 @@ def _paired_tree(ff, ref_tree: Mapping[str, Mapping[str, Any]],
                 f"layer {i}: op type differs: port {layer.name} is "
                 f"{layer.op_type.name}, reference {ref_name} is "
                 f"{OperatorType(int(ref_op)).name}")
-        specs = {w.name: w for w in layer.weights}
+        specs = specs_of(layer)
         ref_w = ref_tree.get(ref_name, {})
         if set(specs) != set(ref_w):
             raise ValueError(
-                f"layer {i} ({layer.name} / {ref_name}): weight names "
+                f"layer {i} ({layer.name} / {ref_name}): {what} names "
                 f"differ: port {sorted(specs)}, reference {sorted(ref_w)}")
         if not specs:
             continue
         new[layer.name] = {}
-        for wname, spec in specs.items():
+        for wname, (shape, dt) in specs.items():
             arr = np.asarray(ref_w[wname])
-            if tuple(arr.shape) != spec.shape:
+            if tuple(arr.shape) != shape:
                 raise ValueError(
-                    f"layer {i} ({layer.name} / {ref_name}) weight "
-                    f"{wname}: shape differs: port {spec.shape}, "
+                    f"layer {i} ({layer.name} / {ref_name}) {what} "
+                    f"{wname}: shape differs: port {shape}, "
                     f"reference {tuple(arr.shape)}")
-            dtype = dtype_of(spec, arr)
+            dtype = dtype_of(dt, arr)
             if arr.dtype.kind == "V":      # ml_dtypes bfloat16
                 arr = arr.astype(np.float32)
             new[layer.name][wname] = torch.tensor(arr, device=ff.device,
@@ -80,8 +100,25 @@ def load_reference_params(ff, ref_params: Mapping[str, Mapping[str, Any]],
     if ff.params is None:
         raise ValueError("compile() the port model first")
     new = _paired_tree(ff, ref_params, ref_layer_names,
-                       lambda spec, arr: to_torch(spec.dtype))
+                       lambda dt, arr: to_torch(dt))
     ff.params = new
+    return new
+
+
+def load_reference_state(ff, ref_state: Mapping[str, Mapping[str, Any]],
+                         ref_layer_names: Sequence[Tuple[str, Any]]
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Replace ``ff.state`` (the op state of a compiled port model, e.g.
+    BatchNorm's running ``mean`` and ``var``) with the reference's
+    ``ff.state``: layers paired by position, each layer's entry names and
+    shapes checked against its op's ``state_spec``, as
+    :func:`load_reference_params` checks weights. Returns the new
+    state."""
+    if ff.state is None:
+        raise ValueError("compile() the port model first")
+    new = _paired_tree(ff, ref_state, ref_layer_names,
+                       lambda dt, arr: to_torch(dt), _state_specs, "state")
+    ff.state = new
     return new
 
 
@@ -102,10 +139,10 @@ def load_reference_opt_state(ff, ref_opt_state: Mapping[str, Any],
                          f"{sorted(ff.opt_state)}, reference "
                          f"{sorted(ref_opt_state)}")
 
-    def dtype_of(spec, arr):
+    def dtype_of(dt, arr):
         if arr.dtype == np.float32:
             return torch.float32
-        return to_torch(spec.dtype)
+        return to_torch(dt)
 
     new = {slot: _paired_tree(ff, ref_opt_state[slot], ref_layer_names,
                               dtype_of)

@@ -1,16 +1,16 @@
 """FFModel: the model-building API and compile, on one device.
 
 The port of ``flexflow_tpu/model.py`` on one device: the layer builders
-BERT, GPT-2, the LLaMA family, Mixtral and the MoE examples use (same
-names, params and auto-naming as the JAX package, so the two graphs of
-one model line up layer for layer), constants (``create_constant``),
-``compile`` without search or mesh (parameters and optimizer state
-materialized), the forced path of the kernel tier, the training loop
-(``fit``, ``eval``, ``forward``, the phase-API no-ops) and generation
-(``generate`` over a KV cache or by full re-forwards, greedy or sampled,
-ragged prompts, eos; ``generate_beam``). The other builders, the strategy
-search, and the fault hooks, callbacks, telemetry and checkpoint saves
-come with later slices.
+of every model of the zoo (same names, params and auto-naming as the
+JAX package, so the two graphs of one model line up layer for layer),
+constants (``create_constant``), ``compile`` without search or mesh
+(parameters, op state and optimizer state materialized), the forced path
+of the kernel tier, the training loop (``fit``, ``eval``, ``forward``,
+the phase-API no-ops), generation (``generate`` over a KV cache or by
+full re-forwards, greedy or sampled, ragged prompts, eos;
+``generate_beam``) and the weight and state accessors. The strategy
+search, checkpoints, ``recompile_on_condition``, and the fault hooks,
+callbacks and telemetry of ``fit`` come with later slices.
 
 The model runs on ``config.device`` ("cuda" by default) unless the
 caller passes ``device``; asking for CUDA where there is none raises.
@@ -30,7 +30,7 @@ from .core.tensor import Tensor
 from .dtypes import to_torch
 from .executor import Executor, GraphProgram
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                      MetricsType, OperatorType)
+                      MetricsType, OperatorType, PoolType)
 from .kernels import registry as kreg
 from .ops import get_op_def
 from .runtime.dataloader import SingleDataLoader
@@ -163,6 +163,35 @@ class FFModel:
         return self._add_layer(OperatorType.OP_LINEAR, [input], params,
                                name).outputs[0]
 
+    def conv2d(self, input: Tensor, out_channels: int,
+               kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
+               padding_h: int, padding_w: int,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True,
+               kernel_initializer=None, name: Optional[str] = None) -> Tensor:
+        params = {"out_channels": out_channels, "kernel_h": kernel_h,
+                  "kernel_w": kernel_w, "stride_h": stride_h,
+                  "stride_w": stride_w, "padding_h": padding_h,
+                  "padding_w": padding_w, "activation": ActiMode(activation),
+                  "groups": groups, "use_bias": use_bias}
+        if kernel_initializer is not None:
+            params["kernel_initializer"] = kernel_initializer
+        return self._add_layer(OperatorType.OP_CONV2D, [input], params,
+                               name).outputs[0]
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: Optional[str] = None) -> Tensor:
+        params = {"kernel_h": kernel_h, "kernel_w": kernel_w,
+                  "stride_h": stride_h, "stride_w": stride_w,
+                  "padding_h": padding_h, "padding_w": padding_w,
+                  "pool_type": PoolType(pool_type),
+                  "activation": ActiMode(activation)}
+        return self._add_layer(OperatorType.OP_POOL2D, [input], params,
+                               name).outputs[0]
+
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
                   dtype: DataType = DataType.DT_FLOAT,
@@ -215,6 +244,12 @@ class FFModel:
         return self._add_layer(OperatorType.OP_MULTIHEAD_ATTENTION,
                                [query, key, value], params, name).outputs[0]
 
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   eps: float = 1e-5, momentum: float = 0.1,
+                   name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.OP_BATCHNORM, input, name, relu=relu,
+                           eps=eps, momentum=momentum)
+
     def layer_norm(self, input: Tensor, axes: Sequence[int],
                    elementwise_affine: bool = True, eps: float = 1e-5,
                    name: Optional[str] = None) -> Tensor:
@@ -225,6 +260,13 @@ class FFModel:
     def rms_norm(self, input: Tensor, eps: float = 1e-6,
                  name: Optional[str] = None) -> Tensor:
         return self._unary(OperatorType.OP_RMSNORM, input, name, eps=eps)
+
+    def lstm(self, input: Tensor, hidden_size: int, num_layers: int = 1,
+             name: Optional[str] = None) -> Tensor:
+        """Multi-layer LSTM over (batch, seq, features)
+        (``ops/rnn_ops.py``)."""
+        return self._unary(OperatorType.OP_LSTM, input, name,
+                           hidden_size=hidden_size, num_layers=num_layers)
 
     def batch_matmul(self, a: Tensor, b: Tensor,
                      a_seq_length_dim: int = -1, b_seq_length_dim: int = -1,
@@ -242,6 +284,9 @@ class FFModel:
                 name: Optional[str] = None) -> Tensor:
         return self._unary(OperatorType.OP_DROPOUT, input, name, rate=rate,
                            seed=seed)
+
+    def flat(self, input: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.OP_FLAT, input, name)
 
     def reshape(self, input: Tensor, shape: Sequence[int],
                 name: Optional[str] = None) -> Tensor:
@@ -446,6 +491,9 @@ class FFModel:
     # ==================================================================
     # compile
     # ==================================================================
+    def set_optimizer(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Union[LossType, str, None] = None,
                 metrics: Optional[Sequence[Union[MetricsType, str]]] = None,
@@ -678,6 +726,40 @@ class FFModel:
 
     def get_perf_metrics(self):
         return self._current_metrics
+
+    def get_layer_by_name(self, name: str) -> Optional[Layer]:
+        for l in self.layers:
+            if l.name == name:
+                return l
+        return None
+
+    def get_layers(self) -> Dict[int, Layer]:
+        return dict(enumerate(self.layers))
+
+    # weights access (reference Parameter.get/set_weights NumPy round trip)
+    def get_weights(self, layer_name: str, weight_name: str = "kernel"
+                    ) -> np.ndarray:
+        t = self.params[layer_name][weight_name].detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    def set_weights(self, layer_name: str, weight_name: str,
+                    value: np.ndarray):
+        _replace_leaf(self.params, "weight", layer_name, weight_name, value)
+
+    def set_state(self, layer_name: str, key: str, value: np.ndarray):
+        """Overwrite one non-trainable state entry (e.g. batch-norm
+        running mean/var imported from a trained model)."""
+        _replace_leaf(self.state, "state", layer_name, key, value)
+
+    @property
+    def label_tensor_for_loaders(self) -> Tensor:
+        if self.label_tensor is None:
+            out = self._output_tensor or self.layers[-1].outputs[0]
+            self.label_tensor = Tensor(out.shape, DataType.DT_INT32,
+                                       name="label")
+        return self.label_tensor
 
     # ==================================================================
     # generation
@@ -1031,6 +1113,18 @@ class FFModel:
                                               top_p)
                 self._write_token(ids, nxt, cur, ragged)
             return ids
+
+
+def _replace_leaf(tree, what: str, layer_name: str, key: str, value):
+    """Put the array ``value`` in ``tree[layer_name][key]``, on the old
+    leaf's device and in its dtype; a shape other than the old leaf's
+    raises."""
+    cur = tree[layer_name][key]
+    if tuple(cur.shape) != tuple(np.shape(value)):
+        raise ValueError(f"{what} {layer_name}/{key} has shape "
+                         f"{tuple(cur.shape)}, got {tuple(np.shape(value))}")
+    tree[layer_name][key] = torch.as_tensor(np.asarray(value)).to(
+        device=cur.device, dtype=cur.dtype)
 
 
 def filter_logits(row: torch.Tensor, temperature: float, top_k: int = 0,

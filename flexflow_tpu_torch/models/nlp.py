@@ -1,13 +1,14 @@
-"""NLP model zoo of the ported slices: BERT, GPT-2, the LLaMA family and
-Mixtral.
+"""NLP model zoo: the Transformer encoder, BERT, GPT-2, the NMT seq2seq,
+the LLaMA family and Mixtral.
 
-The port of ``BertConfig``/``build_bert``, ``GPTConfig``/``build_gpt2``,
-``LlamaConfig``/``build_llama`` (with ``llama_fuse_params`` and
-``llama_load_hf_state_dict``) and ``MixtralConfig``/``build_mixtral``
-(with ``mixtral_load_hf_state_dict``) in ``flexflow_tpu/models/nlp.py``:
-the same layer sequences and weight layouts, so a model built in both
-packages lines up layer for layer (``interop``). The Transformer and NMT
-builders come with later slices.
+The port of ``TransformerConfig``/``build_transformer``,
+``BertConfig``/``build_bert``, ``GPTConfig``/``build_gpt2``,
+``NMTConfig``/``build_nmt``, ``LlamaConfig``/``build_llama`` (with
+``llama_fuse_params`` and ``llama_load_hf_state_dict``) and
+``MixtralConfig``/``build_mixtral`` (with ``mixtral_load_hf_state_dict``)
+in ``flexflow_tpu/models/nlp.py``: the same layer sequences and weight
+layouts, so a model built in both packages lines up layer for layer
+(``interop``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,45 @@ import torch
 
 from ..ffconst import ActiMode, AggrMode, DataType
 from ..model import FFModel
+
+
+@dataclasses.dataclass
+class TransformerConfig:
+    """The reference ``transformer.cc`` TransformerConfig defaults."""
+    hidden_size: int = 512
+    embedding_size: int = 512
+    num_heads: int = 8
+    num_layers: int = 6
+    sequence_length: int = 512
+
+
+def create_attention_encoder(ff: FFModel, input, hidden_dim: int,
+                             num_heads: int, kdim: int, vdim: int):
+    """One encoder layer as the reference ``transformer.cc:33-45``: MHA,
+    then two dense layers; no residual and no LayerNorm (the reference
+    example has neither)."""
+    t = ff.multihead_attention(input, input, input, hidden_dim, num_heads,
+                               kdim, vdim)
+    return ff.dense(ff.dense(t, hidden_dim, ActiMode.AC_MODE_RELU,
+                             use_bias=False),
+                    hidden_dim, ActiMode.AC_MODE_NONE, use_bias=False)
+
+
+def build_transformer(ff: FFModel, batch_size: int,
+                      cfg: TransformerConfig | None = None):
+    """The reference Transformer benchmark (``transformer.cc:135-158``):
+    an encoder stack on (B, L, H) input, a final dense(1); MSE loss. kdim
+    = vdim = hidden / heads, which the op splits over the heads again, so
+    each head is hidden / heads**2 wide (8 at the defaults)."""
+    cfg = cfg or TransformerConfig()
+    x = ff.create_tensor((batch_size, cfg.sequence_length, cfg.hidden_size),
+                         name="input")
+    t = x
+    for _ in range(cfg.num_layers):
+        t = create_attention_encoder(ff, t, cfg.hidden_size, cfg.num_heads,
+                                     cfg.hidden_size // cfg.num_heads,
+                                     cfg.hidden_size // cfg.num_heads)
+    return ff.dense(t, 1, ActiMode.AC_MODE_NONE, use_bias=False)
 
 
 @dataclasses.dataclass
@@ -134,6 +174,45 @@ def build_gpt2(ff: FFModel, batch_size: int, seq_len: int,
     t = ff.layer_norm(t, [-1])
     logits = ff.dense(t, cfg.vocab_size, use_bias=False, name="lm_head")
     return ff.softmax(logits)
+
+
+@dataclasses.dataclass
+class NMTConfig:
+    """LSTM seq2seq with attention (the reference's legacy ``nmt/`` app:
+    embed -> stacked LSTM encoder/decoder -> attention -> softmax)."""
+    src_vocab: int = 32000
+    tgt_vocab: int = 32000
+    embed_dim: int = 512
+    hidden_size: int = 512
+    num_layers: int = 2
+    num_heads: int = 1           # attention over encoder states
+
+
+def build_nmt(ff: FFModel, batch_size: int, src_len: int, tgt_len: int,
+              cfg: NMTConfig | None = None):
+    """Teacher-forcing NMT: an encoder LSTM over the source, a decoder
+    LSTM over the (shifted) target, the decoder attending to the encoder
+    states, a dense projection to the target vocabulary. Returns (b,
+    tgt_len, tgt_vocab) logits; train with sparse CE against the gold
+    target."""
+    cfg = cfg or NMTConfig()
+    src = ff.create_tensor((batch_size, src_len), dtype=DataType.DT_INT32,
+                           name="src_ids")
+    tgt = ff.create_tensor((batch_size, tgt_len), dtype=DataType.DT_INT32,
+                           name="tgt_ids")
+    enc = ff.embedding(src, cfg.src_vocab, cfg.embed_dim,
+                       AggrMode.AGGR_MODE_NONE, name="src_embed")
+    enc = ff.lstm(enc, cfg.hidden_size, cfg.num_layers, name="encoder")
+    dec = ff.embedding(tgt, cfg.tgt_vocab, cfg.embed_dim,
+                       AggrMode.AGGR_MODE_NONE, name="tgt_embed")
+    dec = ff.lstm(dec, cfg.hidden_size, cfg.num_layers, name="decoder")
+    # the attention readout over the encoder states, batched over all
+    # decoder positions
+    ctx = ff.multihead_attention(dec, enc, enc, cfg.hidden_size,
+                                 cfg.num_heads, name="attention")
+    h = ff.add(dec, ctx, name="attn_residual")
+    return ff.dense(h, cfg.tgt_vocab, ActiMode.AC_MODE_NONE,
+                    name="vocab_proj")
 
 
 @dataclasses.dataclass

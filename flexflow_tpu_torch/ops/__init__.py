@@ -16,3 +16,4 @@ from . import nn_ops        # noqa: E402,F401
 from . import element_ops   # noqa: E402,F401
 from . import tensor_ops    # noqa: E402,F401
 from . import moe_ops       # noqa: E402,F401
+from . import rnn_ops       # noqa: E402,F401

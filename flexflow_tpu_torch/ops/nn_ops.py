@@ -1,12 +1,12 @@
-"""Neural-net operators of the serving, training, generation, LLaMA and
-Mixtral slices: Linear, Softmax, Dropout, LayerNorm, RMSNorm, Embedding,
-BatchMatmul/Matmul and MultiHeadAttention (with its sliding window, its
-in-op rotary embeddings and its KV-cache prefill and decode paths).
+"""Neural-net operators: Linear, Conv2D, Pool2D, Flat, Softmax, Dropout,
+BatchNorm, LayerNorm, RMSNorm, Embedding, BatchMatmul/Matmul and
+MultiHeadAttention (with its sliding window, its in-op rotary embeddings
+and its KV-cache prefill and decode paths).
 
 The port of the same classes in ``flexflow_tpu/ops/nn_ops.py``: the same
 params, weight specs (names, shapes, initializers) and math, on torch
-tensors. Sequences are (batch, seq, hidden). Conv, pooling, BatchNorm
-and ring attention come with later slices and raise here.
+tensors. Images are NCHW, sequences (batch, seq, hidden). Ring attention
+comes with a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -16,11 +16,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ffconst import ActiMode, AggrMode, DataType, InitializerType, \
-    OperatorType
+    OperatorType, PoolType
 from ..core.tensor import WeightSpec
 from ..dtypes import to_torch
-from .registry import (OpDef, compute_dtype, generator_on, host_seed,
-                       matmul, mm_f32, register)
+from .registry import (OpDef, bf16_enabled, compute_dtype, generator_on,
+                       host_seed, matmul, mm_f32, register)
 
 
 def apply_activation(x, acti: ActiMode):
@@ -74,6 +74,117 @@ class LinearOp(OpDef):
 
 
 # ---------------------------------------------------------------------------
+def _out_hw(params, h, w):
+    """The (oh, ow) of a conv or pool window over an (h, w) image."""
+    oh = (h + 2 * params["padding_h"] - params["kernel_h"]) \
+        // params["stride_h"] + 1
+    ow = (w + 2 * params["padding_w"] - params["kernel_w"]) \
+        // params["stride_w"] + 1
+    return oh, ow
+
+
+@register
+class Conv2DOp(OpDef):
+    """2-D convolution, NCHW input, OIHW kernel, ``groups``, bias and a
+    trailing activation. As in the JAX package, f32 operands are cast to
+    bf16 (when bf16 compute is on) and the convolution returns bf16,
+    which is then cast to the input dtype before the f32 bias: the
+    result is rounded to bf16 once, where an f32-output convolution would
+    not round it. The convolution itself is ``F.conv2d`` (cuDNN on the
+    card): the JAX package leaves it to XLA too."""
+    op_type = OperatorType.OP_CONV2D
+
+    def infer(self, params, in_shapes, in_dtypes):
+        n, _, h, w = in_shapes[0]
+        oh, ow = _out_hw(params, h, w)
+        return [((n, params["out_channels"], oh, ow), in_dtypes[0])]
+
+    def weights(self, params, in_shapes, in_dtypes):
+        c = in_shapes[0][1]
+        groups = params.get("groups", 1)
+        dt = in_dtypes[0]
+        ws = [WeightSpec("kernel",
+                         (params["out_channels"], c // groups,
+                          params["kernel_h"], params["kernel_w"]), dt,
+                         params.get("kernel_initializer",
+                                    InitializerType.GLOROT_UNIFORM))]
+        if params.get("use_bias", True):
+            ws.append(WeightSpec("bias", (params["out_channels"],), dt,
+                                 InitializerType.ZERO))
+        return ws
+
+    def emit(self, params, inputs, weights, ctx, name):
+        (x,) = inputs
+        k = weights["kernel"]
+        cdt = x.dtype
+        if cdt == torch.float32 and bf16_enabled(ctx):
+            x16, k16 = x.to(torch.bfloat16), k.to(torch.bfloat16)
+        else:
+            x16, k16 = x, k.to(cdt)
+        y = F.conv2d(x16, k16, stride=(params["stride_h"],
+                                       params["stride_w"]),
+                     padding=(params["padding_h"], params["padding_w"]),
+                     groups=params.get("groups", 1))
+        y = y.to(cdt)
+        if "bias" in weights:
+            y = y + weights["bias"][None, :, None, None]
+        return [apply_activation(y, params.get("activation",
+                                               ActiMode.AC_MODE_NONE))]
+
+
+# ---------------------------------------------------------------------------
+@register
+class Pool2DOp(OpDef):
+    """Max or average pooling, NCHW. Max pooling starts from -inf, so
+    padding never wins; average pooling divides by the
+    whole window, padding included (``count_include_pad``, cuDNN's
+    default, which the reference uses)."""
+    op_type = OperatorType.OP_POOL2D
+
+    def infer(self, params, in_shapes, in_dtypes):
+        n, c, h, w = in_shapes[0]
+        oh, ow = _out_hw(params, h, w)
+        return [((n, c, oh, ow), in_dtypes[0])]
+
+    def emit(self, params, inputs, weights, ctx, name):
+        (x,) = inputs
+        kernel = (params["kernel_h"], params["kernel_w"])
+        stride = (params["stride_h"], params["stride_w"])
+        ph, pw = params["padding_h"], params["padding_w"]
+        is_max = PoolType(params.get("pool_type", PoolType.POOL_MAX)) \
+            == PoolType.POOL_MAX
+        if ph > kernel[0] // 2 or pw > kernel[1] // 2:
+            # torch's pools refuse padding above half the window, which
+            # the JAX package's reduce_window takes: pad explicitly with
+            # what the window starts from
+            x = F.pad(x, (pw, pw, ph, ph),
+                      value=float("-inf") if is_max else 0.0)
+            ph = pw = 0
+        if is_max:
+            y = F.max_pool2d(x, kernel, stride, (ph, pw))
+        else:
+            y = F.avg_pool2d(x, kernel, stride, (ph, pw),
+                             count_include_pad=True)
+        return [apply_activation(y, params.get("activation",
+                                               ActiMode.AC_MODE_NONE))]
+
+
+# ---------------------------------------------------------------------------
+@register
+class FlatOp(OpDef):
+    """NCHW -> (N, C*H*W)."""
+    op_type = OperatorType.OP_FLAT
+
+    def infer(self, params, in_shapes, in_dtypes):
+        s = in_shapes[0]
+        return [((s[0], math.prod(s[1:])), in_dtypes[0])]
+
+    def emit(self, params, inputs, weights, ctx, name):
+        (x,) = inputs
+        return [x.reshape(x.shape[0], -1)]
+
+
+# ---------------------------------------------------------------------------
 @register
 class SoftmaxOp(OpDef):
     op_type = OperatorType.OP_SOFTMAX
@@ -109,6 +220,62 @@ class DropoutOp(OpDef):
         keep = 1.0 - rate
         mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
+
+
+# ---------------------------------------------------------------------------
+@register
+class BatchNormOp(OpDef):
+    """Batch norm over NCHW (or (N, C)) input with running statistics in
+    the op state (``mean``, ``var``). In training, or without state, the
+    batch's mean and variance normalise; with state they also update the
+    running statistics (``ctx.new_state``, detached). Outside training
+    the running statistics normalise. As in the JAX package, the
+    variance is the biased one (divided by N) for both: torch's
+    ``F.batch_norm`` would update its running buffer with the unbiased
+    one, so it is not used. Computed in f32, cast back to the input's
+    dtype, then ReLU unless ``relu=False``."""
+    op_type = OperatorType.OP_BATCHNORM
+
+    def infer(self, params, in_shapes, in_dtypes):
+        return [(in_shapes[0], in_dtypes[0])]
+
+    def weights(self, params, in_shapes, in_dtypes):
+        c = in_shapes[0][1]
+        dt = in_dtypes[0]
+        return [WeightSpec("scale", (c,), dt, InitializerType.ONE),
+                WeightSpec("bias", (c,), dt, InitializerType.ZERO)]
+
+    def state_spec(self, params, in_shapes, in_dtypes):
+        c = in_shapes[0][1]
+        return {"mean": ((c,), DataType.DT_FLOAT),
+                "var": ((c,), DataType.DT_FLOAT)}
+
+    def emit(self, params, inputs, weights, ctx, name):
+        (x,) = inputs
+        eps = params.get("eps", 1e-5)
+        momentum = params.get("momentum", 0.1)
+        axes = (0, 2, 3) if x.dim() == 4 else (0,)
+        bshape = (1, -1) + (1,) * (x.dim() - 2)
+        st = ctx.state.get(name, {})
+        xf = x.float()
+        if ctx.training or not st:
+            mean = xf.mean(dim=axes)
+            var = xf.var(dim=axes, correction=0)
+            if st:
+                ctx.new_state[name] = {
+                    "mean": (1 - momentum) * st["mean"]
+                    + momentum * mean.detach(),
+                    "var": (1 - momentum) * st["var"]
+                    + momentum * var.detach()}
+        else:
+            mean, var = st["mean"], st["var"]
+        inv = torch.rsqrt(var + eps) * weights["scale"].float()
+        y = (xf - mean.reshape(bshape)) * inv.reshape(bshape) \
+            + weights["bias"].float().reshape(bshape)
+        y = y.to(x.dtype)
+        if params.get("relu", True):
+            y = torch.relu(y)
+        return [y]
 
 
 # ---------------------------------------------------------------------------

@@ -176,3 +176,40 @@ def test_chip_smoke_fails_without_a_card():
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_zoo_data_fits_each_published_graph():
+    """chip_smoke.py's zoo phase: each model's seeded data has the shapes
+    and dtypes of its graph inputs at the published widths (graphs built
+    on the CPU, no weight materialised), its flash layers are the
+    graph's attention layers, and its leaves fit one fused Adam launch,
+    as the phase's launch checks assume."""
+    import importlib.util
+    import numpy as np
+    from flexflow_tpu_torch import OperatorType
+    spec_ = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    assert "zoo" in smoke.PHASES
+    specs = smoke.zoo_specs()
+    assert [s.tag for s in specs] == [
+        "transformer", "nmt", "resnet50", "resnext50", "inception_v3",
+        "alexnet", "dlrm", "xdl"]
+    np_dtypes = {torch.float32: np.float32, torch.int32: np.int32}
+    for s in specs:
+        ff = FFModel(FFConfig(), device="cpu")
+        out = s.build(ff, s.batch)
+        xs, y = s.data(2, 0)
+        assert [(x.shape[1:], x.dtype) for x in xs] == [
+            (t.shape[1:], np.dtype(np_dtypes[t.torch_dtype]))
+            for t in ff.input_tensors], s.tag
+        if s.loss.startswith("sparse"):   # one class id per output row
+            assert np.prod(y.shape[1:]) == np.prod(out.shape[1:-1]), s.tag
+            assert y.dtype == np.int32 and y.max() < out.shape[-1], s.tag
+        else:
+            assert y.shape[1:] == out.shape[1:], s.tag
+        mha = [l for l in ff.layers
+               if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION]
+        assert len(mha) == s.flash, s.tag
+        assert sum(len(l.weights) for l in ff.layers) <= 384, s.tag
