@@ -105,14 +105,36 @@ never JAX, and:
                time (median, p90), peak memory; the Transformer and
                ResNet-50 also answer requests through
                InferenceSession.infer;
- 13. kernels - one JSON line with each kernel's launches, error and times.
+ 13. frontends - the frontends' entry points on the card: (a) BERT-base
+               written in plain torch.nn (vocab 30522, hidden 768, 12
+               heads, FFN 3072, 12 layers, positions from torch.arange,
+               which the import folds into a constant) imported through
+               PyTorchModel.torch_to_ff at 8 x 512 with
+               kernel_impls="attention:flash,opt_update:fused" and
+               copy_weights: InferenceSession.infer of 1, 3, 8 rows (12
+               flash launches a forward, one host-to-device copy a
+               request), against plain attention; fit for 3 steps at
+               dropout 0.1 (12 / 12 / 12 flash and ceil(leaves / 384)
+               Adam launches a step); the dropout-0 loss history against
+               plain attention + unfused Adam; step time and peak memory.
+               (b) The Keras layer set at BERT-base width, 8 x 128,
+               through Model.compile("adam") and Model.fit with a
+               LearningRateScheduler and an EarlyStopping that stops after
+               the second epoch (the scheduled alpha checked, as the
+               fused Adam's alpha_t), then predict. (c) AlexNet's layers
+               (1000 classes, 229 x 229, batch 64) encoded with the ONNX
+               wire encoder, imported through ONNXModel.apply, served and
+               held against an f32 functional forward of the same
+               initializers, then 3 fit steps with the fused Adam;
+ 14. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
 build,kernel,ktimes`` also times them, ``--phases build,kernel,generate``
 drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 ``--phases build,kernel,mixtral,moe`` Mixtral and the MoE example,
-``--phases build,kernel,zoo`` the rest of the model zoo; with
+``--phases build,kernel,zoo`` the rest of the model zoo, ``--phases
+build,kernel,frontends`` the frontends; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
@@ -2158,16 +2180,11 @@ def zoo_run(spec, smi: str) -> dict:
     every launch counted, the timed steps and their peak memory, the
     served requests; then the same weights, state and batch through plain
     attention and the unfused Adam."""
-    from flexflow_tpu_torch.kernels.opt_update import _c_fn
-    from flexflow_tpu_torch.runtime.optimizers import tree_leaves
     from flexflow_tpu_torch.serving import InferenceSession
     t0 = time.perf_counter()
     ff = zoo_model(spec, "attention:flash,opt_update:fused")
     torch.cuda.synchronize()
-    leaves = [t for _, _, t in tree_leaves(ff.params)]
-    n_params, n_leaves = sum(t.numel() for t in leaves), len(leaves)
-    del leaves
-    adam = -(-n_leaves // _c_fn("ff_adam_max_leaves")())
+    n_params, n_leaves, adam = leaf_counts(ff)
     init, init_state = host_tree(ff.params), host_tree(ff.state)
     print(f"[zoo] {spec.what}, batch {spec.batch}: {n_params} f32 "
           f"parameters in {n_leaves} leaves, {len(ff.state)} BatchNorm "
@@ -2317,13 +2334,528 @@ def phase_zoo(smi: str) -> dict:
     return res
 
 
+FE_SEQ = 512          # the fx import's sequence (BERT-base's longest)
+FE_KERAS_SEQ = 128    # the Keras model's sequence
+FE_STEPS = 3          # fit steps of each imported model
+FE_HIST_STEPS = 4     # steps of the dropout-0 history comparison
+FE_TIMED = 6          # timed train steps of the fx import
+FE_ROWS = 8           # batch of the fx and Keras models
+ONNX_BATCH = 64       # AlexNet's batch (alexnet.cc's)
+# ONNX AlexNet through the port (bf16 conv and matmul operands, f32
+# accumulation) vs an f32 functional forward of the same initializers, on
+# the logits, relative to the oracle's largest |logit|: each of the 8
+# layers rounds its operands to bf16 (2**-9 relative each), and the
+# roundings add up through the depth
+ONNX_TOL = 3e-2
+
+
+class FxBlock(torch.nn.Module):
+    """A BERT encoder block in plain torch.nn (post-norm, as BERT)."""
+
+    def __init__(self, d, heads, ffn, dropout):
+        super().__init__()
+        nn = torch.nn
+        self.attn = nn.MultiheadAttention(d, heads, dropout=dropout,
+                                          batch_first=True)
+        self.ln1 = nn.LayerNorm(d, eps=1e-12)
+        self.fc1 = nn.Linear(d, ffn)
+        self.act = nn.GELU()
+        self.fc2 = nn.Linear(ffn, d)
+        self.ln2 = nn.LayerNorm(d, eps=1e-12)
+
+    def forward(self, x):
+        a, _ = self.attn(x, x, x)
+        x = self.ln1(x + a)
+        return self.ln2(x + self.fc2(self.act(self.fc1(x))))
+
+
+class FxBert(torch.nn.Module):
+    """BERT-base's encoder as a user writes it in torch.nn: token and
+    position embeddings (positions from ``torch.arange``, which the fx
+    import folds into a constant), 12 blocks, a 2-class head on the first
+    token."""
+
+    def __init__(self, seq, dropout, vocab=30522, d=768, heads=12,
+                 ffn=3072, layers=12):
+        super().__init__()
+        nn = torch.nn
+        self.seq = seq
+        self.tok = nn.Embedding(vocab, d)
+        self.pos = nn.Embedding(512, d)
+        self.blocks = nn.ModuleList(FxBlock(d, heads, ffn, dropout)
+                                    for _ in range(layers))
+        self.head = nn.Linear(d, 2)
+
+    def forward(self, ids):
+        x = self.tok(ids) + self.pos(torch.arange(self.seq))
+        for b in self.blocks:
+            x = b(x)
+        return torch.softmax(self.head(x[:, 0]), dim=-1)
+
+
+def fx_import(dropout: float, impl: str):
+    """FxBert on the CPU (seeded), imported through
+    ``PyTorchModel.torch_to_ff`` at FE_ROWS x FE_SEQ onto the card,
+    compiled (Adam 1e-4, epsilon 1e-4), the torch weights copied."""
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel)
+    from flexflow_tpu_torch.frontends import PyTorchModel
+    torch.manual_seed(0)
+    module = FxBert(FE_SEQ, dropout)
+    cfg = FFConfig()
+    cfg.batch_size = FE_ROWS
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = impl
+    cfg.seed = 0
+    ff = FFModel(cfg)
+    x = ff.create_tensor((FE_ROWS, FE_SEQ), DataType.DT_INT32,
+                         name="input_ids")
+    pm = PyTorchModel(module)
+    outs = pm.torch_to_ff(ff, [x])
+    ff.compile(AdamOptimizer(1e-4, epsilon=1e-4),
+               "sparse_categorical_crossentropy", ["accuracy"],
+               output_tensor=outs[0])
+    pm.copy_weights(ff)
+    return ff
+
+
+def fe_ids(rows: int, seq: int, seed: int, vocab: int = 30522):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (rows, seq)).astype(np.int32),
+            rng.integers(0, 2, (rows, 1)).astype(np.int32))
+
+
+def leaf_counts(ff) -> tuple:
+    """(parameters, leaves, fused Adam launches a step) of ``ff``: the
+    kernel takes up to ``ff_adam_max_leaves`` leaves a launch."""
+    from flexflow_tpu_torch.kernels.opt_update import _c_fn
+    leaves = [t for ws in ff.params.values() for t in ws.values()]
+    n = len(leaves)
+    return (sum(t.numel() for t in leaves), n,
+            -(-n // _c_fn("ff_adam_max_leaves")()))
+
+
+def htod_copies(fn, dst: str = "cuda") -> int:
+    """The host-to-device copies one call of ``fn`` makes: every ATen
+    copy (``to``, which inference mode dispatches whole, ``_to_copy``,
+    ``copy_``) from a CPU tensor to one on ``dst``, counted by a
+    dispatch mode. (torch.profiler's "Memcpy HtoD" device records are
+    not a count: after an earlier profile in the same process they can
+    come back empty.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+
+    class Copies(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket in (aten.to, aten._to_copy):
+                src, to = args[0], out
+            elif func.overloadpacket is aten.copy_:
+                to, src = args[0], args[1]
+            else:
+                return out
+            if isinstance(src, torch.Tensor) and src.device.type == "cpu" \
+                    and to.device.type == dst:
+                Copies.n += 1
+            return out
+
+    with Copies():
+        fn()
+    return Copies.n
+
+
+def fe_fx(smi: str) -> dict:
+    """(a) the slice's main path: BERT-base width and depth written in
+    torch.nn, imported through torch.fx, served and trained on the card
+    through the flash and fused-Adam kernels."""
+    from flexflow_tpu_torch import OperatorType
+    from flexflow_tpu_torch.serving import InferenceSession
+    t0 = time.perf_counter()
+    ff = fx_import(0.1, "attention:flash,opt_update:fused")
+    mha = [l for l in ff.layers
+           if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION]
+    n_params, n_leaves, adam = leaf_counts(ff)
+    (pos,) = ff.const_inputs
+    staged = ff.executor.program._staged[pos.guid][2]
+    print(f"[frontends] fx: FxBert (torch.nn; vocab 30522, hidden 768, 12 "
+          f"heads, FFN 3072, 12 layers, attention dropout 0.1) imported "
+          f"through PyTorchModel.torch_to_ff at {FE_ROWS}x{FE_SEQ} in "
+          f"{time.perf_counter() - t0:.2f} s: {len(ff.layers)} layers, "
+          f"{len(mha)} attention, {n_params} parameters in {n_leaves} "
+          f"leaves; folded constant {pos.name} {pos.shape} staged on "
+          f"{staged.device}")
+    check(len(mha) == LAYERS, f"fx import has {len(mha)} attention layers")
+    check(staged.device.type == "cuda" and pos.shape == (FE_SEQ,),
+          "the position constant is not staged on the card")
+    sess = InferenceSession(ff, batch_buckets=(FE_ROWS,))
+    reqs = {rows: {"input_ids": fe_ids(rows, FE_SEQ, 40 + rows)[0]}
+            for rows in (1, 3, 8)}
+    sess.infer(reqs[8])
+    torch.cuda.synchronize()
+    fwd = zero_counts()["flash_attention_fwd"]   # the main path from here
+    outs = {rows: sess.infer(r) for rows, r in reqs.items()}
+    serve = fwd.launches
+    print(f"[frontends] fx: InferenceSession.infer of 1, 3, 8 rows: flash "
+          f"forward launches {serve} (want {LAYERS} x 3)")
+    check(serve == LAYERS * 3, f"fx serve launches {serve}")
+    with attention_plan(ff, "xla"):
+        plain = {rows: sess.infer(r) for rows, r in reqs.items()}
+    for rows, out in outs.items():
+        err = float(np.abs(out - plain[rows]).max())
+        sums = float(np.abs(out.sum(axis=1) - 1.0).max())
+        ok = out.shape == (rows, 2) and bool(np.isfinite(out).all()) \
+            and sums < 1e-5 and err <= SLICE_TOL
+        print(f"[frontends] fx: request of {rows} rows: shape {out.shape}, "
+              f"|row sum - 1| <= {sums:.1e}, max|flash - plain attention| "
+              f"= {err:.3e} (tol {SLICE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"fx import served output, {rows} rows")
+    h2d = htod_copies(lambda: sess.infer(reqs[8]))
+    print(f"[frontends] fx: one served request makes {h2d} host-to-device "
+          f"copies (want 1: the request's ids, the position constant "
+          f"staying on the card)")
+    check(h2d == 1, f"served request makes {h2d} host-to-device copies")
+
+    ids, y = fe_ids(FE_ROWS, FE_SEQ, 7)
+    fns = zero_counts()   # the main path: fit
+    history = ff.fit([ids], y, epochs=FE_STEPS, verbose=False)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd": LAYERS * FE_STEPS,
+            "flash_attention_bwd_dq": LAYERS * FE_STEPS,
+            "flash_attention_bwd_dkv": LAYERS * FE_STEPS,
+            "adam_update": adam * FE_STEPS}
+    losses = [r["loss"] for r in history]
+    print(f"[frontends] fx: fit, {FE_STEPS} steps at dropout 0.1, loss "
+          f"{[round(v, 5) for v in losses]}; launches {launches} (want "
+          f"{want}: ceil({n_leaves} leaves / 384) Adam launches a step)")
+    check(launches == want, f"fx train launches {launches} != {want}")
+    check(all(np.isfinite(v) for v in losses), f"fx losses {losses}")
+    batch = {"input_ids": torch.from_numpy(ids).cuda(),
+             "label": torch.from_numpy(y).cuda()}
+    step_fn = ff.executor.make_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(FE_TIMED):
+        t1 = time.perf_counter()
+        ff._run_train_step(step_fn, batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    step_h2d = htod_copies(lambda: ff._run_train_step(step_fn, batch))
+    res = {"serve_launches": serve, "train_launches": launches,
+           "adam_per_step": adam, "leaves": n_leaves, "params": n_params,
+           "step_ms": float(np.percentile(lat, 50)),
+           "step_p90_ms": float(np.percentile(lat, 90)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step_htod": step_h2d}
+    print(f"[frontends] fx train step {FE_ROWS}x{FE_SEQ} (flash + fused "
+          f"Adam, dropout 0.1): median {res['step_ms']:.3f} ms, p90 "
+          f"{res['step_p90_ms']:.3f} ms over {FE_TIMED} steps (host clock, "
+          f"each ending in a device sync); peak device memory "
+          f"{res['peak_gb']:.3f} GB; {step_h2d} host-to-device copies a "
+          f"step with the batch on the card; {smi}")
+    check(ff.executor.program._staged[pos.guid][2] is staged,
+          "the position constant was copied again")
+    del ff, sess, step_fn, batch
+    free_cuda()
+
+    # dropout 0: the same params through flash + fused Adam and through
+    # plain attention + the unfused Adam, one batch a step
+    ff = fx_import(0.0, "attention:flash,opt_update:fused")
+    init = host_tree(ff.params)
+    ids, y = fe_ids(FE_ROWS, FE_SEQ, 11)
+    a = [r["loss"] for r in ff.fit([ids], y, epochs=FE_HIST_STEPS,
+                                   verbose=False)]
+    del ff
+    free_cuda()
+    ref = fx_import(0.0, "attention:xla")
+    ref.params = device_tree(init)
+    b = [r["loss"] for r in ref.fit([ids], y, epochs=FE_HIST_STEPS,
+                                    verbose=False)]
+    del ref
+    free_cuda()
+    err = float(np.abs(np.array(a) - np.array(b)).max())
+    ok = err <= TRAIN_TOL and bool(np.all(np.isfinite(a)))
+    print(f"[frontends] fx: dropout 0, {FE_HIST_STEPS} steps from the same "
+          f"params: loss flash + fused Adam {[round(v, 5) for v in a]}, "
+          f"plain attention + unfused Adam {[round(v, 5) for v in b]}: "
+          f"max|diff| = {err:.3e} (tol {TRAIN_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "fx import: dropout-0 loss histories disagree")
+    res["loss_diff"] = err
+    return res
+
+
+def keras_bert(k, seq: int, dropout: float = 0.1):
+    """BERT-base width and depth through the Keras layer set: token and
+    position embeddings, 12 blocks of MultiHeadAttention(12, 64) / Add /
+    LayerNormalization / Dense, and a Flatten -> Dense(2) -> Softmax head."""
+    from flexflow_tpu_torch import DataType
+    ids = k.Input((seq,), DataType.DT_INT32, name="input_ids")
+    pos = k.Input((seq,), DataType.DT_INT32, name="position_ids")
+    x = k.Add()([k.Embedding(30522, 768)(ids.tensor),
+                 k.Embedding(512, 768)(pos.tensor)])
+    for _ in range(LAYERS):
+        a = k.MultiHeadAttention(12, 64, dropout=dropout)(x, x)
+        x = k.LayerNormalization(epsilon=1e-12)(k.Add()([x, a]))
+        f = k.Dense(768)(k.Dense(3072, activation="gelu")(x))
+        x = k.LayerNormalization(epsilon=1e-12)(k.Add()([x, f]))
+    out = k.Softmax()(k.Dense(2)(k.Flatten()(x)))
+    return k.Model(inputs=[ids, pos], outputs=out)
+
+
+def fe_keras() -> dict:
+    """(b) the Keras frontend at BERT-base width: Model.compile("adam")
+    on the card, fit with a learning-rate schedule and an early stop."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.frontends import keras
+    from flexflow_tpu_torch.frontends.keras.callbacks import (
+        Callback, EarlyStopping, LearningRateScheduler)
+    t0 = time.perf_counter()
+    model = keras_bert(keras, FE_KERAS_SEQ)
+    cfg = FFConfig()
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = "attention:flash,opt_update:fused"
+    cfg.seed = 0
+    model.compile("adam", "sparse_categorical_crossentropy", ["accuracy"],
+                  config=cfg, batch_size=FE_ROWS)
+    ff = model.ffmodel
+    _, n_leaves, adam = leaf_counts(ff)
+    print(f"[frontends] keras: BERT-base width (12 x MultiHeadAttention(12, "
+          f"64), hidden 768, FFN 3072, vocab 30522) compiled through "
+          f"Model.compile('adam', batch_size={FE_ROWS}) at "
+          f"{FE_ROWS}x{FE_KERAS_SEQ} on {ff.device} in "
+          f"{time.perf_counter() - t0:.2f} s: {len(ff.layers)} layers, "
+          f"{n_leaves} leaves")
+    check(ff.device.type == "cuda", "the Keras model is not on the card")
+
+    def schedule(epoch):
+        return 1e-4 / epoch
+
+    class Rates(Callback):   # after the scheduler: the rate of the next step
+        def __init__(self):
+            self.seen = []
+
+        def on_epoch_end(self, epoch, logs=None):
+            opt = self.model.ffmodel.optimizer
+            self.seen.append((opt.alpha, float(opt.alpha_t(
+                self.model.ffmodel._step + 1, ff.device))))
+
+    ids, y = fe_ids(FE_ROWS, FE_KERAS_SEQ, 21)
+    pos = np.tile(np.arange(FE_KERAS_SEQ, dtype=np.int32), (FE_ROWS, 1))
+    stop = EarlyStopping(monitor="loss", patience=1, min_delta=1e9)
+    rates = Rates()
+    torch.cuda.synchronize()
+    fns = zero_counts()   # the main path: Model.fit
+    history = model.fit([ids, pos], y, epochs=3, verbose=False,
+                        callbacks=[LearningRateScheduler(schedule), stop,
+                                   rates])
+    launches = {name: fn.launches for name, fn in fns.items()}
+    steps = len(history)
+    want = {"flash_attention_fwd": LAYERS * steps,
+            "flash_attention_bwd_dq": LAYERS * steps,
+            "flash_attention_bwd_dkv": LAYERS * steps,
+            "adam_update": adam * steps}
+    losses = [r["loss"] for r in history]
+    b1, b2 = ff.optimizer.beta1, ff.optimizer.beta2
+    want_rates = [(schedule(e + 1), schedule(e + 1) * np.sqrt(
+        1 - b2 ** (e + 2)) / (1 - b1 ** (e + 2))) for e in range(steps)]
+    print(f"[frontends] keras: Model.fit(epochs=3) with LearningRate"
+          f"Scheduler(1e-4 / epoch) and EarlyStopping(loss, patience 1, "
+          f"min_delta 1e9): {steps} epochs (stopped at epoch "
+          f"{stop.stopped_epoch}), loss {[round(v, 5) for v in losses]}; "
+          f"alpha and the next step's alpha_t after each epoch "
+          f"{rates.seen} (want {want_rates}); launches {launches} (want "
+          f"{want})")
+    check(steps == 2 and stop.stopped_epoch == 1,
+          f"Keras fit ran {steps} epochs")
+    check(launches == want, f"Keras launches {launches} != {want}")
+    check(all(np.isfinite(v) for v in losses), f"Keras losses {losses}")
+    # alpha_t is computed in f32 on the card: 1 - beta2**t loses ~1e-5
+    check(np.allclose(rates.seen, want_rates, rtol=1e-4, atol=0),
+          f"scheduled rates {rates.seen} != {want_rates}")
+    pred = model.predict([ids, pos])
+    print(f"[frontends] keras: predict {pred.shape}, finite "
+          f"{bool(np.isfinite(pred).all())}")
+    check(pred.shape == (FE_ROWS, 2) and bool(np.isfinite(pred).all()),
+          "Keras predict")
+    res = {"launches": launches, "epochs": steps, "adam_per_step": adam,
+           "rates": rates.seen}
+    del model, ff
+    free_cuda()
+    return res
+
+
+def alexnet_onnx(seed: int):
+    """AlexNet's layers as alexnet.cc has them (``build_alexnet``: 1000
+    classes, 229 x 229) encoded with the port's ONNX wire encoder, with
+    seeded He-normal initializers; returns (bytes, initializers)."""
+    from flexflow_tpu_torch.frontends import onnx_wire as w
+    rng = np.random.default_rng(seed)
+    ini, nodes = {}, []
+
+    def param(name, shape, fan_in):
+        ini[name] = (rng.standard_normal(shape, dtype=np.float32)
+                     * np.float32(np.sqrt(2.0 / fan_in)))
+        ini[name + "_b"] = (0.01 * rng.standard_normal(shape[0],
+                                                       dtype=np.float32))
+
+    x, c_in = "input", 3
+    convs = [(64, 11, 4, 2, True), (192, 5, 1, 2, True),
+             (384, 3, 1, 1, False), (256, 3, 1, 1, False),
+             (256, 3, 1, 1, True)]
+    for i, (c, k, s, p, pool) in enumerate(convs):
+        param(f"conv{i}", (c, c_in, k, k), c_in * k * k)
+        nodes += [w.make_node("Conv", [x, f"conv{i}", f"conv{i}_b"],
+                              [f"c{i}"], name=f"conv{i}",
+                              kernel_shape=[k, k], strides=[s, s],
+                              pads=[p, p, p, p]),
+                  w.make_node("Relu", [f"c{i}"], [f"r{i}"],
+                              name=f"relu{i}")]
+        x, c_in = f"r{i}", c
+        if pool:
+            nodes.append(w.make_node("MaxPool", [x], [f"p{i}"],
+                                     name=f"pool{i}", kernel_shape=[3, 3],
+                                     strides=[2, 2]))
+            x = f"p{i}"
+    nodes.append(w.make_node("Flatten", [x], ["flat"], name="flat"))
+    x, f_in = "flat", 256 * 6 * 6
+    for i, f_out in enumerate((4096, 4096, ZOO_CLASSES)):
+        param(f"fc{i}", (f_out, f_in), f_in)
+        nodes.append(w.make_node("Gemm", [x, f"fc{i}", f"fc{i}_b"],
+                                 [f"g{i}"], name=f"fc{i}", transB=1))
+        x, f_in = f"g{i}", f_out
+        if i < 2:
+            nodes.append(w.make_node("Relu", [x], [f"gr{i}"],
+                                     name=f"fc_relu{i}"))
+            x = f"gr{i}"
+    nodes.append(w.make_node("Softmax", [x], ["probs"], name="softmax",
+                             axis=-1))
+    data = w.make_model(
+        nodes, [w.make_value_info("input", 1, (ONNX_BATCH, 3, 229, 229))],
+        [w.make_value_info("probs", 1, (ONNX_BATCH, ZOO_CLASSES))],
+        [w.make_tensor(n, a) for n, a in ini.items()], graph_name="alexnet")
+    return data, ini
+
+
+def alexnet_oracle(ini: dict, x: torch.Tensor) -> torch.Tensor:
+    """The logits of the same initializers by an f32 functional forward
+    on the card (the oracle only; TF32 off)."""
+    F = torch.nn.functional
+    dev = {n: torch.from_numpy(a).cuda() for n, a in ini.items()}
+    convs = [(4, 2, True), (1, 2, True), (1, 1, False), (1, 1, False),
+             (1, 1, True)]
+    with torch.no_grad():
+        for i, (s, p, pool) in enumerate(convs):
+            x = F.relu(F.conv2d(x, dev[f"conv{i}"], dev[f"conv{i}_b"], s, p))
+            if pool:
+                x = F.max_pool2d(x, 3, 2)
+        x = x.flatten(1)
+        for i in range(3):
+            x = F.linear(x, dev[f"fc{i}"], dev[f"fc{i}_b"])
+            if i < 2:
+                x = F.relu(x)
+    return x
+
+
+def fe_onnx() -> dict:
+    """(c) ONNX through the wire codec: AlexNet's bytes imported with
+    ONNXModel.apply, served through InferenceSession.infer and held
+    against the f32 oracle, then trained through fit."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.frontends.onnx_frontend import ONNXModel
+    from flexflow_tpu_torch.serving import InferenceSession
+    t0 = time.perf_counter()
+    data, ini = alexnet_onnx(5)
+    t_enc = time.perf_counter() - t0
+    om = ONNXModel(data)
+    del data
+    cfg = FFConfig()
+    cfg.batch_size = ONNX_BATCH
+    cfg.only_data_parallel = True
+    cfg.kernel_impls = "opt_update:fused"
+    cfg.seed = 0
+    ff = FFModel(cfg)
+    x_t = ff.create_tensor((ONNX_BATCH, 3, 229, 229), name="input")
+    (out,) = om.apply(ff, {"input": x_t})
+    ff.compile(AdamOptimizer(1e-4, epsilon=1e-4),
+               "sparse_categorical_crossentropy", [], output_tensor=out)
+    om.copy_weights(ff)
+    _, n_leaves, adam = leaf_counts(ff)
+    print(f"[frontends] onnx: AlexNet ({len(ini) // 2} weight layers, "
+          f"{sum(a.size for a in ini.values())} parameters) encoded with "
+          f"onnx_wire in {t_enc:.2f} s, imported through ONNXModel.apply "
+          f"and copy_weights: {len(ff.layers)} layers, {n_leaves} leaves, "
+          f"{time.perf_counter() - t0:.2f} s in all")
+    rng = np.random.default_rng(6)
+    xs = rng.standard_normal((ONNX_BATCH, 3, 229, 229), dtype=np.float32)
+    y = rng.integers(0, ZOO_CLASSES, (ONNX_BATCH, 1)).astype(np.int32)
+    sess = InferenceSession(ff, batch_buckets=(ONNX_BATCH,))
+    probs = sess.infer({"input": xs})
+    logits = ff.executor.scored_forward(ff.params, ff.state,
+                                        {"input": xs}).float()
+    oracle = alexnet_oracle(ini, torch.from_numpy(xs).cuda())
+    scale = float(oracle.abs().max())
+    err = float((logits - oracle).abs().max()) / scale
+    perr = float(np.abs(probs - torch.softmax(oracle, -1).cpu().numpy())
+                 .max())
+    agree = float((logits.argmax(-1) == oracle.argmax(-1)).float().mean())
+    ok = probs.shape == (ONNX_BATCH, ZOO_CLASSES) \
+        and bool(np.isfinite(probs).all()) and err <= ONNX_TOL
+    print(f"[frontends] onnx: InferenceSession.infer of {ONNX_BATCH} rows "
+          f"{probs.shape}; logits against the f32 oracle (F.conv2d, "
+          f"F.max_pool2d, F.linear): max|diff| = {err:.3e} of max|logit| "
+          f"{scale:.3f} (tol {ONNX_TOL:.0e}), probabilities max|diff| "
+          f"{perr:.3e}, argmax agrees on {agree:.3f} of rows "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "ONNX AlexNet logits against the oracle")
+    del sess, logits, oracle
+    fns = zero_counts()   # the main path: fit
+    history = ff.fit([xs], y, epochs=FE_STEPS, verbose=False)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "adam_update": adam * FE_STEPS}
+    losses = [r["loss"] for r in history]
+    print(f"[frontends] onnx: fit, {FE_STEPS} steps, loss "
+          f"{[round(v, 5) for v in losses]}; launches {launches} (want "
+          f"{want})")
+    check(launches == want, f"ONNX launches {launches} != {want}")
+    check(all(np.isfinite(v) for v in losses), f"ONNX losses {losses}")
+    res = {"launches": launches, "logit_err": err, "adam_per_step": adam}
+    del ff, om
+    free_cuda()
+    return res
+
+
+def phase_frontends(smi: str) -> dict:
+    """The frontends on the card: (a) a torch.nn BERT-base imported
+    through torch.fx (the slice's main path), (b) the Keras layer set at
+    BERT-base width with callbacks, (c) ONNX AlexNet through the wire
+    codec."""
+    res = {}
+    for name, fn, a in (("fx", fe_fx, (smi,)), ("keras", fe_keras, ()),
+                        ("onnx", fe_onnx, ())):
+        t0 = time.perf_counter()
+        res[name] = fn(*a)
+        print(f"[wall] frontends {name}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo) -> list:
+                zoo, fe) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
-    DLRM, and the LLaMA, Mixtral, MoE and zoo launches beside them."""
+    DLRM, and the LLaMA, Mixtral, MoE, zoo and frontends launches beside
+    them."""
     zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
+    fe_launches = {"fx_train": fe["fx"]["train_launches"],
+                   "keras_train": fe["keras"]["launches"],
+                   "onnx_train": fe["onnx"]["launches"]}
+
+    def fe_row(name):
+        return {k: v[name] for k, v in fe_launches.items()}
 
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
@@ -2381,7 +2913,11 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "transformer_b64_h8_s512_d8": dict(kt["fwd_transformer"]),
         "zoo_train_launches": {t: n["flash_attention_fwd"]
                                for t, n in zoo_launches.items()},
-        "zoo_serve_launches": zoo["transformer"]["serve_launches"]}]
+        "zoo_serve_launches": zoo["transformer"]["serve_launches"],
+        # the frontends: the fx import's served forwards (12 a forward)
+        # and each imported model's fit
+        "frontends_serve_launches": fe["fx"]["serve_launches"],
+        "frontends_train_launches": fe_row("flash_attention_fwd")}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -2408,6 +2944,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                 key, kt["bwd_transformer"]),
             "zoo_train_launches": {t: n[name]
                                    for t, n in zoo_launches.items()},
+            "frontends_train_launches": fe_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)"})
     a = kt["adam"]
@@ -2426,6 +2963,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "moe_train_launches": moe["launches"]["adam_update"],
         "zoo_train_launches": {t: n["adam_update"]
                                for t, n in zoo_launches.items()},
+        "frontends_train_launches": fe_row("adam_update"),
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")}})
@@ -2433,7 +2971,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
-          "generate", "llama", "mixtral", "moe", "zoo")
+          "generate", "llama", "mixtral", "moe", "zoo", "frontends")
 
 
 def main() -> int:
@@ -2479,13 +3017,14 @@ def main() -> int:
     run("mixtral", phase_mixtral, smi)
     run("moe", phase_moe)
     run("zoo", phase_zoo, smi)
+    run("frontends", phase_frontends, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
     print(json.dumps({"kernels": kernel_rows(
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
-        res["zoo"])}))
+        res["zoo"], res["frontends"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

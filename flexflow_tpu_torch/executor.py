@@ -53,23 +53,52 @@ class GraphProgram:
         self.layers = list(layers)
         self.input_tensors = list(input_tensors)
         self.output_tensors = list(output_tensors)
+        # attached constants on the device, by tensor guid: (the host
+        # array they were copied from, the device asked for, the tensor
+        # there). The device is kept as asked ("cuda"), since the
+        # tensor's own device names the index ("cuda:0")
+        self._staged: Dict[int, Tuple[Any, torch.device,
+                                      torch.Tensor]] = {}
+
+    @staticmethod
+    def _to_device(value, t: Tensor, device: torch.device) -> torch.Tensor:
+        if isinstance(value, np.ndarray):
+            value = torch.from_numpy(np.ascontiguousarray(value))
+        return value.to(device=device, dtype=to_torch(t.dtype))
+
+    def stage_consts(self, device: torch.device) -> None:
+        """Copy every attached constant (``Tensor.set_tensor``: folded
+        positions and masks of an imported graph, ``create_constant``) to
+        ``device`` once, so that no call copies it again. A constant
+        whose host value is replaced later is copied again at its next
+        use."""
+        with torch.inference_mode(False):
+            for t in self.input_tensors:
+                src = t.get_tensor()
+                if src is not None and not self._is_staged(t, device):
+                    self._staged[t.guid] = (
+                        src, device, self._to_device(src, t, device))
+
+    def _is_staged(self, t: Tensor, device: torch.device) -> bool:
+        hit = self._staged.get(t.guid)
+        return hit is not None and hit[0] is t.get_tensor() \
+            and hit[1] == device
 
     def init_env(self, inputs: Dict[str, Any],
                  device: torch.device) -> Dict[int, Any]:
         """Graph inputs by tensor guid: the batch's arrays (numpy or
         torch) on ``device`` in each tensor's declared dtype, and the
-        attached constants."""
+        attached constants, staged on the device (``stage_consts``)."""
         env: Dict[int, Any] = {}
         for t in self.input_tensors:
             if t.name in inputs:
-                value = inputs[t.name]
+                env[t.guid] = self._to_device(inputs[t.name], t, device)
             elif t.get_tensor() is not None:
-                value = t.get_tensor()
+                if not self._is_staged(t, device):
+                    self.stage_consts(device)
+                env[t.guid] = self._staged[t.guid][2]
             else:
                 raise KeyError(f"missing input {t.name}")
-            if isinstance(value, np.ndarray):
-                value = torch.from_numpy(np.ascontiguousarray(value))
-            env[t.guid] = value.to(device=device, dtype=to_torch(t.dtype))
         return env
 
     def _frees(self, layers: Sequence[Layer]) -> List[List[int]]:

@@ -5,12 +5,12 @@ of every model of the zoo (same names, params and auto-naming as the
 JAX package, so the two graphs of one model line up layer for layer),
 constants (``create_constant``), ``compile`` without search or mesh
 (parameters, op state and optimizer state materialized), the forced path
-of the kernel tier, the training loop (``fit``, ``eval``, ``forward``,
-the phase-API no-ops), generation (``generate`` over a KV cache or by
-full re-forwards, greedy or sampled, ragged prompts, eos;
-``generate_beam``) and the weight and state accessors. The strategy
-search, checkpoints, ``recompile_on_condition``, and the fault hooks,
-callbacks and telemetry of ``fit`` come with later slices.
+of the kernel tier, the training loop (``fit`` with its epoch-callback
+hook, ``eval``, ``forward``, the phase-API no-ops), generation
+(``generate`` over a KV cache or by full re-forwards, greedy or sampled,
+ragged prompts, eos; ``generate_beam``) and the weight and state
+accessors. The strategy search, checkpoints, ``recompile_on_condition``,
+and the fault hooks and telemetry of ``fit`` come with later slices.
 
 The model runs on ``config.device`` ("cuda" by default) unless the
 caller passes ``device``; asking for CUDA where there is none raises.
@@ -136,9 +136,10 @@ class FFModel:
 
     def create_constant(self, dims: Sequence[int], value: float,
                         dtype: DataType = DataType.DT_FLOAT) -> Tensor:
-        """A tensor holding ``value`` everywhere, fed to the graph on every
-        call (not a parameter). Kept on the host in numpy (f32 for the
-        float types numpy lacks) and cast to ``dtype`` as it enters."""
+        """A tensor holding ``value`` everywhere, an input of the graph
+        (not a parameter). Kept on the host in numpy (f32 for the float
+        types numpy lacks); ``compile`` puts it on the device in
+        ``dtype`` once (``GraphProgram.stage_consts``)."""
         np_dt = {torch.bool: np.bool_, torch.int8: np.int8,
                  torch.int32: np.int32}.get(to_torch(dtype), np.float32)
         t = self.create_tensor(dims, dtype, create_grad=False)
@@ -542,6 +543,7 @@ class FFModel:
         self.executor = Executor(program, self.config, self.device,
                                  self.optimizer, self.loss_type,
                                  self.metrics, seed=self.config.seed)
+        program.stage_consts(self.device)
         self._plan_kernels()
         self.params, self.state = self.executor.init_params_and_state()
         self.opt_state = self.optimizer.init_state(self.params)
@@ -643,11 +645,11 @@ class FFModel:
         each epoch, where the NaN screen runs; a bounded in-flight window
         (``config.async_dispatch_steps``) keeps the host from racing
         ahead. Returns one report per epoch (the metrics, ``epoch_time_s``
-        and ``samples_per_sec``)."""
+        and ``samples_per_sec``). After each epoch's report, every callback
+        gets ``on_epoch_end(epoch, report, self)``; the loop stops when any
+        has ``stop_requested`` set (the Keras adapter's early stop)."""
         if self.executor is None:
             raise ValueError("call compile() first")
-        if callbacks:
-            raise NotImplementedError("fit callbacks are not ported yet")
         epochs = epochs or self.config.epochs
         loader = self._combined_loader(x, y, batch_size)
         history = []
@@ -681,6 +683,13 @@ class FFModel:
             if verbose:
                 msg = " ".join(f"{k}={v:.4f}" for k, v in rep.items())
                 print(f"epoch {epoch} done: {msg}")
+            if callbacks:
+                stop = False
+                for cb in callbacks:
+                    cb.on_epoch_end(epoch, rep, self)
+                    stop = stop or getattr(cb, "stop_requested", False)
+                if stop:
+                    break
         self._current_metrics = history[-1] if history else {}
         return history
 
@@ -1116,15 +1125,18 @@ class FFModel:
 
 
 def _replace_leaf(tree, what: str, layer_name: str, key: str, value):
-    """Put the array ``value`` in ``tree[layer_name][key]``, on the old
-    leaf's device and in its dtype; a shape other than the old leaf's
-    raises."""
+    """Put a contiguous copy of the array ``value`` in
+    ``tree[layer_name][key]``, on the old leaf's device and in its dtype
+    (never a view of the caller's array: a transposed weight, as the
+    frontends hand over, would stay strided, and the optimizers update
+    leaves in place); a shape other than the old leaf's raises."""
     cur = tree[layer_name][key]
     if tuple(cur.shape) != tuple(np.shape(value)):
         raise ValueError(f"{what} {layer_name}/{key} has shape "
                          f"{tuple(cur.shape)}, got {tuple(np.shape(value))}")
-    tree[layer_name][key] = torch.as_tensor(np.asarray(value)).to(
-        device=cur.device, dtype=cur.dtype)
+    tree[layer_name][key] = torch.as_tensor(
+        np.ascontiguousarray(value)).to(device=cur.device, dtype=cur.dtype,
+                                        copy=True)
 
 
 def filter_logits(row: torch.Tensor, temperature: float, top_k: int = 0,

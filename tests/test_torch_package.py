@@ -49,18 +49,50 @@ def test_import_leaves_jax_and_flexflow_tpu_out():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flexflow_tpu')]\n"
-        "print(len([m for m in sys.modules\n"
-        "           if m.startswith('flexflow_tpu_torch')]), bad)\n"
+        "mods = [m for m in sys.modules\n"
+        "        if m.startswith('flexflow_tpu_torch')]\n"
+        "print(len(mods), int('flexflow_tpu_torch.frontends.keras.models'\n"
+        "                     in mods and 'flexflow_tpu_torch.search"\
+        ".serialization' in mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.split()[0]) >= 20
+    assert r.stdout.split()[1] == "1"   # the frontends and search too
+
+
+def test_frontends_import_without_transformers_or_onnx():
+    """The frontends and the Keras layer set import on a machine with
+    neither ``transformers`` nor ``onnx`` (the card's machine), and the
+    ONNX frontend reads wire bytes there."""
+    code = (
+        "import sys\n"
+        "sys.modules['transformers'] = None\n"
+        "sys.modules['onnx'] = None\n"
+        "import numpy as np\n"
+        "import flexflow_tpu_torch.frontends as fe\n"
+        "from flexflow_tpu_torch.frontends import keras, onnx_wire as w\n"
+        "from flexflow_tpu_torch.frontends.onnx_frontend import ONNXModel\n"
+        "data = w.make_model([w.make_node('Relu', ['x'], ['y'])],\n"
+        "    [w.make_value_info('x', 1, (2, 3))],\n"
+        "    [w.make_value_info('y', 1, (2, 3))])\n"
+        "m = ONNXModel(data)\n"
+        "assert m.model.graph.node[0].op_type == 'Relu'\n"
+        "assert fe.PyTorchModel and keras.Model and keras.Sequential\n"
+        "print('ok', 'transformers' in sys.modules and\n"
+        "      sys.modules['transformers'] is None)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.split() == ["ok", "True"]
 
 
 def test_no_source_imports_jax_or_flexflow_tpu():
     seen = 0
+    scanned = set()
     for path in _port_sources():
+        scanned.add(os.path.relpath(os.path.dirname(path), PKG))
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -78,6 +110,8 @@ def test_no_source_imports_jax_or_flexflow_tpu():
                 assert not _forbidden(n), f"{path}: imports {n}"
         seen += 1
     assert seen >= 20
+    assert {"frontends", os.path.join("frontends", "keras"),
+            "search"} <= scanned
 
 
 def test_enum_values_equal_reference():
@@ -151,6 +185,26 @@ def test_model_needs_the_card_unless_asked_for_cpu(monkeypatch):
     assert FFModel(cfg).device.type == "cpu"
 
 
+def test_keras_compile_needs_the_card_unless_asked_for_cpu(monkeypatch):
+    """Keras ``Model.compile`` builds its FFModel from the config: on
+    ``config.device``, raising where there is no card rather than
+    carrying on on the CPU."""
+    from flexflow_tpu_torch.frontends import keras
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def model():
+        return keras.Sequential([keras.Input((4,), name="x"),
+                                 keras.Dense(2), keras.Softmax()])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model().compile("sgd", "sparse_categorical_crossentropy",
+                        config=FFConfig(), batch_size=2)
+    cfg = FFConfig()
+    cfg.device = "cpu"
+    m = model().compile("sgd", "sparse_categorical_crossentropy",
+                        config=cfg, batch_size=2)
+    assert m.ffmodel.device.type == "cpu"
+
+
 def test_forced_impl_is_checked_at_compile():
     cfg = FFConfig()
     cfg.kernel_impls = "attention:ring"
@@ -213,3 +267,61 @@ def test_chip_smoke_zoo_data_fits_each_published_graph():
                if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION]
         assert len(mha) == s.flash, s.tag
         assert sum(len(l.weights) for l in ff.layers) <= 384, s.tag
+
+
+def test_chip_smoke_frontends_graphs_build_on_the_cpu():
+    """chip_smoke.py's frontends phase, its graphs built on the CPU at
+    full width (no weight materialised): the torch.nn BERT-base imports
+    through fx with 12 attention layers and one folded position
+    constant, the Keras model lowers to 12 attention layers with a
+    2-class head, and the ONNX AlexNet's bytes import to the layers of
+    ``build_alexnet`` (its ReLUs as layers of their own) with every
+    initializer stashed at the shape of its weight."""
+    import importlib.util
+    from flexflow_tpu_torch import DataType, OperatorType
+    from flexflow_tpu_torch.frontends import PyTorchModel, keras
+    from flexflow_tpu_torch.frontends.onnx_frontend import ONNXModel
+    from flexflow_tpu_torch.models import build_alexnet
+    spec_ = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    assert "frontends" in smoke.PHASES
+    mha = OperatorType.OP_MULTIHEAD_ATTENTION
+
+    torch.manual_seed(0)
+    ff = FFModel(FFConfig(), device="cpu")
+    x = ff.create_tensor((smoke.FE_ROWS, smoke.FE_SEQ), DataType.DT_INT32,
+                         name="input_ids")
+    (out,) = PyTorchModel(smoke.FxBert(smoke.FE_SEQ, 0.1)).torch_to_ff(
+        ff, [x])
+    assert out.shape == (smoke.FE_ROWS, 2)
+    assert sum(l.op_type == mha for l in ff.layers) == smoke.LAYERS
+    consts = [t for t in ff.input_tensors if t.get_tensor() is not None]
+    assert [c.shape for c in consts] == [(smoke.FE_SEQ,)]
+
+    km = smoke.keras_bert(keras, smoke.FE_KERAS_SEQ)
+    kff = FFModel(FFConfig(), device="cpu")
+    env = {id(i): kff.create_tensor((smoke.FE_ROWS,) + i.shape, i.dtype,
+                                    name=i.name) for i in km.inputs}
+    for layer in km._topo_layers():
+        env[id(layer)] = layer.to_ff(kff, [env[id(k.layer)]
+                                           for k in layer.inbound])
+    assert sum(l.op_type == mha for l in kff.layers) == smoke.LAYERS
+    assert kff.layers[-1].outputs[0].shape == (smoke.FE_ROWS, 2)
+
+    data, ini = smoke.alexnet_onnx(5)
+    off = FFModel(FFConfig(), device="cpu")
+    xt = off.create_tensor((smoke.ONNX_BATCH, 3, 229, 229), name="input")
+    (o,) = ONNXModel(data).apply(off, {"input": xt})
+    ref = FFModel(FFConfig(), device="cpu")
+    assert o.shape == build_alexnet(ref, smoke.ONNX_BATCH, 1000, 229).shape
+    assert [l.op_type for l in off.layers
+            if l.op_type != OperatorType.OP_RELU] == \
+        [l.op_type for l in ref.layers]
+    stashed = {l: {n: a.shape for n, a in ws.items()}
+               for l, ws in off._pending_onnx_weights.items()}
+    assert len(stashed) == 8 == len(ini) // 2
+    for lname, ws in stashed.items():
+        layer = next(l for l in off.layers if l.name == lname)
+        assert ws == {w.name: w.shape for w in layer.weights}, lname
