@@ -126,7 +126,27 @@ never JAX, and:
                wire encoder, imported through ONNXModel.apply, served and
                held against an f32 functional forward of the same
                initializers, then 3 fit steps with the fused Adam;
- 14. kernels - one JSON line with each kernel's launches, error and times.
+ 14. resilience - checkpointing, fault injection, the Supervisor and
+               telemetry on the card: BERT-base 8 x 128 (dropout 0.1, Adam
+               1e-4, kernel_impls="attention:flash,opt_update:fused",
+               tracing on with a Chrome-trace export) trained by
+               resilience.Supervisor over 2 epochs x 4 batches,
+               checkpointing every 2 steps (max_to_keep 2), clean and
+               under the fault plan "nan@3;corrupt_ckpt@6;crash@6" (a NaN
+               rollback, a corrupted newest checkpoint the restore walks
+               past, a crash); the faulty run must end bit-identical to
+               the clean one (params, Adam m and v, the last epoch's loss),
+               every executed step, replays included, through the flash
+               forward, dq, dk/dv and the fused Adam (12 / 12 / 12 / 1
+               launches a step); the newest step's manifest against the
+               JAX package's keystr leaves (tests/data/); the trace's
+               spans and restart instants, the Prometheus exposition, the
+               NaN rollback's flight record; InferenceSession.infer under
+               "infer_fail@1"; the blocking and async save and the restore
+               (its CRC share) of the 1.31 GB state, the disabled step
+               wrapper's host cost (<= 3% of a step) and the step with
+               tracing on and off;
+ 15. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
@@ -134,7 +154,8 @@ build,kernel,ktimes`` also times them, ``--phases build,kernel,generate``
 drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 ``--phases build,kernel,mixtral,moe`` Mixtral and the MoE example,
 ``--phases build,kernel,zoo`` the rest of the model zoo, ``--phases
-build,kernel,frontends`` the frontends; with
+build,kernel,frontends`` the frontends, ``--phases
+build,kernel,resilience`` checkpointing, faults and telemetry; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
@@ -591,7 +612,7 @@ def phase_kernel_adam(gen) -> float:
 
 
 def build_model(seq: int, impl: str, optimizer=None, metrics=(),
-                dropout: float = 0.1):
+                dropout: float = 0.1, **cfg_kw):
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.models import BertConfig, build_bert
     cfg = FFConfig()
@@ -599,6 +620,8 @@ def build_model(seq: int, impl: str, optimizer=None, metrics=(),
     cfg.only_data_parallel = True
     cfg.kernel_impls = impl
     cfg.seed = 0
+    for k, v in cfg_kw.items():
+        setattr(cfg, k, v)
     ff = FFModel(cfg)
     bcfg = BertConfig.base()
     bcfg.max_position = seq
@@ -722,10 +745,10 @@ def zero_counts() -> dict:
     return fns
 
 
-def train_model(seq: int, impl: str, dropout: float = 0.1):
+def train_model(seq: int, impl: str, dropout: float = 0.1, **cfg_kw):
     from flexflow_tpu_torch import AdamOptimizer
     return build_model(seq, impl, AdamOptimizer(1e-4), ["accuracy"],
-                       dropout)
+                       dropout, **cfg_kw)
 
 
 def phase_train() -> dict:
@@ -2842,13 +2865,434 @@ def phase_frontends(smi: str) -> dict:
     return res
 
 
+RES_EPOCHS = 2        # epochs of each supervised run
+RES_BATCHES = 4       # batches of 8 rows an epoch
+RES_EVERY = 2         # checkpoint every 2 steps
+RES_KEEP = 2          # max_to_keep
+# a NaN poisoning after step 3 (rolled back to step 2 at the step-4
+# save), then a corrupted step-6 checkpoint and a crash before step 6
+# (the restore walks past 6 to the epoch boundary at 4)
+RES_PLAN = "nan@3;corrupt_ckpt@6;crash@6"
+# steps the faulty run executes, replays included: 0-3, 2-3 again, 4-5,
+# then 4-7 again
+RES_EXECUTED = 12
+RES_DISK_BYTES = 8e9  # two run directories and the timing saves
+RES_WRAPPER_CALLS = 200_000
+RES_ABBA_STEPS = 6    # timed steps per block of the tracing on/off ABBA
+RES_LEAVES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data", "bert_base_checkpoint_leaves.json")
+
+
+def res_model(trace_file: str):
+    """BERT-base 8x128 for the resilience phase: dropout 0.1, Adam 1e-4,
+    flash + fused Adam, tracing on with a Chrome-trace export."""
+    return train_model(128, "attention:flash,opt_update:fused",
+                       trace="true", trace_export_file=trace_file)
+
+
+def host_state(ff) -> dict:
+    """Host copies of the params and Adam's m and v."""
+    return {slot: {ln: {wn: t.detach().cpu().clone()
+                        for wn, t in ws.items()}
+                   for ln, ws in tree.items()}
+            for slot, tree in (("params", ff.params),
+                               ("m", ff.opt_state["m"]),
+                               ("v", ff.opt_state["v"]))}
+
+
+def supervised_run(ff, directory: str, x, y) -> dict:
+    """One Supervisor run over the phase's epochs with every kernel's
+    launches and the executed steps counted. The executor's step wrapper
+    counts every step it runs, replays included, in the trace's
+    ``executor.train_steps`` counter (``_step`` is rewound by each
+    restore, so it cannot count them)."""
+    from flexflow_tpu_torch.obs import events
+    from flexflow_tpu_torch.resilience import Supervisor
+    check(events.enabled(), "tracing is off: the executed steps would "
+          "not be counted")
+    steps0 = events.counters().get("executor.train_steps", 0)
+    torch.cuda.synchronize()
+    fns = zero_counts()   # the main path: every count starts at 0
+    t0 = time.perf_counter()
+    sup = Supervisor(ff, directory, checkpoint_every=RES_EVERY,
+                     max_to_keep=RES_KEEP)
+    hist = sup.run(x, y, epochs=RES_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    steps = int(events.counters().get("executor.train_steps", 0) - steps0)
+    want = {"flash_attention_fwd": LAYERS * steps,
+            "flash_attention_bwd_dq": LAYERS * steps,
+            "flash_attention_bwd_dkv": LAYERS * steps,
+            "adam_update": steps}
+    check(launches == want, f"resilience launches {launches} != {want} "
+          f"for {steps} executed steps")
+    return {"sup": sup, "hist": hist, "wall_s": wall, "steps": steps,
+            "launches": launches}
+
+
+def span_seconds(path: str) -> dict:
+    """Seconds spent in each span name of an exported Chrome trace
+    (nested spans count in each of their names)."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in evs:
+        if e["ph"] == "X":
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    return out
+
+
+def check_trace(path: str) -> dict:
+    """The faulty run's exported Chrome trace: it parses and holds the
+    spans and instants the phase names."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    spans = [e for e in evs if e["ph"] == "X"]
+    names = {e["name"] for e in spans}
+    want = {"model.compile", "executor.train_step", "supervisor.epoch",
+            "supervisor.save", "ckpt.save", "ckpt.restore"}
+    check(want <= names, f"trace lacks {sorted(want - names)}")
+    phases = [e["args"]["phase"] for e in spans
+              if e["name"] == "executor.train_step"]
+    check(phases[0] == "compile" and set(phases[1:]) == {"steady"},
+          f"train_step phases {phases}")
+    restarts = [e for e in evs
+                if e["ph"] == "i" and e["name"] == "resilience.restart"]
+    check(len(restarts) == 2, f"{len(restarts)} resilience.restart "
+          f"instants, want 2")
+    counts = {n: sum(e["name"] == n for e in spans) for n in sorted(want)}
+    print(f"[resilience] trace {os.path.basename(path)}: {len(evs)} "
+          f"events, spans {counts}, train_step phases {phases[0]} then "
+          f"{len(phases) - 1} x steady, resilience.restart instants "
+          f"{[e['args']['reason'] for e in restarts]}")
+    return counts
+
+
+def check_metrics() -> None:
+    from flexflow_tpu_torch.obs.metrics_registry import REGISTRY
+    text = REGISTRY.render()
+    lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    want = ["ff_checkpoint_saves_total ",
+            'ff_resilience_restarts_total{reason="SimulatedCrash"} ',
+            'ff_resilience_restarts_total{reason="nan_loss"} ',
+            "ff_checkpoint_corrupt_skipped_total ",
+            "ff_train_samples_per_sec ",
+            'ff_model_compiles_total{model="<unnamed>"} ']
+    got = [ln for ln in lines if any(ln.startswith(w) for w in want)]
+    missing = [w for w in want if not any(ln.startswith(w) for ln in got)]
+    check(not missing, f"exposition lacks {missing}")
+    print("[resilience] exposition: " + "; ".join(got))
+
+
+def check_manifest(step_dir: str) -> int:
+    """The port's manifest of one BERT-base step lists the leaf keys,
+    shapes and dtypes that the JAX package's keystr gives for this model
+    (tests/data/bert_base_checkpoint_leaves.json, made and checked by
+    the CPU tests)."""
+    with open(RES_LEAVES) as f:
+        want = json.load(f)["leaves"]
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        got = {k: {"shape": r["shape"], "dtype": r["dtype"]}
+               for k, r in json.load(f)["leaves"].items()}
+    check(got == want, f"manifest leaves differ from the JAX package's: "
+          f"{sorted(set(got) ^ set(want))[:4]}")
+    return len(got)
+
+
+def identical(a: dict, b: dict) -> tuple:
+    """(leaves compared, leaves that differ in any bit)."""
+    n, bad = 0, []
+    for slot in a:
+        for ln in a[slot]:
+            for wn, t in a[slot][ln].items():
+                n += 1
+                if not torch.equal(t, b[slot][ln][wn]):
+                    bad.append(f"{slot}/{ln}/{wn}")
+    return n, bad
+
+
+def save_restore_times(ff, tmp: str, smi: str) -> dict:
+    """Blocking save, async save (caller side and until wait()), and
+    restore with its CRC share, of the whole training state."""
+    from flexflow_tpu_torch.runtime import checkpoint as ck
+    nbytes = sum(t.numel() * t.element_size()
+                 for tree in (ff.params, ff.opt_state["m"],
+                              ff.opt_state["v"])
+                 for ws in tree.values() for t in ws.values())
+    d = os.path.join(tmp, "timing")
+    mgr = ck.CheckpointManager(d, max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_model_checkpoint(ff, d, step=1, manager=mgr, blocking=True)
+    save_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_model_checkpoint(ff, d, step=2, manager=mgr, blocking=False)
+    caller_s = time.perf_counter() - t0
+    mgr.wait()
+    async_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = ck.restore_model_checkpoint(ff, d)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == 2, f"restored step {step}")
+    t0 = time.perf_counter()
+    state, _ = mgr.restore(2, verify=False)
+    load_s = time.perf_counter() - t0
+    with open(os.path.join(d, "2", "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    ck._verify_manifest(state, manifest, "timing")
+    crc_s = time.perf_counter() - t0
+    del state
+    print(f"[resilience] checkpoint of {nbytes / 1e9:.3f} GB (params + "
+          f"Adam m, v; f32): blocking save {save_s:.3f} s = "
+          f"{nbytes / save_s / 1e9:.3f} GB/s (host copy, CRC32, pickle, "
+          f"fsync, rename); async save returns to the caller in "
+          f"{caller_s:.3f} s, wait() after {async_s:.3f} s; restore "
+          f"{restore_s:.3f} s = {nbytes / restore_s / 1e9:.3f} GB/s (load "
+          f"{load_s:.3f} s without the CRC check; the CRC32 check "
+          f"{crc_s:.3f} s = {crc_s / restore_s:.3f} of the restore); "
+          f"{smi}")
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(bytes=nbytes, save_s=save_s, caller_s=caller_s,
+                async_s=async_s, restore_s=restore_s, load_s=load_s,
+                crc_s=crc_s)
+
+
+def step_ms(ff, step_fn, batch, n: int) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ff._run_train_step(step_fn, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def overhead_times(ff, bcfg, smi: str) -> dict:
+    """The host cost that telemetry and fault injection add to a step
+    when both are off, each measured directly on a no-op (the code
+    around a no-op against the no-op): the step wrapper per call, the
+    fault sites of ``_run_train_step`` per step (no plan installed), and
+    ``fit``'s per-epoch span and gauge; their sum per step against the
+    train-step median. Then the step median with tracing on and off,
+    interleaved off, on, on, off (printed only)."""
+    from flexflow_tpu_torch.executor import _instrument_step
+    from flexflow_tpu_torch.obs import events
+    from flexflow_tpu_torch.obs.metrics_registry import REGISTRY
+    from flexflow_tpu_torch.resilience import faults
+    x, y = dataset(bcfg, 128, 8, 3)
+    batch = {"input_ids": torch.from_numpy(x[0]).cuda(),
+             "position_ids": torch.from_numpy(x[1]).cuda(),
+             "label": torch.from_numpy(y).cuda()}
+    step_fn = ff.executor.make_train_step()
+    events.disable()
+    faults.clear()
+    check(not faults.active(), "a fault plan is still installed")
+    step_ms(ff, step_fn, batch, 3)
+    off = step_ms(ff, step_fn, batch, 2 * RES_ABBA_STEPS)
+    step_med = float(np.median(off))
+    n = RES_WRAPPER_CALLS
+
+    def per_call_us(fn, *args) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def noop():
+        return None
+
+    wrap_us = max(per_call_us(_instrument_step(noop, "bench"))
+                  - per_call_us(noop), 0.0)
+
+    def noop_step(params, opt_state, state, step, b):
+        return params, opt_state, state, {}
+
+    def bare_step(fn, b):
+        # _run_train_step without its fault sites
+        ff.params, ff.opt_state, ff.state, bm = fn(
+            ff.params, ff.opt_state, ff.state, ff._step, b)
+        ff._step += 1
+        return bm
+
+    step0 = ff._step
+    fault_us = max(per_call_us(ff._run_train_step, noop_step, batch)
+                   - per_call_us(bare_step, noop_step, batch), 0.0)
+    ff._step = step0
+
+    def epoch_telemetry():
+        # fit's per-epoch span and gauge, as fit records them
+        events.record_span("fit.epoch", 0.0, 1.0, epoch=0,
+                           batches=RES_BATCHES)
+        REGISTRY.gauge("ff_train_samples_per_sec",
+                       "Training throughput of the last completed epoch"
+                       ).set(1.0)
+
+    epoch_us = per_call_us(epoch_telemetry)
+    total_us = wrap_us + fault_us + epoch_us / RES_BATCHES
+    share = total_us / (step_med * 1e3)
+    print(f"[resilience] disabled-mode host cost ({n} calls each, code "
+          f"around a no-op minus the no-op): step wrapper {wrap_us:.4f} "
+          f"us a call, fault sites of _run_train_step {fault_us:.4f} us a "
+          f"step, fit's epoch span + gauge {epoch_us:.4f} us an epoch "
+          f"({RES_BATCHES} steps); together {total_us:.4f} us a step "
+          f"against the train-step median {step_med:.3f} ms (tracing "
+          f"off, {len(off)} steps): {100 * share:.5f}% of a step (limit "
+          f"3%)")
+    check(share <= 0.03, f"disabled telemetry and fault sites cost "
+          f"{100 * share:.3f}% of a step")
+    blocks = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        if mode == "on":
+            events.enable()
+        else:
+            events.disable()
+        blocks[mode] += step_ms(ff, step_fn, batch, RES_ABBA_STEPS)
+    events.disable()
+    on_ms = float(np.median(blocks["on"]))
+    off_ms = float(np.median(blocks["off"]))
+    print(f"[resilience] train step with tracing on / off, interleaved "
+          f"off-on-on-off, {2 * RES_ABBA_STEPS} steps each: median "
+          f"{on_ms:.3f} / {off_ms:.3f} ms (host clock, each step ends in "
+          f"a device sync; printed only); {smi}")
+    return dict(wrap_us=wrap_us, fault_us=fault_us, epoch_us=epoch_us,
+                step_ms=step_med, share=share, traced_ms=on_ms,
+                untraced_ms=off_ms)
+
+
+def phase_resilience(smi: str) -> dict:
+    """Checkpointing, fault injection, the Supervisor and telemetry on
+    the card: BERT-base 8x128 (dropout 0.1, Adam 1e-4, flash + fused
+    Adam) trained by the Supervisor twice from the same seed, clean and
+    under RES_PLAN; the faulty run must end bit-identical to the clean
+    one with every executed step (replays included) through the kernels.
+    Then the serving fault hook, the cross-package manifest, the trace
+    and metrics, and the save / restore / overhead numbers."""
+    import tempfile
+    from flexflow_tpu_torch.obs import events
+    from flexflow_tpu_torch.resilience import faults, status
+    from flexflow_tpu_torch.serving import InferenceSession
+    tmp = tempfile.mkdtemp(prefix="ff_resilience_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= RES_DISK_BYTES,
+              f"{free / 1e9:.1f} GB free under {tmp}; the resilience "
+              f"phase needs {RES_DISK_BYTES / 1e9:.0f} GB")
+        runs = {}
+        for name, plan in (("clean", ""), ("faulty", RES_PLAN)):
+            events.clear()
+            status.reset()
+            faults.install(plan)
+            trace = os.path.join(tmp, f"{name}_trace.json")
+            ff, bcfg = res_model(trace)
+            x, y = dataset(bcfg, 128, RES_BATCHES * 8, 7)
+            r = supervised_run(ff, os.path.join(tmp, name), x, y)
+            r.update(state=host_state(ff), trace=trace,
+                     status=status.snapshot())
+            sup = r.pop("sup")
+            r.update(restarts=sup.restarts, rollbacks=sup.nan_rollbacks)
+            print(f"[resilience] {name} run (plan {plan!r}): "
+                  f"{RES_EPOCHS} epochs x {RES_BATCHES} batches, "
+                  f"checkpoint every {RES_EVERY} steps, max_to_keep "
+                  f"{RES_KEEP}: {r['steps']} steps executed, wall "
+                  f"{r['wall_s']:.3f} s, restarts {r['restarts']}, NaN "
+                  f"rollbacks {r['rollbacks']}, launches "
+                  f"{r['launches']}, history "
+                  f"{[round(h['loss'], 6) for h in r['hist']]}")
+            print(f"[resilience] {name} status.snapshot() {r['status']}")
+            secs = span_seconds(trace)
+            print(f"[resilience] {name} run, seconds by span (host clock; "
+                  f"a save span holds its ckpt.save): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                      secs.items())))
+            runs[name] = r
+            if name == "clean":
+                shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+                del ff
+                free_cuda()
+        clean, faulty = runs["clean"], runs["faulty"]
+        check(clean["steps"] == RES_EPOCHS * RES_BATCHES
+              and faulty["steps"] == RES_EXECUTED,
+              f"executed steps {clean['steps']} / {faulty['steps']}, want "
+              f"{RES_EPOCHS * RES_BATCHES} / {RES_EXECUTED}")
+        check((faulty["restarts"], faulty["rollbacks"]) == (2, 1)
+              and faulty["status"]["corrupt_checkpoints_skipped"] == 1
+              and faulty["status"]["faults_injected"] == 3,
+              f"faulty run recovered {faulty['restarts']} / "
+              f"{faulty['rollbacks']} times, status {faulty['status']}")
+        n, bad = identical(clean["state"], faulty["state"])
+        loss_c, loss_f = clean["hist"][-1]["loss"], faulty["hist"][-1]["loss"]
+        print(f"[resilience] faulty vs clean: {n} leaves (params, Adam m "
+              f"and v) compared, {len(bad)} differ in any bit "
+              f"{bad[:4]}; last epoch's loss {loss_f!r} vs {loss_c!r}; "
+              f"wall {faulty['wall_s']:.3f} s vs {clean['wall_s']:.3f} s "
+              f"({faulty['wall_s'] / clean['wall_s']:.3f}x)")
+        check(not bad and loss_f == loss_c,
+              "the faulty run did not end bit-identical to the clean run")
+        del runs["clean"]["state"], runs["faulty"]["state"]
+        newest = os.path.join(tmp, "faulty", str(RES_EPOCHS * RES_BATCHES))
+        nleaves = check_manifest(newest)
+        print(f"[resilience] manifest of step {RES_EPOCHS * RES_BATCHES}: "
+              f"{nleaves} leaves, keys, shapes and dtypes equal to the "
+              f"JAX package's keystr tree for this model")
+        spans = check_trace(faulty["trace"])
+        check_metrics()
+        path = faulty["status"]["last_flight_record"]
+        check(path is not None and os.path.exists(path),
+              f"no flight record at {path}")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec["reason"] == "nan_rollback", f"flight record {rec}")
+        print(f"[resilience] flight record {path}: reason "
+              f"{rec['reason']}, {len(rec['events'])} events, exception "
+              f"{rec.get('exception')!r}")
+
+        # serving fault hook: the second call fails, the third answers
+        # the first's logits bit for bit
+        sess = InferenceSession(ff, batch_buckets=(8,))
+        req = requests(bcfg, 128, 8, 5)
+        faults.install("infer_fail@1")
+        fwd = zero_counts()["flash_attention_fwd"]
+        first = sess.infer(req)
+        try:
+            sess.infer(req)
+            raised = None
+        except faults.FaultError as e:
+            raised = e
+        third = sess.infer(req)
+        faults.clear()
+        check(raised is not None and np.array_equal(first, third)
+              and fwd.launches == 2 * LAYERS,
+              f"serving fault hook: raised {raised!r}, equal "
+              f"{np.array_equal(first, third)}, flash launches "
+              f"{fwd.launches}")
+        print(f"[resilience] InferenceSession.infer under 'infer_fail@1': "
+              f"call 2 raised {raised!r}; call 3 equals call 1 bit for "
+              f"bit ({first.shape}); {fwd.launches} flash launches")
+
+        events.disable()
+        times = save_restore_times(ff, tmp, smi)
+        times.update(overhead_times(ff, bcfg, smi))
+        return {"launches": faulty["launches"], "steps": faulty["steps"],
+                "clean_launches": clean["launches"], "spans": spans,
+                "wall_s": (faulty["wall_s"], clean["wall_s"]), **times}
+    finally:
+        events.disable()
+        faults.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe) -> list:
+                zoo, fe, resil) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
-    DLRM, and the LLaMA, Mixtral, MoE, zoo and frontends launches beside
-    them."""
+    DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends and resilience
+    launches beside them."""
     zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
     fe_launches = {"fx_train": fe["fx"]["train_launches"],
                    "keras_train": fe["keras"]["launches"],
@@ -2917,7 +3361,11 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # the frontends: the fx import's served forwards (12 a forward)
         # and each imported model's fit
         "frontends_serve_launches": fe["fx"]["serve_launches"],
-        "frontends_train_launches": fe_row("flash_attention_fwd")}]
+        "frontends_train_launches": fe_row("flash_attention_fwd"),
+        # the resilience phase's faulty supervised run, replays included
+        "resilience_train_launches":
+            resil["launches"]["flash_attention_fwd"],
+        "resilience_executed_steps": resil["steps"]}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -2945,6 +3393,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             "zoo_train_launches": {t: n[name]
                                    for t, n in zoo_launches.items()},
             "frontends_train_launches": fe_row(name),
+            "resilience_train_launches": resil["launches"][name],
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)"})
     a = kt["adam"]
@@ -2964,6 +3413,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "zoo_train_launches": {t: n["adam_update"]
                                for t, n in zoo_launches.items()},
         "frontends_train_launches": fe_row("adam_update"),
+        "resilience_train_launches": resil["launches"]["adam_update"],
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")}})
@@ -2971,7 +3421,8 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
-          "generate", "llama", "mixtral", "moe", "zoo", "frontends")
+          "generate", "llama", "mixtral", "moe", "zoo", "frontends",
+          "resilience")
 
 
 def main() -> int:
@@ -3018,13 +3469,14 @@ def main() -> int:
     run("moe", phase_moe)
     run("zoo", phase_zoo, smi)
     run("frontends", phase_frontends, smi)
+    run("resilience", phase_resilience, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
     print(json.dumps({"kernels": kernel_rows(
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
-        res["zoo"], res["frontends"])}))
+        res["zoo"], res["frontends"], res["resilience"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

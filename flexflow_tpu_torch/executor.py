@@ -12,9 +12,13 @@ over micro-batches) and the optimizer update, fused or not;
 sharding constraints, pipelines, rematerialization and the multi-device
 train-step branches (overlap, quantized sync, ZeRO) belong to the JAX
 package's multi-device lowerings and come with the slices that port them.
+Each step function is wrapped by :func:`_instrument_step`, which records
+the ``executor.<name>_step`` spans when tracing is on.
 """
 from __future__ import annotations
 
+import itertools
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,11 +28,57 @@ from .core.layer import Layer
 from .core.tensor import Tensor
 from .dtypes import to_torch
 from .ffconst import LossType, MetricsType, OperatorType
+from .obs import events as obs_events
 from .ops import EmitCtx, LayerRng, ensure_weight_specs, get_op_def
 from .runtime import losses as losses_mod
 from .runtime import metrics as metrics_mod
 from .runtime.initializers import initialize
 from .runtime.optimizers import Optimizer, tree_leaves
+
+
+def _trace_sync_on() -> bool:
+    """``FF_TRACE_SYNC=1``: synchronize the card inside the step span so
+    it measures the step's device latency instead of the host's enqueue
+    time (eager PyTorch returns as soon as the step's kernels are
+    queued). Read per call — only on the traced path — so a debug
+    session can toggle it between steps."""
+    return obs_events._env_on(os.environ.get("FF_TRACE_SYNC"))
+
+
+def _instrument_step(fn, name: str):
+    """Wrap a step function with per-step telemetry: a span per call,
+    ``phase="compile"`` on the first call and ``"steady"`` after it, and
+    a step counter. PyTorch compiles nothing, so the first call's
+    "compile" is warm-up: library initialisation (cuBLAS handles, the
+    kernels' first load) and the first launches. Without
+    ``FF_TRACE_SYNC=1`` a span times the host's enqueue of the step, not
+    the device's execution.
+
+    Disabled-mode cost is one flag check plus an int increment (the JAX
+    package pins it at <= 3% of a train step); the raw step stays
+    reachable as ``wrapped.__wrapped__`` so that cost can be timed on
+    both sides of exactly this wrapper."""
+    # itertools.count: serving instance clones share one forward across
+    # scheduler workers, and next() is atomic under the GIL — a
+    # read-modify-write int would double-label "compile"
+    calls = itertools.count()
+
+    def wrapped(*args, **kwargs):
+        n = next(calls)
+        if not obs_events.enabled():
+            return fn(*args, **kwargs)
+        obs_events.counter(f"executor.{name}_steps")
+        with obs_events.span(f"executor.{name}_step",
+                             phase="compile" if n == 0 else "steady",
+                             step=n):
+            out = fn(*args, **kwargs)
+            if _trace_sync_on() and torch.cuda.is_available() \
+                    and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            return out
+
+    wrapped.__wrapped__ = fn
+    return wrapped
 
 
 def _needs_rng(layer: Layer) -> bool:
@@ -386,8 +436,8 @@ class Executor:
                     params, grads, opt_state, step + 1)
             return params, opt_state, state, bm
 
-        self._train_step = step_fn
-        return step_fn
+        self._train_step = _instrument_step(step_fn, "train")
+        return self._train_step
 
     def make_eval_step(self):
         """``step_fn(params, state, batch) -> (output, metrics)`` under
@@ -403,8 +453,8 @@ class Executor:
                                                batch["label"], aux)
             return outs[0], bm
 
-        self._eval_step = step_fn
-        return step_fn
+        self._eval_step = _instrument_step(step_fn, "eval")
+        return self._eval_step
 
     def make_forward(self):
         """Inference-only forward (no label): ``fwd(params, state, batch)``
@@ -419,8 +469,8 @@ class Executor:
                                               capture=False)
             return outs[0] if len(outs) == 1 else outs
 
-        self._forward_fn = fwd
-        return fwd
+        self._forward_fn = _instrument_step(fwd, "forward")
+        return self._forward_fn
 
     # ------------------------------------------------------------------
     # generation support

@@ -9,8 +9,10 @@ of the kernel tier, the training loop (``fit`` with its epoch-callback
 hook, ``eval``, ``forward``, the phase-API no-ops), generation
 (``generate`` over a KV cache or by full re-forwards, greedy or sampled,
 ragged prompts, eos; ``generate_beam``) and the weight and state
-accessors. The strategy search, checkpoints, ``recompile_on_condition``,
-and the fault hooks and telemetry of ``fit`` come with later slices.
+accessors; checkpoints (``save_checkpoint`` / ``restore_checkpoint``),
+the fault-injection sites of the train step and the telemetry of
+``compile``, ``fit`` and ``generate`` (``obs``). The strategy search and
+``recompile_on_condition`` come with later slices.
 
 The model runs on ``config.device`` ("cuda" by default) unless the
 caller passes ``device``; asking for CUDA where there is none raises.
@@ -18,6 +20,7 @@ caller passes ``device``; asking for CUDA where there is none raises.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -32,6 +35,9 @@ from .executor import Executor, GraphProgram
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OperatorType, PoolType)
 from .kernels import registry as kreg
+from .obs import events as obs_events
+from .obs import request_trace
+from .obs.metrics_registry import DECODE_STEP_BUCKETS, REGISTRY
 from .ops import get_op_def
 from .runtime.dataloader import SingleDataLoader
 from .runtime.metrics import PerfMetrics
@@ -91,6 +97,9 @@ class FFModel:
         self._step = 0
         self._dataloaders: List[Any] = []
         self._current_metrics: Dict[str, float] = {}
+        # the MetricsBuffer of the running fit / Supervisor epoch, which
+        # save_checkpoint flushes and NaN-screens first
+        self._metrics_buffer: Optional[MetricsBuffer] = None
 
     # ==================================================================
     # graph construction helpers
@@ -503,7 +512,12 @@ class FFModel:
         """Lower the graph to an executor on ``self.device``, adopt the
         forced kernel impls, and materialize the parameters and the
         optimizer state. One device, data-parallel by construction: a
-        search budget is refused rather than ignored."""
+        search budget is refused rather than ignored. Applies the
+        config's tracing choice (``obs.events.configure``) and records the
+        ``model.compile`` span and the ``ff_model_compiles_total``
+        counter."""
+        obs_events.configure(self.config)
+        compile_t0 = time.perf_counter()
         if self.config.search_budget > 0 \
                 and not self.config.only_data_parallel:
             raise NotImplementedError(
@@ -547,6 +561,14 @@ class FFModel:
         self._plan_kernels()
         self.params, self.state = self.executor.init_params_and_state()
         self.opt_state = self.optimizer.init_state(self.params)
+        self._step = 0
+        REGISTRY.counter(
+            "ff_model_compiles_total",
+            "Model program compiles (trace + XLA build events)").inc(
+            model=getattr(self, "_model_name", "") or "<unnamed>")
+        obs_events.record_span("model.compile", compile_t0,
+                               time.perf_counter() - compile_t0,
+                               n_devices=1, n_layers=len(self.layers))
 
     def _plan_kernels(self):
         """Adopt the forced per-op kernel impls (``kernel_impls``,
@@ -631,8 +653,33 @@ class FFModel:
                                 prefetch=self.config.prefetch_batches)
 
     def _run_train_step(self, step_fn, batch):
+        # fault-injection sites (resilience/faults.py): crash/device-loss
+        # clauses fire BEFORE the step runs, NaN/Inf corruption clauses
+        # poison the params after it; active() is one cached check, so
+        # fault-free runs pay nothing measurable
+        from .resilience import faults
+        if faults.active():
+            faults.raise_pending(self._step)
         self.params, self.opt_state, self.state, bm = step_fn(
             self.params, self.opt_state, self.state, self._step, batch)
+        if faults.active():
+            bad = faults.poison_value(self._step)
+            if bad is not None:
+                with torch.no_grad():
+                    for ws in self.params.values():
+                        for t in ws.values():
+                            if t.is_floating_point():
+                                t.mul_(bad)
+                # the step's all_finite flag saw the CLEAN loss; the
+                # poison must flip it or the deferred NaN screen would
+                # wave the poisoned step through
+                loss = bm["loss"]
+                poison = torch.full_like(loss, bad)
+                bm = dict(bm, loss=poison,
+                          all_finite=torch.logical_and(
+                              torch.as_tensor(bm.get("all_finite", True),
+                                              device=loss.device),
+                              torch.isfinite(poison)))
         self._step += 1
         return bm
 
@@ -647,51 +694,111 @@ class FFModel:
         ahead. Returns one report per epoch (the metrics, ``epoch_time_s``
         and ``samples_per_sec``). After each epoch's report, every callback
         gets ``on_epoch_end(epoch, report, self)``; the loop stops when any
-        has ``stop_requested`` set (the Keras adapter's early stop)."""
+        has ``stop_requested`` set (the Keras adapter's early stop).
+
+        Each epoch records a ``fit.epoch`` span and sets the
+        ``ff_train_samples_per_sec`` gauge; at the end the trace goes to
+        ``config.trace_export_file`` when tracing is on."""
         if self.executor is None:
             raise ValueError("call compile() first")
         epochs = epochs or self.config.epochs
         loader = self._combined_loader(x, y, batch_size)
         history = []
-        for epoch in range(epochs):
-            step_fn = self.executor.make_train_step()
-            pm = PerfMetrics()
-            buf = MetricsBuffer.for_config(self.config, pm=pm)
-            t0 = time.perf_counter()
-            nb = 0
-            for batch in loader:
-                bm = self._run_train_step(step_fn, batch)
-                buf.push(self._step - 1, bm,
-                         next(iter(batch.values())).shape[0])
-                nb += 1
-                pf = self.config.print_freq
-                if pf > 0 and nb % pf == 0:
-                    # print_freq is the metric-fetch cadence, whether or
-                    # not anything is printed
-                    buf.flush()
-                    if verbose:
-                        msg = " ".join(f"{k}={v:.4f}"
-                                       for k, v in pm.report().items())
-                        print(f"epoch {epoch} iter "
-                              f"{nb}/{loader.num_batches} {msg}")
-            buf.flush()
-            dt = time.perf_counter() - t0
-            rep = pm.report()
-            rep["epoch_time_s"] = dt
-            rep["samples_per_sec"] = pm.train_all / dt if dt > 0 else 0.0
-            history.append(rep)
-            if verbose:
-                msg = " ".join(f"{k}={v:.4f}" for k, v in rep.items())
-                print(f"epoch {epoch} done: {msg}")
-            if callbacks:
-                stop = False
-                for cb in callbacks:
-                    cb.on_epoch_end(epoch, rep, self)
-                    stop = stop or getattr(cb, "stop_requested", False)
-                if stop:
-                    break
+        # the buffer stays attached through the epoch-end callbacks
+        # (their checkpoint saves screen through it) and is detached
+        # when fit ends — INCLUDING on exceptions, or a stale poisoned
+        # buffer would block save_checkpoint of later clean params
+        try:
+            for epoch in range(epochs):
+                step_fn = self.executor.make_train_step()
+                pm = PerfMetrics()
+                buf = MetricsBuffer.for_config(self.config, pm=pm)
+                self._metrics_buffer = buf
+                t0 = time.perf_counter()
+                nb = 0
+                for batch in loader:
+                    bm = self._run_train_step(step_fn, batch)
+                    buf.push(self._step - 1, bm,
+                             next(iter(batch.values())).shape[0])
+                    nb += 1
+                    pf = self.config.print_freq
+                    if pf > 0 and nb % pf == 0:
+                        # print_freq is the metric-fetch cadence, whether
+                        # or not anything is printed
+                        buf.flush()
+                        if verbose:
+                            msg = " ".join(f"{k}={v:.4f}"
+                                           for k, v in pm.report().items())
+                            print(f"epoch {epoch} iter "
+                                  f"{nb}/{loader.num_batches} {msg}")
+                buf.flush()
+                dt = time.perf_counter() - t0
+                rep = pm.report()
+                rep["epoch_time_s"] = dt
+                rep["samples_per_sec"] = pm.train_all / dt if dt > 0 \
+                    else 0.0
+                obs_events.record_span("fit.epoch", t0, dt, epoch=epoch,
+                                       batches=nb)
+                REGISTRY.gauge(
+                    "ff_train_samples_per_sec",
+                    "Training throughput of the last completed epoch"
+                ).set(rep["samples_per_sec"])
+                history.append(rep)
+                if verbose:
+                    msg = " ".join(f"{k}={v:.4f}" for k, v in rep.items())
+                    print(f"epoch {epoch} done: {msg}")
+                if callbacks:
+                    stop = False
+                    for cb in callbacks:
+                        cb.on_epoch_end(epoch, rep, self)
+                        stop = stop or getattr(cb, "stop_requested", False)
+                    if stop:
+                        break
+        finally:
+            self._metrics_buffer = None
         self._current_metrics = history[-1] if history else {}
+        if self.config.trace_export_file and obs_events.enabled():
+            from .obs.trace_export import export_chrome_trace
+            export_chrome_trace(self.config.trace_export_file)
+        self._end_of_training_telemetry()
         return history
+
+    def _end_of_training_telemetry(self) -> None:
+        """End-of-training observability hook shared by :meth:`fit` and
+        the resilience Supervisor: the per-rank ring dump that
+        ``tools/fftrace.py`` merges, written in a process group of more
+        than one rank or under ``FF_TRACE_DUMP=1``, strictly after the
+        last step. The JAX package's attribution harness runs here too;
+        in the port ``compile`` refuses an attribution request
+        (``obs.events.refuse_attribution``)."""
+        if not obs_events.enabled():
+            return
+        from .obs.trace_export import _world_size, dump_rank_trace
+        if _world_size() > 1 \
+                or obs_events._env_on(os.environ.get("FF_TRACE_DUMP")):
+            dump_rank_trace()
+
+    # checkpoint / resume: the JAX package's files, either package's steps
+    def save_checkpoint(self, directory: str, step: Optional[int] = None,
+                        max_to_keep: int = 3):
+        """Save params, optimizer state, op state and step to
+        ``directory`` (``runtime/checkpoint.py``). Inside ``fit`` (an
+        epoch callback) the pending step metrics are flushed first, and
+        a non-finite one raises ``NonFiniteMetrics``: a poisoned state
+        never reaches a checkpoint."""
+        from .runtime.checkpoint import save_model_checkpoint
+        buf = self._metrics_buffer
+        if buf is not None:
+            buf.flush()
+            buf.raise_if_poisoned()
+        return save_model_checkpoint(self, directory, step, max_to_keep)
+
+    def restore_checkpoint(self, directory: str,
+                           step: Optional[int] = None) -> int:
+        """Restore the newest valid step (or ``step``) of ``directory``
+        into this compiled model, in place; returns the step."""
+        from .runtime.checkpoint import restore_model_checkpoint
+        return restore_model_checkpoint(self, directory, step)
 
     # phase-level API parity (forward/backward/update as in model.cc)
     def forward(self, batch=None, seq_length: int = -1):
@@ -881,6 +988,12 @@ class FFModel:
                 # counted and logged, not silent
                 self._kv_fallback_count = getattr(
                     self, "_kv_fallback_count", 0) + 1
+                REGISTRY.counter(
+                    "ff_kv_fallback_total",
+                    "KV-cache decode attempts that fell back to the "
+                    "full re-forward path").inc(
+                        model=getattr(self, "_model_name", "")
+                        or "<unnamed>")
                 logging.getLogger("flexflow_tpu_torch").warning(
                     "KV-cache decode failed for this graph at shape "
                     "(%d, %d); falling back to full re-forward "
@@ -953,6 +1066,24 @@ class FFModel:
             self._sync()
             t2 = time.perf_counter()
         step_s = (t2 - t1) / max(int(max_new_tokens), 1)
+        # tag the phase spans with the ambient request trace (set by a
+        # serving front) so a request's prefill/decode link into its
+        # lifecycle; None outside a traced request — dropped by attrs
+        tid = request_trace.current_id()
+        span_attrs = {"trace": tid} if tid else {}
+        obs_events.record_span("generate.prefill", t0, t1 - t0,
+                               batch=b, seq=L, **span_attrs)
+        obs_events.record_span("generate.decode", t1, t2 - t1,
+                               batch=b, tokens=int(max_new_tokens),
+                               **span_attrs)
+        REGISTRY.histogram(
+            "ff_decode_step_seconds",
+            "Per-token decode-step latency by batch bucket",
+            buckets=DECODE_STEP_BUCKETS).observe(step_s, bucket=str(b))
+        REGISTRY.histogram(
+            "ff_prefill_seconds",
+            "Prompt prefill latency by batch bucket",
+            buckets=DECODE_STEP_BUCKETS).observe(t1 - t0, bucket=str(b))
         rec = getattr(self, "_decode_measured", None)
         if rec is None:
             rec = self._decode_measured = {}

@@ -1,0 +1,260 @@
+"""Chrome trace-event JSON export of the recorded spans.
+
+The port of ``flexflow_tpu/obs/trace_export.py``. The output loads in
+``chrome://tracing``, Perfetto (ui.perfetto.dev) and TensorBoard's trace
+viewer — the same viewers that read the Chrome traces
+``utils/profiling.profile_region`` writes through ``torch.profiler``, so
+a host-side span trace and a device-side trace of the same run can be
+inspected side by side (the shared host clock lines the phases up).
+
+Format: the "JSON Array Format" of the Trace Event spec — one complete
+('X') event per span, one instant ('i') event per point event,
+process/thread-name metadata ('M') events so multi-rank merges are
+readable in Perfetto, and each counter exported as a Chrome 'C' counter
+event (its cumulative value, sampled at the trace end) in addition to
+the ``otherData`` summary. For one event list the document equals the
+JAX package's.
+
+Per-rank dumps: :func:`dump_rank_trace` writes one RAW ring dump per
+rank (``.ffcache/trace_rank<r>_epoch<e>.json``; the rank is
+``torch.distributed.get_rank()`` when a process group exists, else 0)
+in the format ``tools/fftrace.py`` merges. The coordinator's clock
+anchor, which places each rank's clock on one timeline, comes with the
+port of ``resilience/coord.py``.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Optional, Sequence
+
+from . import events as _events
+
+
+def _meta(pid: int, name: str, value: str, tid: int = 0,
+          sort_index: Optional[int] = None) -> List[Dict[str, Any]]:
+    out = [{"name": name, "ph": "M", "pid": pid, "tid": tid,
+            "args": {"name": value}}]
+    if sort_index is not None:
+        out.append({"name": "process_sort_index", "ph": "M", "pid": pid,
+                    "tid": tid, "args": {"sort_index": sort_index}})
+    return out
+
+
+def to_chrome_trace(evts: Optional[Sequence[Dict[str, Any]]] = None,
+                    counters: Optional[Dict[str, float]] = None,
+                    pid: Optional[int] = None,
+                    process_name: Optional[str] = None,
+                    sort_index: Optional[int] = None,
+                    base: Optional[float] = None) -> Dict[str, Any]:
+    """Convert recorded events (default: the live ring) to a Chrome
+    trace-event document. Timestamps are rebased to ``base`` (default:
+    the earliest event, so the viewer opens at t=0). ``pid`` /
+    ``process_name`` / ``sort_index`` label the process lane — the
+    multi-rank merger passes the rank/epoch here."""
+    if evts is None:
+        evts = _events.events()
+    if counters is None:
+        counters = _events.counters()
+    if base is None:
+        base = min((e["ts"] for e in evts), default=0.0)
+    if pid is None:
+        pid = os.getpid()
+    out: List[Dict[str, Any]] = []
+    out.extend(_meta(pid, "process_name",
+                     process_name or f"flexflow pid {pid}",
+                     sort_index=sort_index))
+    named_tids = set()
+    end_us = 0.0
+    for e in evts:
+        rec: Dict[str, Any] = {
+            "name": e["name"],
+            "ph": "X" if e["kind"] == "span" else "i",
+            "ts": round((e["ts"] - base) * 1e6, 3),
+            "pid": pid,
+            "tid": e["tid"],
+        }
+        if e["kind"] == "span":
+            rec["dur"] = round(e["dur"] * 1e6, 3)
+        else:
+            rec["s"] = "t"          # instant scoped to its thread
+        if e.get("attrs"):
+            rec["args"] = e["attrs"]
+        if e["tid"] not in named_tids:
+            named_tids.add(e["tid"])
+            out.extend(_meta(pid, "thread_name", f"host-{e['tid']}",
+                             tid=e["tid"]))
+        end_us = max(end_us, rec["ts"] + rec.get("dur", 0.0))
+        out.append(rec)
+    # counters as Chrome 'C' events: one cumulative sample at the trace
+    # end per counter, so merged multi-rank traces show them as tracks
+    # in Perfetto instead of burying them in otherData
+    for cname in sorted(counters):
+        out.append({"name": cname, "ph": "C", "ts": round(end_us, 3),
+                    "pid": pid, "args": {"value": counters[cname]}})
+    out.extend(_flow_events(evts, pid, base))
+    return {"traceEvents": out,
+            "displayTimeUnit": "ms",
+            "otherData": {"counters": dict(counters),
+                          "dropped_events": _events.dropped()}}
+
+
+def _flow_events(evts: Sequence[Dict[str, Any]], pid: int,
+                 base: float) -> List[Dict[str, Any]]:
+    """Chrome flow events ('s'/'t'/'f') linking spans that share a
+    ``trace`` attribute — a serving request's lifecycle spans land on
+    different scheduler threads (HTTP handler, queue worker, decode
+    loop), and the flow arrows stitch them into one visible path in
+    Perfetto.  Only groups with >= 2 spans get arrows; flow ids reuse
+    the trace id string (Chrome accepts string ids)."""
+    groups: Dict[str, List[Dict[str, Any]]] = {}
+    for e in evts:
+        attrs = e.get("attrs")
+        if e["kind"] == "span" and attrs and attrs.get("trace"):
+            groups.setdefault(str(attrs["trace"]), []).append(e)
+    out: List[Dict[str, Any]] = []
+    for tid_key in sorted(groups):
+        chain = sorted(groups[tid_key], key=lambda e: e["ts"])
+        if len(chain) < 2:
+            continue
+        for i, e in enumerate(chain):
+            ph = "s" if i == 0 else ("f" if i == len(chain) - 1 else "t")
+            rec: Dict[str, Any] = {
+                "name": "request", "cat": "request", "ph": ph,
+                "id": tid_key, "pid": pid, "tid": e["tid"],
+                "ts": round((e["ts"] - base) * 1e6, 3),
+            }
+            if ph == "f":
+                rec["bp"] = "e"     # bind to the enclosing slice
+            out.append(rec)
+    return out
+
+
+def export_chrome_trace(path: str,
+                        evts: Optional[Sequence[Dict[str, Any]]] = None
+                        ) -> str:
+    """Write the Chrome trace JSON to ``path``; returns the path."""
+    doc = to_chrome_trace(evts)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
+    return path
+
+
+# ----------------------------------------------------------------------
+# per-rank raw dumps (fftrace merge input)
+# ----------------------------------------------------------------------
+
+_DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), ".ffcache")
+
+RANK_DUMP_SCHEMA = 1
+
+
+def _rank() -> int:
+    """This process's rank: ``torch.distributed.get_rank()`` in a
+    process group, else 0."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_rank())
+    return 0
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_world_size())
+    return 1
+
+
+def rank_trace_path(rank: int, epoch: int,
+                    cache_dir: Optional[str] = None) -> str:
+    return os.path.join(cache_dir or _DEFAULT_DIR,
+                        f"trace_rank{rank}_epoch{epoch}.json")
+
+
+def dump_rank_trace(path: Optional[str] = None,
+                    cache_dir: Optional[str] = None) -> Optional[str]:
+    """Dump this rank's raw ring (events + counters + drop count) with
+    its identity (rank, world epoch), for the
+    ``tools/fftrace.py`` cross-rank merge. Returns the path (None on
+    failure; dumping telemetry must never kill the training run)."""
+    try:
+        from ..resilience import status
+        world = status.snapshot()
+        rank = _rank()
+        epoch = int(world.get("world_epoch") or 0)
+        snap = _events.snapshot()
+        doc: Dict[str, Any] = {
+            "schema": RANK_DUMP_SCHEMA,
+            "rank": rank,
+            "world_epoch": epoch,
+            "world_size": _world_size(),
+            "pid": os.getpid(),
+            "events": snap["events"],
+            "counters": snap["counters"],
+            "dropped": snap["dropped"],
+        }
+        # the coordinator's clock anchor ("clock") joins the dump with
+        # the port of resilience/coord.py
+        if path is None:
+            path = rank_trace_path(rank, epoch, cache_dir)
+        os.makedirs(os.path.dirname(os.path.abspath(path)),
+                    exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+        _events.counter("trace.rank_dumps")
+        return path
+    except Exception:  # noqa: BLE001
+        return None
+
+
+# ----------------------------------------------------------------------
+# serving-process raw dumps (fftrace merge input, role="serving")
+# ----------------------------------------------------------------------
+
+
+def serving_trace_path(pid: Optional[int] = None,
+                       cache_dir: Optional[str] = None) -> str:
+    return os.path.join(cache_dir or _DEFAULT_DIR,
+                        f"trace_serving_{pid or os.getpid()}.json")
+
+
+def dump_serving_trace(path: Optional[str] = None,
+                       cache_dir: Optional[str] = None) -> Optional[str]:
+    """Dump a serving process's raw ring for the ``tools/fftrace.py``
+    merge — same schema as the rank dumps but tagged ``role="serving"``
+    (no world rank/epoch: serving processes sit outside the training
+    world), so one merged Chrome trace can show a request's lifecycle
+    spans next to the training lanes.  Returns the path (None on
+    failure; dumping telemetry must never kill the server)."""
+    try:
+        snap = _events.snapshot()
+        doc: Dict[str, Any] = {
+            "schema": RANK_DUMP_SCHEMA,
+            "role": "serving",
+            "rank": 0,
+            "world_epoch": 0,
+            "world_size": 1,
+            "pid": os.getpid(),
+            "events": snap["events"],
+            "counters": snap["counters"],
+            "dropped": snap["dropped"],
+        }
+        if path is None:
+            path = serving_trace_path(cache_dir=cache_dir)
+        os.makedirs(os.path.dirname(os.path.abspath(path)),
+                    exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+        _events.counter("trace.serving_dumps")
+        return path
+    except Exception:  # noqa: BLE001
+        return None

@@ -6,8 +6,11 @@ padded with zero rows up to the nearest batch bucket, run through
 ``Executor.make_forward`` (``infer``) or ``FFModel.generate`` /
 ``generate_beam`` (``generate``) and sliced back; batches larger than the
 largest bucket run in bucket-sized chunks. Long greedy decodes run in
-segments with the instance lock released between them. The fault hook
-and request tracing come with later slices.
+segments with the instance lock released between them. ``infer`` and
+``generate`` are the firing sites of the ``infer_fail@N`` /
+``infer_crash@N`` fault clauses (``resilience/faults.py``): one call
+index per top-level call. Request tracing comes with the serving
+fronts.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..resilience import faults
 
 _NP_DTYPES = {torch.bool: np.bool_, torch.int8: np.int8,
               torch.int32: np.int32, torch.int64: np.int64,
@@ -72,7 +77,17 @@ class InferenceSession:
 
     def infer(self, inputs: Dict[str, np.ndarray]) -> np.ndarray:
         """Run one batch; pads to the bucket and slices the result.
-        Client errors (missing inputs, ragged rows) raise ValueError."""
+        Batches larger than the biggest bucket run in bucket-sized
+        chunks. Client errors (missing inputs, ragged rows) raise
+        ValueError."""
+        if faults.active():
+            faults.raise_infer_fault()
+        return self._infer_checked(inputs)
+
+    def _infer_checked(self, inputs: Dict[str, np.ndarray]) -> np.ndarray:
+        # chunk recursion goes through here, NOT infer(): the fault
+        # hook must advance the infer_fail@N counter exactly once per
+        # top-level call or clause indices stop matching request counts
         names = self.input_names
         missing = [n for n in names if n not in inputs]
         if missing:
@@ -81,7 +96,8 @@ class InferenceSession:
         cap = self.buckets[-1]
         if n > cap:
             return np.concatenate(
-                [self.infer({k: v[i:i + cap] for k, v in inputs.items()})
+                [self._infer_checked(
+                    {k: v[i:i + cap] for k, v in inputs.items()})
                  for i in range(0, n, cap)], axis=0)
         bucket = _next_bucket(n, self.buckets)
         padded = {}
@@ -113,6 +129,13 @@ class InferenceSession:
         the bucket (padded ragged rows decode from a 1-token prompt) and
         the padded rows' outputs are sliced off; ``num_beams`` > 1 runs
         ``FFModel.generate_beam``."""
+        # same fault hook as infer(): generate IS the serving path a
+        # chaos plan (infer_fail@N / infer_crash@N) must reach. Each
+        # bucket-sized chunk of an oversized batch advances the call
+        # counter once (chunks are separate generate calls), as in the
+        # JAX package.
+        if faults.active():
+            faults.raise_infer_fault()
         ids = np.ascontiguousarray(np.asarray(input_ids, np.int32))
         n = int(ids.shape[0])
         ragged = np.ndim(prompt_len) > 0

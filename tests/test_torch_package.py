@@ -51,15 +51,21 @@ def test_import_leaves_jax_and_flexflow_tpu_out():
         "       ('jax', 'jaxlib', 'flexflow_tpu')]\n"
         "mods = [m for m in sys.modules\n"
         "        if m.startswith('flexflow_tpu_torch')]\n"
-        "print(len(mods), int('flexflow_tpu_torch.frontends.keras.models'\n"
-        "                     in mods and 'flexflow_tpu_torch.search"\
-        ".serialization' in mods), bad)\n"
+        "want = ['flexflow_tpu_torch.frontends.keras.models',\n"
+        "        'flexflow_tpu_torch.search.serialization',\n"
+        "        'flexflow_tpu_torch.obs.events',\n"
+        "        'flexflow_tpu_torch.obs.flight',\n"
+        "        'flexflow_tpu_torch.resilience.supervisor',\n"
+        "        'flexflow_tpu_torch.runtime.checkpoint',\n"
+        "        'flexflow_tpu_torch.utils.profiling']\n"
+        "print(len(mods), int(all(w in mods for w in want)), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.split()[0]) >= 20
-    assert r.stdout.split()[1] == "1"   # the frontends and search too
+    # the frontends, search, obs, resilience and utils too
+    assert r.stdout.split()[1] == "1"
 
 
 def test_frontends_import_without_transformers_or_onnx():
@@ -111,7 +117,7 @@ def test_no_source_imports_jax_or_flexflow_tpu():
         seen += 1
     assert seen >= 20
     assert {"frontends", os.path.join("frontends", "keras"),
-            "search"} <= scanned
+            "search", "obs", "resilience", "utils"} <= scanned
 
 
 def test_enum_values_equal_reference():
@@ -325,3 +331,106 @@ def test_chip_smoke_frontends_graphs_build_on_the_cpu():
     for lname, ws in stashed.items():
         layer = next(l for l in off.layers if l.name == lname)
         assert ws == {w.name: w.shape for w in layer.weights}, lname
+
+
+def _load_smoke():
+    import importlib.util
+    spec_ = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_resilience_graph_and_plan_on_the_cpu(tmp_path,
+                                                        monkeypatch):
+    """chip_smoke.py's resilience phase on the CPU: (a) its BERT-base
+    graph (8 x 128, built, no weight materialised) has the parameter
+    leaves that tests/data/bert_base_checkpoint_leaves.json lists for the
+    JAX package, which the phase holds the card's manifest against; (b)
+    its fault plan, run by the Supervisor with the phase's epochs,
+    batches, checkpoint cadence and retention over a 2-layer BERT
+    (hidden 64, dropout 0.1, Adam, the fused update's plain version),
+    executes exactly RES_EXECUTED steps (replays included) with the
+    restarts, rollback and skipped checkpoint the phase asserts, and
+    ends bit-identical to the clean run."""
+    import json
+    import numpy as np
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    from flexflow_tpu_torch.obs import events, flight
+    from flexflow_tpu_torch.resilience import Supervisor, faults, status
+    monkeypatch.setattr(flight, "_DEFAULT_DIR", str(tmp_path / "ffcache"))
+    smoke = _load_smoke()
+    assert "resilience" in smoke.PHASES
+    ff = FFModel(FFConfig(), device="cpu")
+    bcfg = BertConfig.base()
+    bcfg.max_position = 128
+    build_bert(ff, 8, 128, bcfg)
+    with open(smoke.RES_LEAVES) as f:
+        want = json.load(f)["leaves"]
+    got = {f"['params']['{l.name}']['{w.name}']": {
+        "shape": list(w.shape), "dtype": "float32"}
+        for l in ff.layers for w in l.weights}
+    assert got == {k: v for k, v in want.items()
+                   if k.startswith("['params']")}
+    assert {k.replace("['opt_state']['m']", "['params']")
+            for k in want if k.startswith("['opt_state']['m']")} == \
+        set(got)
+    assert len(want) == 3 * len(got)
+
+    plan = faults.FaultPlan.parse(smoke.RES_PLAN)
+    assert sorted(f.kind for f in plan.faults) == \
+        ["corrupt_ckpt", "crash", "nan"]
+
+    def model():
+        cfg = FFConfig()
+        cfg.batch_size = 8
+        cfg.kernel_impls = "attention:flash"
+        m = FFModel(cfg, device="cpu")
+        b = BertConfig.tiny()
+        b.max_position = 16
+        out = build_bert(m, 8, 16, b)
+        m.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy",
+                  ["accuracy"], output_tensor=out)
+        m.executor._kernel_impls["opt_update"] = "fused"
+        return m
+
+    rng = np.random.default_rng(7)
+    n = smoke.RES_BATCHES * 8
+    x = [rng.integers(0, 1024, (n, 16)).astype(np.int32),
+         np.tile(np.arange(16, dtype=np.int32), (n, 1))]
+    y = rng.integers(0, 2, (n, 1)).astype(np.int32)
+    runs = {}
+    was_enabled = events.enabled()
+    # the phase counts executed steps (replays included) by the step
+    # wrapper's trace counter, so tracing is on here as it is there
+    events.enable()
+    try:
+        for name, p in (("clean", ""), ("faulty", smoke.RES_PLAN)):
+            faults.install(p)
+            status.reset()
+            events.clear()
+            m = model()
+            sup = Supervisor(m, str(tmp_path / name),
+                             checkpoint_every=smoke.RES_EVERY,
+                             max_to_keep=smoke.RES_KEEP,
+                             backoff_base_s=0.0)
+            hist = sup.run(x, y, epochs=smoke.RES_EPOCHS)
+            runs[name] = (events.counters()["executor.train_steps"], sup,
+                          hist, smoke.host_state(m), status.snapshot())
+    finally:
+        faults.clear()
+        status.reset()
+        events.clear()
+        if not was_enabled:
+            events.disable()
+    steps, sup, hist, state, snap = runs["faulty"]
+    assert runs["clean"][0] == smoke.RES_EPOCHS * smoke.RES_BATCHES
+    assert steps == smoke.RES_EXECUTED
+    assert (sup.restarts, sup.nan_rollbacks) == (2, 1)
+    assert snap["corrupt_checkpoints_skipped"] == 1
+    assert snap["faults_injected"] == 3
+    nleaves, bad = smoke.identical(runs["clean"][3], state)
+    assert nleaves > 0 and bad == []
+    assert hist[-1]["loss"] == runs["clean"][2][-1]["loss"]
