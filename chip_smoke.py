@@ -146,7 +146,25 @@ never JAX, and:
                (its CRC share) of the 1.31 GB state, the disabled step
                wrapper's host cost (<= 3% of a step) and the step with
                tracing on and off;
- 15. kernels - one JSON line with each kernel's launches, error and times.
+ 15. search  - the strategy search on the card: the calibration (the bf16
+               matmul chain and mxu_eff, host dispatch, HBM streaming
+               read, op_attention@xla / @flash at s 128 and 512, then
+               both at 1024, 2048, 4096, b1 h8 d64 f32 causal, and the
+               crossover; the flash forward must launch while
+               calibrating); BERT-base (BertConfig.base(), uncut) 8 x 512
+               compiled with search_budget=8 and calibration on (Unity,
+               the floor guard timing searched and data-parallel steps on
+               the card, the measured kernel plan) against the same model
+               data-parallel on the default plan: the search's time, the
+               plan, the predicted step against the median of 6 measured
+               after a 3-step fit whose launches are exactly the plan's,
+               the dropout-0 histories within 2e-2; remat="blocks"
+               against none at 8 x 512, dropout 0.1: bit-identical
+               histories, 24 / 12 / 12 / 1 launches a step, peak memory
+               and step time of both; recompile_on_condition in a
+               2-epoch fit of BERT-base 8 x 128 changing Adam's alpha
+               once, against the same change made by hand;
+ 16. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
@@ -155,7 +173,8 @@ drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 ``--phases build,kernel,mixtral,moe`` Mixtral and the MoE example,
 ``--phases build,kernel,zoo`` the rest of the model zoo, ``--phases
 build,kernel,frontends`` the frontends, ``--phases
-build,kernel,resilience`` checkpointing, faults and telemetry; with
+build,kernel,resilience`` checkpointing, faults and telemetry,
+``--phases build,kernel,search`` the strategy search; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
@@ -3286,13 +3305,387 @@ def phase_resilience(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the strategy search on one card
+# ---------------------------------------------------------------------------
+SEARCH_SEQ = 512                   # BERT-base 8 x 512, uncut
+SEARCH_BUDGET = 8
+SEARCH_FIT_STEPS = 3               # fit steps of the searched model
+SEARCH_TIMED_STEPS = 6             # timed steps after the fit
+SEARCH_EXTRA_SEQS = (1024, 2048, 4096)   # beyond the table's s128/s512
+RECOMPILE_SEQ = 128
+RECOMPILE_BATCHES = 3              # batches per epoch; 2 epochs
+RECOMPILE_ALPHA = 5e-5             # Adam's alpha after the trigger
+SEARCH_DEVICE = "cuda"             # the CPU rehearsal test sets "cpu"
+
+
+def search_bert_config():
+    """BERT-base, uncut (the CPU rehearsal test swaps in a tiny one)."""
+    from flexflow_tpu_torch.models import BertConfig
+    return BertConfig.base()
+
+
+def search_model(seq: int, dropout: float, **cfg_kw):
+    """BERT-base (``BertConfig.base()``, uncut) at 8 x seq with Adam 1e-4,
+    built through FFModel.compile with the config overrides given."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_bert
+    cfg = FFConfig()
+    cfg.batch_size = 8
+    cfg.seed = 0
+    cfg.device = SEARCH_DEVICE
+    for k, v in cfg_kw.items():
+        setattr(cfg, k, v)
+    ff = FFModel(cfg)
+    bcfg = search_bert_config()
+    bcfg.max_position = seq
+    bcfg.dropout = dropout
+    out = build_bert(ff, 8, seq, bcfg)
+    ff.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy",
+               ["accuracy"], output_tensor=out)
+    return ff, bcfg
+
+
+def plan_launches(ff, steps: int, remat: bool = False) -> dict:
+    """The launches ``steps`` train steps make under the model's adopted
+    kernel plan: one forward, dq and dk/dv per flash layer (two forwards
+    with block remat), ceil(leaves / 384) fused Adam launches."""
+    plan = ff.executor._kernel_impls
+    n_flash = sum(1 for l in ff.executor.program.layers
+                  if plan.get(l.name) == "flash")
+    leaves = sum(len(ws) for ws in ff.params.values())
+    adam = -(-leaves // 384) if plan.get("opt_update") == "fused" else 0
+    return {"flash_attention_fwd": n_flash * steps * (2 if remat else 1),
+            "flash_attention_bwd_dq": n_flash * steps,
+            "flash_attention_bwd_dkv": n_flash * steps,
+            "adam_update": adam * steps}
+
+
+def snapshot(ff) -> dict:
+    """A copy of the model's weights."""
+    return {ln: {wn: t.detach().clone() for wn, t in ws.items()}
+            for ln, ws in ff.params.items()}
+
+
+def load_params(ff, snap: dict) -> None:
+    with torch.no_grad():
+        for ln, ws in snap.items():
+            for wn, t in ws.items():
+                ff.params[ln][wn].copy_(t)
+
+
+def bert_data(seq: int, rows: int, seed: int):
+    return dataset(search_bert_config(), seq, rows, seed)
+
+
+def device_batch(x, y) -> dict:
+    return {"input_ids": torch.from_numpy(x[0]).to(SEARCH_DEVICE),
+            "position_ids": torch.from_numpy(x[1]).to(SEARCH_DEVICE),
+            "label": torch.from_numpy(y).to(SEARCH_DEVICE)}
+
+
+def timed_steps(ff, batch, n: int) -> list:
+    """Host-clock ms of ``n`` train steps, each ending in a device sync."""
+    step_fn = ff.executor.make_train_step()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ff._run_train_step(step_fn, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def search_calibration(smi: str, cache: str) -> dict:
+    """The calibration the search prices with, measured on the card: the
+    bf16 matmul chain (mxu_eff), the host dispatch and memory-bandwidth
+    rows, the op_attention@flash / @xla rows at s 128 and 512 (the
+    package's sizes), then both impls at SEARCH_EXTRA_SEQS timed the same
+    way, and the crossover they give."""
+    from flexflow_tpu_torch.parallel.machine import DeviceMesh, MachineSpec
+    from flexflow_tpu_torch.search.calibration import (
+        CalibrationTable, _attn_seq_len, _bench_attention_impl,
+        attention_bench_fn, calibrate_kernel_impls, calibrate_mesh,
+        shape_class, ATTN_IMPL_SIZES)
+    from flexflow_tpu_torch.search.costmodel import OpCostModel
+    spec = MachineSpec.detect("cuda")
+    dmesh = DeviceMesh(spec, devices=["cuda"])
+    cm = OpCostModel(spec)
+    achieved = cm.calibrate("cuda")
+    tab = CalibrationTable(cache)
+    calib = calibrate_mesh(dmesh, table=tab)
+    fns = zero_counts()
+    calibrate_kernel_impls(dmesh, tab)
+    calib_launches = fns["flash_attention_fwd"].launches
+    rows = {}
+    for impl in ("xla", "flash"):
+        for nb in ATTN_IMPL_SIZES:
+            s = _attn_seq_len(nb)
+            rows[(impl, s)] = tab.get(
+                "cuda", f"op_attention@{impl}", "float32",
+                shape_class(4 * 8 * 64 * s), 0)
+    for s in SEARCH_EXTRA_SEQS:
+        for impl in ("xla", "flash"):
+            rows[(impl, s)] = _bench_attention_impl(impl, s, "cuda")
+    # device time of the same calls by CUDA-graph replay (no host
+    # launch gaps), beside the event-timed rows the search prices with
+    dev_ms = {}
+    with torch.no_grad():
+        for s in (128, 512) + SEARCH_EXTRA_SEQS:
+            for impl in ("xla", "flash"):
+                dev_ms[(impl, s)] = cuda_time_ms(
+                    attention_bench_fn(impl, s, "cuda"), iters=5)
+    check(tab.measured == 2 + 2 * len(ATTN_IMPL_SIZES),
+          f"calibration rows measured {tab.measured}")
+    # each row: 2 warm-up calls and 3 timed ones
+    check(calib_launches == len(ATTN_IMPL_SIZES) * (2 + 3),
+          f"calibration launched the flash forward {calib_launches} times")
+    seqs = sorted({s for _, s in rows})
+
+    def crossover(t):
+        """The shortest measured length from which flash wins at every
+        longer one too (None: xla wins at the longest)."""
+        out = None
+        for s in reversed(seqs):
+            if t[("flash", s)] >= t[("xla", s)]:
+                break
+            out = s
+        return out
+
+    cross, cross_dev = crossover(rows), crossover(dev_ms)
+    print(f"[search] calibration on {smi}: bf16 matmul chain "
+          f"{achieved / 1e12:.1f} TFLOP/s, mxu_eff {cm.mxu_eff:.4f} of "
+          f"{spec.peak_flops / 1e12:.1f}; host dispatch "
+          f"{calib.dispatch_s * 1e6:.3f} us/op; HBM streaming read "
+          f"{calib.mem_bw / 1e9:.1f} GB/s; flash forward launched "
+          f"{calib_launches} times while calibrating")
+    for s in seqs:
+        src = "table" if s in (128, 512) else "phase"
+        print(f"[search] op_attention b1 h8 s{s} d64 f32 causal ({src}): "
+              f"xla {rows[('xla', s)] * 1e6:.2f} us, flash "
+              f"{rows[('flash', s)] * 1e6:.2f} us (event-timed); device "
+              f"{dev_ms[('xla', s)] * 1e3:.2f} / "
+              f"{dev_ms[('flash', s)] * 1e3:.2f} us (graph replay)")
+    print(f"[search] flash/xla crossover: flash is faster at every "
+          f"measured length from s = {cross} (event-timed, what the search "
+          f"prices with), s = {cross_dev} (device time); "
+          f"FLASH_AUTO_MIN_SEQ stays 1024")
+    return {"achieved_tflops": achieved / 1e12, "mxu_eff": cm.mxu_eff,
+            "dispatch_us": calib.dispatch_s * 1e6,
+            "membw_gbs": calib.mem_bw / 1e9,
+            "rows_us": {f"{i}@{s}": v * 1e6 for (i, s), v in rows.items()},
+            "device_us": {f"{i}@{s}": v * 1e3
+                          for (i, s), v in dev_ms.items()},
+            "crossover": cross, "crossover_device": cross_dev,
+            "launches": calib_launches}
+
+
+def searched_bert(smi: str) -> dict:
+    """BERT-base 8x512 compiled with search_budget=8 and calibration on
+    (the search, the floor guard and the measured kernel plan), its
+    3-step fit counted against the plan, 6 timed steps against the
+    search's prediction; then the same model data-parallel on the
+    default plan (plain attention, unfused Adam) from the same weights,
+    whose dropout-0 loss history the searched one must match."""
+    x, y = bert_data(SEARCH_SEQ, 8, 21)
+    t0 = time.perf_counter()
+    ff, _ = search_model(SEARCH_SEQ, 0.0, search_budget=SEARCH_BUDGET,
+                         calibration_v2="true")
+    compile_s = time.perf_counter() - t0
+    phases = dict(ff._compile_phases)
+    search_s = phases["search_s"]
+    rec = ff._kernel_record
+    impls = sorted({(o["op"], o["impl"]) for o in rec["ops"]})
+    init = snapshot(ff)
+    fns = zero_counts()  # the main path of the searched model
+    h_s = [r["loss"] for r in ff.fit(x, y, epochs=SEARCH_FIT_STEPS,
+                                     verbose=False)]
+    launches = {n: f.launches for n, f in fns.items()}
+    want = plan_launches(ff, SEARCH_FIT_STEPS)
+    check(launches == want, f"searched launches {launches} != {want}")
+    check(want["flash_attention_fwd"] > 0 and want["adam_update"] > 0,
+          f"the measured plan chose no kernel: {impls}")
+    ms = timed_steps(ff, device_batch(x, y), SEARCH_TIMED_STEPS)
+    pred = ff._search_predicted["searched_cost_s"] * 1e3
+    guard = getattr(ff, "_floor_guard_record", None)
+    check(guard is not None and guard["adopted"] in ("searched", "dp"),
+          f"the floor guard did not run: {guard}")
+    del ff
+    free_cuda()
+    dp, _ = search_model(SEARCH_SEQ, 0.0, only_data_parallel=True)
+    check(not dp.executor._kernel_impls, "the DP run planned kernels")
+    load_params(dp, init)
+    del init
+    h_dp = [r["loss"] for r in dp.fit(x, y, epochs=SEARCH_FIT_STEPS,
+                                      verbose=False)]
+    del dp
+    err = float(np.abs(np.array(h_s) - np.array(h_dp)).max())
+    print(f"[search] BERT-base 8x{SEARCH_SEQ}, search_budget "
+          f"{SEARCH_BUDGET}, calibration on: compile {compile_s:.3f} s, "
+          f"of which the search {search_s:.3f} s ({phases}); plan {impls} "
+          f"(measured {rec['measured']}, {rec['n_nondefault']}/"
+          f"{rec['n_ops']} ops off the default); floor guard {guard}")
+    print(f"[search] kernel record ops[0] {rec['ops'][0]}; "
+          f"ops[-1] {rec['ops'][-1]}")
+    print(f"[search] fit {SEARCH_FIT_STEPS} steps: launches {launches} "
+          f"(the plan's {want}); predicted step {pred:.3f} ms vs "
+          f"measured median {float(np.median(ms)):.3f} ms of "
+          f"{SEARCH_TIMED_STEPS} (p90 {float(np.percentile(ms, 90)):.3f})")
+    print(f"[search] dropout 0 loss: searched {[round(v, 6) for v in h_s]} "
+          f"vs data-parallel on the default plan "
+          f"{[round(v, 6) for v in h_dp]}: max|diff| {err:.3e} "
+          f"(tol {TRAIN_TOL:.0e})")
+    check(err <= TRAIN_TOL and np.all(np.isfinite(h_s)),
+          "searched and data-parallel loss histories disagree")
+    return {"launches": launches, "search_s": search_s,
+            "phases": phases,
+            "compile_s": compile_s, "predicted_ms": pred,
+            "step_ms": float(np.median(ms)), "guard": guard,
+            "plan": impls, "err": err}
+
+
+def remat_check(smi: str) -> dict:
+    """The same BERT-base 8x512 train step with remat="blocks" against
+    none, flash + fused Adam, dropout 0.1: bit-identical loss histories
+    from the same weights, 24 / 12 / 12 / ceil(leaves / 384) launches a
+    step with remat, peak memory and the median step of both."""
+    x, y = bert_data(SEARCH_SEQ, 8, 23)
+    batch = device_batch(x, y)
+    out = {}
+    init = None
+    for remat in ("none", "blocks"):
+        ff, _ = search_model(SEARCH_SEQ, 0.1, only_data_parallel=True,
+                             kernel_impls="attention:flash,opt_update:fused",
+                             remat=remat)
+        check((ff.executor._remat is not None) == (remat == "blocks"),
+              f"remat={remat}: blocks {ff.executor._remat}")
+        if init is None:
+            init = snapshot(ff)
+        else:
+            load_params(ff, init)
+        step_fn = ff.executor.make_train_step()
+        torch.cuda.synchronize()
+        fns = zero_counts()
+        hist = [float(ff._run_train_step(step_fn, batch)["loss"])
+                for _ in range(SEARCH_FIT_STEPS)]
+        launches = {n: f.launches for n, f in fns.items()}
+        want = plan_launches(ff, SEARCH_FIT_STEPS, remat == "blocks")
+        check(launches == want,
+              f"remat={remat} launches {launches} != {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed_steps(ff, batch, SEARCH_TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[remat] = {"hist": hist, "launches": launches, "peak_gb": peak,
+                      "step_ms": float(np.median(ms))}
+        del ff, step_fn
+        free_cuda()
+        print(f"[search] remat={remat}: losses {hist}; launches "
+              f"{launches}; peak {peak:.3f} GB; median step "
+              f"{float(np.median(ms)):.3f} ms")
+    same = out["none"]["hist"] == out["blocks"]["hist"]
+    print(f"[search] remat bit-identical to no remat at dropout 0.1: "
+          f"{same}; peak {out['blocks']['peak_gb']:.3f} vs "
+          f"{out['none']['peak_gb']:.3f} GB; step "
+          f"{out['blocks']['step_ms']:.3f} vs "
+          f"{out['none']['step_ms']:.3f} ms")
+    check(same, "remat changed the loss history")
+    return out
+
+
+class _AlphaAt:
+    """An epoch callback that sets Adam's alpha after epoch ``epoch``:
+    the hand-made twin of the recompile trigger."""
+    stop_requested = False
+
+    def __init__(self, epoch: int, alpha: float):
+        self.epoch, self.alpha = epoch, alpha
+
+    def on_epoch_end(self, epoch, logs=None, model=None):
+        if epoch == self.epoch:
+            model.optimizer.alpha = self.alpha
+
+
+def recompile_check() -> dict:
+    """A 2-epoch fit of BERT-base 8x128 (flash + fused Adam, dropout
+    0.1) whose recompile trigger fires once, after the last step of the
+    first epoch, and whose alter changes Adam's alpha; the same fit from
+    the same weights with the alpha changed by hand there (an epoch
+    callback) must give the same history, and ff_recompiles_total must
+    rise by 1."""
+    from flexflow_tpu_torch.obs.metrics_registry import REGISTRY
+    x, y = bert_data(RECOMPILE_SEQ, 8 * RECOMPILE_BATCHES, 29)
+    counter = REGISTRY.counter("ff_recompiles_total")
+    before = counter.value()
+    hists, init = {}, None
+    for how in ("trigger", "hand"):
+        ff, _ = search_model(RECOMPILE_SEQ, 0.1, only_data_parallel=True,
+                             kernel_impls="attention:flash,opt_update:fused")
+        if init is None:
+            init = snapshot(ff)
+        else:
+            load_params(ff, init)
+        cbs = None
+        if how == "trigger":
+            rs = ff.recompile_on_condition(
+                lambda s: s.iteration == RECOMPILE_BATCHES,
+                lambda s: setattr(s.ff.optimizer, "alpha",
+                                  RECOMPILE_ALPHA))
+        else:
+            cbs = [_AlphaAt(0, RECOMPILE_ALPHA)]
+        fns = zero_counts()
+        hists[how] = [r["loss"] for r in ff.fit(
+            x, y, epochs=2, callbacks=cbs, verbose=False)]
+        launches = {n: f.launches for n, f in fns.items()}
+        want = plan_launches(ff, 2 * RECOMPILE_BATCHES)
+        check(launches == want,
+              f"recompile {how}: launches {launches} != {want}")
+        check(ff.optimizer.alpha == RECOMPILE_ALPHA, "alpha unchanged")
+        if how == "trigger":
+            check(rs.recompilations == 1,
+                  f"{rs.recompilations} recompiles")
+        del ff
+        free_cuda()
+    recompiles = counter.value() - before
+    print(f"[search] recompile_on_condition: 2 epochs x "
+          f"{RECOMPILE_BATCHES} batches of BERT-base 8x{RECOMPILE_SEQ}, "
+          f"alpha 1e-4 -> {RECOMPILE_ALPHA} after step "
+          f"{RECOMPILE_BATCHES}: ff_recompiles_total +{recompiles:g}; "
+          f"losses {hists['trigger']} vs by hand {hists['hand']}; "
+          f"launches {launches}")
+    check(recompiles == 1, f"ff_recompiles_total rose by {recompiles}")
+    check(hists["trigger"] == hists["hand"],
+          "the recompiled run's history differs from the hand-made one")
+    return {"recompiles": recompiles, "launches": launches}
+
+
+def phase_search(smi: str) -> dict:
+    """The strategy search on one card (module docstring, phase 15)."""
+    import tempfile
+    cache = tempfile.mkdtemp(prefix="ff_search_cache_")
+    os.environ["FF_CACHE_DIR"] = cache
+    try:
+        cal = search_calibration(smi, cache)
+        free_cuda()
+        srch = searched_bert(smi)
+        free_cuda()
+        rem = remat_check(smi)
+        free_cuda()
+        rc = recompile_check()
+        return {"calibration": cal, "searched": srch, "remat": rem,
+                "recompile": rc}
+    finally:
+        os.environ.pop("FF_CACHE_DIR", None)
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe, resil) -> list:
+                zoo, fe, resil, search) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
-    DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends and resilience
-    launches beside them."""
+    DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends, resilience and
+    search launches beside them."""
     zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
     fe_launches = {"fx_train": fe["fx"]["train_launches"],
                    "keras_train": fe["keras"]["launches"],
@@ -3300,6 +3693,16 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
     def fe_row(name):
         return {k: v[name] for k, v in fe_launches.items()}
+
+    def search_row(name):
+        """The search phase's launches: the searched BERT-base 8x512
+        fit (3 steps), the remat train steps (3), the recompile fit."""
+        return {"search_train_launches":
+                    search["searched"]["launches"][name],
+                "remat_train_launches":
+                    search["remat"]["blocks"]["launches"][name],
+                "recompile_train_launches":
+                    search["recompile"]["launches"][name]}
 
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
@@ -3365,7 +3768,11 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # the resilience phase's faulty supervised run, replays included
         "resilience_train_launches":
             resil["launches"]["flash_attention_fwd"],
-        "resilience_executed_steps": resil["steps"]}]
+        "resilience_executed_steps": resil["steps"],
+        # the search phase: calibrating op_attention@flash, then the
+        # searched model's and the remat and recompile runs' steps
+        "search_calibration_launches": search["calibration"]["launches"],
+        **search_row("flash_attention_fwd")}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -3394,6 +3801,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                                    for t, n in zoo_launches.items()},
             "frontends_train_launches": fe_row(name),
             "resilience_train_launches": resil["launches"][name],
+            **search_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)"})
     a = kt["adam"]
@@ -3414,6 +3822,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                                for t, n in zoo_launches.items()},
         "frontends_train_launches": fe_row("adam_update"),
         "resilience_train_launches": resil["launches"]["adam_update"],
+        **search_row("adam_update"),
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")}})
@@ -3422,7 +3831,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience")
+          "resilience", "search")
 
 
 def main() -> int:
@@ -3470,13 +3879,14 @@ def main() -> int:
     run("zoo", phase_zoo, smi)
     run("frontends", phase_frontends, smi)
     run("resilience", phase_resilience, smi)
+    run("search", phase_search, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
     print(json.dumps({"kernels": kernel_rows(
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
-        res["zoo"], res["frontends"], res["resilience"])}))
+        res["zoo"], res["frontends"], res["resilience"], res["search"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

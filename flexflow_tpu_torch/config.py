@@ -15,8 +15,19 @@ One addition: ``device`` ("cuda" unless ``--device cpu``) names where
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 from typing import List, Optional, Sequence
+
+
+def default_cache_dir() -> str:
+    """Where the port keeps its op measurements, calibration table and
+    strategy audits: ``FF_CACHE_DIR`` when set, else
+    ``<repo>/.ffcache/torch`` (its own directory: the JAX package's
+    files are under ``.ffcache/``)."""
+    return os.environ.get("FF_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".ffcache", "torch")
 
 
 @dataclasses.dataclass

@@ -42,5 +42,11 @@ def to_torch(dt: DataType) -> torch.dtype:
     return _TO_TORCH[DataType(dt)]
 
 
+def itemsize(dt: DataType) -> int:
+    """Bytes per element of ``dt`` as stored (the cost model's byte
+    counts; the same numbers as the JAX package's)."""
+    return to_torch(dt).itemsize
+
+
 def from_torch_dtype(dtype: torch.dtype) -> DataType:
     return _FROM_TORCH.get(dtype, DataType.DT_FLOAT)

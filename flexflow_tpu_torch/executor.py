@@ -8,10 +8,12 @@ takes the place of ``jax.grad``. ``make_forward`` serves under
 (``torch.autograd.grad`` over the parameters, with gradient accumulation
 over micro-batches) and the optimizer update, fused or not;
 ``make_eval_step`` computes the loss and metrics; ``scored_forward``,
-``kv_prefill`` and ``kv_decode_step`` serve generation. Banks, place groups,
-sharding constraints, pipelines, rematerialization and the multi-device
-train-step branches (overlap, quantized sync, ZeRO) belong to the JAX
-package's multi-device lowerings and come with the slices that port them.
+``kv_prefill`` and ``kv_decode_step`` serve generation. ``remat="blocks"``
+recomputes each repeated block in the backward pass
+(``torch.utils.checkpoint``, one region per block). Banks, place groups,
+sharding constraints, pipelines and the multi-device train-step branches
+(overlap, quantized sync, ZeRO) belong to the JAX package's multi-device
+lowerings and come with the slices that port them.
 Each step function is wrapped by :func:`_instrument_step`, which records
 the ``executor.<name>_step`` spans when tracing is on.
 """
@@ -217,6 +219,34 @@ class GraphProgram:
         return [env[t.guid] for t in self.output_tensors], captured
 
 
+def _find_remat_blocks(layers):
+    """Block boundaries for ``remat="blocks"``: the maximal repeated-block
+    run, each block single-input/single-output, containing no stateful or
+    aux-loss-emitting ops (their side-channel writes cannot cross a
+    checkpoint boundary). Returns ``(start, unit, reps, entry_guids,
+    exit_guids)`` or None."""
+    from .parallel.pipeline_lowering import (_has_state, chunk_boundaries,
+                                             find_repeated_run)
+    run = find_repeated_run(list(layers), 1)
+    if run is None:
+        return None
+    total, start, unit = run
+    reps = total // unit
+    layers = list(layers)
+    region = layers[start:start + total]
+    # ops whose emit writes ctx side-channels (aux losses / state) cannot
+    # sit inside a checkpoint boundary; AggregateSpec inherits
+    # Aggregate's aux-loss emit
+    aux_ops = {OperatorType.OP_AGGREGATE, OperatorType.OP_AGG_SPEC}
+    if any(_has_state(l) or l.op_type in aux_ops for l in region):
+        return None
+    entries = chunk_boundaries(layers, start, unit, reps)
+    if entries is None:
+        return None
+    exits = entries[1:] + [region[-1].outputs[0].guid]
+    return start, unit, reps, entries, exits
+
+
 class Executor:
     def __init__(self, program: GraphProgram, config, device: torch.device,
                  optimizer: Optimizer, loss_type: LossType,
@@ -234,6 +264,22 @@ class Executor:
         self._forward_fn = None
         self._train_step = None
         self._eval_step = None
+        # remat="blocks": per-block checkpointing over the repeated-block
+        # run (device memory for recomputed FLOPs)
+        self._remat = None
+        remat = str(getattr(config, "remat", "none") or "none").lower()
+        if remat not in ("none", "off", "blocks"):
+            raise ValueError(f"remat must be 'none' or 'blocks', "
+                             f"got {remat!r}")
+        if remat == "blocks":
+            self._remat = _find_remat_blocks(program.layers)
+            if self._remat is None:
+                import logging
+                logging.getLogger("flexflow_tpu_torch").warning(
+                    "remat='blocks' requested but the graph has no "
+                    "eligible repeated-block region (needs >= 2 identical "
+                    "single-crossing blocks without stateful/aux-loss "
+                    "ops); running without rematerialization")
         # (batch, seq) shapes at which KV-cache generation failed (auto
         # mode then goes straight to the re-forward path)
         self._kv_failed_shapes: set = set()
@@ -301,12 +347,62 @@ class Executor:
         ctx = EmitCtx(training=training, rngs=rngs, state=state,
                       config=self.config)
         self._attach_kernel_ctx(ctx)
-        outs, logits = self.program.emit(
-            params, batch, ctx, self.device,
-            self._logits_guid() if capture else None)
+        cap = self._logits_guid() if capture else None
+        # checkpointing only matters under differentiation: eval and
+        # serving forwards skip the remat path
+        if self._remat is not None and training:
+            outs, logits = self._emit_remat(params, batch, ctx, cap)
+        else:
+            outs, logits = self.program.emit(params, batch, ctx,
+                                             self.device, cap)
         new_state = dict(state)
         new_state.update(ctx.new_state)
         return outs, new_state, ctx.aux_losses, logits
+
+    def _emit_remat(self, params, batch, ctx: EmitCtx,
+                    capture: Optional[int]):
+        """Forward with each repeated block under
+        ``torch.utils.checkpoint`` (non-reentrant): block-internal
+        activations are recomputed in the backward pass instead of
+        living in device memory for the whole step, so each block's
+        forward kernels launch twice per step. The recomputation draws
+        the same dropout masks: each layer's mask is a function of its
+        (seed + 1, step, layer index) key (``LayerRng``) and the flash
+        kernel's of the seed drawn from it, so no generator state needs
+        saving; ``preserve_rng_state`` is off."""
+        from torch.utils.checkpoint import checkpoint
+        start, unit, reps, entries, exits = self._remat
+        layers = self.program.layers
+        env = self.program.init_env(batch, self.device)
+        captured = self.program.emit_layers(layers[:start], env, params,
+                                            ctx, capture)
+        x = env[entries[0]]
+        for b in range(reps):
+            block = layers[start + b * unit:start + (b + 1) * unit]
+
+            def block_fn(x_, p_, _block=block, _entry=entries[b],
+                         _exit=exits[b]):
+                benv = {_entry: x_}
+                bctx = EmitCtx(training=ctx.training, rngs=ctx.rngs,
+                               state=ctx.state, config=self.config)
+                self._attach_kernel_ctx(bctx)
+                self.program.emit_layers(_block, benv, p_, bctx)
+                if bctx.new_state or bctx.aux_losses:
+                    raise RuntimeError(
+                        "stateful/aux op inside a rematted block")
+                return benv[_exit]
+
+            bp = {l.name: params[l.name] for l in block if l.name in params}
+            x = checkpoint(block_fn, x, bp, use_reentrant=False,
+                           preserve_rng_state=False)
+            env[exits[b]] = x
+            if exits[b] == capture:
+                captured = x
+        tail = self.program.emit_layers(layers[start + reps * unit:], env,
+                                        params, ctx, capture)
+        if tail is not None:
+            captured = tail
+        return [env[t.guid] for t in self.program.output_tensors], captured
 
     def _loss_and_metrics(self, outs, logits, label, aux_losses):
         pred = outs[0]
@@ -340,8 +436,6 @@ class Executor:
                 getattr(cfg, "zero_policy", "off")).lower() in (
                 "memory", "all"):
             asked.append("ZeRO (shard_optimizer_states / zero_policy)")
-        if str(getattr(cfg, "remat", "none")).lower() not in ("none", "off"):
-            asked.append(f"remat={cfg.remat!r}")
         if asked:
             raise NotImplementedError(
                 "the port's train step runs on one device; not ported yet: "

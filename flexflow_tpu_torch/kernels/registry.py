@@ -4,15 +4,16 @@ The port's copy of ``flexflow_tpu/kernels/registry.py``: the same op
 kinds, impl names, predicates and forcing rules, so a strategy's
 ``kernel_impls`` block means the same in both packages. One difference:
 the fused optimizer update requires the ``cuda`` backend where the JAX
-package requires ``tpu``. The serving slice adopts forced choices only
-(``FFModel._plan_kernels``); the searched choice comes with the search.
+package requires ``tpu``. ``FFModel._plan_kernels`` adopts forced
+choices as they are and otherwise, with measured calibration rows
+(``search/calibration.py``), the cheapest available impl per op.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import warnings
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 ATTENTION = "attention"
 OPT_UPDATE = "opt_update"
@@ -78,23 +79,44 @@ class KernelImpl:
     op: str
     name: str
     predicate: Callable[[Dict[str, Any]], Optional[str]]
+    # calibration kind whose measured rows price this impl
+    # (``op_attention@flash``); the analytic curve stands in without one
+    calib_kind: str = ""
 
     def available(self, ctx: Dict[str, Any]) -> Optional[str]:
         """None when legal on ``ctx``, else a human-readable reason."""
         return self.predicate(ctx)
 
+    def cost(self, cost_model, layer, shard_degrees,
+             weight_shard_degree, **ctx) -> float:
+        """Predicted seconds for this (op, impl) pair: measured rows
+        first, the analytic curve otherwise (``OpCostModel.
+        kernel_impl_cost``)."""
+        return cost_model.kernel_impl_cost(
+            layer, self.op, self.name, shard_degrees,
+            weight_shard_degree, **ctx)
+
 
 REGISTRY: Dict[str, Dict[str, KernelImpl]] = {
     ATTENTION: {
-        "xla": KernelImpl(ATTENTION, "xla", _attn_xla),
-        "flash": KernelImpl(ATTENTION, "flash", _attn_flash),
-        "ring": KernelImpl(ATTENTION, "ring", _attn_ring),
+        "xla": KernelImpl(ATTENTION, "xla", _attn_xla,
+                          "op_attention@xla"),
+        "flash": KernelImpl(ATTENTION, "flash", _attn_flash,
+                            "op_attention@flash"),
+        "ring": KernelImpl(ATTENTION, "ring", _attn_ring,
+                           "op_attention@ring"),
     },
     OPT_UPDATE: {
-        "unfused": KernelImpl(OPT_UPDATE, "unfused", _opt_unfused),
-        "fused": KernelImpl(OPT_UPDATE, "fused", _opt_fused),
+        "unfused": KernelImpl(OPT_UPDATE, "unfused", _opt_unfused,
+                              "op_opt_update@unfused"),
+        "fused": KernelImpl(OPT_UPDATE, "fused", _opt_fused,
+                            "op_opt_update@fused"),
     },
 }
+
+
+def impl_names(op: str) -> List[str]:
+    return list(REGISTRY[op])
 
 
 def get_impl(op: str, name: str) -> KernelImpl:
@@ -104,6 +126,16 @@ def get_impl(op: str, name: str) -> KernelImpl:
         known = {k: sorted(v) for k, v in REGISTRY.items()}
         raise KeyError(
             f"unknown kernel impl {op}:{name} (known: {known})") from None
+
+
+def available_impls(op: str, ctx: Dict[str, Any]) -> List[str]:
+    """Impl names whose predicate holds on ``ctx`` (default first)."""
+    out = [n for n, im in REGISTRY[op].items() if im.available(ctx) is None]
+    d = DEFAULT_IMPLS[op]
+    if d in out:
+        out.remove(d)
+        out.insert(0, d)
+    return out
 
 
 def attention_ctx(params: Dict[str, Any], q_len: int, kv_len: int,

@@ -1,7 +1,8 @@
 """Strategy audit records: per-decision cost breakdowns of a search.
 
-The port of ``flexflow_tpu/obs/audit.py``, unchanged (plain Python); the
-search that writes these records comes with the search's port.
+The port of ``flexflow_tpu/obs/audit.py`` (plain Python); the search
+(``search/optimizer.py``) and ``FFModel._plan_kernels`` write and
+annotate these records.
 
 A fidelity number like ``virtual_fidelity_spearman`` is a single scalar over many (workload, ranker) rows — when
 it regresses there is nothing to diff. The audit record persists, per
@@ -11,8 +12,9 @@ per-op terms sum exactly to its graph total), so a regression can be
 chased decision-by-decision: which op's predicted compute/xfer/sync
 moved, and on which side of the searched-vs-DP comparison.
 
-Records land in ``<repo>/.ffcache/strategy_audit_<hash>.json`` next to
-the op-cost and calibration caches; ``<hash>`` is a structural workload
+Records land in ``<repo>/.ffcache/torch/strategy_audit_<hash>.json``
+next to the port's op-cost and calibration caches (the JAX package's
+records are under ``.ffcache/``: the port never writes them); ``<hash>`` is a structural workload
 key (op types, names, shapes), so re-searching the same model
 overwrites its record and different models never collide. The measured
 DP-floor guard appends its timings to the same record when it runs —
@@ -26,8 +28,9 @@ import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
-_DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), ".ffcache")
+#: the records' directory; None = ``config.default_cache_dir()``
+#: (``FF_CACHE_DIR``, else ``<repo>/.ffcache/torch``)
+_DEFAULT_DIR: Optional[str] = None
 
 SCHEMA_VERSION = 1
 
@@ -46,7 +49,8 @@ def workload_key(layers: Sequence, n_devices: int = 0) -> str:
 
 
 def audit_path(key: str, cache_dir: Optional[str] = None) -> str:
-    return os.path.join(cache_dir or _DEFAULT_DIR,
+    from ..config import default_cache_dir
+    return os.path.join(cache_dir or _DEFAULT_DIR or default_cache_dir(),
                         f"strategy_audit_{key}.json")
 
 
@@ -79,7 +83,7 @@ def write_strategy_audit(record: Dict[str, Any], key: str,
             json.dump(doc, f, indent=1)
         os.replace(tmp, path)
         return path
-    except Exception:  # noqa: BLE001 — audit is best-effort telemetry
+    except OSError:  # an unwritable cache dir loses the record only
         return None
 
 
@@ -94,7 +98,7 @@ def annotate_strategy_audit(path: str, extra: Dict[str, Any]) -> None:
         with open(tmp, "w") as f:
             json.dump(doc, f, indent=1)
         os.replace(tmp, path)
-    except Exception:  # noqa: BLE001
+    except (OSError, ValueError):  # missing or unreadable record
         pass
 
 

@@ -17,3 +17,4 @@ from . import element_ops   # noqa: E402,F401
 from . import tensor_ops    # noqa: E402,F401
 from . import moe_ops       # noqa: E402,F401
 from . import rnn_ops       # noqa: E402,F401
+from . import parallel_ops  # noqa: E402,F401

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 import torch
 import torch.nn.functional as F
 
@@ -72,6 +74,13 @@ class LinearOp(OpDef):
             y = y.to(to_torch(params["dtype"]))
         return [y]
 
+    def flops(self, params, in_shapes, out_shapes):
+        batch = int(np.prod(in_shapes[0][:-1]))
+        return 2.0 * batch * in_shapes[0][-1] * params["out_dim"]
+
+    def backward_flops_factor(self):
+        return 2.0
+
 
 # ---------------------------------------------------------------------------
 def _out_hw(params, h, w):
@@ -130,6 +139,15 @@ class Conv2DOp(OpDef):
             y = y + weights["bias"][None, :, None, None]
         return [apply_activation(y, params.get("activation",
                                                ActiMode.AC_MODE_NONE))]
+
+    def flops(self, params, in_shapes, out_shapes):
+        n, co, oh, ow = out_shapes[0]
+        ci = in_shapes[0][1] // params.get("groups", 1)
+        return 2.0 * n * co * oh * ow * ci * params["kernel_h"] \
+            * params["kernel_w"]
+
+    def backward_flops_factor(self):
+        return 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +682,21 @@ class MultiHeadAttentionOp(OpDef):
         return self._out_proj(ctxv.reshape(b_, lq_, hq, d_), weights, mdt,
                               cdt)
 
+    def flops(self, params, in_shapes, out_shapes):
+        b, lq, _ = in_shapes[0]
+        lk = in_shapes[1][1]
+        e = params["embed_dim"]
+        h = params["num_heads"]
+        kv_frac = (params.get("num_kv_heads", 0) or h) / h
+        proj = (2.0 * b * lq * e * e                      # q proj
+                + 2.0 * b * 2 * lk * e * e * kv_frac     # k+v (GQA)
+                + 2.0 * b * lq * e * e)                  # out proj
+        attn = 2.0 * b * lq * lk * e * 2
+        return proj + attn
+
+    def backward_flops_factor(self):
+        return 2.0
+
 
 # ---------------------------------------------------------------------------
 @register
@@ -685,6 +718,13 @@ class BatchMatmulOp(OpDef):
     def emit(self, params, inputs, weights, ctx, name):
         a, b = inputs
         return [matmul(a, b, ctx=ctx)]
+
+    def flops(self, params, in_shapes, out_shapes):
+        a, b = in_shapes
+        return 2.0 * float(np.prod(a)) * b[-1]
+
+    def backward_flops_factor(self):
+        return 2.0
 
 
 @register

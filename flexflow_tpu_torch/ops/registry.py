@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ffconst import DataType, OperatorType
@@ -103,6 +104,15 @@ class OpDef:
     def emit(self, params: Dict[str, Any], inputs: List[Any],
              weights: Dict[str, Any], ctx: EmitCtx, name: str) -> List[Any]:
         raise NotImplementedError
+
+    # ---- cost level (search/costmodel.py) ----
+    def flops(self, params, in_shapes, out_shapes) -> float:
+        """Forward FLOPs estimate. Default: one op per output element."""
+        return float(sum(int(np.prod(s)) for s in out_shapes))
+
+    def backward_flops_factor(self) -> float:
+        """bwd/fwd FLOP ratio. 2.0 for matmul-like ops (dgrad+wgrad)."""
+        return 1.0
 
 
 OPS: Dict[OperatorType, OpDef] = {}

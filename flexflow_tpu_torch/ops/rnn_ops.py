@@ -71,3 +71,15 @@ class LSTMOp(OpDef):
                 hs.append(h_t)
             y = torch.stack(hs, dim=1).to(x.dtype)     # (b, s, h)
         return [y]
+
+    def flops(self, params, in_shapes, out_shapes):
+        b, s, d = in_shapes[0]
+        h = params["hidden_size"]
+        total = 0.0
+        for l in range(params.get("num_layers", 1)):
+            in_l = d if l == 0 else h
+            total += 2.0 * b * s * (in_l + h) * 4 * h
+        return total
+
+    def backward_flops_factor(self):
+        return 2.0

@@ -1,8 +1,9 @@
-"""The strategy search, on its way from ``flexflow_tpu/search/``.
-
-So far only the program half of ``serialization.py`` is ported: the
-layer-list JSON that the torch.fx frontend's ``torch_to_file`` /
-``file_to_ff`` write and read. The strategy half (mesh, PartitionSpecs)
-comes with the search and the parallel lowering.
-"""
-from .serialization import program_from_json, program_to_json  # noqa: F401
+"""The strategy search on one device (the port of ``flexflow_tpu/search``):
+the cost model calibrated on the card, Unity and MCMC, the substitution
+engine, strategy and program serialization."""
+from .costmodel import CostMetrics, OpCostModel  # noqa: F401
+from .mcmc import (StrategySimulator, assignment_to_strategy,  # noqa: F401
+                   data_parallel_assignment, mcmc_search)
+from .optimizer import optimize_strategy  # noqa: F401
+from .serialization import (load_strategy, program_from_json,  # noqa: F401
+                            program_to_json, save_strategy)

@@ -460,10 +460,26 @@ def test_new_builders_build_the_jax_graph():
 
 
 def test_cache_score_fn_needs_the_recompile_hook():
-    ff = fft.FFModel(fft.FFConfig(), device="cpu")
-    x = ff.create_tensor((2, 3), name="x")
-    with pytest.raises(NotImplementedError, match="recompile"):
-        ff.cache(x, 2, score_fn=lambda *a: 0.0)
+    """``cache(score_fn=...)`` is accepted and ignored, as in the JAX
+    package (its recompile hook is ``recompile_on_condition``): the same
+    Cache layer in both packages, and the port's runs."""
+    built = []
+    for pkg, kw in ((ffj, {}), (fft, {"device": "cpu"})):
+        cfg = pkg.FFConfig()
+        cfg.batch_size = 2
+        ff = pkg.FFModel(cfg, **kw)
+        x = ff.create_tensor((2, 3), name="x")
+        out = ff.cache(x, 2, score_fn=lambda *a: 0.0)
+        built.append((ff, out))
+    (jff, jout), (tff, tout) = built
+    assert [(l.name, l.op_type.name, l.params) for l in tff.layers] == \
+        [(l.name, l.op_type.name, l.params) for l in jff.layers]
+    assert tout.shape == jout.shape
+    tff.compile(fft.SGDOptimizer(0.01), "mean_squared_error", [],
+                output_tensor=tout)
+    fwd = tff.executor.make_forward()
+    y = fwd(tff.params, tff.state, {"x": np.ones((2, 3), np.float32)})
+    assert tuple(y.shape) == (2, 3)
 
 
 def test_split_into_equal_parts():

@@ -57,7 +57,12 @@ def test_import_leaves_jax_and_flexflow_tpu_out():
         "        'flexflow_tpu_torch.obs.flight',\n"
         "        'flexflow_tpu_torch.resilience.supervisor',\n"
         "        'flexflow_tpu_torch.runtime.checkpoint',\n"
-        "        'flexflow_tpu_torch.utils.profiling']\n"
+        "        'flexflow_tpu_torch.utils.profiling',\n"
+        "        'flexflow_tpu_torch.parallel.topology',\n"
+        "        'flexflow_tpu_torch.pcg.graph',\n"
+        "        'flexflow_tpu_torch.search.unity',\n"
+        "        'flexflow_tpu_torch.search.calibration',\n"
+        "        'flexflow_tpu_torch.runtime.recompile']\n"
         "print(len(mods), int(all(w in mods for w in want)), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -117,7 +122,8 @@ def test_no_source_imports_jax_or_flexflow_tpu():
         seen += 1
     assert seen >= 20
     assert {"frontends", os.path.join("frontends", "keras"),
-            "search", "obs", "resilience", "utils"} <= scanned
+            "search", "obs", "resilience", "utils", "parallel",
+            "pcg"} <= scanned
 
 
 def test_enum_values_equal_reference():
@@ -434,3 +440,75 @@ def test_chip_smoke_resilience_graph_and_plan_on_the_cpu(tmp_path,
     nleaves, bad = smoke.identical(runs["clean"][3], state)
     assert nleaves > 0 and bad == []
     assert hist[-1]["loss"] == runs["clean"][2][-1]["loss"]
+
+
+def test_chip_smoke_search_phase_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's search phase rehearsed on the CPU at a tiny size
+    (2-layer BERT, hidden 64): the searched compile with calibration
+    (rows preset in the phase's cache, so nothing is measured) and the
+    floor guard forced on, its plan-exact launch counts (the plain
+    versions' calls stand in for launches; the fused Adam's predicate
+    is widened to the CPU), the dropout-0 comparison with data
+    parallelism, remat's bit-identity and doubled forwards, and the
+    recompile trigger against the same change by hand."""
+    import torch
+    from flexflow_tpu_torch.kernels import registry as kreg
+    from flexflow_tpu_torch.models import BertConfig
+    from flexflow_tpu_torch.search.calibration import CalibrationTable
+    smoke = _load_smoke()
+    assert smoke.PHASES[-1] == "search"
+    tab = CalibrationTable(str(tmp_path))
+    for kind, v in (("host_dispatch", 5e-6), ("host_membw", 2e10)):
+        tab.put("cpu", kind, "-", 0, 0, v)
+    for impl, t in (("xla", 9e-4), ("flash", 1e-4)):
+        for sc in (1 << 16, 1 << 20):
+            tab.put("cpu", f"op_attention@{impl}", "float32", sc, 0, t)
+    monkeypatch.setenv("FF_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(smoke, "SEARCH_DEVICE", "cpu")
+    monkeypatch.setattr(smoke, "SEARCH_SEQ", 16)
+    monkeypatch.setattr(smoke, "RECOMPILE_SEQ", 16)
+
+    def tiny():
+        b = BertConfig.tiny()
+        b.max_position = 16
+        return b
+
+    monkeypatch.setattr(smoke, "search_bert_config", tiny)
+    build = smoke.search_model
+    monkeypatch.setattr(smoke, "search_model", lambda seq, dropout, **kw:
+                        build(seq, dropout, search_floor_guard="true",
+                              use_bf16_compute=False, **kw))
+    fused = kreg.REGISTRY["opt_update"]["fused"]
+    monkeypatch.setitem(kreg.REGISTRY["opt_update"], "fused",
+                        kreg.KernelImpl("opt_update", "fused",
+                                        lambda ctx: None, fused.calib_kind))
+    fns = smoke.counters()
+
+    class Plain:
+        """A wrapper's plain-call count, read as its launches."""
+
+        def __init__(self, fn):
+            self.fn, self.base = fn, fn.plain_calls
+
+        @property
+        def launches(self):
+            return self.fn.plain_calls - self.base
+
+    monkeypatch.setattr(smoke, "zero_counts", lambda: {
+        n: Plain(f) for n, f in fns.items()})
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(smoke, "free_cuda", lambda: None)
+    s = smoke.searched_bert("cpu")
+    assert s["plan"] == [("attention", "flash"), ("opt_update", "fused")]
+    assert s["launches"] == {"flash_attention_fwd": 6,
+                             "flash_attention_bwd_dq": 6,
+                             "flash_attention_bwd_dkv": 6,
+                             "adam_update": 3}
+    assert s["guard"]["n_steps"] >= 3
+    r = smoke.remat_check("cpu")
+    assert r["blocks"]["launches"]["flash_attention_fwd"] == 12
+    assert r["none"]["hist"] == r["blocks"]["hist"]
+    c = smoke.recompile_check()
+    assert c["recompiles"] == 1 and c["launches"]["adam_update"] == 6
