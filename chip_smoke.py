@@ -164,7 +164,52 @@ never JAX, and:
                and step time of both; recompile_on_condition in a
                2-epoch fit of BERT-base 8 x 128 changing Adam's alpha
                once, against the same change made by hand;
- 16. kernels - one JSON line with each kernel's launches, error and times.
+ 16. serve   - the serving stack on the card: (a) BERT-base
+               (BertConfig.base(), uncut, kernel_impls="attention:flash")
+               at s 128 and 512, batch buckets 1, 4 and 8 (one model
+               compiled per bucket, as BERT's pooler reshapes to the
+               compile batch, over one set of weights, routed by a
+               ServingPlanSession) in one ModelRepository behind serve_http and
+               serve_async (max_batch 8, max_delay_ms 2): 64 single-row
+               requests per model from 16 client threads of another
+               process to each front, every response against plain
+               attention on the same weights (2e-2), flash launches = 12
+               x the device batches the schedulers ran (individual
+               retries included), client median / p90 / p99, the server
+               sketch's quantiles from /v2/metrics, mean batch rows, and
+               the front's overhead read per request from its request
+               trace (client latency minus the device batch it rode,
+               split into the wait before that batch and the time
+               outside the scheduler), under load and for one client on
+               an idle server; (b) against a full queue (max_queue 2, the batch in
+               the worker's hand held behind the session lock) a 1 ms
+               deadline, a malformed request and a request while draining
+               answer 503/504, 400 and 503 + Retry-After with no flash
+               launch; (c) GPT-2 small (GPTConfig(), 1024 positions)
+               behind POST /v2/models/gpt2/generate (8 ragged prompts of
+               100-900 tokens, one prefill = 12 launches, equal to
+               session.generate), then a ContinuousBatcher of 8 KV slots
+               (kv_slot_capacity) over 32 sequences (budgets 8-64 in
+               segments of 8, one eos) under continuous and static
+               admission: 12 flash launches an iteration, each row
+               against session.generate(row[None]) (bit-identical or
+               parted only at a near tie, counted), tokens/s, early
+               evictions, and a probe of row independence (a row's
+               logits alone and inside 8 rows, through the KV step, the
+               forward and two GEMMs); (d) optimize_strategy(
+               mode="serving") at buckets (1, 4, 8), verify_serving_plan
+               (no findings), the plan file loaded by the repository's
+               loader (ModelRepository._load_with_builder with
+               serving_strategy_file: each bucket's model imports its
+               sub-strategy) with its floor guard, outputs and flash
+               launches equal to the plain session's, predicted against
+               measured prefill and decode step; (e) two replica processes (python -m
+               flexflow_tpu_torch.serving.fleet.replica --model
+               gpt2-tiny, on the card) behind serve_fleet, one killed by
+               FF_FAULT_PLAN=infer_crash@6: 32 requests all answered
+               through failover, Autoscaler.tick repairs the fleet, each
+               replica's time to ready and the merged fleet metrics;
+ 17. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
@@ -174,7 +219,8 @@ drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 ``--phases build,kernel,zoo`` the rest of the model zoo, ``--phases
 build,kernel,frontends`` the frontends, ``--phases
 build,kernel,resilience`` checkpointing, faults and telemetry,
-``--phases build,kernel,search`` the strategy search; with
+``--phases build,kernel,search`` the strategy search, ``--phases
+build,kernel,serve`` the serving stack; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
@@ -631,11 +677,11 @@ def phase_kernel_adam(gen) -> float:
 
 
 def build_model(seq: int, impl: str, optimizer=None, metrics=(),
-                dropout: float = 0.1, **cfg_kw):
+                dropout: float = 0.1, batch: int = 8, **cfg_kw):
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.models import BertConfig, build_bert
     cfg = FFConfig()
-    cfg.batch_size = 8
+    cfg.batch_size = batch
     cfg.only_data_parallel = True
     cfg.kernel_impls = impl
     cfg.seed = 0
@@ -645,7 +691,7 @@ def build_model(seq: int, impl: str, optimizer=None, metrics=(),
     bcfg = BertConfig.base()
     bcfg.max_position = seq
     bcfg.dropout = dropout
-    out = build_bert(ff, 8, seq, bcfg)
+    out = build_bert(ff, batch, seq, bcfg)
     ff.compile(optimizer or SGDOptimizer(0.01),
                "sparse_categorical_crossentropy", list(metrics),
                output_tensor=out)
@@ -3435,6 +3481,15 @@ def search_calibration(smi: str, cache: str) -> dict:
             for impl in ("xla", "flash"):
                 dev_ms[(impl, s)] = cuda_time_ms(
                     attention_bench_fn(impl, s, "cuda"), iters=5)
+        # the library call at the table's shapes (timed only): SDPA on
+        # the backend it picks for b1 h8 d64 f32 causal
+        for s in (128, 512):
+            q, k, v = (torch.randn(1, 8, s, 64, device="cuda")
+                       for _ in range(3))
+            dev_ms[("sdpa", s)] = cuda_time_ms(
+                lambda q=q, k=k, v=v:
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), iters=5)
     check(tab.measured == 2 + 2 * len(ATTN_IMPL_SIZES),
           f"calibration rows measured {tab.measured}")
     # each row: 2 warm-up calls and 3 timed ones
@@ -3466,6 +3521,9 @@ def search_calibration(smi: str, cache: str) -> dict:
               f"{rows[('flash', s)] * 1e6:.2f} us (event-timed); device "
               f"{dev_ms[('xla', s)] * 1e3:.2f} / "
               f"{dev_ms[('flash', s)] * 1e3:.2f} us (graph replay)")
+    print(f"[search] library: SDPA b1 h8 d64 f32 causal, device "
+          f"{dev_ms[('sdpa', 128)] * 1e3:.2f} us at s128, "
+          f"{dev_ms[('sdpa', 512)] * 1e3:.2f} us at s512 (graph replay)")
     print(f"[search] flash/xla crossover: flash is faster at every "
           f"measured length from s = {cross} (event-timed, what the search "
           f"prices with), s = {cross_dev} (device time); "
@@ -3679,13 +3737,827 @@ def phase_search(smi: str) -> dict:
         shutil.rmtree(cache, ignore_errors=True)
 
 
+SERVE_REQUESTS = 64   # single-row requests per (front, model)
+SERVE_CLIENTS = 16    # client threads per front
+SERVE_IDLE = 20       # closed-loop requests of one client per model
+SERVE_BUCKETS = (1, 4, 8)
+CB_SEQS = 32          # sequences through the continuous batcher
+CB_SEG = 8            # its decode segment (budgets are multiples of it)
+CB_SLOTS = 8          # the KV budget is this many full-context sequences
+SERVE_PLENS = (100, 901)   # ragged GPT-2 prompt lengths [lo, hi)
+CB_MAX_SEGMENTS = 8   # budgets of 1 ... 8 segments
+PLAN_PLEN = 300       # prompt length of the plan-session comparison
+FLEET_REQUESTS = 32
+FLEET_CRASH = "infer_crash@6"   # the 7th call of one replica kills it
+FLEET_ARGS = ("--model", "gpt2-tiny")   # the replica runs on the card
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def http_post(url: str, body: bytes, headers=None, timeout: float = 120.0):
+    """(status, JSON body, headers) of one POST; HTTP errors included."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def http_get(url: str, timeout: float = 30.0) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def infer_body(batch: dict) -> bytes:
+    return json.dumps({"inputs": [
+        {"name": k, "shape": list(v.shape), "datatype": "INT32",
+         "data": v.ravel().tolist()} for k, v in batch.items()]}).encode()
+
+
+def client_run(jobs, clients: int) -> list:
+    """Run ``jobs`` (callables) on ``clients`` threads; their results in
+    job order. A job that raises fails the run."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        futs = [pool.submit(j) for j in jobs]
+        return [f.result(timeout=600) for f in futs]
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+LOAD_CLIENT = r"""
+import json, sys, time, urllib.error, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+jobs, clients, out = json.load(open(sys.argv[1])), int(sys.argv[2]), sys.argv[3]
+def post(j):
+    req = urllib.request.Request(j["url"], data=j["body"].encode(),
+        method="POST", headers={"Content-Type": "application/json",
+                                "x-ff-trace-id": j["trace"]})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return {"code": code, "ms": (time.perf_counter() - t0) * 1e3,
+            "doc": json.loads(body or b"{}")}
+with ThreadPoolExecutor(max_workers=clients) as pool:
+    res = list(pool.map(post, jobs))
+json.dump(res, open(out, "w"))
+"""
+
+
+def load_clients(jobs, clients: int) -> list:
+    """POST each job (``{"url", "body", "trace"}``) from ``clients``
+    threads of another process, so that the server's interpreter runs
+    only the server; per job in order ``{"code", "ms", "doc"}``, the
+    client's latency on its own clock."""
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="ff_load_") as d:
+        src, dst = os.path.join(d, "jobs.json"), os.path.join(d, "out.json")
+        with open(src, "w") as f:
+            json.dump(jobs, f)
+        subprocess.run([sys.executable, "-c", LOAD_CLIENT, src,
+                        str(clients), dst], check=True, timeout=600)
+        with open(dst) as f:
+            return json.load(f)
+
+
+def request_stages(traces) -> dict:
+    """trace id -> {stage: ms} from the request trace's spans
+    (request.admission / queue / batch / response) in obs.events."""
+    from flexflow_tpu_torch.obs import events as obs_events
+    out = {}
+    for e in obs_events.events():
+        t = (e.get("attrs") or {}).get("trace")
+        if t in traces and e["name"].startswith("request."):
+            out.setdefault(t, {})[e["name"][len("request."):]] = \
+                e["dur"] * 1e3
+    return out
+
+
+def front_split(got, stages) -> dict:
+    """Medians over requests of where each request's time went, each
+    read within the same request: the device batch it rode (the batch
+    span: stacking, session.infer ending in the copy of the result to
+    the host, the fan-out), the wait before that batch began (response
+    span minus batch span: queue and batching window) and what lies
+    outside the scheduler (client latency minus response span: HTTP,
+    JSON, the handler's hand-off). The front's overhead is client
+    latency minus the batch span."""
+    rows = []
+    for r in got:
+        st = stages.get(r["trace"], {})
+        check("batch" in st and "response" in st,
+              f"request {r['trace']}: no batch / response span ({st})")
+        rows.append((r["ms"], st["batch"], st["response"] - st["batch"],
+                     r["ms"] - st["response"]))
+    a = np.asarray(rows, np.float64)
+    return {"batch_ms": pct(a[:, 1], 50),
+            "overhead_ms": pct(a[:, 0] - a[:, 1], 50),
+            "overhead_p90_ms": pct(a[:, 0] - a[:, 1], 90),
+            "wait_ms": pct(a[:, 2], 50),
+            "outside_ms": pct(a[:, 3], 50)}
+
+
+def serve_fronts(smi: str) -> dict:
+    """BERT-base (uncut, flash) at s 128 and 512 in one ModelRepository
+    behind serve_http and serve_async: single-row requests from 16 client
+    threads of another process per front, each request's time split by
+    its request trace, the outputs against plain attention, 12 flash
+    launches per scheduled device batch. Each bucket (1, 4, 8) is an
+    InferenceSession of a model compiled at that batch over one set of
+    weights."""
+    from flexflow_tpu_torch.serving import (InferenceSession,
+                                            ModelRepository, serve_async,
+                                            serve_http)
+    from flexflow_tpu_torch.serving.session import ServingPlanSession
+    repo = ModelRepository()
+    models = {}
+    for seq in (128, 512):
+        # BERT's pooler reshapes to the compile-time batch (build_bert),
+        # so each bucket is a model compiled at that batch, all over the
+        # largest's weights, routed by rows as a serving plan's buckets
+        ff, bcfg = build_model(seq, "attention:flash")
+        per = {8: InferenceSession(ff, batch_buckets=(8,))}
+        for b in SERVE_BUCKETS[:-1]:
+            fb, _ = build_model(seq, "attention:flash", batch=b)
+            fb.params, fb.state = ff.params, ff.state
+            per[b] = InferenceSession(fb, batch_buckets=(b,))
+        sess = ServingPlanSession(per)
+        for rows in SERVE_BUCKETS:
+            sess.infer(requests(bcfg, seq, rows, 99))
+        repo.register(f"bert{seq}", sess)
+        models[seq] = (ff, bcfg, sess)
+    torch.cuda.synchronize()
+    reqs = {seq: [requests(bcfg, seq, 1, 1000 + i)
+                  for i in range(SERVE_REQUESTS)]
+            for seq, (_, bcfg, _) in models.items()}
+    bodies = {seq: [infer_body(r).decode() for r in rs]
+              for seq, rs in reqs.items()}
+    from flexflow_tpu_torch.obs import events as obs_events
+    traced = obs_events.enabled()
+    obs_events.enable()     # request traces: each request's own stages
+    http = serve_http(repo, port=0, block=False, max_batch=8,
+                      max_delay_ms=2)
+    aio = serve_async(repo, port=0, block=False, max_batch=8,
+                      max_delay_ms=2)
+    fronts = {"serve_http": (http.server.server_address[1], http.schedulers),
+              "serve_async": (aio.port, aio.schedulers)}
+    res = {"fronts": {}}
+
+    def jobs_for(front, port, seqs, n):
+        return [{"url": f"http://127.0.0.1:{port}/v2/models/bert{s}/infer",
+                 "body": bodies[s][i], "trace": f"{front}-{s}-{i}",
+                 "seq": s, "i": i} for i in range(n) for s in seqs]
+
+    try:
+        for front, (port, scheds) in fronts.items():
+            jobs = jobs_for(front, port, (128, 512), SERVE_REQUESTS)
+            obs_events.clear()
+            # the main path: every count starts at 0 here
+            fwd = zero_counts()["flash_attention_fwd"]
+            t0 = time.perf_counter()
+            got = load_clients(jobs, SERVE_CLIENTS)
+            wall = time.perf_counter() - t0
+            launches = fwd.launches
+            for j, r in zip(jobs, got):
+                r.update(seq=j["seq"], i=j["i"], trace=j["trace"])
+                check(r["code"] == 200, f"{front} bert{j['seq']} request "
+                                        f"{j['i']}: HTTP {r['code']} "
+                                        f"{r['doc']}")
+            stages = request_stages({j["trace"] for j in jobs})
+            stats = {name: s.stats() for name, s in scheds.items()}
+            calls = sum(st["batches"] + st["individual_retries"]
+                        for st in stats.values())
+            print(f"[serve] {front}: {len(jobs)} single-row requests "
+                  f"({SERVE_REQUESTS} to each of bert128, bert512) from "
+                  f"{SERVE_CLIENTS} client threads of another process in "
+                  f"{wall:.3f} s; flash_attention_fwd launches={launches} "
+                  f"(want {LAYERS} x {calls} device batches, individual "
+                  f"retries included)")
+            check(launches == LAYERS * calls,
+                  f"{front}: flash launches {launches} != {LAYERS} x {calls}")
+            met = http_get(f"http://127.0.0.1:{port}/v2/metrics")["models"]
+            per = {}
+            for seq in (128, 512):
+                name = f"bert{seq}"
+                mine = [r for r in got if r["seq"] == seq]
+                lat = [r["ms"] for r in mine]
+                m = met[name]
+                out = {r["i"]: r["doc"]["outputs"][0] for r in mine}
+                per[name] = {
+                    "client_p50_ms": pct(lat, 50),
+                    "client_p90_ms": pct(lat, 90),
+                    "client_p99_ms": pct(lat, 99),
+                    "server_p50_ms": m["latency_p50_ms"],
+                    "server_p90_ms": m["latency_p90_ms"],
+                    "server_p99_ms": m["latency_p99_ms"],
+                    "batches": m["batches"],
+                    "mean_batch_rows": m["mean_batch_rows"],
+                    "load": front_split(mine, stages),
+                    "outs": {i: np.asarray(o["data"], np.float32)
+                             .reshape(o["shape"]) for i, o in out.items()}}
+                p = per[name]
+                q = p["load"]
+                print(f"[serve] {front} {name}: client median "
+                      f"{p['client_p50_ms']:.3f} / p90 "
+                      f"{p['client_p90_ms']:.3f} / p99 "
+                      f"{p['client_p99_ms']:.3f} ms; server sketch p50 "
+                      f"{p['server_p50_ms']} / p90 {p['server_p90_ms']} / "
+                      f"p99 {p['server_p99_ms']} ms; {p['batches']} "
+                      f"batches, mean {p['mean_batch_rows']:.3f} rows; per "
+                      f"request (request trace, medians): its device batch "
+                      f"{q['batch_ms']:.3f} ms, front overhead = client - "
+                      f"batch {q['overhead_ms']:.3f} ms (p90 "
+                      f"{q['overhead_p90_ms']:.3f}) = wait before the batch "
+                      f"{q['wait_ms']:.3f} + outside the scheduler "
+                      f"{q['outside_ms']:.3f} ms ({smi})")
+            res["fronts"][front] = {"launches": launches, "calls": calls,
+                                    "models": per}
+        # one client, closed loop: what the front adds to one request
+        # on an idle server
+        for front, (port, _) in fronts.items():
+            for seq in (128, 512):
+                jobs = jobs_for(f"{front}-idle", port, (seq,), SERVE_IDLE)
+                obs_events.clear()
+                got = load_clients(jobs, 1)
+                for j, r in zip(jobs, got):
+                    r["trace"] = j["trace"]
+                    check(r["code"] == 200,
+                          f"{front} idle request: HTTP {r['code']}")
+                q = front_split(got, request_stages(
+                    {j["trace"] for j in jobs}))
+                res["fronts"][front]["models"][f"bert{seq}"]["idle"] = q
+                print(f"[serve] {front} bert{seq}, one client, idle "
+                      f"server, {SERVE_IDLE} requests (request trace, "
+                      f"medians): client "
+                      f"{pct([r['ms'] for r in got], 50):.3f} ms, device "
+                      f"batch {q['batch_ms']:.3f} ms, front overhead "
+                      f"{q['overhead_ms']:.3f} ms = wait before the batch "
+                      f"{q['wait_ms']:.3f} + outside the scheduler "
+                      f"{q['outside_ms']:.3f} ms ({smi})")
+    finally:
+        http.stop()
+        aio.stop()
+        obs_events.clear()
+        if not traced:
+            obs_events.disable()
+    # every response against the same weights through plain attention
+    for seq, (ff, bcfg, sess) in models.items():
+        ref, _ = build_model(seq, "attention:xla")
+        ref.params = ff.params
+        ref_sess = InferenceSession(ref, batch_buckets=(8,))
+        rows = [reqs[seq][i] for i in range(SERVE_REQUESTS)]
+        want = np.concatenate([ref_sess.infer(
+            {k: np.concatenate([r[k] for r in rows[j:j + 8]])
+             for k in rows[0]}) for j in range(0, len(rows), 8)])
+        worst = 0.0
+        for front, r in res["fronts"].items():
+            outs = r["models"][f"bert{seq}"].pop("outs")
+            for i in range(SERVE_REQUESTS):
+                o = outs[i]
+                check(o.shape == (1, bcfg.num_labels)
+                      and np.isfinite(o).all(),
+                      f"{front} bert{seq} request {i}: output {o.shape}")
+                worst = max(worst, float(np.abs(o[0] - want[i]).max()))
+        print(f"[serve] bert{seq}: every response of both fronts against "
+              f"plain attention on the same weights: max|diff| = "
+              f"{worst:.3e} (tol {SLICE_TOL:.0e})")
+        check(worst <= SLICE_TOL, f"bert{seq} served outputs differ from "
+                                  f"plain attention by {worst}")
+        res[f"bert{seq}_max_abs_err"] = worst
+        del ref, ref_sess
+    res["repo"], res["models"] = repo, models
+    return res
+
+
+def serve_shedding(repo, models) -> dict:
+    """Against a full queue (the session's lock held, so the batch in the
+    worker's hand cannot reach the card): a 1 ms deadline, a malformed
+    request and a request during the drain are answered without a flash
+    launch."""
+    import threading
+    from flexflow_tpu_torch.serving import serve_http
+    ff, bcfg, sess = models[128]
+    held = sess.session_for(1)._lock    # the 1-row bucket's dispatch lock
+    h = serve_http(repo, port=0, block=False, max_batch=8, max_delay_ms=2,
+                   max_queue=2)
+    url = f"http://127.0.0.1:{h.server.server_address[1]}" \
+          f"/v2/models/bert128/infer"
+    sched = h.schedulers["bert128"]
+    fwd = zero_counts()["flash_attention_fwd"]
+    ok = infer_body(requests(bcfg, 128, 1, 5))
+    bad = infer_body({"input_ids": np.zeros((1, 7), np.int32),
+                      "position_ids": np.zeros((1, 7), np.int32)})
+    backlog, codes = [], {}
+    drainer = None
+    held.acquire()
+    try:
+        def post_ok():
+            backlog.append(http_post(url, ok)[0])
+        threads = []
+        end = time.perf_counter() + 30
+        while sched._q.qsize() < 2 and time.perf_counter() < end:
+            t = threading.Thread(target=post_ok, daemon=True)
+            t.start()
+            threads.append(t)
+            time.sleep(0.05)
+        check(sched._q.qsize() == 2, "the bounded queue did not fill")
+        n0 = fwd.launches
+        c, doc, hd = http_post(url, ok, {"x-ff-timeout-ms": "1"})
+        codes["deadline_1ms"] = (c, hd.get("Retry-After"))
+        check(c in (503, 504) and fwd.launches == n0,
+              f"1 ms deadline against a full queue: HTTP {c} {doc}, "
+              f"launches {fwd.launches - n0}")
+        c, doc, hd = http_post(url, bad)
+        codes["malformed"] = (c, hd.get("Retry-After"))
+        check(c == 400 and fwd.launches == n0,
+              f"malformed request: HTTP {c} {doc}, launches "
+              f"{fwd.launches - n0}")
+        drainer = threading.Thread(target=h.drain, args=(120.0,),
+                                   daemon=True)
+        drainer.start()
+        while not h.state.draining:
+            time.sleep(0.005)
+        c, doc, hd = http_post(url, ok)
+        codes["draining"] = (c, hd.get("Retry-After"))
+        check(c == 503 and hd.get("Retry-After") and fwd.launches == n0,
+              f"request while draining: HTTP {c} {doc} {hd}, launches "
+              f"{fwd.launches - n0}")
+    finally:
+        held.release()
+        if drainer is not None:
+            drainer.join(timeout=120)
+        else:
+            h.stop()
+    for t in threads:
+        t.join(timeout=60)
+    check(backlog and all(c == 200 for c in backlog),
+          f"the backlog's requests: {backlog}")
+    print(f"[serve] shedding against a full queue (max_queue 2, "
+          f"{len(backlog)} requests held behind the session lock): "
+          f"1 ms deadline -> {codes['deadline_1ms']}, malformed -> "
+          f"{codes['malformed']}, while draining -> {codes['draining']} "
+          f"(HTTP code, Retry-After); flash launches during the three: 0; "
+          f"the held backlog then answered 200")
+    return codes
+
+
+def gpt2_session(buckets=SERVE_BUCKETS, decode_segment: int = 32):
+    from flexflow_tpu_torch.serving import InferenceSession
+    ff, g = gpt2_model("attention:flash")
+    return ff, g, InferenceSession(ff, batch_buckets=buckets,
+                                   decode_segment=decode_segment)
+
+
+def cb_run(sess, work, eos: int, admission: str) -> tuple:
+    from flexflow_tpu_torch.serving.fleet import (ContinuousBatcher,
+                                                  kv_slot_capacity)
+    from flexflow_tpu_torch.search.serving_plan import kv_cache_bytes
+    ff = sess.ff
+    per_seq = sum(kv_cache_bytes(l, 1, GPT_SEQ) for l in ff.layers)
+    cap = kv_slot_capacity(ff, CB_SLOTS * per_seq)
+    check(cap == CB_SLOTS, f"kv_slot_capacity {cap} != {CB_SLOTS}")
+    cb = ContinuousBatcher(sess, kv_cache_bytes_budget=CB_SLOTS * per_seq,
+                           eos_token_id=eos, decode_segment=CB_SEG,
+                           admission=admission)
+    try:
+        fwd = zero_counts()["flash_attention_fwd"]
+        t0 = time.perf_counter()
+        seqs = [cb.submit(ids, plen, mnew) for ids, plen, mnew in work]
+        got = [s.wait(timeout_s=600.0) for s in seqs]
+        wall = time.perf_counter() - t0
+        launches = fwd.launches
+        st = cb.stats()
+    finally:
+        cb.close()
+    return got, st, wall, launches
+
+
+def emitted(row, plen: int, mnew: int, eos: int) -> int:
+    """Tokens a sequence really generated: up to and with its first eos."""
+    gen = row[plen:plen + mnew]
+    hit = np.flatnonzero(gen == eos)
+    return int(hit[0]) + 1 if hit.size else mnew
+
+
+def row_probe(ff, want, got, plens, ends, smi: str) -> dict:
+    """Is a row's result on this card independent of the rows that share
+    its batch, the premise of the batcher's per-sequence contract? For
+    a row that parted from its oracle (else row 0), at its first
+    differing position d: the logits of that position through the KV
+    path (prefill to the start of d's decode segment, then the oracle's
+    tokens fed to the decode steps up to d) with the row alone and as
+    row 0 of an 8-row batch; the same for the full forward
+    (scored_forward); and the port's bf16 GEMM (mm_f32) of one row alone
+    against the same row inside 8, at GPT-2's LM-head and MLP shapes."""
+    from flexflow_tpu_torch.ops.registry import mm_f32
+    parted = np.flatnonzero((want != got).any(axis=1))
+    k = int(parted[0]) if parted.size else 0
+    diff = np.flatnonzero(want[k] != got[k])
+    d = int(diff[0]) if diff.size else int(ends[k]) - 1
+    s0 = int(plens[k]) + CB_SEG * ((d - int(plens[k])) // CB_SEG)
+    others = [(k + j) % want.shape[0] for j in range(8)]
+
+    def kv_logits(ids):
+        with torch.inference_mode():
+            batch = gpt_batch(ids)
+            cache = prefill(ff, batch, s0)
+            for cur in range(s0, d + 1):
+                row, cache = decode_step(ff, batch, cache, cur)
+            return row[0].float()
+
+    def fwd_logits(ids):
+        with torch.inference_mode():
+            return ff.executor.scored_forward(
+                ff.params, ff.state, gpt_batch(ids))[0, d - 1].float()
+
+    def compare(one, eight, tokens=True):
+        span = (one.max() - one.min()).item()
+        out = {"bit_equal": bool(torch.equal(one, eight)),
+               "max_abs": (one - eight).abs().max().item(),
+               "range": span}
+        if tokens and parted.size:
+            t_o, t_b = int(want[k, d]), int(got[k, d])
+            out["gap_alone"] = (one[t_o] - one[t_b]).item() / span
+            out["gap_in_8"] = (eight[t_o] - eight[t_b]).item() / span
+        return out
+
+    res = {"row": k, "parted": bool(parted.size), "position": d,
+           "segment_start": s0,
+           "kv": compare(kv_logits(want[k:k + 1]), kv_logits(want[others])),
+           "forward": compare(fwd_logits(want[k:k + 1]),
+                              fwd_logits(want[others]))}
+    dev = ff.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for name, (kin, nout) in (("lm_head", (768, vocab_of(ff))),
+                              ("mlp", (768, 3072))):
+        h = torch.randn(8, kin, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        w = torch.randn(kin, nout, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        res[f"gemm_{name}"] = compare(mm_f32(h[:1], w)[0],
+                                      mm_f32(h, w)[0], tokens=False)
+    print(f"[serve] row-independence probe, row {k} "
+          f"({'parted from its oracle' if parted.size else 'no row parted'}"
+          f") at position {d} (decode segment from {s0}): the row alone "
+          f"against row 0 of an 8-row batch: "
+          + "; ".join(f"{n} " + ("bit-equal" if r["bit_equal"] else
+                                  f"max|diff| {r['max_abs']:.3e} of range "
+                                  f"{r['range']:.3e}")
+                      + (f", the two tokens' gap {r['gap_alone']:.3e} "
+                         f"alone / {r['gap_in_8']:.3e} in 8"
+                         if "gap_alone" in r else "")
+                      for n, r in res.items() if isinstance(r, dict))
+          + f" ({smi})")
+    return res
+
+
+def serve_generate(smi: str) -> dict:
+    """GPT-2 small behind POST /generate, then the continuous batcher
+    under continuous and static admission against per-sequence
+    session.generate."""
+    from flexflow_tpu_torch.serving import ModelRepository, serve_http
+    ff, g, sess = gpt2_session()
+    vocab = g.vocab_size
+    rng = np.random.default_rng(14)
+    plens = rng.integers(*SERVE_PLENS, 8).astype(np.int32)
+    ids = gpt_prompts(8, plens, vocab, 14, seq=GPT_SEQ)
+    sess.generate(ids, plens, 4)      # warm-up, outside the count
+    repo = ModelRepository()
+    repo.register("gpt2", sess)
+    h = serve_http(repo, port=0, block=False, max_batch=8)
+    try:
+        body = json.dumps({
+            "inputs": [{"name": "input_ids", "shape": [8, GPT_SEQ],
+                        "datatype": "INT32", "data": ids.ravel().tolist()}],
+            "parameters": {"prompt_len": plens.tolist(),
+                           "max_new_tokens": 32}}).encode()
+        fwd = zero_counts()["flash_attention_fwd"]
+        t0 = time.perf_counter()
+        code, doc, _ = http_post(
+            f"http://127.0.0.1:{h.server.server_address[1]}"
+            f"/v2/models/gpt2/generate", body)
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        gen_launches = fwd.launches
+    finally:
+        h.stop()
+    check(code == 200, f"POST generate: HTTP {code} {doc}")
+    out = np.asarray(doc["outputs"][0]["data"], np.int32).reshape(8, GPT_SEQ)
+    check(gen_launches == LAYERS, f"POST generate: {gen_launches} flash "
+                                  f"launches, want {LAYERS} (one prefill)")
+    direct = sess.generate(ids, plens, 32)
+    check_tokens(out, ids, plens, 32, vocab, "POST generate")
+    check((out == direct).all(), "POST generate differs from "
+                                 "session.generate on the same request")
+    print(f"[serve] POST /v2/models/gpt2/generate: 8 ragged prompts of "
+          f"{plens.min()}-{plens.max()} tokens, 32 new tokens each, "
+          f"{gen_ms:.3f} ms, flash launches {gen_launches} (one prefill), "
+          f"equal to session.generate ({smi})")
+    # the batcher's work: ragged prompts, budgets 8 ... 64 in multiples of
+    # the segment, so a sequence's segments are the oracle's
+    plens = rng.integers(*SERVE_PLENS, CB_SEQS).astype(np.int32)
+    budgets = rng.integers(1, CB_MAX_SEGMENTS + 1, CB_SEQS) * CB_SEG
+    ids = gpt_prompts(CB_SEQS, plens, vocab, 15, seq=GPT_SEQ)
+    # the eos: the token most often generated first by the first 8
+    probe = sess.generate(ids[:8], plens[:8], 4)
+    firsts = [int(probe[r, plens[r]]) for r in range(8)]
+    eos = max(set(firsts), key=firsts.count)
+    work = [(ids[k, :plens[k]], int(plens[k]), int(budgets[k]))
+            for k in range(CB_SEQS)]
+    oracle_sess = type(sess)(ff, batch_buckets=SERVE_BUCKETS,
+                             decode_segment=CB_SEG)
+    want = np.stack([oracle_sess.generate(
+        ids[k:k + 1], int(plens[k]), int(budgets[k]), eos_token_id=eos)[0]
+        for k in range(CB_SEQS)])
+    res = {"post_generate_ms": gen_ms, "post_generate_launches":
+           gen_launches, "eos": eos}
+    for admission in ("continuous", "static"):
+        got, st, wall, launches = cb_run(sess, work, eos, admission)
+        got = np.stack(got)
+        toks = sum(emitted(got[k], plens[k], budgets[k], eos)
+                   for k in range(CB_SEQS))
+        check(st["completed"] == CB_SEQS, f"{admission}: {st}")
+        check(launches == LAYERS * st["iterations"],
+              f"{admission}: flash launches {launches} != {LAYERS} x "
+              f"{st['iterations']} iterations")
+        for k in range(CB_SEQS):
+            n = plens[k] + budgets[k]
+            check((got[k, :plens[k]] == ids[k, :plens[k]]).all()
+                  and (got[k, n:] == 0).all(),
+                  f"{admission}: sequence {k} prompt / tail")
+        mask = np.arange(GPT_SEQ)[None] < (plens + budgets)[:, None]
+        a, b = np.where(mask, want, 0), np.where(mask, got, 0)
+        equal, gap = 0, 0.0
+        for j in range(0, CB_SEQS, 8):    # 8 rows of scores at a time
+            e, w = parted_at_ties(ff, a[j:j + 8], b[j:j + 8])
+            equal, gap = equal + e, max(gap, w)
+        print(f"[serve] ContinuousBatcher admission={admission}: "
+              f"{CB_SEQS} sequences (prompts {plens.min()}-{plens.max()}, "
+              f"budgets {budgets.min()}-{budgets.max()} in segments of "
+              f"{CB_SEG}, eos {eos}), {CB_SLOTS} KV slots: "
+              f"{st['iterations']} iterations, {st['evicted_early']} early "
+              f"evictions, flash launches {launches} (= {LAYERS} x "
+              f"iterations), {toks} tokens in {wall:.3f} s = "
+              f"{toks / wall:.1f} tokens/s; {equal}/{CB_SEQS} rows "
+              f"bit-identical to session.generate(row[None]), the others "
+              f"part at a score gap <= {gap:.3e} of the row's range (tol "
+              f"{GEN_TOL:.0e}) ({smi})")
+        check(gap <= GEN_TOL, f"{admission}: a row parted from "
+                              f"session.generate beyond a near tie")
+        if admission == "continuous":
+            probe_rows = (a, b)
+        res[admission] = {"iterations": st["iterations"],
+                          "evicted_early": st["evicted_early"],
+                          "launches": launches, "tokens": toks,
+                          "wall_s": wall, "tokens_per_s": toks / wall,
+                          "equal_rows": equal, "worst_gap": gap}
+    res["row_probe"] = row_probe(ff, *probe_rows, plens, plens + budgets,
+                                 smi)
+    res["session"] = (ff, g, sess)
+    return res
+
+
+def serve_plan(ff, g, sess, smi: str) -> dict:
+    """optimize_strategy(mode="serving") on the compiled GPT-2 at buckets
+    (1, 4, 8), the plan verified and exported, then loaded by the
+    repository's own loader (ModelRepository._load_with_builder with
+    serving_strategy_file): one model per bucket compiled from its
+    bucket's sub-strategy, with the floor guard against plain data
+    parallelism. Every model takes the plain session's weights."""
+    import tempfile
+    from flexflow_tpu_torch.analysis import verify_serving_plan
+    from flexflow_tpu_torch.models import build_gpt2
+    from flexflow_tpu_torch.search.optimizer import optimize_strategy
+    from flexflow_tpu_torch.serving import ModelRepository
+    tmp = tempfile.mkdtemp(prefix="ff_serving_plan_")
+    path = os.path.join(tmp, "gpt2_serving.json")
+    cfg = ff.config
+    cfg.serving_buckets = ",".join(str(b) for b in SERVE_BUCKETS)
+    cfg.export_strategy_file = path
+    built = []
+
+    def weights(f2):
+        built.append(f2)
+        f2.params = ff.params
+
+    try:
+        t0 = time.perf_counter()
+        optimize_strategy(ff, mode="serving")
+        search_s = time.perf_counter() - t0
+        cfg.export_strategy_file = ""    # the loads below export nothing
+        plan = ff._serving_plan
+        report = verify_serving_plan(plan, ff.layers, ff.dmesh,
+                                     context="chip_smoke")
+        check(not report.findings, f"verifier findings: "
+              f"{[f.format() for f in report.findings]}")
+        t0 = time.perf_counter()
+        psess = ModelRepository()._load_with_builder(
+            "gpt2", lambda f: build_gpt2(f, 8, GPT_SEQ, g), SERVE_BUCKETS,
+            cfg, None, 1, post_compile=weights, serving_strategy_file=path)
+        load_s = time.perf_counter() - t0
+    finally:
+        cfg.export_strategy_file = ""
+        shutil.rmtree(tmp, ignore_errors=True)
+    searched = built[:len(SERVE_BUCKETS)]
+    for b, f2 in zip(SERVE_BUCKETS, searched):
+        sv = getattr(f2.strategy, "serving", None) or {}
+        check(list(sv.get("buckets", {})) == [str(b)],
+              f"bucket {b}: the model did not import its sub-strategy of "
+              f"the plan")
+    check(sorted(psess.floor_guard) == list(SERVE_BUCKETS),
+          f"floor guard records {psess.floor_guard}")
+    for b in SERVE_BUCKETS:
+        adopted = psess.floor_guard[b]["adopted"]
+        want = searched[SERVE_BUCKETS.index(b)] if adopted == "searched" \
+            else built[len(SERVE_BUCKETS)]
+        check(psess.session_for(b).ff is want,
+              f"bucket {b}: the session is not the {adopted} model")
+    plan_launches = plain_launches = 0
+    for rows in SERVE_BUCKETS:
+        plens = np.full(rows, PLAN_PLEN, np.int32) \
+            + np.arange(rows, dtype=np.int32)
+        ids = gpt_prompts(rows, plens, vocab_of(ff), 20 + rows,
+                          seq=GPT_SEQ)
+        fwd = zero_counts()["flash_attention_fwd"]
+        a = psess.generate(ids, plens, 16)
+        plan_launches += fwd.launches
+        fwd = zero_counts()["flash_attention_fwd"]
+        b = sess.generate(ids, plens, 16)
+        plain_launches += fwd.launches
+        check((a == b).all(), f"plan session != plain session at {rows} "
+                              f"rows")
+    check(plan_launches == plain_launches > 0,
+          f"flash launches: plan session {plan_launches}, plain "
+          f"{plain_launches}")
+    meas = psess.measured_profile()
+    rows = {}
+    for b, p in sorted(plan.buckets.items()):
+        m = meas.get(str(b), {})
+        rows[b] = {"predicted_prefill_s": p.cost.prefill,
+                   "predicted_decode_step_s": p.cost.decode_step,
+                   "measured_prefill_s": m.get("prefill_s"),
+                   "measured_decode_step_s": m.get("decode_step_s"),
+                   "kv_bytes": p.cost.kv_bytes,
+                   "floor_guard": psess.floor_guard.get(b)}
+        print(f"[serve] serving plan bucket {b}: predicted prefill "
+              f"{p.cost.prefill * 1e3:.4f} ms / decode step "
+              f"{p.cost.decode_step * 1e3:.4f} ms; measured prefill "
+              f"{m.get('prefill_s', float('nan')) * 1e3:.4f} ms / decode "
+              f"step {m.get('decode_step_s', float('nan')) * 1e3:.4f} ms "
+              f"(_decode_measured, host clock, device-synced); KV "
+              f"{p.cost.kv_bytes / 2**20:.1f} MiB; floor guard "
+              f"{psess.floor_guard.get(b)} ({smi})")
+    print(f"[serve] serving plan: search {search_s:.3f} s at buckets "
+          f"{SERVE_BUCKETS} on one card, verifier findings "
+          f"{len(report.findings)}; loaded through ModelRepository"
+          f"._load_with_builder(serving_strategy_file=...), each bucket's "
+          f"model compiled from its imported sub-strategy, load + floor "
+          f"guard {load_s:.3f} s; plan-session outputs equal the plain "
+          f"session's at 1, 4 and 8 rows, flash launches {plan_launches} "
+          f"= the plain session's {plain_launches}")
+    return {"search_s": search_s, "load_s": load_s, "findings":
+            len(report.findings), "buckets": rows}
+
+
+def serve_fleet_check(smi: str) -> dict:
+    """Two replica processes (gpt2-tiny, on the card) behind serve_fleet,
+    one killed mid-request by its fault plan; every request answered
+    through failover, then Autoscaler.tick repairs the fleet."""
+    import threading
+    from flexflow_tpu_torch.serving.fleet import (Autoscaler,
+                                                  AutoscalerConfig,
+                                                  FleetRouter, serve_fleet)
+    argv = [sys.executable, "-m", "flexflow_tpu_torch.serving.fleet.replica",
+            "--port", "{port}", "--name", "{name}", *FLEET_ARGS]
+    env = {"PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    router = FleetRouter(spawn_argv=argv, spawn_env=env,
+                         poll_interval_s=0.25)
+    fh = serve_fleet(router)
+    try:
+        crash = router.spawn("replica-a",
+                             extra_env={"FF_FAULT_PLAN": FLEET_CRASH})
+        router.spawn("replica-b")
+
+        def wait_ready(n: int, what: str) -> None:
+            end = time.perf_counter() + 180
+            while time.perf_counter() < end:
+                with router._lock:
+                    up = [r for r in router._replicas
+                          if r.ready_at is not None and r.alive_locked()]
+                if len(up) >= n:
+                    return
+                time.sleep(0.1)
+            codes = {r.name: r.proc.poll() for r in router.replicas()
+                     if r.proc is not None}
+            raise RuntimeError(f"check failed: {what}: replicas not ready "
+                               f"(exit codes {codes})")
+
+        wait_ready(2, "startup")
+        ttr = {r.name: r.ready_at - r.spawned_at for r in router.replicas()}
+        rng = np.random.default_rng(16)
+        answered = []
+        lock = threading.Lock()
+
+        def job(i):
+            # even requests infer (through the replica's scheduler, so
+            # its metrics and sketches count them), odd ones generate
+            ids = np.zeros((1, 32), np.int32)
+            ids[0, :5] = rng.integers(0, 64, 5)
+            if i % 2:
+                verb, body = "generate", json.dumps({
+                    "inputs": [{"name": "input_ids", "shape": [1, 32],
+                                "datatype": "INT32",
+                                "data": ids.ravel().tolist()}],
+                    "parameters": {"prompt_len": 5, "max_new_tokens": 8}}
+                ).encode()
+            else:
+                verb, body = "infer", infer_body(
+                    {"input_ids": ids,
+                     "position_ids": np.arange(32, dtype=np.int32)[None]})
+            code, doc, _ = http_post(
+                f"{fh.url}/v2/models/gpt2-tiny/{verb}", body)
+            with lock:
+                answered.append(code)
+            check(code == 200, f"fleet request {i}: HTTP {code} {doc}")
+        t0 = time.perf_counter()
+        client_run([lambda i=i: job(i) for i in range(FLEET_REQUESTS)], 4)
+        wall = time.perf_counter() - t0
+        crash.proc.wait(timeout=30)
+        stats = router.fleet_health()["fleet"]
+        check(crash.proc.returncode not in (None, 0),
+              f"replica-a did not crash ({crash.proc.returncode})")
+        check(stats["failovers"] >= 1, f"no failover: {stats}")
+        metrics = router.fleet_metrics()["models"]
+        scaler = Autoscaler(router, AutoscalerConfig(min_replicas=2,
+                                                     max_replicas=2))
+        action = scaler.tick()
+        check(action == "repair", f"Autoscaler.tick -> {action}")
+        wait_ready(2, "repair")
+        new = [r for r in router.replicas() if r.name not in ttr]
+        ttr.update({r.name: r.ready_at - r.spawned_at for r in new})
+        again = scaler.tick()
+        check(again == "hold", f"second tick -> {again}")
+        print(f"[serve] fleet: 2 replica processes (gpt2-tiny on the "
+              f"card) behind serve_fleet, {FLEET_REQUESTS} requests (infer "
+              f"and generate alternating) in {wall:.3f} s, all 200; replica-a died under "
+              f"{FLEET_CRASH} (exit {crash.proc.returncode}), failovers "
+              f"{stats['failovers']}; Autoscaler.tick -> {action}, then "
+              f"{again}: {len(router.replicas())} replicas")
+        print(f"[serve] fleet time to ready (spawn -> first passing "
+              f"/healthz, host clock): "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in ttr.items())
+              + f" ({smi})")
+        for model, m in metrics.items():
+            print(f"[serve] fleet merged /v2/metrics {model}: "
+                  f"{ {k: m[k] for k in ('replicas', 'requests', 'completed', 'failed', 'batches')} } "
+                  f"latency_ms {m.get('latency_ms')}")
+        return {"time_to_ready_s": ttr, "failovers": stats["failovers"],
+                "wall_s": wall, "merged": {k: {f: v for f, v in m.items()
+                                               if f != "sketches"}
+                                           for k, m in metrics.items()}}
+    finally:
+        fh.stop(drain_children=True)
+
+
+def phase_serve(smi: str) -> dict:
+    """The serving stack on one card (module docstring, phase 16)."""
+    res = serve_fronts(smi)
+    repo, models = res.pop("repo"), res.pop("models")
+    res["shedding"] = serve_shedding(repo, models)
+    del repo, models
+    free_cuda()
+    gen = serve_generate(smi)
+    ff, g, sess = gen.pop("session")
+    res["generate"] = gen
+    res["plan"] = serve_plan(ff, g, sess, smi)
+    del ff, sess
+    free_cuda()
+    res["fleet"] = serve_fleet_check(smi)
+    res["launches"] = {
+        "fronts": sum(r["launches"] for r in res["fronts"].values()),
+        "post_generate": gen["post_generate_launches"],
+        "batcher": sum(gen[a]["launches"]
+                       for a in ("continuous", "static"))}
+    return res
+
+
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe, resil, search) -> list:
+                zoo, fe, resil, search, srv) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
-    DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends, resilience and
-    search launches beside them."""
+    DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends, resilience,
+    search and serving-stack launches beside them."""
     zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
     fe_launches = {"fx_train": fe["fx"]["train_launches"],
                    "keras_train": fe["keras"]["launches"],
@@ -3772,7 +4644,18 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # the search phase: calibrating op_attention@flash, then the
         # searched model's and the remat and recompile runs' steps
         "search_calibration_launches": search["calibration"]["launches"],
-        **search_row("flash_attention_fwd")}]
+        **search_row("flash_attention_fwd"),
+        # the serve phase: BERT-base behind both HTTP fronts (12 a
+        # scheduled batch), POST /generate (one prefill) and the
+        # continuous batcher under both admissions (12 an iteration)
+        "serve_front_launches": srv["launches"]["fronts"],
+        "serve_front_batches": {f: r["calls"]
+                                for f, r in srv["fronts"].items()},
+        "serve_generate_launches": srv["launches"]["post_generate"],
+        "serve_batcher_launches": srv["launches"]["batcher"],
+        "serve_batcher_iterations": {
+            a: srv["generate"][a]["iterations"]
+            for a in ("continuous", "static")}}]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 169),
                             ("dkv", "flash_attention_bwd_dkv", 210)):
         rows.append({
@@ -3831,7 +4714,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience", "search")
+          "resilience", "search", "serve")
 
 
 def main() -> int:
@@ -3880,13 +4763,15 @@ def main() -> int:
     run("frontends", phase_frontends, smi)
     run("resilience", phase_resilience, smi)
     run("search", phase_search, smi)
+    run("serve", phase_serve, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 1
     print(json.dumps({"kernels": kernel_rows(
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
-        res["zoo"], res["frontends"], res["resilience"], res["search"])}))
+        res["zoo"], res["frontends"], res["resilience"], res["search"],
+        res["serve"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

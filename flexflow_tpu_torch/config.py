@@ -5,9 +5,12 @@ and flag spellings, so a launch script written for the JAX package parses
 unchanged. The serving slice reads ``batch_size``, ``only_data_parallel``,
 ``use_bf16_compute``, ``allow_tensor_op_math_conversion``,
 ``bf16_activations``, ``use_flash_attention``, ``kernel_impls`` and
-``seed``; the other fields are accepted and kept for the later slices
-that port the features they configure (search, pipelines, ZeRO, overlap,
-quantized collectives, serving plans, telemetry).
+``seed``; the serving search reads ``serving_buckets``,
+``serving_max_seq`` and ``serving_decode_tokens``
+(``search/serving_plan.py``), the repository's loaders
+``serving_floor_guard`` (``serving/session.py``); the other fields are
+accepted and kept for the later slices that port the features they
+configure (pipelines, ZeRO, overlap, quantized collectives).
 
 One addition: ``device`` ("cuda" unless ``--device cpu``) names where
 ``FFModel`` places parameters and runs.
@@ -137,6 +140,14 @@ class FFConfig:
     serving_strategy_file: str = ""
     serving_floor_guard: str = "auto"
     seed: int = 0
+
+    def serving_buckets_list(self) -> List[int]:
+        """Parsed ``serving_buckets`` ([] = caller defaults); read by the
+        serving search (``search/serving_plan.py``)."""
+        if not self.serving_buckets:
+            return []
+        return sorted({int(b) for b in
+                       str(self.serving_buckets).split(",") if b})
 
     @classmethod
     def parse_args(cls, argv: Optional[List[str]] = None) -> "FFConfig":

@@ -643,9 +643,13 @@ class FFModel:
         Returns (strategy, program_info_or_None) — Unity search may
         rewrite the executable graph. On one device the search still
         runs when a budget is set explicitly: substitutions can rewrite
-        the graph, and the kernel plan prices from its calibration."""
+        the graph, and the kernel plan prices from its calibration. An
+        ``import_strategy_file`` is imported on one device too (the JAX
+        package drops it there unless a budget is set, so a serving
+        plan's bucket strategies never reached a one-card model)."""
         single_no_budget = (self.dmesh.num_devices == 1
-                            and self.config.search_budget <= 0)
+                            and self.config.search_budget <= 0
+                            and not self.config.import_strategy_file)
         if self.config.only_data_parallel or single_no_budget \
                 or self.config.search_algo == "dp":
             return ShardingStrategy.data_parallel(

@@ -862,6 +862,32 @@ class OpCostModel:
         mult = bandwidth_multiplier(collective, degree)
         return mult * frac * volume_bytes / bw + (degree - 1) * lat
 
+    def decode_collective_cost(self, volume_bytes: float,
+                               collective: str, degree: int,
+                               axes: Optional[Tuple[str, ...]] = None
+                               ) -> float:
+        """Latency-side price of ONE decode-step collective (the serving
+        search, ``serving_plan.py``). Decode-step payloads are tiny
+        ((bucket x hidden) activations at sequence length 1) and fire
+        once per generated token, so nothing coalesces them across
+        tokens: routed through :meth:`xfer_cost` (calibrated
+        small-message rows, dispatch floor), never a bandwidth-marginal
+        path."""
+        return self.xfer_cost(volume_bytes, collective, degree,
+                              axes=axes)
+
+    def kv_read_time(self, kv_bytes: float) -> float:
+        """HBM time to stream a resident KV cache once: the per-step
+        memory floor of autoregressive decode (every step reads the full
+        local cache). Uses the calibrated memory bandwidth when a
+        calibration is attached."""
+        if kv_bytes <= 0:
+            return 0.0
+        mem_bw = self.spec.hbm_bandwidth
+        if self.calib is not None and self.calib.mem_bw:
+            mem_bw = self.calib.mem_bw
+        return kv_bytes / max(mem_bw, 1.0)
+
     def resharding_cost(self, tensor_bytes: float,
                         src_degrees: Dict[int, int],
                         dst_degrees: Dict[int, int]) -> float:

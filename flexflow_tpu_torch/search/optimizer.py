@@ -1,7 +1,6 @@
 """Strategy optimization entry point: dispatches to the configured search.
 
-The port of the training half of ``flexflow_tpu/search/optimizer.py``;
-the reference's ``Graph::graph_optimize_task`` (``src/runtime/
+The port of ``flexflow_tpu/search/optimizer.py``; the reference's ``Graph::graph_optimize_task`` (``src/runtime/
 graph.cc:2046``): builds the cost model over the machine model,
 calibrates it on the card, runs the search (Unity by default, MCMC under
 ``search_algo="mcmc"``), writes the strategy audit, and keeps plain data
@@ -12,9 +11,10 @@ On the card the calibration runs the bf16 matmul chain
 (``OpCostModel.calibrate``), turns on per-op measurement, and with
 ``calibration_v2`` measures the host and attention-impl rows
 (``search/calibration.py``); a CUDA failure in any of them raises.
-Refused with ``NotImplementedError`` naming the ROADMAP item: the
-serving search, pipeline search, banked placement, quantized gradient
-collectives, overlap-aware scoring, hierarchical placement on a
+``mode="serving"`` dispatches to the serving search
+(``search/serving_plan.py``). Refused with ``NotImplementedError``
+naming the ROADMAP item: pipeline search, banked placement, quantized
+gradient collectives, overlap-aware scoring, hierarchical placement on a
 multi-tier machine, and the task-graph simulator
 (``machine_model_version >= 1``).
 """
@@ -75,12 +75,19 @@ def optimize_strategy(ff, mode: str = "train"):
     the graph (inserting parallel ops), in which case ``program_info``
     carries the new executable layer list — the analog of the reference's
     ``convert_graph_to_operators`` output replacing the original
-    operators."""
+    operators.
+
+    ``mode="serving"`` runs the serving search
+    (``search/serving_plan.py``): one plan per batch bucket ranked by
+    prefill + per-token decode-step latency with the KV cache resident
+    in the envelope. It needs a compiled model and returns the largest
+    bucket's strategy; the per-bucket plan lands on ``ff._serving_plan``
+    and in the ``--export`` file's ``serving`` block."""
     cfg = ff.config
     if mode == "serving":
-        raise NotImplementedError(
-            f"the serving strategy search (serving_plan.py) is not "
-            f"ported: {_ITEM5}")
+        from .serving_plan import optimize_serving_strategy
+        plan = optimize_serving_strategy(ff)
+        return plan.largest.strategy, None
     if mode != "train":
         raise ValueError(f"unknown strategy-search mode {mode!r} "
                          f"(expected 'train' or 'serving')")

@@ -49,7 +49,8 @@ def _spec_from_json(j) -> Optional[Spec]:
 def save_strategy(path: str, strategy: ShardingStrategy,
                   assignment: Optional[Dict] = None,
                   meta: Optional[Dict] = None,
-                  program: Optional[Dict] = None):
+                  program: Optional[Dict] = None,
+                  serving: Optional[Dict] = None):
     doc = {
         "program": program,
         "mesh_axes": dict(strategy.dmesh.axis_sizes),
@@ -75,9 +76,15 @@ def save_strategy(path: str, strategy: ShardingStrategy,
         # names -> attention impl, plus the graph-wide "opt_update"
         # kind; compile honors it verbatim on import
         doc["kernel_impls"] = dict(strategy.kernel_impls)
-    for block in ("banks", "place_groups", "serving"):
+    for block in ("banks", "place_groups"):
         if getattr(strategy, block, None):
             doc[block] = getattr(strategy, block)
+    if serving is None:
+        serving = getattr(strategy, "serving", None)
+    if serving:
+        # per-(model, batch-class) serving plans (search/serving_plan.py,
+        # ServingPlan.to_block): one sub-strategy per bucket
+        doc["serving"] = dict(serving)
     with open(path, "w") as f:
         json.dump(doc, f, indent=1)
 

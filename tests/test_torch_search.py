@@ -321,10 +321,15 @@ def test_unported_search_options_are_refused(field, value, tmp_path,
 
 
 def test_serving_search_and_multi_tier_placement_are_refused(tmp_path):
+    from flexflow_tpu.search.optimizer import \
+        optimize_strategy as joptimize_strategy
     from flexflow_tpu_torch.search.optimizer import optimize_strategy
-    _, tff = graphs.mlp()
-    with pytest.raises(NotImplementedError, match="serving"):
-        optimize_strategy(tff, mode="serving")
+    # the serving search is ported: on a model that has not been
+    # compiled (no mesh to plan for) it refuses, as the JAX package does
+    jff, tff = graphs.mlp()
+    for ff, opt in ((jff, joptimize_strategy), (tff, optimize_strategy)):
+        with pytest.raises(ValueError, match="compile"):
+            opt(ff, mode="serving")
     ini = tmp_path / "two.ini"
     ini.write_text("generation = v5e\nici_shape = 2x2\nnum_slices = 2\n"
                    "num_hosts = 2\n")
