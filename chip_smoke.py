@@ -25,10 +25,12 @@ never JAX, and:
                causal) and training shape (the causal backward at d 128),
                the causal backward at d 64, head dims 256, 320 and 512,
                NMT's attention (b64 h1 s128 d512), the Transformer's
-               (b64 h8 s512 d8, padded to 64), SDPA's backend named (its
+               (b64 h8 s512 d8, unpadded: the narrow kernel), SDPA's
+               backend named (its
                efficient backend's backward where its flash backend
                refuses the shape), Adam over BERT-base and over DLRM's
-               256.03 M parameters, and each kernel's bound;
+               256.03 M parameters, and each kernel's bound (bytes,
+               flops or exponentials at the card's maximum SM clock);
   5. slice   - drives the serving path: full-width BERT-base (12 layers,
                hidden 768, 12 heads, vocab 30522, seeded random weights)
                built through FFModel at batch 8 x seq 128 and 8 x 512 with
@@ -56,8 +58,10 @@ never JAX, and:
                fallback, the outputs, and the KV decode's score rows
                against the re-forward through flash and through plain
                attention; times the prefill and the decode step (median,
-               p90, tokens/s) at 1 and 8 rows, the peak memory of a
-               generate call, and profiles the decode step;
+               p90, tokens/s) at 1 and 8 rows, the decode step also with
+               each product at the batch's own shape (no row chunk), the
+               peak memory of a generate call, and profiles the decode
+               step;
   9. llama   - LLaMA-7B (32 layers, hidden 4096, FFN 11008, 32 heads of
                128, vocab 32000, RoPE in the op; seeded random weights)
                built through FFModel at 4 x 1024 with
@@ -192,11 +196,13 @@ never JAX, and:
                (kv_slot_capacity) over 32 sequences (budgets 8-64 in
                segments of 8, one eos) under continuous and static
                admission: 12 flash launches an iteration, each row
-               against session.generate(row[None]) (bit-identical or
-               parted only at a near tie, counted), tokens/s, early
-               evictions, and a probe of row independence (a row's
-               logits alone and inside 8 rows, through the KV step, the
-               forward and two GEMMs); (d) optimize_strategy(
+               against session.generate(row[None]) (all 32 bit-identical
+               under both admissions), tokens/s, early evictions, and a
+               probe of row independence (a row's logits, prefill cache
+               and every decode product the oracle's way against the
+               batcher's, at the executor's row chunk and without it;
+               the forward; two GEMMs, LayerNorm and the softmax alone
+               and inside 8 rows); (d) optimize_strategy(
                mode="serving") at buckets (1, 4, 8), verify_serving_plan
                (no findings), the plan file loaded by the repository's
                loader (ModelRepository._load_with_builder with
@@ -224,7 +230,9 @@ build,kernel,serve`` the serving stack; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
-change, change, base), the way to compare a kernel change on one card.
+change, change, base), the way to compare a kernel change on one card (a
+forward head dim the base takes only padded is timed there as its
+wrapper ran it: pad to 64, kernel, slice).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result; it does the
@@ -250,6 +258,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# the special-function units: 16 ex2 per SM per clock on 132 SMs, at the
+# card's maximum SM clock, which phase_device reads from nvidia-smi
+SMS, EX2_PER_SM_CLOCK = 132, 16
+SM_CLOCK_HZ = 1.98e9
 
 # tolerances of kernel vs plain version on the card: f32 differs only by
 # summation order and the online softmax; bf16 also rounds p (and o) to
@@ -320,18 +332,25 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def exp_ms(n_exp: float) -> float:
+    """Least time of ``n_exp`` exponentials on the special-function units
+    (one MUFU ex2 each) at the card's maximum SM clock."""
+    return n_exp / (SMS * EX2_PER_SM_CLOCK * SM_CLOCK_HZ) * 1e3
+
+
 def attention_bound_ms(bh: int, sq: int, sk: int, d: int,
                        itemsize: int, causal: bool = False) -> tuple:
-    """Least time for one attention forward: q, k, v read once, o and the
-    f32 lse written once, against 4*d flops per (query, key) pair the mask
-    keeps (sq*sk, or s*(s+1)/2 causal) per head on the bf16 tensor
-    cores."""
+    """Least time for one attention forward, the largest of three: q, k,
+    v read once, o and the f32 lse written once; 4*d flops per (query,
+    key) pair the mask keeps (sq*sk, or s*(s+1)/2 causal) per head on the
+    bf16 tensor cores; one exponential per such pair (exp_ms). Flops and
+    exponentials are both "operations"."""
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * itemsize + bh * sq * 4
     pairs = sq * (sq + 1) / 2 if causal else sq * sk
     flops = 4.0 * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
-    t_ops = flops / peak * 1e3
+    t_ops = max(flops / peak * 1e3, exp_ms(bh * pairs))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -343,12 +362,18 @@ def phase_device() -> tuple:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"{dev['kind']} x{dev['count']}")
+          f"{dev['kind']} x{dev['count']}, max SM clock "
+          f"{SM_CLOCK_HZ / 1e6:.0f} MHz")
     print(smi)
     return dev, smi
 
@@ -479,7 +504,7 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (2, 4, 96, 200, 320, torch.bfloat16, False, 0.1),
     (64, 1, 128, 128, 512, torch.bfloat16, False, 0.0),
     # the Transformer's attention (zoo phase): TransformerConfig's kdim =
-    # hidden / heads split over 8 heads, d 8, padded to 64
+    # hidden / heads split over 8 heads, d 8 unpadded (the narrow kernel)
     (64, 8, 512, 512, 8, torch.bfloat16, False, 0.0),
     (16, 1, 100, 37, 512, torch.bfloat16, False, 0.0),
     (16, 1, 37, 100, 512, torch.bfloat16, False, 0.1),
@@ -503,6 +528,32 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     # bf16 above d 512 keeps the wide FMA forward and dq (d at run time)
     (2, 4, 200, 200, 576, torch.bfloat16, True, 0.1),
     (2, 4, 200, 200, 576, torch.bfloat16, False, 0.0),
+    # the narrow bf16 forward (d 8, 16, 24 and 32 unpadded, boxes of 16
+    # or 32 columns; 64-row CTAs over 64-key tiles): every d causal and
+    # not, with and without dropout, at a ragged s; sq != sk both ways;
+    # one short tile; a causal s ending mid-tile; the Transformer's b*h =
+    # 512 causal with dropout; d 12 (padded to 16) and 40 (to 64)
+    (4, 4, 200, 200, 8, torch.bfloat16, False, 0.0),
+    (4, 4, 200, 200, 8, torch.bfloat16, True, 0.1),
+    (4, 4, 200, 200, 16, torch.bfloat16, False, 0.1),
+    (4, 4, 200, 200, 16, torch.bfloat16, True, 0.0),
+    (4, 4, 200, 200, 24, torch.bfloat16, False, 0.0),
+    (4, 4, 200, 200, 24, torch.bfloat16, True, 0.1),
+    (4, 4, 200, 200, 32, torch.bfloat16, False, 0.1),
+    (4, 4, 200, 200, 32, torch.bfloat16, True, 0.0),
+    (4, 4, 96, 300, 8, torch.bfloat16, False, 0.1),
+    (4, 4, 300, 96, 32, torch.bfloat16, False, 0.0),
+    (4, 4, 40, 40, 16, torch.bfloat16, True, 0.1),
+    (4, 4, 257, 257, 24, torch.bfloat16, True, 0.0),
+    (64, 8, 512, 512, 8, torch.bfloat16, True, 0.1),
+    (4, 4, 200, 200, 12, torch.bfloat16, True, 0.0),
+    (4, 4, 200, 200, 40, torch.bfloat16, False, 0.1),
+    # the bf16 forward at d 128: sq != sk both ways, without dropout at a
+    # ragged s, non-causal at s 512
+    (2, 4, 96, 200, 128, torch.bfloat16, False, 0.0),
+    (2, 4, 200, 96, 128, torch.bfloat16, False, 0.1),
+    (2, 4, 200, 200, 128, torch.bfloat16, True, 0.0),
+    (8, 12, 512, 512, 128, torch.bfloat16, False, 0.0),
     # b*h = 65,600, past the 65,535 that gridDim.y allows (at d 256, 2.1
     # GB per tensor)
     (1640, 40, 64, 64, 64, torch.bfloat16, False, 0.0),
@@ -551,7 +602,7 @@ def phase_kernel_bwd(gen) -> dict:
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
-        flash_attention_bwd_dq_plain)
+        flash_attention_bwd_dq_plain, flash_attention_bwd_plain)
     worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     bad = []
     for b, h, sq, sk, d, dt, causal, rate in CASES:
@@ -601,6 +652,30 @@ def phase_kernel_bwd(gen) -> dict:
             worst["flash_attention_bwd_dkv"], errs["dk"], errs["dv"])
     check(not bad, f"backward kernels disagree with their plain versions "
                    f"at {bad}")
+    # the narrow forward's backward: the autograd Function pads q, k, v
+    # and dO to 64 for the dq and dk/dv kernels and slices the gradients
+    for b, h, sq, sk, d, dt, causal, rate in CASES:
+        if d > 32 or dt != torch.bfloat16:
+            continue
+        q, k, v, do = (torch.randn(b, h, s, d, device="cuda", dtype=dt,
+                                   generator=gen)
+                       for s in (sq, sk, sk, sq))
+        kw = dict(causal=causal, dropout_rate=rate,
+                  dropout_seed=99 if rate else None)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = flash_attention(*leaves, return_lse=True, **kw)
+        got = torch.autograd.grad(o, leaves, do)
+        want = flash_attention_bwd_plain(q, k, v, o.detach(), lse, do, **kw)
+        rel = max((g.float() - w.float()).abs().max().item()
+                  / max(w.float().abs().max().item(), 1e-30)
+                  for g, w in zip(got, want))
+        ok = rel <= BWD_TOL[dt] and all(g.shape == t.shape
+                                        for g, t in zip(got, (q, k, v)))
+        print(f"[kernel] flash_attention backward through the Function b{b} "
+              f"h{h} sq{sq} sk{sk} d{d} bf16 causal={causal} dropout={rate}"
+              f" (padded to 64, sliced back): max rel {rel:.1e} (tol "
+              f"{BWD_TOL[dt]:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"narrow backward at b{b} h{h} s{sq}/{sk} d{d}")
     return worst
 
 
@@ -904,13 +979,14 @@ def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool,
     """Least time of one backward kernel (bf16): q, k, v, do read once,
     lse and delta (f32) read once, dq (or dk and dv) written once, against
     6 (dq) or 8 (dk/dv) * d flops per (query, key) pair the mask keeps
-    (s*s, or s*(s+1)/2 causal) per head on the bf16 tensor cores."""
+    (s*s, or s*(s+1)/2 causal) per head on the bf16 tensor cores, and
+    one exponential per such pair (each kernel rebuilds p)."""
     nbytes = 4 * bh * s * d * 2 + 2 * bh * s * 4 \
         + (2 if dkv else 1) * bh * s * d * 2
     pairs = s * (s + 1) / 2 if causal else s * s
     flops = (8.0 if dkv else 6.0) * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = max(flops / BF16_FLOP_PER_S * 1e3, exp_ms(bh * pairs))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1092,7 +1168,7 @@ KT_SHAPES = [
     ("bwd_nmt", "bwd", 64, 1, 128, 512, False, "NMT's attention"),
     ("fwd_transformer", "fwd", 64, 8, 512, 8, False,
      "the Transformer's attention: TransformerConfig's kdim = hidden / "
-     "heads = 64 split over 8 heads, d 8, padded to 64 by the wrapper"),
+     "heads = 64 split over 8 heads, d 8 unpadded: the narrow kernel"),
     ("bwd_transformer", "bwd", 64, 8, 512, 8, False,
      "the Transformer's attention, the kernels at the padded d 64"),
 ]
@@ -1238,6 +1314,23 @@ def phase_ab(base: str, smi: str) -> None:
         tail = (b * h, s, s, d, int(dt == torch.bfloat16), int(causal),
                 d ** -0.5, 0, 0, 1.0, 0)
 
+        def padded_fwd(lib, q, k, v, lse):
+            fn = lib.ff_flash_attention_fwd
+            fn.argtypes = fa._ARGTYPES[("flash_attention_fwd",
+                                        "ff_flash_attention_fwd")]
+            fn.restype = ctypes.c_int
+            dp = -(-d // 64) * 64
+
+            def run():
+                qp, kp, vp = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+                op = torch.empty_like(qp)
+                err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                         op.data_ptr(), lse.data_ptr(), *tail[:3], dp,
+                         *tail[4:], torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"padded base launch at {shape}")
+                op[..., :d]
+            return run
+
         def launch(tag, src, sym, ts):
             fn = getattr(libs[tag][src], sym)
             fn.argtypes, fn.restype = fa._ARGTYPES[(src, sym)], ctypes.c_int
@@ -1255,7 +1348,12 @@ def phase_ab(base: str, smi: str) -> None:
                 (q, k, v, do, lse, delta, dk, dv))]
         for src, sym, ts in [fwd] if kind == "fwd" else bwd:
             fns = {tag: launch(tag, src, sym, ts) for tag in libs}
-            if fns["base"]() != 0:
+            if kind == "fwd" and d % 64 and fns["base"]() != 0:
+                # an older tree takes d only padded to 64: time what its
+                # wrapper ran, the pad, the kernel and the slice of o
+                fns["base"] = padded_fwd(libs["base"][src], q, k, v, lse)
+                shape += " (base: pad to 64, kernel, slice)"
+            elif fns["base"]() != 0:
                 print(f"[ab] {sym} {shape}: the base tree refuses it")
                 continue
             us = [cuda_time_ms(fns[t]) * 1e3
@@ -1431,6 +1529,30 @@ def parted_at_ties(ff, a: np.ndarray, b: np.ndarray) -> tuple:
     return equal, worst
 
 
+@contextlib.contextmanager
+def decode_ctx(ex, row_chunk=None, log=None):
+    """Every decode context ``ex._kv_ctx`` builds inside takes
+    ``row_chunk`` (None: the step's own) and ``log()``'s list as its
+    product log. Row chunk 0 runs each product and norm at the batch's
+    own rows, how the decode step ran before the chunk."""
+    make_ctx = ex._kv_ctx
+
+    def wrapped(mode, state):
+        ctx = make_ctx(mode, state)
+        if mode == "decode":
+            if row_chunk is not None:
+                ctx.row_chunk = row_chunk
+            if log is not None:
+                ctx.product_log = log()
+        return ctx
+
+    ex._kv_ctx = wrapped
+    try:
+        yield
+    finally:
+        del ex._kv_ctx
+
+
 def decode_step_times(ff, rows: int, plen: int, steps: int,
                       profile: bool = False):
     """Host-clock time of each of ``steps`` greedy KV decode steps at
@@ -1593,6 +1715,7 @@ def generate_times(ff, sess, prompts, smi: str, name: str = "gpt2-small",
     generate call and (``profile``) a profile of the decode step, for the
     LM ``ff`` on ``prompts`` (all rows, ``plen`` tokens each)."""
     from flexflow_tpu_torch import OperatorType
+    from flexflow_tpu_torch.executor import DECODE_ROW_CHUNK
     n, seq = prompts.shape
     layers = sum(1 for l in ff.executor.program.layers
                  if l.op_type == OperatorType.OP_MULTIHEAD_ATTENTION)
@@ -1609,20 +1732,32 @@ def generate_times(ff, sess, prompts, smi: str, name: str = "gpt2-small",
           f"on, {layers} flash launches): median {res['prefill_ms']:.3f} ms "
           f"over 5 (host clock, ends in a device sync); {smi}")
     for b in rows:
-        lat, _ = decode_step_times(ff, b, plen, tokens)
+        # the step with every product and norm on blocks of the row chunk
+        # and with each at the batch's own shape (as the decode step ran
+        # before the chunk), in turns: chunk, none, none, chunk
+        lat, lat0 = [], []
+        for chunked in (True, False, False, True):
+            with decode_ctx(ff.executor, None if chunked else 0):
+                (lat if chunked else lat0).extend(
+                    decode_step_times(ff, b, plen, tokens // 2)[0])
         ff._decode_measured = {}
         ff.generate(prompts[:b], plen, tokens, kv_cache=True)
         no_fallback(ff, f"timed generate at {b} rows")
         m = ff._decode_measured[b]
         res[b] = {"step_ms": float(np.median(lat)),
                   "step_p90_ms": float(np.percentile(lat, 90)),
+                  "step_ms_unchunked": float(np.median(lat0)),
                   "gen_step_ms": m["decode_step_s"] * 1e3,
                   "gen_prefill_ms": m["prefill_s"] * 1e3,
                   "tokens_per_s": b / m["decode_step_s"]}
         print(f"[times] {name} decode step at {b} rows (cache of {seq}): "
               f"median {res[b]['step_ms']:.3f} ms, p90 "
               f"{res[b]['step_p90_ms']:.3f} ms over {tokens} steps (host "
-              f"clock, each ends in a device sync); one FFModel.generate "
+              f"clock, each ends in a device sync; products and norms on "
+              f"blocks of {DECODE_ROW_CHUNK} rows; each at the "
+              f"batch's own shape, the step before the chunk, timed in "
+              f"turns with it: median {res[b]['step_ms_unchunked']:.3f} "
+              f"ms); one FFModel.generate "
               f"of {tokens} tokens: prefill "
               f"{res[b]['gen_prefill_ms']:.3f} ms, "
               f"{res[b]['gen_step_ms']:.3f} ms per token, "
@@ -2162,7 +2297,7 @@ def zoo_specs() -> list:
         ZooSpec("transformer", f"Transformer (TransformerConfig(): hidden "
                 f"{tc.hidden_size}, {tc.num_heads} heads of "
                 f"{tc.hidden_size // tc.num_heads ** 2} (kdim = hidden / "
-                f"heads, split over the heads; the kernel pads to 64), "
+                f"heads, split over the heads: the narrow kernel), "
                 f"{tc.num_layers} layers, seq {tc.sequence_length}, MSE)",
                 64, lambda ff, b: zoo.build_transformer(ff, b, tc),
                 transformer_data, "mean_squared_error", tc.num_layers, True),
@@ -4154,12 +4289,20 @@ def row_probe(ff, want, got, plens, ends, smi: str) -> dict:
     """Is a row's result on this card independent of the rows that share
     its batch, the premise of the batcher's per-sequence contract? For
     a row that parted from its oracle (else row 0), at its first
-    differing position d: the logits of that position through the KV
-    path (prefill to the start of d's decode segment, then the oracle's
-    tokens fed to the decode steps up to d) with the row alone and as
-    row 0 of an 8-row batch; the same for the full forward
-    (scored_forward); and the port's bf16 GEMM (mm_f32) of one row alone
-    against the same row inside 8, at GPT-2's LM-head and MLP shapes."""
+    differing position d (else the last), the KV path as the oracle runs
+    it (the row alone, prefilled with its prompt length, decoded with an
+    int index) against the KV path as the batcher runs it (the row as
+    row 0 of an 8-row batch, a full-cache prefill, decoded with a per-row
+    index), from the start of d's decode segment with the oracle's
+    tokens fed to the steps up to d: the logits at d, the prefill's
+    cache of the row, and each product of the step at d (the executor's
+    product log) at the executor's row chunk and at none (each product at
+    the batch's own shape, how the step ran before the chunk); the full
+    forward (scored_forward) alone and in 8; and the port's bf16 GEMM
+    (mm_f32) of one row alone against the same row inside 8, at GPT-2's
+    LM-head and MLP shapes, with no chunk."""
+    import torch.nn.functional as F
+    from flexflow_tpu_torch.executor import DECODE_ROW_CHUNK
     from flexflow_tpu_torch.ops.registry import mm_f32
     parted = np.flatnonzero((want != got).any(axis=1))
     k = int(parted[0]) if parted.size else 0
@@ -4167,14 +4310,79 @@ def row_probe(ff, want, got, plens, ends, smi: str) -> dict:
     d = int(diff[0]) if diff.size else int(ends[k]) - 1
     s0 = int(plens[k]) + CB_SEG * ((d - int(plens[k])) // CB_SEG)
     others = [(k + j) % want.shape[0] for j in range(8)]
+    ex, dev = ff.executor, ff.device
 
-    def kv_logits(ids):
-        with torch.inference_mode():
+    def kv_run(ids, batcher, chunk=None, log=None):
+        """Row 0's logits at d, its prefill cache and (``log``) the
+        products of the step at d, the oracle's way or the batcher's."""
+        cur = None
+        with decode_ctx(ex, chunk, None if log is None
+                        else lambda: log.setdefault(cur, [])), \
+                torch.inference_mode():
             batch = gpt_batch(ids)
-            cache = prefill(ff, batch, s0)
+            n = ids.shape[0]
+            cache = ex.kv_prefill(ff.params, ff.state, batch,
+                                  prefill_len=None if batcher else s0)
+            seeded = {(name, kk): t[:1].clone()
+                      for name, c in cache.items()
+                      for kk, t in c.items()}
             for cur in range(s0, d + 1):
-                row, cache = decode_step(ff, batch, cache, cur)
-            return row[0].float()
+                sb = {kk: v[:, cur - 1:cur] for kk, v in batch.items()}
+                idx = torch.full((n,), cur - 1, dtype=torch.int64,
+                                 device=dev) if batcher else cur - 1
+                row, cache = ex.kv_decode_step(ff.params, ff.state, sb,
+                                               cache, idx)
+        return row[0].float(), seeded
+
+    def row0(x, y):
+        """Row 0's entries of an operand or output: x of the one-row run,
+        y of the 8-row run. A tensor of the step's padded stream has the
+        same rows in both, row 0 first; a batched attention product's
+        holds the row's heads first (a weight operand is the same tensor
+        in both)."""
+        return 1 if x.shape[0] == y.shape[0] else x.shape[0]
+
+    def same(x, y):
+        n = row0(x, y)
+        return x.shape[1:] == y.shape[1:] and torch.equal(x[:n], y[:n])
+
+    def compare_products(chunk):
+        """The step at d's products alone and in 8, and, over every step
+        from s0, the first product whose output differs (its step, index
+        and whether its operands were the same)."""
+        logs = ({}, {}, {})
+        for (ids, batcher), log in zip(((want[k:k + 1], False),
+                                        (want[others], True),
+                                        (want[k:k + 1], False)), logs):
+            kv_run(ids, batcher, chunk, log)
+        one, eight, again = (log[d] for log in logs)
+        check(len(one) == len(eight) == len(again) > 0,
+              "decode-step product logs")
+        differ, first = [], None
+        for i, (a, b) in enumerate(zip(one, eight)):
+            if not same(a["out"], b["out"]):
+                differ.append(f"#{i} {a['issued'][0][0]}@"
+                              f"{a['issued'][0][1]}")
+        for cur in range(s0, d + 1):
+            for i, (a, b) in enumerate(zip(logs[0][cur], logs[1][cur])):
+                if first is None and not same(a["out"], b["out"]):
+                    n = row0(a["out"], b["out"])
+                    dd = (a["out"][:n].float() - b["out"][:n].float()).abs()
+                    first = {"step": cur, "index": i,
+                             "issued": a["issued"][0],
+                             "operands_equal": [same(a["a"], b["a"]),
+                                                same(a["b"], b["b"])],
+                             "elements_differ": int((dd > 0).sum()),
+                             "max_abs": dd.max().item(),
+                             "where": [int(x) for x in
+                                       (dd > 0).nonzero()[0].tolist()]}
+        repeat = sum(torch.equal(a["out"], b["out"])
+                     for a, b in zip(one, again))
+        return {"chunk": chunk, "products": len(one),
+                "bit_equal": len(one) - len(differ), "differ": differ,
+                "first": first, "repeat_bit_equal": repeat,
+                "issued_1": sorted({str(x) for p in one
+                                    for x in p["issued"]})[:4]}
 
     def fwd_logits(ids):
         with torch.inference_mode():
@@ -4192,12 +4400,21 @@ def row_probe(ff, want, got, plens, ends, smi: str) -> dict:
             out["gap_in_8"] = (eight[t_o] - eight[t_b]).item() / span
         return out
 
+    chunk = DECODE_ROW_CHUNK
+    (one, seed1), (eight, seed8) = (kv_run(want[k:k + 1], False),
+                                    kv_run(want[others], True))
     res = {"row": k, "parted": bool(parted.size), "position": d,
-           "segment_start": s0,
-           "kv": compare(kv_logits(want[k:k + 1]), kv_logits(want[others])),
+           "segment_start": s0, "kv": compare(one, eight),
+           "prefill_cache": {
+               "bit_equal": all(torch.equal(seed1[key], seed8[key])
+                                for key in seed1),
+               "max_abs": max((seed1[key].float() - seed8[key].float())
+                              .abs().max().item() for key in seed1),
+               "range": max(seed1[key].float().abs().max().item()
+                            for key in seed1)},
            "forward": compare(fwd_logits(want[k:k + 1]),
-                              fwd_logits(want[others]))}
-    dev = ff.device
+                              fwd_logits(want[others])),
+           "products": {c: compare_products(c) for c in (chunk, 0)}}
     gen = torch.Generator(device=dev).manual_seed(14)
     for name, (kin, nout) in (("lm_head", (768, vocab_of(ff))),
                               ("mlp", (768, 3072))):
@@ -4207,18 +4424,39 @@ def row_probe(ff, want, got, plens, ends, smi: str) -> dict:
             .to(torch.bfloat16)
         res[f"gemm_{name}"] = compare(mm_f32(h[:1], w)[0],
                                       mm_f32(h, w)[0], tokens=False)
+    # the decode step's other row-wise ops: LayerNorm over 768 and the
+    # attention softmax over the 1024 cached positions
+    x = torch.randn(8, 1, 768, generator=gen, device=dev)
+    wln, bln = (torch.randn(768, generator=gen, device=dev) for _ in "wb")
+    res["layer_norm"] = compare(
+        F.layer_norm(x[:1], (768,), wln, bln)[0, 0],
+        F.layer_norm(x, (768,), wln, bln)[0, 0], tokens=False)
+    z = torch.randn(8, 12, 1, GPT_SEQ, generator=gen, device=dev)
+    res["softmax"] = compare(torch.softmax(z[:1], -1)[0].flatten(),
+                             torch.softmax(z, -1)[0].flatten(),
+                             tokens=False)
     print(f"[serve] row-independence probe, row {k} "
           f"({'parted from its oracle' if parted.size else 'no row parted'}"
           f") at position {d} (decode segment from {s0}): the row alone "
-          f"against row 0 of an 8-row batch: "
+          f"(the oracle's prefill and int index) against row 0 of an 8-row "
+          f"batch (the batcher's full-cache prefill and per-row index): "
           + "; ".join(f"{n} " + ("bit-equal" if r["bit_equal"] else
                                   f"max|diff| {r['max_abs']:.3e} of range "
                                   f"{r['range']:.3e}")
                       + (f", the two tokens' gap {r['gap_alone']:.3e} "
                          f"alone / {r['gap_in_8']:.3e} in 8"
                          if "gap_alone" in r else "")
-                      for n, r in res.items() if isinstance(r, dict))
+                      for n, r in res.items()
+                      if isinstance(r, dict) and n != "products")
           + f" ({smi})")
+    for c, r in res["products"].items():
+        print(f"[serve] row-independence probe, the decode step's products "
+              f"at row chunk {c} ({'each at the batch' + chr(39) + 's own '
+              'shape' if not c else 'issued as ' + ', '.join(r['issued_1'])})"
+              f": {r['bit_equal']} of {r['products']} bit-equal alone and "
+              f"in 8, {r['repeat_bit_equal']} bit-equal over two runs alone"
+              + (f"; differ: {', '.join(r['differ'][:12])}; the first: "
+                 f"{r['first']}" if r["differ"] else "") + f" ({smi})")
     return res
 
 
@@ -4226,6 +4464,7 @@ def serve_generate(smi: str) -> dict:
     """GPT-2 small behind POST /generate, then the continuous batcher
     under continuous and static admission against per-sequence
     session.generate."""
+    from flexflow_tpu_torch.executor import DECODE_ROW_CHUNK
     from flexflow_tpu_torch.serving import ModelRepository, serve_http
     ff, g, sess = gpt2_session()
     vocab = g.vocab_size
@@ -4309,11 +4548,9 @@ def serve_generate(smi: str) -> dict:
               f"evictions, flash launches {launches} (= {LAYERS} x "
               f"iterations), {toks} tokens in {wall:.3f} s = "
               f"{toks / wall:.1f} tokens/s; {equal}/{CB_SEQS} rows "
-              f"bit-identical to session.generate(row[None]), the others "
-              f"part at a score gap <= {gap:.3e} of the row's range (tol "
-              f"{GEN_TOL:.0e}) ({smi})")
-        check(gap <= GEN_TOL, f"{admission}: a row parted from "
-                              f"session.generate beyond a near tie")
+              f"bit-identical to session.generate(row[None]) (want all), "
+              f"the others part at a score gap <= {gap:.3e} of the row's "
+              f"range ({smi})")
         if admission == "continuous":
             probe_rows = (a, b)
         res[admission] = {"iterations": st["iterations"],
@@ -4321,8 +4558,17 @@ def serve_generate(smi: str) -> dict:
                           "launches": launches, "tokens": toks,
                           "wall_s": wall, "tokens_per_s": toks / wall,
                           "equal_rows": equal, "worst_gap": gap}
-    res["row_probe"] = row_probe(ff, *probe_rows, plens, plens + budgets,
-                                 smi)
+    res["row_probe"] = p = row_probe(ff, *probe_rows, plens,
+                                     plens + budgets, smi)
+    check(p["kv"]["bit_equal"], "the KV decode step's logits differ "
+                                "between the oracle's and the batcher's way")
+    r = p["products"][DECODE_ROW_CHUNK]
+    check(r["bit_equal"] == r["products"], f"decode-step products differ "
+                                           f"alone and in 8: {r['differ']}")
+    for admission in ("continuous", "static"):
+        equal = res[admission]["equal_rows"]
+        check(equal == CB_SEQS, f"{admission}: {CB_SEQS - equal} rows "
+                                f"parted from session.generate(row[None])")
     res["session"] = (ff, g, sess)
     return res
 
@@ -4626,10 +4872,12 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # sentence; bf16 at d 192 ... 512 runs the wide wgmma kernel
         "nmt_b64_h1_s128_d512": dict(kt["fwd_nmt"]),
         "wide_bf16_kernel": "flash_fwd_wgmma_wide_kernel (d 192-512)",
-        # the Transformer's attention (zoo phase), d 8 padded to 64; the
-        # zoo's train launches (6 a step for the Transformer, 1 for NMT)
-        # and the Transformer's served forwards
+        # the Transformer's attention (zoo phase), d 8 unpadded through
+        # the narrow kernel; the zoo's train launches (6 a step for the
+        # Transformer, 1 for NMT) and the Transformer's served forwards
         "transformer_b64_h8_s512_d8": dict(kt["fwd_transformer"]),
+        "narrow_bf16_kernel": "flash_fwd_wgmma_narrow_kernel (bf16, d 8, "
+                              "16, 24, 32 unpadded; DP 16 or 32)",
         "zoo_train_launches": {t: n["flash_attention_fwd"]
                                for t, n in zoo_launches.items()},
         "zoo_serve_launches": zoo["transformer"]["serve_launches"],

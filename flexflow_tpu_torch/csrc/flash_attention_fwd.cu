@@ -44,6 +44,11 @@
 //   warps, plain FMA loops, because the tensor cores would round f32
 //   operands to TF32.
 //
+//   bf16 at d = 8, 16, 24 and 32 (the wrapper rounds d up to a multiple of
+//   8 below 32) - flash_fwd_wgmma_narrow_kernel below: the same parts on
+//   the unpadded tensors, boxes of 16 or 32 columns in the 32- or 64-byte
+//   swizzle whose loads zero-fill the columns past d; its header says why.
+//
 //   bf16 at d = 192 ... 512 (every multiple of 64; the wrapper pads any d
 //   from 129 up) - flash_fwd_wgmma_wide_kernel below, built from the same
 //   parts: a CTA of two warpgroups owns a block of query rows and all D
@@ -713,6 +718,291 @@ cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at d <= 32: the narrow wgmma kernel
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel _fwd_kernel (flexflow_tpu/kernels/
+// flash_attention.py:110) at head dims up to 32 in bf16 (the Transformer's
+// heads of d = 8), as the d <= 128 kernel above does at 64 and 128. The
+// reference pads d to 64; run so, the d = 64 kernel spends 8x the tensor
+// work and 8x the K/V bytes on zero columns at d = 8, after three host
+// pads. Bound at b64 h8 s512 d8: 17.8 MB of q, k, v, o and lse (5.3 us
+// at 3.35 TB/s) and 0.5 GFLOP, but 134 M exponentials, one MUFU ex2 each
+// at 16 per SM per clock (~34 us at 1.98 GHz), with an FFMA, an FADD, an
+// FMNMX and half a conversion to bf16 beside each on the FP32 pipes: the
+// softmax is the work, not the products or the bytes.
+//
+// Design. The tensor maps cover the true (bh, s, d) tensors with boxes of
+// DP = d rounded up to 16 or 32 columns, rows of 32 or 64 bytes in the 32-
+// or 64-byte swizzle: a load zero-fills the columns past d in shared
+// memory and the store of o clips them, so nothing is padded on the host.
+// S = Q . K^T is one (DP = 16) or two (DP = 32) k16 wgmma steps per 64
+// keys, both operands K-major; P, rounded to bf16 in registers, is the A
+// operand of O += P . V, m64nDPk16 with V MN-major. A CTA is one
+// warpgroup of 64 query rows over K/V tiles of 64 keys, which come by TMA
+// through rings of two stages, K released once its S is done and V once
+// its P . V is (the wide kernel's ring); the warpgroup issues the next
+// tile's S before this tile's softmax, so the tensor cores and the loads
+// run under the exponentials, and four CTAs share an SM (at most 128
+// registers a thread), so one CTA's exponentials run while another waits.
+// On the H100 at b64 h8 s512 d8 that beat two warpgroups sharing each K/V
+// tile, key tiles of 128 and deeper rings (PERF.md sec. 6): a K/V tile is
+// 2 KB at d = 8, so sharing it saves little, and what counts is enough
+// warps in flight to keep the special-function units busy. Mask, dropout
+// bits (keep_bits), the base-2 softmax and the epilogue are the other
+// bf16 kernels'.
+template <int DP>
+struct NarrowTiles {
+  static_assert(DP == 16 || DP == 32, "16 or 32 columns");
+  static constexpr int BM = WG_ROWS;    // query rows per CTA
+  static constexpr int BN = 64;         // keys per K/V tile
+  static constexpr int NB = BN / 8;     // 8-column blocks of S
+  static constexpr int ROW = DP * 2;    // bytes of a tile row
+  static constexpr int ATOM = 8 * ROW;  // an 8-row swizzle atom
+  static constexpr uint32_t MODE = DP == 16 ? 3 : 2;  // 32- or 64-byte
+  static constexpr int Q_BYTES = BM * ROW;
+  static constexpr int KV_BYTES = BN * ROW;
+  // Q, then rings of two stages (the tile in use, the one in flight) for
+  // K and for V
+  static constexpr size_t SMEM = SW_ATOM + Q_BYTES + 4 * KV_BYTES;
+};
+
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(WG_THREADS, 4)
+    flash_fwd_wgmma_narrow_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  const __grid_constant__ CUtensorMap tm_o,
+                                  float* __restrict__ lse, int sq, int sk,
+                                  float sm_scale, int causal,
+                                  uint32_t threshold, float keep_prob,
+                                  uint32_t seed) {
+  using Tl = NarrowTiles<DP>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  constexpr int ROW = Tl::ROW, ATOM = Tl::ATOM;
+  extern __shared__ unsigned char smem[];
+  const uint32_t sQ = (smem_u32(smem) + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sKs = sQ + Tl::Q_BYTES;        // K ring
+  const uint32_t sVs = sKs + 2 * Tl::KV_BYTES;  // V ring
+  // per stage: the K tile (and, first, Q) landed; the V tile landed
+  __shared__ __align__(8) uint64_t k_full[2], v_full[2];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int row_w = m0 + warp * 16;  // this warp's first row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a tile is live iff its first key is visible to the last row
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+
+  auto k_stage = [&](int t) { return sKs + (t & 1) * Tl::KV_BYTES; };
+  auto v_stage = [&](int t) { return sVs + (t & 1) * Tl::KV_BYTES; };
+  auto k_bar = [&](int t) { return smem_u32(&k_full[t & 1]); };
+  auto v_bar = [&](int t) { return smem_u32(&v_full[t & 1]); };
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_k = [&](int t, int extra_bytes) {  // by thread 0
+    mbar_expect_tx(k_bar(t), Tl::KV_BYTES + extra_bytes);
+    tma_load_3d(k_stage(t), map_k, k_bar(t), 0, t * BN, bh);
+  };
+  auto load_v = [&](int t) {  // by thread 0
+    mbar_expect_tx(v_bar(t), Tl::KV_BYTES);
+    tma_load_3d(v_stage(t), map_v, v_bar(t), 0, t * BN, bh);
+  };
+  // S of tile t, one commit group: DP / 16 steps of m64n64k16
+  auto issue_s = [&](int t, float (&s)[NB][4]) {
+    const uint32_t sK = k_stage(t);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc)
+      wgmma_ss_m64n64k16(acc_block(s, 0),
+                         desc_sw(sQ + kc * 32, 16, ATOM, Tl::MODE),
+                         desc_sw(sK + kc * 32, 16, ATOM, Tl::MODE), kc > 0);
+    wgmma_commit();
+  };
+
+  // The ring (the wide kernel's): K tile t is released once S(t) is done,
+  // V tile t once P.V(t) is, so the barrier that ends iteration t starts
+  // the copies of K tile t + 3 and V tile t + 2. First: Q with K tile 0, V
+  // tile 0, K and V tile 1.
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(k_bar(st), 1);
+      mbar_init(v_bar(st), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_k(0, Tl::Q_BYTES);  // Q joins K tile 0's phase
+    tma_load_3d(sQ, &tm_q, k_bar(0), 0, m0, bh);
+    load_v(0);
+    if (n_tiles > 1) {
+      load_k(1, 0);
+      load_v(1);
+    }
+  }
+
+  float acc[DP / 8][4];  // the 64 x DP of o
+#pragma unroll
+  for (int dt = 0; dt < DP / 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m_i[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // base 2
+  float l_i[2] = {0.f, 0.f};  // this thread's partial row sums
+
+  float s[NB][4];
+  mbar_wait(k_bar(0), 0);  // K tile 0 and Q have landed
+  issue_s(0, s);
+  wgmma_wait<0>();
+  fence_acc(s);
+  __syncthreads();  // every warp's S(0) is done: K tile 0 is free
+  if (tid == 0 && n_tiles > 2) load_k(2, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = t * BN;
+    const bool more = t + 1 < n_tiles;
+    float s_next[NB][4];
+    if (more) {
+      mbar_wait(k_bar(t + 1), ((t + 1) >> 1) & 1);  // K tile t + 1 landed
+      issue_s(t + 1, s_next);
+    }
+    const uint32_t keep =  // the dropout mask of tile t
+        DROPOUT ? keep_bits(n0, qpos, tig, bh, seed, threshold) : 0u;
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
+    float alpha[2];
+    online_softmax<DROPOUT>(s, m_i, l_i, alpha, n0, edge, qpos, tig, sk,
+                            causal, scale_log2, keep, inv_keep);
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+    uint32_t pa[NB / 2][4];
+    to_a_frags(s, pa);  // p_eff rounded to bf16
+
+    // O += P . V: P in registers, V MN-major, 16 keys a step
+    const uint32_t sV = v_stage(t);
+    mbar_wait(v_bar(t), (t >> 1) & 1);  // V tile t has landed
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NB / 2; ++kc)
+      wgmma_rs_kk<DP / 8, 1>(
+          acc, pa[kc],
+          desc_sw(sV + kc * 16 * ROW, Tl::KV_BYTES, ATOM, Tl::MODE), 1);
+    wgmma_commit();
+    wgmma_wait<0>();  // S(t + 1) and P.V(t)
+    fence_regs_u32(pa);
+    fence_acc(acc);
+    if (more) fence_acc(s_next);
+    __syncthreads();  // every warp done with K tile t + 1 and V tile t
+    if (more) {
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[nt][c] = s_next[nt][c];
+    }
+    if (tid == 0) {
+      if (t + 3 < n_tiles) load_k(t + 3, 0);
+      if (t + 2 < n_tiles) load_v(t + 2);
+    }
+  }
+
+  // o = acc / l, staged in bf16 in Q's tile (no warp reads Q after the
+  // barrier that completes the last S) in the swizzled layout and stored
+  // by one TMA copy, which clips the rows past sq and the columns past d
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_safe = (l == 0.f) ? 1.f : l;
+    const float inv_l = 1.f / l_safe;
+    const int row = warp * 16 + g + 8 * r;  // in the tile
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      __nv_bfloat162 v2 = __floats2bfloat162_rn(acc[dt][2 * r] * inv_l,
+                                                acc[dt][2 * r + 1] * inv_l);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       sQ + sw_offset<ROW>(row, dt) + tig * 4),
+                   "r"(*reinterpret_cast<uint32_t*>(&v2))
+                   : "memory");
+    }
+    if (tig == 0 && qpos[r] < sq)
+      lse[(size_t)bh * sq + qpos[r]] = m_i[r] * LN2 + logf(l_safe);
+  }
+  fence_proxy_async();  // the staged tile, visible to the TMA store
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+            reinterpret_cast<uint64_t>(&tm_o)),
+        "r"(sQ), "r"(0), "r"(m0), "r"(bh)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    tma_store_wait();  // the CTA's shared memory outlives the copy
+  }
+}
+
+template <int DP, bool DROPOUT>
+cudaError_t launch_narrow_t(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int bh, int sq, int sk, int d,
+                            int causal, float sm_scale, uint32_t threshold,
+                            float keep_prob, uint32_t seed,
+                            cudaStream_t stream) {
+  using Tl = NarrowTiles<DP>;
+  auto kernel = flash_fwd_wgmma_narrow_kernel<DP, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  const CUtensorMapSwizzle swz =
+      DP == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if ((err = tensor_map_bf16(&tm_q, q, bh, sq, d, Tl::BM, DP, swz)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_k, k, bh, sk, d, Tl::BN, DP, swz)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_v, v, bh, sk, d, Tl::BN, DP, swz)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_o, o, bh, sq, d, Tl::BM, DP, swz)) !=
+          cudaSuccess)
+    return err;
+  dim3 grid;
+  if (!launch_grid((sq + Tl::BM - 1) / Tl::BM, bh, 1, causal,
+                   2LL * sk * d * sizeof(__nv_bfloat16), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, WG_THREADS, Tl::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), sq, sk, sm_scale,
+      causal, threshold, keep_prob, seed);
+  return cudaGetLastError();
+}
+
+// DP: d rounded up to 16 or 32 (d a multiple of 8, TMA's 16-byte rows)
+template <int DP>
+cudaError_t launch_narrow(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int bh, int sq, int sk, int d,
+                          int causal, float sm_scale, int use_dropout,
+                          uint32_t threshold, float keep_prob, uint32_t seed,
+                          cudaStream_t stream) {
+  return use_dropout
+             ? launch_narrow_t<DP, true>(
+                   q, k, v, o, lse, bh, sq, sk, d, causal, sm_scale,
+                   threshold, keep_prob, seed, stream)
+             : launch_narrow_t<DP, false>(
+                   q, k, v, o, lse, bh, sq, sk, d, causal, sm_scale,
+                   threshold, keep_prob, seed, stream);
+}
+
+// ---------------------------------------------------------------------------
 // f32: the exact FMA path
 // ---------------------------------------------------------------------------
 constexpr int BLOCK_M = TILE;  // query rows per CTA
@@ -1020,11 +1310,12 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 
 // q: (bh, sq, d), k/v: (bh, sk, d), o: (bh, sq, d), all contiguous in the
 // same type (dtype 0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
-// d is 64, 128 or any multiple of 64 above 128; bh any count whose grid
-// fits gridDim.x. bf16 at d <= 128 launches the wgmma kernel, bf16 at d =
-// 192 ... 512 the wide wgmma kernel, f32 at d <= 128 the FMA kernel, f32
-// above 128 and bf16 above 512 the wide FMA kernel. Returns a cudaError_t
-// (0 = launched).
+// d is 64, 128 or any multiple of 64 above 128, or in bf16 also 8, 16, 24
+// or 32; bh any count whose grid fits gridDim.x. bf16 at d = 64 and 128
+// launches the wgmma kernel, bf16 at d <= 32 the narrow wgmma kernel, bf16
+// at d = 192 ... 512 the wide wgmma kernel, f32 at d <= 128 the FMA
+// kernel, f32 above 128 and bf16 above 512 the wide FMA kernel. Returns a
+// cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
@@ -1032,7 +1323,7 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       int use_dropout, unsigned int threshold,
                                       float keep_prob, unsigned int seed,
                                       void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0)
+  if (bh <= 0 || sq <= 0 || sk <= 0 || head_dim <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool two_blocks =
@@ -1047,6 +1338,16 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                                 keep_prob, seed, st);
   if (dtype == 1 && head_dim == 64) FF_LAUNCH((launch_wgmma<64, 1, 4>));
   if (dtype == 1 && head_dim == 128) FF_LAUNCH((launch_wgmma<128, 1, 2>));
+  // bf16 at d = 8, 16, 24 and 32: the narrow kernel, d unpadded
+#define FF_LAUNCH_NARROW(DP)                                               \
+  return (int)launch_narrow<DP>(                                           \
+      q, k, v, o, lse, bh, sq, sk, head_dim, causal, sm_scale, use_dropout, \
+      threshold, keep_prob, seed, st)
+  if (dtype == 1 && head_dim % 8 == 0 && head_dim <= 16)
+    FF_LAUNCH_NARROW(16);
+  if (dtype == 1 && head_dim % 8 == 0 && head_dim <= 32)
+    FF_LAUNCH_NARROW(32);
+#undef FF_LAUNCH_NARROW
   if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<64>));
   if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<128>));
   // bf16 at d = 192 ... 512: the wide wgmma kernel, d compiled in

@@ -19,9 +19,14 @@
 //     contiguous 128 bytes run along the product's K dimension) or
 //     MN-major (they run along M or N: the transpose bit), so one staged
 //     tile serves as either operand without a transpose in shared memory;
+//   - the narrow tiles of the d <= 32 forward: rows of 32 or 64 bytes
+//     (16 or 32 bf16 columns) in the 32- or 64-byte swizzle, whose 16-byte
+//     chunk c of row r sits at r * ROW + (c ^ ((r * ROW / 128) % (ROW /
+//     16))) * 16 (sw_offset; the 128-byte layout is its ROW = 128 case),
+//     and their descriptors (desc_sw, the mode and the 8-row atom given);
 //   - wgmma.mma_async m64n64k16, m64n32k16 and m64n16k16 (bf16 in, f32
-//     accumulate) with both operands in shared memory, and m64n64k16 with
-//     A in registers. The accumulator
+//     accumulate) with both operands in shared memory, and the same three
+//     widths with A in registers. The accumulator
 //     of a warpgroup's 64 x 64 product is the mma.sync m16n8k16 C layout
 //     repeated every 8 columns: warp w owns rows 16w..16w+15, and
 //     d[4j + c] is row g + 8 * (c >> 1), column 8j + 2 * tig + (c & 1)
@@ -88,6 +93,17 @@ __device__ __forceinline__ void cp_async_wait() {
 // proxy); a barrier after it publishes them to the other threads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of (row r, 16-byte chunk c) in a tile of ROW-byte rows
+// (32, 64 or 128) in the ROW-byte swizzle: chunk bits [4, 4 + log2(ROW /
+// 16)) of the offset XORed with the bits from 7 up, as TMA and wgmma
+// apply it (the tile starts on a 1024-byte boundary).
+template <int ROW>
+__device__ __forceinline__ uint32_t sw_offset(int r, int c) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "a swizzle span");
+  const uint32_t o = r * ROW + c * 16;
+  return o ^ (((o >> 7) & (ROW / 16 - 1)) << 4);
 }
 
 // Byte offset of (row r, 16-byte chunk c) in a swizzled ROWS x D tile.
@@ -224,11 +240,15 @@ typedef CUresult (*TensorMapEncodeTiled)(
     CUtensorMapFloatOOBfill);
 
 // The tensor map of a contiguous (bh, rows, d) bf16 tensor as TMA boxes
-// of box_rows x 64 in the 128-byte swizzle, zeros past every edge. A host
-// call per launch, since the pointer changes; cuTensorMapEncodeTiled is
-// looked up once through the runtime.
-inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, int bh,
-                                   int rows, int d, int box_rows) {
+// of box_rows x box_cols, by default 64 columns in the 128-byte swizzle
+// (the narrow forward: 16 or 32 in the 32- or 64-byte one), zeros past
+// every edge, the columns past d too (a load fills them, a store clips
+// them). A host call per launch, since the pointer changes;
+// cuTensorMapEncodeTiled is looked up once through the runtime.
+inline cudaError_t tensor_map_bf16(
+    CUtensorMap* map, const void* ptr, int bh, int rows, int d, int box_rows,
+    int box_cols = 64,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static TensorMapEncodeTiled encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -244,12 +264,13 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, int bh,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows,
+                              1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -262,11 +283,21 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, int bh,
 // lbo_bytes is the leading byte offset (for an MN-major operand the
 // distance between 64-element column blocks; unused by the m64n64k16
 // products here, which never span two blocks).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
-                                               uint32_t lbo_bytes) {
+// The general form: mode 1 is the 128-byte swizzle, 2 the 64-byte and 3
+// the 32-byte one; sbo_bytes the distance between 8-row groups (8 rows
+// of the swizzle span).
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo_bytes,
+                                            uint32_t sbo_bytes,
+                                            uint32_t mode) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(SW_ATOM >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) |
+         ((uint64_t)mode << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo_bytes) {
+  return desc_sw(addr, lbo_bytes, SW_ATOM, 1);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -348,6 +379,43 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
 #define FF_D16_LIST                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
+// As wgmma_rs_m64n64k16, 32 and 16 columns wide (the narrow forward's
+// O += P . V).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FF_D16_LIST
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : FF_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n"
+      "}\n"
+      : FF_D4(0), FF_D4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
 // As wgmma_ss_m64n64k16, 32 columns wide.
 __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
                                                    uint64_t desc_a,
@@ -410,6 +478,21 @@ __device__ __forceinline__ void wgmma_ss_kk(float (&s)[NB][4],
                        desc_b, accumulate);
   else
     wgmma_ss_m64n64k16(acc_block(s, 0), desc_a, desc_b, accumulate);
+}
+
+// d (64 x 8NB, f32) += A . B over one 16-deep slice, A in registers: one
+// m64n16 (NB = 2) or m64n32 (NB = 4) product (the narrow forward's P.V).
+template <int NB, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_kk(float (&d)[NB][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {
+  static_assert(NB == 2 || NB == 4, "16 or 32 columns");
+  if constexpr (NB == 2)
+    wgmma_rs_m64n16k16<TRANS_B>(*reinterpret_cast<float(*)[8]>(&d[0][0]), a,
+                                desc_b, accumulate);
+  else
+    wgmma_rs_m64n32k16<TRANS_B>(*reinterpret_cast<float(*)[16]>(&d[0][0]),
+                                a, desc_b, accumulate);
 }
 
 template <int NB>

@@ -32,10 +32,17 @@ from .dtypes import to_torch
 from .ffconst import LossType, MetricsType, OperatorType
 from .obs import events as obs_events
 from .ops import EmitCtx, LayerRng, ensure_weight_specs, get_op_def
+from .ops.registry import pad_rows
 from .runtime import losses as losses_mod
 from .runtime import metrics as metrics_mod
 from .runtime.initializers import initialize
 from .runtime.optimizers import Optimizer, tree_leaves
+
+
+# rows of every product and norm of a KV decode step: one GEMM tile.
+# Padding 1 ... 8 rows to it costs the device little, since each weight
+# is read once whatever the row count (PERF.md sec. 6).
+DECODE_ROW_CHUNK = 64
 
 
 def _trace_sync_on() -> bool:
@@ -582,6 +589,8 @@ class Executor:
                       config=self.config)
         self._attach_kernel_ctx(ctx)
         ctx.kv_mode = mode
+        if mode == "decode":
+            ctx.row_chunk = DECODE_ROW_CHUNK
         return ctx
 
     def scored_forward(self, params, state, batch):
@@ -633,14 +642,34 @@ class Executor:
         under ``torch.inference_mode()``. The attention layers write this
         position's K/V into ``cache``'s buffers in place. Returns
         (scores_row (B, V), new_cache); cache layers that did not run
-        keep their buffers."""
+        keep their buffers.
+
+        The step pads its inputs once with zero rows to a multiple of
+        ``EmitCtx.row_chunk`` (``DECODE_ROW_CHUNK``), and every product
+        and norm runs on blocks of that many rows, so a row's scores do
+        not depend on the rows that share its batch: the premise of the
+        continuous batcher's per-sequence contract. The attention layers
+        cut to the real rows around the cache; the graph's other ops work
+        row by row. A context with ``row_chunk`` 0 runs the batch's own
+        rows."""
         ctx = self._kv_ctx("decode", state)
         ctx.kv_cache = cache
         ctx.kv_index = index
         with torch.inference_mode():
-            outs, logits = self.program.emit(params, batch, ctx,
-                                             self.device, self._logits_guid())
+            env = self.program.init_env(batch, self.device)
+            rows = next(iter(cache.values()))["k"].shape[0]
+            if ctx.row_chunk:
+                ctx.kv_rows = rows
+                padded = -(-rows // ctx.row_chunk) * ctx.row_chunk
+                for t in self.program.input_tensors:
+                    x = env[t.guid]
+                    if t.name in batch and x.shape[0] == rows:
+                        env[t.guid] = pad_rows(x, padded)
+            logits = self.program.emit_layers(self.program.layers, env,
+                                              params, ctx,
+                                              self._logits_guid())
+            outs = [env[t.guid] for t in self.program.output_tensors]
             scores = self._scores(outs, logits)
         new_cache = dict(cache)
         new_cache.update(ctx.new_kv)
-        return scores[:, 0, :], new_cache
+        return scores[:rows, 0, :], new_cache

@@ -33,7 +33,10 @@ and ``lse = m``; the default ``sm_scale`` is ``1/sqrt(d)`` of the
 UNPADDED head dim, kept when the wrapper pads d up to a multiple of 64,
 as the reference pads it (so 48 runs at 64, 192 stays 192 and 300 runs
 at 320; the kernels take 64, 128 and any multiple of 64 above 128, with
-no upper limit). Every kernel carries b*h on the grid's x
+no upper limit). The bf16 forward at d <= 32 pads only to a multiple of
+8 and runs the narrow kernel, whose tensor maps zero-fill the columns up
+to 16 or 32 in shared memory; its backward pads to 64 inside the
+autograd Function. Every kernel carries b*h on the grid's x
 dimension, so b*h has no limit of its own. The backward rebuilds the
 keep mask from the same tuple, rounds ds to k's (q's) dtype before dS.K
 (dS^T.Q) and p_eff to do's dtype before P^T.dO, as ``_flash_bwd_rule``
@@ -254,19 +257,37 @@ def _dropout_args(dropout_rate: float, seed: int):
             float(1.0 - dropout_rate), seed)
 
 
-def _kernel_inputs(*ts) -> None:
+def _narrow(d: int, dtype) -> bool:
+    """Whether the forward takes head dim ``d`` unpadded: bf16 at 8, 16,
+    24 and 32 runs the narrow kernel (TMA needs rows of a multiple of 16
+    bytes)."""
+    return dtype == torch.bfloat16 and d <= 32 and d % 8 == 0
+
+
+def _fwd_head_dim(d: int, dtype) -> int:
+    """The head dim the forward kernels take for ``d``: bf16 up to 32
+    rounded up to a multiple of 8 (the narrow kernel), else to a
+    multiple of 64."""
+    if dtype == torch.bfloat16 and d <= 32:
+        return -(-d // 8) * 8
+    return -(-d // 64) * 64
+
+
+def _kernel_inputs(*ts, narrow: bool = False) -> None:
     """What every kernel takes: cuda tensors of one dtype, contiguous,
     16-byte aligned, head dim a positive multiple of 64 (64 and 128 run
     the tensor-core or exact kernels, any wider one the wide kernels:
-    bf16 at 192 ... 512 the wide tensor-core forward, dq and dk/dv)."""
+    bf16 at 192 ... 512 the wide tensor-core forward, dq and dk/dv) or,
+    for the forward (``narrow``), bf16 at 8, 16, 24 or 32."""
     t0 = ts[0]
     if t0.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda tensors, not "
                          f"{t0.device}")
     d = t0.shape[-1]
-    if d <= 0 or d % 64:
+    if d <= 0 or (d % 64 and not (narrow and _narrow(d, t0.dtype))):
         raise ValueError(f"the kernels take a head dim that is a multiple "
-                         f"of 64, got {d}")
+                         f"of 64 (the bf16 forward also 8, 16, 24 and "
+                         f"32), got {d} in {t0.dtype}")
     for t in ts:
         if t.dtype != t0.dtype or t.device != t0.device \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -283,7 +304,7 @@ def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
                                      sm_scale=sm_scale,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=seed)
-    _kernel_inputs(q, k, v)
+    _kernel_inputs(q, k, v, narrow=True)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
@@ -372,7 +393,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
 class _FlashAttention(torch.autograd.Function):
     """The counterpart of the JAX ``custom_vjp``: the forward kernel
     saves (q, k, v, o, lse, seed); the backward takes delta in f32 and
-    launches the dq and dk/dv kernels."""
+    launches the dq and dk/dv kernels, which take the head dim padded to
+    a multiple of 64: on the card a narrow forward's q, k, v and dO are
+    padded here (zero columns change no score and give zero gradient
+    columns) and the gradients sliced back."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, dropout_rate, seed):
@@ -388,8 +412,15 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
+        d = q.shape[-1]
+        # the plain backward on the CPU takes any d
+        d_b = -(-d // 64) * 64 if q.device.type == "cuda" else d
+        if d_b != d:
+            q, k, v, do = (F.pad(t, (0, d_b - d)) for t in (q, k, v, do))
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
+        if d_b != d:
+            dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
         return dq, dk, dv, None, None, None, None
 
 
@@ -401,8 +432,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (b, h, sk, d), all contiguous, one dtype (float32 or bfloat16), one
     device.
 
-    CUDA tensors launch ``csrc/flash_attention_fwd.cu`` and count one
-    launch in ``flash_attention.launches`` (the backward's kernels count
+    CUDA tensors launch ``csrc/flash_attention_fwd.cu`` (bf16 at d = 8,
+    16, 24 and 32 the narrow kernel on the unpadded tensors; other head
+    dims padded to a multiple of 64) and count one launch in
+    ``flash_attention.launches`` (the backward's kernels count
     in ``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain
     versions and count in ``.plain_calls``. Returns o (b, h, sq, d) in
@@ -439,7 +472,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     seed = 0 if dropout_seed is None else int(dropout_seed) & _M32
     d_k = d
     if q.device.type == "cuda":
-        d_k = -(-d // 64) * 64
+        d_k = _fwd_head_dim(d, q.dtype)
         if d_k != d:
             # zero columns change no score and give zero output columns;
             # padding outside the Function lets autograd slice the

@@ -22,7 +22,8 @@ from ..ffconst import ActiMode, AggrMode, DataType, InitializerType, \
 from ..core.tensor import WeightSpec
 from ..dtypes import to_torch
 from .registry import (OpDef, bf16_enabled, compute_dtype, generator_on,
-                       host_seed, matmul, mm_f32, register)
+                       host_seed, matmul, mm_f32, pad_rows, register,
+                       rows_chunked)
 
 
 def apply_activation(x, acti: ActiMode):
@@ -319,15 +320,26 @@ class LayerNormOp(OpDef):
         ndim = x.dim()
         axes = tuple(a % ndim for a in params.get("axes", [ndim - 1]))
         eps = params.get("eps", 1e-5)
-        xf = x.float()
-        mean = xf.mean(dim=axes, keepdim=True)
-        var = xf.var(dim=axes, correction=0, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + eps)
-        if "scale" in weights:
-            bshape = [x.shape[a] if a in axes else 1 for a in range(ndim)]
-            y = y * weights["scale"].float().reshape(bshape) \
-                + weights["bias"].float().reshape(bshape)
-        return [y.to(x.dtype)]
+
+        def norm(t, ax):
+            tf = t.float()
+            mean = tf.mean(dim=ax, keepdim=True)
+            var = tf.var(dim=ax, correction=0, keepdim=True)
+            y = (tf - mean) * torch.rsqrt(var + eps)
+            if "scale" in weights:
+                bshape = [t.shape[a] if a in ax else 1
+                          for a in range(t.dim())]
+                y = y * weights["scale"].float().reshape(bshape) \
+                    + weights["bias"].float().reshape(bshape)
+            return y.to(t.dtype)
+
+        k, chunk = len(axes), getattr(ctx, "row_chunk", 0)
+        if chunk and axes == tuple(range(ndim - k, ndim)):
+            # the decode step: row by row at a fixed shape
+            return [rows_chunked(
+                lambda t: norm(t, tuple(range(t.dim() - k, t.dim()))),
+                x, chunk, k)]
+        return [norm(x, axes)]
 
 
 # ---------------------------------------------------------------------------
@@ -347,10 +359,17 @@ class RMSNormOp(OpDef):
     def emit(self, params, inputs, weights, ctx, name):
         (x,) = inputs
         eps = params.get("eps", 1e-6)
-        xf = x.float()
-        ms = (xf * xf).mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * weights["scale"].float()
-        return [y.to(x.dtype)]
+
+        def norm(t):
+            tf = t.float()
+            ms = (tf * tf).mean(dim=-1, keepdim=True)
+            return (tf * torch.rsqrt(ms + eps)
+                    * weights["scale"].float()).to(t.dtype)
+
+        chunk = getattr(ctx, "row_chunk", 0)
+        if chunk:   # the decode step: row by row at a fixed shape
+            return [rows_chunked(norm, x, chunk)]
+        return [norm(x)]
 
 
 # ---------------------------------------------------------------------------
@@ -485,12 +504,12 @@ class MultiHeadAttentionOp(OpDef):
         return torch.repeat_interleave(x, h // kvh, dim=2)
 
     @staticmethod
-    def _out_proj(ctxv, weights, mdt, cdt):
+    def _out_proj(ctxv, weights, mdt, cdt, ctx):
         """(B, L, h, d) f32 attention context -> (B, L, E) output."""
         bsz, lq, h, d = ctxv.shape
         wo = weights["wo"]
         out = mm_f32(ctxv.to(mdt).reshape(bsz, lq, h * d),
-                     wo.to(mdt).reshape(h * d, wo.shape[2]))
+                     wo.to(mdt).reshape(h * d, wo.shape[2]), ctx)
         if "bo" in weights:
             out = out + weights["bo"].float()
         return [out.to(cdt)]
@@ -525,7 +544,7 @@ class MultiHeadAttentionOp(OpDef):
 
         def proj(x, w, b):
             bsz, length, e = x.shape
-            y = mm_f32(x.to(mdt), w.to(mdt).reshape(e, -1))
+            y = mm_f32(x.to(mdt), w.to(mdt).reshape(e, -1), ctx)
             y = y.reshape(bsz, length, w.shape[1], w.shape[2])
             if b is not None:
                 y = y + b.float()
@@ -534,6 +553,10 @@ class MultiHeadAttentionOp(OpDef):
         qh = proj(q, weights["wq"], weights.get("bq"))
         kh = proj(k, weights["wk"], weights.get("bk"))
         vh = proj(v, weights["wv"], weights.get("bv"))
+        if ctx.kv_mode == "decode" and 0 < ctx.kv_rows < qh.shape[0]:
+            # the decode step's stream carries padding rows up to the row
+            # chunk; the cache and its index hold the real rows
+            qh, kh, vh = (t[:ctx.kv_rows] for t in (qh, kh, vh))
         rate = params.get("dropout", 0.0) if ctx.training else 0.0
         causal = params.get("causal", False)
         window = params.get("sliding_window", 0)
@@ -563,7 +586,7 @@ class MultiHeadAttentionOp(OpDef):
             ctx.new_kv[name] = self._prefill_cache(params, ctx, kh, vh)
         elif ctx.kv_mode == "decode":
             return self._emit_decode(params, weights, ctx, name, qh, kh, vh,
-                                     mdt, cdt)
+                                     mdt, cdt, q.shape[0])
         kh = self._expand_kv(kh, qh.shape[2])
         vh = self._expand_kv(vh, qh.shape[2])
         bsz, lq, h, d = qh.shape
@@ -616,15 +639,17 @@ class MultiHeadAttentionOp(OpDef):
             vb = vh.to(mdt).permute(0, 2, 1, 3).reshape(bsz * h, lk, d)
             ctxv = mm_f32(probs.to(mdt).reshape(bsz * h, lq, lk), vb)
             ctxv = ctxv.reshape(bsz, h, lq, d).transpose(1, 2)
-        return self._out_proj(ctxv, weights, mdt, cdt)
+        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
 
     def _emit_decode(self, params, weights, ctx, name, qh, kh, vh, mdt,
-                     cdt):
+                     cdt, stream_rows):
         """One-token decode against the KV cache: write this position's
         K/V into the layer's cache buffers (in place), then attend the
         length-1 query over the positions <= kv_index. The same mask and
         softmax domain as the full re-forward's row at kv_index, the
-        numerics oracle of the generation tests."""
+        numerics oracle of the generation tests. The output has
+        ``stream_rows`` rows, the input's (the cache's real rows padded by
+        ``kv_decode_step``)."""
         if not params.get("causal", False):
             raise ValueError(
                 "KV-cache decode requires causal self-attention")
@@ -661,7 +686,7 @@ class MultiHeadAttentionOp(OpDef):
         g = hq // kvh
         qg = qh.to(mdt).reshape(b_, kvh, g, d_).reshape(b_ * kvh, g, d_)
         kt = k_full.to(mdt).permute(0, 2, 3, 1).reshape(b_ * kvh, d_, m)
-        logits = mm_f32(qg, kt).reshape(b_, kvh, g, m) \
+        logits = mm_f32(qg, kt, ctx).reshape(b_, kvh, g, m) \
             * (1.0 / math.sqrt(d_))
         window = params.get("sliding_window", 0)
         if ring:
@@ -678,9 +703,9 @@ class MultiHeadAttentionOp(OpDef):
         logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
         probs = torch.softmax(logits, dim=-1)
         vb = v_full.to(mdt).permute(0, 2, 1, 3).reshape(b_ * kvh, m, d_)
-        ctxv = mm_f32(probs.to(mdt).reshape(b_ * kvh, g, m), vb)
-        return self._out_proj(ctxv.reshape(b_, lq_, hq, d_), weights, mdt,
-                              cdt)
+        ctxv = mm_f32(probs.to(mdt).reshape(b_ * kvh, g, m), vb, ctx)
+        ctxv = pad_rows(ctxv.reshape(b_, lq_, hq, d_), stream_rows)
+        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
 
     def flops(self, params, in_shapes, out_shapes):
         b, lq, _ = in_shapes[0]

@@ -10,10 +10,12 @@ type registers an ``OpDef`` with
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ffconst import DataType, OperatorType
 from ..core.tensor import WeightSpec
@@ -82,6 +84,20 @@ class EmitCtx:
         # the adopted per-op kernel impls (kernels/registry.py), threaded
         # in by the executor; None/empty = default impls
         self.kernel_impls: Optional[Dict[str, str]] = None
+        # row_chunk > 0 (the KV decode step): every product of mm_f32
+        # and every norm runs on blocks of exactly row_chunk rows (batch
+        # entries of a batched product), so a row meets the same GEMM and
+        # reduction shapes and kernels whatever number of rows shares the
+        # batch. The step pads its inputs once to a multiple of the chunk
+        # (Executor.kv_decode_step), so its stream of rows already comes
+        # in such blocks; kv_rows counts the real rows, the rows of the
+        # cache, which the attention layers cut to around the cache.
+        # product_log, when a list, receives each mm_f32 product: its
+        # operands, the shapes issued and the output (how a probe sees
+        # every product).
+        self.row_chunk: int = 0
+        self.kv_rows: int = 0
+        self.product_log: Optional[List[Dict[str, Any]]] = None
 
     def rng_for(self, name: str):
         return self.rngs.get(name)
@@ -194,7 +210,84 @@ class _MmF32(torch.autograd.Function):
         return da, db
 
 
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MmF32.apply(a, b)
+    # the same forward without the Function's host cost, which the
+    # host-bound serving and decode paths pay per product
+    return _mm_f32_forward(a, b)
+
+
+def _rows(x: torch.Tensor, keep: int) -> int:
+    """The rows of ``x`` with its last ``keep`` dims kept."""
+    return math.prod(x.shape[:x.dim() - keep])
+
+
+def _row_blocks(x: torch.Tensor, chunk: int, keep: int):
+    """``x`` as blocks of exactly ``chunk`` rows, aligned slices of one
+    padded copy: its last ``keep`` dims kept, the others flattened into
+    rows. The padding rows are left as the allocator gives them (one copy
+    kernel, no fill): every caller computes row by row, so no real row
+    reads them, and their outputs are cut off. Returns the blocks and the
+    count of real rows."""
+    tail = x.shape[x.dim() - keep:]
+    x2 = x if x.dim() == keep + 1 else x.reshape(-1, *tail)
+    n = x2.shape[0]
+    pad = -n % chunk
+    if pad:
+        buf = x2.new_empty((n + pad, *tail))
+        buf[:n].copy_(x2)
+        x2 = buf
+    return (x2,) if n + pad == chunk else x2.split(chunk), n
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended on dim 0 up to ``rows`` (one call:
+    the KV decode step pads its inputs and its attention context to the
+    row chunk)."""
+    pad = rows - x.shape[0]
+    return F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)) if pad else x
+
+
+def rows_chunked(fn, x: torch.Tensor, chunk: int, keep: int = 1):
+    """``fn(x)`` for an ``fn`` that works row by row over the last
+    ``keep`` dims of ``x`` (a norm), run on blocks of exactly ``chunk``
+    rows (:func:`_row_blocks`): a reduction kernel, like a GEMM, picks its
+    order of summation by shape, so a row alone and the same row among
+    eight would otherwise be summed in another order. The decode step's
+    padded stream is one such block already and costs nothing more."""
+    if _rows(x, keep) == chunk:
+        return fn(x)
+    blocks, n = _row_blocks(x, chunk, keep)
+    out = _cat([fn(blk) for blk in blocks])[:n]
+    return out.reshape(*x.shape[:x.dim() - keep], *out.shape[1:])
+
+
+def _mm_chunked(a: torch.Tensor, b: torch.Tensor, chunk: int):
+    """``_mm(a, b)`` as products of exactly ``chunk`` rows of ``a`` (2-D
+    ``b``) or ``chunk`` batch entries of both (3-D ``b``). Returns the
+    output and the operand pairs issued."""
+    if _rows(a, 2 if b.dim() == 3 else 1) == chunk:
+        return _mm(a, b), [(a, b)]
+    if b.dim() == 3:                      # (B, m, k) @ (B, k, n)
+        blocks_a, n = _row_blocks(a, chunk, 2)
+        parts = list(zip(blocks_a, _row_blocks(b, chunk, 2)[0]))
+    else:                                 # (..., k) @ (k, n)
+        blocks_a, n = _row_blocks(a, chunk, 1)
+        parts = [(x, b) for x in blocks_a]
+    out = _cat([_mm(x, y) for x, y in parts])[:n]
+    if b.dim() != 3:
+        out = out.reshape(*a.shape[:-1], b.shape[-1])
+    return out, parts
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor, ctx=None) -> torch.Tensor:
     """``a @ b`` for bf16 operands with an f32 result, like JAX's
     ``preferred_element_type=jnp.float32``. ``a`` is (..., k), ``b`` is
     (k, n) or, batched, (B, k, n) against ``a`` (B, m, k).
@@ -205,29 +298,47 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     operands are widened: a product of two bf16 values is exact in f32,
     so this computes the same function. The gradient follows the JAX
     package's rule (:class:`_MmF32`) on both. f32 operands take a plain
-    f32 product."""
-    if a.dtype == torch.float32:
-        return torch.matmul(a, b)
-    return _MmF32.apply(a, b)
+    f32 product.
+
+    A ``ctx`` with ``row_chunk`` set (the KV decode step) runs the
+    product on blocks of that many rows (:func:`_mm_chunked`): cuBLAS
+    picks its kernel, and so its order of summation, by shape, so a row
+    of a one-row batch and the same row among eight would otherwise meet
+    different kernels."""
+    chunk = getattr(ctx, "row_chunk", 0)
+    if chunk:
+        out, parts = _mm_chunked(a, b, chunk)
+    else:
+        out, parts = _mm(a, b), [(a, b)]
+    log = getattr(ctx, "product_log", None)
+    if log is not None:
+        log.append({"issued": [(tuple(x.shape), tuple(y.shape))
+                               for x, y in parts],
+                    "out": out, "a": a, "b": b})
+    return out
 
 
 def matmul(a, b, *, prefer_bf16: bool = True, ctx=None):
     """bf16 operands, f32 accumulation and result (the JAX package's
     ``ops/registry.py:matmul``). ``ctx`` gates the bf16 cast on
-    ``config.use_bf16_compute`` / ``allow_tensor_op_math_conversion``.
-    ``b`` of more than three dims is a batch of matrices against the same
-    leading dims of ``a`` (``BatchMatmulOp``), flattened into one batch
-    dim around the product."""
+    ``config.use_bf16_compute`` / ``allow_tensor_op_math_conversion``
+    and carries the decode step's row chunk (:func:`mm_f32`). ``b`` of
+    more than three dims is a batch of matrices against the same leading
+    dims of ``a`` (``BatchMatmulOp``), flattened into one batch dim
+    around the product."""
     if ctx is not None:
         prefer_bf16 = prefer_bf16 and bf16_enabled(ctx)
     if b.dim() > 3:
         out = matmul(a.reshape(-1, *a.shape[-2:]),
-                     b.reshape(-1, *b.shape[-2:]), prefer_bf16=prefer_bf16)
+                     b.reshape(-1, *b.shape[-2:]), prefer_bf16=prefer_bf16,
+                     ctx=ctx)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     if prefer_bf16 and a.dtype in (torch.float32, torch.bfloat16):
-        out = mm_f32(a.to(torch.bfloat16), b.to(torch.bfloat16))
+        out = mm_f32(a.to(torch.bfloat16), b.to(torch.bfloat16), ctx)
         return out.to(a.dtype) if a.dtype != torch.float32 else out
     # f32-compute path: still accumulate in f32 for low-precision operands
     if a.dtype == torch.bfloat16:
-        return mm_f32(a, b).to(a.dtype)
+        return mm_f32(a, b, ctx).to(a.dtype)
+    if a.dtype == torch.float32:
+        return mm_f32(a, b, ctx)
     return torch.matmul(a, b)

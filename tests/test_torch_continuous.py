@@ -17,11 +17,13 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import flexflow_tpu.serving as jserving
 import flexflow_tpu_torch.serving as tserving
 from flexflow_tpu.search.serving_plan import kv_cache_bytes as jkv_bytes
 from flexflow_tpu.serving.fleet import kv_slot_capacity as jkv_slots
+from flexflow_tpu_torch.executor import DECODE_ROW_CHUNK
 from flexflow_tpu_torch.serving.fleet import (ContinuousBatcher,
                                               EngineClosedError,
                                               SequenceError,
@@ -258,3 +260,67 @@ def test_submit_validation():
                               admission="fifo")
     finally:
         cb.close()
+
+
+def _decode_step_products(tff, rows, chunk):
+    """One KV decode step (position 6 after a 6-token prefill) of the
+    first ``rows`` of eight (or more) seeded sequences, with the decode
+    context's row chunk set to ``chunk`` and every product logged:
+    (scores (rows, V), log)."""
+    ex = tff.executor
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        1, 60, (max(rows, 8), SEQ)).astype(np.int32))[:rows]
+    batch = {"input_ids": ids,
+             "position_ids": torch.arange(SEQ, dtype=torch.int32)[None]
+             .expand(rows, -1)}
+    cache = ex.kv_prefill(tff.params, tff.state, batch, prefill_len=6)
+    log, make_ctx = [], ex._kv_ctx
+
+    def logged(mode, state):
+        ctx = make_ctx(mode, state)
+        ctx.product_log, ctx.row_chunk = log, chunk
+        return ctx
+
+    ex._kv_ctx = logged
+    try:
+        scores, _ = ex.kv_decode_step(
+            tff.params, tff.state, {k: v[:, 6:7] for k, v in batch.items()},
+            cache, 6)
+    finally:
+        del ex._kv_ctx
+    return scores, log
+
+
+def test_decode_step_products_run_at_a_fixed_row_chunk(sessions):
+    """Every product of a KV decode step (the projections, both batched
+    attention products, the MLP and the LM head) is issued on blocks of
+    the executor's row chunk, whether the batch holds 1 row or 8, so a
+    row meets the same GEMM shapes either way; its scores are then the
+    same bits alone and among 8, and among 72 (two chunks), and the f32
+    scores equal the unchunked step's to f32 rounding."""
+    tff = sessions[1].ff
+    chunk = DECODE_ROW_CHUNK
+    assert chunk == 64
+    assert tff.executor._kv_ctx("decode", tff.state).row_chunk == chunk
+    got = {rows: _decode_step_products(tff, rows, chunk) for rows in (1, 8)}
+    issued = {rows: [s for p in log for s in p["issued"]]
+              for rows, (_, log) in got.items()}
+    # 2 layers x (q, k, v, scores, context, output projection, 2 MLP) + head
+    assert len(got[1][1]) == len(got[8][1]) == 17
+    assert issued[1] == issued[8]
+    for a_shape, b_shape in issued[1]:
+        assert a_shape[0] == chunk, (a_shape, b_shape)
+        if len(b_shape) == 3:          # a batched product: chunk entries
+            assert b_shape[0] == chunk, (a_shape, b_shape)
+    one, eight = got[1][0], got[8][0]
+    assert torch.equal(one[0], eight[0])
+    many, log = _decode_step_products(tff, 72, chunk)
+    assert many.shape == (72, one.shape[1])
+    assert all(a[0] == chunk for p in log for a, _ in p["issued"])
+    assert torch.equal(many[:8], eight)
+    for rows in (1, 8):
+        plain, log = _decode_step_products(tff, rows, 0)
+        assert [p["issued"][0][0][0] for p in log[:3]] == [rows] * 3
+        # another GEMM shape sums in another order: equal to f32 rounding,
+        # at the generation tests' tolerance
+        torch.testing.assert_close(plain, got[rows][0], rtol=0, atol=1e-5)

@@ -541,3 +541,109 @@ def test_every_wide_wgmma_head_dim_has_a_card_case():
     above = [c for c in smoke.CASES if c[5] == torch.bfloat16
              and -(-c[4] // 64) * 64 > max(fwd)]
     assert {c[6] for c in above} == {False, True}, above
+
+
+# Narrow heads: the Transformer's d = 8 (TransformerConfig's 64 over 8
+# heads) and 16, 24, 32. The reference pads d to 64 (``_jax_lse`` does
+# as its wrapper does); on the card the bf16 forward runs them unpadded
+# through the narrow kernel and the backward pads to 64 inside the
+# autograd Function (the CPU's plain backward takes them as they are).
+# Causal and not, ragged, sq != sk both ways, dropout 0 and 0.1 (causal
+# dropout against the explicit-mask golden, which the JAX kernel does not
+# lower).
+NARROW_CASES = [  # (sq, sk, d, causal, dropout rate)
+    (40, 40, 8, False, 0.0),
+    (100, 100, 8, True, 0.0),
+    (64, 100, 16, False, 0.1),
+    (100, 100, 16, True, 0.1),
+    (72, 72, 24, False, 0.1),
+    (100, 40, 24, False, 0.0),
+    (130, 130, 32, True, 0.0),
+    (48, 48, 32, True, 0.1),
+]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,rate", NARROW_CASES)
+def test_flash_forward_narrow_head_dims_match_jax(sq, sk, d, causal, rate):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=51)
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=61 if rate else None)
+    o, lse = _port(q, k, v, return_lse=True, **kw)
+    assert o.shape == (1, 2, sq, d)
+    want = (_jax_dropout_golden(q, k, v, True, rate, 61) if causal and rate
+            else _jax(q, k, v, **kw))
+    np.testing.assert_allclose(o.numpy(), want, **TOL)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v, causal), **TOL)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,rate", NARROW_CASES)
+def test_flash_backward_narrow_head_dims_match_jax(sq, sk, d, causal, rate):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=53)
+    do = _do(1, 2, sq, d, seed=9)
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=63 if rate else None)
+    calls = (bwd_mod.flash_attention_bwd_dq.plain_calls,
+             bwd_mod.flash_attention_bwd_dkv.plain_calls)
+    got = _port_grads(q, k, v, do, **kw)
+    # one dq and one dk/dv call
+    assert (bwd_mod.flash_attention_bwd_dq.plain_calls,
+            bwd_mod.flash_attention_bwd_dkv.plain_calls) == \
+        (calls[0] + 1, calls[1] + 1)
+    want = (_jax_dropout_golden_grads(q, k, v, do, rate, 63)
+            if causal and rate else _jax_grads(q, k, v, do, **kw))
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape == (1, 2, sq if name == "q" else sk, d)
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **GRAD_TOL)
+
+
+def test_forward_head_dim_on_the_card():
+    """What the wrapper hands the forward kernel on the card: bf16 up to
+    d = 32 rounded up to a multiple of 8 (the narrow kernel; TMA takes
+    rows of a multiple of 16 bytes), everything else padded to a multiple
+    of 64 (f32 keeps its FMA kernel at 64)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    got = {d: bwd_mod._fwd_head_dim(d, bf) for d in (4, 8, 12, 16, 24, 32,
+                                                     33, 48, 64, 100)}
+    assert got == {4: 8, 8: 8, 12: 16, 16: 16, 24: 24, 32: 32, 33: 64,
+                   48: 64, 64: 64, 100: 128}
+    assert [bwd_mod._fwd_head_dim(d, f32) for d in (8, 32, 64)] == \
+        [64, 64, 64]
+    assert [d for d in range(1, 65) if bwd_mod._narrow(d, bf)] == \
+        [8, 16, 24, 32]
+    assert not any(bwd_mod._narrow(d, f32) for d in (8, 16, 32))
+
+
+def test_every_narrow_head_dim_has_a_card_case():
+    """The narrow bf16 forward is compiled for DP = 16 (d 8, 16) and 32
+    (d 24, 32), and the bf16 forward at d = 128 has its own instantiation
+    of the d <= 128 kernel: chip_smoke.py's kernel phase holds each
+    against its plain version, causal and not, each with and without
+    dropout, and the narrow one at the Transformer's b*h = 512."""
+    import importlib.util
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "flexflow_tpu_torch", "csrc",
+                           "flash_attention_fwd.cu")) as f:
+        text = f.read()
+    narrow = re.findall(r"head_dim <= (\d+)\)\s*FF_LAUNCH_NARROW\((\d+)\)",
+                        text)
+    assert narrow == [("16", "16"), ("32", "32")], narrow
+    assert re.search(r"head_dim == 128\) FF_LAUNCH\(\(launch_wgmma<128, ",
+                     text)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    bf = [c for c in smoke.CASES if c[5] == torch.bfloat16]
+    every = {(False, False), (False, True), (True, False), (True, True)}
+    for dp in (16, 32):
+        mine = {(c[6], c[7] > 0) for c in bf
+                if bwd_mod._narrow(c[4], c[5])
+                and -(-c[4] // 16) * 16 == dp}
+        assert mine == every, (dp, mine)
+    assert {(c[6], c[7] > 0) for c in bf if c[4] == 128} == every
+    assert any(c[0] * c[1] == 512 and c[4] == 8 for c in bf)
+    # the ragged edges: sq != sk both ways at a narrow d
+    assert any(c[2] < c[3] and c[4] <= 32 for c in bf)
+    assert any(c[2] > c[3] and c[4] <= 32 for c in bf)

@@ -71,11 +71,14 @@ _GENERATED = re.compile(r"\bop_[a-z_]+?_\d+(?:__\d+)?\b")
 
 def _names_canon(doc):
     """The strategy document with the search-inserted layers' generated
-    names replaced by their order of first appearance."""
+    names replaced by their order of creation (their numbers): each
+    package counts layers per process, so the numbers, and how names
+    sort as strings, depend on the tests that ran before."""
     text = json.dumps(doc, sort_keys=True)
-    seen = {}
-    return json.loads(_GENERATED.sub(
-        lambda m: seen.setdefault(m.group(0), f"gen{len(seen)}"), text))
+    names = sorted(set(_GENERATED.findall(text)),
+                   key=lambda n: [int(x) for x in re.findall(r"\d+", n)])
+    canon = {n: f"gen{i}" for i, n in enumerate(names)}
+    return json.loads(_GENERATED.sub(lambda m: canon[m.group(0)], text))
 
 
 def _docs_equal(jdoc, tdoc, cost_key):

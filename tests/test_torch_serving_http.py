@@ -23,6 +23,8 @@ import flexflow_tpu as ffj
 import flexflow_tpu.serving as jserving
 import flexflow_tpu_torch as fft
 import flexflow_tpu_torch.serving as tserving
+from flexflow_tpu.resilience import status as jstatus
+from flexflow_tpu_torch.resilience import status as tstatus
 
 from _torch_serving import (FixedSession, bert_pair, bert_requests, get,
                             gpt2_pair, infer_doc, post)
@@ -197,6 +199,11 @@ def _families(text, model):
 @pytest.mark.parametrize("kind", ["http", "async"])
 def test_models_healthz_and_metric_families_match(kind):
     model = f"fam_{kind}"
+    # /healthz carries resilience.checkpoint_age_s once a checkpoint was
+    # saved in the process: start both packages' status from the
+    # process-start state, whatever an earlier test on this worker saved
+    jstatus.reset()
+    tstatus.reset()
     repos = {}
     for name, pkg in PKGS:
         repos[name] = pkg.ModelRepository()
