@@ -14,8 +14,11 @@ never JAX, and:
   3. kernel  - holds each kernel against its plain PyTorch version on the
                card at the main paths' shapes and at the edges of the
                kernels' tiling, within stated tolerances: the flash
-               forward, dq and dk/dv over one case list (dq also
-               bit-identical over two launches), the fused Adam over
+               forward, dq and dk/dv over one case list at the head
+               dims the kernels take (bf16 d <= 32 unpadded, the narrow
+               kernels; dq also bit-identical over two launches), the
+               narrow cases through the autograd Function (one dq and
+               one dk/dv launch, no pad or slice), the fused Adam over
                BERT-base's and DLRM's leaves plus ragged and bf16 ones;
   4. ktimes  - device times (CUDA graph replay between CUDA events) of
                each kernel, its plain version and its PyTorch yardstick,
@@ -25,7 +28,8 @@ never JAX, and:
                causal) and training shape (the causal backward at d 128),
                the causal backward at d 64, head dims 256, 320 and 512,
                NMT's attention (b64 h1 s128 d512), the Transformer's
-               (b64 h8 s512 d8, unpadded: the narrow kernel), SDPA's
+               (b64 h8 s512 d8, unpadded: the narrow kernels, and the
+               autograd Function's whole backward), SDPA's
                backend named (its
                efficient backend's backward where its flash backend
                refuses the shape), Adam over BERT-base and over DLRM's
@@ -147,7 +151,8 @@ never JAX, and:
                spans and restart instants, the Prometheus exposition, the
                NaN rollback's flight record; InferenceSession.infer under
                "infer_fail@1"; the blocking and async save and the restore
-               (its CRC share) of the 1.31 GB state, the disabled step
+               (its CRC share) of the 1.31 GB state, a bf16 leaf saved
+               and restored bit for bit, the disabled step
                wrapper's host cost (<= 3% of a step) and the step with
                tracing on and off;
  15. search  - the strategy search on the card: the calibration (the bf16
@@ -231,8 +236,9 @@ no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
 flash kernels of the checkout at DIR and of this one in turns (base,
 change, change, base), the way to compare a kernel change on one card (a
-forward head dim the base takes only padded is timed there as its
-wrapper ran it: pad to 64, kernel, slice).
+head dim the base takes only padded is timed there as its wrapper ran
+it: the forward's pad to 64, kernel and slice; dq and dk/dv at d 64, and
+each backward shape's whole autograd Function backward, pads included).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result; it does the
@@ -416,7 +422,9 @@ def phase_build() -> None:
             check(spills == 0 or "wgmma" not in name,
                   f"{name} spills {spills} bytes")
         for ln in log.splitlines():
-            if "warning" in ln.lower():
+            # ptxas reports wgmma serialization (every product waited for
+            # at once) as a performance note, not a warning
+            if "warning" in ln.lower() or "Performance Loss" in ln:
                 print(f"[build] {lib}: {ln.strip()}")
 
 
@@ -532,7 +540,8 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     # or 32 columns; 64-row CTAs over 64-key tiles): every d causal and
     # not, with and without dropout, at a ragged s; sq != sk both ways;
     # one short tile; a causal s ending mid-tile; the Transformer's b*h =
-    # 512 causal with dropout; d 12 (padded to 16) and 40 (to 64)
+    # 512 causal with dropout; d 12 (padded to 16) and 40 (to 64). The
+    # backward kernels take the same head dims (kernel_head_dim)
     (4, 4, 200, 200, 8, torch.bfloat16, False, 0.0),
     (4, 4, 200, 200, 8, torch.bfloat16, True, 0.1),
     (4, 4, 200, 200, 16, torch.bfloat16, False, 0.1),
@@ -548,6 +557,10 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (64, 8, 512, 512, 8, torch.bfloat16, True, 0.1),
     (4, 4, 200, 200, 12, torch.bfloat16, True, 0.0),
     (4, 4, 200, 200, 40, torch.bfloat16, False, 0.1),
+    # the narrow dq and dk/dv (the same tiles, unpadded too): sq != sk
+    # both ways at both DPs
+    (4, 4, 300, 96, 16, torch.bfloat16, False, 0.1),
+    (4, 4, 96, 300, 24, torch.bfloat16, False, 0.0),
     # the bf16 forward at d 128: sq != sk both ways, without dropout at a
     # ragged s, non-causal at s 512
     (2, 4, 96, 200, 128, torch.bfloat16, False, 0.0),
@@ -560,6 +573,34 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (1640, 40, 64, 64, 64, torch.bfloat16, True, 0.0),
     (1640, 40, 64, 64, 256, torch.bfloat16, False, 0.0),
 ]
+
+
+def kernel_head_dim(d: int, dtype) -> int:
+    """The head dim the flash kernels take for d, forward and backward
+    alike: what flash_attention pads to on the card (bf16 up to 32 to a
+    multiple of 8, the narrow kernels; else to a multiple of 64)."""
+    from flexflow_tpu_torch.kernels.flash_attention import _fwd_head_dim
+    return _fwd_head_dim(d, dtype)
+
+
+def aten_calls(fn, *prefixes) -> tuple:
+    """``fn()``'s result and how many ATen calls it made of each name in
+    ``prefixes`` (an op name before its overload: "constant_pad_nd"),
+    counted by a dispatch mode (autograd carries it to its backward
+    threads)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = dict.fromkeys(prefixes, 0)
+
+    class Calls(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if name in counts:
+                counts[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Calls():
+        out = fn()
+    return out, counts
 
 
 def phase_kernel() -> dict:
@@ -597,8 +638,10 @@ def phase_kernel() -> dict:
 
 def phase_kernel_bwd(gen) -> dict:
     """dq and dk/dv kernels against flash_attention_bwd_plain's parts on
-    the forward kernel's o and lse, over the forward's cases; dq must
-    also give the same bits on a second launch."""
+    the forward kernel's o and lse, over the forward's cases at the head
+    dim the kernels take (bf16 at d <= 32 the narrow kernels, unpadded);
+    dq must also give the same bits on a second launch. Then the narrow
+    cases through the autograd Function."""
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -606,7 +649,7 @@ def phase_kernel_bwd(gen) -> dict:
     worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     bad = []
     for b, h, sq, sk, d, dt, causal, rate in CASES:
-        d_k = -(-d // 64) * 64
+        d_k = kernel_head_dim(d, dt)   # narrow bf16 d stays as it is
         q, k, v, do = (torch.randn(b, h, s, d_k, device="cuda", dtype=dt,
                                    generator=gen)
                        for s in (sq, sk, sk, sq))
@@ -652,8 +695,10 @@ def phase_kernel_bwd(gen) -> dict:
             worst["flash_attention_bwd_dkv"], errs["dk"], errs["dv"])
     check(not bad, f"backward kernels disagree with their plain versions "
                    f"at {bad}")
-    # the narrow forward's backward: the autograd Function pads q, k, v
-    # and dO to 64 for the dq and dk/dv kernels and slices the gradients
+    # the narrow backward through the autograd Function: one dq and one
+    # dk/dv launch on the forward's unpadded tensors, no pad or slice
+    # (the dispatch mode's count of the wrappers' three empty_like shows
+    # that it saw the backward)
     for b, h, sq, sk, d, dt, causal, rate in CASES:
         if d > 32 or dt != torch.bfloat16:
             continue
@@ -664,17 +709,30 @@ def phase_kernel_bwd(gen) -> dict:
                   dropout_seed=99 if rate else None)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         o, lse = flash_attention(*leaves, return_lse=True, **kw)
-        got = torch.autograd.grad(o, leaves, do)
+        n0 = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+        got, calls = aten_calls(lambda: torch.autograd.grad(o, leaves, do),
+                                "constant_pad_nd", "slice", "empty_like")
+        launches = (flash_attention_bwd_dq.launches - n0[0],
+                    flash_attention_bwd_dkv.launches - n0[1])
         want = flash_attention_bwd_plain(q, k, v, o.detach(), lse, do, **kw)
         rel = max((g.float() - w.float()).abs().max().item()
                   / max(w.float().abs().max().item(), 1e-30)
                   for g, w in zip(got, want))
+        # (d 12 runs at 16: flash_attention pads q, k, v before the
+        # Function and slices o, and autograd differentiates both)
+        unpadded = kernel_head_dim(d, dt) == d
         ok = rel <= BWD_TOL[dt] and all(g.shape == t.shape
-                                        for g, t in zip(got, (q, k, v)))
+                                        for g, t in zip(got, (q, k, v))) \
+            and launches == (1, 1) and calls["empty_like"] >= 3 \
+            and (not unpadded or calls["constant_pad_nd"] == 0
+                 == calls["slice"])
         print(f"[kernel] flash_attention backward through the Function b{b} "
               f"h{h} sq{sq} sk{sk} d{d} bf16 causal={causal} dropout={rate}"
-              f" (padded to 64, sliced back): max rel {rel:.1e} (tol "
-              f"{BWD_TOL[dt]:.0e}) {'ok' if ok else 'FAIL'}")
+              f" (narrow dq and dk/dv at d {kernel_head_dim(d, dt)}): max rel"
+              f" {rel:.1e} (tol {BWD_TOL[dt]:.0e}), launches dq {launches[0]}"
+              f" dk/dv {launches[1]}, ATen calls {calls} "
+              f"{'ok' if ok else 'FAIL'}")
         check(ok, f"narrow backward at b{b} h{h} s{sq}/{sk} d{d}")
     return worst
 
@@ -1038,13 +1096,15 @@ def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
 
 def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               h: int = 12, d: int = 64) -> dict:
-    """dq and dk/dv kernels, their plain versions and the backward of
-    torch's SDPA (dq, dk, dv in one call, at the same dropout rate and
-    mask) at b h s d bf16: its flash backend's backward op where that
-    takes the shape, else its efficient backend's (named in
-    ``sdpa_bwd_backend``)."""
+    """dq and dk/dv kernels, their plain versions, the autograd
+    Function's whole backward (``fn_ms``: delta, then both kernels) and
+    the backward of torch's SDPA (dq, dk, dv in one call, at the same
+    dropout rate and mask) at b h s d bf16: its flash backend's backward
+    op where that takes the shape, else its efficient backend's (named
+    in ``sdpa_bwd_backend``)."""
+    from types import SimpleNamespace
     from flexflow_tpu_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_dkv,
+        _FlashAttention, flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
         flash_attention_bwd_dq_plain)
     import torch.nn.functional as F
@@ -1056,15 +1116,20 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
-    # the kernels take the head dim padded to a multiple of 64, as the
-    # model's backward hands it to them; the plain versions the model's d
-    d_k = -(-d // 64) * 64
+    # the kernels take the head dim that flash_attention pads to on the
+    # card (bf16 d <= 32 unpadded), as the Function hands it to them; the
+    # plain versions the model's d
+    d_k = kernel_head_dim(d, torch.bfloat16)
     kargs = args if d_k == d else tuple(
         F.pad(t, (0, d_k - d)) for t in (q, k, v, do)) + (lse, delta)
+    ctx = SimpleNamespace(saved_tensors=kargs[:3] + (
+        F.pad(o, (0, d_k - d)) if d_k != d else o, lse), cfg=kw)
     res = {"dq_ms": cuda_time_ms(
         lambda: flash_attention_bwd_dq(*kargs, **kw)),
            "dkv_ms": cuda_time_ms(
                lambda: flash_attention_bwd_dkv(*kargs, **kw)),
+           "fn_ms": cuda_time_ms(
+               lambda: _FlashAttention.backward(ctx, kargs[3], None)),
            "dq_plain_ms": cuda_time_ms(
                lambda: flash_attention_bwd_dq_plain(*args, **kw)),
            "dkv_plain_ms": cuda_time_ms(
@@ -1170,7 +1235,7 @@ KT_SHAPES = [
      "the Transformer's attention: TransformerConfig's kdim = hidden / "
      "heads = 64 split over 8 heads, d 8 unpadded: the narrow kernel"),
     ("bwd_transformer", "bwd", 64, 8, 512, 8, False,
-     "the Transformer's attention, the kernels at the padded d 64"),
+     "the Transformer's attention, d 8 unpadded: the narrow kernels"),
 ]
 
 
@@ -1238,7 +1303,9 @@ def phase_ktimes(smi: str) -> dict:
                   f"{t[k_ + '_ms'] / bound:.2f}; {smi}")
         print(f"[ktimes] sdpa backward ({t['sdpa_bwd_backend']}; dq, dk, "
               f"dv in one call) {shape}: {lib * 1e3:.2f} us vs dq + dk/dv "
-              f"{(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us")
+              f"{(t['dq_ms'] + t['dkv_ms']) * 1e3:.2f} us, the Function's "
+              f"whole backward (delta, dq, dk/dv) {t['fn_ms'] * 1e3:.2f} us;"
+              f" {smi}")
     h = res["host"] = launch_host_us()
     print(f"[ktimes] host time of one C launch call (ctypes) b8 h12 s128 d64 "
           f"bf16, each encoding four TMA tensor maps: flash_attention_fwd "
@@ -1293,9 +1360,15 @@ def phase_ab(base: str, smi: str) -> None:
     parent commit, unpacked with ``git archive`` into the git-ignored
     build/) and of this one, each at AB_SHAPES on the same seeded
     inputs, timed by cuda_time_ms in the order base, change, change,
-    base: how a kernel change is compared within one call. A shape the
-    base refuses is skipped. Prints a line per kernel and shape, then a
-    JSON line."""
+    base: how a kernel change is compared within one call. A head dim
+    the base takes only padded to 64 is timed as its wrapper ran it
+    (the forward: pad, kernel, slice; dq and dk/dv: the kernel on
+    pre-padded tensors); any other shape the base refuses is skipped.
+    Each backward shape also times the autograd Function's whole
+    backward as each tree's wrapper runs it: delta, the pads of q, k, v
+    and dO where the base pads, both kernels, the slices of the
+    gradients (views). Prints a line per kernel and shape, then a JSON
+    line."""
     import torch.nn.functional as F
     fa = importlib.import_module("flexflow_tpu_torch.kernels.flash_attention")
     t0 = time.perf_counter()
@@ -1304,6 +1377,12 @@ def phase_ab(base: str, smi: str) -> None:
     print(f"[ab] built both trees in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
+
+    def entry(tag, src, sym):
+        fn = getattr(libs[tag][src], sym)
+        fn.argtypes, fn.restype = fa._ARGTYPES[(src, sym)], ctypes.c_int
+        return fn
+
     for kind, b, h, s, d, causal, dt in AB_SHAPES:
         shape = (f"b{b} h{h} s{s} d{d} {str(dt)[6:]}"
                  f"{' causal' if causal else ''}")
@@ -1311,65 +1390,111 @@ def phase_ab(base: str, smi: str) -> None:
                                    generator=gen) for _ in range(4))
         o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
         lse, delta = (torch.empty(b, h, s, device="cuda") for _ in range(2))
-        tail = (b * h, s, s, d, int(dt == torch.bfloat16), int(causal),
-                d ** -0.5, 0, 0, 1.0, 0)
+        dp = -(-d // 64) * 64
 
-        def padded_fwd(lib, q, k, v, lse):
-            fn = lib.ff_flash_attention_fwd
-            fn.argtypes = fa._ARGTYPES[("flash_attention_fwd",
-                                        "ff_flash_attention_fwd")]
-            fn.restype = ctypes.c_int
-            dp = -(-d // 64) * 64
+        def tail(dd):
+            return (b * h, s, s, dd, int(dt == torch.bfloat16), int(causal),
+                    d ** -0.5, 0, 0, 1.0, 0)
 
+        def call(tag, src, sym, ts, dd):
+            # pointers and the stream read at each call, so a graph
+            # capture records this call's tensors and stream
+            return entry(tag, src, sym)(
+                *[t.data_ptr() for t in ts], *tail(dd),
+                torch.cuda.current_stream().cuda_stream)
+
+        def launch(tag, src, sym, ts, dd=d):
+            return lambda: call(tag, src, sym, ts, dd)
+
+        def padded_fwd(q, k, v, lse):
             def run():
                 qp, kp, vp = (F.pad(t, (0, dp - d)) for t in (q, k, v))
                 op = torch.empty_like(qp)
-                err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                         op.data_ptr(), lse.data_ptr(), *tail[:3], dp,
-                         *tail[4:], torch.cuda.current_stream().cuda_stream)
+                err = call("base", "flash_attention_fwd",
+                           "ff_flash_attention_fwd", (qp, kp, vp, op, lse),
+                           dp)
                 check(err == 0, f"padded base launch at {shape}")
                 op[..., :d]
             return run
-
-        def launch(tag, src, sym, ts):
-            fn = getattr(libs[tag][src], sym)
-            fn.argtypes, fn.restype = fa._ARGTYPES[(src, sym)], ctypes.c_int
-            args = [t.data_ptr() for t in ts] + list(tail)
-            # the stream is read at each call, so a graph capture records it
-            return lambda: fn(*args, torch.cuda.current_stream().cuda_stream)
 
         fwd = ("flash_attention_fwd", "ff_flash_attention_fwd",
                (q, k, v, o, lse))
         check(launch("change", *fwd)() == 0, f"forward launch at {shape}")
         delta.copy_((do.float() * o.float()).sum(-1))
+        # the base's kernels at the padded head dim, where it refuses d
+        qp, kp, vp, dop = (F.pad(t, (0, dp - d)) for t in (q, k, v, do))
+        dqp, dkp, dvp = (torch.empty_like(qp) for _ in range(3))
         bwd = [("flash_attention_bwd", "ff_flash_attention_bwd_dq",
-                (q, k, v, do, lse, delta, dq)),
+                (q, k, v, do, lse, delta, dq),
+                (qp, kp, vp, dop, lse, delta, dqp)),
                ("flash_attention_bwd", "ff_flash_attention_bwd_dkv",
-                (q, k, v, do, lse, delta, dk, dv))]
-        for src, sym, ts in [fwd] if kind == "fwd" else bwd:
+                (q, k, v, do, lse, delta, dk, dv),
+                (qp, kp, vp, dop, lse, delta, dkp, dvp))]
+        base_pads = False
+        for src, sym, ts, pts in [fwd + (None,)] if kind == "fwd" else bwd:
             fns = {tag: launch(tag, src, sym, ts) for tag in libs}
-            if kind == "fwd" and d % 64 and fns["base"]() != 0:
+            label = shape
+            if d % 64 and fns["base"]() != 0:
                 # an older tree takes d only padded to 64: time what its
-                # wrapper ran, the pad, the kernel and the slice of o
-                fns["base"] = padded_fwd(libs["base"][src], q, k, v, lse)
-                shape += " (base: pad to 64, kernel, slice)"
+                # wrapper ran (the forward's pad and slice included; the
+                # backward's pads are in the Function row below)
+                if kind == "fwd":
+                    fns["base"] = padded_fwd(q, k, v, lse)
+                    label += " (base: pad to 64, kernel, slice)"
+                else:
+                    fns["base"] = launch("base", src, sym, pts, dp)
+                    check(fns["base"]() == 0, f"padded base {sym} {shape}")
+                    label += f" (base: the kernel at d {dp})"
+                    base_pads = True
             elif fns["base"]() != 0:
                 print(f"[ab] {sym} {shape}: the base tree refuses it")
                 continue
             us = [cuda_time_ms(fns[t]) * 1e3
                   for t in ("base", "change", "change", "base")]
-            row = {"kernel": sym, "shape": shape, "base_us": us[::3],
+            row = {"kernel": sym, "shape": label, "base_us": us[::3],
                    "change_us": us[1:3]}
             if kind == "fwd":
                 row["sdpa_us"] = cuda_time_ms(
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=causal)) * 1e3
             rows.append(row)
-            print(f"[ab] {sym} {shape}: base {np.mean(us[::3]):.2f} us "
+            print(f"[ab] {sym} {label}: base {np.mean(us[::3]):.2f} us "
                   f"({us[0]:.2f}, {us[3]:.2f}), change "
                   f"{np.mean(us[1:3]):.2f} us ({us[1]:.2f}, {us[2]:.2f})"
                   + (f", sdpa {row['sdpa_us']:.2f} us" if "sdpa_us" in row
                      else "") + f"; {smi}")
+        if kind != "bwd" or len(rows) < 2 or rows[-1]["kernel"] != \
+                "ff_flash_attention_bwd_dkv":
+            continue
+
+        def function_bwd(tag, pads):
+            def run():
+                dl = (do.float() * o.float()).sum(-1)
+                ts, dd = (q, k, v, do), d
+                if pads:
+                    ts, dd = tuple(F.pad(t, (0, dp - d)) for t in ts), dp
+                g = [torch.empty_like(ts[0]) for _ in range(3)]
+                e1 = call(tag, "flash_attention_bwd",
+                          "ff_flash_attention_bwd_dq",
+                          ts + (lse, dl, g[0]), dd)
+                e2 = call(tag, "flash_attention_bwd",
+                          "ff_flash_attention_bwd_dkv",
+                          ts + (lse, dl, g[1], g[2]), dd)
+                check(e1 == 0 and e2 == 0, f"{tag} backward at {shape}")
+                return [t[..., :d] for t in g]
+            return run
+        fns = {"base": function_bwd("base", base_pads),
+               "change": function_bwd("change", False)}
+        us = [cuda_time_ms(fns[t]) * 1e3
+              for t in ("base", "change", "change", "base")]
+        label = shape + (" (base: delta, 4 pads to 64, dq, dk/dv, 3 slice "
+                         "views; change: delta, dq, dk/dv)" if base_pads
+                         else " (delta, dq, dk/dv)")
+        rows.append({"kernel": "_FlashAttention.backward", "shape": label,
+                     "base_us": us[::3], "change_us": us[1:3]})
+        print(f"[ab] _FlashAttention.backward {label}: base "
+              f"{np.mean(us[::3]):.2f} us ({us[0]:.2f}, {us[3]:.2f}), change "
+              f"{np.mean(us[1:3]):.2f} us ({us[1]:.2f}, {us[2]:.2f}); {smi}")
     print(json.dumps({"ab": rows, "card": smi}))
 
 
@@ -3262,6 +3387,45 @@ def save_restore_times(ff, tmp: str, smi: str) -> dict:
                 crc_s=crc_s)
 
 
+def bf16_checkpoint_check(tmp: str, smi: str) -> dict:
+    """bf16 leaves through the port's save and restore on the card: a
+    bf16 matrix and an f32 vector on the device, saved, restored (the
+    manifest verified) and copied into zeroed live tensors bit for bit.
+    The step's pickle names its dtype "bfloat16" and never ml_dtypes
+    (the form the JAX package unpickles through ml_dtypes; the port
+    reads it without ml_dtypes, whether or not this machine has it,
+    which the line prints)."""
+    import importlib.util
+    from flexflow_tpu_torch.runtime import checkpoint as ck
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    leaves = {"w": torch.randn(768, 768, device="cuda",
+                               generator=gen).to(torch.bfloat16),
+              "b": torch.randn(768, device="cuda", generator=gen)}
+    d = os.path.join(tmp, "bf16")
+    mgr = ck.CheckpointManager(d)
+    mgr.save(1, {"params": {"l": leaves}})
+    saved, _ = mgr.restore(1)
+    live = {"l": {k: torch.zeros_like(t) for k, t in leaves.items()}}
+    ck._copy_into(live, saved["params"], "params")
+    same = all(torch.equal(live["l"][k], t) for k, t in leaves.items())
+    with open(os.path.join(d, "1", "manifest.json")) as f:
+        dtypes = {k: r["dtype"] for k, r in json.load(f)["leaves"].items()}
+    with open(os.path.join(d, "1", "state.pkl"), "rb") as f:
+        raw = f.read()
+    form = b"bfloat16" in raw and b"ml_dtypes" not in raw
+    ml = importlib.util.find_spec("ml_dtypes") is not None
+    print(f"[resilience] bf16 checkpoint leaf (768 x 768 bf16 + 768 f32 on "
+          f"the card): saved, restored with its manifest verified, copied "
+          f"into live tensors bit for bit: {same}; manifest dtypes "
+          f"{dtypes}; pickled as numpy dtype 'bfloat16' without ml_dtypes: "
+          f"{form}; ml_dtypes installed here: {ml}; {smi}")
+    check(same and form and dtypes["['params']['l']['w']"] == "bfloat16"
+          and dtypes["['params']['l']['b']"] == "float32",
+          "bf16 checkpoint round trip")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"bit_identical": same, "ml_dtypes_installed": ml}
+
+
 def step_ms(ff, step_fn, batch, n: int) -> list:
     out = []
     for _ in range(n):
@@ -3371,7 +3535,8 @@ def phase_resilience(smi: str) -> dict:
     under RES_PLAN; the faulty run must end bit-identical to the clean
     one with every executed step (replays included) through the kernels.
     Then the serving fault hook, the cross-package manifest, the trace
-    and metrics, and the save / restore / overhead numbers."""
+    and metrics, the save / restore / overhead numbers and a bf16 leaf's
+    round trip."""
     import tempfile
     from flexflow_tpu_torch.obs import events
     from flexflow_tpu_torch.resilience import faults, status
@@ -3476,6 +3641,7 @@ def phase_resilience(smi: str) -> dict:
 
         events.disable()
         times = save_restore_times(ff, tmp, smi)
+        times["bf16_checkpoint"] = bf16_checkpoint_check(tmp, smi)
         times.update(overhead_times(ff, bcfg, smi))
         return {"launches": faulty["launches"], "steps": faulty["steps"],
                 "clean_launches": clean["launches"], "spans": spans,
@@ -4834,7 +5000,9 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                 "bound_by": t[key + "_bound"][1],
                 # one call computes dq, dk and dv together
                 "library_ms": t["sdpa_bwd_ms"],
-                "library_backend": t["sdpa_bwd_backend"]}
+                "library_backend": t["sdpa_bwd_backend"],
+                # the autograd Function's backward: delta, dq, dk/dv
+                "function_backward_ms": t["fn_ms"]}
 
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4934,7 +5102,10 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             "resilience_train_launches": resil["launches"][name],
             **search_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
-                                "192-512)"})
+                                "192-512)",
+            "narrow_bf16_kernel": f"flash_bwd_{key}_wgmma_narrow_kernel "
+                                  "(bf16, d 8, 16, 24, 32 unpadded; DP 16 "
+                                  "or 32)"})
     a = kt["adam"]
     rows.append({
         "name": "adam_update", "route": "cuda",

@@ -74,6 +74,13 @@
 //   parameter (the keep mask hashed once per tile into one bit per
 //   score), so the tile without it carries none of its registers.
 //
+//   dq and dk/dv, bf16 at d = 8, 16, 24 and 32 (the Transformer's heads
+//   of d = 8) - flash_bwd_dq_wgmma_narrow_kernel and
+//   flash_bwd_dkv_wgmma_narrow_kernel: the structure above on tiles of d
+//   rounded up to 16 or 32 columns, nothing padded on the host (the
+//   narrow forward's tensor maps and swizzles), one warpgroup per CTA and
+//   four CTAs an SM. Their header says why.
+//
 //   dq and dk/dv, f32 - flash_bwd_dq_kernel and flash_bwd_dkv_kernel, the
 //   exact FMA path (64-row tiles, four warps, synchronous tile loads),
 //   because the tensor cores would round f32 to TF32.
@@ -116,6 +123,8 @@
 // (dq 9.77 us, dk/dv 13.03 us at 989 TFLOP/s). Inside the kernels the
 // exponentials (one MUFU ex2 per score, 16 per SM per clock) and the
 // products serialize in part, as in the forward.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -1647,13 +1656,548 @@ cudaError_t launch_dkv_wgmma_wide(const Args& a) {
                        : launch_dkv_wgmma_wide_t<D, false>(a);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at d <= 32: the narrow dq and dk/dv kernels
+// ---------------------------------------------------------------------------
+// Replace the TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel (flexflow_tpu/
+// kernels/flash_attention.py:169, :210) at head dims up to 32 in bf16 (the
+// Transformer's heads of d = 8), as flash_fwd_wgmma_narrow_kernel replaces
+// the forward there. Padded to d = 64, the d <= 128 kernels spend 8x the
+// tensor work and the tile bytes on zero columns at d = 8, after four host
+// pads of q, k, v and dO. Bound at b64 h8 s512 d8: each kernel rebuilds p,
+// 134 M exponentials, one MUFU ex2 each at 16 per SM per clock (~32 us at
+// 1.98 GHz), where the bytes (q, k, v, do, lse, delta, the outputs) take
+// 6-7 us at 3.35 TB/s and the products 0.5-0.7 GFLOP: as in the narrow
+// forward, the exponentials are the work.
+//
+// Design. The narrow forward's tiles: rows of DP = d rounded up to 16 or
+// 32 bf16 columns (32 or 64 bytes) in the 32- or 64-byte swizzle, 64-row
+// tiles, one warpgroup per CTA and four CTAs an SM (at most 128 registers
+// a thread), so one CTA's exponentials run while another waits on its
+// products or its copies. The score products S = Q . K^T and dP = dO .
+// V^T (transposed in dk/dv) are m64n64k16 with both operands K-major,
+// DP / 16 steps each, in two commit groups, so the exponentials of S run
+// while dP is on the tensor cores; the gradient products take dS (and
+// P_eff) rounded to bf16 in registers as the A operand and read their B
+// tile MN-major, m64nDPk16 (the forward's P . V shape), into 64 x DP f32
+// accumulators of DP / 2 registers a thread, waited for in their own
+// iteration. Streamed tiles come through rings of three stages, each copy
+// issued two tiles ahead. Mask, dropout bits and the base-2 exponent are
+// the d <= 128 kernels'; delta is taken times sm_scale (and 1 / keep_prob
+// folded into the multiplier of dp), so ds = p * (dp * c - delta') is an
+// FFMA and an FMUL.
+//   - dq (flash_bwd_dq_wgmma_narrow_kernel): a CTA owns 64 query rows, Q
+//     and dO resident; K and V tiles of 64 keys come by TMA, the tensor
+//     maps over the true (bh, s, d) tensors with DP-column boxes (a load
+//     zero-fills the columns past d).
+//   - dk/dv (flash_bwd_dkv_wgmma_narrow_kernel): a CTA owns 64 keys, K and
+//     V resident; Q and dO tiles of 64 queries with their lse and delta
+//     come by cp.async (lse and delta rows of sq floats are not 16-byte
+//     aligned in general, which TMA needs), each thread turning its own
+//     lse and delta entry into -lse * log2(e) and delta * sm_scale as the
+//     tile lands. Its two 64 x DP accumulators, where the d = 64 kernel
+//     holds two 64 x 64 ones, are what let four CTAs fit an SM (three at
+//     DP = 32 with dropout, below).
+// On an NVIDIA H100 80GB HBM3 at 700 W, b64 h8 s512 d8 (PERF.md sec. 6),
+// three changes counted: the mask's compares in their own copy of the
+// exponential loop, run only in the tiles at an edge (written as one loop
+// with the test inside, ptxas computed the compares for every score of
+// every tile: dk/dv 129.49 -> 80.80 us; before it, dk/dv without its
+// exponentials took the same time); dq's gradient product waited for in
+// its own iteration (deferred to the next tile's score wait, ptxas
+// serialized every wgmma of the kernel: 77.27 -> 72.25 us); the folded
+// scales and the third stage (dq 81.60 -> 77.18 us, serialized).
+// dq, dk and dv are written by bf16 pair stores at their true d columns
+// only. Two kernels rather than one fused backward, which would compute
+// the exponentials once: a fused kernel sums dq across key blocks with
+// atomics, and dq would no longer give the same bits on every launch.
+template <int DP>
+struct BwdNarrowTiles {
+  static_assert(DP == 16 || DP == 32, "16 or 32 columns");
+  static constexpr int ROWS = WG_ROWS;  // rows a CTA owns (queries; keys)
+  static constexpr int BN = 64;         // rows of a streamed tile
+  static constexpr int NB = BN / 8;     // 8-column blocks of a score tile
+  static constexpr int ROW = DP * 2;    // bytes of a tile row
+  static constexpr int ATOM = 8 * ROW;  // an 8-row swizzle atom
+  static constexpr uint32_t MODE = DP == 16 ? 3 : 2;  // 32- or 64-byte
+  static constexpr int TILE_BYTES = 64 * ROW;  // every tile has 64 rows
+  // stages of the rings: each copy is issued STAGES - 1 tiles ahead
+  static constexpr int STAGES = 3;
+  // dq: Q and dO, then rings for K and for V
+  static constexpr size_t DQ_SMEM = SW_ATOM + (2 + 2 * STAGES) * TILE_BYTES;
+  // dk/dv: a stage holds a Q and a dO tile, then lse and delta (64 floats
+  // each), padded so the next stage's tiles stay 1024-byte aligned; K and
+  // V, then the ring
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + SW_ATOM;
+  static constexpr size_t DKV_SMEM =
+      SW_ATOM + 2 * TILE_BYTES + STAGES * STAGE_BYTES;
+  static_assert(TILE_BYTES % SW_ATOM == 0, "tiles stay 1024-byte aligned");
+};
+
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(WG_THREADS, 4)
+    flash_bwd_dq_wgmma_narrow_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dq, int sq, int sk, int d,
+        float sm_scale, int causal, uint32_t threshold, float keep_prob,
+        uint32_t seed) {
+  using Tl = BwdNarrowTiles<DP>;
+  constexpr int BM = Tl::ROWS, BN = Tl::BN, NB = Tl::NB;
+  constexpr int ROW = Tl::ROW, ATOM = Tl::ATOM, TB = Tl::TILE_BYTES;
+  constexpr uint32_t MODE = Tl::MODE;
+  extern __shared__ unsigned char smem[];
+  const uint32_t sQ =
+      (smem_u32(smem) + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sDO = sQ + TB;
+  constexpr int ST = Tl::STAGES;
+  const uint32_t sKs = sDO + TB;       // K ring
+  const uint32_t sVs = sKs + ST * TB;  // V ring
+  // per stage: the K tile (and, first, Q and dO) landed; the V tile landed
+  __shared__ __align__(8) uint64_t k_full[ST], v_full[ST];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int row_w = m0 + warp * 16;  // this warp's first query row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  const float keep_scale = sm_scale * inv_keep;
+  // lse (in base 2) and delta * sm_scale of this thread's two rows, 0
+  // past sq
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = qpos[r] < sq;
+    lse2[r] = ok ? lse[(size_t)bh * sq + qpos[r]] * LOG2E : 0.f;
+    dlt[r] = ok ? delta[(size_t)bh * sq + qpos[r]] * sm_scale : 0.f;
+  }
+
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a K tile is live iff its first key is visible to the
+               // CTA's last query (the reference's rule)
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+
+  auto k_stage = [&](int t) { return sKs + (t % ST) * TB; };
+  auto v_stage = [&](int t) { return sVs + (t % ST) * TB; };
+  auto k_bar = [&](int t) { return smem_u32(&k_full[t % ST]); };
+  auto v_bar = [&](int t) { return smem_u32(&v_full[t % ST]); };
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_kv = [&](int t, int extra_bytes) {  // by thread 0
+    mbar_expect_tx(k_bar(t), TB + extra_bytes);
+    tma_load_3d(k_stage(t), map_k, k_bar(t), 0, t * BN, bh);
+    mbar_expect_tx(v_bar(t), TB);
+    tma_load_3d(v_stage(t), map_v, v_bar(t), 0, t * BN, bh);
+  };
+
+  // The ring: Q and dO join K tile 0's phase, then K/V tiles 0 ... ST -
+  // 1. K tile t is last read by dQ(t), which completes with S(t + 1), so
+  // the barrier after that wait in iteration t + 1 starts the copy of K/V
+  // tile t + ST into its stage (V tile t was released with dP(t)).
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(k_bar(st), 1);
+      mbar_init(v_bar(st), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_kv(0, 2 * TB);
+    tma_load_3d(sQ, &tm_q, k_bar(0), 0, m0, bh);
+    tma_load_3d(sDO, &tm_do, k_bar(0), 0, m0, bh);
+    for (int t = 1; t < ST && t < n_tiles; ++t) load_kv(t, 0);
+  }
+
+  float acc[DP / 8][4];  // the 64 x DP of dq
+#pragma unroll
+  for (int dt = 0; dt < DP / 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = t * BN;
+    const uint32_t sK = k_stage(t), sV = v_stage(t);
+
+    // S = Q . K^T, then, once V lands, dP = dO . V^T: DP / 16 steps each,
+    // both operands K-major, one commit group each
+    float s[NB][4], dp[NB][4];
+    mbar_wait(k_bar(t), (t / ST) & 1);  // K tile t (and Q, dO) landed
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc)
+      wgmma_ss_m64n64k16(acc_block(s, 0),
+                         desc_sw(sQ + kc * 32, 16, ATOM, MODE),
+                         desc_sw(sK + kc * 32, 16, ATOM, MODE), kc > 0);
+    wgmma_commit();
+    mbar_wait(v_bar(t), (t / ST) & 1);  // V tile t landed
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc)
+      wgmma_ss_m64n64k16(acc_block(dp, 0),
+                         desc_sw(sDO + kc * 32, 16, ATOM, MODE),
+                         desc_sw(sV + kc * 32, 16, ATOM, MODE), kc > 0);
+    wgmma_commit();
+    // the dropout mask, hashed while the products run
+    const uint32_t keep =
+        DROPOUT ? keep_bits(n0, qpos, tig, bh, seed, threshold) : 0u;
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
+
+    wgmma_wait<1>();  // S(t); dP(t) may still run
+    fence_acc(s);
+    __syncthreads();  // every warp is done with K tile t - 1
+    if (tid == 0 && t >= 1 && t + ST - 1 < n_tiles) load_kv(t + ST - 1, 0);
+
+    // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        float p = exp2_approx(fmaf(s[nt][c], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kpos = n0 + nt * 8 + tig * 2 + (c & 1);
+          if (!(kpos < sk && (!causal || kpos <= qpos[r]))) p = 0.f;
+        }
+        s[nt][c] = p;
+      }
+    }
+    // ds = p * (dp_eff - delta) * sm_scale, as p * (dp * sm_scale (/
+    // keep_prob where kept, 0 where dropped) - delta * sm_scale)
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float sc = sm_scale;
+        if (DROPOUT) sc = (keep >> (4 * nt + c)) & 1u ? keep_scale : 0.f;
+        dp[nt][c] = s[nt][c] * fmaf(dp[nt][c], sc, -dlt[c >> 1]);
+      }
+    }
+
+    // dQ += dS . K: dS rounded to bf16 in registers, K read MN-major from
+    // the staged tile, 16 keys a step
+    uint32_t da[NB / 2][4];
+    to_a_frags(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NB / 2; ++kc)
+      wgmma_rs_kk<DP / 8, 1>(acc, da[kc],
+                             desc_sw(sK + kc * 16 * ROW, TB, ATOM, MODE), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs_u32(da);
+    fence_acc(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= sq) continue;
+    __nv_bfloat16* out = dq + ((size_t)bh * sq + qpos[r]) * d + tig * 2;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt)
+      if (dt * 8 < d) store2(out + dt * 8, acc[dt][2 * r], acc[dt][2 * r + 1]);
+  }
+}
+
+// Four CTAs an SM, except at DP = 32 with dropout: there the two 64 x 32
+// accumulators, the two score tiles and the keep bits spill 16 bytes at
+// 128 registers (ptxas on the H100's toolkit), and a wgmma kernel must not
+// spill, so that instantiation takes three.
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(WG_THREADS, DP == 32 && DROPOUT ? 3 : 4)
+    flash_bwd_dkv_wgmma_narrow_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        int sq, int sk, int d, float sm_scale, int causal,
+        uint32_t threshold, float keep_prob, uint32_t seed) {
+  using Tl = BwdNarrowTiles<DP>;
+  constexpr int BN = Tl::ROWS, BM = Tl::BN, NB = Tl::NB;  // keys; queries
+  constexpr int ST = Tl::STAGES;
+  constexpr int ROW = Tl::ROW, ATOM = Tl::ATOM, TB = Tl::TILE_BYTES;
+  constexpr uint32_t MODE = Tl::MODE;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t sK = (raw + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sV = sK + TB;
+  const uint32_t sRing = sV + TB;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sk + BN - 1) / BN);
+  const int n0 = cell.block * BN;
+  const int bh = cell.bh;
+  const __nv_bfloat16* qb = q + (size_t)bh * sq * d;
+  const __nv_bfloat16* db = dout + (size_t)bh * sq * d;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+  const int key_w = n0 + warp * 16;  // this warp's first key
+  const int kpos[2] = {key_w + g, key_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  const float keep_scale = sm_scale * inv_keep;
+
+  const int n_tiles = (sq + BM - 1) / BM;
+  // causal: a q tile is live iff its last query can see the first key
+  const int first = causal ? n0 / BM : 0;
+  const int count = n_tiles - first;
+
+  auto load_q = [&](int i) {
+    const int m0 = (first + i) * BM;
+    const uint32_t st = sRing + (i % ST) * Tl::STAGE_BYTES;
+    load_tile_narrow<BM, DP, WG_THREADS>(st, qb, m0, sq, d, tid);
+    load_tile_narrow<BM, DP, WG_THREADS>(st + TB, db, m0, sq, d, tid);
+    load_vec_f32(st + 2 * TB, lb, m0, sq, BM, tid);
+    load_vec_f32(st + 2 * TB + BM * 4, deb, m0, sq, BM, tid - BM);
+  };
+  // the ring: K, V and q tile 0 in one commit group, q tiles 1 ... ST - 2
+  // one group each; then, after the barrier that frees its stage, each
+  // iteration i starts the copy of q tile i + ST - 1 (a group, empty past
+  // the last tile, so the count of groups in flight stays ST - 2)
+  load_tile_narrow<BN, DP, WG_THREADS>(sK, k + (size_t)bh * sk * d, n0, sk,
+                                       d, tid);
+  load_tile_narrow<BN, DP, WG_THREADS>(sV, v + (size_t)bh * sk * d, n0, sk,
+                                       d, tid);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < count) load_q(i);
+    cp_async_commit();
+  }
+
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];  // the 64 x DP of dk, dv
+#pragma unroll
+  for (int dt = 0; dt < DP / 8; ++dt) {
+    dk_acc[dt][0] = dk_acc[dt][1] = dk_acc[dt][2] = dk_acc[dt][3] = 0.f;
+    dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
+  }
+
+  for (int i = 0; i < count; ++i) {
+    const int m0 = (first + i) * BM;
+    const uint32_t sQ = sRing + (i % ST) * Tl::STAGE_BYTES;
+    const uint32_t sDO = sQ + TB;
+    float* sLse = reinterpret_cast<float*>(smem + (sQ + 2 * TB - raw));
+    const float* sDelta = sLse + BM;
+    cp_async_wait<ST - 2>();  // K, V and q tile i have landed
+    // this thread's own copy of the tile's lse and delta (entry tid of
+    // the two), made -lse * log2(e) and delta * sm_scale: each score then
+    // takes one FFMA before its exponential and one FFMA and one FMUL
+    // after
+    sLse[tid] = tid < BM ? -sLse[tid] * LOG2E : sLse[tid] * sm_scale;
+    fence_proxy_async();
+    __syncthreads();  // ... for every thread, and every warp is done with
+                      // the stage the next copy overwrites
+    if (i + ST - 1 < count) load_q(i + ST - 1);
+    cp_async_commit();
+
+    // the dropout keep mask of this thread's fragment (bit 4 * nt + c),
+    // hashed before the products so its temporaries and the score
+    // accumulators are never live together
+    const uint32_t keep =
+        DROPOUT ? keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold) : 0u;
+
+    // s^T = K . Q^T and dp^T = V . dO^T for the CTA's 64 keys, one commit
+    // group each
+    float s[NB][4], dp[NB][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc)
+      wgmma_ss_m64n64k16(acc_block(s, 0),
+                         desc_sw(sK + kc * 32, 16, ATOM, MODE),
+                         desc_sw(sQ + kc * 32, 16, ATOM, MODE), kc > 0);
+    wgmma_commit();
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc)
+      wgmma_ss_m64n64k16(acc_block(dp, 0),
+                         desc_sw(sV + kc * 32, 16, ATOM, MODE),
+                         desc_sw(sDO + kc * 32, 16, ATOM, MODE), kc > 0);
+    wgmma_commit();
+    const bool edge = m0 + BM > sq || key_w + 16 > sk ||
+                      (causal && key_w + 15 > m0);
+
+    // p = 2^(s * sm_scale * log2(e) - lse * log2(e)) in the transposed
+    // frame (fragment rows are keys, columns queries), while dP^T runs
+    wgmma_wait<1>();
+    fence_acc(s);
+    // (two copies of the loop, so the mask's compares run only in the
+    // tiles at an edge)
+    auto exp_tile = [&](auto masked) {
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        const int col = nt * 8 + tig * 2;
+        const float2 nlse = *reinterpret_cast<const float2*>(sLse + col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = c & 1, r = c >> 1;
+          float p = exp2_approx(
+              fmaf(s[nt][c], scale_log2, j ? nlse.y : nlse.x));
+          if constexpr (decltype(masked)::value) {
+            const int qp = m0 + col + j;
+            if (!(qp < sq && kpos[r] < sk && (!causal || kpos[r] <= qp)))
+              p = 0.f;
+          }
+          s[nt][c] = p;
+        }
+      }
+    };
+    if (edge)
+      exp_tile(std::true_type());
+    else
+      exp_tile(std::false_type());
+    // p_eff and ds = p * (dp_eff - delta) * sm_scale, as p * (dp *
+    // sm_scale (/ keep_prob where kept, 0 where dropped) - delta *
+    // sm_scale)
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+      const float2 del_c =
+          *reinterpret_cast<const float2*>(sDelta + nt * 8 + tig * 2);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = s[nt][c];
+        float sc = sm_scale, pe = p;
+        if (DROPOUT) {
+          const bool kept = (keep >> (4 * nt + c)) & 1u;
+          sc = kept ? keep_scale : 0.f;
+          pe = kept ? p * inv_keep : 0.f;
+        }
+        s[nt][c] = pe;
+        dp[nt][c] =
+            p * fmaf(dp[nt][c], sc, -((c & 1) ? del_c.y : del_c.x));
+      }
+    }
+
+    // dV += P_eff^T . dO and dK += dS^T . Q: the fragments rounded to bf16
+    // in registers, dO and Q read MN-major from the staged tiles, 16
+    // queries a step
+    uint32_t pa[NB / 2][4], da[NB / 2][4];
+    to_a_frags(s, pa);
+    to_a_frags(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NB / 2; ++kc)
+      wgmma_rs_kk<DP / 8, 1>(dv_acc, pa[kc],
+                             desc_sw(sDO + kc * 16 * ROW, TB, ATOM, MODE), 1);
+#pragma unroll
+    for (int kc = 0; kc < NB / 2; ++kc)
+      wgmma_rs_kk<DP / 8, 1>(dk_acc, da[kc],
+                             desc_sw(sQ + kc * 16 * ROW, TB, ATOM, MODE), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs_u32(pa);
+    fence_regs_u32(da);
+    fence_acc(dv_acc);
+    fence_acc(dk_acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= sk) continue;
+    const size_t off = ((size_t)bh * sk + kpos[r]) * d + tig * 2;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      if (dt * 8 >= d) continue;
+      store2(dk + off + dt * 8, dk_acc[dt][2 * r], dk_acc[dt][2 * r + 1]);
+      store2(dv + off + dt * 8, dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    }
+  }
+}
+
+template <int DP, bool DROPOUT>
+cudaError_t launch_dq_narrow_t(const Args& a, int d) {
+  using Tl = BwdNarrowTiles<DP>;
+  auto kernel = flash_bwd_dq_wgmma_narrow_kernel<DP, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::DQ_SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  const CUtensorMapSwizzle swz =
+      DP == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if ((err = tensor_map_bf16(&tm_q, a.q, a.bh, a.sq, d, Tl::ROWS, DP,
+                             swz)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_do, a.dout, a.bh, a.sq, d, Tl::ROWS, DP,
+                             swz)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_k, a.k, a.bh, a.sk, d, Tl::BN, DP, swz)) !=
+          cudaSuccess ||
+      (err = tensor_map_bf16(&tm_v, a.v, a.bh, a.sk, d, Tl::BN, DP, swz)) !=
+          cudaSuccess)
+    return err;
+  dim3 grid;
+  if (!launch_grid((a.sq + Tl::ROWS - 1) / Tl::ROWS, a.bh, 1, a.causal,
+                   2LL * a.sk * d * sizeof(__nv_bfloat16), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, WG_THREADS, Tl::DQ_SMEM, a.stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.out0), a.sq, a.sk, d, a.sm_scale,
+      a.causal, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int DP, bool DROPOUT>
+cudaError_t launch_dkv_narrow_t(const Args& a, int d) {
+  using Tl = BwdNarrowTiles<DP>;
+  auto kernel = flash_bwd_dkv_wgmma_narrow_kernel<DP, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::DKV_SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid;  // causal dk/dv's heaviest key blocks are its first
+  if (!launch_grid((a.sk + Tl::ROWS - 1) / Tl::ROWS, a.bh, 1, false, 0,
+                   &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, WG_THREADS, Tl::DKV_SMEM, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1),
+      a.sq, a.sk, d, a.sm_scale, a.causal, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+// DP: d rounded up to 16 or 32 (d a multiple of 8, TMA's 16-byte rows)
+template <int DP>
+cudaError_t launch_dq_narrow(const Args& a, int d) {
+  return a.use_dropout ? launch_dq_narrow_t<DP, true>(a, d)
+                       : launch_dq_narrow_t<DP, false>(a, d);
+}
+
+template <int DP>
+cudaError_t launch_dkv_narrow(const Args& a, int d) {
+  return a.use_dropout ? launch_dkv_narrow_t<DP, true>(a, d)
+                       : launch_dkv_narrow_t<DP, false>(a, d);
+}
+
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
-  if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0)
+  if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || head_dim <= 0)
     return (int)cudaErrorInvalidValue;
-  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; bf16 at d =
-  // 192 ... 512 the wide wgmma kernels (d compiled in); f32 above d = 128
-  // and bf16 above 512 the wide FMA kernels (d a runtime argument)
+  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; bf16 at d = 8,
+  // 16, 24 and 32 the narrow wgmma kernels (d unpadded); bf16 at d = 192
+  // ... 512 the wide wgmma kernels (d compiled in); f32 above d = 128 and
+  // bf16 above 512 the wide FMA kernels (d a runtime argument)
   using bf16 = __nv_bfloat16;
+#define FF_LAUNCH_NARROW(DP)                                       \
+  return (int)(dkv ? launch_dkv_narrow<DP>(a, head_dim)            \
+                   : launch_dq_narrow<DP>(a, head_dim))
+  if (dtype == 1 && head_dim % 8 == 0 && head_dim <= 16)
+    FF_LAUNCH_NARROW(16);
+  if (dtype == 1 && head_dim % 8 == 0 && head_dim <= 32)
+    FF_LAUNCH_NARROW(32);
+#undef FF_LAUNCH_NARROW
   if (!dkv && dtype == 1) switch (head_dim) {
       case 192: return (int)launch_dq_wgmma_wide<192>(a);
       case 256: return (int)launch_dq_wgmma_wide<256>(a);
@@ -1697,8 +2241,9 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
 
 // q, do: (bh, sq, d); k, v: (bh, sk, d), all contiguous in one type
 // (dtype 0 = float32, 1 = bfloat16); lse, delta: (bh, sq) float32. d is
-// 64, 128 or any multiple of 64 above 128; bh any count whose grid fits
-// gridDim.x. dq: (bh, sq, d) in the input type. Returns a cudaError_t (0 = launched).
+// 64, 128 or any multiple of 64 above 128, or in bf16 also 8, 16, 24 or 32
+// (the narrow kernels); bh any count whose grid fits gridDim.x. dq: (bh,
+// sq, d) in the input type. Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bh, int sq, int sk,

@@ -19,11 +19,12 @@
 //     contiguous 128 bytes run along the product's K dimension) or
 //     MN-major (they run along M or N: the transpose bit), so one staged
 //     tile serves as either operand without a transpose in shared memory;
-//   - the narrow tiles of the d <= 32 forward: rows of 32 or 64 bytes
-//     (16 or 32 bf16 columns) in the 32- or 64-byte swizzle, whose 16-byte
-//     chunk c of row r sits at r * ROW + (c ^ ((r * ROW / 128) % (ROW /
-//     16))) * 16 (sw_offset; the 128-byte layout is its ROW = 128 case),
-//     and their descriptors (desc_sw, the mode and the 8-row atom given);
+//   - the narrow tiles of the d <= 32 forward, dq and dk/dv: rows of 32
+//     or 64 bytes (16 or 32 bf16 columns) in the 32- or 64-byte swizzle,
+//     whose 16-byte chunk c of row r sits at r * ROW + (c ^ ((r * ROW /
+//     128) % (ROW / 16))) * 16 (sw_offset; the 128-byte layout is its ROW
+//     = 128 case), filled by TMA or by cp.async (load_tile_narrow), and
+//     their descriptors (desc_sw, the mode and the 8-row atom given);
 //   - wgmma.mma_async m64n64k16, m64n32k16 and m64n16k16 (bf16 in, f32
 //     accumulate) with both operands in shared memory, and the same three
 //     widths with A in registers. The accumulator
@@ -36,10 +37,11 @@
 //
 // The forward and dq fill their rings by TMA (K/V tiles, with Q, and dO
 // for dq, resident); dk/dv by cp.async, since it also streams per-row
-// lse and delta vectors. The wide bf16 forward, dq and dk/dv (d 192 ...
-// 512) run two warpgroups per CTA; above d = 320 they split D between
-// them (WideSplit) and sum their partial score tiles through shared
-// memory (exchange_store / exchange_add).
+// lse and delta vectors (at every head dim, the narrow one included).
+// The wide bf16 forward, dq and dk/dv (d 192 ... 512) run two warpgroups
+// per CTA; above d = 320 they split D between them (WideSplit) and sum
+// their partial score tiles through shared memory (exchange_store /
+// exchange_add).
 
 #pragma once
 
@@ -131,6 +133,29 @@ __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
     const bool ok = row0 + r < n_rows;
     const __nv_bfloat16* s = src + (size_t)(ok ? row0 + r : 0) * D + c * 8;
     cp_async_16(dst + sw128_offset<ROWS>(r, c), s, ok ? 16u : 0u);
+  }
+}
+
+// Copy rows [row0, row0 + ROWS) of a row-major (n_rows, d) bf16 matrix (d
+// a multiple of 8, at most DP) into a ROWS x DP tile of 2 * DP-byte rows
+// in the 2 * DP-byte swizzle (sw_offset), NTHREADS threads 16 bytes each
+// at a time; rows past n_rows and columns past d are zero-filled and read
+// nothing (the narrow dk/dv kernel's Q and dO tiles).
+template <int ROWS, int DP, int NTHREADS>
+__device__ __forceinline__ void load_tile_narrow(uint32_t dst,
+                                                 const __nv_bfloat16* src,
+                                                 int row0, int n_rows, int d,
+                                                 int tid) {
+  constexpr int CHUNKS = DP / 8;
+  constexpr int TOTAL = ROWS * CHUNKS;
+  static_assert(TOTAL % NTHREADS == 0, "whole rounds");
+#pragma unroll
+  for (int j = 0; j < TOTAL / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = row0 + r < n_rows && c * 8 < d;
+    const __nv_bfloat16* s = ok ? src + (size_t)(row0 + r) * d + c * 8 : src;
+    cp_async_16(dst + sw_offset<2 * DP>(r, c), s, ok ? 16u : 0u);
   }
 }
 

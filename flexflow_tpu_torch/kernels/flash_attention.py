@@ -33,11 +33,12 @@ and ``lse = m``; the default ``sm_scale`` is ``1/sqrt(d)`` of the
 UNPADDED head dim, kept when the wrapper pads d up to a multiple of 64,
 as the reference pads it (so 48 runs at 64, 192 stays 192 and 300 runs
 at 320; the kernels take 64, 128 and any multiple of 64 above 128, with
-no upper limit). The bf16 forward at d <= 32 pads only to a multiple of
-8 and runs the narrow kernel, whose tensor maps zero-fill the columns up
-to 16 or 32 in shared memory; its backward pads to 64 inside the
-autograd Function. Every kernel carries b*h on the grid's x
-dimension, so b*h has no limit of its own. The backward rebuilds the
+no upper limit). bf16 at d <= 32 pads only to a multiple of 8 and runs
+the narrow kernels, forward, dq and dk/dv, whose tiles zero-fill the
+columns up to 16 or 32 in shared memory; the autograd Function's
+backward hands the kernels the forward's tensors as they are. Every
+kernel carries b*h on the grid's x dimension, so b*h has no limit of its
+own. The backward rebuilds the
 keep mask from the same tuple, rounds ds to k's (q's) dtype before dS.K
 (dS^T.Q) and p_eff to do's dtype before P^T.dO, as ``_flash_bwd_rule``
 does.
@@ -258,36 +259,43 @@ def _dropout_args(dropout_rate: float, seed: int):
 
 
 def _narrow(d: int, dtype) -> bool:
-    """Whether the forward takes head dim ``d`` unpadded: bf16 at 8, 16,
-    24 and 32 runs the narrow kernel (TMA needs rows of a multiple of 16
-    bytes)."""
+    """Whether the kernels take head dim ``d`` unpadded below 64: bf16 at
+    8, 16, 24 and 32 runs the narrow forward, dq and dk/dv (TMA needs
+    rows of a multiple of 16 bytes)."""
     return dtype == torch.bfloat16 and d <= 32 and d % 8 == 0
 
 
+def _kernel_takes(d: int, dtype) -> bool:
+    """Whether the kernels (forward, dq and dk/dv alike) take head dim
+    ``d``: a positive multiple of 64, or a narrow one."""
+    return d > 0 and (d % 64 == 0 or _narrow(d, dtype))
+
+
 def _fwd_head_dim(d: int, dtype) -> int:
-    """The head dim the forward kernels take for ``d``: bf16 up to 32
-    rounded up to a multiple of 8 (the narrow kernel), else to a
-    multiple of 64."""
+    """The head dim the kernels take for ``d``: bf16 up to 32 rounded up
+    to a multiple of 8 (the narrow kernels), else to a multiple of 64.
+    :func:`flash_attention` pads to it before the autograd Function, so
+    the backward kernels take the forward's tensors as they are."""
     if dtype == torch.bfloat16 and d <= 32:
         return -(-d // 8) * 8
     return -(-d // 64) * 64
 
 
-def _kernel_inputs(*ts, narrow: bool = False) -> None:
+def _kernel_inputs(*ts) -> None:
     """What every kernel takes: cuda tensors of one dtype, contiguous,
     16-byte aligned, head dim a positive multiple of 64 (64 and 128 run
     the tensor-core or exact kernels, any wider one the wide kernels:
-    bf16 at 192 ... 512 the wide tensor-core forward, dq and dk/dv) or,
-    for the forward (``narrow``), bf16 at 8, 16, 24 or 32."""
+    bf16 at 192 ... 512 the wide tensor-core forward, dq and dk/dv) or
+    bf16 at 8, 16, 24 or 32 (the narrow kernels)."""
     t0 = ts[0]
     if t0.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda tensors, not "
                          f"{t0.device}")
     d = t0.shape[-1]
-    if d <= 0 or (d % 64 and not (narrow and _narrow(d, t0.dtype))):
+    if not _kernel_takes(d, t0.dtype):
         raise ValueError(f"the kernels take a head dim that is a multiple "
-                         f"of 64 (the bf16 forward also 8, 16, 24 and "
-                         f"32), got {d} in {t0.dtype}")
+                         f"of 64 (bf16 also 8, 16, 24 and 32), got {d} in "
+                         f"{t0.dtype}")
     for t in ts:
         if t.dtype != t0.dtype or t.device != t0.device \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -304,7 +312,7 @@ def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
                                      sm_scale=sm_scale,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=seed)
-    _kernel_inputs(q, k, v, narrow=True)
+    _kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
@@ -324,13 +332,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                            dropout_rate: float = 0.0, dropout_seed=None):
     """dq of flash attention from the forward's lse and ``delta =
     rowsum(do * o)`` (both (b, h, sq) f32). CUDA tensors (head dim 64,
-    128 or a multiple of 64 above 128) launch the dq kernel of
-    ``csrc/flash_attention_bwd.cu`` (bf16 up to d = 128: the ``wgmma``
-    kernel, which encodes four TMA tensor maps per launch; bf16 at d =
-    192 ... 512: the wide ``wgmma`` kernel, d compiled in; f32 up to d =
-    128: the exact FMA kernel; f32 above 128 and bf16 above 512: the wide
-    FMA kernel, d a runtime argument) and count one in ``.launches``; CPU
-    tensors run
+    128 or a multiple of 64 above 128, or bf16 at 8, 16, 24 or 32) launch
+    the dq kernel of ``csrc/flash_attention_bwd.cu`` (bf16 at d = 64 and
+    128: the ``wgmma`` kernel, which encodes four TMA tensor maps per
+    launch; bf16 at d <= 32: the narrow ``wgmma`` kernel, d unpadded;
+    bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d compiled in;
+    f32 up to d = 128: the exact FMA kernel; f32 above 128 and bf16 above
+    512: the wide FMA kernel, d a runtime argument) and count one in
+    ``.launches``; CPU tensors run
     :func:`flash_attention_bwd_dq_plain` and count one in
     ``.plain_calls``."""
     if sm_scale is None:
@@ -360,8 +369,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
                             dropout_rate: float = 0.0, dropout_seed=None):
     """(dk, dv) of flash attention, as :func:`flash_attention_bwd_dq`
     takes its inputs. CUDA tensors launch the dk/dv kernel of
-    ``csrc/flash_attention_bwd.cu`` (bf16 up to d = 128: the ``wgmma``
-    kernel; bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d
+    ``csrc/flash_attention_bwd.cu`` (bf16 at d = 64 and 128: the
+    ``wgmma`` kernel; bf16 at d <= 32: the narrow ``wgmma`` kernel, d
+    unpadded; bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d
     compiled in, two sweeps over the query tiles; f32 up to d = 128: the
     exact FMA kernel; f32 above 128 and bf16 above 512: the wide FMA
     kernel, d a runtime argument) and count one in ``.launches``; CPU
@@ -393,10 +403,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
 class _FlashAttention(torch.autograd.Function):
     """The counterpart of the JAX ``custom_vjp``: the forward kernel
     saves (q, k, v, o, lse, seed); the backward takes delta in f32 and
-    launches the dq and dk/dv kernels, which take the head dim padded to
-    a multiple of 64: on the card a narrow forward's q, k, v and dO are
-    padded here (zero columns change no score and give zero gradient
-    columns) and the gradients sliced back."""
+    launches the dq and dk/dv kernels on the saved tensors as they are:
+    they take every head dim the forward takes (bf16 at d <= 32 the
+    narrow kernels, unpadded)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, dropout_rate, seed):
@@ -412,15 +421,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        d = q.shape[-1]
-        # the plain backward on the CPU takes any d
-        d_b = -(-d // 64) * 64 if q.device.type == "cuda" else d
-        if d_b != d:
-            q, k, v, do = (F.pad(t, (0, d_b - d)) for t in (q, k, v, do))
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
-        if d_b != d:
-            dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
         return dq, dk, dv, None, None, None, None
 
 
@@ -433,8 +435,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     device.
 
     CUDA tensors launch ``csrc/flash_attention_fwd.cu`` (bf16 at d = 8,
-    16, 24 and 32 the narrow kernel on the unpadded tensors; other head
-    dims padded to a multiple of 64) and count one launch in
+    16, 24 and 32 the narrow kernel on the unpadded tensors, and the
+    narrow dq and dk/dv in the backward; other head dims padded to a
+    multiple of 64) and count one launch in
     ``flash_attention.launches`` (the backward's kernels count
     in ``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain

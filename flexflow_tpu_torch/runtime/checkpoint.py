@@ -31,11 +31,24 @@ pickle of nested dicts of numpy arrays with ``{"params", "opt_state",
 "state"}`` at the top. orbax is JAX-only: a step that orbax wrote (a
 ``state/`` directory) raises :class:`UnsupportedCheckpointFormat`, and
 so does one in the multi-host format (``"format": "multihost"``), which
-comes with the parallel lowering. numpy has no bfloat16, so a bf16 leaf
-is stored as its raw two-byte payload (a ``uint16`` array) under the
-manifest dtype ``"bfloat16"``: its CRC32 is that of the same bytes. A
-bf16 leaf the JAX package wrote unpickles only where ``ml_dtypes`` is
-installed.
+comes with the parallel lowering. numpy has no bfloat16 of its own and
+the port does not depend on ``ml_dtypes``, so it handles a bf16 leaf
+as its raw two-byte payload (a ``uint16`` array) under the manifest dtype
+``"bfloat16"``, whose CRC32 is that of the same bytes, and crosses both
+ways without ``ml_dtypes``:
+
+  - it pickles the leaf as ``numpy.ndarray(shape, numpy.dtype("bfloat16"),
+    payload)`` (:class:`_BF16Leaf`). Where ``ml_dtypes`` is loaded, as it
+    always is in the JAX package, numpy resolves that dtype by name, so
+    the JAX package unpickles a writable ``ml_dtypes`` bfloat16 array over
+    the same bytes and its manifest check (``str(dtype)`` and CRC32)
+    holds;
+  - it reads through :class:`_Unpickler`, which resolves a bfloat16 dtype,
+    by that name or as ``ml_dtypes.bfloat16`` (how an ``ml_dtypes`` array,
+    the JAX package's form, pickles its dtype), to ``uint16``: either form
+    loads as the payload, which restore copies into a bf16 tensor.
+
+f32 leaves pickle as plain numpy arrays, as before.
 
 Restore writes into the live tensors with ``copy_`` (same device, dtype
 and strides): no second copy of the state on the device, and the fused
@@ -61,8 +74,59 @@ from ..obs.metrics_registry import REGISTRY
 
 log = logging.getLogger("flexflow_tpu_torch")
 
-#: manifest dtype of a bfloat16 leaf (stored as its uint16 payload)
+#: manifest dtype of a bfloat16 leaf (handled as its uint16 payload)
 BF16 = "bfloat16"
+
+
+class _BF16DType:
+    """Pickles as ``numpy.dtype("bfloat16")``: through the ``numpy.dtype``
+    global, which :class:`_Unpickler` resolves (``numpy.ndarray``, which
+    every protocol-4 numpy pickle also names, it leaves alone)."""
+
+    def __reduce__(self):
+        return np.dtype, (BF16,)
+
+
+class _BF16Leaf:
+    """A bf16 leaf's uint16 payload as the port pickles it:
+    ``numpy.ndarray(shape, numpy.dtype("bfloat16"), payload)``, the
+    payload in-band as a bytearray (protocol 5 writes a writable buffer
+    so), so the array unpickles writable."""
+
+    __slots__ = ("payload",)
+
+    def __init__(self, payload: np.ndarray):
+        self.payload = payload
+
+    def __reduce__(self):
+        return np.ndarray, (self.payload.shape, _BF16DType(),
+                            pickle.PickleBuffer(self.payload))
+
+
+class _MLDtypesBF16:
+    """Stands for ``ml_dtypes.bfloat16`` while the port unpickles."""
+
+
+def _numpy_dtype(spec, *args):
+    """``numpy.dtype`` as the port's reader resolves it: bfloat16, by
+    name or as ``ml_dtypes.bfloat16``, is a fresh uint16 descriptor (the
+    pickle's state for ml_dtypes' dtype then sets its byte order, size
+    and alignment, which uint16 shares)."""
+    if spec is _MLDtypesBF16 or (isinstance(spec, str) and spec == BF16):
+        return np.dtype(np.uint16, False, True)
+    return np.dtype(spec, *args)
+
+
+class _Unpickler(pickle.Unpickler):
+    """Loads ``state.pkl`` without ``ml_dtypes``: a bf16 leaf of either
+    package's form arrives as its uint16 payload."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes" and name == BF16:
+            return _MLDtypesBF16
+        if (module, name) == ("numpy", "dtype"):
+            return _numpy_dtype
+        return super().find_class(module, name)
 
 
 class CheckpointCorruption(RuntimeError):
@@ -159,10 +223,10 @@ def _manifest_of(host_state, bf16: Set[str] = frozenset()
 
 
 def _dtype_matches(arr: np.ndarray, want: str) -> bool:
-    got = str(arr.dtype)
-    # a bf16 leaf is a uint16 payload when the port wrote it, an
-    # ml_dtypes bfloat16 array when the JAX package did
-    return got == want or (want == BF16 and arr.dtype == np.uint16)
+    # the port loads a bf16 leaf as its uint16 payload, whichever package
+    # wrote it
+    return str(arr.dtype) == want or (want == BF16
+                                      and arr.dtype == np.uint16)
 
 
 def _verify_manifest(state, manifest: Dict[str, Any], where: str) -> None:
@@ -326,10 +390,12 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         manifest = _manifest_of(host_state, bf16)
+        payload = _map(host_state, lambda path, arr: _BF16Leaf(arr)
+                       if _keystr(path) in bf16 else arr)
         with open(os.path.join(tmp, "state.pkl"), "wb") as f:
             # protocol 5 writes numpy buffers without an extra copy;
             # pickle.load reads every protocol
-            pickle.dump(host_state, f, protocol=5)
+            pickle.dump(payload, f, protocol=5)
             f.flush()
             os.fsync(f.fileno())
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -427,7 +493,7 @@ class CheckpointManager:
                 f"it from the JAX package with "
                 f"CheckpointManager(writer='numpy') to read it here")
         with open(os.path.join(sdir, "state.pkl"), "rb") as f:
-            state = pickle.load(f)
+            state = _Unpickler(f).load()
         if verify and manifest is not None:
             _verify_manifest(state, manifest, f"checkpoint step {step}")
         with open(os.path.join(sdir, "meta.json")) as f:

@@ -10,6 +10,13 @@ update through the fused Adam's plain version.
   package; the next 3 steps' losses then agree within 1e-5 relative.
 - For the same state, both packages write the same ``manifest.json``:
   the same ``keystr`` leaf keys, shapes, dtypes and CRC32s.
+- bf16 leaves cross both ways at the manager's level: a step the port
+  writes verifies and restores in the JAX package bit for bit, and one
+  the JAX package writes restores in the port, also in a process where
+  ``ml_dtypes`` cannot be imported (the port does not depend on it). An f32
+  step keeps its bytes: its ``state.pkl`` is the plain protocol-5 pickle
+  of its numpy tree and its ``manifest.json`` is byte-identical to the
+  JAX package's.
 - ``tests/data/bert_base_checkpoint_leaves.json`` lists the manifest
   leaves (key, shape, dtype) of BERT-base at 8 x 128 with Adam as the
   JAX package keys them; ``chip_smoke.py``'s resilience phase holds the
@@ -176,6 +183,151 @@ def test_same_state_same_manifest(tmp_path):
         meta = json.load(f)
     assert meta["step"] == 2 and meta["strategy"] is None \
         and meta["batch_size"] == BATCH
+
+
+def _bf16_state(seed):
+    """A state of bf16 leaves (a matrix, a scalar, an empty one) beside
+    an f32 one, as torch tensors, from numpy."""
+    rng = np.random.default_rng(seed)
+    f32 = rng.standard_normal((3, 5)).astype(np.float32)
+    return {"params": {"l": {
+        "w": torch.from_numpy(f32).to(torch.bfloat16),
+        "s": torch.tensor(float(f32[0, 0]), dtype=torch.bfloat16),
+        "e": torch.zeros(0, 4, dtype=torch.bfloat16),
+        "f": torch.from_numpy(f32 * 2)}},
+        "opt_state": {"m": {"l": {
+            "w": torch.from_numpy(f32 / 3).to(torch.bfloat16)}}}}
+
+
+def _payload(t: torch.Tensor) -> bytes:
+    return t.contiguous().view(torch.int16).numpy().tobytes() \
+        if t.dtype == torch.bfloat16 else t.numpy().tobytes()
+
+
+def _tmap(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tmap(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def test_port_bf16_checkpoint_restores_in_jax(tmp_path):
+    """The JAX package's restore verifies a bf16 step the port wrote (its
+    manifest check compares str(dtype) and the CRC32) and gets
+    ml_dtypes bfloat16 arrays over the same bytes."""
+    state = _bf16_state(0)
+    d = str(tmp_path / "port")
+    CheckpointManager(d).save(4, state)
+    got, meta = JaxCheckpointManager(d).restore(4)
+    assert meta["step"] == 4
+    for path, t in _leaves(state):
+        arr = got
+        for k in path:
+            arr = arr[k]
+        want = "bfloat16" if t.dtype == torch.bfloat16 else "float32"
+        assert str(arr.dtype) == want and arr.shape == tuple(t.shape), path
+        assert arr.tobytes() == _payload(t), path
+        assert arr.flags.writeable, path
+
+
+def _jax_bf16_step(d, state):
+    """The same state saved by the JAX package (jnp arrays, numpy
+    writer)."""
+    import jax.numpy as jnp
+    JaxCheckpointManager(d, writer="numpy").save(6, _tmap(
+        lambda t: jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32),
+        state))
+
+
+def test_jax_bf16_checkpoint_restores_in_the_port(tmp_path):
+    """A bf16 step the JAX package wrote loads in the port as the uint16
+    payload (the manifest verified) and lands bit for bit in a live bf16
+    tensor."""
+    from flexflow_tpu_torch.runtime.checkpoint import _copy_into
+    state = _bf16_state(1)
+    d = str(tmp_path / "jax")
+    _jax_bf16_step(d, state)
+    got, meta = CheckpointManager(d).restore(6)
+    assert meta["step"] == 6
+    live = _tmap(lambda t: torch.full_like(t, 7), state)
+    for top in state:
+        _copy_into(live[top], got[top], top)
+    for (path, t), (_, u) in zip(_leaves(state), _leaves(live)):
+        assert u.dtype == t.dtype and torch.equal(u, t), path
+
+
+_NO_ML_DTYPES = """
+import json, sys
+sys.modules["ml_dtypes"] = None      # the port does not depend on it
+import torch
+from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+try:
+    import ml_dtypes  # noqa: F401
+    blocked = False
+except ImportError:
+    blocked = True
+out = {"blocked": blocked, "jax_loaded": "jax" in sys.modules}
+for name, step in (("port", 4), ("jax", 6)):
+    state, _ = CheckpointManager(sys.argv[1] + "/" + name).restore(step)
+    leaves = state["params"]["l"]
+    out[name] = {k: [str(a.dtype), list(a.shape), a.tobytes().hex()]
+                 for k, a in leaves.items()}
+print(json.dumps(out))
+"""
+
+
+def test_bf16_leaves_read_without_ml_dtypes(tmp_path):
+    """The port reads both forms of a bf16 leaf in a process where
+    ml_dtypes cannot be imported."""
+    import subprocess
+    import sys
+    state = _bf16_state(2)
+    CheckpointManager(str(tmp_path / "port")).save(4, state)
+    _jax_bf16_step(str(tmp_path / "jax"), state)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", _NO_ML_DTYPES,
+                          str(tmp_path)], capture_output=True, text=True,
+                         env=env, cwd=root, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["blocked"] and not out["jax_loaded"]
+    for name in ("port", "jax"):
+        for k, t in state["params"]["l"].items():
+            want = ["uint16" if t.dtype == torch.bfloat16 else "float32",
+                    list(t.shape), _payload(t).hex()]
+            assert out[name][k] == want, (name, k)
+
+
+def test_f32_checkpoint_files_unchanged(tmp_path):
+    """An f32 step's state.pkl is the plain protocol-5 pickle of its
+    numpy tree, and its manifest.json is byte-identical to the one the
+    JAX package writes for the same state."""
+    import pickle
+    import jax.numpy as jnp
+    rng = np.random.default_rng(3)
+    tree = {"params": {"a": {"w": rng.standard_normal((4, 3)).astype(
+        np.float32)}, "b": {"w": rng.standard_normal(5).astype(
+            np.float32)}}, "opt_state": {"m": {"a": {"w": np.zeros(
+                (4, 3), np.float32)}}}}
+    dp, dj = str(tmp_path / "port"), str(tmp_path / "jax")
+    CheckpointManager(dp).save(1, _tmap(torch.from_numpy, tree))
+    JaxCheckpointManager(dj, writer="numpy").save(1, _tmap(jnp.asarray,
+                                                           tree))
+    with open(os.path.join(dp, "1", "state.pkl"), "rb") as f:
+        assert f.read() == pickle.dumps(tree, protocol=5)
+    with open(os.path.join(dp, "1", "manifest.json"), "rb") as f:
+        mp = f.read()
+    with open(os.path.join(dj, "1", "manifest.json"), "rb") as f:
+        assert mp == f.read()
 
 
 def _rule_leaves(layers, opt_slots=("m", "v")):

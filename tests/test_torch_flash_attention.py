@@ -545,9 +545,9 @@ def test_every_wide_wgmma_head_dim_has_a_card_case():
 
 # Narrow heads: the Transformer's d = 8 (TransformerConfig's 64 over 8
 # heads) and 16, 24, 32. The reference pads d to 64 (``_jax_lse`` does
-# as its wrapper does); on the card the bf16 forward runs them unpadded
-# through the narrow kernel and the backward pads to 64 inside the
-# autograd Function (the CPU's plain backward takes them as they are).
+# as its wrapper does); on the card bf16 runs them unpadded through the
+# narrow forward, dq and dk/dv kernels (the CPU's plain versions take
+# them as they are).
 # Causal and not, ragged, sq != sk both ways, dropout 0 and 0.1 (causal
 # dropout against the explicit-mask golden, which the JAX kernel does not
 # lower).
@@ -647,3 +647,101 @@ def test_every_narrow_head_dim_has_a_card_case():
     # the ragged edges: sq != sk both ways at a narrow d
     assert any(c[2] < c[3] and c[4] <= 32 for c in bf)
     assert any(c[2] > c[3] and c[4] <= 32 for c in bf)
+
+
+def test_backward_head_dim_on_the_card(monkeypatch):
+    """What the backward kernels receive on the card: the autograd
+    Function hands dq and dk/dv the forward's tensors as they are, so
+    their head dim is _fwd_head_dim's (bf16 up to 32 rounded up to a
+    multiple of 8, everything else to a multiple of 64), which the
+    kernels take; nothing is padded or sliced in the backward."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for dt in (bf, f32):
+        for d in range(1, 600):
+            dk = bwd_mod._fwd_head_dim(d, dt)
+            assert bwd_mod._kernel_takes(dk, dt), (d, dt)
+            assert bwd_mod._kernel_takes(d, dt) == (dk == d), (d, dt)
+    assert [bwd_mod._fwd_head_dim(d, bf) for d in (4, 8, 12, 24, 32, 33)] \
+        == [8, 8, 16, 24, 32, 64]
+    assert [bwd_mod._fwd_head_dim(d, f32) for d in (8, 32, 48, 64)] == \
+        [64, 64, 64, 64]
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Pads(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.startswith(("constant_pad_nd", "slice")):
+                Pads.n += 1
+            return func(*args, **(kwargs or {}))
+
+    seen = []
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        real = getattr(bwd_mod, name)
+
+        def spy(q, k, v, do, *a, _real=real, _name=name, **kw):
+            seen.append((_name, q.shape[-1], k.shape[-1], do.shape[-1]))
+            return _real(q, k, v, do, *a, **kw)
+        # the wrapper counts its calls on the module's name, now the spy
+        spy.plain_calls, spy.launches = 0, 0
+        monkeypatch.setattr(bwd_mod, name, spy)
+    for d, dt in ((8, bf), (12, bf), (24, bf), (8, f32), (48, bf)):
+        dk = bwd_mod._fwd_head_dim(d, dt)
+        q, k, v = (torch.from_numpy(x).to(dt).requires_grad_()
+                   for x in _qkv(1, 2, 40, 40, dk, seed=d))
+        o, _ = bwd_mod._FlashAttention.apply(q, k, v, False, d ** -0.5,
+                                             0.0, 0)
+        seen.clear()
+        Pads.n = 0
+        with Pads():
+            grads = torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+        assert Pads.n == 0, (d, dt)
+        assert seen == [("flash_attention_bwd_dq", dk, dk, dk),
+                        ("flash_attention_bwd_dkv", dk, dk, dk)], seen
+        assert all(g.shape == t.shape for g, t in zip(grads, (q, k, v)))
+
+
+def test_every_narrow_backward_head_dim_has_a_card_case():
+    """The narrow bf16 dq and dk/dv kernels are compiled for DP = 16 (d 8,
+    16) and 32 (d 24, 32), each entry launching the narrow kernel of its
+    side, and chip_smoke.py's kernel phase holds them against their plain
+    versions on unpadded tensors: both DPs causal and not, each with and
+    without dropout, the Transformer's b*h = 512 at d = 8, sq != sk both
+    ways at both DPs."""
+    import importlib.util
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "flexflow_tpu_torch", "csrc",
+                           "flash_attention_bwd.cu")) as f:
+        text = f.read()
+    narrow = re.findall(r"head_dim <= (\d+)\)\s*FF_LAUNCH_NARROW\((\d+)\)",
+                        text)
+    assert narrow == [("16", "16"), ("32", "32")], narrow
+    macro = re.search(r"#define FF_LAUNCH_NARROW\(DP\)(.*?)\n\s*if",
+                      text, re.S).group(1)
+    assert "dkv ? launch_dkv_narrow<DP>(" in macro \
+        and ": launch_dq_narrow<DP>(" in macro, macro
+    for side in ("dq", "dkv"):
+        assert re.search(rf"launch_{side}_narrow_t<DP, true>", text)
+        assert re.search(rf"auto kernel = flash_bwd_{side}_wgmma_narrow_"
+                         rf"kernel<DP, DROPOUT>;", text)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    bf = [c for c in smoke.CASES if c[5] == torch.bfloat16
+          and bwd_mod._narrow(bwd_mod._fwd_head_dim(c[4], c[5]), c[5])]
+    every = {(False, False), (False, True), (True, False), (True, True)}
+    for dp in (16, 32):
+        mine = [c for c in bf if -(-c[4] // 16) * 16 == dp]
+        assert {(c[6], c[7] > 0) for c in mine} == every, dp
+        assert any(c[2] < c[3] for c in mine), dp
+        assert any(c[2] > c[3] for c in mine), dp
+    assert any(c[0] * c[1] == 512 and c[4] == 8 and c[2] == 512
+               for c in bf)
+    # the kernel phase hands every case the kernels' head dim, unpadded
+    # past it
+    assert all(smoke.kernel_head_dim(c[4], c[5])
+               == bwd_mod._fwd_head_dim(c[4], c[5]) for c in smoke.CASES)
