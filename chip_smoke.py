@@ -29,7 +29,11 @@ never JAX, and:
                the causal backward at d 64, head dims 256, 320 and 512,
                NMT's attention (b64 h1 s128 d512), the Transformer's
                (b64 h8 s512 d8, unpadded: the narrow kernels, and the
-               autograd Function's whole backward), SDPA's
+               autograd Function's whole backward), the f32 forward
+               at the search's calibration rows (b1 h8 d64 causal, s 128
+               and 512: the split-precision TF32 kernel, its bound beside
+               the FMA rate's), at d 128 and at d 256 (the wide FMA
+               kernel), the f32 dq and dk/dv at b1 h8 s512, SDPA's
                backend named (its
                efficient backend's backward where its flash backend
                refuses the shape), Adam over BERT-base and over DLRM's
@@ -158,8 +162,9 @@ never JAX, and:
  15. search  - the strategy search on the card: the calibration (the bf16
                matmul chain and mxu_eff, host dispatch, HBM streaming
                read, op_attention@xla / @flash at s 128 and 512, then
-               both at 1024, 2048, 4096, b1 h8 d64 f32 causal, and the
-               crossover; the flash forward must launch while
+               both at 1024, 2048, 4096, b1 h8 d64 f32 causal, SDPA at
+               every length (timed only), and the crossover; the flash
+               forward must launch while
                calibrating); BERT-base (BertConfig.base(), uncut) 8 x 512
                compiled with search_budget=8 and calibration on (Unity,
                the floor guard timing searched and data-parallel steps on
@@ -263,6 +268,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 # the special-function units: 16 ex2 per SM per clock on 132 SMs, at the
 # card's maximum SM clock, which phase_device reads from nvidia-smi
@@ -345,17 +351,22 @@ def exp_ms(n_exp: float) -> float:
 
 
 def attention_bound_ms(bh: int, sq: int, sk: int, d: int,
-                       itemsize: int, causal: bool = False) -> tuple:
+                       itemsize: int, causal: bool = False,
+                       tf32_passes: int = 0) -> tuple:
     """Least time for one attention forward, the largest of three: q, k,
     v read once, o and the f32 lse written once; 4*d flops per (query,
     key) pair the mask keeps (sq*sk, or s*(s+1)/2 causal) per head on the
-    bf16 tensor cores; one exponential per such pair (exp_ms). Flops and
-    exponentials are both "operations"."""
+    bf16 tensor cores, or in f32 at the FMA rate, or (``tf32_passes``,
+    the f32 kernel's split-precision products) that many times over at
+    the TF32 tensor-core rate; one exponential per such pair (exp_ms).
+    Flops and exponentials are both "operations"."""
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * itemsize + bh * sq * 4
     pairs = sq * (sq + 1) / 2 if causal else sq * sk
     flops = 4.0 * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    if tf32_passes:
+        flops, peak = flops * tf32_passes, TF32_FLOP_PER_S
     t_ops = max(flops / peak * 1e3, exp_ms(bh * pairs))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -572,6 +583,36 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (1640, 40, 64, 64, 64, torch.bfloat16, False, 0.0),
     (1640, 40, 64, 64, 64, torch.bfloat16, True, 0.0),
     (1640, 40, 64, 64, 256, torch.bfloat16, False, 0.0),
+    # f32 at d 128 (the tensor-core f32 forward, 64-row CTAs over 32-key
+    # tiles; the f32 dq and dk/dv): causal and not, with and without
+    # dropout, a ragged s, sq != sk both ways, s below 64
+    (2, 4, 200, 200, 128, torch.float32, False, 0.0),
+    (2, 4, 200, 200, 128, torch.float32, True, 0.1),
+    (2, 4, 128, 128, 128, torch.float32, True, 0.0),
+    (2, 4, 96, 200, 128, torch.float32, False, 0.1),
+    (2, 4, 200, 96, 128, torch.float32, False, 0.0),
+    (2, 4, 40, 40, 128, torch.float32, True, 0.1),
+    (8, 12, 512, 512, 128, torch.float32, False, 0.0),
+    # f32 at d 64 (64-key tiles): s below 64, sq != sk both ways, a
+    # causal s of five tiles with dropout; keys within one tile (the
+    # second warpgroup idles, at both d) causal and not, with and without
+    # dropout
+    (8, 12, 40, 40, 64, torch.float32, True, 0.1),
+    (8, 12, 40, 40, 64, torch.float32, False, 0.1),
+    (8, 12, 64, 64, 64, torch.float32, False, 0.0),
+    (8, 12, 64, 64, 64, torch.float32, True, 0.0),
+    (2, 4, 32, 32, 128, torch.float32, False, 0.0),
+    (2, 4, 32, 32, 128, torch.float32, True, 0.1),
+    (2, 4, 20, 20, 128, torch.float32, False, 0.1),
+    (2, 4, 20, 20, 128, torch.float32, True, 0.0),
+    (2, 4, 96, 200, 64, torch.float32, False, 0.0),
+    (2, 4, 200, 96, 64, torch.float32, False, 0.1),
+    (2, 4, 320, 320, 64, torch.float32, True, 0.1),
+    # the search's calibration rows (b1 h8 d64 f32 causal at s 128 and
+    # 512) and the longest length its phase times: the longest sums
+    (1, 8, 128, 128, 64, torch.float32, True, 0.0),
+    (1, 8, 512, 512, 64, torch.float32, True, 0.0),
+    (1, 8, 4096, 4096, 64, torch.float32, True, 0.0),
 ]
 
 
@@ -1033,18 +1074,20 @@ def step_times(seq: int) -> dict:
 
 
 def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool,
-                 causal: bool = False) -> tuple:
-    """Least time of one backward kernel (bf16): q, k, v, do read once,
-    lse and delta (f32) read once, dq (or dk and dv) written once, against
-    6 (dq) or 8 (dk/dv) * d flops per (query, key) pair the mask keeps
-    (s*s, or s*(s+1)/2 causal) per head on the bf16 tensor cores, and
-    one exponential per such pair (each kernel rebuilds p)."""
-    nbytes = 4 * bh * s * d * 2 + 2 * bh * s * 4 \
-        + (2 if dkv else 1) * bh * s * d * 2
+                 causal: bool = False, itemsize: int = 2) -> tuple:
+    """Least time of one backward kernel: q, k, v, do read once, lse and
+    delta (f32) read once, dq (or dk and dv) written once, against 6 (dq)
+    or 8 (dk/dv) * d flops per (query, key) pair the mask keeps (s*s, or
+    s*(s+1)/2 causal) per head on the bf16 tensor cores (f32: at the FMA
+    rate, as the f32 kernels run), and one exponential per such pair
+    (each kernel rebuilds p)."""
+    nbytes = 4 * bh * s * d * itemsize + 2 * bh * s * 4 \
+        + (2 if dkv else 1) * bh * s * d * itemsize
     pairs = s * (s + 1) / 2 if causal else s * s
     flops = (8.0 if dkv else 6.0) * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / BF16_FLOP_PER_S * 1e3, exp_ms(bh * pairs))
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_ops = max(flops / peak * 1e3, exp_ms(bh * pairs))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1072,19 +1115,27 @@ def sdpa_efficient_bwd_ms(q, k, v, do, rate: float, causal: bool) -> float:
 
 
 def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
-              h: int = 12, d: int = 64) -> dict:
+              h: int = 12, d: int = 64, dtype=torch.bfloat16) -> dict:
     """The forward kernel, its plain version and SDPA (with the same
     dropout rate and mask, on the backend it picks, which is named) at b h
-    s d bf16."""
+    s d in dtype. f32 at d <= 128 runs three TF32 passes on the tensor
+    cores: its bound is theirs, with the FMA rate's beside it
+    (``fma_bound_ms``)."""
     import torch.nn.functional as F
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
-    q, k, v = (torch.randn(b, h, seq, d, device="cuda", dtype=torch.bfloat16,
+    q, k, v = (torch.randn(b, h, seq, d, device="cuda", dtype=dtype,
                            generator=gen) for _ in range(3))
     kw = dict(causal=causal, dropout_rate=rate,
               dropout_seed=5 if rate else None)
-    bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, 2, causal)
-    return {"ms": cuda_time_ms(lambda: flash_attention(q, k, v, **kw)),
+    size = dtype.itemsize
+    tf32 = 3 if size == 4 and d <= 128 else 0
+    bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, size, causal,
+                                            tf32)
+    extra = {"fma_bound_ms": attention_bound_ms(
+        b * h, seq, seq, d, size, causal)[0]} if tf32 else {}
+    return {**extra,
+            "ms": cuda_time_ms(lambda: flash_attention(q, k, v, **kw)),
             "plain_ms": cuda_time_ms(
                 lambda: flash_attention_plain(q, k, v, **kw)),
             "library_ms": cuda_time_ms(
@@ -1095,21 +1146,21 @@ def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
 
 
 def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
-              h: int = 12, d: int = 64) -> dict:
+              h: int = 12, d: int = 64, dtype=torch.bfloat16) -> dict:
     """dq and dk/dv kernels, their plain versions, the autograd
     Function's whole backward (``fn_ms``: delta, then both kernels) and
     the backward of torch's SDPA (dq, dk, dv in one call, at the same
-    dropout rate and mask) at b h s d bf16: its flash backend's backward
-    op where that takes the shape, else its efficient backend's (named
-    in ``sdpa_bwd_backend``)."""
+    dropout rate and mask) at b h s d in dtype: its flash backend's
+    backward op where that takes the shape, else its efficient backend's
+    (named in ``sdpa_bwd_backend``)."""
     from types import SimpleNamespace
     from flexflow_tpu_torch.kernels.flash_attention import (
         _FlashAttention, flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
         flash_attention_bwd_dq_plain)
     import torch.nn.functional as F
-    q, k, v, do = (torch.randn(b, h, seq, d, device="cuda",
-                               dtype=torch.bfloat16, generator=gen)
+    q, k, v, do = (torch.randn(b, h, seq, d, device="cuda", dtype=dtype,
+                               generator=gen)
                    for _ in range(4))
     kw = dict(causal=causal, sm_scale=1.0 / d ** 0.5, dropout_rate=rate,
               dropout_seed=5 if rate else None)
@@ -1119,7 +1170,7 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
     # the kernels take the head dim that flash_attention pads to on the
     # card (bf16 d <= 32 unpadded), as the Function hands it to them; the
     # plain versions the model's d
-    d_k = kernel_head_dim(d, torch.bfloat16)
+    d_k = kernel_head_dim(d, dtype)
     kargs = args if d_k == d else tuple(
         F.pad(t, (0, d_k - d)) for t in (q, k, v, do)) + (lse, delta)
     ctx = SimpleNamespace(saved_tensors=kargs[:3] + (
@@ -1151,8 +1202,10 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               f"{str(e).splitlines()[0][:120]}; timed the EFFICIENT_ATTENTION "
               f"backward instead (SDPA picks "
               f"{sdpa_backend(q, k, v, rate, causal)} here)")
-    res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False, causal)
-    res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True, causal)
+    res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False, causal,
+                                   dtype.itemsize)
+    res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True, causal,
+                                    dtype.itemsize)
     return res
 
 
@@ -1213,29 +1266,51 @@ def launch_host_us(n: int = 500) -> dict:
     return res
 
 
-# further kernel timings: (key, kernel, b, h, s, d, causal, what)
+# further kernel timings: (key, kernel, b, h, s, d, causal, dtype, what)
 KT_SHAPES = [
-    ("fwd_d128_causal", "fwd", 4, 32, 1024, 128, True,
+    ("fwd_d128_causal", "fwd", 4, 32, 1024, 128, True, torch.bfloat16,
      "LLaMA-7B's prefill, 32 launches per prefill"),
-    ("fwd_d128", "fwd", 8, 12, 512, 128, False, "head dim 128"),
-    ("bwd_d64_causal", "bwd", 8, 12, 1024, 64, True, "causal backward"),
-    ("bwd_d128_causal", "bwd", 2, 32, 1024, 128, True,
+    ("fwd_d128", "fwd", 8, 12, 512, 128, False, torch.bfloat16,
+     "head dim 128"),
+    ("bwd_d64_causal", "bwd", 8, 12, 1024, 64, True, torch.bfloat16,
+     "causal backward"),
+    ("bwd_d128_causal", "bwd", 2, 32, 1024, 128, True, torch.bfloat16,
      "LLaMA-7B's training shape, 2 launches per step"),
-    ("fwd_d256", "fwd", 4, 8, 512, 256, False, "the wide kernel"),
-    ("bwd_d256", "bwd", 4, 8, 512, 256, False, "the wide kernels"),
-    ("fwd_d320", "fwd", 4, 8, 512, 320, False, "the wide kernel"),
-    ("bwd_d320", "bwd", 4, 8, 512, 320, False, "the wide kernels"),
-    ("fwd_d512", "fwd", 4, 8, 512, 512, False, "the wide kernel"),
-    ("bwd_d512", "bwd", 4, 8, 512, 512, False, "the wide kernels"),
-    ("fwd_nmt", "fwd", 64, 1, 128, 512, False,
+    ("fwd_d256", "fwd", 4, 8, 512, 256, False, torch.bfloat16,
+     "the wide kernel"),
+    ("bwd_d256", "bwd", 4, 8, 512, 256, False, torch.bfloat16,
+     "the wide kernels"),
+    ("fwd_d320", "fwd", 4, 8, 512, 320, False, torch.bfloat16,
+     "the wide kernel"),
+    ("bwd_d320", "bwd", 4, 8, 512, 320, False, torch.bfloat16,
+     "the wide kernels"),
+    ("fwd_d512", "fwd", 4, 8, 512, 512, False, torch.bfloat16,
+     "the wide kernel"),
+    ("bwd_d512", "bwd", 4, 8, 512, 512, False, torch.bfloat16,
+     "the wide kernels"),
+    ("fwd_nmt", "fwd", 64, 1, 128, 512, False, torch.bfloat16,
      "NMT's attention: NMTConfig's hidden 512 in one head, a 128-token "
      "sentence"),
-    ("bwd_nmt", "bwd", 64, 1, 128, 512, False, "NMT's attention"),
-    ("fwd_transformer", "fwd", 64, 8, 512, 8, False,
+    ("bwd_nmt", "bwd", 64, 1, 128, 512, False, torch.bfloat16,
+     "NMT's attention"),
+    ("fwd_transformer", "fwd", 64, 8, 512, 8, False, torch.bfloat16,
      "the Transformer's attention: TransformerConfig's kdim = hidden / "
      "heads = 64 split over 8 heads, d 8 unpadded: the narrow kernel"),
-    ("bwd_transformer", "bwd", 64, 8, 512, 8, False,
+    ("bwd_transformer", "bwd", 64, 8, 512, 8, False, torch.bfloat16,
      "the Transformer's attention, d 8 unpadded: the narrow kernels"),
+    # f32: the search's calibration rows (op_attention@flash, b1 h8 d64
+    # causal at s 128 and 512), the tensor-core kernel at d 128, the f32
+    # backward (FMA) at the calibration shape, the wide FMA forward
+    ("fwd_f32_calib_s128", "fwd", 1, 8, 128, 64, True, torch.float32,
+     "the search's calibration row at s128, 5 launches per calibration"),
+    ("fwd_f32_calib_s512", "fwd", 1, 8, 512, 64, True, torch.float32,
+     "the search's calibration row at s512, 5 launches per calibration"),
+    ("fwd_f32_d128", "fwd", 1, 8, 512, 128, True, torch.float32,
+     "the f32 tensor-core kernel at d 128"),
+    ("bwd_f32_calib", "bwd", 1, 8, 512, 64, True, torch.float32,
+     "the f32 FMA dq and dk/dv at the calibration shape"),
+    ("fwd_f32_d256", "fwd", 4, 8, 512, 256, False, torch.float32,
+     "the f32 wide FMA forward"),
 ]
 
 
@@ -1244,7 +1319,9 @@ def phase_ktimes(smi: str) -> dict:
     yardstick and its bound: the flash kernels at s 128 and 512, without
     dropout and at 0.1, causal at GPT-2's prefill, at KT_SHAPES (LLaMA's
     and Mixtral's head dim 128, the causal backward, head dims 256, 320
-    and 512, NMT's b64 h1 s128 d512), and Adam over BERT-base."""
+    and 512, NMT's b64 h1 s128 d512, the Transformer's d 8, the f32
+    calibration rows, d 128 and 256 and the f32 backward), and Adam over
+    BERT-base and DLRM."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {"fwd": {}, "bwd": {}}
     for rate in (0.0, 0.1):
@@ -1279,19 +1356,22 @@ def phase_ktimes(smi: str) -> dict:
           f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); kernel/sdpa "
           f"{f['ms'] / f['library_ms']:.2f}, kernel/bound "
           f"{f['ms'] / f['bound_ms']:.2f}; {smi}")
-    for key, kind, b, hh, seq, d, causal, what in KT_SHAPES:
-        shape = f"b{b} h{hh} s{seq} d{d} bf16{' causal' if causal else ''}"
+    for key, kind, b, hh, seq, d, causal, dt, what in KT_SHAPES:
+        shape = (f"b{b} h{hh} s{seq} d{d} {str(dt)[6:]}"
+                 f"{' causal' if causal else ''}")
         if kind == "fwd":
-            f = res[key] = fwd_times(seq, 0.0, gen, causal, b, hh, d)
+            f = res[key] = fwd_times(seq, 0.0, gen, causal, b, hh, d, dt)
+            fma = (f", FMA-rate bound {f['fma_bound_ms'] * 1e3:.2f} us"
+                   if "fma_bound_ms" in f else "")
             print(f"[ktimes] flash_attention_fwd {shape} ({what}): kernel "
                   f"{f['ms'] * 1e3:.2f} us, plain {f['plain_ms'] * 1e3:.2f} "
                   f"us, sdpa ({f['library_backend']}) "
                   f"{f['library_ms'] * 1e3:.2f} us, bound "
-                  f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}); "
+                  f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}){fma}; "
                   f"kernel/sdpa {f['ms'] / f['library_ms']:.2f}, "
                   f"kernel/bound {f['ms'] / f['bound_ms']:.2f}; {smi}")
             continue
-        t = res[key] = bwd_times(seq, 0.0, gen, causal, b, hh, d)
+        t = res[key] = bwd_times(seq, 0.0, gen, causal, b, hh, d, dt)
         lib = t["sdpa_bwd_ms"]
         for k_, name in (("dq", "flash_attention_bwd_dq"),
                          ("dkv", "flash_attention_bwd_dkv")):
@@ -1323,14 +1403,14 @@ def phase_ktimes(smi: str) -> dict:
     return res
 
 
-# the A/B's shapes: (kernel, b, h, s, d, causal, dtype); f32 above d 128
-# runs the wide FMA forward
+# the A/B's shapes: (kernel, b, h, s, d, causal, dtype), KT_SHAPES's
+# among them (the f32 calibration rows too); f32 above d 128 runs the wide
+# FMA forward
 AB_SHAPES = [(*s, torch.bfloat16) for s in
              [("fwd", 8, 12, 128, 64, False), ("fwd", 8, 12, 512, 64, False),
-              ("fwd", 8, 12, GPT_SEQ, 64, True)]
-             + [s[1:7] for s in KT_SHAPES]] + [
-    ("fwd", 4, 8, 512, 192, False, torch.float32),
-    ("fwd", 4, 8, 512, 256, False, torch.float32)]
+              ("fwd", 8, 12, GPT_SEQ, 64, True)]] + [
+    s[1:8] for s in KT_SHAPES] + [
+    ("fwd", 4, 8, 512, 192, False, torch.float32)]
 
 
 def ab_build(trees: dict) -> dict:
@@ -3782,9 +3862,9 @@ def search_calibration(smi: str, cache: str) -> dict:
             for impl in ("xla", "flash"):
                 dev_ms[(impl, s)] = cuda_time_ms(
                     attention_bench_fn(impl, s, "cuda"), iters=5)
-        # the library call at the table's shapes (timed only): SDPA on
-        # the backend it picks for b1 h8 d64 f32 causal
-        for s in (128, 512):
+        # the library call at every measured length (timed only): SDPA
+        # on the backend it picks for b1 h8 d64 f32 causal
+        for s in (128, 512) + SEARCH_EXTRA_SEQS:
             q, k, v = (torch.randn(1, 8, s, 64, device="cuda")
                        for _ in range(3))
             dev_ms[("sdpa", s)] = cuda_time_ms(
@@ -3823,8 +3903,8 @@ def search_calibration(smi: str, cache: str) -> dict:
               f"{dev_ms[('xla', s)] * 1e3:.2f} / "
               f"{dev_ms[('flash', s)] * 1e3:.2f} us (graph replay)")
     print(f"[search] library: SDPA b1 h8 d64 f32 causal, device "
-          f"{dev_ms[('sdpa', 128)] * 1e3:.2f} us at s128, "
-          f"{dev_ms[('sdpa', 512)] * 1e3:.2f} us at s512 (graph replay)")
+          + ", ".join(f"{dev_ms[('sdpa', s)] * 1e3:.2f} us at s{s}"
+                      for s in seqs) + " (graph replay)")
     print(f"[search] flash/xla crossover: flash is faster at every "
           f"measured length from s = {cross} (event-timed, what the search "
           f"prices with), s = {cross_dev} (device time); "
@@ -5040,6 +5120,17 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # sentence; bf16 at d 192 ... 512 runs the wide wgmma kernel
         "nmt_b64_h1_s128_d512": dict(kt["fwd_nmt"]),
         "wide_bf16_kernel": "flash_fwd_wgmma_wide_kernel (d 192-512)",
+        # f32: the search's calibration rows (b1 h8 d64 causal, 10
+        # launches while calibrating) and d 128 on the split-precision
+        # TF32 kernel, d 256 on the wide FMA kernel
+        "f32_calibration_b1_h8_s128_d64_causal":
+            dict(kt["fwd_f32_calib_s128"]),
+        "f32_calibration_b1_h8_s512_d64_causal":
+            dict(kt["fwd_f32_calib_s512"]),
+        "f32_b1_h8_s512_d128_causal": dict(kt["fwd_f32_d128"]),
+        "f32_b4_h8_s512_d256": dict(kt["fwd_f32_d256"]),
+        "f32_kernel": "flash_fwd_wgmma_tf32_kernel (f32, d 64 and 128; "
+                      "three TF32 passes a product)",
         # the Transformer's attention (zoo phase), d 8 unpadded through
         # the narrow kernel; the zoo's train launches (6 a step for the
         # Transformer, 1 for NMT) and the Transformer's served forwards
@@ -5096,6 +5187,8 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             "nmt_b64_h1_s128_d512": bwd_row_t(key, kt["bwd_nmt"]),
             "transformer_b64_h8_s512_d8": bwd_row_t(
                 key, kt["bwd_transformer"]),
+            "f32_b1_h8_s512_d64_causal": bwd_row_t(key,
+                                                   kt["bwd_f32_calib"]),
             "zoo_train_launches": {t: n[name]
                                    for t, n in zoo_launches.items()},
             "frontends_train_launches": fe_row(name),

@@ -40,9 +40,13 @@
 //   only in tiles that cross an edge or the diagonal, and the dropout bits
 //   are hashed while the S product runs.
 //
-//   f32 - flash_fwd_kernel below, the exact FMA path: 64-row tiles, four
-//   warps, plain FMA loops, because the tensor cores would round f32
-//   operands to TF32.
+//   f32 at d = 64 and 128 (the wrapper pads any d below 64 to 64) -
+//   flash_fwd_wgmma_tf32_kernel below: the same TMA ring and online
+//   softmax on the tensor cores, each product in three TF32 passes of
+//   split operands (hi . hi + hi . lo + lo . hi), which keeps f32
+//   accuracy where one TF32 pass would not; V is transposed in shared
+//   memory (TF32 operands are read K-major only) and two warpgroups split
+//   the key tiles of a 64-row block. Its header says why.
 //
 //   bf16 at d = 8, 16, 24 and 32 (the wrapper rounds d up to a multiple of
 //   8 below 32) - flash_fwd_wgmma_narrow_kernel below: the same parts on
@@ -59,8 +63,7 @@
 //
 //   f32 above d = 128, and bf16 above 512 (no model has it) -
 //   flash_fwd_wide_kernel below: the FMA path with one 64-column chunk of
-//   o per CTA (its header says why), d a runtime argument. f32 stays on
-//   FMA because the tensor cores would round it to TF32, as at d <= 128.
+//   o per CTA (its header says why), d a runtime argument.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit; causal launches whose heads' K/V all fit in L2 take
@@ -1003,101 +1006,248 @@ cudaError_t launch_narrow(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the exact FMA path
+// f32 at d = 64 and 128: split-precision TF32 wgmma with a TMA tile ring
 // ---------------------------------------------------------------------------
-constexpr int BLOCK_M = TILE;  // query rows per CTA
-constexpr int BLOCK_N = TILE;  // keys per K/V tile
-
+// Replaces the TPU kernel _fwd_kernel (flexflow_tpu/kernels/
+// flash_attention.py:110) for f32 at d <= 128, where PR 1's FMA kernel ran
+// until this one: the kernel of the search's calibration rows (b1 h8 d64
+// causal at s 128 and 512, op_attention@flash). It computes what that
+// kernel computed, to f32 accuracy, on the tensor cores.
+//
+// Bound at b1 h8 d64 causal: q, k, v read and o written once, 1.05 MB at
+// s128 (0.31 us at 3.35 TB/s) and 4.2 MB at s512 (1.25 us), against three
+// TF32 passes of 4 * d flops per kept (query, key) pair at 495 TFLOP/s
+// (0.10 us at s128, 1.63 us at s512: operations). The same work at the
+// f32 FMA rate of 67 TFLOP/s would take 0.27 / 4.01 us.
+//
+// Design. The FMA kernel was held back by four things, each answered here:
+//   - no tensor cores (two FMAs per shared load): every product is wgmma
+//     m64nNk8 .tf32 in three passes, a_lo . b_hi + a_hi . b_lo, then a_hi .
+//     b_hi, each operand split as tf32_split (hopper_common.cuh) makes it:
+//     hi = x with its low 13 mantissa bits cleared, lo = x - hi cleared
+//     the same way. One TF32 pass keeps ~3 decimal digits; three keep the
+//     products to ~2^-20, inside the f32 tolerance of the plain version;
+//   - no copy in flight: K and V tiles come by TMA through a ring of two
+//     stages on mbarriers (K and V on separate ones, so S starts before V
+//     has landed), and the copy of tile t + 2 is issued as soon as tile t
+//     has been drained (its K split and read by S, its V transposed);
+//   - a starved grid (b1 h8: 16 CTAs of 64 rows at s128, 64 at s512, on
+//     132 SMs; the causal diagonal makes the last row block the critical
+//     path): two consumer warpgroups per CTA split the key tiles of one
+//     64-row block (warpgroup w takes tiles w, w + 2, ...; ring stage w is
+//     its own) and merge (m, l, acc) through shared memory at the end, so
+//     the heaviest block crosses half its tiles per warpgroup (one
+//     warpgroup alone was 16-33% slower at s 512 ... 4096 and at d = 128,
+//     and no faster at s 128, PERF.md sec. 6; with one key tile the
+//     second warpgroup idles);
+//   - a spill: the accumulator (32 / 64 registers at d = 64 / 128), S (32
+//     / 16) and P's hi and lo A fragments stay in registers, Q hi and lo
+//     stay in shared memory, and a CTA is two warpgroups, one CTA an SM
+//     (up to 255 registers a thread).
+// Operand layouts. TF32 wgmma reads its shared operands K-major only, so
+// the descriptor's transpose bit that the bf16 kernel uses for V does not
+// exist: S = Q . K^T reads Q and K as TMA lands them (an f32 row of d = 64
+// is two 128-byte swizzle atoms, like a bf16 row of d = 128), and the
+// warpgroup transposes each V tile into V^T hi and lo tiles (keys
+// contiguous) while S runs (split_transpose_v). P is the register A
+// operand: a TF32 A slice holds keys (tig, tig + 4) of its 8 where S's
+// accumulator holds (2 tig, 2 tig + 1), so V^T stores each 8-key group in
+// the order (0, 2, 4, 6, 1, 3, 5, 7) and the accumulator becomes A
+// fragments in place (tf32_a_frags); masks and dropout bits are taken in
+// the accumulator's frame, at the true key positions. Shared memory: Q hi
+// and lo, two stages of K and V, and per warpgroup K lo, V^T hi and V^T lo;
+// at d = 128 the key tiles are 32 deep to fit (230 KB with two
+// warpgroups). The softmax is the bf16 kernel's (online_softmax, base 2).
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int sq, int sk, float sm_scale,
-                     int causal, int use_dropout, uint32_t threshold,
-                     float keep_prob, uint32_t seed) {
-  constexpr int LD = D + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + BLOCK_M * LD;
-  float* sV = sK + BLOCK_N * LD;
-  float* sP = sV + BLOCK_N * LD;
+struct Tf32Tiles {
+  static constexpr int NWG = 2;                 // warpgroups per CTA
+  static constexpr int BM = WG_ROWS;            // query rows per CTA
+  static constexpr int BN = D == 64 ? 64 : 32;  // keys per K/V tile
+  static constexpr int NB = BN / 8;             // 8-key blocks of a tile
+  static constexpr int THREADS = NWG * WG_THREADS;
+  static constexpr int Q_BYTES = BM * D * 4;
+  static constexpr int KV_BYTES = BN * D * 4;  // a K, V, K lo or V^T tile
+  // Q hi and lo; two ring stages of K and V; per warpgroup K lo, V^T hi
+  // and V^T lo
+  static constexpr size_t SMEM = SW_ATOM + 2 * (size_t)Q_BYTES +
+                                 (4 + 3 * NWG) * (size_t)KV_BYTES;
+  static_assert(D == 64 || D == 128, "d = 64 or 128");
+  static_assert(SMEM <= SMEM_LIMIT, "fits one CTA");
+};
 
-  const GridCell cell = grid_cell((sq + BLOCK_M - 1) / BLOCK_M);
-  const int m0 = cell.block * BLOCK_M;
-  const int bh = cell.bh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// V^T hi and lo of a BN x D f32 tile of V at sv (BN keys, 128-byte
+// swizzled as TMA lands it) into the D x BN tiles vt_hi and vt_lo (rows
+// the D columns, keys contiguous in the order (0, 2, 4, 6, 1, 3, 5, 7)
+// within each 8-key group, 128-byte swizzled), by one warpgroup. Each item
+// is a 4 x 4 block, keys k0 + 2i (k0 = 8a + par) by columns 4c .. 4c + 3,
+// read as four 16-byte rows and written as four 16-byte chunks of V^T
+// (keys 8a + 2i + par land at positions 8a + 4 par + i). Items map to
+// lanes so that each 8-lane phase of a 16-byte access covers eight
+// distinct bank groups in the reads (chunk c ^ key row) and the writes
+// (position chunk ^ column row).
+template <int D, int BN>
+__device__ __forceinline__ void split_transpose_v(uint32_t sv, uint32_t vt_hi,
+                                                  uint32_t vt_lo, int wtid) {
+  constexpr int ITEMS = BN * D / 16;
+  static_assert(ITEMS % WG_THREADS == 0, "whole rounds");
+  float x[ITEMS / WG_THREADS][4][4];
+#pragma unroll
+  for (int j = 0; j < ITEMS / WG_THREADS; ++j) {
+    const int it = wtid + j * WG_THREADS;
+    const int par = it & 1, a = (it >> 1) & 3, b = (it >> 3) & 1,
+              e = (it >> 4) & 3, rest = it >> 6;
+    const int c = (rest % (D / 32)) * 8 + (((a ^ e) << 1) | b);
+    const int k0 = (rest / (D / 32)) * 32 + 8 * a + par;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = ld_shared_f4(sv + sw128_offset<BN>(k0 + 2 * i, c));
+      x[j][i][0] = v.x;
+      x[j][i][1] = v.y;
+      x[j][i][2] = v.z;
+      x[j][i][3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ITEMS / WG_THREADS; ++j) {
+    const int it = wtid + j * WG_THREADS;
+    const int par = it & 1, a = (it >> 1) & 3, b = (it >> 3) & 1,
+              e = (it >> 4) & 3, rest = it >> 6;
+    const int c = (rest % (D / 32)) * 8 + (((a ^ e) << 1) | b);
+    const int pos = (rest / (D / 32)) * 8 + 2 * a + par;  // V^T's chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float h[4], l[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) tf32_split(x[j][r][i], h[r], l[r]);
+      const uint32_t off = sw128_offset<D>(4 * c + i, pos);
+      st_shared_f4(vt_hi + off, h[0], h[1], h[2], h[3]);
+      st_shared_f4(vt_lo + off, l[0], l[1], l[2], l[3]);
+    }
+  }
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32Tiles<D>::THREADS, 1)
+    flash_fwd_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_o,
+                                float* __restrict__ lse, int sq, int sk,
+                                float sm_scale, int causal,
+                                uint32_t threshold, float keep_prob,
+                                uint32_t seed) {
+  using Tl = Tf32Tiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, KVB = Tl::KV_BYTES;
+  constexpr int NWG = Tl::NWG;
+  extern __shared__ unsigned char smem[];
+  const uint32_t sQ = (smem_u32(smem) + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sQlo = sQ + Tl::Q_BYTES;
+  const uint32_t sRing = sQlo + Tl::Q_BYTES;  // stage st: K, then V
+  // Q landed; per stage, the K tile and the V tile landed
+  __shared__ __align__(8) uint64_t q_full, k_full[2], v_full[2];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const float* qb = q + (size_t)bh * sq * D;
-  const float* kb = k + (size_t)bh * sk * D;
-  const float* vb = v + (size_t)bh * sk * D;
-  const int qpos[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int row_w = m0 + warp * 16;  // this warp's first row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  // this warpgroup's K lo, V^T hi and V^T lo
+  const uint32_t sKlo = sRing + (4 + 3 * wg) * KVB;
+  const uint32_t sVhi = sKlo + KVB, sVlo = sVhi + KVB;
 
-  load_tile<D>(sQ, qb, m0, sq);
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a tile is live iff its first key is visible to the last row
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+
+  auto k_stage = [&](int t) { return sRing + (t & 1) * 2 * KVB; };
+  auto k_bar = [&](int t) { return smem_u32(&k_full[t & 1]); };
+  auto v_bar = [&](int t) { return smem_u32(&v_full[t & 1]); };
+  const uint32_t q_bar = smem_u32(&q_full);
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_kv = [&](int t) {  // by one thread
+    mbar_expect_tx(k_bar(t), KVB);
+    tma_load_tile<BN, D, 32>(k_stage(t), map_k, k_bar(t), t * BN, bh);
+    mbar_expect_tx(v_bar(t), KVB);
+    tma_load_tile<BN, D, 32>(k_stage(t) + KVB, map_v, v_bar(t), t * BN, bh);
+  };
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(k_bar(st), 1);
+      mbar_init(v_bar(st), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, Tl::Q_BYTES);
+    tma_load_tile<BM, D, 32>(sQ, &tm_q, q_bar, m0, bh);
+    for (int t = 0; t < min(2, n_tiles); ++t) load_kv(t);
+  }
+  // Q split into hi (in place) and lo by every thread
+  mbar_wait(q_bar, 0);
+  split_tile_tf32<Tl::Q_BYTES, Tl::THREADS>(sQ, sQlo, tid);
+  fence_proxy_async();
+  __syncthreads();
 
   float acc[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m_i[2] = {NEG_INF, NEG_INF};
+  float m_i[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // running max, base 2
   float l_i[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  int n_tiles = (sk + BLOCK_N - 1) / BLOCK_N;
-  if (causal)  // a tile is live iff its first key is visible to the last row
-    n_tiles = min(n_tiles, (m0 + BLOCK_M - 1) / BLOCK_N + 1);
+  for (int t = wg; t < n_tiles; t += NWG) {
+    const int n0 = t * BN;
+    const uint32_t sK = k_stage(t), sV = sK + KVB;
+    const uint32_t phase = (t >> 1) & 1;
+    mbar_wait(k_bar(t), phase);  // K tile t has landed
+    split_tile_tf32<KVB, WG_THREADS>(sK, sKlo, wtid);
+    fence_proxy_async();
+    named_barrier(1 + wg, WG_THREADS);  // K hi and lo, visible to wgmma
 
-  for (int tn = 0; tn < n_tiles; ++tn) {
-    const int n0 = tn * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, n0, sk);
-    load_tile<D>(sV, vb, n0, sk);
-    __syncthreads();
-
-    float s[N_FRAGS][4];
+    // S = Q . K^T in three passes, the two small ones first
+    float s[NB][4];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < N_FRAGS; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    scores<D>(s, sQ, sK, warp, g, tig);
-
-    float mx[2] = {m_i[0], m_i[1]};
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint32_t qa = pass == 0 ? sQlo : sQ;
+      const uint32_t kb = pass == 1 ? sKlo : sK;
 #pragma unroll
-    for (int nt = 0; nt < N_FRAGS; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = n0 + nt * 8 + tig * 2 + (c & 1);
-        const int r = c >> 1;
-        const bool ok = kpos < sk && (!causal || kpos <= qpos[r]);
-        s[nt][c] = ok ? s[nt][c] * sm_scale : NEG_INF;
-        mx[r] = fmaxf(mx[r], s[nt][c]);
+      for (int kc = 0; kc < D / 8; ++kc) {
+        const uint32_t a = qa + (kc >> 2) * (BM * SW_ROW) + (kc & 3) * 32;
+        const uint32_t b = kb + (kc >> 2) * (BN * SW_ROW) + (kc & 3) * 32;
+        wgmma_ss_kk_tf32(s, desc_sw128(a, 16), desc_sw128(b, 16),
+                         pass + kc > 0);
       }
     }
+    wgmma_commit();
+    // while S runs: the dropout mask, then V^T hi and lo
+    const uint32_t keep =
+        DROPOUT ? keep_bits<NB>(n0, qpos, tig, bh, seed, threshold) : 0u;
+    mbar_wait(v_bar(t), phase);  // V tile t has landed
+    split_transpose_v<D, BN>(sV, sVhi, sVlo, wtid);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    fence_acc(s);
+    // the stage is drained (K read by S, V transposed) and V^T is visible:
+    // the stage takes tile t + 2, this warpgroup's next
+    named_barrier(1 + wg, WG_THREADS);
+    if (wtid == 0 && t + 2 < n_tiles) load_kv(t + 2);
+
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = expf(m_i[r] - mx[r]);
-      m_i[r] = mx[r];
-    }
-    float rowsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < N_FRAGS; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1;
-        const float p = expf(s[nt][c] - mx[r]);
-        rowsum[r] += p;  // the denominator sums the undropped p
-        float pe = p;
-        if (use_dropout) {
-          const uint32_t kpos = n0 + nt * 8 + tig * 2 + (c & 1);
-          const bool keep =
-              position_hash(seed, bh, qpos[r], kpos) >= threshold;
-          pe = keep ? p / keep_prob : 0.f;
-        }
-        s[nt][c] = pe;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + rowsum[r];
+    online_softmax<DROPOUT>(s, m_i, l_i, alpha, n0, edge, qpos, tig, sk,
+                            causal, scale_log2, keep, inv_keep);
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       acc[dt][0] *= alpha[0];
@@ -1105,46 +1255,139 @@ __global__ void __launch_bounds__(NUM_THREADS)
       acc[dt][2] *= alpha[1];
       acc[dt][3] *= alpha[1];
     }
-    accumulate_pv<D>(acc, s, sV, sP, warp, g, tig);
+    // O += P . V in three passes: P hi and lo in registers, V^T hi and lo
+    uint32_t ph[NB][4], pl[NB][4];
+    tf32_a_frags(s, ph, pl);
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint32_t vb = pass == 1 ? sVlo : sVhi;
+#pragma unroll
+      for (int kc = 0; kc < NB; ++kc) {
+        const uint32_t b = vb + (kc >> 2) * (D * SW_ROW) + (kc & 3) * 32;
+        wgmma_rs_kk_tf32(acc, pass == 0 ? pl[kc] : ph[kc],
+                         desc_sw128(b, 16));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs_u32(ph);
+    fence_regs_u32(pl);
+    fence_regs(*reinterpret_cast<float(*)[D / 2]>(&acc[0][0]));
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float l = l_i[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    if (qpos[r] >= sq) continue;
-    float* orow = o + ((size_t)bh * sq + qpos[r]) * D;
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+  }
+  {
+    // warpgroup 1 hands (m, l, acc) to warpgroup 0 through its own K lo
+    // buffer (one float4 per thread and 8 columns, consecutive threads on
+    // consecutive 16 bytes); warpgroup 0 merges them into its own (a
+    // warpgroup that had no tile holds m = -inf, l = 0, acc = 0)
+    const uint32_t xb = sRing + 7 * KVB;
+    static_assert((D / 8 + 1) * WG_THREADS * 16 <= 3 * KVB, "room");
+    if (wg == 1) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      store2(orow + dt * 8 + tig * 2, acc[dt][2 * r] / l_safe,
-             acc[dt][2 * r + 1] / l_safe);
-    if (tig == 0) lse[(size_t)bh * sq + qpos[r]] = m_i[r] + logf(l_safe);
+      for (int dt = 0; dt < D / 8; ++dt)
+        st_shared_f4(xb + (dt * WG_THREADS + wtid) * 16, acc[dt][0],
+                     acc[dt][1], acc[dt][2], acc[dt][3]);
+      st_shared_f4(xb + (D / 8 * WG_THREADS + wtid) * 16, m_i[0], m_i[1],
+                   l_i[0], l_i[1]);
+    }
+    __syncthreads();
+    if (wg == 0) {
+      const float4 ml = ld_shared_f4(xb + (D / 8 * WG_THREADS + wtid) * 16);
+      const float mo[2] = {ml.x, ml.y}, lo[2] = {ml.z, ml.w};
+      float fa[2], fb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = fmaxf(m_i[r], mo[r]);
+        fa[r] = exp2_approx(m_i[r] - m);
+        fb[r] = exp2_approx(mo[r] - m);
+        l_i[r] = l_i[r] * fa[r] + lo[r] * fb[r];
+        m_i[r] = m;
+      }
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const float4 x = ld_shared_f4(xb + (dt * WG_THREADS + wtid) * 16);
+        acc[dt][0] = acc[dt][0] * fa[0] + x.x * fb[0];
+        acc[dt][1] = acc[dt][1] * fa[0] + x.y * fb[0];
+        acc[dt][2] = acc[dt][2] * fa[1] + x.z * fb[1];
+        acc[dt][3] = acc[dt][3] * fa[1] + x.w * fb[1];
+      }
+    }
+  }
+
+  // o = acc / l, staged in Q's hi tile (no longer read) in the swizzled
+  // layout and stored by one TMA copy, which clips rows past sq
+  if (wg == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l_safe = (l_i[r] == 0.f) ? 1.f : l_i[r];
+      const float inv_l = 1.f / l_safe;
+      const int row = warp * 16 + g + 8 * r;  // in the tile
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         sQ + sw128_offset<BM>(row, 2 * dt + (tig >> 1)) +
+                         (tig & 1) * 8),
+                     "f"(acc[dt][2 * r] * inv_l),
+                     "f"(acc[dt][2 * r + 1] * inv_l)
+                     : "memory");
+      if (tig == 0 && qpos[r] < sq)
+        lse[(size_t)bh * sq + qpos[r]] = m_i[r] * LN2 + logf(l_safe);
+    }
+  }
+  fence_proxy_async();  // the staged tile, visible to the TMA store
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_tile<BM, D, 32>(&tm_o, sQ, m0, bh);
+    tma_store_wait();  // the CTA's shared memory outlives the copy
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int sk, int causal,
-                   float sm_scale, int use_dropout, uint32_t threshold,
-                   float keep_prob, uint32_t seed, cudaStream_t stream) {
-  const size_t smem = ((size_t)(BLOCK_M + 2 * BLOCK_N) * (D + 4) +
-                       (size_t)BLOCK_M * P_LD) * sizeof(float);
-  auto kernel = flash_fwd_kernel<D>;
+template <int D, bool DROPOUT>
+cudaError_t launch_tf32_t(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int bh, int sq, int sk,
+                          int causal, float sm_scale, uint32_t threshold,
+                          float keep_prob, uint32_t seed,
+                          cudaStream_t stream) {
+  using Tl = Tf32Tiles<D>;
+  auto kernel = flash_fwd_wgmma_tf32_kernel<D, DROPOUT>;
   static unsigned long long smem_set = 0;  // per instantiation and device
-  cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
   if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if ((err = tensor_map_f32(&tm_q, q, bh, sq, D, Tl::BM)) != cudaSuccess ||
+      (err = tensor_map_f32(&tm_k, k, bh, sk, D, Tl::BN)) != cudaSuccess ||
+      (err = tensor_map_f32(&tm_v, v, bh, sk, D, Tl::BN)) != cudaSuccess ||
+      (err = tensor_map_f32(&tm_o, o, bh, sq, D, Tl::BM)) != cudaSuccess)
+    return err;
   dim3 grid;
-  if (!launch_grid((sq + BLOCK_M - 1) / BLOCK_M, bh, 1, causal,
+  if (!launch_grid((sq + Tl::BM - 1) / Tl::BM, bh, 1, causal,
                    2LL * sk * D * sizeof(float), &grid))
     return cudaErrorInvalidValue;
-  kernel<<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), sq, sk, sm_scale, causal, use_dropout,
-      threshold, keep_prob, seed);
+  kernel<<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), sq, sk, sm_scale,
+      causal, threshold, keep_prob, seed);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* o, void* lse, int bh, int sq, int sk,
+                        int causal, float sm_scale, int use_dropout,
+                        uint32_t threshold, float keep_prob, uint32_t seed,
+                        cudaStream_t stream) {
+  return use_dropout
+             ? launch_tf32_t<D, true>(q, k, v, o, lse, bh, sq, sk, causal,
+                                      sm_scale, threshold, keep_prob, seed,
+                                      stream)
+             : launch_tf32_t<D, false>(q, k, v, o, lse, bh, sq, sk, causal,
+                                       sm_scale, threshold, keep_prob, seed,
+                                       stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1313,9 +1556,9 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 // d is 64, 128 or any multiple of 64 above 128, or in bf16 also 8, 16, 24
 // or 32; bh any count whose grid fits gridDim.x. bf16 at d = 64 and 128
 // launches the wgmma kernel, bf16 at d <= 32 the narrow wgmma kernel, bf16
-// at d = 192 ... 512 the wide wgmma kernel, f32 at d <= 128 the FMA
-// kernel, f32 above 128 and bf16 above 512 the wide FMA kernel. Returns a
-// cudaError_t (0 = launched).
+// at d = 192 ... 512 the wide wgmma kernel, f32 at d = 64 and 128 the
+// split-precision TF32 wgmma kernel, f32 above 128 and bf16 above 512 the
+// wide FMA kernel. Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
@@ -1348,8 +1591,8 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && head_dim % 8 == 0 && head_dim <= 32)
     FF_LAUNCH_NARROW(32);
 #undef FF_LAUNCH_NARROW
-  if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch<64>));
-  if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch<128>));
+  if (dtype == 0 && head_dim == 64) FF_LAUNCH((launch_tf32<64>));
+  if (dtype == 0 && head_dim == 128) FF_LAUNCH((launch_tf32<128>));
   // bf16 at d = 192 ... 512: the wide wgmma kernel, d compiled in
   if (dtype == 1) switch (head_dim) {
       case 192: FF_LAUNCH((launch_wgmma_wide<192>));

@@ -1,15 +1,16 @@
 // Device helpers shared by the flash-attention kernels for Hopper
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): the dropout keep hash
 // and its per-fragment bitmask, the bf16 pair store, the 1-D grid of every
-// kernel, the building blocks of the exact f32 kernels, and those of the
-// wide kernels (head dims above 128), which stage either type as f32.
+// kernel, the building blocks of the exact f32 FMA kernels (dq and dk/dv
+// at d <= 128), and those of the wide kernels (head dims above 128), which
+// stage either type as f32.
 //
-// The f32 kernels work on 64-row tiles with four warps, each warp owning
-// 16 rows of the tile's "A" side (query rows in the forward and dq
-// kernels, key rows in the dk/dv kernel). Tiles are staged in shared
-// memory with a row stride of D + 4 floats, so consecutive rows start in
-// different banks, and every product runs as FMA loops: the tensor cores
-// would round f32 operands to TF32. The bf16 kernels are built from
+// The f32 FMA kernels work on 64-row tiles with four warps, each warp
+// owning 16 rows of the tile's "A" side (query rows in dq, key rows in
+// dk/dv). Tiles are staged in shared memory with a row stride of D + 4
+// floats, so consecutive rows start in different banks, and every product
+// runs as FMA loops in f32. The tensor-core kernels (bf16, and the f32
+// forward at d = 64 and 128 in split-precision TF32) are built from
 // hopper_common.cuh instead.
 
 #pragma once

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the three bf16 flash-attention
-// kernels (the forward in flash_attention_fwd.cu, dq and dk/dv in
-// flash_attention_bwd.cu):
+// Hopper (sm_90a) building blocks of the flash-attention kernels on the
+// tensor cores: the bf16 forward in flash_attention_fwd.cu, dq and dk/dv
+// in flash_attention_bwd.cu, and the f32 forward at d = 64 and 128:
 //
 //   - two ways to fill a ring of shared-memory stages, so one stage's copy
 //     is in flight while the previous stage's products run: cp.async
@@ -9,16 +9,19 @@
 //     bytes, so also for per-row f32 vectors), or TMA, one thread issuing
 //     a 3-d tensor copy per tile that completes on an mbarrier (rows past
 //     a head's end arrive as zeros; no thread spends registers or issue
-//     slots on addresses), its tensor map encoded on the host per launch;
-//   - the 128-byte-swizzled shared-memory layout that wgmma reads: a bf16
-//     tile of ROWS x D is D/64 column blocks of ROWS x 128 bytes (a d=64
-//     row is one 128-byte swizzle atom, d=128 two), and the 16-byte chunk
-//     c of row r sits at r*128 + ((c ^ (r % 8)) * 16). Every block starts
-//     on a 1024-byte boundary, the swizzle pattern's period;
+//     slots on addresses), its tensor map encoded on the host per launch
+//     (tensor_map_bf16, tensor_map_f32);
+//   - the 128-byte-swizzled shared-memory layout that wgmma reads: a tile
+//     of ROWS x D is column blocks of ROWS x 128 bytes (64 bf16 or 32 f32
+//     columns: a bf16 row of d = 64 is one 128-byte swizzle atom, d = 128
+//     two, as is an f32 row of d = 64), and the 16-byte chunk c of row r
+//     sits at r*128 + ((c ^ (r % 8)) * 16). Every block starts on a
+//     1024-byte boundary, the swizzle pattern's period;
 //   - the wgmma matrix descriptor of that layout, read K-major (the
-//     contiguous 128 bytes run along the product's K dimension) or
-//     MN-major (they run along M or N: the transpose bit), so one staged
-//     tile serves as either operand without a transpose in shared memory;
+//     contiguous 128 bytes run along the product's K dimension) or, for
+//     bf16 only, MN-major (they run along M or N: the transpose bit), so
+//     one staged bf16 tile serves as either operand without a transpose in
+//     shared memory;
 //   - the narrow tiles of the d <= 32 forward, dq and dk/dv: rows of 32
 //     or 64 bytes (16 or 32 bf16 columns) in the 32- or 64-byte swizzle,
 //     whose 16-byte chunk c of row r sits at r * ROW + (c ^ ((r * ROW /
@@ -33,7 +36,21 @@
 //     d[4j + c] is row g + 8 * (c >> 1), column 8j + 2 * tig + (c & 1)
 //     with g = lane / 4, tig = lane % 4. The register A operand is the
 //     m16n8k16 A layout, so two adjacent 8-column blocks of an
-//     accumulator, rounded to bf16, are one 16-deep A slice.
+//     accumulator, rounded to bf16, are one 16-deep A slice;
+//   - the split-precision TF32 products of the f32 forward ("3xTF32"):
+//     x = hi + lo with hi = x with its low 13 mantissa bits cleared and lo
+//     = x - hi (exact in f32) cleared the same way (tf32_split), so a . b
+//     = a_hi . b_hi + a_hi . b_lo + a_lo . b_hi up to a_lo . b_lo and lo's
+//     own truncation, each about 2^-20 of the product. The tiles are split
+//     in shared memory (split_tile_tf32) and run through wgmma m64nNk8
+//     .tf32 (N = 32, 64 with both operands in shared memory, 64 and 128
+//     with A in registers), which reads TF32 operands K-major only. Its
+//     register A operand is the m16n8k8 .tf32 A layout: a[0..3] are
+//     (row g, column tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+//     of an 8-deep slice, where the accumulator holds columns 2 * tig and
+//     2 * tig + 1, so an accumulator's 8-column block is the A slice of
+//     those 8 keys taken in the order (0, 2, 4, 6, 1, 3, 5, 7)
+//     (tf32_a_frags); the B operand stores its keys in that order.
 //
 // The forward and dq fill their rings by TMA (K/V tiles, with Q, and dO
 // for dq, resident); dk/dv by cp.async, since it also streams per-row
@@ -224,31 +241,32 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of head bh of a (bh, rows, D) bf16 tensor
-// into the swizzled tile at dst: one TMA box of ROWS x 64 per 64-column
-// block. Rows past the head's end arrive as zeros.
-template <int ROWS, int D>
+// Copy rows [row0, row0 + ROWS) of head bh of a (bh, rows, D) tensor
+// into the swizzled tile at dst: one TMA box of ROWS x BOX per 128-byte
+// column block (BOX = 64 bf16 or 32 f32 columns). Rows past the head's end
+// arrive as zeros.
+template <int ROWS, int D, int BOX = 64>
 __device__ __forceinline__ void tma_load_tile(uint32_t dst,
                                               const CUtensorMap* map,
                                               uint32_t bar, int row0,
                                               int bh) {
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h)
-    tma_load_3d(dst + h * (ROWS * SW_ROW), map, bar, 64 * h, row0, bh);
+  for (int h = 0; h < D / BOX; ++h)
+    tma_load_3d(dst + h * (ROWS * SW_ROW), map, bar, BOX * h, row0, bh);
 }
 
 // Store the swizzled tile at src to rows [row0, row0 + ROWS) of head bh
 // (rows past the head's end are not written), as one bulk group.
-template <int ROWS, int D>
+template <int ROWS, int D, int BOX = 64>
 __device__ __forceinline__ void tma_store_tile(const CUtensorMap* map,
                                                uint32_t src, int row0,
                                                int bh) {
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h)
+  for (int h = 0; h < D / BOX; ++h)
     asm volatile(
         "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
         " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-        "r"(src + h * (ROWS * SW_ROW)), "r"(64 * h), "r"(row0), "r"(bh)
+        "r"(src + h * (ROWS * SW_ROW)), "r"(BOX * h), "r"(row0), "r"(bh)
         : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -264,16 +282,15 @@ typedef CUresult (*TensorMapEncodeTiled)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// The tensor map of a contiguous (bh, rows, d) bf16 tensor as TMA boxes
-// of box_rows x box_cols, by default 64 columns in the 128-byte swizzle
-// (the narrow forward: 16 or 32 in the 32- or 64-byte one), zeros past
-// every edge, the columns past d too (a load fills them, a store clips
-// them). A host call per launch, since the pointer changes;
-// cuTensorMapEncodeTiled is looked up once through the runtime.
-inline cudaError_t tensor_map_bf16(
-    CUtensorMap* map, const void* ptr, int bh, int rows, int d, int box_rows,
-    int box_cols = 64,
-    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+// The tensor map of a contiguous (bh, rows, d) tensor of elem_bytes-byte
+// elements as TMA boxes of box_rows x box_cols, zeros past every edge, the
+// columns past d too (a load fills them, a store clips them). A host call
+// per launch, since the pointer changes; cuTensorMapEncodeTiled is looked
+// up once through the runtime.
+inline cudaError_t tensor_map_3d(CUtensorMap* map, const void* ptr,
+                                 CUtensorMapDataType type, int elem_bytes,
+                                 int bh, int rows, int d, int box_rows,
+                                 int box_cols, CUtensorMapSwizzle swizzle) {
   static TensorMapEncodeTiled encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -287,17 +304,34 @@ inline cudaError_t tensor_map_bf16(
   }
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem_bytes,
+                                 (cuuint64_t)rows * d * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows,
                               1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16: by default boxes of 64 columns in the 128-byte swizzle (the
+// narrow forward: 16 or 32 in the 32- or 64-byte one)
+inline cudaError_t tensor_map_bf16(
+    CUtensorMap* map, const void* ptr, int bh, int rows, int d, int box_rows,
+    int box_cols = 64,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return tensor_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, bh,
+                       rows, d, box_rows, box_cols, swizzle);
+}
+
+// f32: boxes of 32 columns (128 bytes) in the 128-byte swizzle
+inline cudaError_t tensor_map_f32(CUtensorMap* map, const void* ptr, int bh,
+                                  int rows, int d, int box_rows) {
+  return tensor_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bh,
+                       rows, d, box_rows, 32, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -473,6 +507,93 @@ __device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// ---------------------------------------------------------------------------
+// TF32 wgmma (the f32 forward's split-precision products)
+// ---------------------------------------------------------------------------
+// .tf32 operands are read K-major only (no transpose bit), 8 deep (32
+// bytes, as a 16-deep bf16 slice), so the K-major descriptors of the
+// 128-byte layout serve unchanged: one m64nNk8 step reads 32 bytes of
+// every row.
+
+// d (64 x 64, f32) = A . B (+ d if accumulate), A (64 x 8) and B (8 x 64)
+// TF32 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64k8_tf32(float (&d)[32],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FF_D32_LIST
+      ", %32, %33, p, 1, 1;\n"
+      "}\n"
+      : FF_D32
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// As wgmma_ss_m64n64k8_tf32, 32 columns wide.
+__device__ __forceinline__ void wgmma_ss_m64n32k8_tf32(float (&d)[16],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FF_D16_LIST
+      ", %16, %17, p, 1, 1;\n"
+      "}\n"
+      : FF_D16(0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = A . B (+ d if accumulate), A (64 x 8 TF32) in registers as the m16n8k8
+// .tf32 A fragment of this thread's warp, B (8 x 64) K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FF_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : FF_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+#define FF_D64 FF_D32, FF_D16(32), FF_D16(48)
+#define FF_D64_LIST                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// As wgmma_rs_m64n64k8_tf32, 128 columns wide.
+__device__ __forceinline__ void wgmma_rs_m64n128k8_tf32(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " FF_D64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : FF_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+#undef FF_D64
+#undef FF_D64_LIST
+
 #undef FF_D4
 #undef FF_D16
 #undef FF_D16_LIST
@@ -520,6 +641,37 @@ __device__ __forceinline__ void wgmma_rs_kk(float (&d)[NB][4],
                                 a, desc_b, accumulate);
 }
 
+// s (64 x 8NB, f32) = A . B (+ s if accumulate) over one 8-deep TF32
+// slice, both operands K-major in shared memory: one m64n32 (NB = 4) or
+// m64n64 (NB = 8) product.
+template <int NB>
+__device__ __forceinline__ void wgmma_ss_kk_tf32(float (&s)[NB][4],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  static_assert(NB == 4 || NB == 8, "32 or 64 columns");
+  if constexpr (NB == 4)
+    wgmma_ss_m64n32k8_tf32(*reinterpret_cast<float(*)[16]>(&s[0][0]),
+                           desc_a, desc_b, accumulate);
+  else
+    wgmma_ss_m64n64k8_tf32(acc_block(s, 0), desc_a, desc_b, accumulate);
+}
+
+// d (64 x 8NB, f32) += A . B over one 8-deep TF32 slice, A in registers:
+// one m64n64 (NB = 8) or m64n128 (NB = 16) product (the f32 forward's
+// P.V).
+template <int NB>
+__device__ __forceinline__ void wgmma_rs_kk_tf32(float (&d)[NB][4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  static_assert(NB == 8 || NB == 16, "64 or 128 columns");
+  if constexpr (NB == 8)
+    wgmma_rs_m64n64k8_tf32(acc_block(d, 0), a, desc_b, 1);
+  else
+    wgmma_rs_m64n128k8_tf32(*reinterpret_cast<float(*)[64]>(&d[0][0]), a,
+                            desc_b, 1);
+}
+
 template <int NB>
 __device__ __forceinline__ void fence_acc(float (&s)[NB][4]) {
   fence_regs(*reinterpret_cast<float(*)[4 * NB]>(&s[0][0]));
@@ -549,6 +701,85 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x with its low 13 mantissa bits cleared: a TF32 value, exactly what the
+// tensor cores read of x
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+
+// x = hi + lo up to lo's own truncation: hi = tf32_trunc(x), lo =
+// tf32_trunc(x - hi), the subtraction exact in f32
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_trunc(x);
+  lo = tf32_trunc(x - hi);
+}
+
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_f4(uint32_t addr, float a, float b,
+                                             float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// Split the f32 tile of BYTES at src in place into its hi part and write
+// its lo part at the same offsets from lo (any layout: the split is
+// elementwise), NTHREADS threads 16 bytes each per round, consecutive
+// threads on consecutive chunks.
+template <int BYTES, int NTHREADS>
+__device__ __forceinline__ void split_tile_tf32(uint32_t src, uint32_t lo,
+                                                int tid) {
+  static_assert(BYTES % (16 * NTHREADS) == 0, "whole rounds");
+#pragma unroll
+  for (int j = 0; j < BYTES / (16 * NTHREADS); ++j) {
+    const uint32_t off = (tid + j * NTHREADS) * 16;
+    const float4 x = ld_shared_f4(src + off);
+    float h[4], l[4];
+    tf32_split(x.x, h[0], l[0]);
+    tf32_split(x.y, h[1], l[1]);
+    tf32_split(x.z, h[2], l[2]);
+    tf32_split(x.w, h[3], l[3]);
+    st_shared_f4(src + off, h[0], h[1], h[2], h[3]);
+    st_shared_f4(lo + off, l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The 64 x 8NB accumulator s (this thread's fragment, p of 8NB keys) as
+// TF32 A fragments, hi and lo: slice kc holds the keys of 8-column block
+// kc in the order (0, 2, 4, 6, 1, 3, 5, 7), so a[kc] = {s[kc][0],
+// s[kc][2], s[kc][1], s[kc][3]} (rows g, g + 8 of keys 2 tig, then of 2
+// tig + 1).
+template <int NB>
+__device__ __forceinline__ void tf32_a_frags(const float (&s)[NB][4],
+                                             uint32_t (&hi)[NB][4],
+                                             uint32_t (&lo)[NB][4]) {
+#pragma unroll
+  for (int kc = 0; kc < NB; ++kc) {
+    const float x[4] = {s[kc][0], s[kc][2], s[kc][1], s[kc][3]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float h, l;
+      tf32_split(x[j], h, l);
+      hi[kc][j] = __float_as_uint(h);
+      lo[kc][j] = __float_as_uint(l);
+    }
+  }
+}
+
+// Wait at named barrier `id` (1 ... 15; 0 is __syncthreads) for the
+// `count` threads that use it (a warpgroup's 128).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------

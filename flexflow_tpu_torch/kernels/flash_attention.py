@@ -8,10 +8,14 @@ forward ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the backward
 laid out and what bounds it. ``csrc/flash_common.cuh`` holds what they
 share (the dropout hash and its per-tile keep bits among it) and the f32
 kernels' helpers, ``csrc/hopper_common.cuh`` the Hopper building blocks
-of the three bf16 kernels (the TMA/cp.async tile rings, the swizzled
-layout and its ``wgmma`` descriptors, the ``wgmma`` wrappers, the head-dim
-split of the wide bf16 forward and dq across two warpgroups); f32 inputs
-run exact FMA kernels, chosen by dtype and head dim inside each C entry.
+of the tensor-core kernels (the TMA/cp.async tile rings, the swizzled
+layout and its ``wgmma`` descriptors, the bf16 and TF32 ``wgmma``
+wrappers, the split of f32 operands into TF32 hi and lo parts, the
+head-dim split of the wide bf16 forward and dq across two warpgroups).
+The f32 forward at d = 64 and 128 runs on the tensor cores in three TF32
+passes per product (hi . hi + hi . lo + lo . hi), which keeps f32
+accuracy; the f32 dq and dk/dv (and the f32 forward above d = 128) run
+exact FMA kernels, chosen by dtype and head dim inside each C entry.
 
 :func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
 and is differentiable: a ``torch.autograd.Function`` (the counterpart of
@@ -284,9 +288,10 @@ def _fwd_head_dim(d: int, dtype) -> int:
 def _kernel_inputs(*ts) -> None:
     """What every kernel takes: cuda tensors of one dtype, contiguous,
     16-byte aligned, head dim a positive multiple of 64 (64 and 128 run
-    the tensor-core or exact kernels, any wider one the wide kernels:
-    bf16 at 192 ... 512 the wide tensor-core forward, dq and dk/dv) or
-    bf16 at 8, 16, 24 or 32 (the narrow kernels)."""
+    the tensor-core kernels, bf16 and the f32 forward, or the exact f32
+    dq and dk/dv; any wider one the wide kernels: bf16 at 192 ... 512 the
+    wide tensor-core forward, dq and dk/dv) or bf16 at 8, 16, 24 or 32
+    (the narrow kernels)."""
     t0 = ts[0]
     if t0.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda tensors, not "
@@ -337,10 +342,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     128: the ``wgmma`` kernel, which encodes four TMA tensor maps per
     launch; bf16 at d <= 32: the narrow ``wgmma`` kernel, d unpadded;
     bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d compiled in;
-    f32 up to d = 128: the exact FMA kernel; f32 above 128 and bf16 above
-    512: the wide FMA kernel, d a runtime argument) and count one in
-    ``.launches``; CPU tensors run
-    :func:`flash_attention_bwd_dq_plain` and count one in
+    f32 up to d = 128: the exact FMA kernel, fed the lse of the
+    forward's TF32 kernel; f32 above 128 and bf16 above 512: the wide FMA
+    kernel, d a runtime argument) and count one in ``.launches``; CPU
+    tensors run :func:`flash_attention_bwd_dq_plain` and count one in
     ``.plain_calls``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -437,7 +442,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     CUDA tensors launch ``csrc/flash_attention_fwd.cu`` (bf16 at d = 8,
     16, 24 and 32 the narrow kernel on the unpadded tensors, and the
     narrow dq and dk/dv in the backward; other head dims padded to a
-    multiple of 64) and count one launch in
+    multiple of 64; f32 at d = 64 and 128, d <= 64 padded to 64, the
+    split-precision TF32 kernel, three ``wgmma`` passes a product) and
+    count one launch in
     ``flash_attention.launches`` (the backward's kernels count
     in ``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain

@@ -745,3 +745,144 @@ def test_every_narrow_backward_head_dim_has_a_card_case():
     # past it
     assert all(smoke.kernel_head_dim(c[4], c[5])
                == bwd_mod._fwd_head_dim(c[4], c[5]) for c in smoke.CASES)
+
+
+# The f32 forward on the card (flash_fwd_wgmma_tf32_kernel) runs every
+# product on the tensor cores in three TF32 passes of split operands: x =
+# hi + lo, hi = x with its low 13 mantissa bits cleared, lo = x - hi
+# cleared the same way (tf32_split in csrc/hopper_common.cuh), and a . b
+# ~ a_lo . b_hi + a_hi . b_lo + a_hi . b_hi. This emulation repeats that
+# arithmetic on the CPU (the split by bit masks, f32 products of the
+# TF32 parts, the kernel's key tiles of 64 at d = 64 and 32 at d = 128,
+# its online softmax in base 2) and holds it against the JAX package's f32
+# forward to chip_smoke.py's f32 tolerance, 2e-5 absolute on o and lse;
+# one TF32 pass misses that tolerance, which is why the kernel takes
+# three. It emulates the split, not the tensor cores' own summation
+# order within a k-step, which only the card shows. Nothing on the port's
+# path calls it.
+TF32_TOL = 2e-5     # chip_smoke.py's TOL[torch.float32], o and lse
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    return (x.view(torch.int32) & -8192).view(torch.float32)  # 0xFFFFE000
+
+
+def _tf32_split(x: torch.Tensor):
+    hi = _tf32_trunc(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the kernel's TF32 passes compute it: the two small terms
+    first, then hi . hi (passes = 1: hi . hi alone)."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    if passes == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_flash(q, k, v, causal=False, passes=3):
+    """(o, lse) of the card's f32 forward, emulated in f32 on the CPU."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bn = 64 if d == 64 else 32
+    log2e = 1.4426950408889634
+    scale_log2 = np.float32(log2e / np.sqrt(d))
+    m = torch.full((b, h, sq, 1), -1e30 * log2e)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for n0 in range(0, sk, bn):
+        kt, vt = k[:, :, n0:n0 + bn], v[:, :, n0:n0 + bn]
+        s = _tf32_mm(q, kt.transpose(2, 3), passes) * scale_log2
+        if causal:
+            keys = torch.arange(n0, n0 + kt.shape[2])[None, :]
+            s = torch.where(keys <= rows, s, torch.tensor(-1e30 * log2e))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_mm(p, vt, passes)
+        m = m_new
+    o = acc / l
+    lse = (m * np.float32(np.log(2.0)) + torch.log(l)).squeeze(-1)
+    return o, lse
+
+
+TF32_CASES = [(s, d, causal) for s in (128, 512) for d in (64, 128)
+              for causal in (False, True)]
+
+
+@pytest.mark.parametrize("s,d,causal", TF32_CASES)
+def test_tf32_three_pass_emulation_matches_jax_f32(s, d, causal):
+    q, k, v = _qkv(1, 2, s, s, d, seed=17)
+    o, lse = _tf32_flash(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    do = np.abs(o.numpy() - _jax(q, k, v, causal=causal)).max()
+    dl = np.abs(lse.numpy() - _jax_lse(q, k, v, causal)).max()
+    assert do <= TF32_TOL and dl <= TF32_TOL, (do, dl)
+
+
+@pytest.mark.parametrize("s,d", [(128, 64), (512, 64), (512, 128)])
+def test_one_tf32_pass_misses_the_f32_tolerance(s, d):
+    """One TF32 pass (hi . hi) keeps ~3 decimal digits of each operand:
+    its o misses 2e-5 by orders of magnitude, so the kernel needs the two
+    correction passes."""
+    q, k, v = _qkv(1, 2, s, s, d, seed=17)
+    o, _ = _tf32_flash(*(torch.from_numpy(x) for x in (q, k, v)),
+                       passes=1)
+    assert np.abs(o.numpy() - _jax(q, k, v)).max() > 10 * TF32_TOL
+
+
+def test_tf32_split_is_exact_in_its_parts():
+    """hi and lo are TF32 values (low 13 bits clear), hi + lo is x up to
+    lo's own truncation (2**-20 of x at most), and lo is 0 for a value
+    that TF32 holds exactly."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        4096).astype(np.float32))
+    hi, lo = _tf32_split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 8191).any()
+    assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -20).all()
+    assert not _tf32_split(hi)[1].any()
+
+
+def test_every_f32_tensor_core_forward_has_a_card_case():
+    """The f32 forward at d = 64 and 128 runs flash_fwd_wgmma_tf32_kernel,
+    whose two warpgroups split the key tiles (64 keys at d = 64, 32 at
+    d = 128): chip_smoke.py's kernel phase holds each d against its plain
+    version with the keys within one tile (the second warpgroup idles)
+    and past it, each causal and not, with and without dropout, and the
+    search's calibration rows (b1 h8 d64 causal, s 128 and 512) and the
+    f32 d = 128 kernels at sq != sk both ways; its timing phases list the
+    calibration rows for the A/B against a parent tree."""
+    import importlib.util
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "flexflow_tpu_torch", "csrc",
+                           "flash_attention_fwd.cu")) as f:
+        text = f.read()
+    assert re.search(r"dtype == 0 && head_dim == 64\) FF_LAUNCH\(\("
+                     r"launch_tf32<64>\)\)", text)
+    assert re.search(r"dtype == 0 && head_dim == 128\) FF_LAUNCH\(\("
+                     r"launch_tf32<128>\)\)", text)
+    assert "flash_fwd_kernel<" not in text   # the FMA forward is gone
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    f32 = [c for c in smoke.CASES if c[5] == torch.float32
+           and bwd_mod._fwd_head_dim(c[4], c[5]) <= 128]
+    every = {(False, False), (False, True), (True, False), (True, True)}
+    for d, bn in ((64, 64), (128, 32)):
+        for past_one_tile in (False, True):
+            mine = {(c[6], c[7] > 0) for c in f32
+                    if bwd_mod._fwd_head_dim(c[4], c[5]) == d
+                    and (c[3] > bn) == past_one_tile}
+            assert mine == every, (d, past_one_tile, mine)
+    for s in (128, 512):
+        assert (1, 8, s, s, 64, torch.float32, True, 0.0) in smoke.CASES
+        assert ("fwd", 1, 8, s, 64, True, torch.float32) \
+            in smoke.AB_SHAPES
+    d128 = [c for c in f32 if c[4] == 128]
+    assert any(c[2] < c[3] for c in d128) and any(c[2] > c[3] for c in d128)
