@@ -294,7 +294,10 @@ SLICE_TOL = 2e-2
 # Adam from the same weights, on each step's loss (~0.7): both run bf16
 # matmul operands, whose roundings differ where the two attention paths
 # sum in another order; Adam's m/sqrt(v) carries those differences into
-# the weights of every later step
+# the weights of every later step. The zoo holds every model's history to
+# it, f32 NMT too: there the two attentions part only in f32's last bits,
+# which its loss amplifies (ZOO_GRAD_TOL): 1.409e-2 at the third step on
+# an H100
 TRAIN_TOL = 2e-2
 # generate phase: each score row of a KV decode step vs the re-forward's
 # row at the same position, relative to that row's logit range (max -
@@ -613,6 +616,35 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (1, 8, 128, 128, 64, torch.float32, True, 0.0),
     (1, 8, 512, 512, 64, torch.float32, True, 0.0),
     (1, 8, 4096, 4096, 64, torch.float32, True, 0.0),
+    # the f32 wide forward (d 192 ... 512, the split-precision TF32 wide
+    # kernel; the f32 dq and dk/dv on its lse): with the cases above,
+    # every d causal and not, each with and without dropout, keys within
+    # one 64-key tile and past it; sq != sk both ways at d 256 and 512; a
+    # causal s ending mid-tile at d 320; NMT's attention in f32 (the
+    # --f32-compute path), self and ragged cross-attention
+    (2, 4, 40, 40, 192, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 192, torch.float32, False, 0.1),
+    (2, 4, 100, 100, 192, torch.float32, True, 0.0),
+    (2, 4, 40, 40, 256, torch.float32, False, 0.0),
+    (2, 4, 100, 100, 256, torch.float32, True, 0.1),
+    (2, 4, 96, 200, 256, torch.float32, False, 0.1),
+    (2, 4, 200, 96, 256, torch.float32, False, 0.0),
+    (2, 4, 260, 260, 320, torch.float32, True, 0.0),
+    (2, 4, 200, 200, 320, torch.float32, False, 0.1),
+    (2, 4, 20, 20, 320, torch.float32, False, 0.1),
+    (2, 4, 40, 40, 384, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 384, torch.float32, False, 0.0),
+    (2, 4, 40, 40, 448, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 448, torch.float32, False, 0.1),
+    (2, 4, 100, 100, 448, torch.float32, True, 0.0),
+    (2, 4, 96, 200, 512, torch.float32, False, 0.1),
+    (2, 4, 200, 96, 512, torch.float32, False, 0.0),
+    (2, 4, 20, 20, 512, torch.float32, True, 0.1),
+    (64, 1, 128, 128, 512, torch.float32, False, 0.0),
+    (16, 1, 100, 37, 512, torch.float32, False, 0.0),
+    # f32 above d 512 keeps the wide FMA forward, as bf16 does
+    (2, 4, 200, 200, 576, torch.float32, True, 0.1),
+    (2, 4, 200, 200, 576, torch.float32, False, 0.0),
 ]
 
 
@@ -1118,7 +1150,7 @@ def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               h: int = 12, d: int = 64, dtype=torch.bfloat16) -> dict:
     """The forward kernel, its plain version and SDPA (with the same
     dropout rate and mask, on the backend it picks, which is named) at b h
-    s d in dtype. f32 at d <= 128 runs three TF32 passes on the tensor
+    s d in dtype. f32 up to d = 512 runs three TF32 passes on the tensor
     cores: its bound is theirs, with the FMA rate's beside it
     (``fma_bound_ms``)."""
     import torch.nn.functional as F
@@ -1129,7 +1161,7 @@ def fwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
     kw = dict(causal=causal, dropout_rate=rate,
               dropout_seed=5 if rate else None)
     size = dtype.itemsize
-    tf32 = 3 if size == 4 and d <= 128 else 0
+    tf32 = 3 if size == 4 and d <= 512 else 0
     bound_ms, bound_by = attention_bound_ms(b * h, seq, seq, d, size, causal,
                                             tf32)
     extra = {"fma_bound_ms": attention_bound_ms(
@@ -1300,7 +1332,9 @@ KT_SHAPES = [
      "the Transformer's attention, d 8 unpadded: the narrow kernels"),
     # f32: the search's calibration rows (op_attention@flash, b1 h8 d64
     # causal at s 128 and 512), the tensor-core kernel at d 128, the f32
-    # backward (FMA) at the calibration shape, the wide FMA forward
+    # backward (FMA) at the calibration shape and at d 128, the wide
+    # tensor-core forward at d 192 ... 512 and NMT's shape (the
+    # --f32-compute path), the wide FMA backward at d 256 and 512
     ("fwd_f32_calib_s128", "fwd", 1, 8, 128, 64, True, torch.float32,
      "the search's calibration row at s128, 5 launches per calibration"),
     ("fwd_f32_calib_s512", "fwd", 1, 8, 512, 64, True, torch.float32,
@@ -1309,8 +1343,24 @@ KT_SHAPES = [
      "the f32 tensor-core kernel at d 128"),
     ("bwd_f32_calib", "bwd", 1, 8, 512, 64, True, torch.float32,
      "the f32 FMA dq and dk/dv at the calibration shape"),
+    ("bwd_f32_d128", "bwd", 1, 8, 512, 128, True, torch.float32,
+     "the f32 FMA dq and dk/dv at d 128"),
+    ("fwd_f32_d192", "fwd", 4, 8, 512, 192, False, torch.float32,
+     "the f32 wide tensor-core kernel"),
     ("fwd_f32_d256", "fwd", 4, 8, 512, 256, False, torch.float32,
-     "the f32 wide FMA forward"),
+     "the f32 wide tensor-core kernel"),
+    ("fwd_f32_d256_causal", "fwd", 4, 8, 512, 256, True, torch.float32,
+     "the f32 wide tensor-core kernel, causal"),
+    ("fwd_f32_d320", "fwd", 4, 8, 512, 320, False, torch.float32,
+     "the f32 wide tensor-core kernel"),
+    ("fwd_f32_d512", "fwd", 4, 8, 512, 512, False, torch.float32,
+     "the f32 wide tensor-core kernel"),
+    ("fwd_f32_nmt", "fwd", 64, 1, 128, 512, False, torch.float32,
+     "NMT's attention under --f32-compute, 1 launch per NMT train step"),
+    ("bwd_f32_d256", "bwd", 4, 8, 512, 256, False, torch.float32,
+     "the f32 wide FMA dq and dk/dv"),
+    ("bwd_f32_d512", "bwd", 4, 8, 512, 512, False, torch.float32,
+     "the f32 wide FMA dq and dk/dv"),
 ]
 
 
@@ -1320,8 +1370,9 @@ def phase_ktimes(smi: str) -> dict:
     dropout and at 0.1, causal at GPT-2's prefill, at KT_SHAPES (LLaMA's
     and Mixtral's head dim 128, the causal backward, head dims 256, 320
     and 512, NMT's b64 h1 s128 d512, the Transformer's d 8, the f32
-    calibration rows, d 128 and 256 and the f32 backward), and Adam over
-    BERT-base and DLRM."""
+    calibration rows, the f32 forward at d 128, 192, 256 (and causal),
+    320, 512 and NMT's shape, the f32 backward at the calibration shape,
+    d 128, 256 and 512), and Adam over BERT-base and DLRM."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {"fwd": {}, "bwd": {}}
     for rate in (0.0, 0.1):
@@ -1404,13 +1455,11 @@ def phase_ktimes(smi: str) -> dict:
 
 
 # the A/B's shapes: (kernel, b, h, s, d, causal, dtype), KT_SHAPES's
-# among them (the f32 calibration rows too); f32 above d 128 runs the wide
-# FMA forward
+# among them (the f32 calibration rows and the f32 wide rows too)
 AB_SHAPES = [(*s, torch.bfloat16) for s in
              [("fwd", 8, 12, 128, 64, False), ("fwd", 8, 12, 512, 64, False),
               ("fwd", 8, 12, GPT_SEQ, 64, True)]] + [
-    s[1:8] for s in KT_SHAPES] + [
-    ("fwd", 4, 8, 512, 192, False, torch.float32)]
+    s[1:8] for s in KT_SHAPES]
 
 
 def ab_build(trees: dict) -> dict:
@@ -2438,6 +2487,21 @@ ZOO_TIMED = 6       # timed train steps per model, after the fit
 ZOO_REQUESTS = 5    # timed requests of each served model
 ZOO_CLASSES = 1000  # the published ImageNet head (the builders default 10)
 ZOO_SEQ = 128       # NMT's source and target length (NMTConfig fixes none)
+# the first step's gradients of the two plans from the same weights, leaf
+# by leaf: ||g_flash - g_plain|| over max(||g_plain||, GRAD_FLOOR of the
+# whole gradient's norm; the floor holds a leaf whose true gradient is 0,
+# MHA's key bias, to the sums' rounding). Checked in f32 (NMT under
+# --f32-compute), where on an H100 both attentions are within 7.7e-7 of
+# float64 on the step's own tensors and the leaves part by <= 1.3e-4.
+# NMT's graph ends in a dense layer, so its sparse CE takes log(clamp(out,
+# 1e-10, 1)), and the target outputs just inside the clamp, cancellation
+# residues of the last projection, carry gradients of -1 / (N out): noise
+# of 1e-7 of max|o| moves every leaf by ~6e-4
+# (tools/torch_nmt_f32_sensitivity.py). Printed, not checked, in bf16,
+# whose rounding of the operands moves the Transformer's bias gradients
+# by up to 15%; the loss history is the check there.
+ZOO_GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-6
 # the steps profiled: NMT's LSTM recurrence (launch-bound) and ResNet-50's
 ZOO_PROFILED = ("nmt", "resnet50")
 
@@ -2450,10 +2514,12 @@ class ZooSpec:
     through InferenceSession.infer."""
 
     def __init__(self, tag, what, batch, build, data, loss, flash=0,
-                 served=False):
+                 served=False, f32=False):
         self.tag, self.what, self.batch = tag, what, batch
         self.build, self.data, self.loss = build, data, loss
         self.flash, self.served = flash, served
+        # f32: use_bf16_compute = False (--f32-compute)
+        self.f32 = f32
 
 
 def zoo_specs() -> list:
@@ -2506,13 +2572,18 @@ def zoo_specs() -> list:
                 f"{tc.num_layers} layers, seq {tc.sequence_length}, MSE)",
                 64, lambda ff, b: zoo.build_transformer(ff, b, tc),
                 transformer_data, "mean_squared_error", tc.num_layers, True),
-        ZooSpec("nmt", f"NMT (NMTConfig(): vocab {nc.src_vocab} / "
-                f"{nc.tgt_vocab}, embed {nc.embed_dim}, LSTM hidden "
-                f"{nc.hidden_size} x {nc.num_layers} layers each side, "
-                f"{nc.num_heads} attention head of {nc.hidden_size}; src = "
-                f"tgt = {ZOO_SEQ}, sparse CE)", 64,
-                lambda ff, b: zoo.build_nmt(ff, b, ZOO_SEQ, ZOO_SEQ, nc),
-                nmt_data, sce, 1),
+        *(ZooSpec(tag, f"NMT (NMTConfig(): vocab {nc.src_vocab} / "
+                  f"{nc.tgt_vocab}, embed {nc.embed_dim}, LSTM hidden "
+                  f"{nc.hidden_size} x {nc.num_layers} layers each side, "
+                  f"{nc.num_heads} attention head of {nc.hidden_size}; src "
+                  f"= tgt = {ZOO_SEQ}, sparse CE{what})", 64,
+                  lambda ff, b: zoo.build_nmt(ff, b, ZOO_SEQ, ZOO_SEQ, nc),
+                  nmt_data, sce, 1, f32=f32)
+          for tag, what, f32 in (
+              ("nmt", "", False),
+              # --f32-compute: the f32 wide forward, dq and dk/dv
+              ("nmt_f32", "; f32 compute, use_bf16_compute = False",
+               True))),
         ZooSpec("resnet50", f"ResNet-50 (224x224, {ZOO_CLASSES} classes)",
                 64, lambda ff, b: zoo.build_resnet50(ff, b, ZOO_CLASSES, 224),
                 images(224), sce, served=True),
@@ -2542,14 +2613,16 @@ def zoo_specs() -> list:
 
 def zoo_model(spec, impl: str):
     """``spec``'s model through FFModel on the card, bf16 matmul and conv
-    operands, seeded random weights, Adam (alpha 1e-4, epsilon 1e-4: the
-    conv biases under BatchNorm and MHA's key bias have a true gradient
-    of 0, whose f32 noise Adam at 1e-8 turns into +-alpha steps)."""
+    operands (f32 ones for an f32 spec), seeded random weights, Adam
+    (alpha 1e-4, epsilon 1e-4: the conv biases under BatchNorm and MHA's
+    key bias have a true gradient of 0, whose f32 noise Adam at 1e-8
+    turns into +-alpha steps)."""
     from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
     cfg = FFConfig()
     cfg.batch_size = spec.batch
     cfg.only_data_parallel = True
     cfg.kernel_impls = impl
+    cfg.use_bf16_compute = not spec.f32
     cfg.seed = 0
     ff = FFModel(cfg)
     out = spec.build(ff, spec.batch)
@@ -2602,12 +2675,36 @@ def profile_train_step(ff, step_fn, batch) -> dict:
             "family_ms": dict(family)}
 
 
+def grad_check(spec, flash: dict, plain: dict) -> float:
+    """The first step's gradients of the flash plan (``flash``, on the
+    host) against the plain plan's, leaf by leaf, within ZOO_GRAD_TOL for
+    an f32 spec; prints the worst three leaves."""
+    plain = host_tree(plain)
+    whole = sum(float(t.double().norm()) ** 2
+                for d in plain.values() for t in d.values()) ** 0.5
+    errs = sorted(((float((flash[ln][n].double() - t.double()).norm())
+                    / max(float(t.double().norm()), GRAD_FLOOR * whole),
+                    f"{ln}.{n}") for ln, d in plain.items()
+                   for n, t in d.items()), reverse=True)
+    ok = errs[0][0] <= ZOO_GRAD_TOL or not spec.f32
+    print(f"[zoo] {spec.tag} first step's gradients, flash against plain "
+          f"attention from the same weights, {len(errs)} "
+          f"leaves: ||diff|| / max(||g||, {GRAD_FLOOR:.0e} ||whole g||) "
+          "worst " + ", ".join(f"{n} {e:.3e}" for e, n in errs[:3])
+          + (f" (tol {ZOO_GRAD_TOL:.0e}) {'ok' if ok else 'FAIL'}"
+             if spec.f32 else " (bf16: not checked)"))
+    check(ok, f"{spec.tag}: first-step gradients of the two plans differ")
+    return errs[0][0]
+
+
 def zoo_run(spec, smi: str) -> dict:
     """One model of the zoo: fit for ZOO_STEPS steps (one batch, so the
     history is the per-step loss) through flash and the fused Adam with
     every launch counted, the timed steps and their peak memory, the
     served requests; then the same weights, state and batch through plain
-    attention and the unfused Adam."""
+    attention and the unfused Adam. Before the fit, the first step's
+    gradients of both plans from the same weights, leaf by leaf
+    (``grad_check``)."""
     from flexflow_tpu_torch.serving import InferenceSession
     t0 = time.perf_counter()
     ff = zoo_model(spec, "attention:flash,opt_update:fused")
@@ -2618,6 +2715,10 @@ def zoo_run(spec, smi: str) -> dict:
           f"parameters in {n_leaves} leaves, {len(ff.state)} BatchNorm "
           f"states, built on the card in {time.perf_counter() - t0:.2f} s")
     xs, y = spec.data(spec.batch, 71)
+    batch = {t.name: torch.from_numpy(a).cuda()
+             for t, a in zip(ff.graph_inputs, xs)}
+    batch["label"] = torch.from_numpy(y).cuda()
+    grads = host_tree(ff.executor._grads(ff.params, ff.state, batch, 0)[0])
     fns = zero_counts()  # the main path: every count starts at 0
     t0 = time.perf_counter()
     history = ff.fit(xs, y, epochs=ZOO_STEPS, verbose=False)
@@ -2672,9 +2773,6 @@ def zoo_run(spec, smi: str) -> dict:
               f"{spec.tag} serve launches")
         check(bool(np.isfinite(served).all()), f"{spec.tag} served output")
         del sess
-    batch = {t.name: torch.from_numpy(a).cuda()
-             for t, a in zip(ff.graph_inputs, xs)}
-    batch["label"] = torch.from_numpy(y).cuda()
     step_fn = ff.executor.make_train_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2704,20 +2802,24 @@ def zoo_run(spec, smi: str) -> dict:
               + "; most device time: "
               + "; ".join(f"{n} {ms:.3f} ms" for n, ms in p["top"])
               + f"; {smi}")
-    del ff, step_fn, batch
+    del ff, step_fn
     free_cuda()
 
     # the same weights, state and batch through plain attention and the
     # unfused Adam
     ref = zoo_model(spec, "attention:xla")
     ref.params, ref.state = device_tree(init), device_tree(init_state)
+    res["grad_diff"] = grad_check(
+        spec, grads, ref.executor._grads(ref.params, ref.state, batch,
+                                         0)[0])
+    del batch
     plain = [r["loss"] for r in ref.fit(xs, y, epochs=ZOO_STEPS,
                                         verbose=False)]
     err = float(np.abs(np.array(losses) - np.array(plain)).max())
     ok = err <= TRAIN_TOL
     print(f"[zoo] {spec.tag}, {ZOO_STEPS} steps from the same weights: "
-          f"loss flash + fused Adam {[round(v, 5) for v in losses]}, plain "
-          f"attention + unfused Adam {[round(v, 5) for v in plain]}: "
+          f"loss flash + fused Adam {[round(v, 7) for v in losses]}, plain "
+          f"attention + unfused Adam {[round(v, 7) for v in plain]}: "
           f"max|diff| = {err:.3e} (tol {TRAIN_TOL:.0e}) "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{spec.tag}: loss histories of the two plans disagree")
@@ -5122,15 +5224,23 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "wide_bf16_kernel": "flash_fwd_wgmma_wide_kernel (d 192-512)",
         # f32: the search's calibration rows (b1 h8 d64 causal, 10
         # launches while calibrating) and d 128 on the split-precision
-        # TF32 kernel, d 256 on the wide FMA kernel
+        # TF32 kernel, d 192 ... 512 and NMT's shape (the zoo's f32 NMT
+        # step, one launch a step) on the wide one
         "f32_calibration_b1_h8_s128_d64_causal":
             dict(kt["fwd_f32_calib_s128"]),
         "f32_calibration_b1_h8_s512_d64_causal":
             dict(kt["fwd_f32_calib_s512"]),
         "f32_b1_h8_s512_d128_causal": dict(kt["fwd_f32_d128"]),
+        "f32_b4_h8_s512_d192": dict(kt["fwd_f32_d192"]),
         "f32_b4_h8_s512_d256": dict(kt["fwd_f32_d256"]),
+        "f32_b4_h8_s512_d256_causal": dict(kt["fwd_f32_d256_causal"]),
+        "f32_b4_h8_s512_d320": dict(kt["fwd_f32_d320"]),
+        "f32_b4_h8_s512_d512": dict(kt["fwd_f32_d512"]),
+        "f32_nmt_b64_h1_s128_d512": dict(kt["fwd_f32_nmt"]),
         "f32_kernel": "flash_fwd_wgmma_tf32_kernel (f32, d 64 and 128; "
                       "three TF32 passes a product)",
+        "f32_wide_kernel": "flash_fwd_wgmma_wide_tf32_kernel (f32, d "
+                           "192-512; three TF32 passes a product)",
         # the Transformer's attention (zoo phase), d 8 unpadded through
         # the narrow kernel; the zoo's train launches (6 a step for the
         # Transformer, 1 for NMT) and the Transformer's served forwards
@@ -5189,6 +5299,10 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                 key, kt["bwd_transformer"]),
             "f32_b1_h8_s512_d64_causal": bwd_row_t(key,
                                                    kt["bwd_f32_calib"]),
+            "f32_b1_h8_s512_d128_causal": bwd_row_t(key,
+                                                    kt["bwd_f32_d128"]),
+            "f32_b4_h8_s512_d256": bwd_row_t(key, kt["bwd_f32_d256"]),
+            "f32_b4_h8_s512_d512": bwd_row_t(key, kt["bwd_f32_d512"]),
             "zoo_train_launches": {t: n[name]
                                    for t, n in zoo_launches.items()},
             "frontends_train_launches": fe_row(name),

@@ -61,9 +61,17 @@
 //   the two partial score tiles summed through shared memory, and owning
 //   half of o's columns for P.V). Its header says why.
 //
-//   f32 above d = 128, and bf16 above 512 (no model has it) -
-//   flash_fwd_wide_kernel below: the FMA path with one 64-column chunk of
-//   o per CTA (its header says why), d a runtime argument.
+//   f32 at d = 192 ... 512 (every multiple of 64; the wrapper pads any d
+//   from 129 up) - flash_fwd_wgmma_wide_tf32_kernel below: the f32
+//   kernel's three TF32 passes a product and the wide bf16 kernel's split
+//   of D between two warpgroups over one block of 64 query rows and all
+//   D columns of o, with Q, K and V streamed through the warpgroups' TMA
+//   rings in 32-column chunks (Q's TF32 parts split in registers, as the
+//   register A operand of S). Its header says why.
+//
+//   either type above d = 512 (no model has it) - flash_fwd_wide_kernel
+//   below: the FMA path with one 64-column chunk of o per CTA (its header
+//   says why), d a runtime argument.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit; causal launches whose heads' K/V all fit in L2 take
@@ -1391,9 +1399,345 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128, f32 (and bf16 above 512): the wide FMA kernel
+// f32 at d = 192 ... 512: split-precision TF32 wgmma, d streamed in chunks
 // ---------------------------------------------------------------------------
-// The wgmma kernels hold a (64, D) f32 accumulator in registers: 128 per
+// Replaces the TPU kernel _fwd_kernel (flexflow_tpu/kernels/
+// flash_attention.py:110) for f32 at head dims 192 ... 512 (the wrapper
+// pads 129 ... 511 up to a multiple of 64), where the wide FMA kernel ran
+// until this one: the --f32-compute path's attention (NMT's one head of
+// 512, any model with heads of 192 ... 512). It computes what that kernel
+// computed, to f32 accuracy, on the tensor cores.
+//
+// Bound at b4 h8 s512 d256: three TF32 passes of 4 * d flops per (query,
+// key) pair, 25.8 GFLOP at 495 TFLOP/s (52.06 us), against q, k, v read
+// and o written once, 67.1 MB (20.03 us at 3.35 TB/s): operations; at
+// d 512 104.1 us; NMT's b64 h1 s128 d512 20.03 us by the bytes.
+//
+// Design. The d <= 128 kernel above keeps Q's hi and lo parts resident
+// and whole K and V tiles beside them: 128 KB of Q alone at d = 256,
+// 256 KB (past the 227 KB a CTA may take) at d = 512, and a 64 x D
+// accumulator of D / 2 registers a thread. Here:
+//   - a CTA owns 64 query rows and ALL D columns of o, so every score is
+//     computed once per query block (the FMA kernel computed it D / 64
+//     times, once per 64-column chunk of o): its two warpgroups split D,
+//     each owning D / 2 columns of o (a D / 4-register accumulator, 128
+//     at d = 512) and contracting its half of D for S; the two partial
+//     score tiles are summed through shared memory (exchange_store /
+//     exchange_add, as the wide bf16 kernel does above d = 320), so both
+//     hold the same S and run the same softmax;
+//   - nothing is resident: each warpgroup streams its half of D in
+//     chunks of 32 columns (one TMA box, one 128-byte swizzle atom wide)
+//     through its own ring of three stages on mbarriers, per key tile
+//     first Q and K chunk by chunk for S, then V chunk by chunk for P.V,
+//     so two copies are in flight behind every chunk's work and shared
+//     memory does not grow with D (Q is re-read from L2 once per key
+//     tile: 8 x 16.8 MB at b4 h8 s512 d256);
+//   - S = Q . K^T takes Q as the register A operand: each thread loads
+//     its TF32 A fragments of a Q chunk from shared memory and splits
+//     them in registers (tf32_split), so Q is read from shared memory once
+//     per chunk, not three times, and never written back; K is split in
+//     place into hi with its lo beside it (split_tile_tf32), and S runs
+//     three RS passes a_lo . b_hi, a_hi . b_lo, then a_hi . b_hi per chunk
+//     (m64n64k8: the whole key tile's width), as the d <= 128 kernel;
+//   - O += P . V: P, split into hi and lo A fragments in registers
+//     (tf32_a_frags), is the register A operand; each V chunk is
+//     transposed into V^T hi and lo (split_transpose_v, keys in the order
+//     (0, 2, 4, 6, 1, 3, 5, 7) within each 8-key group) and multiplies
+//     into its 32 columns of the accumulator in three m64n32k8 passes;
+//     masks and dropout bits are taken at the true key positions;
+//   - a CTA is two warpgroups, one CTA an SM (up to 255 registers a
+//     thread: 128 accumulator, 32 S and 32 Q fragment registers at d =
+//     512 and 64-key tiles; 64 P fragments in P.V's place).
+// The mask, the dropout bits (keep_bits) and the base-2 softmax are the
+// other kernels' (online_softmax).
+template <int D>
+struct Tf32WideTiles {
+  static constexpr int NWG = 2;                 // warpgroups per CTA
+  static constexpr int THREADS = NWG * WG_THREADS;
+  static constexpr int BM = WG_ROWS;            // query rows per CTA
+  static constexpr int BN = 64;                 // keys per K/V tile
+  static constexpr int NB = BN / 8;             // 8-key blocks of a tile
+  static constexpr int CW = 32;                 // columns of a chunk
+  static constexpr int HALF = D / NWG;          // columns a warpgroup owns
+  static constexpr int CHUNKS = HALF / CW;      // its chunks of q, k or v
+  static constexpr int ITEMS = 2 * CHUNKS;      // ring items per key tile
+  static constexpr int NS = 3;                  // ring stages a warpgroup
+  static constexpr int Q_BYTES = BM * CW * 4;   // a Q chunk
+  static constexpr int KV_BYTES = BN * CW * 4;  // a K or V chunk, K lo,
+                                                // V^T hi or V^T lo
+  // a stage: what TMA lands (a Q and a K chunk, or a V chunk in Q's
+  // place), then what the warpgroup derives from it (K lo, or V^T hi
+  // and lo)
+  static constexpr int RAW_BYTES = Q_BYTES + KV_BYTES;
+  static constexpr int STAGE_BYTES = RAW_BYTES + 2 * KV_BYTES;
+  // the two warpgroups' rings, then the exchange of their partial S
+  static constexpr size_t SMEM = SW_ATOM +
+                                 (size_t)NWG * NS * STAGE_BYTES +
+                                 (size_t)NWG * BM * BN * 4;
+  static_assert(D % 64 == 0 && D >= 192 && D <= 512, "d = 192 ... 512");
+  static_assert(HALF % CW == 0, "whole chunks");
+  static_assert(SMEM <= SMEM_LIMIT, "fits one CTA");
+};
+
+// This thread's TF32 A fragments, hi and lo, of a warpgroup's 64 x 32
+// f32 chunk at sq (128-byte swizzled as TMA lands it): slice kk holds
+// columns 8kk + tig and 8kk + tig + 4 of rows g and g + 8 of this warp's
+// 16, in the order (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig +
+// 4). Each 8-lane phase of a load reads eight distinct 16-byte chunks.
+__device__ __forceinline__ void q_frags_tf32(uint32_t sq, int warp, int g,
+                                             int tig, uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4]) {
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = ld_shared_f32(
+          sq + sw128_offset<WG_ROWS>(row + 8 * (j & 1), 2 * kk + (j >> 1)) +
+          tig * 4);
+      float h, l;
+      tf32_split(x, h, l);
+      hi[kk][j] = __float_as_uint(h);
+      lo[kk][j] = __float_as_uint(l);
+    }
+  }
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32WideTiles<D>::THREADS, 1)
+    flash_fwd_wgmma_wide_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                     const __grid_constant__ CUtensorMap tm_k,
+                                     const __grid_constant__ CUtensorMap tm_v,
+                                     float* __restrict__ o,
+                                     float* __restrict__ lse, int sq, int sk,
+                                     float sm_scale, int causal,
+                                     uint32_t threshold, float keep_prob,
+                                     uint32_t seed) {
+  using Tl = Tf32WideTiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, CW = Tl::CW;
+  constexpr int C = Tl::CHUNKS, NS = Tl::NS;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t s0 = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  float4* xbuf = reinterpret_cast<float4*>(
+      smem + (s0 - base) + Tl::NWG * NS * Tl::STAGE_BYTES);
+  // per warpgroup and stage: the stage's copies landed
+  __shared__ __align__(8) uint64_t full[Tl::NWG][NS];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int row_w = m0 + warp * 16;  // this warp's first row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  const int col0 = wg * Tl::HALF;  // this warpgroup's columns
+  const uint32_t ring = s0 + wg * NS * Tl::STAGE_BYTES;
+
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a tile is live iff its first key is visible to the last row
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+  const int n_items = n_tiles * Tl::ITEMS;
+
+  auto stage = [&](int i) { return ring + (i % NS) * Tl::STAGE_BYTES; };
+  auto bar = [&](int i) { return smem_u32(&full[wg][i % NS]); };
+  const CUtensorMap* map_q = &tm_q;
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  // item i of this warpgroup's ring, issued by one of its threads: of key
+  // tile i / ITEMS, chunk j < C of Q and of K, or chunk j - C of V
+  auto load_item = [&](int i) {
+    const int t = i / Tl::ITEMS, j = i % Tl::ITEMS;
+    const uint32_t st = stage(i), b = bar(i);
+    if (j < C) {
+      mbar_expect_tx(b, Tl::RAW_BYTES);
+      tma_load_3d(st, map_q, b, col0 + j * CW, m0, bh);
+      tma_load_3d(st + Tl::Q_BYTES, map_k, b, col0 + j * CW, t * BN, bh);
+    } else {
+      mbar_expect_tx(b, Tl::KV_BYTES);
+      tma_load_3d(st, map_v, b, col0 + (j - C) * CW, t * BN, bh);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 0; w < Tl::NWG; ++w)
+#pragma unroll
+      for (int st = 0; st < NS; ++st) mbar_init(smem_u32(&full[w][st]), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wtid == 0)
+    for (int i = 0; i < min(NS - 1, n_items); ++i) load_item(i);
+
+  float acc[Tl::HALF / 8][4];  // this warpgroup's columns of o
+#pragma unroll
+  for (int dt = 0; dt < Tl::HALF / 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m_i[2] = {NEG_INF * LOG2E, NEG_INF * LOG2E};  // running max, base 2
+  float l_i[2] = {0.f, 0.f};  // this thread's partial row sums
+
+  // Each ring item: wait for its copies, derive its TF32 parts, publish
+  // them to the warpgroup's wgmma (the barrier also frees the previous
+  // item's stage, which takes the item NS - 1 ahead), run its products.
+  int i = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = t * BN;
+    // S over this warpgroup's half of D, chunk by chunk
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < C; ++j, ++i) {
+      const uint32_t sQ = stage(i), sK = sQ + Tl::Q_BYTES;
+      const uint32_t sKlo = sQ + Tl::RAW_BYTES;
+      mbar_wait(bar(i), (i / NS) & 1);
+      split_tile_tf32<Tl::KV_BYTES, WG_THREADS>(sK, sKlo, wtid);
+      uint32_t qh[4][4], ql[4][4];
+      q_frags_tf32(sQ, warp, g, tig, qh, ql);
+      fence_proxy_async();
+      named_barrier(1 + wg, WG_THREADS);
+      if (wtid == 0 && i + NS - 1 < n_items) load_item(i + NS - 1);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+        const uint32_t kb = pass == 1 ? sKlo : sK;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_kk_tf32(s, pass == 0 ? ql[kk] : qh[kk],
+                           desc_sw128(kb + kk * 32, 16), j + pass + kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs_u32(qh);
+      fence_regs_u32(ql);
+      fence_acc(s);
+    }
+    // the two partial tiles summed (a + b rounds as b + a, so both
+    // warpgroups hold the same S); the second barrier keeps the next
+    // tile's stores from overwriting a partial the other still reads
+    exchange_store(xbuf, wg, wtid, s);
+    __syncthreads();
+    exchange_add(xbuf, wg, wtid, s);
+    __syncthreads();
+
+    const uint32_t keep =
+        DROPOUT ? keep_bits<NB>(n0, qpos, tig, bh, seed, threshold) : 0u;
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
+    float alpha[2];
+    online_softmax<DROPOUT>(s, m_i, l_i, alpha, n0, edge, qpos, tig, sk,
+                            causal, scale_log2, keep, inv_keep);
+#pragma unroll
+    for (int dt = 0; dt < Tl::HALF / 8; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+    uint32_t ph[NB][4], pl[NB][4];
+    tf32_a_frags(s, ph, pl);
+
+    // O[:, this warpgroup's columns] += P . V, chunk by chunk
+#pragma unroll
+    for (int j = 0; j < C; ++j, ++i) {
+      const uint32_t sV = stage(i);
+      const uint32_t vt_hi = sV + Tl::RAW_BYTES, vt_lo = vt_hi + Tl::KV_BYTES;
+      mbar_wait(bar(i), (i / NS) & 1);
+      split_transpose_v<CW, BN>(sV, vt_hi, vt_lo, wtid);
+      fence_proxy_async();
+      named_barrier(1 + wg, WG_THREADS);
+      if (wtid == 0 && i + NS - 1 < n_items) load_item(i + NS - 1);
+      float(&oc)[4][4] = *reinterpret_cast<float(*)[4][4]>(&acc[4 * j][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+        const uint32_t vb = pass == 1 ? vt_lo : vt_hi;
+#pragma unroll
+        for (int kc = 0; kc < NB; ++kc)
+          wgmma_rs_kk_tf32(oc, pass == 0 ? pl[kc] : ph[kc],
+                           desc_sw128(vb + (kc >> 2) * (CW * SW_ROW) +
+                                          (kc & 3) * 32,
+                                      16));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(oc);
+    }
+    fence_regs_u32(ph);
+    fence_regs_u32(pl);
+  }
+
+  // o = acc / l, each warpgroup's columns straight from its registers
+  // (two floats a thread per 8-column block: every 32-byte sector whole)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_safe = (l == 0.f) ? 1.f : l;
+    const float inv_l = 1.f / l_safe;
+    if (qpos[r] < sq) {
+      float* orow = o + ((size_t)bh * sq + qpos[r]) * D + col0 + 2 * tig;
+#pragma unroll
+      for (int dt = 0; dt < Tl::HALF / 8; ++dt)
+        *reinterpret_cast<float2*>(orow + 8 * dt) = make_float2(
+            acc[dt][2 * r] * inv_l, acc[dt][2 * r + 1] * inv_l);
+      if (wg == 0 && tig == 0)
+        lse[(size_t)bh * sq + qpos[r]] = m_i[r] * LN2 + logf(l_safe);
+    }
+  }
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_tf32_wide_t(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int bh, int sq, int sk,
+                               int causal, float sm_scale,
+                               uint32_t threshold, float keep_prob,
+                               uint32_t seed, cudaStream_t stream) {
+  using Tl = Tf32WideTiles<D>;
+  auto kernel = flash_fwd_wgmma_wide_tf32_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if ((err = tensor_map_f32(&tm_q, q, bh, sq, D, Tl::BM)) != cudaSuccess ||
+      (err = tensor_map_f32(&tm_k, k, bh, sk, D, Tl::BN)) != cudaSuccess ||
+      (err = tensor_map_f32(&tm_v, v, bh, sk, D, Tl::BN)) != cudaSuccess)
+    return err;
+  dim3 grid;
+  if (!launch_grid((sq + Tl::BM - 1) / Tl::BM, bh, 1, causal,
+                   2LL * sk * D * sizeof(float), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<float*>(o), static_cast<float*>(lse), sq,
+      sk, sm_scale, causal, threshold, keep_prob, seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tf32_wide(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int bh, int sq, int sk,
+                             int causal, float sm_scale, int use_dropout,
+                             uint32_t threshold, float keep_prob,
+                             uint32_t seed, cudaStream_t stream) {
+  return use_dropout
+             ? launch_tf32_wide_t<D, true>(q, k, v, o, lse, bh, sq, sk,
+                                           causal, sm_scale, threshold,
+                                           keep_prob, seed, stream)
+             : launch_tf32_wide_t<D, false>(q, k, v, o, lse, bh, sq, sk,
+                                            causal, sm_scale, threshold,
+                                            keep_prob, seed, stream);
+}
+
+// ---------------------------------------------------------------------------
+// head dims above 512, f32 and bf16: the wide FMA kernel
+// ---------------------------------------------------------------------------
+// The route above d = 512, where no model runs and no wgmma kernel is
+// compiled (a route by head dim, not a fallback: below it every d and
+// type has its tensor-core kernel). The first wide kernel of the port:
+// the wgmma kernels hold a (64, D) f32 accumulator in registers, 128 per
 // thread at D = 256, beside S, and a (64 + 2 * 64) x D tile ring. Here a
 // CTA owns 64 query rows and one 64-column chunk of o (the grid carries D
 // / 64 chunks per row block, adjacent in launch order), so its
@@ -1402,8 +1746,8 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
 // (scores_wide), so every chunk's CTA repeats the same scores, softmax and
 // lse: D / 64 times the score work of one CTA, for a kernel that is plain
 // and right. D enters only as a loop bound and a row stride, so it is a
-// runtime argument (any multiple of 64 above 128), and the shared memory
-// does not grow with D.
+// runtime argument (any multiple of 64), and the shared memory does not
+// grow with D.
 // bf16 rows are widened to f32 in shared memory, and p is
 // rounded to bf16 before P . V, where the reference casts it. With no
 // minimum of CTAs per SM ptxas held it to 128 registers and spilled; one
@@ -1557,8 +1901,9 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 // or 32; bh any count whose grid fits gridDim.x. bf16 at d = 64 and 128
 // launches the wgmma kernel, bf16 at d <= 32 the narrow wgmma kernel, bf16
 // at d = 192 ... 512 the wide wgmma kernel, f32 at d = 64 and 128 the
-// split-precision TF32 wgmma kernel, f32 above 128 and bf16 above 512 the
-// wide FMA kernel. Returns a cudaError_t (0 = launched).
+// split-precision TF32 wgmma kernel, f32 at d = 192 ... 512 the wide
+// split-precision TF32 wgmma kernel, either type above 512 the wide FMA
+// kernel. Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
@@ -1603,14 +1948,25 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
       case 512: FF_LAUNCH((launch_wgmma_wide<512>));
       default: break;
     }
+  // f32 at d = 192 ... 512: the split-precision TF32 wide kernel, d
+  // compiled in
+  if (dtype == 0) switch (head_dim) {
+      case 192: FF_LAUNCH((launch_tf32_wide<192>));
+      case 256: FF_LAUNCH((launch_tf32_wide<256>));
+      case 320: FF_LAUNCH((launch_tf32_wide<320>));
+      case 384: FF_LAUNCH((launch_tf32_wide<384>));
+      case 448: FF_LAUNCH((launch_tf32_wide<448>));
+      case 512: FF_LAUNCH((launch_tf32_wide<512>));
+      default: break;
+    }
 #undef FF_LAUNCH
-  // f32 above d = 128, and bf16 above 512: the wide FMA kernel, d a
-  // runtime argument (any multiple of 64)
+  // above d = 512, f32 and bf16 (no model has it): the wide FMA kernel, d
+  // a runtime argument (any multiple of 64)
 #define FF_LAUNCH_WIDE(T)                                                  \
   return (int)launch_wide<T>(q, k, v, o, lse, bh, sq, sk, head_dim,       \
                              causal, sm_scale, use_dropout, threshold,     \
                              keep_prob, seed, st)
-  if (head_dim > 128 && head_dim % ff_flash::TILE == 0) {
+  if (head_dim > 512 && head_dim % ff_flash::TILE == 0) {
     if (dtype == 0) FF_LAUNCH_WIDE(float);
     if (dtype == 1) FF_LAUNCH_WIDE(__nv_bfloat16);
   }

@@ -567,6 +567,23 @@ __device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32],
         "r"(accumulate));
 }
 
+// As wgmma_rs_m64n64k8_tf32, 32 columns wide.
+__device__ __forceinline__ void wgmma_rs_m64n32k8_tf32(float (&d)[16],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FF_D16_LIST
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : FF_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
 #define FF_D64 FF_D32, FF_D16(32), FF_D16(48)
 #define FF_D64_LIST                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -657,19 +674,23 @@ __device__ __forceinline__ void wgmma_ss_kk_tf32(float (&s)[NB][4],
     wgmma_ss_m64n64k8_tf32(acc_block(s, 0), desc_a, desc_b, accumulate);
 }
 
-// d (64 x 8NB, f32) += A . B over one 8-deep TF32 slice, A in registers:
-// one m64n64 (NB = 8) or m64n128 (NB = 16) product (the f32 forward's
-// P.V).
+// d (64 x 8NB, f32) = A . B (+ d if accumulate) over one 8-deep TF32
+// slice, A in registers: one m64n32 (NB = 4), m64n64 (NB = 8) or m64n128
+// (NB = 16) product (the f32 forwards' P.V, and the wide one's S).
 template <int NB>
 __device__ __forceinline__ void wgmma_rs_kk_tf32(float (&d)[NB][4],
                                                  const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  static_assert(NB == 8 || NB == 16, "64 or 128 columns");
-  if constexpr (NB == 8)
-    wgmma_rs_m64n64k8_tf32(acc_block(d, 0), a, desc_b, 1);
+                                                 uint64_t desc_b,
+                                                 int accumulate = 1) {
+  static_assert(NB == 4 || NB == 8 || NB == 16, "32, 64 or 128 columns");
+  if constexpr (NB == 4)
+    wgmma_rs_m64n32k8_tf32(*reinterpret_cast<float(*)[16]>(&d[0][0]), a,
+                           desc_b, accumulate);
+  else if constexpr (NB == 8)
+    wgmma_rs_m64n64k8_tf32(acc_block(d, 0), a, desc_b, accumulate);
   else
     wgmma_rs_m64n128k8_tf32(*reinterpret_cast<float(*)[64]>(&d[0][0]), a,
-                            desc_b, 1);
+                            desc_b, accumulate);
 }
 
 template <int NB>
@@ -714,6 +735,12 @@ __device__ __forceinline__ float tf32_trunc(float x) {
 __device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
   hi = tf32_trunc(x);
   lo = tf32_trunc(x - hi);
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {

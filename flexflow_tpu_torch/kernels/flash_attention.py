@@ -12,10 +12,13 @@ of the tensor-core kernels (the TMA/cp.async tile rings, the swizzled
 layout and its ``wgmma`` descriptors, the bf16 and TF32 ``wgmma``
 wrappers, the split of f32 operands into TF32 hi and lo parts, the
 head-dim split of the wide bf16 forward and dq across two warpgroups).
-The f32 forward at d = 64 and 128 runs on the tensor cores in three TF32
+The f32 forward up to d = 512 runs on the tensor cores in three TF32
 passes per product (hi . hi + hi . lo + lo . hi), which keeps f32
-accuracy; the f32 dq and dk/dv (and the f32 forward above d = 128) run
-exact FMA kernels, chosen by dtype and head dim inside each C entry.
+accuracy: at d = 64 and 128 one warpgroup's tile holds all of d, at 192
+... 512 the wide kernel splits d between two warpgroups and streams q,
+k and v in 32-column chunks. The f32 dq and dk/dv (and either type's
+forward above d = 512) run exact FMA kernels, chosen by dtype and head
+dim inside each C entry.
 
 :func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
 and is differentiable: a ``torch.autograd.Function`` (the counterpart of
@@ -343,7 +346,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     launch; bf16 at d <= 32: the narrow ``wgmma`` kernel, d unpadded;
     bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d compiled in;
     f32 up to d = 128: the exact FMA kernel, fed the lse of the
-    forward's TF32 kernel; f32 above 128 and bf16 above 512: the wide FMA
+    forward's TF32 kernels; f32 above 128 and bf16 above 512: the wide FMA
     kernel, d a runtime argument) and count one in ``.launches``; CPU
     tensors run :func:`flash_attention_bwd_dq_plain` and count one in
     ``.plain_calls``."""
@@ -443,8 +446,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     16, 24 and 32 the narrow kernel on the unpadded tensors, and the
     narrow dq and dk/dv in the backward; other head dims padded to a
     multiple of 64; f32 at d = 64 and 128, d <= 64 padded to 64, the
-    split-precision TF32 kernel, three ``wgmma`` passes a product) and
-    count one launch in
+    split-precision TF32 kernel, three ``wgmma`` passes a product, and
+    at d = 192 ... 512, d from 129 up padded to a multiple of 64, the
+    wide split-precision TF32 kernel; either type above 512 the wide FMA
+    kernel) and count one launch in
     ``flash_attention.launches`` (the backward's kernels count
     in ``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain

@@ -11,8 +11,9 @@ processes (each its own scheduler + HTTP front, spawned by
   state. Requests go to the live, non-draining replica with the least
   estimated wait; breaker-open replicas are skipped entirely (their
   503s are *predictable*, so routing around them is free).
-* **Failover**: a dead replica (transport error, hard crash) or a 503
-  shed fails over to the next candidate while deadline budget remains.
+* **Failover**: a dead replica (transport error, hard crash, a reply
+  cut short after its headers) or a 503 shed fails over to the next
+  candidate while deadline budget remains.
 * **Deadline truth**: the hop forwards the *remaining* budget
   (``x-ff-timeout-ms`` minus elapsed) — a router hop must never extend
   a request's deadline. SLO accounting stays deduplicated: a replica
@@ -32,6 +33,7 @@ the union stream, never averaged across replicas.
 """
 from __future__ import annotations
 
+import http.client
 import json
 import os
 import socket
@@ -462,11 +464,13 @@ class FleetRouter:
                 _ROUTED.inc(replica=replica.name)
                 return e.code, out, {TRACE_HEADER: trace_id}
             except (urllib.error.URLError, ConnectionError,
+                    http.client.HTTPException,
                     socket.timeout, TimeoutError) as e:
                 reason = getattr(e, "reason", e)
                 if not isinstance(reason,
                                   (socket.timeout, TimeoutError)):
-                    # transport death — crashed replica; strike its
+                    # transport death — crashed replica, before its
+                    # headers or mid-body (IncompleteRead); strike its
                     # health (the poller revives it if it recovers)
                     with self._lock:
                         replica.consecutive_errors = DEAD_AFTER

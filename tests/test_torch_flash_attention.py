@@ -747,15 +747,18 @@ def test_every_narrow_backward_head_dim_has_a_card_case():
                == bwd_mod._fwd_head_dim(c[4], c[5]) for c in smoke.CASES)
 
 
-# The f32 forward on the card (flash_fwd_wgmma_tf32_kernel) runs every
+# The f32 forward on the card (flash_fwd_wgmma_tf32_kernel at d = 64 and
+# 128, flash_fwd_wgmma_wide_tf32_kernel at 192 ... 512) runs every
 # product on the tensor cores in three TF32 passes of split operands: x =
 # hi + lo, hi = x with its low 13 mantissa bits cleared, lo = x - hi
 # cleared the same way (tf32_split in csrc/hopper_common.cuh), and a . b
 # ~ a_lo . b_hi + a_hi . b_lo + a_hi . b_hi. This emulation repeats that
 # arithmetic on the CPU (the split by bit masks, f32 products of the
-# TF32 parts, the kernel's key tiles of 64 at d = 64 and 32 at d = 128,
-# its online softmax in base 2) and holds it against the JAX package's f32
-# forward to chip_smoke.py's f32 tolerance, 2e-5 absolute on o and lse;
+# TF32 parts, the kernels' key tiles of 32 at d = 128 and 64 at every
+# other d, the wide kernel's two partial score tiles over the halves of
+# d summed, the online softmax in base 2) and holds it against the JAX
+# package's f32 forward to chip_smoke.py's f32 tolerance, 2e-5 absolute
+# on o and lse;
 # one TF32 pass misses that tolerance, which is why the kernel takes
 # three. It emulates the split, not the tensor cores' own summation
 # order within a k-step, which only the card shows. Nothing on the port's
@@ -785,7 +788,8 @@ def _tf32_flash(q, k, v, causal=False, passes=3):
     """(o, lse) of the card's f32 forward, emulated in f32 on the CPU."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    bn = 64 if d == 64 else 32
+    bn = 32 if d == 128 else 64
+    halves = 2 if d > 128 else 1   # the wide kernel's warpgroups split d
     log2e = 1.4426950408889634
     scale_log2 = np.float32(log2e / np.sqrt(d))
     m = torch.full((b, h, sq, 1), -1e30 * log2e)
@@ -794,7 +798,9 @@ def _tf32_flash(q, k, v, causal=False, passes=3):
     rows = torch.arange(sq)[:, None]
     for n0 in range(0, sk, bn):
         kt, vt = k[:, :, n0:n0 + bn], v[:, :, n0:n0 + bn]
-        s = _tf32_mm(q, kt.transpose(2, 3), passes) * scale_log2
+        s = sum(_tf32_mm(qh, kh.transpose(2, 3), passes)
+                for qh, kh in zip(q.chunk(halves, -1), kt.chunk(halves, -1)))
+        s = s * scale_log2
         if causal:
             keys = torch.arange(n0, n0 + kt.shape[2])[None, :]
             s = torch.where(keys <= rows, s, torch.tensor(-1e30 * log2e))
@@ -822,7 +828,23 @@ def test_tf32_three_pass_emulation_matches_jax_f32(s, d, causal):
     assert do <= TF32_TOL and dl <= TF32_TOL, (do, dl)
 
 
-@pytest.mark.parametrize("s,d", [(128, 64), (512, 64), (512, 128)])
+# the wide kernel's head dims: d 192, 256 and 512, causal and not, a
+# ragged s past three key tiles, and sq != sk once
+TF32_WIDE_CASES = [(200, 200, d, causal) for d in (192, 256, 512)
+                   for causal in (False, True)] + [(96, 200, 256, False)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", TF32_WIDE_CASES)
+def test_tf32_three_pass_emulation_matches_jax_f32_wide(sq, sk, d, causal):
+    q, k, v = _qkv(1, 2, sq, sk, d, seed=19)
+    o, lse = _tf32_flash(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    do = np.abs(o.numpy() - _jax(q, k, v, causal=causal)).max()
+    dl = np.abs(lse.numpy() - _jax_lse(q, k, v, causal)).max()
+    assert do <= TF32_TOL and dl <= TF32_TOL, (do, dl)
+
+
+@pytest.mark.parametrize("s,d", [(128, 64), (512, 64), (512, 128),
+                                 (200, 512)])
 def test_one_tf32_pass_misses_the_f32_tolerance(s, d):
     """One TF32 pass (hi . hi) keeps ~3 decimal digits of each operand:
     its o misses 2e-5 by orders of magnitude, so the kernel needs the two
@@ -886,3 +908,68 @@ def test_every_f32_tensor_core_forward_has_a_card_case():
             in smoke.AB_SHAPES
     d128 = [c for c in f32 if c[4] == 128]
     assert any(c[2] < c[3] for c in d128) and any(c[2] > c[3] for c in d128)
+
+
+def test_every_f32_wide_forward_head_dim_has_a_card_case():
+    """f32 at d = 192 ... 512 dispatches to the split-precision TF32 wide
+    kernel (launch_tf32_wide<D>, D compiled in, the head dims the bf16
+    wide kernel is compiled for), and the wide FMA forward
+    (flash_fwd_wide_kernel<float>) is reached only above 512. chip_smoke.py's
+    kernel phase holds each of those d in f32 against its plain version
+    causal and not, with and without dropout, with the keys within one key
+    tile and past it, at sq != sk both ways at d 256 and 512, at NMT's
+    self- and cross-attention shapes, and above 512; its timing phases
+    list the new kernel's rows, and the A/B keeps its f32 d 192 row."""
+    import importlib.util
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "flexflow_tpu_torch", "csrc",
+                           "flash_attention_fwd.cu")) as f:
+        text = f.read()
+    entry = text[text.index('extern "C" int ff_flash_attention_fwd'):]
+    f32 = re.search(r"if \(dtype == 0\) switch \(head_dim\) \{(.*?)\}",
+                    entry, re.S)
+    assert f32, "no f32 switch in the C entry"
+    found = re.findall(r"case (\d+): FF_LAUNCH\(\(launch_tf32_wide<(\d+)>",
+                       f32.group(1))
+    assert all(a == b for a, b in found), found
+    wide = {int(a) for a, _ in found}
+    assert wide == _wide_wgmma_dims("flash_attention_fwd.cu",
+                                    "launch_wgmma_wide") \
+        == {192, 256, 320, 384, 448, 512}, wide
+    # the FMA forward: one guarded block after both switches, above 512
+    fma = re.search(r"if \(head_dim > (\d+) && head_dim % ff_flash::TILE "
+                    r"== 0\) \{\s*if \(dtype == 0\) FF_LAUNCH_WIDE\(float\);",
+                    entry)
+    assert fma and int(fma.group(1)) == max(wide), fma
+    assert entry.index("launch_tf32_wide<512>") < fma.start()
+    assert all(m.start() > fma.start() for m in
+               re.finditer(r"FF_LAUNCH_WIDE\((float|__nv_bfloat16)\)", entry))
+    bn = int(re.search(r"struct Tf32WideTiles \{.*?int BN = (\d+);", text,
+                       re.S).group(1))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cases = [c for c in smoke.CASES if c[5] == torch.float32]
+    every = {(False, False), (False, True), (True, False), (True, True)}
+    for d in sorted(wide):
+        mine = [c for c in cases if bwd_mod._fwd_head_dim(c[4], c[5]) == d]
+        assert {(c[6], c[7] > 0) for c in mine} == every, d
+        assert any(c[3] <= bn for c in mine), (d, "within one key tile")
+        assert any(c[3] > bn for c in mine), (d, "past one key tile")
+    for d in (256, 512):
+        mine = [c for c in cases if c[4] == d]
+        assert any(c[2] < c[3] for c in mine), d
+        assert any(c[2] > c[3] for c in mine), d
+    assert (64, 1, 128, 128, 512, torch.float32, False, 0.0) in smoke.CASES
+    assert (16, 1, 100, 37, 512, torch.float32, False, 0.0) in smoke.CASES
+    above = [c for c in cases if c[4] > max(wide)]
+    assert {c[6] for c in above} == {False, True}, above
+    rows = {s[1:8] for s in smoke.KT_SHAPES}
+    for d in (192, 256, 320, 512):
+        assert ("fwd", 4, 8, 512, d, False, torch.float32) in rows, d
+    assert ("fwd", 4, 8, 512, 256, True, torch.float32) in rows
+    assert ("fwd", 64, 1, 128, 512, False, torch.float32) in rows
+    assert ("fwd", 4, 8, 512, 192, False, torch.float32) in smoke.AB_SHAPES

@@ -39,8 +39,9 @@ PKGS = (("jax", jfleet), ("port", tfleet))
 
 def _fake_replica(wait_s=0.0, mode="echo", post_delay_s=0.0, model="m"):
     """One in-process replica endpoint: ``echo`` answers POSTs 200,
-    ``shed`` 503, ``die`` drops the connection. Returns (server, url,
-    received headers)."""
+    ``shed`` 503, ``die`` drops the connection, ``cut`` sends a 200's
+    headers and drops the connection before the body. Returns (server,
+    url, received headers)."""
     received = []
     sk = QuantileSketch()
     sk.add(0.01)
@@ -78,6 +79,14 @@ def _fake_replica(wait_s=0.0, mode="echo", post_delay_s=0.0, model="m"):
             if post_delay_s:
                 time.sleep(post_delay_s)
             if mode == "die":
+                self.connection.close()
+                return
+            if mode == "cut":
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", "44792")
+                self.end_headers()
+                self.wfile.flush()
                 self.connection.close()
                 return
             if mode == "shed":
@@ -201,6 +210,32 @@ def test_transport_death_and_slo_dedupe():
     assert out[5] == 200 and out[6]["fleet_slo_violations"] == 0
     assert out[7] == [503, 503] and out[8]["no_replica"] == 2 \
         and out[8]["fleet_slo_violations"] == 1
+
+
+def test_port_fails_over_when_a_reply_is_cut_after_its_headers():
+    # A replica that dies mid-reply has sent its status line and
+    # headers; resp.read() then raises http.client.IncompleteRead. The
+    # port's router treats that as transport death (the JAX router's
+    # clause does not catch it, so only the port runs this case).
+    cut = _fake_replica(mode="cut")
+    echo = _fake_replica(wait_s=1.0)
+    router = tfleet.FleetRouter(poll_interval_s=60.0)
+    try:
+        rc = router.adopt(cut[1], name="cut")
+        router.adopt(echo[1], name="echo")
+        code, out, _ = router.forward(
+            "m", "/v2/models/m/infer", b"{}", {"x-ff-timeout-ms": "5000"})
+        st = router.fleet_health()["fleet"]
+        with router._lock:
+            struck = rc.health is None and not rc.alive_locked()
+        assert (code, json.loads(out)) == (200, {"ok": True})
+        assert len(cut[2]) == 1 and len(echo[2]) == 1
+        assert st["failovers"] == 1 and st["routed"] == 1
+        assert struck
+    finally:
+        router.close(drain_children=False)
+        cut[0].shutdown()
+        echo[0].shutdown()
 
 
 def test_fleet_front_health_models_and_metrics():

@@ -35,6 +35,9 @@ def _port_sources():
     yield os.path.join(ROOT, "tools", "torch_profile_bert.py")
     yield os.path.join(ROOT, "tools", "torch_mixtral_train_ab.py")
     yield os.path.join(ROOT, "tools", "torch_profile_dkv_phases.py")
+    yield os.path.join(ROOT, "tools", "torch_sass_counts.py")
+    yield os.path.join(ROOT, "tools", "torch_profile_fwd_phases.py")
+    yield os.path.join(ROOT, "tools", "torch_nmt_f32_sensitivity.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -273,8 +276,10 @@ def test_chip_smoke_zoo_data_fits_each_published_graph():
     assert "zoo" in smoke.PHASES
     specs = smoke.zoo_specs()
     assert [s.tag for s in specs] == [
-        "transformer", "nmt", "resnet50", "resnext50", "inception_v3",
-        "alexnet", "dlrm", "xdl"]
+        "transformer", "nmt", "nmt_f32", "resnet50", "resnext50",
+        "inception_v3", "alexnet", "dlrm", "xdl"]
+    # NMT once more with use_bf16_compute = False (the f32 wide kernels)
+    assert [s.tag for s in specs if s.f32] == ["nmt_f32"]
     np_dtypes = {torch.float32: np.float32, torch.int32: np.int32}
     for s in specs:
         ff = FFModel(FFConfig(), device="cpu")
