@@ -399,18 +399,19 @@ def phase_device() -> tuple:
 
 
 def ptxas_report(log: str) -> list:
-    """(kernel instantiation, registers, spill-store bytes) of each entry
-    function in ptxas's -v output, the names demangled by c++filt where it
-    is installed."""
-    rows, name, spills = [], None, None
+    """(kernel instantiation, registers, spill-store bytes, stack-frame
+    bytes) of each entry function in ptxas's -v output, the names
+    demangled by c++filt where it is installed."""
+    rows, name, spills, frame = [], None, None, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
         elif "spill stores" in ln and name:
             spills = int(ln.split("bytes spill stores")[0].split(",")[-1])
+            frame = int(ln.split("bytes stack frame")[0].split()[-1])
         elif "Used" in ln and "registers" in ln and name:
             regs = int(ln.split("Used")[1].split("registers")[0])
-            rows.append([name, regs, spills])
+            rows.append([name, regs, spills, frame])
             name = None
     cxxfilt = shutil.which("c++filt")
     if cxxfilt and rows:
@@ -429,17 +430,20 @@ def phase_build() -> None:
     build.build_all(KERNELS)
     print(f"[build] nvcc sm_90a, {len(KERNELS)} sources at once: "
           f"{time.perf_counter() - t0:.2f} s")
+    spilled = []
     for lib, (_, log) in build.build_log.items():
-        for name, regs, spills in ptxas_report(log):
+        for name, regs, spills, frame in ptxas_report(log):
             print(f"[build] {lib}: {name}: {regs} registers, {spills} bytes "
-                  f"spill stores")
-            check(spills == 0 or "wgmma" not in name,
-                  f"{name} spills {spills} bytes")
+                  f"spill stores, {frame} bytes stack frame")
+            if spills and "wgmma" in name:
+                spilled.append(f"{name} ({spills} bytes)")
         for ln in log.splitlines():
             # ptxas reports wgmma serialization (every product waited for
             # at once) as a performance note, not a warning
             if "warning" in ln.lower() or "Performance Loss" in ln:
                 print(f"[build] {lib}: {ln.strip()}")
+    # every instantiation printed first, then a wgmma kernel's spill fails
+    check(not spilled, f"wgmma kernels spill: {spilled}")
 
 
 CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
@@ -642,9 +646,29 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (2, 4, 20, 20, 512, torch.float32, True, 0.1),
     (64, 1, 128, 128, 512, torch.float32, False, 0.0),
     (16, 1, 100, 37, 512, torch.float32, False, 0.0),
+    # the f32 wide dq and dk/dv (blocks of 64 owned rows, streamed tiles
+    # of 64 rows): a causal s ending just past a key block with dropout
+    # at the smallest and the largest d, a query count below one query
+    # tile over many keys, and NMT's ragged cross-attention the other way
+    # round
+    (2, 4, 260, 260, 192, torch.float32, True, 0.1),
+    (2, 4, 260, 260, 512, torch.float32, True, 0.1),
+    (2, 4, 20, 200, 256, torch.float32, False, 0.0),
+    (16, 1, 37, 100, 512, torch.float32, False, 0.1),
     # f32 above d 512 keeps the wide FMA forward, as bf16 does
     (2, 4, 200, 200, 576, torch.float32, True, 0.1),
     (2, 4, 200, 200, 576, torch.float32, False, 0.0),
+]
+
+
+# the f32 wide backward (the --f32-compute path) through the autograd
+# Function in the kernel phase: d 300 (flash_attention pads q, k, v to 320
+# before the Function and slices o, and autograd slices the gradients),
+# d 512 causal with dropout, and NMT's self-attention
+FN_F32_CASES = [
+    (2, 4, 200, 200, 300, torch.float32, False, 0.0),
+    (2, 4, 260, 260, 512, torch.float32, True, 0.1),
+    (64, 1, 128, 128, 512, torch.float32, False, 0.0),
 ]
 
 
@@ -714,7 +738,7 @@ def phase_kernel_bwd(gen) -> dict:
     the forward kernel's o and lse, over the forward's cases at the head
     dim the kernels take (bf16 at d <= 32 the narrow kernels, unpadded);
     dq must also give the same bits on a second launch. Then the narrow
-    cases through the autograd Function."""
+    cases and FN_F32_CASES through the autograd Function."""
     from flexflow_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -768,13 +792,13 @@ def phase_kernel_bwd(gen) -> dict:
             worst["flash_attention_bwd_dkv"], errs["dk"], errs["dv"])
     check(not bad, f"backward kernels disagree with their plain versions "
                    f"at {bad}")
-    # the narrow backward through the autograd Function: one dq and one
-    # dk/dv launch on the forward's unpadded tensors, no pad or slice
-    # (the dispatch mode's count of the wrappers' three empty_like shows
-    # that it saw the backward)
-    for b, h, sq, sk, d, dt, causal, rate in CASES:
-        if d > 32 or dt != torch.bfloat16:
-            continue
+    # the narrow backward and the f32 wide one through the autograd
+    # Function: one dq and one dk/dv launch on the forward's tensors, no
+    # pad or slice where the head dim is the kernels' (the dispatch mode's
+    # count of the wrappers' three empty_like shows that it saw the
+    # backward)
+    narrow = [c for c in CASES if c[4] <= 32 and c[5] == torch.bfloat16]
+    for b, h, sq, sk, d, dt, causal, rate in narrow + FN_F32_CASES:
         q, k, v, do = (torch.randn(b, h, s, d, device="cuda", dtype=dt,
                                    generator=gen)
                        for s in (sq, sk, sk, sq))
@@ -792,21 +816,23 @@ def phase_kernel_bwd(gen) -> dict:
         rel = max((g.float() - w.float()).abs().max().item()
                   / max(w.float().abs().max().item(), 1e-30)
                   for g, w in zip(got, want))
-        # (d 12 runs at 16: flash_attention pads q, k, v before the
-        # Function and slices o, and autograd differentiates both)
+        # (d 12 runs at 16 and f32 d 300 at 320: flash_attention pads q,
+        # k, v before the Function and slices o, and autograd
+        # differentiates both)
         unpadded = kernel_head_dim(d, dt) == d
         ok = rel <= BWD_TOL[dt] and all(g.shape == t.shape
                                         for g, t in zip(got, (q, k, v))) \
             and launches == (1, 1) and calls["empty_like"] >= 3 \
             and (not unpadded or calls["constant_pad_nd"] == 0
                  == calls["slice"])
+        kind = "narrow" if dt == torch.bfloat16 else "f32 TF32 wide"
         print(f"[kernel] flash_attention backward through the Function b{b} "
-              f"h{h} sq{sq} sk{sk} d{d} bf16 causal={causal} dropout={rate}"
-              f" (narrow dq and dk/dv at d {kernel_head_dim(d, dt)}): max rel"
-              f" {rel:.1e} (tol {BWD_TOL[dt]:.0e}), launches dq {launches[0]}"
-              f" dk/dv {launches[1]}, ATen calls {calls} "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"narrow backward at b{b} h{h} s{sq}/{sk} d{d}")
+              f"h{h} sq{sq} sk{sk} d{d} {str(dt)[6:]} causal={causal} "
+              f"dropout={rate} ({kind} dq and dk/dv at d "
+              f"{kernel_head_dim(d, dt)}): max rel {rel:.1e} (tol "
+              f"{BWD_TOL[dt]:.0e}), launches dq {launches[0]} dk/dv "
+              f"{launches[1]}, ATen calls {calls} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{kind} backward at b{b} h{h} s{sq}/{sk} d{d}")
     return worst
 
 
@@ -1106,19 +1132,24 @@ def step_times(seq: int) -> dict:
 
 
 def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool,
-                 causal: bool = False, itemsize: int = 2) -> tuple:
+                 causal: bool = False, itemsize: int = 2,
+                 tf32_passes: int = 0) -> tuple:
     """Least time of one backward kernel: q, k, v, do read once, lse and
     delta (f32) read once, dq (or dk and dv) written once, against 6 (dq)
     or 8 (dk/dv) * d flops per (query, key) pair the mask keeps (s*s, or
-    s*(s+1)/2 causal) per head on the bf16 tensor cores (f32: at the FMA
-    rate, as the f32 kernels run), and one exponential per such pair
-    (each kernel rebuilds p)."""
+    s*(s+1)/2 causal) per head on the bf16 tensor cores, or in f32 at the
+    FMA rate (the f32 kernels up to d 128), or (``tf32_passes``, the f32
+    wide kernels' split-precision products) that many times over at the
+    TF32 tensor-core rate; and one exponential per such pair (each kernel
+    rebuilds p)."""
     nbytes = 4 * bh * s * d * itemsize + 2 * bh * s * 4 \
         + (2 if dkv else 1) * bh * s * d * itemsize
     pairs = s * (s + 1) / 2 if causal else s * s
     flops = (8.0 if dkv else 6.0) * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    if tf32_passes:
+        flops, peak = flops * tf32_passes, TF32_FLOP_PER_S
     t_ops = max(flops / peak * 1e3, exp_ms(bh * pairs))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1184,7 +1215,9 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
     the backward of torch's SDPA (dq, dk, dv in one call, at the same
     dropout rate and mask) at b h s d in dtype: its flash backend's
     backward op where that takes the shape, else its efficient backend's
-    (named in ``sdpa_bwd_backend``)."""
+    (named in ``sdpa_bwd_backend``). f32 at d 129 ... 512 runs three TF32
+    passes on the tensor cores: its bounds are theirs, with the FMA
+    rate's beside them (``dq_fma_bound_ms``, ``dkv_fma_bound_ms``)."""
     from types import SimpleNamespace
     from flexflow_tpu_torch.kernels.flash_attention import (
         _FlashAttention, flash_attention, flash_attention_bwd_dkv,
@@ -1234,10 +1267,13 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               f"{str(e).splitlines()[0][:120]}; timed the EFFICIENT_ATTENTION "
               f"backward instead (SDPA picks "
               f"{sdpa_backend(q, k, v, rate, causal)} here)")
-    res["dq_bound"] = bwd_bound_ms(b * h, seq, d, False, causal,
-                                   dtype.itemsize)
-    res["dkv_bound"] = bwd_bound_ms(b * h, seq, d, True, causal,
-                                    dtype.itemsize)
+    tf32 = 3 if dtype.itemsize == 4 and 128 < d <= 512 else 0
+    for key, dkv in (("dq", False), ("dkv", True)):
+        res[key + "_bound"] = bwd_bound_ms(b * h, seq, d, dkv, causal,
+                                           dtype.itemsize, tf32)
+        if tf32:
+            res[key + "_fma_bound_ms"] = bwd_bound_ms(
+                b * h, seq, d, dkv, causal, dtype.itemsize)[0]
     return res
 
 
@@ -1333,8 +1369,8 @@ KT_SHAPES = [
     # f32: the search's calibration rows (op_attention@flash, b1 h8 d64
     # causal at s 128 and 512), the tensor-core kernel at d 128, the f32
     # backward (FMA) at the calibration shape and at d 128, the wide
-    # tensor-core forward at d 192 ... 512 and NMT's shape (the
-    # --f32-compute path), the wide FMA backward at d 256 and 512
+    # tensor-core forward, dq and dk/dv at d 192 ... 512 and NMT's shape
+    # (the --f32-compute path)
     ("fwd_f32_calib_s128", "fwd", 1, 8, 128, 64, True, torch.float32,
      "the search's calibration row at s128, 5 launches per calibration"),
     ("fwd_f32_calib_s512", "fwd", 1, 8, 512, 64, True, torch.float32,
@@ -1357,10 +1393,19 @@ KT_SHAPES = [
      "the f32 wide tensor-core kernel"),
     ("fwd_f32_nmt", "fwd", 64, 1, 128, 512, False, torch.float32,
      "NMT's attention under --f32-compute, 1 launch per NMT train step"),
+    ("bwd_f32_d192", "bwd", 4, 8, 512, 192, False, torch.float32,
+     "the f32 wide tensor-core dq and dk/dv"),
     ("bwd_f32_d256", "bwd", 4, 8, 512, 256, False, torch.float32,
-     "the f32 wide FMA dq and dk/dv"),
+     "the f32 wide tensor-core dq and dk/dv"),
+    ("bwd_f32_d256_causal", "bwd", 4, 8, 512, 256, True, torch.float32,
+     "the f32 wide tensor-core dq and dk/dv, causal"),
+    ("bwd_f32_d320", "bwd", 4, 8, 512, 320, False, torch.float32,
+     "the f32 wide tensor-core dq and dk/dv"),
     ("bwd_f32_d512", "bwd", 4, 8, 512, 512, False, torch.float32,
-     "the f32 wide FMA dq and dk/dv"),
+     "the f32 wide tensor-core dq and dk/dv"),
+    ("bwd_f32_nmt", "bwd", 64, 1, 128, 512, False, torch.float32,
+     "NMT's attention under --f32-compute, 1 launch each per NMT train "
+     "step"),
 ]
 
 
@@ -1370,9 +1415,10 @@ def phase_ktimes(smi: str) -> dict:
     dropout and at 0.1, causal at GPT-2's prefill, at KT_SHAPES (LLaMA's
     and Mixtral's head dim 128, the causal backward, head dims 256, 320
     and 512, NMT's b64 h1 s128 d512, the Transformer's d 8, the f32
-    calibration rows, the f32 forward at d 128, 192, 256 (and causal),
-    320, 512 and NMT's shape, the f32 backward at the calibration shape,
-    d 128, 256 and 512), and Adam over BERT-base and DLRM."""
+    calibration rows, the f32 forward, dq and dk/dv at d 192, 256 (and
+    causal), 320, 512 and NMT's shape, the f32 forward at d 128 and the
+    f32 backward at the calibration shape and d 128), and Adam over
+    BERT-base and DLRM."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {"fwd": {}, "bwd": {}}
     for rate in (0.0, 0.1):
@@ -1427,10 +1473,12 @@ def phase_ktimes(smi: str) -> dict:
         for k_, name in (("dq", "flash_attention_bwd_dq"),
                          ("dkv", "flash_attention_bwd_dkv")):
             bound, by = t[k_ + "_bound"]
+            fma = (f", FMA-rate bound {t[k_ + '_fma_bound_ms'] * 1e3:.2f} us"
+                   if k_ + "_fma_bound_ms" in t else "")
             print(f"[ktimes] {name} {shape} ({what}): kernel "
                   f"{t[k_ + '_ms'] * 1e3:.2f} us, plain "
                   f"{t[k_ + '_plain_ms'] * 1e3:.2f} us, bound "
-                  f"{bound * 1e3:.2f} us ({by}); kernel/bound "
+                  f"{bound * 1e3:.2f} us ({by}){fma}; kernel/bound "
                   f"{t[k_ + '_ms'] / bound:.2f}; {smi}")
         print(f"[ktimes] sdpa backward ({t['sdpa_bwd_backend']}; dq, dk, "
               f"dv in one call) {shape}: {lib * 1e3:.2f} us vs dq + dk/dv "
@@ -5184,7 +5232,11 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                 "library_ms": t["sdpa_bwd_ms"],
                 "library_backend": t["sdpa_bwd_backend"],
                 # the autograd Function's backward: delta, dq, dk/dv
-                "function_backward_ms": t["fn_ms"]}
+                "function_backward_ms": t["fn_ms"],
+                # the f32 wide kernels: the FMA rate's bound beside the
+                # TF32 passes' one
+                **({"fma_bound_ms": t[key + "_fma_bound_ms"]}
+                   if key + "_fma_bound_ms" in t else {})}
 
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -5301,8 +5353,13 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                                                    kt["bwd_f32_calib"]),
             "f32_b1_h8_s512_d128_causal": bwd_row_t(key,
                                                     kt["bwd_f32_d128"]),
+            "f32_b4_h8_s512_d192": bwd_row_t(key, kt["bwd_f32_d192"]),
             "f32_b4_h8_s512_d256": bwd_row_t(key, kt["bwd_f32_d256"]),
+            "f32_b4_h8_s512_d256_causal": bwd_row_t(
+                key, kt["bwd_f32_d256_causal"]),
+            "f32_b4_h8_s512_d320": bwd_row_t(key, kt["bwd_f32_d320"]),
             "f32_b4_h8_s512_d512": bwd_row_t(key, kt["bwd_f32_d512"]),
+            "f32_nmt_b64_h1_s128_d512": bwd_row_t(key, kt["bwd_f32_nmt"]),
             "zoo_train_launches": {t: n[name]
                                    for t, n in zoo_launches.items()},
             "frontends_train_launches": fe_row(name),
@@ -5310,6 +5367,9 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             **search_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)",
+            "f32_wide_kernel": f"flash_bwd_{key}_wgmma_wide_tf32_kernel "
+                               "(f32, d 192-512; three TF32 passes a "
+                               "product)",
             "narrow_bf16_kernel": f"flash_bwd_{key}_wgmma_narrow_kernel "
                                   "(bf16, d 8, 16, 24, 32 unpadded; DP 16 "
                                   "or 32)"})

@@ -81,9 +81,17 @@
 //   narrow forward's tensor maps and swizzles), one warpgroup per CTA and
 //   four CTAs an SM. Their header says why.
 //
-//   dq and dk/dv, f32 - flash_bwd_dq_kernel and flash_bwd_dkv_kernel, the
-//   exact FMA path (64-row tiles, four warps, synchronous tile loads),
-//   because the tensor cores would round f32 to TF32.
+//   dq and dk/dv, f32 at d = 64 and 128 - flash_bwd_dq_kernel and
+//   flash_bwd_dkv_kernel, the exact FMA path (64-row tiles, four warps,
+//   synchronous tile loads).
+//
+//   dq and dk/dv, f32 at d = 192 ... 512 (the wrapper pads any d from 129
+//   up) - flash_bwd_dq_wgmma_wide_tf32_kernel and
+//   flash_bwd_dkv_wgmma_wide_tf32_kernel: every product three TF32 wgmma
+//   passes of split operands (f32 accuracy, as the f32 forwards), a CTA of
+//   two warpgroups owning 64 rows and all D columns of its outputs, D
+//   split between the warpgroups and streamed in 32-column chunks by TMA.
+//   Their header says why.
 //
 //   dq, bf16 at d = 192 ... 512 (every multiple of 64; the wrapper pads
 //   any d from 129 up) - flash_bwd_dq_wgmma_wide_kernel: the wide
@@ -104,11 +112,10 @@
 //   at d = 256 / 320 / 512 (bound 17.37 / 21.71 / 34.74 us), where the
 //   FMA kernel took 2,155.06 / 3,236.92 / 7,739.27 us.
 //
-//   f32 above d = 128, and bf16 above 512 (no model has it) - the wide
-//   FMA kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one
-//   64-column chunk of the outputs per CTA (their header says why), d a
-//   runtime argument. f32 stays on FMA because the tensor cores would
-//   round it to TF32, as at d <= 128.
+//   either type above d = 512 (no model has it) - the wide FMA kernels
+//   (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): one 64-column
+//   chunk of the outputs per CTA (their header says why), d a runtime
+//   argument.
 //
 // Every kernel runs on a 1-D grid (grid_cell in flash_common.cuh), so b*h
 // has no 65535 limit. Causal dq whose heads' K/V all fit in L2 takes the
@@ -376,7 +383,7 @@ cudaError_t launch_dkv(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128: the wide FMA kernels (f32, and bf16 above 512)
+// head dims above 512: the wide FMA kernels (f32 and bf16)
 // ---------------------------------------------------------------------------
 // As the wide forward: a CTA owns one 64-column chunk of its output rows
 // (dq; or dk and dv), so its accumulators are the d = 64 kernels'
@@ -1657,6 +1664,706 @@ cudaError_t launch_dkv_wgmma_wide(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
+// f32 dq and dk/dv at d = 192 ... 512: split-precision TF32 wgmma
+// ---------------------------------------------------------------------------
+// Replace the TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel (flexflow_tpu/
+// kernels/flash_attention.py:169, :210) for f32 at head dims 192 ... 512
+// (the wrapper pads 129 ... 511 up to a multiple of 64), where the wide
+// FMA kernels ran until these: the --f32-compute path's backward (NMT's
+// one head of 512, once a step; any model with heads of 192 ... 512). They
+// compute what those kernels computed, to f32 accuracy, on the tensor
+// cores.
+//
+// Bound at b4 h8 s512 d256: three TF32 passes of 6 * d (dq) or 8 * d
+// (dk/dv) flops per (query, key) pair, 38.7 / 51.5 GFLOP at 495 TFLOP/s
+// (78.09 / 104.12 us), against q, k, v, do, lse and delta read and the
+// outputs written once, 84.0 / 100.8 MB (25.1 / 30.1 us at 3.35 TB/s):
+// operations; at d 512 156.18 / 208.24 us; NMT's b64 h1 s128 d512 25.06 /
+// 30.07 us by the bytes.
+//
+// Design. The FMA kernels computed every score tile once per 64-column
+// chunk of their outputs (4x at d 256, 8x at d 512), on FMA loops, with
+// synchronous tile loads. Here, as in the f32 wide forward
+// (flash_attention_fwd.cu, flash_fwd_wgmma_wide_tf32_kernel):
+//   - a CTA owns 64 rows (dq: queries; dk/dv: keys) and ALL D columns of
+//     its outputs, so each score is computed once per row block: its two
+//     warpgroups split D, each owning D / 2 output columns (a D / 4-
+//     register accumulator) and contracting its half of D for the score
+//     tiles, whose partials are summed through shared memory
+//     (exchange_store / exchange_add) so both hold the same tile;
+//   - every product is three TF32 wgmma passes of split operands (a_lo .
+//     b_hi, a_hi . b_lo, then a_hi . b_hi), f32 accumulators, nothing
+//     rounded between products but by the split. The tensor cores round
+//     each step of an accumulation chain toward zero, so no chain runs
+//     longer than one chunk (12 steps) or one tile's gradient product (3 *
+//     BN / 8): their results are summed in f32, rounding to nearest, the
+//     score partials in shared memory (partial_add), the gradients in
+//     registers. With chains over all of d and all tiles, the gradients
+//     came out 1.0-1.5e-5 of the largest low at d 256-512 (BWD_TOL is 1e-5);
+//   - nothing is resident: each warpgroup streams its half of D in
+//     32-column chunks (one TMA box, one 128-byte swizzle atom wide)
+//     through its own ring of three stages on mbarriers, two copies in
+//     flight behind every chunk's work;
+//   - the score products (dq: S = Q . K^T, dP = dO . V^T; dk/dv, in the
+//     transposed frame: s^T = K . Q^T, dp^T = V . dO^T) take the owned
+//     rows' chunk as register A fragments split in registers
+//     (q_frags_tf32) and the streamed chunk split in place into hi with
+//     its lo beside it (split_tile_tf32);
+//   - the gradient products contract over the streamed rows (dq: dQ +=
+//     dS . K; dk/dv: dV += P_eff^T . dO, dK += dS^T . Q), which TF32
+//     wgmma, K-major only, cannot read from the chunk as it lands: the
+//     chunk is streamed once more per tile and transposed into hi and lo
+//     (split_transpose_v, rows in the order (0, 2, 4, 6, 1, 3, 5, 7)
+//     within each 8-row group), so the score accumulator becomes the A
+//     fragments in place (tf32_a_frags). The second copy costs L2 traffic
+//     (a fifth of dq's chunk bytes), not shared memory, where no room is
+//     left for the whole tile's transposes (128 KB at d 512);
+//   - dk/dv holds one accumulator at a time (both would take D / 2
+//     registers: 256 at d 512), so it sweeps its query tiles twice, dV
+//     then dK, as the bf16 wide dk/dv does: s^T computed in both, 10 * d
+//     flops per kept pair for the function's 8 * d;
+//   - streamed tiles of 64 rows (m64n64 score products); above d = 320 p
+//     waits in shared memory while dP runs, so the D / 4-register
+//     accumulator, dP's partial and the fragments fit 255 registers;
+//   - the score items' chunk loops stay rolled (only the first chunk's
+//     store depends on the chunk), the gradient items' unrolled (each
+//     indexes its 32 accumulator columns): fully unrolled, dk/dv's code
+//     (17,384 SASS instructions at d 512, with the 32-row tiles of an
+//     earlier design) outran the instruction cache, and every phase of
+//     its dK sweep ran at about half speed;
+//   - lse and delta: per query row, two registers a thread in dq; in dk/dv
+//     per column of the transposed frame, so each tile's rows come by
+//     cp.async into shared memory (not 16-byte aligned in general, which
+//     TMA needs).
+// The mask, the liveness of causal tiles, the dropout bits (keep_bits,
+// keep_bits_t) and the base-2 exponential are the bf16 kernels'. One CTA
+// per SM. No atomics: a CTA owns its output rows.
+template <int D>
+struct Tf32BwdTiles {
+  static constexpr int NWG = 2;                 // warpgroups per CTA
+  static constexpr int THREADS = NWG * WG_THREADS;
+  static constexpr int BM = WG_ROWS;  // rows a CTA owns (queries; keys)
+  // rows of a streamed tile (keys in dq, queries in dk/dv): 64 at every
+  // d, so the score products are m64n64 (32-row tiles above d = 320, whose
+  // score products were m64n32, measured slower: PERF.md sec. 6)
+  static constexpr int BN = 64;
+  static constexpr int NB = BN / 8;             // 8-row blocks of a tile
+  static constexpr int CW = 32;                 // columns of a chunk
+  static constexpr int HALF = D / NWG;          // columns a warpgroup owns
+  static constexpr int CHUNKS = HALF / CW;      // its chunks of a tensor
+  static constexpr int NS = 3;                  // ring stages a warpgroup
+  static constexpr int A_BYTES = BM * CW * 4;   // a chunk of the owned rows
+  static constexpr int B_BYTES = BN * CW * 4;   // a chunk of a streamed tile
+  // a stage: the owned rows' chunk, the streamed chunk, then what the
+  // warpgroup derives from the latter: its lo beside it, or its transposed
+  // lo there and its transposed hi in the owned rows' slot (a gradient
+  // item loads no owned rows)
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  // the two warpgroups' partial score tiles
+  static constexpr int X_BYTES = NWG * BM * BN * 4;
+  // above d = 320 p waits in shared memory (each thread's own slots) while
+  // dP runs: the D / 4-register accumulator leaves no room to hold it
+  // beside dP's product (dq at d 448 and 512 spilled)
+  static constexpr bool P_STASH = D > 320;
+  static constexpr int P_BYTES = P_STASH ? X_BYTES : 0;
+  // dk/dv: lse and delta of the query tile in use and of the next one
+  static constexpr int VEC_BYTES = 2 * 2 * BN * 4;
+  static constexpr size_t SMEM = SW_ATOM + (size_t)NWG * NS * STAGE_BYTES +
+                                 X_BYTES + P_BYTES + VEC_BYTES;
+  static_assert(D % 64 == 0 && D >= 192 && D <= 512, "d = 192 ... 512");
+  static_assert(HALF % CW == 0, "whole chunks");
+  static_assert(A_BYTES >= B_BYTES, "the transposed hi fits the owned slot");
+  static_assert(SMEM <= SMEM_LIMIT, "fits one CTA");
+};
+
+// This thread's own slots of buf, as exchange_store wrote them.
+template <int NB>
+__device__ __forceinline__ void exchange_load(const float4* buf, int wg,
+                                              int wtid, float (&s)[NB][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NB; ++nt) {
+    const float4 o = buf[(wg * NB + nt) * WG_THREADS + wtid];
+    s[nt][0] = o.x;
+    s[nt][1] = o.y;
+    s[nt][2] = o.z;
+    s[nt][3] = o.w;
+  }
+}
+
+// Add one chunk's partial score tile t into this thread's own slots of
+// buf in f32, rounding to nearest (the first chunk stores it), so the
+// tensor cores' chain, which rounds toward zero at each step, ends with
+// the chunk (12 steps; see the header).
+template <int NB>
+__device__ __forceinline__ void partial_add(float4* buf, int wg, int wtid,
+                                            const float (&t)[NB][4],
+                                            bool first) {
+#pragma unroll
+  for (int nt = 0; nt < NB; ++nt) {
+    float4* slot = buf + (wg * NB + nt) * WG_THREADS + wtid;
+    float4 o = make_float4(t[nt][0], t[nt][1], t[nt][2], t[nt][3]);
+    if (!first) {
+      const float4 x = *slot;
+      o = make_float4(x.x + o.x, x.y + o.y, x.z + o.z, x.w + o.w);
+    }
+    *slot = o;
+  }
+}
+
+// The score tile into s: this warpgroup's sum of its chunks' partials plus
+// the other's, from their slots of buf (a + b rounds as b + a, so both
+// hold the same tile); the second barrier keeps the next tile's partials
+// from overwriting a sum the other warpgroup still reads.
+template <int NB>
+__device__ __forceinline__ void exchange_sum(const float4* buf, int wg,
+                                             int wtid, float (&s)[NB][4]) {
+  __syncthreads();
+  exchange_load(buf, wg, wtid, s);
+  exchange_add(buf, wg, wtid, s);
+  __syncthreads();
+}
+
+// One ring item of a score product over a 32-column chunk of this
+// warpgroup's half of D: wait for the owned rows' chunk (at st) and the
+// streamed chunk (at st + A_BYTES); split the streamed chunk in place
+// into hi with its lo beside it and the owned rows' chunk into register
+// fragments; publish them to the warpgroup's wgmma (the barrier also frees
+// the previous item's stage, which `next` refills); the chunk's A . B^T in
+// three RS passes, the two small ones first, added into this thread's
+// slots of part (partial_add; the first chunk stores).
+template <typename Tl, typename Next>
+__device__ __forceinline__ void tf32_score_item(
+    float4* part, uint32_t st, uint32_t bar, uint32_t parity, bool first,
+    int wg, int wtid, int warp, int g, int tig, Next&& next) {
+  const uint32_t sB = st + Tl::A_BYTES, sBlo = sB + Tl::B_BYTES;
+  mbar_wait(bar, parity);
+  split_tile_tf32<Tl::B_BYTES, WG_THREADS>(sB, sBlo, wtid);
+  uint32_t ah[4][4], al[4][4];
+  q_frags_tf32(st, warp, g, tig, ah, al);
+  fence_proxy_async();
+  named_barrier(1 + wg, WG_THREADS);
+  next();
+  float t[Tl::NB][4];
+  wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t kb = pass == 1 ? sBlo : sB;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_kk_tf32(t, pass == 0 ? al[kk] : ah[kk],
+                       desc_sw128(kb + kk * 32, 16), pass + kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs_u32(ah);
+  fence_regs_u32(al);
+  fence_acc(t);
+  partial_add(part, wg, wtid, t, first);
+}
+
+// One ring item of a gradient product over a 32-column chunk: wait for
+// the streamed chunk (at st + A_BYTES), transpose it into hi (at st, the
+// owned rows' slot, which this item does not load) and lo (after the
+// chunk; split_transpose_v: rows the chunk's 32 columns, the streamed rows
+// contiguous in the fragments' order), publish, refill the freed stage;
+// oc (this warpgroup's 64 x 32 block of the output) += F . chunk, three
+// RS passes into a fresh accumulator added to oc in f32 (the tensor cores'
+// chain kept to one tile, as partial_add keeps the scores'), F the hi /
+// lo fragments (fh, fl) of a 64 x BN score-shaped tile (dS, P_eff^T or
+// dS^T).
+template <typename Tl, typename Next>
+__device__ __forceinline__ void tf32_grad_item(
+    float (&oc)[4][4], const uint32_t (&fh)[Tl::NB][4],
+    const uint32_t (&fl)[Tl::NB][4], uint32_t st, uint32_t bar,
+    uint32_t parity, int wg, int wtid, Next&& next) {
+  constexpr int CW = Tl::CW;
+  const uint32_t sB = st + Tl::A_BYTES;
+  const uint32_t t_hi = st, t_lo = sB + Tl::B_BYTES;
+  mbar_wait(bar, parity);
+  split_transpose_v<CW, Tl::BN>(sB, t_hi, t_lo, wtid);
+  fence_proxy_async();
+  named_barrier(1 + wg, WG_THREADS);
+  next();
+  float t[4][4];
+  wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t tb = pass == 1 ? t_lo : t_hi;
+#pragma unroll
+    for (int kc = 0; kc < Tl::NB; ++kc)
+      wgmma_rs_kk_tf32(t, pass == 0 ? fl[kc] : fh[kc],
+                       desc_sw128(tb + (kc >> 2) * (CW * SW_ROW) +
+                                      (kc & 3) * 32,
+                                  16),
+                       pass + kc > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(t);
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) oc[dt][c] += t[dt][c];
+}
+
+// dq: a CTA owns 64 query rows. Per key tile, this warpgroup's ring
+// items are: C chunks of Q with K (S), C chunks of dO with V (dP), then C
+// chunks of K again (dQ += dS . K, one 32-column block of dq each).
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
+    flash_bwd_dq_wgmma_wide_tf32_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
+        uint32_t threshold, float keep_prob, uint32_t seed) {
+  using Tl = Tf32BwdTiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, CW = Tl::CW;
+  constexpr int C = Tl::CHUNKS, NS = Tl::NS;
+  constexpr int ITEMS = 3 * C;  // ring items per key tile
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t s0 = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  float4* xbuf = reinterpret_cast<float4*>(
+      smem + (s0 - base) + Tl::NWG * NS * Tl::STAGE_BYTES);
+  float4* pbuf = xbuf + Tl::X_BYTES / 16;  // p while dP runs (P_STASH)
+  // per warpgroup and stage: the stage's copies landed
+  __shared__ __align__(8) uint64_t full[Tl::NWG][NS];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sq + BM - 1) / BM);
+  const int m0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int row_w = m0 + warp * 16;  // this warp's first query row
+  const int qpos[2] = {row_w + g, row_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  const int col0 = wg * Tl::HALF;  // this warpgroup's columns
+  const uint32_t ring = s0 + wg * NS * Tl::STAGE_BYTES;
+  // lse (in base 2) and delta of this thread's two rows, 0 past sq
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = qpos[r] < sq;
+    lse2[r] = ok ? lse[(size_t)bh * sq + qpos[r]] * LOG2E : 0.f;
+    dlt[r] = ok ? delta[(size_t)bh * sq + qpos[r]] : 0.f;
+  }
+
+  int n_tiles = (sk + BN - 1) / BN;
+  if (causal)  // a K tile is live iff its first key is visible to the
+               // CTA's last query (the reference's rule)
+    n_tiles = min(n_tiles, (m0 + BM - 1) / BN + 1);
+  const int n_items = n_tiles * ITEMS;
+
+  auto stage = [&](int i) { return ring + (i % NS) * Tl::STAGE_BYTES; };
+  auto bar = [&](int i) { return smem_u32(&full[wg][i % NS]); };
+  const CUtensorMap* map_q = &tm_q;
+  const CUtensorMap* map_do = &tm_do;
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  // item i, issued by one thread of the warpgroup: of key tile i / ITEMS,
+  // chunk j < C of Q and of K, chunk j - C < C of dO and of V, or chunk j
+  // - 2C of K
+  auto load_item = [&](int i) {
+    const int t = i / ITEMS, j = i % ITEMS;
+    const uint32_t st = stage(i), b = bar(i);
+    if (j < 2 * C) {
+      const bool second = j >= C;
+      const int c = second ? j - C : j;
+      mbar_expect_tx(b, Tl::A_BYTES + Tl::B_BYTES);
+      tma_load_3d(st, second ? map_do : map_q, b, col0 + c * CW, m0, bh);
+      tma_load_3d(st + Tl::A_BYTES, second ? map_v : map_k, b,
+                  col0 + c * CW, t * BN, bh);
+    } else {
+      mbar_expect_tx(b, Tl::B_BYTES);
+      tma_load_3d(st + Tl::A_BYTES, map_k, b, col0 + (j - 2 * C) * CW,
+                  t * BN, bh);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 0; w < Tl::NWG; ++w)
+#pragma unroll
+      for (int st = 0; st < NS; ++st) mbar_init(smem_u32(&full[w][st]), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wtid == 0)
+    for (int i = 0; i < min(NS - 1, n_items); ++i) load_item(i);
+
+  float acc[Tl::HALF / 8][4];  // this warpgroup's columns of dq
+#pragma unroll
+  for (int dt = 0; dt < Tl::HALF / 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  int i = 0;
+  auto next = [&] {  // item i + NS - 1, into the stage item i - 1 freed
+    if (wtid == 0 && i + NS - 1 < n_items) load_item(i + NS - 1);
+  };
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = t * BN;
+    // S = Q . K^T over this warpgroup's half of D, then summed
+    float s[NB][4], dp[NB][4];
+#pragma unroll 1
+    for (int j = 0; j < C; ++j, ++i)
+      tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
+                          wtid, warp, g, tig, next);
+    exchange_sum(xbuf, wg, wtid, s);
+
+    // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked
+    const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        float p = exp2_approx(fmaf(s[nt][c], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kpos = n0 + nt * 8 + tig * 2 + (c & 1);
+          if (!(kpos < sk && (!causal || kpos <= qpos[r]))) p = 0.f;
+        }
+        s[nt][c] = p;
+      }
+    }
+
+    // dP = dO . V^T, the same way
+    if (Tl::P_STASH) exchange_store(pbuf, wg, wtid, s);
+#pragma unroll 1
+    for (int j = 0; j < C; ++j, ++i)
+      tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
+                          wtid, warp, g, tig, next);
+    exchange_sum(xbuf, wg, wtid, dp);
+    if (Tl::P_STASH) exchange_load(pbuf, wg, wtid, s);
+    // ds = p * (dp_eff - delta) * sm_scale
+    const uint32_t keep =
+        DROPOUT ? keep_bits<NB>(n0, qpos, tig, bh, seed, threshold) : 0u;
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float dpv = dp[nt][c];
+        if (DROPOUT) dpv = (keep >> (4 * nt + c)) & 1u ? dpv * inv_keep : 0.f;
+        dp[nt][c] = s[nt][c] * (dpv - dlt[c >> 1]) * sm_scale;
+      }
+    }
+
+    // dQ[:, this warpgroup's columns] += dS . K, chunk by chunk
+    uint32_t dh[NB][4], dl[NB][4];
+    tf32_a_frags(dp, dh, dl);
+#pragma unroll
+    for (int j = 0; j < C; ++j, ++i) {
+      float(&oc)[4][4] = *reinterpret_cast<float(*)[4][4]>(&acc[4 * j][0]);
+      tf32_grad_item<Tl>(oc, dh, dl, stage(i), bar(i), (i / NS) & 1, wg,
+                         wtid, next);
+    }
+    fence_regs_u32(dh);
+    fence_regs_u32(dl);
+  }
+
+  // dq: this thread's two rows, its warpgroup's columns, straight from
+  // registers (two floats a thread per 8-column block)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= sq) continue;
+    float* row = dq + ((size_t)bh * sq + qpos[r]) * D + col0 + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < Tl::HALF / 8; ++dt)
+      *reinterpret_cast<float2*>(row + 8 * dt) =
+          make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+  }
+}
+
+// dk/dv: a CTA owns 64 keys and sweeps its live query tiles twice. Per
+// query tile, this warpgroup's ring items are, in sweep 1 (dV): C chunks
+// of K with Q (s^T), then C chunks of dO (dV += P_eff^T . dO); in sweep 2
+// (dK): C chunks of K with Q (s^T), C chunks of V with dO (dp^T), then C
+// chunks of Q (dK += dS^T . Q). The ring runs on from one sweep into the
+// next.
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
+    flash_bwd_dkv_wgmma_wide_tf32_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+        float sm_scale, int causal, uint32_t threshold, float keep_prob,
+        uint32_t seed) {
+  using Tl = Tf32BwdTiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, CW = Tl::CW;
+  constexpr int C = Tl::CHUNKS, NS = Tl::NS;
+  constexpr int ITEMS1 = 2 * C, ITEMS2 = 3 * C;  // per tile of each sweep
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t s0 = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
+  const uint32_t sX = s0 + Tl::NWG * NS * Tl::STAGE_BYTES;
+  float4* xbuf = reinterpret_cast<float4*>(smem + (sX - base));
+  float4* pbuf = xbuf + Tl::X_BYTES / 16;  // p while dp^T runs (P_STASH)
+  // by tile parity: lse, then delta
+  const uint32_t sVec = sX + Tl::X_BYTES + Tl::P_BYTES;
+  __shared__ __align__(8) uint64_t full[Tl::NWG][NS];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const GridCell cell = grid_cell((sk + BM - 1) / BM);
+  const int n0 = cell.block * BM;
+  const int bh = cell.bh;
+  const int key_w = n0 + warp * 16;  // this warp's first key
+  const int kpos[2] = {key_w + g, key_w + g + 8};
+  const float scale_log2 = sm_scale * LOG2E;
+  const float inv_keep = 1.f / keep_prob;
+  const int col0 = wg * Tl::HALF;  // this warpgroup's columns
+  const uint32_t ring = s0 + wg * NS * Tl::STAGE_BYTES;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+
+  const int n_tiles = (sq + BN - 1) / BN;
+  // causal: a q tile is live iff its last query can see the first key
+  const int first = causal ? n0 / BN : 0;
+  const int count = max(n_tiles - first, 0);
+  const int n_items = count * (ITEMS1 + ITEMS2);
+
+  auto stage = [&](int i) { return ring + (i % NS) * Tl::STAGE_BYTES; };
+  auto bar = [&](int i) { return smem_u32(&full[wg][i % NS]); };
+  const CUtensorMap* map_q = &tm_q;
+  const CUtensorMap* map_do = &tm_do;
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  // item i, issued by one thread of the warpgroup: the sweep, the query
+  // tile and the item within it, as listed above
+  auto load_item = [&](int i) {
+    const bool sweep2 = i >= count * ITEMS1;
+    const int i2 = sweep2 ? i - count * ITEMS1 : i;
+    const int per = sweep2 ? ITEMS2 : ITEMS1;
+    const int t = i2 / per, j = i2 % per;
+    const int m0 = (first + t) * BN;
+    const uint32_t st = stage(i), b = bar(i);
+    if (j < C || (sweep2 && j < 2 * C)) {  // K with Q, or V with dO
+      const bool second = j >= C;
+      const int c = second ? j - C : j;
+      mbar_expect_tx(b, Tl::A_BYTES + Tl::B_BYTES);
+      tma_load_3d(st, second ? map_v : map_k, b, col0 + c * CW, n0, bh);
+      tma_load_3d(st + Tl::A_BYTES, second ? map_do : map_q, b,
+                  col0 + c * CW, m0, bh);
+    } else {  // dO (sweep 1) or Q (sweep 2), to be transposed
+      const int c = j - (sweep2 ? 2 * C : C);
+      mbar_expect_tx(b, Tl::B_BYTES);
+      tma_load_3d(st + Tl::A_BYTES, sweep2 ? map_q : map_do, b,
+                  col0 + c * CW, m0, bh);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 0; w < Tl::NWG; ++w)
+#pragma unroll
+      for (int st = 0; st < NS; ++st) mbar_init(smem_u32(&full[w][st]), 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wtid == 0)
+    for (int i = 0; i < min(NS - 1, n_items); ++i) load_item(i);
+
+  int i = 0;
+  auto next = [&] {  // item i + NS - 1, into the stage item i - 1 freed
+    if (wtid == 0 && i + NS - 1 < n_items) load_item(i + NS - 1);
+  };
+  float acc[Tl::HALF / 8][4];  // this warpgroup's columns of dv, then dk
+  // one sweep over the live query tiles, DK (dk_sweep's value) compiled in:
+  // false takes dV, true dK
+  auto sweep = [&](auto dk_sweep) {
+    constexpr bool DK = decltype(dk_sweep)::value;
+#pragma unroll
+    for (int dt = 0; dt < Tl::HALF / 8; ++dt)
+      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+    for (int t = 0; t < count; ++t) {
+      const int it = (DK ? count : 0) + t;
+      const int m0 = (first + t) * BN;
+      // the tile's lse and delta rows, in flight while s^T runs (the
+      // buffer of this tile's parity was last read two tiles ago, before
+      // the previous tile's exchange)
+      const uint32_t vec = sVec + (it & 1) * 2 * BN * 4;
+      load_vec_f32(vec, lb, m0, sq, BN, tid);
+      load_vec_f32(vec + BN * 4, deb, m0, sq, BN, tid - BN);
+      cp_async_commit();
+
+      // s^T = K . Q^T over this warpgroup's half of D, then summed (the
+      // exchange's first barrier also publishes lse and delta)
+      float s[NB][4], dp[NB][4];
+#pragma unroll 1
+      for (int j = 0; j < C; ++j, ++i)
+        tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0,
+                            wg, wtid, warp, g, tig, next);
+      cp_async_wait<0>();
+      exchange_sum(xbuf, wg, wtid, s);
+      const float* sLse = reinterpret_cast<const float*>(smem + (vec - base));
+      const float* sDelta = sLse + BN;
+
+      // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked, in
+      // the transposed frame (fragment rows keys, columns queries); the dV
+      // sweep keeps p_eff, the dK sweep p
+      const bool edge = m0 + BN > sq || key_w + 16 > sk ||
+                        (causal && key_w + 15 > m0);
+      // the dropout keep mask, hashed where it is used (dK: after dp^T, so
+      // it holds no register while the products run)
+      uint32_t keep =
+          DROPOUT && !DK
+              ? keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold)
+              : 0u;
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        const int col = nt * 8 + tig * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(sLse + col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = c & 1, r = c >> 1;
+          const int qp = m0 + col + j;
+          float p = exp2_approx(
+              fmaf(s[nt][c], scale_log2, -(j ? l2.y : l2.x) * LOG2E));
+          if (edge &&
+              !(qp < sq && kpos[r] < sk && (!causal || kpos[r] <= qp)))
+            p = 0.f;
+          if (DROPOUT && !DK)
+            p = (keep >> (4 * nt + c)) & 1u ? p * inv_keep : 0.f;
+          s[nt][c] = p;
+        }
+      }
+      if constexpr (DK) {
+        // dp^T = V . dO^T, the same way; ds = p * (dp_eff - delta) *
+        // sm_scale, into s
+        if (Tl::P_STASH) exchange_store(pbuf, wg, wtid, s);
+#pragma unroll 1
+        for (int j = 0; j < C; ++j, ++i)
+          tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0,
+                              wg, wtid, warp, g, tig, next);
+        exchange_sum(xbuf, wg, wtid, dp);
+        if (Tl::P_STASH) exchange_load(pbuf, wg, wtid, s);
+        if (DROPOUT)
+          keep = keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold);
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt) {
+          const float2 del2 =
+              *reinterpret_cast<const float2*>(sDelta + nt * 8 + tig * 2);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float dpv = dp[nt][c];
+            if (DROPOUT)
+              dpv = (keep >> (4 * nt + c)) & 1u ? dpv * inv_keep : 0.f;
+            s[nt][c] =
+                s[nt][c] * (dpv - ((c & 1) ? del2.y : del2.x)) * sm_scale;
+          }
+        }
+      }
+
+      // dV[:, own columns] += P_eff^T . dO, or dK[:, own columns] += dS^T
+      // . Q, chunk by chunk
+      uint32_t fh[NB][4], fl[NB][4];
+      tf32_a_frags(s, fh, fl);
+#pragma unroll
+      for (int j = 0; j < C; ++j, ++i) {
+        float(&oc)[4][4] =
+            *reinterpret_cast<float(*)[4][4]>(&acc[4 * j][0]);
+        tf32_grad_item<Tl>(oc, fh, fl, stage(i), bar(i), (i / NS) & 1, wg,
+                           wtid, next);
+      }
+      fence_regs_u32(fh);
+      fence_regs_u32(fl);
+    }
+
+    // this sweep's output: this thread's two keys, its warpgroup's columns
+    float* out = DK ? dk : dv;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kpos[r] >= sk) continue;
+      float* row = out + ((size_t)bh * sk + kpos[r]) * D + col0 + 2 * tig;
+#pragma unroll
+      for (int dt = 0; dt < Tl::HALF / 8; ++dt)
+        *reinterpret_cast<float2*>(row + 8 * dt) =
+            make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    }
+  };
+  sweep(std::false_type());  // dV
+  sweep(std::true_type());   // dK
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_dq_tf32_wide_t(const Args& a) {
+  using Tl = Tf32BwdTiles<D>;
+  auto kernel = flash_bwd_dq_wgmma_wide_tf32_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if ((err = tensor_map_f32(&tm_q, a.q, a.bh, a.sq, D, Tl::BM)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_do, a.dout, a.bh, a.sq, D, Tl::BM)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_k, a.k, a.bh, a.sk, D, Tl::BN)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_v, a.v, a.bh, a.sk, D, Tl::BN)) !=
+          cudaSuccess)
+    return err;
+  dim3 grid;
+  if (!launch_grid((a.sq + Tl::BM - 1) / Tl::BM, a.bh, 1, a.causal,
+                   2LL * a.sk * D * sizeof(float), &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, Tl::THREADS, Tl::SMEM, a.stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta, static_cast<float*>(a.out0),
+      a.sq, a.sk, a.sm_scale, a.causal, a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tf32_wide(const Args& a) {
+  return a.use_dropout ? launch_dq_tf32_wide_t<D, true>(a)
+                       : launch_dq_tf32_wide_t<D, false>(a);
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_dkv_tf32_wide_t(const Args& a) {
+  using Tl = Tf32BwdTiles<D>;
+  auto kernel = flash_bwd_dkv_wgmma_wide_tf32_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if ((err = tensor_map_f32(&tm_q, a.q, a.bh, a.sq, D, Tl::BN)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_do, a.dout, a.bh, a.sq, D, Tl::BN)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_k, a.k, a.bh, a.sk, D, Tl::BM)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_v, a.v, a.bh, a.sk, D, Tl::BM)) !=
+          cudaSuccess)
+    return err;
+  dim3 grid;  // causal dk/dv's heaviest key blocks are its first
+  if (!launch_grid((a.sk + Tl::BM - 1) / Tl::BM, a.bh, 1, false, 0, &grid))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, Tl::THREADS, Tl::SMEM, a.stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta, static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.sq, a.sk, a.sm_scale, a.causal,
+      a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32_wide(const Args& a) {
+  return a.use_dropout ? launch_dkv_tf32_wide_t<D, true>(a)
+                       : launch_dkv_tf32_wide_t<D, false>(a);
+}
+
+
+// ---------------------------------------------------------------------------
 // bf16 at d <= 32: the narrow dq and dk/dv kernels
 // ---------------------------------------------------------------------------
 // Replace the TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel (flexflow_tpu/
@@ -2185,10 +2892,11 @@ cudaError_t launch_dkv_narrow(const Args& a, int d) {
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || head_dim <= 0)
     return (int)cudaErrorInvalidValue;
-  // bf16 runs the wgmma kernels, f32 the exact FMA kernels; bf16 at d = 8,
-  // 16, 24 and 32 the narrow wgmma kernels (d unpadded); bf16 at d = 192
-  // ... 512 the wide wgmma kernels (d compiled in); f32 above d = 128 and
-  // bf16 above 512 the wide FMA kernels (d a runtime argument)
+  // bf16 runs the wgmma kernels, f32 up to d = 128 the exact FMA kernels;
+  // bf16 at d = 8, 16, 24 and 32 the narrow wgmma kernels (d unpadded);
+  // d = 192 ... 512 the wide wgmma kernels (d compiled in; f32 in three
+  // TF32 passes); above 512 either type the wide FMA kernels (d a runtime
+  // argument)
   using bf16 = __nv_bfloat16;
 #define FF_LAUNCH_NARROW(DP)                                       \
   return (int)(dkv ? launch_dkv_narrow<DP>(a, head_dim)            \
@@ -2216,7 +2924,25 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
       case 512: return (int)launch_dkv_wgmma_wide<512>(a);
       default: break;
     }
-  if (head_dim > 128 && head_dim % TILE == 0) {
+  if (!dkv && dtype == 0) switch (head_dim) {
+      case 192: return (int)launch_dq_tf32_wide<192>(a);
+      case 256: return (int)launch_dq_tf32_wide<256>(a);
+      case 320: return (int)launch_dq_tf32_wide<320>(a);
+      case 384: return (int)launch_dq_tf32_wide<384>(a);
+      case 448: return (int)launch_dq_tf32_wide<448>(a);
+      case 512: return (int)launch_dq_tf32_wide<512>(a);
+      default: break;
+    }
+  if (dkv && dtype == 0) switch (head_dim) {
+      case 192: return (int)launch_dkv_tf32_wide<192>(a);
+      case 256: return (int)launch_dkv_tf32_wide<256>(a);
+      case 320: return (int)launch_dkv_tf32_wide<320>(a);
+      case 384: return (int)launch_dkv_tf32_wide<384>(a);
+      case 448: return (int)launch_dkv_tf32_wide<448>(a);
+      case 512: return (int)launch_dkv_tf32_wide<512>(a);
+      default: break;
+    }
+  if (head_dim > 512 && head_dim % TILE == 0) {
     if (dkv && dtype == 0) return (int)launch_dkv_wide<float>(a, head_dim);
     if (dkv && dtype == 1) return (int)launch_dkv_wide<bf16>(a, head_dim);
     if (dtype == 0) return (int)launch_dq_wide<float>(a, head_dim);

@@ -1083,57 +1083,6 @@ struct Tf32Tiles {
   static_assert(SMEM <= SMEM_LIMIT, "fits one CTA");
 };
 
-// V^T hi and lo of a BN x D f32 tile of V at sv (BN keys, 128-byte
-// swizzled as TMA lands it) into the D x BN tiles vt_hi and vt_lo (rows
-// the D columns, keys contiguous in the order (0, 2, 4, 6, 1, 3, 5, 7)
-// within each 8-key group, 128-byte swizzled), by one warpgroup. Each item
-// is a 4 x 4 block, keys k0 + 2i (k0 = 8a + par) by columns 4c .. 4c + 3,
-// read as four 16-byte rows and written as four 16-byte chunks of V^T
-// (keys 8a + 2i + par land at positions 8a + 4 par + i). Items map to
-// lanes so that each 8-lane phase of a 16-byte access covers eight
-// distinct bank groups in the reads (chunk c ^ key row) and the writes
-// (position chunk ^ column row).
-template <int D, int BN>
-__device__ __forceinline__ void split_transpose_v(uint32_t sv, uint32_t vt_hi,
-                                                  uint32_t vt_lo, int wtid) {
-  constexpr int ITEMS = BN * D / 16;
-  static_assert(ITEMS % WG_THREADS == 0, "whole rounds");
-  float x[ITEMS / WG_THREADS][4][4];
-#pragma unroll
-  for (int j = 0; j < ITEMS / WG_THREADS; ++j) {
-    const int it = wtid + j * WG_THREADS;
-    const int par = it & 1, a = (it >> 1) & 3, b = (it >> 3) & 1,
-              e = (it >> 4) & 3, rest = it >> 6;
-    const int c = (rest % (D / 32)) * 8 + (((a ^ e) << 1) | b);
-    const int k0 = (rest / (D / 32)) * 32 + 8 * a + par;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = ld_shared_f4(sv + sw128_offset<BN>(k0 + 2 * i, c));
-      x[j][i][0] = v.x;
-      x[j][i][1] = v.y;
-      x[j][i][2] = v.z;
-      x[j][i][3] = v.w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < ITEMS / WG_THREADS; ++j) {
-    const int it = wtid + j * WG_THREADS;
-    const int par = it & 1, a = (it >> 1) & 3, b = (it >> 3) & 1,
-              e = (it >> 4) & 3, rest = it >> 6;
-    const int c = (rest % (D / 32)) * 8 + (((a ^ e) << 1) | b);
-    const int pos = (rest / (D / 32)) * 8 + 2 * a + par;  // V^T's chunk
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float h[4], l[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) tf32_split(x[j][r][i], h[r], l[r]);
-      const uint32_t off = sw128_offset<D>(4 * c + i, pos);
-      st_shared_f4(vt_hi + off, h[0], h[1], h[2], h[3]);
-      st_shared_f4(vt_lo + off, l[0], l[1], l[2], l[3]);
-    }
-  }
-}
-
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(Tf32Tiles<D>::THREADS, 1)
     flash_fwd_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1478,30 +1427,6 @@ struct Tf32WideTiles {
   static_assert(HALF % CW == 0, "whole chunks");
   static_assert(SMEM <= SMEM_LIMIT, "fits one CTA");
 };
-
-// This thread's TF32 A fragments, hi and lo, of a warpgroup's 64 x 32
-// f32 chunk at sq (128-byte swizzled as TMA lands it): slice kk holds
-// columns 8kk + tig and 8kk + tig + 4 of rows g and g + 8 of this warp's
-// 16, in the order (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig +
-// 4). Each 8-lane phase of a load reads eight distinct 16-byte chunks.
-__device__ __forceinline__ void q_frags_tf32(uint32_t sq, int warp, int g,
-                                             int tig, uint32_t (&hi)[4][4],
-                                             uint32_t (&lo)[4][4]) {
-  const int row = warp * 16 + g;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x = ld_shared_f32(
-          sq + sw128_offset<WG_ROWS>(row + 8 * (j & 1), 2 * kk + (j >> 1)) +
-          tig * 4);
-      float h, l;
-      tf32_split(x, h, l);
-      hi[kk][j] = __float_as_uint(h);
-      lo[kk][j] = __float_as_uint(l);
-    }
-  }
-}
 
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(Tf32WideTiles<D>::THREADS, 1)

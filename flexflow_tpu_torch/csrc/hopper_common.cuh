@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels on the
 // tensor cores: the bf16 forward in flash_attention_fwd.cu, dq and dk/dv
-// in flash_attention_bwd.cu, and the f32 forward at d = 64 and 128:
+// in flash_attention_bwd.cu, the f32 forward, and the f32 wide dq and
+// dk/dv:
 //
 //   - two ways to fill a ring of shared-memory stages, so one stage's copy
 //     is in flight while the previous stage's products run: cp.async
@@ -37,7 +38,7 @@
 //     with g = lane / 4, tig = lane % 4. The register A operand is the
 //     m16n8k16 A layout, so two adjacent 8-column blocks of an
 //     accumulator, rounded to bf16, are one 16-deep A slice;
-//   - the split-precision TF32 products of the f32 forward ("3xTF32"):
+//   - the split-precision TF32 products of the f32 kernels ("3xTF32"):
 //     x = hi + lo with hi = x with its low 13 mantissa bits cleared and lo
 //     = x - hi (exact in f32) cleared the same way (tf32_split), so a . b
 //     = a_hi . b_hi + a_hi . b_lo + a_lo . b_hi up to a_lo . b_lo and lo's
@@ -50,7 +51,11 @@
 //     of an 8-deep slice, where the accumulator holds columns 2 * tig and
 //     2 * tig + 1, so an accumulator's 8-column block is the A slice of
 //     those 8 keys taken in the order (0, 2, 4, 6, 1, 3, 5, 7)
-//     (tf32_a_frags); the B operand stores its keys in that order.
+//     (tf32_a_frags); the B operand stores its keys in that order. A
+//     product that contracts over a streamed tile's rows reads a
+//     transposed hi / lo copy of the tile in that order
+//     (split_transpose_v); an operand of owned rows comes as register A
+//     fragments split in registers (q_frags_tf32).
 //
 // The forward and dq fill their rings by TMA (K/V tiles, with Q, and dO
 // for dq, resident); dk/dv by cp.async, since it also streams per-row
@@ -58,7 +63,8 @@
 // The wide bf16 forward, dq and dk/dv (d 192 ... 512) run two warpgroups
 // per CTA; above d = 320 they split D between them (WideSplit) and sum
 // their partial score tiles through shared memory (exchange_store /
-// exchange_add).
+// exchange_add). The wide f32 kernels split D at every head dim and
+// stream every operand by TMA in 32-column chunks.
 
 #pragma once
 
@@ -799,6 +805,90 @@ __device__ __forceinline__ void tf32_a_frags(const float (&s)[NB][4],
       tf32_split(x[j], h, l);
       hi[kc][j] = __float_as_uint(h);
       lo[kc][j] = __float_as_uint(l);
+    }
+  }
+}
+
+// The transposed TF32 B operand of a product that contracts over a
+// streamed tile's rows (the f32 forward's P . V, the f32 wide dq's dS . K,
+// dk/dv's P^T . dO and dS^T . Q): hi and lo of a BN x D f32 tile at sv
+// (BN rows, keys or queries, 128-byte swizzled as TMA lands it) into the
+// D x BN tiles vt_hi and vt_lo (rows the D columns, the BN rows
+// contiguous in the order (0, 2, 4, 6, 1, 3, 5, 7) within each 8-row
+// group, 128-byte swizzled), by one warpgroup. Each item is a 4 x 4
+// block, rows k0 + 2i (k0 = 8a + par) by columns 4c .. 4c + 3, read as
+// four 16-byte rows and written as four 16-byte chunks of V^T (rows 8a +
+// 2i + par land at positions 8a + 4 par + i). Items map to lanes so that
+// each 8-lane phase of a 16-byte access covers eight distinct bank groups
+// in the reads (chunk c ^ row) and the writes (position chunk ^ column
+// row). A 32 x 32 tile has 64 items: half the warpgroup takes them.
+template <int D, int BN>
+__device__ __forceinline__ void split_transpose_v(uint32_t sv, uint32_t vt_hi,
+                                                  uint32_t vt_lo, int wtid) {
+  constexpr int ITEMS = BN * D / 16;
+  constexpr int ROUNDS = (ITEMS + WG_THREADS - 1) / WG_THREADS;
+  constexpr bool PARTIAL = ITEMS % WG_THREADS != 0;
+  static_assert(!PARTIAL || ROUNDS == 1, "whole rounds, or one partial");
+  float x[ROUNDS][4][4];
+#pragma unroll
+  for (int j = 0; j < ROUNDS; ++j) {
+    const int it = wtid + j * WG_THREADS;
+    if (PARTIAL && it >= ITEMS) continue;
+    const int par = it & 1, a = (it >> 1) & 3, b = (it >> 3) & 1,
+              e = (it >> 4) & 3, rest = it >> 6;
+    const int c = (rest % (D / 32)) * 8 + (((a ^ e) << 1) | b);
+    const int k0 = (rest / (D / 32)) * 32 + 8 * a + par;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = ld_shared_f4(sv + sw128_offset<BN>(k0 + 2 * i, c));
+      x[j][i][0] = v.x;
+      x[j][i][1] = v.y;
+      x[j][i][2] = v.z;
+      x[j][i][3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ROUNDS; ++j) {
+    const int it = wtid + j * WG_THREADS;
+    if (PARTIAL && it >= ITEMS) continue;
+    const int par = it & 1, a = (it >> 1) & 3, b = (it >> 3) & 1,
+              e = (it >> 4) & 3, rest = it >> 6;
+    const int c = (rest % (D / 32)) * 8 + (((a ^ e) << 1) | b);
+    const int pos = (rest / (D / 32)) * 8 + 2 * a + par;  // V^T's chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float h[4], l[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) tf32_split(x[j][r][i], h[r], l[r]);
+      const uint32_t off = sw128_offset<D>(4 * c + i, pos);
+      st_shared_f4(vt_hi + off, h[0], h[1], h[2], h[3]);
+      st_shared_f4(vt_lo + off, l[0], l[1], l[2], l[3]);
+    }
+  }
+}
+
+// This thread's TF32 A fragments, hi and lo, of a warpgroup's 64 x 32
+// f32 chunk at sq (128-byte swizzled as TMA lands it; the f32 wide
+// forward's Q, the f32 wide dq's Q and dO, dk/dv's K and V): slice kk
+// holds columns 8kk + tig and 8kk + tig + 4 of rows g and g + 8 of this
+// warp's 16, in the order (g, tig), (g + 8, tig), (g, tig + 4), (g + 8,
+// tig + 4). Each 8-lane phase of a load reads eight distinct 16-byte
+// chunks.
+__device__ __forceinline__ void q_frags_tf32(uint32_t sq, int warp, int g,
+                                             int tig, uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4]) {
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = ld_shared_f32(
+          sq + sw128_offset<WG_ROWS>(row + 8 * (j & 1), 2 * kk + (j >> 1)) +
+          tig * 4);
+      float h, l;
+      tf32_split(x, h, l);
+      hi[kk][j] = __float_as_uint(h);
+      lo[kk][j] = __float_as_uint(l);
     }
   }
 }

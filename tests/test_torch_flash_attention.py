@@ -973,3 +973,180 @@ def test_every_f32_wide_forward_head_dim_has_a_card_case():
     assert ("fwd", 4, 8, 512, 256, True, torch.float32) in rows
     assert ("fwd", 64, 1, 128, 512, False, torch.float32) in rows
     assert ("fwd", 4, 8, 512, 192, False, torch.float32) in smoke.AB_SHAPES
+
+
+# The f32 wide dq and dk/dv on the card (flash_bwd_dq_wgmma_wide_tf32_kernel
+# and flash_bwd_dkv_wgmma_wide_tf32_kernel at d = 192 ... 512) run all five
+# products in three TF32 passes of split operands: S = Q . K^T and dP =
+# dO . V^T as two partial tiles over the halves of d (the two warpgroups'
+# parts, summed), dQ += dS . K over key tiles, dV += P_eff^T . dO and dK
+# += dS^T . Q over query tiles (64 rows). This
+# emulation repeats that arithmetic on the CPU, from the emulated
+# forward's o and lse and delta = rowsum(do * o) as the autograd Function
+# takes it, and holds it against jax.grad through the JAX package's f32
+# kernels (interpret mode), relative to the largest gradient, to
+# chip_smoke.py's BWD_TOL[torch.float32]; one TF32 pass misses it. As the
+# forward's emulation, it repeats the split, not the tensor cores' own
+# summation order. Nothing on the port's path calls it.
+TF32_BWD_TOL = 1e-5     # chip_smoke.py's BWD_TOL[torch.float32]
+
+
+def _tf32_scores(a, b, passes):
+    """a . b^T as the wide kernels' two warpgroups compute it: one TF32
+    product over each half of d, the partial tiles summed."""
+    return sum(_tf32_mm(ah, bh.transpose(2, 3), passes)
+               for ah, bh in zip(a.chunk(2, -1), b.chunk(2, -1)))
+
+
+def _tf32_flash_bwd(q, k, v, do, lse, delta, causal=False, passes=3):
+    """(dq, dk, dv) of the card's f32 wide backward, emulated in f32 on
+    the CPU: dq over key tiles, dk and dv over query tiles, p in base 2
+    from lse, ds = p (dp - delta) sm_scale, no dropout."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bn = 64
+    log2e = 1.4426950408889634
+    scale = np.float32(1.0 / np.sqrt(d))
+    scale_log2 = np.float32(log2e / np.sqrt(d))
+    lse2 = (lse * np.float32(log2e))[..., None]
+    dlt = delta[..., None]
+
+    def p_ds(rows, keys, qt, dot, kt, vt, lse2_, dlt_):
+        p = torch.exp2(_tf32_scores(qt, kt, passes) * scale_log2 - lse2_)
+        if causal:
+            p = torch.where(keys[None, :] <= rows[:, None], p,
+                            torch.zeros(()))
+        return p, p * (_tf32_scores(dot, vt, passes) - dlt_) * scale
+
+    dq = torch.zeros_like(q)
+    for n0 in range(0, sk, bn):       # dq: a CTA's loop over key tiles
+        kt, vt = k[:, :, n0:n0 + bn], v[:, :, n0:n0 + bn]
+        _, ds = p_ds(torch.arange(sq), torch.arange(n0, n0 + kt.shape[2]),
+                     q, do, kt, vt, lse2, dlt)
+        dq += _tf32_mm(ds, kt, passes)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for m0 in range(0, sq, bn):       # dk/dv: a CTA's loop over query tiles
+        qt, dot = q[:, :, m0:m0 + bn], do[:, :, m0:m0 + bn]
+        p, ds = p_ds(torch.arange(m0, m0 + qt.shape[2]), torch.arange(sk),
+                     qt, dot, k, v, lse2[:, :, m0:m0 + bn],
+                     dlt[:, :, m0:m0 + bn])
+        dv += _tf32_mm(p.transpose(2, 3), dot, passes)
+        dk += _tf32_mm(ds.transpose(2, 3), qt, passes)
+    return dq, dk, dv
+
+
+def _tf32_grads(q, k, v, do, causal=False, passes=3):
+    """The card's f32 wide path on the CPU: the emulated forward (three
+    passes), delta in f32 as the autograd Function takes it, then the
+    emulated backward in ``passes`` passes."""
+    q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = _tf32_flash(q, k, v, causal)
+    delta = (do * o).sum(-1)
+    return [g.numpy() for g in _tf32_flash_bwd(q, k, v, do, lse, delta,
+                                               causal, passes)]
+
+
+# (b, h, sq, sk, d, causal): d 192, 256 and 512 causal and not at a
+# ragged s, sq != sk once, NMT's d 512 self-attention at a small batch
+TF32_BWD_CASES = [(1, 2, 200, 200, d, causal) for d in (192, 256, 512)
+                  for causal in (False, True)] + [
+    (1, 2, 96, 200, 256, False), (2, 1, 128, 128, 512, False)]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", TF32_BWD_CASES)
+def test_tf32_three_pass_backward_emulation_matches_jax_f32(b, h, sq, sk, d,
+                                                            causal):
+    q, k, v = _qkv(b, h, sq, sk, d, seed=23)
+    do = _do(b, h, sq, d, seed=24)
+    got = _tf32_grads(q, k, v, do, causal)
+    want = _jax_grads(q, k, v, do, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        rel = np.abs(g - w).max() / np.abs(w).max()
+        assert rel <= TF32_BWD_TOL, (f"d{name}", rel)
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_one_tf32_pass_backward_misses_the_f32_tolerance(d):
+    """One TF32 pass for each of the backward's five products keeps ~3
+    decimal digits of each operand: the gradients miss 1e-5 of the
+    largest by orders of magnitude, so the kernels take three."""
+    q, k, v = _qkv(1, 2, 200, 200, d, seed=23)
+    do = _do(1, 2, 200, d, seed=24)
+    got = _tf32_grads(q, k, v, do, passes=1)
+    want = _jax_grads(q, k, v, do)
+    worst = max(np.abs(g - w).max() / np.abs(w).max()
+                for g, w in zip(got, want))
+    assert worst > 10 * TF32_BWD_TOL, worst
+
+
+def test_every_f32_wide_backward_head_dim_has_a_card_case():
+    """f32 dq and dk/dv at d = 192 ... 512 dispatch to the split-precision
+    TF32 wide kernels (launch_dq_tf32_wide<D>, launch_dkv_tf32_wide<D>, D
+    compiled in, the head dims of the bf16 wide kernels), and the wide FMA
+    kernels (launch_dq_wide, launch_dkv_wide) are reached only above 512.
+    chip_smoke.py's kernel phase holds each of those d in f32 against the
+    plain versions causal and not, with and without dropout, with the key
+    block edges (a causal s just past a 64-key block with dropout at d 192
+    and 512, a query count below one query tile over many keys, NMT's
+    ragged cross-attention both ways), and through the autograd Function
+    (FN_F32_CASES: d 300 padded, d 512 causal with dropout, NMT's shape);
+    its timing phases list the new kernels' rows."""
+    import importlib.util
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "flexflow_tpu_torch", "csrc",
+                           "flash_attention_bwd.cu")) as f:
+        text = f.read()
+    entry = text[text.index("int dispatch(bool dkv"):]
+    wide = set()
+    for side, cond in (("dq", "!dkv"), ("dkv", "dkv")):
+        block = re.search(rf"if \({re.escape(cond)} && dtype == 0\) switch "
+                          r"\(head_dim\) \{(.*?)\}", entry, re.S)
+        assert block, side
+        found = re.findall(rf"case (\d+): return \(int\)launch_{side}_tf32_"
+                           r"wide<(\d+)>\(a\);", block.group(1))
+        assert found and all(a == b for a, b in found), found
+        dims = {int(a) for a, _ in found}
+        assert dims == _wide_wgmma_dims("flash_attention_bwd.cu",
+                                        f"launch_{side}_wgmma_wide") \
+            == {192, 256, 320, 384, 448, 512}, (side, dims)
+        assert re.search(rf"auto kernel = flash_bwd_{side}_wgmma_wide_tf32_"
+                         r"kernel<D, DROPOUT>;", text), side
+        wide |= dims
+    # the FMA kernels: one guarded block after the f32 switches, above 512
+    fma = re.search(r"if \(head_dim > (\d+) && head_dim % TILE == 0\) \{\s*"
+                    r"if \(dkv && dtype == 0\) return \(int\)launch_dkv_wide"
+                    r"<float>", entry)
+    assert fma and int(fma.group(1)) == max(wide), fma
+    assert entry.index("launch_dkv_tf32_wide<512>") < fma.start()
+    assert all(m.start() > fma.start()
+               for m in re.finditer(r"launch_(dq|dkv)_wide<", entry))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    f32 = torch.float32
+    cases = [c for c in smoke.CASES if c[5] == f32]
+    every = {(False, False), (False, True), (True, False), (True, True)}
+    for d in sorted(wide):
+        mine = [c for c in cases if bwd_mod._fwd_head_dim(c[4], c[5]) == d]
+        assert {(c[6], c[7] > 0) for c in mine} == every, d
+    for edge in ((2, 4, 260, 260, 192, f32, True, 0.1),
+                 (2, 4, 260, 260, 512, f32, True, 0.1),
+                 (2, 4, 20, 200, 256, f32, False, 0.0),
+                 (16, 1, 37, 100, 512, f32, False, 0.1),
+                 (16, 1, 100, 37, 512, f32, False, 0.0)):
+        assert edge in smoke.CASES, edge
+    fn = smoke.FN_F32_CASES
+    assert all(c[5] == f32 for c in fn)
+    assert any(bwd_mod._fwd_head_dim(c[4], f32) != c[4] for c in fn)
+    assert any(c[4] == 512 and c[6] and c[7] > 0 for c in fn)
+    assert (64, 1, 128, 128, 512, f32, False, 0.0) in fn
+    rows = {s[1:8] for s in smoke.KT_SHAPES}
+    for d in (192, 256, 320, 512):
+        assert ("bwd", 4, 8, 512, d, False, f32) in rows, d
+    assert ("bwd", 4, 8, 512, 256, True, f32) in rows
+    assert ("bwd", 64, 1, 128, 512, False, f32) in rows
+    assert ("bwd", 64, 1, 128, 512, False, f32) in smoke.AB_SHAPES

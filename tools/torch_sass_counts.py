@@ -25,7 +25,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OPS = ("HGMMA", "FFMA", "FMUL", "FADD", "LDS", "STS", "MUFU", "BAR")
+OPS = ("HGMMA", "FFMA", "FMUL", "FADD", "LDS", "STS", "LDL", "STL", "MUFU",
+       "BAR")
 
 
 def demangle(names):
