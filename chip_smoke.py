@@ -32,10 +32,11 @@ never JAX, and:
                autograd Function's whole backward), the f32 forward
                at the search's calibration rows (b1 h8 d64 causal, s 128
                and 512: the split-precision TF32 kernel, its bound beside
-               the FMA rate's), at d 128 and at d 256 (the wide FMA
-               kernel), the f32 dq and dk/dv at b1 h8 s512, SDPA's
-               backend named (its
-               efficient backend's backward where its flash backend
+               the FMA rate's), at d 128 and at d 192 ... 512 (the wide
+               TF32 kernel), the f32 tensor-core dq and dk/dv at b1 h8
+               s512 d 64 and 128 causal, at BERT-base's b8 h12 s512 (d
+               64 and 128) and at d 192 ... 512, SDPA's backend named
+               (its efficient backend's backward where its flash backend
                refuses the shape), Adam over BERT-base and over DLRM's
                256.03 M parameters, and each kernel's bound (bytes,
                flops or exponentials at the card's maximum SM clock);
@@ -52,7 +53,14 @@ never JAX, and:
                eval on seeded random ids and labels; checks every kernel's
                launch count per step and a finite loss; then, at dropout
                0, holds the loss history against the same weights trained
-               through plain attention and the unfused Adam;
+               through plain attention and the unfused Adam; then
+               BERT-base 8 x 512 under --f32-compute (use_bf16_compute =
+               False: the f32 tensor-core flash kernels at d 64), fit
+               with dropout 0.1 and 12 / 12 / 12 / 1 launches a step, at
+               dropout 0 the first step's gradients leaf by leaf and a
+               4-step loss history against plain attention + the unfused
+               Adam, and its step time and peak memory beside the bf16
+               step's;
   7. times   - the request latency and the train-step time (median, p90)
                on the host clock, and the step's peak device memory (needs
                slice);
@@ -655,20 +663,40 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (2, 4, 260, 260, 512, torch.float32, True, 0.1),
     (2, 4, 20, 200, 256, torch.float32, False, 0.0),
     (16, 1, 37, 100, 512, torch.float32, False, 0.1),
+    # the f32 dq and dk/dv at d 64 and 128 (the split-precision TF32
+    # kernels: blocks of 128 owned rows, 64 a warpgroup, over streamed
+    # tiles of 64): a causal s just past one 64-row block and just past a
+    # 128-row one, with dropout, at both d; a query count below one tile
+    # over many keys and the other way round at d 128; b*h above 1024 at d
+    # 64, causal and not; BERT-base's grid at d 128 with dropout, causal
+    # and not
+    (2, 4, 72, 72, 64, torch.float32, True, 0.1),
+    (2, 4, 72, 72, 128, torch.float32, True, 0.1),
+    (2, 4, 130, 130, 64, torch.float32, True, 0.1),
+    (2, 4, 130, 130, 128, torch.float32, True, 0.0),
+    (2, 4, 20, 200, 128, torch.float32, False, 0.1),
+    (2, 4, 200, 20, 128, torch.float32, False, 0.0),
+    (33, 32, 64, 64, 64, torch.float32, False, 0.0),
+    (40, 32, 100, 100, 64, torch.float32, True, 0.1),
+    (8, 12, 200, 200, 128, torch.float32, True, 0.1),
+    (8, 12, 512, 512, 128, torch.float32, False, 0.1),
     # f32 above d 512 keeps the wide FMA forward, as bf16 does
     (2, 4, 200, 200, 576, torch.float32, True, 0.1),
     (2, 4, 200, 200, 576, torch.float32, False, 0.0),
 ]
 
 
-# the f32 wide backward (the --f32-compute path) through the autograd
-# Function in the kernel phase: d 300 (flash_attention pads q, k, v to 320
-# before the Function and slices o, and autograd slices the gradients),
-# d 512 causal with dropout, and NMT's self-attention
+# the f32 backward (the --f32-compute path) through the autograd Function
+# in the kernel phase: d 300 (flash_attention pads q, k, v to 320 before
+# the Function and slices o, and autograd slices the gradients), d 512
+# causal with dropout, NMT's self-attention, BERT-base's d 64 with
+# dropout and d 128 causal
 FN_F32_CASES = [
     (2, 4, 200, 200, 300, torch.float32, False, 0.0),
     (2, 4, 260, 260, 512, torch.float32, True, 0.1),
     (64, 1, 128, 128, 512, torch.float32, False, 0.0),
+    (8, 12, 200, 200, 64, torch.float32, False, 0.1),
+    (2, 4, 200, 200, 128, torch.float32, True, 0.0),
 ]
 
 
@@ -825,7 +853,7 @@ def phase_kernel_bwd(gen) -> dict:
             and launches == (1, 1) and calls["empty_like"] >= 3 \
             and (not unpadded or calls["constant_pad_nd"] == 0
                  == calls["slice"])
-        kind = "narrow" if dt == torch.bfloat16 else "f32 TF32 wide"
+        kind = "narrow" if dt == torch.bfloat16 else "f32 TF32"
         print(f"[kernel] flash_attention backward through the Function b{b} "
               f"h{h} sq{sq} sk{sk} d{d} {str(dt)[6:]} causal={causal} "
               f"dropout={rate} ({kind} dq and dk/dv at d "
@@ -1101,13 +1129,87 @@ def phase_train() -> dict:
           f"unfused Adam {[round(v, 5) for v in b]}: max|diff| = "
           f"{err:.3e} (tol {TRAIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
     check(ok, "dropout-0 loss histories of the two paths disagree")
-    return {"launches": launches, "steps": steps}
+    return {"launches": launches, "steps": steps, "f32": bert_f32_train()}
 
 
-def step_times(seq: int) -> dict:
+F32_SEQ = 512   # BERT-base's longest sequence, trained under --f32-compute
+
+
+def bert_f32_train() -> dict:
+    """BERT-base 8 x F32_SEQ under --f32-compute (use_bf16_compute =
+    False: f32 operands everywhere, the f32 tensor-core flash forward, dq
+    and dk/dv at d 64): fit with dropout 0.1 and every launch counted (12
+    forward, 12 dq, 12 dk/dv and 1 Adam a step); then, at dropout 0 from
+    the same weights against plain attention + the unfused Adam, the
+    first step's gradients leaf by leaf (grad_check, ZOO_GRAD_TOL) and a
+    4-step loss history (TRAIN_TOL); the step time and peak memory beside
+    the bf16 run's."""
+    kw = dict(use_bf16_compute=False)
+    ff, bcfg = train_model(F32_SEQ, "attention:flash,opt_update:fused", **kw)
+    x, y = dataset(bcfg, F32_SEQ, 16, 13)
+    steps = 16 // 8
+    torch.cuda.synchronize()
+    fns = zero_counts()  # the main path: every count starts at 0
+    history = ff.fit(x, y, epochs=1, verbose=False)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd": LAYERS * steps,
+            "flash_attention_bwd_dq": LAYERS * steps,
+            "flash_attention_bwd_dkv": LAYERS * steps,
+            "adam_update": steps}
+    print(f"[train] f32 path (--f32-compute): fit of BERT-base 8x{F32_SEQ}, "
+          f"dropout 0.1, {steps} steps; launches {launches} (want {want}); "
+          f"loss {[round(r['loss'], 5) for r in history]}")
+    check(launches == want, f"f32 train launches {launches} != {want}")
+    check(all(np.isfinite(r["loss"]) for r in history),
+          f"f32 loss {history}")
+    del ff
+    free_cuda()
+
+    # dropout 0: the first step's gradients and 4 steps of one batch from
+    # the same weights, flash + fused Adam against plain attention + the
+    # unfused Adam
+    x1, y1 = dataset(bcfg, F32_SEQ, 8, 17)
+    runs, init = {}, None
+    for impl in ("attention:flash,opt_update:fused", "attention:xla"):
+        m, _ = train_model(F32_SEQ, impl, dropout=0.0, **kw)
+        if init is None:
+            init = host_tree(m.params)
+        else:
+            m.params = device_tree(init)
+        batch = {t.name: torch.from_numpy(a).cuda()
+                 for t, a in zip(m.graph_inputs, x1)}
+        batch["label"] = torch.from_numpy(y1).cuda()
+        grads = host_tree(m.executor._grads(m.params, m.state, batch, 0)[0])
+        runs[impl] = (grads, [r["loss"] for r in m.fit(x1, y1, epochs=4,
+                                                       verbose=False)])
+        del m, batch
+        free_cuda()
+    (g_flash, a), (g_plain, b) = runs.values()
+    grad_diff = grad_check("bert_f32", True, g_flash, g_plain, "train")
+    err = float(np.abs(np.array(a) - np.array(b)).max())
+    ok = err <= TRAIN_TOL and np.all(np.isfinite(a))
+    print(f"[train] f32 dropout 0, 4 steps from the same weights: loss flash "
+          f"+ fused Adam {[round(v, 7) for v in a]}, plain attention + "
+          f"unfused Adam {[round(v, 7) for v in b]}: max|diff| = {err:.3e} "
+          f"(tol {TRAIN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    check(ok, "f32 dropout-0 loss histories of the two paths disagree")
+    times = {"bf16": step_times(F32_SEQ), "f32": step_times(F32_SEQ, **kw)}
+    for name, t in times.items():
+        print(f"[train] bert-base 8x{F32_SEQ} train step in {name} (flash + "
+              f"fused Adam, dropout 0.1): median {t['step_ms']:.3f} ms, p90 "
+              f"{t['step_p90_ms']:.3f} ms over {STEPS} steps (host clock, "
+              f"ends in a device sync); peak device memory "
+              f"{t['peak_mem_gb']:.3f} GB")
+    return {"launches": launches, "steps": steps, "grad_diff": grad_diff,
+            "loss_diff": err, "times": times}
+
+
+def step_times(seq: int, **cfg_kw) -> dict:
     """Host-clock train-step time (each step ends in a device sync) and
-    the step's peak device memory, BERT-base 8 x seq, flash + fused."""
-    ff, bcfg = train_model(seq, "attention:flash,opt_update:fused")
+    the step's peak device memory, BERT-base 8 x seq, flash + fused (the
+    FFConfig's fields ``cfg_kw`` set)."""
+    ff, bcfg = train_model(seq, "attention:flash,opt_update:fused",
+                           **cfg_kw)
     x, y = dataset(bcfg, seq, 8, 3)
     batch = {"input_ids": torch.from_numpy(x[0]).cuda(),
              "position_ids": torch.from_numpy(x[1]).cuda(),
@@ -1138,10 +1240,10 @@ def bwd_bound_ms(bh: int, s: int, d: int, dkv: bool,
     delta (f32) read once, dq (or dk and dv) written once, against 6 (dq)
     or 8 (dk/dv) * d flops per (query, key) pair the mask keeps (s*s, or
     s*(s+1)/2 causal) per head on the bf16 tensor cores, or in f32 at the
-    FMA rate (the f32 kernels up to d 128), or (``tf32_passes``, the f32
-    wide kernels' split-precision products) that many times over at the
-    TF32 tensor-core rate; and one exponential per such pair (each kernel
-    rebuilds p)."""
+    FMA rate (the wide kernels above d 512), or (``tf32_passes``, the f32
+    tensor-core kernels' split-precision products) that many times over
+    at the TF32 tensor-core rate; and one exponential per such pair (each
+    kernel rebuilds p)."""
     nbytes = 4 * bh * s * d * itemsize + 2 * bh * s * 4 \
         + (2 if dkv else 1) * bh * s * d * itemsize
     pairs = s * (s + 1) / 2 if causal else s * s
@@ -1215,7 +1317,7 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
     the backward of torch's SDPA (dq, dk, dv in one call, at the same
     dropout rate and mask) at b h s d in dtype: its flash backend's
     backward op where that takes the shape, else its efficient backend's
-    (named in ``sdpa_bwd_backend``). f32 at d 129 ... 512 runs three TF32
+    (named in ``sdpa_bwd_backend``). f32 up to d 512 runs three TF32
     passes on the tensor cores: its bounds are theirs, with the FMA
     rate's beside them (``dq_fma_bound_ms``, ``dkv_fma_bound_ms``)."""
     from types import SimpleNamespace
@@ -1267,7 +1369,7 @@ def bwd_times(seq: int, rate: float, gen, causal: bool = False, b: int = 8,
               f"{str(e).splitlines()[0][:120]}; timed the EFFICIENT_ATTENTION "
               f"backward instead (SDPA picks "
               f"{sdpa_backend(q, k, v, rate, causal)} here)")
-    tf32 = 3 if dtype.itemsize == 4 and 128 < d <= 512 else 0
+    tf32 = 3 if dtype.itemsize == 4 and d <= 512 else 0
     for key, dkv in (("dq", False), ("dkv", True)):
         res[key + "_bound"] = bwd_bound_ms(b * h, seq, d, dkv, causal,
                                            dtype.itemsize, tf32)
@@ -1368,7 +1470,8 @@ KT_SHAPES = [
      "the Transformer's attention, d 8 unpadded: the narrow kernels"),
     # f32: the search's calibration rows (op_attention@flash, b1 h8 d64
     # causal at s 128 and 512), the tensor-core kernel at d 128, the f32
-    # backward (FMA) at the calibration shape and at d 128, the wide
+    # tensor-core dq and dk/dv at the calibration shape, at d 128 and at
+    # BERT-base's b8 h12 s512 d64 (and the same at d 128), the wide
     # tensor-core forward, dq and dk/dv at d 192 ... 512 and NMT's shape
     # (the --f32-compute path)
     ("fwd_f32_calib_s128", "fwd", 1, 8, 128, 64, True, torch.float32,
@@ -1378,9 +1481,13 @@ KT_SHAPES = [
     ("fwd_f32_d128", "fwd", 1, 8, 512, 128, True, torch.float32,
      "the f32 tensor-core kernel at d 128"),
     ("bwd_f32_calib", "bwd", 1, 8, 512, 64, True, torch.float32,
-     "the f32 FMA dq and dk/dv at the calibration shape"),
+     "the f32 tensor-core dq and dk/dv at the calibration shape"),
     ("bwd_f32_d128", "bwd", 1, 8, 512, 128, True, torch.float32,
-     "the f32 FMA dq and dk/dv at d 128"),
+     "the f32 tensor-core dq and dk/dv at d 128"),
+    ("bwd_f32_bert", "bwd", 8, 12, 512, 64, False, torch.float32,
+     "BERT-base under --f32-compute, 12 launches each per train step"),
+    ("bwd_f32_bert_d128", "bwd", 8, 12, 512, 128, False, torch.float32,
+     "BERT-base's shape at d 128"),
     ("fwd_f32_d192", "fwd", 4, 8, 512, 192, False, torch.float32,
      "the f32 wide tensor-core kernel"),
     ("fwd_f32_d256", "fwd", 4, 8, 512, 256, False, torch.float32,
@@ -2723,10 +2830,11 @@ def profile_train_step(ff, step_fn, batch) -> dict:
             "family_ms": dict(family)}
 
 
-def grad_check(spec, flash: dict, plain: dict) -> float:
+def grad_check(tag: str, f32: bool, flash: dict, plain: dict,
+               phase: str = "zoo") -> float:
     """The first step's gradients of the flash plan (``flash``, on the
     host) against the plain plan's, leaf by leaf, within ZOO_GRAD_TOL for
-    an f32 spec; prints the worst three leaves."""
+    an f32 model; prints the worst three leaves."""
     plain = host_tree(plain)
     whole = sum(float(t.double().norm()) ** 2
                 for d in plain.values() for t in d.values()) ** 0.5
@@ -2734,14 +2842,14 @@ def grad_check(spec, flash: dict, plain: dict) -> float:
                     / max(float(t.double().norm()), GRAD_FLOOR * whole),
                     f"{ln}.{n}") for ln, d in plain.items()
                    for n, t in d.items()), reverse=True)
-    ok = errs[0][0] <= ZOO_GRAD_TOL or not spec.f32
-    print(f"[zoo] {spec.tag} first step's gradients, flash against plain "
+    ok = errs[0][0] <= ZOO_GRAD_TOL or not f32
+    print(f"[{phase}] {tag} first step's gradients, flash against plain "
           f"attention from the same weights, {len(errs)} "
           f"leaves: ||diff|| / max(||g||, {GRAD_FLOOR:.0e} ||whole g||) "
           "worst " + ", ".join(f"{n} {e:.3e}" for e, n in errs[:3])
           + (f" (tol {ZOO_GRAD_TOL:.0e}) {'ok' if ok else 'FAIL'}"
-             if spec.f32 else " (bf16: not checked)"))
-    check(ok, f"{spec.tag}: first-step gradients of the two plans differ")
+             if f32 else " (bf16: not checked)"))
+    check(ok, f"{tag}: first-step gradients of the two plans differ")
     return errs[0][0]
 
 
@@ -2858,8 +2966,8 @@ def zoo_run(spec, smi: str) -> dict:
     ref = zoo_model(spec, "attention:xla")
     ref.params, ref.state = device_tree(init), device_tree(init_state)
     res["grad_diff"] = grad_check(
-        spec, grads, ref.executor._grads(ref.params, ref.state, batch,
-                                         0)[0])
+        spec.tag, spec.f32, grads,
+        ref.executor._grads(ref.params, ref.state, batch, 0)[0])
     del batch
     plain = [r["loss"] for r in ref.fit(xs, y, epochs=ZOO_STEPS,
                                         verbose=False)]
@@ -5296,6 +5404,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # the Transformer's attention (zoo phase), d 8 unpadded through
         # the narrow kernel; the zoo's train launches (6 a step for the
         # Transformer, 1 for NMT) and the Transformer's served forwards
+        "f32_train_launches": train["f32"]["launches"]["flash_attention_fwd"],
         "transformer_b64_h8_s512_d8": dict(kt["fwd_transformer"]),
         "narrow_bf16_kernel": "flash_fwd_wgmma_narrow_kernel (bf16, d 8, "
                               "16, 24, 32 unpadded; DP 16 or 32)",
@@ -5353,6 +5462,10 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                                                    kt["bwd_f32_calib"]),
             "f32_b1_h8_s512_d128_causal": bwd_row_t(key,
                                                     kt["bwd_f32_d128"]),
+            "f32_b8_h12_s512_d64": bwd_row_t(key, kt["bwd_f32_bert"]),
+            "f32_b8_h12_s512_d128": bwd_row_t(key, kt["bwd_f32_bert_d128"]),
+            # BERT-base 8x512 under --f32-compute (train phase)
+            "f32_train_launches": train["f32"]["launches"][name],
             "f32_b4_h8_s512_d192": bwd_row_t(key, kt["bwd_f32_d192"]),
             "f32_b4_h8_s512_d256": bwd_row_t(key, kt["bwd_f32_d256"]),
             "f32_b4_h8_s512_d256_causal": bwd_row_t(
@@ -5367,6 +5480,8 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             **search_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)",
+            "f32_kernel": f"flash_bwd_{key}_wgmma_tf32_kernel (f32, d 64 "
+                          "and 128; three TF32 passes a product)",
             "f32_wide_kernel": f"flash_bwd_{key}_wgmma_wide_tf32_kernel "
                                "(f32, d 192-512; three TF32 passes a "
                                "product)",
@@ -5391,6 +5506,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                                for t, n in zoo_launches.items()},
         "frontends_train_launches": fe_row("adam_update"),
         "resilience_train_launches": resil["launches"]["adam_update"],
+        "f32_train_launches": train["f32"]["launches"]["adam_update"],
         **search_row("adam_update"),
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",

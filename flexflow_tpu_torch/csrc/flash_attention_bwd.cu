@@ -81,17 +81,16 @@
 //   narrow forward's tensor maps and swizzles), one warpgroup per CTA and
 //   four CTAs an SM. Their header says why.
 //
-//   dq and dk/dv, f32 at d = 64 and 128 - flash_bwd_dq_kernel and
-//   flash_bwd_dkv_kernel, the exact FMA path (64-row tiles, four warps,
-//   synchronous tile loads).
-//
-//   dq and dk/dv, f32 at d = 192 ... 512 (the wrapper pads any d from 129
-//   up) - flash_bwd_dq_wgmma_wide_tf32_kernel and
-//   flash_bwd_dkv_wgmma_wide_tf32_kernel: every product three TF32 wgmma
-//   passes of split operands (f32 accuracy, as the f32 forwards), a CTA of
-//   two warpgroups owning 64 rows and all D columns of its outputs, D
-//   split between the warpgroups and streamed in 32-column chunks by TMA.
-//   Their header says why.
+//   dq and dk/dv, f32 at d = 64 ... 512 (the wrapper pads any d up to 64,
+//   and from 129 up to a multiple of 64) - flash_bwd_dq_wgmma_tf32_kernel
+//   and flash_bwd_dkv_wgmma_tf32_kernel at d = 64 and 128,
+//   flash_bwd_dq_wgmma_wide_tf32_kernel and
+//   flash_bwd_dkv_wgmma_wide_tf32_kernel at d = 192 ... 512: every product
+//   three TF32 wgmma passes of split operands (f32 accuracy, as the f32
+//   forwards), a CTA owning blocks of 64 rows and all D columns of its
+//   outputs, every operand streamed in 32-column chunks by TMA; at d <=
+//   128 each warpgroup owns 64 rows and all of D, above D is split between
+//   two warpgroups. Their header says why.
 //
 //   dq, bf16 at d = 192 ... 512 (every multiple of 64; the wrapper pads
 //   any d from 129 up) - flash_bwd_dq_wgmma_wide_kernel: the wide
@@ -196,139 +195,6 @@ __device__ __forceinline__ void zero_frags(float (&s)[N_FRAGS][4]) {
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 }
 
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq,
-                        int sq, int sk, float sm_scale, int causal,
-                        int use_dropout, uint32_t threshold, float keep_prob,
-                        uint32_t seed) {
-  constexpr int LD = D + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sDO = sQ + TILE * LD;
-  float* sK = sDO + TILE * LD;
-  float* sV = sK + TILE * LD;
-  float* sP = sV + TILE * LD;
-
-  const GridCell cell = grid_cell((sq + TILE - 1) / TILE);
-  const int m0 = cell.block * TILE;
-  const int bh = cell.bh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const float* kb = k + (size_t)bh * sk * D;
-  const float* vb = v + (size_t)bh * sk * D;
-
-  load_tile<D>(sQ, q + (size_t)bh * sq * D, m0, sq);
-  load_tile<D>(sDO, dout + (size_t)bh * sq * D, m0, sq);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = m0 + warp * 16 + g + 8 * r;
-    lse_r[r] = qp < sq ? lse[(size_t)bh * sq + qp] : 0.f;
-    delta_r[r] = qp < sq ? delta[(size_t)bh * sq + qp] : 0.f;
-  }
-  auto lse_of = [&](int r) { return lse_r[r]; };
-  auto delta_of = [&](int r) { return delta_r[r]; };
-
-  float acc[D / 8][4];
-  zero_acc<D>(acc);
-  int n_tiles = (sk + TILE - 1) / TILE;
-  if (causal)  // a K tile is live iff its first key is visible to the
-               // tile's last query (the reference's rule)
-    n_tiles = min(n_tiles, (m0 + TILE - 1) / TILE + 1);
-
-  for (int tn = 0; tn < n_tiles; ++tn) {
-    const int n0 = tn * TILE;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, n0, sk);
-    load_tile<D>(sV, vb, n0, sk);
-    __syncthreads();
-    float s[N_FRAGS][4], dp[N_FRAGS][4];
-    zero_frags(s);
-    zero_frags(dp);
-    scores<D>(s, sQ, sK, warp, g, tig);
-    scores<D>(dp, sDO, sV, warp, g, tig);
-    tile_grads<false>(s, dp, m0, n0, warp, g, tig, bh, sq, sk, causal,
-                      sm_scale, use_dropout, threshold, keep_prob, seed,
-                      lse_of, delta_of);
-    accumulate_pv<D>(acc, dp, sK, sP, warp, g, tig);  // dq += ds . k
-  }
-  store_rows<D>(dq + (size_t)bh * sq * D, acc, m0, sq, warp, g, tig);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-    flash_bwd_dkv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int sq, int sk, float sm_scale, int causal,
-                         int use_dropout, uint32_t threshold, float keep_prob,
-                         uint32_t seed) {
-  constexpr int LD = D + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + TILE * LD;
-  float* sQ = sV + TILE * LD;
-  float* sDO = sQ + TILE * LD;
-  float* sLse = sDO + TILE * LD;
-  float* sDelta = sLse + TILE;
-  float* sP = sDelta + TILE;
-
-  const GridCell cell = grid_cell((sk + TILE - 1) / TILE);
-  const int n0 = cell.block * TILE;
-  const int bh = cell.bh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const float* qb = q + (size_t)bh * sq * D;
-  const float* db = dout + (size_t)bh * sq * D;
-
-  load_tile<D>(sK, k + (size_t)bh * sk * D, n0, sk);
-  load_tile<D>(sV, v + (size_t)bh * sk * D, n0, sk);
-  auto lse_of = [&](int c) { return sLse[c]; };
-  auto delta_of = [&](int c) { return sDelta[c]; };
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero_acc<D>(dk_acc);
-  zero_acc<D>(dv_acc);
-  const int n_tiles = (sq + TILE - 1) / TILE;
-  // causal: a q tile is live iff its last query can see the first key
-  const int first = causal ? n0 / TILE : 0;
-
-  for (int tm = first; tm < n_tiles; ++tm) {
-    const int m0 = tm * TILE;
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile<D>(sQ, qb, m0, sq);
-    load_tile<D>(sDO, db, m0, sq);
-    for (int i = threadIdx.x; i < TILE; i += NUM_THREADS) {
-      const int qp = m0 + i;
-      sLse[i] = qp < sq ? lse[(size_t)bh * sq + qp] : 0.f;
-      sDelta[i] = qp < sq ? delta[(size_t)bh * sq + qp] : 0.f;
-    }
-    __syncthreads();
-    float s[N_FRAGS][4], dp[N_FRAGS][4];
-    zero_frags(s);
-    zero_frags(dp);
-    scores<D>(s, sK, sQ, warp, g, tig);    // s^T = k . q^T
-    scores<D>(dp, sV, sDO, warp, g, tig);  // dp^T = v . do^T
-    tile_grads<true>(s, dp, n0, m0, warp, g, tig, bh, sq, sk, causal,
-                     sm_scale, use_dropout, threshold, keep_prob, seed,
-                     lse_of, delta_of);
-    accumulate_pv<D>(dv_acc, s, sDO, sP, warp, g, tig);  // dv += p_eff^T.do
-    accumulate_pv<D>(dk_acc, dp, sQ, sP, warp, g, tig);  // dk += ds^T . q
-  }
-  store_rows<D>(dk + (size_t)bh * sk * D, dk_acc, n0, sk, warp, g, tig);
-  store_rows<D>(dv + (size_t)bh * sk * D, dv_acc, n0, sk, warp, g, tig);
-}
-
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -341,46 +207,6 @@ struct Args {
   uint32_t seed;
   cudaStream_t stream;
 };
-
-template <int D>
-cudaError_t launch_dq(const Args& a) {
-  const size_t smem =
-      ((size_t)4 * TILE * (D + 4) + (size_t)TILE * P_LD) * sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<D>;
-  static unsigned long long smem_set = 0;  // per instantiation and device
-  cudaError_t err = allow_smem(kernel, smem, &smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid;
-  if (!launch_grid((a.sq + TILE - 1) / TILE, a.bh, 1, a.causal,
-                   2LL * a.sk * D * sizeof(float), &grid))
-    return cudaErrorInvalidValue;
-  kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.out0), a.sq, a.sk, a.sm_scale,
-      a.causal, a.use_dropout, a.threshold, a.keep_prob, a.seed);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = ((size_t)4 * TILE * (D + 4) + 2 * TILE +
-                       (size_t)TILE * P_LD) * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  static unsigned long long smem_set = 0;
-  cudaError_t err = allow_smem(kernel, smem, &smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid;
-  if (!launch_grid((a.sk + TILE - 1) / TILE, a.bh, 1, false, 0, &grid))
-    return cudaErrorInvalidValue;
-  kernel<<<grid, NUM_THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.out0),
-      static_cast<float*>(a.out1), a.sq, a.sk, a.sm_scale, a.causal,
-      a.use_dropout, a.threshold, a.keep_prob, a.seed);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // head dims above 512: the wide FMA kernels (f32 and bf16)
@@ -1664,116 +1490,152 @@ cudaError_t launch_dkv_wgmma_wide(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 dq and dk/dv at d = 192 ... 512: split-precision TF32 wgmma
+// f32 dq and dk/dv: split-precision TF32 wgmma (d = 64 ... 512)
 // ---------------------------------------------------------------------------
 // Replace the TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel (flexflow_tpu/
-// kernels/flash_attention.py:169, :210) for f32 at head dims 192 ... 512
-// (the wrapper pads 129 ... 511 up to a multiple of 64), where the wide
-// FMA kernels ran until these: the --f32-compute path's backward (NMT's
-// one head of 512, once a step; any model with heads of 192 ... 512). They
-// compute what those kernels computed, to f32 accuracy, on the tensor
-// cores.
+// kernels/flash_attention.py:169, :210) for f32 at head dims 64 ... 512
+// (the wrapper pads any f32 d up to 64, or from 129 up to a multiple of
+// 64): the --f32-compute path's backward (BERT's, GPT-2's and LLaMA's
+// heads of 64 and 128; NMT's one head of 512), where exact FMA kernels
+// ran before these. They compute what those kernels computed, to f32
+// accuracy, on the tensor cores.
 //
-// Bound at b4 h8 s512 d256: three TF32 passes of 6 * d (dq) or 8 * d
-// (dk/dv) flops per (query, key) pair, 38.7 / 51.5 GFLOP at 495 TFLOP/s
-// (78.09 / 104.12 us), against q, k, v, do, lse and delta read and the
-// outputs written once, 84.0 / 100.8 MB (25.1 / 30.1 us at 3.35 TB/s):
-// operations; at d 512 156.18 / 208.24 us; NMT's b64 h1 s128 d512 25.06 /
-// 30.07 us by the bytes.
+// Bound: three TF32 passes of 6 * d (dq) or 8 * d (dk/dv) flops per kept
+// (query, key) pair at 495 TFLOP/s. b1 h8 s512 causal (the search's
+// calibration shape, 1,050,624 kept pairs): 2.45 / 3.26 us at d 64, 4.89
+// / 6.52 us at d 128; BERT-base under --f32-compute, b8 h12 s512 d64:
+// 58.57 / 78.09 us, where its bytes take 18.9 / 22.7 us at 3.35 TB/s.
+// b4 h8 s512 d256: 78.09 / 104.12 us (its bytes 25.1 / 30.1 us); at d 512
+// 156.18 / 208.24 us; NMT's b64 h1 s128 d512 25.06 / 30.07 us by the
+// bytes. Operations everywhere else.
 //
-// Design. The FMA kernels computed every score tile once per 64-column
-// chunk of their outputs (4x at d 256, 8x at d 512), on FMA loops, with
-// synchronous tile loads. Here, as in the f32 wide forward
-// (flash_attention_fwd.cu, flash_fwd_wgmma_wide_tf32_kernel):
-//   - a CTA owns 64 rows (dq: queries; dk/dv: keys) and ALL D columns of
-//     its outputs, so each score is computed once per row block: its two
-//     warpgroups split D, each owning D / 2 output columns (a D / 4-
-//     register accumulator) and contracting its half of D for the score
-//     tiles, whose partials are summed through shared memory
-//     (exchange_store / exchange_add) so both hold the same tile;
-//   - every product is three TF32 wgmma passes of split operands (a_lo .
-//     b_hi, a_hi . b_lo, then a_hi . b_hi), f32 accumulators, nothing
-//     rounded between products but by the split. The tensor cores round
-//     each step of an accumulation chain toward zero, so no chain runs
-//     longer than one chunk (12 steps) or one tile's gradient product (3 *
-//     BN / 8): their results are summed in f32, rounding to nearest, the
-//     score partials in shared memory (partial_add), the gradients in
-//     registers. With chains over all of d and all tiles, the gradients
-//     came out 1.0-1.5e-5 of the largest low at d 256-512 (BWD_TOL is 1e-5);
-//   - nothing is resident: each warpgroup streams its half of D in
-//     32-column chunks (one TMA box, one 128-byte swizzle atom wide)
-//     through its own ring of three stages on mbarriers, two copies in
-//     flight behind every chunk's work;
-//   - the score products (dq: S = Q . K^T, dP = dO . V^T; dk/dv, in the
+// Design. Every product is three TF32 wgmma passes of split operands
+// (a_lo . b_hi, a_hi . b_lo, then a_hi . b_hi), f32 accumulators, nothing
+// rounded between products but by the split. The tensor cores round each
+// step of an accumulation chain toward zero, so no chain runs longer
+// than one 32-column chunk (12 steps) or one tile's gradient product (3 *
+// BN / 8): their results are summed in f32, rounding to nearest, the
+// score partials in shared memory (partial_add), the gradients in
+// registers. With chains over all of d and all tiles, the gradients came
+// out 1.0-1.5e-5 of the largest low at d 256-512 (BWD_TOL is 1e-5).
+//   - A CTA owns blocks of 64 rows (dq: queries; dk/dv: keys) and all D
+//     columns of its outputs, so each score is computed once per row
+//     block. How its warpgroups share them is Tf32BwdTiles's choice: at
+//     d 192 ... 512 two warpgroups split D over one 64-row block (a D /
+//     4-register accumulator each) and sum their partial score tiles
+//     through shared memory (exchange_store / exchange_add) so both hold
+//     the same tile; at d 64 and 128 each warpgroup owns 64 rows and all
+//     of D (a D / 2-register accumulator), nothing is exchanged, and the
+//     two warpgroups of a CTA share the streamed chunks.
+//   - Nothing is resident: the owned rows and the streamed tiles (64 rows:
+//     keys in dq, queries in dk/dv) come in 32-column chunks (one TMA box,
+//     one 128-byte swizzle atom wide) through rings of three stages on
+//     mbarriers, two copies in flight behind every chunk's work.
+//   - The score products (dq: S = Q . K^T, dP = dO . V^T; dk/dv, in the
 //     transposed frame: s^T = K . Q^T, dp^T = V . dO^T) take the owned
 //     rows' chunk as register A fragments split in registers
 //     (q_frags_tf32) and the streamed chunk split in place into hi with
-//     its lo beside it (split_tile_tf32);
-//   - the gradient products contract over the streamed rows (dq: dQ +=
+//     its lo beside it (split_tile_tf32).
+//   - The gradient products contract over the streamed rows (dq: dQ +=
 //     dS . K; dk/dv: dV += P_eff^T . dO, dK += dS^T . Q), which TF32
 //     wgmma, K-major only, cannot read from the chunk as it lands: the
 //     chunk is streamed once more per tile and transposed into hi and lo
 //     (split_transpose_v, rows in the order (0, 2, 4, 6, 1, 3, 5, 7)
 //     within each 8-row group), so the score accumulator becomes the A
-//     fragments in place (tf32_a_frags). The second copy costs L2 traffic
-//     (a fifth of dq's chunk bytes), not shared memory, where no room is
-//     left for the whole tile's transposes (128 KB at d 512);
-//   - dk/dv holds one accumulator at a time (both would take D / 2
-//     registers: 256 at d 512), so it sweeps its query tiles twice, dV
-//     then dK, as the bf16 wide dk/dv does: s^T computed in both, 10 * d
-//     flops per kept pair for the function's 8 * d;
-//   - streamed tiles of 64 rows (m64n64 score products); above d = 320 p
-//     waits in shared memory while dP runs, so the D / 4-register
-//     accumulator, dP's partial and the fragments fit 255 registers;
-//   - the score items' chunk loops stay rolled (only the first chunk's
+//     fragments in place (tf32_a_frags). The second copy costs L2 traffic,
+//     not shared memory, where no room is left for the whole tile's
+//     transposes (128 KB at d 512).
+//   - dk/dv sweeps its query tiles twice, dV then dK, where both
+//     accumulators would not fit (D / 2 registers each at d 512): s^T is
+//     then computed in both, 10 * d flops per kept pair for the function's
+//     8 * d. Where they fit (d 64), one sweep computes s^T once.
+//   - Above d = 320 p waits in shared memory while dP runs, so the D /
+//     4-register accumulator, dP's partial and the fragments fit 255
+//     registers.
+//   - The score items' chunk loops stay rolled (only the first chunk's
 //     store depends on the chunk), the gradient items' unrolled (each
 //     indexes its 32 accumulator columns): fully unrolled, dk/dv's code
 //     (17,384 SASS instructions at d 512, with the 32-row tiles of an
 //     earlier design) outran the instruction cache, and every phase of
-//     its dK sweep ran at about half speed;
+//     its dK sweep ran at about half speed.
 //   - lse and delta: per query row, two registers a thread in dq; in dk/dv
 //     per column of the transposed frame, so each tile's rows come by
 //     cp.async into shared memory (not 16-byte aligned in general, which
 //     TMA needs).
 // The mask, the liveness of causal tiles, the dropout bits (keep_bits,
-// keep_bits_t) and the base-2 exponential are the bf16 kernels'. One CTA
-// per SM. No atomics: a CTA owns its output rows.
+// keep_bits_t) and the base-2 exponential are the bf16 kernels'. No
+// atomics: a CTA owns its output rows.
+
+// How a CTA's two warpgroups share its rows and the D columns of its
+// outputs, and the shared memory that takes:
+//   - d 192 ... 512 (SPLIT_D): one block of 64 rows, each warpgroup owning
+//     D / 2 output columns and contracting its half of D for the score
+//     tiles; each streams its half through its own ring;
+//   - d 64 and 128: each warpgroup owns its own 64 rows and all D columns;
+//     one ring, each stage holding both warpgroups' chunks of their owned
+//     rows and one streamed chunk, which both split (and the first
+//     transposes) once for both. dk/dv sweeps once where both accumulators
+//     fit (ONE_SWEEP, d 64), else twice, dV then dK.
+// See PERF.md sec. 6 for the designs measured.
 template <int D>
 struct Tf32BwdTiles {
-  static constexpr int NWG = 2;                 // warpgroups per CTA
+  static constexpr int DIM = D;
+  static constexpr bool SPLIT_D = D > 128;
+  static constexpr int NWG = 2;  // warpgroups per CTA
   static constexpr int THREADS = NWG * WG_THREADS;
-  static constexpr int BM = WG_ROWS;  // rows a CTA owns (queries; keys)
+  // rows a CTA owns (queries; keys)
+  static constexpr int BM = SPLIT_D ? WG_ROWS : NWG * WG_ROWS;
   // rows of a streamed tile (keys in dq, queries in dk/dv): 64 at every
   // d, so the score products are m64n64 (32-row tiles above d = 320, whose
   // score products were m64n32, measured slower: PERF.md sec. 6)
   static constexpr int BN = 64;
   static constexpr int NB = BN / 8;             // 8-row blocks of a tile
   static constexpr int CW = 32;                 // columns of a chunk
-  static constexpr int HALF = D / NWG;          // columns a warpgroup owns
+  static constexpr int HALF = SPLIT_D ? D / 2 : D;  // columns a warpgroup owns
   static constexpr int CHUNKS = HALF / CW;      // its chunks of a tensor
-  static constexpr int NS = 3;                  // ring stages a warpgroup
-  static constexpr int A_BYTES = BM * CW * 4;   // a chunk of the owned rows
+  static constexpr int NS = 3;                  // stages of a ring
+  static constexpr int RINGS = SPLIT_D ? NWG : 1;
+  static constexpr int A_SLOTS = SPLIT_D ? 1 : NWG;  // owned chunks a stage
+  static constexpr int A_BYTES = WG_ROWS * CW * 4;  // a warpgroup's chunk
   static constexpr int B_BYTES = BN * CW * 4;   // a chunk of a streamed tile
-  // a stage: the owned rows' chunk, the streamed chunk, then what the
-  // warpgroup derives from the latter: its lo beside it, or its transposed
-  // lo there and its transposed hi in the owned rows' slot (a gradient
-  // item loads no owned rows)
-  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
-  // the two warpgroups' partial score tiles
-  static constexpr int X_BYTES = NWG * BM * BN * 4;
+  static constexpr int B_OFF = A_SLOTS * A_BYTES;
+  // a stage: the owned rows' chunks, the streamed chunk, then what is
+  // derived from the latter: its lo beside it, or its transposed lo there
+  // and its transposed hi in the owned rows' slots (a gradient item loads
+  // no owned rows)
+  static constexpr int STAGE_BYTES = B_OFF + 2 * B_BYTES;
+  // each warpgroup's partial (SPLIT_D: summed with the other's) score tile
+  static constexpr int X_TILE = NWG * WG_ROWS * BN * 4;
   // above d = 320 p waits in shared memory (each thread's own slots) while
   // dP runs: the D / 4-register accumulator leaves no room to hold it
   // beside dP's product (dq at d 448 and 512 spilled)
   static constexpr bool P_STASH = D > 320;
-  static constexpr int P_BYTES = P_STASH ? X_BYTES : 0;
+  static constexpr int P_BYTES = P_STASH ? X_TILE : 0;
+  // with D split, consecutive score sums alternate between two buffers
+  // where they fit, so a sum needs one CTA barrier, not two (score_sum)
+  static constexpr int X_BUFS = SPLIT_D && !P_STASH ? 2 : 1;
+  static constexpr int X_BYTES = X_BUFS * X_TILE;
   // dk/dv: lse and delta of the query tile in use and of the next one
   static constexpr int VEC_BYTES = 2 * 2 * BN * 4;
-  static constexpr size_t SMEM = SW_ATOM + (size_t)NWG * NS * STAGE_BYTES +
+  static constexpr size_t SMEM = SW_ATOM + (size_t)RINGS * NS * STAGE_BYTES +
                                  X_BYTES + P_BYTES + VEC_BYTES;
-  static_assert(D % 64 == 0 && D >= 192 && D <= 512, "d = 192 ... 512");
+  // dk/dv computes dV and dK in one sweep (both accumulators held)
+  static constexpr bool ONE_SWEEP = D <= 64;
+  static_assert(D % 64 == 0 && D >= 64 && D <= 512, "d = 64 ... 512");
   static_assert(HALF % CW == 0, "whole chunks");
-  static_assert(A_BYTES >= B_BYTES, "the transposed hi fits the owned slot");
-  static_assert(SMEM <= SMEM_LIMIT, "fits one CTA");
+  static_assert(B_OFF >= B_BYTES, "the transposed hi fits the owned slots");
+  static_assert(SMEM <= SMEM_LIMIT, "fits the SM");
+  __device__ static int row0(int wg) { return SPLIT_D ? 0 : wg * WG_ROWS; }
+  __device__ static int col0(int wg) { return SPLIT_D ? wg * HALF : 0; }
+  __device__ static int ring(int wg) { return SPLIT_D ? wg : 0; }
+  // the thread that issues a ring's copies
+  __device__ static bool issuer(int wg, int wtid) {
+    return wtid == 0 && (SPLIT_D || wg == 0);
+  }
+  // the threads of a ring wait for each other: its warpgroup, or the CTA
+  __device__ static void sync(int wg) {
+    named_barrier(1 + ring(wg), SPLIT_D ? WG_THREADS : THREADS);
+  }
 };
 
 // This thread's own slots of buf, as exchange_store wrote them.
@@ -1810,38 +1672,55 @@ __device__ __forceinline__ void partial_add(float4* buf, int wg, int wtid,
   }
 }
 
-// The score tile into s: this warpgroup's sum of its chunks' partials plus
-// the other's, from their slots of buf (a + b rounds as b + a, so both
-// hold the same tile); the second barrier keeps the next tile's partials
-// from overwriting a sum the other warpgroup still reads.
-template <int NB>
-__device__ __forceinline__ void exchange_sum(const float4* buf, int wg,
-                                             int wtid, float (&s)[NB][4]) {
-  __syncthreads();
-  exchange_load(buf, wg, wtid, s);
-  exchange_add(buf, wg, wtid, s);
-  __syncthreads();
+// The exchange buffer of the n-th score sum of a CTA (Tl::X_BUFS).
+template <typename Tl>
+__device__ __forceinline__ float4* score_buf(float4* xbuf, int n) {
+  return xbuf + (Tl::X_BUFS == 2 ? n & 1 : 0) * (Tl::X_TILE / 16);
 }
 
-// One ring item of a score product over a 32-column chunk of this
-// warpgroup's half of D: wait for the owned rows' chunk (at st) and the
-// streamed chunk (at st + A_BYTES); split the streamed chunk in place
-// into hi with its lo beside it and the owned rows' chunk into register
-// fragments; publish them to the warpgroup's wgmma (the barrier also frees
-// the previous item's stage, which `next` refills); the chunk's A . B^T in
+// The score tile into s from this thread's slots of buf: with D split,
+// this warpgroup's sum of its chunks' partials plus the other's (a + b
+// rounds as b + a, so both hold the same tile). With one buffer, a second
+// barrier keeps the next sum's partials from overwriting a sum the other
+// warpgroup still reads; with two, the next sum's barrier, which neither
+// warpgroup passes before both have read this one, guards the sum after
+// it. Without the split, this warpgroup's own sum, which no other thread
+// touches.
+template <typename Tl, int NB>
+__device__ __forceinline__ void score_sum(const float4* buf, int wg,
+                                          int wtid, float (&s)[NB][4]) {
+  if constexpr (Tl::SPLIT_D) __syncthreads();
+  exchange_load(buf, wg, wtid, s);
+  if constexpr (Tl::SPLIT_D) {
+    exchange_add(buf, wg, wtid, s);
+    if constexpr (Tl::X_BUFS == 1) __syncthreads();
+  }
+}
+
+// One ring item of a score product over a 32-column chunk: wait for the
+// owned rows' chunks and the streamed chunk (at B_OFF); split the
+// streamed chunk in place into hi with its lo beside it (the ring's
+// threads together) and this warpgroup's owned chunk into register
+// fragments; publish them to the ring's wgmma (the barrier also frees the
+// previous item's stage, which `next` refills); the chunk's A . B^T in
 // three RS passes, the two small ones first, added into this thread's
 // slots of part (partial_add; the first chunk stores).
 template <typename Tl, typename Next>
 __device__ __forceinline__ void tf32_score_item(
     float4* part, uint32_t st, uint32_t bar, uint32_t parity, bool first,
     int wg, int wtid, int warp, int g, int tig, Next&& next) {
-  const uint32_t sB = st + Tl::A_BYTES, sBlo = sB + Tl::B_BYTES;
+  const uint32_t sA = st + (Tl::SPLIT_D ? 0 : wg * Tl::A_BYTES);
+  const uint32_t sB = st + Tl::B_OFF, sBlo = sB + Tl::B_BYTES;
   mbar_wait(bar, parity);
-  split_tile_tf32<Tl::B_BYTES, WG_THREADS>(sB, sBlo, wtid);
+  if constexpr (Tl::SPLIT_D)
+    split_tile_tf32<Tl::B_BYTES, WG_THREADS>(sB, sBlo, wtid);
+  else
+    split_tile_tf32<Tl::B_BYTES, Tl::THREADS>(sB, sBlo,
+                                              wg * WG_THREADS + wtid);
   uint32_t ah[4][4], al[4][4];
-  q_frags_tf32(st, warp, g, tig, ah, al);
+  q_frags_tf32(sA, warp, g, tig, ah, al);
   fence_proxy_async();
-  named_barrier(1 + wg, WG_THREADS);
+  Tl::sync(wg);
   next();
   float t[Tl::NB][4];
   wgmma_fence();
@@ -1862,27 +1741,29 @@ __device__ __forceinline__ void tf32_score_item(
 }
 
 // One ring item of a gradient product over a 32-column chunk: wait for
-// the streamed chunk (at st + A_BYTES), transpose it into hi (at st, the
-// owned rows' slot, which this item does not load) and lo (after the
-// chunk; split_transpose_v: rows the chunk's 32 columns, the streamed rows
-// contiguous in the fragments' order), publish, refill the freed stage;
-// oc (this warpgroup's 64 x 32 block of the output) += F . chunk, three
-// RS passes into a fresh accumulator added to oc in f32 (the tensor cores'
-// chain kept to one tile, as partial_add keeps the scores'), F the hi /
-// lo fragments (fh, fl) of a 64 x BN score-shaped tile (dS, P_eff^T or
-// dS^T).
+// the streamed chunk (at B_OFF), transpose it into hi (at the stage's
+// start, the owned rows' slots, which this item does not load) and lo
+// (after the chunk; split_transpose_v: rows the chunk's 32 columns, the
+// streamed rows contiguous in the fragments' order; with D split each
+// warpgroup its own, else the first warpgroup for the ring), publish,
+// refill the freed stage; oc (this warpgroup's 64 x 32 block of the
+// output) += F . chunk, three RS passes into a fresh accumulator added to
+// oc in f32 (the tensor cores' chain kept to one tile, as partial_add
+// keeps the scores'), F the hi / lo fragments (fh, fl) of a 64 x BN
+// score-shaped tile (dS, P_eff^T or dS^T).
 template <typename Tl, typename Next>
 __device__ __forceinline__ void tf32_grad_item(
     float (&oc)[4][4], const uint32_t (&fh)[Tl::NB][4],
     const uint32_t (&fl)[Tl::NB][4], uint32_t st, uint32_t bar,
     uint32_t parity, int wg, int wtid, Next&& next) {
   constexpr int CW = Tl::CW;
-  const uint32_t sB = st + Tl::A_BYTES;
+  const uint32_t sB = st + Tl::B_OFF;
   const uint32_t t_hi = st, t_lo = sB + Tl::B_BYTES;
   mbar_wait(bar, parity);
-  split_transpose_v<CW, Tl::BN>(sB, t_hi, t_lo, wtid);
+  if (Tl::SPLIT_D || wg == 0)
+    split_transpose_v<CW, Tl::BN>(sB, t_hi, t_lo, wtid);
   fence_proxy_async();
-  named_barrier(1 + wg, WG_THREADS);
+  Tl::sync(wg);
   next();
   float t[4][4];
   wgmma_fence();
@@ -1906,31 +1787,51 @@ __device__ __forceinline__ void tf32_grad_item(
     for (int c = 0; c < 4; ++c) oc[dt][c] += t[dt][c];
 }
 
-// dq: a CTA owns 64 query rows. Per key tile, this warpgroup's ring
-// items are: C chunks of Q with K (S), C chunks of dO with V (dP), then C
-// chunks of K again (dQ += dS . K, one 32-column block of dq each).
-template <int D, bool DROPOUT>
-__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
-    flash_bwd_dq_wgmma_wide_tf32_kernel(
-        const __grid_constant__ CUtensorMap tm_q,
-        const __grid_constant__ CUtensorMap tm_do,
-        const __grid_constant__ CUtensorMap tm_k,
-        const __grid_constant__ CUtensorMap tm_v,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
-        uint32_t threshold, float keep_prob, uint32_t seed) {
-  using Tl = Tf32BwdTiles<D>;
-  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, CW = Tl::CW;
-  constexpr int C = Tl::CHUNKS, NS = Tl::NS;
+// tf32_a_frags of p_eff: p with the dropout keep mask applied (bit 4 nt
+// + c of keep for element c of block nt: p / (1 - rate) where kept, else
+// 0), p left as it is for dS.
+template <int NB, bool DROPOUT>
+__device__ __forceinline__ void tf32_a_frags_kept(const float (&s)[NB][4],
+                                                  uint32_t keep,
+                                                  float inv_keep,
+                                                  uint32_t (&hi)[NB][4],
+                                                  uint32_t (&lo)[NB][4]) {
+#pragma unroll
+  for (int kc = 0; kc < NB; ++kc) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = (j >> 1) | ((j & 1) << 1);  // 0, 2, 1, 3
+      float x = s[kc][c];
+      if (DROPOUT) x = (keep >> (4 * kc + c)) & 1u ? x * inv_keep : 0.f;
+      float h, l;
+      tf32_split(x, h, l);
+      hi[kc][j] = __float_as_uint(h);
+      lo[kc][j] = __float_as_uint(l);
+    }
+  }
+}
+
+// dq: a CTA owns BM query rows. Per key tile, each ring's items are: C
+// chunks of Q with K (S), C chunks of dO with V (dP), then C chunks of K
+// again (dQ += dS . K, one 32-column block of dq each).
+template <typename Tl, bool DROPOUT>
+__device__ __forceinline__ void tf32_dq(
+    const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
+    uint32_t threshold, float keep_prob, uint32_t seed) {
+  constexpr int D = Tl::DIM, BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  constexpr int CW = Tl::CW, C = Tl::CHUNKS, NS = Tl::NS;
   constexpr int ITEMS = 3 * C;  // ring items per key tile
   extern __shared__ unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const uint32_t s0 = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
   float4* xbuf = reinterpret_cast<float4*>(
-      smem + (s0 - base) + Tl::NWG * NS * Tl::STAGE_BYTES);
+      smem + (s0 - base) + Tl::RINGS * NS * Tl::STAGE_BYTES);
   float4* pbuf = xbuf + Tl::X_BYTES / 16;  // p while dP runs (P_STASH)
-  // per warpgroup and stage: the stage's copies landed
-  __shared__ __align__(8) uint64_t full[Tl::NWG][NS];
+  // per ring and stage: the stage's copies landed
+  __shared__ __align__(8) uint64_t full[Tl::RINGS][NS];
 
   const int tid = threadIdx.x;
   const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
@@ -1939,12 +1840,12 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
   const GridCell cell = grid_cell((sq + BM - 1) / BM);
   const int m0 = cell.block * BM;
   const int bh = cell.bh;
-  const int row_w = m0 + warp * 16;  // this warp's first query row
+  const int row_w = m0 + Tl::row0(wg) + warp * 16;  // this warp's first row
   const int qpos[2] = {row_w + g, row_w + g + 8};
   const float scale_log2 = sm_scale * LOG2E;
   const float inv_keep = 1.f / keep_prob;
-  const int col0 = wg * Tl::HALF;  // this warpgroup's columns
-  const uint32_t ring = s0 + wg * NS * Tl::STAGE_BYTES;
+  const int col0 = Tl::col0(wg);  // this warpgroup's (and ring's) columns
+  const uint32_t ring = s0 + Tl::ring(wg) * NS * Tl::STAGE_BYTES;
   // lse (in base 2) and delta of this thread's two rows, 0 past sq
   float lse2[2], dlt[2];
 #pragma unroll
@@ -1961,40 +1862,37 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
   const int n_items = n_tiles * ITEMS;
 
   auto stage = [&](int i) { return ring + (i % NS) * Tl::STAGE_BYTES; };
-  auto bar = [&](int i) { return smem_u32(&full[wg][i % NS]); };
-  const CUtensorMap* map_q = &tm_q;
-  const CUtensorMap* map_do = &tm_do;
-  const CUtensorMap* map_k = &tm_k;
-  const CUtensorMap* map_v = &tm_v;
-  // item i, issued by one thread of the warpgroup: of key tile i / ITEMS,
-  // chunk j < C of Q and of K, chunk j - C < C of dO and of V, or chunk j
-  // - 2C of K
+  auto bar = [&](int i) { return smem_u32(&full[Tl::ring(wg)][i % NS]); };
+  // item i, issued by the ring's issuer: of key tile i / ITEMS, chunk j <
+  // C of Q (every owned slot) and of K, chunk j - C < C of dO and of V, or
+  // chunk j - 2C of K
   auto load_item = [&](int i) {
-    const int t = i / ITEMS, j = i % ITEMS;
+    const int t = i / ITEMS, j = i % ITEMS, c = j % C;
     const uint32_t st = stage(i), b = bar(i);
     if (j < 2 * C) {
       const bool second = j >= C;
-      const int c = second ? j - C : j;
-      mbar_expect_tx(b, Tl::A_BYTES + Tl::B_BYTES);
-      tma_load_3d(st, second ? map_do : map_q, b, col0 + c * CW, m0, bh);
-      tma_load_3d(st + Tl::A_BYTES, second ? map_v : map_k, b,
-                  col0 + c * CW, t * BN, bh);
+      mbar_expect_tx(b, Tl::B_OFF + Tl::B_BYTES);
+#pragma unroll
+      for (int w = 0; w < Tl::A_SLOTS; ++w)
+        tma_load_3d(st + w * Tl::A_BYTES, second ? map_do : map_q, b,
+                    col0 + c * CW, m0 + w * WG_ROWS, bh);
+      tma_load_3d(st + Tl::B_OFF, second ? map_v : map_k, b, col0 + c * CW,
+                  t * BN, bh);
     } else {
       mbar_expect_tx(b, Tl::B_BYTES);
-      tma_load_3d(st + Tl::A_BYTES, map_k, b, col0 + (j - 2 * C) * CW,
-                  t * BN, bh);
+      tma_load_3d(st + Tl::B_OFF, map_k, b, col0 + c * CW, t * BN, bh);
     }
   };
 
   if (tid == 0) {
 #pragma unroll
-    for (int w = 0; w < Tl::NWG; ++w)
+    for (int w = 0; w < Tl::RINGS; ++w)
 #pragma unroll
       for (int st = 0; st < NS; ++st) mbar_init(smem_u32(&full[w][st]), 1);
     mbar_fence_init();
   }
   __syncthreads();
-  if (wtid == 0)
+  if (Tl::issuer(wg, wtid))
     for (int i = 0; i < min(NS - 1, n_items); ++i) load_item(i);
 
   float acc[Tl::HALF / 8][4];  // this warpgroup's columns of dq
@@ -2004,17 +1902,19 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
 
   int i = 0;
   auto next = [&] {  // item i + NS - 1, into the stage item i - 1 freed
-    if (wtid == 0 && i + NS - 1 < n_items) load_item(i + NS - 1);
+    if (Tl::issuer(wg, wtid) && i + NS - 1 < n_items) load_item(i + NS - 1);
   };
   for (int t = 0; t < n_tiles; ++t) {
     const int n0 = t * BN;
-    // S = Q . K^T over this warpgroup's half of D, then summed
+    // S = Q . K^T, chunk by chunk, then summed (two sums a tile: S in
+    // the first exchange buffer, dP in the second)
     float s[NB][4], dp[NB][4];
+    float4* xs = score_buf<Tl>(xbuf, 0);
 #pragma unroll 1
     for (int j = 0; j < C; ++j, ++i)
-      tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
+      tf32_score_item<Tl>(xs, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
                           wtid, warp, g, tig, next);
-    exchange_sum(xbuf, wg, wtid, s);
+    score_sum<Tl>(xs, wg, wtid, s);
 
     // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked
     const bool edge = n0 + BN > sk || (causal && n0 + BN - 1 > row_w);
@@ -2034,11 +1934,12 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
 
     // dP = dO . V^T, the same way
     if (Tl::P_STASH) exchange_store(pbuf, wg, wtid, s);
+    float4* xdp = score_buf<Tl>(xbuf, 1);
 #pragma unroll 1
     for (int j = 0; j < C; ++j, ++i)
-      tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
+      tf32_score_item<Tl>(xdp, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
                           wtid, warp, g, tig, next);
-    exchange_sum(xbuf, wg, wtid, dp);
+    score_sum<Tl>(xdp, wg, wtid, dp);
     if (Tl::P_STASH) exchange_load(pbuf, wg, wtid, s);
     // ds = p * (dp_eff - delta) * sm_scale
     const uint32_t keep =
@@ -2079,36 +1980,36 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
   }
 }
 
-// dk/dv: a CTA owns 64 keys and sweeps its live query tiles twice. Per
-// query tile, this warpgroup's ring items are, in sweep 1 (dV): C chunks
-// of K with Q (s^T), then C chunks of dO (dV += P_eff^T . dO); in sweep 2
-// (dK): C chunks of K with Q (s^T), C chunks of V with dO (dp^T), then C
-// chunks of Q (dK += dS^T . Q). The ring runs on from one sweep into the
-// next.
-template <int D, bool DROPOUT>
-__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
-    flash_bwd_dkv_wgmma_wide_tf32_kernel(
-        const __grid_constant__ CUtensorMap tm_q,
-        const __grid_constant__ CUtensorMap tm_do,
-        const __grid_constant__ CUtensorMap tm_k,
-        const __grid_constant__ CUtensorMap tm_v,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-        float sm_scale, int causal, uint32_t threshold, float keep_prob,
-        uint32_t seed) {
-  using Tl = Tf32BwdTiles<D>;
-  constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, CW = Tl::CW;
-  constexpr int C = Tl::CHUNKS, NS = Tl::NS;
-  constexpr int ITEMS1 = 2 * C, ITEMS2 = 3 * C;  // per tile of each sweep
+// dk/dv: a CTA owns BM keys. Per query tile, each ring's items are, in
+// one sweep for both outputs (Tl::ONE_SWEEP): C chunks of K with Q (s^T),
+// C chunks of V with dO (dp^T), C chunks of dO (dV += P_eff^T . dO), then
+// C chunks of Q (dK += dS^T . Q); else, in the dV sweep, C chunks of K
+// with Q (s^T), then C chunks of dO, and in the dK sweep C chunks of K
+// with Q, C chunks of V with dO, then C chunks of Q, the ring running on
+// from one sweep into the next. Two sweeps compute s^T twice: 10 * d
+// flops per kept pair for the function's 8 * d.
+template <typename Tl, bool DROPOUT>
+__device__ __forceinline__ void tf32_dkv(
+    const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+    float sm_scale, int causal, uint32_t threshold, float keep_prob,
+    uint32_t seed) {
+  constexpr int D = Tl::DIM, BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
+  constexpr int CW = Tl::CW, C = Tl::CHUNKS, NS = Tl::NS;
+  constexpr bool ONE_SWEEP = Tl::ONE_SWEEP;
+  // ring items per query tile: of the one sweep, of the dV sweep, of dK's
+  constexpr int ITEMS_ONE = 4 * C, ITEMS1 = 2 * C, ITEMS2 = 3 * C;
   extern __shared__ unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const uint32_t s0 = (base + SW_ATOM - 1) & ~(uint32_t)(SW_ATOM - 1);
-  const uint32_t sX = s0 + Tl::NWG * NS * Tl::STAGE_BYTES;
+  const uint32_t sX = s0 + Tl::RINGS * NS * Tl::STAGE_BYTES;
   float4* xbuf = reinterpret_cast<float4*>(smem + (sX - base));
   float4* pbuf = xbuf + Tl::X_BYTES / 16;  // p while dp^T runs (P_STASH)
   // by tile parity: lse, then delta
   const uint32_t sVec = sX + Tl::X_BYTES + Tl::P_BYTES;
-  __shared__ __align__(8) uint64_t full[Tl::NWG][NS];
+  __shared__ __align__(8) uint64_t full[Tl::RINGS][NS];
 
   const int tid = threadIdx.x;
   const int wg = tid / WG_THREADS, wtid = tid % WG_THREADS;
@@ -2117,107 +2018,124 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
   const GridCell cell = grid_cell((sk + BM - 1) / BM);
   const int n0 = cell.block * BM;
   const int bh = cell.bh;
-  const int key_w = n0 + warp * 16;  // this warp's first key
+  const int key_w = n0 + Tl::row0(wg) + warp * 16;  // this warp's first key
   const int kpos[2] = {key_w + g, key_w + g + 8};
   const float scale_log2 = sm_scale * LOG2E;
   const float inv_keep = 1.f / keep_prob;
-  const int col0 = wg * Tl::HALF;  // this warpgroup's columns
-  const uint32_t ring = s0 + wg * NS * Tl::STAGE_BYTES;
+  const int col0 = Tl::col0(wg);  // this warpgroup's (and ring's) columns
+  const uint32_t ring = s0 + Tl::ring(wg) * NS * Tl::STAGE_BYTES;
   const float* lb = lse + (size_t)bh * sq;
   const float* deb = delta + (size_t)bh * sq;
 
   const int n_tiles = (sq + BN - 1) / BN;
-  // causal: a q tile is live iff its last query can see the first key
+  // causal: a q tile is live iff its last query can see the CTA's first
+  // key
   const int first = causal ? n0 / BN : 0;
   const int count = max(n_tiles - first, 0);
-  const int n_items = count * (ITEMS1 + ITEMS2);
+  const int n_items = count * (ONE_SWEEP ? ITEMS_ONE : ITEMS1 + ITEMS2);
 
   auto stage = [&](int i) { return ring + (i % NS) * Tl::STAGE_BYTES; };
-  auto bar = [&](int i) { return smem_u32(&full[wg][i % NS]); };
-  const CUtensorMap* map_q = &tm_q;
-  const CUtensorMap* map_do = &tm_do;
-  const CUtensorMap* map_k = &tm_k;
-  const CUtensorMap* map_v = &tm_v;
-  // item i, issued by one thread of the warpgroup: the sweep, the query
-  // tile and the item within it, as listed above
+  auto bar = [&](int i) { return smem_u32(&full[Tl::ring(wg)][i % NS]); };
+  // item i, issued by the ring's issuer: the sweep, the query tile and the
+  // item within it, as listed above
   auto load_item = [&](int i) {
-    const bool sweep2 = i >= count * ITEMS1;
-    const int i2 = sweep2 ? i - count * ITEMS1 : i;
-    const int per = sweep2 ? ITEMS2 : ITEMS1;
-    const int t = i2 / per, j = i2 % per;
-    const int m0 = (first + t) * BN;
+    bool sweep2 = true;  // the one sweep has dp^T and dK's items
+    int t, j;
+    if (ONE_SWEEP) {
+      t = i / ITEMS_ONE;
+      j = i % ITEMS_ONE;
+    } else {
+      sweep2 = i >= count * ITEMS1;
+      const int i2 = sweep2 ? i - count * ITEMS1 : i;
+      const int per = sweep2 ? ITEMS2 : ITEMS1;
+      t = i2 / per;
+      j = i2 % per;
+    }
+    const int m0 = (first + t) * BN, c = j % C;
     const uint32_t st = stage(i), b = bar(i);
     if (j < C || (sweep2 && j < 2 * C)) {  // K with Q, or V with dO
       const bool second = j >= C;
-      const int c = second ? j - C : j;
-      mbar_expect_tx(b, Tl::A_BYTES + Tl::B_BYTES);
-      tma_load_3d(st, second ? map_v : map_k, b, col0 + c * CW, n0, bh);
-      tma_load_3d(st + Tl::A_BYTES, second ? map_do : map_q, b,
-                  col0 + c * CW, m0, bh);
-    } else {  // dO (sweep 1) or Q (sweep 2), to be transposed
-      const int c = j - (sweep2 ? 2 * C : C);
+      mbar_expect_tx(b, Tl::B_OFF + Tl::B_BYTES);
+#pragma unroll
+      for (int w = 0; w < Tl::A_SLOTS; ++w)
+        tma_load_3d(st + w * Tl::A_BYTES, second ? map_v : map_k, b,
+                    col0 + c * CW, n0 + w * WG_ROWS, bh);
+      tma_load_3d(st + Tl::B_OFF, second ? map_do : map_q, b, col0 + c * CW,
+                  m0, bh);
+    } else {  // dO (dV's items) or Q (dK's), to be transposed
+      const bool q_item = ONE_SWEEP ? j >= 3 * C : sweep2;
       mbar_expect_tx(b, Tl::B_BYTES);
-      tma_load_3d(st + Tl::A_BYTES, sweep2 ? map_q : map_do, b,
-                  col0 + c * CW, m0, bh);
+      tma_load_3d(st + Tl::B_OFF, q_item ? map_q : map_do, b, col0 + c * CW,
+                  m0, bh);
     }
   };
 
   if (tid == 0) {
 #pragma unroll
-    for (int w = 0; w < Tl::NWG; ++w)
+    for (int w = 0; w < Tl::RINGS; ++w)
 #pragma unroll
       for (int st = 0; st < NS; ++st) mbar_init(smem_u32(&full[w][st]), 1);
     mbar_fence_init();
   }
   __syncthreads();
-  if (wtid == 0)
+  if (Tl::issuer(wg, wtid))
     for (int i = 0; i < min(NS - 1, n_items); ++i) load_item(i);
 
   int i = 0;
   auto next = [&] {  // item i + NS - 1, into the stage item i - 1 freed
-    if (wtid == 0 && i + NS - 1 < n_items) load_item(i + NS - 1);
+    if (Tl::issuer(wg, wtid) && i + NS - 1 < n_items) load_item(i + NS - 1);
   };
-  float acc[Tl::HALF / 8][4];  // this warpgroup's columns of dv, then dk
-  // one sweep over the live query tiles, DK (dk_sweep's value) compiled in:
-  // false takes dV, true dK
-  auto sweep = [&](auto dk_sweep) {
-    constexpr bool DK = decltype(dk_sweep)::value;
+  int sums = 0;  // score sums so far (score_buf)
+  // this warpgroup's columns of dv and of dk (two sweeps: one at a time,
+  // in the same registers)
+  float acc[ONE_SWEEP ? 2 : 1][Tl::HALF / 8][4];
+  float(&accv)[Tl::HALF / 8][4] = acc[0];
+  float(&acck)[Tl::HALF / 8][4] = acc[ONE_SWEEP ? 1 : 0];
+  // a sweep over the live query tiles, its kind (mode's value) compiled
+  // in: 0 takes dV, 1 dK, 2 both
+  auto sweep = [&](auto mode) {
+    constexpr int M = decltype(mode)::value;
+    constexpr bool DV = M != 1, DK = M != 0;
 #pragma unroll
-    for (int dt = 0; dt < Tl::HALF / 8; ++dt)
-      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    for (int dt = 0; dt < Tl::HALF / 8; ++dt) {
+      if (DV) accv[dt][0] = accv[dt][1] = accv[dt][2] = accv[dt][3] = 0.f;
+      if (DK) acck[dt][0] = acck[dt][1] = acck[dt][2] = acck[dt][3] = 0.f;
+    }
 
     for (int t = 0; t < count; ++t) {
-      const int it = (DK ? count : 0) + t;
+      const int it = (M == 1 ? count : 0) + t;
       const int m0 = (first + t) * BN;
       // the tile's lse and delta rows, in flight while s^T runs (the
       // buffer of this tile's parity was last read two tiles ago, before
-      // the previous tile's exchange)
+      // a barrier that every thread of the CTA has passed since)
       const uint32_t vec = sVec + (it & 1) * 2 * BN * 4;
       load_vec_f32(vec, lb, m0, sq, BN, tid);
       load_vec_f32(vec + BN * 4, deb, m0, sq, BN, tid - BN);
       cp_async_commit();
 
-      // s^T = K . Q^T over this warpgroup's half of D, then summed (the
-      // exchange's first barrier also publishes lse and delta)
+      // s^T = K . Q^T, chunk by chunk, then summed (a barrier of the CTA
+      // publishes lse and delta: the exchange's first, or the ring's)
       float s[NB][4], dp[NB][4];
+      float4* xs = score_buf<Tl>(xbuf, sums++);
 #pragma unroll 1
       for (int j = 0; j < C; ++j, ++i)
-        tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0,
-                            wg, wtid, warp, g, tig, next);
+        tf32_score_item<Tl>(xs, stage(i), bar(i), (i / NS) & 1, j == 0, wg,
+                            wtid, warp, g, tig, next);
       cp_async_wait<0>();
-      exchange_sum(xbuf, wg, wtid, s);
+      if constexpr (!Tl::SPLIT_D) Tl::sync(wg);
+      score_sum<Tl>(xs, wg, wtid, s);
       const float* sLse = reinterpret_cast<const float*>(smem + (vec - base));
       const float* sDelta = sLse + BN;
 
       // p = 2^(s * sm_scale * log2(e) - lse * log2(e)), 0 where masked, in
       // the transposed frame (fragment rows keys, columns queries); the dV
-      // sweep keeps p_eff, the dK sweep p
+      // sweep keeps p_eff, the others p
       const bool edge = m0 + BN > sq || key_w + 16 > sk ||
                         (causal && key_w + 15 > m0);
-      // the dropout keep mask, hashed where it is used (dK: after dp^T, so
-      // it holds no register while the products run)
+      // the dropout keep mask, hashed where it is used (with dK: after
+      // dp^T, so it holds no register while the products run)
       uint32_t keep =
-          DROPOUT && !DK
+          DROPOUT && M == 0
               ? keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold)
               : 0u;
 #pragma unroll
@@ -2233,23 +2151,28 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
           if (edge &&
               !(qp < sq && kpos[r] < sk && (!causal || kpos[r] <= qp)))
             p = 0.f;
-          if (DROPOUT && !DK)
+          if (DROPOUT && M == 0)
             p = (keep >> (4 * nt + c)) & 1u ? p * inv_keep : 0.f;
           s[nt][c] = p;
         }
       }
+      uint32_t fh[NB][4], fl[NB][4];
       if constexpr (DK) {
-        // dp^T = V . dO^T, the same way; ds = p * (dp_eff - delta) *
-        // sm_scale, into s
+        // dp^T = V . dO^T, the same way
         if (Tl::P_STASH) exchange_store(pbuf, wg, wtid, s);
+        float4* xdp = score_buf<Tl>(xbuf, sums++);
 #pragma unroll 1
         for (int j = 0; j < C; ++j, ++i)
-          tf32_score_item<Tl>(xbuf, stage(i), bar(i), (i / NS) & 1, j == 0,
+          tf32_score_item<Tl>(xdp, stage(i), bar(i), (i / NS) & 1, j == 0,
                               wg, wtid, warp, g, tig, next);
-        exchange_sum(xbuf, wg, wtid, dp);
+        score_sum<Tl>(xdp, wg, wtid, dp);
         if (Tl::P_STASH) exchange_load(pbuf, wg, wtid, s);
         if (DROPOUT)
           keep = keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold);
+        // with dV: P_eff's fragments, before ds takes p's registers
+        if constexpr (DV)
+          tf32_a_frags_kept<NB, DROPOUT>(s, keep, inv_keep, fh, fl);
+        // ds = p * (dp_eff - delta) * sm_scale, into s
 #pragma unroll
         for (int nt = 0; nt < NB; ++nt) {
           const float2 del2 =
@@ -2263,16 +2186,27 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
                 s[nt][c] * (dpv - ((c & 1) ? del2.y : del2.x)) * sm_scale;
           }
         }
+        if constexpr (DV) {
+          // dV[:, own columns] += P_eff^T . dO, chunk by chunk
+#pragma unroll
+          for (int j = 0; j < C; ++j, ++i) {
+            float(&oc)[4][4] =
+                *reinterpret_cast<float(*)[4][4]>(&accv[4 * j][0]);
+            tf32_grad_item<Tl>(oc, fh, fl, stage(i), bar(i), (i / NS) & 1,
+                               wg, wtid, next);
+          }
+          fence_regs_u32(fh);
+          fence_regs_u32(fl);
+        }
       }
 
-      // dV[:, own columns] += P_eff^T . dO, or dK[:, own columns] += dS^T
-      // . Q, chunk by chunk
-      uint32_t fh[NB][4], fl[NB][4];
+      // dV[:, own columns] += P_eff^T . dO (the dV sweep), or dK[:, own
+      // columns] += dS^T . Q, chunk by chunk
       tf32_a_frags(s, fh, fl);
 #pragma unroll
       for (int j = 0; j < C; ++j, ++i) {
-        float(&oc)[4][4] =
-            *reinterpret_cast<float(*)[4][4]>(&acc[4 * j][0]);
+        float(&oc)[4][4] = *reinterpret_cast<float(*)[4][4]>(
+            DK ? &acck[4 * j][0] : &accv[4 * j][0]);
         tf32_grad_item<Tl>(oc, fh, fl, stage(i), bar(i), (i / NS) & 1, wg,
                            wtid, next);
       }
@@ -2280,47 +2214,143 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
       fence_regs_u32(fl);
     }
 
-    // this sweep's output: this thread's two keys, its warpgroup's columns
-    float* out = DK ? dk : dv;
+    // this sweep's outputs: this thread's two keys, its warpgroup's
+    // columns
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (kpos[r] >= sk) continue;
-      float* row = out + ((size_t)bh * sk + kpos[r]) * D + col0 + 2 * tig;
+      const size_t off = ((size_t)bh * sk + kpos[r]) * D + col0 + 2 * tig;
 #pragma unroll
-      for (int dt = 0; dt < Tl::HALF / 8; ++dt)
-        *reinterpret_cast<float2*>(row + 8 * dt) =
-            make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+      for (int dt = 0; dt < Tl::HALF / 8; ++dt) {
+        if (DV)
+          *reinterpret_cast<float2*>(dv + off + 8 * dt) =
+              make_float2(accv[dt][2 * r], accv[dt][2 * r + 1]);
+        if (DK)
+          *reinterpret_cast<float2*>(dk + off + 8 * dt) =
+              make_float2(acck[dt][2 * r], acck[dt][2 * r + 1]);
+      }
     }
   };
-  sweep(std::false_type());  // dV
-  sweep(std::true_type());   // dK
+  if constexpr (ONE_SWEEP) {
+    sweep(std::integral_constant<int, 2>());  // dV and dK
+  } else {
+    sweep(std::integral_constant<int, 0>());  // dV
+    sweep(std::integral_constant<int, 1>());  // dK
+  }
+}
+
+// The kernels, laid out by Tf32BwdTiles: at d 192 ... 512 D split between
+// two warpgroups over 64 rows; at d 64 and 128 two warpgroups of 64 rows
+// each.
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
+    flash_bwd_dq_wgmma_wide_tf32_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
+        uint32_t threshold, float keep_prob, uint32_t seed) {
+  tf32_dq<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta,
+                                    dq, sq, sk, sm_scale, causal, threshold,
+                                    keep_prob, seed);
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
+    flash_bwd_dkv_wgmma_wide_tf32_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+        float sm_scale, int causal, uint32_t threshold, float keep_prob,
+        uint32_t seed) {
+  tf32_dkv<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse,
+                                     delta, dk, dv, sq, sk, sm_scale, causal,
+                                     threshold, keep_prob, seed);
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
+    flash_bwd_dq_wgmma_tf32_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
+        uint32_t threshold, float keep_prob, uint32_t seed) {
+  tf32_dq<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta,
+                                    dq, sq, sk, sm_scale, causal, threshold,
+                                    keep_prob, seed);
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
+    flash_bwd_dkv_wgmma_tf32_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+        float sm_scale, int causal, uint32_t threshold, float keep_prob,
+        uint32_t seed) {
+  tf32_dkv<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse,
+                                     delta, dk, dv, sq, sk, sm_scale, causal,
+                                     threshold, keep_prob, seed);
+}
+
+// Launch one of the kernels above, laid out by Tl: the tensor maps (the
+// owned rows' boxes a warpgroup's 64 rows, the streamed ones BN), the
+// grid over the row blocks of every b*h; causal dq's heaviest blocks
+// first where its heads' K/V fit L2; causal dk/dv's heaviest are its
+// first anyway.
+template <typename Tl, bool DKV, typename Kernel>
+cudaError_t launch_tf32_bwd(Kernel kernel, const Args& a,
+                            unsigned long long* smem_set) {
+  constexpr int D = Tl::DIM;
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int q_rows = DKV ? Tl::BN : WG_ROWS, k_rows = DKV ? WG_ROWS : Tl::BN;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if ((err = tensor_map_f32(&tm_q, a.q, a.bh, a.sq, D, q_rows)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_do, a.dout, a.bh, a.sq, D, q_rows)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_k, a.k, a.bh, a.sk, D, k_rows)) !=
+          cudaSuccess ||
+      (err = tensor_map_f32(&tm_v, a.v, a.bh, a.sk, D, k_rows)) !=
+          cudaSuccess)
+    return err;
+  dim3 grid;
+  const bool ok =
+      DKV ? launch_grid((a.sk + Tl::BM - 1) / Tl::BM, a.bh, 1, false, 0,
+                        &grid)
+          : launch_grid((a.sq + Tl::BM - 1) / Tl::BM, a.bh, 1, a.causal,
+                        2LL * a.sk * D * sizeof(float), &grid);
+  if (!ok) return cudaErrorInvalidValue;
+  if constexpr (DKV)
+    kernel<<<grid, Tl::THREADS, Tl::SMEM, a.stream>>>(
+        tm_q, tm_do, tm_k, tm_v, a.lse, a.delta,
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.sq, a.sk,
+        a.sm_scale, a.causal, a.threshold, a.keep_prob, a.seed);
+  else
+    kernel<<<grid, Tl::THREADS, Tl::SMEM, a.stream>>>(
+        tm_q, tm_do, tm_k, tm_v, a.lse, a.delta,
+        static_cast<float*>(a.out0), a.sq, a.sk, a.sm_scale, a.causal,
+        a.threshold, a.keep_prob, a.seed);
+  return cudaGetLastError();
 }
 
 template <int D, bool DROPOUT>
 cudaError_t launch_dq_tf32_wide_t(const Args& a) {
-  using Tl = Tf32BwdTiles<D>;
   auto kernel = flash_bwd_dq_wgmma_wide_tf32_kernel<D, DROPOUT>;
   static unsigned long long smem_set = 0;  // per instantiation and device
-  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
-  if (err != cudaSuccess) return err;
-  CUtensorMap tm_q, tm_do, tm_k, tm_v;
-  if ((err = tensor_map_f32(&tm_q, a.q, a.bh, a.sq, D, Tl::BM)) !=
-          cudaSuccess ||
-      (err = tensor_map_f32(&tm_do, a.dout, a.bh, a.sq, D, Tl::BM)) !=
-          cudaSuccess ||
-      (err = tensor_map_f32(&tm_k, a.k, a.bh, a.sk, D, Tl::BN)) !=
-          cudaSuccess ||
-      (err = tensor_map_f32(&tm_v, a.v, a.bh, a.sk, D, Tl::BN)) !=
-          cudaSuccess)
-    return err;
-  dim3 grid;
-  if (!launch_grid((a.sq + Tl::BM - 1) / Tl::BM, a.bh, 1, a.causal,
-                   2LL * a.sk * D * sizeof(float), &grid))
-    return cudaErrorInvalidValue;
-  kernel<<<grid, Tl::THREADS, Tl::SMEM, a.stream>>>(
-      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta, static_cast<float*>(a.out0),
-      a.sq, a.sk, a.sm_scale, a.causal, a.threshold, a.keep_prob, a.seed);
-  return cudaGetLastError();
+  return launch_tf32_bwd<Tf32BwdTiles<D>, false>(kernel, a, &smem_set);
 }
 
 template <int D>
@@ -2331,29 +2361,9 @@ cudaError_t launch_dq_tf32_wide(const Args& a) {
 
 template <int D, bool DROPOUT>
 cudaError_t launch_dkv_tf32_wide_t(const Args& a) {
-  using Tl = Tf32BwdTiles<D>;
   auto kernel = flash_bwd_dkv_wgmma_wide_tf32_kernel<D, DROPOUT>;
   static unsigned long long smem_set = 0;  // per instantiation and device
-  cudaError_t err = allow_smem(kernel, Tl::SMEM, &smem_set);
-  if (err != cudaSuccess) return err;
-  CUtensorMap tm_q, tm_do, tm_k, tm_v;
-  if ((err = tensor_map_f32(&tm_q, a.q, a.bh, a.sq, D, Tl::BN)) !=
-          cudaSuccess ||
-      (err = tensor_map_f32(&tm_do, a.dout, a.bh, a.sq, D, Tl::BN)) !=
-          cudaSuccess ||
-      (err = tensor_map_f32(&tm_k, a.k, a.bh, a.sk, D, Tl::BM)) !=
-          cudaSuccess ||
-      (err = tensor_map_f32(&tm_v, a.v, a.bh, a.sk, D, Tl::BM)) !=
-          cudaSuccess)
-    return err;
-  dim3 grid;  // causal dk/dv's heaviest key blocks are its first
-  if (!launch_grid((a.sk + Tl::BM - 1) / Tl::BM, a.bh, 1, false, 0, &grid))
-    return cudaErrorInvalidValue;
-  kernel<<<grid, Tl::THREADS, Tl::SMEM, a.stream>>>(
-      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta, static_cast<float*>(a.out0),
-      static_cast<float*>(a.out1), a.sq, a.sk, a.sm_scale, a.causal,
-      a.threshold, a.keep_prob, a.seed);
-  return cudaGetLastError();
+  return launch_tf32_bwd<Tf32BwdTiles<D>, true>(kernel, a, &smem_set);
 }
 
 template <int D>
@@ -2362,6 +2372,31 @@ cudaError_t launch_dkv_tf32_wide(const Args& a) {
                        : launch_dkv_tf32_wide_t<D, false>(a);
 }
 
+template <int D, bool DROPOUT>
+cudaError_t launch_dq_tf32_t(const Args& a) {
+  auto kernel = flash_bwd_dq_wgmma_tf32_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  return launch_tf32_bwd<Tf32BwdTiles<D>, false>(kernel, a, &smem_set);
+}
+
+template <int D>
+cudaError_t launch_dq_tf32(const Args& a) {
+  return a.use_dropout ? launch_dq_tf32_t<D, true>(a)
+                       : launch_dq_tf32_t<D, false>(a);
+}
+
+template <int D, bool DROPOUT>
+cudaError_t launch_dkv_tf32_t(const Args& a) {
+  auto kernel = flash_bwd_dkv_wgmma_tf32_kernel<D, DROPOUT>;
+  static unsigned long long smem_set = 0;  // per instantiation and device
+  return launch_tf32_bwd<Tf32BwdTiles<D>, true>(kernel, a, &smem_set);
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32(const Args& a) {
+  return a.use_dropout ? launch_dkv_tf32_t<D, true>(a)
+                       : launch_dkv_tf32_t<D, false>(a);
+}
 
 // ---------------------------------------------------------------------------
 // bf16 at d <= 32: the narrow dq and dk/dv kernels
@@ -2892,11 +2927,11 @@ cudaError_t launch_dkv_narrow(const Args& a, int d) {
 int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || head_dim <= 0)
     return (int)cudaErrorInvalidValue;
-  // bf16 runs the wgmma kernels, f32 up to d = 128 the exact FMA kernels;
-  // bf16 at d = 8, 16, 24 and 32 the narrow wgmma kernels (d unpadded);
-  // d = 192 ... 512 the wide wgmma kernels (d compiled in; f32 in three
-  // TF32 passes); above 512 either type the wide FMA kernels (d a runtime
-  // argument)
+  // bf16 runs the wgmma kernels, f32 the split-precision TF32 wgmma
+  // kernels (three passes a product, d compiled in); bf16 at d = 8, 16, 24
+  // and 32 the narrow wgmma kernels (d unpadded); d = 192 ... 512 the wide
+  // wgmma kernels (d compiled in); above 512 either type the wide FMA
+  // kernels (d a runtime argument)
   using bf16 = __nv_bfloat16;
 #define FF_LAUNCH_NARROW(DP)                                       \
   return (int)(dkv ? launch_dkv_narrow<DP>(a, head_dim)            \
@@ -2925,6 +2960,8 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
       default: break;
     }
   if (!dkv && dtype == 0) switch (head_dim) {
+      case 64: return (int)launch_dq_tf32<64>(a);
+      case 128: return (int)launch_dq_tf32<128>(a);
       case 192: return (int)launch_dq_tf32_wide<192>(a);
       case 256: return (int)launch_dq_tf32_wide<256>(a);
       case 320: return (int)launch_dq_tf32_wide<320>(a);
@@ -2934,6 +2971,8 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
       default: break;
     }
   if (dkv && dtype == 0) switch (head_dim) {
+      case 64: return (int)launch_dkv_tf32<64>(a);
+      case 128: return (int)launch_dkv_tf32<128>(a);
       case 192: return (int)launch_dkv_tf32_wide<192>(a);
       case 256: return (int)launch_dkv_tf32_wide<256>(a);
       case 320: return (int)launch_dkv_tf32_wide<320>(a);
@@ -2952,14 +2991,10 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
   if (!dkv) {
     if (dtype == 1 && head_dim == 64) return (int)launch_dq_wgmma<64>(a);
     if (dtype == 1 && head_dim == 128) return (int)launch_dq_wgmma<128>(a);
-    if (dtype == 0 && head_dim == 64) return (int)launch_dq<64>(a);
-    if (dtype == 0 && head_dim == 128) return (int)launch_dq<128>(a);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1 && head_dim == 64) return (int)launch_dkv_wgmma<64>(a);
   if (dtype == 1 && head_dim == 128) return (int)launch_dkv_wgmma<128>(a);
-  if (dtype == 0 && head_dim == 64) return (int)launch_dkv<64>(a);
-  if (dtype == 0 && head_dim == 128) return (int)launch_dkv<128>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,17 +1,16 @@
 // Device helpers shared by the flash-attention kernels for Hopper
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): the dropout keep hash
 // and its per-fragment bitmask, the bf16 pair store, the 1-D grid of every
-// kernel, the building blocks of the exact f32 FMA kernels (dq and dk/dv
-// at d <= 128), and those of the wide kernels (head dims above 128), which
-// stage either type as f32.
+// kernel, and the building blocks of the wide FMA kernels (either type
+// above d = 512), which stage either type as f32.
 //
-// The f32 FMA kernels work on 64-row tiles with four warps, each warp
-// owning 16 rows of the tile's "A" side (query rows in dq, key rows in
-// dk/dv). Tiles are staged in shared memory with a row stride of D + 4
-// floats, so consecutive rows start in different banks, and every product
-// runs as FMA loops in f32. The tensor-core kernels (bf16, and the f32
-// forward at d = 64 and 128 in split-precision TF32) are built from
-// hopper_common.cuh instead.
+// The FMA kernels work on 64-row tiles with four warps, each warp owning
+// 16 rows of the tile's "A" side (query rows in dq, key rows in dk/dv).
+// Tiles are staged in shared memory with a row stride of 64 + 4 floats,
+// so consecutive rows start in different banks, and every product runs
+// as FMA loops in f32. The tensor-core kernels (bf16, and f32 up to d =
+// 512 in split-precision TF32) are built from hopper_common.cuh
+// instead.
 
 #pragma once
 
@@ -96,24 +95,6 @@ __device__ __forceinline__ uint32_t keep_bits_t(int m0, const int (&kpos)[2],
   return bits;
 }
 
-// Stage rows [row0, row0 + 64) of a (rows, D) f32 matrix into shared
-// memory with row stride D + 4, in 16-byte chunks; rows past n_rows are
-// zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int n_rows) {
-  constexpr int CHUNKS = D / 4;
-  constexpr int LD = D + 4;
-  for (int i = threadIdx.x; i < TILE * CHUNKS; i += NUM_THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const int gr = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < n_rows)
-      val = *reinterpret_cast<const float4*>(src + (size_t)gr * D + c * 4);
-    *reinterpret_cast<float4*>(dst + r * LD + c * 4) = val;
-  }
-}
-
 // s[nt][c] += a_row . b_row for this warp's 16 rows of sA and the 64 rows
 // of sB (s = A . B^T), in the mma C-fragment layout: c = 0,1 -> row g,
 // cols nt*8 + 2*tig + {0,1}; c = 2,3 -> row g + 8.
@@ -182,25 +163,6 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-// Write this warp's 16 rows of a C-fragment accumulator (rows row0 + warp
-// * 16 + {g, g + 8}) to a (n_rows, D) f32 matrix, skipping rows past
-// n_rows.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst,
-                                           const float (&acc)[D / 8][4],
-                                           int row0, int n_rows, int warp,
-                                           int g, int tig) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + g + 8 * r;
-    if (row >= n_rows) continue;
-    float* out = dst + (size_t)row * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      store2(out + dt * 8 + tig * 2, acc[dt][2 * r], acc[dt][2 * r + 1]);
-  }
 }
 
 // ---------------------------------------------------------------------------

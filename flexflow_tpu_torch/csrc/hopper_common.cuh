@@ -1,7 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels on the
 // tensor cores: the bf16 forward in flash_attention_fwd.cu, dq and dk/dv
-// in flash_attention_bwd.cu, the f32 forward, and the f32 wide dq and
-// dk/dv:
+// in flash_attention_bwd.cu, the f32 forward, and the f32 dq and dk/dv:
 //
 //   - two ways to fill a ring of shared-memory stages, so one stage's copy
 //     is in flight while the previous stage's products run: cp.async
@@ -63,8 +62,9 @@
 // The wide bf16 forward, dq and dk/dv (d 192 ... 512) run two warpgroups
 // per CTA; above d = 320 they split D between them (WideSplit) and sum
 // their partial score tiles through shared memory (exchange_store /
-// exchange_add). The wide f32 kernels split D at every head dim and
-// stream every operand by TMA in 32-column chunks.
+// exchange_add). The f32 dq and dk/dv stream every operand by TMA in
+// 32-column chunks; the wide ones split D at every head dim, those at d =
+// 64 and 128 give each warpgroup 64 rows and all of D.
 
 #pragma once
 
@@ -810,7 +810,7 @@ __device__ __forceinline__ void tf32_a_frags(const float (&s)[NB][4],
 }
 
 // The transposed TF32 B operand of a product that contracts over a
-// streamed tile's rows (the f32 forward's P . V, the f32 wide dq's dS . K,
+// streamed tile's rows (the f32 forward's P . V, the f32 dq's dS . K,
 // dk/dv's P^T . dO and dS^T . Q): hi and lo of a BN x D f32 tile at sv
 // (BN rows, keys or queries, 128-byte swizzled as TMA lands it) into the
 // D x BN tiles vt_hi and vt_lo (rows the D columns, the BN rows
@@ -869,7 +869,7 @@ __device__ __forceinline__ void split_transpose_v(uint32_t sv, uint32_t vt_hi,
 
 // This thread's TF32 A fragments, hi and lo, of a warpgroup's 64 x 32
 // f32 chunk at sq (128-byte swizzled as TMA lands it; the f32 wide
-// forward's Q, the f32 wide dq's Q and dO, dk/dv's K and V): slice kk
+// forward's Q, the f32 dq's Q and dO, dk/dv's K and V): slice kk
 // holds columns 8kk + tig and 8kk + tig + 4 of rows g and g + 8 of this
 // warp's 16, in the order (g, tig), (g + 8, tig), (g, tig + 4), (g + 8,
 // tig + 4). Each 8-lane phase of a load reads eight distinct 16-byte

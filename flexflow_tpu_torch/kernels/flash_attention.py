@@ -13,14 +13,15 @@ layout and its ``wgmma`` descriptors, the bf16 and TF32 ``wgmma``
 wrappers, the split of f32 operands into TF32 hi and lo parts and
 their transposed copies, the head-dim split of the wide kernels across
 two warpgroups).
-The f32 forward up to d = 512, and the f32 dq and dk/dv at 192 ... 512,
-run on the tensor cores in three TF32 passes per product (hi . hi + hi
-. lo + lo . hi), which keeps f32 accuracy: at d = 64 and 128 one
-warpgroup's tile holds all of d; at 192 ... 512 the wide kernels split d
-between two warpgroups and stream their operands in 32-column chunks.
-The f32 dq and dk/dv at d = 64 and 128, and either type's kernels above
-d = 512, are exact FMA kernels, chosen by dtype and head dim inside each
-C entry.
+The f32 forward, dq and dk/dv up to d = 512 run on the tensor cores in
+three TF32 passes per product (hi . hi + hi . lo + lo . hi), which keeps
+f32 accuracy: the forward at d = 64 and 128 holds all of d in one
+warpgroup's tile; dq and dk/dv at d = 64 and 128 give each of a CTA's
+two warpgroups 64 rows and all of d; the wide kernels at 192 ... 512
+split d between two warpgroups. Every f32 dq and dk/dv streams its
+operands in 32-column chunks. Either type's kernels above d = 512
+are exact FMA kernels. The kernel is chosen by dtype and head dim inside
+each C entry.
 
 :func:`flash_attention` takes the JAX package's layout, ``(b, h, s, d)``,
 and is differentiable: a ``torch.autograd.Function`` (the counterpart of
@@ -347,12 +348,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     128: the ``wgmma`` kernel, which encodes four TMA tensor maps per
     launch; bf16 at d <= 32: the narrow ``wgmma`` kernel, d unpadded;
     bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d compiled in;
-    f32 up to d = 128: the exact FMA kernel, fed the lse of the
-    forward's TF32 kernels; f32 at d = 192 ... 512: the wide TF32
-    ``wgmma`` kernel, three passes a product, d compiled in; either type
-    above 512: the wide FMA kernel, d a runtime argument) and count one
-    in ``.launches``; CPU tensors run :func:`flash_attention_bwd_dq_plain`
-    and count one in ``.plain_calls``."""
+    f32 at d = 64 and 128: the TF32 ``wgmma`` kernel, three passes a
+    product, two warpgroups of 64 rows a CTA; f32 at d = 192 ... 512: the
+    wide TF32 ``wgmma`` kernel, three passes a product, d compiled in;
+    either type above 512: the wide FMA kernel, d a runtime argument)
+    and count one in ``.launches``; CPU tensors run
+    :func:`flash_attention_bwd_dq_plain` and count one in
+    ``.plain_calls``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     seed = 0 if dropout_seed is None else int(dropout_seed) & _M32
@@ -383,11 +385,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     ``csrc/flash_attention_bwd.cu`` (bf16 at d = 64 and 128: the
     ``wgmma`` kernel; bf16 at d <= 32: the narrow ``wgmma`` kernel, d
     unpadded; bf16 at d = 192 ... 512: the wide ``wgmma`` kernel, d
-    compiled in, two sweeps over the query tiles; f32 up to d = 128: the
-    exact FMA kernel; f32 at d = 192 ... 512: the wide TF32 ``wgmma``
-    kernel, three passes a product, two sweeps; either type above 512:
-    the wide FMA kernel, d a runtime argument) and count one in
-    ``.launches``; CPU tensors run :func:`flash_attention_bwd_dkv_plain`
+    compiled in, two sweeps over the query tiles; f32 at d = 64 and 128:
+    the TF32 ``wgmma`` kernel, three passes a product, one sweep where
+    both accumulators fit; f32 at d = 192 ... 512: the wide TF32
+    ``wgmma`` kernel, three passes a product, two sweeps; either type
+    above 512: the wide FMA kernel, d a runtime argument) and count one
+    in ``.launches``; CPU tensors run :func:`flash_attention_bwd_dkv_plain`
     and count one in ``.plain_calls``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

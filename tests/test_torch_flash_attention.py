@@ -600,7 +600,7 @@ def test_forward_head_dim_on_the_card():
     """What the wrapper hands the forward kernel on the card: bf16 up to
     d = 32 rounded up to a multiple of 8 (the narrow kernel; TMA takes
     rows of a multiple of 16 bytes), everything else padded to a multiple
-    of 64 (f32 keeps its FMA kernel at 64)."""
+    of 64 (f32 at 64 too: its tensor-core kernels take 64 and 128)."""
     bf, f32 = torch.bfloat16, torch.float32
     got = {d: bwd_mod._fwd_head_dim(d, bf) for d in (4, 8, 12, 16, 24, 32,
                                                      33, 48, 64, 100)}
@@ -975,12 +975,16 @@ def test_every_f32_wide_forward_head_dim_has_a_card_case():
     assert ("fwd", 4, 8, 512, 192, False, torch.float32) in smoke.AB_SHAPES
 
 
-# The f32 wide dq and dk/dv on the card (flash_bwd_dq_wgmma_wide_tf32_kernel
-# and flash_bwd_dkv_wgmma_wide_tf32_kernel at d = 192 ... 512) run all five
-# products in three TF32 passes of split operands: S = Q . K^T and dP =
-# dO . V^T as two partial tiles over the halves of d (the two warpgroups'
-# parts, summed), dQ += dS . K over key tiles, dV += P_eff^T . dO and dK
-# += dS^T . Q over query tiles (64 rows). This
+# The f32 dq and dk/dv on the card (flash_bwd_dq_wgmma_tf32_kernel and
+# flash_bwd_dkv_wgmma_tf32_kernel at d = 64 and 128,
+# flash_bwd_dq_wgmma_wide_tf32_kernel and flash_bwd_dkv_wgmma_wide_tf32_kernel
+# at d = 192 ... 512) run all five products in three TF32 passes of split
+# operands: S = Q . K^T and dP = dO . V^T as partial tiles summed in f32
+# (at d <= 128 one per 32-column chunk, in chunk order, as a warpgroup
+# owning all of d sums them; above, one per half of d, the two
+# warpgroups' parts), dQ += dS . K over key tiles, dV += P_eff^T . dO and
+# dK += dS^T . Q over query tiles (64 rows), each tile's product summed
+# into the gradient in f32. This
 # emulation repeats that arithmetic on the CPU, from the emulated
 # forward's o and lse and delta = rowsum(do * o) as the autograd Function
 # takes it, and holds it against jax.grad through the JAX package's f32
@@ -992,16 +996,19 @@ TF32_BWD_TOL = 1e-5     # chip_smoke.py's BWD_TOL[torch.float32]
 
 
 def _tf32_scores(a, b, passes):
-    """a . b^T as the wide kernels' two warpgroups compute it: one TF32
-    product over each half of d, the partial tiles summed."""
+    """a . b^T as the kernels compute it: at d <= 128 one TF32 product
+    per 32-column chunk, the partial tiles summed in chunk order; above,
+    the wide kernels' two warpgroups' one product over each half of d,
+    summed."""
+    parts = a.shape[-1] // 32 if a.shape[-1] <= 128 else 2
     return sum(_tf32_mm(ah, bh.transpose(2, 3), passes)
-               for ah, bh in zip(a.chunk(2, -1), b.chunk(2, -1)))
+               for ah, bh in zip(a.chunk(parts, -1), b.chunk(parts, -1)))
 
 
 def _tf32_flash_bwd(q, k, v, do, lse, delta, causal=False, passes=3):
-    """(dq, dk, dv) of the card's f32 wide backward, emulated in f32 on
-    the CPU: dq over key tiles, dk and dv over query tiles, p in base 2
-    from lse, ds = p (dp - delta) sm_scale, no dropout."""
+    """(dq, dk, dv) of the card's f32 backward, emulated in f32 on the
+    CPU: dq over key tiles, dk and dv over query tiles, p in base 2 from
+    lse, ds = p (dp - delta) sm_scale, no dropout."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     bn = 64
@@ -1036,7 +1043,7 @@ def _tf32_flash_bwd(q, k, v, do, lse, delta, causal=False, passes=3):
 
 
 def _tf32_grads(q, k, v, do, causal=False, passes=3):
-    """The card's f32 wide path on the CPU: the emulated forward (three
+    """The card's f32 path on the CPU: the emulated forward (three
     passes), delta in f32 as the autograd Function takes it, then the
     emulated backward in ``passes`` passes."""
     q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
@@ -1046,10 +1053,14 @@ def _tf32_grads(q, k, v, do, causal=False, passes=3):
                                                causal, passes)]
 
 
-# (b, h, sq, sk, d, causal): d 192, 256 and 512 causal and not at a
-# ragged s, sq != sk once, NMT's d 512 self-attention at a small batch
-TF32_BWD_CASES = [(1, 2, 200, 200, d, causal) for d in (192, 256, 512)
+# (b, h, sq, sk, d, causal): d 64, 128, 192, 256 and 512 causal and not
+# at a ragged s, sq != sk both ways at d 64 and 128 and once at 256,
+# NMT's d 512 self-attention at a small batch
+TF32_BWD_CASES = [(1, 2, 200, 200, d, causal)
+                  for d in (64, 128, 192, 256, 512)
                   for causal in (False, True)] + [
+    (1, 2, 96, 200, 64, False), (1, 2, 200, 96, 64, False),
+    (1, 2, 96, 200, 128, False), (1, 2, 200, 96, 128, False),
     (1, 2, 96, 200, 256, False), (2, 1, 128, 128, 512, False)]
 
 
@@ -1066,7 +1077,7 @@ def test_tf32_three_pass_backward_emulation_matches_jax_f32(b, h, sq, sk, d,
         assert rel <= TF32_BWD_TOL, (f"d{name}", rel)
 
 
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [64, 256, 512])
 def test_one_tf32_pass_backward_misses_the_f32_tolerance(d):
     """One TF32 pass for each of the backward's five products keeps ~3
     decimal digits of each operand: the gradients miss 1e-5 of the
@@ -1150,3 +1161,80 @@ def test_every_f32_wide_backward_head_dim_has_a_card_case():
     assert ("bwd", 4, 8, 512, 256, True, f32) in rows
     assert ("bwd", 64, 1, 128, 512, False, f32) in rows
     assert ("bwd", 64, 1, 128, 512, False, f32) in smoke.AB_SHAPES
+
+
+def test_every_f32_backward_head_dim_has_a_card_case():
+    """f32 dq and dk/dv at d = 64 and 128 (and every f32 d the wrapper
+    pads to them) dispatch to the split-precision TF32 kernels
+    (launch_dq_tf32<D>, launch_dkv_tf32<D>: flash_bwd_dq_wgmma_tf32_kernel
+    and flash_bwd_dkv_wgmma_tf32_kernel, one layout at every launch), and
+    no f32 path up to d = 128 reaches an FMA kernel: the exact FMA kernels
+    flash_bwd_dq_kernel and flash_bwd_dkv_kernel are gone, and the wide
+    FMA kernels are reached only above 512. chip_smoke.py's kernel phase
+    holds both d against the plain versions causal and not, each with and
+    without dropout, with the row-block edges (a causal s just past a
+    64-row and a 128-row block with dropout at both d, a query count below
+    one tile over many keys and the other way round at d 128, b*h above
+    1024 at d 64, BERT-base's grid at d 128 with dropout, causal and not),
+    and through the autograd Function (FN_F32_CASES: d 64 with dropout, d
+    128 causal); its timing phases and the A/B list the calibration
+    shape's rows and BERT-base's b8 h12 s512 at d 64 and 128."""
+    import importlib.util
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "flexflow_tpu_torch", "csrc",
+                           "flash_attention_bwd.cu")) as f:
+        text = f.read()
+    entry = text[text.index("int dispatch(bool dkv"):]
+    for side, cond in (("dq", "!dkv"), ("dkv", "dkv")):
+        block = re.search(rf"if \({re.escape(cond)} && dtype == 0\) switch "
+                          r"\(head_dim\) \{(.*?)\}", entry, re.S)
+        assert block, side
+        found = re.findall(rf"case (\d+): return \(int\)launch_{side}_tf32"
+                           r"<(\d+)>\(a\);", block.group(1))
+        assert found == [("64", "64"), ("128", "128")], (side, found)
+        assert re.search(rf"auto kernel = flash_bwd_{side}_wgmma_tf32_"
+                         r"kernel<D, DROPOUT>;", text), side
+        assert re.search(rf"launch_{side}_tf32_t<D, true>\(a\)", text), side
+    # no FMA kernel at d <= 128: those kernels and launchers are gone,
+    # and every f32 launch outside the two switches is the wide FMA one,
+    # guarded above 512
+    for gone in ("flash_bwd_dq_kernel<", "flash_bwd_dkv_kernel<",
+                 "launch_dq<", "launch_dkv<"):
+        assert gone not in text, gone
+    fma = re.search(r"if \(head_dim > 512 && head_dim % TILE == 0\)", entry)
+    assert fma, "the wide FMA kernels' guard"
+    tail = entry[entry.index("launch_dkv_tf32_wide<512>"):]
+    assert not re.search(r"dtype == 0 && head_dim == (64|128)", tail)
+    # the wrapper hands every f32 d up to 128 to those two head dims
+    f32 = torch.float32
+    assert {bwd_mod._fwd_head_dim(d, f32) for d in range(1, 129)} \
+        == {64, 128}
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cases = [c for c in smoke.CASES if c[5] == f32]
+    every = {(False, False), (False, True), (True, False), (True, True)}
+    for d in (64, 128):
+        mine = [c for c in cases if bwd_mod._fwd_head_dim(c[4], f32) == d]
+        assert {(c[6], c[7] > 0) for c in mine} == every, d
+        for s in (72, 130):   # past a 64-row and a 128-row block
+            assert any(c[2] == c[3] == s and c[6] for c in mine), (d, s)
+        assert any(c[6] and c[7] > 0 and c[2] % 64 for c in mine), d
+    for edge in ((2, 4, 20, 200, 128, f32, False, 0.1),
+                 (2, 4, 200, 20, 128, f32, False, 0.0),
+                 (8, 12, 200, 200, 128, f32, True, 0.1),
+                 (8, 12, 512, 512, 128, f32, False, 0.1)):
+        assert edge in smoke.CASES, edge
+    big = [c for c in cases if c[4] == 64 and c[0] * c[1] > 1024]
+    assert {c[6] for c in big} == {False, True}, big
+    fn = smoke.FN_F32_CASES
+    assert any(c[4] == 64 and c[7] > 0 for c in fn)
+    assert any(c[4] == 128 and c[6] for c in fn)
+    rows = {s[1:8] for s in smoke.KT_SHAPES}
+    for d in (64, 128):
+        assert ("bwd", 1, 8, 512, d, True, f32) in rows, d
+        assert ("bwd", 8, 12, 512, d, False, f32) in rows, d
+        assert ("bwd", 8, 12, 512, d, False, f32) in smoke.AB_SHAPES, d

@@ -1,20 +1,21 @@
-"""Time design variants of the f32 wide flash dq and dk/dv against the
-tree's own kernels, in turns, on one GPU.
+"""Time design variants of the f32 tensor-core flash dq and dk/dv against
+the tree's own kernels, in turns, on one GPU.
 
-    python3 tools/torch_bwd_variants.py [--variants tiles32,unrolled]
-        [--shapes 4x8x512x512,64x1x128x512]
+    python3 tools/torch_bwd_variants.py [--variants split_d,two_sweeps]
+        [--shapes 1x8x512x64c,8x12x512x64,4x8x512x512]
 
 Each variant is the committed ``csrc/flash_attention_bwd.cu`` with a few
 lines replaced (VARIANTS below names them), built with the port's nvcc
 flags into build/bwd_variants/<name>/ (git-ignored), all builds at once.
-For each b x h x s x d shape (f32, not causal, no dropout; lse and o of
-plain f32 attention, delta = rowsum(do * o)) it times dk/dv and then dq of
-the tree and of every variant by CUDA-graph replay (chip_smoke.cuda_time_ms)
-in the order tree, variants, variants reversed, tree, checks that each
-variant's outputs agree with the tree's (1e-4 absolute), and prints the
-two times of each. It first prints each variant's f32 wide instantiations
-with ptxas's registers, spill stores and stack frame. The last line
-prints the card's name and power limit. Imports only the port, never JAX.
+For each b x h x s x d shape (f32, causal where it ends in ``c``, no
+dropout; lse and o of plain f32 attention, delta = rowsum(do * o)) it
+times dk/dv and then dq of the tree and of every variant by CUDA-graph
+replay (chip_smoke.cuda_time_ms) in the order tree, variants, variants
+reversed, tree, checks that each variant's outputs agree with the tree's
+(1e-4 absolute), and prints the two times of each. It first prints each
+variant's f32 tensor-core instantiations with ptxas's registers, spill
+stores and stack frame. The last line prints the card's name and power
+limit. Imports only the port, never JAX.
 """
 from __future__ import annotations
 
@@ -45,17 +46,21 @@ VARIANTS = {
     "unrolled": ("the score items' chunk loops fully unrolled, as the "
                  "gradient items' are",
                  [("#pragma unroll 1\n", "#pragma unroll\n", 4)]),
-    "dk_first": ("dk/dv's dK sweep before its dV sweep",
-                 [("    const bool sweep2 = i >= count * ITEMS1;\n"
-                   "    const int i2 = sweep2 ? i - count * ITEMS1 : i;",
-                   "    const bool sweep2 = i < count * ITEMS2;\n"
-                   "    const int i2 = sweep2 ? i : i - count * ITEMS2;", 1),
-                  ("      const int it = (DK ? count : 0) + t;",
-                   "      const int it = (DK ? 0 : count) + t;", 1),
-                  ("  sweep(std::false_type());  // dV\n"
-                   "  sweep(std::true_type());   // dK",
-                   "  sweep(std::true_type());   // dK\n"
-                   "  sweep(std::false_type());  // dV", 1)]),
+    # the d 64 / 128 kernels
+    "split_d": ("d <= 128: D split between two warpgroups over 64 rows, "
+                "as the wide kernels",
+                [("static constexpr bool SPLIT_D = D > 128;",
+                  "static constexpr bool SPLIT_D = true;", 1)]),
+    "two_sweeps": ("d 64: dk/dv in two sweeps, dV then dK",
+                   [("static constexpr bool ONE_SWEEP = D <= 64;",
+                     "static constexpr bool ONE_SWEEP = false;", 1)]),
+    "one_xbuf": ("one exchange buffer for the split score sums, two CTA "
+                 "barriers a sum",
+                 [("int X_BUFS = SPLIT_D && !P_STASH ? 2 : 1;",
+                   "int X_BUFS = 1;", 1)]),
+    "stages4": ("d <= 128: rings of four stages, three copies in flight",
+                [("  static constexpr int NS = 3; ",
+                  "  static constexpr int NS = D <= 128 ? 4 : 3; ", 1)]),
 }
 SYMS = ("ff_flash_attention_bwd_dkv", "ff_flash_attention_bwd_dq")
 
@@ -86,7 +91,7 @@ def build_variants(names):
         if proc.returncode:
             raise RuntimeError(f"nvcc {name}:\n{log}")
         for kernel, regs, spills, frame in chip_smoke.ptxas_report(log):
-            if "wide_tf32" in kernel:
+            if "_tf32" in kernel:
                 print(f"[variant] {name}: {kernel}: {regs} registers, "
                       f"{spills} bytes spill stores, {frame} bytes stack "
                       f"frame")
@@ -100,11 +105,29 @@ def build_variants(names):
     return fns
 
 
+def bwd_inputs(shape: str) -> tuple:
+    """b, h, s, d, causal and seeded f32 (q, k, v, do, lse, delta) on the
+    card for a shape "BxHxSxD", causal where it ends in "c": lse and o of
+    plain f32 attention, delta = rowsum(do * o)."""
+    causal = shape.endswith("c")
+    b, h, s, d = (int(x) for x in shape.rstrip("c").split("x"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    scores = torch.matmul(q, k.transpose(2, 3)) * d ** -0.5
+    if causal:
+        scores = scores.masked_fill(torch.ones(
+            s, s, dtype=torch.bool, device="cuda").triu(1), -1e30)
+    lse = torch.logsumexp(scores, -1)
+    o = torch.matmul(torch.softmax(scores, -1), v)
+    return b, h, s, d, causal, (q, k, v, do, lse, (do * o).sum(-1))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--shapes", default="4x8x512x256,4x8x512x512,"
-                    "64x1x128x512")
+    ap.add_argument("--shapes", default="1x8x512x64c,1x8x512x128c,"
+                    "8x12x512x64,8x12x512x128")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -115,17 +138,9 @@ def main() -> int:
     fns = build_variants(names)
     order = ["tree", *names, *names[::-1], "tree"]
     for shape in args.shapes.split(","):
-        b, h, s, d = (int(x) for x in shape.split("x"))
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen)
-                       for _ in range(4))
-        scores = torch.matmul(q, k.transpose(2, 3)) * d ** -0.5
-        lse = torch.logsumexp(scores, -1)
-        o = torch.matmul(torch.softmax(scores, -1), v)
-        delta = (do * o).sum(-1)
-        del scores
+        b, h, s, d, causal, (q, k, v, do, lse, delta) = bwd_inputs(shape)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        tail = [b * h, s, s, d, 0, 0, d ** -0.5, 0, 0, 1.0, 0]
+        tail = [b * h, s, s, d, 0, int(causal), d ** -0.5, 0, 0, 1.0, 0]
         for sym, outs in zip(SYMS, ((dk, dv), (dq,))):
             ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
             us = {name: [] for name in ["tree", *names]}
@@ -149,7 +164,8 @@ def main() -> int:
                 if diff > 1e-4:
                     raise RuntimeError(f"{name} {sym} differs by {diff}")
                 us[name].append(chip_smoke.cuda_time_ms(run) * 1e3)
-            print(f"[variant] {sym} b{b} h{h} s{s} d{d} f32: " + ", ".join(
+            print(f"[variant] {sym} b{b} h{h} s{s} d{d} f32"
+                  f"{' causal' if causal else ''}: " + ", ".join(
                 f"{name} {sum(t) / 2:.2f} us ({t[0]:.2f}, {t[1]:.2f})"
                 for name, t in us.items()))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
