@@ -186,7 +186,19 @@ never JAX, and:
                and step time of both; recompile_on_condition in a
                2-epoch fit of BERT-base 8 x 128 changing Adam's alpha
                once, against the same change made by hand;
- 16. serve   - the serving stack on the card: (a) BERT-base
+ 16. dist    - BERT-base (12 layers, hidden 768, 12 heads) at 8 x 512,
+               bf16, trained by two rank processes sharing the card
+               (gloo; the functional all-gather by c10d's) under
+               --only-data-parallel (dp 2) and --tp 2, each against the
+               one-rank run of the same weights and data: the forward
+               (2e-2), the first step's gradients at dropout 0.1 leaf by
+               leaf (ZOO_GRAD_TOL; the masks hashed at global b*h), the
+               4-step dropout-0 history (TRAIN_TOL), 12 flash forward, dq
+               and dk/dv and one fused Adam launch a step on each rank,
+               each rank's step time, peak memory and reshard bytes, the
+               collectives' backend and route; then a one-rank NCCL world
+               compiles the same model and steps once;
+ 17. serve   - the serving stack on the card: (a) BERT-base
                (BertConfig.base(), uncut, kernel_impls="attention:flash")
                at s 128 and 512, batch buckets 1, 4 and 8 (one model
                compiled per bucket, as BERT's pooler reshapes to the
@@ -230,10 +242,11 @@ never JAX, and:
                measured prefill and decode step; (e) two replica processes (python -m
                flexflow_tpu_torch.serving.fleet.replica --model
                gpt2-tiny, on the card) behind serve_fleet, one killed by
-               FF_FAULT_PLAN=infer_crash@6: 32 requests all answered
-               through failover, Autoscaler.tick repairs the fleet, each
-               replica's time to ready and the merged fleet metrics;
- 17. kernels - one JSON line with each kernel's launches, error and times.
+               FF_FAULT_PLAN=infer_crash@0 (its first call): 32 requests
+               all answered through failover, Autoscaler.tick repairs the
+               fleet, each replica's time to ready and the merged fleet
+               metrics;
+ 18. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
@@ -244,6 +257,7 @@ drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 build,kernel,frontends`` the frontends, ``--phases
 build,kernel,resilience`` checkpointing, faults and telemetry,
 ``--phases build,kernel,search`` the strategy search, ``--phases
+build,kernel,dist`` the world of two ranks, ``--phases
 build,kernel,serve`` the serving stack; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
@@ -700,6 +714,68 @@ FN_F32_CASES = [
 ]
 
 
+# the flash kernels with the dropout hash placed in a global batch
+# (bh_map = (h_total, b0, h0): this block is rows b0.. and heads h0.. of a
+# batch of h_total heads, as a rank of a sharded run holds it), dropout
+# 0.1: bf16 at d 8 (the narrow kernels), 64, 128 and 256 (the wide ones),
+# f32 at d 64 and 128, and the dist phase's rank blocks of BERT-base at
+# 8 x 512 (dp 2: rows 4.. of 8; tp 2: heads 6.. of 12). Each against its
+# plain version with the same map, forward, dq and dk/dv; the forward
+# must also differ from the unmapped launch (the map reaches the hash)
+BH_MAP_CASES = [  # (b, h, s, d, dtype, causal, (h_total, b0, h0))
+    (2, 4, 128, 8, torch.bfloat16, False, (8, 3, 4)),
+    (2, 4, 200, 64, torch.bfloat16, True, (12, 5, 8)),
+    (2, 4, 128, 128, torch.bfloat16, False, (8, 1, 2)),
+    (2, 4, 128, 256, torch.bfloat16, False, (8, 3, 4)),
+    (2, 4, 200, 64, torch.float32, False, (12, 5, 8)),
+    (2, 4, 128, 128, torch.float32, True, (8, 1, 2)),
+    (4, 12, 512, 64, torch.bfloat16, False, (12, 4, 0)),
+    (8, 6, 512, 64, torch.bfloat16, False, (12, 0, 6)),
+]
+
+
+def phase_kernel_map(gen) -> float:
+    """BH_MAP_CASES: each kernel with a dropout hash placed in a global
+    batch against its plain version with the same map. Returns the worst
+    forward error."""
+    from flexflow_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain, flash_attention_plain)
+    worst = 0.0
+    for b, h, s, d, dt, causal, bh_map in BH_MAP_CASES:
+        d_k = kernel_head_dim(d, dt)
+        q, k, v, do = (torch.randn(b, h, s, d_k, device="cuda", dtype=dt,
+                                   generator=gen) for _ in range(4))
+        kw = dict(causal=causal, sm_scale=1.0 / d_k ** 0.5,
+                  dropout_rate=0.1, dropout_seed=4321, bh_map=bh_map)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        po, plse = flash_attention_plain(q, k, v, **kw)
+        unmapped = flash_attention(q, k, v, **dict(kw, bh_map=None))
+        delta = (do.float() * o.float()).sum(-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        pdq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+        pdk, pdv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                 **kw)
+        torch.cuda.synchronize()
+        err_o = (o.float() - po.float()).abs().max().item()
+        rel = max((g.float() - w.float()).abs().max().item()
+                  / max(w.float().abs().max().item(), 1e-30)
+                  for g, w in ((dq, pdq), (dk, pdk), (dv, pdv)))
+        moved = (unmapped.float() - o.float()).abs().max().item()
+        ok = err_o <= TOL[dt]["o"] and rel <= BWD_TOL[dt] and moved > 0.0
+        print(f"[kernel] flash kernels with bh_map {bh_map} b{b} h{h} s{s} "
+              f"d{d} {str(dt)[6:]} causal={causal} dropout=0.1: "
+              f"max|do|={err_o:.3e} (tol {TOL[dt]['o']:.0e}), backward "
+              f"max rel {rel:.1e} (tol {BWD_TOL[dt]:.0e}), |o - unmapped "
+              f"o| {moved:.3e} (> 0) {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash kernels with bh_map {bh_map} at b{b} h{h} s{s} "
+                  f"d{d} {dt}")
+        worst = max(worst, err_o)
+    return worst
+
+
 def kernel_head_dim(d: int, dtype) -> int:
     """The head dim the flash kernels take for d, forward and backward
     alike: what flash_attention pads to on the card (bf16 up to 32 to a
@@ -755,6 +831,7 @@ def phase_kernel() -> dict:
             bad.append((b, h, sq, sk, d, str(dt)[6:], causal, rate))
         worst = max(worst, do)
     check(not bad, f"flash kernel disagrees with its plain version at {bad}")
+    worst = max(worst, phase_kernel_map(gen))
     errs = phase_kernel_bwd(gen)
     errs["flash_attention_fwd"] = worst
     errs["adam_update"] = phase_kernel_adam(gen)
@@ -1416,7 +1493,8 @@ def launch_host_us(n: int = 500) -> dict:
                                   dtype=torch.bfloat16) for _ in range(5))
     lse, delta = (torch.zeros(8, 12, 128, device="cuda") for _ in range(2))
     stream = torch.cuda.current_stream().cuda_stream
-    tail = (96, 128, 128, 64, 1, 0, 0.125, 0, 0, 1.0, 0, stream)
+    tail = (96, 128, 128, 64, 1, 0, 0.125, 0, 0, 1.0, 0,
+            *fa._map_args(8, 12, None), stream)
     calls = {
         "fwd": (fa._c_fn("flash_attention_fwd", "ff_flash_attention_fwd"),
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -1656,15 +1734,24 @@ def phase_ab(base: str, smi: str) -> None:
     import torch.nn.functional as F
     fa = importlib.import_module("flexflow_tpu_torch.kernels.flash_attention")
     t0 = time.perf_counter()
-    libs = ab_build({"base": os.path.abspath(base),
-                     "change": os.path.dirname(os.path.abspath(__file__))})
+    trees = {"base": os.path.abspath(base),
+             "change": os.path.dirname(os.path.abspath(__file__))}
+    libs = ab_build(trees)
     print(f"[ab] built both trees in {time.perf_counter() - t0:.1f} s")
+    # a tree whose C entries take the dropout key's bh map (h_local,
+    # h_total, b0, h0 after the seed); an older base's do not
+    keyed = {tag: "seed_u32" in open(os.path.join(
+        root, "flexflow_tpu_torch", "csrc", "flash_attention_fwd.cu")).read()
+        for tag, root in trees.items()}
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
 
     def entry(tag, src, sym):
         fn = getattr(libs[tag][src], sym)
-        fn.argtypes, fn.restype = fa._ARGTYPES[(src, sym)], ctypes.c_int
+        types = fa._ARGTYPES[(src, sym)]
+        if not keyed[tag]:
+            types = types[:-4] + types[-1:]
+        fn.argtypes, fn.restype = types, ctypes.c_int
         return fn
 
     for kind, b, h, s, d, causal, dt in AB_SHAPES:
@@ -1676,15 +1763,16 @@ def phase_ab(base: str, smi: str) -> None:
         lse, delta = (torch.empty(b, h, s, device="cuda") for _ in range(2))
         dp = -(-d // 64) * 64
 
-        def tail(dd):
+        def tail(dd, tag):
             return (b * h, s, s, dd, int(dt == torch.bfloat16), int(causal),
-                    d ** -0.5, 0, 0, 1.0, 0)
+                    d ** -0.5, 0, 0, 1.0, 0) + (fa._map_args(b, h, None)
+                                                 if keyed[tag] else ())
 
         def call(tag, src, sym, ts, dd):
             # pointers and the stream read at each call, so a graph
             # capture records this call's tensors and stream
             return entry(tag, src, sym)(
-                *[t.data_ptr() for t in ts], *tail(dd),
+                *[t.data_ptr() for t in ts], *tail(dd, tag),
                 torch.cuda.current_stream().cuda_stream)
 
         def launch(tag, src, sym, ts, dd=d):
@@ -2799,35 +2887,39 @@ def device_tree(tree) -> dict:
 def profile_train_step(ff, step_fn, batch) -> dict:
     """torch.profiler over one train step: kernel launches, device kernel
     time, wall time, the busy share and the kernels that take the most
-    device time."""
+    device time (on the CPU, a rehearsal: no kernel is seen)."""
     from collections import defaultdict
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cuda = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + [ProfilerActivity.CUDA] * cuda) as prof:
         t0 = time.perf_counter()
         ff._run_train_step(step_fn, batch)
-        torch.cuda.synchronize()
+        sync()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = defaultdict(float)
-    kernels = 0
+    kernels = collectives = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels += 1
+            collectives += "nccl" in e.name.lower()
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     family = defaultdict(float)
     for name, ms in by_name.items():
         low = name.lower()
-        family["conv / GEMM" if any(w in low for w in (
+        family["collective" if "nccl" in low
+               else "conv / GEMM" if any(w in low for w in (
             "conv", "gemm", "xmma", "cudnn", "cutlass", "implicit"))
             else "flash" if "flash" in low
             else "elementwise / reduce" if any(w in low for w in (
                 "elementwise", "reduce")) else "other"] += ms
     return {"launches": kernels, "device_ms": dev_ms, "wall_ms": wall,
             "busy": dev_ms / wall, "top": [(n[:60], ms) for n, ms in top],
-            "family_ms": dict(family)}
+            "family_ms": dict(family), "collective_launches": collectives}
 
 
 def grad_check(tag: str, f32: bool, flash: dict, plain: dict,
@@ -4387,7 +4479,14 @@ SERVE_PLENS = (100, 901)   # ragged GPT-2 prompt lengths [lo, hi)
 CB_MAX_SEGMENTS = 8   # budgets of 1 ... 8 segments
 PLAN_PLEN = 300       # prompt length of the plan-session comparison
 FLEET_REQUESTS = 32
-FLEET_CRASH = "infer_crash@6"   # the 7th call of one replica kills it
+# the first infer / generate call of one replica kills it. Its first
+# call is certain: the router sends each request to the replica with the
+# least estimated wait and rotates ties, and both replicas start idle
+# (wait 0), so one of the first two requests reaches it. A later call is
+# not: its scheduler batches concurrent requests into one call and the
+# router may keep preferring the other replica, so a replica told to die
+# at its 7th call could serve all of a short run without reaching it
+FLEET_CRASH = "infer_crash@0"
 FLEET_ARGS = ("--model", "gpt2-tiny")   # the replica runs on the card
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -5302,7 +5401,7 @@ def phase_serve(smi: str) -> dict:
 
 
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe, resil, search, srv) -> list:
+                zoo, fe, resil, search, srv, dist) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
@@ -5325,6 +5424,13 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                     search["remat"]["blocks"]["launches"][name],
                 "recompile_train_launches":
                     search["recompile"]["launches"][name]}
+
+    def dist_row(name):
+        """The dist phase's launches on each rank in its history: BERT-base
+        8x512 trained by two ranks under dp 2 and tp 2."""
+        return {"dist_train_launches_per_rank": {
+            cfg: dist[cfg]["launches_per_rank"][name]
+            for cfg, _ in DIST_RUNS}}
 
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
@@ -5423,6 +5529,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         # searched model's and the remat and recompile runs' steps
         "search_calibration_launches": search["calibration"]["launches"],
         **search_row("flash_attention_fwd"),
+        **dist_row("flash_attention_fwd"),
         # the serve phase: BERT-base behind both HTTP fronts (12 a
         # scheduled batch), POST /generate (one prefill) and the
         # continuous batcher under both admissions (12 an iteration)
@@ -5478,6 +5585,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             "frontends_train_launches": fe_row(name),
             "resilience_train_launches": resil["launches"][name],
             **search_row(name),
+            **dist_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)",
             "f32_kernel": f"flash_bwd_{key}_wgmma_tf32_kernel (f32, d 64 "
@@ -5508,15 +5616,554 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "resilience_train_launches": resil["launches"]["adam_update"],
         "f32_train_launches": train["f32"]["launches"]["adam_update"],
         **search_row("adam_update"),
+        **dist_row("adam_update"),
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")}})
     return rows
 
 
+# --------------------------------------------------------------------------
+# dist: BERT-base trained by a world of two ranks sharing the card
+# --------------------------------------------------------------------------
+# the configurations the two ranks run, each against the one-rank run of
+# the same weights and data
+DIST_RUNS = (("dp2", ("--only-data-parallel",)), ("tp2", ("--tp", "2")))
+# the rank processes and the phase: each rank builds two BERT-base models
+# per configuration and trains them; the rendezvous and every collective
+# time out well inside it
+DIST_TIMEOUT_S = 600
+# the model and run: full-width BERT-base at 8 x 512, bf16 compute,
+# first-step gradients at dropout 0.1, a 4-step history at dropout 0,
+# then 3 timed steps
+DIST_SPEC = {"device": "cuda", "bert": "base", "batch": 8, "seq": 512,
+             "steps": 4, "timed": 3, "f32": False}
+# the bf16 first-step gradients at dropout 0.1 against the one-rank run's,
+# leaf by leaf (grad_errs), with the key biases left out: their true
+# gradient is 0 (softmax ignores a shift common to a row's scores), so
+# their reading is bf16 rounding over GRAD_FLOOR of the whole gradient.
+# Sound ranks read up to 3.1e-3 (wq); the one-rank run against itself
+# under another draw of every mask reads far above (the phase checks
+# that it does, so a map that hashed the wrong masks would show)
+DIST_BF16_GRAD_TOL = 2e-2
+
+
+def dist_checked(k: str, errs: list) -> list:
+    """The leaves of ``errs`` held to the first-step limit in ``k``: every
+    one in f32, all but the key biases in bf16."""
+    return errs if k == "f32" else [e for e in errs
+                                    if not e[1].endswith(".bk")]
+
+
+def dist_grad_tol(k: str) -> float:
+    return ZOO_GRAD_TOL if k == "f32" else DIST_BF16_GRAD_TOL
+
+
+def dist_model(spec: dict, argv, dropout: float):
+    """BERT of ``spec`` with the flash kernels and the fused Adam, compiled
+    under ``argv`` (over the world when this process is a rank of one)."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.seed, cfg.device = spec["batch"], 0, spec["device"]
+    # (the fused Adam's predicate refuses the CPU: a rehearsal there sets
+    # the plan after the compile, and the kernel's plain version runs)
+    cfg.kernel_impls = "attention:flash,opt_update:fused" \
+        if spec["device"] == "cuda" else "attention:flash"
+    cfg.use_bf16_compute = not spec["f32"]
+    ff = FFModel(cfg)
+    bcfg = getattr(BertConfig, spec["bert"])()
+    bcfg.max_position, bcfg.dropout = spec["seq"], dropout
+    out = build_bert(ff, spec["batch"], spec["seq"], bcfg)
+    ff.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy",
+               ["accuracy"], output_tensor=out)
+    ff.executor._kernel_impls["opt_update"] = "fused"
+    return ff, bcfg
+
+
+def dist_data(spec: dict, bcfg) -> tuple:
+    """Seeded ids, positions and labels of ``spec["steps"]`` batches."""
+    rows = spec["batch"] * spec["steps"]
+    rng = np.random.default_rng(21)
+    ids = rng.integers(0, bcfg.vocab_size, (rows, spec["seq"])).astype(
+        np.int32)
+    pos = np.tile(np.arange(spec["seq"], dtype=np.int32), (rows, 1))
+    y = rng.integers(0, bcfg.num_labels, (rows, 1)).astype(np.int32)
+    return [ids, pos], y
+
+
+def dist_run(spec: dict, argv, tag: str, control: bool = False) -> dict:
+    """One configuration in this process's world (alone: the reference):
+    the first step's gradients at dropout 0.1 (whole, on the host; with
+    ``control``, those of another draw of every mask too), then
+    at dropout 0 the forward's output on the first batch, a
+    ``spec["steps"]``-step history through the loader that feeds each rank
+    its rows, with every kernel launch and the reshard bytes counted, its
+    peak memory, and ``spec["timed"]`` timed steps; where
+    ``spec["profile"]`` names a directory, one more step profiled
+    (:func:`profile_dist_step`) into ``<dir>/<tag>.txt``."""
+    from flexflow_tpu_torch.parallel.reshard import STATS
+    sync = torch.cuda.synchronize if spec["device"] == "cuda" \
+        else (lambda: None)
+
+    def first_grads(f32: bool, draws) -> list:
+        ff, bcfg = dist_model(dict(spec, f32=f32), argv, 0.1)
+        xs, y = dist_data(spec, bcfg)
+        batch = next(iter(ff._combined_loader(xs, y, shuffle=False)))
+        outs = []
+        for draw in draws:      # the step index seeds every mask
+            grads, _, _ = ff.executor._grads(ff.params, ff.state, batch,
+                                             draw)
+            outs.append({ln: {n: ff.executor._unplace(t).detach().float()
+                              .cpu() for n, t in d.items()}
+                         for ln, d in grads.items()})
+            del grads
+        del ff, batch
+        free_cuda()
+        return outs
+
+    # the first step's gradients at dropout 0.1 in f32 (the f32 flash
+    # kernels hash the masks too) and, where the run is bf16, in bf16
+    kinds = ("f32",) if spec["f32"] else ("f32", "bf16")
+    grads, other = {}, {}
+    for k in kinds:
+        got = first_grads(k == "f32", (0, 1) if control else (0,))
+        grads[k] = got[0]
+        if control:
+            other[k] = got[1]
+    ff, bcfg = dist_model(spec, argv, 0.0)
+    xs, y = dist_data(spec, bcfg)
+    first = {"input_ids": xs[0][:spec["batch"]],
+             "position_ids": xs[1][:spec["batch"]]}
+    out = ff.executor.make_forward()(ff.params, ff.state, first)
+    forward = out.float().cpu()
+    loader = ff._combined_loader(xs, y, shuffle=False)
+    step_fn = ff.executor.make_train_step()
+    batches = list(loader)
+    sync()
+    if spec["device"] == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    STATS.reset()
+    fns = zero_counts()      # the main path: every count starts at 0 here
+    plain = {n: f.plain_calls for n, f in fns.items()}
+    losses = [float(ff._run_train_step(step_fn, b)["loss"])
+              for b in batches]
+    # (a rehearsal on the CPU counts the wrappers' plain-version calls)
+    launches = {n: f.launches if spec["device"] == "cuda"
+                else f.plain_calls - plain[n] for n, f in fns.items()}
+    reshard = {"bytes": STATS.bytes_total,
+               "redistribute": STATS.executed_redistribute,
+               "searched": STATS.executed_searched,
+               "naive": STATS.executed_naive}
+    peak = torch.cuda.max_memory_allocated() \
+        if spec["device"] == "cuda" else 0
+    times = []
+    for i in range(spec["timed"]):
+        sync()
+        t0 = time.perf_counter()
+        float(ff._run_train_step(step_fn, batches[i % len(batches)])
+              ["loss"])
+        sync()
+        times.append(time.perf_counter() - t0)
+    prof = None
+    if spec.get("profile"):
+        os.makedirs(spec["profile"], exist_ok=True)
+        prof = profile_dist_step(ff, step_fn, batches[0],
+                                 os.path.join(spec["profile"], tag + ".txt"))
+    leaves = sum(len(d) for d in ff.params.values())
+    return {"grads": grads, "other": other, "forward": forward,
+            "losses": losses, "launches": launches, "reshard": reshard,
+            "peak_bytes": peak, "step_ms": [t * 1e3 for t in times],
+            "leaves": leaves, "mesh": dict(ff.dmesh.axis_sizes),
+            "profile": prof}
+
+
+# host layers of a rank's step, by the file or the C function a profiled
+# call's own time is spent in (the first match names it; the rest is
+# "other Python"). The functional collectives are torch.library ops:
+# their waits run in torch/_ops.py's redispatch. DTensor's entry points
+# pass through the dynamo-disable and export wrappers and its layouts
+# through _pycute. The one-rank step reaches none of these
+HOST_LAYERS = (
+    ("collectives", ("distributed_c10d", "_functional_collectives",
+                     "c10d", "torch/_library/", "torch/_ops.py:redispatch")),
+    ("DTensor (sharding rules, redistribute, dispatch)", (
+        "torch/distributed/tensor", "torch/distributed/_pycute",
+        "torch/_dynamo/", "torch/_compile.py", "torch/_export/wrappers")),
+    ("the port (executor, ops, kernel wrappers)", ("flexflow_tpu_torch",)),
+    ("autograd (backward on the engine's threads)", (
+        "run_backward", "torch/autograd", "torch/_functorch/",
+        "built-in method apply")),
+    ("aten ops and launches (C++)", ("torch/_ops.py", "torch._ops",
+                                    "torch._C", "TensorBase",
+                                    "built-in method torch.")),
+)
+
+
+def host_layers(stats) -> dict:
+    """A cProfile ``pstats.Stats``'s own time (ms) by HOST_LAYERS."""
+    from collections import defaultdict
+    layers = defaultdict(float)
+    for (fname, _, func), (_, _, tt, _, _) in stats.stats.items():
+        where = f"{fname}:{func}"
+        layers[next((name for name, keys in HOST_LAYERS
+                     if any(k in where for k in keys)),
+                    "other Python")] += tt * 1e3
+    return dict(layers)
+
+
+def dist_step_stages(ff, step_fn, batch) -> dict:
+    """One train step with the host's time (ms) in each stage of the
+    executor: the forward, the backward, the outputs gathered for the
+    loss, the gradients brought to their leaves' layouts (the rest of
+    ``_grads``) and the optimizer update (the rest of the step). Each
+    stage's function is wrapped for that step only. (cProfile's
+    cumulative times lose the frames that enter DTensor's dispatch.)"""
+    from collections import defaultdict
+    ex = ff.executor
+    spent = defaultdict(float)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += (time.perf_counter() - t0) * 1e3
+        return run
+    grad = torch.autograd.grad
+    ex._forward = timed("forward", ex._forward)
+    ex._replicate_for_loss = timed("outputs gathered for the loss",
+                                   ex._replicate_for_loss)
+    ex._grads = timed("_grads", ex._grads)
+    torch.autograd.grad = timed("backward (autograd.grad)", grad)
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        float(ff._run_train_step(step_fn, batch)["loss"])
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.autograd.grad = grad
+        for k in ("_forward", "_replicate_for_loss", "_grads"):
+            del ex.__dict__[k]
+    grads = spent.pop("_grads")
+    spent["gradients to their leaves' layouts"] = grads - sum(
+        spent.values())
+    spent["optimizer update and the rest"] = wall - grads
+    spent["step (synchronized)"] = wall
+    return dict(spent)
+
+
+def profile_dist_step(ff, step_fn, batch, path: str) -> dict:
+    """One train step under torch.profiler (the device's side: busy
+    share, collective kernels and their device time), one under cProfile
+    (the host's side: the step's host time split by HOST_LAYERS, by each
+    call's own time) and one split by the executor's stages
+    (:func:`dist_step_stages`); the tables go to ``path``, the cProfile
+    stats beside it (``.prof``)."""
+    import cProfile
+    import io
+    import pstats
+    dev = profile_train_step(ff, step_fn, batch)
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    float(ff._run_train_step(step_fn, batch)["loss"])
+    sync()
+    prof.disable()
+    host_wall = (time.perf_counter() - t0) * 1e3
+    layers = host_layers(pstats.Stats(prof))
+    stages = dist_step_stages(ff, step_fn, batch)
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(60)
+    prof.dump_stats(os.path.splitext(path)[0] + ".prof")
+    with open(path, "w") as f:
+        f.write(f"device: {json.dumps(dev)}\nhost wall under cProfile "
+                f"{host_wall:.1f} ms, own time by layer "
+                f"{json.dumps(layers)}, by stage (host clock) "
+                f"{json.dumps(stages)}\n\n{buf.getvalue()}")
+    return {"device": dev, "host_wall_ms": host_wall,
+            "host_layers_ms": layers, "host_stages_ms": stages}
+
+
+def grad_errs(got: dict, want: dict) -> list:
+    """Leaf by leaf ||got - want|| / max(||want||, GRAD_FLOOR ||whole
+    want||), worst first (``grad_check``'s measure)."""
+    whole = sum(float(t.double().norm()) ** 2
+                for d in want.values() for t in d.values()) ** 0.5
+    return sorted(((float((got[ln][n].double() - t.double()).norm())
+                    / max(float(t.double().norm()), GRAD_FLOOR * whole),
+                    f"{ln}.{n}") for ln, d in want.items()
+                   for n, t in d.items()), reverse=True)
+
+
+def dist_rank_main(workdir: str) -> int:
+    """A rank of the dist phase (``--dist-rank``): joins the world the
+    environment names, runs each of DIST_RUNS and holds it against the
+    one-rank reference the parent saved, then writes its results."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.distributed import (ROUTES,
+                                                         maybe_initialize)
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize(device_type=spec["device"])
+    rank = dist.get_rank()
+    ref = torch.load(os.path.join(workdir, "ref.pt"))
+    out = {"backend": dist.get_backend(), "routes": dict(ROUTES)}
+    for name, argv in DIST_RUNS:
+        r = dist_run(spec, argv, f"{name}_rank{rank}")
+        grads = r.pop("grads")
+        r["grad_errs"] = {k: grad_errs(g, ref["grads"][k])
+                          for k, g in grads.items()}
+        r["forward_err"] = float((r.pop("forward")
+                                  - ref["forward"]).abs().max())
+        r["loss_err"] = max(abs(a - b) for a, b in zip(r["losses"],
+                                                       ref["losses"]))
+        out[name] = r
+        free_cuda()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_nccl_main(workdir: str) -> int:
+    """The one-rank NCCL world (``--dist-nccl``): the deployment's backend
+    with one rank per card initializes, and the same compile takes one
+    step."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.distributed import maybe_initialize
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    maybe_initialize(device_type="cuda")
+    ff, bcfg = dist_model(spec, ("--only-data-parallel",), 0.1)
+    xs, y = dist_data(spec, bcfg)
+    batch = next(iter(ff._combined_loader(xs, y, shuffle=False)))
+    loss = float(ff._run_train_step(ff.executor.make_train_step(), batch)
+                 ["loss"])
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump({"backend": dist.get_backend(),
+                   "world": dist.get_world_size(), "loss": loss}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_world(workdir: str, flag: str, world: int) -> list:
+    """``world`` rank processes of this script (``flag`` names their part)
+    joined at a free local port; waits for all of them within
+    DIST_TIMEOUT_S, kills every one on a failure or a timeout, and raises
+    with each rank's last output."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, FF_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   FF_NUM_PROCESSES=str(world), FF_PROCESS_ID=str(r),
+                   FF_DIST_TIMEOUT_S=str(DIST_TIMEOUT_S // 2),
+                   PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        logs.append(os.path.join(workdir, f"{flag}{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, workdir],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    end = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > end or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    tails = []
+    for r, lg in enumerate(logs):
+        with open(lg) as f:
+            tails.append(f"--- {flag} rank {r} (exit {codes[r]}) ---\n"
+                         + f.read()[-4000:])
+    check(all(c == 0 for c in codes),
+          f"{flag} world of {world} failed: exit codes {codes}\n"
+          + "\n".join(tails))
+    return codes
+
+
+def phase_dist(smi: str, spec: dict = None) -> dict:
+    """BERT-base trained by two ranks sharing the card, under data
+    parallelism (dp 2) and Megatron tensor parallelism (tp 2), each
+    against the one-rank run of the same weights and data: the forward's
+    output within SLICE_TOL, the first step's gradients at dropout 0.1
+    leaf by leaf within ZOO_GRAD_TOL in f32 and DIST_BF16_GRAD_TOL in bf16
+    (the ranks' dropout masks, the flash kernels' hashed at the global
+    b*h, must be the one-rank run's; another draw of every mask must
+    read above those limits), the
+    dropout-0 loss history within TRAIN_TOL; each rank launches 12 flash
+    forwards, dqs and dk/dvs and ceil(leaves / 384) fused Adams a step.
+    Prints each rank's step time, peak memory and reshard bytes, and the
+    backend and route of each collective. Then a one-rank NCCL world runs
+    the same compile and one step."""
+    import tempfile
+    spec = dict(spec or DIST_SPEC)
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        with open(os.path.join(workdir, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        ref = dist_run(spec, ("--only-data-parallel",), "one_rank",
+                       control=True)
+        torch.save({k: ref[k] for k in ("grads", "forward", "losses")},
+                   os.path.join(workdir, "ref.pt"))
+        ref_s = time.perf_counter() - t0
+        # what the first-step check reads where every mask is another
+        # draw: it must fail there
+        control = {k: dist_checked(k, grad_errs(ref["other"][k], g))
+                   for k, g in ref["grads"].items()}
+        for k, errs in control.items():
+            print(f"[dist] first-step gradients in {k}, the one-rank run "
+                  f"under another draw of every mask against itself: "
+                  f"worst {errs[0][1]} {errs[0][0]:.3e}, median "
+                  f"{errs[len(errs) // 2][0]:.3e} (tol "
+                  f"{dist_grad_tol(k):.0e})")
+            check(errs[0][0] > dist_grad_tol(k),
+                  f"the {k} first-step check does not see other masks")
+        out["control"] = {k: (errs[0][0], errs[len(errs) // 2][0])
+                          for k, errs in control.items()}
+        out["profile"] = {"one_rank": ref["profile"]}
+        steps, leaves = spec["steps"], ref["leaves"]
+        adam = -(-leaves // 384)
+        print(f"[dist] one-rank reference: BERT-{spec['bert']} "
+              f"{spec['batch']}x{spec['seq']}, {leaves} leaves, losses "
+              f"{[round(v, 5) for v in ref['losses']]}, step "
+              f"{np.median(ref['step_ms']):.1f} ms, peak "
+              f"{ref['peak_bytes'] / 2**30:.2f} GiB, launches "
+              f"{ref['launches']} ({ref_s:.1f} s) ({smi})")
+        if ref["profile"]:
+            p = ref["profile"]
+            print(f"[dist] one-rank profile: device "
+                  f"{p['device']['device_ms']:.1f} ms of "
+                  f"{p['device']['wall_ms']:.1f} ms wall (busy "
+                  f"{p['device']['busy']:.3f}), by family "
+                  f"{p['device']['family_ms']}; host under cProfile "
+                  f"{p['host_wall_ms']:.1f} ms, own time by layer "
+                  f"{p['host_layers_ms']}, by stage {p['host_stages_ms']} "
+                  f"({smi})")
+        del ref
+        free_cuda()
+        t0 = time.perf_counter()
+        spawn_world(workdir, "--dist-rank", 2)
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        where = "on the CPU" if spec["device"] != "cuda" else \
+            "sharing one card" if torch.cuda.device_count() < 2 \
+            else "on a card each"
+        print(f"[dist] two ranks {where}: backend {ranks[0]['backend']}, "
+              f"routes {ranks[0]['routes']} ({world_s:.1f} s)")
+        want = {"flash_attention_fwd": 12 * steps,
+                "flash_attention_bwd_dq": 12 * steps,
+                "flash_attention_bwd_dkv": 12 * steps,
+                "adam_update": adam * steps}
+        if spec["bert"] != "base":
+            n_layers = 2
+            want = dict(want, **{k: n_layers * steps for k in want
+                                 if k != "adam_update"})
+        for name, _ in DIST_RUNS:
+            for r, res in enumerate(ranks):
+                x = res[name]
+                print(f"[dist] {name} rank {r}: mesh {x['mesh']}, launches "
+                      f"in {steps} steps {x['launches']}, step "
+                      f"{np.median(x['step_ms']):.1f} ms (median of "
+                      f"{len(x['step_ms'])}), peak "
+                      f"{x['peak_bytes'] / 2**30:.2f} GiB, reshard "
+                      f"{x['reshard']['bytes'] / 2**20:.1f} MiB in "
+                      f"{x['reshard']['redistribute']} redistributions, "
+                      f"{x['reshard']['searched']} planned; against one "
+                      f"rank: forward {x['forward_err']:.3e} (tol "
+                      f"{SLICE_TOL:.0e}), losses {x['loss_err']:.3e} (tol "
+                      f"{TRAIN_TOL:.0e})" + "".join(
+                          f", first-step gradients in {k} worst " + ", ".join(
+                              f"{n} {e:.3e}" for e, n in errs[:3])
+                          + ("" if k == "f32" else ", checked worst "
+                             + ", ".join(f"{n} {e:.3e}" for e, n in
+                                         dist_checked(k, errs)[:3]))
+                          + f" (tol {dist_grad_tol(k):.0e})"
+                          for k, errs in x["grad_errs"].items()
+                          if r == 0) + f" ({smi})")
+                check(x["launches"] == want,
+                      f"{name} rank {r} launches {x['launches']} != {want}")
+                check(x["forward_err"] <= SLICE_TOL,
+                      f"{name} rank {r} forward")
+                check(x["loss_err"] <= TRAIN_TOL, f"{name} rank {r} losses")
+                if r == 0:
+                    for k, errs in x["grad_errs"].items():
+                        check(dist_checked(k, errs)[0][0]
+                              <= dist_grad_tol(k),
+                              f"{name} first-step gradients in {k}")
+                if x["profile"]:
+                    p = x["profile"]
+                    print(f"[dist] {name} rank {r} profile: device "
+                          f"{p['device']['device_ms']:.1f} ms of "
+                          f"{p['device']['wall_ms']:.1f} ms wall (busy "
+                          f"{p['device']['busy']:.3f}), by family "
+                          f"{p['device']['family_ms']}, "
+                          f"{p['device']['launches']} kernels, "
+                          f"{p['device']['collective_launches']} of them "
+                          f"collectives; host under "
+                          f"cProfile {p['host_wall_ms']:.1f} ms, own time "
+                          f"by layer {p['host_layers_ms']}, by stage "
+                          f"{p['host_stages_ms']} ({smi})")
+            out[name] = {"launches_per_rank": ranks[0][name]["launches"],
+                         "step_ms": [r[name]["step_ms"] for r in ranks],
+                         "peak_bytes": [r[name]["peak_bytes"]
+                                        for r in ranks],
+                         "reshard_bytes": [r[name]["reshard"]["bytes"]
+                                           for r in ranks],
+                         "grad_worst": {
+                             k: v[0][0] for k, v in
+                             ranks[0][name]["grad_errs"].items()},
+                         "grad_checked": {
+                             k: dist_checked(k, v)[0][0] for k, v in
+                             ranks[0][name]["grad_errs"].items()},
+                         "profile": [r[name]["profile"] for r in ranks],
+                         "forward_err": max(r[name]["forward_err"]
+                                            for r in ranks),
+                         "loss_err": max(r[name]["loss_err"]
+                                         for r in ranks)}
+        out["routes"] = ranks[0]["routes"]
+        out["backend"] = ranks[0]["backend"]
+        out["world_s"] = world_s
+        if spec["device"] == "cuda":
+            t0 = time.perf_counter()
+            spawn_world(workdir, "--dist-nccl", 1)
+            with open(os.path.join(workdir, "nccl.json")) as f:
+                nccl = json.load(f)
+            check(nccl["backend"] == "nccl" and np.isfinite(nccl["loss"]),
+                  f"one-rank NCCL world: {nccl}")
+            print(f"[dist] one-rank NCCL world: backend {nccl['backend']}, "
+                  f"world {nccl['world']}, one step's loss "
+                  f"{nccl['loss']:.5f} ({time.perf_counter() - t0:.1f} s)")
+            out["nccl"] = nccl
+    return out
+
+
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience", "search", "serve")
+          "resilience", "search", "dist", "serve")
 
 
 def main() -> int:
@@ -5528,7 +6175,18 @@ def main() -> int:
     ap.add_argument("--ab-base", metavar="DIR",
                     help="time the flash kernels of the checkout at DIR "
                     "and of this one in turns, and nothing else")
+    ap.add_argument("--dist-rank", metavar="DIR",
+                    help="run as a rank of the dist phase's world")
+    ap.add_argument("--dist-nccl", metavar="DIR",
+                    help="run as the dist phase's one-rank NCCL world")
+    ap.add_argument("--dist-profile", metavar="DIR",
+                    help="profile one more step of each dist run (the "
+                    "one-rank run and every rank's) into DIR")
     args = ap.parse_args()
+    if args.dist_rank:
+        return dist_rank_main(args.dist_rank)
+    if args.dist_nccl:
+        return dist_nccl_main(args.dist_nccl)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     dev, smi = phase_device()
@@ -5565,6 +6223,9 @@ def main() -> int:
     run("frontends", phase_frontends, smi)
     run("resilience", phase_resilience, smi)
     run("search", phase_search, smi)
+    run("dist", phase_dist, smi,
+        dict(DIST_SPEC, profile=os.path.abspath(args.dist_profile))
+        if args.dist_profile else None)
     run("serve", phase_serve, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
@@ -5573,7 +6234,7 @@ def main() -> int:
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
         res["zoo"], res["frontends"], res["resilience"], res["search"],
-        res["serve"])}))
+        res["serve"], res["dist"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -13,7 +13,7 @@
 // and accumulate dq_i += ds . k_j (ds cast to k's dtype), dv_j += p_eff .
 // do_i (p_eff cast to do's dtype) and dk_j += ds . q_i (ds cast to q's
 // dtype) in f32, written once in the input dtype. The keep mask is
-// position_hash(seed, b*h, i, j) >= threshold, the forward's tuple.
+// position_hash(seed, global b*h, i, j) >= threshold, the forward's tuple.
 //
 // Design. On the TPU each kernel's grid runs its reduction axis in order
 // on one core and carries the sum in VMEM scratch (dq_sc; dk_sc, dv_sc).
@@ -158,7 +158,7 @@ __device__ __forceinline__ void tile_grads(
     float (&s)[N_FRAGS][4], float (&dp)[N_FRAGS][4], int row0, int col0,
     int warp, int g, int tig, int bh, int sq, int sk, int causal,
     float sm_scale, int use_dropout, uint32_t threshold, float keep_prob,
-    uint32_t seed, LseFn lse_of, DeltaFn delta_of) {
+    DropKey seed, LseFn lse_of, DeltaFn delta_of) {
 #pragma unroll
   for (int nt = 0; nt < N_FRAGS; ++nt) {
 #pragma unroll
@@ -204,7 +204,7 @@ struct Args {
   int use_dropout;
   uint32_t threshold;
   float keep_prob;
-  uint32_t seed;
+  DropKey seed;
   cudaStream_t stream;
 };
 
@@ -231,7 +231,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
                              T* __restrict__ dq, int sq, int sk, int D,
                              float sm_scale, int causal, int use_dropout,
                              uint32_t threshold, float keep_prob,
-                             uint32_t seed) {
+                             DropKey seed) {
   constexpr int LD = TILE + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(NUM_THREADS)
                               T* __restrict__ dk, T* __restrict__ dv, int sq,
                               int sk, int D, float sm_scale, int causal,
                               int use_dropout, uint32_t threshold,
-                              float keep_prob, uint32_t seed) {
+                              float keep_prob, DropKey seed) {
   constexpr int LD = TILE + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);
@@ -432,7 +432,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2)  // two CTAs per SM
         const float* __restrict__ lse, const float* __restrict__ delta,
         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
         int sq, int sk, float sm_scale, int causal, uint32_t threshold,
-        float keep_prob, uint32_t seed) {
+        float keep_prob, DropKey seed) {
   using Tl = DkvTiles<D>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   extern __shared__ unsigned char smem[];
@@ -659,7 +659,7 @@ __global__ void __launch_bounds__(WG_THREADS, DqTiles<D>::MIN_CTAS)
                               const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dq, int sq, int sk,
                               float sm_scale, int causal, uint32_t threshold,
-                              float keep_prob, uint32_t seed) {
+                              float keep_prob, DropKey seed) {
   using Tl = DqTiles<D>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   extern __shared__ unsigned char smem[];
@@ -918,7 +918,7 @@ __global__ void __launch_bounds__(WideSplit<D>::THREADS, 1)
                                    __nv_bfloat16* __restrict__ dq, int sq,
                                    int sk, float sm_scale, int causal,
                                    uint32_t threshold, float keep_prob,
-                                   uint32_t seed) {
+                                   DropKey seed) {
   using Tl = DqWideTiles<D>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   extern __shared__ unsigned char smem[];
@@ -1241,7 +1241,7 @@ __global__ void __launch_bounds__(WideSplit<D>::THREADS, 1)
         const float* __restrict__ lse, const float* __restrict__ delta,
         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
         int sq, int sk, float sm_scale, int causal, uint32_t threshold,
-        float keep_prob, uint32_t seed) {
+        float keep_prob, DropKey seed) {
   using Tl = DkvWideTiles<D>;
   using Sp = typename Tl::Sp;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
@@ -1820,7 +1820,7 @@ __device__ __forceinline__ void tf32_dq(
     const CUtensorMap* map_k, const CUtensorMap* map_v,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
-    uint32_t threshold, float keep_prob, uint32_t seed) {
+    uint32_t threshold, float keep_prob, DropKey seed) {
   constexpr int D = Tl::DIM, BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   constexpr int CW = Tl::CW, C = Tl::CHUNKS, NS = Tl::NS;
   constexpr int ITEMS = 3 * C;  // ring items per key tile
@@ -1995,7 +1995,7 @@ __device__ __forceinline__ void tf32_dkv(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
     float sm_scale, int causal, uint32_t threshold, float keep_prob,
-    uint32_t seed) {
+    DropKey seed) {
   constexpr int D = Tl::DIM, BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   constexpr int CW = Tl::CW, C = Tl::CHUNKS, NS = Tl::NS;
   constexpr bool ONE_SWEEP = Tl::ONE_SWEEP;
@@ -2166,9 +2166,11 @@ __device__ __forceinline__ void tf32_dkv(
           tf32_score_item<Tl>(xdp, stage(i), bar(i), (i / NS) & 1, j == 0,
                               wg, wtid, warp, g, tig, next);
         score_sum<Tl>(xdp, wg, wtid, dp);
-        if (Tl::P_STASH) exchange_load(pbuf, wg, wtid, s);
+        // hashed while p is parked in shared memory (above d 320): the
+        // hash's temporaries then share the registers with dp^T alone
         if (DROPOUT)
           keep = keep_bits_t<NB>(m0, kpos, tig, bh, seed, threshold);
+        if (Tl::P_STASH) exchange_load(pbuf, wg, wtid, s);
         // with dV: P_eff's fragments, before ds takes p's registers
         if constexpr (DV)
           tf32_a_frags_kept<NB, DROPOUT>(s, keep, inv_keep, fh, fl);
@@ -2251,7 +2253,7 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
         const __grid_constant__ CUtensorMap tm_v,
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
-        uint32_t threshold, float keep_prob, uint32_t seed) {
+        uint32_t threshold, float keep_prob, DropKey seed) {
   tf32_dq<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta,
                                     dq, sq, sk, sm_scale, causal, threshold,
                                     keep_prob, seed);
@@ -2267,7 +2269,7 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
         float sm_scale, int causal, uint32_t threshold, float keep_prob,
-        uint32_t seed) {
+        DropKey seed) {
   tf32_dkv<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse,
                                      delta, dk, dv, sq, sk, sm_scale, causal,
                                      threshold, keep_prob, seed);
@@ -2282,7 +2284,7 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
         const __grid_constant__ CUtensorMap tm_v,
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dq, int sq, int sk, float sm_scale, int causal,
-        uint32_t threshold, float keep_prob, uint32_t seed) {
+        uint32_t threshold, float keep_prob, DropKey seed) {
   tf32_dq<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta,
                                     dq, sq, sk, sm_scale, causal, threshold,
                                     keep_prob, seed);
@@ -2298,7 +2300,7 @@ __global__ void __launch_bounds__(Tf32BwdTiles<D>::THREADS, 1)
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
         float sm_scale, int causal, uint32_t threshold, float keep_prob,
-        uint32_t seed) {
+        DropKey seed) {
   tf32_dkv<Tf32BwdTiles<D>, DROPOUT>(&tm_q, &tm_do, &tm_k, &tm_v, lse,
                                      delta, dk, dv, sq, sk, sm_scale, causal,
                                      threshold, keep_prob, seed);
@@ -2486,7 +2488,7 @@ __global__ void __launch_bounds__(WG_THREADS, 4)
         const float* __restrict__ lse, const float* __restrict__ delta,
         __nv_bfloat16* __restrict__ dq, int sq, int sk, int d,
         float sm_scale, int causal, uint32_t threshold, float keep_prob,
-        uint32_t seed) {
+        DropKey seed) {
   using Tl = BwdNarrowTiles<DP>;
   constexpr int BM = Tl::ROWS, BN = Tl::BN, NB = Tl::NB;
   constexpr int ROW = Tl::ROW, ATOM = Tl::ATOM, TB = Tl::TILE_BYTES;
@@ -2665,7 +2667,7 @@ __global__ void __launch_bounds__(WG_THREADS, DP == 32 && DROPOUT ? 3 : 4)
         const float* __restrict__ lse, const float* __restrict__ delta,
         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
         int sq, int sk, int d, float sm_scale, int causal,
-        uint32_t threshold, float keep_prob, uint32_t seed) {
+        uint32_t threshold, float keep_prob, DropKey seed) {
   using Tl = BwdNarrowTiles<DP>;
   constexpr int BN = Tl::ROWS, BM = Tl::BN, NB = Tl::NB;  // keys; queries
   constexpr int ST = Tl::STAGES;
@@ -3004,13 +3006,16 @@ int dispatch(bool dkv, int dtype, int head_dim, const Args& a) {
 // (dtype 0 = float32, 1 = bfloat16); lse, delta: (bh, sq) float32. d is
 // 64, 128 or any multiple of 64 above 128, or in bf16 also 8, 16, 24 or 32
 // (the narrow kernels); bh any count whose grid fits gridDim.x. dq: (bh,
-// sq, d) in the input type. Returns a cudaError_t (0 = launched).
+// sq, d) in the input type. seed_u32, magic, extra, base: the dropout key
+// (DropKey in flash_common.cuh). Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
     int head_dim, int dtype, int causal, float sm_scale, int use_dropout,
-    unsigned int threshold, float keep_prob, unsigned int seed,
+    unsigned int threshold, float keep_prob, unsigned int seed_u32,
+    unsigned int magic, unsigned int extra, unsigned int base,
     void* stream) {
+  const DropKey seed{seed_u32, magic, extra, base};
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, bh, sq, sk,
                causal, sm_scale, use_dropout, threshold, keep_prob, seed,
@@ -3024,7 +3029,9 @@ extern "C" int ff_flash_attention_bwd_dkv(
     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
     int sk, int head_dim, int dtype, int causal, float sm_scale,
     int use_dropout, unsigned int threshold, float keep_prob,
-    unsigned int seed, void* stream) {
+    unsigned int seed_u32, unsigned int magic, unsigned int extra,
+    unsigned int base, void* stream) {
+  const DropKey seed{seed_u32, magic, extra, base};
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dk, dv, bh, sq, sk, causal,
                sm_scale, use_dropout, threshold, keep_prob, seed,

@@ -178,7 +178,7 @@ __global__ void __launch_bounds__(WG_THREADS, MIN_CTAS)
                            const __grid_constant__ CUtensorMap tm_o,
                            float* __restrict__ lse, int sq, int sk,
                            float sm_scale, int causal, uint32_t threshold,
-                           float keep_prob, uint32_t seed) {
+                           float keep_prob, DropKey seed) {
   using Tl = FwdTiles<D, RB>;
   constexpr int BM = Tl::BM, BN = Tl::BN;
   extern __shared__ unsigned char smem[];
@@ -366,7 +366,7 @@ template <int D, int RB, int MIN_CTAS, bool DROPOUT>
 cudaError_t launch_wgmma_t(const void* q, const void* k, const void* v,
                            void* o, void* lse, int bh, int sq, int sk,
                            int causal, float sm_scale, uint32_t threshold,
-                           float keep_prob, uint32_t seed,
+                           float keep_prob, DropKey seed,
                            cudaStream_t stream) {
   using Tl = FwdTiles<D, RB>;
   auto kernel = flash_fwd_wgmma_kernel<D, RB, MIN_CTAS, DROPOUT>;
@@ -395,7 +395,7 @@ template <int D, int RB, int MIN_CTAS>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int sk,
                          int causal, float sm_scale, int use_dropout,
-                         uint32_t threshold, float keep_prob, uint32_t seed,
+                         uint32_t threshold, float keep_prob, DropKey seed,
                          cudaStream_t stream) {
   return use_dropout
              ? launch_wgmma_t<D, RB, MIN_CTAS, true>(
@@ -472,7 +472,7 @@ __global__ void __launch_bounds__(WideSplit<D>::THREADS, 1)
                                 float* __restrict__ lse, int sq, int sk,
                                 float sm_scale, int causal,
                                 uint32_t threshold, float keep_prob,
-                                uint32_t seed) {
+                                DropKey seed) {
   using Tl = FwdWideTiles<D>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   extern __shared__ unsigned char smem[];
@@ -691,7 +691,7 @@ cudaError_t launch_wgmma_wide_t(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int sq, int sk,
                                 int causal, float sm_scale,
                                 uint32_t threshold, float keep_prob,
-                                uint32_t seed, cudaStream_t stream) {
+                                DropKey seed, cudaStream_t stream) {
   using Tl = FwdWideTiles<D>;
   auto kernel = flash_fwd_wgmma_wide_kernel<D, DROPOUT>;
   static unsigned long long smem_set = 0;  // per instantiation and device
@@ -718,7 +718,7 @@ cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int sq, int sk,
                               int causal, float sm_scale, int use_dropout,
                               uint32_t threshold, float keep_prob,
-                              uint32_t seed, cudaStream_t stream) {
+                              DropKey seed, cudaStream_t stream) {
   return use_dropout
              ? launch_wgmma_wide_t<D, true>(q, k, v, o, lse, bh, sq, sk,
                                             causal, sm_scale, threshold,
@@ -786,7 +786,7 @@ __global__ void __launch_bounds__(WG_THREADS, 4)
                                   float* __restrict__ lse, int sq, int sk,
                                   float sm_scale, int causal,
                                   uint32_t threshold, float keep_prob,
-                                  uint32_t seed) {
+                                  DropKey seed) {
   using Tl = NarrowTiles<DP>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB;
   constexpr int ROW = Tl::ROW, ATOM = Tl::ATOM;
@@ -968,7 +968,7 @@ template <int DP, bool DROPOUT>
 cudaError_t launch_narrow_t(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int sq, int sk, int d,
                             int causal, float sm_scale, uint32_t threshold,
-                            float keep_prob, uint32_t seed,
+                            float keep_prob, DropKey seed,
                             cudaStream_t stream) {
   using Tl = NarrowTiles<DP>;
   auto kernel = flash_fwd_wgmma_narrow_kernel<DP, DROPOUT>;
@@ -1002,7 +1002,7 @@ template <int DP>
 cudaError_t launch_narrow(const void* q, const void* k, const void* v,
                           void* o, void* lse, int bh, int sq, int sk, int d,
                           int causal, float sm_scale, int use_dropout,
-                          uint32_t threshold, float keep_prob, uint32_t seed,
+                          uint32_t threshold, float keep_prob, DropKey seed,
                           cudaStream_t stream) {
   return use_dropout
              ? launch_narrow_t<DP, true>(
@@ -1092,7 +1092,7 @@ __global__ void __launch_bounds__(Tf32Tiles<D>::THREADS, 1)
                                 float* __restrict__ lse, int sq, int sk,
                                 float sm_scale, int causal,
                                 uint32_t threshold, float keep_prob,
-                                uint32_t seed) {
+                                DropKey seed) {
   using Tl = Tf32Tiles<D>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, KVB = Tl::KV_BYTES;
   constexpr int NWG = Tl::NWG;
@@ -1309,7 +1309,7 @@ template <int D, bool DROPOUT>
 cudaError_t launch_tf32_t(const void* q, const void* k, const void* v,
                           void* o, void* lse, int bh, int sq, int sk,
                           int causal, float sm_scale, uint32_t threshold,
-                          float keep_prob, uint32_t seed,
+                          float keep_prob, DropKey seed,
                           cudaStream_t stream) {
   using Tl = Tf32Tiles<D>;
   auto kernel = flash_fwd_wgmma_tf32_kernel<D, DROPOUT>;
@@ -1336,7 +1336,7 @@ template <int D>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
                         void* o, void* lse, int bh, int sq, int sk,
                         int causal, float sm_scale, int use_dropout,
-                        uint32_t threshold, float keep_prob, uint32_t seed,
+                        uint32_t threshold, float keep_prob, DropKey seed,
                         cudaStream_t stream) {
   return use_dropout
              ? launch_tf32_t<D, true>(q, k, v, o, lse, bh, sq, sk, causal,
@@ -1437,7 +1437,7 @@ __global__ void __launch_bounds__(Tf32WideTiles<D>::THREADS, 1)
                                      float* __restrict__ lse, int sq, int sk,
                                      float sm_scale, int causal,
                                      uint32_t threshold, float keep_prob,
-                                     uint32_t seed) {
+                                     DropKey seed) {
   using Tl = Tf32WideTiles<D>;
   constexpr int BM = Tl::BM, BN = Tl::BN, NB = Tl::NB, CW = Tl::CW;
   constexpr int C = Tl::CHUNKS, NS = Tl::NS;
@@ -1620,7 +1620,7 @@ cudaError_t launch_tf32_wide_t(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int sq, int sk,
                                int causal, float sm_scale,
                                uint32_t threshold, float keep_prob,
-                               uint32_t seed, cudaStream_t stream) {
+                               DropKey seed, cudaStream_t stream) {
   using Tl = Tf32WideTiles<D>;
   auto kernel = flash_fwd_wgmma_wide_tf32_kernel<D, DROPOUT>;
   static unsigned long long smem_set = 0;  // per instantiation and device
@@ -1646,7 +1646,7 @@ cudaError_t launch_tf32_wide(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int sq, int sk,
                              int causal, float sm_scale, int use_dropout,
                              uint32_t threshold, float keep_prob,
-                             uint32_t seed, cudaStream_t stream) {
+                             DropKey seed, cudaStream_t stream) {
   return use_dropout
              ? launch_tf32_wide_t<D, true>(q, k, v, o, lse, bh, sq, sk,
                                            causal, sm_scale, threshold,
@@ -1685,7 +1685,7 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
                           float* __restrict__ lse, int sq, int sk, int D,
                           float sm_scale, int causal, int use_dropout,
                           uint32_t threshold, float keep_prob,
-                          uint32_t seed) {
+                          DropKey seed) {
   constexpr int LD = TILE + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);  // Q chunk
@@ -1797,7 +1797,7 @@ template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
                         void* lse, int bh, int sq, int sk, int D, int causal,
                         float sm_scale, int use_dropout, uint32_t threshold,
-                        float keep_prob, uint32_t seed, cudaStream_t stream) {
+                        float keep_prob, DropKey seed, cudaStream_t stream) {
   const size_t smem = (size_t)4 * TILE * (TILE + 4) * sizeof(float);
   auto kernel = flash_fwd_wide_kernel<T>;
   static unsigned long long smem_set = 0;  // per instantiation and device
@@ -1828,16 +1828,19 @@ constexpr long long TWO_BLOCK_MIN_CTAS = 2 * 132;
 // at d = 192 ... 512 the wide wgmma kernel, f32 at d = 64 and 128 the
 // split-precision TF32 wgmma kernel, f32 at d = 192 ... 512 the wide
 // split-precision TF32 wgmma kernel, either type above 512 the wide FMA
-// kernel. Returns a cudaError_t (0 = launched).
+// kernel. seed_u32, magic, extra, base: the dropout key (DropKey in
+// flash_common.cuh). Returns a cudaError_t (0 = launched).
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bh, int sq, int sk, int head_dim,
                                       int dtype, int causal, float sm_scale,
                                       int use_dropout, unsigned int threshold,
-                                      float keep_prob, unsigned int seed,
-                                      void* stream) {
+                                      float keep_prob, unsigned int seed_u32,
+                                      unsigned int magic, unsigned int extra,
+                                      unsigned int base, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || head_dim <= 0)
     return (int)cudaErrorInvalidValue;
+  const DropKey seed{seed_u32, magic, extra, base};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool two_blocks =
       !use_dropout &&

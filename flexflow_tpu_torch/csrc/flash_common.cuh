@@ -32,9 +32,9 @@ constexpr float NEG_INF = -1e30f;
 // the murmur3 fmix32 finalizer with logical shifts. The first two
 // constants are that code's int32 values -1640531527 and 840146601 as
 // uint32 (its comments misname them 0x9E3779B1 and 0x3243F6A9). The
-// forward and both backward kernels call it with the same (seed, b*h,
-// absolute q position, absolute k position) tuple, so they rebuild one
-// keep mask whatever their tiling.
+// forward and both backward kernels call it with the same (seed, global
+// b*h, absolute q position, absolute k position) tuple (DropKey below), so
+// they rebuild one keep mask whatever their tiling or sharding.
 __device__ __forceinline__ uint32_t position_hash(uint32_t seed, uint32_t bh,
                                                   uint32_t q_pos,
                                                   uint32_t k_pos) {
@@ -48,6 +48,34 @@ __device__ __forceinline__ uint32_t position_hash(uint32_t seed, uint32_t bh,
   return u;
 }
 
+// A launch's dropout key: the seed, and where the launch's b*h rows sit in
+// the global batch the hash is taken over. A rank of a sharded run holds
+// the rows b0.. of the batch and the heads h0.. of h_total (h_local of them
+// here); its launch index bh = b * h_local + h hashes as the global
+// (b0 + b) * h_total + h0 + h = bh + b * (h_total - h_local) + b0 *
+// h_total + h0, with b = bh / h_local as umulhi(2 bh, magic), magic =
+// floor(2**31 / h_local) + 1 (exact while bh * h_local < 2**31, which the
+// host checks). No division and a few instructions from bh: the kernels
+// recompute it where they hash rather than hold it in a register. The
+// whole batch (extra = base = 0) maps every index to itself.
+struct DropKey {
+  uint32_t seed;
+  uint32_t magic;  // floor(2**31 / h_local) + 1
+  uint32_t extra;  // h_total - h_local
+  uint32_t base;   // b0 * h_total + h0
+
+  __device__ __forceinline__ uint32_t global_bh(int bh) const {
+    const uint32_t u = (uint32_t)bh;
+    return u + __umulhi(u << 1, magic) * extra + base;
+  }
+};
+
+__device__ __forceinline__ uint32_t position_hash(const DropKey& key, int bh,
+                                                  uint32_t q_pos,
+                                                  uint32_t k_pos) {
+  return position_hash(key.seed, key.global_bh(bh), q_pos, k_pos);
+}
+
 // The dropout keep mask of this thread's 4 * NB scores of a tile of 8 * NB
 // keys [n0, n0 + 8 * NB) (64 by default) in the query-row frame of a
 // wgmma accumulator (rows qpos[0] and qpos[1], the thread's columns 8 *
@@ -55,7 +83,8 @@ __device__ __forceinline__ uint32_t position_hash(uint32_t seed, uint32_t bh,
 // nt, fragment slot c.
 template <int NB = 8>
 __device__ __forceinline__ uint32_t keep_bits(int n0, const int (&qpos)[2],
-                                              int tig, int bh, uint32_t seed,
+                                              int tig, int bh,
+                                              const DropKey& seed,
                                               uint32_t threshold) {
   static_assert(NB <= 8, "32 bits");
   uint32_t bits = 0;
@@ -78,7 +107,7 @@ __device__ __forceinline__ uint32_t keep_bits(int n0, const int (&qpos)[2],
 template <int NB>
 __device__ __forceinline__ uint32_t keep_bits_t(int m0, const int (&kpos)[2],
                                                 int tig, int bh,
-                                                uint32_t seed,
+                                                const DropKey& seed,
                                                 uint32_t threshold) {
   static_assert(NB <= 8, "32 bits");
   uint32_t bits = 0;

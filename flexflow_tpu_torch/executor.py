@@ -10,15 +10,26 @@ over micro-batches) and the optimizer update, fused or not;
 ``make_eval_step`` computes the loss and metrics; ``scored_forward``,
 ``kv_prefill`` and ``kv_decode_step`` serve generation. ``remat="blocks"``
 recomputes each repeated block in the backward pass
-(``torch.utils.checkpoint``, one region per block). Banks, place groups,
-sharding constraints, pipelines and the multi-device train-step branches
-(overlap, quantized sync, ZeRO) belong to the JAX package's multi-device
-lowerings and come with the slices that port them.
+(``torch.utils.checkpoint``, one region per block).
+
+Over a world of ranks (``attach_world``: a live mesh and its strategy)
+every value is a DTensor with its global logical shape, as under GSPMD,
+so each op's ``emit`` runs unchanged: parameters are placed per
+``weight_sharding`` (``reshard.place_host``), inputs per
+``input_sharding`` (each rank keeps its rows), and each op's output goes
+through ``reshard.constrain_output``. The loss and metrics read the
+outputs replicated, so every rank reports the same values; each
+gradient is reduced to its parameter's layout (a replicated leaf's over
+the data-parallel axes) and the optimizer updates each rank's blocks.
+Banks, place groups, pipelines and the overlap, quantized-sync and ZeRO
+branches of the train step come with the slices that port them.
 Each step function is wrapped by :func:`_instrument_step`, which records
 the ``executor.<name>_step`` spans when tracing is on.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -118,6 +129,9 @@ class GraphProgram:
         # tensor's own device names the index ("cuda:0")
         self._staged: Dict[int, Tuple[Any, torch.device,
                                       torch.Tensor]] = {}
+        # over a live mesh, the strategy that lays the values out
+        # (Executor.attach_world); None on one device
+        self.strategy = None
 
     @staticmethod
     def _to_device(value, t: Tensor, device: torch.device) -> torch.Tensor:
@@ -151,14 +165,42 @@ class GraphProgram:
         env: Dict[int, Any] = {}
         for t in self.input_tensors:
             if t.name in inputs:
-                env[t.guid] = self._to_device(inputs[t.name], t, device)
+                if self.strategy is not None:
+                    env[t.guid] = self._place_input(inputs[t.name], t,
+                                                    device)
+                else:
+                    env[t.guid] = self._to_device(inputs[t.name], t, device)
             elif t.get_tensor() is not None:
                 if not self._is_staged(t, device):
                     self.stage_consts(device)
                 env[t.guid] = self._staged[t.guid][2]
+                if self.strategy is not None:
+                    env[t.guid] = self._replicated(env[t.guid])
             else:
                 raise KeyError(f"missing input {t.name}")
         return env
+
+    def _place_input(self, value, t: Tensor, device: torch.device):
+        """A graph input over the live mesh, laid out per the strategy's
+        ``input_sharding``: from the whole global batch (each rank keeps
+        its block) or from this rank's own rows (a loader that read only
+        ``local_row_range``)."""
+        from .parallel.distributed import put_global
+        from .parallel.strategy import spec_placements
+        st = self.strategy
+        pl = spec_placements(st.input_sharding(t.name), st.dmesh,
+                             len(t.shape))
+        shape = tuple(value.shape)
+        if shape[1:] == tuple(t.shape[1:]):
+            shape = tuple(t.shape)
+        return put_global(value, st.dmesh.mesh, pl, device=device,
+                          dtype=to_torch(t.dtype), global_shape=shape)
+
+    def _replicated(self, x: torch.Tensor):
+        from torch.distributed.tensor import Replicate
+        from .parallel.local_ops import from_local
+        mesh = self.strategy.dmesh.mesh
+        return from_local(x, mesh, [Replicate()] * mesh.ndim, x.shape)
 
     def _frees(self, layers: Sequence[Layer]) -> List[List[int]]:
         """For each layer, the env entries that die after it runs: the
@@ -190,18 +232,31 @@ class GraphProgram:
         bf16_act = bool(getattr(ctx.config, "bf16_activations", False)) \
             if ctx.config is not None else False
         frees = None if torch.is_grad_enabled() else self._frees(layers)
+        st = self.strategy
+        replicate_consts = contextlib.nullcontext
+        if st is not None:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication as replicate_consts
+            from .parallel.reshard import constrain_output
+            ctx.strategy = st
         captured = None
         for li, layer in enumerate(layers):
             op = get_op_def(layer.op_type)
             ins = [env[t.guid] for t in layer.inputs]
-            outs = op.emit(layer.params, ins, params.get(layer.name, {}),
-                           ctx, layer.name)
+            # over a live mesh a plain tensor an op makes (a position
+            # range, a mask) is the same on every rank: replicated
+            with replicate_consts():
+                outs = op.emit(layer.params, ins, params.get(layer.name, {}),
+                               ctx, layer.name)
             del ins
             if len(outs) != len(layer.outputs):
                 raise RuntimeError(
                     f"op {layer.name} emitted {len(outs)} outputs, "
                     f"expected {len(layer.outputs)}")
-            for o, t in zip(outs, layer.outputs):
+            for oi, (o, t) in enumerate(zip(outs, layer.outputs)):
+                if st is not None:
+                    o = constrain_output(o, st.output_sharding(
+                        layer.name, oi), st, layer)
                 if t.guid == capture:
                     # the pre-bf16-cast value: the CE-on-logits loss reads
                     # full-precision logits from here
@@ -224,6 +279,16 @@ class GraphProgram:
         env = self.init_env(inputs, device)
         captured = self.emit_layers(self.layers, env, params, ctx, capture)
         return [env[t.guid] for t in self.output_tensors], captured
+
+
+def _local_tree(tree):
+    """A nested dict of tensors with each DTensor leaf replaced by its
+    local block (the same storage: an in-place update of the block updates
+    the DTensor)."""
+    from .parallel.local_ops import is_dtensor
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    return tree.to_local() if is_dtensor(tree) else tree
 
 
 def _find_remat_blocks(layers):
@@ -294,11 +359,40 @@ class Executor:
         # input as logits (the gradient is the reference's
         # (probs - labels) / batch)
         self._logits_tensor: Optional[Tensor] = None
+        # over a world of ranks: the strategy and its live mesh
+        self.strategy = None
         if losses_mod.wants_logits(self.loss_type) \
                 and self.program.output_tensors:
             prod = self.program.output_tensors[0].owner_layer
             if prod is not None and prod.op_type == OperatorType.OP_SOFTMAX:
                 self._logits_tensor = prod.inputs[0]
+
+    def attach_world(self, strategy) -> None:
+        """Run over ``strategy``'s live mesh (``DeviceMesh.live``): the
+        values become DTensors laid out by the strategy."""
+        if not strategy.dmesh.live:
+            raise ValueError("attach_world needs a strategy over a live "
+                             "mesh")
+        self.strategy = strategy
+        self.program.strategy = strategy
+
+    def _no_grad(self):
+        """``torch.inference_mode()`` on one device; ``torch.no_grad()``
+        over a live mesh, where DTensor computes ``a & b`` of two boolean
+        DTensors wrongly under inference mode (MoE's dispatch mask
+        parted from the one-device run's)."""
+        return torch.no_grad() if self.strategy is not None \
+            else torch.inference_mode()
+
+    def _unplace(self, x):
+        """A value as the host sees it: the whole tensor on every rank (a
+        gather where it is sharded); a plain tensor unchanged."""
+        from .parallel.local_ops import is_dtensor
+        if not is_dtensor(x):
+            return x
+        from torch.distributed.tensor import Replicate
+        mesh = x.device_mesh
+        return x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
 
     def init_params_and_state(self):
         """Materialize every layer's WeightSpecs on the device, each from
@@ -325,7 +419,25 @@ class Executor:
                     sname: (torch.ones if sname == "var" else torch.zeros)(
                         sshape, dtype=to_torch(sdt), device=self.device)
                     for sname, (sshape, sdt) in ss.items()}
+        if self.strategy is not None:
+            params, state = self.place_tree(params), self.place_state(state)
         return params, state
+
+    def place_state(self, state):
+        """Every op state entry replicated over the live mesh."""
+        return {ln: {k: self.program._replicated(v) for k, v in d.items()}
+                for ln, d in state.items()}
+
+    def place_tree(self, params):
+        """Every parameter laid out per the strategy's ``weight_sharding``
+        over the live mesh (``reshard.place_host``: each rank keeps its
+        block of the whole array, which every rank holds alike)."""
+        from .parallel.reshard import place_host
+        st = self.strategy
+        return {ln: {wn: place_host(t, st.dmesh, st.weight_sharding(ln, wn),
+                                    device=self.device)
+                     for wn, t in ws.items()}
+                for ln, ws in params.items()}
 
     def _rngs_for_step(self, step: int) -> Dict[str, LayerRng]:
         """Each dropout layer's randomness for one (sub-)step, keyed by
@@ -412,6 +524,9 @@ class Executor:
         return [env[t.guid] for t in self.program.output_tensors], captured
 
     def _loss_and_metrics(self, outs, logits, label, aux_losses):
+        if self.strategy is not None:
+            outs, logits, label, aux_losses = self._replicate_for_loss(
+                outs, logits, label, aux_losses)
         pred = outs[0]
         label = _as_tensor(label, self.device)
         if self._logits_tensor is not None:
@@ -425,6 +540,31 @@ class Executor:
                                                self.loss_type)
         bm["loss"] = loss
         return loss, bm
+
+    def _replicate_for_loss(self, outs, logits, label, aux_losses):
+        """The loss's operands over a live mesh, whole on every rank: the
+        outputs and logits gathered (the gradient flows back to each
+        rank's block), and the labels too where the batch came as this
+        rank's rows, so that every rank computes the same loss and
+        metrics."""
+        from .parallel.distributed import put_global
+        outs = [self._unplace(o) for o in outs]
+        logits = None if logits is None else self._unplace(logits)
+        aux_losses = [self._unplace(a) for a in aux_losses]
+        rows = outs[0].shape[0]
+        if label is not None and label.shape[0] != rows:
+            t = self.program.output_tensors[0]
+            spec = self.strategy.output_sharding(t.owner_layer.name,
+                                                 t.owner_idx) \
+                if t.owner_layer is not None else None
+            from .parallel.strategy import spec_placements
+            dm = self.strategy.dmesh
+            pl = spec_placements(spec[:1] if spec else None, dm,
+                                 len(label.shape))
+            label = self._unplace(put_global(
+                label, dm.mesh, pl, device=self.device,
+                global_shape=(rows, *label.shape[1:])))
+        return outs, logits, label, aux_losses
 
     def _refuse_multi_device_options(self) -> None:
         """The overlap, quantized-sync and ZeRO branches of the JAX train
@@ -445,7 +585,7 @@ class Executor:
             asked.append("ZeRO (shard_optimizer_states / zero_policy)")
         if asked:
             raise NotImplementedError(
-                "the port's train step runs on one device; not ported yet: "
+                "not ported yet (ROADMAP queue 1 item 4.2): "
                 + ", ".join(asked))
 
     def _grads(self, params, state, batch, step: int):
@@ -466,8 +606,14 @@ class Executor:
             gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (ln, wn), t, g in zip(names, leaves, gs):
-            grads.setdefault(ln, {})[wn] = \
-                torch.zeros_like(t) if g is None else g
+            if g is None:
+                g = torch.zeros_like(t)
+            elif self.strategy is not None \
+                    and list(g.placements) != list(t.placements):
+                # a partial sum (a replicated leaf's, over the data-
+                # parallel axes) reduced to the leaf's own layout
+                g = g.redistribute(t.device_mesh, t.placements)
+            grads.setdefault(ln, {})[wn] = g
         return grads, new_state, {k: v.detach() for k, v in bm.items()}
 
     def make_train_step(self):
@@ -530,11 +676,18 @@ class Executor:
             bm["all_finite"] = torch.isfinite(bm["loss"]).all()
             if self._kernel_impls.get("opt_update") == "fused":
                 from .runtime.optimizers import fused_adam_tree_update
-                params, opt_state = fused_adam_tree_update(
-                    self.optimizer, params, grads, opt_state, step + 1)
+                update = functools.partial(fused_adam_tree_update,
+                                           self.optimizer)
             else:
-                params, opt_state = self.optimizer.update(
-                    params, grads, opt_state, step + 1)
+                update = self.optimizer.update
+            if self.strategy is None:
+                params, opt_state = update(params, grads, opt_state,
+                                           step + 1)
+            else:
+                # each rank updates its own blocks in place: every
+                # gradient and moment is laid out as its parameter is
+                update(_local_tree(params), _local_tree(grads),
+                       _local_tree(opt_state), step + 1)
             return params, opt_state, state, bm
 
         self._train_step = _instrument_step(step_fn, "train")
@@ -547,12 +700,12 @@ class Executor:
             return self._eval_step
 
         def step_fn(params, state, batch):
-            with torch.inference_mode():
+            with self._no_grad():
                 outs, _, aux, logits = self._forward(params, state, batch,
                                                      False)
                 _, bm = self._loss_and_metrics(outs, logits,
                                                batch["label"], aux)
-            return outs[0], bm
+            return self._unplace(outs[0]), bm
 
         self._eval_step = _instrument_step(step_fn, "eval")
         return self._eval_step
@@ -565,9 +718,10 @@ class Executor:
             return self._forward_fn
 
         def fwd(params, state, batch):
-            with torch.inference_mode():
+            with self._no_grad():
                 outs, _, _, _ = self._forward(params, state, batch, False,
                                               capture=False)
+                outs = [self._unplace(o) for o in outs]
             return outs[0] if len(outs) == 1 else outs
 
         self._forward_fn = _instrument_step(fwd, "forward")
@@ -585,6 +739,10 @@ class Executor:
         return torch.log(torch.clamp(outs[0], min=1e-20))
 
     def _kv_ctx(self, mode: str, state) -> EmitCtx:
+        if self.strategy is not None:
+            raise NotImplementedError(
+                "generation over a world of ranks is not ported (ROADMAP "
+                "queue 1 item 4.6)")
         ctx = EmitCtx(training=False, rngs={}, state=state,
                       config=self.config)
         self._attach_kernel_ctx(ctx)
@@ -596,7 +754,7 @@ class Executor:
     def scored_forward(self, params, state, batch):
         """Forward returning log-domain next-token scores (B, L, V), under
         ``torch.inference_mode()``."""
-        with torch.inference_mode():
+        with self._no_grad():
             outs, _, _, logits = self._forward(params, state, batch, False)
             return self._scores(outs, logits)
 

@@ -101,6 +101,9 @@ def load_reference_params(ff, ref_params: Mapping[str, Mapping[str, Any]],
         raise ValueError("compile() the port model first")
     new = _paired_tree(ff, ref_params, ref_layer_names,
                        lambda dt, arr: to_torch(dt))
+    if ff.executor.strategy is not None:
+        # over a world of ranks: each rank keeps its block of each leaf
+        new = ff.executor.place_tree(new)
     ff.params = new
     return new
 
@@ -118,6 +121,8 @@ def load_reference_state(ff, ref_state: Mapping[str, Mapping[str, Any]],
         raise ValueError("compile() the port model first")
     new = _paired_tree(ff, ref_state, ref_layer_names,
                        lambda dt, arr: to_torch(dt), _state_specs, "state")
+    if ff.executor.strategy is not None:
+        new = ff.executor.place_state(new)
     ff.state = new
     return new
 
@@ -147,5 +152,8 @@ def load_reference_opt_state(ff, ref_opt_state: Mapping[str, Any],
     new = {slot: _paired_tree(ff, ref_opt_state[slot], ref_layer_names,
                               dtype_of)
            for slot in ref_opt_state}
+    if ff.executor.strategy is not None:
+        # each moment laid out as its parameter
+        new = {slot: ff.executor.place_tree(t) for slot, t in new.items()}
     ff.opt_state = new
     return new

@@ -37,7 +37,8 @@ kernels and ``chip_smoke.py`` holds against the CUDA kernels.
 Semantics kept from the reference: masked scores are ``NEG_INF = -1e30``
 (finite); the softmax denominator sums the undropped p; dropout keeps
 ``p / (1 - rate)`` where the counter hash of (seed, b*h + h, absolute q
-position, absolute k position) clears the threshold; p is cast to the
+position, absolute k position) clears the threshold, b and h the global
+row and head of a sharded batch (``bh_map``); p is cast to the
 input dtype before the P.V product; rows with ``l == 0`` give ``o = 0``
 and ``lse = m``; the default ``sm_scale`` is ``1/sqrt(d)`` of the
 UNPADDED head dim, kept when the wrapper pads d up to a multiple of 64,
@@ -101,12 +102,39 @@ def _position_keep(seed: int, bh: torch.Tensor, q_pos: torch.Tensor,
     return u >= _threshold(rate)
 
 
-def dropout_keep_mask(b: int, h: int, sq: int, sk: int, rate: float,
-                      seed: int, device="cpu") -> torch.Tensor:
-    """The kernel's counter-based keep mask as a (b, h, sq, sk) bool
-    tensor. Bit-identical to the JAX package's ``dropout_keep_mask``."""
+def global_bh(b: int, h: int, bh_map=None, device="cpu") -> torch.Tensor:
+    """The (b * h,) int64 indices the dropout hash takes for a block of
+    ``b`` rows and ``h`` heads: ``bh_map = (h_total, b0, h0)`` places it
+    at rows ``b0..`` and heads ``h0..`` of a batch of ``h_total`` heads
+    (a rank's block of a sharded batch), so the block hashes as those
+    rows and heads of the whole batch do; None is the whole batch
+    (0 ... b*h - 1). The kernels' ``DropKey::global_bh``."""
+    ht, b0, h0 = (h, 0, 0) if bh_map is None else (int(x) for x in bh_map)
     kw = dict(dtype=torch.int64, device=device)
-    bh = torch.arange(b * h, **kw)[:, None, None]
+    return ((b0 + torch.arange(b, **kw))[:, None] * ht
+            + h0 + torch.arange(h, **kw)[None, :]).reshape(b * h)
+
+
+def _map_args(b: int, h: int, bh_map):
+    """The C entries' (magic, extra, base) of ``DropKey`` (``csrc/
+    flash_common.cuh``): the global index of launch row bh is bh +
+    umulhi(2 bh, magic) * extra + base, umulhi(2 bh, magic) = bh // h,
+    exact while b * h * h < 2**31."""
+    ht, b0, h0 = (h, 0, 0) if bh_map is None else (int(x) for x in bh_map)
+    if b * h * h >= 1 << 31:
+        raise ValueError(f"the dropout key's b*h index needs b*h*h < 2**31, "
+                         f"got b {b} h {h}")
+    return (1 << 31) // h + 1, ht - h, b0 * ht + h0
+
+
+def dropout_keep_mask(b: int, h: int, sq: int, sk: int, rate: float,
+                      seed: int, device="cpu", bh_map=None) -> torch.Tensor:
+    """The kernel's counter-based keep mask as a (b, h, sq, sk) bool
+    tensor, of the block that ``bh_map`` places (:func:`global_bh`).
+    Bit-identical to the JAX package's ``dropout_keep_mask`` (for the
+    whole batch, or cut to the block)."""
+    kw = dict(dtype=torch.int64, device=device)
+    bh = global_bh(b, h, bh_map, device)[:, None, None]
     qp = torch.arange(sq, **kw)[None, :, None]
     kp = torch.arange(sk, **kw)[None, None, :]
     return _position_keep(int(seed), bh, qp, kp, rate).reshape(b, h, sq, sk)
@@ -117,7 +145,8 @@ def dropout_keep_mask(b: int, h: int, sq: int, sk: int, rate: float,
 # ---------------------------------------------------------------------------
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           sm_scale: Optional[float] = None,
-                          dropout_rate: float = 0.0, dropout_seed=None):
+                          dropout_rate: float = 0.0, dropout_seed=None,
+                          bh_map=None):
     """What the kernel computes, in plain PyTorch on any device, with one
     full softmax instead of the kernel's online one. Returns
     ``(o, lse)``: o in q's dtype, lse (b, h, sq) in f32."""
@@ -135,7 +164,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(b, h, sq, sk, dropout_rate,
-                                 int(dropout_seed), q.device)
+                                 int(dropout_seed), q.device, bh_map)
         p = torch.where(keep, p / (1.0 - dropout_rate),
                         torch.zeros_like(p))
     pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
@@ -167,7 +196,7 @@ def mha_reference(q, k, v, *, causal: bool = False,
 
 
 def _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, dropout_rate,
-               dropout_seed):
+               dropout_seed, bh_map=None):
     """p_eff and ds of every (query, key) pair, in f32: the quantities
     the dq and dk/dv kernels accumulate (``_bwd_dq_kernel`` and
     ``_bwd_dkv_kernel``)."""
@@ -182,7 +211,7 @@ def _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, dropout_rate,
     p_eff = p
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(b, h, sq, sk, dropout_rate,
-                                 int(dropout_seed), q.device)
+                                 int(dropout_seed), q.device, bh_map)
         zero = torch.zeros_like(p)
         dp = torch.where(keep, dp / (1.0 - dropout_rate), zero)
         p_eff = torch.where(keep, p / (1.0 - dropout_rate), zero)
@@ -192,27 +221,27 @@ def _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, dropout_rate,
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, *, causal=False,
                                  sm_scale=None, dropout_rate=0.0,
-                                 dropout_seed=None):
+                                 dropout_seed=None, bh_map=None):
     """What the dq kernel computes: ``dq = ds.astype(k.dtype) . k``
     summed in f32, in q's dtype."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale,
-                       dropout_rate, dropout_seed)
+                       dropout_rate, dropout_seed, bh_map)
     return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                         k.float()).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=False,
                                   sm_scale=None, dropout_rate=0.0,
-                                  dropout_seed=None):
+                                  dropout_seed=None, bh_map=None):
     """What the dk/dv kernel computes: ``dv = p_eff.astype(do.dtype)^T .
     do`` and ``dk = ds.astype(q.dtype)^T . q``, summed in f32, in k's and
     v's dtypes."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p_eff, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale,
-                           dropout_rate, dropout_seed)
+                           dropout_rate, dropout_seed, bh_map)
     dv = torch.einsum("bhqk,bhqd->bhkd", p_eff.to(do.dtype).float(),
                       do.float()).to(v.dtype)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
@@ -222,13 +251,14 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=False,
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
                               sm_scale: Optional[float] = None,
-                              dropout_rate: float = 0.0, dropout_seed=None):
+                              dropout_rate: float = 0.0, dropout_seed=None,
+                              bh_map=None):
     """The JAX package's ``_flash_bwd_rule`` in plain PyTorch: delta =
     rowsum(do * o) in f32, then dq, dk, dv as the two backward kernels
     compute them. Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
     delta = (do.float() * o.float()).sum(dim=-1)
     kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
+              dropout_seed=dropout_seed, bh_map=bh_map)
     dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
@@ -241,11 +271,11 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
 _ARGTYPES = {
     ("flash_attention_fwd", "ff_flash_attention_fwd"):
-        [_P] * 5 + [_I] * 6 + [_F, _I, _U, _F, _U, _P],
+        [_P] * 5 + [_I] * 6 + [_F, _I, _U, _F, _U] + [_U] * 3 + [_P],
     ("flash_attention_bwd", "ff_flash_attention_bwd_dq"):
-        [_P] * 7 + [_I] * 6 + [_F, _I, _U, _F, _U, _P],
+        [_P] * 7 + [_I] * 6 + [_F, _I, _U, _F, _U] + [_U] * 3 + [_P],
     ("flash_attention_bwd", "ff_flash_attention_bwd_dkv"):
-        [_P] * 8 + [_I] * 6 + [_F, _I, _U, _F, _U, _P],
+        [_P] * 8 + [_I] * 6 + [_F, _I, _U, _F, _U] + [_U] * 3 + [_P],
 }
 
 
@@ -314,7 +344,7 @@ def _kernel_inputs(*ts) -> None:
                              "device and be contiguous and 16-byte aligned")
 
 
-def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
+def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed, bh_map=None):
     """(o, lse) of the forward: the kernel for cuda tensors, the plain
     version for cpu ones."""
     if q.device.type == "cpu":
@@ -322,7 +352,7 @@ def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale,
                                      dropout_rate=dropout_rate,
-                                     dropout_seed=seed)
+                                     dropout_seed=seed, bh_map=bh_map)
     _kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -332,6 +362,7 @@ def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b * h, sq, sk, d, _DTYPE_CODES[q.dtype],
         int(causal), float(sm_scale), *_dropout_args(dropout_rate, seed),
+        *_map_args(b, h, bh_map),
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_fwd")
     flash_attention.launches += 1
@@ -340,7 +371,8 @@ def _fwd(q, k, v, causal, sm_scale, dropout_rate, seed):
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                            sm_scale: Optional[float] = None,
-                           dropout_rate: float = 0.0, dropout_seed=None):
+                           dropout_rate: float = 0.0, dropout_seed=None,
+                           bh_map=None):
     """dq of flash attention from the forward's lse and ``delta =
     rowsum(do * o)`` (both (b, h, sq) f32). CUDA tensors (head dim 64,
     128 or a multiple of 64 above 128, or bf16 at 8, 16, 24 or 32) launch
@@ -362,7 +394,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
         flash_attention_bwd_dq.plain_calls += 1
         return flash_attention_bwd_dq_plain(
             q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
-            dropout_rate=dropout_rate, dropout_seed=seed)
+            dropout_rate=dropout_rate, dropout_seed=seed, bh_map=bh_map)
     _kernel_inputs(q, k, v, do)
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
@@ -371,6 +403,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
         lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
         dq.data_ptr(), b * h, sq, k.shape[2], d, _DTYPE_CODES[q.dtype],
         int(causal), float(sm_scale), *_dropout_args(dropout_rate, seed),
+        *_map_args(b, h, bh_map),
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
@@ -379,7 +412,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
                             sm_scale: Optional[float] = None,
-                            dropout_rate: float = 0.0, dropout_seed=None):
+                            dropout_rate: float = 0.0, dropout_seed=None,
+                            bh_map=None):
     """(dk, dv) of flash attention, as :func:`flash_attention_bwd_dq`
     takes its inputs. CUDA tensors launch the dk/dv kernel of
     ``csrc/flash_attention_bwd.cu`` (bf16 at d = 64 and 128: the
@@ -399,7 +433,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
         flash_attention_bwd_dkv.plain_calls += 1
         return flash_attention_bwd_dkv_plain(
             q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
-            dropout_rate=dropout_rate, dropout_seed=seed)
+            dropout_rate=dropout_rate, dropout_seed=seed, bh_map=bh_map)
     _kernel_inputs(q, k, v, do)
     b, h, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -408,7 +442,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
         lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b * h, sq, k.shape[2], d,
         _DTYPE_CODES[q.dtype], int(causal), float(sm_scale),
-        *_dropout_args(dropout_rate, seed),
+        *_dropout_args(dropout_rate, seed), *_map_args(b, h, bh_map),
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
@@ -423,11 +457,13 @@ class _FlashAttention(torch.autograd.Function):
     narrow kernels, unpadded)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, dropout_rate, seed):
-        o, lse = _fwd(q, k, v, causal, sm_scale, dropout_rate, seed)
+    def forward(ctx, q, k, v, causal, sm_scale, dropout_rate, seed,
+                bh_map=None):
+        o, lse = _fwd(q, k, v, causal, sm_scale, dropout_rate, seed, bh_map)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.cfg = dict(causal=causal, sm_scale=sm_scale,
-                       dropout_rate=dropout_rate, dropout_seed=seed)
+                       dropout_rate=dropout_rate, dropout_seed=seed,
+                       bh_map=bh_map)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -438,13 +474,13 @@ class _FlashAttention(torch.autograd.Function):
         delta = (do.float() * o.float()).sum(dim=-1)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed=None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, bh_map=None):
     """Tiled flash attention, differentiable. q: (b, h, sq, d); k, v:
     (b, h, sk, d), all contiguous, one dtype (float32 or bfloat16), one
     device.
@@ -460,8 +496,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``flash_attention.launches`` (the backward's kernels count
     in ``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain
-    versions and count in ``.plain_calls``. Returns o (b, h, sq, d) in
-    q's dtype, and with ``return_lse`` also lse (b, h, sq) in f32."""
+    versions and count in ``.plain_calls``. ``bh_map = (h_total, b0,
+    h0)`` hashes the dropout mask of this block of rows and heads as the
+    rows ``b0..`` and heads ``h0..`` of a batch of ``h_total`` heads (a
+    rank's shard of a sharded batch, :func:`global_bh`); None hashes the
+    block as the whole batch. Returns o (b, h, sq, d) in q's dtype, and
+    with ``return_lse`` also lse (b, h, sq) in f32."""
     if q.dim() != 4:
         raise ValueError(f"q must be (b, h, sq, d), got {tuple(q.shape)}")
     b, h, sq, d = q.shape
@@ -500,8 +540,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
             # padding outside the Function lets autograd slice the
             # gradients back
             q, k, v = (F.pad(t, (0, d_k - d)) for t in (q, k, v))
+    if bh_map is not None:
+        ht, b0, h0 = (int(x) for x in bh_map)
+        if min(b0, h0) < 0 or h0 + h > ht:
+            raise ValueError(f"bh_map {tuple(bh_map)} does not place {h} "
+                             f"heads")
+        bh_map = (ht, b0, h0)
     o, lse = _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale),
-                                   float(dropout_rate), seed)
+                                   float(dropout_rate), seed, bh_map)
     if d_k != d:
         o = o[..., :d]
     return (o, lse) if return_lse else o

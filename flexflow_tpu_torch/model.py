@@ -42,6 +42,8 @@ from .obs import events as obs_events
 from .obs import request_trace
 from .obs.metrics_registry import DECODE_STEP_BUCKETS, REGISTRY
 from .ops import get_op_def
+from .parallel.distributed import (maybe_initialize, process_count,
+                                   rank_device)
 from .parallel.machine import DeviceMesh, MachineSpec
 from .parallel.strategy import ShardingStrategy
 from .runtime.dataloader import SingleDataLoader
@@ -520,9 +522,14 @@ class FFModel:
         to the one device, or ``MachineSpec.detect``) and its mesh, the
         strategy (given, imported, searched under a budget, or data
         parallel), the kernel plan, then the parameters, op state and
-        optimizer state. A mesh of more devices than the process has is
-        searched and exported, then refused (``NotImplementedError``:
-        executing a multi-device strategy is ROADMAP queue 1 item 4).
+        optimizer state. In a world of ranks (``parallel/distributed.py``:
+        ``FF_COORDINATOR_ADDRESS`` / ``FF_NUM_PROCESSES`` /
+        ``FF_PROCESS_ID`` or the config's flags), one device each, the
+        mesh is live and the strategy runs over it (``--tp`` / ``--sp``
+        build the Megatron preset, ``--only-data-parallel`` data
+        parallelism, a budget the search). A mesh of more devices than
+        the world has is searched and exported, then refused
+        (``NotImplementedError``).
         Applies the config's tracing choice (``obs.events.configure``)
         and records the ``model.compile`` span and the
         ``ff_model_compiles_total`` counter."""
@@ -557,21 +564,23 @@ class FFModel:
         if self.label_tensor is None and len(unconsumed) == 1:
             self.label_tensor = unconsumed[0]
 
-        for what, on in (("pipeline_stages", cfg.pipeline_stages > 1),
-                         ("tensor_parallel", cfg.tensor_parallel > 1),
-                         ("seq_parallel_degree", int(getattr(
-                             cfg, "seq_parallel_degree", 0) or 0) > 1)):
+        for what, on, item in (
+                ("pipeline_stages", cfg.pipeline_stages > 1, "4.3"),
+                ("seq_parallel_degree", int(getattr(
+                    cfg, "seq_parallel_degree", 0) or 0) > 1, "4.4")):
             if on:
                 raise NotImplementedError(
                     f"{what} is a multi-device lowering, not ported "
-                    f"(ROADMAP queue 1 item 4)")
+                    f"(ROADMAP queue 1 item {item})")
+        maybe_initialize(cfg, self.device.type)
+        world = process_count()
         if machine_spec is not None:
             spec = machine_spec
         elif cfg.machine_model_file:
             # the described machine drives the cost model; execution is
-            # clamped to the live devices (one)
+            # clamped to the live devices (one per rank)
             spec = MachineSpec.from_file(cfg.machine_model_file)
-            spec.num_devices = min(spec.num_devices, 1)
+            spec.num_devices = min(spec.num_devices, world)
         else:
             spec = MachineSpec.detect(self.device)
         mesh_shape = cfg.mesh_shape
@@ -581,10 +590,13 @@ class FFModel:
                 and getattr(spec, "ici_shape", None) \
                 and int(np.prod(spec.ici_shape)) == spec.num_devices:
             mesh_shape = tuple(spec.ici_shape)
-        self.dmesh = DeviceMesh(spec, devices=[self.device],
+        devices = [rank_device(self.device.type, r) for r in range(world)]
+        self.dmesh = DeviceMesh(spec, devices=devices,
                                 mesh_shape=mesh_shape)
         if search_budget is not None:
             cfg.search_budget = search_budget
+        if strategy is None:
+            strategy = self._tp_preset(spec, mesh_shape)
 
         exec_layers, exec_outputs = self.layers, [self._output_tensor]
         # seconds by compile phase; the search adds its own parts
@@ -605,9 +617,15 @@ class FFModel:
         if self.dmesh.described:
             raise NotImplementedError(
                 f"the strategy spans {self.dmesh.num_devices} devices and "
-                f"this process runs on one: executing a multi-device "
-                f"strategy is ROADMAP queue 1 item 4 (the search ran and "
-                f"exported it)")
+                f"the world has {world} rank(s), one device each: run it "
+                f"over a world of {self.dmesh.num_devices} ranks (ROADMAP "
+                f"queue 1 item 4.1, parallel/distributed.py); the search "
+                f"ran and exported it")
+        if getattr(self.strategy, "pipeline", None) is not None:
+            raise NotImplementedError(
+                "executing a pipeline region is ROADMAP queue 1 item 4.3")
+        if self.dmesh.live:
+            _same_on_every_rank(self.strategy, exec_layers)
         prebuilt = getattr(self, "_prebuilt_executor", None)
         self._prebuilt_executor = None
         if prebuilt is not None and prebuilt[0] is self.strategy \
@@ -623,6 +641,8 @@ class FFModel:
                                      self.optimizer, self.loss_type,
                                      self.metrics, seed=cfg.seed)
             program.stage_consts(self.device)
+        if self.dmesh.live:
+            self.executor.attach_world(self.strategy)
         self._plan_kernels()
         self.params, self.state = self.executor.init_params_and_state()
         self.opt_state = self.optimizer.init_state(self.params)
@@ -637,6 +657,48 @@ class FFModel:
                                time.perf_counter() - compile_t0,
                                n_devices=self.dmesh.num_devices,
                                n_layers=len(self.layers))
+
+    def _tp_preset(self, spec, mesh_shape) -> Optional[ShardingStrategy]:
+        """``--tp N`` (with ``--sp``): the Megatron dp x tp (x sp) preset
+        over the mesh, no search, as in the JAX package. An explicit mesh
+        shape is kept and validated; otherwise a (dp, tp) mesh is built.
+        None without ``--tp``."""
+        cfg = self.config
+        tp_deg = max(cfg.tensor_parallel, 1)
+        if cfg.sequence_parallel and tp_deg <= 1:
+            raise ValueError(
+                "--sp requires --tp N (N > 1): the sequence dim is "
+                "sharded over the tensor-parallel axes")
+        if tp_deg <= 1:
+            return None
+        from .parallel.presets import transformer_strategy
+        nd = self.dmesh.num_devices
+        if nd % tp_deg != 0:
+            raise ValueError(f"--tp {tp_deg} does not divide {nd} devices")
+        if mesh_shape is None:
+            self.dmesh = DeviceMesh(
+                spec, devices=self.dmesh.devices,
+                mesh_shape=tuple(d for d in (nd // tp_deg, tp_deg)
+                                 if d > 1))
+        axes = self.dmesh.axis_names
+        # trailing axes must realize exactly the requested degree
+        tp_axes: list = []
+        prod = 1
+        for ax in reversed(axes):
+            if prod == tp_deg:
+                break
+            tp_axes.insert(0, ax)
+            prod *= self.dmesh.axis_sizes[ax]
+        if prod != tp_deg:
+            raise ValueError(
+                f"--tp {tp_deg} not realizable from the trailing axes of "
+                f"mesh {dict(self.dmesh.axis_sizes)} (they give {prod}); "
+                f"pass a compatible --mesh-shape")
+        dp_axes = tuple(a for a in axes if a not in tp_axes)
+        return transformer_strategy(self.layers, self.input_tensors,
+                                    self.dmesh, dp_axes=dp_axes,
+                                    tp_axes=tuple(tp_axes),
+                                    sp=cfg.sequence_parallel)
 
     def _optimize_strategy(self):
         """Strategy selection: search unless --only-data-parallel.
@@ -902,7 +964,30 @@ class FFModel:
                 arrays["label" if is_label else t.name] = arr
         return SingleDataLoader(arrays, bs, self.device, shuffle=shuffle,
                                 seed=self.config.seed,
-                                prefetch=self.config.prefetch_batches)
+                                prefetch=self.config.prefetch_batches,
+                                row_ranges=self._row_ranges(arrays, bs))
+
+    def _row_ranges(self, arrays, bs: int):
+        """Over a live mesh, the rows of each batch that this rank loads
+        (``local_row_range`` of each input's ``input_sharding``; the
+        labels take the first input's): each rank feeds its own rows.
+        None on one device."""
+        ex = self.executor
+        if ex is None or ex.strategy is None:
+            return None
+        from .parallel.distributed import local_row_range
+        from .parallel.strategy import spec_placements
+        st = ex.strategy
+        out = {}
+        for t in self.graph_inputs:
+            if t.name in arrays:
+                pl = spec_placements(st.input_sharding(t.name), st.dmesh,
+                                     len(t.shape))
+                out[t.name] = local_row_range(st.dmesh.mesh, pl,
+                                              (bs, *t.shape[1:]))
+        if "label" in arrays and out:
+            out["label"] = next(iter(out.values()))
+        return out
 
     def _run_train_step(self, step_fn, batch):
         # fault-injection sites (resilience/faults.py): crash/device-loss
@@ -970,8 +1055,7 @@ class FFModel:
                 nb = 0
                 for batch in loader:
                     bm = self._run_train_step(step_fn, batch)
-                    buf.push(self._step - 1, bm,
-                             next(iter(batch.values())).shape[0])
+                    buf.push(self._step - 1, bm, loader.batch_rows(batch))
                     nb += 1
                     # dynamic recompilation hook (reference model.cc:2422)
                     rs = getattr(self, "_recompile_state", None)
@@ -1053,6 +1137,10 @@ class FFModel:
         a non-finite one raises ``NonFiniteMetrics``: a poisoned state
         never reaches a checkpoint."""
         from .runtime.checkpoint import save_model_checkpoint
+        if self.executor is not None and self.executor.strategy is not None:
+            raise NotImplementedError(
+                "a checkpoint of a world of ranks needs the multi-host "
+                "format (ROADMAP queue 1 item 4.5)")
         buf = self._metrics_buffer
         if buf is not None:
             buf.flush()
@@ -1098,7 +1186,7 @@ class FFModel:
         buf = MetricsBuffer(window=self.config.async_dispatch_steps, pm=pm)
         for batch in loader:
             _, bm = step_fn(self.params, self.state, batch)
-            buf.push(0, bm, next(iter(batch.values())).shape[0])
+            buf.push(0, bm, loader.batch_rows(batch))
         buf.flush()
         rep = pm.report()
         self._current_metrics = rep
@@ -1122,6 +1210,9 @@ class FFModel:
     def get_weights(self, layer_name: str, weight_name: str = "kernel"
                     ) -> np.ndarray:
         t = self.params[layer_name][weight_name].detach()
+        if self.executor is not None and self.executor.strategy is not None:
+            # the global array: a collective, so every rank calls it
+            t = self.executor._unplace(t)
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -1521,6 +1612,26 @@ class FFModel:
             return ids
 
 
+def _same_on_every_rank(strategy, layers) -> None:
+    """Raise unless every rank of the world chose the same strategy for
+    the same program: each rank searches on its own, and a rank whose
+    measurements steered it elsewhere would run other collectives than
+    its peers."""
+    import hashlib
+
+    import torch.distributed as dist
+    text = strategy.describe() + "|" + ",".join(
+        f"{l.name}:{l.op_type.name}" for l in layers)
+    mine = hashlib.sha256(text.encode()).hexdigest()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if len(set(every)) != 1:
+        raise RuntimeError(
+            f"the ranks chose different strategies (digests {every}); "
+            f"give every rank the same strategy (an exported strategy "
+            f"file, a preset) or the same calibration")
+
+
 def _replace_leaf(tree, what: str, layer_name: str, key: str, value):
     """Put a contiguous copy of the array ``value`` in
     ``tree[layer_name][key]``, on the old leaf's device and in its dtype
@@ -1531,6 +1642,15 @@ def _replace_leaf(tree, what: str, layer_name: str, key: str, value):
     if tuple(cur.shape) != tuple(np.shape(value)):
         raise ValueError(f"{what} {layer_name}/{key} has shape "
                          f"{tuple(cur.shape)}, got {tuple(np.shape(value))}")
+    from .parallel.local_ops import is_dtensor
+    if is_dtensor(cur):
+        # over a world of ranks: this rank's block, laid out as the leaf
+        from .parallel.distributed import put_global
+        tree[layer_name][key] = put_global(
+            torch.as_tensor(np.ascontiguousarray(value)).clone(),
+            cur.device_mesh, cur.placements,
+            device=cur.to_local().device, dtype=cur.dtype)
+        return
     tree[layer_name][key] = torch.as_tensor(
         np.ascontiguousarray(value)).to(device=cur.device, dtype=cur.dtype,
                                         copy=True)

@@ -21,6 +21,8 @@ from ..ffconst import ActiMode, AggrMode, DataType, InitializerType, \
     OperatorType, PoolType
 from ..core.tensor import WeightSpec
 from ..dtypes import to_torch
+from ..parallel.local_ops import (block_offsets, global_rand, is_dtensor,
+                                  keep_dims, run_local)
 from .registry import (OpDef, bf16_enabled, compute_dtype, generator_on,
                        host_seed, matmul, mm_f32, pad_rows, register,
                        rows_chunked)
@@ -221,7 +223,7 @@ class SoftmaxOp(OpDef):
 class DropoutOp(OpDef):
     """Identity outside training; in training a Bernoulli keep mask drawn
     on the tensor's device from the layer's rng (its bits differ from
-    JAX's)."""
+    JAX's), the same whatever the sharding (``global_rand``)."""
     op_type = OperatorType.OP_DROPOUT
 
     def infer(self, params, in_shapes, in_dtypes):
@@ -235,9 +237,11 @@ class DropoutOp(OpDef):
         rng = ctx.rng_for(name)
         if rng is None:
             raise RuntimeError(f"dropout layer {name} needs an rng")
-        gen = generator_on(rng, x.device)
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        # over a live mesh each rank draws the whole mask and keeps its
+        # block, so a sharded run masks as the one-device run does
+        mask = global_rand(x, lambda shape, dev: torch.rand(
+            shape, generator=generator_on(rng, dev), device=dev)) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
 
 
@@ -589,6 +593,32 @@ class MultiHeadAttentionOp(OpDef):
                                      mdt, cdt, q.shape[0])
         kh = self._expand_kv(kh, qh.shape[2])
         vh = self._expand_kv(vh, qh.shape[2])
+        rng = ctx.rng_for(name) if rate > 0.0 else None
+        if is_dtensor(qh):
+            # over a live mesh: each rank attends its own rows and heads
+            # (the (b, s, h, d) layout's dims 0 and 2), hashing or drawing
+            # its dropout masks at their global indices
+            pl = keep_dims(qh, (0, 2))
+            off = block_offsets(qh.shape, qh.device_mesh, pl)
+            gmap = (qh.shape[0], qh.shape[2], off[0], off[2])
+            ctxv = run_local(
+                lambda q_, k_, v_: self._attend(
+                    params, ctx, name, q_, k_, v_, rate, rng, mdt, gmap),
+                (qh, kh, vh), pl, (*qh.shape[:3], vh.shape[3]))
+        else:
+            ctxv = self._attend(params, ctx, name, qh, kh, vh, rate, rng,
+                                mdt, None)
+        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
+
+    def _attend(self, params, ctx, name, qh, kh, vh, rate, rng, mdt,
+                gmap):
+        """Attention of (B, L, h, d) heads -> the (B, Lq, h, d) f32
+        context. ``gmap`` = (B, H, b0, h0) places these rows and heads in
+        a global batch of B rows and H heads (over a live mesh: the
+        rank's block), where the dropout masks are drawn or hashed; None
+        when they are the whole."""
+        causal = params.get("causal", False)
+        window = params.get("sliding_window", 0)
         bsz, lq, h, d = qh.shape
         lk = kh.shape[1]
         impl = self._impl_for(ctx, name)
@@ -599,19 +629,20 @@ class MultiHeadAttentionOp(OpDef):
         flash_mode = {"flash": "true", "xla": "false"}.get(
             impl, self._flash_mode(ctx))
         if self._flash_enabled(ctx, seq_len=max(lq, lk), mode=flash_mode,
-                               device_type=q.device.type) \
+                               device_type=qh.device.type) \
                 and not (causal and lq != lk) and not window \
                 and not (rate > 0.0 and flash_mode != "true"):
             # in "auto" mode the dropout case stays on the plain path; the
             # kernel has no sliding-window mask
             from ..kernels.flash_attention import flash_attention
             # the kernel's seed is drawn on the host: no device sync
-            seed = host_seed(ctx.rng_for(name)) if rate > 0.0 else None
+            seed = host_seed(rng) if rate > 0.0 else None
             o = flash_attention(
                 qh.transpose(1, 2).to(mdt).contiguous(),
                 kh.transpose(1, 2).to(mdt).contiguous(),
                 vh.transpose(1, 2).to(mdt).contiguous(),
-                causal=causal, dropout_rate=rate, dropout_seed=seed)
+                causal=causal, dropout_rate=rate, dropout_seed=seed,
+                bh_map=None if gmap is None else gmap[1:])
             ctxv = o.transpose(1, 2).float()
         else:
             scale = 1.0 / math.sqrt(d)
@@ -619,8 +650,9 @@ class MultiHeadAttentionOp(OpDef):
             kb = kh.to(mdt).permute(0, 2, 3, 1).reshape(bsz * h, d, lk)
             logits = mm_f32(qb, kb).reshape(bsz, h, lq, lk) * scale
             if causal:
-                qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-                kpos = torch.arange(lk, device=q.device)[None, :]
+                qpos = torch.arange(lq, device=qh.device)[:, None] \
+                    + (lk - lq)
+                kpos = torch.arange(lk, device=qh.device)[None, :]
                 mask = kpos <= qpos
                 if window:
                     # Mistral-family sliding window: each query attends
@@ -631,15 +663,22 @@ class MultiHeadAttentionOp(OpDef):
             probs = torch.softmax(logits, dim=-1)
             if rate > 0.0:
                 keep = 1.0 - rate
-                gen = generator_on(ctx.rng_for(name), probs.device)
-                mask = torch.rand(probs.shape, generator=gen,
-                                  device=probs.device) < keep
-                probs = torch.where(mask, probs / keep,
+                gen = generator_on(rng, probs.device)
+                if gmap is None:
+                    u = torch.rand(probs.shape, generator=gen,
+                                   device=probs.device)
+                else:
+                    # the whole batch's draw, cut to this block
+                    B, H, b0, h0 = gmap
+                    u = torch.rand((B, H, lq, lk), generator=gen,
+                                   device=probs.device)[
+                        b0:b0 + bsz, h0:h0 + h]
+                probs = torch.where(u < keep, probs / keep,
                                     torch.zeros_like(probs))
             vb = vh.to(mdt).permute(0, 2, 1, 3).reshape(bsz * h, lk, d)
             ctxv = mm_f32(probs.to(mdt).reshape(bsz * h, lq, lk), vb)
             ctxv = ctxv.reshape(bsz, h, lq, d).transpose(1, 2)
-        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
+        return ctxv
 
     def _emit_decode(self, params, weights, ctx, name, qh, kh, vh, mdt,
                      cdt, stream_rows):

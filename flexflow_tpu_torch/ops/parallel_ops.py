@@ -2,14 +2,18 @@
 
 The port of ``flexflow_tpu/ops/parallel_ops.py``. The strategy search
 (``search/unity.py``) rewrites a graph with Repartition / Combine /
-Replicate / Reduction nodes; each is a sharding transition, the identity
-on values. On one device the transition moves nothing, so each emits its
-input as it is; a described multi-device strategy is priced and exported
-but not run here (``FFModel.compile`` refuses it).
+Replicate / Reduction / AllToAll nodes; each is a sharding transition,
+the identity on values. Over a live mesh (a world of ranks) each moves
+its input to the layout the strategy gives its output: through the
+reshard planner (``parallel/reshard.py``: gather, all-to-all and slice
+steps), a Partial input (a Reduction's) summed first. On one device
+there is nothing to move, and each emits its input as it is. Pipeline
+marks a stage boundary and stays an identity.
 """
 from __future__ import annotations
 
 from ..ffconst import OperatorType
+from ..parallel.local_ops import is_dtensor
 from .registry import OpDef, register
 
 
@@ -20,7 +24,17 @@ class _ShardingTransitionBase(OpDef):
         return [(in_shapes[0], in_dtypes[0])]
 
     def emit(self, params, inputs, weights, ctx, name):
-        return [inputs[0]]
+        x = inputs[0]
+        st = getattr(ctx, "strategy", None)
+        if st is None or not is_dtensor(x):
+            return [x]
+        from ..parallel.reshard import planner_for, resolve_partial
+        spec = st.output_sharding(name)
+        if spec is None:
+            # no layout asked for: only a Partial input is summed
+            return [x.redistribute(x.device_mesh,
+                                   resolve_partial(x.placements))]
+        return [planner_for(st).apply(x, spec)]
 
 
 @register
@@ -55,11 +69,16 @@ class AllToAllOp(_ShardingTransitionBase):
 
 @register
 class PipelineOp(_ShardingTransitionBase):
-    """Pipeline stage boundary marker (an identity as a graph node)."""
+    """Pipeline stage boundary marker (an identity as a graph node; the
+    pipeline engine is ROADMAP queue 1 item 4.3)."""
     op_type = OperatorType.OP_PIPELINE
+
+    def emit(self, params, inputs, weights, ctx, name):
+        return [inputs[0]]
 
 
 @register
 class FusedParallelOp(_ShardingTransitionBase):
-    """A chain of parallel ops collapsed into one transition."""
+    """A chain of parallel ops collapsed into one transition: the net
+    effect is the final layout."""
     op_type = OperatorType.OP_FUSED_PARALLEL

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..ffconst import DataType, OperatorType
 from ..core.tensor import WeightSpec
+from ..parallel.local_ops import dist_mm, is_dtensor
 
 
 class LayerRng:
@@ -98,6 +99,9 @@ class EmitCtx:
         self.row_chunk: int = 0
         self.kv_rows: int = 0
         self.product_log: Optional[List[Dict[str, Any]]] = None
+        # over a live mesh (a world of ranks), the strategy that the
+        # values are laid out by; None on one device
+        self.strategy = None
 
     def rng_for(self, name: str):
         return self.rngs.get(name)
@@ -211,6 +215,9 @@ class _MmF32(torch.autograd.Function):
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(a) or is_dtensor(b):
+        # over a live mesh: the same product on each rank's blocks
+        return dist_mm(a, b, _mm)
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):

@@ -183,17 +183,22 @@ class MachineSpec:
 
     @classmethod
     def detect(cls, device=None) -> "MachineSpec":
-        """The machine the process runs on: one device, the model's.
+        """The machine the process runs on: the model's device, one for
+        each rank of the world (``parallel/distributed.py``) if it runs
+        in one.
         A CUDA device yields the ``h100`` generation with the card's own
         device memory (another card keeps the H100 constants and logs a
         warning); the CPU yields ``cpu-sim``."""
         import logging
 
         import torch
+        from .distributed import process_count
         dev = torch.device(device if device is not None else "cuda")
         log = logging.getLogger("flexflow_tpu_torch")
+        # a world of ranks: one device each
+        n = process_count()
         if dev.type != "cuda":
-            return cls(num_devices=1, generation="cpu-sim")
+            return cls(num_devices=n, generation="cpu-sim")
         props = torch.cuda.get_device_properties(
             dev.index if dev.index is not None
             else torch.cuda.current_device())
@@ -204,7 +209,7 @@ class MachineSpec:
                 "machine-model file if this is wrong", props.name)
         else:
             log.info("MachineSpec.detect: 1 x h100 (%s)", props.name)
-        return cls(num_devices=1, generation="h100",
+        return cls(num_devices=n, generation="h100",
                    hbm_bytes_override=float(props.total_memory))
 
 
@@ -213,9 +218,11 @@ class DeviceMesh:
     prime factorization of the device count (largest factor first).
     ``devices`` are the ``torch.device``s it executes on; none, or fewer
     than ``spec.num_devices``, make it a described mesh
-    (``described``, ``devices`` None). The JAX package's ``mesh`` (a
-    ``jax.sharding.Mesh``) has no counterpart: axis names and sizes are
-    ``axis_names`` / ``axis_sizes``."""
+    (``described``, ``devices`` None). Over a world of ranks, one device
+    each (``parallel/distributed.py``), the mesh is ``live`` and ``mesh``
+    is the ``torch.distributed`` DeviceMesh of those ranks with the same
+    axis names, the counterpart of the JAX package's
+    ``jax.sharding.Mesh``."""
 
     def __init__(self, spec: MachineSpec, devices=None,
                  mesh_shape: Optional[Sequence[int]] = None,
@@ -278,6 +285,34 @@ class DeviceMesh:
         if int(np.prod(list(self.axis_sizes.values()))) != n:
             raise ValueError(
                 f"mesh {dict(self.axis_sizes)} does not cover {n} devices")
+
+    @property
+    def live(self) -> bool:
+        """Runs over a world of ranks: more than one device, none of them
+        described, and one rank for each."""
+        from .distributed import is_initialized, process_count
+        return (not self.described and self.num_devices > 1
+                and is_initialized() and process_count() == self.num_devices)
+
+    @property
+    def mesh(self):
+        """The ``torch.distributed`` DeviceMesh over the world's ranks,
+        shaped and named as ``axis_sizes`` (rank r at the row-major
+        coordinate r). Built once; every rank must reach its first use,
+        since building it creates each axis's process group."""
+        cached = self.__dict__.get("_mesh")
+        if cached is not None:
+            return cached
+        if not self.live:
+            raise RuntimeError(
+                f"mesh {dict(self.axis_sizes)} has no world of "
+                f"{self.num_devices} ranks to run over")
+        from torch.distributed.device_mesh import init_device_mesh
+        m = init_device_mesh(self.devices[0].type,
+                             tuple(self.axis_sizes.values()),
+                             mesh_dim_names=tuple(self.axis_sizes))
+        self.__dict__["_mesh"] = m
+        return m
 
     @property
     def seq_degree(self) -> int:

@@ -4,9 +4,12 @@ The port of ``flexflow_tpu/parallel/strategy.py``, the searched artifact:
 layer name -> {output specs, weight specs} over one device mesh. A spec
 is a plain tuple with one entry per tensor dim: a mesh axis name, a
 tuple of axis names, or None (the JAX package holds a
-``jax.sharding.PartitionSpec`` with the same entries). The one-device
-executor runs every strategy unsharded; the specs are what the search
-scores and what a strategy file carries.
+``jax.sharding.PartitionSpec`` with the same entries). Over a live
+mesh (``DeviceMesh.live``) a spec becomes DTensor placements, one per
+mesh axis (:func:`spec_placements`), which the executor gives its
+parameters, inputs and op outputs; on one device every strategy runs
+unsharded, and the specs are what the search scores and what a strategy
+file carries.
 """
 from __future__ import annotations
 
@@ -34,6 +37,29 @@ def _spec_axes(spec) -> List[str]:
         else:
             axes.append(e)
     return axes
+
+
+def spec_placements(spec, dmesh: DeviceMesh, rank: int) -> List:
+    """The DTensor placements of ``spec`` for a tensor of ``rank`` dims:
+    ``Shard(d)`` on each mesh axis that dim ``d`` names, ``Replicate()``
+    on the others; ``None`` is fully replicated. A dim sharded over
+    several axes must name them in mesh order (major first), the only
+    order in which DTensor's ``Shard`` tiles a dim as GSPMD does."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(dmesh.axis_names)
+    out = [Replicate() for _ in names]
+    for d, e in enumerate(tuple(spec or ())[:rank]):
+        if e is None:
+            continue
+        axes = list(e) if isinstance(e, (tuple, list)) else [e]
+        pos = [names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise NotImplementedError(
+                f"spec {spec}: dim {d} names axes {axes} out of mesh order "
+                f"{names}; DTensor tiles a dim over axes in mesh order only")
+        for m in pos:
+            out[m] = Shard(d)
+    return out
 
 
 @dataclasses.dataclass
@@ -86,6 +112,25 @@ class ShardingStrategy:
     def set_op(self, layer_name: str, outputs: Sequence[Optional[Spec]],
                weights: Optional[Dict[str, Spec]] = None):
         self.ops[layer_name] = OpSharding(list(outputs), dict(weights or {}))
+
+    def output_sharding(self, layer_name: str, idx: int = 0
+                        ) -> Optional[Spec]:
+        """The spec of an op output, or None where the strategy leaves it
+        unconstrained."""
+        os_ = self.ops.get(layer_name)
+        if os_ is None or idx >= len(os_.outputs):
+            return None
+        return os_.outputs[idx]
+
+    def weight_sharding(self, layer_name: str, wname: str) -> Spec:
+        os_ = self.ops.get(layer_name)
+        return os_.weights.get(wname, P()) if os_ else P()
+
+    def input_sharding(self, tensor_name: str) -> Spec:
+        return self.inputs.get(tensor_name, P())
+
+    def replicated(self) -> Spec:
+        return P()
 
     # ------------------------------------------------------------------
     @classmethod

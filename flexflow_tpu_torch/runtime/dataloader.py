@@ -1,9 +1,11 @@
 """Data loading: host numpy datasets -> device batches.
 
-The port of ``flexflow_tpu/runtime/dataloader.py``'s ``SingleDataLoader``
-on one device: the dataset stays in host memory; each ``next_batch``
-gathers the batch's rows in numpy and copies them to the device (from
-pinned memory, without blocking, on the card), keeping up to ``prefetch``
+The port of ``flexflow_tpu/runtime/dataloader.py``'s
+``SingleDataLoader``: the dataset stays in host memory; each
+``next_batch`` gathers the batch's rows in numpy (over a world of ranks,
+this rank's rows only: ``row_ranges``) and copies them to the device
+(from pinned memory, without blocking, on the card), keeping up to
+``prefetch``
 following batches' copies in flight. The shuffle order comes from the same
 numpy generator, seeded the same way, so a shuffled ``fit`` sees the same
 batches as the JAX package's; ``state_dict``/``load_state_dict`` resume a
@@ -12,7 +14,7 @@ loader exactly, every later epoch's shuffle included.
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +25,8 @@ class SingleDataLoader:
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int,
                  device=None, shuffle: bool = False, seed: int = 0,
-                 drop_remainder: bool = True, prefetch: int = 2):
+                 drop_remainder: bool = True, prefetch: int = 2,
+                 row_ranges: Optional[Dict[str, Tuple[int, int]]] = None):
         sizes = {k: v.shape[0] for k, v in arrays.items()}
         if len(set(sizes.values())) != 1:
             raise ValueError(f"ragged dataset: {sizes}")
@@ -48,6 +51,10 @@ class SingleDataLoader:
         # prefetching reads only `_order`, never the rng
         self.prefetch = max(0, int(prefetch))
         self._prefetched: deque = deque()
+        # over a world of ranks: the [lo, hi) rows of each batch that
+        # this rank loads, by array (parallel.distributed.
+        # local_row_range); None loads whole batches
+        self.row_ranges = row_ranges
 
     @property
     def num_batches(self) -> int:
@@ -119,7 +126,17 @@ class SingleDataLoader:
                 return None
             hi = self.num_samples
         sel = self._order[lo:hi]
+        if self.row_ranges:
+            return {k: v[sel[slice(*self.row_ranges.get(k, (None, None)))]]
+                    for k, v in self.arrays.items()}
         return {k: v[sel] for k, v in self.arrays.items()}
+
+    def batch_rows(self, batch) -> int:
+        """The global rows of a batch this loader gave (a rank loads only
+        its own rows of each)."""
+        if self.row_ranges:
+            return self.batch_size
+        return next(iter(batch.values())).shape[0]
 
     def next_batch(self):
         """The next batch as a dict of device tensors, or None at the end

@@ -33,7 +33,7 @@ import json
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,6 +43,11 @@ from .costmodel import _backend, _cuda_sync, event_time
 
 #: the table's directory; None = ``config.default_cache_dir()``
 _DEFAULT_DIR: Optional[str] = None
+
+#: collective payloads (bytes per group) and kinds of the rows a live
+#: world takes, as in the JAX package
+COLLECTIVE_SIZES = (1 << 16, 1 << 20, 1 << 23)
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
 
 #: attention-core payload sizes for the kernel-impl rows
 #: (op_attention@<impl>): q bytes at (b=1, h=8, d=64, f32) — the two
@@ -97,12 +102,18 @@ class CalibrationTable:
             self.key(backend, kind, dtype, sclass, axis_size))
 
     def put(self, backend: str, kind: str, dtype: str, sclass: int,
-            axis_size: int, value: float) -> None:
+            axis_size: int, value: float, persist: bool = True) -> None:
+        """Record a value; ``persist=False`` keeps it in memory only (the
+        ranks of a world other than rank 0, which writes the file)."""
         data = self._load()
         data[self.key(backend, kind, dtype, sclass, axis_size)] = value
+        if not persist:
+            return
         try:
             os.makedirs(self._cache_dir, exist_ok=True)
-            tmp = self.path + ".tmp"
+            # one temporary file per writer: the ranks of a world share
+            # the table
+            tmp = f"{self.path}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
                 json.dump(data, f)
             os.replace(tmp, self.path)
@@ -295,6 +306,10 @@ class MeshCalibration:
     parallel_eff: Dict[int, float] = dataclasses.field(default_factory=dict)
     table: Optional[CalibrationTable] = None
     dtype: str = "float32"
+    # the backend key of the collective rows: the world's transport
+    # (world_backend_key), where the host and op rows key on the device
+    # alone; None = ``backend``
+    coll_backend: Optional[str] = None
     # lookup memos — collective_time sits inside xfer_cost, the
     # search's hottest evaluator loop (1e4-1e6 calls per search): the
     # full-table key scans are done once per (coll, degree)
@@ -317,7 +332,8 @@ class MeshCalibration:
         key = (kind, degree, dt)
         hit = self._pts.get(key)
         if hit is None:
-            hit = self.table.entries(self.backend, f"coll_{kind}",
+            hit = self.table.entries(self.coll_backend or self.backend,
+                                     f"coll_{kind}",
                                      dt, axis_size=degree)
             self._pts[key] = hit
         return hit
@@ -346,7 +362,8 @@ class MeshCalibration:
             return []
         hit = self._degs.get(coll)
         if hit is None:
-            prefix = f"{self.backend}|coll_{coll}|{self.dtype}|"
+            prefix = (f"{self.coll_backend or self.backend}|coll_{coll}|"
+                      f"{self.dtype}|")
             out = set()
             for k in self.table._load():
                 if k.startswith(prefix):
@@ -463,7 +480,8 @@ class MeshCalibration:
             return None
         sc = min(pts, key=lambda p: abs(
             math.log(max(p[0], 1)) - math.log(max(nbytes, 1.0))))[0]
-        return CalibrationTable.key(self.backend, f"coll_{kind}",
+        return CalibrationTable.key(self.coll_backend or self.backend,
+                                    f"coll_{kind}",
                                     self.dtype, sc, deg)
 
     def collective_marginal(self, coll: str, degree: int,
@@ -509,21 +527,118 @@ class MeshCalibration:
         return min(full, slope * nbytes)
 
 
+def world_backend_key(dmesh) -> str:
+    """The backend key of a live world's collective rows: the device
+    type and the process-group backend, and ``-shared-card`` where the
+    ranks share one card, so rows that two ranks on one GPU took are
+    never read as a fabric's between cards (``cuda+gloo-shared-card``,
+    ``cuda+nccl``, ``cpu+gloo``)."""
+    import torch.distributed as dist
+    from ..parallel.distributed import ranks_share_a_card
+    dev = _backend(dmesh)
+    key = f"{dev}+{dist.get_backend()}"
+    if dev == "cuda" and ranks_share_a_card(dmesh.num_devices):
+        key += "-shared-card"
+    return key
+
+
+def world_get_or_measure(tab: CalibrationTable, backend: str, kind: str,
+                         dtype: str, sclass: int, axis_size: int,
+                         fn: Callable[[], float]) -> float:
+    """``tab.get_or_measure`` for a measurement that every rank of the
+    world takes together (a collective): rank 0's table decides whether
+    it is a hit, every rank runs ``fn`` on a miss, and rank 0's result is
+    the one every rank returns and keeps (rank 0 alone writes it to the
+    file), so every rank prices collectives alike."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    box = [tab.get(backend, kind, dtype, sclass, axis_size)
+           if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    if box[0] is not None:
+        obs_events.counter("calibration.cache_hits")
+        if rank != 0:
+            tab.put(backend, kind, dtype, sclass, axis_size, box[0],
+                    persist=False)
+        return float(box[0])
+    obs_events.counter("calibration.cache_misses")
+    with obs_events.span("calibration.measure", kind=kind,
+                         axis_size=axis_size, sclass=sclass):
+        box = [float(fn())]
+    dist.broadcast_object_list(box, src=0)
+    tab.measured += 1
+    # every rank's cost model reads the row; rank 0 alone writes the file
+    tab.put(backend, kind, dtype, sclass, axis_size, box[0],
+            persist=rank == 0)
+    return float(box[0])
+
+
+def collective_groups(dmesh) -> List[Tuple[int, Any]]:
+    """(degree, process group) of each collective the rows are taken at:
+    the first mesh axis's groups (each rank's group along it), then the
+    whole world. A collective of a lower degree runs concurrently in
+    every group, as the search would place it."""
+    import torch.distributed as dist
+    first = dmesh.axis_names[0]
+    out = [(dmesh.axis_sizes[first], dmesh.mesh.get_group(first))]
+    if dmesh.num_devices != out[0][0]:
+        out.append((dmesh.num_devices, dist.group.WORLD))
+    return out
+
+
+def _bench_collective(coll: str, nbytes: int, group, degree: int,
+                      device) -> float:
+    """Seconds of one ``coll`` of ``nbytes`` payload per group on this
+    rank's device (min of 5 after 2 warm-ups), the same payload
+    convention as the JAX package's rows: an all-reduce's buffer, an
+    all-gather's output, a reduce-scatter's input, an all-to-all's
+    buffer."""
+    import torch
+    import torch.distributed as dist
+    n = max(nbytes // 4, degree * degree)
+    n -= n % degree
+    x = torch.ones((n,), dtype=torch.float32, device=device)
+    if coll == "all_reduce":
+        def run():
+            dist.all_reduce(x, group=group)
+    elif coll == "all_gather":
+        part = x[:n // degree].clone()
+
+        def run():
+            dist.all_gather_into_tensor(x, part, group=group)
+    elif coll == "reduce_scatter":
+        part = x[:n // degree].clone()
+
+        def run():
+            dist.reduce_scatter_tensor(part, x, group=group)
+    elif coll == "all_to_all":
+        y = torch.empty_like(x)
+
+        def run():
+            dist.all_to_all_single(y, x, group=group)
+    else:
+        raise ValueError(coll)
+    return _timed(run, device, warmup=2, repeats=5)
+
+
 def calibrate_mesh(dmesh=None, cache_dir: Optional[str] = None,
-                   table: Optional[CalibrationTable] = None
+                   table: Optional[CalibrationTable] = None,
+                   collectives: Tuple[str, ...] = COLLECTIVES,
+                   sizes: Tuple[int, ...] = COLLECTIVE_SIZES
                    ) -> MeshCalibration:
     """Measure (or load) the host dispatch and memory-bandwidth terms on
-    the mesh's device. A warm table makes this measurement-free. A
-    described multi-device mesh gets no collective rows (there are no
-    devices to time them on); a live one would need them, which is not
-    ported."""
-    if dmesh is not None and dmesh.num_devices > 1 and not dmesh.described:
-        raise NotImplementedError(
-            "collective calibration rows need several live devices "
-            "(ROADMAP queue 1 item 4)")
+    the mesh's device, and on a live mesh (a world of ranks) the
+    collective rows: each of ``collectives`` at each payload of ``sizes``
+    at each degree of :func:`collective_groups`, keyed by the world's
+    transport (:func:`world_backend_key`). A warm table makes this
+    measurement-free. A described mesh gets no collective rows: there
+    are no devices to time them on."""
     with obs_events.span("search.calibrate_mesh"):
         backend = _backend(dmesh)
         device = _device_of(dmesh)
+        if dmesh is not None and dmesh.live:
+            from ..parallel.distributed import rank_device
+            device = rank_device(backend)
         tab = table if table is not None else CalibrationTable(cache_dir)
         calib = MeshCalibration(backend=backend, table=tab)
         calib.dispatch_s = tab.get_or_measure(
@@ -532,6 +647,17 @@ def calibrate_mesh(dmesh=None, cache_dir: Optional[str] = None,
         calib.mem_bw = tab.get_or_measure(
             backend, "host_membw", "-", 0, 0,
             lambda: _bench_membw(device=device))
+        if dmesh is not None and dmesh.live:
+            key = world_backend_key(dmesh)
+            calib.coll_backend = key
+            for coll in collectives:
+                for deg, group in collective_groups(dmesh):
+                    for nbytes in sizes:
+                        world_get_or_measure(
+                            tab, key, f"coll_{coll}", "float32",
+                            shape_class(nbytes), deg,
+                            lambda c=coll, s=nbytes, g=group, d=deg:
+                                _bench_collective(c, s, g, d, device))
         return calib
 
 

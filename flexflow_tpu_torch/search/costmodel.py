@@ -223,7 +223,9 @@ class OpCostModel:
         cache[key] = value
         try:
             os.makedirs(self._cache_dir, exist_ok=True)
-            tmp = self._disk_path + ".tmp"
+            # one temporary file per writer: the ranks of a world share
+            # the cache
+            tmp = f"{self._disk_path}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
                 json.dump(cache, f)
             os.replace(tmp, self._disk_path)
@@ -363,15 +365,49 @@ class OpCostModel:
 
     # ------------------------------------------------------------------
     def calibrate_collectives(self, dmesh: "DeviceMesh") -> None:
-        """Fit the all-reduce bandwidth and latency on the live mesh. On
-        one device there is nothing to fit (as in the JAX package at
-        ``n <= 1``); a described mesh has no devices to time: its
-        constants are the machine model's."""
-        if dmesh.num_devices <= 1 or dmesh.described:
+        """Fit the all-reduce bandwidth and latency on the live mesh (a
+        world of ranks): a world all-reduce timed at 1 and 16 MiB, the
+        fit t(s) = 2(n-1)/n * s/bw + (n-1) * lat, as in the JAX package.
+        Every rank times it and rank 0's fit is everyone's; cached on
+        disk per (transport, mesh shape). On one device there is nothing
+        to fit; a described mesh has no devices to time: its constants
+        are the machine model's."""
+        if dmesh.num_devices <= 1 or dmesh.described or not dmesh.live:
             return
-        raise NotImplementedError(
-            f"timing collectives on {dmesh.num_devices} live devices "
-            f"{_NOT_PORTED}")
+        import torch
+        import torch.distributed as dist
+        from ..parallel.distributed import rank_device
+        from .calibration import world_backend_key
+        n = dmesh.num_devices
+        shape = "x".join(f"{a}{s}" for a, s in dmesh.axis_sizes.items())
+        key = f"coll_{world_backend_key(dmesh)}_{n}_{shape}"
+        box = [self._disk_cache().get(key)
+               if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0]:
+            self.coll_bw, self.coll_lat = box[0]
+            return
+        dev = rank_device(_backend(dmesh))
+
+        def bench(nbytes: int) -> float:
+            x = torch.ones((nbytes // 4,), dtype=torch.float32, device=dev)
+            return event_time(lambda: dist.all_reduce(x), dev, warmup=1,
+                              repeats=3)
+
+        s1, s2 = 1 << 20, 16 << 20
+        t1, t2 = bench(s1), bench(s2)
+        a = 2.0 * (n - 1) / n
+        if t2 > t1 > 0:
+            bw = a * (s2 - s1) / (t2 - t1)
+            lat = max((t1 - a * s1 / bw) / (n - 1), 1e-9)
+        else:  # a noisy pair: the bandwidth of the larger size alone
+            bw = a * s2 / max(t2, 1e-9)
+            lat = 1e-9
+        box = [(float(min(max(bw, 1e7), 1e13)), float(lat))]
+        dist.broadcast_object_list(box, src=0)
+        self.coll_bw, self.coll_lat = box[0]
+        if dist.get_rank() == 0:
+            self._disk_put(key, list(box[0]))
 
     # ------------------------------------------------------------------
     # on-device per-op measurement (simulator.cc:537 / model.cu:38 analog)
@@ -852,6 +888,27 @@ class OpCostModel:
         # zero-cost (elided) collectives stay free; everything real is
         # floored at one measured host dispatch
         return max(floor, t) if t > 0 else t
+
+    def reshard_step_cost(self, kind: str, degree: int,
+                          volume_bytes: float,
+                          axes: Optional[Tuple[str, ...]] = None
+                          ) -> float:
+        """Cost of one step of a reshard plan (``parallel/reshard.py``):
+        ``all_gather`` / ``all_to_all`` through ``xfer_cost`` (the
+        calibrated collective rows answer first), ``slice`` a local block
+        copy at the measured memory bandwidth plus one dispatch."""
+        if degree <= 1 or volume_bytes <= 0:
+            return 0.0
+        if kind == "slice":
+            mem_bw = self.spec.hbm_bandwidth
+            dispatch = self.overhead_s
+            if self.calib is not None:
+                if self.calib.mem_bw:
+                    mem_bw = self.calib.mem_bw
+                if self.calib.dispatch_s:
+                    dispatch = self.calib.dispatch_s
+            return volume_bytes / max(mem_bw, 1.0) + dispatch
+        return self.xfer_cost(volume_bytes, kind, degree, axes=axes)
 
     @staticmethod
     def _ring_cost(volume_bytes: float, collective: str, degree: int,

@@ -32,7 +32,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from flexflow_tpu_torch.kernels import build  # noqa: E402
-from flexflow_tpu_torch.kernels.flash_attention import _ARGTYPES  # noqa: E402
+from flexflow_tpu_torch.kernels.flash_attention import (_ARGTYPES,
+                                                        _map_args)  # noqa: E402
 
 CSRC = os.path.join(ROOT, "flexflow_tpu_torch", "csrc")
 # name -> (what it is, [(committed text, its replacement, count)])
@@ -140,7 +141,8 @@ def main() -> int:
     for shape in args.shapes.split(","):
         b, h, s, d, causal, (q, k, v, do, lse, delta) = bwd_inputs(shape)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        tail = [b * h, s, s, d, 0, int(causal), d ** -0.5, 0, 0, 1.0, 0]
+        tail = [b * h, s, s, d, 0, int(causal), d ** -0.5, 0, 0, 1.0, 0,
+                *_map_args(b, h, None)]
         for sym, outs in zip(SYMS, ((dk, dv), (dq,))):
             ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
             us = {name: [] for name in ["tree", *names]}

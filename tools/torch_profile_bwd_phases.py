@@ -46,7 +46,8 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 from flexflow_tpu_torch.kernels import build  # noqa: E402
-from flexflow_tpu_torch.kernels.flash_attention import _ARGTYPES  # noqa: E402
+from flexflow_tpu_torch.kernels.flash_attention import (_ARGTYPES,
+                                                        _map_args)  # noqa: E402
 from torch_bwd_variants import bwd_inputs  # noqa: E402
 
 PHASES = ["TMA wait", "split", "fence + barrier", "products", "f32 sum",
@@ -186,7 +187,8 @@ def main() -> int:
     for shape in args.shapes.split(","):
         b, h, s, d, causal, (q, k, v, do, lse, delta) = bwd_inputs(shape)
         outs = [torch.empty_like(q) for _ in range(3)]
-        tail = [b * h, s, s, d, 0, int(causal), d ** -0.5, 0, 0, 1.0, 0]
+        tail = [b * h, s, s, d, 0, int(causal), d ** -0.5, 0, 0, 1.0, 0,
+                *_map_args(b, h, None)]
         cargs = ([t.data_ptr() for t in (q, k, v, do, lse, delta, outs[0])]
                  + tail,
                  [t.data_ptr() for t in (q, k, v, do, lse, delta, outs[1],

@@ -34,7 +34,7 @@ sys.path.insert(0, ROOT)
 
 from flexflow_tpu_torch.kernels import build  # noqa: E402
 from flexflow_tpu_torch.kernels.flash_attention import (  # noqa: E402
-    _ARGTYPES, flash_attention)
+    _ARGTYPES, _map_args, flash_attention)
 
 PHASES = ["cp.async wait", "proxy fence", "barrier", "copy start",
           "scores (+exchange)", "softmax/ds", "dV/dK product"]
@@ -136,7 +136,8 @@ def main() -> int:
         delta = (do.float() * o.float()).sum(-1)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         cargs = [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)] \
-            + [b * h, s, s, d, 1, 0, d ** -0.5, 0, 0, 1.0, 0]
+            + [b * h, s, s, d, 1, 0, d ** -0.5, 0, 0, 1.0, 0,
+               *_map_args(b, h, None)]
 
         def launch():
             err = fn(*cargs, torch.cuda.current_stream().cuda_stream)

@@ -34,7 +34,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from flexflow_tpu_torch.kernels import build  # noqa: E402
-from flexflow_tpu_torch.kernels.flash_attention import _ARGTYPES  # noqa: E402
+from flexflow_tpu_torch.kernels.flash_attention import (_ARGTYPES,
+                                                        _map_args)  # noqa: E402
 
 PHASES = ["TMA wait", "split", "fence + barrier", "products", "exchange",
           "softmax", "other"]
@@ -132,7 +133,8 @@ def main() -> int:
         o = torch.empty_like(q)
         lse = torch.empty(b, h, s, device="cuda")
         cargs = [t.data_ptr() for t in (q, k, v, o, lse)] \
-            + [b * h, s, s, d, 0, 0, d ** -0.5, 0, 0, 1.0, 0]
+            + [b * h, s, s, d, 0, 0, d ** -0.5, 0, 0, 1.0, 0,
+               *_map_args(b, h, None)]
 
         def launch():
             err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
