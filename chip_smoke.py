@@ -5427,10 +5427,22 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
     def dist_row(name):
         """The dist phase's launches on each rank in its history: BERT-base
-        8x512 trained by two ranks under dp 2 and tp 2."""
-        return {"dist_train_launches_per_rank": {
+        8x512 trained by two ranks under dp 2 and tp 2, and under the
+        serial dp 2 at dropout 0.1, ZeRO, the overlap schedule under ZeRO
+        and the int8 quantized sync; the fused Adam's times at the launch
+        shapes the last three give it."""
+        row = {"dist_train_launches_per_rank": {
             cfg: dist[cfg]["launches_per_rank"][name]
             for cfg, _ in DIST_RUNS}}
+        row["dist_train_launches_per_rank"].update({
+            cfg: dist["sync"][cfg]["launches_per_rank"][name]
+            for cfg, _ in DIST_SYNC_RUNS})
+        if name == "adam_update" and "adam_sync_shapes" in dist:
+            row["dist_launch_shapes"] = {
+                k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "numel", "leaves")}
+                for k, v in dist["adam_sync_shapes"].items()}
+        return row
 
     def fwd_row(seq, rate):
         return dict(kt["fwd"][(seq, rate)])
@@ -5659,6 +5671,26 @@ def dist_grad_tol(k: str) -> float:
     return ZOO_GRAD_TOL if k == "f32" else DIST_BF16_GRAD_TOL
 
 
+# the train step's multi-device branches, each trained by the two ranks
+# at dropout 0.1 from the same weights and batches as the serial dp-2 run
+# (the first): ZeRO-1 and the overlap schedule under ZeRO must reproduce
+# it bit for bit, the int8 quantized sync within QSYNC_LOSS_TOL
+DIST_SYNC_RUNS = (
+    ("dp2_serial", ("--only-data-parallel",)),
+    ("zero", ("--only-data-parallel", "--zero")),
+    ("overlap_zero", ("--only-data-parallel", "--zero",
+                      "--overlap-schedule", "on", "--zero-prefetch", "1")),
+    ("qsync_int8", ("--only-data-parallel", "--quantized-collectives",
+                    "all", "--qsync-wire", "int8")))
+
+
+def qsync_loss_ok(a: float, b: float) -> bool:
+    """The quantized-sync loss bound of tests/test_quantized_collectives
+    .py (and the port's CPU test): 5% of the full-precision loss or 2e-3,
+    whichever is larger."""
+    return abs(a - b) <= max(abs(b) * 0.05, 2e-3)
+
+
 def dist_model(spec: dict, argv, dropout: float):
     """BERT of ``spec`` with the flash kernels and the fused Adam, compiled
     under ``argv`` (over the world when this process is a rank of one)."""
@@ -5815,8 +5847,8 @@ def host_layers(stats) -> dict:
 def dist_step_stages(ff, step_fn, batch) -> dict:
     """One train step with the host's time (ms) in each stage of the
     executor: the forward, the backward, the outputs gathered for the
-    loss, the gradients brought to their leaves' layouts (the rest of
-    ``_grads``) and the optimizer update (the rest of the step). Each
+    loss, the gradients brought to their leaves' layouts (``_sync_serial``
+    over a world) and the optimizer update (the rest of the step). Each
     stage's function is wrapped for that step only. (cProfile's
     cumulative times lose the frames that enter DTensor's dispatch.)"""
     from collections import defaultdict
@@ -5835,7 +5867,9 @@ def dist_step_stages(ff, step_fn, batch) -> dict:
     ex._forward = timed("forward", ex._forward)
     ex._replicate_for_loss = timed("outputs gathered for the loss",
                                    ex._replicate_for_loss)
-    ex._grads = timed("_grads", ex._grads)
+    ex._backward = timed("_backward", ex._backward)
+    ex._sync_serial = timed("gradients to their leaves' layouts",
+                            ex._sync_serial)
     torch.autograd.grad = timed("backward (autograd.grad)", grad)
     sync = torch.cuda.synchronize if torch.cuda.is_available() \
         else (lambda: None)
@@ -5847,12 +5881,12 @@ def dist_step_stages(ff, step_fn, batch) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     finally:
         torch.autograd.grad = grad
-        for k in ("_forward", "_replicate_for_loss", "_grads"):
+        for k in ("_forward", "_replicate_for_loss", "_backward",
+                  "_sync_serial"):
             del ex.__dict__[k]
-    grads = spent.pop("_grads")
-    spent["gradients to their leaves' layouts"] = grads - sum(
-        spent.values())
-    spent["optimizer update and the rest"] = wall - grads
+    bwd = spent.pop("_backward")
+    layouts = spent.setdefault("gradients to their leaves' layouts", 0.0)
+    spent["optimizer update and the rest"] = wall - bwd - layouts
     spent["step (synchronized)"] = wall
     return dict(spent)
 
@@ -5902,6 +5936,88 @@ def grad_errs(got: dict, want: dict) -> list:
                    for n, t in d.items()), reverse=True)
 
 
+def dist_sync_run(spec: dict, argv) -> tuple:
+    """One of DIST_SYNC_RUNS in this rank: BERT of ``spec`` at dropout 0.1
+    trained ``spec["steps"]`` steps through the loader with every kernel
+    launch counted (the counts set to 0 just before), the sync
+    collectives' calls and bytes, peak memory, then ``spec["timed"]``
+    timed steps. Returns (results, the weights after the history on the
+    host, whole)."""
+    from flexflow_tpu_torch.ops.quantized_collectives import RESIDUAL_SLOT
+    from flexflow_tpu_torch.parallel.distributed import SYNC_STATS
+    sync = torch.cuda.synchronize if spec["device"] == "cuda" \
+        else (lambda: None)
+    ff, bcfg = dist_model(spec, argv, 0.1)
+    xs, y = dist_data(spec, bcfg)
+    batches = list(ff._combined_loader(xs, y, shuffle=False))
+    step_fn = ff.executor.make_train_step()
+    sync()
+    if spec["device"] == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    SYNC_STATS.reset()
+    fns = zero_counts()      # the main path: every count starts at 0 here
+    plain = {n: f.plain_calls for n, f in fns.items()}
+    losses = [float(ff._run_train_step(step_fn, b)["loss"])
+              for b in batches]
+    launches = {n: f.launches if spec["device"] == "cuda"
+                else f.plain_calls - plain[n] for n, f in fns.items()}
+    steps = len(batches)
+    calls, wire = SYNC_STATS.calls / steps, SYNC_STATS.bytes / steps
+    peak = torch.cuda.max_memory_allocated() \
+        if spec["device"] == "cuda" else 0
+    weights = {f"{ln}.{wn}": ff.executor._unplace(t).detach().cpu()
+               for ln, ws in ff.params.items() for wn, t in ws.items()}
+    out = {"losses": losses, "launches": launches, "sync_calls": calls,
+           "wire_bytes": wire, "peak_bytes": peak,
+           "leaves": len(weights),
+           "buckets": None if ff.executor._overlap_schedule is None
+           else len(ff.executor._overlap_schedule.buckets),
+           "qsync": ff.executor._qsync is not None,
+           "residual_abs": float(sum(
+               float(t.to_local().abs().sum())
+               for ws in ff.opt_state.get(RESIDUAL_SLOT, {}).values()
+               for t in ws.values())),
+           "moments_local_numel": sum(
+               t.to_local().numel() for ws in ff.opt_state["m"].values()
+               for t in ws.values())}
+    times = []
+    for i in range(spec["timed"]):
+        sync()
+        t0 = time.perf_counter()
+        float(ff._run_train_step(step_fn, batches[i % steps])["loss"])
+        sync()
+        times.append(time.perf_counter() - t0)
+    out["step_ms"] = [t * 1e3 for t in times]
+    del ff, step_fn, batches
+    free_cuda()
+    return out, weights
+
+
+def qsync_mass(spec: dict, n: int = 768 * 3072) -> dict:
+    """One int8 quantized all-reduce over the world on a tensor the size
+    of BERT-base's FFN kernel (seeded by rank), its error-feedback mass in
+    f64: the output plus every rank's residual against the inputs' sum,
+    beside the f32 rounding bound of the reduce leg's adds (two ulps of
+    each rank's |x|)."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.ops.quantized_collectives import \
+        quantized_all_reduce
+    rank, world = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator(device="cpu").manual_seed(50 + rank)
+    x = (torch.randn(n, generator=gen) * 1e-3).to(spec["device"])
+    out, res = quantized_all_reduce(x, None, "int8", world, rank)
+    tot = x.double().cpu()
+    absx = x.double().abs().cpu()
+    resd = res.double().cpu()
+    for t in (tot, absx, resd):
+        dist.all_reduce(t)
+    err = (out.double().cpu() + resd - tot).abs()
+    bound = 2 * world * float(torch.finfo(torch.float32).eps) * absx
+    return {"max_err": float(err.max()), "max_bound": float(bound.max()),
+            "within": bool((err <= bound + 1e-30).all()),
+            "sum_abs_residual": float(resd.abs().sum())}
+
+
 def dist_rank_main(workdir: str) -> int:
     """A rank of the dist phase (``--dist-rank``): joins the world the
     environment names, runs each of DIST_RUNS and holds it against the
@@ -5928,6 +6044,21 @@ def dist_rank_main(workdir: str) -> int:
                                                        ref["losses"]))
         out[name] = r
         free_cuda()
+    base = None
+    for name, argv in DIST_SYNC_RUNS:
+        r, weights = dist_sync_run(spec, argv)
+        if base is None:
+            base = (r["losses"], weights)
+        else:
+            r["weights_max_abs_diff"] = max(
+                float((weights[k] - base[1][k]).abs().max())
+                for k in base[1])
+            r["losses_equal"] = r["losses"] == base[0]
+            r["loss_max_abs_diff"] = max(abs(a - b) for a, b in
+                                         zip(r["losses"], base[0]))
+        del weights
+        out["sync_" + name] = r
+    out["qsync_mass"] = qsync_mass(spec)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5999,6 +6130,120 @@ def spawn_world(workdir: str, flag: str, world: int) -> list:
           f"{flag} world of {world} failed: exit codes {codes}\n"
           + "\n".join(tails))
     return codes
+
+
+def dist_adam_times(spec: dict, smi: str) -> dict:
+    """The fused Adam kernel at the launch shapes the new paths give it on
+    BERT-base of ``spec`` over two ranks: a rank's ZeRO blocks of every
+    leaf (one launch), and the largest and the smallest bucket of the
+    overlap schedule under ZeRO (one launch a bucket), each against its
+    plain version, torch._fused_adam_ and the bound (28 bytes a
+    parameter at HBM_BYTES_PER_S)."""
+    import types
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.executor import GraphProgram
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    from flexflow_tpu_torch.ops import ensure_weight_specs
+    from flexflow_tpu_torch.runtime.overlap import build_overlap_schedule
+    from flexflow_tpu_torch.runtime.zero import zero_spec
+    ff = FFModel(FFConfig())
+    o = build_bert(ff, spec["batch"], spec["seq"],
+                   getattr(BertConfig, spec["bert"])())
+    prog = GraphProgram(ff.layers, ff.input_tensors, [o])
+
+    def block(shape):
+        sp = zero_spec(shape, None, {"x0": 2})
+        return tuple(n // 2 if sp is not None and d < len(sp)
+                     and sp[d] is not None else n
+                     for d, n in enumerate(shape))
+    shapes = {l.name: [block(tuple(w.shape))
+                       for w in ensure_weight_specs(l)] for l in ff.layers}
+    sched = build_overlap_schedule(prog, types.SimpleNamespace(
+        pipeline=None, banks=None, place_groups=None, overlap=None),
+        types.SimpleNamespace(overlap="on", overlap_bucket_mb=4.0,
+                              zero_prefetch=1))
+    sizes = [(b.nbytes, [s for m in b.members for s in shapes[m]])
+             for b in sched.buckets]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
+    for key, what, leaves in (
+            ("zero_shard", "a rank's ZeRO blocks of every leaf",
+             [s for ss in shapes.values() for s in ss]),
+            ("bucket_largest", "the largest overlap bucket's ZeRO blocks",
+             max(sizes)[1]),
+            ("bucket_smallest", "the smallest overlap bucket's ZeRO blocks",
+             min(sizes)[1])):
+        a = res[key] = adam_times(gen, leaves)
+        a["leaves"] = len(leaves)
+        print(f"[dist] adam_update over {what} ({a['numel']} f32 "
+              f"parameters in {len(leaves)} leaves, one launch): kernel "
+              f"{a['ms']:.4f} ms, plain {a['plain_ms']:.4f} ms, "
+              f"torch._fused_adam_ {a['library_ms']:.4f} ms, bound "
+              f"{a['bound_ms']:.4f} ms (bytes); kernel/bound "
+              f"{a['ms'] / a['bound_ms']:.2f}; {len(sched.buckets)} "
+              f"buckets in all; {smi}")
+        free_cuda()
+    return res
+
+
+def dist_sync_report(ranks: list, want: dict, steps: int, smi: str) -> dict:
+    """Print and check DIST_SYNC_RUNS on every rank: the flash launches
+    of the serial run a step, the fused Adam's ceil(leaves / 384) (ZeRO,
+    the quantized sync) or one a bucket (the overlap schedule); ZeRO and
+    the overlap schedule bit-equal to the serial dp-2 run (weights after
+    the history, losses), the int8 quantized sync within
+    ``qsync_loss_ok`` of it; the quantized all-reduce's error-feedback
+    mass within its f32 rounding bound."""
+    out = {}
+    for name, _ in DIST_SYNC_RUNS:
+        for r, res in enumerate(ranks):
+            x = res["sync_" + name]
+            adam = x["buckets"] if x["buckets"] else -(-x["leaves"] // 384)
+            need = dict(want, adam_update=adam * steps)
+            base = res["sync_" + DIST_SYNC_RUNS[0][0]]
+            print(f"[dist] {name} rank {r}: step "
+                  f"{np.median(x['step_ms']):.1f} ms (median of "
+                  f"{len(x['step_ms'])}), peak "
+                  f"{x['peak_bytes'] / 2**30:.2f} GiB, moments "
+                  f"{x['moments_local_numel'] * 4 / 2**20:.1f} MiB of m "
+                  f"here, {x['sync_calls']:.1f} sync collectives and "
+                  f"{x['wire_bytes'] / 2**20:.2f} MiB on the wire a step, "
+                  f"launches in {steps} steps {x['launches']}"
+                  + (f", {x['buckets']} buckets" if x["buckets"] else "")
+                  + f", losses {[round(v, 6) for v in x['losses']]}"
+                  + ("" if name == DIST_SYNC_RUNS[0][0] else
+                     f", against the serial run: weights max |diff| "
+                     f"{x['weights_max_abs_diff']:.3e}, losses max |diff| "
+                     f"{x['loss_max_abs_diff']:.3e}")
+                  + (f", residual sum |r| {x['residual_abs']:.4e}"
+                     if x["qsync"] else "") + f" ({smi})")
+            check(x["launches"] == need,
+                  f"{name} rank {r} launches {x['launches']} != {need}")
+            if name in ("zero", "overlap_zero"):
+                check(x["losses_equal"] and x["weights_max_abs_diff"] == 0,
+                      f"{name} rank {r} is not the serial dp-2 run bit "
+                      f"for bit")
+            if name == "qsync_int8":
+                check(x["qsync"] and x["residual_abs"] > 0,
+                      f"rank {r}: the quantized sync did not run")
+                check(all(qsync_loss_ok(a, b) for a, b in
+                          zip(x["losses"], base["losses"])),
+                      f"rank {r}: int8 losses {x['losses']} leave "
+                      f"{base['losses']}'s bound")
+        out[name] = {k: [res["sync_" + name][k] for res in ranks]
+                     for k in ("step_ms", "peak_bytes", "sync_calls",
+                               "wire_bytes", "losses")}
+        out[name]["launches_per_rank"] = ranks[0]["sync_" + name]["launches"]
+        out[name]["buckets"] = ranks[0]["sync_" + name]["buckets"]
+    mass = [res["qsync_mass"] for res in ranks]
+    for r, m in enumerate(mass):
+        print(f"[dist] int8 quantized all-reduce of 2,359,296 values, rank "
+              f"{r}: error-feedback mass off by {m['max_err']:.3e} at most,"
+              f" f32 rounding bound {m['max_bound']:.3e}, residual sum "
+              f"|r| {m['sum_abs_residual']:.4e} ({smi})")
+        check(m["within"], f"rank {r}: quantized all-reduce mass {m}")
+    out["qsync_mass"] = mass
+    return out
 
 
 def phase_dist(smi: str, spec: dict = None) -> dict:
@@ -6144,6 +6389,9 @@ def phase_dist(smi: str, spec: dict = None) -> dict:
                                             for r in ranks),
                          "loss_err": max(r[name]["loss_err"]
                                          for r in ranks)}
+        out["sync"] = dist_sync_report(ranks, want, steps, smi)
+        if spec["device"] == "cuda":
+            out["adam_sync_shapes"] = dist_adam_times(spec, smi)
         out["routes"] = ranks[0]["routes"]
         out["backend"] = ranks[0]["backend"]
         out["world_s"] = world_s

@@ -21,8 +21,13 @@ through ``reshard.constrain_output``. The loss and metrics read the
 outputs replicated, so every rank reports the same values; each
 gradient is reduced to its parameter's layout (a replicated leaf's over
 the data-parallel axes) and the optimizer updates each rank's blocks.
-Banks, place groups, pipelines and the overlap, quantized-sync and ZeRO
-branches of the train step come with the slices that port them.
+The train step's multi-device branches are the JAX package's: ZeRO-1
+(moments sharded over the axes their weight is replicated on,
+``runtime/zero.py``: reduce-scatter of the gradient, the update on each
+rank's blocks, all-gather of the weight), the bucketed overlap of the
+gradient sync with backward (``runtime/overlap.py``) and the quantized
+gradient sync with error feedback (``ops/quantized_collectives.py``).
+Banks, place groups and pipelines come with the slices that port them.
 Each step function is wrapped by :func:`_instrument_step`, which records
 the ``executor.<name>_step`` spans when tracing is on.
 """
@@ -132,6 +137,10 @@ class GraphProgram:
         # over a live mesh, the strategy that lays the values out
         # (Executor.attach_world); None on one device
         self.strategy = None
+        # gradient-accumulation micro-batches a step's batch is cut into
+        # while it runs: an input's global rows are the compile batch's
+        # share of one micro-batch
+        self.micro_batches = 1
 
     @staticmethod
     def _to_device(value, t: Tensor, device: torch.device) -> torch.Tensor:
@@ -192,7 +201,7 @@ class GraphProgram:
                              len(t.shape))
         shape = tuple(value.shape)
         if shape[1:] == tuple(t.shape[1:]):
-            shape = tuple(t.shape)
+            shape = (t.shape[0] // self.micro_batches,) + tuple(t.shape[1:])
         return put_global(value, st.dmesh.mesh, pl, device=device,
                           dtype=to_torch(t.dtype), global_shape=shape)
 
@@ -361,6 +370,17 @@ class Executor:
         self._logits_tensor: Optional[Tensor] = None
         # over a world of ranks: the strategy and its live mesh
         self.strategy = None
+        # ZeRO-1 (runtime/zero.py): the placements of every optimizer-
+        # state leaf, set by FFModel.compile when it shards the moments;
+        # the ZeRO split of each sharded leaf is derived from them lazily
+        self.opt_state_constraints = None
+        self._zero_layouts = None
+        # the bucketed grad-sync schedule (runtime/overlap.py), or None:
+        # the serial step; its runtime over a world (BucketedSync)
+        self._overlap_schedule = None
+        self._bucketed = None
+        # the quantized-sync schedule (ops/quantized_collectives.py)
+        self._qsync = None
         if losses_mod.wants_logits(self.loss_type) \
                 and self.program.output_tensors:
             prod = self.program.output_tensors[0].owner_layer
@@ -375,6 +395,36 @@ class Executor:
                              "mesh")
         self.strategy = strategy
         self.program.strategy = strategy
+
+    def attach_overlap(self, strategy) -> None:
+        """Build the bucketed grad-sync schedule for ``strategy`` (None
+        where overlap is off or a pipeline owns the schedule) and record
+        it on the strategy as ``strategy.overlap``."""
+        from .runtime import overlap as overlap_mod
+        sched = overlap_mod.build_overlap_schedule(self.program, strategy,
+                                                   self.config)
+        self._overlap_schedule = sched
+        self._bucketed = None
+        self._train_step = None
+        if sched is not None:
+            strategy.overlap = sched.record()
+            obs_events.counter("overlap.schedules_built")
+
+    def attach_qsync(self, strategy=None) -> None:
+        """(Re)resolve the strategy's quantized-sync plan into an
+        executable schedule (None keeps the full-precision sync), and
+        drop the cached train step when it changes."""
+        from .ops import quantized_collectives as qsync_mod
+        st = strategy if strategy is not None else self.strategy
+        sched = None
+        if st is not None and st.dmesh.live:
+            sched = qsync_mod.runtime_schedule(self.program, st,
+                                               self.config, st.dmesh)
+        if (sched is None) != (self._qsync is None):
+            self._train_step = None
+        self._qsync = sched
+        if sched is not None:
+            obs_events.counter("qsync.schedules_built")
 
     def _no_grad(self):
         """``torch.inference_mode()`` on one device; ``torch.no_grad()``
@@ -459,12 +509,21 @@ class Executor:
         return None if lt is None else lt.guid
 
     def _forward(self, params, state, batch, training: bool, step=0,
-                 capture: bool = True):
+                 capture: bool = True,
+                 local_rows: Optional[Tuple[int, int]] = None):
         """``capture``: also return the logits the loss and the scores read
-        (``_logits_guid``; None without them); serving passes False."""
+        (``_logits_guid``; None without them); serving passes False.
+        ``local_rows`` = (global batch, first row) marks a rank's forward
+        on its own rows with local weights (the quantized sync):
+        ``EmitCtx.local_shape`` (a reshape to a global batch shape takes
+        the rank's rows) and the global step's dropout masks, cut to the
+        rows. (The JAX package draws each shard's masks from its own key
+        there; these are the serial step's.)"""
         rngs = self._rngs_for_step(step) if training else {}
         ctx = EmitCtx(training=training, rngs=rngs, state=state,
                       config=self.config)
+        ctx.local_shape = local_rows is not None
+        ctx.local_rows = local_rows
         self._attach_kernel_ctx(ctx)
         cap = self._logits_guid() if capture else None
         # checkpointing only matters under differentiation: eval and
@@ -523,8 +582,9 @@ class Executor:
             captured = tail
         return [env[t.guid] for t in self.program.output_tensors], captured
 
-    def _loss_and_metrics(self, outs, logits, label, aux_losses):
-        if self.strategy is not None:
+    def _loss_and_metrics(self, outs, logits, label, aux_losses,
+                          local: bool = False):
+        if self.strategy is not None and not local:
             outs, logits, label, aux_losses = self._replicate_for_loss(
                 outs, logits, label, aux_losses)
         pred = outs[0]
@@ -567,43 +627,50 @@ class Executor:
         return outs, logits, label, aux_losses
 
     def _refuse_multi_device_options(self) -> None:
-        """The overlap, quantized-sync and ZeRO branches of the JAX train
-        step are multi-device; asking for one here is an error, not a
-        silent serial step."""
-        cfg = self.config
-        asked = []
-        if str(getattr(cfg, "overlap", "auto")).lower() not in (
-                "auto", "off", "none", "0", "false"):
-            asked.append(f"overlap={cfg.overlap!r}")
-        if str(getattr(cfg, "quantized_collectives", "off")).lower() not in (
-                "off", "disable", "auto"):
-            asked.append(f"quantized_collectives="
-                         f"{cfg.quantized_collectives!r}")
-        if getattr(cfg, "shard_optimizer_states", False) or str(
-                getattr(cfg, "zero_policy", "off")).lower() in (
-                "memory", "all"):
-            asked.append("ZeRO (shard_optimizer_states / zero_policy)")
-        if asked:
+        """A per-parameter ZeRO plan (``zero_policy`` auto / memory / all)
+        needs the ZeRO planner, ``search/zero_plan.py``: an error, not a
+        silent replicated state."""
+        policy = str(getattr(self.config, "zero_policy", "off")).lower()
+        if policy in ("auto", "memory", "all") and not getattr(
+                self.config, "shard_optimizer_states", False):
             raise NotImplementedError(
-                "not ported yet (ROADMAP queue 1 item 4.2): "
-                + ", ".join(asked))
+                f"zero_policy={policy!r} needs the ZeRO planner "
+                f"(search/zero_plan.py), not ported yet (ROADMAP queue 1 "
+                f"item 5); --zero shards every moment")
 
-    def _grads(self, params, state, batch, step: int):
-        """Gradients of the mean loss with respect to every parameter
-        leaf, by ``torch.autograd.grad``; unused leaves get zeros.
-        Returns (grads, new_state, detached batch metrics)."""
+    def _backward(self, params, state, batch, step: int, hook=None,
+                  local_rows: Optional[Tuple[int, int]] = None):
+        """Forward and ``torch.autograd.grad`` of the mean loss with
+        respect to every parameter leaf. ``hook(i)`` (when given) makes
+        the hook registered on leaf ``i`` before backward. Returns
+        ``(names, leaves, gs, new_state, detached batch metrics)``, ``gs``
+        None where a leaf is unused."""
         names = [(ln, wn) for ln, wn, _ in tree_leaves(params)]
         leaves = [t.detach().requires_grad_(True)
                   for _, _, t in tree_leaves(params)]
+        if hook is not None:
+            for i, t in enumerate(leaves):
+                t.register_hook(hook(i))
         live: Dict[str, Dict[str, torch.Tensor]] = {}
         for (ln, wn), t in zip(names, leaves):
             live.setdefault(ln, {})[wn] = t
         with torch.enable_grad():
             outs, new_state, aux, logits = self._forward(
-                live, state, batch, True, step)
+                live, state, batch, True, step, local_rows=local_rows)
             loss, bm = self._loss_and_metrics(outs, logits, batch["label"],
-                                              aux)
+                                              aux,
+                                              local=local_rows is not None)
             gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return names, leaves, gs, new_state, \
+            {k: v.detach() for k, v in bm.items()}
+
+    def _grads(self, params, state, batch, step: int):
+        """Gradients of the mean loss with respect to every parameter
+        leaf, by ``torch.autograd.grad``; unused leaves get zeros. Over a
+        world each is reduced to its leaf's layout. Returns (grads,
+        new_state, detached batch metrics)."""
+        names, leaves, gs, new_state, bm = self._backward(params, state,
+                                                          batch, step)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (ln, wn), t, g in zip(names, leaves, gs):
             if g is None:
@@ -614,7 +681,160 @@ class Executor:
                 # parallel axes) reduced to the leaf's own layout
                 g = g.redistribute(t.device_mesh, t.placements)
             grads.setdefault(ln, {})[wn] = g
-        return grads, new_state, {k: v.detach() for k, v in bm.items()}
+        return grads, new_state, bm
+
+    def _local_grads(self, params, state, batch, step: int,
+                     local_rows: Tuple[int, int]):
+        """One rank's gradients on its own rows (``local_rows`` = (global
+        batch, first row)) with local (plain) weights, unreduced: the
+        quantized sync's backward. Returns (grads, detached local batch
+        metrics)."""
+        st = self.program.strategy
+        self.program.strategy = None
+        try:
+            names, leaves, gs, _, bm = self._backward(
+                params, _local_tree(state), batch, step,
+                local_rows=local_rows)
+        finally:
+            self.program.strategy = st
+        grads: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (ln, wn), t, g in zip(names, leaves, gs):
+            grads.setdefault(ln, {})[wn] = torch.zeros_like(t) \
+                if g is None else g
+        return grads, bm
+
+    # ------------------------------------------------------------------
+    # the update over a world: ZeRO blocks, serial and bucketed sync
+    # ------------------------------------------------------------------
+    def _zero_layout_map(self, params, opt_state) -> Dict[tuple, Any]:
+        """(layer, weight) -> ZeroLeaf of every ZeRO-sharded leaf (its
+        first moment laid out other than its weight), computed once."""
+        if self._zero_layouts is None:
+            from .runtime.zero import ZeroLeaf
+            out = {}
+            slots = [s for s in (opt_state or {})
+                     if isinstance(opt_state[s], dict)]
+            if self.opt_state_constraints is not None and slots:
+                slot = opt_state[slots[0]]
+                for ln, wn, w in tree_leaves(params):
+                    m = slot.get(ln, {}).get(wn)
+                    if m is not None and tuple(m.placements) != tuple(
+                            w.placements):
+                        out[(ln, wn)] = ZeroLeaf(w, m)
+            self._zero_layouts = out
+        return self._zero_layouts
+
+    def _sync_serial(self, params, names, raw, placements, zl):
+        """Each leaf's gradient in its update layout from its local
+        partial sum ``raw[i]`` (None: unused) laid out as
+        ``placements[i]``: reduced to the leaf's layout (DTensor's
+        redistribute, one collective a leaf), or under ZeRO
+        reduce-scattered to this rank's block, one flat collective for
+        the leaves of the same mesh dims (in runs of at most
+        ``ZERO_CHUNK_BYTES``). ``raw`` is consumed."""
+        from torch.distributed.tensor import Partial
+        from .parallel.distributed import SYNC_STATS, mesh_group
+        from .parallel.local_ops import from_local
+        from .runtime.zero import chunks, reduce_scatter_blocks
+        grads: Dict[str, Dict[str, torch.Tensor]] = {}
+        scatter: Dict[tuple, List[int]] = {}
+        for i, (ln, wn) in enumerate(names):
+            w = params[ln][wn]
+            wp, z = tuple(w.placements), zl.get((ln, wn))
+            local = raw[i]
+            if local is None:
+                local = torch.zeros_like(w.to_local())
+                gp = wp
+            else:
+                gp = tuple(placements[i])
+            if z is not None and all(
+                    isinstance(gp[d], Partial) for d in z.mesh_dims) and all(
+                    gp[d] == wp[d] for d in range(len(wp))
+                    if d not in z.mesh_dims):
+                scatter.setdefault(z.mesh_dims, []).append(i)
+                continue
+            if gp != wp:
+                SYNC_STATS.add(local)
+                local = from_local(local, w.device_mesh, gp, w.shape) \
+                    .redistribute(w.device_mesh, w.placements).to_local()
+            grads.setdefault(ln, {})[wn] = local if z is None \
+                else z.own(local).contiguous()
+        mesh = self.strategy.dmesh.mesh
+        for dims, idx in scatter.items():
+            group = mesh_group(mesh, dims)[0]
+            for part in chunks(idx, lambda i: raw[i].numel()
+                               * raw[i].element_size()):
+                _, blocks = reduce_scatter_blocks(
+                    [raw[i] for i in part], [zl[names[i]] for i in part],
+                    group)
+                for i, blk in zip(part, blocks):
+                    grads.setdefault(names[i][0], {})[names[i][1]] = blk
+                    raw[i] = None   # the partial sum is spent
+        return grads
+
+    def _zero_update(self, params, grads, opt_state, step: int, update,
+                     keys=None) -> None:
+        """The update of the leaves ``keys`` (all by default) on each
+        rank's blocks, in place: ``grads`` holds each leaf's gradient in
+        its update layout (whole, or the rank's ZeRO block); each ZeRO
+        leaf's weight block is updated in a flat buffer (made for the
+        update, so no copy of the blocks outlives it), then one all-gather
+        per mesh-dim group (in runs of at most ``ZERO_CHUNK_BYTES``
+        gathered) writes the weights back whole."""
+        from .parallel.distributed import mesh_group
+        from .runtime.zero import block_buffer, chunks, gather_blocks
+        zl = self._zero_layout_map(params, opt_state)
+        keys = [(ln, wn) for ln, wn, _ in tree_leaves(params)] \
+            if keys is None else list(keys)
+        ps: Dict[str, Dict[str, torch.Tensor]] = {}
+        gs: Dict[str, Dict[str, torch.Tensor]] = {}
+        groups: Dict[tuple, List[tuple]] = {}
+        for ln, wn in keys:
+            gs.setdefault(ln, {})[wn] = grads[ln][wn]
+            z = zl.get((ln, wn))
+            if z is None:
+                ps.setdefault(ln, {})[wn] = params[ln][wn].to_local()
+            else:
+                groups.setdefault(z.mesh_dims, []).append((ln, wn))
+        held = []
+        runs = [(dims, part) for dims, ks in groups.items()
+                for part in chunks(ks, lambda k: zl[k].numel * zl[k].size
+                                   * params[k[0]][k[1]].element_size())]
+        for dims, ks in runs:
+            flat, views = block_buffer([zl[k] for k in ks],
+                                       params[ks[0][0]][ks[0][1]].to_local())
+            for (ln, wn), v in zip(ks, views):
+                v.copy_(zl[(ln, wn)].own(params[ln][wn].to_local()))
+                ps.setdefault(ln, {})[wn] = v
+            held.append((dims, ks, flat))
+        state = {slot: {ln: {wn: layers[ln][wn].to_local()
+                             for wn in gs[ln]} for ln in gs}
+                 for slot, layers in opt_state.items()}
+        update(ps, gs, state, step)
+        mesh = self.strategy.dmesh.mesh
+        for dims, ks, flat in held:
+            _, finish = gather_blocks(
+                flat, [zl[k] for k in ks],
+                [params[ln][wn].to_local() for ln, wn in ks],
+                mesh_group(mesh, dims)[0])
+            finish()
+
+    def _bucketed_sync(self, params, opt_state):
+        """The overlap schedule's runtime over this world, built once."""
+        if self._bucketed is None:
+            from .runtime.overlap import BucketedSync, bucket_names
+            zl = self._zero_layout_map(params, opt_state)
+            keys = [(ln, wn) for ln, wn, _ in tree_leaves(params)]
+            pos = {k: i for i, k in enumerate(keys)}
+            buckets = [[pos[(ln, wn)] for ln in names
+                        for wn in params[ln]]
+                       for names in bucket_names(self._overlap_schedule,
+                                                 params)]
+            self._bucketed = BucketedSync(
+                [(ln, wn, params[ln][wn], zl.get((ln, wn)))
+                 for ln, wn in keys], buckets, self.strategy.dmesh.mesh,
+                self._overlap_schedule.zero_prefetch)
+        return self._bucketed
 
     def make_train_step(self):
         """The train step ``step_fn(params, opt_state, state, step, batch)
@@ -641,53 +861,132 @@ class Executor:
                 return torch.sqrt((v * v).mean(dim=0))
             return v.mean(dim=0)
 
-        def step_fn(params, opt_state, state, step, batch):
-            step = int(step)
+        def micro_batches(batch):
             if accum <= 1:
-                grads, state, bm = self._grads(params, state, batch, step)
-            else:
-                # gradient accumulation: A micro-batches, grads summed
-                # (mean losses => mean of micro grads == full-batch
-                # grad), one optimizer update per step
-                n = next(iter(batch.values())).shape[0]
-                if n % accum != 0:
-                    raise ValueError(
-                        f"batch dim {n} not divisible into {accum} "
-                        f"accumulation micro-batches")
-                mbn = n // accum
-                grads, bms = None, []
-                for i in range(accum):
-                    mb = {k: v[i * mbn:(i + 1) * mbn]
-                          for k, v in batch.items()}
-                    g, state, bm_i = self._grads(params, state, mb,
-                                                 step * accum + i)
-                    bms.append(bm_i)
-                    if grads is None:
-                        grads = g
-                    else:
-                        for ln, wn, t in tree_leaves(grads):
-                            t.add_(g[ln][wn])
+                return [batch]
+            n = next(iter(batch.values())).shape[0]
+            if n % accum != 0:
+                raise ValueError(
+                    f"batch dim {n} not divisible into {accum} "
+                    f"accumulation micro-batches")
+            mbn = n // accum
+            return [{k: v[i * mbn:(i + 1) * mbn] for k, v in batch.items()}
+                    for i in range(accum)]
+
+        def updater():
+            if self._kernel_impls.get("opt_update") == "fused":
+                from .runtime.optimizers import fused_adam_tree_update
+                return functools.partial(fused_adam_tree_update,
+                                         self.optimizer)
+            return self.optimizer.update
+
+        def one_device(params, opt_state, state, step, batch):
+            grads, bms = None, []
+            for i, mb in enumerate(micro_batches(batch)):
+                g, state, bm_i = self._grads(params, state, mb,
+                                             step * accum + i
+                                             if accum > 1 else step)
+                bms.append(bm_i)
+                if grads is None:
+                    grads = g
+                else:
+                    for ln, wn, t in tree_leaves(grads):
+                        t.add_(g[ln][wn])
+            if accum > 1:
+                # mean losses => mean of micro grads == full-batch grad
                 for _, _, t in tree_leaves(grads):
                     t.div_(accum)
-                bm = {k: reduce_metric(k, [b[k] for b in bms])
-                      for k in bms[0]}
+            if self._overlap_schedule is not None:
+                from .runtime.overlap import overlapped_update
+                overlapped_update(updater(), params, grads, opt_state,
+                                  step + 1, self._overlap_schedule)
+            else:
+                updater()(params, grads, opt_state, step + 1)
+            return state, bms
+
+        def world(params, opt_state, state, step, batch):
+            """The step over a world: backward per micro-batch (each
+            rank's local partial sums added up), then the serial sync or
+            the bucketed one, then the update on each rank's blocks."""
+            zl = self._zero_layout_map(params, opt_state)
+            bucketed = self._bucketed_sync(params, opt_state) \
+                if self._overlap_schedule is not None else None
+            mbs = micro_batches(batch)
+            acc: Optional[List[Optional[torch.Tensor]]] = None
+            bms = []
+            self.program.micro_batches = len(mbs)
+            try:
+                for i, mb in enumerate(mbs):
+                    hook = None
+                    if bucketed is not None and i == len(mbs) - 1:
+                        bucketed.begin(params, acc)
+                        hook = bucketed.hook
+                    names, _, gs, state, bm_i = self._backward(
+                        params, state, mb,
+                        step * accum + i if accum > 1 else step, hook=hook)
+                    bms.append(bm_i)
+                    if hook is not None:
+                        del gs
+                        bucketed.finish()
+                        break
+                    locs = [None if g is None else g.to_local() for g in gs]
+                    placements = [None if g is None else g.placements
+                                  for g in gs]
+                    del gs
+                    acc = locs if acc is None else [
+                        b if a is None else a if b is None else a + b
+                        for a, b in zip(acc, locs)]
+                    del locs
+            finally:
+                self.program.micro_batches = 1
+            if bucketed is not None:
+                bucketed.drain(updater(), opt_state, step + 1, accum)
+                return state, bms
+            grads = self._sync_serial(params, names, acc, placements, zl)
+            if accum > 1:
+                for _, _, t in tree_leaves(grads):
+                    t.div_(accum)
+            self._zero_update(params, grads, opt_state, step + 1, updater())
+            return state, bms
+
+        def quantized(params, opt_state, state, step, batch):
+            """The quantized sync (accumulation is ineligible): synced
+            local gradients, then the update, bucket by bucket under the
+            overlap schedule."""
+            from .ops import quantized_collectives as qsync_mod
+            residual, opt_state = qsync_mod.strip_residual(opt_state)
+            grads, bm = qsync_mod.sharded_grads(self, params, state, batch,
+                                                step, residual)
+            zl = self._zero_layout_map(params, opt_state)
+            for (ln, wn), z in zl.items():
+                grads[ln][wn] = z.own(grads[ln][wn]).contiguous()
+            if self._overlap_schedule is None:
+                self._zero_update(params, grads, opt_state, step + 1,
+                                  updater())
+            else:
+                from .runtime.overlap import bucket_names
+                for names in bucket_names(self._overlap_schedule, params):
+                    self._zero_update(params, grads, opt_state, step + 1,
+                                      updater(),
+                                      keys=[(ln, wn) for ln in names
+                                            for wn in params[ln]])
+            return state, [bm]
+
+        def step_fn(params, opt_state, state, step, batch):
+            step = int(step)
+            if self.strategy is None:
+                state, bms = one_device(params, opt_state, state, step,
+                                        batch)
+            elif self._qsync is not None:
+                state, bms = quantized(params, opt_state, state, step,
+                                       batch)
+            else:
+                state, bms = world(params, opt_state, state, step, batch)
+            bm = bms[0] if len(bms) == 1 else \
+                {k: reduce_metric(k, [b[k] for b in bms]) for k in bms[0]}
             # the loss-only NaN screen flag, checked by the host at
             # MetricsBuffer flushes instead of reading the loss each step
             bm["all_finite"] = torch.isfinite(bm["loss"]).all()
-            if self._kernel_impls.get("opt_update") == "fused":
-                from .runtime.optimizers import fused_adam_tree_update
-                update = functools.partial(fused_adam_tree_update,
-                                           self.optimizer)
-            else:
-                update = self.optimizer.update
-            if self.strategy is None:
-                params, opt_state = update(params, grads, opt_state,
-                                           step + 1)
-            else:
-                # each rank updates its own blocks in place: every
-                # gradient and moment is laid out as its parameter is
-                update(_local_tree(params), _local_tree(grads),
-                       _local_tree(opt_state), step + 1)
             return params, opt_state, state, bm
 
         self._train_step = _instrument_step(step_fn, "train")

@@ -643,9 +643,13 @@ class FFModel:
             program.stage_consts(self.device)
         if self.dmesh.live:
             self.executor.attach_world(self.strategy)
+        self.executor.attach_overlap(self.strategy)
+        self._plan_zero()
+        self._plan_qsync()
         self._plan_kernels()
         self.params, self.state = self.executor.init_params_and_state()
         self.opt_state = self.optimizer.init_state(self.params)
+        self._place_optimizer_state()
         self._step = 0
         self._compile_phases["compile_s"] = round(
             time.perf_counter() - compile_t0, 6)
@@ -657,6 +661,129 @@ class FFModel:
                                time.perf_counter() - compile_t0,
                                n_devices=self.dmesh.num_devices,
                                n_layers=len(self.layers))
+
+    def _place_optimizer_state(self) -> None:
+        """Over a world: the ZeRO-1 layout of the optimizer state (the
+        uniform ``--zero`` or the strategy's imported assignment,
+        ``runtime/zero.py``), whose placements the executor keeps; and
+        the zero error-feedback residuals of the quantized sync under
+        their reserved slot."""
+        ex = self.executor
+        if ex.strategy is None:
+            return
+        zero = getattr(self.strategy, "zero", None)
+        if self.opt_state and (self.config.shard_optimizer_states or zero):
+            from .runtime.zero import shard_optimizer_state, \
+                state_constraints
+            self.opt_state = shard_optimizer_state(
+                self.opt_state, self.strategy,
+                None if self.config.shard_optimizer_states else zero)
+            ex.opt_state_constraints = state_constraints(self.opt_state)
+            ex._zero_layouts = None
+        if ex._qsync is not None and isinstance(self.opt_state, dict):
+            from .ops import quantized_collectives as qsync_mod
+            res = qsync_mod.init_residuals(ex._qsync, ex.program,
+                                           self.dmesh, self.device)
+            if res:
+                self.opt_state[qsync_mod.RESIDUAL_SLOT] = res
+
+    def _annotate_export(self, block: str, value) -> None:
+        """Rewrite one block of the exported strategy file (the search
+        exported before this plan existed), so an import round-trips
+        it."""
+        import json
+        path = self.config.export_strategy_file
+        if not path:
+            return
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):   # nothing was exported
+            return
+        doc[block] = value
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+
+    def _plan_zero(self):
+        """The ZeRO assignment: the uniform ``--zero`` flag bypasses
+        planning (``strategy.zero`` = None; every moment takes its
+        ``zero_spec``), an assignment on the strategy (an import) is
+        honored verbatim, and ``zero_policy`` ``auto`` / ``memory`` /
+        ``all`` needs the ZeRO planner (``search/zero_plan.py``, ROADMAP
+        queue 1 item 5)."""
+        if self.strategy is None:
+            return
+        if self.config.shard_optimizer_states:
+            self.strategy.zero = None
+            return
+        if getattr(self.strategy, "zero", None) is not None:
+            return
+        policy = str(getattr(self.config, "zero_policy", "off")
+                     or "off").lower()
+        if policy in ("off", "false", "no", ""):
+            return
+        if policy not in ("auto", "memory", "all"):
+            raise ValueError(f"unknown zero_policy {policy!r} "
+                             f"(expected off/auto/memory/all)")
+        from .runtime.zero import opt_slots
+        if self.dmesh.num_devices <= 1 or opt_slots(self.optimizer) <= 0 \
+                or getattr(self.strategy, "pipeline", None) is not None:
+            return
+        raise NotImplementedError(
+            f"zero_policy={policy!r} needs the ZeRO planner "
+            f"(search/zero_plan.py), not ported yet (ROADMAP queue 1 "
+            f"item 5); --zero shards every moment")
+
+    def _plan_qsync(self):
+        """The quantized grad-sync plan (``FFConfig.quantized_collectives``,
+        ``ops/quantized_collectives.py``): an imported plan is honored
+        verbatim unless explicitly disabled (``--no-quantized-
+        collectives`` / ``FF_QUANTIZED_COLLECTIVES=off`` strip it);
+        otherwise, on a mode other than off over several devices, the
+        cost model scores every replicated weight's sync and the plan is
+        adopted, recorded in the audit and the exported file."""
+        cfg = self.config
+        if self.strategy is None:
+            return
+        from .ops.quantized_collectives import (audit_record, plan_qsync,
+                                                qsync_disabled,
+                                                resolve_qsync_mode,
+                                                resolve_qsync_wire)
+        if getattr(self.strategy, "qsync", None) is not None:
+            if qsync_disabled(cfg):
+                logging.getLogger("flexflow_tpu_torch").warning(
+                    "stripping the imported strategy's quantized-"
+                    "collectives plan (explicitly disabled)")
+                self.strategy.qsync = None
+            self.executor.attach_qsync(self.strategy)
+            return
+        mode = resolve_qsync_mode(cfg)
+        if mode == "off" or self.dmesh.num_devices <= 1:
+            return
+        wire = resolve_qsync_wire(cfg)
+        cost_model = getattr(self, "_search_cost_model", None)
+        if cost_model is None or cost_model.spec is not self.dmesh.spec:
+            from .search.costmodel import OpCostModel
+            cost_model = OpCostModel(self.dmesh.spec)
+        cost_model.attach_quantization(mode, wire)
+        plan = plan_qsync(self.strategy, self.executor.program.layers,
+                          self.dmesh, cost_model, mode=mode, wire=wire)
+        self.strategy.qsync = plan
+        self.executor.attach_qsync(self.strategy)
+        if plan is None:
+            return
+        if not getattr(self.strategy, "axis_tiers", None):
+            try:
+                self.strategy.axis_tiers = dict(self.dmesh.axis_tiers)
+            except Exception:  # noqa: BLE001 — tierless machine
+                pass
+        record = audit_record(plan)
+        self._qsync_record = record
+        audit_path = getattr(self, "_strategy_audit_path", None)
+        if audit_path:
+            from .obs.audit import annotate_strategy_audit
+            annotate_strategy_audit(audit_path, {"quantized_sync": record})
+        self._annotate_export("qsync", plan.to_json())
 
     def _tp_preset(self, spec, mesh_shape) -> Optional[ShardingStrategy]:
         """``--tp N`` (with ``--sp``): the Megatron dp x tp (x sp) preset

@@ -240,8 +240,17 @@ class DropoutOp(OpDef):
         keep = 1.0 - rate
         # over a live mesh each rank draws the whole mask and keeps its
         # block, so a sharded run masks as the one-device run does
-        mask = global_rand(x, lambda shape, dev: torch.rand(
-            shape, generator=generator_on(rng, dev), device=dev)) < keep
+        draw = lambda shape, dev: torch.rand(  # noqa: E731
+            shape, generator=generator_on(rng, dev), device=dev)
+        rows = getattr(ctx, "local_rows", None)
+        if rows is not None and not is_dtensor(x):
+            # a rank's own rows (the quantized sync): the global draw, cut
+            # to them
+            b, lo = rows
+            mask = draw((b,) + tuple(x.shape[1:]), x.device)[
+                lo:lo + x.shape[0]] < keep
+        else:
+            mask = global_rand(x, draw) < keep
         return [torch.where(mask, x / keep, torch.zeros_like(x))]
 
 
@@ -606,8 +615,11 @@ class MultiHeadAttentionOp(OpDef):
                     params, ctx, name, q_, k_, v_, rate, rng, mdt, gmap),
                 (qh, kh, vh), pl, (*qh.shape[:3], vh.shape[3]))
         else:
+            rows = getattr(ctx, "local_rows", None)
+            gmap = None if rows is None else \
+                (rows[0], qh.shape[2], rows[1], 0)
             ctxv = self._attend(params, ctx, name, qh, kh, vh, rate, rng,
-                                mdt, None)
+                                mdt, gmap)
         return self._out_proj(ctxv, weights, mdt, cdt, ctx)
 
     def _attend(self, params, ctx, name, qh, kh, vh, rate, rng, mdt,

@@ -85,6 +85,14 @@ class EmitCtx:
         # the adopted per-op kernel impls (kernels/registry.py), threaded
         # in by the executor; None/empty = default impls
         self.kernel_impls: Optional[Dict[str, str]] = None
+        # local-shape execution (a rank's forward on its own rows with
+        # local weights, the quantized sync): a reshape to a recorded
+        # global batch shape takes the rank's rows, and local_rows =
+        # (global batch, first row) places those rows in the batch, where
+        # the dropout masks are drawn or hashed, so they are the global
+        # step's masks
+        self.local_shape: bool = False
+        self.local_rows: Optional[Tuple[int, int]] = None
         # row_chunk > 0 (the KV decode step): every product of mm_f32
         # and every norm runs on blocks of exactly row_chunk rows (batch
         # entries of a batched product), so a row meets the same GEMM and

@@ -63,7 +63,17 @@ class ReshapeOp(OpDef):
         return [(shape, in_dtypes[0])]
 
     def emit(self, params, inputs, weights, ctx, name):
-        return [inputs[0].reshape(tuple(params["shape"]))]
+        shape = tuple(params["shape"])
+        x = inputs[0]
+        vol = int(np.prod(shape))
+        if getattr(ctx, "local_shape", False) and -1 not in shape \
+                and shape and vol != x.numel():
+            # a rank's rows under the quantized sync: the recorded shape
+            # is global, so its batch dim takes the rank's share
+            rest = vol // shape[0] if shape[0] > 0 else 0
+            if rest > 0 and x.numel() % rest == 0:
+                shape = (x.numel() // rest,) + shape[1:]
+        return [x.reshape(shape)]
 
 
 @register

@@ -183,6 +183,60 @@ def all_to_all_dim(x: torch.Tensor, split_dim: int, concat_dim: int,
     return _AllToAllDim.apply(x, split_dim, concat_dim, group)
 
 
+class SyncStats:
+    """The train step's gradient-sync and ZeRO collectives in this
+    process: calls issued and the bytes each rank put on the wire (its
+    send buffer: a reduction's input, a gather's block)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.bytes = 0
+
+    def add(self, t: torch.Tensor) -> None:
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+
+
+SYNC_STATS = SyncStats()
+
+_GROUPS: Dict[tuple, object] = {}
+
+
+def mesh_group(mesh, dims: Sequence[int]):
+    """``(group, size, index)`` of the c10d process group spanning the
+    mesh dims ``dims`` of ``mesh`` (a ``torch.distributed`` DeviceMesh)
+    through this rank: the group's size and this rank's index in it, the
+    mixed-radix coordinate over ``dims`` in mesh order (major first), as
+    the JAX package's tuple-axis collectives enumerate a group. One mesh
+    dim is the mesh's own group; every dim of a mesh laid out in rank
+    order is the default group (``None``); other sets are built once
+    with ``new_subgroups_by_enumeration``, which every rank must reach
+    in the same order (the train step's fixed sequence of collectives
+    does)."""
+    import torch.distributed as dist
+    dims = tuple(sorted(int(d) for d in dims))
+    coord = mesh.get_coordinate()
+    size, index = 1, 0
+    for d in dims:
+        size *= mesh.size(d)
+        index = index * mesh.size(d) + coord[d]
+    if len(dims) == 1:
+        return mesh.get_group(dims[0]), size, index
+    layout = mesh.mesh
+    if dims == tuple(range(mesh.ndim)) and torch.equal(
+            layout.flatten(), torch.arange(layout.numel())):
+        return None, size, index
+    key = (tuple(layout.flatten().tolist()), tuple(layout.shape), dims)
+    if key not in _GROUPS:
+        rest = [d for d in range(mesh.ndim) if d not in dims]
+        rows = layout.permute(*rest, *dims).reshape(-1, size).tolist()
+        _GROUPS[key] = dist.new_subgroups_by_enumeration(rows)[0]
+    return _GROUPS[key], size, index
+
+
 def maybe_initialize(config=None, device_type: str = "cuda") -> bool:
     """Join the world if one is configured; True when running with more
     than one rank after the call. Idempotent: ``FFModel.compile`` calls

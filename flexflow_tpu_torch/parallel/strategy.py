@@ -92,14 +92,18 @@ class ShardingStrategy:
         # placement (one tier), so it leaves them empty.
         self.axis_tiers: Dict[str, str] = {}
         self.collective_trees: List[Dict] = []
-        # pipeline region, banks, place groups, ZeRO, quantized sync and
-        # serving plans: the JAX package's multi-device planners, not
-        # ported (ROADMAP queue 1 items 4-5); always empty here
+        # pipeline region, banks and place groups: the JAX package's
+        # planners not ported yet (ROADMAP queue 1 items 4.3 and 5),
+        # always empty here. The ZeRO assignment (runtime/zero.py), the
+        # quantized-sync plan (ops/quantized_collectives.py) and the
+        # overlap schedule's record (runtime/overlap.py) are set by
+        # compile or read from an imported file
         self.pipeline = None
         self.banks: List = []
         self.place_groups: List = []
         self.zero = None
         self.qsync = None
+        self.overlap = None
         self.serving = None
         # searched per-op kernel-implementation assignment
         # (kernels/registry.py, planned by FFModel._plan_kernels): op

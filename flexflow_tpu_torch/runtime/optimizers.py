@@ -143,17 +143,31 @@ class AdamOptimizer(Optimizer):
         return params, state
 
 
+def fused_adam_leaves(opt: AdamOptimizer, ws, gs, ms, vs, step) -> None:
+    """Adam update of any set of leaves through the fused multi-tensor
+    kernel (``kernels/opt_update.py``): one launch for up to the kernel's
+    384 leaves, in place. The leaves may be whole weights or the blocks
+    of ZeRO-sharded state (each rank's block of a weight, gradient and
+    moments), each contiguous; m and v are f32."""
+    from ..kernels.opt_update import fused_adam_update
+    if not ws:
+        return
+    alpha_t = opt.alpha_t(step, ws[0].device)
+    with torch.no_grad():
+        fused_adam_update(list(ws), [g.contiguous() for g in gs], list(ms),
+                          list(vs), alpha_t, beta1=opt.beta1,
+                          beta2=opt.beta2, eps=opt.epsilon,
+                          wd=opt.weight_decay)
+
+
 def fused_adam_tree_update(opt: AdamOptimizer, params, grads, state, step):
-    """Adam update of every leaf through the fused multi-tensor kernel
-    (``kernels/opt_update.py``), selected by the kernel tier
+    """Adam update of every leaf of a tree through the fused kernel
+    (:func:`fused_adam_leaves`), selected by the kernel tier
     (``opt_update: fused``): one launch for the whole tree where the JAX
     package launches its Pallas kernel per leaf. The update math is that
     of ``AdamOptimizer.update`` for f32 weights; the kernel folds weight
     decay after the cast to f32, as the JAX kernel does. In place; the
     moments become f32 first if they are not."""
-    from ..kernels.opt_update import fused_adam_update
-
-    alpha_t = opt.alpha_t(step, _device_of(params))
     ws, gs, ms, vs = [], [], [], []
     for lname, wname, w in tree_leaves(params):
         for slot in ("m", "v"):
@@ -161,11 +175,8 @@ def fused_adam_tree_update(opt: AdamOptimizer, params, grads, state, step):
                 state[slot][lname][wname] = \
                     state[slot][lname][wname].float()
         ws.append(w)
-        gs.append(grads[lname][wname].contiguous())
+        gs.append(grads[lname][wname])
         ms.append(state["m"][lname][wname])
         vs.append(state["v"][lname][wname])
-    with torch.no_grad():
-        fused_adam_update(ws, gs, ms, vs, alpha_t, beta1=opt.beta1,
-                          beta2=opt.beta2, eps=opt.epsilon,
-                          wd=opt.weight_decay)
+    fused_adam_leaves(opt, ws, gs, ms, vs, step)
     return params, state

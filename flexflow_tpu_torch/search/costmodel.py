@@ -16,10 +16,12 @@ Simulator (``src/runtime/simulator.cc``):
   - ``weight_sync_cost``: the gradient all-reduce ring over the data-
     parallel degree.
 
-Hierarchical placement, quantized gradient sync and overlap-aware sync
-pricing are the JAX package's multi-tier refinements; on a one-tier
-machine with their defaults they change no number. They are not ported
-(ROADMAP queue 1 item 4): asking for one raises ``NotImplementedError``.
+Quantized gradient sync (``attach_quantization``,
+``quantized_sync_quote``: the flat sync at the wire dtype's bytes) and
+overlap-aware sync pricing (``overlap_mode``: only the exposed part of a
+sync or a ring hop is charged) are the JAX package's. Hierarchical
+placement is not ported (ROADMAP queue 1 item 5): attaching one raises
+``NotImplementedError``, so every sync is priced flat.
 A CUDA failure while calibrating or measuring raises; only an unreadable
 cache file is skipped.
 """
@@ -44,8 +46,8 @@ from ..parallel.machine import DeviceMesh, MachineSpec
 from ..parallel.topology import link_degradation_factor
 
 
-_NOT_PORTED = ("is not ported (ROADMAP queue 1 item 4: the parallel "
-               "lowering and its multi-tier pricing)")
+_NOT_PORTED = ("is not ported (ROADMAP queue 1 item 5: the rest of the "
+               "strategy search)")
 
 
 def bandwidth_multiplier(collective: str, degree: int) -> float:
@@ -164,9 +166,10 @@ class OpCostModel:
         # and per-collective tables measured on the live backend. None =
         # analytic terms only (unchanged legacy behavior).
         self.calib = None
-        # hierarchical placement, quantized sync and overlap-aware
-        # pricing: not ported; fixed at the JAX package's defaults,
-        # under which they change no prediction
+        # hierarchical placement (not ported: always None, so every
+        # sync is priced flat); the quantized-collectives policy
+        # (attach_quantization); overlap-aware sync pricing (set by the
+        # search from FFConfig.overlap)
         self.placement = None
         self.placement_policy: Optional[str] = None
         self.quantization: Optional[Dict[str, str]] = None
@@ -245,11 +248,85 @@ class OpCostModel:
 
     def attach_quantization(self, mode: Optional[str],
                             wire: str = "int8") -> None:
-        """Quantized gradient collectives: only "off" is accepted here."""
-        if mode not in (None, "off"):
-            raise NotImplementedError(
-                f"quantized gradient collectives {_NOT_PORTED}")
-        self.quantization = None
+        """Attach (or detach, ``mode=None`` / "off") the quantized-
+        collectives scoring policy; clears every cost priced under the
+        previous one."""
+        if mode in (None, "off"):
+            self.quantization = None
+        else:
+            from ..ops.quantized_collectives import QSYNC_MODES
+            if mode not in QSYNC_MODES:
+                raise ValueError(f"unknown quantization mode {mode!r}")
+            self.quantization = {"mode": mode, "wire": wire}
+        self.cache.clear()
+
+    def _quant_overhead_s(self, volume_bytes: float) -> float:
+        """Quantize + dequantize cost of one synced tensor: two streaming
+        passes over the payload at the measured (or datasheet) memory
+        rate."""
+        mem_bw = self.spec.hbm_bandwidth
+        if self.calib is not None and self.calib.mem_bw:
+            mem_bw = self.calib.mem_bw
+        return 2.0 * volume_bytes / max(mem_bw, 1.0)
+
+    def _flat_wire_sync(self, volume_bytes: float, degree: int,
+                        wire: str) -> float:
+        """Flat quantized grad sync: the calibrated wire-dtype rows answer
+        first, else the f32 rows queried at the narrow payload's bytes,
+        else the analytic ring at wire bytes (two collectives, twice the
+        latency rounds); plus the quantize/dequantize overhead."""
+        from ..ops.quantized_collectives import wire_byte_scale
+        wb = volume_bytes * wire_byte_scale(wire)
+        t = None
+        if self.calib is not None:
+            t = self.calib.collective_marginal("all_reduce", degree, wb,
+                                               dtype=wire)
+            if t is None:
+                t = self.calib.collective_marginal("all_reduce", degree,
+                                                   wb)
+        if t is None:
+            ici_bw = (self.coll_bw or self.spec.ici_bandwidth) \
+                / link_degradation_factor("ici")
+            ici_lat = self.coll_lat if self.coll_lat is not None \
+                else self.spec.ici_latency_us * 1e-6
+            t = (bandwidth_multiplier("all_reduce", degree)
+                 * (degree - 1) / degree * wb / ici_bw
+                 + 2 * (degree - 1) * ici_lat)
+        return float(t) + self._quant_overhead_s(volume_bytes)
+
+    def quantized_sync_quote(self, volume_bytes: float, degree: int,
+                             skeleton: Sequence[Tuple[Tuple[str, ...],
+                                                      str]],
+                             mode: Optional[str] = None,
+                             wire: Optional[str] = None
+                             ) -> Optional[Tuple[float, float,
+                                                 List[Optional[str]]]]:
+        """One gradient tensor's sync at full precision vs quantized over
+        the tier-phase ``skeleton`` (``[(axes, tier), ...]``):
+        ``(baseline_s, quantized_s, phase_wires)``, ``phase_wires[i]`` the
+        wire dtype of phase i (None = full precision), all None where the
+        mode keeps it full precision. None when no policy applies. With
+        no placement attached (the port never attaches one) the sync is
+        priced flat, as the JAX package does there: ``dcn_only`` has no
+        leg to narrow, ``auto`` quantizes only where it is cheaper."""
+        q = self.quantization or {}
+        mode = mode or q.get("mode")
+        wire = wire or q.get("wire") or "int8"
+        if not mode or mode == "off" or degree <= 1 or volume_bytes <= 0:
+            return None
+        saved = self.quantization
+        try:
+            self.quantization = None
+            base = self.weight_sync_cost(volume_bytes, degree)
+        finally:
+            self.quantization = saved
+        tiers = [t for _, t in skeleton] or ["ici"]
+        if mode == "dcn_only":
+            return None
+        qc = self._flat_wire_sync(volume_bytes, degree, wire)
+        if mode == "auto" and qc >= base:
+            return base, base, [None] * len(tiers)
+        return base, qc, [wire] * len(tiers)
 
     def _prov(self, term: str, table: Optional[str],
               key: Optional[str] = None, tier: Optional[str] = None
@@ -996,6 +1073,26 @@ class OpCostModel:
             self._prov("sync", "coll_all_reduce",
                        self.calib.row_key("all_reduce", dp_degree,
                                           weight_bytes))
+        # the quantized flat candidate (ops/quantized_collectives.py):
+        # "auto" takes it where it prices cheaper, "all" mandates it;
+        # dcn_only narrows tree legs only, and a flat sync has none
+        q = self.quantization
+        if q is not None and q["mode"] in ("auto", "all") \
+                and dp_degree > 1 and weight_bytes > 0:
+            qc = self._flat_wire_sync(weight_bytes, dp_degree, q["wire"])
+            if q["mode"] == "all" or qc < t:
+                self.last_sync_wire = q["wire"]
+                if self.provenance is not None:
+                    from ..ops.quantized_collectives import wire_byte_scale
+                    self._prov("sync", "coll_all_reduce",
+                               self.calib.row_key(
+                                   "all_reduce", dp_degree,
+                                   weight_bytes
+                                   * wire_byte_scale(q["wire"]))
+                               if self.calib is not None else None,
+                               None)
+                    self.provenance[-1]["wire"] = q["wire"]
+                return qc
         return t
 
 

@@ -33,9 +33,8 @@ class GraphCost:
     xfer: float
     sync: float
     peak_memory: int
-    # gradient-sync seconds hidden behind backward compute under the
-    # JAX package's overlap-aware scoring; always 0.0 here (the serial
-    # model, which that scoring reduces to when off)
+    # gradient-sync seconds hidden behind backward compute under
+    # overlap-aware scoring (OpCostModel.overlap_mode); 0.0 when off
     sync_hidden: float = 0.0
 
 
@@ -79,6 +78,10 @@ class StrategySimulator:
     def _evaluate(self, assign: Dict[str, Tuple[int, ...]],
                   breakdown: bool) -> Tuple[GraphCost, List[Dict]]:
         compute = xfer = sync = 0.0
+        # overlap-aware sync pricing: unity's contract, the split
+        # resolved by the shared _overlap_split after the walk
+        overlap_on = bool(getattr(self.cost, "overlap_mode", False))
+        sync_sites: List[Dict] = []
         mem = 0
         entries: List[Dict] = []
         if breakdown:
@@ -128,6 +131,7 @@ class StrategySimulator:
                              for w in layer.weights) // max(wdeg, 1)
                 l_sync = self.cost.weight_sync_cost(wbytes, dp_deg)
             sync += l_sync
+            n_entries = len(entries)
             if breakdown:
                 e = {
                     "name": layer.name,
@@ -154,11 +158,21 @@ class StrategySimulator:
                 if prov is not None:
                     del prov[:]
                 entries.append(e)
+            if overlap_on:
+                sync_sites.append({
+                    "bwd": cm.backward_time, "sync": l_sync,
+                    "entry": entries[-1] if len(entries) > n_entries
+                    else None})
+        sync_hidden = 0.0
+        if overlap_on and sync > 0:
+            from .unity import _overlap_split
+            sync, sync_hidden = _overlap_split(sync_sites)
         total = compute + xfer + sync
         # memory feasibility: ~4x weights (param + grad + 2 Adam moments)
         if mem * 4 > self.cost.spec.hbm_bytes:
             total *= 100.0  # infeasible penalty (memory-aware search refines)
-        return GraphCost(total, compute, xfer, sync, mem), entries
+        return GraphCost(total, compute, xfer, sync, mem,
+                         sync_hidden=sync_hidden), entries
 
 
 def data_parallel_assignment(layers: Sequence[Layer], dmesh: DeviceMesh,

@@ -12,9 +12,11 @@ On the card the calibration runs the bf16 matmul chain
 ``calibration_v2`` measures the host and attention-impl rows
 (``search/calibration.py``); a CUDA failure in any of them raises.
 ``mode="serving"`` dispatches to the serving search
-(``search/serving_plan.py``). Refused with ``NotImplementedError``
-naming the ROADMAP item: pipeline search, banked placement, quantized
-gradient collectives, overlap-aware scoring, hierarchical placement on a
+(``search/serving_plan.py``). Quantized gradient collectives
+(``FFConfig.quantized_collectives``) and overlap-aware scoring
+(``FFConfig.overlap``) are attached to the cost model as in the JAX
+package. Refused with ``NotImplementedError`` naming the ROADMAP item:
+pipeline search, banked placement, hierarchical placement on a
 multi-tier machine, and the task-graph simulator
 (``machine_model_version >= 1``).
 """
@@ -32,7 +34,6 @@ from .mcmc import (assignment_to_strategy, data_parallel_assignment,
                    mcmc_search)
 from .serialization import load_strategy, save_strategy
 
-_ITEM4 = "ROADMAP queue 1 item 4 (the parallel lowering)"
 _ITEM5 = "ROADMAP queue 1 item 5 (the rest of the strategy search)"
 
 
@@ -43,11 +44,6 @@ def _on(value, default: str = "auto") -> str:
 def _refuse_unported(cfg, dmesh) -> None:
     """The JAX search's multi-device refinements, when asked for."""
     asked = []
-    qs = _on(getattr(cfg, "quantized_collectives", "off"), "off")
-    if qs not in ("off", "", "false", "no", "0", "disable", "disabled"):
-        asked.append((f"quantized_collectives={qs!r}", _ITEM4))
-    if _on(getattr(cfg, "overlap", "auto")) in ("on", "true", "1", "yes"):
-        asked.append(("overlap", _ITEM4))
     if getattr(cfg, "enable_pipeline_search", False):
         asked.append(("enable_pipeline_search", _ITEM5))
     if _on(getattr(cfg, "banked_placement", "auto")) in (
@@ -61,7 +57,7 @@ def _refuse_unported(cfg, dmesh) -> None:
             "false", "off", "0", "no"):
         asked.append(("hierarchical placement on a multi-tier machine "
                       "(set hier_placement='false' to price it flat)",
-                      _ITEM4))
+                      _ITEM5))
     if asked:
         raise NotImplementedError(
             "not ported: " + "; ".join(f"{what} [{item}]"
@@ -103,6 +99,19 @@ def optimize_strategy(ff, mode: str = "train"):
     cost_model.device = ff.device
     cost_model.segment_size = max(1, cfg.simulator_segment_size)
     cost_model.max_segments = max(1, cfg.simulator_max_num_segments)
+    # quantized gradient collectives (ops/quantized_collectives.py): the
+    # search scores every grad-sync site with its legs optionally at the
+    # wire dtype; off (the default) changes no prediction
+    from ..ops.quantized_collectives import (resolve_qsync_mode,
+                                             resolve_qsync_wire)
+    qmode = resolve_qsync_mode(cfg)
+    if qmode != "off":
+        cost_model.attach_quantization(qmode, resolve_qsync_wire(cfg))
+    # overlap-aware scoring (FFConfig.overlap / FF_OVERLAP): gradient
+    # sync priced at what the bucketed schedule (runtime/overlap.py)
+    # cannot hide behind backward compute; off is the serial pricing
+    from ..runtime.overlap import overlap_enabled
+    cost_model.overlap_mode = overlap_enabled(cfg)
     # the kernel planner (FFModel._plan_kernels) re-prices against the
     # SAME calibrated model the search scored the strategy with
     ff._search_cost_model = cost_model
@@ -194,10 +203,40 @@ def _write_unity_audit(ff, cost_model, graph, gc, info):
         "predicted_dp_over_searched":
             d_gc.total / max(a_gc.total, 1e-12),
     }
+    ov = _overlap_audit_block(cost_model, a_gc)
+    if ov is not None:
+        record["overlap"] = ov
     path = obs_audit.write_strategy_audit(record, key)
     if path:
         ff._strategy_audit_path = path
         obs_events.counter("search.audit_records")
+
+
+def _overlap_audit_block(cost_model, a_gc):
+    """The strategy audit's ``overlap`` section, written only under
+    overlap-aware scoring: the adopted plan's predicted exposed
+    communication (sync left exposed plus the per-op transfers) and the
+    sync hidden behind backward; bumps the
+    ``ff_comm_overlap_hidden_s_total`` / ``ff_comm_exposed_s_total``
+    counters with the prediction. (The JAX package adds its task
+    simulator's estimate; that simulator is ROADMAP queue 1 item 5.)"""
+    if not getattr(cost_model, "overlap_mode", False):
+        return None
+    from ..obs.metrics_registry import REGISTRY
+    block = {"enabled": True,
+             "predicted_exposed_s": float(a_gc.sync + a_gc.xfer),
+             "predicted_hidden_s": float(getattr(a_gc, "sync_hidden",
+                                                 0.0))}
+    REGISTRY.counter(
+        "ff_comm_overlap_hidden_s_total",
+        "Communication seconds hidden behind backward compute "
+        "(overlap-aware scoring)").inc(block["predicted_hidden_s"],
+                                       side="predicted")
+    REGISTRY.counter(
+        "ff_comm_exposed_s_total",
+        "Communication seconds exposed on the step critical path").inc(
+        block["predicted_exposed_s"], side="predicted")
+    return block
 
 
 def _write_mcmc_audit(ff, sim, best, dp):

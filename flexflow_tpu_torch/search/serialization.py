@@ -6,11 +6,13 @@ with per-layer output/weight specs and the mesh axis sizes, in the JAX
 package's schema key for key, so a file either package writes loads in
 the other (a spec's tuple entries travel as lists, as ``PartitionSpec``
 entries do there); the legacy line-oriented text format of the
-reference. The blocks of the JAX package's multi-device planners
-(``zero``, ``qsync``, ``overlap``, ``banks``, ``place_groups``,
-``serving``) load as the JSON they are and are written back unchanged;
-the port executes no strategy that carries them (ROADMAP queue 1 items
-4-5). The program half: an executable layer list as JSON, each layer's
+reference. The ``zero`` block loads as a ``runtime.zero.ZeroAssignment``,
+``qsync`` as an ``ops.quantized_collectives.QsyncPlan`` and ``overlap``
+as the schedule's record (a dict), each honored verbatim by ``compile``
+and written back from them. The blocks of the planners not ported yet
+(``banks``, ``place_groups``; ROADMAP queue 1 item 5) and ``serving``
+load as the JSON they are and are written back unchanged. The program
+half: an executable layer list as JSON, each layer's
 op type, params and input references; enums travel by class name and
 value (``{"_enum": "ActiMode", "v": 10}``) and resolve through this
 package's ``ffconst``, sequences as ``{"_seq": [...]}``, and values JSON
@@ -30,8 +32,7 @@ from ..parallel.machine import DeviceMesh
 from ..parallel.strategy import OpSharding, P, ShardingStrategy, Spec
 
 #: the planners' blocks a strategy file may carry, kept verbatim
-_RAW_BLOCKS = ("zero", "qsync", "overlap", "banks", "place_groups",
-               "serving")
+_RAW_BLOCKS = ("banks", "place_groups", "serving")
 
 
 def _spec_to_json(spec: Optional[Spec]):
@@ -68,9 +69,13 @@ def save_strategy(path: str, strategy: ShardingStrategy,
         doc["axis_tiers"] = dict(strategy.axis_tiers)
     if getattr(strategy, "collective_trees", None):
         doc["collective_trees"] = list(strategy.collective_trees)
-    for block in ("zero", "qsync", "overlap"):
-        if getattr(strategy, block, None):
-            doc[block] = getattr(strategy, block)
+    if getattr(strategy, "zero", None) is not None:
+        doc["zero"] = strategy.zero.to_json()
+    if getattr(strategy, "qsync", None) is not None:
+        doc["qsync"] = strategy.qsync.to_json()
+    if getattr(strategy, "overlap", None):
+        # the bucketed grad-sync schedule (runtime/overlap.py)
+        doc["overlap"] = dict(strategy.overlap)
     if getattr(strategy, "kernel_impls", None):
         # per-op kernel implementations (kernels/registry.py): layer
         # names -> attention impl, plus the graph-wide "opt_update"
@@ -115,6 +120,14 @@ def load_strategy(path: str, layers, dmesh: DeviceMesh) -> ShardingStrategy:
     if doc.get("kernel_impls"):
         st.kernel_impls = {str(k): str(v)
                            for k, v in doc["kernel_impls"].items()}
+    if doc.get("zero"):
+        from ..runtime.zero import ZeroAssignment
+        st.zero = ZeroAssignment.from_json(doc["zero"])
+    if doc.get("qsync"):
+        from ..ops.quantized_collectives import QsyncPlan
+        st.qsync = QsyncPlan.from_json(doc["qsync"])
+    if doc.get("overlap"):
+        st.overlap = dict(doc["overlap"])
     for block in _RAW_BLOCKS:
         if doc.get(block):
             setattr(st, block, doc[block])

@@ -190,6 +190,12 @@ class GraphCostEvaluator:
                   ) -> Tuple[GraphCost, List[Dict]]:
         lay = propagate_layouts(graph, in_pins)
         compute = xfer = sync = 0.0
+        # overlap-aware sync pricing (OpCostModel.overlap_mode): every
+        # weighted node's (backward compute, grad-sync cost) in topo
+        # order, split into hidden and exposed by _overlap_split after
+        # the walk; serial mode keeps the plain sum
+        overlap_on = bool(getattr(self.cost, "overlap_mode", False))
+        sync_sites: List[Dict] = []
         mem = 0
         entries: List[Dict] = []
         n_dev = self.dmesh.num_devices
@@ -325,8 +331,14 @@ class GraphCostEvaluator:
                 n_sync = self.cost.weight_sync_cost(
                     wbytes // max(wdeg, 1), dp_deg)
             sync += n_sync
+            n_entries = len(entries)
             note(n, fwd=cm.forward_time, bwd=cm.backward_time,
                  nx=n_xfer, ns=n_sync, nmem=n_mem)
+            if overlap_on:
+                sync_sites.append({
+                    "bwd": cm.backward_time, "sync": n_sync,
+                    "entry": entries[-1] if len(entries) > n_entries
+                    else None})
         # output pin: resharding from final layout to the pinned layout
         if out_pin is not None and graph.outputs:
             n0, i0 = graph.outputs[0]
@@ -346,8 +358,47 @@ class GraphCostEvaluator:
                         e["calib"] = list(prov)
                         del prov[:]
                     entries.append(e)
+        sync_hidden = 0.0
+        if overlap_on and sync > 0:
+            sync, sync_hidden = _overlap_split(sync_sites)
         total = compute + xfer + sync + self.mem_lambda * mem
-        return GraphCost(total, compute, xfer, sync, mem), entries
+        return GraphCost(total, compute, xfer, sync, mem,
+                         sync_hidden=sync_hidden), entries
+
+
+def _overlap_split(sync_sites: Sequence[Dict]) -> Tuple[float, float]:
+    """Hidden vs exposed gradient-sync cost under the overlap schedule's
+    execution model (``runtime/overlap.py``): backward runs the nodes in
+    reverse topo order, each weighted node's sync launches when its
+    backward slice completes, and the syncs drain first-in first-out
+    through one channel beside the remaining backward compute. A sync's
+    exposed cost is the part of its channel time past the end of
+    backward. Mutates each site's breakdown entry (``sync_s`` becomes
+    the exposed cost; ``sync_hidden_s`` / ``sync_full_s`` record the
+    split) and returns (exposed_total, hidden_total)."""
+    t_bwd = 0.0
+    chan = 0.0
+    launches: List[Tuple[float, float, Optional[Dict]]] = []
+    for site in reversed(list(sync_sites)):
+        t_bwd += site["bwd"]
+        s = site["sync"]
+        if s <= 0:
+            continue
+        start = max(t_bwd, chan)
+        chan = start + s
+        launches.append((start, s, site.get("entry")))
+    exposed_total = hidden_total = 0.0
+    for start, s, entry in launches:
+        exposed = min(s, max(0.0, (start + s) - t_bwd))
+        hidden = s - exposed
+        exposed_total += exposed
+        hidden_total += hidden
+        if entry is not None:
+            entry["sync_full_s"] = entry["sync_s"]
+            entry["sync_hidden_s"] = hidden
+            entry["sync_s"] = exposed
+            entry["total_s"] -= hidden
+    return exposed_total, hidden_total
 
 
 def _bytes_of_spec(w) -> int:

@@ -164,8 +164,9 @@ def _bert_model(argv, batch, seq, dropout, impl, opt):
     b = BertConfig.tiny()
     b.max_position, b.dropout = seq, dropout
     out = build_bert(ff, batch, seq, b)
-    optimizer = SGDOptimizer(lr=0.05) if opt == "sgd" else AdamOptimizer(
-        alpha=1e-3, epsilon=1e-4)
+    optimizer = SGDOptimizer(lr=0.05) if opt == "sgd" else \
+        SGDOptimizer(lr=0.05, momentum=0.9) if opt == "sgdm" else \
+        AdamOptimizer(alpha=1e-3, epsilon=1e-4)
     ff.compile(optimizer, "sparse_categorical_crossentropy", ["accuracy"],
                output_tensor=out)
     return ff
@@ -474,6 +475,204 @@ def placement(payload):
                     "all_reduce_4k": calib.collective_time(
                         "all_reduce", D.process_count(), 1 << 12)}
     out["functional_gathers"] = len(gathers)
+    return out
+
+
+def _transformer_model(argv, opt):
+    """The Transformer (hidden 32, 4 heads, 2 layers, seq 16, batch 8)
+    compiled under ``argv``, MSE loss."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.models import TransformerConfig, build_transformer
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = 8, "cpu", 0
+    cfg.use_bf16_compute = False
+    cfg.kernel_impls = "attention:xla"
+    ff = FFModel(cfg)
+    out = build_transformer(ff, 8, TransformerConfig(
+        hidden_size=32, num_heads=4, num_layers=2, sequence_length=16))
+    ff.compile(SGDOptimizer(lr=0.05, momentum=0.9) if opt == "sgdm"
+               else AdamOptimizer(alpha=1e-3, epsilon=1e-4),
+               "mean_squared_error", [], output_tensor=out)
+    return ff
+
+
+def _sync_run(argv, payload, opt="adam", steps=4, model="bert"):
+    """BERT-tiny (or the Transformer) compiled under ``argv`` over the
+    world from the reference's weights, the fused Adam's plan on (its
+    plain version on the CPU): the forward, first-step gradients, a loss
+    history, the weights after it, the optimizer state's local shapes,
+    and per step the fused Adam's calls and the sync collectives' calls
+    and bytes."""
+    from flexflow_tpu_torch.kernels.opt_update import fused_adam_update
+    from flexflow_tpu_torch.parallel.distributed import SYNC_STATS
+    if model == "bert":
+        ff = _bert_model(argv, payload["batch"], payload["seq"], 0.0,
+                         "xla", opt)
+    else:
+        ff = _transformer_model(argv, opt)
+    ref = payload[model]
+    calls = fused_adam_update.plain_calls
+    SYNC_STATS.reset()
+    r = _train_run(ff, ref["params"], ref["layers"], ref["batches"], steps,
+                   fused=opt == "adam")
+    r["adam_per_step"] = (fused_adam_update.plain_calls - calls) / steps
+    r["sync_calls"] = SYNC_STATS.calls / steps
+    r["sync_bytes"] = SYNC_STATS.bytes / steps
+    r["weights"] = _tree_np(ff.params)
+    from flexflow_tpu_torch.runtime.zero import state_sharding_doc
+    r["sharding_doc"] = state_sharding_doc(ff.opt_state)
+    r["state_local"] = {
+        slot: {f"{ln}/{wn}": tuple(t.to_local().shape)
+               for ln, ws in layers.items() for wn, t in ws.items()}
+        for slot, layers in ff.opt_state.items()}
+    ex = ff.executor
+    r["overlap"] = None if ex._overlap_schedule is None \
+        else ex._overlap_schedule.record()
+    r["qsync"] = ex._qsync is not None
+    r["plan"] = None if ff.strategy.qsync is None \
+        else ff.strategy.qsync.to_json()
+    from flexflow_tpu_torch.ops.quantized_collectives import RESIDUAL_SLOT
+    if RESIDUAL_SLOT in ff.opt_state:
+        r["residual_abs"] = float(sum(
+            float(t.to_local().abs().sum())
+            for ws in ff.opt_state[RESIDUAL_SLOT].values()
+            for t in ws.values()))
+    r["ff"] = ff
+    return r
+
+
+def _renamed(obj, names):
+    """A strategy file's JSON with every layer name in ``names`` (old ->
+    new) replaced, keys and values alike."""
+    if isinstance(obj, dict):
+        return {names.get(k, k): _renamed(v, names) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_renamed(v, names) for v in obj]
+    return names.get(obj, obj) if isinstance(obj, str) else obj
+
+
+def _import_run(src, argv, payload, block):
+    """A model built under ``argv`` that imports ``src``'s strategy (its
+    ``block`` set as the source has it), the layer names mapped by
+    position: which leaves' moments it shards and whether its quantized
+    sync runs, then one step's loss."""
+    import json
+    import tempfile
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    from flexflow_tpu_torch.search.serialization import save_strategy
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = payload["batch"], "cpu", 0
+    cfg.use_bf16_compute, cfg.kernel_impls = False, "attention:xla"
+    ff = FFModel(cfg)
+    b = BertConfig.tiny()
+    b.max_position, b.dropout = payload["seq"], 0.0
+    out = build_bert(ff, payload["batch"], payload["seq"], b)
+    names = {a.name: n.name for a, n in zip(src.layers, ff.layers)}
+    path = os.path.join(tempfile.mkdtemp(), "s.json")
+    save_strategy(path, src.strategy)
+    with open(path) as f:
+        doc = _renamed(json.load(f), names)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    cfg.import_strategy_file = path
+    ff.compile(AdamOptimizer(alpha=1e-3, epsilon=1e-4),
+               "sparse_categorical_crossentropy", [], output_tensor=out)
+    from flexflow_tpu_torch.interop import load_reference_params
+    ref = payload["bert"]
+    load_reference_params(ff, ref["params"], ref["layers"])
+    inv = {v: k for k, v in names.items()}
+    sharded = sorted(
+        f"{inv[ln]}/{wn}" for ln, ws in ff.opt_state.get("m", {}).items()
+        for wn, t in ws.items()
+        if tuple(t.to_local().shape) != tuple(ff.params[ln][wn].shape))
+    plan = ff.strategy.qsync
+    loss = float(_np(ff._run_train_step(ff.executor.make_train_step(),
+                                        ref["batches"][0])["loss"]))
+    return {"sharded": sharded, "plan": plan is not None,
+            "plan_layers": None if plan is None else sorted(
+                inv.get(k, k) for k in plan.decisions),
+            "qsync": ff.executor._qsync is not None, "loss": loss}
+
+
+@scenario
+def sync(payload):
+    """The train step's multi-device branches (each run of
+    ``payload["runs"]``: (name, argv, optimizer, model)), then
+    ``payload["imports"]`` ((tag, source run, argv, block): a model that
+    imports the source's strategy, with the ZeRO assignment of
+    ``payload["assign"]`` attached to it), and the quantized collectives
+    on ``payload["qx"]`` / ``payload["qres"]`` over each set of mesh axes
+    of ``payload["groups"]`` and each phase list of
+    ``payload["phases"]``."""
+    import torch
+    from flexflow_tpu_torch.ops import quantized_collectives as Q
+    from flexflow_tpu_torch.parallel.distributed import mesh_group
+    from flexflow_tpu_torch.runtime.zero import ZeroAssignment
+    out = {"runs": {}, "imports": {}, "qar": {}, "phased": {}}
+    from flexflow_tpu_torch.runtime import zero
+    models = {}
+    cap = zero.ZERO_CHUNK_BYTES
+    for name, argv, opt, model in payload["runs"]:
+        # a run of payload["chunk_bytes"] cuts ZeRO's collectives small
+        zero.ZERO_CHUNK_BYTES = payload.get("chunk_bytes", {}).get(name,
+                                                                   cap)
+        r = _sync_run(argv, payload, opt, model=model)
+        models[name] = r.pop("ff")
+        out["runs"][name] = r
+    for tag, src, argv, block in payload.get("imports", ()):
+        a = models[src]
+        if block == "zero":
+            meta = {l.name: {w.name: tuple(w.shape) for w in l.weights}
+                    for l in a.executor.program.layers if l.weights}
+            z = ZeroAssignment.uniform(meta, a.strategy,
+                                       dict(a.dmesh.axis_sizes))
+            for ws in z.decisions.values():
+                for wn, rec in ws.items():
+                    if wn not in payload["assign"]:
+                        rec["spec"], rec["degree"] = None, 1
+            a.strategy.zero = z
+        r = _import_run(a, argv, payload, block)
+        if block == "zero":
+            r["assigned"] = sorted(f"{ln}/{wn}"
+                                   for ln, wn in a.strategy.zero
+                                   .sharded_params())
+        out["imports"][tag] = r
+    out["refused"] = {}
+    for tag, argv in payload.get("refuse", ()):
+        try:
+            _bert_model(argv, payload["batch"], payload["seq"], 0.0, "xla",
+                        "adam")
+            out["refused"][tag] = None
+        except NotImplementedError as e:
+            out["refused"][tag] = str(e)
+    for name, ff in models.items():
+        if name in payload.get("save", ()):
+            import tempfile
+            try:
+                ff.save_checkpoint(tempfile.mkdtemp())
+                out["refused"]["save_" + name] = None
+            except NotImplementedError as e:
+                out["refused"]["save_" + name] = str(e)
+    if payload.get("groups"):
+        mesh = next(iter(models.values())).dmesh.mesh
+        names = list(mesh.mesh_dim_names)
+        for axes in payload["groups"]:
+            group, n, idx = mesh_group(mesh, [names.index(a) for a in axes])
+            row = mesh.get_rank()
+            for wire in ("int8", "float8_e4m3", "float8_e5m2"):
+                x = torch.from_numpy(payload["qx"][row])
+                res = torch.from_numpy(payload["qres"][row])
+                o, rn = Q.quantized_all_reduce(x, group, wire, n, idx,
+                                               residual=res)
+                out["qar"][(axes, wire)] = (o.numpy(), rn.numpy())
+        for key, phases in payload["phases"]:
+            x = torch.from_numpy(payload["qx"][mesh.get_rank()])
+            res = torch.from_numpy(payload["qres"][mesh.get_rank()])
+            o, rn = Q.phased_sync(x, phases, mesh, residual=res)
+            out["phased"][key] = (o.numpy(), None if rn is None
+                                  else rn.numpy())
     return out
 
 

@@ -67,3 +67,25 @@ def test_chip_smoke_dist_phase_on_the_cpu(monkeypatch, tmp_path):
     # parallelism gathers and sums some in every block
     assert res["dp2"]["reshard_bytes"] == [0.0, 0.0]
     assert min(res["tp2"]["reshard_bytes"]) > 0
+    # the train step's multi-device branches at dropout 0.1: ZeRO and the
+    # overlap schedule under ZeRO are the serial dp-2 run bit for bit, the
+    # int8 quantized sync (the serial run's masks) tracks it; each branch
+    # launches one flash forward, dq and dk/dv per attention layer per
+    # step and one fused Adam a step (the overlap schedule: one a bucket,
+    # and BERT-tiny's 0.5 MiB fits one 4 MiB bucket)
+    sync = res["sync"]
+    base = sync["dp2_serial"]["losses"]
+    for name in ("dp2_serial", "zero", "overlap_zero", "qsync_int8"):
+        assert sync[name]["launches_per_rank"] == {
+            "flash_attention_fwd": 4, "flash_attention_bwd_dq": 4,
+            "flash_attention_bwd_dkv": 4, "adam_update": 2}, name
+    assert sync["zero"]["losses"] == sync["overlap_zero"]["losses"] == base
+    assert sync["overlap_zero"]["buckets"] == 1
+    for got, want in zip(sync["qsync_int8"]["losses"], base):
+        assert all(smoke.qsync_loss_ok(a, b) for a, b in zip(got, want))
+    # ZeRO: one reduce-scatter and one all-gather a step; the quantized
+    # sync: four collectives a tensor at about a quarter of the bytes
+    assert sync["zero"]["sync_calls"] == [2.0, 2.0]
+    assert max(sync["qsync_int8"]["wire_bytes"]) < \
+        0.6 * min(sync["dp2_serial"]["wire_bytes"])
+    assert all(m["within"] for m in sync["qsync_mass"])

@@ -164,10 +164,14 @@ def test_unported_pricing_is_refused():
     tc = TCost(TSpec(num_devices=8))
     tc.attach_placement(None)
     tc.attach_quantization("off")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tc.attach_placement(object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tc.attach_quantization("auto")
+    # quantized sync pricing is ported: a policy attaches, a wrong mode
+    # is an error as in the JAX package
+    tc.attach_quantization("auto")
+    assert tc.quantization == {"mode": "auto", "wire": "int8"}
+    with pytest.raises(ValueError, match="quantization mode"):
+        tc.attach_quantization("sometimes")
     # a described mesh has nothing to time; a live single device neither
     tc.calibrate_collectives(TMesh(TSpec(num_devices=8)))
     tc.calibrate_collectives(TMesh(TSpec(num_devices=1), devices=["cpu"]))

@@ -186,7 +186,11 @@ def test_admission_validation_matches():
 
 def test_expired_request_never_reaches_a_device_step():
     def run(S):
-        sess = FixedSession(step_s=0.15)
+        # the first step is held until the late clients have given up:
+        # a late request can never find the worker idle, however slowly
+        # the threads are scheduled on a loaded machine
+        gate = threading.Event()
+        sess = FixedSession(step_s=0.15, gate=gate)
         sched = S.BatchScheduler(sess, max_batch=1)
         errs = {}
 
@@ -198,19 +202,24 @@ def test_expired_request_never_reaches_a_device_step():
         try:
             first = threading.Thread(target=fire, args=(1.0, 5000.0))
             first.start()
-            time.sleep(0.05)          # the worker is inside the step
+            end = time.perf_counter() + 10
+            while sess.calls < 1 and time.perf_counter() < end:
+                time.sleep(0.005)     # the worker is inside the step
             late = [threading.Thread(target=fire, args=(v, 30.0))
                     for v in (2.0, 3.0, 4.0)]
             for t in late:
                 t.start()
-            for t in late + [first]:
+            for t in late:
                 t.join(timeout=30)
+            gate.set()
+            first.join(timeout=30)
             assert wait_idle(sched)
             snap = sched.metrics.snapshot(0)
             return (errs, [v for v in (2.0, 3.0, 4.0) if v in sess.seen],
                     snap["expired"], snap["requests"],
                     snap["completed"] + snap["failed"] + snap["expired"])
         finally:
+            gate.set()
             sched.close()
     errs, seen, expired, req, total = _both(run)
     assert errs == {v: "DeadlineExceededError" for v in (2.0, 3.0, 4.0)}

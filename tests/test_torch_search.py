@@ -310,7 +310,6 @@ def test_described_multi_device_strategy_is_searched_then_refused(
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quantized_collectives", "auto"), ("overlap", "on"),
     ("enable_pipeline_search", True), ("machine_model_version", 1),
     ("banked_placement", "on")])
 def test_unported_search_options_are_refused(field, value, tmp_path,
@@ -321,6 +320,28 @@ def test_unported_search_options_are_refused(field, value, tmp_path,
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tff.compile(fft.SGDOptimizer(0.01),
                     "sparse_categorical_crossentropy", [])
+
+
+@pytest.mark.parametrize("field,value", [
+    ("quantized_collectives", "auto"), ("overlap", "on")])
+def test_quantized_and_overlap_search_options_are_wired(field, value,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """The quantized-collectives policy and overlap-aware scoring reach
+    the search's cost model, as the JAX package wires them; the compile
+    runs (one device: nothing to quantize, the overlap schedule's
+    per-bucket update)."""
+    monkeypatch.setenv("FF_CACHE_DIR", str(tmp_path))
+    _, tff = graphs.mlp(search_budget=2)
+    setattr(tff.config, field, value)
+    tff.compile(fft.SGDOptimizer(0.01), "sparse_categorical_crossentropy",
+                [])
+    cm = tff._search_cost_model
+    if field == "overlap":
+        assert cm.overlap_mode and tff.executor._overlap_schedule
+    else:
+        assert cm.quantization == {"mode": "auto", "wire": "int8"}
+        assert tff.strategy.qsync is None    # one device: no plan
 
 
 def test_serving_search_and_multi_tier_placement_are_refused(tmp_path):

@@ -39,7 +39,12 @@ ROUTES = ("all_gather_into_tensor_2d", "all_gather_list",
           "funcol_all_to_all_single", "funcol_reduce_scatter",
           "redistribute_shard_to_replicate_1d",
           "redistribute_shard1_to_replicate",
-          "redistribute_shard0_to_shard1")
+          "redistribute_shard0_to_shard1",
+          # the quantized gradient sync's wire payloads (int8, and fp8
+          # as its bytes) and the overlap schedule's asynchronous calls
+          "all_to_all_single_int8", "all_to_all_single_uint8",
+          "all_gather_into_tensor_int8", "all_reduce_async",
+          "reduce_scatter_tensor_async")
 
 
 def free_port() -> int:
@@ -105,6 +110,25 @@ def _probe(name: str, rank: int, world: int, dev: torch.device) -> None:
         dist.all_to_all_single(x, base + 100 * rank)
         want = torch.cat([(base + 100 * r).chunk(world)[rank]
                           for r in range(world)])
+    elif name in ("all_to_all_single_int8", "all_to_all_single_uint8"):
+        dt = torch.uint8 if "uint8" in name else torch.int8
+        src = (base + 10 * rank).to(dt)
+        x = torch.empty_like(src)
+        dist.all_to_all_single(x, src)
+        want = torch.cat([(base + 10 * r).to(dt).chunk(world)[rank]
+                          for r in range(world)])
+    elif name == "all_gather_into_tensor_int8":
+        x = torch.empty(n * world, device=dev, dtype=torch.int8)
+        dist.all_gather_into_tensor(x, (base + rank).to(torch.int8))
+        want = torch.cat([(base + r).to(torch.int8) for r in range(world)])
+    elif name == "all_reduce_async":
+        x = base + rank
+        dist.all_reduce(x, async_op=True).wait()
+        want = world * base + sum(range(world))
+    elif name == "reduce_scatter_tensor_async":
+        x = torch.empty(n // world, device=dev)
+        dist.reduce_scatter_tensor(x, base + rank, async_op=True).wait()
+        want = (world * base + sum(range(world))).chunk(world)[rank]
     else:
         from torch.distributed.tensor import (DTensor, Partial, Replicate,
                                               Shard, init_device_mesh)
@@ -215,6 +239,9 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--routes", action="store_true",
                     help="also probe the other routes (ROUTES)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated probes to run, of PROBES and "
+                    "ROUTES, and no others")
     a = ap.parse_args()
     if a.rank >= 0:
         rank_main(a.rank, a.world, a.port, a.backend, a.device, a.probe,
@@ -230,7 +257,9 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip()
     gloo = {}
-    for name in PROBES + (ROUTES if a.routes else ()):
+    names = a.only.split(",") if a.only else \
+        PROBES + (ROUTES if a.routes else ())
+    for name in names:
         gloo[name] = run_world(2, "gloo", a.device, name, 60)
         print(f"[probe] gloo, 2 ranks on one {a.device} device, {name}: "
               f"{gloo[name]}", flush=True)
