@@ -718,10 +718,12 @@ FN_F32_CASES = [
 # (bh_map = (h_total, b0, h0): this block is rows b0.. and heads h0.. of a
 # batch of h_total heads, as a rank of a sharded run holds it), dropout
 # 0.1: bf16 at d 8 (the narrow kernels), 64, 128 and 256 (the wide ones),
-# f32 at d 64 and 128, and the dist phase's rank blocks of BERT-base at
-# 8 x 512 (dp 2: rows 4.. of 8; tp 2: heads 6.. of 12). Each against its
-# plain version with the same map, forward, dq and dk/dv; the forward
-# must also differ from the unmapped launch (the map reaches the hash)
+# f32 at d 64 and 128, the dist phase's rank blocks of BERT-base at
+# 8 x 512 (dp 2: rows 4.. of 8; tp 2: heads 6.. of 12) and the pipe
+# phase's microbatches (pp 2, 4 microbatches of 2 rows: rows 6.. and 2..
+# of 8, bf16 and f32). Each against its plain version with the same map,
+# forward, dq and dk/dv; the forward must also differ from the unmapped
+# launch (the map reaches the hash)
 BH_MAP_CASES = [  # (b, h, s, d, dtype, causal, (h_total, b0, h0))
     (2, 4, 128, 8, torch.bfloat16, False, (8, 3, 4)),
     (2, 4, 200, 64, torch.bfloat16, True, (12, 5, 8)),
@@ -731,6 +733,8 @@ BH_MAP_CASES = [  # (b, h, s, d, dtype, causal, (h_total, b0, h0))
     (2, 4, 128, 128, torch.float32, True, (8, 1, 2)),
     (4, 12, 512, 64, torch.bfloat16, False, (12, 4, 0)),
     (8, 6, 512, 64, torch.bfloat16, False, (12, 0, 6)),
+    (2, 12, 512, 64, torch.bfloat16, False, (12, 6, 0)),
+    (2, 12, 512, 64, torch.float32, False, (12, 2, 0)),
 ]
 
 
@@ -5401,7 +5405,7 @@ def phase_serve(smi: str) -> dict:
 
 
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe, resil, search, srv, dist) -> list:
+                zoo, fe, resil, search, srv, dist, pipe) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
@@ -5442,6 +5446,27 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
                 k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "numel", "leaves")}
                 for k, v in dist["adam_sync_shapes"].items()}
+        return row
+
+    def pipe_row(name):
+        """The pipe phase's launches on each rank in its history:
+        BERT-base 8x512 trained pp 2 by two ranks under GPipe and the
+        interleaved schedule, and DLRM with its tables banked over two;
+        the kernels' times at the shapes these paths give them."""
+        row = {"pipe_train_launches_per_rank": {
+            cfg: pipe[cfg]["launches_per_rank"][name]
+            for cfg in ("gpipe", "interleaved", "dlrm")}}
+        if name == "adam_update":
+            row["pipe_launch_shapes"] = {
+                k: {f: pipe[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms", "numel",
+                                            "leaves")}
+                for k in ("adam_pp_rank", "adam_bank_rank")}
+        elif name == "flash_attention_fwd":
+            row["pipe_b2_h12_s512_d64"] = dict(pipe["fwd_b2"])
+        else:
+            row["pipe_b2_h12_s512_d64"] = bwd_row_t(
+                "dq" if name.endswith("dq") else "dkv", pipe["bwd_b2"])
         return row
 
     def fwd_row(seq, rate):
@@ -5542,6 +5567,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "search_calibration_launches": search["calibration"]["launches"],
         **search_row("flash_attention_fwd"),
         **dist_row("flash_attention_fwd"),
+        **pipe_row("flash_attention_fwd"),
         # the serve phase: BERT-base behind both HTTP fronts (12 a
         # scheduled batch), POST /generate (one prefill) and the
         # continuous batcher under both admissions (12 an iteration)
@@ -5598,6 +5624,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             "resilience_train_launches": resil["launches"][name],
             **search_row(name),
             **dist_row(name),
+            **pipe_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)",
             "f32_kernel": f"flash_bwd_{key}_wgmma_tf32_kernel (f32, d 64 "
@@ -5629,6 +5656,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         "f32_train_launches": train["f32"]["launches"]["adam_update"],
         **search_row("adam_update"),
         **dist_row("adam_update"),
+        **pipe_row("adam_update"),
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")}})
@@ -5706,6 +5734,9 @@ def dist_model(spec: dict, argv, dropout: float):
     ff = FFModel(cfg)
     bcfg = getattr(BertConfig, spec["bert"])()
     bcfg.max_position, bcfg.dropout = spec["seq"], dropout
+    # (a rehearsal's tiny BERT takes the layers the interleaved schedule
+    # needs: 2 stages x 2 chunks)
+    bcfg.num_layers = spec.get("layers", bcfg.num_layers)
     out = build_bert(ff, spec["batch"], spec["seq"], bcfg)
     ff.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy",
                ["accuracy"], output_tensor=out)
@@ -6287,6 +6318,11 @@ def phase_dist(smi: str, spec: dict = None) -> dict:
         out["control"] = {k: (errs[0][0], errs[len(errs) // 2][0])
                           for k, errs in control.items()}
         out["profile"] = {"one_rank": ref["profile"]}
+        _ONE_RANK_REF.clear()
+        _ONE_RANK_REF[json.dumps({k: v for k, v in spec.items()
+                                  if k != "profile"}, sort_keys=True)] = {
+            k: ref[k] for k in ("grads", "other", "forward", "losses",
+                                "step_ms", "peak_bytes")}
         steps, leaves = spec["steps"], ref["leaves"]
         adam = -(-leaves // 384)
         print(f"[dist] one-rank reference: BERT-{spec['bert']} "
@@ -6409,9 +6445,530 @@ def phase_dist(smi: str, spec: dict = None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# pipe: BERT-base trained pp 2 by two ranks, DLRM's tables one bank over two
+# --------------------------------------------------------------------------
+# the pipeline schedules the two ranks run (pp 2, 4 microbatches of 2 rows),
+# each against the one-rank run of the same weights and data (the dist
+# phase's, where it ran in this process)
+PIPE_RUNS = (("gpipe", ("--pp", "2", "--pipeline-microbatches", "4")),
+             ("interleaved", ("--pp", "2", "--pipeline-microbatches", "4",
+                              "--pipeline-chunks", "2")))
+PIPE_MICRO = 4
+# DLRM at DLRMConfig()'s width, f32, a batch of 64 (the zoo's), its four
+# tables one bank over the two ranks
+PIPE_DLRM_BATCH = 64
+PIPE_DLRM_STEPS = 3
+# the dist phase's one-rank reference, kept for the pipe phase when both
+# run in one process (the same spec, weights, data and masks)
+_ONE_RANK_REF: dict = {}
+
+
+def plain_params(ff) -> dict:
+    """The weights the one-rank (unpipelined, unbanked) model of ``ff``'s
+    program starts from, on the host: each layer's WeightSpecs drawn from
+    the keys (seed, 1, layer index, weight index), as
+    ``Executor.init_params_and_state`` draws them on one device."""
+    from flexflow_tpu_torch.dtypes import to_torch
+    from flexflow_tpu_torch.ops import ensure_weight_specs
+    from flexflow_tpu_torch.runtime.initializers import initialize
+    ex = ff.executor
+    out = {}
+    for li, layer in enumerate(ex.program.layers):
+        specs = ensure_weight_specs(layer)
+        if specs:
+            out[layer.name] = {
+                sp.name: initialize(sp, (ex.seed, 1, li, wi),
+                                    to_torch(sp.dtype), ex.device)
+                .float().cpu().numpy() for wi, sp in enumerate(specs)}
+    return out
+
+
+def load_plain(ff) -> None:
+    """``ff`` (pipelined or banked) from the one-rank model's weights."""
+    from flexflow_tpu_torch.interop import load_reference_params
+    layers = [(l.name, l.op_type) for l in ff.executor.program.layers]
+    load_reference_params(ff, plain_params(ff), layers)
+
+
+def per_layer_grads(ff, grads) -> dict:
+    """A model's gradients on the host by the one-rank model's leaves: a
+    pipeline's stacked leaves cut into their blocks' layers
+    (``PipelineRegion.unstack_blocks``), a bank's into its members
+    (``banks.unstack_members``)."""
+    from flexflow_tpu_torch.parallel.banks import unstack_members
+    ex = ff.executor
+    pipe = ex.pipe
+    by_name = {l.name: l for l in ex.program.layers}
+    banks = {b.param_name: b for b in ex.strategy.banks} \
+        if ex.strategy is not None else {}
+    out = {}
+    for ln, d in grads.items():
+        for wn, g in d.items():
+            g = ex._unplace(g).detach().float().cpu()
+            if pipe is not None and ln.startswith("pp::"):
+                j = [pipe.param_name(t) for t in pipe.template].index(ln)
+                for names, gb in zip(pipe.stage_layer_names,
+                                     pipe.unstack_blocks(g)):
+                    out.setdefault(names[j], {})[wn] = gb
+            elif ln in banks:
+                members = banks[ln].members
+                shapes = [next(w.shape for w in by_name[m].weights
+                               if w.name == wn) for m in members]
+                for m, gm in zip(members, unstack_members(g, shapes)):
+                    out.setdefault(m, {})[wn] = gm
+            else:
+                out.setdefault(ln, {})[wn] = g
+    return out
+
+
+def pipe_bert_run(spec: dict, argv, tag: str) -> dict:
+    """One pipeline schedule of PIPE_RUNS in this rank, from the one-rank
+    model's weights: the first step's gradients at dropout 0.1 (f32,
+    and bf16 where the run is), then at dropout 0 the forward's output on
+    the first batch and a ``spec["steps"]``-step history with every
+    kernel launch and the hand-off's calls and bytes counted, the peak
+    memory and ``spec["timed"]`` timed steps."""
+    from flexflow_tpu_torch.parallel.reshard import STATS
+    cuda = spec["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grads = {}
+    for k in (("f32",) if spec["f32"] else ("f32", "bf16")):
+        ff, bcfg = dist_model(dict(spec, f32=k == "f32"), argv, 0.1)
+        load_plain(ff)
+        xs, y = dist_data(spec, bcfg)
+        batch = next(iter(ff._combined_loader(xs, y, shuffle=False)))
+        g, _, _ = ff.executor._grads(ff.params, ff.state, batch, 0)
+        grads[k] = per_layer_grads(ff, g)
+        del ff, g, batch
+        free_cuda()
+    ff, bcfg = dist_model(spec, argv, 0.0)
+    load_plain(ff)
+    pipe = ff.executor.pipe
+    xs, y = dist_data(spec, bcfg)
+    first = {"input_ids": xs[0][:spec["batch"]],
+             "position_ids": xs[1][:spec["batch"]]}
+    forward = ff.executor.make_forward()(ff.params, ff.state, first) \
+        .float().cpu()
+    step_fn = ff.executor.make_train_step()
+    batches = list(ff._combined_loader(xs, y, shuffle=False))
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    STATS.reset()
+    hand = ff.executor._handoff
+    calls0, bytes0 = hand.calls, hand.bytes
+    fns = zero_counts()      # the main path: every count starts at 0 here
+    plain = {n: f.plain_calls for n, f in fns.items()}
+    losses = [float(ff._run_train_step(step_fn, b)["loss"])
+              for b in batches]
+    # (a rehearsal on the CPU counts the wrappers' plain-version calls)
+    launches = {n: f.launches if cuda else f.plain_calls - plain[n]
+                for n, f in fns.items()}
+    p2p = {"calls": (hand.calls - calls0) / len(batches),
+           "bytes": (hand.bytes - bytes0) / len(batches),
+           "route": hand.route}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    times = []
+    for i in range(spec["timed"]):
+        sync()
+        t0 = time.perf_counter()
+        float(ff._run_train_step(step_fn, batches[i % len(batches)])
+              ["loss"])
+        sync()
+        times.append(time.perf_counter() - t0)
+    shapes = [tuple(t.to_local().shape) for d in ff.params.values()
+              for t in d.values()]
+    return {"grads": grads, "forward": forward, "losses": losses,
+            "launches": launches, "p2p": p2p, "peak_bytes": peak,
+            "step_ms": [t * 1e3 for t in times],
+            "mesh": dict(ff.dmesh.axis_sizes),
+            "region": [pipe.start, pipe.end, pipe.n_stages, pipe.n_chunks,
+                       pipe.n_microbatches],
+            "leaf_shapes": shapes,
+            "reshard_bytes": STATS.bytes_total}
+
+
+def pipe_dlrm_model(banked: bool, spec: dict):
+    """DLRM at DLRMConfig()'s width (``spec["dlrm"]``: keyword overrides,
+    for a rehearsal's small tables) in f32 with the fused Adam, compiled
+    data parallel over this process's world and, ``banked``, with its
+    tables one bank over the whole mesh (``parallel/banks.py``)."""
+    device = spec["device"]
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import DLRMConfig, build_dlrm
+    from flexflow_tpu_torch.parallel.banks import (BankSpec,
+                                                   choose_bank_axes,
+                                                   find_bank_groups)
+    from flexflow_tpu_torch.parallel.strategy import ShardingStrategy
+    cfg = FFConfig()
+    cfg.batch_size, cfg.seed, cfg.device = PIPE_DLRM_BATCH, 0, device
+    cfg.only_data_parallel, cfg.use_bf16_compute = True, False
+    cfg.kernel_impls = "opt_update:fused" if device == "cuda" else "off"
+    ff = FFModel(cfg)
+    dc = DLRMConfig(**spec.get("dlrm", {}))
+    out = build_dlrm(ff, PIPE_DLRM_BATCH, dc)
+    opt = AdamOptimizer(1e-4, epsilon=1e-4)
+    ff.compile(opt, "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    if banked:
+        # the data-parallel strategy over the compiled mesh with the
+        # tables one bank (the members leave the ops' placement to it)
+        st = ShardingStrategy.data_parallel(ff.layers, ff.graph_inputs,
+                                            ff.dmesh)
+        members = [l.name for l in find_bank_groups(ff.layers)[0]]
+        bank_axes, batch_axes = choose_bank_axes(ff.dmesh, len(members))
+        st.banks = [BankSpec(members, bank_axes, batch_axes=batch_axes,
+                             param_name="__bank0__EMB")]
+        ff.params = ff.opt_state = None
+        free_cuda()
+        ff.compile(opt, "sparse_categorical_crossentropy", [],
+                   output_tensor=out, strategy=st)
+    ff.executor._kernel_impls["opt_update"] = "fused"
+    return ff, dc
+
+
+def pipe_dlrm_data(dc, steps: int) -> tuple:
+    rng = np.random.default_rng(23)
+    rows = PIPE_DLRM_BATCH * steps
+    xs = [rng.integers(0, n, (rows, dc.embedding_bag_size)).astype(np.int32)
+          for n in dc.embedding_size]
+    xs.append(rng.standard_normal((rows, dc.mlp_bot[0]), dtype=np.float32))
+    return xs, rng.integers(0, 2, (rows, 1)).astype(np.int32)
+
+
+def memory_story(snap: dict, base: int, since: int, dev: int,
+                 top: int = 5) -> dict:
+    """Where a process's CUDA memory on card ``dev`` went, from a snapshot
+    (``torch.cuda.memory._snapshot()``) whose trace was recorded from a
+    point at which ``base`` bytes were allocated: the allocations alive
+    at the trace's highest point from its entry ``since`` on, and at its
+    end, the largest first, each with its size and the innermost frames
+    of this checkout that made it (the trace's allocations and frees
+    replayed in order)."""
+    live, cur, peak, at_peak = {}, 0, -1, {}
+    for i, e in enumerate(snap["device_traces"][dev]):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            cur += e["size"]
+        elif e["action"] in ("free_requested", "free_completed") \
+                and e["addr"] in live:
+            # (a block freed while another stream may still read it, as a
+            # collective's is, completes its free later: dead from here)
+            cur -= live.pop(e["addr"])["size"]
+        if i + 1 >= since and cur > peak:
+            peak, at_peak = cur, dict(live)
+
+    def where(e) -> str:
+        fr = [f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+              for f in e.get("frames", ())
+              if f["filename"].startswith(ROOT)]
+        return " <- ".join(fr[:3]) or "?"
+
+    def largest(blocks) -> list:
+        return [(e["size"], where(e)) for e in sorted(
+            blocks.values(), key=lambda e: -e["size"])[:top]]
+    return {"base": base, "peak": base + peak, "at_peak": largest(at_peak),
+            "end": base + cur, "at_end": largest(live)}
+
+
+def pipe_dlrm_run(banked: bool, spec: dict) -> dict:
+    """DLRM's forward on the first batch, first-step gradients, a
+    PIPE_DLRM_STEPS-step history with every launch counted and the peak
+    memory, one rank's table leaves and leaf shapes. A bank's members
+    start from the unbanked run's weights: their keys are the same."""
+    cuda = spec["device"] == "cuda"
+    # a bank rank's memory traced from before its model is built: what
+    # its peak and what stays between steps are made of
+    trace = cuda and banked
+    if trace:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(max_entries=200000,
+                                                 stacks="python")
+    ff, dc = pipe_dlrm_model(banked, spec)
+    xs, y = pipe_dlrm_data(dc, PIPE_DLRM_STEPS)
+    batches = list(ff._combined_loader(xs, y, shuffle=False))
+    first = {t.name: x[:PIPE_DLRM_BATCH]
+             for t, x in zip(ff.graph_inputs, xs)}
+    forward = ff.executor._unplace(ff.executor.make_forward()(
+        ff.params, ff.state, first)).float().cpu()
+    g, _, _ = ff.executor._grads(ff.params, ff.state, batches[0], 0)
+    grads = per_layer_grads(ff, g)
+    del g
+    step_fn = ff.executor.make_train_step()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # what stays between steps (weights, Adam's moments): the peak's
+    # rest is the step's own (gradients and what makes them)
+    state = torch.cuda.memory_allocated() if cuda else 0
+    if trace:
+        dev = torch.cuda.current_device()
+        since = len(torch.cuda.memory._snapshot()["device_traces"][dev])
+    fns = zero_counts()      # the main path: every count starts at 0 here
+    plain = {n: f.plain_calls for n, f in fns.items()}
+    losses = [float(ff._run_train_step(step_fn, b)["loss"])
+              for b in batches]
+    launches = {n: f.launches if cuda else f.plain_calls - plain[n]
+                for n, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    story = None
+    if trace:
+        torch.cuda.synchronize()
+        story = memory_story(torch.cuda.memory._snapshot(), base, since,
+                             dev)
+        torch.cuda.memory._record_memory_history(enabled=None)
+    # the tables this rank holds: its block of the bank's stacked leaf
+    tables = sum(int(d["kernel"].to_local().shape[0])
+                 for ln, d in ff.params.items() if ln.startswith("__bank"))
+    shapes = [tuple((t.to_local() if hasattr(t, "to_local") else t).shape)
+              for d in ff.params.values() for t in d.values()]
+    return {"forward": forward, "grads": grads, "losses": losses,
+            "launches": launches, "peak_bytes": peak, "tables": tables,
+            "state_bytes": state, "memory": story,
+            "leaf_shapes": shapes,
+            "numel": int(sum(np.prod(s) for s in shapes))}
+
+
+def pipe_rank_main(workdir: str) -> int:
+    """A rank of the pipe phase (``--pipe-rank``): joins the world the
+    environment names, runs each of PIPE_RUNS and the banked DLRM, holds
+    each against the one-rank reference the parent saved, and writes its
+    results."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.distributed import (ROUTES,
+                                                         maybe_initialize)
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize(device_type=spec["device"])
+    rank = dist.get_rank()
+    ref = torch.load(os.path.join(workdir, "ref.pt"))
+    out = {"backend": dist.get_backend(), "routes": dict(ROUTES)}
+    for name, argv in PIPE_RUNS:
+        r = pipe_bert_run(spec, argv, name)
+        grads = r.pop("grads")
+        r["grad_errs"] = {k: grad_errs(g, ref["grads"][k])
+                          for k, g in grads.items()}
+        r["forward_err"] = float((r.pop("forward")
+                                  - ref["forward"]).abs().max())
+        r["loss_err"] = max(abs(a - b) for a, b in zip(r["losses"],
+                                                       ref["losses"]))
+        out[name] = r
+        free_cuda()
+    d = pipe_dlrm_run(True, spec)
+    dref = torch.load(os.path.join(workdir, "dlrm_ref.pt"))
+    d["grad_errs"] = grad_errs(d.pop("grads"), dref["grads"])
+    d["forward_err"] = float((d.pop("forward") - dref["forward"])
+                             .abs().max())
+    d["loss_err"] = max(abs(a - b) for a, b in zip(d["losses"],
+                                                   dref["losses"]))
+    out["dlrm"] = d
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_pipe(smi: str, spec: dict = None) -> dict:
+    """BERT-base trained pp 2 by two ranks sharing the card, under GPipe
+    and the interleaved schedule (4 microbatches of 2 rows), each against
+    the one-rank run of the same weights and data (the dist phase's when
+    it ran): the forward within SLICE_TOL, the first step's gradients at
+    dropout 0.1 leaf by leaf within ZOO_GRAD_TOL in f32 and
+    DIST_BF16_GRAD_TOL in bf16 (the key biases out; another draw of
+    every mask must read above them), the dropout-0 history within
+    TRAIN_TOL; each rank launches 24 flash forwards, dqs and dk/dvs (its
+    6 blocks x 4 microbatches, no bubble slot) and one fused Adam a step.
+    Then DLRM at DLRMConfig()'s width, its four tables one bank over the
+    two ranks, against the one-rank unbanked run: forward and first-step
+    gradients within the zoo's tolerances, 2 of 4 tables a rank, one
+    fused Adam a step. Prints each rank's step time, peak memory and
+    point-to-point calls and bytes a step, and times the kernels at the
+    shapes these paths give them."""
+    import tempfile
+    spec = dict(spec or DIST_SPEC)
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        with open(os.path.join(workdir, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        ref = _ONE_RANK_REF.get(json.dumps(spec, sort_keys=True))
+        if ref is None:
+            ref = dist_run(spec, ("--only-data-parallel",), "one_rank",
+                           control=True)
+            ref = {k: ref[k] for k in ("grads", "other", "forward",
+                                       "losses", "step_ms", "peak_bytes")}
+            print(f"[pipe] one-rank reference run here "
+                  f"({time.perf_counter() - t0:.1f} s)")
+        else:
+            print("[pipe] one-rank reference: the dist phase's")
+        torch.save({k: ref[k] for k in ("grads", "forward", "losses")},
+                   os.path.join(workdir, "ref.pt"))
+        control = {k: dist_checked(k, grad_errs(ref["other"][k], g))
+                   for k, g in ref["grads"].items()}
+        for k, errs in control.items():
+            check(errs[0][0] > dist_grad_tol(k),
+                  f"the {k} first-step check does not see other masks")
+        out["control"] = {k: errs[0][0] for k, errs in control.items()}
+        one_rank_ms = float(np.median(ref["step_ms"]))
+        one_rank_peak = ref["peak_bytes"]
+        del ref
+        free_cuda()
+        t0 = time.perf_counter()
+        d = pipe_dlrm_run(False, spec)
+        torch.save({k: d[k] for k in ("grads", "forward", "losses")},
+                   os.path.join(workdir, "dlrm_ref.pt"))
+        dlrm_ref = {k: d[k] for k in ("peak_bytes", "numel", "losses",
+                                      "state_bytes")}
+        print(f"[pipe] DLRM one-rank reference: {d['numel']} parameters, "
+              f"losses {[round(v, 5) for v in d['losses']]}, peak "
+              f"{d['peak_bytes'] / 2**30:.3f} GiB (between steps "
+              f"{d['state_bytes'] / 2**30:.3f}), launches "
+              f"{d['launches']} ({time.perf_counter() - t0:.1f} s) "
+              f"({smi})")
+        del d
+        free_cuda()
+        t0 = time.perf_counter()
+        spawn_world(workdir, "--pipe-rank", 2)
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    steps = spec["steps"]
+    n_layers = spec.get("layers", 12 if spec["bert"] == "base" else 2)
+    per_rank = n_layers // 2 * PIPE_MICRO
+    want = {"flash_attention_fwd": per_rank * steps,
+            "flash_attention_bwd_dq": per_rank * steps,
+            "flash_attention_bwd_dkv": per_rank * steps,
+            "adam_update": steps}
+    where = "on the CPU" if spec["device"] != "cuda" else \
+        "sharing one card" if torch.cuda.device_count() < 2 \
+        else "on a card each"
+    print(f"[pipe] two ranks {where}: backend "
+          f"{ranks[0]['backend']}, hand-off route "
+          f"{ranks[0]['gpipe']['p2p']['route']} ({world_s:.1f} s)")
+    for name, _ in PIPE_RUNS:
+        for r, res in enumerate(ranks):
+            x = res[name]
+            print(f"[pipe] {name} rank {r}: mesh {x['mesh']}, region "
+                  f"{x['region']}, launches in {steps} steps "
+                  f"{x['launches']}, step {np.median(x['step_ms']):.1f} ms "
+                  f"(median of {len(x['step_ms'])}; one rank alone "
+                  f"{one_rank_ms:.1f} ms), peak "
+                  f"{x['peak_bytes'] / 2**30:.2f} GiB (one rank "
+                  f"{one_rank_peak / 2**30:.2f} GiB), point-to-point "
+                  f"{x['p2p']['calls']:.0f} sends, "
+                  f"{x['p2p']['bytes'] / 1e6:.2f} MB a step, reshard "
+                  f"{x['reshard_bytes'] / 2**20:.1f} MiB; against one rank: "
+                  f"forward {x['forward_err']:.3e} (tol {SLICE_TOL:.0e}), "
+                  f"losses {x['loss_err']:.3e} (tol {TRAIN_TOL:.0e})"
+                  + "".join(
+                      f", first-step gradients in {k} worst " + ", ".join(
+                          f"{n} {e:.3e}" for e, n in errs[:3])
+                      + ("" if k == "f32" else ", checked worst "
+                         + ", ".join(f"{n} {e:.3e}" for e, n in
+                                     dist_checked(k, errs)[:3]))
+                      + f" (tol {dist_grad_tol(k):.0e})"
+                      for k, errs in x["grad_errs"].items())
+                  + f" ({smi})")
+            check(x["launches"] == want,
+                  f"{name} rank {r} launches {x['launches']} != {want}")
+            check(x["forward_err"] <= SLICE_TOL, f"{name} rank {r} forward")
+            check(x["loss_err"] <= TRAIN_TOL, f"{name} rank {r} losses")
+            for k, errs in x["grad_errs"].items():
+                check(dist_checked(k, errs)[0][0] <= dist_grad_tol(k),
+                      f"{name} rank {r} first-step gradients in {k}")
+        out[name] = {"launches_per_rank": ranks[0][name]["launches"],
+                     "step_ms": [r[name]["step_ms"] for r in ranks],
+                     "peak_bytes": [r[name]["peak_bytes"] for r in ranks],
+                     "p2p": [r[name]["p2p"] for r in ranks],
+                     "forward_err": max(r[name]["forward_err"]
+                                        for r in ranks),
+                     "loss_err": max(r[name]["loss_err"] for r in ranks),
+                     "grad_checked": {
+                         k: max(dist_checked(k, r[name]["grad_errs"][k])
+                                [0][0] for r in ranks)
+                         for k in ranks[0][name]["grad_errs"]}}
+    for r, res in enumerate(ranks):
+        x = res["dlrm"]
+        print(f"[pipe] DLRM banked, rank {r}: {x['tables']} of 4 tables, "
+              f"{x['numel']} parameters (one rank {dlrm_ref['numel']}), "
+              f"launches in {PIPE_DLRM_STEPS} steps {x['launches']}, peak "
+              f"{x['peak_bytes'] / 2**30:.3f} GiB, between steps "
+              f"{x['state_bytes'] / 2**30:.3f} (one rank "
+              f"{dlrm_ref['peak_bytes'] / 2**30:.3f} GiB, between steps "
+              f"{dlrm_ref['state_bytes'] / 2**30:.3f}); against one "
+              f"rank: forward {x['forward_err']:.3e} (tol "
+              f"{SLICE_TOL:.0e}), losses {x['loss_err']:.3e} (tol "
+              f"{TRAIN_TOL:.0e}), first-step gradients worst "
+              + ", ".join(f"{n} {e:.3e}" for e, n in x["grad_errs"][:3])
+              + f" (tol {ZOO_GRAD_TOL:.0e}) ({smi})")
+        m = x["memory"]
+        if m is not None:
+            for when, key in (("at its peak", "at_peak"),
+                              ("between steps", "at_end")):
+                print(f"[pipe] DLRM banked, rank {r}, {when} "
+                      f"({m['peak' if key == 'at_peak' else 'end'] / 2**30:.3f}"
+                      f" GiB; {m['base'] / 2**30:.3f} before the model), "
+                      f"the largest allocations: " + "; ".join(
+                          f"{n / 2**20:.1f} MiB {w}" for n, w in m[key]))
+        check(x["tables"] == 2, f"DLRM rank {r} holds {x['tables']} tables")
+        check(x["launches"]["adam_update"] == PIPE_DLRM_STEPS,
+              f"DLRM rank {r} launches {x['launches']}")
+        check(x["forward_err"] <= SLICE_TOL, f"DLRM rank {r} forward")
+        check(x["loss_err"] <= TRAIN_TOL, f"DLRM rank {r} losses")
+        check(x["grad_errs"][0][0] <= ZOO_GRAD_TOL,
+              f"DLRM rank {r} first-step gradients")
+    out["dlrm"] = {"launches_per_rank": ranks[0]["dlrm"]["launches"],
+                   "peak_bytes": [r["dlrm"]["peak_bytes"] for r in ranks],
+                   "state_bytes": [r["dlrm"]["state_bytes"] for r in ranks],
+                   "one_rank_peak_bytes": dlrm_ref["peak_bytes"],
+                   "one_rank_state_bytes": dlrm_ref["state_bytes"],
+                   "numel": [r["dlrm"]["numel"] for r in ranks],
+                   "grad_worst": max(r["dlrm"]["grad_errs"][0][0]
+                                     for r in ranks)}
+    out["world_s"] = world_s
+    if spec["device"] != "cuda":
+        return out
+    # the kernels at the shapes these paths give them
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out["fwd_b2"] = fwd_times(spec["seq"], 0.0, gen, b=2)
+    out["bwd_b2"] = bwd_times(spec["seq"], 0.0, gen, b=2)
+    f, bw = out["fwd_b2"], out["bwd_b2"]
+    print(f"[pipe] flash at a microbatch, b2 h12 s{spec['seq']} d64 bf16: "
+          f"forward {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, SDPA "
+          f"{f['library_ms']:.4f} on {f['library_backend']}, bound "
+          f"{f['bound_ms']:.4f} "
+          f"{f['bound_by']}), dq {bw['dq_ms']:.4f} ms (plain "
+          f"{bw['dq_plain_ms']:.4f}, bound {bw['dq_bound'][0]:.4f}), dk/dv "
+          f"{bw['dkv_ms']:.4f} ms (plain {bw['dkv_plain_ms']:.4f}, bound "
+          f"{bw['dkv_bound'][0]:.4f}), SDPA's whole backward "
+          f"{bw['sdpa_bwd_ms']:.4f} ms ({smi})")
+    free_cuda()
+    for key, what, shapes in (
+            ("adam_pp_rank", "a pp 2 rank's leaves of BERT-base (stage 0)",
+             ranks[0]["gpipe"]["leaf_shapes"]),
+            ("adam_bank_rank", "a bank rank's DLRM leaves (2 of 4 tables "
+             "and the MLPs)", ranks[0]["dlrm"]["leaf_shapes"])):
+        a = out[key] = adam_times(gen, [tuple(s) for s in shapes])
+        a["leaves"] = len(shapes)
+        print(f"[pipe] adam_update over {what}: {a['numel']} f32 "
+              f"parameters in {len(shapes)} leaves, one launch: kernel "
+              f"{a['ms']:.4f} ms, plain {a['plain_ms']:.4f} ms, "
+              f"torch._fused_adam_ {a['library_ms']:.4f} ms, bound "
+              f"{a['bound_ms']:.4f} ms (bytes) ({smi})")
+        free_cuda()
+    return out
+
+
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience", "search", "dist", "serve")
+          "resilience", "search", "dist", "pipe", "serve")
 
 
 def main() -> int:
@@ -6425,6 +6982,8 @@ def main() -> int:
                     "and of this one in turns, and nothing else")
     ap.add_argument("--dist-rank", metavar="DIR",
                     help="run as a rank of the dist phase's world")
+    ap.add_argument("--pipe-rank", metavar="DIR",
+                    help="run as a rank of the pipe phase's world")
     ap.add_argument("--dist-nccl", metavar="DIR",
                     help="run as the dist phase's one-rank NCCL world")
     ap.add_argument("--dist-profile", metavar="DIR",
@@ -6435,6 +6994,8 @@ def main() -> int:
         return dist_rank_main(args.dist_rank)
     if args.dist_nccl:
         return dist_nccl_main(args.dist_nccl)
+    if args.pipe_rank:
+        return pipe_rank_main(args.pipe_rank)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     dev, smi = phase_device()
@@ -6474,6 +7035,7 @@ def main() -> int:
     run("dist", phase_dist, smi,
         dict(DIST_SPEC, profile=os.path.abspath(args.dist_profile))
         if args.dist_profile else None)
+    run("pipe", phase_pipe, smi)
     run("serve", phase_serve, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
@@ -6482,7 +7044,7 @@ def main() -> int:
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
         res["zoo"], res["frontends"], res["resilience"], res["search"],
-        res["serve"], res["dist"])}))
+        res["serve"], res["dist"], res["pipe"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -27,7 +27,12 @@ The train step's multi-device branches are the JAX package's: ZeRO-1
 rank's blocks, all-gather of the weight), the bucketed overlap of the
 gradient sync with backward (``runtime/overlap.py``) and the quantized
 gradient sync with error feedback (``ops/quantized_collectives.py``).
-Banks, place groups and pipelines come with the slices that port them.
+A pipeline region (``strategy.pipeline``) runs over the ranks of its pp
+axis: the layers before and after it as sharded ops on every rank, the
+region's stages on plain tensors, each rank its own stage's blocks of
+the stacked ``pp::`` leaves, by the schedules of ``parallel/pipeline.py``
+(``_pipe_run``, ``_pipe_grads``). A bank's or a place group's members run
+together, each rank computing only its own (``parallel/banks.py``).
 Each step function is wrapped by :func:`_instrument_step`, which records
 the ``executor.<name>_step`` spans when tracing is on.
 """
@@ -211,11 +216,11 @@ class GraphProgram:
         mesh = self.strategy.dmesh.mesh
         return from_local(x, mesh, [Replicate()] * mesh.ndim, x.shape)
 
-    def _frees(self, layers: Sequence[Layer]) -> List[List[int]]:
+    def _frees(self, layers: Sequence[Layer], keep=()) -> List[List[int]]:
         """For each layer, the env entries that die after it runs: the
         tensors it is the last reader (or, unread, the producer) of, other
-        than the graph's outputs."""
-        keep = {t.guid for t in self.output_tensors}
+        than the graph's outputs and ``keep`` (what later layers read)."""
+        keep = {t.guid for t in self.output_tensors} | set(keep)
         last: Dict[int, int] = {}
         for i, layer in enumerate(layers):
             for t in layer.outputs:
@@ -230,34 +235,53 @@ class GraphProgram:
 
     def emit_layers(self, layers: Sequence[Layer], env: Dict[int, Any],
                     params: Dict[str, Dict[str, Any]], ctx: EmitCtx,
-                    capture: Optional[int] = None) -> Any:
+                    capture: Optional[int] = None, keep=()) -> Any:
         """Emit ``layers`` in order over ``env`` (tensor guid -> value).
         Returns the value of the op output whose guid is ``capture`` (None
         when none is asked for or none runs). When autograd records nothing
         (serving, the KV prefill, the re-forward), each env entry is
-        dropped after its last reader, so the peak holds only the live
+        dropped after its last reader (other than the guids in ``keep``,
+        which later layers read), so the peak holds only the live
         activations and the graph's outputs. Training keeps them all:
-        autograd holds what the backward reads either way."""
+        autograd holds what the backward reads either way. Over a live
+        mesh the members of a bank or a place group (``strategy.banks``,
+        ``strategy.place_groups``) run together at the first member's
+        position (``parallel/banks.py``)."""
         bf16_act = bool(getattr(ctx.config, "bf16_activations", False)) \
             if ctx.config is not None else False
-        frees = None if torch.is_grad_enabled() else self._frees(layers)
+        frees = None if torch.is_grad_enabled() \
+            else self._frees(layers, keep)
         st = self.strategy
         replicate_consts = contextlib.nullcontext
+        grouped: Dict[str, Any] = {}
+        grouped_out: Dict[str, Any] = {}
         if st is not None:
             from torch.distributed.tensor.experimental import \
                 implicit_replication as replicate_consts
             from .parallel.reshard import constrain_output
             ctx.strategy = st
+            present = {l.name for l in layers}
+            for grp in list(st.banks or ()) + list(st.place_groups or ()):
+                if set(grp.members) <= present:
+                    for m in grp.members:
+                        grouped[m] = grp
         captured = None
         for li, layer in enumerate(layers):
             op = get_op_def(layer.op_type)
-            ins = [env[t.guid] for t in layer.inputs]
-            # over a live mesh a plain tensor an op makes (a position
-            # range, a mask) is the same on every rank: replicated
-            with replicate_consts():
-                outs = op.emit(layer.params, ins, params.get(layer.name, {}),
-                               ctx, layer.name)
-            del ins
+            if layer.name in grouped:
+                if layer.name not in grouped_out:
+                    grouped_out.update(self._emit_group(
+                        grouped[layer.name], layers, env, params, ctx))
+                outs = [grouped_out.pop(layer.name)]
+            else:
+                ins = [env[t.guid] for t in layer.inputs]
+                # over a live mesh a plain tensor an op makes (a position
+                # range, a mask) is the same on every rank: replicated
+                with replicate_consts():
+                    outs = op.emit(layer.params, ins,
+                                   params.get(layer.name, {}), ctx,
+                                   layer.name)
+                del ins
             if len(outs) != len(layer.outputs):
                 raise RuntimeError(
                     f"op {layer.name} emitted {len(outs)} outputs, "
@@ -280,6 +304,53 @@ class GraphProgram:
                     env.pop(guid, None)
         return captured
 
+    def _emit_group(self, grp, layers, env, params, ctx) -> Dict[str, Any]:
+        """The outputs of a bank's or a place group's members, by layer
+        name: each rank computes its own members (``parallel/banks.py``).
+        A bank's members run with the weight-sizing params of the largest
+        (a padded bank's weights are zero-padded to it)."""
+        from .parallel.banks import (_PAD_FREE_PARAMS, BankSpec, emit_bank,
+                                     emit_place_group)
+        by_name = {l.name: l for l in layers}
+        members = [by_name[n] for n in grp.members]
+        for m in members:
+            if len(m.inputs) != 1 or len(m.outputs) != 1:
+                raise ValueError(f"placed member {m.name} must be "
+                                 f"1-in/1-out")
+            if _needs_rng(m):
+                raise ValueError(f"placed member {m.name} uses rng (not "
+                                 f"supported)")
+        xs = [env[m.inputs[0].guid] for m in members]
+        mesh = self.strategy.dmesh.mesh
+        local = EmitCtx(training=ctx.training, rngs={}, state={},
+                        config=ctx.config)
+        local.kernel_impls = ctx.kernel_impls
+        if isinstance(grp, BankSpec):
+            op = get_op_def(members[0].op_type)
+            eparams = dict(members[0].params)
+            if getattr(grp, "padded", False):
+                for key in _PAD_FREE_PARAMS.get(members[0].op_type, ()):
+                    eparams[key] = max(m.params[key] for m in members)
+            outs = emit_bank(
+                grp, members, xs, params.get(grp.param_name, {}),
+                lambda k, x, w: op.emit(eparams, [x], w, local,
+                                        members[0].name)[0], mesh)
+        else:
+            ops = [get_op_def(m.op_type) for m in members]
+            for m, op in zip(members, ops):
+                ss = getattr(op, "state_spec", None)
+                if ss is not None and ss(m.params,
+                                         [t.shape for t in m.inputs],
+                                         [t.dtype for t in m.inputs]):
+                    raise ValueError(f"stateful op {m.name} cannot join a "
+                                     f"place group")
+            outs = emit_place_group(
+                grp, members, xs, [params.get(m.name, {}) for m in members],
+                lambda i, x, w: ops[i].emit(members[i].params, [x], w,
+                                            local, members[i].name)[0],
+                mesh)
+        return {m.name: o for m, o in zip(members, outs)}
+
     def emit(self, params: Dict[str, Dict[str, Any]], inputs: Dict[str, Any],
              ctx: EmitCtx, device: torch.device,
              capture: Optional[int] = None) -> Tuple[List[Any], Any]:
@@ -298,6 +369,17 @@ def _local_tree(tree):
     if isinstance(tree, dict):
         return {k: _local_tree(v) for k, v in tree.items()}
     return tree.to_local() if is_dtensor(tree) else tree
+
+
+# Megatron tp split of stacked stage weights: role -> weight name -> dim
+# index (within the weight's own shape) sharded over the tp axis. None =
+# replicated (biases applied once, after the all-reduce).
+_TP_WEIGHT_DIMS = {
+    "attn": {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+             "wo": 0, "bo": None},
+    "col": {"kernel": 1, "bias": 0},
+    "row": {"kernel": 0, "bias": None},
+}
 
 
 def _find_remat_blocks(layers):
@@ -370,6 +452,9 @@ class Executor:
         self._logits_tensor: Optional[Tensor] = None
         # over a world of ranks: the strategy and its live mesh
         self.strategy = None
+        # the pipeline region (parallel/pipeline_lowering.PipelineRegion)
+        # the strategy carries; its stages run over the pp ranks
+        self.pipe = None
         # ZeRO-1 (runtime/zero.py): the placements of every optimizer-
         # state leaf, set by FFModel.compile when it shards the moments;
         # the ZeRO split of each sharded leaf is derived from them lazily
@@ -395,6 +480,9 @@ class Executor:
                              "mesh")
         self.strategy = strategy
         self.program.strategy = strategy
+        self.pipe = getattr(strategy, "pipeline", None)
+        if self.pipe is not None:
+            self._attach_pipeline()
 
     def attach_overlap(self, strategy) -> None:
         """Build the bucketed grad-sync schedule for ``strategy`` (None
@@ -452,10 +540,19 @@ class Executor:
         which starts at ones."""
         params: Dict[str, Dict[str, torch.Tensor]] = {}
         state: Dict[str, Dict[str, torch.Tensor]] = {}
+        region = self._region_names()
+        banks = self._kept_banks()
+        members: Dict[str, Dict[str, torch.Tensor]] = {}
+        in_bank = {n for bk in banks for n in bk.members}
+        if self.pipe is not None:
+            params.update(self._init_pipeline_params())
         for li, layer in enumerate(self.program.layers):
             specs = ensure_weight_specs(layer)
-            if specs:
-                params[layer.name] = {
+            if specs and layer.name not in region:
+                # a bank member's weights take the keys of the unbanked
+                # run, so banked and unbanked runs start alike
+                (members if layer.name in in_bank else params)[
+                    layer.name] = {
                     spec.name: initialize(spec, (self.seed, 1, li, wi),
                                           to_torch(spec.dtype), self.device)
                     for wi, spec in enumerate(specs)}
@@ -469,22 +566,434 @@ class Executor:
                     sname: (torch.ones if sname == "var" else torch.zeros)(
                         sshape, dtype=to_torch(sdt), device=self.device)
                     for sname, (sshape, sdt) in ss.items()}
+                if layer.name in in_bank:
+                    raise ValueError(f"stateful op {layer.name} cannot be "
+                                     f"banked")
+        from .parallel.banks import stack_members
+        for bk in banks:
+            if all(m in members for m in bk.members):
+                params[bk.param_name] = stack_members(
+                    [members[m] for m in bk.members],
+                    getattr(bk, "padded", False))
         if self.strategy is not None:
             params, state = self.place_tree(params), self.place_state(state)
         return params, state
+
+    def _kept_banks(self) -> List:
+        """The strategy's banks whose members are all in this program (a
+        stale import against a renamed model drops the others, with a
+        warning, as the JAX package does)."""
+        st = self.strategy
+        banks = list(getattr(st, "banks", None) or []) if st is not None \
+            else []
+        names = {l.name for l in self.program.layers}
+        kept = [bk for bk in banks if set(bk.members) <= names]
+        if len(kept) != len(banks):
+            import logging
+            logging.getLogger("flexflow_tpu_torch").warning(
+                "dropping %d bank placement(s) whose members are not in "
+                "this program", len(banks) - len(kept))
+            st.banks = kept
+        return kept
+
+    def leaf_spec(self, layer_name: str, weight_name: str):
+        """The spec a parameter leaf is laid out by over the live mesh: a
+        pipeline region's stacked leaves (``pp::<template layer>``) over
+        the pp axis (and the tp axis by their Megatron role), a bank's
+        stacked members over its bank axes, any other weight per the
+        strategy's ``weight_sharding``."""
+        from .parallel.strategy import P
+        pipe = self.pipe
+        if pipe is not None and layer_name.startswith("pp::"):
+            return self._pipe_leaf_spec(layer_name, weight_name)
+        for bk in getattr(self.strategy, "banks", None) or ():
+            if bk.param_name == layer_name:
+                ax = bk.axes[0] if len(bk.axes) == 1 else tuple(bk.axes)
+                return P(ax)
+        return self.strategy.weight_sharding(layer_name, weight_name)
 
     def place_state(self, state):
         """Every op state entry replicated over the live mesh."""
         return {ln: {k: self.program._replicated(v) for k, v in d.items()}
                 for ln, d in state.items()}
 
+    # ------------------------------------------------------------------
+    # the pipeline region over the pp ranks (parallel/pipeline.py)
+    # ------------------------------------------------------------------
+    def _region_names(self) -> set:
+        pipe = self.pipe
+        if pipe is None:
+            return set()
+        return {l.name for l in self.program.layers[pipe.start:pipe.end]}
+
+    def _attach_pipeline(self) -> None:
+        """The layer split around the region, the mesh dims of its axes
+        and the point-to-point route of its hand-offs."""
+        import torch.distributed as dist
+        from .parallel.pipeline import Handoff
+        pipe, layers = self.pipe, self.program.layers
+        if self._remat is not None:
+            import logging
+            logging.getLogger("flexflow_tpu_torch").warning(
+                "remat='blocks' is skipped when a pipeline region is "
+                "active: its stages recompute nothing, and the layers "
+                "before and after the region are never rematerialized")
+            self._remat = None
+        self._pre_layers = [] if pipe.prologue else layers[:pipe.start]
+        self._post_layers = layers[pipe.end + len(pipe.epilogue or ()):]
+        after = list(layers[pipe.start:]) + list(pipe.epilogue or ())
+        self._pre_keep = {t.guid for l in after for t in l.inputs}
+        names = list(self.strategy.dmesh.mesh.mesh_dim_names)
+        self._pp_dim = names.index(pipe.pp_axis)
+        self._tp_dim = names.index(pipe.tp_axis) \
+            if pipe.tp_axis is not None else None
+        self._dp_dims = [names.index(a) for a in pipe.dp_axes]
+        route = "host" if self.device.type == "cuda" \
+            and dist.get_backend() == "gloo" else "direct"
+        self._handoff = Handoff(self.strategy.dmesh.mesh, self._pp_dim,
+                                route)
+        self._template_of = {pipe.param_name(l): l for l in pipe.template}
+
+    def _init_pipeline_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The region's stacked parameters, whole: for each template
+        layer's weight one leaf in the region's layout
+        (``PipelineRegion.stack_blocks``), keyed ``pp::<template
+        layer>``, each block drawn from its own key (the JAX package's
+        key path)."""
+        pipe = self.pipe
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for lj, layer in enumerate(pipe.template):
+            specs = ensure_weight_specs(layer)
+            if not specs:
+                continue
+            lp = {}
+            for wi, spec in enumerate(specs):
+                dt = to_torch(spec.dtype)
+                # the ragged run's blocks take the JAX package's ragged
+                # key path, the uniform run's chunks the uniform one's
+                path = 3 if pipe.counts is not None else 2
+                lp[spec.name] = pipe.stack_blocks([initialize(
+                    spec, (self.seed, path, 7000 + (lj << 12) + wi, b), dt,
+                    self.device)
+                    for b in range(len(pipe.stage_layer_names))])
+            out[pipe.param_name(layer)] = lp
+        return out
+
+    def _pipe_leaf_spec(self, key: str, wname: str):
+        """A stacked leaf's spec: the stage dim over the pp axis, and,
+        under in-stage tp, the dim its Megatron role splits over the tp
+        axis (``_TP_WEIGHT_DIMS``)."""
+        from .parallel.strategy import P
+        pipe = self.pipe
+        tl = self._template_of[key]
+        spec = next(w for w in ensure_weight_specs(tl) if w.name == wname)
+        lead = [None] * (2 if pipe.counts is not None
+                         or pipe.n_chunks > 1 else 1)
+        lead[pipe.stage_dim] = pipe.pp_axis
+        dims = [None] * len(spec.shape)
+        role = pipe.tp_roles.get(tl.name) if pipe.tp_axis else None
+        if role is not None:
+            d = _TP_WEIGHT_DIMS[role].get(wname)
+            if d is not None:
+                dims[d] = pipe.tp_axis
+        return P(*lead, *dims)
+
+    def _pipe_local_keys(self) -> List[str]:
+        """The parameter keys the region uses on each rank's own blocks:
+        the stacked leaves, and the ragged prologue's and epilogue's
+        layers."""
+        pipe = self.pipe
+        keys = [pipe.param_name(l) for l in pipe.template]
+        keys += [l.name for l in list(pipe.prologue or ())
+                 + list(pipe.epilogue or ())]
+        return keys
+
+    def _pipe_locals(self, params, training: bool):
+        """This rank's blocks of the region's parameters, as leaves of
+        their own when training."""
+        out = {}
+        for key in self._pipe_local_keys():
+            if key in params:
+                out[key] = {wn: t.to_local().detach().requires_grad_(True)
+                            if training else t.to_local()
+                            for wn, t in params[key].items()}
+        return out
+
+    def _tensor_by_guid(self, guid: int) -> Tensor:
+        for l in self.program.layers:
+            for t in list(l.outputs) + list(l.inputs):
+                if t.guid == guid:
+                    return t
+        for t in self.program.input_tensors:
+            if t.guid == guid:
+                return t
+        raise KeyError(guid)
+
+    def _act_dtype(self, t: Tensor) -> torch.dtype:
+        dt = to_torch(t.dtype)
+        if dt == torch.float32 and getattr(self.config, "bf16_activations",
+                                           False):
+            return torch.bfloat16
+        return dt
+
+    def _emit_local(self, layers, env, weights_of, ctx: EmitCtx,
+                    roles=None) -> None:
+        """Emit ``layers`` on plain tensors (a stage's own rows and
+        blocks). ``roles[j]`` is layer j's Megatron role under in-stage
+        tp: "attn" / "col" take their inputs through ``tp_copy``; "attn"
+        / "row" hold their bias back, sum their partial output over the
+        tp group (``tp_reduce``) and add it once; "attn" attends its
+        heads at their global indices (``EmitCtx.head_block``)."""
+        from .parallel.pipeline import tp_copy, tp_reduce
+        bf16_act = bool(getattr(self.config, "bf16_activations", False))
+        group = self._tp_group if roles else None
+        for j, layer in enumerate(layers):
+            op = get_op_def(layer.op_type)
+            ins = [env[t.guid] for t in layer.inputs]
+            w = weights_of(j, layer)
+            role = roles[j] if roles else None
+            if role in ("attn", "col"):
+                seen: Dict[int, torch.Tensor] = {}
+                ins = [seen.setdefault(id(x), tp_copy(x, group))
+                       for x in ins]
+            if role == "attn":
+                h = layer.params["num_heads"]
+                tp = self._tp_size
+                ctx.head_block = (h, self._tp_rank * (h // tp))
+            if role in ("attn", "row"):
+                w = dict(w)
+                bias = w.pop("bo" if role == "attn" else "bias", None)
+                outs = op.emit(layer.params, ins, w, ctx, layer.name)
+                y = tp_reduce(outs[0], group)
+                if bias is not None:
+                    y = (y + bias).to(outs[0].dtype)
+                outs = [y]
+            else:
+                outs = op.emit(layer.params, ins, w, ctx, layer.name)
+            ctx.head_block = None
+            for o, t in zip(outs, layer.outputs):
+                if bf16_act and o.dtype == torch.float32:
+                    o = o.to(torch.bfloat16)
+                env[t.guid] = o
+
+    def _pipe_run(self, params, state, batch, training: bool, step,
+                  capture: bool = True, leaves=None) -> Dict[str, Any]:
+        """The forward of a pipelined program on this rank: the layers
+        before the region as sharded ops, the region's schedule on this
+        rank's stage (``parallel/pipeline.gpipe``; each microbatch's
+        dropout masks the serial step's on its rows), the region's output
+        made whole over the pp and tp axes, then the layers after it.
+        ``leaves``: this rank's blocks of the region's parameters
+        (``_pipe_locals``). Returns the outputs, the new op state, the
+        aux losses, the captured logits and what the backward needs."""
+        from .parallel.distributed import mesh_group
+        from .parallel.pipeline import gpipe
+        from .parallel.pipeline_lowering import (region_entry_transition,
+                                                 region_exit_transition)
+        pipe, prog = self.pipe, self.program
+        mesh = self.strategy.dmesh.mesh
+        coord = mesh.get_coordinate()
+        S, M, v = pipe.n_stages, pipe.n_microbatches, pipe.n_chunks
+        s = coord[self._pp_dim]
+        self._tp_rank = coord[self._tp_dim] if self._tp_dim is not None \
+            else 0
+        if self._tp_dim is not None:
+            self._tp_group, self._tp_size, _ = mesh_group(mesh,
+                                                          [self._tp_dim])
+        _, dp_n, dp_i = mesh_group(mesh, self._dp_dims) if self._dp_dims \
+            else (None, 1, 0)
+        rngs = self._rngs_for_step(step) if training else {}
+        ctx = EmitCtx(training=training, rngs=rngs, state=state,
+                      config=self.config)
+        self._attach_kernel_ctx(ctx)
+        cap = self._logits_guid() if capture else None
+        env = prog.init_env(batch, self.device)
+        captured = prog.emit_layers(self._pre_layers, env, params, ctx, cap,
+                                    keep=self._pre_keep)
+        entry_t = self._tensor_by_guid(pipe.entry_guid)
+        B = int(entry_t.shape[0])
+        if B % (dp_n * M):
+            raise ValueError(
+                f"batch {B} does not split into {M} microbatches over "
+                f"{dp_n} data-parallel rank(s)")
+        rows = B // dp_n
+        mbl, r0 = rows // M, dp_i * rows
+        local = leaves if leaves is not None \
+            else self._pipe_locals(params, False)
+        x_loc = x_leaf = None
+        if pipe.prologue:
+            raw = {}
+            for t in pipe.prologue_inputs:
+                a = batch[t.name]
+                if int(a.shape[0]) == B:
+                    a = a[r0:r0 + rows]
+                raw[t.guid] = _as_tensor(a, self.device).to(
+                    to_torch(t.dtype))
+        else:
+            x_loc = region_entry_transition(env[pipe.entry_guid], pipe,
+                                            mesh)
+            x_leaf = x_loc.detach().requires_grad_(training)
+
+        def lctx(m: int) -> EmitCtx:
+            c = EmitCtx(training=training, rngs=rngs, state={},
+                        config=self.config)
+            self._attach_kernel_ctx(c)
+            c.local_shape, c.local_rows = True, (B, r0 + m * mbl)
+            return c
+
+        def first_in(m: int):
+            if pipe.prologue:
+                penv = {g: a[m * mbl:(m + 1) * mbl] for g, a in raw.items()}
+                self._emit_local(pipe.prologue, penv,
+                                 lambda j, l: local.get(l.name, {}),
+                                 lctx(m))
+                return penv[pipe.entry_guid]
+            return x_leaf[m * mbl:(m + 1) * mbl]
+
+        layers = prog.layers
+        unit = len(pipe.template)
+        keys = [pipe.param_name(l) for l in pipe.template]
+        roles = [pipe.tp_roles.get(l.name) for l in pipe.template] \
+            if pipe.tp_axis is not None else None
+
+        def block(b: int, x, ctx_, pick):
+            blk = layers[pipe.start + b * unit:pipe.start + (b + 1) * unit]
+            benv = {pipe.chunk_entries[b]: x}
+            self._emit_local(
+                blk, benv, lambda j, l: {wn: pick(t) for wn, t in
+                                         local.get(keys[j], {}).items()},
+                ctx_, roles)
+            return benv[blk[-1].outputs[0].guid]
+
+        def run_slot(k: int, m: int, x):
+            c = lctx(m)
+            if pipe.counts is None:
+                return block(k * S + s, x, c,
+                             lambda t: t[pipe.local_index(k)])
+            first = sum(pipe.counts[:s])
+            for i in range(pipe.counts[s]):
+                x = block(first + i, x, c,
+                          lambda t, i=i: t[pipe.local_index(0, i)])
+            if s == S - 1 and pipe.epilogue:
+                eenv = {pipe.exit_guid: x}
+                self._emit_local(pipe.epilogue, eenv,
+                                 lambda j, l: local.get(l.name, {}), c)
+                x = eenv[pipe.epilogue_exit_guid]
+            return x
+
+        act_shape = (mbl,) + tuple(entry_t.shape[1:])
+        outputs, saved = gpipe(run_slot, first_in, self._handoff, s, S, M,
+                               v, act_shape, self._act_dtype(entry_t),
+                               self.device, training)
+        out_t = self._tensor_by_guid(pipe.region_out_guid)
+        out_dt = self._act_dtype(out_t)
+        if s == S - 1 and self._tp_rank == 0:
+            y = torch.cat([outputs[m].detach() for m in range(M)]).to(out_dt)
+        else:
+            y = torch.zeros((rows,) + tuple(out_t.shape[1:]), dtype=out_dt,
+                            device=self.device)
+        y_dt, y_leaf = region_exit_transition(
+            y, pipe, mesh, (B,) + tuple(out_t.shape[1:]))
+        env[pipe.region_out_guid] = y_dt
+        if cap == pipe.region_out_guid:
+            captured = y_dt
+        tail = prog.emit_layers(self._post_layers, env, params, ctx, cap)
+        if tail is not None:
+            captured = tail
+        new_state = dict(state)
+        new_state.update(ctx.new_state)
+        return {"outs": [env[t.guid] for t in prog.output_tensors],
+                "new_state": new_state, "aux": ctx.aux_losses,
+                "logits": captured, "saved": saved, "x_loc": x_loc,
+                "x_leaf": x_leaf, "y_leaf": y_leaf, "mbl": mbl, "stage": s}
+
+    def _pipe_grads(self, params, state, batch, step: int):
+        """Gradients of a pipelined program's mean loss, each laid out as
+        its leaf: the loss's backward through the layers after the region
+        (every rank), the schedule's backward on this rank's stage, then
+        the backward of the layers before the region from the entry's
+        cotangent (summed over the pp and tp axes, one rank
+        contributing). The region's gradients are summed over the dp
+        axes (the prologue's and epilogue's over the pp axis too): each
+        counted once. Returns (grads, new_state, detached batch
+        metrics)."""
+        import torch.distributed as dist
+        from .parallel.distributed import mesh_group
+        from .parallel.local_ops import from_local
+        from .parallel.pipeline import gpipe_backward
+        pipe = self.pipe
+        mesh = self.strategy.dmesh.mesh
+        local_keys = set(self._pipe_local_keys())
+        live: Dict[str, Dict[str, Any]] = {}
+        for ln, wn, t in tree_leaves(params):
+            if ln not in local_keys:
+                live.setdefault(ln, {})[wn] = t.detach().requires_grad_(True)
+        locs = self._pipe_locals(params, True)
+        with torch.enable_grad():
+            run = self._pipe_run(live, state, batch, True, step, True, locs)
+            loss, bm = self._loss_and_metrics(run["outs"], run["logits"],
+                                              batch["label"], run["aux"])
+            torch.autograd.backward(loss, retain_graph=True)
+            g_y = run["y_leaf"].grad
+            if g_y is None:
+                g_y = torch.zeros_like(run["y_leaf"])
+            mbl, s = run["mbl"], run["stage"]
+            gpipe_backward(run["saved"],
+                           lambda m: g_y[m * mbl:(m + 1) * mbl].to(
+                               run["y_leaf"].dtype),
+                           self._handoff, s, pipe.n_stages,
+                           pipe.n_microbatches, pipe.n_chunks)
+            new_state = run["new_state"]
+            x_loc = run["x_loc"]
+            if x_loc is not None and x_loc.requires_grad:
+                gx = run["x_leaf"].grad
+                if gx is None or s != 0 or self._tp_rank != 0:
+                    gx = torch.zeros_like(run["x_leaf"])
+                rest = [d for d in range(mesh.ndim)
+                        if d not in self._dp_dims]
+                if rest:
+                    gx = gx.contiguous()
+                    dist.all_reduce(gx, group=mesh_group(mesh, rest)[0])
+                torch.autograd.backward(x_loc, gx.to(x_loc.dtype))
+        del run
+        grads: Dict[str, Dict[str, Any]] = {}
+        for ln, ws in live.items():
+            for wn, leaf in ws.items():
+                t = params[ln][wn]
+                g = leaf.grad
+                if g is None:
+                    g = torch.zeros_like(t)
+                elif list(g.placements) != list(t.placements):
+                    g = g.redistribute(t.device_mesh, t.placements)
+                grads.setdefault(ln, {})[wn] = g
+        by_group: Dict[tuple, List[tuple]] = {}
+        stacked = {pipe.param_name(l) for l in pipe.template}
+        for key, ws in locs.items():
+            dims = tuple(self._dp_dims) if key in stacked else tuple(
+                sorted(set(self._dp_dims) | {self._pp_dim}))
+            for wn, leaf in ws.items():
+                by_group.setdefault(dims, []).append((key, wn))
+        for dims, kw in by_group.items():
+            gs = [locs[k][w].grad if locs[k][w].grad is not None
+                  else torch.zeros_like(locs[k][w]) for k, w in kw]
+            if dims:
+                from .parallel.banks import _flat_all_reduce
+                gs = _flat_all_reduce(gs, mesh_group(mesh, list(dims))[0])
+            for (k, w), g in zip(kw, gs):
+                t = params[k][w]
+                grads.setdefault(k, {})[w] = from_local(
+                    g.to(t.dtype), t.device_mesh, t.placements, t.shape)
+        grads = {ln: {wn: grads[ln][wn] for wn in params[ln]}
+                 for ln in params}
+        return grads, new_state, {k: v.detach() for k, v in bm.items()}
+
     def place_tree(self, params):
-        """Every parameter laid out per the strategy's ``weight_sharding``
+        """Every parameter laid out per its ``leaf_spec``
         over the live mesh (``reshard.place_host``: each rank keeps its
         block of the whole array, which every rank holds alike)."""
         from .parallel.reshard import place_host
         st = self.strategy
-        return {ln: {wn: place_host(t, st.dmesh, st.weight_sharding(ln, wn),
+        return {ln: {wn: place_host(t, st.dmesh, self.leaf_spec(ln, wn),
                                     device=self.device)
                      for wn, t in ws.items()}
                 for ln, ws in params.items()}
@@ -519,6 +1028,10 @@ class Executor:
         the rank's rows) and the global step's dropout masks, cut to the
         rows. (The JAX package draws each shard's masks from its own key
         there; these are the serial step's.)"""
+        if self.pipe is not None:
+            run = self._pipe_run(params, state, batch, training, step,
+                                 capture)
+            return run["outs"], run["new_state"], run["aux"], run["logits"]
         rngs = self._rngs_for_step(step) if training else {}
         ctx = EmitCtx(training=training, rngs=rngs, state=state,
                       config=self.config)
@@ -669,6 +1182,8 @@ class Executor:
         leaf, by ``torch.autograd.grad``; unused leaves get zeros. Over a
         world each is reduced to its leaf's layout. Returns (grads,
         new_state, detached batch metrics)."""
+        if self.pipe is not None:
+            return self._pipe_grads(params, state, batch, step)
         names, leaves, gs, new_state, bm = self._backward(params, state,
                                                           batch, step)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -972,9 +1487,28 @@ class Executor:
                                             for wn in params[ln]])
             return state, [bm]
 
+        def pipelined(params, opt_state, state, step, batch):
+            """The pipeline's step: the schedule's forward and backward
+            (``_pipe_grads``), then the update of this rank's leaves."""
+            grads, state, bm = self._pipe_grads(params, state, batch, step)
+            local = {ln: {wn: g.to_local() for wn, g in ws.items()}
+                     for ln, ws in grads.items()}
+            del grads
+            self._zero_update(params, local, opt_state, step + 1, updater())
+            return state, [bm]
+
+        if self.pipe is not None and accum > 1:
+            raise ValueError(
+                "--gradient-accumulation-steps does not compose with a "
+                "pipeline region: its microbatches split the batch "
+                "already (--pipeline-microbatches)")
+
         def step_fn(params, opt_state, state, step, batch):
             step = int(step)
-            if self.strategy is None:
+            if self.pipe is not None:
+                state, bms = pipelined(params, opt_state, state, step,
+                                       batch)
+            elif self.strategy is None:
                 state, bms = one_device(params, opt_state, state, step,
                                         batch)
             elif self._qsync is not None:

@@ -14,6 +14,14 @@ expert layers included; constants (``create_constant``) are graph
 inputs, not parameters, and are not copied. Op state (BatchNorm's
 running mean and variance, Cache's slots) copies the same way, checked
 against each op's ``state_spec``.
+
+A port model that keeps layers in stacked leaves takes them either way:
+a pipeline region's ``pp::<template layer>`` leaves (``(S, ...)``,
+``(v, S, ...)`` interleaved, ``(S, cmax, ...)`` ragged) from a JAX
+pipelined model's own, or stacked here from a plain JAX model's
+per-layer weights; a bank's stacked members from a JAX banked model's
+``param_name`` leaf, or stacked (and padded) from the plain members'.
+Over a world each rank keeps its own block (its stage, its members).
 """
 from __future__ import annotations
 
@@ -42,6 +50,68 @@ def _weight_specs(layer) -> Dict[str, Any]:
     return {w.name: (tuple(w.shape), w.dtype) for w in layer.weights}
 
 
+def _grouped(ff, ref_tree, ref_layer_names):
+    """The reference tree's weights of the layers the port model keeps in
+    stacked leaves, and the stacked leaves themselves, by the port's
+    key: its pipeline region (``pp::<template layer>``) and its banks.
+    Each stacked leaf is either the reference's own (a pipelined or
+    banked JAX model: its ``pp::`` key by the template layer's position,
+    its bank's ``param_name``) or stacked here from the reference's
+    per-layer weights (a plain JAX model grafted: block c's layer j
+    stacked in the region's layout, ``PipelineRegion.stack_blocks``; a
+    bank's members by ``banks.stack_members``). Returns
+    (names of the layers they cover, {key: {weight: (array, dtype)}}).
+    """
+    from .parallel.banks import stack_members
+    ex = ff.executor
+    ours = ex.program.layers
+    covered, stacked = set(), {}
+    pipe = getattr(ex, "pipe", None)
+
+    def per_layer(i: int, wname: str):
+        ref_name = ref_layer_names[i][0]
+        arr = np.asarray(ref_tree.get(ref_name, {}).get(wname))
+        if arr.dtype.kind == "V":
+            arr = arr.astype(np.float32)
+        return arr
+
+    if pipe is not None:
+        unit = len(pipe.template)
+        covered |= {l.name for l in ours[pipe.start:pipe.end]}
+        for j, tl in enumerate(pipe.template):
+            key = pipe.param_name(tl)
+            specs = _weight_specs(tl)
+            if not specs:
+                continue
+            ref_key = "pp::" + ref_layer_names[pipe.start + j][0]
+            if ref_key in ref_tree:
+                stacked[key] = {w: (np.asarray(ref_tree[ref_key][w]), dt)
+                                for w, (_, dt) in specs.items()}
+                continue
+            leaf = {}
+            for w, (_, dt) in specs.items():
+                blocks = [torch.from_numpy(np.ascontiguousarray(
+                    per_layer(pipe.start + b * unit + j, w)))
+                    for b in range(len(pipe.stage_layer_names))]
+                leaf[w] = (pipe.stack_blocks(blocks).numpy(), dt)
+            stacked[key] = leaf
+    pos = {l.name: i for i, l in enumerate(ours)}
+    for bk in getattr(ex.strategy, "banks", None) or ():
+        covered |= set(bk.members)
+        first = _weight_specs(ours[pos[bk.members[0]]])
+        if bk.param_name in ref_tree:
+            stacked[bk.param_name] = {
+                w: (np.asarray(a), first[w][1])
+                for w, a in ref_tree[bk.param_name].items()}
+            continue
+        members = [{w: torch.from_numpy(np.ascontiguousarray(
+            per_layer(pos[m], w))) for w in first} for m in bk.members]
+        leaf = {w: (t.numpy(), first[w][1]) for w, t in stack_members(
+            members, getattr(bk, "padded", False)).items()}
+        stacked[bk.param_name] = leaf
+    return covered, stacked
+
+
 def _paired_tree(ff, ref_tree: Mapping[str, Mapping[str, Any]],
                  ref_layer_names: Sequence[Tuple[str, Any]], dtype_of,
                  specs_of=_weight_specs, what: str = "weight"
@@ -49,11 +119,16 @@ def _paired_tree(ff, ref_tree: Mapping[str, Mapping[str, Any]],
     """A tree in the port's layer names from a reference tree, layers
     paired by position and checked; ``specs_of(layer)`` gives each
     layer's ``{name: (shape, dtype)}`` and ``dtype_of(dtype, arr)`` picks
-    each leaf's torch dtype."""
+    each leaf's torch dtype. The weights of a pipeline region and of
+    banks go to their stacked leaves (:func:`_grouped`), each checked
+    against the port's leaf's shape."""
     ours = ff.executor.program.layers
     if len(ours) != len(ref_layer_names):
         raise ValueError(f"layer count differs: port {len(ours)}, "
                          f"reference {len(ref_layer_names)}")
+    covered, stacked = set(), {}
+    if what == "weight":
+        covered, stacked = _grouped(ff, ref_tree, ref_layer_names)
     new: Dict[str, Dict[str, torch.Tensor]] = {}
     for i, (layer, (ref_name, ref_op)) in enumerate(zip(ours,
                                                         ref_layer_names)):
@@ -62,6 +137,8 @@ def _paired_tree(ff, ref_tree: Mapping[str, Mapping[str, Any]],
                 f"layer {i}: op type differs: port {layer.name} is "
                 f"{layer.op_type.name}, reference {ref_name} is "
                 f"{OperatorType(int(ref_op)).name}")
+        if layer.name in covered:
+            continue
         specs = specs_of(layer)
         ref_w = ref_tree.get(ref_name, {})
         if set(specs) != set(ref_w):
@@ -83,6 +160,20 @@ def _paired_tree(ff, ref_tree: Mapping[str, Mapping[str, Any]],
                 arr = arr.astype(np.float32)
             new[layer.name][wname] = torch.tensor(arr, device=ff.device,
                                                   dtype=dtype)
+    cur = ff.params or {}
+    for key, leaf in stacked.items():
+        new[key] = {}
+        for wname, (arr, dt) in leaf.items():
+            want = tuple(cur[key][wname].shape) if key in cur else None
+            if want is not None and tuple(arr.shape) != want:
+                raise ValueError(f"stacked leaf {key} {what} {wname}: shape "
+                                 f"differs: port {want}, reference "
+                                 f"{tuple(arr.shape)}")
+            dtype = dtype_of(dt, arr)
+            if arr.dtype.kind == "V":
+                arr = arr.astype(np.float32)
+            new[key][wname] = torch.tensor(arr, device=ff.device,
+                                           dtype=dtype)
     return new
 
 

@@ -564,14 +564,22 @@ class FFModel:
         if self.label_tensor is None and len(unconsumed) == 1:
             self.label_tensor = unconsumed[0]
 
-        for what, on, item in (
-                ("pipeline_stages", cfg.pipeline_stages > 1, "4.3"),
-                ("seq_parallel_degree", int(getattr(
-                    cfg, "seq_parallel_degree", 0) or 0) > 1, "4.4")):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is a multi-device lowering, not ported "
-                    f"(ROADMAP queue 1 item {item})")
+        if int(getattr(cfg, "seq_parallel_degree", 0) or 0) > 1:
+            raise NotImplementedError(
+                "seq_parallel_degree is a multi-device lowering, not "
+                "ported (ROADMAP queue 1 item 4.4)")
+        pp = max(int(cfg.pipeline_stages), 1)
+        pp_tp = max(int(cfg.pipeline_tp), 1)
+        if pp_tp > 1 and pp <= 1:
+            raise ValueError(
+                f"--pp-tp {pp_tp} requires --pp > 1 (stage-internal "
+                f"tensor parallelism only exists inside a pipeline); "
+                f"for tp without pipelining use a transformer_strategy "
+                f"or the search")
+        if pp > 1 and max(cfg.tensor_parallel, 1) > 1:
+            raise ValueError(
+                "--tp does not compose with --pp directly; use --pp-tp "
+                "for Megatron tp inside pipeline stages")
         maybe_initialize(cfg, self.device.type)
         world = process_count()
         if machine_spec is not None:
@@ -584,7 +592,16 @@ class FFModel:
         else:
             spec = MachineSpec.detect(self.device)
         mesh_shape = cfg.mesh_shape
-        if mesh_shape is None and strategy is None \
+        if mesh_shape is None and strategy is None and pp > 1:
+            # dp x pp (x tp) mesh: the middle axis carries the pipeline
+            # stages, the trailing one the stage-internal tensor split
+            nd = spec.num_devices
+            if nd % (pp * pp_tp) != 0:
+                raise ValueError(f"--pp {pp} x --pp-tp {pp_tp} does not "
+                                 f"divide {nd} devices")
+            mesh_shape = tuple(
+                d for d in (nd // (pp * pp_tp), pp, pp_tp) if d > 1)
+        if mesh_shape is None and strategy is None and pp <= 1 \
                 and cfg.machine_model_file \
                 and not cfg.import_strategy_file \
                 and getattr(spec, "ici_shape", None) \
@@ -597,6 +614,8 @@ class FFModel:
             cfg.search_budget = search_budget
         if strategy is None:
             strategy = self._tp_preset(spec, mesh_shape)
+        if strategy is None and pp > 1:
+            strategy = self._pipeline_preset(pp, pp_tp)
 
         exec_layers, exec_outputs = self.layers, [self._output_tensor]
         # seconds by compile phase; the search adds its own parts
@@ -621,9 +640,20 @@ class FFModel:
                 f"over a world of {self.dmesh.num_devices} ranks (ROADMAP "
                 f"queue 1 item 4.1, parallel/distributed.py); the search "
                 f"ran and exported it")
-        if getattr(self.strategy, "pipeline", None) is not None:
+        grouped = getattr(self.strategy, "pipeline", None) is not None \
+            or getattr(self.strategy, "banks", None) \
+            or getattr(self.strategy, "place_groups", None)
+        if grouped and not self.dmesh.live:
+            raise ValueError(
+                "a pipeline region, a bank or a place group runs over a "
+                "world of ranks (one per device of its mesh); this "
+                "compile has one device")
+        if getattr(self.strategy, "pipeline", None) is not None and \
+                cfg.shard_optimizer_states:
             raise NotImplementedError(
-                "executing a pipeline region is ROADMAP queue 1 item 4.3")
+                "--zero over a pipeline region: the moments of a stage's "
+                "leaves would shard over its dp ranks, not ported; run "
+                "the pipeline without --zero")
         if self.dmesh.live:
             _same_on_every_rank(self.strategy, exec_layers)
         prebuilt = getattr(self, "_prebuilt_executor", None)
@@ -784,6 +814,28 @@ class FFModel:
             from .obs.audit import annotate_strategy_audit
             annotate_strategy_audit(audit_path, {"quantized_sync": record})
         self._annotate_export("qsync", plan.to_json())
+
+    def _pipeline_preset(self, pp: int, pp_tp: int) -> ShardingStrategy:
+        """``--pp N`` (with ``--pp-tp``, ``--pipeline-chunks``,
+        ``--pipeline-ragged``): the dp x pp (x tp) preset of
+        ``presets.pipeline_strategy``, no search. On the mesh compile
+        built, the axes bind by position (dp, pp, tp), since their sizes
+        may tie; an explicit mesh shape binds them by size."""
+        from .parallel.presets import pipeline_strategy
+        cfg = self.config
+        kw = {}
+        if cfg.mesh_shape is None:
+            nd = self.dmesh.num_devices
+            sizes = (nd // (pp * pp_tp), pp, pp_tp)
+            roles = [r for r, d in zip(("dp", "pp", "tp"), sizes) if d > 1]
+            by_role = dict(zip(roles, self.dmesh.axis_names))
+            kw = dict(pp_axis=by_role["pp"], tp_axis=by_role.get("tp"),
+                      dp_axes=(by_role["dp"],) if "dp" in by_role else ())
+        return pipeline_strategy(
+            self.layers, self.graph_inputs, self.dmesh, n_stages=pp,
+            n_microbatches=cfg.pipeline_microbatches,
+            n_chunks=cfg.pipeline_chunks, tp=pp_tp,
+            ragged=cfg.pipeline_ragged, **kw)
 
     def _tp_preset(self, spec, mesh_shape) -> Optional[ShardingStrategy]:
         """``--tp N`` (with ``--sp``): the Megatron dp x tp (x sp) preset

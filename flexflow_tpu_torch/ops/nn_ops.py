@@ -616,8 +616,9 @@ class MultiHeadAttentionOp(OpDef):
                 (qh, kh, vh), pl, (*qh.shape[:3], vh.shape[3]))
         else:
             rows = getattr(ctx, "local_rows", None)
+            hb = getattr(ctx, "head_block", None) or (qh.shape[2], 0)
             gmap = None if rows is None else \
-                (rows[0], qh.shape[2], rows[1], 0)
+                (rows[0], hb[0], rows[1], hb[1])
             ctxv = self._attend(params, ctx, name, qh, kh, vh, rate, rng,
                                 mdt, gmap)
         return self._out_proj(ctxv, weights, mdt, cdt, ctx)

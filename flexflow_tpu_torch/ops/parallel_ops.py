@@ -69,8 +69,9 @@ class AllToAllOp(_ShardingTransitionBase):
 
 @register
 class PipelineOp(_ShardingTransitionBase):
-    """Pipeline stage boundary marker (an identity as a graph node; the
-    pipeline engine is ROADMAP queue 1 item 4.3)."""
+    """Pipeline stage boundary marker: an identity as a graph node. The
+    stages of a pipeline region run over the pp ranks
+    (``parallel/pipeline.py``); no op marks their boundaries."""
     op_type = OperatorType.OP_PIPELINE
 
     def emit(self, params, inputs, weights, ctx, name):

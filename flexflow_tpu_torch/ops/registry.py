@@ -93,6 +93,10 @@ class EmitCtx:
         # step's masks
         self.local_shape: bool = False
         self.local_rows: Optional[Tuple[int, int]] = None
+        # (total heads, first head) of an attention layer whose heads are
+        # split over tensor-parallel ranks inside a pipeline stage: where
+        # its dropout masks are drawn or hashed. None = its own heads
+        self.head_block: Optional[Tuple[int, int]] = None
         # row_chunk > 0 (the KV decode step): every product of mm_f32
         # and every norm runs on blocks of exactly row_chunk rows (batch
         # entries of a batched product), so a row meets the same GEMM and

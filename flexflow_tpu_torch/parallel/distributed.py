@@ -342,5 +342,10 @@ def put_global(value, mesh, placements, device=None, dtype=None,
     value = value[tuple(idx)]
     if isinstance(value, np.ndarray):
         value = torch.from_numpy(np.ascontiguousarray(value))
-    return from_local(value.to(device=device, dtype=dtype), mesh,
-                      placements, shape)
+    value = value.to(device=device, dtype=dtype)
+    if value.untyped_storage().nbytes() > value.numel() * \
+            value.element_size():
+        # a block of a larger tensor already in place: a copy of its own,
+        # or the block would keep the whole array alive on this rank
+        value = value.clone(memory_format=torch.contiguous_format)
+    return from_local(value, mesh, placements, shape)

@@ -1,4 +1,5 @@
-"""Hand-built strategy presets: data, tensor, sequence and expert parallel.
+"""Hand-built strategy presets: data, tensor, sequence, pipeline and expert
+parallel.
 
 The port of ``flexflow_tpu/parallel/presets.py``: the canonical strategies
 the search explores combinations of, as spec assignments
@@ -11,8 +12,11 @@ Megatron-style transformer sharding:
   - FFN: column-parallel up-projection, row-parallel down-projection;
   - sequence parallelism (optional): activations outside the products
     sharded along the sequence dim over the tp axes.
-Expert parallelism: the expert Linears' weights sharded over the ep axes
-on their output dim ("expert-slicing"), the group_by buffers replicated.
+Pipeline parallelism: the maximal repeated-block region split into stages
+over a pp axis (``pipeline_lowering.py``), dp (and tp inside the stages)
+around it. Expert parallelism: the expert Linears' weights sharded over
+the ep axes on their output dim ("expert-slicing"), the group_by buffers
+replicated.
 """
 from __future__ import annotations
 
@@ -118,21 +122,24 @@ def pipeline_strategy(layers, input_tensors, dmesh: DeviceMesh,
                       dp_axes: Optional[Sequence[str]] = None,
                       n_chunks: int = 1, tp: int = 1,
                       tp_axis: Optional[str] = None,
-                      ragged: str = "auto") -> ShardingStrategy:
-    """dp x pp strategy: the maximal repeated-block region becomes
-    ``n_stages`` stages over the ``pp`` mesh axis, and everything outside
-    it is batch-sharded over the dp axes. The strategy carries the region
-    (``strategy.pipeline``: its layer span, stage count and axes) for the
-    search to score and a strategy file to carry; the executor refuses to
-    run it (ROADMAP queue 1 item 4.3 ports the GPipe engine).
-    Interleaved chunks, in-stage tp and the ragged schedule come with
-    that engine too. Raises ValueError when the graph has no region
-    divisible into ``n_stages`` blocks or the mesh no axis of that size."""
-    from .pipeline_lowering import find_repeated_run
-    if n_chunks > 1 or tp > 1 or ragged == "force":
-        raise NotImplementedError(
-            "interleaved chunks, in-stage tp and the ragged schedule come "
-            "with the pipeline engine (ROADMAP queue 1 item 4.3)")
+                      ragged: str = "auto"
+                      ) -> ShardingStrategy:
+    """dp×pp(×tp) strategy through the product path: the maximal
+    repeated-block region (found by ``find_pipeline_region``) becomes
+    ``n_stages`` GPipe stages over the ``pp`` mesh axis; everything
+    outside the region is batch-sharded over the dp axes. With
+    ``tp > 1`` stage-internal attention/FFN layers are Megatron-split
+    over ``tp_axis`` (one psum per attention block + one per FFN pair,
+    executed as explicit all-reduces over the tp ranks of each stage).
+    Raises ValueError when the graph has no pipelinable region, no mesh
+    axis of size ``n_stages``, or (tp > 1) no tp-able stage structure.
+
+    The reference only reserves the enum for this (``ffconst.h:159``);
+    here it composes with dp and tp (the analog of per-op machine-view
+    composition, ``substitution.cc:1898``). The executor runs the region
+    over the ranks of the pp axis (``parallel/pipeline.py``)."""
+    from .pipeline_lowering import assign_tp_roles, find_pipeline_region
+    used: list = []
     if pp_axis is None:
         pp_axis = next((a for a, s in dmesh.axis_sizes.items()
                         if s == n_stages), None)
@@ -140,28 +147,78 @@ def pipeline_strategy(layers, input_tensors, dmesh: DeviceMesh,
             raise ValueError(
                 f"no mesh axis of size {n_stages} for pipeline stages "
                 f"(mesh {dict(dmesh.axis_sizes)}); pass --mesh-shape")
+    used.append(pp_axis)
+    if tp > 1 and tp_axis is None:
+        tp_axis = next((a for a, s in dmesh.axis_sizes.items()
+                        if s == tp and a not in used), None)
+        if tp_axis is None:
+            raise ValueError(
+                f"no free mesh axis of size {tp} for stage-internal "
+                f"tensor parallelism (mesh {dict(dmesh.axis_sizes)})")
+    if tp_axis is not None:
+        used.append(tp_axis)
     if dp_axes is None:
-        dp_axes = tuple(a for a in dmesh.axis_names if a != pp_axis)
+        dp_axes = tuple(a for a in dmesh.axis_names if a not in used)
     dp = _norm(dp_axes)
     dp_size = _size(dmesh, dp)
-    run = find_repeated_run(list(layers), n_stages)
-    if run is None:
+    from .pipeline_lowering import find_ragged_pipeline_region
+    if ragged == "force" and (n_chunks > 1 or tp > 1):
+        raise ValueError(
+            "--pipeline-ragged force does not compose with "
+            "--pipeline-chunks > 1 or in-stage tp (v1); drop one")
+    uniform = None
+    if ragged != "force":
+        uniform = find_pipeline_region(layers, n_stages, n_microbatches,
+                                       n_chunks)
+    rag = None
+    if ragged in ("auto", "force") and n_chunks <= 1 and tp <= 1:
+        # ragged schedule: unequal per-stage block counts, embedding/
+        # head absorbed into stage 0 / S-1 (gpipe_ragged). Not composed
+        # with interleaving or in-stage tp in v1.
+        rag = find_ragged_pipeline_region(layers, n_stages,
+                                          n_microbatches)
+    if uniform is None:
+        region = rag
+    elif rag is None:
+        region = uniform
+    else:
+        # auto: prefer ragged only when it pipelines MORE BLOCKS (the
+        # uniform finder drops indivisible trailing blocks into
+        # replicated pre/post execution). On a tie the uniform schedule
+        # wins — it supports interleaving/tp and the established stacked
+        # layout; ``ragged="force"`` still gets edge absorption alone.
+        region = rag if (rag.end - rag.start) \
+            > (uniform.end - uniform.start) else uniform
+    if region is None:
+        ragged_tried = ragged in ("auto", "force") \
+            and n_chunks <= 1 and tp <= 1
         raise ValueError(
             f"graph has no repeated-block region divisible into "
-            f"{n_stages} identical stages")
-    total, start, unit = run
+            f"{n_stages} identical stages"
+            + (f" x {n_chunks} chunks" if n_chunks > 1 else "")
+            + (" (ragged fallback found none either)" if ragged_tried
+               else " (ragged fallback not applicable with "
+                    "interleaving/tp)" if ragged != "off" else ""))
+    region.pp_axis = pp_axis
+    region.dp_axes = tuple(dp_axes)
+    if tp > 1:
+        roles = assign_tp_roles(region.template, tp)
+        if not roles:
+            raise ValueError(
+                "tp > 1 requested but the stage template has no "
+                "Megatron-splittable structure (attention heads or "
+                "paired Linears divisible by tp)")
+        region.tp_axis = tp_axis
+        region.tp_roles = roles
     st = ShardingStrategy(dmesh)
-    st.pipeline = {"start": start, "end": start + total, "unit": unit,
-                   "n_stages": n_stages,
-                   "n_microbatches": n_microbatches or n_stages,
-                   "pp_axis": pp_axis, "dp_axes": tuple(dp_axes)}
+    st.pipeline = region
     for t in input_tensors:
         if t.shape and t.shape[0] % dp_size == 0:
             st.inputs[t.name] = P(dp)
-    region = {l.name for l in list(layers)[start:start + total]}
+    region_names = {l.name for l in layers[region.start:region.end]}
     for layer in layers:
-        if layer.name in region:
-            continue  # placed by the pipeline engine, not by specs
+        if layer.name in region_names:
+            continue  # run by the pipeline engine, not by specs
         outs = [P(dp, *([None] * (len(o.shape) - 1)))
                 if o.shape and o.shape[0] % dp_size == 0 else None
                 for o in layer.outputs]

@@ -92,9 +92,10 @@ class ShardingStrategy:
         # placement (one tier), so it leaves them empty.
         self.axis_tiers: Dict[str, str] = {}
         self.collective_trees: List[Dict] = []
-        # pipeline region, banks and place groups: the JAX package's
-        # planners not ported yet (ROADMAP queue 1 items 4.3 and 5),
-        # always empty here. The ZeRO assignment (runtime/zero.py), the
+        # the pipeline region (parallel/pipeline_lowering.PipelineRegion,
+        # from presets.pipeline_strategy), the banks and the place groups
+        # (parallel/banks.py: BankSpec, PlaceGroup) that the executor runs
+        # over the live mesh. The ZeRO assignment (runtime/zero.py), the
         # quantized-sync plan (ops/quantized_collectives.py) and the
         # overlap schedule's record (runtime/overlap.py) are set by
         # compile or read from an imported file
@@ -192,6 +193,21 @@ class ShardingStrategy:
                 f"{ct.get('tier_path')}")
         if self.kernel_impls:
             lines.append(f"kernel impls: {dict(self.kernel_impls)}")
+        pipe = self.pipeline
+        if pipe is not None:
+            lines.append(
+                f"pipeline: layers [{pipe.start}, {pipe.end}) in "
+                f"{pipe.n_stages} stages x {pipe.n_chunks} chunks, "
+                f"{pipe.n_microbatches} microbatches over {pipe.pp_axis}"
+                + (f", tp over {pipe.tp_axis} {sorted(pipe.tp_roles.items())}"
+                   if pipe.tp_axis else "")
+                + (f", ragged {pipe.counts}" if pipe.counts else ""))
+        for bk in self.banks:
+            lines.append(f"bank {bk.param_name}: {bk.members} over "
+                         f"{bk.axes}, batch {bk.batch_axes}"
+                         + (" padded" if bk.padded else ""))
+        for pg in self.place_groups:
+            lines.append(f"place group over {pg.axis}: {pg.members}")
         for name, os in self.ops.items():
             lines.append(f"  {name}: out={os.outputs} w={os.weights}")
         return "\n".join(lines)

@@ -9,9 +9,12 @@ entries do there); the legacy line-oriented text format of the
 reference. The ``zero`` block loads as a ``runtime.zero.ZeroAssignment``,
 ``qsync`` as an ``ops.quantized_collectives.QsyncPlan`` and ``overlap``
 as the schedule's record (a dict), each honored verbatim by ``compile``
-and written back from them. The blocks of the planners not ported yet
-(``banks``, ``place_groups``; ROADMAP queue 1 item 5) and ``serving``
-load as the JSON they are and are written back unchanged. The program
+and written back from them; ``banks`` as ``parallel.banks.BankSpec`` objects and
+``place_groups`` as ``PlaceGroup`` objects, each member's device subset
+written beside it as a reference-parity machine view; ``serving`` loads
+as the JSON it is and is written back unchanged. The legacy text format
+writes a banked op's device subset and names the banked rows in a
+``.banks.json`` sidecar, which its import refuses. The program
 half: an executable layer list as JSON, each layer's
 op type, params and input references; enums travel by class name and
 value (``{"_enum": "ActiMode", "v": 10}``) and resolve through this
@@ -21,6 +24,7 @@ None.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 import json
 from typing import Any, Dict, List, Optional, Tuple
@@ -31,8 +35,8 @@ from ..core.tensor import Tensor
 from ..parallel.machine import DeviceMesh
 from ..parallel.strategy import OpSharding, P, ShardingStrategy, Spec
 
-#: the planners' blocks a strategy file may carry, kept verbatim
-_RAW_BLOCKS = ("banks", "place_groups", "serving")
+#: the blocks a strategy file may carry that load as the JSON they are
+_RAW_BLOCKS = ("serving",)
 
 
 def _spec_to_json(spec: Optional[Spec]):
@@ -81,9 +85,17 @@ def save_strategy(path: str, strategy: ShardingStrategy,
         # names -> attention impl, plus the graph-wide "opt_update"
         # kind; compile honors it verbatim on import
         doc["kernel_impls"] = dict(strategy.kernel_impls)
-    for block in ("banks", "place_groups"):
-        if getattr(strategy, block, None):
-            doc[block] = getattr(strategy, block)
+    banks_doc = banks_to_json(strategy)
+    if banks_doc:
+        doc["banks"] = banks_doc
+    pgs = getattr(strategy, "place_groups", None) or []
+    if pgs:
+        doc["place_groups"] = [
+            {"members": list(g.members), "axis": g.axis,
+             "machine_views": {
+                 m: dataclasses.asdict(v)
+                 for m, v in g.machine_views(strategy.dmesh).items()}}
+            for g in pgs]
     if serving is None:
         serving = getattr(strategy, "serving", None)
     if serving:
@@ -92,6 +104,24 @@ def save_strategy(path: str, strategy: ShardingStrategy,
         doc["serving"] = dict(serving)
     with open(path, "w") as f:
         json.dump(doc, f, indent=1)
+
+
+def banks_to_json(strategy: ShardingStrategy) -> List[Dict]:
+    """``strategy.banks`` as JSON, each member's device subset recorded
+    as a reference-parity machine view (``machine_view.h``: start / num /
+    stride in flat device order)."""
+    banks = getattr(strategy, "banks", None)
+    if not banks:
+        return []
+    return [
+        {"members": list(b.members), "axes": list(b.axes),
+         "batch_axes": list(b.batch_axes),
+         "param_name": b.param_name,
+         "padded": bool(getattr(b, "padded", False)),
+         "machine_views": {
+             m: dataclasses.asdict(v)
+             for m, v in b.machine_views(strategy.dmesh).items()}}
+        for b in banks]
 
 
 def load_strategy(path: str, layers, dmesh: DeviceMesh) -> ShardingStrategy:
@@ -128,6 +158,17 @@ def load_strategy(path: str, layers, dmesh: DeviceMesh) -> ShardingStrategy:
         st.qsync = QsyncPlan.from_json(doc["qsync"])
     if doc.get("overlap"):
         st.overlap = dict(doc["overlap"])
+    if doc.get("banks"):
+        from ..parallel.banks import BankSpec
+        st.banks = [BankSpec(list(b["members"]), tuple(b["axes"]),
+                             batch_axes=tuple(b.get("batch_axes", ())),
+                             param_name=b.get("param_name", "__bank__"),
+                             padded=bool(b.get("padded", False)))
+                    for b in doc["banks"]]
+    if doc.get("place_groups"):
+        from ..parallel.banks import PlaceGroup
+        st.place_groups = [PlaceGroup(list(g["members"]), g["axis"])
+                           for g in doc["place_groups"]]
     for block in _RAW_BLOCKS:
         if doc.get(block):
             setattr(st, block, doc[block])
@@ -197,14 +238,13 @@ def save_legacy_strategies(path: str, strategy: ShardingStrategy,
     """Export the searched strategy in the reference's text wire format
     so its tooling (and ``load_strategies_from_file``-based flows) can
     consume strategies searched here. Device ids are the flat ids each
-    shard actually occupies (see :func:`_spec_flat_ids`). Bank
-    placements (the JAX package writes their members' device subsets)
-    are not ported: a strategy carrying banks is refused."""
-    if getattr(strategy, "banks", None):
-        raise NotImplementedError(
-            "bank placements in the legacy text format are not ported "
-            "(ROADMAP queue 1 item 5); use the JSON strategy format")
+    shard actually occupies (see :func:`_spec_flat_ids`); ops with a
+    bank placement write their bank members instead."""
     axis_sizes = dict(strategy.dmesh.axis_sizes)
+    bank_of = {}
+    for b in getattr(strategy, "banks", None) or []:
+        for m in b.members:
+            bank_of[m] = b
     by_name = {l.name: l for l in layers}
     rows = []
     for name, os in strategy.ops.items():
@@ -221,7 +261,24 @@ def save_legacy_strategies(path: str, strategy: ShardingStrategy,
         n = 1
         for d in degs:
             n *= d
-        ids = _spec_flat_ids(out_spec, rank, strategy.dmesh, n)
+        bank = bank_of.get(name)
+        if bank is not None:
+            # banked op: its devices are the bank member's subset; the
+            # reference loader asserts prod(dims) == len(device_ids), so
+            # fold the subset's dp replication into the batch dim — and
+            # refuse to write a file the reference cannot load when the
+            # subset size is not a multiple of the sharded degree
+            view = bank.machine_views(strategy.dmesh)[name]
+            ids = list(view.device_ids)
+            if not degs or n == 0 or len(ids) % n != 0:
+                raise ValueError(
+                    f"op {name}: bank subset of {len(ids)} devices is "
+                    f"incompatible with shard degrees {degs} "
+                    f"(prod(dims) must equal the device count)")
+            degs[0] *= len(ids) // n
+            n = len(ids)
+        else:
+            ids = _spec_flat_ids(out_spec, rank, strategy.dmesh, n)
         rows.append((name, degs, ids))
     with open(path, "w") as f:
         f.write(f"{len(rows)}\n")
@@ -230,6 +287,14 @@ def save_legacy_strategies(path: str, strategy: ShardingStrategy,
             f.write("\t".join(str(d) for d in degs) + "\n")
             f.write(f"{len(ids)}\n")
             f.write("\t".join(str(i) for i in ids) + "\n")
+    # sidecar naming the bank rows: their id lists are true device
+    # subsets, byte-indistinguishable from the representative-per-shard
+    # pattern in the flat format; our importer refuses them with a
+    # pointer to the JSON format, reference tooling ignores the sidecar
+    if bank_of:
+        with open(path + ".banks.json", "w") as f:
+            json.dump({"banked_ops": sorted(
+                n for n, _, _ in rows if n in bank_of)}, f)
 
 
 def _axes_from_flat_ids(degs: List[int], ids: List[int],

@@ -676,6 +676,214 @@ def sync(payload):
     return out
 
 
+def _gpt_model(argv, batch, dropout, layers=4):
+    """GPT-2 at small widths (vocab 64, hidden 32, 4 heads, seq 16) in f32
+    under ``argv``, SGD."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = batch, "cpu", 0
+    cfg.use_bf16_compute = False
+    cfg.kernel_impls = "attention:xla"
+    ff = FFModel(cfg)
+    out = build_gpt2(ff, batch, 16, GPTConfig(
+        vocab_size=64, hidden_size=32, num_layers=layers, num_heads=4,
+        max_position=16, dropout=dropout))
+    ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff
+
+
+def _bert4_model(argv, batch):
+    """BERT-tiny with 4 layers at seq 16 in f32 under ``argv``, SGD."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = batch, "cpu", 0
+    cfg.use_bf16_compute = False
+    cfg.kernel_impls = "attention:xla"
+    ff = FFModel(cfg)
+    b = BertConfig.tiny()
+    b.max_position, b.dropout, b.num_layers = 16, 0.0, 4
+    out = build_bert(ff, batch, 16, b)
+    ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff
+
+
+def _region(ff):
+    pipe = ff.executor.pipe
+    return None if pipe is None else {
+        "start": pipe.start, "end": pipe.end, "stages": pipe.n_stages,
+        "chunks": pipe.n_chunks, "micro": pipe.n_microbatches,
+        "counts": pipe.counts, "tp_axis": pipe.tp_axis,
+        "prologue": len(pipe.prologue), "epilogue": len(pipe.epilogue)}
+
+
+@scenario
+def pipeline(payload):
+    """Pipelined models over the world (each run of ``payload["runs"]``:
+    (name, model, argv, dropout, reference)) from the reference's weights
+    (a JAX pipelined model's ``pp::`` leaves or a plain model's, grafted):
+    the forward on the first batch, the first-step gradients (stacked
+    leaves whole), a loss history, the region, the mesh, each rank's
+    local leaf shapes and the hand-off's sends a step."""
+    from flexflow_tpu_torch.interop import load_reference_params
+    out = {}
+    for name, model, argv, dropout, ref_key in payload["runs"]:
+        ref = payload["refs"][ref_key]
+        ff = _gpt_model(argv, payload["batch"], dropout) \
+            if model == "gpt" else _bert4_model(argv, payload["batch"])
+        load_reference_params(ff, ref["params"], ref["layers"])
+        ex = ff.executor
+        b0 = ref["batches"][0]
+        r = {"forward": _np(ex.make_forward()(ff.params, ff.state, {
+            k: v for k, v in b0.items() if k != "label"}))}
+        r["grads"] = _tree_np(ex._grads(ff.params, ff.state, b0, 0)[0])
+        hand = ex._handoff
+        calls = hand.calls
+        step = ex.make_train_step()
+        r["losses"] = [float(_np(ff._run_train_step(
+            step, ref["batches"][i % len(ref["batches"])])["loss"]))
+            for i in range(payload["steps"])]
+        r["sends_per_step"] = (hand.calls - calls) / payload["steps"]
+        r["route"] = hand.route
+        r["region"] = _region(ff)
+        r["mesh"] = dict(ff.dmesh.axis_sizes)
+        r["local"] = {f"{ln}/{wn}": tuple(t.to_local().shape)
+                      for ln, ws in ff.params.items()
+                      if ln.startswith("pp::") for wn, t in ws.items()}
+        r["names"] = [l.name for l in ex.program.layers]
+        out[name] = r
+    return out
+
+
+def _dlrm_model(vocabs, batch=32, dim=16):
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import DLRMConfig, build_dlrm
+    cfg = FFConfig()
+    cfg.batch_size, cfg.device, cfg.seed = batch, "cpu", 0
+    cfg.only_data_parallel, cfg.use_bf16_compute = True, False
+    ff = FFModel(cfg)
+    out = build_dlrm(ff, batch, DLRMConfig(
+        embedding_size=tuple(vocabs), sparse_feature_size=dim,
+        mlp_bot=(4, 16, dim), mlp_top=(dim, 16, 2)))
+    ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff, out
+
+
+def _bank_pipe_model(vocabs):
+    """Four tables -> concat -> a 4-block MLP region (pp 2, 4
+    microbatches) -> the head, which re-reads the concat (the prologue
+    stays outside the region): the JAX package's banks-with-a-pipeline
+    model."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ffconst import AggrMode
+    cfg = FFConfig()
+    cfg.batch_size, cfg.device, cfg.seed = 32, "cpu", 0
+    cfg.pipeline_stages, cfg.pipeline_microbatches = 2, 4
+    cfg.use_bf16_compute = False
+    ff = FFModel(cfg)
+    embs = []
+    for i, v in enumerate(vocabs):
+        s = ff.create_tensor((32, 1), name=f"sparse_{i}", dtype="int32")
+        embs.append(ff.embedding(s, v, 16, aggr=AggrMode.AGGR_MODE_SUM,
+                                 name=f"emb_{i}"))
+    x = ff.concat(embs, axis=1)
+    h = x
+    for _ in range(4):
+        h = ff.dense(h, 64, activation="relu")
+    out = ff.softmax(ff.dense(ff.concat([h, x], axis=1), 2))
+    ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff, out
+
+
+def _place_model():
+    """An embedding (vocab 50) and a linear (32 -> 24), independent ops
+    of two types, feeding one head."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ffconst import AggrMode
+    cfg = FFConfig()
+    cfg.batch_size, cfg.device, cfg.seed = 8, "cpu", 0
+    cfg.only_data_parallel, cfg.use_bf16_compute = True, False
+    ff = FFModel(cfg)
+    ids = ff.create_tensor((8, 4), name="ids", dtype="int32")
+    x = ff.create_tensor((8, 32), name="x")
+    e = ff.embedding(ids, 50, 16, aggr=AggrMode.AGGR_MODE_SUM, name="emb")
+    d = ff.dense(x, 24, name="proj")
+    out = ff.softmax(ff.dense(ff.concat([e, d], axis=1), 4))
+    ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff, out
+
+
+@scenario
+def banks(payload):
+    """Banks and place groups over the world (each run of
+    ``payload["runs"]``: (name, model, reference)), recompiled with the
+    grouping attached to the data-parallel (or pipeline) strategy, from
+    the reference's weights: forward, first-step gradients, a loss
+    history, each rank's local shape of the stacked leaf."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.interop import load_reference_params
+    from flexflow_tpu_torch.parallel.banks import (BankSpec, PlaceGroup,
+                                                   choose_bank_axes,
+                                                   find_bank_groups,
+                                                   group_is_padded)
+    from flexflow_tpu_torch.parallel.strategy import ShardingStrategy
+    out = {}
+    for name, model, ref_key in payload["runs"]:
+        ref = payload["refs"][ref_key]
+        if model == "place":
+            ff, o = _place_model()
+            st = ShardingStrategy.data_parallel(ff.layers, ff.graph_inputs,
+                                                ff.dmesh)
+            st.place_groups = [PlaceGroup(["emb", "proj"],
+                                          ff.dmesh.axis_names[0])]
+        else:
+            if model == "bank_pipe":
+                ff, o = _bank_pipe_model(payload["vocabs"][name])
+                st = ff.strategy
+                reserved = (st.pipeline.pp_axis,)
+            else:
+                ff, o = _dlrm_model(payload["vocabs"][name])
+                st = ShardingStrategy.data_parallel(ff.layers,
+                                                    ff.graph_inputs,
+                                                    ff.dmesh)
+                reserved = ()
+            group = [g for g in find_bank_groups(ff.layers)
+                     if g[0].op_type.name == "OP_EMBEDDING"][0]
+            bank_axes, batch_axes = choose_bank_axes(ff.dmesh, len(group),
+                                                     reserved)
+            st.banks = [BankSpec([l.name for l in group], bank_axes,
+                                 batch_axes=batch_axes,
+                                 param_name="__bank0__EMB",
+                                 padded=group_is_padded(group))]
+        ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy",
+                   [], output_tensor=o, strategy=st)
+        load_reference_params(ff, ref["params"], ref["layers"])
+        ex = ff.executor
+        b0 = ref["batches"][0]
+        r = {"forward": _np(ex.make_forward()(ff.params, ff.state, {
+            k: v for k, v in b0.items() if k != "label"}))}
+        r["grads"] = _tree_np(ex._grads(ff.params, ff.state, b0, 0)[0])
+        step = ex.make_train_step()
+        r["losses"] = [float(_np(ff._run_train_step(
+            step, ref["batches"][i % len(ref["batches"])])["loss"]))
+            for i in range(payload["steps"])]
+        r["local"] = {ln: tuple(ws["kernel"].to_local().shape)
+                      for ln, ws in ff.params.items()
+                      if ln.startswith("__bank")}
+        r["banks"] = [(list(b.members), list(b.axes), list(b.batch_axes),
+                       b.padded) for b in ff.strategy.banks]
+        r["region"] = _region(ff)
+        r["mesh"] = dict(ff.dmesh.axis_sizes)
+        out[name] = r
+    return out
+
+
 @scenario
 def suite(payload):
     """Every parallel configuration of the tests in one world: the

@@ -278,8 +278,9 @@ def test_presets_match_jax(graph, preset, sp):
 
 def test_pipeline_strategy_builds_and_compile_refuses_it():
     """``pipeline_strategy`` finds the repeated blocks and batch-shards the
-    rest; a compile refuses to run the region (the GPipe engine is
-    ROADMAP queue 1 item 4.3)."""
+    rest, with in-stage tp roles where asked; a compile refuses a region
+    on one device (the stages run over a world of ranks:
+    ``tests/test_torch_pipeline.py``)."""
     import _torch_graphs as graphs
     from flexflow_tpu_torch.parallel.presets import pipeline_strategy
     _, tff = graphs.bert(batch=8, seq=16, layers=4)
@@ -288,21 +289,22 @@ def test_pipeline_strategy_builds_and_compile_refuses_it():
     st = pipeline_strategy(tff.layers, tff.graph_inputs or
                            tff.input_tensors, dm, n_stages=2)
     region = st.pipeline
-    assert region["n_stages"] == 2 and region["pp_axis"] == "x0"
-    assert (region["end"] - region["start"]) % (2 * region["unit"]) == 0
-    inside = {l.name for l in tff.layers[region["start"]:region["end"]]}
+    assert region.n_stages == 2 and region.pp_axis == "x0"
+    assert (region.end - region.start) % (2 * region.layers_per_stage) == 0
+    inside = {l.name for l in tff.layers[region.start:region.end]}
     assert not inside & set(st.ops)
     with pytest.raises(ValueError, match="no mesh axis of size 3"):
         pipeline_strategy(tff.layers, tff.input_tensors, dm, n_stages=3)
-    with pytest.raises(NotImplementedError, match="item 4.3"):
-        pipeline_strategy(tff.layers, tff.input_tensors, dm, n_stages=2,
-                          tp=2)
+    tp = pipeline_strategy(tff.layers, tff.input_tensors, dm, n_stages=2,
+                           tp=2).pipeline
+    assert tp.tp_axis == "x1" and sorted(set(tp.tp_roles.values())) == \
+        ["attn", "col", "row"]
     # a strategy carrying a region, as a strategy file could
     st = ShardingStrategy(DeviceMesh(MachineSpec(num_devices=1,
                                                  generation="cpu-sim"),
                                      devices=["cpu"]))
     st.pipeline = region
-    with pytest.raises(NotImplementedError, match="item 4.3"):
+    with pytest.raises(ValueError, match="world of ranks"):
         tff.compile(fft.SGDOptimizer(0.01),
                     "sparse_categorical_crossentropy", [], strategy=st)
 

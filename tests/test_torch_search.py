@@ -213,11 +213,20 @@ def test_shipped_strategies_load_in_the_port(name, tmp_path):
     tser.save_strategy(out, st, doc.get("assignment"), doc.get("meta"),
                        program=doc.get("program"))
     again = json.load(open(out))
-    assert again == json.loads(json.dumps(doc))
+    want = json.loads(json.dumps(doc))
+    for b in want.get("banks", ()):
+        # banks load as BankSpecs and are written in the JAX package's
+        # schema, which names the padded flag
+        b.setdefault("padded", False)
+    assert again == want
     jst = jser.load_strategy(path, [], JMesh(JSpec(
         num_devices=n, num_slices=axes.get("dcn", 1),
         num_hosts=axes.get("dcn", 1))))
     assert set(jst.ops) == set(st.ops)
+    jout = str(tmp_path / "jax.json")
+    jser.save_strategy(jout, jst, doc.get("assignment"), doc.get("meta"),
+                       program=doc.get("program"))
+    assert again == json.load(open(jout))
 
 
 def _one_device(pkg, tmp, monkeypatch, algo="unity", trace=False):

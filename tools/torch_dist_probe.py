@@ -5,10 +5,15 @@ Starts two rank processes on ``cuda:0`` joined by a gloo process group
 ``all_reduce``, ``broadcast``, ``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, ``all_to_all_single`` and DTensor's
 ``redistribute`` for Shard -> Replicate, Partial -> Replicate and
-Partial -> Shard, each checked against the values it must give. Then it
-starts a one-rank NCCL world and runs an ``all_reduce`` there. Prints
-one line per probe and, last, one JSON object with the card's name and
-power limit.
+Partial -> Shard, each checked against the values it must give;
+``--routes`` adds other routes of the same collectives and the
+point-to-point transfers (``send`` / ``recv``, ``isend`` / ``irecv``
+over one group and with a group for each direction,
+``batch_isend_irecv``, and a CUDA tensor staged through host memory).
+Then it starts a one-rank NCCL world and runs an ``all_reduce`` there,
+and, where there are two cards, a two-rank NCCL world with a card each
+for the point-to-point transfers. Prints one line per probe and, last,
+one JSON object with the card's name and power limit.
 
 Run on the card: ``python3 tools/torch_dist_probe.py`` (about 30 s).
 ``--device cpu`` runs the same probes on CPU tensors.
@@ -32,6 +37,12 @@ PROBES = ("barrier", "all_reduce", "broadcast", "all_gather_into_tensor",
           "redistribute_shard_to_replicate",
           "redistribute_partial_to_replicate",
           "redistribute_partial_to_shard")
+# point-to-point (the pipeline's hand-off between stages): rank 0 sends
+# to rank 1 and rank 1 back to rank 0, each checked on the receiver;
+# "isend_irecv_groups" sends each direction over a process group of its
+# own, as the pipeline's ``Handoff`` does
+P2P = ("send_recv", "isend_irecv", "isend_irecv_groups",
+       "batch_isend_irecv", "send_recv_host")
 # the same collectives by other routes: 2-D tensors, the functional
 # collectives DTensor issues, the list all_gather
 ROUTES = ("all_gather_into_tensor_2d", "all_gather_list",
@@ -59,6 +70,60 @@ def _probe(name: str, rank: int, world: int, dev: torch.device) -> None:
     base = torch.arange(n, dtype=torch.float32, device=dev)
     if name == "barrier":
         dist.barrier()
+        return
+    if name in P2P:
+        peer = 1 - rank
+        src = base + 10 * (rank + 1)
+        x = torch.empty_like(src)
+        if name == "send_recv_host":
+            # staged in host memory: the tensor travels as a CPU copy
+            h = torch.empty(n, dtype=src.dtype)
+            if rank == 0:
+                dist.send(src.cpu(), peer)
+                dist.recv(h, peer)
+            else:
+                dist.recv(h, peer)
+                dist.send(src.cpu(), peer)
+            x = h.to(dev)
+        elif name == "send_recv":
+            if rank == 0:
+                dist.send(src, peer)
+                dist.recv(x, peer)
+            else:
+                dist.recv(x, peer)
+                dist.send(src, peer)
+        elif name == "isend_irecv":
+            works = [dist.isend(src, peer), dist.irecv(x, peer)]
+            for w in works:
+                w.wait()
+        elif name == "isend_irecv_groups":
+            # (building a group is collective: both ranks build both,
+            # then make their point-to-point communicators by one
+            # transfer a group in one order, as ``Handoff`` does: NCCL
+            # makes one at a group's first send or receive, which both
+            # ranks must reach)
+            groups = {(0, 1): dist.new_group([0, 1]),
+                      (1, 0): dist.new_group([0, 1])}
+            for (a, b), g in groups.items():
+                z = torch.zeros(1, device=dev)
+                if a == rank:
+                    dist.send(z, b, group=g)
+                else:
+                    dist.recv(z, a, group=g)
+            works = [dist.isend(src, peer, group=groups[(rank, peer)]),
+                     dist.irecv(x, peer, group=groups[(peer, rank)])]
+            for w in works:
+                w.wait()
+        else:
+            ops = [dist.P2POp(dist.isend, src, peer),
+                   dist.P2POp(dist.irecv, x, peer)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        want = base + 10 * (peer + 1)
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        if x.device != want.device or not torch.equal(x, want):
+            raise AssertionError(f"wrong values: {x.tolist()} != "
+                                 f"{want.tolist()}")
         return
     if name == "all_reduce":
         x = base + rank
@@ -174,9 +239,11 @@ def _probe(name: str, rank: int, world: int, dev: torch.device) -> None:
 
 def rank_main(rank: int, world: int, port: int, backend: str, device: str,
               probe: str, out: str) -> None:
-    dev = torch.device(f"{device}:0" if device == "cuda" else "cpu")
+    # a card each under NCCL; every gloo rank on the first card
+    idx = rank if backend == "nccl" else 0
+    dev = torch.device(f"{device}:{idx}" if device == "cuda" else "cpu")
     if device == "cuda":
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(idx)
     from datetime import timedelta
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank,
@@ -238,10 +305,11 @@ def main() -> int:
     ap.add_argument("--probe", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--routes", action="store_true",
-                    help="also probe the other routes (ROUTES)")
+                    help="also probe the other routes (ROUTES) and the "
+                    "point-to-point transfers (P2P)")
     ap.add_argument("--only", default="",
-                    help="comma-separated probes to run, of PROBES and "
-                    "ROUTES, and no others")
+                    help="comma-separated probes to run, of PROBES, "
+                    "ROUTES and P2P, and no others")
     a = ap.parse_args()
     if a.rank >= 0:
         rank_main(a.rank, a.world, a.port, a.backend, a.device, a.probe,
@@ -258,7 +326,7 @@ def main() -> int:
             text=True).stdout.strip()
     gloo = {}
     names = a.only.split(",") if a.only else \
-        PROBES + (ROUTES if a.routes else ())
+        PROBES + (ROUTES + P2P if a.routes else ())
     for name in names:
         gloo[name] = run_world(2, "gloo", a.device, name, 60)
         print(f"[probe] gloo, 2 ranks on one {a.device} device, {name}: "
@@ -267,6 +335,14 @@ def main() -> int:
     if a.device == "cuda":
         nccl["all_reduce"] = run_world(1, "nccl", a.device, "all_reduce", 60)
         print(f"[probe] nccl, 1 rank: all_reduce: {nccl['all_reduce']}")
+        if a.routes and torch.cuda.device_count() >= 2:
+            for name in P2P[:-1]:
+                if a.only and name not in names:
+                    continue
+                nccl["2_ranks_" + name] = run_world(2, "nccl", a.device,
+                                                    name, 60)
+                print(f"[probe] nccl, 2 ranks on a card each, {name}: "
+                      f"{nccl['2_ranks_' + name]}", flush=True)
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda, "gloo_2_ranks": gloo,
                       "nccl_1_rank": nccl}))
