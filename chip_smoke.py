@@ -512,6 +512,14 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (8, 12, 1000, 1000, 64, torch.bfloat16, True, 0.0),
     # LLaMA-7B's prefill (llama phase): causal d = 128 at 4 x 1024
     (4, 32, 1024, 1024, 128, torch.bfloat16, True, 0.0),
+    # Ulysses' launches (seq phase): b4 h12 s1024 d64 over two ranks
+    # gives a rank 6 heads over the whole sequence, causal and not, in
+    # both types; the long-context MHA under forced flash (B4 S2048 H8)
+    (4, 6, 1024, 1024, 64, torch.bfloat16, False, 0.0),
+    (4, 6, 1024, 1024, 64, torch.bfloat16, True, 0.0),
+    (4, 6, 1024, 1024, 64, torch.float32, False, 0.0),
+    (4, 6, 1024, 1024, 64, torch.float32, True, 0.0),
+    (4, 8, 2048, 2048, 64, torch.bfloat16, False, 0.0),
     # the wide kernels (d a runtime argument): head dims 192, 256, 320 and
     # 512 (and 160 padded to 192, 300 padded to 320) in both types, causal
     # and not, at a ragged s
@@ -5405,12 +5413,12 @@ def phase_serve(smi: str) -> dict:
 
 
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe, resil, search, srv, dist, pipe) -> list:
+                zoo, fe, resil, search, srv, dist, pipe, seq) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
     DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends, resilience,
-    search and serving-stack launches beside them."""
+    search, serving-stack, dist, pipe and seq launches beside them."""
     zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
     fe_launches = {"fx_train": fe["fx"]["train_launches"],
                    "keras_train": fe["keras"]["launches"],
@@ -5474,6 +5482,30 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
 
     def bwd_row(key, seq, rate):
         return bwd_row_t(key, kt["bwd"][(seq, rate)])
+
+    def seq_row(name):
+        """The seq phase's launches on each rank: GPT-2 small 8x1024
+        trained sp 2 under attention:ring (no flash launch; one fused Adam
+        a step) in bf16 and f32, and Ulysses' flash kernels a call at b4
+        h12 s1024 d64 over two ranks; the kernels' times at the shapes
+        these paths give them."""
+        row = {"seq_sp2_train_launches_per_rank": {
+            k: [r[name] for r in seq["gpt_" + k]["launches"]]
+            for k in ("bf16", "f32")}}
+        if name == "adam_update":
+            row["seq_launch_shape"] = {
+                f: seq["adam_sp_rank"][f] for f in (
+                    "ms", "plain_ms", "bound_ms", "library_ms", "numel",
+                    "leaves")}
+            return row
+        row["seq_ulysses_launches_per_call_per_rank"] = {
+            k: v["launches"][name] for k, v in seq["fns"].items()
+            if k.startswith("ulysses")}
+        row["seq_ulysses_b4_h6_s1024_d64_causal"] = \
+            dict(seq["fwd_ulysses"]) if name == "flash_attention_fwd" \
+            else bwd_row_t("dq" if name.endswith("dq") else "dkv",
+                           seq["bwd_ulysses"])
+        return row
 
     def bwd_row_t(key, t):
         return {"ms": t[key + "_ms"], "plain_ms": t[key + "_plain_ms"],
@@ -5568,6 +5600,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         **search_row("flash_attention_fwd"),
         **dist_row("flash_attention_fwd"),
         **pipe_row("flash_attention_fwd"),
+        **seq_row("flash_attention_fwd"),
         # the serve phase: BERT-base behind both HTTP fronts (12 a
         # scheduled batch), POST /generate (one prefill) and the
         # continuous batcher under both admissions (12 an iteration)
@@ -5625,6 +5658,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
             **search_row(name),
             **dist_row(name),
             **pipe_row(name),
+            **seq_row(name),
             "wide_bf16_kernel": f"flash_bwd_{key}_wgmma_wide_kernel (d "
                                 "192-512)",
             "f32_kernel": f"flash_bwd_{key}_wgmma_tf32_kernel (f32, d 64 "
@@ -5657,6 +5691,7 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         **search_row("adam_update"),
         **dist_row("adam_update"),
         **pipe_row("adam_update"),
+        **seq_row("adam_update"),
         "dlrm_256.03M_params": {
             k: kt["adam_dlrm"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")}})
@@ -6966,9 +7001,513 @@ def phase_pipe(smi: str, spec: dict = None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# seq: sequence parallelism over two ranks sharing the card
+# --------------------------------------------------------------------------
+# (a) the functions: ring and Ulysses attention of a whole (b, h, s, d)
+# sequence, each of the two ranks holding s / 2, against the plain
+# attention of the whole sequence on one rank, as a share of the
+# reference's largest magnitude (the dist phase's bounds)
+SEQ_FN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (b) full-width GPT-2 small (GPTConfig(): 12 layers, hidden 768, 12
+# heads, vocab 50257, 1024 positions, dropout 0) at 8 x 1024, trained sp
+# 2 under attention:ring with the fused Adam, bf16 and --f32-compute,
+# first-step gradients and a 3-step history against the one-rank run of
+# the same weights under attention:xla, then 2 timed steps; (c) the JAX
+# bench's long-context geometry (bench.py stage_long_context: one MHA,
+# B4 S2048 E512 H8) at seq 2 under the kernel tier
+SEQ_SPEC = {"device": "cuda", "fn_shape": (4, 12, 1024, 64), "batch": 8,
+            "seq": 1024, "steps": 3, "timed": 2, "gpt": {},
+            "long": {"batch": 4, "seq": 2048, "embed": 512, "heads": 8,
+                     "steps": 3}}
+
+
+def seq_checked(errs: list) -> list:
+    """The leaves of ``errs`` held to the sp 2 run's first-step limit: all
+    but the key biases, in either type. Their true gradient is 0 (softmax
+    ignores a shift common to a row's scores), so their reading is each
+    path's rounding noise over GRAD_FLOOR of the whole gradient, and the
+    ring's noise is not the plain attention's (another order of sums)."""
+    return [e for e in errs if not e[1].endswith(".bk")]
+
+
+def seq_mesh(spec: dict):
+    """The (1, 2) mesh of this world's two ranks whose trailing dim is
+    ``seq``, as ``--seq-parallel 2`` builds it."""
+    from flexflow_tpu_torch.parallel.distributed import rank_device
+    from flexflow_tpu_torch.parallel.machine import DeviceMesh, MachineSpec
+    dev = rank_device(spec["device"])
+    gen = "h100" if spec["device"] == "cuda" else "cpu-sim"
+    return DeviceMesh(MachineSpec(num_devices=2, generation=gen),
+                      devices=[dev, dev], seq=2)
+
+
+def seq_fn_checks(spec: dict) -> dict:
+    """(a) in this rank: ring_attention and ulysses_attention on its half
+    of a seeded whole sequence (the same on every rank), causal and not,
+    f32 and bf16: the output and the q, k, v gradients of a seeded
+    cotangent against mha_reference of the whole sequence with autograd,
+    the flash launches (plain-version calls on the CPU) and the ring's
+    hops and bytes of each call, and the median of 3 timed forward +
+    backward calls."""
+    from flexflow_tpu_torch.kernels.flash_attention import mha_reference
+    from flexflow_tpu_torch.kernels.ring_attention import (
+        ring_attention, ulysses_attention)
+    cuda = spec["device"] == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    seq = seq_mesh(spec).seq_group()
+    b, h, s, d = spec["fn_shape"]
+    c = s // seq.size
+    cut = slice(seq.index * c, (seq.index + 1) * c)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flash = {n: f for n, f in counters().items() if n != "adam_update"}
+    out = {}
+    for name, fn in (("ring", ring_attention),
+                     ("ulysses", ulysses_attention)):
+        for causal in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v, do = (torch.randn(b, h, s, d, device=dev,
+                                           generator=gen).to(dt)
+                               for _ in range(4))
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                ref = mha_reference(*leaves, causal=causal)
+                want = [ref] + list(torch.autograd.grad(ref, leaves, do))
+                loc = [t[:, :, cut].contiguous().requires_grad_()
+                       for t in (q, k, v)]
+                dloc = do[:, :, cut].contiguous()
+                n0 = {n: f.launches if cuda else f.plain_calls
+                      for n, f in flash.items()}
+                h0, b0 = seq.hops, seq.bytes
+                o = fn(*loc, seq, causal=causal)
+                got = [o] + list(torch.autograd.grad(o, loc, dloc))
+                sync()
+                launches = {n: (f.launches if cuda else f.plain_calls)
+                            - n0[n] for n, f in flash.items()}
+                hops = (seq.hops - h0, seq.bytes - b0)
+                errs = {}
+                for key, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+                    w = w[:, :, cut].float()
+                    errs[key] = (g.float() - w).abs().max().item() / max(
+                        w.abs().max().item(), 1e-30)
+                times = []
+                for _ in range(3):
+                    sync()
+                    t0 = time.perf_counter()
+                    o = fn(*loc, seq, causal=causal)
+                    torch.autograd.grad(o, loc, dloc)
+                    sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                key = f"{name}_{'causal' if causal else 'full'}_" \
+                    f"{str(dt)[6:]}"
+                out[key] = {"errs": errs, "launches": launches,
+                            "hops": hops, "ms": float(np.median(times)),
+                            "tol": SEQ_FN_TOL[str(dt)[6:]]}
+                del q, k, v, do, leaves, ref, want, loc, dloc, o, got
+    return out
+
+
+def seq_gpt_model(spec: dict, f32: bool, impl: str, argv=()):
+    """GPT-2 of ``spec["gpt"]`` (GPTConfig overrides; none: GPT-2 small)
+    at spec's batch and sequence under ``attention:<impl>`` with the
+    fused Adam, data parallel over this process's world (none where it
+    has a seq axis only), compiled under ``argv``."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.seed, cfg.device = spec["batch"], 0, spec["device"]
+    cfg.only_data_parallel = True
+    # (the fused Adam's predicate refuses the CPU: a rehearsal there sets
+    # the plan after the compile, and the kernel's plain version runs)
+    cfg.kernel_impls = f"attention:{impl}" + (
+        ",opt_update:fused" if spec["device"] == "cuda" else "")
+    cfg.use_bf16_compute = not f32
+    ff = FFModel(cfg)
+    g = GPTConfig(**spec["gpt"])
+    out = build_gpt2(ff, spec["batch"], spec["seq"], g)
+    ff.compile(AdamOptimizer(1e-4), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    ff.executor._kernel_impls["opt_update"] = "fused"
+    return ff, g
+
+
+def seq_gpt_batches(spec: dict, vocab: int) -> list:
+    """``spec["steps"]`` seeded batches of ids, positions and next-token
+    labels (the ids)."""
+    rng = np.random.default_rng(23)
+    b, s = spec["batch"], spec["seq"]
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    out = []
+    for _ in range(spec["steps"]):
+        ids = rng.integers(0, vocab, (b, s)).astype(np.int32)
+        out.append({"input_ids": ids, "position_ids": pos, "label": ids})
+    return out
+
+
+def seq_gpt_run(spec: dict, f32: bool, impl: str, argv=(),
+                grads: bool = True) -> dict:
+    """GPT-2 of ``spec`` in this process's world: the first step's
+    gradients (whole, on the host), then a ``spec["steps"]``-step history
+    with every kernel launch counted (the counts set to 0 just before)
+    and the ring's hops and bytes, the peak memory and ``spec["timed"]``
+    timed steps."""
+    cuda = spec["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ff, g = seq_gpt_model(spec, f32, impl, argv)
+    ex = ff.executor
+    batches = seq_gpt_batches(spec, g.vocab_size)
+    host = None
+    if grads:
+        gr, _, _ = ex._grads(ff.params, ff.state, batches[0], 0)
+        host = {ln: {n: ex._unplace(t).detach().float().cpu()
+                     for n, t in d.items()} for ln, d in gr.items()}
+        del gr
+    step_fn = ex.make_train_step()
+    ring = ex._seq_ring
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    h0, b0 = (ring.hops, ring.bytes) if ring is not None else (0, 0)
+    fns = zero_counts()      # the main path: every count starts at 0 here
+    plain = {n: f.plain_calls for n, f in fns.items()}
+    losses = [float(ff._run_train_step(step_fn, b)["loss"])
+              for b in batches]
+    # (a rehearsal on the CPU counts the wrappers' plain-version calls)
+    launches = {n: f.launches if cuda else f.plain_calls - plain[n]
+                for n, f in fns.items()}
+    n = len(batches)
+    hops = None if ring is None else {
+        "hops": (ring.hops - h0) / n, "bytes": (ring.bytes - b0) / n,
+        "route": ring.handoff.route}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    times = []
+    for i in range(spec["timed"]):
+        sync()
+        t0 = time.perf_counter()
+        float(ff._run_train_step(step_fn, batches[i % n])["loss"])
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    shapes = [tuple(ex._unplace(t).shape) for d in ff.params.values()
+              for t in d.values()]
+    res = {"grads": host, "losses": losses, "launches": launches,
+           "hops": hops, "peak_bytes": peak, "step_ms": times,
+           "mesh": dict(ff.dmesh.axis_sizes), "leaf_shapes": shapes,
+           "plan": sorted(set(ex._kernel_impls.values()))}
+    del ff, ex, step_fn
+    free_cuda()
+    return res
+
+
+def seq_long_context(spec: dict) -> dict:
+    """(c) in this rank: the long-context MHA of ``spec["long"]`` compiled
+    at seq 2 with the measured kernel tier (``calibration_v2``: the
+    collective and hop rows over the world and the impl rows, ring's
+    over the seq group, measured or read from the table), the tier's
+    choice, then under forced ring and forced flash: each one's
+    predicted step of the attention op (the kernel record) and its
+    measured train step (min of ``steps`` after a warm-up)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.search.calibration import CalibrationTable
+    L = spec["long"]
+    cuda = spec["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rng = np.random.default_rng(0)
+    shape = (L["batch"], L["seq"], L["embed"])
+    batch = {"q": rng.standard_normal(shape).astype(np.float32),
+             "label": rng.standard_normal(shape).astype(np.float32)}
+    out = {}
+    for tag, impls in (("tier", "auto"), ("ring", "attention:ring"),
+                       ("flash", "attention:flash")):
+        cfg = FFConfig.parse_args(["--seq-parallel", "2"])
+        cfg.batch_size, cfg.seed, cfg.device = L["batch"], 0, \
+            spec["device"]
+        cfg.only_data_parallel, cfg.calibration_v2 = True, "true"
+        cfg.kernel_impls = impls
+        ff = FFModel(cfg)
+        q = ff.create_tensor(shape, name="q")
+        ff.multihead_attention(q, q, q, embed_dim=L["embed"],
+                               num_heads=L["heads"])
+        t0 = time.perf_counter()
+        ff.compile(SGDOptimizer(0.01), "mean_squared_error", [])
+        compile_s = time.perf_counter() - t0
+        op = next(o for o in ff._kernel_record["ops"]
+                  if o["op"] == "attention")
+        step_fn = ff.executor.make_train_step()
+        float(ff._run_train_step(step_fn, batch)["loss"])
+        times = []
+        for _ in range(L["steps"]):
+            sync()
+            t0 = time.perf_counter()
+            float(ff._run_train_step(step_fn, batch)["loss"])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = {"impl": op["impl"], "predicted_ms":
+                    op["predicted_s"] * 1e3, "step_ms": min(times),
+                    "compile_s": compile_s}
+        del ff, step_fn
+        free_cuda()
+    rows = CalibrationTable()._load()
+    out["rows"] = {k: v for k, v in sorted(rows.items())
+                   if "@ring" in k or "ppermute" in k}
+    return out
+
+
+def seq_rank_main(workdir: str) -> int:
+    """A rank of the seq phase (``--seq-rank``): joins the world the
+    environment names, runs (a), (b) against the one-rank references the
+    parent saved, and (c), and writes its results."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.distributed import (ROUTES,
+                                                         maybe_initialize)
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize(device_type=spec["device"])
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend(), "routes": dict(ROUTES)}
+    t0 = time.perf_counter()
+    out["fns"] = seq_fn_checks(spec)
+    out["fns_s"] = time.perf_counter() - t0
+    ref = torch.load(os.path.join(workdir, "ref.pt"))
+    for k in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        r = seq_gpt_run(spec, k == "f32", "ring", ("--seq-parallel", "2"))
+        r["grad_errs"] = grad_errs(r.pop("grads"), ref[k]["grads"])
+        r["loss_err"] = max(abs(a - b) for a, b in zip(r["losses"],
+                                                       ref[k]["losses"]))
+        r["wall_s"] = time.perf_counter() - t0
+        out["gpt_" + k] = r
+    del ref
+    t0 = time.perf_counter()
+    out["long"] = seq_long_context(spec)
+    out["long_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def adam_identical(gen, shapes) -> int:
+    """The fused Adam kernel against its plain version over f32 leaves of
+    ``shapes`` in one launch: the count of elements of w, m and v that
+    differ (0: bit-identical, as both round every f32 op once)."""
+    from flexflow_tpu_torch.kernels.opt_update import (
+        fused_adam_update, fused_adam_update_plain)
+    leaves = adam_leaves(gen, shapes, [torch.float32] * len(shapes))
+    alpha_t = torch.tensor(1e-4, device="cuda")
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=0.0)
+    want = [fused_adam_update_plain(w, g, m, v, alpha_t, **kw)
+            for w, g, m, v in leaves]
+    fused_adam_update(*([x[i] for x in leaves] for i in range(4)),
+                      alpha_t, **kw)
+    torch.cuda.synchronize()
+    return sum(int((got != ref).sum().item())
+               for (w, _, m, v), refs in zip(leaves, want)
+               for got, ref in zip((w, m, v), refs))
+
+
+def phase_seq(smi: str, spec: dict = None) -> dict:
+    """Sequence parallelism by two ranks sharing the card (gloo; a card
+    each and NCCL on a host with four cards): (a) ring and Ulysses
+    attention at ``spec["fn_shape"]`` (b4 h12 s1024 d64), causal and
+    not, f32 and bf16, each rank holding s / 2, against the plain
+    attention of the whole sequence within SEQ_FN_TOL, Ulysses launching
+    one flash forward, dq and dk/dv a call a rank and the ring none, with
+    N - 1 = 1 hop of (k, v) forward and N = 2 hops backward; (b)
+    full-width GPT-2 small at 8 x 1024 trained sp 2 under attention:ring
+    in bf16 and f32, every leaf's first-step gradient (the key biases out,
+    ``seq_checked``) within DIST_BF16_GRAD_TOL (bf16) or ZOO_GRAD_TOL
+    (f32) and the 3-step history within TRAIN_TOL of the one-rank run of the
+    same weights under attention:xla, one fused Adam a step a rank, 3
+    hops a layer a step; one rank's step under flash and under xla
+    beside it; (c) the long-context MHA at seq 2 under the kernel tier:
+    the ring and hop rows, the adopted impl, ring's and forced flash's
+    predicted and measured steps (not gated). Then the kernels at the
+    shapes these paths give them."""
+    import tempfile
+    spec = dict(spec or SEQ_SPEC)
+    cuda = spec["device"] == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        with open(os.path.join(workdir, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        ref = {}
+        for k in ("f32", "bf16"):
+            ref[k] = seq_gpt_run(spec, k == "f32", "xla")
+            out["one_rank_xla_" + k] = {
+                key: ref[k][key] for key in ("step_ms", "peak_bytes",
+                                             "launches", "losses")}
+            out["one_rank_flash_" + k] = {
+                key: v for key, v in seq_gpt_run(
+                    spec, k == "f32", "flash", grads=False).items()
+                if key in ("step_ms", "peak_bytes", "launches", "losses")}
+        torch.save({k: {"grads": r["grads"], "losses": r["losses"]}
+                    for k, r in ref.items()},
+                   os.path.join(workdir, "ref.pt"))
+        del ref
+        free_cuda()
+        out["one_rank_s"] = time.perf_counter() - t0
+        print(f"[seq] one-rank GPT-2 runs under xla and flash "
+              f"({out['one_rank_s']:.1f} s)")
+        # the cache of the ranks' calibration table: (c) measures every
+        # row once, then reads it warm
+        os.environ["FF_CACHE_DIR"] = os.path.join(workdir, "cache")
+        t0 = time.perf_counter()
+        try:
+            spawn_world(workdir, "--seq-rank", 2)
+        finally:
+            del os.environ["FF_CACHE_DIR"]
+        out["world_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    where = "on the CPU" if not cuda else \
+        "sharing one card" if torch.cuda.device_count() < 2 \
+        else "on a card each"
+    print(f"[seq] two ranks {where}: backend {ranks[0]['backend']} "
+          f"({out['world_s']:.1f} s; functions {ranks[0]['fns_s']:.1f} s, "
+          f"long context {ranks[0]['long_s']:.1f} s)")
+    b, h, s, d = spec["fn_shape"]
+    chunk = b * h * (s // 2) * d
+    for r, res in enumerate(ranks):
+        for key, x in res["fns"].items():
+            fn, _, dt = key.split("_")
+            isz = 4 if dt == "float32" else 2
+            if fn == "ring":
+                want_l = {n: 0 for n in x["launches"]}
+                want_h = [1 + 2, 2 * chunk * isz + 2 * chunk * isz
+                          + 4 * chunk * 4]
+            else:
+                want_l = {n: 1 for n in x["launches"]}
+                want_h = [0, 0]
+            worst = max(x["errs"].values())
+            print(f"[seq] {key} rank {r}: b{b} h{h} s{s} (s/2 a rank) d{d}"
+                  f": worst of o, dq, dk, dv against the whole sequence's "
+                  f"plain attention " + ", ".join(
+                      f"{n} {e:.2e}" for n, e in x["errs"].items())
+                  + f" of max (tol {x['tol']:.0e}), flash launches "
+                  f"{x['launches']}, ring hops {x['hops'][0]} carrying "
+                  f"{x['hops'][1] / 2**20:.2f} MiB, forward + backward "
+                  f"{x['ms']:.2f} ms ({smi})")
+            check(worst <= x["tol"], f"seq {key} rank {r}: {x['errs']}")
+            check(x["launches"] == want_l,
+                  f"seq {key} rank {r} launches {x['launches']}")
+            check(list(x["hops"]) == want_h,
+                  f"seq {key} rank {r} hops {x['hops']} != {want_h}")
+    g = spec["gpt"]
+    layers = g.get("num_layers", 12)
+    for k in ("f32", "bf16"):
+        one = out["one_rank_xla_" + k]
+        fl = out["one_rank_flash_" + k]
+        tol = dist_grad_tol(k)
+        for r, res in enumerate(ranks):
+            x = res["gpt_" + k]
+            checked = seq_checked([tuple(e) for e in x["grad_errs"]])
+            print(f"[seq] GPT-2 sp 2 {k} rank {r}: mesh {x['mesh']}, plan "
+                  f"{x['plan']}, launches in {spec['steps']} steps "
+                  f"{x['launches']}, ring hops {x['hops']['hops']:.0f} and "
+                  f"{x['hops']['bytes'] / 2**20:.1f} MiB a step (route "
+                  f"{x['hops']['route']}), step "
+                  f"{np.median(x['step_ms']):.1f} ms (median of "
+                  f"{len(x['step_ms'])}; one rank alone: xla "
+                  f"{np.median(one['step_ms']):.1f} ms, flash "
+                  f"{np.median(fl['step_ms']):.1f} ms), peak "
+                  f"{x['peak_bytes'] / 2**30:.2f} GiB (one rank xla "
+                  f"{one['peak_bytes'] / 2**30:.2f}, flash "
+                  f"{fl['peak_bytes'] / 2**30:.2f} GiB); against the "
+                  f"one-rank xla run: losses {x['loss_err']:.3e} (tol "
+                  f"{TRAIN_TOL:.0e}), first-step gradients worst "
+                  + ", ".join(f"{n} {e:.3e}" for e, n in x["grad_errs"][:3])
+                  + ", checked worst " + ", ".join(
+                      f"{n} {e:.3e}" for e, n in checked[:3])
+                  + f" (tol {tol:.0e}) ({x['wall_s']:.1f} s) ({smi})")
+            want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                    "flash_attention_bwd_dkv": 0,
+                    "adam_update": spec["steps"]}
+            check(x["launches"] == want,
+                  f"seq GPT-2 {k} rank {r} launches {x['launches']}")
+            check(x["hops"]["hops"] == 3 * layers,
+                  f"seq GPT-2 {k} rank {r} hops {x['hops']}")
+            check(x["loss_err"] <= TRAIN_TOL, f"seq GPT-2 {k} rank {r} "
+                  f"losses")
+            check(checked[0][0] <= tol,
+                  f"seq GPT-2 {k} rank {r} first-step gradients")
+            check(all(np.isfinite(x["losses"])), "seq GPT-2 losses")
+        out["gpt_" + k] = {
+            key: [rk["gpt_" + k][key] for rk in ranks]
+            for key in ("launches", "hops", "step_ms", "peak_bytes",
+                        "loss_err", "losses")}
+        out["gpt_" + k]["grad_checked"] = max(
+            seq_checked([tuple(e) for e in rk["gpt_" + k]["grad_errs"]])
+            [0][0] for rk in ranks)
+    long = ranks[0]["long"]
+    print(f"[seq] long-context MHA B{spec['long']['batch']} "
+          f"S{spec['long']['seq']} E{spec['long']['embed']} "
+          f"H{spec['long']['heads']} at seq 2: the kernel tier adopts "
+          f"{long['tier']['impl']}; ring predicted "
+          f"{long['ring']['predicted_ms']:.3f} ms, measured step "
+          f"{long['ring']['step_ms']:.1f} ms; forced flash predicted "
+          f"{long['flash']['predicted_ms']:.3f} ms, measured step "
+          f"{long['flash']['step_ms']:.1f} ms (rank 0, min of "
+          f"{spec['long']['steps']}; rank 1: ring "
+          f"{ranks[1]['long']['ring']['step_ms']:.1f}, flash "
+          f"{ranks[1]['long']['flash']['step_ms']:.1f} ms) ({smi})")
+    print("[seq] ring calibration rows: " + ", ".join(
+        f"{k} = {v:.3e}" for k, v in long["rows"].items()))
+    check(any("op_attention@ring" in k for k in long["rows"])
+          and any("coll_ppermute" in k for k in long["rows"]),
+          f"seq: no ring or hop rows in {sorted(long['rows'])}")
+    out["long"] = long
+    out["fns"] = {key: {"ms": [rk["fns"][key]["ms"] for rk in ranks],
+                        "launches": ranks[0]["fns"][key]["launches"],
+                        "errs": ranks[0]["fns"][key]["errs"]}
+                  for key in ranks[0]["fns"]}
+    if not cuda:
+        return out
+    # the kernels at the shapes these paths give them: Ulysses' launches
+    # (h / 2 heads over the whole sequence) and the fused Adam over a
+    # rank's leaves (GPT-2 small, all of them: nothing shards over seq)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out["fwd_ulysses"] = fwd_times(s, 0.0, gen, causal=True, b=b, h=h // 2,
+                                   d=d)
+    out["bwd_ulysses"] = bwd_times(s, 0.0, gen, causal=True, b=b, h=h // 2,
+                                   d=d)
+    f, bw = out["fwd_ulysses"], out["bwd_ulysses"]
+    print(f"[seq] flash at Ulysses' launch, b{b} h{h // 2} s{s} d{d} bf16 "
+          f"causal: forward {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, "
+          f"SDPA {f['library_ms']:.4f} on {f['library_backend']}, bound "
+          f"{f['bound_ms']:.4f} {f['bound_by']}), dq {bw['dq_ms']:.4f} ms "
+          f"(plain {bw['dq_plain_ms']:.4f}, bound {bw['dq_bound'][0]:.4f}),"
+          f" dk/dv {bw['dkv_ms']:.4f} ms (plain {bw['dkv_plain_ms']:.4f}, "
+          f"bound {bw['dkv_bound'][0]:.4f}), SDPA's whole backward "
+          f"{bw['sdpa_bwd_ms']:.4f} ms ({smi})")
+    free_cuda()
+    shapes = [tuple(x) for x in ranks[0]["gpt_bf16"]["leaf_shapes"]]
+    differing = adam_identical(gen, shapes)
+    print(f"[seq] adam_update over an sp 2 rank's GPT-2 small leaves "
+          f"({len(shapes)} leaves, one launch): {differing} elements "
+          f"differ from the plain version (want bit-identical)")
+    check(differing == 0, "seq: fused Adam over GPT-2's leaves")
+    free_cuda()
+    a = out["adam_sp_rank"] = adam_times(gen, shapes)
+    a["leaves"] = len(shapes)
+    print(f"[seq] adam_update over an sp 2 rank's GPT-2 small leaves: "
+          f"{a['numel']} f32 parameters in {len(shapes)} leaves, one "
+          f"launch: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} ms, "
+          f"torch._fused_adam_ {a['library_ms']:.4f} ms, bound "
+          f"{a['bound_ms']:.4f} ms (bytes) ({smi})")
+    free_cuda()
+    return out
+
+
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience", "search", "dist", "pipe", "serve")
+          "resilience", "search", "dist", "pipe", "seq", "serve")
 
 
 def main() -> int:
@@ -6984,6 +7523,8 @@ def main() -> int:
                     help="run as a rank of the dist phase's world")
     ap.add_argument("--pipe-rank", metavar="DIR",
                     help="run as a rank of the pipe phase's world")
+    ap.add_argument("--seq-rank", metavar="DIR",
+                    help="run as a rank of the seq phase's world")
     ap.add_argument("--dist-nccl", metavar="DIR",
                     help="run as the dist phase's one-rank NCCL world")
     ap.add_argument("--dist-profile", metavar="DIR",
@@ -6996,6 +7537,8 @@ def main() -> int:
         return dist_nccl_main(args.dist_nccl)
     if args.pipe_rank:
         return pipe_rank_main(args.pipe_rank)
+    if args.seq_rank:
+        return seq_rank_main(args.seq_rank)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     dev, smi = phase_device()
@@ -7036,6 +7579,7 @@ def main() -> int:
         dict(DIST_SPEC, profile=os.path.abspath(args.dist_profile))
         if args.dist_profile else None)
     run("pipe", phase_pipe, smi)
+    run("seq", phase_seq, smi)
     run("serve", phase_serve, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
@@ -7044,7 +7588,7 @@ def main() -> int:
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
         res["zoo"], res["frontends"], res["resilience"], res["search"],
-        res["serve"], res["dist"], res["pipe"])}))
+        res["serve"], res["dist"], res["pipe"], res["seq"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

@@ -466,6 +466,9 @@ class Executor:
         self._bucketed = None
         # the quantized-sync schedule (ops/quantized_collectives.py)
         self._qsync = None
+        # the mesh's seq group (kernels/ring_attention.SeqGroup), which
+        # ring attention runs over; None without a seq axis
+        self._seq_ring = None
         if losses_mod.wants_logits(self.loss_type) \
                 and self.program.output_tensors:
             prod = self.program.output_tensors[0].owner_layer
@@ -483,6 +486,7 @@ class Executor:
         self.pipe = getattr(strategy, "pipeline", None)
         if self.pipe is not None:
             self._attach_pipeline()
+        self._seq_ring = strategy.dmesh.seq_group()
 
     def attach_overlap(self, strategy) -> None:
         """Build the bucketed grad-sync schedule for ``strategy`` (None
@@ -629,8 +633,7 @@ class Executor:
     def _attach_pipeline(self) -> None:
         """The layer split around the region, the mesh dims of its axes
         and the point-to-point route of its hand-offs."""
-        import torch.distributed as dist
-        from .parallel.pipeline import Handoff
+        from .parallel.distributed import Handoff, p2p_route
         pipe, layers = self.pipe, self.program.layers
         if self._remat is not None:
             import logging
@@ -648,10 +651,8 @@ class Executor:
         self._tp_dim = names.index(pipe.tp_axis) \
             if pipe.tp_axis is not None else None
         self._dp_dims = [names.index(a) for a in pipe.dp_axes]
-        route = "host" if self.device.type == "cuda" \
-            and dist.get_backend() == "gloo" else "direct"
         self._handoff = Handoff(self.strategy.dmesh.mesh, self._pp_dim,
-                                route)
+                                p2p_route(self.device.type))
         self._template_of = {pipe.param_name(l): l for l in pipe.template}
 
     def _init_pipeline_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -1007,9 +1008,11 @@ class Executor:
                 if _needs_rng(layer)}
 
     def _attach_kernel_ctx(self, ctx: EmitCtx) -> None:
-        """Thread the adopted kernel tier into an EmitCtx."""
+        """Thread the adopted kernel tier and the mesh's seq group (the
+        ranks ring attention runs over) into an EmitCtx."""
         if self._kernel_impls:
             ctx.kernel_impls = self._kernel_impls
+        ctx.seq_ring = self._seq_ring
 
     def _logits_guid(self) -> Optional[int]:
         """The op output a forward captures: the logits that the loss and

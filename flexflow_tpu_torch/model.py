@@ -527,7 +527,10 @@ class FFModel:
         ``FF_PROCESS_ID`` or the config's flags), one device each, the
         mesh is live and the strategy runs over it (``--tp`` / ``--sp``
         build the Megatron preset, ``--only-data-parallel`` data
-        parallelism, a budget the search). A mesh of more devices than
+        parallelism, a budget the search; ``--seq-parallel N`` reserves a
+        trailing ``seq`` axis of N ranks that nothing shards over and
+        ring attention runs on, and refuses ``--pp`` / ``--tp``). A mesh
+        of more devices than
         the world has is searched and exported, then refused
         (``NotImplementedError``).
         Applies the config's tracing choice (``obs.events.configure``)
@@ -564,12 +567,13 @@ class FFModel:
         if self.label_tensor is None and len(unconsumed) == 1:
             self.label_tensor = unconsumed[0]
 
-        if int(getattr(cfg, "seq_parallel_degree", 0) or 0) > 1:
-            raise NotImplementedError(
-                "seq_parallel_degree is a multi-device lowering, not "
-                "ported (ROADMAP queue 1 item 4.4)")
         pp = max(int(cfg.pipeline_stages), 1)
         pp_tp = max(int(cfg.pipeline_tp), 1)
+        seq_par = max(int(getattr(cfg, "seq_parallel_degree", 0) or 0), 0)
+        if seq_par > 1 and (pp > 1 or cfg.tensor_parallel > 1):
+            raise ValueError(
+                "--seq-parallel (the reserved ring-attention axis) does "
+                "not compose with --pp/--tp presets; use the search")
         if pp_tp > 1 and pp <= 1:
             raise ValueError(
                 f"--pp-tp {pp_tp} requires --pp > 1 (stage-internal "
@@ -609,7 +613,7 @@ class FFModel:
             mesh_shape = tuple(spec.ici_shape)
         devices = [rank_device(self.device.type, r) for r in range(world)]
         self.dmesh = DeviceMesh(spec, devices=devices,
-                                mesh_shape=mesh_shape)
+                                mesh_shape=mesh_shape, seq=seq_par)
         if search_budget is not None:
             cfg.search_budget = search_budget
         if strategy is None:

@@ -5,8 +5,9 @@ and its KV-cache prefill and decode paths).
 
 The port of the same classes in ``flexflow_tpu/ops/nn_ops.py``: the same
 params, weight specs (names, shapes, initializers) and math, on torch
-tensors. Images are NCHW, sequences (batch, seq, hidden). Ring attention
-comes with a later slice and raises here.
+tensors. Images are NCHW, sequences (batch, seq, hidden). Attention on
+the ``ring`` impl runs ``kernels/ring_attention.py`` over the mesh's
+``seq`` group (``EmitCtx.seq_ring``).
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from ..ffconst import ActiMode, AggrMode, DataType, InitializerType, \
     OperatorType, PoolType
 from ..core.tensor import WeightSpec
 from ..dtypes import to_torch
-from ..parallel.local_ops import (block_offsets, global_rand, is_dtensor,
-                                  keep_dims, run_local)
+from ..parallel.local_ops import (block_offsets, from_local, global_rand,
+                                  is_dtensor, keep_dims, run_local)
 from .registry import (OpDef, bf16_enabled, compute_dtype, generator_on,
                        host_seed, matmul, mm_f32, pad_rows, register,
                        rows_chunked)
@@ -433,6 +434,14 @@ def _apply_rope(x, pos, theta: float):
     emb = torch.cat([freqs, freqs], dim=-1)              # (B|1, L, d)
     cos = torch.cos(emb)[:, :, None, :]
     sin = torch.sin(emb)[:, :, None, :]
+    if is_dtensor(x):
+        # replicated over x's mesh as DTensors: the products' backward
+        # runs outside the emit's implicit replication and refuses a
+        # plain tensor beside a DTensor
+        from torch.distributed.tensor import Replicate
+        mesh = x.device_mesh
+        cos, sin = (from_local(t, mesh, [Replicate()] * mesh.ndim, t.shape)
+                    for t in (cos, sin))
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     rot = torch.cat([-x2, x1], dim=-1)
     return (x.float() * cos + rot.float() * sin).to(x.dtype)
@@ -443,10 +452,12 @@ class MultiHeadAttentionOp(OpDef):
     """Multi-head attention. Inputs: query (B, Lq, E), key (B, Lk, Ek),
     value (B, Lv, Ev); output (B, Lq, E) after the output projection.
 
-    Two impls, chosen per layer by the kernel tier: ``xla`` (the plain
+    Three impls, chosen per layer by the kernel tier: ``xla`` (the plain
     path: einsum attention with an f32 softmax; the name is the JAX
-    package's) and ``flash`` (``kernels/flash_attention.py``, whose
-    autograd Function runs the backward kernels in training). In training,
+    package's), ``flash`` (``kernels/flash_attention.py``, whose
+    autograd Function runs the backward kernels in training) and
+    ``ring`` (``kernels/ring_attention.py`` over the mesh's ``seq``
+    group; no dropout, no KV-cache path). In training,
     the attention dropout runs inside the flash kernel, seeded from the
     host, or as a Bernoulli mask on the plain path."""
     op_type = OperatorType.OP_MULTIHEAD_ATTENTION
@@ -602,6 +613,14 @@ class MultiHeadAttentionOp(OpDef):
                                      mdt, cdt, q.shape[0])
         kh = self._expand_kv(kh, qh.shape[2])
         vh = self._expand_kv(vh, qh.shape[2])
+        if self._impl_for(ctx, name) == "ring" and ctx.kv_mode is None:
+            if rate > 0.0:
+                raise ValueError(
+                    f"{name}: kernel impl 'ring' has no in-kernel "
+                    f"dropout (the registry predicate rejects it; a "
+                    f"forced plan must not bypass the verifier)")
+            return self._emit_ring(weights, ctx, name, qh, kh, vh, mdt,
+                                   cdt, causal)
         rng = ctx.rng_for(name) if rate > 0.0 else None
         if is_dtensor(qh):
             # over a live mesh: each rank attends its own rows and heads
@@ -635,10 +654,8 @@ class MultiHeadAttentionOp(OpDef):
         bsz, lq, h, d = qh.shape
         lk = kh.shape[1]
         impl = self._impl_for(ctx, name)
-        if impl == "ring":
-            raise NotImplementedError(
-                f"{name}: kernel impl 'ring' is not ported yet")
-        # a planned impl overrides the legacy tri-state
+        # a planned impl overrides the legacy tri-state (a ring plan under
+        # the KV-cache paths takes the auto choice, as in the JAX package)
         flash_mode = {"flash": "true", "xla": "false"}.get(
             impl, self._flash_mode(ctx))
         if self._flash_enabled(ctx, seq_len=max(lq, lk), mode=flash_mode,
@@ -692,6 +709,42 @@ class MultiHeadAttentionOp(OpDef):
             ctxv = mm_f32(probs.to(mdt).reshape(bsz * h, lq, lk), vb)
             ctxv = ctxv.reshape(bsz, h, lq, d).transpose(1, 2)
         return ctxv
+
+    def _emit_ring(self, weights, ctx, name, qh, kh, vh, mdt, cdt,
+                   causal):
+        """Ring attention over the mesh's ``seq`` group: the (B, L, h,
+        d) heads are replicated over it, each rank takes its contiguous
+        chunk of L (in its order along ``seq``), runs the ring
+        (``kernels/ring_attention.py``) and the chunks' outputs are
+        gathered whole before the output projection. The gradients of
+        q, k and v come back whole on every rank (the chunking's
+        backward gathers them), so every leaf's gradient stays
+        replicated over ``seq``. Over the other mesh dims each rank
+        attends its own rows and heads."""
+        from ..kernels.ring_attention import ring_attention
+        from ..parallel.distributed import chunk_dim, gather_dim
+        comm = getattr(ctx, "seq_ring", None)
+        if comm is None:
+            raise ValueError(
+                f"{name}: kernel impl 'ring' requires a mesh sequence "
+                f"axis (--seq-parallel N >= 2); this compile has none")
+        if qh.shape[1] % comm.size != 0:
+            raise ValueError(
+                f"{name}: sequence length {qh.shape[1]} is not "
+                f"divisible by the seq-axis degree {comm.size}")
+
+        def attend(q_, k_, v_):
+            q_, k_, v_ = (chunk_dim(t, 1, comm.group).transpose(1, 2)
+                          .to(mdt) for t in (q_, k_, v_))
+            o = ring_attention(q_, k_, v_, comm, causal=causal)
+            return gather_dim(o.transpose(1, 2), 1, comm.group).float()
+
+        if is_dtensor(qh):
+            ctxv = run_local(attend, (qh, kh, vh), keep_dims(qh, (0, 2)),
+                             (*qh.shape[:3], vh.shape[3]))
+        else:
+            ctxv = attend(qh, kh, vh)
+        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
 
     def _emit_decode(self, params, weights, ctx, name, qh, kh, vh, mdt,
                      cdt, stream_rows):

@@ -85,6 +85,9 @@ class EmitCtx:
         # the adopted per-op kernel impls (kernels/registry.py), threaded
         # in by the executor; None/empty = default impls
         self.kernel_impls: Optional[Dict[str, str]] = None
+        # the ranks of the mesh's seq group (kernels/ring_attention.
+        # SeqGroup) that ring attention runs over; None = no seq axis
+        self.seq_ring: Any = None
         # local-shape execution (a rank's forward on its own rows with
         # local weights, the quantized sync): a reshape to a recorded
         # global batch shape takes the rank's rows, and local_rows =

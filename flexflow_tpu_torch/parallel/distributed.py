@@ -38,7 +38,7 @@ from __future__ import annotations
 import logging
 import os
 from datetime import timedelta
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +181,136 @@ def all_to_all_dim(x: torch.Tensor, split_dim: int, concat_dim: int,
     concatenation along ``concat_dim`` over ``group``
     (differentiable)."""
     return _AllToAllDim.apply(x, split_dim, concat_dim, group)
+
+
+class _ChunkDim(torch.autograd.Function):
+    """This rank's block along ``dim`` of a value replicated over
+    ``group`` (blocks in rank order), the adjoint of :class:`_GatherDim`:
+    each rank's gradient covers its block only, so the backward gathers
+    the blocks' gradients into the whole one, the same on every rank, as
+    the replicated value's gradient is."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split evenly {n} ways")
+        blk = x.shape[dim] // n
+        return x.narrow(dim, dist.get_rank(group) * blk, blk)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherDim.apply(g.contiguous(), ctx.dim, ctx.group), \
+            None, None
+
+
+def chunk_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, replicated over
+    ``group``; the gradient comes back whole on every rank (an all-gather
+    in the backward)."""
+    return _ChunkDim.apply(x, dim, group)
+
+
+def p2p_route(device_type: str) -> str:
+    """How a point-to-point transfer travels in this world (see
+    :class:`Handoff`): ``"host"`` where gloo carries CUDA tensors (ranks
+    sharing a card), else ``"direct"``."""
+    import torch.distributed as dist
+    return "host" if device_type == "cuda" \
+        and dist.get_backend() == "gloo" else "direct"
+
+
+class Handoff:
+    """Point-to-point transfers between the ranks of one group along a
+    mesh dim ``dim`` (a pipeline's pp group, a ring's seq group): this
+    rank's peers are the ranks at the other positions along ``dim`` with
+    its own coordinates on every other mesh dim. ``route`` says how a
+    tensor travels:
+
+    - ``"direct"``: ``isend`` / ``irecv`` of the tensor itself (the CPU
+      under gloo; NCCL with a card a rank);
+    - ``"host"``: the tensor staged in host memory and sent by gloo
+      (ranks that share a card: gloo's point-to-point reads and writes
+      the buffer from the host, and fails on a CUDA tensor's).
+
+    Sends are non-blocking and waited for at :meth:`flush`; receives
+    block. Each ordered pair of neighbouring positions (the ring's wrap
+    included) talks over a process group of its own, which carries one
+    direction only: NCCL runs a communicator's operations in the order
+    they were issued, so two ranks sending to each other over one
+    communicator would each wait for a receive queued behind its own
+    send. Building the groups is collective: every rank constructs its
+    ``Handoff`` at the same point (under NCCL each group's communicator
+    is made there too, in a fixed order). ``calls`` and ``bytes`` count
+    what this rank sent."""
+
+    def __init__(self, mesh, dim: int, route: str):
+        import torch.distributed as dist
+        self.mesh, self.dim, self.route = mesh, dim, route
+        self._pending: List = []
+        self.calls = 0
+        self.bytes = 0
+        S = mesh.size(dim)
+        me = dist.get_rank()
+        rows = mesh.mesh.movedim(dim, -1).reshape(-1, S).tolist()
+        pairs = sorted({(a, (a + 1) % S) for a in range(S)}
+                       | {((a + 1) % S, a) for a in range(S)})
+        self._groups: Dict[Tuple[int, int], object] = {}
+        for row in rows:
+            for a, b in pairs:
+                if a == b:
+                    continue
+                g = dist.new_group([row[a], row[b]])
+                if me in (row[a], row[b]):
+                    self._groups[(a, b)] = g
+        self.index = mesh.get_coordinate()[dim]
+        # NCCL makes a group's point-to-point communicator at the group's
+        # first send or receive, which both its ranks must reach: made
+        # here by one transfer a group, in the order the groups were
+        # built, so that two ranks whose first transfers fall on
+        # different groups do not each wait in the other's
+        for (a, b), g in self._groups.items():
+            if dist.get_backend(g) == "nccl":
+                z = torch.zeros(1, device=torch.device(
+                    "cuda", torch.cuda.current_device()))
+                if a == self.index:
+                    dist.send(z, self.peer(b), group=g)
+                else:
+                    dist.recv(z, self.peer(a), group=g)
+
+    def peer(self, pos: int) -> int:
+        """The global rank at position ``pos`` along ``dim``."""
+        coord = list(self.mesh.get_coordinate())
+        coord[self.dim] = pos
+        return int(self.mesh.mesh[tuple(coord)])
+
+    def send(self, t: torch.Tensor, pos: int, tag: int) -> None:
+        import torch.distributed as dist
+        t = t.detach().contiguous()
+        if self.route == "host":
+            t = t.to("cpu")
+        work = dist.isend(t, self.peer(pos),
+                          group=self._groups[(self.index, pos)], tag=tag)
+        self._pending.append((work, t))
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+
+    def recv(self, shape, dtype, device, pos: int, tag: int
+             ) -> torch.Tensor:
+        import torch.distributed as dist
+        dev = "cpu" if self.route == "host" else device
+        buf = torch.empty(tuple(shape), dtype=dtype, device=dev)
+        dist.irecv(buf, self.peer(pos),
+                   group=self._groups[(pos, self.index)], tag=tag).wait()
+        return buf.to(device) if self.route == "host" else buf
+
+    def flush(self) -> None:
+        for work, _ in self._pending:
+            work.wait()
+        self._pending = []
 
 
 class SyncStats:

@@ -314,6 +314,23 @@ class DeviceMesh:
         self.__dict__["_mesh"] = m
         return m
 
+    def seq_group(self):
+        """The ring's group on the live mesh: this rank's ranks along
+        the ``seq`` dim (``kernels/ring_attention.SeqGroup``: the process
+        group, the hop to the next rank and from the previous one). Built
+        once; every rank must reach its first use, which makes process
+        groups. None without a seq axis."""
+        if not self.seq_axis:
+            return None
+        cached = self.__dict__.get("_seq_group")
+        if cached is None:
+            from ..kernels.ring_attention import SeqGroup
+            from .distributed import p2p_route
+            cached = SeqGroup(self.mesh, self.seq_axis,
+                              p2p_route(self.devices[0].type))
+            self.__dict__["_seq_group"] = cached
+        return cached
+
     @property
     def seq_degree(self) -> int:
         """Size of the dedicated sequence axis (1 = no seq axis)."""

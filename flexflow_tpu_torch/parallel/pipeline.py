@@ -41,6 +41,8 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from .distributed import Handoff
+
 __all__ = ["Handoff", "gpipe", "gpipe_backward", "schedule_slots",
            "tp_copy", "tp_reduce"]
 
@@ -97,94 +99,6 @@ def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
 
 def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return _TpReduce.apply(x, group)
-
-
-class Handoff:
-    """Point-to-point transfers between the ranks of one pp group: this
-    rank's neighbours are the ranks at the other stages with its own
-    coordinates on every other mesh dim. ``route`` says how a tensor
-    travels:
-
-    - ``"direct"``: ``isend`` / ``irecv`` of the tensor itself (the CPU
-      under gloo; NCCL with a card a rank);
-    - ``"host"``: the tensor staged in host memory and sent by gloo
-      (ranks that share a card: gloo's point-to-point reads and writes
-      the buffer from the host).
-
-    Sends are non-blocking and waited for at :meth:`flush`; receives
-    block. Each ordered pair of neighbouring stages (the ring's wrap
-    included) talks over a process group of its own, which carries one
-    direction only: NCCL runs a communicator's operations in the order
-    they were issued, so two ranks sending to each other over one
-    communicator would each wait for a receive queued behind its own
-    send. Building the groups is collective: every rank constructs its
-    ``Handoff`` at the same point (under NCCL each group's communicator
-    is made there too, in a fixed order). ``calls`` and ``bytes`` count what
-    this rank sent."""
-
-    def __init__(self, mesh, pp_dim: int, route: str):
-        import torch.distributed as dist
-        self.mesh, self.pp_dim, self.route = mesh, pp_dim, route
-        self._pending: List = []
-        self.calls = 0
-        self.bytes = 0
-        S = mesh.size(pp_dim)
-        me = dist.get_rank()
-        rows = mesh.mesh.movedim(pp_dim, -1).reshape(-1, S).tolist()
-        pairs = sorted({(a, (a + 1) % S) for a in range(S)}
-                       | {((a + 1) % S, a) for a in range(S)})
-        self._groups: Dict[Tuple[int, int], object] = {}
-        for row in rows:
-            for a, b in pairs:
-                if a == b:
-                    continue
-                g = dist.new_group([row[a], row[b]])
-                if me in (row[a], row[b]):
-                    self._groups[(a, b)] = g
-        self.stage = mesh.get_coordinate()[pp_dim]
-        # NCCL makes a group's point-to-point communicator at the group's
-        # first send or receive, which both its ranks must reach: made
-        # here by one transfer a group, in the order the groups were
-        # built, so that two ranks whose first transfers fall on
-        # different groups do not each wait in the other's
-        for (a, b), g in self._groups.items():
-            if dist.get_backend(g) == "nccl":
-                z = torch.zeros(1, device=torch.device(
-                    "cuda", torch.cuda.current_device()))
-                if a == self.stage:
-                    dist.send(z, self.peer(b), group=g)
-                else:
-                    dist.recv(z, self.peer(a), group=g)
-
-    def peer(self, stage: int) -> int:
-        coord = list(self.mesh.get_coordinate())
-        coord[self.pp_dim] = stage
-        return int(self.mesh.mesh[tuple(coord)])
-
-    def send(self, t: torch.Tensor, stage: int, tag: int) -> None:
-        import torch.distributed as dist
-        t = t.detach().contiguous()
-        if self.route == "host":
-            t = t.to("cpu")
-        work = dist.isend(t, self.peer(stage),
-                          group=self._groups[(self.stage, stage)], tag=tag)
-        self._pending.append((work, t))
-        self.calls += 1
-        self.bytes += t.numel() * t.element_size()
-
-    def recv(self, shape, dtype, device, stage: int, tag: int
-             ) -> torch.Tensor:
-        import torch.distributed as dist
-        dev = "cpu" if self.route == "host" else device
-        buf = torch.empty(tuple(shape), dtype=dtype, device=dev)
-        dist.irecv(buf, self.peer(stage),
-                   group=self._groups[(stage, self.stage)], tag=tag).wait()
-        return buf.to(device) if self.route == "host" else buf
-
-    def flush(self) -> None:
-        for work, _ in self._pending:
-            work.wait()
-        self._pending = []
 
 
 def _tag(chunk: int, m: int, n_micro: int, backward: bool) -> int:

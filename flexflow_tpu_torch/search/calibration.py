@@ -1,14 +1,18 @@
-"""Measurement-grounded cost-model calibration (v2), on one device.
+"""Measurement-grounded cost-model calibration (v2).
 
-The port of the single-device half of ``flexflow_tpu/search/
-calibration.py``. The analytic cost model prices compute from datasheet
-FLOP/s and bytes; this module measures, on the card, what it cannot
-know: the **host dispatch** cost of one eager op (the port runs the graph
-op by op, so every kernel pays it), the **memory bandwidth** a streaming
-read reaches, and the **attention impls** the kernel tier chooses
-between (``op_attention@xla``: the plain materialized-scores attention;
-``op_attention@flash``: ``flash_attention``, on the card the CUDA forward
-kernel, ``csrc/flash_attention_fwd.cu``). Rows persist in one JSON table
+The port of ``flexflow_tpu/search/calibration.py``. The analytic cost
+model prices compute from datasheet FLOP/s and bytes; this module
+measures, on the card, what it cannot know: the **host dispatch** cost of
+one eager op (the port runs the graph op by op, so every kernel pays it),
+the **memory bandwidth** a streaming read reaches, the **attention
+impls** the kernel tier chooses between (``op_attention@xla``: the plain
+materialized-scores attention; ``op_attention@flash``:
+``flash_attention``, on the card the CUDA forward kernel,
+``csrc/flash_attention_fwd.cu``; ``op_attention@ring``: ring attention
+over the live mesh's ``seq`` group, keyed by its degree) and, over a
+live world, the **collectives** (``coll_*``, keyed by the world's
+transport) and the ring's hop (``coll_ppermute``, over the ``seq``
+group). Rows persist in one JSON table
 keyed ``backend|kind|dtype|shape_class|axis_size`` with backend
 ``cuda`` (``cpu`` when run on the CPU), the JAX package's format and
 keys, so a table written by either package loads in the other. A warm
@@ -19,9 +23,8 @@ The port's table defaults to ``<repo>/.ffcache/torch/calibration_v2.json``
 package's file. Every
 microbenchmark times between CUDA events (the host clock around a device
 sync on the CPU). A CUDA failure raises; only a missing or unreadable
-table file is skipped. Not ported (ROADMAP queue 1 item 5): the
-collective rows (``coll_*``, ``ring``, ``parallel_eff``), which need
-several live devices, and the drift detector's stale-row sidecar.
+table file is skipped. Not ported: the parallel-efficiency rows
+(``parallel_eff``) and the drift detector's stale-row sidecar.
 
 Opt-in: ``FFConfig.calibration_v2 = "true"`` or ``FF_CALIBRATION_V2=1``
 ("auto" honors the env var only).
@@ -209,20 +212,25 @@ def _attn_seq_len(nbytes: int, deg: int = 1) -> int:
     return max(s - s % step, step)
 
 
-def attention_bench_fn(impl: str, s: int, device=None):
+def attention_bench_fn(impl: str, s: int, device=None, seq=None):
     """The zero-argument call ``_bench_attention_impl`` times: one
     causal attention core at sequence length ``s``, b=1, h=8, d=64, f32.
     ``xla`` is the materialized-scores reference (the plain path);
     ``flash`` is ``flash_attention``: the CUDA forward kernel on the
-    card, its plain twin on the CPU."""
+    card, its plain twin on the CPU; ``ring`` is ``ring_attention`` over
+    ``seq`` (a ``SeqGroup``: every rank of it runs the call together),
+    each rank holding its ``s / N`` chunk."""
     import torch
     dev = torch.device(device or "cuda")
     b, h, d = 1, 8, 64
     rng = np.random.default_rng(0)
 
     def arg():
-        return torch.from_numpy((rng.standard_normal((b, h, s, d))
-                                 * 0.02).astype(np.float32)).to(dev)
+        x = (rng.standard_normal((b, h, s, d)) * 0.02).astype(np.float32)
+        if impl == "ring" and seq is not None:
+            c = s // seq.size
+            x = x[:, :, seq.index * c:(seq.index + 1) * c]
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     q, k, v = arg(), arg(), arg()
     sc = 1.0 / math.sqrt(d)
@@ -241,20 +249,24 @@ def attention_bench_fn(impl: str, s: int, device=None):
         def f():
             return flash_attention(q, k, v, causal=True)
     elif impl == "ring":
-        raise NotImplementedError(
-            "ring attention rows need a mesh sequence axis of live "
-            "devices (ROADMAP queue 1 item 4)")
+        if seq is None:
+            raise ValueError("the ring bench needs a mesh's seq group")
+        from ..kernels.ring_attention import ring_attention
+
+        def f():
+            return ring_attention(q, k, v, seq, causal=True)
     else:
         raise ValueError(impl)
     return f
 
 
-def _bench_attention_impl(impl: str, s: int, device=None) -> float:
+def _bench_attention_impl(impl: str, s: int, device=None,
+                          seq=None) -> float:
     """Forward time of one attention core (``attention_bench_fn``) — the
     measured anchor for the kernel tier (``op_attention@<impl>``)."""
     import torch
     with torch.no_grad():
-        return _timed(attention_bench_fn(impl, s, device), device,
+        return _timed(attention_bench_fn(impl, s, device, seq), device,
                       repeats=3)
 
 
@@ -267,15 +279,32 @@ def calibrate_kernel_impls(dmesh=None,
                            ) -> CalibrationTable:
     """Measure (or warm-load) the kernel-impl rows the kernel tier
     prices from: ``op_attention@<impl>`` keyed by the q payload's shape
-    class. ``ring`` needs a mesh sequence axis, which one device lacks,
-    so it records nothing. Called by the search and by
-    ``FFModel._plan_kernels``."""
+    class. ``ring`` runs over a live mesh's ``seq`` group at s = 128 and
+    256 times the seq degree (two lengths, as in the JAX package, so the
+    row interpolates), keyed by the degree and by the world's transport
+    (``world_backend_key``), every rank measuring together; one device,
+    or a mesh without a seq axis, records no ring row. Called by the
+    search and by ``FFModel._plan_kernels``."""
     tab = table if table is not None else CalibrationTable(cache_dir)
     backend = _backend(dmesh)
     device = _device_of(dmesh)
+    live = dmesh is not None and dmesh.live
+    if live:
+        from ..parallel.distributed import rank_device
+        device = rank_device(backend)
     for impl in impls:
         if impl == "ring":
-            continue                   # no seq axis: no ring row
+            if not (live and dmesh.seq_axis):
+                continue               # no seq axis: no ring row
+            seq, deg = dmesh.seq_group(), dmesh.seq_degree
+            key = world_backend_key(dmesh)
+            for s in (128 * deg, 256 * deg):
+                world_get_or_measure(
+                    tab, key, "op_attention@ring", "float32",
+                    shape_class(4 * 8 * 64 * s), deg,
+                    lambda n=s: _bench_attention_impl("ring", n, device,
+                                                      seq))
+            continue
         for s in sorted({_attn_seq_len(nb) for nb in sizes}):
             # keyed by the ACTUAL q payload of the benched shape
             qbytes = 4 * 8 * 64 * s
@@ -427,12 +456,19 @@ class MeshCalibration:
         key = (f"op:{kind}", degree, self.dtype)
         pts = self._pts.get(key)
         if pts is None:
-            pts = self.table.entries(self.backend, f"op_{kind}",
+            pts = self.table.entries(self.op_backend(degree), f"op_{kind}",
                                      self.dtype, axis_size=degree)
             self._pts[key] = pts
         if not pts:
             return None
         return self._interp(pts, nbytes)
+
+    def op_backend(self, degree: int = 0) -> str:
+        """The backend key of an op row: a row keyed by a mesh axis's
+        degree (ring's) was measured over the world, under its transport;
+        the others on the device alone."""
+        return (self.coll_backend or self.backend) if degree \
+            else self.backend
 
     @staticmethod
     def _interp(pts: List[Tuple[int, float]], nbytes: float) -> float:
@@ -586,6 +622,21 @@ def collective_groups(dmesh) -> List[Tuple[int, Any]]:
     return out
 
 
+def _bench_hop(nbytes: int, seq, device) -> float:
+    """Seconds of one ring hop: every rank of ``seq`` (a ``SeqGroup``)
+    sends ``nbytes`` to the next rank and receives as much from the
+    previous one, the unit step of ring attention's K/V rotation (min of
+    5 after 2 warm-ups)."""
+    import torch
+    x = torch.ones((max(nbytes // 4, 1),), dtype=torch.float32,
+                   device=device)
+
+    def run():
+        seq.send_next((x,))
+        seq.recv_prev((x,))
+    return _timed(run, device, warmup=2, repeats=5)
+
+
 def _bench_collective(coll: str, nbytes: int, group, degree: int,
                       device) -> float:
     """Seconds of one ``coll`` of ``nbytes`` payload per group on this
@@ -630,9 +681,11 @@ def calibrate_mesh(dmesh=None, cache_dir: Optional[str] = None,
     the mesh's device, and on a live mesh (a world of ranks) the
     collective rows: each of ``collectives`` at each payload of ``sizes``
     at each degree of :func:`collective_groups`, keyed by the world's
-    transport (:func:`world_backend_key`). A warm table makes this
-    measurement-free. A described mesh gets no collective rows: there
-    are no devices to time them on."""
+    transport (:func:`world_backend_key`), and where the mesh has a
+    ``seq`` axis the ring's hop (``coll_ppermute``, one payload of
+    ``sizes`` a rank, over the seq group, keyed by its degree). A warm
+    table makes this measurement-free. A described mesh gets no
+    collective rows: there are no devices to time them on."""
     with obs_events.span("search.calibrate_mesh"):
         backend = _backend(dmesh)
         device = _device_of(dmesh)
@@ -658,6 +711,13 @@ def calibrate_mesh(dmesh=None, cache_dir: Optional[str] = None,
                             shape_class(nbytes), deg,
                             lambda c=coll, s=nbytes, g=group, d=deg:
                                 _bench_collective(c, s, g, d, device))
+            if dmesh.seq_axis:
+                seq = dmesh.seq_group()
+                for nbytes in sizes:
+                    world_get_or_measure(
+                        tab, key, "coll_ppermute", "float32",
+                        shape_class(nbytes), seq.size,
+                        lambda s=nbytes: _bench_hop(s, seq, device))
         return calib
 
 

@@ -899,7 +899,7 @@ class OpCostModel:
                 if self.calib.op_time(f"attention@{impl_name}", q_bytes,
                                       degree=d) is not None:
                     row = CalibrationTable.key(
-                        self.calib.backend,
+                        self.calib.op_backend(d),
                         f"op_attention@{impl_name}", "float32",
                         shape_class(q_bytes), d)
             self._prov("compute", f"op_attention@{impl_name}", row,

@@ -884,6 +884,164 @@ def banks(payload):
     return out
 
 
+def _seq_mesh(n):
+    """A (1, n) mesh of the world's ``n`` ranks whose trailing dim is
+    ``seq``, as ``--seq-parallel n`` builds it."""
+    import torch
+    from flexflow_tpu_torch.parallel.machine import DeviceMesh, MachineSpec
+    return DeviceMesh(MachineSpec(num_devices=n, generation="cpu-sim"),
+                      devices=[torch.device("cpu")] * n, seq=n)
+
+
+def _seq_calibration(cache):
+    """The ring's calibration rows over the world's seq group: the
+    collective rows with the hop's (``coll_ppermute``) and the
+    kernel-impl rows with ring's, then the same calls again (a warm
+    table measures nothing), and what the cost model reads from them."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.search.calibration import (
+        CalibrationTable, calibrate_kernel_impls, calibrate_mesh)
+    dm = _seq_mesh(dist.get_world_size())
+    tab = CalibrationTable(f"{cache}/calib{dist.get_rank()}")
+    sizes = (1 << 12, 1 << 14)
+    calib = calibrate_mesh(dm, table=tab, sizes=sizes)
+    calibrate_kernel_impls(dm, tab, impls=("ring",))
+    first = tab.measured
+    calibrate_mesh(dm, table=tab, sizes=sizes)
+    calibrate_kernel_impls(dm, tab, impls=("ring",))
+    return {"backend": calib.coll_backend, "measured": first,
+            "again": tab.measured - first,
+            "keys": sorted(k for k in tab._load()
+                           if "ppermute" in k or "@ring" in k),
+            "hop_4k": calib.collective_time("ppermute", 2, 1 << 12),
+            "ring_s512": calib.op_time("attention@ring", 4 * 8 * 64 * 512,
+                                       degree=2),
+            "ring_deg0": calib.op_time("attention@ring", 4 * 8 * 64 * 512)}
+
+
+def _ring_fns(cases):
+    """``ring_attention`` / ``ulysses_attention`` on each case (name, fn,
+    q, k, v, do whole (b, h, s, d) arrays, causal, dtype): this rank's
+    chunk of o and of the q, k, v gradients (do's chunk the cotangent),
+    the ring's hops and bytes and the flash wrapper's plain calls, each
+    forward and backward."""
+    import torch
+    import torch.distributed as dist
+    from flexflow_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    from flexflow_tpu_torch.kernels.ring_attention import (
+        ring_attention, ulysses_attention)
+    flash = (flash_attention, flash_attention_bwd_dq,
+             flash_attention_bwd_dkv)
+    comm = _seq_mesh(dist.get_world_size()).seq_group()
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    out = {}
+    for name, fn, q, k, v, do, causal, dtype in cases:
+        dt = getattr(torch, dtype)
+        c = q.shape[2] // comm.size
+        cut = slice(comm.index * c, (comm.index + 1) * c)
+        q_, k_, v_ = (torch.from_numpy(t[:, :, cut]).to(dt)
+                      .requires_grad_(True) for t in (q, k, v))
+        do_ = torch.from_numpy(do[:, :, cut]).to(dt)
+        hops, nbytes = comm.hops, comm.bytes
+        calls = [f.plain_calls for f in flash]
+        o = fns[fn](q_, k_, v_, comm, causal=causal)
+        fwd = (comm.hops - hops, comm.bytes - nbytes)
+        gq, gk, gv = torch.autograd.grad(o, (q_, k_, v_), do_)
+        out[name] = {
+            "o": _np(o), "dq": _np(gq), "dk": _np(gk), "dv": _np(gv),
+            "dtype": str(o.dtype), "fwd_hops": fwd,
+            "bwd_hops": (comm.hops - hops - fwd[0],
+                         comm.bytes - nbytes - fwd[1]),
+            "flash_calls": [f.plain_calls - n0
+                            for f, n0 in zip(flash, calls)]}
+    return out
+
+
+def _seq_model(kind, argv, batch, seq):
+    """GPT-2 (vocab 64, hidden 32, 4 heads, 2 layers) or LLaMA-tiny with
+    fused attention, GQA (2 kv heads of 4) and RoPE, in f32 under
+    ``argv`` with attention on ``ring``, SGD."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import (GPTConfig, LlamaConfig,
+                                           build_gpt2, build_llama)
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = batch, "cpu", 0
+    cfg.use_bf16_compute, cfg.only_data_parallel = False, True
+    cfg.kernel_impls = "attention:ring"
+    ff = FFModel(cfg)
+    if kind == "gpt":
+        out = build_gpt2(ff, batch, seq, GPTConfig(
+            vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+            max_position=seq, dropout=0.0))
+    else:
+        lc = LlamaConfig.tiny()
+        lc.max_position, lc.num_kv_heads = seq, 2
+        out = build_llama(ff, batch, seq, lc, fused_attention=True)
+    ff.compile(SGDOptimizer(0.05), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff
+
+
+def _seq_models(runs, refs, steps):
+    """Each run (name, model, argv, reference) from the reference's
+    weights: forward, first-step gradients and loss history
+    (``_train_run``), the mesh, the kernel plan, the gradient sync's
+    collectives and the ring's hops a step."""
+    from flexflow_tpu_torch.parallel.distributed import SYNC_STATS
+    out = {}
+    for name, kind, argv, ref_key in runs:
+        ref = refs[ref_key]
+        seq = ref["batches"][0]["input_ids"].shape[1]
+        ff = _seq_model(kind, argv, ref["batches"][0]["input_ids"]
+                        .shape[0], seq)
+        ring = ff.executor._seq_ring
+        SYNC_STATS.reset()
+        hops = ring.hops
+        r = _train_run(ff, ref["params"], ref["layers"], ref["batches"],
+                       steps)
+        # the forward, the first-step gradients, then the steps
+        r["hops"] = ring.hops - hops
+        r["sync_calls"] = SYNC_STATS.calls
+        r["mesh"] = dict(ff.dmesh.axis_sizes)
+        r["plan"] = sorted(set(ff.executor._kernel_impls.values()))
+        out[name] = r
+    return out
+
+
+def _seq_refusals():
+    """What compile refuses over a seq world: a length the seq degree
+    does not divide (the forced ring's predicate)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    cfg = FFConfig.parse_args(["--seq-parallel", "2"])
+    cfg.batch_size, cfg.device, cfg.only_data_parallel = 2, "cpu", True
+    cfg.kernel_impls = "attention:ring"
+    ff = FFModel(cfg)
+    q = ff.create_tensor((2, 15, 16), name="q")
+    ff.multihead_attention(q, q, q, embed_dim=16, num_heads=4)
+    try:
+        ff.compile(SGDOptimizer(0.01), "identity", [])
+    except ValueError as e:
+        return {"indivisible": str(e)}
+    return {"indivisible": None}
+
+
+@scenario
+def seq(payload):
+    """Sequence parallelism over the world: the functions on
+    ``payload["fns"]``, the models of ``payload["runs"]``, where
+    ``payload["refusals"]`` the compile refusals, and where
+    ``payload["cache"]`` names a directory the calibration rows."""
+    out = {"fns": _ring_fns(payload["fns"]),
+           "models": _seq_models(payload["runs"], payload["refs"],
+                                 payload["steps"])}
+    if payload.get("refusals"):
+        out["refusals"] = _seq_refusals()
+    if payload.get("cache"):
+        out["calib"] = _seq_calibration(payload["cache"])
+    return out
+
+
 @scenario
 def suite(payload):
     """Every parallel configuration of the tests in one world: the
