@@ -198,7 +198,24 @@ never JAX, and:
                each rank's step time, peak memory and reshard bytes, the
                collectives' backend and route; then a one-rank NCCL world
                compiles the same model and steps once;
- 17. serve   - the serving stack on the card: (a) BERT-base
+ 17. world   - BERT-base at 8 x 128 (dropout 0.1, Adam 1e-4, flash +
+               fused Adam, bf16) trained dp 2 under --zero by two rank
+               processes sharing the card (gloo), each the member program
+               tools/torch_dist_resilience_smoke.py --worker under a
+               per-process Supervisor (a two-phase multi-host checkpoint
+               every 2 steps), run by the port's WorldSupervisor: (a) a
+               clean world of 6 steps; (b) rank_crash@3:1 in world epoch
+               0: rank 0 exits 17 naming rank 1 within FF_HB_TIMEOUT_S
+               plus a step, the relaunched world resumes from a committed
+               step and ends bit-equal to (a) on both ranks; (c) the same
+               fault shrunk to one rank, restored bit-equal to the step it
+               adopted; (d) crash_after_stage@2:1: tmp-2 debris, rank 0
+               out within the barrier bound, a fresh world quorum-restores
+               step 1; 12 / 12 / 12 / 1 launches in every executed step of
+               every rank; saves, shard bytes, restores, the detection
+               latency, the recovery wall and each epoch's split; then the
+               flash kernels and the fused Adam at this path's shapes;
+ 18. serve   - the serving stack on the card: (a) BERT-base
                (BertConfig.base(), uncut, kernel_impls="attention:flash")
                at s 128 and 512, batch buckets 1, 4 and 8 (one model
                compiled per bucket, as BERT's pooler reshapes to the
@@ -246,7 +263,7 @@ never JAX, and:
                all answered through failover, Autoscaler.tick repairs the
                fleet, each replica's time to ready and the merged fleet
                metrics;
- 18. kernels - one JSON line with each kernel's launches, error and times.
+ 19. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
@@ -257,7 +274,8 @@ drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 build,kernel,frontends`` the frontends, ``--phases
 build,kernel,resilience`` checkpointing, faults and telemetry,
 ``--phases build,kernel,search`` the strategy search, ``--phases
-build,kernel,dist`` the world of two ranks, ``--phases
+build,kernel,dist`` the world of two ranks, ``--phases build,world``
+the supervised world that loses a rank, ``--phases
 build,kernel,serve`` the serving stack; with
 no arguments every phase runs, each phase's wall time printed and each
 phase's models freed before the next. ``--ab-base DIR`` does nothing but time the
@@ -520,6 +538,8 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     (4, 6, 1024, 1024, 64, torch.float32, False, 0.0),
     (4, 6, 1024, 1024, 64, torch.float32, True, 0.0),
     (4, 8, 2048, 2048, 64, torch.bfloat16, False, 0.0),
+    # a rank's block of BERT-base 8x128 under dp 2 (world phase)
+    (4, 12, 128, 128, 64, torch.bfloat16, False, 0.1),
     # the wide kernels (d a runtime argument): head dims 192, 256, 320 and
     # 512 (and 160 padded to 192, 300 padded to 320) in both types, causal
     # and not, at a ragged s
@@ -740,6 +760,7 @@ BH_MAP_CASES = [  # (b, h, s, d, dtype, causal, (h_total, b0, h0))
     (2, 4, 200, 64, torch.float32, False, (12, 5, 8)),
     (2, 4, 128, 128, torch.float32, True, (8, 1, 2)),
     (4, 12, 512, 64, torch.bfloat16, False, (12, 4, 0)),
+    (4, 12, 128, 64, torch.bfloat16, False, (12, 4, 0)),
     (8, 6, 512, 64, torch.bfloat16, False, (12, 0, 6)),
     (2, 12, 512, 64, torch.bfloat16, False, (12, 6, 0)),
     (2, 12, 512, 64, torch.float32, False, (12, 2, 0)),
@@ -7505,9 +7526,339 @@ def phase_seq(smi: str, spec: dict = None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# world: BERT-base trained dp 2 by a supervised world that loses a rank
+# --------------------------------------------------------------------------
+# the member program: tools/torch_dist_resilience_smoke.py --worker, one
+# rank of the world under a per-process Supervisor (its record per world
+# epoch and rank lands in the drill's out/ directory)
+WORLD_TOOL = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tools", "torch_dist_resilience_smoke.py")
+# the path: full-width BERT-base at 8 x 128 (the resilience phase's model:
+# dropout 0.1, Adam 1e-4, flash + fused Adam, bf16 compute) trained dp 2
+# under --zero by two ranks sharing the card (gloo), 2 epochs x 3 batches
+# (6 steps), a two-phase multi-host checkpoint every 2 steps (and at each
+# epoch's end) written by the manager's thread while the next steps run
+# (its barriers go through the coordinator's store), the newest 2 kept
+WORLD_SPEC = {"model": "bert", "bert": "base", "device": "cuda",
+              "bf16": True, "batch": 8, "seq": 128, "dropout": 0.1,
+              "rows": 24, "epochs": 2, "every": 2, "keep": 2,
+              "async_save": True,
+              "argv": ["--only-data-parallel", "--zero"], "mode": "train"}
+# the detector's bounds: a beat every 0.1 s, a peer silent for 5 s is
+# dead, a barrier waits 20 s (a BERT-base save writes ~0.9 GB on rank 0)
+WORLD_ENV = {"FF_HB_INTERVAL_S": "0.1", "FF_HB_TIMEOUT_S": "5",
+             "FF_BARRIER_TIMEOUT_S": "20"}
+# every epoch of a drill, and each drill's world: spawn, compile, restore
+# and steps fit well inside it
+WORLD_TIMEOUT_S = 240
+WORLD_DISK_BYTES = 6e9   # two kept steps of two drills' worlds
+
+
+def world_drill(tmp: str, name: str, spec: dict, fault: str,
+                **ws_kw) -> dict:
+    """One drill: a ``WorldSupervisor`` of two ranks of the member
+    program under the epoch-0 fault plan ``fault``; returns the
+    supervisor, each (epoch, rank)'s record, the launcher's status, the
+    checkpoint directory's listing and the wall time. A world that the
+    policy cannot re-form raises (``WorldFailure``): the phase fails."""
+    from flexflow_tpu_torch.resilience import WorldSupervisor, status
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    env = dict(WORLD_ENV, FF_SMOKE_SPEC=os.path.join(d, "spec.json"),
+               FF_SMOKE_CKPT_DIR=os.path.join(d, "ckpt"),
+               FF_SMOKE_OUT=os.path.join(d, "out"),
+               FF_FAULT_PLAN_EPOCH0=fault, FF_FAULT_PLAN="",
+               FF_DIST_TIMEOUT_S=str(WORLD_TIMEOUT_S // 2),
+               PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    status.reset()
+    ws = WorldSupervisor(
+        lambda rank, n, port, epoch: [sys.executable, WORLD_TOOL,
+                                      "--worker", "--spawned",
+                                      repr(time.time())],
+        nprocs=2, batch_size=spec["batch"], world_timeout_s=WORLD_TIMEOUT_S,
+        env=env, **ws_kw)
+    t0 = time.perf_counter()
+    ws.run()
+    wall = time.perf_counter() - t0
+    recs, alive = {}, {}
+    out = os.path.join(d, "out")
+    for fn in os.listdir(out):
+        with open(os.path.join(out, fn)) as f:
+            if fn.endswith(".json"):
+                r = json.load(f)
+                recs[(r["epoch"], r["rank"])] = r
+            elif fn.startswith("alive_rank"):
+                step, t = f.read().split()
+                rank, epoch = fn[len("alive_rank"):].split("_epoch")
+                alive[(int(epoch), int(rank))] = (int(step), float(t))
+    return {"ws": ws, "recs": recs, "alive": alive, "wall_s": wall,
+            "status": status.snapshot(),
+            "ckpt": sorted(os.listdir(os.path.join(d, "ckpt"))),
+            "dir": d}
+
+
+def world_report(tag: str, dr: dict, smi: str) -> None:
+    """Print a drill's epochs: each epoch's wall split, each save's time,
+    bytes and rate, each restore."""
+    ws = dr["ws"]
+    print(f"[world] {tag}: epochs {[(r['epoch'], r['nprocs'], r['rcs']) for r in ws.report]}"
+          f", {ws.world_restarts} relaunch(es), {ws.shrinks} shrink(s), "
+          f"wall {dr['wall_s']:.1f} s ({smi})")
+    for (epoch, rank), r in sorted(dr["recs"].items()):
+        steps = sum(s["t"] - s["t0"] for s in r["steps"])
+        saves = sum(s["s"] for s in r["save_calls"])
+        end = r.get("done") or (r.get("failure") or {}).get("t") or max(
+            [s["t"] for s in r["steps"]], default=r["main"])
+        joined = r.get("joined", r["main"])
+        split = (f"spawn {r['main'] - r['spawned']:.1f} s, join "
+                 f"{joined - r['main']:.1f} s, compile "
+                 f"{r.get('compiled', joined) - joined:.1f} s, "
+                 f"restore {r.get('restore_s', 0.0):.2f} s, steps "
+                 f"{steps:.2f} s ({len(r['steps'])}), saves in the caller "
+                 f"{saves:.2f} s ({len(r['save_calls'])}), total "
+                 f"{end - r['spawned']:.1f} s")
+        print(f"[world] {tag} epoch {epoch} rank {rank} of {r['world']} "
+              f"({r['mode']}): {split}")
+        calls = {c["step"]: c["s"] for c in r["save_calls"]}
+        for s in r["saves"]:
+            print(f"[world] {tag} epoch {epoch} rank {rank} save of step "
+                  f"{s['step']}: the caller {calls.get(s['step'], 0.0):.3f}"
+                  f" s (host copy), the writer {s['s']:.3f} s (the files"
+                  f"{', barriers, commit' if r['world'] > 1 else ''}), "
+                  f"shard {s['bytes'] / 1e9:.3f} GB, "
+                  f"{s['bytes'] / 1e9 / s['s']:.3f} GB/s ({smi})")
+        if "restore_check" in r:
+            c = r["restore_check"]
+            into = "assembled (no model)" if r["mode"] == "restore" else \
+                f"{len(c['differ'])} of {c['leaves']} live leaves differ " \
+                f"in any bit from the assembled step"
+            print(f"[world] {tag} epoch {epoch} rank {rank} restored step "
+                  f"{c['step']} in {r['restore_s']:.3f} s (quorum of "
+                  f"{r['world']}): {into}; assembled CRC32 "
+                  f"{c['assembled_crc']:#010x} over {c['leaves']} leaves")
+        if "failure" in r:
+            f = r["failure"]
+            print(f"[world] {tag} epoch {epoch} rank {rank} detected "
+                  f"RankFailure(rank={f['rank']}): {f['reason'][:160]}")
+
+
+def world_steps_ok(tag: str, dr: dict, want: dict) -> int:
+    """Every executed step of every member (replays included) launched
+    ``want``; returns the count of steps checked."""
+    n = 0
+    for (epoch, rank), r in sorted(dr["recs"].items()):
+        for s in r["steps"]:
+            check(s["launches"] == want,
+                  f"world {tag} epoch {epoch} rank {rank} step {s['step']} "
+                  f"launched {s['launches']} != {want}")
+            n += 1
+    return n
+
+
+def phase_world(smi: str, spec: dict = None) -> dict:
+    """A world of two ranks on the card (gloo, sharing it) supervised by
+    the port's WorldSupervisor, each rank a member program under a
+    per-process Supervisor, four drills over the path of WORLD_SPEC:
+    (a) clean: 2 ranks, 6 steps; (b) FF_FAULT_PLAN_EPOCH0=rank_crash@3:1
+    with one relaunch: rank 0 exits 17 naming rank 1 within FF_HB_TIMEOUT_S
+    plus a step, epoch 1 relaunches both ranks, resumes from a committed
+    step >= 2 (restored bit-equal to the assembled step) and ends with
+    every param and moment block and the last epoch's loss bit-equal to
+    (a) on both ranks; (c) the same fault under policy "shrink" and no
+    relaunch: epoch 1 is one rank, restores bit-equal to the assembled
+    step it adopted, finishes with a finite loss, elastic_replans == 1;
+    (d) crash_after_stage@2:1 during the save after step 2 of the same
+    model: step 2 left as tmp-2 debris, rank 0 exits 17 within the
+    barrier bound, and the relaunched (fresh) world quorum-restores step
+    1's files on both ranks with equal CRCs. Every executed step of every rank,
+    replays included, launches 12 / 12 / 12 flash kernels and one fused
+    Adam. Then the flash kernels and the fused Adam at the shapes this
+    path gives them."""
+    import tempfile
+    spec = dict(spec or WORLD_SPEC)
+    cuda = spec["device"] == "cuda"
+    layers = spec.get("layers", LAYERS)
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "adam_update": 1}
+    hb = float(WORLD_ENV["FF_HB_TIMEOUT_S"])
+    beat = float(WORLD_ENV["FF_HB_INTERVAL_S"])
+    bar = float(WORLD_ENV["FF_BARRIER_TIMEOUT_S"])
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ff_world_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        check(free >= WORLD_DISK_BYTES or not cuda,
+              f"{free / 1e9:.1f} GB free under {tmp}; the world phase "
+              f"needs {WORLD_DISK_BYTES / 1e9:.0f} GB")
+        # (a) clean
+        a = world_drill(tmp, "clean", spec, "")
+        world_report("(a) clean", a, smi)
+        check(a["ws"].epoch == 0 and a["ws"].world_restarts == 0,
+              f"clean world re-formed: {a['ws'].report}")
+        clean = {r: a["recs"][(0, r)] for r in (0, 1)}
+        n_steps = spec["rows"] // spec["batch"] * spec["epochs"]
+        check(all(len(c["steps"]) == n_steps for c in clean.values()),
+              f"clean world ran {[len(c['steps']) for c in clean.values()]}"
+              f" steps, want {n_steps}")
+        check(clean[0]["loss"] == clean[1]["loss"]
+              and np.isfinite(clean[0]["loss"]),
+              f"clean losses {clean[0]['loss']!r} {clean[1]['loss']!r}")
+        out["clean_steps"] = world_steps_ok("(a)", a, want)
+        step_s = float(np.median([s["t"] - s["t0"] for c in clean.values()
+                                  for s in c["steps"]]))
+        out["step_s"] = step_s
+        out["clean_wall_s"] = a["wall_s"]
+        out["saves"] = [clean[r]["saves"] for r in (0, 1)]
+        out["adam_shapes"] = clean[0]["adam_shapes"]
+        shutil.rmtree(a["dir"], ignore_errors=True)
+
+        # (b) rank 1 dies before step 3; one relaunch
+        b = world_drill(tmp, "faulted", spec, "rank_crash@3:1",
+                        max_world_restarts=1, policy="auto")
+        world_report("(b) rank_crash@3:1", b, smi)
+        ws = b["ws"]
+        check(ws.epoch == 1 and ws.world_restarts == 1 and ws.shrinks == 0
+              and ws.report[0]["rcs"] == [17, 13],
+              f"faulted world: {ws.report}")
+        fail = b["recs"][(0, 0)].get("failure") or {}
+        crash_t = b["alive"][(0, 1)][1]
+        detect = fail.get("t", float("inf")) - crash_t
+        print(f"[world] (b) detection: rank 1 died before step "
+              f"{b['alive'][(0, 1)][0]}; rank 0 raised RankFailure(rank="
+              f"{fail.get('rank')}) {detect:.3f} s later (FF_HB_TIMEOUT_S "
+              f"{hb:.0f} s, a step {step_s:.3f} s, a beat {beat:.1f} s); "
+              f"the error rank 0 caught: {fail.get('error', '')[:200]}")
+        # the detector sees the dead rank's last beat up to a beat late
+        # and scans once a beat: FF_HB_TIMEOUT_S and a step, to two beats
+        # (on the card; a CPU rehearsal's test holds its own bound)
+        check(fail.get("rank") == 1 and b["alive"][(0, 1)][0] == 3
+              and fail.get("restarts") == 0
+              and (detect <= hb + step_s + 2 * beat or not cuda),
+              f"detection: {fail}, {detect:.3f} s")
+        resumed = [b["recs"][(1, r)] for r in (0, 1)]
+        first = min(r["steps"][0]["t"] for r in resumed)
+        recovery = first - crash_t
+        print(f"[world] (b) recovery wall: {recovery:.1f} s from rank 1's "
+              f"death to the first resumed step (epoch 1 resumed from "
+              f"step {resumed[0]['start']})")
+        for r, e1 in enumerate(resumed):
+            check(e1["start"] >= 2 and e1["restore_check"]["differ"] == []
+                  and e1["restore_check"]["step"] == e1["start"],
+                  f"(b) rank {r} resumed {e1.get('start')} "
+                  f"{e1.get('restore_check')}")
+            same = e1["crcs"] == clean[r]["crcs"]
+            print(f"[world] (b) rank {r} vs clean: last epoch's loss "
+                  f"{e1['loss']!r} vs {clean[r]['loss']!r}; "
+                  f"{sum(e1['crcs'][k] == v for k, v in clean[r]['crcs'].items())}"
+                  f" of {len(clean[r]['crcs'])} param and moment blocks "
+                  f"bit-equal")
+            check(same and e1["loss"] == clean[r]["loss"],
+                  f"(b) rank {r} did not end bit-equal to the clean world")
+        out["faulted_steps"] = world_steps_ok("(b)", b, want)
+        out.update(detect_s=detect, recovery_s=recovery,
+                   faulted_wall_s=b["wall_s"],
+                   quorum_restore_s=[e["restore_s"] for e in resumed])
+        shutil.rmtree(b["dir"], ignore_errors=True)
+
+        # (c) the same fault, no relaunch: the world shrinks to one rank
+        c = world_drill(tmp, "shrink", spec, "rank_crash@3:1",
+                        max_world_restarts=0, policy="shrink")
+        world_report("(c) shrink", c, smi)
+        ws = c["ws"]
+        one = c["recs"].get((1, 0), {})
+        check(ws.epoch == 1 and ws.shrinks == 1 and ws.nprocs == 1
+              and ws.report[0]["rcs"] == [17, 13]
+              and c["status"]["elastic_replans"] == 1,
+              f"shrink: {ws.report}, status {c['status']}")
+        check(one.get("world") == 1 and one["start"] >= 2
+              and one["restore_check"]["differ"] == []
+              and np.isfinite(one["loss"]),
+              f"(c) one-rank epoch: {one}")
+        print(f"[world] (c) epoch 1 on one rank restored step "
+              f"{one['start']} bit-equal to the assembled step "
+              f"({one['restore_check']['leaves']} leaves), last epoch's "
+              f"loss {one['loss']!r}; elastic_replans "
+              f"{c['status']['elastic_replans']}")
+        out["shrink_steps"] = world_steps_ok("(c)", c, want)
+        out.update(shrink_loss=one["loss"], shrink_wall_s=c["wall_s"],
+                   adam_shapes_one=one["adam_shapes"])
+        shutil.rmtree(c["dir"], ignore_errors=True)
+
+        # (d) the torn save, then a fresh world restores
+        torn = dict(spec, mode="torn", epoch_modes={"1": "restore"})
+        d = world_drill(tmp, "torn", torn, "crash_after_stage@2:1",
+                        max_world_restarts=1, policy="relaunch")
+        world_report("(d) crash_after_stage@2:1", d, smi)
+        ws = d["ws"]
+        r0 = d["recs"][(0, 0)]
+        waited = r0.get("failure", {}).get("t", float("inf")) \
+            - r0.get("save_t0", 0.0)
+        print(f"[world] (d) rank 0 left the save of step 2 "
+              f"{waited:.2f} s after it began (FF_BARRIER_TIMEOUT_S "
+              f"{bar:.0f} s); checkpoint directory {d['ckpt']}")
+        check(ws.report[0]["rcs"] == [17, 13] and ws.epoch == 1
+              and r0.get("failure", {}).get("rank") == 1
+              and waited <= bar
+              and "tmp-2" in d["ckpt"] and "2" not in d["ckpt"]
+              and "1" in d["ckpt"],
+              f"torn drill: {ws.report}, {r0.get('failure')}, {d['ckpt']}")
+        rs = [d["recs"][(1, r)] for r in (0, 1)]
+        check(all(r["start"] == 1 and r["steps_on_disk"] == [1]
+                  for r in rs)
+              and rs[0]["restore_check"]["assembled_crc"]
+              == rs[1]["restore_check"]["assembled_crc"],
+              f"torn drill restore: {[r.get('restore_check') for r in rs]}")
+        out["torn_steps"] = world_steps_ok("(d)", d, want)
+        out.update(torn_wait_s=waited,
+                   torn_restore_s=[r["restore_s"] for r in rs],
+                   torn_wall_s=d["wall_s"])
+        shutil.rmtree(d["dir"], ignore_errors=True)
+    print(f"[world] executed steps checked at {want} launches each: "
+          f"(a) {out['clean_steps']}, (b) {out['faulted_steps']}, (c) "
+          f"{out['shrink_steps']}, (d) {out['torn_steps']}")
+    if not cuda:
+        return out
+    # the kernels at the shapes this path gives them: flash at a rank's
+    # b4 h12 s128 d64 bf16 with dropout 0.1, and the fused Adam over a
+    # rank's leaves under ZeRO (each moment's block) and over all of
+    # BERT-base's (the shrunken world's one rank)
+    free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f = out["fwd_rank"] = fwd_times(128, 0.1, gen, b=4)
+    bw = out["bwd_rank"] = bwd_times(128, 0.1, gen, b=4)
+    print(f"[world] flash at a dp-2 rank's b4 h12 s128 d64 bf16, dropout "
+          f"0.1: forward {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, SDPA "
+          f"{f['library_ms']:.4f}, bound {f['bound_ms']:.4f} "
+          f"{f['bound_by']}), dq {bw['dq_ms']:.4f} ms (plain "
+          f"{bw['dq_plain_ms']:.4f}, bound {bw['dq_bound'][0]:.4f}), dk/dv "
+          f"{bw['dkv_ms']:.4f} ms (plain {bw['dkv_plain_ms']:.4f}, bound "
+          f"{bw['dkv_bound'][0]:.4f}), SDPA's backward "
+          f"{bw['sdpa_bwd_ms']:.4f} ms ({smi})")
+    free_cuda()
+    for key, shapes in (("adam_zero_rank", out["adam_shapes"]),
+                        ("adam_one_rank", out["adam_shapes_one"])):
+        shapes = [tuple(x) for x in shapes]
+        differing = adam_identical(gen, shapes)
+        check(differing == 0, f"world: fused Adam over {key}'s leaves")
+        free_cuda()
+        a = out[key] = adam_times(gen, shapes)
+        a["leaves"] = len(shapes)
+        print(f"[world] adam_update over {key.replace('_', ' ')}'s leaves: "
+              f"{a['numel']} f32 parameters in {len(shapes)} leaves, one "
+              f"launch, bit-identical to the plain version: kernel "
+              f"{a['ms']:.4f} ms, plain {a['plain_ms']:.4f} ms, "
+              f"torch._fused_adam_ {a['library_ms']:.4f} ms, bound "
+              f"{a['bound_ms']:.4f} ms (bytes) ({smi})")
+        free_cuda()
+    return out
+
+
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience", "search", "dist", "pipe", "seq", "serve")
+          "resilience", "search", "dist", "pipe", "seq", "world", "serve")
 
 
 def main() -> int:
@@ -7580,6 +7931,7 @@ def main() -> int:
         if args.dist_profile else None)
     run("pipe", phase_pipe, smi)
     run("seq", phase_seq, smi)
+    run("world", phase_world, smi)
     run("serve", phase_serve, smi)
     if phases != set(PHASES):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")

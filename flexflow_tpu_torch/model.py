@@ -584,7 +584,21 @@ class FFModel:
             raise ValueError(
                 "--tp does not compose with --pp directly; use --pp-tp "
                 "for Megatron tp inside pipeline stages")
-        maybe_initialize(cfg, self.device.type)
+        if maybe_initialize(cfg, self.device.type):
+            # a world of ranks: start the failure-detection layer
+            # (per-rank heartbeats + bounded barriers) beside it — every
+            # later cross-rank wait of the resilience layer goes through it
+            from .resilience import coord
+            c = coord.ensure_started(cfg)
+            try:
+                # clock handshake for cross-rank trace alignment
+                # (tools/fftrace.py): one bounded barrier, every rank
+                # anchors its monotonic clock at the release instant.
+                # Unconditional — every rank reaches compile, so the
+                # rendezvous can never depend on per-rank trace flags
+                c.clock_sync("compile")
+            except Exception:  # noqa: BLE001 — alignment is best-effort
+                pass
         world = process_count()
         if machine_spec is not None:
             spec = machine_spec
@@ -1177,7 +1191,8 @@ class FFModel:
         # clauses fire BEFORE the step runs, NaN/Inf corruption clauses
         # poison the params after it; active() is one cached check, so
         # fault-free runs pay nothing measurable
-        from .resilience import faults
+        from .resilience import coord, faults
+        coord.check()  # surface a detected peer-rank failure pre-step
         if faults.active():
             faults.raise_pending(self._step)
         self.params, self.opt_state, self.state, bm = step_fn(
@@ -1315,15 +1330,13 @@ class FFModel:
     def save_checkpoint(self, directory: str, step: Optional[int] = None,
                         max_to_keep: int = 3):
         """Save params, optimizer state, op state and step to
-        ``directory`` (``runtime/checkpoint.py``). Inside ``fit`` (an
-        epoch callback) the pending step metrics are flushed first, and
-        a non-finite one raises ``NonFiniteMetrics``: a poisoned state
-        never reaches a checkpoint."""
+        ``directory`` (``runtime/checkpoint.py``; over a world of ranks
+        the two-phase multi-host format, a collective: every rank calls,
+        and ``directory`` must be one that every rank reads). Inside
+        ``fit`` (an epoch callback) the pending step metrics are flushed
+        first, and a non-finite one raises ``NonFiniteMetrics``: a
+        poisoned state never reaches a checkpoint."""
         from .runtime.checkpoint import save_model_checkpoint
-        if self.executor is not None and self.executor.strategy is not None:
-            raise NotImplementedError(
-                "a checkpoint of a world of ranks needs the multi-host "
-                "format (ROADMAP queue 1 item 4.5)")
         buf = self._metrics_buffer
         if buf is not None:
             buf.flush()
@@ -1333,7 +1346,9 @@ class FFModel:
     def restore_checkpoint(self, directory: str,
                            step: Optional[int] = None) -> int:
         """Restore the newest valid step (or ``step``) of ``directory``
-        into this compiled model, in place; returns the step."""
+        into this compiled model, in place; returns the step. Over a
+        world the default restore is collective (every rank adopts the
+        newest step that every rank verifies)."""
         from .runtime.checkpoint import restore_model_checkpoint
         return restore_model_checkpoint(self, directory, step)
 

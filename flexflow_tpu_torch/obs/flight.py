@@ -1,8 +1,6 @@
 """Flight recorder: a bounded black-box dump at the moment of failure.
 
-The port of ``flexflow_tpu/obs/flight.py``; the coordinator's clock
-anchor (``_clock_anchor``) and the ``RankFailure`` trigger come with the
-port of ``resilience/coord.py``.
+The port of ``flexflow_tpu/obs/flight.py``.
 
 When a rank dies — a peer :class:`RankFailure`, a NaN rollback, an
 unhandled crash — the evidence is usually gone with the process: the
@@ -26,9 +24,13 @@ mirrored into ``resilience.status`` (``last_flight_record``) so
 ``/healthz`` references it, and the ``WorldSupervisor`` attaches the
 per-epoch flight files to its per-rank report.
 
-Triggers wired in the port: ``resilience/supervisor.py`` (NaN
-rollback), and an optional ``sys.excepthook`` chain for unhandled
-crashes (:func:`install_excepthook`, installed by the Supervisor).
+Triggers: ``resilience/coord.py`` (every detected
+:class:`RankFailure`), ``resilience/supervisor.py`` (NaN rollback; the
+``WorldSupervisor`` writes a launcher-side record for a failed world
+epoch), and a ``sys.excepthook`` chain for unhandled crashes
+(:func:`install_excepthook`, installed by the Supervisor and by the
+coordinator of a world member). A record carries the coordinator's
+clock anchor, when its handshake ran.
 """
 from __future__ import annotations
 
@@ -88,10 +90,14 @@ def flight_record(reason: str, exc: Optional[BaseException] = None,
 
 
 def _clock_anchor() -> Optional[Dict[str, Any]]:
-    """The coordinator's KV-handshake clock anchor, when one ran. The
-    coordinator (``resilience/coord.py``) is not ported yet, so there is
-    none: the branch that reads it comes with that port."""
-    return None
+    """The coordinator's KV-handshake clock anchor, when one ran —
+    lets fftrace place this record's spans on the merged timeline."""
+    try:
+        from ..resilience import coord
+        c = coord.get()
+        return getattr(c, "clock_anchor", None) if c is not None else None
+    except Exception:  # noqa: BLE001
+        return None
 
 
 def dump_flight_record(reason: str,

@@ -18,9 +18,9 @@ JAX package's.
 Per-rank dumps: :func:`dump_rank_trace` writes one RAW ring dump per
 rank (``.ffcache/trace_rank<r>_epoch<e>.json``; the rank is
 ``torch.distributed.get_rank()`` when a process group exists, else 0)
-in the format ``tools/fftrace.py`` merges. The coordinator's clock
-anchor, which places each rank's clock on one timeline, comes with the
-port of ``resilience/coord.py``.
+in the format ``tools/fftrace.py`` merges, with the coordinator's clock
+anchor (``resilience.coord.Coordinator.clock_sync``), which places each
+rank's clock on one timeline.
 """
 from __future__ import annotations
 
@@ -179,8 +179,13 @@ def rank_trace_path(rank: int, epoch: int,
 def dump_rank_trace(path: Optional[str] = None,
                     cache_dir: Optional[str] = None) -> Optional[str]:
     """Dump this rank's raw ring (events + counters + drop count) with
-    its identity (rank, world epoch), for the
-    ``tools/fftrace.py`` cross-rank merge. Returns the path (None on
+    its identity (rank, world epoch) and clock anchor, for the
+    ``tools/fftrace.py`` cross-rank merge. The anchor is the
+    ``(perf_counter, wall)`` pair sampled at the coordinator's
+    epoch-scoped barrier release (``Coordinator.clock_sync``) — the
+    same physical instant on every rank, which is what lets the merger
+    place each rank's monotonic span clocks on one timeline without
+    trusting cross-host wall clocks. Returns the path (None on
     failure; dumping telemetry must never kill the training run)."""
     try:
         from ..resilience import status
@@ -198,8 +203,15 @@ def dump_rank_trace(path: Optional[str] = None,
             "counters": snap["counters"],
             "dropped": snap["dropped"],
         }
-        # the coordinator's clock anchor ("clock") joins the dump with
-        # the port of resilience/coord.py
+        try:
+            from ..resilience import coord
+            c = coord.get()
+            anchor = getattr(c, "clock_anchor", None) \
+                if c is not None else None
+            if anchor:
+                doc["clock"] = dict(anchor)
+        except Exception:  # noqa: BLE001 — anchor is best-effort
+            pass
         if path is None:
             path = rank_trace_path(rank, epoch, cache_dir)
         os.makedirs(os.path.dirname(os.path.abspath(path)),

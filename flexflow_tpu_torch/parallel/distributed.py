@@ -93,6 +93,8 @@ def rank_device(device_type: str, rank: Optional[int] = None
 #: collective -> the route it takes in this process's world
 ROUTES: Dict[str, str] = {}
 _ROUTE_LIB = None
+#: the ``host:port`` this process's world met at (its TCPStore)
+_ADDRESS = ""
 
 
 def gather_by_c10d(input: torch.Tensor, group_size: int,
@@ -396,6 +398,8 @@ def maybe_initialize(config=None, device_type: str = "cuda") -> bool:
     init = addr if "://" in addr else f"tcp://{addr}"
     dist.init_process_group(backend, init_method=init, world_size=nproc,
                             rank=pid, timeout=timedelta(seconds=timeout_s()))
+    global _ADDRESS
+    _ADDRESS = init.split("://", 1)[1]
     ROUTES.clear()
     ROUTES.update({c: backend for c in (
         "all_reduce", "broadcast", "all_gather", "reduce_scatter",
@@ -405,6 +409,12 @@ def maybe_initialize(config=None, device_type: str = "cuda") -> bool:
     log.info("distributed: rank %d of %d, backend %s, routes %s", pid,
              nproc, backend, ROUTES)
     return nproc > 1
+
+
+def coordinator_address() -> str:
+    """``host:port`` of the store this process's world met at (rank 0
+    serves it); empty outside a world."""
+    return _ADDRESS if is_initialized() else ""
 
 
 # ----------------------------------------------------------------------
@@ -432,6 +442,17 @@ def shard_bounds(global_shape: Sequence[int], mesh, placements
         step = (hi - lo) // n
         bounds[d] = [lo + coord[m] * step, lo + (coord[m] + 1) * step]
     return tuple((lo, hi) for lo, hi in bounds)
+
+
+def block_owner(mesh, placements) -> int:
+    """The lowest rank that holds the same block as this rank under
+    ``placements``: the ranks that differ from it only along mesh dims
+    the value is not sharded over hold the same block."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    at = tuple(coord[m] if isinstance(p, Shard) else slice(None)
+               for m, p in enumerate(placements))
+    return int(mesh.mesh[at].min())
 
 
 def local_row_range(mesh, placements, global_shape) -> Tuple[int, int]:

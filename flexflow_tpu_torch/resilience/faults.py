@@ -1,14 +1,14 @@
 """Deterministic fault injection for resilience testing.
 
 The port of ``flexflow_tpu/resilience/faults.py``: the same plan
-grammar, every kind's parser and the same one-shot semantics. In one
-process the firing sites of ``crash``, ``nan``, ``inf``,
-``corrupt_ckpt``, ``truncate_ckpt``, ``infer_fail``, ``infer_crash`` and
-``lose_device`` are live; the rank-scoped kinds fire where their rank
-matches this process's (``torch.distributed.get_rank()``, 0 without a
-process group); ``corrupt_shard`` and ``crash_after_stage`` parse, and
-their firing sites come with the multi-host checkpoint writer (ROADMAP
-queue 1 item 4); ``degrade_link`` and ``workload_shift`` parse and
+grammar, every kind's parser and the same one-shot semantics. The
+firing sites of ``crash``, ``nan``, ``inf``, ``corrupt_ckpt``,
+``truncate_ckpt``, ``infer_fail``, ``infer_crash`` and ``lose_device``
+are live; the rank-scoped kinds fire where their rank matches this
+process's (``torch.distributed.get_rank()``, 0 without a process group),
+``corrupt_shard`` and ``crash_after_stage`` in the multi-host checkpoint
+writer (``runtime/checkpoint.py``); ``FF_FAULT_PLAN_EPOCH0`` arms a plan
+in world epoch 0 only; ``degrade_link`` and ``workload_shift`` parse and
 record, and their consumers (the cost model, the replan controller)
 come with the ports of the search and of replanning.
 
@@ -126,8 +126,8 @@ _KINDS = {
     "workload_shift": "workload_shift", "shift": "workload_shift",
 }
 
-#: exit code of an injected hard rank crash (``rank_crash``;
-#: ``crash_after_stage`` in the JAX package): ``os._exit`` with no cleanup, so to the rest
+#: exit code of an injected hard rank crash (``rank_crash`` /
+#: ``crash_after_stage``): ``os._exit`` with no cleanup, so to the rest
 #: of the world it is indistinguishable from a SIGKILL'd process.
 RANK_CRASH_EXIT = 13
 
@@ -208,11 +208,16 @@ class FaultPlan:
 
     @classmethod
     def from_env(cls) -> "FaultPlan":
-        """``FF_FAULT_PLAN``. (The JAX package also reads
-        ``FF_FAULT_PLAN_EPOCH0`` in world epoch 0, for relaunched
-        worlds; that comes with ``WorldSupervisor``, ROADMAP queue 1
-        item 4.)"""
-        return cls.parse(os.environ.get(ENV_VAR, ""))
+        """``FF_FAULT_PLAN`` plus — only in world epoch 0 —
+        ``FF_FAULT_PLAN_EPOCH0``. The epoch-gated variant is how a
+        world-supervised run injects a rank fault exactly once: clauses
+        fire once per *process*, so a relaunched world (fresh processes,
+        same environment) would re-fire a plain ``FF_FAULT_PLAN`` clause
+        forever; the epoch-0 plan dies with the epoch it wounded."""
+        parts = [os.environ.get(ENV_VAR, "")]
+        if int(os.environ.get("FF_WORLD_EPOCH", "0") or 0) == 0:
+            parts.append(os.environ.get(ENV_VAR + "_EPOCH0", ""))
+        return cls.parse(";".join(p for p in parts if p))
 
     # ------------------------------------------------------------------
     def unfired(self) -> int:
@@ -466,3 +471,22 @@ def maybe_corrupt_checkpoint(step: int, step_dir: str) -> None:
         if os.path.exists(meta):
             with open(meta, "r+b") as f:
                 f.truncate(max(1, os.path.getsize(meta) // 2))
+
+
+def maybe_crash_after_stage(step: int) -> None:
+    """``crash_after_stage@N:r``: die between staging this rank's shard
+    (fsynced, debris-only) and the manifest commit — the torn-multi-host-
+    checkpoint drill. Called by the two-phase writer right after the
+    shard fsync."""
+    if get_plan().fire("crash_after_stage", step, rank=_rank()) \
+            is not None:
+        os._exit(RANK_CRASH_EXIT)
+
+
+def maybe_corrupt_shard(step: int, shard_path: str) -> None:
+    """``corrupt_shard@N:r``: flip bytes in THIS rank's shard of the
+    committed multi-host checkpoint ``step`` — quorum restore must rule
+    the step out on every rank."""
+    if get_plan().fire("corrupt_shard", step, rank=_rank()) is not None:
+        if os.path.exists(shard_path):
+            _flip_bytes(shard_path)

@@ -2,8 +2,9 @@
 resilience telemetry.
 
 The port of ``flexflow_tpu/resilience/status.py``, unchanged (plain
-Python). The world and replan fields stay at their single-process
-values until the multi-process and replanning layers are ported.
+Python). The coordinator (``resilience/coord.py``) sets the world
+fields as it starts and as it detects failures; the replan fields stay
+at their initial values until replanning is ported.
 
 ``obs.events`` counters vanish when tracing is disabled; a ``/healthz``
 probe or a test asserting "the supervisor really did restart once" needs

@@ -44,11 +44,23 @@ def run_world(name: str, world: int, payload: Any = None,
         return _launch(name, world, payload, timeout)
 
 
+def run_world_raw(name: str, world: int, payload: Any = None,
+                  timeout: float = 90.0, env: Dict[str, str] = None):
+    """``(exit codes, results, logs)`` of scenario ``name`` in a world
+    whose ranks may fail on purpose (the fault drills): nothing raises
+    on a rank's exit code, a rank that wrote no result has None, and
+    ``env`` joins every rank's environment. Every rank runs to its own
+    end within ``timeout`` (a survivor's bounded detection is what the
+    drills test)."""
+    return _launch(name, world, payload, timeout, env=env, check=False)
+
+
 class _PortTaken(AssertionError):
     pass
 
 
-def _launch(name: str, world: int, payload: Any, timeout: float):
+def _launch(name: str, world: int, payload: Any, timeout: float,
+            env: Dict[str, str] = None, check: bool = True):
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
             pickle.dump(payload, f)
@@ -56,6 +68,7 @@ def _launch(name: str, world: int, payload: Any, timeout: float):
         procs = []
         for r in range(world):
             rank_env = dict(os.environ)
+            rank_env.update(env or {})
             rank_env.update(FF_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                             FF_NUM_PROCESSES=str(world),
                             FF_PROCESS_ID=str(r),
@@ -81,6 +94,18 @@ def _launch(name: str, world: int, payload: Any, timeout: float):
                     p.kill()
                     p.wait()
         codes = [p.returncode for p in procs]
+        if not check:
+            logs, out = [], []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    logs.append(f.read())
+                res = os.path.join(tmp, f"result{r}.pkl")
+                if os.path.exists(res):
+                    with open(res, "rb") as f:
+                        out.append(pickle.load(f))
+                else:
+                    out.append(None)
+            return codes, out, logs
         if any(codes):
             tails = []
             for r in range(world):
@@ -134,6 +159,15 @@ def _np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return x
+
+
+def _local_state(ff) -> dict:
+    """This rank's blocks of the params and Adam's moments, copied."""
+    return {f"{slot}/{ln}/{wn}": t.to_local().detach().clone()
+            for slot, tree in (("params", ff.params),
+                               ("m", ff.opt_state["m"]),
+                               ("v", ff.opt_state["v"]))
+            for ln, ws in tree.items() for wn, t in ws.items()}
 
 
 def _tree_np(tree):
@@ -212,15 +246,17 @@ def bert(payload):
         mha = next(l for l in ff.executor.program.layers
                    if l.op_type.name == "OP_MULTIHEAD_ATTENTION")
         r["wq_local"] = tuple(ff.params[mha.name]["wq"].to_local().shape)
-        # the weights API returns global arrays; a world's checkpoint
-        # waits for the multi-host format
+        # the weights API returns global arrays, and so does a world's
+        # checkpoint (the multi-host format, in the directory the ranks
+        # share), read back whole by the quorum restore
         r["wq_global"] = ff.get_weights(mha.name, "wq").shape
-        try:
-            import tempfile
-            ff.save_checkpoint(tempfile.mkdtemp())
-            r["save"] = "saved"
-        except NotImplementedError as e:
-            r["save"] = str(e)
+        from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+        d = os.path.join(os.getcwd(), f"ckpt_bert_{name}")
+        ff.save_checkpoint(d)
+        state, meta = CheckpointManager(d).restore()
+        wq = state["params"][mha.name]["wq"]
+        r["save"] = (meta["step"], meta["world_size"], wq.shape,
+                     bool((wq == ff.get_weights(mha.name, "wq")).all()))
         out[name] = r
     return out
 
@@ -649,12 +685,27 @@ def sync(payload):
             out["refused"][tag] = str(e)
     for name, ff in models.items():
         if name in payload.get("save", ()):
-            import tempfile
+            # a ZeRO world's checkpoint (the directory the ranks share)
+            # restores into its model: every weight and moment block
+            # comes back bit for bit
+            d = os.path.join(os.getcwd(), f"ckpt_{name}")
             try:
-                ff.save_checkpoint(tempfile.mkdtemp())
+                ff.save_checkpoint(d)
                 out["refused"]["save_" + name] = None
             except NotImplementedError as e:
                 out["refused"]["save_" + name] = str(e)
+                continue
+            before = _local_state(ff)
+            with torch.no_grad():
+                for tree in (ff.params, ff.opt_state["m"],
+                             ff.opt_state["v"]):
+                    for ws in tree.values():
+                        for t in ws.values():
+                            t.to_local().zero_()
+            step = ff.restore_checkpoint(d)
+            after = _local_state(ff)
+            out["restored_" + name] = (step, len(before), sum(
+                not torch.equal(before[k], after[k]) for k in before))
     if payload.get("groups"):
         mesh = next(iter(models.values())).dmesh.mesh
         names = list(mesh.mesh_dim_names)
@@ -1049,6 +1100,180 @@ def suite(payload):
     return {"bert": bert(payload["bert"]),
             "presets": presets(payload["presets"]),
             "searched": searched(payload["searched"])}
+
+
+# ----------------------------------------------------------------------
+# the multi-host checkpoint and the fault drills
+# ----------------------------------------------------------------------
+
+def ckpt_state(step: int):
+    """The state the checkpoint scenarios save at ``step``, as host
+    arrays: ``w`` (8, 4) and ``h`` (4, 2, bf16) are sharded over the
+    ranks by rows, ``r`` (3,) is replicated, ``bias`` a plain scalar (the
+    JAX package's torn-checkpoint worker saves the same ``w`` and
+    ``bias``)."""
+    import numpy as np
+    import torch
+    return {"w": np.arange(32, dtype=np.float32).reshape(8, 4)
+            * float(step + 1),
+            "h": torch.arange(8, dtype=torch.float32).reshape(4, 2)
+            .div(4).add(step).bfloat16(),
+            "r": np.full(3, float(step), np.float32),
+            "bias": np.float32(step)}
+
+
+def _placed_state(step: int, mesh):
+    from torch.distributed.tensor import Replicate, Shard
+    from flexflow_tpu_torch.parallel.distributed import put_global
+    st = ckpt_state(step)
+    return {"w": put_global(st["w"], mesh, [Shard(0)]),
+            "h": put_global(st["h"], mesh, [Shard(0)]),
+            "r": put_global(st["r"], mesh, [Replicate()]),
+            "bias": st["bias"]}
+
+
+def _shard_blocks(path: str) -> dict:
+    """leaf -> the [start, stop] index of every block in one shard file."""
+    from flexflow_tpu_torch.runtime.checkpoint import _Unpickler
+    with open(path, "rb") as f:
+        tree = _Unpickler(f).load()
+    out = {}
+
+    def walk(t, key):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{key}/{k}" if key else k)
+        else:
+            out[key] = [idx for idx, _ in t.blocks]
+    walk(tree, "")
+    return out
+
+
+def mlp_model(argv, device="cpu", seed=0, opt="adam"):
+    """The JAX package's resilience smoke MLP: 16 -> 32 relu -> 4
+    softmax, batch 8, under ``argv`` (data parallel over a world)."""
+    from flexflow_tpu_torch import (ActiMode, AdamOptimizer, FFConfig,
+                                    FFModel, SGDOptimizer)
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = 8, device, seed
+    cfg.use_bf16_compute = False
+    ff = FFModel(cfg)
+    x = ff.create_tensor((8, 16), name="x")
+    t = ff.dense(x, 32, activation=ActiMode.AC_MODE_RELU)
+    ff.softmax(ff.dense(t, 4))
+    ff.compile(SGDOptimizer(lr=0.1) if opt == "sgd"
+               else AdamOptimizer(alpha=1e-2, epsilon=1e-4),
+               "sparse_categorical_crossentropy", [])
+    return ff
+
+
+def mlp_data(rows: int = 48):
+    import numpy as np
+    rng = np.random.default_rng(0)   # same data on every rank
+    return (rng.normal(size=(rows, 16)).astype(np.float32),
+            rng.integers(0, 4, size=rows).astype(np.int32))
+
+
+def host_state(ff) -> dict:
+    """The params and Adam's moments whole, as host arrays (a DTensor is
+    gathered: a collective)."""
+    return {slot: _tree_np(tree) for slot, tree in (
+        ("params", ff.params), ("m", ff.opt_state["m"]),
+        ("v", ff.opt_state["v"]))}
+
+
+def _mlp_steps(ff, n: int) -> None:
+    xs, ys = mlp_data()
+    loader = ff._combined_loader(xs, ys, shuffle=False)
+    step = ff.executor.make_train_step()
+    for _ in range(n):
+        ff._run_train_step(step, loader.next_batch())
+
+
+@scenario
+def ckpt_world(payload):
+    """The multi-host format over the world: (a) ``ckpt_state`` placed
+    on the world's mesh saved at steps 1 and 2 into ``payload["dir"]``
+    /plain (each rank's shard blocks per leaf, then the quorum restore);
+    (b) the MLP trained two Adam steps under ``--zero`` and saved into
+    /zero (the whole state, gathered; the moments' shard blocks); (c) a
+    fresh MLP of the same build restoring it (every local block
+    bit-equal to the saved model's); (d) the one-process checkpoint at
+    ``payload["single"]`` restored onto this world, gathered whole."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.parallel.distributed import process_index
+    from flexflow_tpu_torch.resilience import coord
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    rank = process_index()
+    coord.ensure_started()
+    mesh = _world_mesh((2,)).mesh
+    plain = os.path.join(payload["dir"], "plain")
+    mgr = CheckpointManager(plain)
+    mgr.save(1, _placed_state(1, mesh), metadata={"tag": "one"})
+    mgr.save(2, _placed_state(2, mesh), metadata={"tag": "two"})
+    out = {"blocks": _shard_blocks(os.path.join(plain, "2",
+                                                f"shard-{rank}.pkl"))}
+    state, meta = mgr.restore()
+    out["restored"] = (meta["step"], meta["tag"], meta["world_size"], {
+        k: np.asarray(v) for k, v in state.items()})
+    zdir = os.path.join(payload["dir"], "zero")
+    ff = mlp_model(["--only-data-parallel", "--zero"])
+    _mlp_steps(ff, 2)
+    ff.save_checkpoint(zdir)
+    out["zero_state"] = host_state(ff)
+    out["zero_blocks"] = _shard_blocks(os.path.join(zdir, "2",
+                                                    f"shard-{rank}.pkl"))
+    out["zero_placements"] = {
+        f"{slot}/{ln}/{wn}": str(t.placements)
+        for slot, tree in (("params", ff.params), ("m", ff.opt_state["m"]))
+        for ln, ws in tree.items() for wn, t in ws.items()}
+    import json
+    with open(os.path.join(zdir, "2", "meta.json")) as f:
+        zmeta = json.load(f)
+    out["zero_meta"] = {k: zmeta.get(k) for k in ("world_size",
+                                                  "opt_shardings")}
+    out["zero_meta"]["strategy_ops"] = len(zmeta["strategy"] or {})
+    before = _local_state(ff)
+    fresh = mlp_model(["--only-data-parallel", "--zero"], seed=5)
+    out["fresh_step"] = fresh.restore_checkpoint(zdir)
+    after = _local_state(fresh)
+    out["fresh_differ"] = sorted(k for k in before
+                                 if not torch.equal(before[k], after[k]))
+    one = mlp_model(["--only-data-parallel", "--zero"], seed=7)
+    out["single_step"] = one.restore_checkpoint(payload["single"])
+    out["single_state"] = host_state(one)
+    return out
+
+
+@scenario
+def torn(payload):
+    """The JAX package's torn-checkpoint drill on the port: in mode
+    "train" save ``ckpt_state`` at steps 1 and 2 (a fault plan in the
+    environment tears or corrupts step 2) under ``run_world_member``; in
+    mode "restore" quorum-restore and report the adopted step, a CRC of
+    the assembled ``w`` and the steps on disk."""
+    import zlib
+
+    import numpy as np
+    from flexflow_tpu_torch.resilience import coord, run_world_member
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    coord.ensure_started()
+    mesh = _world_mesh((2,)).mesh
+    mgr = CheckpointManager(payload["dir"])
+    if payload["mode"] == "train":
+        def run():
+            mgr.save(1, _placed_state(1, mesh), metadata={"tag": "good"})
+            # crash_after_stage@2:1 fires inside this save on rank 1
+            mgr.save(2, _placed_state(2, mesh), metadata={"tag": "torn"})
+            return "TRAIN_OK"
+        return run_world_member(run)
+    state, meta = mgr.restore()
+    w = np.asarray(state["w"])
+    return {"step": meta["step"],
+            "crc": zlib.crc32(w.tobytes()) & 0xFFFFFFFF,
+            "bias": float(np.asarray(state["bias"])),
+            "steps": sorted(mgr.all_steps())}
 
 
 if __name__ == "__main__":

@@ -38,6 +38,7 @@ def _port_sources():
     yield os.path.join(ROOT, "tools", "torch_sass_counts.py")
     yield os.path.join(ROOT, "tools", "torch_profile_fwd_phases.py")
     yield os.path.join(ROOT, "tools", "torch_nmt_f32_sensitivity.py")
+    yield os.path.join(ROOT, "tools", "torch_dist_resilience_smoke.py")
 
 
 def _forbidden(module: str) -> bool:

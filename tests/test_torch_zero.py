@@ -11,9 +11,10 @@ into many small collectives), their moments stay sharded,
 and against the JAX package's ``--zero`` run on a mesh of 2 CPU devices
 the forward is within 2e-3, the first-step gradients within 1e-5 + 1e-4
 relative, the loss histories within 1e-4. An imported per-parameter
-assignment shards exactly the leaves it names; ``zero_policy`` memory and
-a world's checkpoint of sharded moments are refused, naming ROADMAP
-queue 1 items 5 and 4.5.
+assignment shards exactly the leaves it names; ``zero_policy`` memory is
+refused, naming ROADMAP queue 1 item 5, and a world's checkpoint of
+sharded moments saves (the multi-host format) and restores every weight
+and moment block bit for bit.
 """
 import json
 import random
@@ -208,7 +209,11 @@ def test_imported_assignment_is_honored():
 def test_unported_zero_options_are_refused():
     ref = _world()[0]["refused"]
     assert "item 5" in ref["memory"]
-    assert "item 4.5" in ref["save_zero"]
+    # a ZeRO world's checkpoint is no longer refused: it saves in the
+    # multi-host format and restores every weight and moment block
+    assert ref["save_zero"] is None
+    step, n, differ = _world()[0]["restored_zero"]
+    assert step == 4 and n > 0 and differ == 0
     cfg = fft.FFConfig()
     cfg.device, cfg.pipeline_stages = "cpu", 2
     ff = fft.FFModel(cfg)
