@@ -186,19 +186,41 @@ never JAX, and:
                and step time of both; recompile_on_condition in a
                2-epoch fit of BERT-base 8 x 128 changing Adam's alpha
                once, against the same change made by hand;
- 16. dist    - BERT-base (12 layers, hidden 768, 12 heads) at 8 x 512,
-               bf16, trained by two rank processes sharing the card
+ 16. dist    - BERT-base (hidden 768, 12 heads; 4 of its 12 layers) at
+               8 x 512, bf16, trained by two rank processes sharing the
+               card
                (gloo; the functional all-gather by c10d's) under
                --only-data-parallel (dp 2) and --tp 2, each against the
                one-rank run of the same weights and data: the forward
                (2e-2), the first step's gradients at dropout 0.1 leaf by
                leaf (ZOO_GRAD_TOL; the masks hashed at global b*h), the
-               4-step dropout-0 history (TRAIN_TOL), 12 flash forward, dq
-               and dk/dv and one fused Adam launch a step on each rank,
-               each rank's step time, peak memory and reshard bytes, the
-               collectives' backend and route; then a one-rank NCCL world
-               compiles the same model and steps once;
- 17. world   - BERT-base at 8 x 128 (dropout 0.1, Adam 1e-4, flash +
+               4-step dropout-0 history (TRAIN_TOL), a flash forward, dq
+               and dk/dv a layer and one fused Adam launch a step on each
+               rank, each rank's step time, peak memory and reshard bytes,
+               the collectives' backend and route; then a one-rank NCCL
+               world compiles the same model and steps once;
+ 17. pipe    - the same cut BERT-base trained pp 2 (GPipe, interleaved) by
+               two ranks, and DLRM with its tables one bank over two,
+               against the one-rank runs;
+ 18. seq     - ring and Ulysses attention over two ranks, and GPT-2 small
+               (4 of its 12 layers) at 8 x 1024 trained sp 2, against one
+               rank; the long-context MHA at seq 2;
+ 19. genworld - full-width GPT-2 small (12 layers) generating over two
+               rank processes sharing the card: tp 2 (greedy 8 x 512 +
+               64, ragged prompts with eos, sampling twice, a 4-beam
+               search) and dp 2 (greedy) through InferenceSession, then a
+               serving plan searched on a described 2-device mesh through
+               build_serving_plan_session (floor guard on) behind rank
+               0's request relay (serving/world.py), requests from client
+               threads and a BatchScheduler: 12 flash launches a prefill
+               and none a decode step on each rank, no KV fallback, both
+               ranks' ids and decode steps equal, the first decode step
+               within 2e-2 of the one-rank run's rows (the generate
+               phase's), its greedy tokens up to its first near tie, the
+               sampled runs equal; prefill, decode step, tokens/s, the
+               relay's host time and each rank's peak memory; the flash
+               forward at each rank's block of the prefill;
+ 20. world   - BERT-base at 8 x 128 (dropout 0.1, Adam 1e-4, flash +
                fused Adam, bf16) trained dp 2 under --zero by two rank
                processes sharing the card (gloo), each the member program
                tools/torch_dist_resilience_smoke.py --worker under a
@@ -215,7 +237,7 @@ never JAX, and:
                every rank; saves, shard bytes, restores, the detection
                latency, the recovery wall and each epoch's split; then the
                flash kernels and the fused Adam at this path's shapes;
- 18. serve   - the serving stack on the card: (a) BERT-base
+ 21. serve   - the serving stack on the card: (a) BERT-base
                (BertConfig.base(), uncut, kernel_impls="attention:flash")
                at s 128 and 512, batch buckets 1, 4 and 8 (one model
                compiled per bucket, as BERT's pooler reshapes to the
@@ -263,7 +285,7 @@ never JAX, and:
                all answered through failover, Autoscaler.tick repairs the
                fleet, each replica's time to ready and the merged fleet
                metrics;
- 19. kernels - one JSON line with each kernel's launches, error and times.
+ 22. kernels - one JSON line with each kernel's launches, error and times.
 
 ``--phases`` runs a subset while a kernel is brought up: ``--phases
 build,kernel`` builds and checks every kernel, ``--phases
@@ -274,7 +296,9 @@ drives generation, ``--phases build,kernel,llama`` the LLaMA family,
 build,kernel,frontends`` the frontends, ``--phases
 build,kernel,resilience`` checkpointing, faults and telemetry,
 ``--phases build,kernel,search`` the strategy search, ``--phases
-build,kernel,dist`` the world of two ranks, ``--phases build,world``
+build,kernel,dist`` the world of two ranks, ``--phases
+build,kernel,generate,genworld`` generation over two ranks against one,
+``--phases build,world``
 the supervised world that loses a rank, ``--phases
 build,kernel,serve`` the serving stack; with
 no arguments every phase runs, each phase's wall time printed and each
@@ -725,6 +749,12 @@ CASES = [  # (b, h, s_q, s_k, d, dtype, causal, dropout)
     # f32 above d 512 keeps the wide FMA forward, as bf16 does
     (2, 4, 200, 200, 576, torch.float32, True, 0.1),
     (2, 4, 200, 200, 576, torch.float32, False, 0.0),
+    # the genworld phase's prefills: GPT-2 small's block on a tp 2 rank
+    # (6 of 12 heads), on a dp 2 rank (4 of 8 rows), and a one-row tp 2
+    # prefill (a serving plan's bucket 1)
+    (8, 6, 1024, 1024, 64, torch.bfloat16, True, 0.0),
+    (4, 12, 1024, 1024, 64, torch.bfloat16, True, 0.0),
+    (1, 6, 1024, 1024, 64, torch.bfloat16, True, 0.0),
 ]
 
 
@@ -764,6 +794,8 @@ BH_MAP_CASES = [  # (b, h, s, d, dtype, causal, (h_total, b0, h0))
     (8, 6, 512, 64, torch.bfloat16, False, (12, 0, 6)),
     (2, 12, 512, 64, torch.bfloat16, False, (12, 6, 0)),
     (2, 12, 512, 64, torch.float32, False, (12, 2, 0)),
+    # the genworld phase's tp 2 prefill block with rank 1's heads
+    (8, 6, 1024, 64, torch.bfloat16, True, (12, 0, 6)),
 ]
 
 
@@ -2010,7 +2042,8 @@ def gen_rows_check(ff, ids_np, plen: int, steps: int) -> dict:
             ids[:, cur] = torch.argmax(row, dim=-1).to(torch.int32)
         kv_rows = torch.stack(kv_rows, dim=1)           # (B, steps, V)
         del cache
-        res = {"tokens": ids[:, plen:plen + steps].cpu().numpy()}
+        res = {"tokens": ids[:, plen:plen + steps].cpu().numpy(),
+               "first_rows": kv_rows[:, 0].cpu()}
         for name in ("reforward", "xla"):
             with (attention_plan(ff, "xla") if name == "xla"
                   else contextlib.nullcontext()):
@@ -2233,9 +2266,29 @@ def phase_generate(smi: str) -> dict:
               f"the difference, all of those equal: "
               f"{'ok' if r['ok'] else 'FAIL'}")
         check(r["ok"], f"KV decode rows vs {name}")
-    res = {"launches": launches, "prefills": prefills, "rows": rows}
+    res = {"launches": launches, "prefills": prefills, "rows": rows,
+           "world_ref": one_rank_ref(ff, outs["greedy8"],
+                                     rows.pop("first_rows"), 512,
+                                     GEN_TOKENS)}
     res.update(generate_times(ff, sess, p8, smi))
     return res
+
+
+def one_rank_ref(ff, ids: np.ndarray, first_rows, plen: int, n: int,
+                 device: str = "cuda") -> dict:
+    """What the genworld phase holds the world's runs against, from a
+    one-rank greedy run: its ids, its first decode step's score rows,
+    and the top-2 margin of each row's every greedy step as a share of
+    the row's logit range (the re-forward rows over the final ids)."""
+    with torch.inference_mode():
+        scores = ff.executor.scored_forward(
+            ff.params, ff.state, genworld_batch(ids, device))[
+                :, plen - 1:plen - 1 + n].float()
+        top2 = scores.topk(2, dim=-1).values
+        span = scores.amax(dim=-1) - scores.amin(dim=-1)
+        margins = ((top2[..., 0] - top2[..., 1]) / span).cpu().numpy()
+        del scores
+    return {"ids": ids, "first_rows": first_rows, "margins": margins}
 
 
 def generate_times(ff, sess, prompts, smi: str, name: str = "gpt2-small",
@@ -5434,12 +5487,14 @@ def phase_serve(smi: str) -> dict:
 
 
 def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
-                zoo, fe, resil, search, srv, dist, pipe, seq) -> list:
+                zoo, fe, resil, search, srv, dist, pipe, seq,
+                genworld) -> list:
     """The kernels' JSON rows: times at b8 h12 s128 d64 bf16 without
     dropout, with s512, dropout 0.1, the causal shapes, head dims 128,
     256, 320 and 512, NMT's and the Transformer's attention, Adam over
     DLRM, and the LLaMA, Mixtral, MoE, zoo, frontends, resilience,
-    search, serving-stack, dist, pipe and seq launches beside them."""
+    search, serving-stack, dist, pipe, seq and genworld launches beside
+    them."""
     zoo_launches = {tag: r["launches"] for tag, r in zoo.items()}
     fe_launches = {"fx_train": fe["fx"]["train_launches"],
                    "keras_train": fe["keras"]["launches"],
@@ -5622,6 +5677,18 @@ def kernel_rows(errs, serve, kt, train, gen, llama, mixtral, moe,
         **dist_row("flash_attention_fwd"),
         **pipe_row("flash_attention_fwd"),
         **seq_row("flash_attention_fwd"),
+        # the genworld phase: GPT-2 small's prefills on each of two ranks
+        # (12 launches a prefill, none a decode step) under tp 2 and dp 2
+        # and through the serving plan's relay, and the forward at each
+        # rank's block of a prefill
+        "genworld_launches_per_rank": {
+            k: genworld[k]["launches"] for k in ("tp2", "dp2")},
+        "genworld_prefills": {k: genworld[k]["prefills"]
+                              for k in ("tp2", "dp2")},
+        "genworld_plan_launches_per_rank": genworld["plan"]["launches"],
+        "genworld_tp2_b8_h6_s1024_d64_causal": dict(genworld["fwd_tp"]),
+        "genworld_dp2_b4_h12_s1024_d64_causal": dict(genworld["fwd_dp"]),
+        "genworld_tp2_b1_h6_s1024_d64_causal": dict(genworld["fwd_tp1"]),
         # the serve phase: BERT-base behind both HTTP fronts (12 a
         # scheduled batch), POST /generate (one prefill) and the
         # continuous batcher under both admissions (12 an iteration)
@@ -5729,11 +5796,13 @@ DIST_RUNS = (("dp2", ("--only-data-parallel",)), ("tp2", ("--tp", "2")))
 # per configuration and trains them; the rendezvous and every collective
 # time out well inside it
 DIST_TIMEOUT_S = 600
-# the model and run: full-width BERT-base at 8 x 512, bf16 compute,
-# first-step gradients at dropout 0.1, a 4-step history at dropout 0,
-# then 3 timed steps
-DIST_SPEC = {"device": "cuda", "bert": "base", "batch": 8, "seq": 512,
-             "steps": 4, "timed": 3, "f32": False}
+# the model and run: full-width BERT-base at 8 x 512 cut to 4 of its 12
+# layers (the dist and pipe phases' worlds step on one card shared by two
+# ranks: the depth is what the card check's time limit cuts), bf16
+# compute, first-step gradients at dropout 0.1, a 4-step history at
+# dropout 0, then 3 timed steps
+DIST_SPEC = {"device": "cuda", "bert": "base", "layers": 4, "batch": 8,
+             "seq": 512, "steps": 4, "timed": 3, "f32": False}
 # the bf16 first-step gradients at dropout 0.1 against the one-rank run's,
 # leaf by leaf (grad_errs), with the key biases left out: their true
 # gradient is 0 (softmax ignores a shift common to a row's scores), so
@@ -6188,6 +6257,9 @@ def spawn_world(workdir: str, flag: str, world: int) -> list:
         env = dict(os.environ, FF_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    FF_NUM_PROCESSES=str(world), FF_PROCESS_ID=str(r),
                    FF_DIST_TIMEOUT_S=str(DIST_TIMEOUT_S // 2),
+                   # each line reaches the log as it is printed, so a
+                   # rank killed at the time limit shows where it was
+                   PYTHONUNBUFFERED="1",
                    PYTHONPATH=ROOT + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         logs.append(os.path.join(workdir, f"{flag}{r}.log"))
@@ -6411,14 +6483,11 @@ def phase_dist(smi: str, spec: dict = None) -> dict:
             else "on a card each"
         print(f"[dist] two ranks {where}: backend {ranks[0]['backend']}, "
               f"routes {ranks[0]['routes']} ({world_s:.1f} s)")
-        want = {"flash_attention_fwd": 12 * steps,
-                "flash_attention_bwd_dq": 12 * steps,
-                "flash_attention_bwd_dkv": 12 * steps,
+        n_layers = spec.get("layers", 12 if spec["bert"] == "base" else 2)
+        want = {"flash_attention_fwd": n_layers * steps,
+                "flash_attention_bwd_dq": n_layers * steps,
+                "flash_attention_bwd_dkv": n_layers * steps,
                 "adam_update": adam * steps}
-        if spec["bert"] != "base":
-            n_layers = 2
-            want = dict(want, **{k: n_layers * steps for k in want
-                                 if k != "adam_update"})
         for name, _ in DIST_RUNS:
             for r, res in enumerate(ranks):
                 x = res[name]
@@ -6635,14 +6704,29 @@ def pipe_bert_run(spec: dict, argv, tag: str) -> dict:
         times.append(time.perf_counter() - t0)
     shapes = [tuple(t.to_local().shape) for d in ff.params.values()
               for t in d.values()]
+    keys = [ln for ln, d in ff.params.items() for _ in d]
     return {"grads": grads, "forward": forward, "losses": losses,
             "launches": launches, "p2p": p2p, "peak_bytes": peak,
             "step_ms": [t * 1e3 for t in times],
             "mesh": dict(ff.dmesh.axis_sizes),
             "region": [pipe.start, pipe.end, pipe.n_stages, pipe.n_chunks,
                        pipe.n_microbatches],
-            "leaf_shapes": shapes,
+            "leaf_shapes": shapes, "leaf_keys": keys,
             "reshard_bytes": STATS.bytes_total}
+
+
+def published_depth(run: dict, spec: dict) -> list:
+    """A pp rank's leaf shapes (``run``'s) as they are at the model's
+    published depth: the region's leaves (keys ``pp::``), one set a block,
+    repeated by the published layers over the run's, the others as
+    they are."""
+    from flexflow_tpu_torch.models import BertConfig
+    full = getattr(BertConfig, spec["bert"])().num_layers
+    layers = spec.get("layers", full)
+    times = full // layers if full > layers and full % layers == 0 else 1
+    pairs = list(zip(run["leaf_keys"], run["leaf_shapes"]))
+    return [tuple(s) for k, s in pairs if not k.startswith("pp::")] + [
+        tuple(s) for k, s in pairs if k.startswith("pp::")] * times
 
 
 def pipe_dlrm_model(banked: bool, spec: dict):
@@ -7007,8 +7091,9 @@ def phase_pipe(smi: str, spec: dict = None) -> dict:
           f"{bw['sdpa_bwd_ms']:.4f} ms ({smi})")
     free_cuda()
     for key, what, shapes in (
-            ("adam_pp_rank", "a pp 2 rank's leaves of BERT-base (stage 0)",
-             ranks[0]["gpipe"]["leaf_shapes"]),
+            ("adam_pp_rank", "a pp 2 rank's leaves of BERT-base (stage 0) "
+             "at its published depth", published_depth(
+                 ranks[0]["gpipe"], spec)),
             ("adam_bank_rank", "a bank rank's DLRM leaves (2 of 4 tables "
              "and the MLPs)", ranks[0]["dlrm"]["leaf_shapes"])):
         a = out[key] = adam_times(gen, [tuple(s) for s in shapes])
@@ -7038,7 +7123,7 @@ SEQ_FN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # bench's long-context geometry (bench.py stage_long_context: one MHA,
 # B4 S2048 E512 H8) at seq 2 under the kernel tier
 SEQ_SPEC = {"device": "cuda", "fn_shape": (4, 12, 1024, 64), "batch": 8,
-            "seq": 1024, "steps": 3, "timed": 2, "gpt": {},
+            "seq": 1024, "steps": 3, "timed": 2, "gpt": {"num_layers": 4},
             "long": {"batch": 4, "seq": 2048, "embed": 512, "heads": 8,
                      "steps": 3}}
 
@@ -7508,7 +7593,13 @@ def phase_seq(smi: str, spec: dict = None) -> dict:
           f"bound {bw['dkv_bound'][0]:.4f}), SDPA's whole backward "
           f"{bw['sdpa_bwd_ms']:.4f} ms ({smi})")
     free_cuda()
-    shapes = [tuple(x) for x in ranks[0]["gpt_bf16"]["leaf_shapes"]]
+    # every leaf of GPT-2 small at its published depth (an sp rank holds
+    # every leaf whole; the runs above cut the depth)
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    shapes = leaf_shapes(lambda f: build_gpt2(f, spec["batch"], spec["seq"],
+                                              GPTConfig(**dict(
+                                                  spec["gpt"],
+                                                  num_layers=GPT_LAYERS))))
     differing = adam_identical(gen, shapes)
     print(f"[seq] adam_update over an sp 2 rank's GPT-2 small leaves "
           f"({len(shapes)} leaves, one launch): {differing} elements "
@@ -7524,6 +7615,550 @@ def phase_seq(smi: str, spec: dict = None) -> dict:
           f"{a['bound_ms']:.4f} ms (bytes) ({smi})")
     free_cuda()
     return out
+
+
+# --------------------------------------------------------------------------
+# genworld: GPT-2 small generating over two ranks sharing the card
+# --------------------------------------------------------------------------
+# full-width GPT-2 small (GPTConfig(): 12 layers, hidden 768, 12 heads,
+# vocab 50257, 1024 positions) at 8 x 1024, bf16, attention:flash, the
+# generate phase's seeded weights and prompts: under the tp 2 preset
+# greedy 8 x 512 + 64, ragged 100 / 517 / 900 with and without eos,
+# sampling (T 0.8, top-k 50, top-p 0.95, seed 7) twice and a 4-beam
+# search; under dp 2 greedy 8 x 512 + 64; then a serving plan the port
+# searched for buckets (1, 8) on a described 2-device mesh, loaded
+# through build_serving_plan_session over the two ranks with the floor
+# guard on, its requests sent through rank 0's relay from two client
+# threads and a BatchScheduler's worker
+GENWORLD_SPEC = {"device": "cuda", "batch": 8, "seq": GPT_SEQ, "plen": 512,
+                 "tokens": GEN_TOKENS, "sample_tokens": 32,
+                 "ragged": [100, 517, 900], "beam": [256, 16, 4],
+                 "buckets": [1, 8], "plan_budget": 16, "plan_plen": 300,
+                 "relay_tokens": 16, "timed_tokens": 16, "gpt": {}}
+GENWORLD_RUNS = (("tp2", ("--tp", "2")), ("dp2", ("--only-data-parallel",)))
+GENWORLD_STACKS_S = 240
+
+
+def genworld_model(spec: dict, argv=(), sf: str = None):
+    """GPT-2 at ``spec``'s widths under ``argv`` (or the bucket strategy
+    file ``sf``), compiled over the world, with the generate phase's
+    seed."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.seed, cfg.device = spec["batch"], 0, spec["device"]
+    cfg.kernel_impls = "attention:flash"
+    if sf:
+        cfg.import_strategy_file, cfg.only_data_parallel = sf, False
+    ff = FFModel(cfg)
+    out = build_gpt2(ff, spec["batch"], spec["seq"],
+                     GPTConfig(**spec["gpt"]))
+    ff.compile(SGDOptimizer(0.01), "sparse_categorical_crossentropy", [],
+               output_tensor=out)
+    return ff
+
+
+def counted_steps(ff) -> dict:
+    """Count ``ff``'s KV decode steps (``n``) and keep the score rows of
+    the next step taken while ``keep`` is set (``rows``)."""
+    ex = ff.executor
+    step = ex.kv_decode_step
+    rec = {"n": 0, "keep": False, "rows": None}
+
+    def counted(*a, **kw):
+        row, cache = step(*a, **kw)
+        rec["n"] += 1
+        if rec["keep"]:
+            rec["rows"], rec["keep"] = row.float().cpu(), False
+        return row, cache
+    ex.kv_decode_step = counted
+    return rec
+
+
+_T0 = time.perf_counter()
+
+
+def progress(what: str) -> None:
+    """A rank's progress line, with its seconds since the process began."""
+    print(f"[rank {os.environ.get('FF_PROCESS_ID', '0')} "
+          f"{time.perf_counter() - _T0:.1f} s] {what}", flush=True)
+
+
+def world_sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def flash_fwd_count(dev: str):
+    """Set the flash forward's count to 0 and return what reads it: its
+    launches on the card, its plain-version calls on the CPU (where the
+    wrapper runs the plain version)."""
+    f = zero_counts()["flash_attention_fwd"]
+    base = f.plain_calls
+    return lambda: f.launches if dev == "cuda" else f.plain_calls - base
+
+
+def genworld_run(spec: dict, name: str, argv) -> dict:
+    """One rank's generation under ``argv`` through
+    InferenceSession.generate, every count at 0 first: the outputs, the
+    first decode step's score rows of the greedy run, the flash launches
+    and prefills, the decode steps, the KV fallbacks; then the prefill
+    and decode-step times at 1 and 8 rows and the rank's peak memory."""
+    from flexflow_tpu_torch.serving import InferenceSession
+    dev = spec["device"]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ff = genworld_model(spec, argv)
+    progress(f"{name}: compiled over {dict(ff.dmesh.axis_sizes)}")
+    V, seq, plen, n = vocab_of(ff), spec["seq"], spec["plen"], spec["tokens"]
+    sess = InferenceSession(ff, batch_buckets=(1, spec["batch"]),
+                            decode_segment=0)
+    rec = counted_steps(ff)
+    p8 = gpt_prompts(spec["batch"], plen, V, 1, seq)
+    outs = {}
+    world_sync(dev)
+    fwd = flash_fwd_count(dev)
+    t0 = time.perf_counter()
+    rec["keep"] = True
+    outs["greedy"] = sess.generate(p8, plen, n)
+    progress(f"{name}: greedy {p8.shape[0]} x {plen} + {n}, "
+             f"{rec['n']} decode steps")
+    if name == "tp2":
+        rl = np.array(spec["ragged"], np.int32)
+        p3 = gpt_prompts(3, rl, V, 2, seq)
+        outs["ragged"] = sess.generate(p3, rl, n)
+        outs["eos"] = np.array(int(outs["ragged"][0, rl[0] + 3]))
+        outs["ragged_eos"] = sess.generate(p3, rl, n,
+                                           eos_token_id=int(outs["eos"]))
+        samp = dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)
+        for k in ("sample_a", "sample_b"):
+            outs[k] = sess.generate(p8, plen, spec["sample_tokens"], **samp)
+        progress(f"{name}: ragged, eos, sampled twice, {rec['n']} decode "
+                 f"steps")
+        bp, bn, bk = spec["beam"]
+        outs["beam"] = sess.generate(gpt_prompts(1, bp, V, 3, seq), bp, bn,
+                                     num_beams=bk)
+        progress(f"{name}: beam {bk}, {rec['n']} decode steps")
+    world_sync(dev)
+    main_s = time.perf_counter() - t0
+    res = {"launches": fwd(), "prefills": len(outs) - ("eos" in outs),
+           "steps": rec["n"], "main_s": main_s,
+           "fallback": getattr(ff, "_kv_fallback_count", 0),
+           "first_rows": rec["rows"], "outs": outs,
+           "mesh": dict(ff.dmesh.axis_sizes),
+           "heads_local": int(ff.params[next(
+               l.name for l in ff.executor.program.layers
+               if l.op_type.name == "OP_MULTIHEAD_ATTENTION")]["wq"]
+               .to_local().shape[1])}
+    # prefill and decode-step time at one row a block (1 row under tp,
+    # one a rank under dp) and at 8 rows: one generate each, timed apart
+    # by FFModel._generate_kv (each part ends in a device sync), on every
+    # rank in step
+    res["times"] = {}
+    for b in (ff.executor.row_blocks(), spec["batch"]):
+        ff._decode_measured = {}
+        ff.generate(p8[:b], plen, spec["timed_tokens"], kv_cache=True)
+        m = ff._decode_measured[b]
+        res["times"][b] = {"prefill_ms": m["prefill_s"] * 1e3,
+                           "step_ms": m["decode_step_s"] * 1e3,
+                           "tokens_per_s": b / m["decode_step_s"]}
+        progress(f"{name}: timed at {b} rows {res['times'][b]}")
+    res["fallback"] = getattr(ff, "_kv_fallback_count", 0)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 \
+        if dev == "cuda" else 0.0
+    return res
+
+
+def genworld_plan(spec: dict, plan: str) -> dict:
+    """The serving plan over the world: build_serving_plan_session with
+    the floor guard on (rank 0's times decide), then requests through
+    rank 0's relay (serving/world.py) from two client threads (greedy at
+    1 and 8 rows) and two scheduler requests (a BatchScheduler's worker
+    runs the forwards); the other rank follows. Each rank: its relayed
+    calls and their digests, decode steps, flash launches, fallbacks and
+    the relay's host time."""
+    import threading
+    from flexflow_tpu_torch.serving import InferenceSession
+    from flexflow_tpu_torch.serving.session import (
+        build_serving_plan_session)
+    from flexflow_tpu_torch.serving.world import WorldRelay
+
+    def build(sf, buckets):
+        argv = ("--only-data-parallel",) if sf is None else ()
+        return InferenceSession(genworld_model(spec, argv, sf), buckets,
+                                decode_segment=0)
+
+    t0 = time.perf_counter()
+    ps = build_serving_plan_session(plan, build, floor_guard="true")
+    load_s = time.perf_counter() - t0
+    progress(f"plan: loaded with the floor guard {ps.floor_guard} in "
+             f"{load_s:.1f} s")
+    models = {id(ps.session_for(b).ff): ps.session_for(b).ff
+              for b in ps.buckets}
+    recs = [counted_steps(f) for f in models.values()]
+    for op in ("generate", "infer"):
+        def logged(*a, _op=op, _fn=getattr(ps, op), **kw):
+            progress(f"plan: relayed {_op} begins")
+            y = _fn(*a, **kw)
+            progress(f"plan: relayed {_op} ends")
+            return y
+        setattr(ps, op, logged)
+    rel = WorldRelay(ps)
+    progress("plan: relay up")
+    V, seq, n = vocab_of(ps.ff), spec["seq"], spec["relay_tokens"]
+    out = {"load_s": load_s,
+           "floor_guard": {str(b): r for b, r in ps.floor_guard.items()},
+           "meshes": {str(b): dict(ps.session_for(b).ff.dmesh.axis_sizes)
+                      for b in ps.buckets},
+           "heads_local": {str(b): int(ps.session_for(b).ff.params[next(
+               l.name for l in ps.session_for(b).ff.executor.program.layers
+               if l.op_type.name == "OP_MULTIHEAD_ATTENTION")]["wq"]
+               .to_local().shape[1]) for b in ps.buckets}}
+    world_sync(spec["device"])
+    fwd = flash_fwd_count(spec["device"])
+    t0 = time.perf_counter()
+    if rel.rank == 0:
+        got, failed = {}, []
+
+        def drive():
+            try:
+                out["refused"] = genworld_requests(spec, rel, V, got)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                failed.append(e)
+            finally:
+                rel.stop()
+        caller = threading.Thread(target=drive)
+        caller.start()
+        rel.run()
+        caller.join()
+        if failed:
+            raise failed[0]
+        out["got"] = got
+    else:
+        out["followed"] = rel.run()
+    world_sync(spec["device"])
+    out["wall_s"] = time.perf_counter() - t0
+    progress(f"plan: {rel.calls} relayed calls in {out['wall_s']:.1f} s")
+    out["launches"] = fwd()
+    out["calls"], out["log"] = rel.calls, [list(x) for x in rel.log]
+    out["errors"] = rel.errors
+    out["host_ms_per_call"] = rel.host_s / max(rel.calls, 1) * 1e3
+    out["steps"] = sum(r["n"] for r in recs)
+    out["fallback"] = sum(getattr(f, "_kv_fallback_count", 0)
+                          for f in models.values())
+    return out
+
+
+def genworld_requests(spec: dict, rel, V: int, got: dict) -> bool:
+    """Rank 0's callers of the plan session's relay: greedy requests at
+    each bucket's rows from client threads and forwards from two
+    clients of a BatchScheduler over the relay, then an overlong
+    request, which its check must refuse on rank 0. Returns whether it
+    did."""
+    import threading
+    from flexflow_tpu_torch.serving import BatchScheduler
+    seq, pp, n = spec["seq"], spec["plan_plen"], spec["relay_tokens"]
+
+    def ask(rows):
+        got[f"generate{rows}"] = rel.generate(
+            gpt_prompts(rows, pp, V, 30 + rows, seq), pp, n)
+    sched = BatchScheduler(rel, max_batch=1, max_delay_ms=1)
+    pos = np.arange(seq, dtype=np.int32)[None]
+
+    def infer(i):
+        y = sched.infer({"input_ids": gpt_prompts(1, pp, V, 40 + i, seq),
+                         "position_ids": pos}, timeout=600)
+        got[f"infer{i}"] = (tuple(y.shape), bool(np.isfinite(y).all()))
+    threads = [threading.Thread(target=ask, args=(r,))
+               for r in spec["buckets"]] + [
+        threading.Thread(target=infer, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    sched.close()
+    try:
+        rel.generate(gpt_prompts(1, pp, V, 50, seq), seq, 1)
+    except ValueError:
+        return True
+    return False
+
+
+def genworld_rank_main(workdir: str) -> int:
+    """A rank of the genworld phase (``--gen-rank``): joins the world the
+    environment names, runs GENWORLD_RUNS and the serving plan, and
+    writes its results."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.distributed import (ROUTES,
+                                                         maybe_initialize)
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    maybe_initialize(device_type=spec["device"])
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend()}
+    for name, argv in GENWORLD_RUNS:
+        out[name] = genworld_run(spec, name, argv)
+        free_cuda()
+    import faulthandler
+    # a rank still in the plan part this long after it began prints every
+    # thread's stack to its log (then again each as long)
+    faulthandler.dump_traceback_later(GENWORLD_STACKS_S, repeat=True)
+    out["plan"] = genworld_plan(spec, os.path.join(workdir, "plan.json"))
+    faulthandler.cancel_dump_traceback_later()
+    out["routes"] = dict(ROUTES)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def genworld_search_plan(spec: dict, path: str) -> dict:
+    """The port's serving plan for GPT-2 at ``spec["buckets"]``, searched
+    on a described mesh of two devices (the world's) and exported to
+    ``path``."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    from flexflow_tpu_torch.parallel.machine import DeviceMesh, MachineSpec
+    from flexflow_tpu_torch.search.serving_plan import (
+        optimize_serving_strategy)
+    cfg = FFConfig()
+    cfg.batch_size, cfg.device = spec["batch"], spec["device"]
+    cfg.export_strategy_file = path
+    ff = FFModel(cfg)
+    build_gpt2(ff, spec["batch"], spec["seq"], GPTConfig(**spec["gpt"]))
+    spec_ = MachineSpec.detect(spec["device"])
+    spec_.num_devices = 2
+    ff.dmesh = DeviceMesh(spec_)
+    ff.graph_inputs = list(ff.input_tensors)
+    t0 = time.perf_counter()
+    plan = optimize_serving_strategy(ff, buckets=spec["buckets"],
+                                     budget=spec["plan_budget"])
+    return {"search_s": time.perf_counter() - t0,
+            "buckets": {str(b): {
+                "predicted_prefill_ms": p.cost.prefill * 1e3,
+                "predicted_decode_step_ms": p.cost.decode_step * 1e3,
+                "kv_mib": p.cost.kv_bytes / 2**20}
+                for b, p in sorted(plan.buckets.items())}}
+
+
+def parted_where(got: np.ndarray, ref: dict, plen: int, n: int,
+                 tol: float) -> list:
+    """Per row: (the first step whose token differs from the one-rank
+    run's, or None; the first step whose one-rank top-2 margin is below
+    ``tol`` of the row's range, or None)."""
+    out = []
+    for r in range(got.shape[0]):
+        d = np.flatnonzero(got[r, plen:plen + n] != ref["ids"][r,
+                                                              plen:plen + n])
+        t = np.flatnonzero(ref["margins"][r, :n] < tol)
+        out.append((int(d[0]) if d.size else None,
+                    int(t[0]) if t.size else None))
+    return out
+
+
+def phase_genworld(smi: str, spec: dict = None, ref: dict = None) -> dict:
+    """Generation and serving over two ranks sharing the card (gloo):
+    the runs of GENWORLD_SPEC (see above), each rank launching 12 flash
+    forwards a prefill and none a decode step, no KV fallback, both ranks
+    with the same ids and the same count of decode steps; the greedy
+    runs' first decode step within GEN_TOL of the one-rank run's score
+    rows (``ref``: the generate phase's, or one made here) and their
+    tokens equal to it up to its first near tie; the two sampled runs
+    equal. Then the flash kernels at the shapes these paths give them."""
+    import tempfile
+    spec = dict(spec or GENWORLD_SPEC)
+    cuda = spec["device"] == "cuda"
+    layers = spec["gpt"].get("num_layers", GPT_LAYERS)
+    plen, n = spec["plen"], spec["tokens"]
+    out = {}
+    if ref is None:
+        ref = genworld_one_rank(spec)
+    with tempfile.TemporaryDirectory() as workdir:
+        with open(os.path.join(workdir, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        out["plan_search"] = genworld_search_plan(
+            spec, os.path.join(workdir, "plan.json"))
+        free_cuda()
+        t0 = time.perf_counter()
+        spawn_world(workdir, "--gen-rank", 2)
+        out["world_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    where = "on the CPU" if not cuda else \
+        "sharing one card" if torch.cuda.device_count() < 2 \
+        else "on a card each"
+    print(f"[genworld] two ranks {where}: backend {ranks[0]['backend']}, "
+          f"relay route {ranks[0]['routes'].get('relay')} "
+          f"({out['world_s']:.1f} s)")
+    for name, _ in GENWORLD_RUNS:
+        rs = [rk[name] for rk in ranks]
+        for r, x in enumerate(rs):
+            check(x["launches"] == layers * x["prefills"],
+                  f"genworld {name} rank {r}: flash launches "
+                  f"{x['launches']} != {layers} x {x['prefills']} prefills")
+            check(x["fallback"] == 0, f"genworld {name} rank {r}: "
+                                      f"{x['fallback']} KV fallbacks")
+        check(rs[0]["steps"] == rs[1]["steps"],
+              f"genworld {name}: decode steps {rs[0]['steps']} and "
+              f"{rs[1]['steps']}")
+        for k, v in rs[0]["outs"].items():
+            check(np.array_equal(v, rs[1]["outs"][k]),
+                  f"genworld {name} {k}: the ranks' ids differ")
+        g = rs[0]["outs"]["greedy"]
+        check_tokens(g, ref["ids"], plen, n, ref["first_rows"]
+                     .shape[-1], f"genworld {name} greedy")
+        first = torch.stack([x["first_rows"] for x in rs])
+        want = ref["first_rows"].float()
+        span = (want.amax(-1) - want.amin(-1))[None, :, None]
+        err = ((first - want[None]).abs() / span).max().item()
+        check(err <= GEN_TOL, f"genworld {name}: first-token scores "
+                              f"{err:.3e} of the row's range from one rank")
+        parts = parted_where(g, ref, plen, n, GEN_TOL)
+        bad = [(r, d, t) for r, (d, t) in enumerate(parts)
+               if d is not None and (t is None or d < t)]
+        check(not bad, f"genworld {name}: rows parted from the one-rank "
+                       f"run before a near tie (row, step, tie): {bad}")
+        parted = [(r, d) for r, (d, _) in enumerate(parts) if d is not None]
+        x = rs[0]
+        print(f"[genworld] GPT-2 {name} ({layers} layers, mesh {x['mesh']}, "
+              f"{x['heads_local']} heads a rank): {x['prefills']} requests "
+              f"in {x['main_s']:.1f} s, flash launches {x['launches']} / "
+              f"{rs[1]['launches']} (want {layers} x {x['prefills']} "
+              f"prefills, 0 a decode step), decode steps {x['steps']} / "
+              f"{rs[1]['steps']}, no KV fallback, the ranks' ids equal; "
+              f"first-token scores within {err:.2e} of the one-rank run's "
+              f"row range (tol {GEN_TOL:.0e}); greedy tokens equal the "
+              f"one-rank run's in {g.shape[0] - len(parted)} of "
+              f"{g.shape[0]} rows, parted (row, step) {parted}, each at or "
+              f"after a near tie of the one-rank run")
+        for b in rs[0]["times"]:
+            t = [rk[name]["times"][b] for rk in ranks]
+            print(f"[genworld] GPT-2 {name} at {b} rows: prefill "
+                  f"{t[0]['prefill_ms']:.3f} / {t[1]['prefill_ms']:.3f} ms, "
+                  f"decode step {t[0]['step_ms']:.3f} / "
+                  f"{t[1]['step_ms']:.3f} ms, {t[0]['tokens_per_s']:.1f} "
+                  f"tokens/s (rank 0 / rank 1; one FFModel.generate of "
+                  f"{spec['timed_tokens']} tokens, host clock, each part "
+                  f"device-synced); peak {rs[0]['peak_gib']:.3f} / "
+                  f"{rs[1]['peak_gib']:.3f} GiB a rank ({smi})")
+        out[name] = {"launches": [r["launches"] for r in rs],
+                     "prefills": rs[0]["prefills"],
+                     "steps": [r["steps"] for r in rs],
+                     "first_err": err, "parted": parted,
+                     "peak_gib": [r["peak_gib"] for r in rs],
+                     "times": {b: [rk[name]["times"][b] for rk in ranks]
+                               for b in rs[0]["times"]}}
+    tp = ranks[0]["tp2"]["outs"]
+    check(np.array_equal(tp["sample_a"], tp["sample_b"]),
+          "genworld tp2: sampling with one seed is not repeatable")
+    rl = np.array(spec["ragged"], np.int32)
+    eos = int(tp["eos"])
+    for r, pl in enumerate(rl):
+        row, free = tp["ragged_eos"][r, pl:pl + n], tp["ragged"][r, pl:pl + n]
+        hit = np.flatnonzero(free == eos)
+        upto = hit[0] if hit.size else n
+        check((row[:upto] == free[:upto]).all() and (row[upto:] == eos).all(),
+              f"genworld tp2: eos does not latch on row {r}")
+    print(f"[genworld] tp2 outputs: ragged {list(rl)} with eos {eos} "
+          f"latching, sampling twice at seed 7 equal, beam "
+          f"{spec['beam'][2]} over {spec['beam'][1]} tokens; ok")
+    pl = [rk["plan"] for rk in ranks]
+    x = pl[0]
+    got = x["got"]
+    prefills = len(spec["buckets"]) + sum(k.startswith("infer")
+                                          for k in got)
+    for r, y in enumerate(pl):
+        check(y["launches"] == layers * prefills,
+              f"genworld plan rank {r}: flash launches {y['launches']} != "
+              f"{layers} x {prefills}")
+        check(y["fallback"] == 0, f"genworld plan rank {r}: KV fallbacks")
+        check(not y["errors"], f"genworld plan rank {r}: {y['errors']}")
+    check(pl[1]["followed"] == x["calls"] == pl[1]["calls"] == prefills,
+          f"genworld plan: relayed calls {x['calls']} / {pl[1]['calls']} "
+          f"(followed {pl[1]['followed']}), want {prefills}")
+    check(x["log"] == pl[1]["log"], "genworld plan: the ranks ran other "
+                                    "calls or another order")
+    check(x["steps"] == pl[1]["steps"]
+          == spec["relay_tokens"] * len(spec["buckets"]),
+          f"genworld plan: decode steps {x['steps']} / {pl[1]['steps']}")
+    check(x["refused"], "genworld plan: an overlong request was relayed")
+    check(x["floor_guard"] == pl[1]["floor_guard"],
+          "genworld plan: the ranks adopted different models")
+    forwards = [v for k, v in got.items() if k.startswith("infer")]
+    check(all(ok and shape[:2] == (1, spec["seq"]) for shape, ok in forwards),
+          f"genworld plan: forwards {forwards}")
+    for b in spec["buckets"]:
+        check(got[f"generate{b}"].shape == (b, spec["seq"]),
+              f"genworld plan: generate at {b} rows")
+    srch = out["plan_search"]
+    print(f"[genworld] serving plan: searched in {srch['search_s']:.2f} s "
+          f"for buckets {spec['buckets']} on a described 2-device mesh; "
+          + "; ".join(f"bucket {b}: predicted prefill "
+                      f"{v['predicted_prefill_ms']:.3f} ms, decode step "
+                      f"{v['predicted_decode_step_ms']:.3f} ms, KV "
+                      f"{v['kv_mib']:.1f} MiB, mesh {x['meshes'][b]}, "
+                      f"{x['heads_local'][b]} heads a rank, floor guard "
+                      f"{x['floor_guard'].get(b)}"
+                      for b, v in srch["buckets"].items()))
+    print(f"[genworld] plan session over the world: loaded with the floor "
+          f"guard in {x['load_s']:.1f} s; {x['calls']} calls through rank "
+          f"0's relay (greedy at {spec['buckets']} rows from two client "
+          f"threads, {prefills - len(spec['buckets'])} forwards from a "
+          f"BatchScheduler's worker) in {x['wall_s']:.1f} s, the same "
+          f"calls in the same order on rank 1, an overlong request refused "
+          f"on rank 0 only; flash launches {x['launches']} / "
+          f"{pl[1]['launches']}, decode steps {x['steps']} / "
+          f"{pl[1]['steps']}, no KV fallback; relay host time "
+          f"{x['host_ms_per_call']:.3f} / {pl[1]['host_ms_per_call']:.3f} "
+          f"ms a call (rank 0's broadcast / rank 1's wait) ({smi})")
+    out["plan"] = {k: x[k] for k in ("load_s", "calls", "launches", "steps",
+                                     "host_ms_per_call", "wall_s",
+                                     "floor_guard", "meshes")}
+    out["plan"]["host_ms_per_call_follower"] = pl[1]["host_ms_per_call"]
+    out["plan"]["launches"] = [y["launches"] for y in pl]
+    if not cuda:
+        return out
+    # the flash forward at the shapes these paths launch it: a tp rank's
+    # heads (b8 h6) and a dp rank's rows (b4 h12) of GPT-2's prefill, and
+    # a one-row tp prefill (b1 h6)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    s = spec["seq"]
+    for key, b, h in (("fwd_tp", 8, 6), ("fwd_dp", 4, 12), ("fwd_tp1", 1, 6)):
+        f = out[key] = fwd_times(s, 0.0, gen, causal=True, b=b, h=h, d=64)
+        print(f"[genworld] flash forward at b{b} h{h} s{s} d64 bf16 causal: "
+              f"{f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, SDPA "
+              f"{f['library_ms']:.4f} on {f['library_backend']}, bound "
+              f"{f['bound_ms']:.4f} {f['bound_by']}) ({smi})")
+    free_cuda()
+    return out
+
+
+def genworld_one_rank(spec: dict) -> dict:
+    """The one-rank reference of the genworld phase where the generate
+    phase did not run in this process: greedy 8 x plen + tokens from the
+    same weights and prompts, its first decode step's score rows and its
+    top-2 margins."""
+    from flexflow_tpu_torch.serving import InferenceSession
+    ff = genworld_model(spec, ("--only-data-parallel",))
+    rec = counted_steps(ff)
+    V = vocab_of(ff)
+    p8 = gpt_prompts(spec["batch"], spec["plen"], V, 1, spec["seq"])
+    rec["keep"] = True
+    ids = InferenceSession(ff, (1, spec["batch"]), decode_segment=0) \
+        .generate(p8, spec["plen"], spec["tokens"])
+    ref = one_rank_ref(ff, ids, rec["rows"], spec["plen"], spec["tokens"],
+                       spec["device"])
+    del ff
+    free_cuda()
+    return ref
+
+
+def genworld_batch(ids_np: np.ndarray, device: str) -> dict:
+    ids = torch.from_numpy(ids_np).to(device)
+    return {"input_ids": ids,
+            "position_ids": torch.arange(ids.shape[1], dtype=torch.int32,
+                                         device=ids.device)[None]
+            .expand(ids.shape[0], -1)}
 
 
 # --------------------------------------------------------------------------
@@ -7858,7 +8493,8 @@ def phase_world(smi: str, spec: dict = None) -> dict:
 
 PHASES = ("build", "kernel", "ktimes", "slice", "train", "times",
           "generate", "llama", "mixtral", "moe", "zoo", "frontends",
-          "resilience", "search", "dist", "pipe", "seq", "world", "serve")
+          "resilience", "search", "dist", "pipe", "seq", "genworld", "world",
+          "serve")
 
 
 def main() -> int:
@@ -7876,6 +8512,8 @@ def main() -> int:
                     help="run as a rank of the pipe phase's world")
     ap.add_argument("--seq-rank", metavar="DIR",
                     help="run as a rank of the seq phase's world")
+    ap.add_argument("--gen-rank", metavar="DIR",
+                    help="run as a rank of the genworld phase's world")
     ap.add_argument("--dist-nccl", metavar="DIR",
                     help="run as the dist phase's one-rank NCCL world")
     ap.add_argument("--dist-profile", metavar="DIR",
@@ -7890,6 +8528,8 @@ def main() -> int:
         return pipe_rank_main(args.pipe_rank)
     if args.seq_rank:
         return seq_rank_main(args.seq_rank)
+    if args.gen_rank:
+        return genworld_rank_main(args.gen_rank)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     dev, smi = phase_device()
@@ -7931,6 +8571,8 @@ def main() -> int:
         if args.dist_profile else None)
     run("pipe", phase_pipe, smi)
     run("seq", phase_seq, smi)
+    run("genworld", phase_genworld, smi, None,
+        (res.get("generate") or {}).get("world_ref"))
     run("world", phase_world, smi)
     run("serve", phase_serve, smi)
     if phases != set(PHASES):
@@ -7940,7 +8582,8 @@ def main() -> int:
         res["kernel"], res["slice"], res["ktimes"], res["train"],
         res["generate"], res["llama"], res["mixtral"], res["moe"],
         res["zoo"], res["frontends"], res["resilience"], res["search"],
-        res["serve"], res["dist"], res["pipe"], res["seq"])}))
+        res["serve"], res["dist"], res["pipe"], res["seq"],
+        res["genworld"])}))
     print(json.dumps({"ok": True, "device": dev}))
     return 0
 

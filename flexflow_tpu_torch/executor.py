@@ -171,17 +171,20 @@ class GraphProgram:
         return hit is not None and hit[0] is t.get_tensor() \
             and hit[1] == device
 
-    def init_env(self, inputs: Dict[str, Any],
-                 device: torch.device) -> Dict[int, Any]:
+    def init_env(self, inputs: Dict[str, Any], device: torch.device,
+                 whole: bool = False) -> Dict[int, Any]:
         """Graph inputs by tensor guid: the batch's arrays (numpy or
         torch) on ``device`` in each tensor's declared dtype, and the
-        attached constants, staged on the device (``stage_consts``)."""
+        attached constants, staged on the device (``stage_consts``).
+        ``whole``: over a live mesh every array is the whole global
+        value, whatever its rows (generation's batches), never a rank's
+        own rows."""
         env: Dict[int, Any] = {}
         for t in self.input_tensors:
             if t.name in inputs:
                 if self.strategy is not None:
                     env[t.guid] = self._place_input(inputs[t.name], t,
-                                                    device)
+                                                    device, whole)
                 else:
                     env[t.guid] = self._to_device(inputs[t.name], t, device)
             elif t.get_tensor() is not None:
@@ -194,18 +197,19 @@ class GraphProgram:
                 raise KeyError(f"missing input {t.name}")
         return env
 
-    def _place_input(self, value, t: Tensor, device: torch.device):
+    def _place_input(self, value, t: Tensor, device: torch.device,
+                     whole: bool = False):
         """A graph input over the live mesh, laid out per the strategy's
         ``input_sharding``: from the whole global batch (each rank keeps
-        its block) or from this rank's own rows (a loader that read only
-        ``local_row_range``)."""
+        its block) or, unless ``whole``, from this rank's own rows (a
+        loader that read only ``local_row_range``)."""
         from .parallel.distributed import put_global
         from .parallel.strategy import spec_placements
         st = self.strategy
         pl = spec_placements(st.input_sharding(t.name), st.dmesh,
                              len(t.shape))
         shape = tuple(value.shape)
-        if shape[1:] == tuple(t.shape[1:]):
+        if not whole and shape[1:] == tuple(t.shape[1:]):
             shape = (t.shape[0] // self.micro_batches,) + tuple(t.shape[1:])
         return put_global(value, st.dmesh.mesh, pl, device=device,
                           dtype=to_torch(t.dtype), global_shape=shape)
@@ -353,10 +357,11 @@ class GraphProgram:
 
     def emit(self, params: Dict[str, Dict[str, Any]], inputs: Dict[str, Any],
              ctx: EmitCtx, device: torch.device,
-             capture: Optional[int] = None) -> Tuple[List[Any], Any]:
+             capture: Optional[int] = None,
+             whole: bool = False) -> Tuple[List[Any], Any]:
         """Interpret the graph on ``inputs``; returns the output tensors
         and the value of output ``capture`` (``emit_layers``)."""
-        env = self.init_env(inputs, device)
+        env = self.init_env(inputs, device, whole)
         captured = self.emit_layers(self.layers, env, params, ctx, capture)
         return [env[t.guid] for t in self.output_tensors], captured
 
@@ -1022,7 +1027,8 @@ class Executor:
 
     def _forward(self, params, state, batch, training: bool, step=0,
                  capture: bool = True,
-                 local_rows: Optional[Tuple[int, int]] = None):
+                 local_rows: Optional[Tuple[int, int]] = None,
+                 whole: bool = False):
         """``capture``: also return the logits the loss and the scores read
         (``_logits_guid``; None without them); serving passes False.
         ``local_rows`` = (global batch, first row) marks a rank's forward
@@ -1030,7 +1036,8 @@ class Executor:
         ``EmitCtx.local_shape`` (a reshape to a global batch shape takes
         the rank's rows) and the global step's dropout masks, cut to the
         rows. (The JAX package draws each shard's masks from its own key
-        there; these are the serial step's.)"""
+        there; these are the serial step's.) ``whole``: the batch's
+        arrays are whole global values (``GraphProgram.init_env``)."""
         if self.pipe is not None:
             run = self._pipe_run(params, state, batch, training, step,
                                  capture)
@@ -1048,7 +1055,7 @@ class Executor:
             outs, logits = self._emit_remat(params, batch, ctx, cap)
         else:
             outs, logits = self.program.emit(params, batch, ctx,
-                                             self.device, cap)
+                                             self.device, cap, whole)
         new_state = dict(state)
         new_state.update(ctx.new_state)
         return outs, new_state, ctx.aux_losses, logits
@@ -1549,14 +1556,16 @@ class Executor:
     def make_forward(self):
         """Inference-only forward (no label): ``fwd(params, state, batch)``
         runs the graph under ``torch.inference_mode()`` and returns the
-        output tensor (a list when the graph has several). Cached."""
+        output tensor (a list when the graph has several). Over a live
+        mesh the batch is whole, whatever its rows (a serving bucket's),
+        and so is the output on every rank. Cached."""
         if self._forward_fn is not None:
             return self._forward_fn
 
         def fwd(params, state, batch):
             with self._no_grad():
                 outs, _, _, _ = self._forward(params, state, batch, False,
-                                              capture=False)
+                                              capture=False, whole=True)
                 outs = [self._unplace(o) for o in outs]
             return outs[0] if len(outs) == 1 else outs
 
@@ -1575,10 +1584,6 @@ class Executor:
         return torch.log(torch.clamp(outs[0], min=1e-20))
 
     def _kv_ctx(self, mode: str, state) -> EmitCtx:
-        if self.strategy is not None:
-            raise NotImplementedError(
-                "generation over a world of ranks is not ported (ROADMAP "
-                "queue 1 item 4.6)")
         ctx = EmitCtx(training=False, rngs={}, state=state,
                       config=self.config)
         self._attach_kernel_ctx(ctx)
@@ -1589,10 +1594,13 @@ class Executor:
 
     def scored_forward(self, params, state, batch):
         """Forward returning log-domain next-token scores (B, L, V), under
-        ``torch.inference_mode()``."""
+        ``torch.inference_mode()`` (``torch.no_grad()`` over a live mesh,
+        where the batch is whole and the scores come back whole on every
+        rank)."""
         with self._no_grad():
-            outs, _, _, logits = self._forward(params, state, batch, False)
-            return self._scores(outs, logits)
+            outs, _, _, logits = self._forward(params, state, batch, False,
+                                               whole=True)
+            return self._unplace(self._scores(outs, logits))
 
     def _kv_layers(self) -> List[Layer]:
         """The layers the attention layers' K/V depend on, in graph
@@ -1619,16 +1627,88 @@ class Executor:
         it. The JAX package's ``kv_prefill`` also returns the graph's
         outputs, which no caller reads and XLA drops; run eagerly, the LM
         head and the vocabulary softmax after the last attention layer
-        would cost a (B, L, V) pass each, so they are not run."""
+        would cost a (B, L, V) pass each, so they are not run.
+
+        Over a live mesh (``torch.no_grad()``) the batch is the whole
+        global one, the layers run under the strategy's placements, and
+        the cache is each rank's own block: its rows over the batch's
+        mesh dims, its kv heads over the head dims."""
         ctx = self._kv_ctx("prefill", state)
         ctx.kv_prefill_len = prefill_len
-        with torch.inference_mode():
-            env = self.program.init_env(batch, self.device)
+        if self.strategy is not None:
+            names = {t.name for t in self.program.input_tensors}
+            self._row_split(next(int(v.shape[0]) for k, v in batch.items()
+                                 if k in names))
+        with self._no_grad():
+            env = self.program.init_env(batch, self.device, whole=True)
             self.program.emit_layers(self._kv_layers(), env, params, ctx)
         if not ctx.new_kv:
             raise ValueError("graph has no multihead-attention layers to "
                              "cache (KV decode unsupported)")
         return ctx.new_kv
+
+    def _row_layout(self):
+        """Over the live mesh, how the graph inputs' rows lie: their
+        placements on the batch dim alone (every row input must be laid
+        out alike), and the count of blocks the mesh dims that shard it
+        cut a batch into (1 where none does)."""
+        from torch.distributed.tensor import Replicate, Shard
+        from .parallel.strategy import spec_placements
+        st = self.strategy
+        mesh = st.dmesh.mesh
+        split = [Replicate()] * mesh.ndim
+        seen = None
+        for t in self.program.input_tensors:
+            if t.get_tensor() is not None:
+                continue
+            pl = [p if isinstance(p, Shard) and p.dim % len(t.shape) == 0
+                  else Replicate() for p in spec_placements(
+                      st.input_sharding(t.name), st.dmesh, len(t.shape))]
+            if seen is not None and pl != split:
+                raise ValueError(
+                    f"the graph inputs' rows are laid out unlike each "
+                    f"other ({seen}: {split}, {t.name}: {pl})")
+            split, seen = pl, t.name
+        n = 1
+        for m, p in enumerate(split):
+            if isinstance(p, Shard):
+                n *= mesh.size(m)
+        return split, n
+
+    def row_blocks(self) -> int:
+        """The count of blocks a batch's rows split into over the live
+        mesh (the data-parallel degree of the inputs); 1 on one device.
+        A batch that generation or serving runs over the world has a
+        multiple of it rows (``InferenceSession`` pads to one)."""
+        return 1 if self.strategy is None else self._row_layout()[1]
+
+    def _row_split(self, rows: int) -> Tuple[int, int, int]:
+        """``(n, lo, hi)``: the row blocks of a batch of ``rows`` rows
+        (``row_blocks``) and this rank's rows [lo, hi) of it."""
+        from .parallel.distributed import shard_bounds
+        split, n = self._row_layout()
+        if rows % n:
+            raise ValueError(
+                f"a batch of {rows} rows does not split into the "
+                f"strategy's {n} data-parallel blocks of rows: pad it to "
+                f"a multiple of {n} (InferenceSession does)")
+        (lo, hi), = shard_bounds((rows,), self.strategy.dmesh.mesh, split)
+        return n, lo, hi
+
+    def kv_gather(self, cache, src: torch.Tensor, rows_before: int):
+        """The cache with its rows picked by ``src`` (B',), row indices
+        into the batch of ``rows_before`` rows it holds (beam search's
+        reorder). Over a live mesh each rank picks its own rows of the
+        new batch from its own block of the old one, which holds them
+        when every picked row lies in the rank's block: beam search keeps
+        each prompt's beams together, so a batch that splits over the
+        ranks into whole prompts keeps them on their rank."""
+        if self.strategy is not None:
+            _, lo, hi = self._row_split(int(src.shape[0]))
+            _, old_lo, _ = self._row_split(rows_before)
+            src = src[lo:hi] - old_lo
+        return {n: {k: t.index_select(0, src) for k, t in c.items()}
+                for n, c in cache.items()}
 
     def kv_decode_step(self, params, state, batch, cache, index):
         """One-token forward (inputs (B, 1)) against the KV cache at query
@@ -1645,25 +1725,71 @@ class Executor:
         continuous batcher's per-sequence contract. The attention layers
         cut to the real rows around the cache; the graph's other ops work
         row by row. A context with ``row_chunk`` 0 runs the batch's own
-        rows."""
+        rows.
+
+        Over a live mesh (``torch.no_grad()``) the batch and ``index`` are
+        whole and the cache is each rank's block (``kv_prefill``); the
+        padding goes into each rank's block of rows, so a rank with 4 of
+        8 rows runs its 4 in blocks of the chunk, as one card runs them.
+        ``EmitCtx.kv_rows`` and a ragged ``kv_index`` are the rank's. The
+        scores come back whole on every rank."""
         ctx = self._kv_ctx("decode", state)
         ctx.kv_cache = cache
         ctx.kv_index = index
-        with torch.inference_mode():
-            env = self.program.init_env(batch, self.device)
-            rows = next(iter(cache.values()))["k"].shape[0]
-            if ctx.row_chunk:
-                ctx.kv_rows = rows
-                padded = -(-rows // ctx.row_chunk) * ctx.row_chunk
-                for t in self.program.input_tensors:
-                    x = env[t.guid]
-                    if t.name in batch and x.shape[0] == rows:
-                        env[t.guid] = pad_rows(x, padded)
+        with self._no_grad():
+            if self.strategy is None:
+                env = self.program.init_env(batch, self.device)
+                rows = next(iter(cache.values()))["k"].shape[0]
+                if ctx.row_chunk:
+                    ctx.kv_rows = rows
+                    padded = -(-rows // ctx.row_chunk) * ctx.row_chunk
+                    for t in self.program.input_tensors:
+                        x = env[t.guid]
+                        if t.name in batch and x.shape[0] == rows:
+                            env[t.guid] = pad_rows(x, padded)
+                real_rows = lambda x: x[:rows]  # noqa: E731
+            else:
+                env, real_rows = self._world_decode_env(batch, ctx)
             logits = self.program.emit_layers(self.program.layers, env,
                                               params, ctx,
                                               self._logits_guid())
             outs = [env[t.guid] for t in self.program.output_tensors]
-            scores = self._scores(outs, logits)
+            scores = real_rows(self._scores(outs, logits))
         new_cache = dict(cache)
         new_cache.update(ctx.new_kv)
-        return scores[:rows, 0, :], new_cache
+        return scores[:, 0, :], new_cache
+
+    def _world_decode_env(self, batch, ctx):
+        """The decode step's graph inputs over the live mesh: each rank's
+        block of the batch's rows padded to the row chunk, the stream a
+        global batch of those blocks (``EmitCtx.kv_rows`` and a ragged
+        ``kv_index`` cut to the rank's rows); and what takes the
+        stream's scores whole and back to the batch's rows."""
+        names = {t.name for t in self.program.input_tensors}
+        rows = next(int(v.shape[0]) for k, v in batch.items() if k in names)
+        n, lo, hi = self._row_split(rows)
+        real = hi - lo
+        chunk = ctx.row_chunk
+        block = -(-real // chunk) * chunk if chunk else real
+        if chunk:
+            ctx.kv_rows = real
+        idx = ctx.kv_index
+        if torch.is_tensor(idx) and idx.dim() == 1:
+            ctx.kv_index = idx[lo:hi]
+        padded = {}
+        for k, x in batch.items():
+            x = _as_tensor(x, self.device)
+            if block != real and x.shape[0] == rows:
+                tail = tuple(x.shape[1:])
+                buf = x.new_zeros((n, block) + tail)
+                buf[:, :real] = x.reshape((n, real) + tail)
+                x = buf.reshape((n * block,) + tail)
+            padded[k] = x
+
+        def real_rows(scores):
+            scores = self._unplace(scores)
+            tail = tuple(scores.shape[1:])
+            return scores.reshape((n, block) + tail)[:, :real].reshape(
+                (rows,) + tail)
+        return self.program.init_env(padded, self.device, whole=True), \
+            real_rows

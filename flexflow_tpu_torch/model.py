@@ -1485,36 +1485,19 @@ class FFModel:
         position_ids), and falls back, with a warning and a count in
         ``_kv_fallback_count``, to the exact full re-forward path
         otherwise. True forces the KV path (raises when unsupported),
-        False forces the re-forward oracle."""
+        False forces the re-forward oracle.
+
+        Over a world of ranks every rank makes the same call: the prefill
+        and each decode step run under the strategy, the scores come back
+        whole on every rank, and every rank samples from them with the
+        same seeded generator, so all write the same tokens. "auto" never
+        falls back there (a failure on one rank would part it from its
+        peers): it raises as True does."""
         if self.executor is None:
             raise ValueError("call compile() first")
         ids0 = self._ids(prompt_ids)
         b, L = ids0.shape
-        if torch.is_tensor(prompt_len):
-            prompt_len = prompt_len.cpu().numpy()
-        if np.ndim(prompt_len) > 0:
-            # ragged prompts: one length per batch row
-            prompt_len = np.asarray(prompt_len, np.int32)
-            if prompt_len.shape != (b,):
-                raise ValueError(
-                    f"ragged prompt_len must have shape ({b},), got "
-                    f"{prompt_len.shape}")
-            if not ((prompt_len >= 1).all()
-                    and (prompt_len + max_new_tokens <= L).all()):
-                raise ValueError(
-                    f"each prompt_len must satisfy 1 <= len and "
-                    f"len + max_new_tokens <= {L}; got {prompt_len} "
-                    f"with max_new_tokens={max_new_tokens}")
-        else:
-            prompt_len = int(prompt_len)
-            if prompt_len < 1:
-                raise ValueError(
-                    "prompt_len must be >= 1 (the first token "
-                    "conditions decode)")
-            if prompt_len + max_new_tokens > L:
-                raise ValueError(
-                    f"prompt_len {prompt_len} + max_new_tokens "
-                    f"{max_new_tokens} exceeds the sequence length {L}")
+        prompt_len = check_prompt(b, L, prompt_len, max_new_tokens)
         names = {t.name for t in self.graph_inputs}
         # the other graph inputs, numpy or torch (GraphProgram.init_env
         # moves them to the device)
@@ -1535,7 +1518,9 @@ class FFModel:
                                          temperature, seed, eos_token_id,
                                          top_k, top_p)
             except Exception:
-                if kv_cache is True:
+                # over a world of ranks a failure on one rank would send
+                # it down another path than its peers': it raises
+                if kv_cache is True or self.executor.strategy is not None:
                     raise
                 failed.add((b, L))
                 # the fallback is exact but O(L) per token: a deployment
@@ -1592,7 +1577,7 @@ class FFModel:
         ragged = np.ndim(prompt_len) > 0
         plen = self._plen(prompt_len)
         gen = self._sampling_generator(temperature, seed)
-        with torch.inference_mode():
+        with ex._no_grad():
             batch = {"input_ids": ids0}
             if has_pos:
                 batch["position_ids"] = self._positions(b, L)
@@ -1661,7 +1646,9 @@ class FFModel:
         live on the batch dim (b*K rows) and the cache is gathered by
         source beam each step; a finished beam continues with eos only,
         at no cost. Returns the best (batch, seq_len) int32 ids on the
-        model's device."""
+        model's device. Over a world of ranks each rank gathers its own
+        rows of the cache (``Executor.kv_gather``): the beams of a prompt
+        stay on the rank that holds the prompt's rows."""
         if self.executor is None:
             raise ValueError("call compile() first")
         ids0 = self._ids(prompt_ids)
@@ -1687,12 +1674,7 @@ class FFModel:
         ex = self.executor
         dev = self.device
         NEG = -1e30
-
-        def gather(cache, src):
-            return {n: {k: t.index_select(0, src) for k, t in c.items()}
-                    for n, c in cache.items()}
-
-        with torch.inference_mode():
+        with ex._no_grad():
             batch = {"input_ids": ids0}
             if "position_ids" in names:
                 batch["position_ids"] = self._positions(b, L)
@@ -1701,7 +1683,7 @@ class FFModel:
             # beams on the batch dim: row r's beams are rows r*K..r*K+K-1
             rep = torch.arange(b, device=dev).repeat_interleave(K)
             ids = ids0.index_select(0, rep)
-            cache = gather(cache, rep)
+            cache = ex.kv_gather(cache, rep, b)
             # all beams start identical: only beam 0 is live, so the
             # first step picks the row's top-K distinct tokens
             scores = torch.where(torch.arange(K, device=dev) == 0, 0.0,
@@ -1733,7 +1715,7 @@ class FFModel:
                 src = (torch.arange(b, device=dev)[:, None] * K
                        + beam).reshape(-1)
                 ids = ids.index_select(0, src)
-                cache = gather(cache, src)
+                cache = ex.kv_gather(cache, src, b * K)
                 done = done.index_select(0, src)
                 scores = top_s.reshape(-1)
                 if eos_token_id is not None:
@@ -1795,7 +1777,7 @@ class FFModel:
         ragged = np.ndim(prompt_len) > 0
         plen = self._plen(prompt_len)
         gen = self._sampling_generator(temperature, seed)
-        with torch.inference_mode():
+        with ex._no_grad():
             ids = ids0.clone()
             done = torch.zeros(b, dtype=torch.bool, device=self.device)
             for i in range(max_new_tokens):
@@ -1808,6 +1790,39 @@ class FFModel:
                                               top_p)
                 self._write_token(ids, nxt, cur, ragged)
             return ids
+
+
+def check_prompt(b: int, L: int, prompt_len, max_new_tokens: int):
+    """The prompt length(s) of a generate call over ``b`` rows of ``L``
+    positions as the decode loops take them, an int or (ragged prompts)
+    a (b,) int32 array; ValueError unless every prompt holds at least one
+    token and leaves room for ``max_new_tokens``."""
+    if torch.is_tensor(prompt_len):
+        prompt_len = prompt_len.cpu().numpy()
+    if np.ndim(prompt_len) > 0:
+        # ragged prompts: one length per batch row
+        prompt_len = np.asarray(prompt_len, np.int32)
+        if prompt_len.shape != (b,):
+            raise ValueError(
+                f"ragged prompt_len must have shape ({b},), got "
+                f"{prompt_len.shape}")
+        if not ((prompt_len >= 1).all()
+                and (prompt_len + max_new_tokens <= L).all()):
+            raise ValueError(
+                f"each prompt_len must satisfy 1 <= len and "
+                f"len + max_new_tokens <= {L}; got {prompt_len} "
+                f"with max_new_tokens={max_new_tokens}")
+        return prompt_len
+    prompt_len = int(prompt_len)
+    if prompt_len < 1:
+        raise ValueError(
+            "prompt_len must be >= 1 (the first token "
+            "conditions decode)")
+    if prompt_len + max_new_tokens > L:
+        raise ValueError(
+            f"prompt_len {prompt_len} + max_new_tokens "
+            f"{max_new_tokens} exceeds the sequence length {L}")
+    return prompt_len
 
 
 def _same_on_every_rank(strategy, layers) -> None:

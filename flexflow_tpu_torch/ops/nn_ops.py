@@ -335,25 +335,25 @@ class LayerNormOp(OpDef):
         axes = tuple(a % ndim for a in params.get("axes", [ndim - 1]))
         eps = params.get("eps", 1e-5)
 
-        def norm(t, ax):
+        def norm(t, ax, w):
             tf = t.float()
             mean = tf.mean(dim=ax, keepdim=True)
             var = tf.var(dim=ax, correction=0, keepdim=True)
             y = (tf - mean) * torch.rsqrt(var + eps)
-            if "scale" in weights:
+            if "scale" in w:
                 bshape = [t.shape[a] if a in ax else 1
                           for a in range(t.dim())]
-                y = y * weights["scale"].float().reshape(bshape) \
-                    + weights["bias"].float().reshape(bshape)
+                y = y * w["scale"].float().reshape(bshape) \
+                    + w["bias"].float().reshape(bshape)
             return y.to(t.dtype)
 
         k, chunk = len(axes), getattr(ctx, "row_chunk", 0)
         if chunk and axes == tuple(range(ndim - k, ndim)):
             # the decode step: row by row at a fixed shape
             return [rows_chunked(
-                lambda t: norm(t, tuple(range(t.dim() - k, t.dim()))),
-                x, chunk, k)]
-        return [norm(x, axes)]
+                lambda t, w: norm(t, tuple(range(t.dim() - k, t.dim())), w),
+                x, chunk, k, weights)]
+        return [norm(x, axes, weights)]
 
 
 # ---------------------------------------------------------------------------
@@ -374,16 +374,16 @@ class RMSNormOp(OpDef):
         (x,) = inputs
         eps = params.get("eps", 1e-6)
 
-        def norm(t):
+        def norm(t, w):
             tf = t.float()
             ms = (tf * tf).mean(dim=-1, keepdim=True)
             return (tf * torch.rsqrt(ms + eps)
-                    * weights["scale"].float()).to(t.dtype)
+                    * w["scale"].float()).to(t.dtype)
 
         chunk = getattr(ctx, "row_chunk", 0)
         if chunk:   # the decode step: row by row at a fixed shape
-            return [rows_chunked(norm, x, chunk)]
-        return [norm(x)]
+            return [rows_chunked(norm, x, chunk, 1, weights)]
+        return [norm(x, weights)]
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +419,15 @@ class EmbeddingOp(OpDef):
 
 
 # ---------------------------------------------------------------------------
+def _local_block(t, dims):
+    """This rank's block of the DTensor ``t`` with its shardings of
+    ``dims`` kept and every other mesh dim made whole."""
+    pl = keep_dims(t, dims)
+    if list(t.placements) != pl:
+        t = t.redistribute(t.device_mesh, pl)
+    return t.to_local()
+
+
 def _apply_rope(x, pos, theta: float):
     """Rotary position embedding, LLaMA's half-split-rotate convention.
     ``x``: (B, L, h, d) with d even; ``pos``: (L,) absolute positions
@@ -547,6 +556,10 @@ class MultiHeadAttentionOp(OpDef):
         (mod W), and slots no prompt position reached carry position
         -10**9 (masked). Otherwise the full K/V; padded positions hold
         garbage that the decode step rewrites before it unmasks them."""
+        if is_dtensor(kh):
+            # over a live mesh each rank keeps its own block: its rows and
+            # its kv heads
+            kh, vh = (_local_block(t, (0, 2)) for t in (kh, vh))
         W = params.get("sliding_window", 0)
         plen = ctx.kv_prefill_len
         L = kh.shape[1]
@@ -577,17 +590,12 @@ class MultiHeadAttentionOp(OpDef):
         qh = proj(q, weights["wq"], weights.get("bq"))
         kh = proj(k, weights["wk"], weights.get("bk"))
         vh = proj(v, weights["wv"], weights.get("bv"))
-        if ctx.kv_mode == "decode" and 0 < ctx.kv_rows < qh.shape[0]:
-            # the decode step's stream carries padding rows up to the row
-            # chunk; the cache and its index hold the real rows
-            qh, kh, vh = (t[:ctx.kv_rows] for t in (qh, kh, vh))
         rate = params.get("dropout", 0.0) if ctx.training else 0.0
         causal = params.get("causal", False)
-        window = params.get("sliding_window", 0)
         if params.get("rope", False):
             # rotary embeddings in the op: positions are absolute, so the
-            # decode token rotates at kv_index and the cache stores keys
-            # already rotated
+            # decode token rotates at kv_index (in _decode_attend) and the
+            # cache stores keys already rotated
             if not causal:
                 raise ValueError(
                     "rope is only supported for causal attention")
@@ -596,21 +604,16 @@ class MultiHeadAttentionOp(OpDef):
                     "rope=True requires self-attention (Lq == Lk); "
                     "cross-attention has no single absolute position "
                     "stream")
+        if ctx.kv_mode == "decode":
+            return self._emit_decode(params, weights, ctx, name, qh, kh, vh,
+                                     mdt, cdt)
+        if params.get("rope", False):
             theta = float(params.get("rope_theta", 10000.0))
-            if ctx.kv_mode == "decode":
-                idx = ctx.kv_index
-                # a scalar index -> (1,); per-row (ragged prompts) -> (B, 1)
-                pos = idx[:, None] if torch.is_tensor(idx) and idx.dim() \
-                    else torch.full((1,), int(idx), device=qh.device)
-            else:
-                pos = torch.arange(qh.shape[1], device=qh.device)
+            pos = torch.arange(qh.shape[1], device=qh.device)
             qh = _apply_rope(qh, pos, theta)
             kh = _apply_rope(kh, pos, theta)
         if ctx.kv_mode == "prefill":
             ctx.new_kv[name] = self._prefill_cache(params, ctx, kh, vh)
-        elif ctx.kv_mode == "decode":
-            return self._emit_decode(params, weights, ctx, name, qh, kh, vh,
-                                     mdt, cdt, q.shape[0])
         kh = self._expand_kv(kh, qh.shape[2])
         vh = self._expand_kv(vh, qh.shape[2])
         if self._impl_for(ctx, name) == "ring" and ctx.kv_mode is None:
@@ -747,18 +750,38 @@ class MultiHeadAttentionOp(OpDef):
         return self._out_proj(ctxv, weights, mdt, cdt, ctx)
 
     def _emit_decode(self, params, weights, ctx, name, qh, kh, vh, mdt,
-                     cdt, stream_rows):
-        """One-token decode against the KV cache: write this position's
-        K/V into the layer's cache buffers (in place), then attend the
-        length-1 query over the positions <= kv_index. The same mask and
-        softmax domain as the full re-forward's row at kv_index, the
-        numerics oracle of the generation tests. The output has
-        ``stream_rows`` rows, the input's (the cache's real rows padded by
-        ``kv_decode_step``)."""
+                     cdt):
+        """One-token decode against the KV cache (:meth:`_decode_attend`),
+        then the output projection. Over a live mesh each rank attends its
+        own rows and heads against its own block of the cache, as the
+        prefill left it."""
         if not params.get("causal", False):
             raise ValueError(
                 "KV-cache decode requires causal self-attention")
         cache = ctx.kv_cache[name]
+        if is_dtensor(qh):
+            ctxv = run_local(
+                lambda q_, k_, v_: self._decode_attend(
+                    params, ctx, cache, q_, k_, v_, mdt),
+                (qh, kh, vh), keep_dims(qh, (0, 2)),
+                (*qh.shape[:3], vh.shape[3]))
+        else:
+            ctxv = self._decode_attend(params, ctx, cache, qh, kh, vh, mdt)
+        ctx.new_kv[name] = cache
+        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
+
+    @staticmethod
+    def _decode_attend(params, ctx, cache, qh, kh, vh, mdt):
+        """Write this position's K/V into the layer's cache buffers (in
+        place), then attend the length-1 query over the positions <=
+        kv_index: the same mask and softmax domain as the full
+        re-forward's row at kv_index, the numerics oracle of the
+        generation tests. ``qh`` / ``kh`` / ``vh`` are the (rows, 1, h, d)
+        heads of the decode stream, which carries padding rows up to the
+        row chunk (``Executor.kv_decode_step``); the cache and the index
+        hold the real rows (``EmitCtx.kv_rows``), to which the stream is
+        cut around the cache, and the context is padded back to the
+        stream's rows."""
         idx = ctx.kv_index
         ragged = torch.is_tensor(idx) and idx.dim() == 1   # (B,) positions
         ring = "pos" in cache
@@ -767,12 +790,30 @@ class MultiHeadAttentionOp(OpDef):
                 "ragged prompts use the full cache (generate passes "
                 "prefill_len=None for vector prompt lengths)")
         k_full, v_full = cache["k"], cache["v"]
+        stream, rows = qh.shape[0], k_full.shape[0]
+        chunk = ctx.row_chunk if ctx.kv_rows else 0
+        if (ctx.kv_rows and ctx.kv_rows != rows) or stream != (
+                -(-rows // chunk) * chunk if chunk else rows):
+            raise ValueError(
+                f"the decode stream's {stream} rows do not hold the "
+                f"cache's {rows} (of {ctx.kv_rows or rows} real rows): "
+                f"the attention layer's rows are laid out unlike the "
+                f"graph inputs'")
+        if rows < stream:
+            qh, kh, vh = (t[:rows] for t in (qh, kh, vh))
+        if params.get("rope", False):
+            # a scalar index -> (1,); per-row (ragged prompts) -> (B, 1)
+            pos = idx[:, None] if torch.is_tensor(idx) and idx.dim() \
+                else torch.full((1,), int(idx), device=qh.device)
+            theta = float(params.get("rope_theta", 10000.0))
+            qh = _apply_rope(qh, pos, theta)
+            kh = _apply_rope(kh, pos, theta)
         b_, lq_, hq, d_ = qh.shape
         if ragged:
             # each row writes at its own position
-            rows = torch.arange(b_, device=qh.device)
-            k_full[rows, idx] = kh[:, 0].to(k_full.dtype)
-            v_full[rows, idx] = vh[:, 0].to(v_full.dtype)
+            r = torch.arange(b_, device=qh.device)
+            k_full[r, idx] = kh[:, 0].to(k_full.dtype)
+            v_full[r, idx] = vh[:, 0].to(v_full.dtype)
         else:
             idx = int(idx)
             # sliding-window ring buffer: slot idx % W, with the stored
@@ -782,7 +823,6 @@ class MultiHeadAttentionOp(OpDef):
             v_full[:, slot] = vh[:, 0].to(v_full.dtype)
             if ring:
                 cache["pos"][:, slot] = idx
-        ctx.new_kv[name] = cache
         # GQA: contract the length-1 query against the cache AT kvh
         # heads, g = h / kvh query heads per group, with no expanded copy
         # of the cache; g == 1 is plain MHA
@@ -809,8 +849,7 @@ class MultiHeadAttentionOp(OpDef):
         probs = torch.softmax(logits, dim=-1)
         vb = v_full.to(mdt).permute(0, 2, 1, 3).reshape(b_ * kvh, m, d_)
         ctxv = mm_f32(probs.to(mdt).reshape(b_ * kvh, g, m), vb, ctx)
-        ctxv = pad_rows(ctxv.reshape(b_, lq_, hq, d_), stream_rows)
-        return self._out_proj(ctxv, weights, mdt, cdt, ctx)
+        return pad_rows(ctxv.reshape(b_, lq_, hq, d_), stream)
 
     def flops(self, params, in_shapes, out_shapes):
         b, lq, _ = in_shapes[0]

@@ -76,7 +76,10 @@ class EmitCtx:
         # kv_index = the query position (an int, or a (B,) tensor for
         # ragged prompts); kv_prefill_len = the count of real prompt
         # positions in the prefill batch, from which sliding-window
-        # layers seed their O(window) ring-buffer cache.
+        # layers seed their O(window) ring-buffer cache. Over a live mesh
+        # the cache holds each rank's block (its rows, its kv heads), a
+        # ragged kv_index the rank's rows and kv_rows (below) the rank's
+        # count of real rows; a scalar index is the same on every rank.
         self.kv_mode: Optional[str] = None
         self.kv_cache: Optional[Dict[str, Any]] = None
         self.kv_index: Any = None
@@ -277,17 +280,29 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)) if pad else x
 
 
-def rows_chunked(fn, x: torch.Tensor, chunk: int, keep: int = 1):
-    """``fn(x)`` for an ``fn`` that works row by row over the last
-    ``keep`` dims of ``x`` (a norm), run on blocks of exactly ``chunk``
-    rows (:func:`_row_blocks`): a reduction kernel, like a GEMM, picks its
-    order of summation by shape, so a row alone and the same row among
-    eight would otherwise be summed in another order. The decode step's
-    padded stream is one such block already and costs nothing more."""
+def rows_chunked(fn, x: torch.Tensor, chunk: int, keep: int = 1,
+                 weights: Optional[Dict[str, Any]] = None):
+    """``fn(x, weights)`` for an ``fn`` that works row by row over the
+    last ``keep`` dims of ``x`` (a norm), run on blocks of exactly
+    ``chunk`` rows (:func:`_row_blocks`): a reduction kernel, like a GEMM,
+    picks its order of summation by shape, so a row alone and the same
+    row among eight would otherwise be summed in another order. The
+    decode step's padded stream is one such block already and costs
+    nothing more. Over a live mesh each rank runs its own rows (the
+    decode step pads each rank's block to the chunk) with the weights
+    whole."""
+    weights = weights or {}
+    if is_dtensor(x):
+        from ..parallel.local_ops import keep_dims, run_local
+        whole = {k: w.full_tensor() if is_dtensor(w) else w
+                 for k, w in weights.items()}
+        return run_local(
+            lambda t: rows_chunked(fn, t, chunk, keep, whole), (x,),
+            keep_dims(x, range(x.dim() - keep)), x.shape)
     if _rows(x, keep) == chunk:
-        return fn(x)
+        return fn(x, weights)
     blocks, n = _row_blocks(x, chunk, keep)
-    out = _cat([fn(blk) for blk in blocks])[:n]
+    out = _cat([fn(blk, weights) for blk in blocks])[:n]
     return out.reshape(*x.shape[:x.dim() - keep], *out.shape[1:])
 
 
@@ -326,9 +341,19 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor, ctx=None) -> torch.Tensor:
     product on blocks of that many rows (:func:`_mm_chunked`): cuBLAS
     picks its kernel, and so its order of summation, by shape, so a row
     of a one-row batch and the same row among eight would otherwise meet
-    different kernels."""
+    different kernels. Over a live mesh the blocks are each rank's own
+    rows (the decode step pads each rank's block to the chunk), the
+    product's layout :func:`~..parallel.local_ops.dist_mm`'s."""
     chunk = getattr(ctx, "row_chunk", 0)
-    if chunk:
+    if chunk and (is_dtensor(a) or is_dtensor(b)):
+        issued = []
+
+        def local(x, y):
+            o, p = _mm_chunked(x, y, chunk)
+            issued.extend(p)
+            return o
+        out, parts = dist_mm(a, b, local), issued
+    elif chunk:
         out, parts = _mm_chunked(a, b, chunk)
     else:
         out, parts = _mm(a, b), [(a, b)]

@@ -411,6 +411,33 @@ def maybe_initialize(config=None, device_type: str = "cuda") -> bool:
     return nproc > 1
 
 
+#: how long a relay follower waits in a broadcast for rank 0's next
+#: message: a server may idle for hours, and a peer's death closes its
+#: connections, which ends the wait at once
+RELAY_TIMEOUT_S = 24 * 3600.0
+
+
+def relay_group():
+    """A gloo process group of every rank of the world that carries host
+    objects (the serving relay's calls, ``serving/world.py``), apart from
+    the groups the device collectives run on. Collective: every rank
+    makes it at the same point."""
+    import torch.distributed as dist
+    group = dist.new_group(backend="gloo",
+                           timeout=timedelta(seconds=RELAY_TIMEOUT_S))
+    ROUTES["relay"] = "gloo, host objects (broadcast_object_list)"
+    return group
+
+
+def broadcast_object(obj, group, src: int = 0):
+    """``obj``, a picklable host value, as rank ``src`` holds it, on every
+    rank of ``group`` (a CPU gloo group: :func:`relay_group`)."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
 def coordinator_address() -> str:
     """``host:port`` of the store this process's world met at (rank 0
     serves it); empty outside a world."""

@@ -31,9 +31,15 @@ about. This module makes serving a search target of its own:
   in the strategy file (``search/serialization.py``), audited and
   verified.
 
-The one-device executor runs every plan unsharded; on a described mesh
-the plans are searched, verified and exported (executing a multi-device
-plan is ROADMAP queue 1 item 4).
+A plan runs where its mesh is live: one bucket's sub-strategy
+(``bucket_strategy_doc``) compiles on one device, or over a world of
+ranks whose mesh is the plan's (``serving.session.
+build_serving_plan_session``, with ``serving/world.py`` relaying rank
+0's calls to the other ranks). On a described mesh larger than the
+world the plans are searched, verified and exported only. A bucket whose
+KV cache shards over the context (``seq_shard_degree`` > 1) is refused
+at load: its per-step combine is not ported (ROADMAP queue 1 item 4.6's
+leftover).
 """
 from __future__ import annotations
 

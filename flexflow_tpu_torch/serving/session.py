@@ -61,6 +61,9 @@ class InferenceSession:
         self.decode_segment = int(decode_segment)
         self._fwd = ff.executor.make_forward()
         self._lock = threading.Lock()
+        # over a world of ranks a batch pads to a multiple of the rows'
+        # data-parallel blocks as well as to its bucket
+        self._row_blocks = ff.executor.row_blocks()
 
     def clone(self) -> "InferenceSession":
         """A concurrent instance of the same model: shares the forward
@@ -71,6 +74,7 @@ class InferenceSession:
         c.decode_segment = self.decode_segment
         c._fwd = self._fwd
         c._lock = threading.Lock()
+        c._row_blocks = self._row_blocks
         return c
 
     @property
@@ -95,28 +99,62 @@ class InferenceSession:
             faults.raise_infer_fault()
         return self._infer_checked(inputs)
 
-    def _infer_checked(self, inputs: Dict[str, np.ndarray]) -> np.ndarray:
-        # chunk recursion goes through here, NOT infer(): the fault
-        # hook must advance the infer_fail@N counter exactly once per
-        # top-level call or clause indices stop matching request counts
+    def _padded_rows(self, n: int) -> int:
+        """The rows a batch of ``n`` runs at: its bucket, rounded up over
+        a world of ranks to a multiple of the rows' data-parallel
+        blocks."""
+        r = self._row_blocks
+        return -(-_next_bucket(n, self.buckets) // r) * r
+
+    def check_infer(self, inputs: Dict[str, np.ndarray]) -> int:
+        """The rows of a request ``infer`` takes; ValueError for one it
+        refuses (missing inputs, ragged rows), before any device work."""
         names = self.input_names
         missing = [n for n in names if n not in inputs]
         if missing:
             raise ValueError(f"missing inputs: {missing}")
         n = int(next(iter(inputs.values())).shape[0])
+        for name in names:
+            rows = int(np.shape(inputs[name])[0])
+            if rows != n:
+                raise ValueError(f"ragged batch: {name} has {rows} rows, "
+                                 f"want {n}")
+        return n
+
+    def check_generate(self, input_ids, prompt_len, max_new_tokens: int,
+                       num_beams: int = 1) -> None:
+        """ValueError for a request ``generate`` refuses (ids not (rows,
+        positions), a prompt length out of range, ragged prompts with
+        beams), before any device work."""
+        from ..model import check_prompt
+        shape = np.shape(input_ids)
+        if len(shape) != 2:
+            raise ValueError(f"input_ids must be (rows, positions), got "
+                             f"shape {shape}")
+        if int(num_beams) < 1:
+            raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+        if np.ndim(prompt_len) > 0 and num_beams > 1:
+            raise ValueError("per-row prompt lengths are not supported "
+                             "with beam search; send uniform-length beams "
+                             "or one request per row")
+        check_prompt(shape[0], shape[1], prompt_len, max_new_tokens)
+
+    def _infer_checked(self, inputs: Dict[str, np.ndarray]) -> np.ndarray:
+        # chunk recursion goes through here, NOT infer(): the fault
+        # hook must advance the infer_fail@N counter exactly once per
+        # top-level call or clause indices stop matching request counts
+        names = self.input_names
+        n = self.check_infer(inputs)
         cap = self.buckets[-1]
         if n > cap:
             return np.concatenate(
                 [self._infer_checked(
                     {k: v[i:i + cap] for k, v in inputs.items()})
                  for i in range(0, n, cap)], axis=0)
-        bucket = _next_bucket(n, self.buckets)
+        bucket = self._padded_rows(n)
         padded = {}
         for name in names:
             arr = np.ascontiguousarray(inputs[name])
-            if arr.shape[0] != n:
-                raise ValueError(f"ragged batch: {name} has "
-                                 f"{arr.shape[0]} rows, want {n}")
             if bucket != n:
                 pad = np.zeros((bucket - n,) + arr.shape[1:], arr.dtype)
                 arr = np.concatenate([arr, pad], axis=0)
@@ -178,7 +216,7 @@ class InferenceSession:
         # into the request
         trace = request_trace.current()
         t_pad = time.perf_counter()
-        bucket = _next_bucket(n, self.buckets)
+        bucket = self._padded_rows(n)
         if bucket != n:
             pad = np.zeros((bucket - n,) + ids.shape[1:], ids.dtype)
             ids = np.concatenate([ids, pad], axis=0)
@@ -306,6 +344,16 @@ class ServingPlanSession:
     def input_signature(self):
         return self._by_bucket[self.buckets[-1]].input_signature
 
+    def check_infer(self, inputs: Dict[str, np.ndarray]) -> int:
+        n = int(next(iter(inputs.values())).shape[0])
+        return self.session_for(n).check_infer(inputs)
+
+    def check_generate(self, input_ids, prompt_len, max_new_tokens: int,
+                       num_beams: int = 1) -> None:
+        n = int(np.shape(input_ids)[0]) if np.ndim(input_ids) else 0
+        self.session_for(n).check_generate(input_ids, prompt_len,
+                                           max_new_tokens, num_beams)
+
     def infer(self, inputs: Dict[str, np.ndarray]) -> np.ndarray:
         n = int(next(iter(inputs.values())).shape[0])
         # oversized batches ride the largest bucket's own chunking
@@ -356,7 +404,10 @@ def _min_decode_latency(ff, bucket: int, reps: int = 3) -> float:
     warms up and is not timed; the record keeps its earlier entries.
     Raises :class:`NoDecodePath` when the graph has no KV decode path
     (callers treat that as 'guard not applicable'); any other failure
-    propagates."""
+    propagates. Over a world of ranks the bucket's rows round up to a
+    multiple of the rows' data-parallel blocks, as a session pads them."""
+    r = ff.executor.row_blocks()
+    bucket = -(-int(bucket) // r) * r
     names = {t.name for t in ff.graph_inputs}
     if "input_ids" not in names or not ff._kv_decode_eligible(names,
                                                                None):
@@ -388,6 +439,19 @@ def _min_decode_latency(ff, bucket: int, reps: int = 3) -> float:
     return best
 
 
+def _rank0_value(value):
+    """``value`` as rank 0 holds it, on every rank of a world of ranks
+    (a host object over the default group); ``value`` itself outside
+    one."""
+    from ..parallel.distributed import is_initialized, process_count
+    if not is_initialized() or process_count() <= 1:
+        return value
+    import torch.distributed as dist
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def build_serving_plan_session(serving_strategy_file: str, build,
                                floor_guard: str = "auto"
                                ) -> ServingPlanSession:
@@ -406,7 +470,12 @@ def build_serving_plan_session(serving_strategy_file: str, build,
     live on a CUDA device and skips it on the CPU. A model with no KV
     decode path keeps the searched plan and records why
     (``{"skipped": ...}``); any other failure, a device error among
-    them, fails the load."""
+    them, fails the load.
+
+    Over a world of ranks every rank makes this call, each bucket's
+    model compiles over the world (its plan's mesh must be the world's),
+    and the floor guard's choice is rank 0's on every rank. A plan that
+    shards a bucket's KV cache over the context is refused."""
     import json
     import os
     import tempfile
@@ -421,6 +490,16 @@ def build_serving_plan_session(serving_strategy_file: str, build,
             f"{serving_strategy_file} has no serving block: search one "
             f"with optimize_serving_strategy (mode='serving') or pass it "
             f"as strategy_file")
+    seq_kv = [b for b in bks if any(
+        int((kv or {}).get("seq_shard_degree", 1) or 1) > 1
+        for kv in (sblock["buckets"][str(b)].get("kv") or {}).values())]
+    if seq_kv:
+        raise NotImplementedError(
+            f"buckets {seq_kv} of {serving_strategy_file} shard the KV "
+            f"cache over the context (seq_shard_degree > 1): that needs a "
+            f"mesh with a seq axis and a combine of the partial attention "
+            f"outputs each decode step, not ported (ROADMAP queue 1 item "
+            f"4.6's leftover)")
     per_bucket = {}
     for b in bks:
         sub = bucket_strategy_doc(doc, b)
@@ -447,8 +526,11 @@ def build_serving_plan_session(serving_strategy_file: str, build,
         try:
             base = build(None, buckets=list(bks))
             for b in bks:
-                t_s = _min_decode_latency(per_bucket[b].ff, b)
-                t_b = _min_decode_latency(base.ff, b)
+                # over a world every rank times both (the decodes are
+                # collective) and rank 0's times decide for all of them
+                t_s, t_b = _rank0_value(
+                    (_min_decode_latency(per_bucket[b].ff, b),
+                     _min_decode_latency(base.ff, b)))
                 adopted = "searched" if t_s <= t_b else "baseline"
                 if adopted == "baseline":
                     per_bucket[b] = InferenceSession(

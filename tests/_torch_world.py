@@ -1276,6 +1276,287 @@ def torn(payload):
             "steps": sorted(mgr.all_steps())}
 
 
+# ----------------------------------------------------------------------
+# generation and serving over the world
+# ----------------------------------------------------------------------
+
+GEN_SEQ, GEN_BUCKET = 16, 4
+
+
+def gen_prompts(n, plen, seed=0):
+    """``tests/test_generate_sharded.py``'s prompts: (n, 16) int32 ids,
+    seeded tokens in 1 ... 59 in the first ``plen`` columns."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((n, GEN_SEQ), np.int32)
+    ids[:, :plen] = rng.integers(1, 60, (n, plen))
+    return ids
+
+
+def _gen_model(argv, sf=None):
+    """The tiny GPT-2 of ``tests/test_generate_sharded.py`` (vocab 64,
+    hidden 32, 2 layers, 4 heads, 16 positions, batch 4) in f32 under
+    ``argv``, or under the serving-plan bucket strategy file ``sf``."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt2
+    cfg = FFConfig.parse_args(list(argv))
+    cfg.batch_size, cfg.device, cfg.seed = GEN_BUCKET, "cpu", 0
+    cfg.use_bf16_compute = False
+    if sf:
+        cfg.import_strategy_file, cfg.only_data_parallel = sf, False
+    ff = FFModel(cfg)
+    out = build_gpt2(ff, GEN_BUCKET, GEN_SEQ, GPTConfig(
+        vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+        max_position=GEN_SEQ, dropout=0.0))
+    ff.compile(SGDOptimizer(0.0), "identity", [], output_tensor=out)
+    return ff
+
+
+def _recorded_steps(ff):
+    """Wrap ``ff``'s decode step so that each step's score rows land in
+    the returned list (host arrays), and count the steps."""
+    ex = ff.executor
+    step = ex.kv_decode_step
+    rows = []
+
+    def recorded(*a, **kw):
+        row, cache = step(*a, **kw)
+        rows.append(row.detach().float().cpu().numpy())
+        return row, cache
+    ex.kv_decode_step = recorded
+    return rows
+
+
+def gen_cases(sess, seg):
+    """``tests/test_generate_sharded.py``'s cases, sampling and beam
+    search through ``sess`` (one lock hold) and ``seg`` (decode segments
+    of 3): host arrays by case."""
+    import numpy as np
+    out = {}
+    steps = _recorded_steps(sess.ff)
+    out["boundary"] = sess.generate(gen_prompts(4, 5), 5, 6)
+    out["boundary_scores"] = np.stack(steps[-6:], axis=1)
+    lens = np.array([6, 2, 5], np.int32)
+    ids = gen_prompts(3, 6, seed=3)
+    ids[1, 2:] = 0
+    ids[2, 5:] = 0
+    out["ragged"] = sess.generate(ids, lens, 5)
+    samp = dict(temperature=0.8, seed=11, top_k=20, top_p=0.9)
+    out["sample"] = [sess.generate(gen_prompts(4, 3, seed=8), 3, 6, **samp)
+                     for _ in range(2)]
+    out["beam"] = sess.generate(gen_prompts(4, 3, seed=9), 3, 5,
+                                num_beams=2)
+    out["ragged_solo"] = [sess.generate(ids[r:r + 1], int(lens[r]), 5)
+                          for r in range(3)]
+    p = gen_prompts(4, 4, seed=1)
+    out["partial_full"] = sess.generate(p, 4, 5)
+    out["partial"] = sess.generate(p[:2], 4, 5)
+    out["chunk"] = sess.generate(gen_prompts(10, 3, seed=2), 3, 6)
+    fold = np.zeros((9, GEN_SEQ), np.int32)
+    fold[:, :2] = 5
+    out["fold"] = sess.generate(fold, 2, 6, temperature=0.9, seed=7)
+    out["fold_chunks"] = [
+        sess.generate(fold[i:i + 4], 2, 6, temperature=0.9,
+                      seed=(7 + k * 0x9E3779B1) & 0x7FFFFFFF)
+        for k, i in enumerate(range(0, 9, 4))]
+    free = sess.generate(gen_prompts(2, 3, seed=4), 3, 6)
+    out["eos_free"] = free
+    out["eos"] = sess.generate(gen_prompts(2, 3, seed=4), 3, 6,
+                               eos_token_id=int(free[0, 3]))
+    p = gen_prompts(4, 4, seed=5)
+    a = out["seg_one"] = sess.generate(p, 4, 8)
+    out["seg"] = seg.generate(p, 4, 8)
+    eos = int(a[0, 4])
+    out["seg_one_eos"] = sess.generate(p, 4, 8, eos_token_id=eos)
+    out["seg_eos"] = seg.generate(p, 4, 8, eos_token_id=eos)
+    lens = np.array([4, 2, 3, 1], np.int32)
+    out["seg_one_ragged"] = sess.generate(p, lens, 8)
+    out["seg_ragged"] = seg.generate(p, lens, 8)
+    try:
+        sess.generate(gen_prompts(2, 4, seed=6), GEN_SEQ, 1)
+        out["overlong_refused"] = False
+    except ValueError:
+        out["overlong_refused"] = True
+    return out
+
+
+def _gen_run(kind, payload, sf=None):
+    """One model of ``payload``'s weights under ``kind`` ("dp", "tp" or
+    "plan": the bucket strategy file ``sf``) through InferenceSession:
+    the cases, the mesh, the KV fallback count, the decode steps run."""
+    from flexflow_tpu_torch.interop import load_reference_params
+    from flexflow_tpu_torch.serving import InferenceSession
+    argv = {"dp": ["--only-data-parallel"], "tp": ["--tp", "2"],
+            "plan": []}[kind]
+    ff = _gen_model(argv, sf)
+    load_reference_params(ff, payload["params"], payload["layers"])
+    sess = InferenceSession(ff, [GEN_BUCKET], decode_segment=0)
+    seg = InferenceSession(ff, [GEN_BUCKET], decode_segment=3)
+    out = gen_cases(sess, seg)
+    out["mesh"] = dict(ff.dmesh.axis_sizes)
+    out["fallback"] = getattr(ff, "_kv_fallback_count", 0)
+    mha = next(l for l in ff.executor.program.layers
+               if l.op_type.name == "OP_MULTIHEAD_ATTENTION")
+    out["wq_local"] = tuple(ff.params[mha.name]["wq"].to_local().shape)
+    return out
+
+
+@scenario
+def generate(payload):
+    """Generation over the world: the tiny GPT-2 from the reference's
+    weights under each run of ``payload["runs"]`` ("dp", "tp", or a
+    serving-plan bucket strategy file), ``gen_cases`` through
+    InferenceSession; then the plan file's ``build_serving_plan_session``
+    with the floor guard on, behind the rank-0 relay (``relay``)."""
+    out = {}
+    for kind, sf in payload["runs"]:
+        out[kind] = _gen_run(kind, payload, sf)
+    if payload.get("relay"):
+        out["relay"] = relay(payload)
+    return out
+
+
+def relay(payload):
+    """The rank-0 relay over a plan session built from the plan file:
+    rank 0 sends greedy requests from three threads, then one that fails
+    its check, then a sampled one; the other ranks follow. Each rank's
+    log of relayed calls, its decode steps and the outputs."""
+    import threading
+
+    from flexflow_tpu_torch.interop import load_reference_params
+    from flexflow_tpu_torch.serving import InferenceSession
+    from flexflow_tpu_torch.serving.session import (
+        build_serving_plan_session)
+    from flexflow_tpu_torch.serving.world import WorldRelay
+
+    def build(sf, buckets=(GEN_BUCKET,)):
+        ff = _gen_model(["--only-data-parallel"] if sf is None else [],
+                        sf)
+        load_reference_params(ff, payload["params"], payload["layers"])
+        return InferenceSession(ff, buckets, decode_segment=0)
+
+    ps = build_serving_plan_session(payload["plan"], build,
+                                    floor_guard="true")
+    ff = ps.ff
+    steps = _recorded_steps(ff)
+    rel = WorldRelay(ps)
+    out = {"floor_guard": {str(k): v["adopted"]
+                           for k, v in ps.floor_guard.items()}}
+    if rel.rank == 0:
+        got, errs, failed = {}, [], []
+
+        def drive():
+            try:
+                send_requests(rel, got, errs)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                failed.append(e)
+            finally:
+                rel.stop()
+        caller = threading.Thread(target=drive)
+        caller.start()
+        rel.run()
+        caller.join(60)
+        if failed:
+            raise failed[0]
+        out["got"], out["refused"] = got, errs
+        out["batches"] = got.pop("batches")
+    else:
+        out["followed"] = rel.run()
+    out["log"], out["errors"] = rel.log, rel.errors
+    out["calls"], out["steps"] = rel.calls, len(steps)
+    out["fallback"] = getattr(ff, "_kv_fallback_count", 0)
+    return out
+
+
+def send_requests(rel, got, errs):
+    """Rank 0's callers of the relay test: greedy requests from three
+    threads, one that fails its check, a sampled one, then three
+    requests to a BatchScheduler over the relay (its worker runs the
+    forwards)."""
+    import threading
+
+    import numpy as np
+    from flexflow_tpu_torch.serving import BatchScheduler
+
+    def send(i):
+        got[i] = rel.generate(gen_prompts(2, 3, seed=20 + i), 3, 4)
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    try:
+        rel.generate(gen_prompts(2, 4), GEN_SEQ, 1)
+    except ValueError as e:
+        errs.append(repr(e))
+    got["sampled"] = rel.generate(gen_prompts(4, 3, seed=30), 3, 4,
+                                  temperature=0.7, seed=5)
+    sched = BatchScheduler(rel, max_batch=GEN_BUCKET, max_delay_ms=1)
+    pos = np.arange(GEN_SEQ, dtype=np.int32)[None]
+
+    def ask(i):
+        got[f"infer{i}"] = sched.infer(
+            {"input_ids": gen_prompts(1, 4, seed=40 + i),
+             "position_ids": pos}, timeout=60)
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    sched.close()
+    got["batches"] = sched.metrics.batches
+
+
+@scenario
+def relay_death(payload):
+    """A rank that dies under the relay: the tiny GPT-2 dp over the world,
+    rank 1 exits (code 3) as its second relayed call starts; rank 0's
+    second call and its run loop must raise the coordinator's
+    RankFailure naming rank 1, within the heartbeats' bound, and its
+    third call must be refused."""
+    import os as _os
+    import threading
+    import time as _time
+
+    from flexflow_tpu_torch.serving import InferenceSession
+    from flexflow_tpu_torch.serving.world import WorldRelay
+    ff = _gen_model(["--only-data-parallel"])
+    sess = InferenceSession(ff, [GEN_BUCKET], decode_segment=0)
+    rel = WorldRelay(sess)
+    if rel.rank == 1:
+        real = sess.generate
+
+        def dying(*a, **kw):
+            if rel.calls == 2:
+                _os._exit(3)
+            return real(*a, **kw)
+        sess.generate = dying
+        rel.run()
+        return {}
+    out = {}
+
+    def drive():
+        out["first"] = rel.generate(gen_prompts(4, 3), 3, 2)
+        t0 = _time.monotonic()
+        try:
+            rel.generate(gen_prompts(4, 3), 3, 2)
+        except Exception as e:  # noqa: BLE001 — what surfaced is the result
+            out["second"] = (type(e).__name__, getattr(e, "rank", None))
+        out["detect_s"] = _time.monotonic() - t0
+        try:
+            rel.generate(gen_prompts(4, 3), 3, 2)
+        except RuntimeError as e:
+            out["third"] = str(e)
+    caller = threading.Thread(target=drive)
+    caller.start()
+    try:
+        rel.run()
+    except Exception as e:  # noqa: BLE001 — what surfaced is the result
+        out["run"] = (type(e).__name__, getattr(e, "rank", None))
+    caller.join(60)
+    return out
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     _main(sys.argv[1], sys.argv[2])

@@ -30,7 +30,7 @@ def _load_smoke():
 
 def test_chip_smoke_world_phase_on_the_cpu(monkeypatch, tmp_path):
     smoke = _load_smoke()
-    assert smoke.PHASES.index("world") == smoke.PHASES.index("seq") + 1
+    assert smoke.PHASES.index("world") == smoke.PHASES.index("genworld") + 1
     assert smoke.PHASES[-1] == "serve"
     monkeypatch.setattr(smoke, "free_cuda", lambda: None)
     monkeypatch.setattr(smoke, "WORLD_TIMEOUT_S", 90)

@@ -7,6 +7,7 @@ there is no card."""
 import ast
 import dataclasses
 import enum
+import glob
 import os
 import subprocess
 import sys
@@ -32,13 +33,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "tools", "torch_profile_bert.py")
-    yield os.path.join(ROOT, "tools", "torch_mixtral_train_ab.py")
-    yield os.path.join(ROOT, "tools", "torch_profile_dkv_phases.py")
-    yield os.path.join(ROOT, "tools", "torch_sass_counts.py")
-    yield os.path.join(ROOT, "tools", "torch_profile_fwd_phases.py")
-    yield os.path.join(ROOT, "tools", "torch_nmt_f32_sensitivity.py")
-    yield os.path.join(ROOT, "tools", "torch_dist_resilience_smoke.py")
+    # every port tool, those added later too
+    yield from sorted(glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
 
 
 def _forbidden(module: str) -> bool:
